@@ -1,0 +1,369 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
+
+  python3 chip_smoke.py
+
+Phases, each printing its lines:
+  1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
+  2. build every CUDA kernel of the port from the sources in this checkout
+     (one nvcc per source, all started together);
+  3. hold each kernel against its plain PyTorch version on the card, at odd
+     widths and at the main path's own shapes, and time kernel, plain
+     version, byte bound and (for the mix) torch.matmul;
+  4. a small run of the training segment on the card against the same run
+     on the CPU (plain versions), from one init, one batch stream, one W
+     stream;
+  5. the main path: olmo-1b at full width cut to 2 layers, 8 agents, the
+     final-merge schedule, through init_panel_state -> make_panel_segment
+     -> merged and local eval, with the kernels' launch counts read around
+     it; then, on the trained state, each piece of a round timed on its own
+     (the breakdown line);
+then a JSON line of per-kernel numbers, the card's line again and, last,
+the result line. It fails (non-zero exit, no result line) if there is no
+card, if a kernel does not build, launch or agree, or if any check fails.
+Imports torch, numpy and the port only.
+"""
+from __future__ import annotations
+
+import json
+import math
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+# NVIDIA H100 SXM published peaks (data sheet; dense, at the 700 W limit)
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS = 67e12
+
+M = 8                 # agents
+ROUNDS, H = 4, 2      # rounds, local steps per round
+BATCH, SEQ = 4, 512
+DATA_VOCAB = 1024     # token ids the synthetic streams draw (of 50304)
+REPS = 20             # timed launches per measurement
+
+
+def card_line():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def time_ms(torch, fn, reps=REPS, warmup=3):
+    """Median device time of ``fn`` over ``reps`` launches (CUDA events)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def check(cond, what):
+    if not cond:
+        raise AssertionError(what)
+
+
+def kernel_checks(torch, D_main):
+    """Phase 3: both kernels against their plain versions; returns the
+    per-kernel measurements at the main path's shapes."""
+    import numpy as np
+    from repro_torch.core.topology import random_matching
+    from repro_torch.kernels.gossip_mix import gossip_mix
+    from repro_torch.kernels.panel_reduce import panel_mean_consensus
+    from repro_torch.kernels.ref import (gossip_mix_ref,
+                                         panel_mean_consensus_ref)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rng = np.random.default_rng(0)
+    err = {"gossip_mix": 0.0, "panel_mean_consensus": 0.0}
+    sq_rel = 0.0
+    out = {}
+    for D in (333, 1000, D_main):
+        theta = torch.randn((M, D), generator=gen, device=dev)
+        W = torch.as_tensor(random_matching(M, 0.7, rng), dtype=torch.float32)
+        Wm = torch.cat([W, torch.full((1, M), 1.0 / M)]).to(dev)
+        for Wk in (W.to(dev), Wm):
+            got, ref = gossip_mix(Wk, theta), gossip_mix_ref(Wk, theta)
+            torch.cuda.synchronize()
+            e = float(torch.max(torch.abs(got - ref)))
+            check(torch.allclose(got, ref, atol=1e-6, rtol=1e-6),
+                  f"gossip_mix disagrees at n={Wk.shape[0]}, D={D}: {e}")
+            err["gossip_mix"] = max(err["gossip_mix"], e)
+            del got, ref
+        mean, sq = panel_mean_consensus(theta)
+        rmean, rsq = panel_mean_consensus_ref(theta)
+        torch.cuda.synchronize()
+        e = float(torch.max(torch.abs(mean - rmean)))
+        r = abs(float(sq) - float(rsq)) / abs(float(rsq))
+        check(torch.allclose(mean, rmean, atol=1e-6, rtol=1e-6),
+              f"panel_mean_consensus mean disagrees at D={D}: {e}")
+        check(r <= 1e-5, f"panel_mean_consensus sq disagrees at D={D}: "
+                         f"rel {r}")
+        err["panel_mean_consensus"] = max(
+            err["panel_mean_consensus"], e, abs(float(sq) - float(rsq)))
+        sq_rel = max(sq_rel, r)
+        print(f"check D={D}: gossip_mix max|err| {err['gossip_mix']:.3g}, "
+              f"panel_mean_consensus mean max|err| {e:.3g} sq rel {r:.3g}",
+              flush=True)
+        if D != D_main:
+            continue
+        # timings at the main path's shapes: the (m+1)-row folded mix of
+        # a communicating round, the reduce of an idle round / the merge
+        n = M + 1
+        mix_bytes = 4 * (n * M + M * D + n * D)
+        mix_ops = 2 * n * M * D
+        red_bytes = 4 * (M * D + D + 1)
+        red_ops = 5 * M * D
+        ms = time_ms(torch, lambda: gossip_mix(Wm, theta))
+        plain = time_ms(torch, lambda: gossip_mix_ref(Wm, theta))
+        lib = time_ms(torch, lambda: torch.matmul(Wm, theta))
+        out["gossip_mix"] = {
+            "ms": ms, "plain_ms": plain, "library_ms": lib,
+            "bytes": mix_bytes, "ops": mix_ops,
+            "bound_ms": 1e3 * max(mix_bytes / HBM_BYTES_PER_S,
+                                  mix_ops / FP32_FLOPS),
+            "bound_by": ("bytes" if mix_bytes / HBM_BYTES_PER_S
+                         >= mix_ops / FP32_FLOPS else "operations")}
+        ms = time_ms(torch, lambda: panel_mean_consensus(theta))
+        plain = time_ms(torch, lambda: panel_mean_consensus_ref(theta))
+        out["panel_mean_consensus"] = {
+            "ms": ms, "plain_ms": plain, "library_ms": None,
+            "bytes": red_bytes, "ops": red_ops,
+            "bound_ms": 1e3 * max(red_bytes / HBM_BYTES_PER_S,
+                                  red_ops / FP32_FLOPS),
+            "bound_by": ("bytes" if red_bytes / HBM_BYTES_PER_S
+                         >= red_ops / FP32_FLOPS else "operations")}
+        for name, r_ in out.items():
+            print(f"time {name} (m={M}, D={D}): kernel {r_['ms']:.4f} ms, "
+                  f"plain {r_['plain_ms']:.4f} ms, library "
+                  f"{r_['library_ms']} ms, bound {r_['bound_ms']:.4f} ms "
+                  f"({r_['bytes']} bytes), {100 * r_['bound_ms'] / r_['ms']:.1f}"
+                  f"% of the bound", flush=True)
+        del theta
+    out["gossip_mix"]["max_abs_err"] = err["gossip_mix"]
+    out["panel_mean_consensus"]["max_abs_err"] = err["panel_mean_consensus"]
+    out["panel_mean_consensus"]["sq_rel_err"] = sq_rel
+    torch.cuda.empty_cache()
+    return out
+
+
+def segment_inputs(cfg, m, rounds, seed=0, data_vocab=None, batch=BATCH,
+                   seq=SEQ):
+    """W stream and batches as the launcher draws them (schedule first)."""
+    import numpy as np
+    from repro_torch.core.schedule import make_schedule
+    from repro_torch.data.synthetic import SyntheticLM, make_agent_lm_batches
+    from repro_torch.launch.train import sample_segment_batches
+    sched = make_schedule("final_merge", m, rounds, prob=0.2, seed=seed)
+    lm = SyntheticLM(vocab=data_vocab or cfg.vocab_size, num_domains=8,
+                     seed=seed)
+    mixtures = lm.domain_mixtures(m, 0.1, seed=seed + 1)
+    rng_np = np.random.default_rng(seed + 2)
+    per_round = []
+    for t in range(rounds):
+        W = np.asarray(sched.mixing_matrix(t), np.float32)[None]
+        per_round.append((W, sample_segment_batches(
+            lm, mixtures, 1, H, batch, seq, rng_np)))
+    glob_mix = np.ones(lm.num_domains) / lm.num_domains
+    eval_batch = {k: v[0] for k, v in make_agent_lm_batches(
+        lm, [glob_mix], 2 * batch, seq, np.random.default_rng(999)).items()}
+    return per_round, eval_batch
+
+
+def small_parity(torch):
+    """Phase 4: the reduced olmo-1b segment on the card (kernels) against
+    the same segment on the CPU (plain versions)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core import dsgd
+    from repro_torch.launch.train import build_cpu_preset
+    from repro_torch.models import build_model
+    from repro_torch.optim import make_optimizer
+    cfg = build_cpu_preset(get_config("olmo-1b"), 4)
+    model = build_model(cfg)
+    per_round, _ = segment_inputs(cfg, 4, 3, batch=4, seq=32)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        opt = make_optimizer("adamw", 3e-3, total_steps=3 * H)
+        state, spec = dsgd.init_panel_state(model.init_params, opt, 4, 0,
+                                            device="cpu")
+        state = {"panel": {k: v.to(dev) for k, v in state["panel"].items()},
+                 "opt": opt.init({k: v.to(dev) for k, v in
+                                  state["panel"].items()}), "step": 0}
+        seg = dsgd.make_panel_segment(model.loss_fn, opt, H, spec)
+        rows = []
+        for W, b in per_round:
+            state, mets = seg(state, b, W)
+            rows.append([float(mets["loss"][0]), float(mets["consensus"][0])])
+        runs[dev] = np.asarray(rows)
+    # rtol 1e-3: cuBLAS and the CPU's GEMMs sum in other orders, and six
+    # AdamW steps amplify float32 rounding (elements with |g| near eps)
+    ok = np.allclose(runs["cuda"], runs["cpu"], rtol=1e-3, atol=1e-5)
+    print(f"small parity (reduced olmo-1b, 4 agents, 3 rounds): cuda "
+          f"{runs['cuda'].tolist()} cpu {runs['cpu'].tolist()}", flush=True)
+    check(ok, "the segment on the card disagrees with the CPU run")
+    check(runs["cuda"][-1, 1] == 0.0, "Xi after the final merge is not 0")
+
+
+def main_path(torch):
+    """Phase 5: olmo-1b at full width, 2 layers, 8 agents, final merge."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import dsgd
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.train import eval_local, eval_merged, to_device
+    from repro_torch.models import build_model
+    from repro_torch.optim import make_optimizer
+    dev = torch.device("cuda")
+    cfg = get_config("olmo-1b").replace(num_layers=2)
+    model = build_model(cfg)
+    opt = make_optimizer("adamw", 3e-3, weight_decay=5e-4,
+                         total_steps=ROUNDS * H)
+    per_round, eval_batch = segment_inputs(cfg, M, ROUNDS,
+                                           data_vocab=DATA_VOCAB)
+    eval_batch = to_device(eval_batch, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state, spec = dsgd.init_panel_state(model.init_params, opt, M, gen,
+                                        device=dev)
+    seg = dsgd.make_panel_segment(model.loss_fn, opt, H, spec)
+    print(f"main path: {cfg.name} d_model {cfg.d_model}, {cfg.num_layers} "
+          f"layers, vocab {cfg.vocab_size} padded to {cfg.padded_vocab}, "
+          f"D {spec.width} per agent, m {M}, H {H}, batch {BATCH}, seq "
+          f"{SEQ}", flush=True)
+    losses, xis = [], []
+    for t, (W, b) in enumerate(per_round):
+        t0 = time.perf_counter()
+        state, mets = seg(state, b, W)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        losses.append(float(mets["loss"][0]))
+        xis.append(float(mets["consensus"][0]))
+        kind = "idle" if (W[0] == torch.eye(M).numpy()).all() else "mix"
+        print(f"round {t} ({kind}): loss {losses[-1]:.6f} Xi {xis[-1]!r} "
+              f"{dt:.3f}s", flush=True)
+    merged = eval_merged(model.loss_fn, state["panel"], spec, eval_batch)
+    local = eval_local(model.loss_fn, state["panel"], spec, eval_batch)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"kernels {json.dumps(counts)}", flush=True)
+    print(f"eval: merged {merged!r} local {local!r}; peak device memory "
+          f"{peak} bytes", flush=True)
+    check(all(c > 0 for c in counts.values()),
+          f"a kernel of the main path never launched: {counts}")
+    check(xis[-1] == 0.0, f"Xi after the final merge is {xis[-1]!r}, not 0")
+    check(all(math.isfinite(x) for x in losses + [merged, local]),
+          "a loss is not finite")
+    check(abs(local - merged) <= 1e-6 * abs(merged),
+          f"local eval {local!r} != merged eval {merged!r}")
+    breakdown(torch, model, opt, state, spec, per_round[0])
+    return counts, spec.width
+
+
+def breakdown(torch, model, opt, state, spec, round_inputs, reps=3):
+    """Where a round's time goes at full width: each piece of the round
+    timed on its own (median of ``reps``, CUDA events) on the trained
+    state. Runs after the main path's counts were read."""
+    from repro_torch.core import dsgd
+    from repro_torch.core import panel as panel_mod
+    _, b = round_inputs
+    W_mix = torch.full((M, M), 1.0 / M).numpy()
+    dev = next(iter(state["panel"].values())).device
+    batch = {k: torch.as_tensor(v[0, 0]).to(dev) for k, v in b.items()}
+    pan = state["panel"]
+    holder = {}
+
+    def grads():
+        holder["g"] = dsgd.panel_grads(model.loss_fn, pan, spec, batch)[0]
+
+    parts = {"local_grads_8_agents": grads}
+    grads()
+    parts["adamw_update"] = lambda: opt.update(holder["g"], state["opt"], pan)
+    parts["grad_norm"] = lambda: panel_mod.panel_norm(holder["g"], True)
+    parts["mix_dense_mean"] = lambda: panel_mod.mix_dense_mean(pan, W_mix)
+    mixed, mean, _ = panel_mod.mix_dense_mean(pan, W_mix)
+    parts["consensus_from_mean"] = lambda: panel_mod.consensus_from_mean(
+        mixed, mean)
+    parts["consensus_distance"] = lambda: panel_mod.consensus_distance(pan)
+    out = {name: time_ms(torch, fn, reps=reps, warmup=1)
+           for name, fn in parts.items()}
+    per_step = (out["local_grads_8_agents"] + out["adamw_update"]
+                + out["grad_norm"])
+    out["round_estimate"] = (H * per_step + out["mix_dense_mean"]
+                             + out["consensus_from_mean"])
+    print("breakdown ms " + json.dumps(
+        {k: round(v, 3) for k, v in out.items()}), flush=True)
+    return out
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    import repro_torch  # noqa: F401  (sets TF32 off)
+    from repro_torch.configs import get_config
+    from repro_torch.core import panel as panel_mod
+    from repro_torch.kernels import build
+    from repro_torch.models import build_model
+    card = card_line()
+    print(f"card: {card}; torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}", flush=True)
+
+    t0 = time.perf_counter()
+    report = build.build(["gossip_mix", "panel_reduce"])
+    print(f"build: {time.perf_counter() - t0:.1f}s", flush=True)
+    for name, log in report.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  {name}: {line.strip()}")
+
+    cfg = get_config("olmo-1b").replace(num_layers=2)
+    D = panel_mod.make_spec(build_model(cfg).init_params(None, "meta"),
+                            rows=M).width
+    measured = kernel_checks(torch, D)
+    small_parity(torch)
+    counts, width = main_path(torch)
+    check(width == D, f"main-path D {width} != checked D {D}")
+
+    source = {"gossip_mix": ("src/repro_torch/kernels/csrc/gossip_mix.cu",
+                             "src/repro/kernels/gossip_mix.py:26"),
+              "panel_mean_consensus": (
+                  "src/repro_torch/kernels/csrc/panel_reduce.cu",
+                  "src/repro/kernels/panel_reduce.py:38")}
+    kernels = []
+    for name, (src, replaces) in source.items():
+        r = measured[name]
+        row = {"name": name, "route": "cuda", "source": src,
+               "replaces": replaces, "launches": counts[name],
+               "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+               "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+               "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+        if "sq_rel_err" in r:
+            row["sq_rel_err"] = r["sq_rel_err"]
+        kernels.append(row)
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

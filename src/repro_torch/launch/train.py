@@ -1,0 +1,186 @@
+"""Decentralized LM training launcher, main path (counterpart of
+``repro/launch/train.py``).
+
+Runs the paper's algorithm end to end on synthetic non-IID token streams:
+per-agent local AdamW/SGD steps, scheduled gossip, and the single final
+global merge, on the panel engine (core/dsgd.py). It draws the schedule's
+mixing matrices and the batches from the same numpy seeds, in the same
+order, as the reference launcher, so both see byte-identical W streams and
+batches.
+
+Runs on the CUDA card unless ``--device cpu`` is given. Example:
+  PYTHONPATH=src python -m repro_torch.launch.train --rounds 10 \
+      --segment 4 --agents 4 --local-steps 2 --batch 4 --seq 32 \
+      --schedule final_merge --device cpu
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.core import dsgd
+from repro_torch.core import merge as merge_mod
+from repro_torch.core import panel as panel_mod
+from repro_torch.core.schedule import make_schedule
+from repro_torch.data.synthetic import SyntheticLM, make_agent_lm_batches
+from repro_torch.device import resolve_device
+from repro_torch.models import build_model
+from repro_torch.optim import make_optimizer
+
+
+def build_cpu_preset(cfg, agents):
+    cfg = cfg.reduced(d_model=128, layers=2, vocab=256)
+    return cfg.replace(dist=dataclasses.replace(cfg.dist,
+                                                agents_per_pod=agents))
+
+
+def sample_segment_batches(lm, mixtures, rounds, local_steps, batch, seq,
+                           rng_np):
+    """(S, H, m, b, seq) numpy batches: H DISTINCT batches per round, drawn
+    in the reference launcher's order."""
+    per_round = []
+    for _ in range(rounds):
+        hs = [make_agent_lm_batches(lm, mixtures, batch, seq, rng_np)
+              for _ in range(local_steps)]
+        per_round.append({k: np.stack([h[k] for h in hs]) for k in hs[0]})
+    return {k: np.stack([r[k] for r in per_round]) for k in per_round[0]}
+
+
+def to_device(batch, device):
+    return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+
+
+@torch.no_grad()
+def eval_merged(loss_fn, panel, spec, batch):
+    """Loss of the uniformly merged model on ``batch`` (a float)."""
+    return float(merge_mod.counterfactual_eval_panel(
+        lambda p: loss_fn(p, batch, None)[0], panel, spec))
+
+
+@torch.no_grad()
+def eval_local(loss_fn, panel, spec, batch):
+    """Mean over agents of each agent's own loss on ``batch`` (a float)."""
+    losses = [loss_fn(panel_mod.agent_params(panel, spec, k), batch,
+                      None)[0] for k in range(spec.rows)]
+    return float(torch.mean(torch.stack(losses)))
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="olmo-1b")
+    ap.add_argument("--preset", default="cpu", choices=["cpu", "pod"])
+    ap.add_argument("--agents", type=int, default=8)
+    ap.add_argument("--rounds", type=int, default=30)
+    ap.add_argument("--local-steps", type=int, default=4)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--segment", type=int, default=8,
+                    help="rounds per segment call (the adaptive schedule "
+                         "forces 1: it needs per-round feedback)")
+    ap.add_argument("--schedule", default="final_merge",
+                    choices=["constant", "local", "windowed", "final_merge",
+                             "periodic", "adaptive"])
+    ap.add_argument("--window-start", type=int, default=0)
+    ap.add_argument("--window-end", type=int, default=0)
+    ap.add_argument("--optimizer", default="adamw")
+    ap.add_argument("--lr", type=float, default=3e-3)
+    ap.add_argument("--alpha", type=float, default=0.1,
+                    help="Dirichlet heterogeneity")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", default="results/torch_train")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the CUDA card; 'cpu' to "
+                         "run on the CPU)")
+    args = ap.parse_args(argv)
+    device = resolve_device(args.device)
+
+    cfg = get_config(args.arch)
+    if args.preset == "cpu":
+        cfg = build_cpu_preset(cfg, args.agents)
+    m = args.agents
+    model = build_model(cfg)
+    opt = make_optimizer(args.optimizer, args.lr, weight_decay=5e-4,
+                         total_steps=args.rounds * args.local_steps)
+    kw = {"prob": 0.2, "seed": args.seed, "merger": "uniform"}
+    if args.schedule == "windowed":
+        kw.update(start=args.window_start, end=args.window_end or
+                  args.rounds // 10)
+    sched = make_schedule(args.schedule, m, args.rounds, **kw)
+    seg_len = 1 if args.schedule == "adaptive" else max(1, args.segment)
+    tag = f"{args.arch}_{args.schedule}_a{args.alpha}"
+
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    state, spec = dsgd.init_panel_state(model.init_params, opt, m, gen,
+                                        device=device, merger=sched.merger)
+    print(f"{cfg.name}: {spec.width} parameters per agent, {m} agents, "
+          f"device {device}")
+    segment_fn = dsgd.make_panel_segment(model.loss_fn, opt,
+                                         args.local_steps, spec)
+
+    lm = SyntheticLM(vocab=cfg.vocab_size, num_domains=8, seed=args.seed)
+    mixtures = lm.domain_mixtures(m, args.alpha, seed=args.seed + 1)
+    rng_np = np.random.default_rng(args.seed + 2)
+    # a fixed GLOBAL eval batch (uniform domain mixture = global dist)
+    glob_mix = np.ones(lm.num_domains) / lm.num_domains
+    eval_batch = to_device({
+        k: v[0] for k, v in make_agent_lm_batches(
+            lm, [glob_mix], 2 * args.batch, args.seq,
+            np.random.default_rng(999)).items()}, device)
+
+    history = []
+    monitor = {}
+    comm_cost = 0.0
+    t = 0
+    t0 = time.time()
+    while t < args.rounds:
+        S = min(seg_len, args.rounds - t)
+        Ws, comm_after = [], []
+        for s in range(S):
+            W = sched.mixing_matrix(t + s, monitor)
+            comm_cost += sched.round_cost(W)
+            comm_after.append(comm_cost)
+            Ws.append(W)
+        batches = sample_segment_batches(lm, mixtures, S, args.local_steps,
+                                         args.batch, args.seq, rng_np)
+        seg_t0 = time.perf_counter()
+        state, mets = segment_fn(state, batches,
+                                 np.stack(Ws).astype(np.float32))
+        mets = {k: v.cpu().numpy() for k, v in mets.items()}  # one transfer
+        monitor = {"grad_norm": float(mets["grad_norm"][-1]),
+                   "consensus": float(mets["consensus"][-1])}
+        merged_l = eval_merged(model.loss_fn, state["panel"], spec,
+                               eval_batch)
+        local_l = eval_local(model.loss_fn, state["panel"], spec, eval_batch)
+        dt = time.perf_counter() - seg_t0
+        for s in range(S):
+            last = s == S - 1
+            history.append({"round": t + s,
+                            "train_loss": float(mets["loss"][s]),
+                            "consensus": float(mets["consensus"][s]),
+                            "grad_norm": float(mets["grad_norm"][s]),
+                            "merged_eval": merged_l if last else None,
+                            "local_eval": local_l if last else None,
+                            "comm_cost_P": comm_after[s]})
+        t += S
+        print(f"round {t - 1}: loss {mets['loss'][-1]:.4f} "
+              f"Xi {mets['consensus'][-1]:.6g} merged {merged_l:.4f} "
+              f"local {local_l:.4f} comm {comm_cost:.1f}P "
+              f"({dt:.2f}s for {S} rounds)", flush=True)
+    print(f"total {time.time() - t0:.1f}s")
+    os.makedirs(args.out, exist_ok=True)
+    path = os.path.join(args.out, tag + ".json")
+    with open(path, "w") as f:
+        json.dump({"args": vars(args), "history": history}, f, indent=1)
+    print(f"history: {path}")
+    return history
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,168 @@
+"""Optimizers over panels (SGD/momentum, AdamW) + LR schedules.
+
+Counterpart of ``repro/optim/optim.py``. The reference vmaps ``update`` over
+the agent axis of its (m, D) panels; every transform here is elementwise, so
+it runs on the whole panel at once. State and parameters are dicts of
+same-shaped tensors (a panel: ``{group: (m, D)}``).
+
+``update`` writes the new parameters and moments IN PLACE, a column chunk
+at a time, into the tensors it was given, and returns them: at full width a
+whole-panel expression would hold several (m, D) float32 temporaries (7.6 GB
+each for olmo-1b at m = 8). Chunking an elementwise expression changes no
+number.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Callable
+
+import torch
+
+# columns per in-place chunk of the elementwise update (per row-block of m
+# agents): bounds each temporary at m * _CHUNK float32 values
+_CHUNK = 1 << 22
+
+
+# ------------------------------------------------------------- LR schedules
+
+
+def _f32(x, device=None):
+    return torch.tensor(x, dtype=torch.float32, device=device)
+
+
+def constant_schedule(lr):
+    return lambda step, device=None: _f32(lr, device)
+
+
+def cosine_schedule(lr, total_steps, final_frac=0.1):
+    def f(step, device=None):
+        t = torch.clamp(_f32(step, device) / max(total_steps, 1), 0.0, 1.0)
+        cos = 0.5 * (1.0 + torch.cos(math.pi * t))
+        return lr * (final_frac + (1 - final_frac) * cos)
+    return f
+
+
+def warmup_cosine(lr, total_steps, warmup=100, final_frac=0.1):
+    cos = cosine_schedule(lr, total_steps, final_frac)
+
+    def f(step, device=None):
+        w = torch.clamp(_f32(step, device) / max(warmup, 1), max=1.0)
+        return w * cos(max(step - warmup, 0), device)
+    return f
+
+
+# ---------------------------------------------------------------- optimizers
+
+
+@dataclass(frozen=True)
+class Optimizer:
+    init: Callable  # params -> state
+    update: Callable  # (grads, state, params, step=None) -> (params, state)
+    name: str = ""
+    moment_keys: tuple = ()
+    # elementwise update math, (g, m, v, p, *, lr, bc1, bc2) -> (p, m, v):
+    # the one expression ``update`` applies (kept separate, as in the
+    # reference, for a fused kernel to share)
+    core: Callable = None
+    # (count, step=None, device=None) -> (lr, bc1, bc2) float32 scalars
+    hyper: Callable = None
+
+
+def _column_chunks(width: int):
+    for lo in range(0, width, _CHUNK):
+        yield slice(lo, min(lo + _CHUNK, width))
+
+
+def sgd(schedule, momentum: float = 0.0, weight_decay: float = 0.0,
+        nesterov: bool = False) -> Optimizer:
+    sched = schedule if callable(schedule) else constant_schedule(schedule)
+
+    def init(params):
+        if momentum == 0.0:
+            return {"step_count": 0}
+        return {"mu": {k: torch.zeros_like(v) for k, v in params.items()},
+                "step_count": 0}
+
+    def update(grads, state, params, step=None):
+        step = state["step_count"] if step is None else step
+        for k, p in params.items():
+            lr = sched(step, p.device)
+            for sl in _column_chunks(p.shape[-1]):
+                g = grads[k][..., sl]
+                if weight_decay:
+                    g = g + weight_decay * p[..., sl]
+                if momentum == 0.0:
+                    p[..., sl] = p[..., sl] - lr * g
+                    continue
+                mu = momentum * state["mu"][k][..., sl] + g
+                state["mu"][k][..., sl] = mu
+                upd = momentum * mu + g if nesterov else mu
+                p[..., sl] = p[..., sl] - lr * upd
+        new_state = {"step_count": state["step_count"] + 1}
+        if momentum:
+            new_state["mu"] = state["mu"]
+        return params, new_state
+
+    return Optimizer(init=init, update=update, name="sgd",
+                     moment_keys=("mu",) if momentum else ())
+
+
+def adamw_core(g, m, v, p, *, lr, bc1, bc2, b1=0.9, b2=0.999, eps=1e-8,
+               weight_decay: float = 0.0):
+    """Elementwise AdamW step: (grad, moments, param) -> (param, moments)."""
+    m = b1 * m + (1 - b1) * g
+    v = b2 * v + (1 - b2) * torch.square(g)
+    mhat = m / bc1
+    vhat = v / bc2
+    p = p - lr * (mhat / (torch.sqrt(vhat) + eps) + weight_decay * p)
+    return p, m, v
+
+
+def adamw(schedule, b1=0.9, b2=0.999, eps=1e-8,
+          weight_decay: float = 0.0) -> Optimizer:
+    sched = schedule if callable(schedule) else constant_schedule(schedule)
+
+    def init(params):
+        return {"m": {k: torch.zeros_like(v) for k, v in params.items()},
+                "v": {k: torch.zeros_like(v) for k, v in params.items()},
+                "step_count": 0}
+
+    def core(g, m, v, p, *, lr, bc1, bc2):
+        return adamw_core(g, m, v, p, lr=lr, bc1=bc1, bc2=bc2, b1=b1, b2=b2,
+                          eps=eps, weight_decay=weight_decay)
+
+    def hyper(count, step=None, device=None):
+        step = count if step is None else step + 1
+        lr = sched(step - 1, device)
+        c = _f32(count, device)
+        return (lr, 1 - torch.pow(_f32(b1, device), c),
+                1 - torch.pow(_f32(b2, device), c))
+
+    def update(grads, state, params, step=None):
+        count = state["step_count"] + 1
+        for k, p in params.items():
+            lr, bc1, bc2 = hyper(count, step, p.device)
+            m, v = state["m"][k], state["v"][k]
+            for sl in _column_chunks(p.shape[-1]):
+                p[..., sl], m[..., sl], v[..., sl] = core(
+                    grads[k][..., sl], m[..., sl], v[..., sl], p[..., sl],
+                    lr=lr, bc1=bc1, bc2=bc2)
+        return params, {"m": state["m"], "v": state["v"],
+                        "step_count": count}
+
+    return Optimizer(init=init, update=update, name="adamw",
+                     moment_keys=("m", "v"), core=core, hyper=hyper)
+
+
+def make_optimizer(name: str, lr, total_steps: int = 1000,
+                   weight_decay: float = 5e-4, momentum: float = 0.9,
+                   schedule: str = "constant") -> Optimizer:
+    sched = {"constant": constant_schedule(lr),
+             "cosine": cosine_schedule(lr, total_steps),
+             "warmup_cosine": warmup_cosine(lr, total_steps)}[schedule]
+    if name == "sgd":
+        return sgd(sched, momentum=momentum, weight_decay=weight_decay)
+    if name == "adamw":
+        return adamw(sched, weight_decay=weight_decay)
+    raise ValueError(name)

@@ -1,0 +1,28 @@
+"""Hand the JAX package's parameters over to the port.
+
+``jax.random`` draws cannot be reproduced in PyTorch, so a comparison of
+the two packages starts from the same numbers: the reference's parameter
+tree, turned into numpy arrays, becomes the port's tree and panel here.
+Leaves keep the reference's shapes (the stacked layer axis included) and
+go into the panel in ``jax.tree_util`` flatten order (sorted dict keys), so a
+reference panel loads bit for bit.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core import panel as panel_mod
+from repro_torch.device import resolve_device
+from repro_torch.utils.tree import tree_map
+
+
+def from_reference_params(tree, device=None):
+    """Agent-stacked reference tree of numpy arrays (every leaf (m, ...)) ->
+    (params, panel, spec): the port's tree of tensors on ``device``, its
+    {dtype: (m, D)} panel and the panel's spec."""
+    device = resolve_device(device)
+    params = tree_map(
+        lambda x: torch.from_numpy(np.array(x, copy=True)).to(device), tree)
+    spec = panel_mod.make_spec(params)
+    return params, panel_mod.to_panel(params, spec), spec

@@ -1,0 +1,151 @@
+"""The port's Hopper kernels on the card, against their plain versions.
+
+Every test needs a CUDA card and skips without one. The file imports
+neither JAX nor the JAX package, so it runs on a GPU host that has only
+PyTorch (the repository's conftest imports JAX, hence ``--noconftest``):
+
+  python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
+
+Tolerances: the mix is bit-identical to its plain version (both sum over k
+in the same order with separately rounded products; asserted with equality,
+so also within the stated 1e-6); the column mean likewise to 1e-6; the sum
+of squares to 1e-5 relative (another summation order).
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import dsgd, panel
+from repro_torch.core.schedule import make_schedule
+from repro_torch.core.topology import random_matching
+from repro_torch.data.synthetic import SyntheticLM
+from repro_torch.kernels import launch_counts, reset_launch_counts
+from repro_torch.kernels.gossip_mix import gossip_mix
+from repro_torch.kernels.panel_reduce import panel_mean_consensus
+from repro_torch.kernels.ref import gossip_mix_ref, panel_mean_consensus_ref
+
+pytestmark = pytest.mark.cuda
+TOL = 1e-6
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the GPU host)")
+    return torch.device("cuda")
+
+
+def _inputs(m, D, seed=0):
+    rng = np.random.default_rng(seed)
+    W = random_matching(m, 0.7, rng).astype(np.float32)
+    W = np.concatenate([W, np.full((1, m), 1.0 / m, np.float32)])
+    return W, rng.standard_normal((m, D)).astype(np.float32)
+
+
+@pytest.mark.parametrize("m,D", [(8, 333), (8, 1000), (4, 64), (16, 4096),
+                                 (32, 1001), (8, 1 << 20), (1, 5)])
+def test_kernels_match_plain(cuda, m, D):
+    W, theta = _inputs(m, D)
+    Wc, tc = torch.from_numpy(W).to(cuda), torch.from_numpy(theta).to(cuda)
+    for w in (Wc[:m].contiguous(), Wc):
+        got, ref = gossip_mix(w, tc), gossip_mix_ref(w, tc)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref)
+    mean, sq = panel_mean_consensus(tc)
+    rmean, rsq = panel_mean_consensus_ref(tc)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(mean, rmean, atol=TOL, rtol=TOL)
+    torch.testing.assert_close(sq, rsq, atol=0.0, rtol=1e-5)
+    # a contiguous view one float past an aligned address takes the
+    # one-column path of both kernels
+    base = torch.empty((m * D + 1,), dtype=torch.float32, device=cuda)
+    t1 = base[1:].view(m, D)
+    t1.copy_(tc)
+    assert torch.equal(gossip_mix(Wc, t1), gossip_mix_ref(Wc, t1))
+    torch.testing.assert_close(panel_mean_consensus(t1)[0], rmean,
+                               atol=TOL, rtol=TOL)
+
+
+def test_equal_weight_rows_are_bitwise_equal(cuda):
+    _, theta = _inputs(8, 4099)
+    W = torch.full((9, 8), 1.0 / 8, device=cuda)
+    out = gossip_mix(W, torch.from_numpy(theta).to(cuda))
+    assert torch.equal(out, out[:1].expand_as(out))
+
+
+def test_wrappers_raise_instead_of_falling_back(cuda):
+    t = torch.zeros((4, 16), device=cuda)
+    with pytest.raises(TypeError):
+        gossip_mix(torch.eye(4, device=cuda), t.to(torch.bfloat16))
+    with pytest.raises(ValueError):
+        gossip_mix(torch.eye(4, device=cuda), t.t())
+    with pytest.raises(ValueError):
+        gossip_mix(torch.eye(4), t)  # W on the CPU, theta on the card
+    with pytest.raises(ValueError):
+        panel_mean_consensus(torch.zeros((40, 16), device=cuda))
+    with pytest.raises(TypeError):
+        panel_mean_consensus(t.double())
+
+
+def test_launch_counts_only_on_the_card(cuda):
+    reset_launch_counts()
+    _, theta = _inputs(4, 100)
+    W = torch.eye(4)
+    gossip_mix(W, torch.from_numpy(theta))
+    panel_mean_consensus(torch.from_numpy(theta))
+    assert launch_counts() == {"gossip_mix": 0, "panel_mean_consensus": 0}
+    gossip_mix(W.to(cuda), torch.from_numpy(theta).to(cuda))
+    panel_mean_consensus(torch.from_numpy(theta).to(cuda))
+    assert launch_counts() == {"gossip_mix": 1, "panel_mean_consensus": 1}
+
+
+def test_panel_ops_match_cpu(cuda):
+    _, theta = _inputs(4, 2000, seed=3)
+    pan = {"float32": torch.from_numpy(theta)}
+    pan_c = {"float32": pan["float32"].to(cuda)}
+    W = random_matching(4, 0.9, np.random.default_rng(1)).astype(np.float32)
+    mixed, mean, _ = panel.mix_dense_mean(pan, W)
+    mixed_c, mean_c, _ = panel.mix_dense_mean(pan_c, W)
+    assert torch.equal(mixed_c["float32"].cpu(), mixed["float32"])
+    assert torch.equal(mean_c["float32"].cpu(), mean["float32"])
+    torch.testing.assert_close(panel.merged(pan_c)["float32"].cpu(),
+                               panel.merged(pan)["float32"], atol=TOL,
+                               rtol=TOL)
+    torch.testing.assert_close(panel.consensus_distance(pan_c).cpu(),
+                               panel.consensus_distance(pan), rtol=1e-5,
+                               atol=0.0)
+
+
+def test_segment_on_card_matches_cpu(cuda):
+    """The reduced olmo-1b segment on the card against the same segment on
+    the CPU: rtol 1e-3, since cuBLAS and the CPU's GEMMs sum in other
+    orders and AdamW amplifies float32 rounding."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import (build_cpu_preset,
+                                          sample_segment_batches)
+    from repro_torch.models import build_model
+    from repro_torch.optim import make_optimizer
+    m, rounds, H = 4, 4, 2
+    cfg = build_cpu_preset(get_config("olmo-1b"), m)
+    model = build_model(cfg)
+    sched = make_schedule("final_merge", m, rounds, prob=0.2, seed=0)
+    Ws = np.stack([sched.mixing_matrix(t)
+                   for t in range(rounds)]).astype(np.float32)
+    lm = SyntheticLM(vocab=cfg.vocab_size, seed=0)
+    batches = sample_segment_batches(
+        lm, lm.domain_mixtures(m, 0.1, seed=1), rounds, H, 4, 32,
+        np.random.default_rng(2))
+    mets = {}
+    for dev in ("cpu", cuda):
+        opt = make_optimizer("adamw", 3e-3, total_steps=rounds * H)
+        state, spec = dsgd.init_panel_state(model.init_params, opt, m, 0,
+                                            device="cpu")
+        pan = {k: v.to(dev) for k, v in state["panel"].items()}
+        state = {"panel": pan, "opt": opt.init(pan), "step": 0}
+        seg = dsgd.make_panel_segment(model.loss_fn, opt, H, spec)
+        _, out = seg(state, batches, Ws)
+        mets[str(dev)] = {k: v.cpu().numpy() for k, v in out.items()}
+    for k in mets["cpu"]:
+        np.testing.assert_allclose(mets["cuda"][k], mets["cpu"][k],
+                                   rtol=1e-3, atol=1e-5)
+    assert mets["cuda"]["consensus"][-1] == 0.0

@@ -1,0 +1,139 @@
+"""The port's training segment and launcher against the JAX package's, at
+the size of the repository's verify recipe (reduced olmo-1b, 4 agents, 10
+rounds, 2 local AdamW steps, batch 4, seq 32, final_merge).
+
+Both segments start from the same init (the reference's panel, handed
+over), see the same batches and the same W stream (drawn from the same
+seeds, in the launcher's order), and report per-round loss, grad norms and
+Xi; then both evaluate the merged model and the local models on the same
+global batch. Tolerance rtol 1e-4: 20 AdamW steps amplify float32 rounding
+(the two frameworks sum products in other orders). After the final merge
+Xi <= 1e-6 and local eval == merged eval to 1e-6 relative."""
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as ref_get_config
+from repro.core import dsgd as ref_dsgd
+from repro.core import merge as ref_merge
+from repro.core import panel as ref_panel
+from repro.launch.train import build_cpu_preset as ref_cpu_preset
+from repro.models import build_model as ref_build_model
+from repro.optim import make_optimizer as ref_make_optimizer
+from repro_torch.configs import get_config
+from repro_torch.core import dsgd
+from repro_torch.core.schedule import make_schedule
+from repro_torch.data.synthetic import SyntheticLM, make_agent_lm_batches
+from repro_torch.launch import train
+from repro_torch.models import build_model
+from repro_torch.optim import make_optimizer
+from repro_torch.weights import from_reference_params
+
+ROUNDS, M, H, B, SEQ = 10, 4, 2, 4, 32
+RTOL = 1e-4
+
+
+@pytest.fixture(scope="module")
+def runs():
+    ref_cfg = ref_cpu_preset(ref_get_config("olmo-1b"), M)
+    cfg = train.build_cpu_preset(get_config("olmo-1b"), M)
+    ref_model, model = ref_build_model(ref_cfg), build_model(cfg)
+    ref_opt = ref_make_optimizer("adamw", 3e-3, weight_decay=5e-4,
+                                 total_steps=ROUNDS * H)
+    opt = make_optimizer("adamw", 3e-3, weight_decay=5e-4,
+                         total_steps=ROUNDS * H)
+
+    ref_state, ref_spec = ref_dsgd.init_panel_state(
+        ref_model.init_params, ref_opt, M, jax.random.PRNGKey(0),
+        merger="uniform")
+    stacked = jax.tree.map(np.asarray,
+                           ref_panel.from_panel(ref_state["panel"], ref_spec))
+    params, _, _ = from_reference_params(stacked, device="cpu")
+    state, spec = dsgd.panel_state_from_params(params, opt)
+
+    sched = make_schedule("final_merge", M, ROUNDS, prob=0.2, seed=0)
+    lm = SyntheticLM(vocab=cfg.vocab_size, num_domains=8, seed=0)
+    mixtures = lm.domain_mixtures(M, 0.1, seed=1)
+    rng_np = np.random.default_rng(2)
+    Ws = np.stack([sched.mixing_matrix(t)
+                   for t in range(ROUNDS)]).astype(np.float32)
+    batches = train.sample_segment_batches(lm, mixtures, ROUNDS, H, B, SEQ,
+                                           rng_np)
+    glob_mix = np.ones(lm.num_domains) / lm.num_domains
+    eval_b = {k: v[0] for k, v in make_agent_lm_batches(
+        lm, [glob_mix], 2 * B, SEQ, np.random.default_rng(999)).items()}
+
+    ref_seg = ref_dsgd.make_panel_segment(ref_model.loss_fn, ref_opt, H,
+                                          ref_spec)
+    ref_state, ref_mets = ref_seg(ref_state,
+                                  jax.tree.map(jnp.asarray, batches),
+                                  jnp.asarray(Ws), jax.random.PRNGKey(1))
+    jb = jax.tree.map(jnp.asarray, eval_b)
+
+    def ref_loss(p):
+        return ref_model.loss_fn(p, jb, None)[0]
+
+    ref_merged = float(jax.jit(lambda pan: ref_merge.counterfactual_eval_panel(
+        ref_loss, pan, ref_spec))(ref_state["panel"]))
+    ref_local = float(jax.jit(lambda pan: jnp.mean(jax.vmap(ref_loss)(
+        ref_panel.from_panel(pan, ref_spec))))(ref_state["panel"]))
+
+    seg = dsgd.make_panel_segment(model.loss_fn, opt, H, spec)
+    state, mets = seg(state, batches, Ws)
+    tb = train.to_device(eval_b, "cpu")
+    merged = train.eval_merged(model.loss_fn, state["panel"], spec, tb)
+    local = train.eval_local(model.loss_fn, state["panel"], spec, tb)
+    return {"Ws": Ws,
+            "ref": ({k: np.asarray(v) for k, v in ref_mets.items()},
+                    ref_merged, ref_local),
+            "port": ({k: v.numpy() for k, v in mets.items()}, merged, local),
+            "state": state}
+
+
+@pytest.mark.parametrize("metric", ["loss", "grad_norm", "grad_norm_max",
+                                    "consensus"])
+def test_per_round_metrics_match(runs, metric):
+    ref, port = runs["ref"][0][metric], runs["port"][0][metric]
+    assert port.shape == (ROUNDS,)
+    np.testing.assert_allclose(port, ref, rtol=RTOL, atol=1e-6)
+
+
+def test_stream_has_idle_and_communicating_rounds(runs):
+    """The W stream drives both branches of the round (idle W == I and
+    the folded-mean mix), and the last round is the global merge."""
+    eye = np.eye(M, dtype=np.float32)
+    idle = [np.array_equal(W, eye) for W in runs["Ws"]]
+    assert any(idle) and not all(idle)
+    assert np.all(runs["Ws"][-1] == np.float32(1.0 / M))
+
+
+def test_evals_match_and_final_merge_collapses(runs):
+    _, ref_merged, ref_local = runs["ref"]
+    mets, merged, local = runs["port"]
+    np.testing.assert_allclose(merged, ref_merged, rtol=RTOL)
+    np.testing.assert_allclose(local, ref_local, rtol=RTOL)
+    assert mets["consensus"][-1] <= 1e-6
+    assert abs(local - merged) <= 1e-6 * abs(merged)
+    assert runs["state"]["step"] == ROUNDS * H
+    assert runs["state"]["opt"]["step_count"] == ROUNDS * H
+
+
+def test_launcher_runs_on_cpu_and_writes_history(tmp_path):
+    hist = train.main(["--rounds", "4", "--segment", "3", "--agents", "4",
+                       "--local-steps", "1", "--batch", "2", "--seq", "16",
+                       "--device", "cpu", "--out", str(tmp_path)])
+    path = tmp_path / "olmo-1b_final_merge_a0.1.json"
+    saved = json.loads(path.read_text())
+    assert saved["history"] == hist and len(hist) == 4
+    assert [h["round"] for h in hist] == [0, 1, 2, 3]
+    last = hist[-1]
+    assert last["consensus"] == 0.0
+    assert abs(last["local_eval"] - last["merged_eval"]) <= \
+        1e-6 * abs(last["merged_eval"])
+    assert hist[1]["merged_eval"] is None and hist[2]["merged_eval"] is not None
+    assert all(np.isfinite(h["train_loss"]) for h in hist)
+    assert torch.backends.cuda.matmul.allow_tf32 is False
