@@ -9,15 +9,22 @@ Phases, each printing its lines:
      (one nvcc per source, all started together);
   3. hold each kernel against its plain PyTorch version on the card, at odd
      widths and at the main path's own shapes, and time kernel, plain
-     version, byte bound and (for the mix) torch.matmul;
+     version, byte bound and the one PyTorch call that computes the same
+     function where there is one (torch.matmul for the mix,
+     torch.quantize_per_channel and dequantize() for round-to-nearest
+     int8);
   4. a small run of the training segment on the card against the same run
      on the CPU (plain versions), from one init, one batch stream, one W
-     stream;
+     stream: on the f32 wire, with topk and with a round-to-nearest int8_ef
+     (the card's and the CPU's generators give other uniforms);
   5. the main path: olmo-1b at full width cut to 2 layers, 8 agents, the
      final-merge schedule, through init_panel_state -> make_panel_segment
-     -> merged and local eval, with the kernels' launch counts read around
-     it; then, on the trained state, each piece of a round timed on its own
-     (the breakdown line);
+     -> merged and local eval on the f32 wire; then, on the trained state,
+     each piece of a round timed on its own (the breakdown line);
+  6. the wire paths: the same cell with --wire int8_ef (stochastic
+     rounding, error feedback) and with --wire topk;
+  each path of 5 and 6 with the launch counts set to 0 just before it and
+  read just after, and its peak device memory;
 then a JSON line of per-kernel numbers, the card's line again and, last,
 the result line. It fails (non-zero exit, no result line) if there is no
 card, if a kernel does not build, launch or agree, or if any check fails.
@@ -45,6 +52,13 @@ ROUNDS, H = 4, 2      # rounds, local steps per round
 BATCH, SEQ = 4, 512
 DATA_VOCAB = 1024     # token ids the synthetic streams draw (of 50304)
 REPS = 20             # timed launches per measurement
+
+# the paths driven at full width (f32 is the main path) and the kernels
+# each must launch
+PATH_KERNELS = {"f32": ("gossip_mix", "panel_mean_consensus"),
+                "int8_ef": ("quantize_int8", "dequantize_int8", "gossip_mix"),
+                "topk": ("sparsify_topk", "gossip_mix",
+                         "panel_mean_consensus")}
 
 
 def card_line():
@@ -77,8 +91,9 @@ def check(cond, what):
 
 
 def kernel_checks(torch, D_main):
-    """Phase 3: both kernels against their plain versions; returns the
-    per-kernel measurements at the main path's shapes."""
+    """Phase 3, main-path kernels: the mix and the reduce against their
+    plain versions; returns the per-kernel measurements at the main path's
+    shapes."""
     import numpy as np
     from repro_torch.core.topology import random_matching
     from repro_torch.kernels.gossip_mix import gossip_mix
@@ -130,22 +145,18 @@ def kernel_checks(torch, D_main):
         ms = time_ms(torch, lambda: gossip_mix(Wm, theta))
         plain = time_ms(torch, lambda: gossip_mix_ref(Wm, theta))
         lib = time_ms(torch, lambda: torch.matmul(Wm, theta))
+        b_ms, b_by = bound(mix_bytes, mix_ops)
         out["gossip_mix"] = {
             "ms": ms, "plain_ms": plain, "library_ms": lib,
-            "bytes": mix_bytes, "ops": mix_ops,
-            "bound_ms": 1e3 * max(mix_bytes / HBM_BYTES_PER_S,
-                                  mix_ops / FP32_FLOPS),
-            "bound_by": ("bytes" if mix_bytes / HBM_BYTES_PER_S
-                         >= mix_ops / FP32_FLOPS else "operations")}
+            "bytes": mix_bytes, "ops": mix_ops, "bound_ms": b_ms,
+            "bound_by": b_by}
         ms = time_ms(torch, lambda: panel_mean_consensus(theta))
         plain = time_ms(torch, lambda: panel_mean_consensus_ref(theta))
+        b_ms, b_by = bound(red_bytes, red_ops)
         out["panel_mean_consensus"] = {
             "ms": ms, "plain_ms": plain, "library_ms": None,
-            "bytes": red_bytes, "ops": red_ops,
-            "bound_ms": 1e3 * max(red_bytes / HBM_BYTES_PER_S,
-                                  red_ops / FP32_FLOPS),
-            "bound_by": ("bytes" if red_bytes / HBM_BYTES_PER_S
-                         >= red_ops / FP32_FLOPS else "operations")}
+            "bytes": red_bytes, "ops": red_ops, "bound_ms": b_ms,
+            "bound_by": b_by}
         for name, r_ in out.items():
             print(f"time {name} (m={M}, D={D}): kernel {r_['ms']:.4f} ms, "
                   f"plain {r_['plain_ms']:.4f} ms, library "
@@ -156,6 +167,131 @@ def kernel_checks(torch, D_main):
     out["gossip_mix"]["max_abs_err"] = err["gossip_mix"]
     out["panel_mean_consensus"]["max_abs_err"] = err["panel_mean_consensus"]
     out["panel_mean_consensus"]["sq_rel_err"] = sq_rel
+    torch.cuda.empty_cache()
+    return out
+
+
+def bound(nbytes, ops):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over the float32 peak."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def wire_panel(torch, D, gen):
+    """(x, u): an (M, D) float32 panel with an all-zero row (scale 1/127)
+    and a row on exact half steps (amax 127/64, so its scale is 1/64 and
+    x / s = k + 1/2: ties to even), and uniforms in [0, 1)."""
+    dev = torch.device("cuda")
+    x = torch.randn((M, D), generator=gen, device=dev)
+    x[1] = 0.0
+    k = torch.randint(-127, 127, (D,), generator=gen, device=dev)
+    x[2] = (k.to(torch.float32) + 0.5) / 64
+    x[2, 0] = 127 / 64
+    return x, torch.rand((M, D), generator=gen, device=dev)
+
+
+def library_quantize(torch, x, s):
+    """torch.quantize_per_channel on the card (round to nearest against the
+    per-row scale) -> (qtensor, None), or (None, reason) if it does not run
+    there."""
+    try:
+        zp = torch.zeros((x.shape[0],), dtype=torch.int64, device=x.device)
+        qt = torch.quantize_per_channel(x, s[:, 0], zp, 0, torch.qint8)
+        qt.dequantize()
+        torch.cuda.synchronize()
+        return qt, None
+    except (RuntimeError, NotImplementedError) as exc:
+        return None, f"{type(exc).__name__}: {str(exc).splitlines()[0]}"
+
+
+def wire_checks(torch, D_main):
+    """Phase 3, wire kernels: quantize (stochastic and round to nearest),
+    dequantize and sparsify against their plain versions (max |err| must
+    be 0); times at the main path's shape m = 8, D = D_main."""
+    from repro_torch.kernels.ref import (dequantize_int8_ref, int8_scale_ref,
+                                         quantize_int8_ref, sparsify_topk_ref,
+                                         topk_threshold_ref)
+    from repro_torch.kernels.wire_quant import (dequantize_int8,
+                                                quantize_int8, sparsify_topk)
+    from repro_torch.wire import CODECS
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    out = {}
+    for D in (333, 1000, 1001, D_main):
+        x, u = wire_panel(torch, D, gen)
+        s = int8_scale_ref(x)
+        check(float(s[1, 0]) == float(torch.tensor(1.0) / 127.0)
+              and float(s[2, 0]) == 1 / 64, "wire test panel scales")
+        q = {}
+        for name, uu in (("sr", u), ("rtn", None)):
+            q[name] = quantize_int8(x, s, uu)
+            ref = quantize_int8_ref(x, s, uu)
+            torch.cuda.synchronize()
+            check(torch.equal(q[name], ref),
+                  f"quantize_int8 ({name}) disagrees at D={D}: max|err| "
+                  f"{int(torch.max(torch.abs(q[name].int() - ref.int())))}")
+            del ref
+        check(bool(torch.all(q["rtn"][2, 1:] % 2 == 0)),
+              "round to nearest did not take the half steps to even")
+        y, ref = dequantize_int8(q["sr"], s), dequantize_int8_ref(q["sr"], s)
+        torch.cuda.synchronize()
+        check(torch.equal(y, ref), f"dequantize_int8 disagrees at D={D}")
+        del y, ref
+        t = (CODECS["topk"]._threshold(x) if D == D_main
+             else topk_threshold_ref(x, max(1, D // 8)))
+        y, ref = sparsify_topk(x, t), sparsify_topk_ref(x, t)
+        torch.cuda.synchronize()
+        check(torch.equal(y, ref), f"sparsify_topk disagrees at D={D}")
+        del y, ref
+        print(f"check D={D}: quantize_int8 (stochastic, round to nearest), "
+              f"dequantize_int8, sparsify_topk max|err| 0", flush=True)
+        if D != D_main:
+            continue
+        n, m4 = M * D, 4 * M  # elements; bytes of the (m, 1) scale column
+        cases = {
+            "quantize_int8": (lambda: quantize_int8(x, s, u),
+                              lambda: quantize_int8_ref(x, s, u),
+                              9 * n + m4, 5 * n),
+            "quantize_int8_rtn": (lambda: quantize_int8(x, s),
+                                  lambda: quantize_int8_ref(x, s),
+                                  5 * n + m4, 4 * n),
+            "dequantize_int8": (lambda: dequantize_int8(q["sr"], s),
+                                lambda: dequantize_int8_ref(q["sr"], s),
+                                5 * n + m4, 2 * n),
+            "sparsify_topk": (lambda: sparsify_topk(x, t),
+                              lambda: sparsify_topk_ref(x, t),
+                              8 * n + m4, 2 * n)}
+        for name, (fn, plain, nbytes, ops) in cases.items():
+            b_ms, b_by = bound(nbytes, ops)
+            out[name] = {"ms": time_ms(torch, fn),
+                         "plain_ms": time_ms(torch, plain),
+                         "library_ms": None, "bytes": nbytes, "ops": ops,
+                         "bound_ms": b_ms, "bound_by": b_by,
+                         "max_abs_err": 0.0}
+            torch.cuda.empty_cache()
+        qt, why = library_quantize(torch, x, s)
+        if qt is None:
+            print(f"library: torch.quantize_per_channel does not run on the "
+                  f"card ({why}); library_ms null for quantize_int8_rtn "
+                  f"and dequantize_int8", flush=True)
+        else:
+            out["quantize_int8_rtn"]["library_ms"] = time_ms(
+                torch, lambda: torch.quantize_per_channel(
+                    x, s[:, 0], torch.zeros((M,), dtype=torch.int64,
+                                            device=x.device), 0,
+                    torch.qint8))
+            out["dequantize_int8"]["library_ms"] = time_ms(
+                torch, lambda: qt.dequantize())
+        del qt
+        for name, r_ in out.items():
+            print(f"time {name} (m={M}, D={D}): kernel {r_['ms']:.4f} ms, "
+                  f"plain {r_['plain_ms']:.4f} ms, library "
+                  f"{r_['library_ms']} ms, bound {r_['bound_ms']:.4f} ms "
+                  f"({r_['bytes']} bytes), "
+                  f"{100 * r_['bound_ms'] / r_['ms']:.1f}% of the bound",
+                  flush=True)
+        del x, u, q, s, t
     torch.cuda.empty_cache()
     return out
 
@@ -185,41 +321,56 @@ def segment_inputs(cfg, m, rounds, seed=0, data_vocab=None, batch=BATCH,
 
 def small_parity(torch):
     """Phase 4: the reduced olmo-1b segment on the card (kernels) against
-    the same segment on the CPU (plain versions)."""
+    the same segment on the CPU (plain versions), on the f32 wire, with
+    topk and with a round-to-nearest int8_ef."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.core import dsgd
     from repro_torch.launch.train import build_cpu_preset
     from repro_torch.models import build_model
     from repro_torch.optim import make_optimizer
+    from repro_torch.wire import Int8Codec
     cfg = build_cpu_preset(get_config("olmo-1b"), 4)
     model = build_model(cfg)
     per_round, _ = segment_inputs(cfg, 4, 3, batch=4, seq=32)
-    runs = {}
-    for dev in ("cpu", "cuda"):
-        opt = make_optimizer("adamw", 3e-3, total_steps=3 * H)
-        state, spec = dsgd.init_panel_state(model.init_params, opt, 4, 0,
-                                            device="cpu")
-        state = {"panel": {k: v.to(dev) for k, v in state["panel"].items()},
-                 "opt": opt.init({k: v.to(dev) for k, v in
-                                  state["panel"].items()}), "step": 0}
-        seg = dsgd.make_panel_segment(model.loss_fn, opt, H, spec)
-        rows = []
-        for W, b in per_round:
-            state, mets = seg(state, b, W)
-            rows.append([float(mets["loss"][0]), float(mets["consensus"][0])])
-        runs[dev] = np.asarray(rows)
-    # rtol 1e-3: cuBLAS and the CPU's GEMMs sum in other orders, and six
-    # AdamW steps amplify float32 rounding (elements with |g| near eps)
-    ok = np.allclose(runs["cuda"], runs["cpu"], rtol=1e-3, atol=1e-5)
-    print(f"small parity (reduced olmo-1b, 4 agents, 3 rounds): cuda "
-          f"{runs['cuda'].tolist()} cpu {runs['cpu'].tolist()}", flush=True)
-    check(ok, "the segment on the card disagrees with the CPU run")
-    check(runs["cuda"][-1, 1] == 0.0, "Xi after the final merge is not 0")
+    wires = {"f32": None, "topk": "topk", "int8_ef round to nearest": {
+        "float32": Int8Codec("int8_ef", stochastic=False,
+                             error_feedback=True)}}
+    for label, wire in wires.items():
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            opt = make_optimizer("adamw", 3e-3, total_steps=3 * H)
+            state, spec = dsgd.init_panel_state(model.init_params, opt, 4, 0,
+                                                device="cpu", wire=wire)
+            state = {k: ({g: x.to(dev) for g, x in v.items()}
+                         if k in ("panel", "wire_err") else v)
+                     for k, v in state.items()}
+            state["opt"] = opt.init(state["panel"])
+            seg = dsgd.make_panel_segment(model.loss_fn, opt, H, spec)
+            rows = []
+            for W, b in per_round:
+                state, mets = seg(state, b, W)
+                rows.append([float(mets["loss"][0]),
+                             float(mets["consensus"][0])])
+            runs[dev] = np.asarray(rows)
+        # rtol 1e-3: cuBLAS and the CPU's GEMMs sum in other orders, and six
+        # AdamW steps amplify float32 rounding (elements with |g| near eps)
+        ok = np.allclose(runs["cuda"], runs["cpu"], rtol=1e-3, atol=1e-5)
+        print(f"small parity {label} (reduced olmo-1b, 4 agents, 3 rounds): "
+              f"cuda {runs['cuda'].tolist()} cpu {runs['cpu'].tolist()}",
+              flush=True)
+        check(ok, f"the {label} segment on the card disagrees with the CPU")
+        check(runs["cuda"][-1, 1] == 0.0,
+              f"{label}: Xi after the final merge is not 0")
 
 
-def main_path(torch):
-    """Phase 5: olmo-1b at full width, 2 layers, 8 agents, final merge."""
+def drive_path(torch, wire):
+    """Phases 5 and 6: olmo-1b at full width, 2 layers, 8 agents, the
+    final-merge schedule, through init_panel_state -> make_panel_segment
+    -> merged and local eval, with the gossip payload through ``wire``
+    (``f32`` is the main path, as the launcher's default). The launch
+    counts are set to 0 just before and read just after; the main path then
+    times each piece of a round (breakdown). Returns (counts, D)."""
     from repro_torch.configs import get_config
     from repro_torch.core import dsgd
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -239,40 +390,49 @@ def main_path(torch):
     reset_launch_counts()
     gen = torch.Generator(device=dev).manual_seed(0)
     state, spec = dsgd.init_panel_state(model.init_params, opt, M, gen,
-                                        device=dev)
+                                        device=dev, wire=wire)
     seg = dsgd.make_panel_segment(model.loss_fn, opt, H, spec)
-    print(f"main path: {cfg.name} d_model {cfg.d_model}, {cfg.num_layers} "
+    wire_gen = torch.Generator(device=dev).manual_seed(3)
+    print(f"path {wire}: {cfg.name} d_model {cfg.d_model}, {cfg.num_layers} "
           f"layers, vocab {cfg.vocab_size} padded to {cfg.padded_vocab}, "
           f"D {spec.width} per agent, m {M}, H {H}, batch {BATCH}, seq "
-          f"{SEQ}", flush=True)
+          f"{SEQ}; {spec.wire_payload_bytes} B/agent payload "
+          f"({spec.wire_total_bytes} B with scales/indices) per full-panel "
+          f"exchange", flush=True)
     losses, xis = [], []
     for t, (W, b) in enumerate(per_round):
         t0 = time.perf_counter()
-        state, mets = seg(state, b, W)
+        state, mets = seg(state, b, W, wire_gen)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         losses.append(float(mets["loss"][0]))
         xis.append(float(mets["consensus"][0]))
-        kind = "idle" if (W[0] == torch.eye(M).numpy()).all() else "mix"
-        print(f"round {t} ({kind}): loss {losses[-1]:.6f} Xi {xis[-1]!r} "
-              f"{dt:.3f}s", flush=True)
+        kind = ("idle" if (W[0] == torch.eye(M).numpy()).all() else
+                "merge" if (W[0] == 1.0 / M).all() else "mix")
+        print(f"round {t} ({kind}, {wire}): loss {losses[-1]:.6f} Xi "
+              f"{xis[-1]!r} {dt:.3f}s", flush=True)
     merged = eval_merged(model.loss_fn, state["panel"], spec, eval_batch)
     local = eval_local(model.loss_fn, state["panel"], spec, eval_batch)
     torch.cuda.synchronize()
     counts = launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    print(f"kernels {json.dumps(counts)}", flush=True)
-    print(f"eval: merged {merged!r} local {local!r}; peak device memory "
-          f"{peak} bytes", flush=True)
-    check(all(c > 0 for c in counts.values()),
-          f"a kernel of the main path never launched: {counts}")
-    check(xis[-1] == 0.0, f"Xi after the final merge is {xis[-1]!r}, not 0")
+    print(f"kernels ({wire}) {json.dumps(counts)}", flush=True)
+    print(f"eval ({wire}): merged {merged!r} local {local!r}; peak device "
+          f"memory {peak} bytes", flush=True)
+    check(all(counts[k] > 0 for k in PATH_KERNELS[wire]),
+          f"a kernel of the {wire} path never launched: {counts}")
+    check(xis[-1] == 0.0,
+          f"{wire}: Xi after the final merge is {xis[-1]!r}, not 0")
     check(all(math.isfinite(x) for x in losses + [merged, local]),
-          "a loss is not finite")
+          f"{wire}: a loss is not finite")
     check(abs(local - merged) <= 1e-6 * abs(merged),
-          f"local eval {local!r} != merged eval {merged!r}")
-    breakdown(torch, model, opt, state, spec, per_round[0])
-    return counts, spec.width
+          f"{wire}: local eval {local!r} != merged eval {merged!r}")
+    if wire == "f32":
+        breakdown(torch, model, opt, state, spec, per_round[0])
+    width = spec.width
+    del state, seg
+    torch.cuda.empty_cache()
+    return counts, width
 
 
 def breakdown(torch, model, opt, state, spec, round_inputs, reps=3):
@@ -319,14 +479,14 @@ def main():
     import repro_torch  # noqa: F401  (sets TF32 off)
     from repro_torch.configs import get_config
     from repro_torch.core import panel as panel_mod
-    from repro_torch.kernels import build
+    from repro_torch.kernels import SOURCES, build
     from repro_torch.models import build_model
     card = card_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
 
     t0 = time.perf_counter()
-    report = build.build(["gossip_mix", "panel_reduce"])
+    report = build.build(SOURCES)
     print(f"build: {time.perf_counter() - t0:.1f}s", flush=True)
     for name, log in report.items():
         for line in log.splitlines():
@@ -337,25 +497,40 @@ def main():
     D = panel_mod.make_spec(build_model(cfg).init_params(None, "meta"),
                             rows=M).width
     measured = kernel_checks(torch, D)
+    measured.update(wire_checks(torch, D))
     small_parity(torch)
-    counts, width = main_path(torch)
-    check(width == D, f"main-path D {width} != checked D {D}")
+    counts = {}
+    for wire in PATH_KERNELS:
+        counts[wire], width = drive_path(torch, wire)
+        check(width == D, f"{wire} path D {width} != checked D {D}")
 
-    source = {"gossip_mix": ("src/repro_torch/kernels/csrc/gossip_mix.cu",
-                             "src/repro/kernels/gossip_mix.py:26"),
-              "panel_mean_consensus": (
-                  "src/repro_torch/kernels/csrc/panel_reduce.cu",
-                  "src/repro/kernels/panel_reduce.py:38")}
+    # name: (source, the TPU kernel it replaces, the run its launches are
+    # read from)
+    kernels_of = {
+        "gossip_mix": ("gossip_mix.cu", "gossip_mix.py:26", counts["f32"]),
+        "panel_mean_consensus": ("panel_reduce.cu", "panel_reduce.py:38",
+                                 counts["f32"]),
+        "quantize_int8": ("wire_quant.cu", "wire_quant.py:63",
+                          counts["int8_ef"]),
+        "dequantize_int8": ("wire_quant.cu", "wire_quant.py:140",
+                            counts["int8_ef"]),
+        "sparsify_topk": ("wire_quant.cu", "wire_quant.py:404",
+                          counts["topk"])}
     kernels = []
-    for name, (src, replaces) in source.items():
+    for name, (src, replaces, run) in kernels_of.items():
         r = measured[name]
-        row = {"name": name, "route": "cuda", "source": src,
-               "replaces": replaces, "launches": counts[name],
-               "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-               "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-               "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+        row = {"name": name, "route": "cuda",
+               "source": f"src/repro_torch/kernels/csrc/{src}",
+               "replaces": f"src/repro/kernels/{replaces}",
+               "launches": run[name], "max_abs_err": r["max_abs_err"],
+               "ms": r["ms"], "plain_ms": r["plain_ms"],
+               "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+               "library_ms": r["library_ms"]}
         if "sq_rel_err" in r:
             row["sq_rel_err"] = r["sq_rel_err"]
+        if name == "quantize_int8":  # the round-to-nearest variant
+            row["rtn"] = {k: measured["quantize_int8_rtn"][k] for k in (
+                "ms", "plain_ms", "bound_ms", "library_ms")}
         kernels.append(row)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,24 +1,36 @@
-"""Decentralized training engine, panel state, main path (Algorithm 1 of the
-paper; counterpart of ``repro/core/dsgd.py``).
+"""Decentralized training engine, panel state (Algorithm 1 of the paper;
+counterpart of ``repro/core/dsgd.py``).
 
 Parameters and AdamW moments live as persistent per-dtype (m, D) panels
 (core/panel.py). One round is H local steps per agent — per-agent gradients
 of the agent's own batch, then the optimizer on the whole panel — followed
 by the round's communication:
 
-* W == I (an idle round): nothing travels; the consensus distance Xi comes
-  from the ``panel_mean_consensus`` kernel;
-* otherwise: one ``gossip_mix`` sweep with the 1^T/m row folded in
-  (panel.mix_dense_mean) and Xi from the folded mean. The final global
-  merge is this branch with the fully connected W: every row comes out
+* W == I (an idle round): nothing travels and no codec runs (no draw, the
+  error-feedback panel passes through untouched); the consensus distance
+  Xi comes from the ``panel_mean_consensus`` kernel;
+* a global round of a delta codec (topk; W == 1/m): ``merging.merge_panel``,
+  the full-bandwidth merge that also resets the mirror; Xi is 0;
+* otherwise: the payload is encoded by the spec's wire policy, then one
+  ``gossip_mix`` sweep with the 1^T/m row folded in (panel.mix_dense_mean)
+  and Xi from the folded mean. The final global merge of every other codec
+  is this branch with the fully connected W: every row comes out
   identical, so Xi is exactly 0.
 
-The slice covers the reference's main path: the float32 wire, the uniform
-merger, every agent live, no storage residency and no telemetry. The
-reference scans a whole segment on device under jit with donated buffers;
-here the segment is a Python loop over rounds, and the state's panels are
-updated in place (the counterpart of donation — the caller's state is
-consumed).
+Wire codecs of this slice: the float32 identity, ``int8`` and ``int8_ef``
+(per-row int8 with stochastic rounding; int8_ef carries the quantization
+residual) and ``topk`` (the sparse innovation over a mirror panel, mixed in
+damped delta form). An error-feedback codec keeps ``state["wire_err"]``,
+one float32 panel per dtype group. Stochastic rounding draws from a
+``torch.Generator`` (the segment's ``rng``), one draw per stochastic group
+per communicating round. The bf16 and int4 codecs, the non-uniform
+mergers, liveness, storage residency and telemetry are later slices.
+
+The reference scans a whole segment on device under jit with donated
+buffers; here the segment is a Python loop over rounds, the optimizer
+updates the state's panels in place, and each round's communication
+replaces the panels it consumed (the counterpart of donation — the
+caller's state is consumed).
 """
 from __future__ import annotations
 
@@ -28,9 +40,10 @@ from typing import Callable
 import numpy as np
 import torch
 
+from repro_torch import wire as wire_mod
 from repro_torch.core import panel as panel_mod
 from repro_torch.device import resolve_device
-from repro_torch.merging import get_merger
+from repro_torch.merging import get_merger, merge_panel
 from repro_torch.optim.optim import Optimizer
 from repro_torch.utils.tree import tree_unflatten
 
@@ -42,8 +55,25 @@ def _generator(rng, device):
         0 if rng is None else int(rng))
 
 
+def _wire_any(spec, flag: str) -> bool:
+    """Whether the codec of any dtype group sets ``flag`` (``needs_key``,
+    ``error_feedback`` or ``delta_mix``)."""
+    return any(getattr(wire_mod.get_codec(c), flag) for _, c in spec.wire)
+
+
+def _with_wire_state(state, spec):
+    """Add fresh error-feedback panels when the spec's wire policy has
+    error feedback: each dtype group's codec seeds its own (zeros for the
+    int8_ef residual, a copy of the panel for the topk mirror —
+    Codec.init_err)."""
+    if _wire_any(spec, "error_feedback"):
+        state["wire_err"] = {k: wire_mod.get_codec(spec.wire_of(k))
+                             .init_err(v) for k, v in state["panel"].items()}
+    return state
+
+
 def init_panel_state(init_params: Callable, optimizer: Optimizer, m: int,
-                     rng=None, *, device=None, merger=None):
+                     rng=None, *, device=None, merger=None, wire=None):
     """Panel train state: params AND optimizer moments as per-dtype (m, D)
     panels. Returns (state, spec).
 
@@ -51,28 +81,38 @@ def init_panel_state(init_params: Callable, optimizer: Optimizer, m: int,
     ``rng`` is a ``torch.Generator`` on ``device`` or an integer seed.
     Each agent draws its own init (the paper's main experiments). Rows are
     filled one agent at a time, so no agent-stacked copy of the parameters
-    is ever made."""
+    is ever made.
+
+    ``wire`` attaches a wire-codec policy to the spec (panel.with_wire: a
+    codec for every dtype group, or a per-group dict). An error-feedback
+    codec adds ``state["wire_err"]``: the zero-initialised residual for
+    int8_ef, the MIRROR (a copy of the initial panel) for topk."""
     device = resolve_device(device)
     gen = _generator(rng, device)
     first = init_params(gen, device)
     spec = dataclasses.replace(panel_mod.make_spec(first, rows=m),
                                merger=get_merger(merger or "uniform").name)
+    spec = panel_mod.with_wire(spec, wire)
     pan = {g: torch.empty((m, w), dtype=getattr(torch, g), device=device)
            for g, w in spec.groups}
     panel_mod.write_row(pan, spec, 0, first)
     for k in range(1, m):
         panel_mod.write_row(pan, spec, k, init_params(gen, device))
     del first
-    return {"panel": pan, "opt": optimizer.init(pan), "step": 0}, spec
+    return _with_wire_state(
+        {"panel": pan, "opt": optimizer.init(pan), "step": 0}, spec), spec
 
 
-def panel_state_from_params(params_stacked, optimizer: Optimizer):
+def panel_state_from_params(params_stacked, optimizer: Optimizer, *,
+                            wire=None):
     """Panel train state from an agent-stacked parameter tree (e.g. one
-    handed over from the reference by ``weights.from_reference_params``).
-    Returns (state, spec)."""
-    spec = panel_mod.make_spec(params_stacked)
+    handed over from the reference by ``weights.from_reference_params``),
+    with the wire policy of :func:`init_panel_state`. Returns (state,
+    spec)."""
+    spec = panel_mod.with_wire(panel_mod.make_spec(params_stacked), wire)
     pan = panel_mod.to_panel(params_stacked, spec)
-    return {"panel": pan, "opt": optimizer.init(pan), "step": 0}, spec
+    return _with_wire_state(
+        {"panel": pan, "opt": optimizer.init(pan), "step": 0}, spec), spec
 
 
 def panel_grads(loss_fn: Callable, panel, spec, batch):
@@ -108,25 +148,63 @@ def make_panel_segment(loss_fn: Callable, optimizer: Optimizer,
                        local_steps: int, spec):
     """Panel driver for one SCHEDULE SEGMENT of rounds.
 
-    segment(state, batches, Ws) -> (state, metrics) with
+    segment(state, batches, Ws, rng=None) -> (state, metrics) with
       batches leaves (S, H, m, b, ...) — H DISTINCT batches per round
                                          (numpy arrays or tensors),
       Ws (S, m, m)                     — the rounds' mixing matrices,
+      rng                              — a ``torch.Generator`` on the
+                                         panel's device or an integer seed;
+                                         required when the wire policy
+                                         rounds stochastically,
       metrics {name: (S,) float32 tensor} on the panel's device:
         ``loss`` and ``grad_norm``/``grad_norm_max`` (mean and max over the
         H local steps of the step's mean loss and of the norm of the
         agent-mean gradient) and ``consensus``, Xi after the round's
         communication.
 
-    The state's panels are updated in place."""
+    The wire policy comes from the spec (panel.with_wire,
+    init_panel_state(wire=...)). An error-feedback codec carries
+    ``state["wire_err"]`` through the segment; it changes only on
+    communicating rounds. A delta codec (topk) takes its global rounds
+    (W == 1/m) through ``merging.merge_panel`` and reports Xi = 0 there.
 
-    def segment(state, batches, Ws):
-        pan, opt = state["panel"], state["opt"]
-        x0 = next(iter(pan.values()))
+    The state is consumed (the counterpart of the reference's donated
+    buffers): the segment takes its panels out of the caller's dict, the
+    optimizer updates them in place, and each communicating round replaces
+    the parameter and error-feedback panels by its output, so the panels it
+    consumed are freed at once and no round holds more than one extra
+    panel of each."""
+    needs_key = _wire_any(spec, "needs_key")
+    needs_ef = _wire_any(spec, "error_feedback")
+    merger = get_merger(spec.merger)
+    # a delta (mirror) codec routes GLOBAL rounds through merge_panel even
+    # for the uniform operator: the one-shot merge is its full-bandwidth
+    # round and cannot stay inside the damped delta mix
+    plain_merge = (merger.name == "uniform"
+                   and not _wire_any(spec, "delta_mix"))
+
+    def segment(state, batches, Ws, rng=None):
+        x0 = next(iter(state["panel"].values()))
         m, dev = x0.shape[0], x0.device
+        del x0
+        if needs_ef and "wire_err" not in state:
+            raise ValueError(
+                "spec's wire policy uses error feedback but the state has "
+                "no 'wire_err' panel; build the state with "
+                "init_panel_state(..., wire=...)")
+        if needs_key and rng is None:
+            raise ValueError(
+                "spec's wire policy rounds stochastically and needs rng= "
+                "(a torch.Generator or an integer seed)")
+        gen = _generator(rng, dev) if needs_key else None
+        # the caller's dict gives up its panels, so a panel that a round
+        # replaces is freed at once
+        pan, opt = state.pop("panel"), state.pop("opt")
+        werr = state.pop("wire_err") if needs_ef else None
         Ws_host = np.asarray(torch.as_tensor(Ws, dtype=torch.float32).cpu())
         S = Ws_host.shape[0]
         eye = np.eye(m, dtype=np.float32)
+        full = np.full((m, m), 1.0 / m, dtype=np.float32)
         batches = {k: torch.as_tensor(v).to(dev) for k, v in batches.items()}
         mets = {"loss": [], "grad_norm": [], "grad_norm_max": [],
                 "consensus": []}
@@ -139,19 +217,30 @@ def make_panel_segment(loss_fn: Callable, optimizer: Optimizer,
                 losses.append(torch.mean(agent_losses))
                 gns.append(panel_mod.panel_norm(gpan, axis_mean=True))
                 del gpan
-            # W == I rounds communicate nothing: no sweep over the panel
-            if np.array_equal(Ws_host[s], eye):
+            W = Ws_host[s]
+            # W == I rounds communicate nothing: no sweep over the panel,
+            # no codec, no draw
+            if np.array_equal(W, eye):
                 mets["consensus"].append(panel_mod.consensus_distance(pan))
+            elif not plain_merge and np.array_equal(W, full):
+                pan, _, werr = merge_panel(pan, merger, spec=spec, gen=gen,
+                                           err=werr)
+                mets["consensus"].append(
+                    torch.zeros((), dtype=torch.float32, device=dev))
             else:
-                pan, mean, _ = panel_mod.mix_dense_mean(pan, Ws_host[s])
+                pan, mean, werr = panel_mod.mix_dense_mean(
+                    pan, W, spec=spec, gen=gen, err=werr)
                 mets["consensus"].append(
                     panel_mod.consensus_from_mean(pan, mean))
+                del mean
             gn = torch.stack(gns)
             mets["loss"].append(torch.mean(torch.stack(losses)))
             mets["grad_norm"].append(torch.mean(gn))
             mets["grad_norm_max"].append(torch.max(gn))
         out = {"panel": pan, "opt": opt,
                "step": state["step"] + S * local_steps}
+        if werr is not None:
+            out["wire_err"] = werr
         return out, {k: torch.stack(v) for k, v in mets.items()}
 
     return segment

@@ -1,5 +1,4 @@
-"""Flat-panel parameter engine, main-path subset (counterpart of
-``repro/core/panel.py``).
+"""Flat-panel parameter engine (counterpart of ``repro/core/panel.py``).
 
 An agent-stacked parameter tree (every leaf (m, ...)) is flattened into a
 *panel* ``{dtype_name: (m, D_dtype)}``, one row per agent and one column per
@@ -13,21 +12,30 @@ The communication ops run one fused op per dtype group:
 * :func:`mix_dense` / :func:`mix_dense_mean` — Theta <- W Theta through the
   ``gossip_mix`` kernel; ``mix_dense_mean`` appends a 1^T/m row to W so the
   column mean comes out of the same sweep.
-* :func:`merged` / :func:`consensus_distance` — the column mean and the
-  consensus distance Xi through the ``panel_mean_consensus`` kernel.
+* :func:`global_merge`, :func:`merged` / :func:`consensus_distance` — the
+  column mean and the consensus distance Xi through the
+  ``panel_mean_consensus`` kernel.
+
+The payload travels through the spec's wire policy (:func:`with_wire`,
+``repro_torch.wire``): the float32 identity, ``int8`` / ``int8_ef`` (per-row
+int8 with stochastic rounding, without and with the error-feedback
+residual; the ``quantize_int8`` / ``dequantize_int8`` kernels) and ``topk``
+(the sparse innovation over a mirror panel through ``sparsify_topk``, mixed
+in damped delta form). The bf16 and int4 codecs and the legacy
+``wire_dtype`` cast are later slices; so are sharded panels.
 
 On CUDA tensors the kernel wrappers launch the Hopper kernels; on CPU
-tensors they run the plain versions. This slice carries the float32 wire
-only (no codecs, no error feedback) and unsharded panels.
+tensors they run the plain versions.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch import wire as wire_mod
 from repro_torch.kernels.gossip_mix import gossip_mix
 from repro_torch.kernels.panel_reduce import panel_mean_consensus
 from repro_torch.utils.tree import tree_flatten, tree_unflatten
@@ -51,11 +59,35 @@ class PanelSpec:
     groups: Tuple[Tuple[str, int], ...]  # (dtype key, group width D_g)
     rows: int = 0                        # m (agents)
     merger: str = "uniform"              # merge operator of global rounds
+    wire: Tuple[Tuple[str, object], ...] = ()  # (dtype key, codec) policy
 
     @property
     def width(self) -> int:
         """Total scalars per agent across all dtype groups."""
         return sum(w for _, w in self.groups)
+
+    def wire_of(self, key: str):
+        """Codec (name or instance) of one dtype group; 'f32' when no
+        policy is set."""
+        for k, name in self.wire:
+            if k == key:
+                return name
+        return "f32"
+
+    @property
+    def wire_payload_bytes(self) -> int:
+        """Per-agent wire bytes of the transmitted VALUES alone for one
+        full-panel exchange (scale/index metadata excluded)."""
+        return sum(wire_mod.get_codec(self.wire_of(k)).payload_bytes(1, w, k)
+                   for k, w in self.groups)
+
+    @property
+    def wire_total_bytes(self) -> int:
+        """Per-agent wire bytes INCLUDING codec metadata (per-row int8
+        scales, packed top-k indices): what crosses the wire per
+        exchange."""
+        return sum(wire_mod.get_codec(self.wire_of(k)).total_bytes(1, w, k)
+                   for k, w in self.groups)
 
 
 def dtype_name(dtype: torch.dtype) -> str:
@@ -87,6 +119,29 @@ def make_spec(tree, rows: Optional[int] = None) -> PanelSpec:
         rows = int(leaves[0].shape[0]) if leaves else 0
     return PanelSpec(treedef=treedef, leaves=tuple(specs), groups=groups,
                      rows=rows)
+
+
+def with_wire(spec: PanelSpec, wire) -> PanelSpec:
+    """Attach a wire-codec policy to ``spec``.
+
+    ``wire`` is a codec (a ``repro_torch.wire.CODECS`` name or a codec
+    instance) for EVERY dtype group, or a {dtype-group: codec} dict (unlisted
+    groups fall back to 'f32'); None clears the policy. Codecs are resolved
+    here, so a typo fails when the spec is built."""
+    if wire is None:
+        return replace(spec, wire=())
+    if isinstance(wire, dict):
+        unknown = set(wire) - {k for k, _ in spec.groups}
+        if unknown:
+            raise ValueError(
+                f"wire policy names unknown dtype groups {sorted(unknown)}"
+                f"; this spec's groups: {[k for k, _ in spec.groups]}")
+        mapping = {k: wire.get(k, "f32") for k, _ in spec.groups}
+    else:
+        mapping = {k: wire for k, _ in spec.groups}
+    for name in mapping.values():
+        wire_mod.get_codec(name)
+    return replace(spec, wire=tuple(sorted(mapping.items())))
 
 
 def to_panel(tree, spec: PanelSpec):
@@ -136,52 +191,127 @@ def _device_w(W, device):
                            device=device).contiguous()
 
 
-def _mix_dense_groups(panel, W, *, with_mean):
-    """Shared body of mix_dense / mix_dense_mean: (mixed, means or None).
+def _codecs(panel, spec: Optional[PanelSpec]):
+    """Codec of each dtype group for one communication op: the spec's wire
+    policy, else the float32 identity (shared with merging.merge_panel)."""
+    if spec is not None and spec.wire:
+        return {k: wire_mod.get_codec(spec.wire_of(k)) for k in panel}
+    f32 = wire_mod.CODECS["f32"]
+    return {k: f32 for k in panel}
 
-    ``with_mean`` augments W with a 1^T/m row so the column mean comes out
-    of the SAME sweep; the first m output rows are the plain mix."""
+
+def _require_gen(codecs, gen):
+    """Stochastic codecs draw from ``gen``: the groups encode in sorted
+    order, one uniform draw each per communicating round (the counterpart
+    of the reference's per-group key fold)."""
+    names = sorted(k for k, c in codecs.items() if c.needs_key)
+    if names and gen is None:
+        raise ValueError(f"wire codecs for groups {names} use stochastic "
+                         "rounding and need a torch.Generator (gen=...)")
+
+
+def _idle_rows(W, m):
+    """Rows of W equal to the identity row: agents that send nothing."""
+    Wh = np.asarray(torch.as_tensor(W, dtype=torch.float32).cpu())
+    eye = np.eye(m, dtype=np.float32)
+    return [r for r in range(m) if np.array_equal(Wh[r], eye[r])]
+
+
+def _mix_dense_groups(panel, W, *, with_mean, spec=None, gen=None,
+                      err=None):
+    """Shared body of mix_dense / mix_dense_mean: (mixed, means or None,
+    new_err or None).
+
+    ``with_mean`` augments W with a 1^T/m row so the column mean of the
+    transmitted panel comes out of the SAME sweep; the first m output rows
+    are the plain mix. Each group's payload is encoded by its codec first;
+    a delta codec (topk) mixes as x + gamma (W - I) @ x̂ instead, with the
+    mean taken off the mixed panel. Under a lossy codec, idle ROWS of W
+    (rows equal to the identity row) get back their exact parameters and
+    error-feedback rows: nothing of theirs travelled."""
     x0 = next(iter(panel.values()))
     m = x0.shape[0]
     W32 = _device_w(W, x0.device)
     if W32.shape != (m, m):
         raise ValueError(f"W must be ({m}, {m}), got {tuple(W32.shape)}")
+    codecs = _codecs(panel, spec)
+    _require_gen(codecs, gen)
+    lossy = any(not isinstance(c, wire_mod.F32Codec)
+                for c in codecs.values())
+    idle = _idle_rows(W, m) if lossy else []
     Wop = (torch.cat([W32, torch.full((1, m), 1.0 / m, dtype=torch.float32,
                                       device=x0.device)])
            if with_mean else W32)
     mixed, means = {}, ({} if with_mean else None)
-    for k, x in panel.items():
+    new_err = {} if err is not None else None
+    for k in sorted(panel):
+        x = panel[k]
         if x.dtype != torch.float32:
             raise NotImplementedError(
                 f"group {k!r}: the port's mix carries float32 panels only "
                 "(the bf16 wire is a later slice)")
-        y = gossip_mix(Wop, x)
-        mixed[k] = y[:m]
-        if with_mean:
-            means[k] = y[m]
-    return mixed, means
+        e = err[k] if err is not None else None
+        xw, back, ne = codecs[k].encode(x, gen=gen, err=e)
+        if codecs[k].delta_mix:
+            # CHOCO's damped delta form x + gamma (W - I) @ x̂: a sparse
+            # payload mixed as W @ Q(x) would zero every coordinate that
+            # did not travel
+            Wd = W32 - torch.eye(m, dtype=torch.float32, device=x.device)
+            y = gossip_mix(Wd, xw).mul_(codecs[k].gamma).add_(x)
+            del xw
+            if with_mean:
+                means[k] = panel_mean_consensus(y)[0]
+        else:
+            y = gossip_mix(Wop, xw)
+            del xw
+            if with_mean:
+                means[k] = y[m]
+                y = y[:m]
+            y = back(y)
+        for r in idle:
+            y[r].copy_(x[r])
+            if e is not None:
+                ne[r].copy_(e[r])
+        mixed[k] = y
+        if err is not None:
+            new_err[k] = ne
+    return mixed, means, new_err
 
 
-def mix_dense(panel, W):
-    """Theta <- W Theta, one float32 sweep per dtype group."""
-    return _mix_dense_groups(panel, W, with_mean=False)[0]
+def mix_dense(panel, W, *, spec: Optional[PanelSpec] = None, gen=None,
+              err=None):
+    """Theta <- W Theta, one float32 sweep per dtype group, the payload
+    compressed by the spec's wire policy (stochastic codecs draw from
+    ``gen``). Passing ``err=`` (the error-feedback panel, {group: (m, D_g)
+    f32}) switches the return to ``(mixed, new_err)``."""
+    mixed, _, new_err = _mix_dense_groups(panel, W, with_mean=False,
+                                          spec=spec, gen=gen, err=err)
+    return mixed if err is None else (mixed, new_err)
 
 
-def mix_dense_mean(panel, W):
+def mix_dense_mean(panel, W, *, spec: Optional[PanelSpec] = None, gen=None,
+                   err=None):
     """mix_dense with the consensus mean folded into the mixing sweep.
 
-    Returns ``(mixed, mean, None)`` — mean is {group: (D_g,) f32}, the
+    Returns ``(mixed, mean, new_err)`` — mean is {group: (D_g,) f32}, the
     column mean of the mixed panel (exact for doubly-stochastic W), ready
-    for :func:`consensus_from_mean`. The third slot (the reference's
-    error-feedback residual) is None on the float32 wire."""
-    mixed, means = _mix_dense_groups(panel, W, with_mean=True)
-    return mixed, means, None
+    for :func:`consensus_from_mean`; new_err is None when ``err`` is."""
+    return _mix_dense_groups(panel, W, with_mean=True, spec=spec, gen=gen,
+                             err=err)
 
 
-def global_merge(panel):
-    """theta_k <- mean_l theta_l for every row."""
-    return {k: mu[None].expand(x.shape).to(x.dtype).contiguous()
-            for (k, x), mu in zip(panel.items(), merged(panel).values())}
+def global_merge(panel, *, spec: Optional[PanelSpec] = None, gen=None,
+                 err=None):
+    """theta_k <- mean_l theta_l for every row, the payload through the
+    spec's wire policy — EXCEPT delta (mirror) codecs: the global merge is
+    their full-bandwidth round, so the exact panel travels and the mirror
+    resets to the merged state. It is ``merging.merge_panel`` under the
+    uniform operator. ``err=`` switches the return to ``(mixed,
+    new_err)``."""
+    from repro_torch.merging import merge_panel  # merging imports panel
+    mixed, _, new_err = merge_panel(panel, "uniform", spec=spec, gen=gen,
+                                    err=err)
+    return mixed if err is None else (mixed, new_err)
 
 
 def merged(panel):

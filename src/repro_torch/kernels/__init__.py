@@ -1,15 +1,24 @@
 """Hopper kernels of the port and their plain PyTorch versions.
 
 ``gossip_mix.gossip_mix`` and ``panel_reduce.panel_mean_consensus`` are the
-wrappers the panel engine calls; ``ref`` holds the plain versions;
-``build`` compiles the CUDA sources under ``csrc/`` at first use.
+wrappers the panel engine calls; ``wire_quant`` holds the wire codecs'
+kernels (int8 quantize and dequantize, the top-k sparsifier); ``ref`` holds
+the plain versions; ``build`` compiles the CUDA sources under ``csrc/`` at
+first use.
 """
 from repro_torch.kernels import gossip_mix as _gossip_mix
 from repro_torch.kernels import panel_reduce as _panel_reduce
+from repro_torch.kernels import wire_quant as _wire_quant
 
 # every kernel of the port: name -> its wrapper (each carries ``launches``)
 KERNELS = {"gossip_mix": _gossip_mix.gossip_mix,
-           "panel_mean_consensus": _panel_reduce.panel_mean_consensus}
+           "panel_mean_consensus": _panel_reduce.panel_mean_consensus,
+           "quantize_int8": _wire_quant.quantize_int8,
+           "dequantize_int8": _wire_quant.dequantize_int8,
+           "sparsify_topk": _wire_quant.sparsify_topk}
+
+# the CUDA sources (csrc/<name>.cu) the kernels are built from
+SOURCES = ("gossip_mix", "panel_reduce", "wire_quant")
 
 
 def reset_launch_counts():

@@ -33,6 +33,7 @@ from repro_torch.data.synthetic import SyntheticLM, make_agent_lm_batches
 from repro_torch.device import resolve_device
 from repro_torch.models import build_model
 from repro_torch.optim import make_optimizer
+from repro_torch.wire import CODECS
 
 
 def build_cpu_preset(cfg, agents):
@@ -89,6 +90,11 @@ def main(argv=None):
                              "periodic", "adaptive"])
     ap.add_argument("--window-start", type=int, default=0)
     ap.add_argument("--window-end", type=int, default=0)
+    ap.add_argument("--wire", default="f32", choices=sorted(CODECS),
+                    help="gossip wire codec (repro_torch.wire): int8 sends "
+                         "1 byte per scalar with stochastic rounding, "
+                         "int8_ef adds error feedback, topk sends the top "
+                         "1/8 of the innovation over a mirror")
     ap.add_argument("--optimizer", default="adamw")
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--alpha", type=float, default=0.1,
@@ -118,9 +124,15 @@ def main(argv=None):
 
     gen = torch.Generator(device=device).manual_seed(args.seed)
     state, spec = dsgd.init_panel_state(model.init_params, opt, m, gen,
-                                        device=device, merger=sched.merger)
+                                        device=device, merger=sched.merger,
+                                        wire=args.wire)
     print(f"{cfg.name}: {spec.width} parameters per agent, {m} agents, "
           f"device {device}")
+    print(f"wire codec {args.wire}: {spec.wire_payload_bytes} B/agent "
+          f"payload ({spec.wire_total_bytes} B with scales/indices) per "
+          f"full-panel exchange; merge operator {spec.merger}")
+    # the stochastic codecs' draws: one generator for the whole run
+    wire_gen = torch.Generator(device=device).manual_seed(args.seed + 3)
     segment_fn = dsgd.make_panel_segment(model.loss_fn, opt,
                                          args.local_steps, spec)
 
@@ -151,7 +163,7 @@ def main(argv=None):
                                          args.batch, args.seq, rng_np)
         seg_t0 = time.perf_counter()
         state, mets = segment_fn(state, batches,
-                                 np.stack(Ws).astype(np.float32))
+                                 np.stack(Ws).astype(np.float32), wire_gen)
         mets = {k: v.cpu().numpy() for k, v in mets.items()}  # one transfer
         monitor = {"grad_norm": float(mets["grad_norm"][-1]),
                    "consensus": float(mets["consensus"][-1])}

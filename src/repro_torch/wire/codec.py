@@ -1,0 +1,306 @@
+"""Wire codecs: compression of the gossip payload (counterpart of
+``repro/wire/codec.py``).
+
+A codec decides how one dtype group's (m, D_g) panel travels during a
+communication op without changing the state's storage dtype:
+
+    xw, back, new_err = codec.encode(x, gen=..., err=..., u=...)
+
+``xw`` is what the mix runs on — the receive-side view of the payload (for
+``int8`` the dequantized panel, quantization error baked in; for ``topk``
+the updated MIRROR panel). ``back`` restores the storage dtype after the
+mix. ``new_err`` is the updated error-feedback state (``err`` passed through
+untouched by residual-free codecs; a codec with error feedback REQUIRES
+``err`` and raises without it).
+
+Codecs of this slice (``CODECS``):
+
+* ``f32`` — identity: the payload is the storage dtype as it is.
+* ``int8`` — per-row (per-agent) symmetric scales amax/127 and stochastic
+  rounding, 4x fewer payload bytes than f32. ``int8_ef`` adds error
+  feedback: the residual (x + e) - dequant(quant(x + e)) is returned for the
+  caller to carry (the engine keeps it as ``state["wire_err"]``).
+* ``topk`` — per-row top-k-by-magnitude sparse payload over a MIRROR panel
+  x̂ (CHOCO style): ``err`` carries the mirror, seeded with a copy of the
+  panel (``init_err``); each encode transmits the k largest entries of the
+  innovation x - x̂ and returns the updated mirror x̂ + q as both the mixing
+  view and ``new_err``. ``delta_mix`` tells the engine to mix as
+  ``x + gamma (W - I) @ x̂``.
+
+``bf16``, ``int4`` and ``int4_ef`` are the reference's other codecs; they
+come with a later slice of the port, and asking for one raises.
+
+Randomness: stochastic rounding draws ``u`` uniform in [0, 1) with
+``torch.rand`` from a ``torch.Generator`` (``gen=``) on the panel's device,
+or takes the uniforms explicitly (``u=``, how the tests feed the
+reference's draws). The port cannot reproduce ``jax.random``'s bits.
+
+Kernels: quantize, dequantize and sparsify go through the wrappers of
+``kernels/wire_quant.py`` (the CUDA kernels on the card, the plain versions
+on the CPU); the per-row scale and the top-k threshold are plain torch row
+passes, as the reference leaves them to XLA.
+
+Byte accounting: ``payload_bytes`` counts the transmitted values alone,
+``total_bytes`` adds scales and packed top-k indices, and ``wire_payload``
+builds the actual wire arrays, whose ``.nbytes`` the tests hold against
+both.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels.ref import int8_scale_ref, topk_threshold_ref
+from repro_torch.kernels.wire_quant import (dequantize_int8, quantize_int8,
+                                            sparsify_topk)
+
+
+def _identity(y):
+    return y
+
+
+def _storage_back(dtype):
+    """back() for a codec whose mixing view is float32: restore storage."""
+    if dtype == torch.float32:
+        return _identity
+    return lambda y: y.to(dtype)
+
+
+def _itemsize(dtype) -> int:
+    """Bytes per scalar of a torch dtype or a dtype name ('float32')."""
+    if isinstance(dtype, str):
+        dtype = getattr(torch, dtype)
+    return torch.empty((), dtype=dtype).element_size()
+
+
+class Codec:
+    """Shared codec contract defaults (see the module docstring)."""
+
+    needs_key = False
+    error_feedback = False
+    delta_mix = False
+
+    def payload_bytes(self, rows: int, width: int, dtype) -> int:
+        """Wire bytes of the transmitted VALUES alone for (rows, width)."""
+        raise NotImplementedError
+
+    def total_bytes(self, rows: int, width: int, dtype) -> int:
+        """payload_bytes plus scale/index metadata — the full wire cost."""
+        return self.payload_bytes(rows, width, dtype)
+
+    def residual(self, x, err):
+        """Effective error-feedback residual given the carried ``err``."""
+        return err
+
+    def init_err(self, x):
+        """Initial error-feedback state of one (m, D_g) group panel: zeros
+        for residual codecs (the topk mirror starts as a copy)."""
+        return torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+
+    def wire_payload(self, x, gen=None, err=None, u=None):
+        """The actual wire arrays: (payload list, metadata list)."""
+        raise NotImplementedError
+
+
+class F32Codec(Codec):
+    """Identity codec: the payload is the storage dtype, untouched."""
+    name = "f32"
+
+    def payload_bytes(self, rows: int, width: int, dtype) -> int:
+        return rows * width * _itemsize(dtype)
+
+    def encode(self, x, gen=None, err=None, u=None):
+        return x, _identity, err
+
+    def wire_payload(self, x, gen=None, err=None, u=None):
+        return [x], []
+
+
+def _require_err(codec, err):
+    if codec.error_feedback and err is None:
+        raise ValueError(
+            f"codec '{codec.name}' uses error feedback and needs the "
+            "residual panel (err=...); a silent fallback would drop the "
+            "accumulated correction")
+
+
+class Int8Codec(Codec):
+    """int8 payload with per-row scales; optionally stochastic rounding
+    (drawn from ``gen`` or given as ``u``) and error feedback (the residual
+    returned to the caller)."""
+    SCALE_BYTES = 4  # one float32 scale per agent row
+
+    def __init__(self, name: str, stochastic: bool = True,
+                 error_feedback: bool = False):
+        self.name = name
+        self.stochastic = stochastic
+        self.error_feedback = error_feedback
+
+    @property
+    def needs_key(self) -> bool:
+        return self.stochastic
+
+    def payload_bytes(self, rows: int, width: int, dtype) -> int:
+        return rows * width
+
+    def total_bytes(self, rows: int, width: int, dtype) -> int:
+        return rows * (width + self.SCALE_BYTES)
+
+    def _carry_in(self, x, err):
+        """The transmitted quantity: x, plus the residual for the EF
+        variant (a new tensor then; a residual-free codec ignores err)."""
+        x32 = x.to(torch.float32)
+        if self.error_feedback and err is not None:
+            x32 = x32 + err
+        return x32
+
+    def _quantize(self, x32, gen, u):
+        if self.stochastic and u is None:
+            if gen is None:
+                raise ValueError(
+                    f"codec '{self.name}' uses stochastic rounding and needs "
+                    "a torch.Generator (gen=...) or the uniforms (u=...)")
+            u = torch.rand(x32.shape, generator=gen, dtype=torch.float32,
+                           device=x32.device)
+        scale = int8_scale_ref(x32)
+        q = quantize_int8(x32, scale, u if self.stochastic else None)
+        return q, scale
+
+    def encode(self, x, gen=None, err=None, u=None):
+        _require_err(self, err)
+        x32 = self._carry_in(x, err)
+        q, scale = self._quantize(x32, gen, u)
+        xhat32 = dequantize_int8(q, scale)
+        del q
+        if self.error_feedback and err is not None:
+            # x32 is the fresh x + err: it becomes the new residual in place
+            new_err = x32.sub_(xhat32)
+        else:
+            new_err = err
+        if x.dtype == torch.float32:
+            return xhat32, _identity, new_err
+        return xhat32.to(x.dtype), _identity, new_err
+
+    def wire_payload(self, x, gen=None, err=None, u=None):
+        _require_err(self, err)  # as encode: never measure Q(x) when the
+        # run would transmit Q(x + e)
+        q, scale = self._quantize(self._carry_in(x, err), gen, u)
+        return [q], [scale]
+
+
+class TopKCodec(Codec):
+    """Top-k sparsified payload over a mirror panel (see the module
+    docstring). ``err`` carries the mirror x̂; encode transmits the k
+    largest-magnitude entries of the innovation x - x̂ and returns the
+    updated mirror as both the mixing view and the new carried state."""
+
+    error_feedback = True   # the mirror IS the feedback state
+    delta_mix = True
+    needs_key = False       # values travel exact (float32)
+    VALUE_BYTES = 4
+
+    # panels wider than this estimate the selection threshold from a
+    # strided column subsample instead of an exact full-row top-k (the
+    # reference's THRESH_SAMPLE, same arithmetic)
+    THRESH_SAMPLE = 1 << 16
+
+    def __init__(self, name: str = "topk", density: float = 0.125,
+                 gamma: float = None, thresh_sample: int = THRESH_SAMPLE):
+        if not 0.0 < density <= 1.0:
+            raise ValueError(f"density must be in (0, 1], got {density}")
+        self.name = name
+        self.density = density
+        self.thresh_sample = thresh_sample
+        # CHOCO consensus step: the delta mix is damped in proportion to
+        # the compression (gamma = 1 diverges at density 1/8)
+        self.gamma = min(1.0, 2.0 * density) if gamma is None else gamma
+
+    def k_of(self, width: int) -> int:
+        return max(1, int(width * self.density))
+
+    def idx_bytes(self, width: int) -> int:
+        """Bytes per packed index: the fewest whole bytes that address
+        ``width`` columns."""
+        bits = max(1, math.ceil(math.log2(max(width, 2))))
+        return (bits + 7) // 8
+
+    def payload_bytes(self, rows: int, width: int, dtype) -> int:
+        return rows * self.k_of(width) * self.VALUE_BYTES
+
+    def total_bytes(self, rows: int, width: int, dtype) -> int:
+        return (self.payload_bytes(rows, width, dtype)
+                + rows * self.k_of(width) * self.idx_bytes(width))
+
+    def residual(self, x, err):
+        """The effective EF residual is the untransmitted innovation."""
+        if err is None:
+            return None
+        return x.to(torch.float32) - err
+
+    def init_err(self, x):
+        # a COPY of the panel: one full-precision sync at init, sparse
+        # innovations from then on
+        return x.to(torch.float32).clone()
+
+    def _threshold(self, innov):
+        """Per-row selection threshold: the exact k-th largest |innov| up
+        to ``thresh_sample`` columns, a strided-subsample estimate beyond."""
+        D = innov.shape[1]
+        if D <= self.thresh_sample:
+            return topk_threshold_ref(innov, self.k_of(D))
+        stride = D // self.thresh_sample
+        sub = torch.abs(innov[:, ::stride].to(torch.float32))
+        kk = max(1, int(sub.shape[1] * self.density))
+        return torch.topk(sub, kk, dim=1).values[:, -1:].contiguous()
+
+    def encode(self, x, gen=None, err=None, u=None):
+        _require_err(self, err)
+        innov = x.to(torch.float32) - err
+        q = sparsify_topk(innov, self._threshold(innov))
+        del innov
+        mirror = q.add_(err)  # err + q, into the sparsified panel's memory
+        return mirror, _storage_back(x.dtype), mirror
+
+    def wire_payload(self, x, gen=None, err=None, u=None):
+        _require_err(self, err)  # the innovation is defined against the
+        # mirror only
+        innov = x.to(torch.float32) - err
+        D = x.shape[1]
+        k = self.k_of(D)
+        idx = torch.topk(torch.abs(innov), k, dim=1).indices
+        vals = torch.gather(innov, 1, idx)
+        nb = self.idx_bytes(D)
+        shifts = torch.arange(nb, device=x.device) * 8
+        packed_idx = ((idx[..., None] >> shifts) & 0xFF).to(torch.uint8)
+        return [vals.to(torch.float32)], [packed_idx]
+
+
+CODECS = {
+    "f32": F32Codec(),
+    "int8": Int8Codec("int8", stochastic=True, error_feedback=False),
+    "int8_ef": Int8Codec("int8_ef", stochastic=True, error_feedback=True),
+    "topk": TopKCodec("topk", density=0.125),
+}
+
+# the reference's codecs that a later slice of the port brings
+LATER = {"bf16": "the bf16 wire slice",
+         "int4": "the int4 slice (quantize, dequantize, pack, unpack)",
+         "int4_ef": "the int4 slice (quantize, dequantize, pack, unpack)"}
+
+
+def get_codec(name):
+    """Resolve a codec by registry name; codec instances pass through (so
+    tests can build e.g. a round-to-nearest Int8Codec)."""
+    if not isinstance(name, str) and hasattr(name, "encode"):
+        return name
+    try:
+        return CODECS[name]
+    except KeyError:
+        if name in LATER:
+            raise ValueError(
+                f"wire codec {name!r} is not in the port yet; it comes with "
+                f"{LATER[name]}. The port has {sorted(CODECS)}") from None
+        raise ValueError(
+            f"unknown wire codec {name!r}; known: {sorted(CODECS)}"
+        ) from None

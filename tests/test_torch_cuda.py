@@ -9,7 +9,9 @@ PyTorch (the repository's conftest imports JAX, hence ``--noconftest``):
 Tolerances: the mix is bit-identical to its plain version (both sum over k
 in the same order with separately rounded products; asserted with equality,
 so also within the stated 1e-6); the column mean likewise to 1e-6; the sum
-of squares to 1e-5 relative (another summation order).
+of squares to 1e-5 relative (another summation order). The wire kernels
+(quantize, dequantize, sparsify) are bit-identical to their plain versions
+(max |err| 0). Segments on the card are held against the CPU at rtol 1e-3.
 """
 import numpy as np
 import pytest
@@ -22,7 +24,13 @@ from repro_torch.data.synthetic import SyntheticLM
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels.gossip_mix import gossip_mix
 from repro_torch.kernels.panel_reduce import panel_mean_consensus
-from repro_torch.kernels.ref import gossip_mix_ref, panel_mean_consensus_ref
+from repro_torch.kernels.ref import (dequantize_int8_ref, gossip_mix_ref,
+                                     int8_scale_ref, panel_mean_consensus_ref,
+                                     quantize_int8_ref, sparsify_topk_ref,
+                                     topk_threshold_ref)
+from repro_torch.kernels.wire_quant import (dequantize_int8, quantize_int8,
+                                            sparsify_topk)
+from repro_torch.wire import Int8Codec
 
 pytestmark = pytest.mark.cuda
 TOL = 1e-6
@@ -87,16 +95,83 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
         panel_mean_consensus(t.double())
 
 
+def _launch_all(W, theta):
+    s = int8_scale_ref(theta)
+    q = quantize_int8(theta, s)
+    return (gossip_mix(W, theta), panel_mean_consensus(theta),
+            dequantize_int8(q, s), sparsify_topk(theta, s))
+
+
 def test_launch_counts_only_on_the_card(cuda):
     reset_launch_counts()
     _, theta = _inputs(4, 100)
     W = torch.eye(4)
-    gossip_mix(W, torch.from_numpy(theta))
-    panel_mean_consensus(torch.from_numpy(theta))
-    assert launch_counts() == {"gossip_mix": 0, "panel_mean_consensus": 0}
-    gossip_mix(W.to(cuda), torch.from_numpy(theta).to(cuda))
-    panel_mean_consensus(torch.from_numpy(theta).to(cuda))
-    assert launch_counts() == {"gossip_mix": 1, "panel_mean_consensus": 1}
+    _launch_all(W, torch.from_numpy(theta))
+    assert set(launch_counts().values()) == {0}
+    _launch_all(W.to(cuda), torch.from_numpy(theta).to(cuda))
+    assert launch_counts() == {
+        "gossip_mix": 1, "panel_mean_consensus": 1, "quantize_int8": 1,
+        "dequantize_int8": 1, "sparsify_topk": 1}
+
+
+def _quant_inputs(m, D, seed=0):
+    """x (m, D) with an all-zero row and a row on exact half steps (amax
+    127/64, so the scale is 1/64 and x / s = k + 1/2), and uniforms."""
+    rng = np.random.default_rng(seed + D)
+    x = rng.standard_normal((m, D)).astype(np.float32)
+    x[1] = 0.0
+    x[2] = ((rng.integers(-127, 127, size=D) + 0.5) / 64).astype(np.float32)
+    x[2, 0] = 127 / 64
+    return x, rng.random((m, D), dtype=np.float32)
+
+
+@pytest.mark.parametrize("m,D", [(8, 333), (8, 1000), (8, 1001), (4, 64),
+                                 (3, 4096), (16, 1 << 20), (3, 5)])
+def test_wire_kernels_match_plain(cuda, m, D):
+    x, u = _quant_inputs(m, D)
+    xc, uc = torch.from_numpy(x).to(cuda), torch.from_numpy(u).to(cuda)
+    s = int8_scale_ref(xc)
+    for uu in (None, uc):
+        q, rq = quantize_int8(xc, s, uu), quantize_int8_ref(xc, s, uu)
+        torch.cuda.synchronize()
+        assert torch.equal(q, rq)
+        y = dequantize_int8(q, s)
+        torch.cuda.synchronize()
+        assert torch.equal(y, dequantize_int8_ref(q, s))
+    t = topk_threshold_ref(xc, max(1, D // 8))
+    assert t.is_contiguous()
+    assert torch.equal(sparsify_topk(xc, t), sparsify_topk_ref(xc, t))
+    # views one element past an aligned address take the one-column path
+    base = torch.empty((m * D + 1,), dtype=torch.float32, device=cuda)
+    x1 = base[1:].view(m, D)
+    x1.copy_(xc)
+    assert torch.equal(quantize_int8(x1, s, uc), quantize_int8_ref(xc, s, uc))
+    assert torch.equal(sparsify_topk(x1, t), sparsify_topk_ref(xc, t))
+    qb = torch.empty((m * D + 1,), dtype=torch.int8, device=cuda)[1:]
+    q1 = qb.view(m, D)
+    q1.copy_(quantize_int8_ref(xc, s))
+    assert torch.equal(dequantize_int8(q1, s), dequantize_int8_ref(q1, s))
+
+
+def test_wire_wrappers_raise_instead_of_falling_back(cuda):
+    x = torch.zeros((4, 16), device=cuda)
+    s = torch.ones((4, 1), device=cuda)
+    with pytest.raises(TypeError):
+        quantize_int8(x.double(), s)
+    with pytest.raises(TypeError):
+        dequantize_int8(x, s)  # float32 where int8 is taken
+    with pytest.raises(TypeError):
+        sparsify_topk(x.to(torch.bfloat16), s)
+    with pytest.raises(ValueError):
+        quantize_int8(x.t(), s)  # not contiguous
+    with pytest.raises(ValueError):
+        sparsify_topk(torch.zeros((16, 8), device=cuda)[:, :4], s)
+    with pytest.raises(ValueError):
+        quantize_int8(x, s.cpu())  # scale on the CPU, x on the card
+    with pytest.raises(ValueError):
+        quantize_int8(x, s, torch.rand((4, 16)))  # u on the CPU
+    with pytest.raises(ValueError):
+        sparsify_topk(x, torch.ones((4,), device=cuda))  # not (m, 1)
 
 
 def test_panel_ops_match_cpu(cuda):
@@ -116,10 +191,13 @@ def test_panel_ops_match_cpu(cuda):
                                atol=0.0)
 
 
-def test_segment_on_card_matches_cpu(cuda):
+@pytest.mark.parametrize("wire", [None, "topk", "int8_ef_rtn"])
+def test_segment_on_card_matches_cpu(cuda, wire):
     """The reduced olmo-1b segment on the card against the same segment on
-    the CPU: rtol 1e-3, since cuBLAS and the CPU's GEMMs sum in other
-    orders and AdamW amplifies float32 rounding."""
+    the CPU, on the f32 wire and on the two wire paths (the round-to-nearest
+    int8_ef: the generators of the card and the CPU give other uniforms):
+    rtol 1e-3, since cuBLAS and the CPU's GEMMs sum in other orders and
+    AdamW amplifies float32 rounding."""
     from repro_torch.configs import get_config
     from repro_torch.launch.train import (build_cpu_preset,
                                           sample_segment_batches)
@@ -135,13 +213,19 @@ def test_segment_on_card_matches_cpu(cuda):
     batches = sample_segment_batches(
         lm, lm.domain_mixtures(m, 0.1, seed=1), rounds, H, 4, 32,
         np.random.default_rng(2))
+    if wire == "int8_ef_rtn":
+        wire = {"float32": Int8Codec("int8_ef", stochastic=False,
+                                     error_feedback=True)}
     mets = {}
     for dev in ("cpu", cuda):
         opt = make_optimizer("adamw", 3e-3, total_steps=rounds * H)
         state, spec = dsgd.init_panel_state(model.init_params, opt, m, 0,
-                                            device="cpu")
+                                            device="cpu", wire=wire)
         pan = {k: v.to(dev) for k, v in state["panel"].items()}
-        state = {"panel": pan, "opt": opt.init(pan), "step": 0}
+        state = {"panel": pan, "opt": opt.init(pan), "step": 0,
+                 **({"wire_err": {k: v.to(dev) for k, v in
+                                  state["wire_err"].items()}}
+                    if "wire_err" in state else {})}
         seg = dsgd.make_panel_segment(model.loss_fn, opt, H, spec)
         _, out = seg(state, batches, Ws)
         mets[str(dev)] = {k: v.cpu().numpy() for k, v in out.items()}
