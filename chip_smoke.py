@@ -10,19 +10,19 @@ Phases, each printing its lines:
   3. hold each kernel against its plain PyTorch version on the card, at odd
      widths and at the main path's own shapes, and time kernel, plain
      version, byte bound and the one PyTorch call that computes the same
-     function where there is one (torch.matmul for the mix,
-     torch.quantize_per_channel and dequantize() for round-to-nearest
-     int8);
+     function where there is one (torch.matmul for the mix, on float32 and
+     on bf16 operands, torch.quantize_per_channel and dequantize() for
+     round-to-nearest int8; none for grouped int4 or nibble packing);
   4. a small run of the training segment on the card against the same run
      on the CPU (plain versions), from one init, one batch stream, one W
-     stream: on the f32 wire, with topk and with a round-to-nearest int8_ef
-     (the card's and the CPU's generators give other uniforms);
+     stream: on the f32 wire, with topk, bf16 and a round-to-nearest int8_ef
+     and int4_ef (the card's and the CPU's generators give other uniforms);
   5. the main path: olmo-1b at full width cut to 2 layers, 8 agents, the
      final-merge schedule, through init_panel_state -> make_panel_segment
      -> merged and local eval on the f32 wire; then, on the trained state,
      each piece of a round timed on its own (the breakdown line);
-  6. the wire paths: the same cell with --wire int8_ef (stochastic
-     rounding, error feedback) and with --wire topk;
+  6. the wire paths: the same cell with --wire int8_ef and int4_ef
+     (stochastic rounding, error feedback), topk and bf16;
   each path of 5 and 6 with the launch counts set to 0 just before it and
   read just after, and its peak device memory;
 then a JSON line of per-kernel numbers, the card's line again and, last,
@@ -58,7 +58,10 @@ REPS = 20             # timed launches per measurement
 PATH_KERNELS = {"f32": ("gossip_mix", "panel_mean_consensus"),
                 "int8_ef": ("quantize_int8", "dequantize_int8", "gossip_mix"),
                 "topk": ("sparsify_topk", "gossip_mix",
-                         "panel_mean_consensus")}
+                         "panel_mean_consensus"),
+                "int4_ef": ("quantize_int4", "pack_int4", "unpack_int4",
+                            "dequantize_int4", "gossip_mix"),
+                "bf16": ("gossip_mix_bf16", "panel_mean_consensus")}
 
 
 def card_line():
@@ -103,21 +106,25 @@ def kernel_checks(torch, D_main):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     rng = np.random.default_rng(0)
-    err = {"gossip_mix": 0.0, "panel_mean_consensus": 0.0}
+    err = {"gossip_mix": 0.0, "gossip_mix_bf16": 0.0,
+           "panel_mean_consensus": 0.0}
     sq_rel = 0.0
     out = {}
-    for D in (333, 1000, D_main):
+    for D in (333, 1000, 1001, D_main):
         theta = torch.randn((M, D), generator=gen, device=dev)
+        theta16 = theta.to(torch.bfloat16)
         W = torch.as_tensor(random_matching(M, 0.7, rng), dtype=torch.float32)
         Wm = torch.cat([W, torch.full((1, M), 1.0 / M)]).to(dev)
         for Wk in (W.to(dev), Wm):
-            got, ref = gossip_mix(Wk, theta), gossip_mix_ref(Wk, theta)
-            torch.cuda.synchronize()
-            e = float(torch.max(torch.abs(got - ref)))
-            check(torch.allclose(got, ref, atol=1e-6, rtol=1e-6),
-                  f"gossip_mix disagrees at n={Wk.shape[0]}, D={D}: {e}")
-            err["gossip_mix"] = max(err["gossip_mix"], e)
-            del got, ref
+            for name, t in (("gossip_mix", theta),
+                            ("gossip_mix_bf16", theta16)):
+                got, ref = gossip_mix(Wk, t), gossip_mix_ref(Wk, t)
+                torch.cuda.synchronize()
+                e = float(torch.max(torch.abs(got - ref)))
+                check(got.dtype == torch.float32 and torch.equal(got, ref),
+                      f"{name} disagrees at n={Wk.shape[0]}, D={D}: {e}")
+                err[name] = max(err[name], e)
+                del got, ref
         mean, sq = panel_mean_consensus(theta)
         rmean, rsq = panel_mean_consensus_ref(theta)
         torch.cuda.synchronize()
@@ -130,7 +137,8 @@ def kernel_checks(torch, D_main):
         err["panel_mean_consensus"] = max(
             err["panel_mean_consensus"], e, abs(float(sq) - float(rsq)))
         sq_rel = max(sq_rel, r)
-        print(f"check D={D}: gossip_mix max|err| {err['gossip_mix']:.3g}, "
+        print(f"check D={D}: gossip_mix max|err| {err['gossip_mix']:.3g} "
+              f"(bf16 theta {err['gossip_mix_bf16']:.3g}), "
               f"panel_mean_consensus mean max|err| {e:.3g} sq rel {r:.3g}",
               flush=True)
         if D != D_main:
@@ -150,6 +158,17 @@ def kernel_checks(torch, D_main):
             "ms": ms, "plain_ms": plain, "library_ms": lib,
             "bytes": mix_bytes, "ops": mix_ops, "bound_ms": b_ms,
             "bound_by": b_by}
+        # the bf16 wire's mix: a bf16 theta, float32 rows out
+        mix16_bytes = 2 * M * D + 4 * (n * M + n * D)
+        b_ms, b_by = bound(mix16_bytes, mix_ops)
+        Wm16 = Wm.to(torch.bfloat16)
+        out["gossip_mix_bf16"] = {
+            "ms": time_ms(torch, lambda: gossip_mix(Wm, theta16)),
+            "plain_ms": time_ms(torch, lambda: gossip_mix_ref(Wm, theta16)),
+            "library_ms": time_ms(torch, lambda: torch.matmul(Wm16,
+                                                              theta16)),
+            "bytes": mix16_bytes, "ops": mix_ops, "bound_ms": b_ms,
+            "bound_by": b_by}
         ms = time_ms(torch, lambda: panel_mean_consensus(theta))
         plain = time_ms(torch, lambda: panel_mean_consensus_ref(theta))
         b_ms, b_by = bound(red_bytes, red_ops)
@@ -163,8 +182,9 @@ def kernel_checks(torch, D_main):
                   f"{r_['library_ms']} ms, bound {r_['bound_ms']:.4f} ms "
                   f"({r_['bytes']} bytes), {100 * r_['bound_ms'] / r_['ms']:.1f}"
                   f"% of the bound", flush=True)
-        del theta
+        del theta, theta16
     out["gossip_mix"]["max_abs_err"] = err["gossip_mix"]
+    out["gossip_mix_bf16"]["max_abs_err"] = err["gossip_mix_bf16"]
     out["panel_mean_consensus"]["max_abs_err"] = err["panel_mean_consensus"]
     out["panel_mean_consensus"]["sq_rel_err"] = sq_rel
     torch.cuda.empty_cache()
@@ -296,6 +316,118 @@ def wire_checks(torch, D_main):
     return out
 
 
+def int4_panel(torch, D, gen, group=128):
+    """(x, u): an (M, D) float32 panel with an all-zero row (scale 1/7)
+    and a row on exact half steps (every group's amax is 7/64, so its scale
+    is 1/64 and x / s = k + 1/2: ties to even), and uniforms in [0, 1)."""
+    dev = torch.device("cuda")
+    x = torch.randn((M, D), generator=gen, device=dev)
+    x[1] = 0.0
+    k = torch.randint(-7, 7, (D,), generator=gen, device=dev)
+    x[2] = (k.to(torch.float32) + 0.5) / 64
+    x[2, ::group] = 7 / 64
+    return x, torch.rand((M, D), generator=gen, device=dev)
+
+
+def int4_checks(torch, D_main):
+    """Phase 3, int4 kernels: quantize (stochastic and round to nearest),
+    pack, unpack and dequantize against their plain versions (max |err|
+    must be 0), unpack(pack(q)) == q; times at m = 8, D = D_main. No single
+    PyTorch call computes grouped int4 or packs nibbles: library_ms null."""
+    from repro_torch.kernels.ref import (div_exact, dequantize_int4_ref,
+                                         int4_group_scale_ref, pack_int4_ref,
+                                         quantize_int4_ref, unpack_int4_ref)
+    from repro_torch.kernels.wire_quant import (dequantize_int4, pack_int4,
+                                                quantize_int4, unpack_int4)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    out = {}
+    for D in (333, 1000, 1001, D_main):
+        x, u = int4_panel(torch, D, gen)
+        s = int4_group_scale_ref(x)
+        G = s.shape[1]
+        check(G == -(-D // 128) and bool(torch.all(s[1] == s[1, 0]))
+              and float(s[1, 0]) == float(torch.tensor(1.0) / 7.0)
+              and bool(torch.all(s[2] == 1 / 64)), "int4 test panel scales")
+        q = {}
+        for name, uu in (("sr", u), ("rtn", None)):
+            q[name] = quantize_int4(x, s, uu)
+            ref = quantize_int4_ref(x, s, uu)
+            torch.cuda.synchronize()
+            check(torch.equal(q[name], ref),
+                  f"quantize_int4 ({name}) disagrees at D={D}: max|err| "
+                  f"{int(torch.max(torch.abs(q[name].int() - ref.int())))}")
+            del ref
+        ties = torch.ones(D, dtype=torch.bool, device=x.device)
+        ties[::128] = False
+        check(bool(torch.all(q["rtn"][2][ties] % 2 == 0))
+              and bool(torch.all(q["rtn"][1] == 0)),
+              "round to nearest did not take the half steps to even")
+        p = pack_int4(q["sr"])
+        check(p.shape == (M, (D + 1) // 2)
+              and torch.equal(p, pack_int4_ref(q["sr"])),
+              f"pack_int4 disagrees at D={D}")
+        back = unpack_int4(p, D)
+        check(torch.equal(back, unpack_int4_ref(p, D)),
+              f"unpack_int4 disagrees at D={D}")
+        check(torch.equal(back, q["sr"]), f"unpack(pack(q)) != q at D={D}")
+        y = dequantize_int4(back, s)
+        check(torch.equal(y, dequantize_int4_ref(back, s)),
+              f"dequantize_int4 disagrees at D={D}")
+        torch.cuda.synchronize()
+        del back, y
+        print(f"check D={D}: quantize_int4 (stochastic, round to nearest), "
+              f"pack_int4, unpack_int4, dequantize_int4 max|err| 0; "
+              f"unpack(pack(q)) == q", flush=True)
+        if D != D_main:
+            continue
+        # the scales on the card equal the CPU's bit for bit: PyTorch's CUDA
+        # division by a Python scalar multiplies by the reciprocal instead
+        check(torch.equal(s.cpu(), int4_group_scale_ref(x.cpu())),
+              "int4 group scales on the card differ from the CPU's")
+        amax = torch.linalg.vector_norm(x.view(M, G, 128), ord=float("inf"),
+                                        dim=2)
+        off = int(torch.sum(amax / 7.0 != div_exact(amax, 7.0)))
+        print(f"scales: card == CPU; dividing the {amax.numel()} group "
+              f"maxima by the Python scalar 7.0 instead would put {off} an "
+              f"ulp off", flush=True)
+        del amax
+        n, sb = M * D, 4 * M * G  # elements; bytes of the grouped scales
+        qs = q["sr"]
+        cases = {
+            "quantize_int4": (lambda: quantize_int4(x, s, u),
+                              lambda: quantize_int4_ref(x, s, u),
+                              9 * n + sb, 5 * n),
+            "quantize_int4_rtn": (lambda: quantize_int4(x, s),
+                                  lambda: quantize_int4_ref(x, s),
+                                  5 * n + sb, 4 * n),
+            "dequantize_int4": (lambda: dequantize_int4(qs, s),
+                                lambda: dequantize_int4_ref(qs, s),
+                                5 * n + sb, 2 * n),
+            "pack_int4": (lambda: pack_int4(qs), lambda: pack_int4_ref(qs),
+                          n + M * ((D + 1) // 2), 3 * n),
+            "unpack_int4": (lambda: unpack_int4(p, D),
+                            lambda: unpack_int4_ref(p, D),
+                            n + M * ((D + 1) // 2), 3 * n)}
+        for name, (fn, plain, nbytes, ops) in cases.items():
+            b_ms, b_by = bound(nbytes, ops)
+            out[name] = {"ms": time_ms(torch, fn),
+                         "plain_ms": time_ms(torch, plain),
+                         "library_ms": None, "bytes": nbytes, "ops": ops,
+                         "bound_ms": b_ms, "bound_by": b_by,
+                         "max_abs_err": 0.0}
+            torch.cuda.empty_cache()
+            r_ = out[name]
+            print(f"time {name} (m={M}, D={D}): kernel {r_['ms']:.4f} ms, "
+                  f"plain {r_['plain_ms']:.4f} ms, library none, bound "
+                  f"{r_['bound_ms']:.4f} ms ({nbytes} bytes), "
+                  f"{100 * r_['bound_ms'] / r_['ms']:.1f}% of the bound",
+                  flush=True)
+        del qs, cases
+        del x, u, q, s, p
+    torch.cuda.empty_cache()
+    return out
+
+
 def segment_inputs(cfg, m, rounds, seed=0, data_vocab=None, batch=BATCH,
                    seq=SEQ):
     """W stream and batches as the launcher draws them (schedule first)."""
@@ -322,22 +454,24 @@ def segment_inputs(cfg, m, rounds, seed=0, data_vocab=None, batch=BATCH,
 def small_parity(torch):
     """Phase 4: the reduced olmo-1b segment on the card (kernels) against
     the same segment on the CPU (plain versions), on the f32 wire, with
-    topk and with a round-to-nearest int8_ef."""
+    topk, bf16 and a round-to-nearest int8_ef and int4_ef."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.core import dsgd
     from repro_torch.launch.train import build_cpu_preset
     from repro_torch.models import build_model
     from repro_torch.optim import make_optimizer
-    from repro_torch.wire import Int8Codec
+    from repro_torch.wire import Int4Codec, Int8Codec
     cfg = build_cpu_preset(get_config("olmo-1b"), 4)
     model = build_model(cfg)
     per_round, _ = segment_inputs(cfg, 4, 3, batch=4, seq=32)
-    wires = {"f32": None, "topk": "topk", "int8_ef round to nearest": {
-        "float32": Int8Codec("int8_ef", stochastic=False,
-                             error_feedback=True)}}
+    wires = {"f32": None, "topk": "topk", "bf16": "bf16",
+             "int8_ef round to nearest": {"float32": Int8Codec(
+                 "int8_ef", stochastic=False, error_feedback=True)},
+             "int4_ef round to nearest": {"float32": Int4Codec(
+                 "int4_ef", stochastic=False, error_feedback=True)}}
     for label, wire in wires.items():
-        runs = {}
+        runs, same = {}, {}
         for dev in ("cpu", "cuda"):
             opt = make_optimizer("adamw", 3e-3, total_steps=3 * H)
             state, spec = dsgd.init_panel_state(model.init_params, opt, 4, 0,
@@ -353,14 +487,18 @@ def small_parity(torch):
                 rows.append([float(mets["loss"][0]),
                              float(mets["consensus"][0])])
             runs[dev] = np.asarray(rows)
+            same[dev] = rows_identical(torch, state["panel"])
         # rtol 1e-3: cuBLAS and the CPU's GEMMs sum in other orders, and six
         # AdamW steps amplify float32 rounding (elements with |g| near eps)
         ok = np.allclose(runs["cuda"], runs["cpu"], rtol=1e-3, atol=1e-5)
         print(f"small parity {label} (reduced olmo-1b, 4 agents, 3 rounds): "
-              f"cuda {runs['cuda'].tolist()} cpu {runs['cpu'].tolist()}",
-              flush=True)
+              f"cuda {runs['cuda'].tolist()} cpu {runs['cpu'].tolist()}; "
+              f"rows identical after the final merge: {same}", flush=True)
         check(ok, f"the {label} segment on the card disagrees with the CPU")
-        check(runs["cuda"][-1, 1] == 0.0,
+        # bf16 rounds the merged rows through bf16 while the folded mean
+        # stays float32 (the reference's rule): its Xi reports that rounding
+        check(all(same.values()) and (label == "bf16"
+                                      or runs["cuda"][-1, 1] == 0.0),
               f"{label}: Xi after the final merge is not 0")
 
 
@@ -387,6 +525,7 @@ def drive_path(torch, wire):
     eval_batch = to_device(eval_batch, dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
     reset_launch_counts()
     gen = torch.Generator(device=dev).manual_seed(0)
     state, spec = dsgd.init_panel_state(model.init_params, opt, M, gen,
@@ -396,7 +535,8 @@ def drive_path(torch, wire):
     print(f"path {wire}: {cfg.name} d_model {cfg.d_model}, {cfg.num_layers} "
           f"layers, vocab {cfg.vocab_size} padded to {cfg.padded_vocab}, "
           f"D {spec.width} per agent, m {M}, H {H}, batch {BATCH}, seq "
-          f"{SEQ}; {spec.wire_payload_bytes} B/agent payload "
+          f"{SEQ}; device memory held before the path {held} bytes; "
+          f"{spec.wire_payload_bytes} B/agent payload "
           f"({spec.wire_total_bytes} B with scales/indices) per full-panel "
           f"exchange", flush=True)
     losses, xis = [], []
@@ -410,18 +550,25 @@ def drive_path(torch, wire):
         kind = ("idle" if (W[0] == torch.eye(M).numpy()).all() else
                 "merge" if (W[0] == 1.0 / M).all() else "mix")
         print(f"round {t} ({kind}, {wire}): loss {losses[-1]:.6f} Xi "
-              f"{xis[-1]!r} {dt:.3f}s", flush=True)
+              f"{xis[-1]!r} {dt:.3f}s; device memory peak so far "
+              f"{torch.cuda.max_memory_allocated()} bytes, held "
+              f"{torch.cuda.memory_allocated()}", flush=True)
     merged = eval_merged(model.loss_fn, state["panel"], spec, eval_batch)
     local = eval_local(model.loss_fn, state["panel"], spec, eval_batch)
     torch.cuda.synchronize()
     counts = launch_counts()
     peak = torch.cuda.max_memory_allocated()
+    same = rows_identical(torch, state["panel"])
     print(f"kernels ({wire}) {json.dumps(counts)}", flush=True)
     print(f"eval ({wire}): merged {merged!r} local {local!r}; peak device "
-          f"memory {peak} bytes", flush=True)
+          f"memory {peak} bytes; after the final merge the rows are "
+          f"identical: {same}, Xi reported {xis[-1]!r}", flush=True)
     check(all(counts[k] > 0 for k in PATH_KERNELS[wire]),
           f"a kernel of the {wire} path never launched: {counts}")
-    check(xis[-1] == 0.0,
+    check(same, f"{wire}: the agents' rows differ after the final merge")
+    # bf16 rounds the merged rows through bf16 while the folded mean stays
+    # float32 (the reference's rule): the segment's Xi is that rounding
+    check(xis[-1] == 0.0 or wire == "bf16",
           f"{wire}: Xi after the final merge is {xis[-1]!r}, not 0")
     check(all(math.isfinite(x) for x in losses + [merged, local]),
           f"{wire}: a loss is not finite")
@@ -433,6 +580,13 @@ def drive_path(torch, wire):
     del state, seg
     torch.cuda.empty_cache()
     return counts, width
+
+
+def rows_identical(torch, panel):
+    """Whether every agent's row equals row 0 bit for bit (Xi = 0 exactly;
+    the reduce's column mean of 8 equal float32 rows need not be exact)."""
+    return all(torch.equal(x[r], x[0]) for x in panel.values()
+               for r in range(1, x.shape[0]))
 
 
 def breakdown(torch, model, opt, state, spec, round_inputs, reps=3):
@@ -498,6 +652,7 @@ def main():
                             rows=M).width
     measured = kernel_checks(torch, D)
     measured.update(wire_checks(torch, D))
+    measured.update(int4_checks(torch, D))
     small_parity(torch)
     counts = {}
     for wire in PATH_KERNELS:
@@ -515,7 +670,20 @@ def main():
         "dequantize_int8": ("wire_quant.cu", "wire_quant.py:140",
                             counts["int8_ef"]),
         "sparsify_topk": ("wire_quant.cu", "wire_quant.py:404",
-                          counts["topk"])}
+                          counts["topk"]),
+        "quantize_int4": ("wire_int4.cu", "wire_quant.py:197",
+                          counts["int4_ef"]),
+        "dequantize_int4": ("wire_int4.cu", "wire_quant.py:234",
+                            counts["int4_ef"]),
+        "pack_int4": ("wire_int4.cu", "wire_quant.py:358",
+                      counts["int4_ef"]),
+        "unpack_int4": ("wire_int4.cu", "wire_quant.py:377",
+                        counts["int4_ef"])}
+    # sub-rows: the round-to-nearest quantizes, the bf16 variant of the mix
+    variants = {"quantize_int8": ("rtn", "quantize_int8_rtn", None),
+                "quantize_int4": ("rtn", "quantize_int4_rtn", None),
+                "gossip_mix": ("bf16", "gossip_mix_bf16",
+                               counts["bf16"]["gossip_mix_bf16"])}
     kernels = []
     for name, (src, replaces, run) in kernels_of.items():
         r = measured[name]
@@ -528,9 +696,13 @@ def main():
                "library_ms": r["library_ms"]}
         if "sq_rel_err" in r:
             row["sq_rel_err"] = r["sq_rel_err"]
-        if name == "quantize_int8":  # the round-to-nearest variant
-            row["rtn"] = {k: measured["quantize_int8_rtn"][k] for k in (
-                "ms", "plain_ms", "bound_ms", "library_ms")}
+        if name in variants:
+            key, sub, launches = variants[name]
+            row[key] = {k: measured[sub][k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "max_abs_err")}
+            if launches is not None:
+                row[key]["launches"] = launches
         kernels.append(row)
     print(json.dumps({"kernels": kernels}))
     print(card)

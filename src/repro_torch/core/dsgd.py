@@ -15,16 +15,22 @@ by the round's communication:
   ``gossip_mix`` sweep with the 1^T/m row folded in (panel.mix_dense_mean)
   and Xi from the folded mean. The final global merge of every other codec
   is this branch with the fully connected W: every row comes out
-  identical, so Xi is exactly 0.
+  identical, so Xi is exactly 0 — except under bf16, whose rows are
+  rounded through bf16 while the folded mean stays float32 (the
+  reference's rule), so Xi reports that rounding and
+  ``panel.consensus_distance`` of the merged panel is the exact 0.
 
-Wire codecs of this slice: the float32 identity, ``int8`` and ``int8_ef``
-(per-row int8 with stochastic rounding; int8_ef carries the quantization
-residual) and ``topk`` (the sparse innovation over a mirror panel, mixed in
-damped delta form). An error-feedback codec keeps ``state["wire_err"]``,
-one float32 panel per dtype group. Stochastic rounding draws from a
-``torch.Generator`` (the segment's ``rng``), one draw per stochastic group
-per communicating round. The bf16 and int4 codecs, the non-uniform
-mergers, liveness, storage residency and telemetry are later slices.
+Wire codecs: every codec of the reference's registry — the float32
+identity, ``bf16`` (a cast payload, mixed with float32 accumulation),
+``int8`` / ``int8_ef`` (per-row int8) and ``int4`` / ``int4_ef`` (packed
+nibbles against grouped scales), both with stochastic rounding, the _ef
+variants carrying the quantization residual, and ``topk`` (the sparse
+innovation over a mirror panel, mixed in damped delta form). An
+error-feedback codec keeps ``state["wire_err"]``, one float32 panel per
+dtype group. Stochastic rounding draws from a ``torch.Generator`` (the
+segment's ``rng``), one draw per stochastic group per communicating round.
+The non-uniform mergers, liveness, storage residency and telemetry are
+later slices.
 
 The reference scans a whole segment on device under jit with donated
 buffers; here the segment is a Python loop over rounds, the optimizer
@@ -86,7 +92,8 @@ def init_panel_state(init_params: Callable, optimizer: Optimizer, m: int,
     ``wire`` attaches a wire-codec policy to the spec (panel.with_wire: a
     codec for every dtype group, or a per-group dict). An error-feedback
     codec adds ``state["wire_err"]``: the zero-initialised residual for
-    int8_ef, the MIRROR (a copy of the initial panel) for topk."""
+    int8_ef and int4_ef, the MIRROR (a copy of the initial panel) for
+    topk."""
     device = resolve_device(device)
     gen = _generator(rng, device)
     first = init_params(gen, device)

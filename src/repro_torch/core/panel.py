@@ -17,12 +17,15 @@ The communication ops run one fused op per dtype group:
   ``panel_mean_consensus`` kernel.
 
 The payload travels through the spec's wire policy (:func:`with_wire`,
-``repro_torch.wire``): the float32 identity, ``int8`` / ``int8_ef`` (per-row
-int8 with stochastic rounding, without and with the error-feedback
-residual; the ``quantize_int8`` / ``dequantize_int8`` kernels) and ``topk``
-(the sparse innovation over a mirror panel through ``sparsify_topk``, mixed
-in damped delta form). The bf16 and int4 codecs and the legacy
-``wire_dtype`` cast are later slices; so are sharded panels.
+``repro_torch.wire``): the float32 identity, ``bf16`` (the mix reads the
+bf16 payload through the ``gossip_mix`` kernel's bf16 variant and rounds
+its rows back through bf16), ``int8`` / ``int8_ef`` and ``int4`` /
+``int4_ef`` (per-row int8 or grouped packed int4 with stochastic rounding,
+without and with the error-feedback residual; the quantize, dequantize,
+pack and unpack kernels) and ``topk`` (the sparse innovation over a mirror
+panel through ``sparsify_topk``, mixed in damped delta form). The panels
+themselves are float32: bf16 storage comes with storage residency, and so
+do the legacy ``wire_dtype`` cast and sharded panels in later slices.
 
 On CUDA tensors the kernel wrappers launch the Hopper kernels; on CPU
 tensors they run the plain versions.
@@ -226,9 +229,14 @@ def _mix_dense_groups(panel, W, *, with_mean, spec=None, gen=None,
     transmitted panel comes out of the SAME sweep; the first m output rows
     are the plain mix. Each group's payload is encoded by its codec first;
     a delta codec (topk) mixes as x + gamma (W - I) @ x̂ instead, with the
-    mean taken off the mixed panel. Under a lossy codec, idle ROWS of W
-    (rows equal to the identity row) get back their exact parameters and
-    error-feedback rows: nothing of theirs travelled."""
+    mean taken off the mixed panel. A payload narrower than float32 (bf16)
+    is mixed into float32 rows, which are then rounded through the payload
+    dtype and cast back by the codec, as the reference's plain path does;
+    the folded mean row stays float32 (the reference's fold rule), so the
+    consensus monitor measures the rounded rows against the unrounded mean.
+    Under a lossy codec, idle ROWS of W (rows equal to the identity row)
+    get back their exact parameters and error-feedback rows: nothing of
+    theirs travelled."""
     x0 = next(iter(panel.values()))
     m = x0.shape[0]
     W32 = _device_w(W, x0.device)
@@ -248,8 +256,8 @@ def _mix_dense_groups(panel, W, *, with_mean, spec=None, gen=None,
         x = panel[k]
         if x.dtype != torch.float32:
             raise NotImplementedError(
-                f"group {k!r}: the port's mix carries float32 panels only "
-                "(the bf16 wire is a later slice)")
+                f"group {k!r} is stored as {x.dtype}: the port's panels are "
+                "float32 (bf16 storage comes with storage residency)")
         e = err[k] if err is not None else None
         xw, back, ne = codecs[k].encode(x, gen=gen, err=e)
         if codecs[k].delta_mix:
@@ -263,10 +271,15 @@ def _mix_dense_groups(panel, W, *, with_mean, spec=None, gen=None,
                 means[k] = panel_mean_consensus(y)[0]
         else:
             y = gossip_mix(Wop, xw)
+            wire_dtype = xw.dtype
             del xw
             if with_mean:
                 means[k] = y[m]
                 y = y[:m]
+            if wire_dtype != torch.float32:
+                # the payload dtype's rounding, a row at a time in place
+                for r in range(m):
+                    y[r].copy_(y[r].to(wire_dtype))
             y = back(y)
         for r in idle:
             y[r].copy_(x[r])

@@ -1,10 +1,11 @@
 """Hopper kernels of the port and their plain PyTorch versions.
 
-``gossip_mix.gossip_mix`` and ``panel_reduce.panel_mean_consensus`` are the
-wrappers the panel engine calls; ``wire_quant`` holds the wire codecs'
-kernels (int8 quantize and dequantize, the top-k sparsifier); ``ref`` holds
-the plain versions; ``build`` compiles the CUDA sources under ``csrc/`` at
-first use.
+``gossip_mix.gossip_mix`` (float32 and bfloat16 payloads) and
+``panel_reduce.panel_mean_consensus`` are the wrappers the panel engine
+calls; ``wire_quant`` holds the wire codecs' kernels (int8 quantize and
+dequantize, the top-k sparsifier, int4 quantize, dequantize, nibble pack
+and unpack); ``ref`` holds the plain versions; ``build`` compiles the CUDA
+sources under ``csrc/`` at first use.
 """
 from repro_torch.kernels import gossip_mix as _gossip_mix
 from repro_torch.kernels import panel_reduce as _panel_reduce
@@ -15,16 +16,25 @@ KERNELS = {"gossip_mix": _gossip_mix.gossip_mix,
            "panel_mean_consensus": _panel_reduce.panel_mean_consensus,
            "quantize_int8": _wire_quant.quantize_int8,
            "dequantize_int8": _wire_quant.dequantize_int8,
-           "sparsify_topk": _wire_quant.sparsify_topk}
+           "sparsify_topk": _wire_quant.sparsify_topk,
+           "quantize_int4": _wire_quant.quantize_int4,
+           "dequantize_int4": _wire_quant.dequantize_int4,
+           "pack_int4": _wire_quant.pack_int4,
+           "unpack_int4": _wire_quant.unpack_int4}
 
 # the CUDA sources (csrc/<name>.cu) the kernels are built from
-SOURCES = ("gossip_mix", "panel_reduce", "wire_quant")
+SOURCES = ("gossip_mix", "panel_reduce", "wire_quant", "wire_int4")
 
 
 def reset_launch_counts():
     for fn in KERNELS.values():
         fn.launches = 0
+    _gossip_mix.gossip_mix.launches_bf16 = 0
 
 
 def launch_counts():
-    return {name: fn.launches for name, fn in KERNELS.items()}
+    """{kernel: launches}, with ``gossip_mix_bf16`` the bf16 variant's
+    share of ``gossip_mix``."""
+    counts = {name: fn.launches for name, fn in KERNELS.items()}
+    counts["gossip_mix_bf16"] = _gossip_mix.gossip_mix.launches_bf16
+    return counts

@@ -2,9 +2,10 @@
 
 Replaces the Pallas TPU kernel ``gossip_mix_panel``
 (``src/repro/kernels/gossip_mix.py``); the kernel is
-``csrc/gossip_mix.cu``. For a CPU tensor the wrapper runs the plain version
-(``kernels/ref.py:gossip_mix_ref``); for a CUDA tensor it launches the kernel
-or raises — there is no fallback.
+``csrc/gossip_mix.cu``, with a float32 and a bfloat16 variant (the bf16
+wire's payload); both write float32. For a CPU tensor the wrapper runs the
+plain version (``kernels/ref.py:gossip_mix_ref``); for a CUDA tensor it
+launches the kernel or raises — there is no fallback.
 """
 from __future__ import annotations
 
@@ -15,17 +16,20 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import gossip_mix_ref
 
-_SIGNATURES = {"gossip_mix_f32": (ctypes.c_int, [
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-    ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p])}
+_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+         ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
+_SIGNATURES = {"gossip_mix_f32": (ctypes.c_int, _ARGS),
+               "gossip_mix_bf16": (ctypes.c_int, _ARGS)}
+# theta's dtype -> the kernel's entry point
+_ENTRY = {torch.float32: "gossip_mix_f32", torch.bfloat16: "gossip_mix_bf16"}
 
 MAX_ROWS = 32  # the kernel's bound on m (agents)
 
 
 def _check(W, theta):
-    if W.dtype != torch.float32 or theta.dtype != torch.float32:
-        raise TypeError(f"gossip_mix takes float32 W and theta, got "
-                        f"{W.dtype} and {theta.dtype}")
+    if W.dtype != torch.float32 or theta.dtype not in _ENTRY:
+        raise TypeError(f"gossip_mix takes float32 W and float32 or bfloat16 "
+                        f"theta, got {W.dtype} and {theta.dtype}")
     if W.dim() != 2 or theta.dim() != 2:
         raise ValueError(f"W must be (n, m) and theta (m, D), got "
                          f"{tuple(W.shape)} and {tuple(theta.shape)}")
@@ -41,7 +45,8 @@ def _check(W, theta):
 
 
 def gossip_mix(W, theta):
-    """W: (n, m) float32; theta: (m, D) float32 -> (n, D) float32 W @ theta.
+    """W: (n, m) float32; theta: (m, D) float32 or bfloat16 -> (n, D)
+    float32 W @ theta, accumulated in float32.
 
     n == m for a mixing matrix; n == m + 1 when W carries the folded
     1^T/m row, whose output row is the column mean."""
@@ -58,14 +63,18 @@ def gossip_mix(W, theta):
     out = torch.empty((n, D), dtype=torch.float32, device=theta.device)
     lib = build.load("gossip_mix", _SIGNATURES)
     stream = torch.cuda.current_stream(theta.device).cuda_stream
-    rc = lib.gossip_mix_f32(W.data_ptr(), theta.data_ptr(), out.data_ptr(),
-                            n, m, D, stream)
+    rc = getattr(lib, _ENTRY[theta.dtype])(W.data_ptr(), theta.data_ptr(),
+                                           out.data_ptr(), n, m, D, stream)
     if rc != 0:
         raise RuntimeError(f"gossip_mix kernel launch failed: CUDA error "
                            f"{rc}")
     gossip_mix.launches += 1
+    if theta.dtype == torch.bfloat16:
+        gossip_mix.launches_bf16 += 1
     return out
 
 
-# kernel launches since the count was last set to 0
+# kernel launches since the counts were last set to 0: all of them, and of
+# those the bf16 variant's
 gossip_mix.launches = 0
+gossip_mix.launches_bf16 = 0

@@ -8,11 +8,12 @@ with their kernels bit for bit; only the reduce's sum of squares is summed
 in another order.
 
 The wire functions are the counterparts of the reference's oracles
-(``src/repro/kernels/ref.py``): the per-row int8 scale, quantize with
-round to nearest (ties to even, as ``jnp.round``) or stochastic rounding
-``floor(x / scale + u)``, dequantize, and the top-k threshold and mask.
-The scale and the threshold are full row passes computed outside the
-kernels, as in the reference.
+(``src/repro/kernels/ref.py``): the per-row int8 scale and the grouped
+int4 scales (one per row per ``group`` columns), quantize with round to
+nearest (ties to even, as ``jnp.round``) or stochastic rounding
+``floor(x / scale + u)``, dequantize, the int4 nibble pack and unpack, and
+the top-k threshold and mask. The scales and the threshold are row passes
+computed outside the kernels, as in the reference.
 """
 from __future__ import annotations
 
@@ -20,7 +21,9 @@ import torch
 
 
 def gossip_mix_ref(W, theta):
-    """W: (n, m); theta: (m, D) -> W @ theta, float32 accumulation.
+    """W: (n, m); theta: (m, D) float32 or bfloat16 -> W @ theta as float32
+    (a bfloat16 theta is upcast exactly; the output stays float32, the
+    folded mean row included).
 
     A fixed-order sum over k: acc = W[:, 0] * theta[0], then
     acc = acc + W[:, k] * theta[k] for k = 1 .. m-1, each product and each
@@ -28,11 +31,10 @@ def gossip_mix_ref(W, theta):
     kernel uses, so every output row that has the same weights comes out
     the same bit for bit."""
     w = W.to(torch.float32)
-    t = theta.to(torch.float32)
-    acc = w[:, 0:1] * t[0:1]
-    for k in range(1, t.shape[0]):
-        acc.add_(w[:, k:k + 1] * t[k:k + 1])
-    return acc.to(theta.dtype)
+    acc = w[:, 0:1] * theta[0:1].to(torch.float32)
+    for k in range(1, theta.shape[0]):
+        acc.add_(w[:, k:k + 1] * theta[k:k + 1].to(torch.float32))
+    return acc
 
 
 def panel_mean_consensus_ref(theta):
@@ -61,7 +63,15 @@ def int8_scale_ref(x):
     # the row max of |x| without an (m, D) temporary of |x|
     amax = torch.linalg.vector_norm(x.to(torch.float32), ord=float("inf"),
                                     dim=1, keepdim=True)
-    return torch.where(amax > 0, amax, torch.ones_like(amax)) / 127.0
+    return div_exact(torch.where(amax > 0, amax, torch.ones_like(amax)),
+                     127.0)
+
+
+def div_exact(a, d: float):
+    """a / d in IEEE float32 division on every device: PyTorch's CUDA
+    division by a Python scalar multiplies by the scalar's reciprocal
+    (an ulp away from a / d), so the divisor is a tensor on a's device."""
+    return a / torch.tensor(d, dtype=torch.float32, device=a.device)
 
 
 def quantize_int8_ref(x, scale, u=None):
@@ -95,3 +105,67 @@ def sparsify_topk_ref(x, thresh):
     x32 = x.to(torch.float32)
     return torch.where(torch.abs(x32) >= thresh, x32,
                        torch.zeros((), dtype=torch.float32, device=x.device))
+
+
+def int4_group_scale_ref(x, group: int = 128):
+    """Grouped symmetric int4 scales of an (m, D) panel: amax / 7 per row
+    per ``group``-column block -> (m, ceil(D / group)) float32. A partial
+    tail group reduces over its real columns only; an all-zero group gets
+    scale 1/7, so dequantizing stays a plain multiply."""
+    x32 = x.to(torch.float32)
+    m, D = x32.shape
+    full = D // group * group
+
+    def amax(v, dim):  # max |v| without a temporary of |v|
+        return torch.linalg.vector_norm(v, ord=float("inf"), dim=dim)
+
+    parts = []
+    if full:
+        parts.append(amax(x32[:, :full].reshape(m, full // group, group), 2))
+    if full < D:
+        parts.append(amax(x32[:, full:], 1)[:, None])
+    a = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+    return div_exact(torch.where(a > 0, a, torch.ones_like(a)), 7.0)
+
+
+def expand_group_scale(scale, D: int, group: int = 128):
+    """(m, ceil(D / group)) grouped scales -> (m, D): each scale repeated
+    over its column group, the tail group cut to the real width."""
+    return torch.repeat_interleave(scale, group, dim=1)[:, :D]
+
+
+def quantize_int4_ref(x, scale, u=None, group: int = 128):
+    """x: (m, D); scale: (m, ceil(D / group)) float32 -> int8 (m, D) in
+    [-7, 7] (the int4 values before nibble packing). ``u`` (uniform in
+    [0, 1), the shape of x) selects stochastic rounding floor(x / s + u);
+    ``u=None`` rounds to nearest, ties to even. True IEEE division."""
+    s = x.to(torch.float32) / expand_group_scale(scale, x.shape[1], group)
+    q = torch.floor(s.add_(u)) if u is not None else torch.round(s)
+    return torch.clamp(q, -7.0, 7.0).to(torch.int8)
+
+
+def dequantize_int4_ref(q, scale, group: int = 128):
+    """q: (m, D) int4-valued int8; scale: (m, ceil(D / group)) float32 ->
+    float32 (m, D) q * s."""
+    return q.to(torch.float32) * expand_group_scale(scale, q.shape[1], group)
+
+
+def pack_int4_ref(q):
+    """(m, D) int4-valued int8 -> (m, ceil(D / 2)) uint8: two values per
+    byte, the even column in the LOW nibble, the odd column in the high
+    one, row by row; an odd tail packs against a zero nibble. This is the
+    wire's byte layout."""
+    m, D = q.shape
+    if D % 2:
+        q = torch.cat([q, torch.zeros((m, 1), dtype=q.dtype,
+                                      device=q.device)], dim=1)
+    n = q.view(torch.uint8) & 0xF
+    return n[:, 0::2] | (n[:, 1::2] << 4)
+
+
+def unpack_int4_ref(p, D: int):
+    """(m, ceil(D / 2)) uint8 -> (m, D) int8, each nibble sign-extended
+    with (n ^ 8) - 8. The exact inverse of pack_int4_ref on [-8, 7]."""
+    m = p.shape[0]
+    nib = torch.stack([p & 0xF, p >> 4], dim=2).reshape(m, -1)[:, :D]
+    return ((nib.to(torch.int8) ^ 8) - 8).to(torch.int8)

@@ -1,14 +1,18 @@
 """The wire codecs' kernels: int8 quantize and dequantize against a per-row
-scale, and the top-k sparsifier against a per-row threshold.
+scale, the top-k sparsifier against a per-row threshold, and the int4
+family (quantize and dequantize against grouped scales, nibble pack and
+unpack).
 
 Replaces the Pallas TPU kernels ``quantize_int8_panel``,
-``dequantize_int8_panel`` and ``sparsify_topk_panel``
-(``src/repro/kernels/wire_quant.py``); the kernels are
-``csrc/wire_quant.cu``. The per-row scale (``ref.int8_scale_ref``) and
-threshold (``ref.topk_threshold_ref``) are computed by the caller outside
-the kernels, as in the reference. For CPU tensors each wrapper runs its
-plain version (``kernels/ref.py``); for CUDA tensors it launches its kernel
-or raises — there is no fallback.
+``dequantize_int8_panel``, ``sparsify_topk_panel`` (``csrc/wire_quant.cu``)
+and ``quantize_int4_panel``, ``dequantize_int4_panel``,
+``pack_int4_panel``, ``unpack_int4_panel`` (``csrc/wire_int4.cu``) of
+``src/repro/kernels/wire_quant.py``. The scales (``ref.int8_scale_ref``,
+``ref.int4_group_scale_ref``) and the threshold
+(``ref.topk_threshold_ref``) are computed by the caller outside the
+kernels, as in the reference. For CPU tensors each wrapper runs its plain
+version (``kernels/ref.py``); for CUDA tensors it launches its kernel or
+raises — there is no fallback.
 """
 from __future__ import annotations
 
@@ -17,8 +21,10 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import (dequantize_int8_ref, quantize_int8_ref,
-                                     sparsify_topk_ref)
+from repro_torch.kernels.ref import (dequantize_int4_ref, dequantize_int8_ref,
+                                     pack_int4_ref, quantize_int4_ref,
+                                     quantize_int8_ref, sparsify_topk_ref,
+                                     unpack_int4_ref)
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
@@ -26,13 +32,24 @@ _SIGNATURES = {
     "dequantize_int8_f32": (ctypes.c_int, [_P, _P, _P, _I, _L, _P]),
     "sparsify_topk_f32": (ctypes.c_int, [_P, _P, _P, _I, _L, _P]),
 }
+_SIGNATURES_INT4 = {
+    "quantize_int4_f32": (ctypes.c_int, [_P, _P, _P, _P, _I, _L, _I, _I,
+                                         _P]),
+    "dequantize_int4_f32": (ctypes.c_int, [_P, _P, _P, _I, _L, _I, _I, _P]),
+    "pack_int4_i8": (ctypes.c_int, [_P, _P, _I, _L, _P]),
+    "unpack_int4_u8": (ctypes.c_int, [_P, _P, _I, _L, _P]),
+}
 
 MAX_ROWS = 65535  # the kernels' bound on m (one grid row per agent)
+MAX_COLS = 2 ** 31 - 1  # the int4 kernels' bound on D (31-bit columns)
 
 
-def _check(name, panel, dtype, row_vec, extra=()):
-    """Device, dtype, shape and contiguity of a CUDA call's arguments."""
-    tensors = (panel, row_vec) + tuple(t for t in extra if t is not None)
+def _check(name, panel, dtype, scale=None, cols=1, extra=()):
+    """Device, dtype, shape and contiguity of a CUDA call's arguments:
+    ``scale`` (the scale or threshold) is float32 (m, cols), every tensor
+    of ``extra`` float32 of the panel's shape."""
+    tensors = tuple(t for t in (panel, scale) + tuple(extra)
+                    if t is not None)
     devs = {t.device for t in tensors}
     if len(devs) != 1:
         raise ValueError(f"{name}: arguments on several devices {devs}")
@@ -44,10 +61,10 @@ def _check(name, panel, dtype, row_vec, extra=()):
             or panel.shape[1] < 1:
         raise ValueError(f"{name} takes an (m, D) panel with 1 <= m <= "
                          f"{MAX_ROWS}, got {tuple(panel.shape)}")
-    if row_vec.dtype != torch.float32 or \
-            tuple(row_vec.shape) != (panel.shape[0], 1):
-        raise ValueError(f"{name} takes a float32 (m, 1) row vector, got "
-                         f"{row_vec.dtype} {tuple(row_vec.shape)}")
+    if scale is not None and (scale.dtype != torch.float32 or tuple(
+            scale.shape) != (panel.shape[0], cols)):
+        raise ValueError(f"{name} takes float32 ({panel.shape[0]}, {cols}) "
+                         f"scales, got {scale.dtype} {tuple(scale.shape)}")
     for t in extra:
         if t is not None and (t.dtype != torch.float32
                               or t.shape != panel.shape):
@@ -73,7 +90,7 @@ def quantize_int8(x, scale, u=None):
     with u, else x / scale rounded to nearest (ties to even)."""
     if _on_cpu(x, scale, u):
         return quantize_int8_ref(x, scale, u)
-    _check("quantize_int8", x, torch.float32, scale, (u,))
+    _check("quantize_int8", x, torch.float32, scale, extra=(u,))
     m, D = x.shape
     q = torch.empty((m, D), dtype=torch.int8, device=x.device)
     lib = build.load("wire_quant", _SIGNATURES)
@@ -117,7 +134,97 @@ def sparsify_topk(x, thresh):
     return y
 
 
+def _n_groups(D, group):
+    if group < 1:
+        raise ValueError(f"group must be >= 1, got {group}")
+    return -(-D // group)
+
+
+def _check_cols(name, D):
+    if D > MAX_COLS:
+        raise ValueError(f"{name} takes at most {MAX_COLS} columns, got {D}")
+
+
+def quantize_int4(x, scale, u=None, group: int = 128):
+    """x: (m, D) float32; scale: (m, ceil(D / group)) float32 grouped
+    scales; u: (m, D) float32 uniforms in [0, 1) or None -> int8 (m, D) in
+    [-7, 7]: floor(x / s + u) with u, else x / s rounded to nearest (ties
+    to even), s the scale of the column's group."""
+    if _on_cpu(x, scale, u):
+        return quantize_int4_ref(x, scale, u, group)
+    _check("quantize_int4", x, torch.float32, scale,
+           _n_groups(x.shape[-1], group), (u,))
+    m, D = x.shape
+    _check_cols("quantize_int4", D)
+    q = torch.empty((m, D), dtype=torch.int8, device=x.device)
+    lib = build.load("wire_int4", _SIGNATURES_INT4)
+    _launch("quantize_int4", lib.quantize_int4_f32, x.data_ptr(),
+            scale.data_ptr(), None if u is None else u.data_ptr(),
+            q.data_ptr(), m, D, scale.shape[1], group,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    quantize_int4.launches += 1
+    return q
+
+
+def dequantize_int4(q, scale, group: int = 128):
+    """q: (m, D) int4-valued int8; scale: (m, ceil(D / group)) float32 ->
+    float32 (m, D) q * s, s the scale of the column's group."""
+    if _on_cpu(q, scale):
+        return dequantize_int4_ref(q, scale, group)
+    _check("dequantize_int4", q, torch.int8, scale,
+           _n_groups(q.shape[-1], group))
+    m, D = q.shape
+    _check_cols("dequantize_int4", D)
+    y = torch.empty((m, D), dtype=torch.float32, device=q.device)
+    lib = build.load("wire_int4", _SIGNATURES_INT4)
+    _launch("dequantize_int4", lib.dequantize_int4_f32, q.data_ptr(),
+            scale.data_ptr(), y.data_ptr(), m, D, scale.shape[1], group,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    dequantize_int4.launches += 1
+    return y
+
+
+def pack_int4(q):
+    """(m, D) int4-valued int8 -> (m, ceil(D / 2)) uint8 packed nibbles,
+    row by row: the even column in the low nibble, an odd tail against a
+    zero nibble (the wire's byte layout)."""
+    if _on_cpu(q):
+        return pack_int4_ref(q)
+    _check("pack_int4", q, torch.int8)
+    m, D = q.shape
+    _check_cols("pack_int4", D)
+    p = torch.empty((m, (D + 1) // 2), dtype=torch.uint8, device=q.device)
+    lib = build.load("wire_int4", _SIGNATURES_INT4)
+    _launch("pack_int4", lib.pack_int4_i8, q.data_ptr(), p.data_ptr(), m, D,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    pack_int4.launches += 1
+    return p
+
+
+def unpack_int4(p, D: int):
+    """(m, ceil(D / 2)) uint8 packed nibbles -> (m, D) int8, each nibble
+    sign-extended: the exact inverse of :func:`pack_int4` on [-8, 7]."""
+    if _on_cpu(p):
+        return unpack_int4_ref(p, D)
+    _check("unpack_int4", p, torch.uint8)
+    m = p.shape[0]
+    if D < 1 or p.shape[1] != (D + 1) // 2:
+        raise ValueError(f"unpack_int4: {tuple(p.shape)} packed bytes do "
+                         f"not hold D = {D} columns")
+    _check_cols("unpack_int4", D)
+    q = torch.empty((m, D), dtype=torch.int8, device=p.device)
+    lib = build.load("wire_int4", _SIGNATURES_INT4)
+    _launch("unpack_int4", lib.unpack_int4_u8, p.data_ptr(), q.data_ptr(), m,
+            D, torch.cuda.current_stream(p.device).cuda_stream)
+    unpack_int4.launches += 1
+    return q
+
+
 # kernel launches since the counts were last set to 0
 quantize_int8.launches = 0
 dequantize_int8.launches = 0
 sparsify_topk.launches = 0
+quantize_int4.launches = 0
+dequantize_int4.launches = 0
+pack_int4.launches = 0
+unpack_int4.launches = 0

@@ -91,10 +91,12 @@ def main(argv=None):
     ap.add_argument("--window-start", type=int, default=0)
     ap.add_argument("--window-end", type=int, default=0)
     ap.add_argument("--wire", default="f32", choices=sorted(CODECS),
-                    help="gossip wire codec (repro_torch.wire): int8 sends "
-                         "1 byte per scalar with stochastic rounding, "
-                         "int8_ef adds error feedback, topk sends the top "
-                         "1/8 of the innovation over a mirror")
+                    help="gossip wire codec (repro_torch.wire): bf16 "
+                         "halves wire bytes, int8 sends 1 byte per scalar "
+                         "and int4 half a byte (plus a scale per 128) with "
+                         "stochastic rounding, the _ef variants add error "
+                         "feedback, topk sends the top 1/8 of the "
+                         "innovation over a mirror")
     ap.add_argument("--optimizer", default="adamw")
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--alpha", type=float, default=0.1,

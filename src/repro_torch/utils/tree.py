@@ -15,29 +15,33 @@ def tree_flatten(tree) -> Tuple[List[Any], Any]:
     """(leaves in sorted-key order, skeleton). The skeleton is the tree with
     every leaf replaced by None; :func:`tree_unflatten` refills it."""
     leaves: List[Any] = []
-
-    def walk(t):
-        if isinstance(t, dict):
-            return {k: walk(t[k]) for k in sorted(t)}
-        leaves.append(t)
-        return None
-
-    return leaves, walk(tree)
+    return leaves, _flatten_into(tree, leaves)
 
 
 def tree_unflatten(skeleton, leaves) -> Dict:
     """Inverse of :func:`tree_flatten`."""
     it = iter(leaves)
-
-    def fill(s):
-        if isinstance(s, dict):
-            return {k: fill(s[k]) for k in sorted(s)}
-        return next(it)
-
-    out = fill(skeleton)
+    out = _fill(skeleton, it)
     if next(it, None) is not None:
         raise ValueError("more leaves than the skeleton has slots")
     return out
+
+
+# The walks are module functions, not closures: a recursive closure is a
+# reference cycle (function -> cell -> function) that would keep the leaves
+# (whole parameter panels, on the card) alive until Python's cyclic
+# collector happens to run.
+def _flatten_into(t, leaves):
+    if isinstance(t, dict):
+        return {k: _flatten_into(t[k], leaves) for k in sorted(t)}
+    leaves.append(t)
+    return None
+
+
+def _fill(s, it):
+    if isinstance(s, dict):
+        return {k: _fill(s[k], it) for k in sorted(s)}
+    return next(it)
 
 
 def tree_map(fn: Callable, tree):

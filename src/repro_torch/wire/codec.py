@@ -13,13 +13,21 @@ mix. ``new_err`` is the updated error-feedback state (``err`` passed through
 untouched by residual-free codecs; a codec with error feedback REQUIRES
 ``err`` and raises without it).
 
-Codecs of this slice (``CODECS``):
+Codecs (``CODECS``, the reference's registry):
 
 * ``f32`` — identity: the payload is the storage dtype as it is.
+* ``bf16`` — cast to bfloat16 for the exchange; the mix reads the bf16
+  payload with float32 accumulation and its rows are cast back.
 * ``int8`` — per-row (per-agent) symmetric scales amax/127 and stochastic
   rounding, 4x fewer payload bytes than f32. ``int8_ef`` adds error
   feedback: the residual (x + e) - dequant(quant(x + e)) is returned for the
   caller to carry (the engine keeps it as ``state["wire_err"]``).
+* ``int4`` — packed nibbles (two values per wire byte, even column in the
+  low nibble) against grouped scales, one float32 amax/7 per row per
+  ``group`` (128) columns; stochastic rounding as int8, ``int4_ef`` adds the
+  same error feedback. Encode rebuilds the mixing view from the actual wire
+  bytes (quantize -> pack -> unpack -> dequantize), never from the unpacked
+  values.
 * ``topk`` — per-row top-k-by-magnitude sparse payload over a MIRROR panel
   x̂ (CHOCO style): ``err`` carries the mirror, seeded with a copy of the
   panel (``init_err``); each encode transmits the k largest entries of the
@@ -27,21 +35,19 @@ Codecs of this slice (``CODECS``):
   view and ``new_err``. ``delta_mix`` tells the engine to mix as
   ``x + gamma (W - I) @ x̂``.
 
-``bf16``, ``int4`` and ``int4_ef`` are the reference's other codecs; they
-come with a later slice of the port, and asking for one raises.
-
 Randomness: stochastic rounding draws ``u`` uniform in [0, 1) with
 ``torch.rand`` from a ``torch.Generator`` (``gen=``) on the panel's device,
 or takes the uniforms explicitly (``u=``, how the tests feed the
 reference's draws). The port cannot reproduce ``jax.random``'s bits.
 
-Kernels: quantize, dequantize and sparsify go through the wrappers of
-``kernels/wire_quant.py`` (the CUDA kernels on the card, the plain versions
-on the CPU); the per-row scale and the top-k threshold are plain torch row
-passes, as the reference leaves them to XLA.
+Kernels: quantize, dequantize, pack, unpack and sparsify go through the
+wrappers of ``kernels/wire_quant.py`` (the CUDA kernels on the card, the
+plain versions on the CPU); the scales and the top-k threshold are plain
+torch row passes, as the reference leaves them to XLA.
 
 Byte accounting: ``payload_bytes`` counts the transmitted values alone,
-``total_bytes`` adds scales and packed top-k indices, and ``wire_payload``
+``total_bytes`` adds scales (per row for int8, per row and group for int4)
+and packed top-k indices, and ``wire_payload``
 builds the actual wire arrays, whose ``.nbytes`` the tests hold against
 both.
 """
@@ -51,9 +57,12 @@ import math
 
 import torch
 
-from repro_torch.kernels.ref import int8_scale_ref, topk_threshold_ref
-from repro_torch.kernels.wire_quant import (dequantize_int8, quantize_int8,
-                                            sparsify_topk)
+from repro_torch.kernels.ref import (int4_group_scale_ref, int8_scale_ref,
+                                     topk_threshold_ref)
+from repro_torch.kernels.wire_quant import (dequantize_int4, dequantize_int8,
+                                            pack_int4, quantize_int4,
+                                            quantize_int8, sparsify_topk,
+                                            unpack_int4)
 
 
 def _identity(y):
@@ -67,11 +76,14 @@ def _storage_back(dtype):
     return lambda y: y.to(dtype)
 
 
+def _torch_dtype(dtype) -> torch.dtype:
+    """A torch dtype from itself or its name ('float32')."""
+    return getattr(torch, dtype) if isinstance(dtype, str) else dtype
+
+
 def _itemsize(dtype) -> int:
     """Bytes per scalar of a torch dtype or a dtype name ('float32')."""
-    if isinstance(dtype, str):
-        dtype = getattr(torch, dtype)
-    return torch.empty((), dtype=dtype).element_size()
+    return torch.empty((), dtype=_torch_dtype(dtype)).element_size()
 
 
 class Codec:
@@ -117,6 +129,28 @@ class F32Codec(Codec):
         return [x], []
 
 
+class DtypeCodec(Codec):
+    """Cast-only codec (the reference's legacy ``wire_dtype`` lever): the
+    payload travels as ``wire_dtype``, the mix reads it with float32
+    accumulation, and ``back`` casts the result to the storage dtype."""
+
+    def __init__(self, wire_dtype, name: str):
+        self.wire_dtype = _torch_dtype(wire_dtype)
+        self.name = name
+
+    def payload_bytes(self, rows: int, width: int, dtype) -> int:
+        return rows * width * _itemsize(self.wire_dtype)
+
+    def encode(self, x, gen=None, err=None, u=None):
+        if x.dtype == self.wire_dtype:
+            return x, _identity, err
+        dtype = x.dtype
+        return x.to(self.wire_dtype), lambda y: y.to(dtype), err
+
+    def wire_payload(self, x, gen=None, err=None, u=None):
+        return [x.to(self.wire_dtype)], []
+
+
 def _require_err(codec, err):
     if codec.error_feedback and err is None:
         raise ValueError(
@@ -125,11 +159,11 @@ def _require_err(codec, err):
             "accumulated correction")
 
 
-class Int8Codec(Codec):
-    """int8 payload with per-row scales; optionally stochastic rounding
-    (drawn from ``gen`` or given as ``u``) and error feedback (the residual
+class _Quantized(Codec):
+    """What the int8 and int4 codecs share: stochastic rounding (drawn
+    from ``gen`` or given as ``u``) and error feedback (the residual
     returned to the caller)."""
-    SCALE_BYTES = 4  # one float32 scale per agent row
+    SCALE_BYTES = 4  # one float32 per scale
 
     def __init__(self, name: str, stochastic: bool = True,
                  error_feedback: bool = False):
@@ -141,12 +175,6 @@ class Int8Codec(Codec):
     def needs_key(self) -> bool:
         return self.stochastic
 
-    def payload_bytes(self, rows: int, width: int, dtype) -> int:
-        return rows * width
-
-    def total_bytes(self, rows: int, width: int, dtype) -> int:
-        return rows * (width + self.SCALE_BYTES)
-
     def _carry_in(self, x, err):
         """The transmitted quantity: x, plus the residual for the EF
         variant (a new tensor then; a residual-free codec ignores err)."""
@@ -155,24 +183,21 @@ class Int8Codec(Codec):
             x32 = x32 + err
         return x32
 
-    def _quantize(self, x32, gen, u):
-        if self.stochastic and u is None:
-            if gen is None:
-                raise ValueError(
-                    f"codec '{self.name}' uses stochastic rounding and needs "
-                    "a torch.Generator (gen=...) or the uniforms (u=...)")
-            u = torch.rand(x32.shape, generator=gen, dtype=torch.float32,
-                           device=x32.device)
-        scale = int8_scale_ref(x32)
-        q = quantize_int8(x32, scale, u if self.stochastic else None)
-        return q, scale
+    def _uniforms(self, x32, gen, u):
+        """The stochastic rounding's uniforms (None rounds to nearest)."""
+        if not self.stochastic:
+            return None
+        if u is not None:
+            return u
+        if gen is None:
+            raise ValueError(
+                f"codec '{self.name}' uses stochastic rounding and needs "
+                "a torch.Generator (gen=...) or the uniforms (u=...)")
+        return torch.rand(x32.shape, generator=gen, dtype=torch.float32,
+                          device=x32.device)
 
-    def encode(self, x, gen=None, err=None, u=None):
-        _require_err(self, err)
-        x32 = self._carry_in(x, err)
-        q, scale = self._quantize(x32, gen, u)
-        xhat32 = dequantize_int8(q, scale)
-        del q
+    def _finish(self, x, x32, xhat32, err):
+        """(view, back, new_err) of encode from the received panel."""
         if self.error_feedback and err is not None:
             # x32 is the fresh x + err: it becomes the new residual in place
             new_err = x32.sub_(xhat32)
@@ -182,11 +207,78 @@ class Int8Codec(Codec):
             return xhat32, _identity, new_err
         return xhat32.to(x.dtype), _identity, new_err
 
+
+class Int8Codec(_Quantized):
+    """int8 payload with one scale per row."""
+
+    def payload_bytes(self, rows: int, width: int, dtype) -> int:
+        return rows * width
+
+    def total_bytes(self, rows: int, width: int, dtype) -> int:
+        return rows * (width + self.SCALE_BYTES)
+
+    def _quantize(self, x32, gen, u):
+        u = self._uniforms(x32, gen, u)
+        scale = int8_scale_ref(x32)
+        return quantize_int8(x32, scale, u), scale
+
+    def encode(self, x, gen=None, err=None, u=None):
+        _require_err(self, err)
+        x32 = self._carry_in(x, err)
+        q, scale = self._quantize(x32, gen, u)
+        xhat32 = dequantize_int8(q, scale)
+        del q
+        return self._finish(x, x32, xhat32, err)
+
     def wire_payload(self, x, gen=None, err=None, u=None):
         _require_err(self, err)  # as encode: never measure Q(x) when the
         # run would transmit Q(x + e)
         q, scale = self._quantize(self._carry_in(x, err), gen, u)
         return [q], [scale]
+
+
+class Int4Codec(_Quantized):
+    """Packed-nibble int4 payload with grouped scales: one float32 amax/7
+    per row per ``group`` columns, two values per wire byte."""
+
+    def __init__(self, name: str, stochastic: bool = True,
+                 error_feedback: bool = False, group: int = 128):
+        super().__init__(name, stochastic, error_feedback)
+        self.group = group
+
+    def n_groups(self, width: int) -> int:
+        return -(-width // self.group)
+
+    def payload_bytes(self, rows: int, width: int, dtype) -> int:
+        return rows * ((width + 1) // 2)
+
+    def total_bytes(self, rows: int, width: int, dtype) -> int:
+        return (self.payload_bytes(rows, width, dtype)
+                + rows * self.n_groups(width) * self.SCALE_BYTES)
+
+    def _quantize(self, x32, gen, u):
+        u = self._uniforms(x32, gen, u)
+        scale = int4_group_scale_ref(x32, self.group)
+        return quantize_int4(x32, scale, u, self.group), scale
+
+    def encode(self, x, gen=None, err=None, u=None):
+        _require_err(self, err)
+        x32 = self._carry_in(x, err)
+        q, scale = self._quantize(x32, gen, u)
+        # the mixing view comes off the packed wire bytes, each transient
+        # freed as it dies
+        packed = pack_int4(q)
+        del q
+        qw = unpack_int4(packed, x.shape[1])
+        del packed
+        xhat32 = dequantize_int4(qw, scale, self.group)
+        del qw
+        return self._finish(x, x32, xhat32, err)
+
+    def wire_payload(self, x, gen=None, err=None, u=None):
+        _require_err(self, err)  # as Int8Codec.wire_payload
+        q, scale = self._quantize(self._carry_in(x, err), gen, u)
+        return [pack_int4(q)], [scale]
 
 
 class TopKCodec(Codec):
@@ -278,15 +370,13 @@ class TopKCodec(Codec):
 
 CODECS = {
     "f32": F32Codec(),
+    "bf16": DtypeCodec(torch.bfloat16, "bf16"),
     "int8": Int8Codec("int8", stochastic=True, error_feedback=False),
     "int8_ef": Int8Codec("int8_ef", stochastic=True, error_feedback=True),
+    "int4": Int4Codec("int4", stochastic=True, error_feedback=False),
+    "int4_ef": Int4Codec("int4_ef", stochastic=True, error_feedback=True),
     "topk": TopKCodec("topk", density=0.125),
 }
-
-# the reference's codecs that a later slice of the port brings
-LATER = {"bf16": "the bf16 wire slice",
-         "int4": "the int4 slice (quantize, dequantize, pack, unpack)",
-         "int4_ef": "the int4 slice (quantize, dequantize, pack, unpack)"}
 
 
 def get_codec(name):
@@ -297,10 +387,17 @@ def get_codec(name):
     try:
         return CODECS[name]
     except KeyError:
-        if name in LATER:
-            raise ValueError(
-                f"wire codec {name!r} is not in the port yet; it comes with "
-                f"{LATER[name]}. The port has {sorted(CODECS)}") from None
         raise ValueError(
             f"unknown wire codec {name!r}; known: {sorted(CODECS)}"
         ) from None
+
+
+def dtype_codec(wire_dtype):
+    """Codec of the reference's legacy ``wire_dtype=`` argument (None ->
+    identity): a torch dtype or its name."""
+    if wire_dtype is None:
+        return CODECS["f32"]
+    wd = _torch_dtype(wire_dtype)
+    if wd == torch.bfloat16:
+        return CODECS["bf16"]
+    return DtypeCodec(wd, str(wd).replace("torch.", ""))

@@ -6,12 +6,14 @@ PyTorch (the repository's conftest imports JAX, hence ``--noconftest``):
 
   python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerances: the mix is bit-identical to its plain version (both sum over k
-in the same order with separately rounded products; asserted with equality,
-so also within the stated 1e-6); the column mean likewise to 1e-6; the sum
-of squares to 1e-5 relative (another summation order). The wire kernels
-(quantize, dequantize, sparsify) are bit-identical to their plain versions
-(max |err| 0). Segments on the card are held against the CPU at rtol 1e-3.
+Tolerances: the mix, on float32 and on bfloat16 theta, is bit-identical to
+its plain version (both sum over k in the same order with separately
+rounded products; asserted with equality, so also within the stated 1e-6);
+the column mean likewise to 1e-6; the sum of squares to 1e-5 relative
+(another summation order). The wire kernels (int8 and int4 quantize and
+dequantize, nibble pack and unpack, sparsify) are bit-identical to their
+plain versions (max |err| 0). Segments on the card are held against the
+CPU at rtol 1e-3.
 """
 import numpy as np
 import pytest
@@ -24,13 +26,18 @@ from repro_torch.data.synthetic import SyntheticLM
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels.gossip_mix import gossip_mix
 from repro_torch.kernels.panel_reduce import panel_mean_consensus
-from repro_torch.kernels.ref import (dequantize_int8_ref, gossip_mix_ref,
-                                     int8_scale_ref, panel_mean_consensus_ref,
-                                     quantize_int8_ref, sparsify_topk_ref,
-                                     topk_threshold_ref)
-from repro_torch.kernels.wire_quant import (dequantize_int8, quantize_int8,
-                                            sparsify_topk)
-from repro_torch.wire import Int8Codec
+from repro_torch.kernels.ref import (dequantize_int4_ref, dequantize_int8_ref,
+                                     gossip_mix_ref, int4_group_scale_ref,
+                                     int8_scale_ref, pack_int4_ref,
+                                     panel_mean_consensus_ref,
+                                     quantize_int4_ref, quantize_int8_ref,
+                                     sparsify_topk_ref, topk_threshold_ref,
+                                     unpack_int4_ref)
+from repro_torch.kernels.wire_quant import (dequantize_int4, dequantize_int8,
+                                            pack_int4, quantize_int4,
+                                            quantize_int8, sparsify_topk,
+                                            unpack_int4)
+from repro_torch.wire import Int4Codec, Int8Codec
 
 pytestmark = pytest.mark.cuda
 TOL = 1e-6
@@ -56,9 +63,10 @@ def test_kernels_match_plain(cuda, m, D):
     W, theta = _inputs(m, D)
     Wc, tc = torch.from_numpy(W).to(cuda), torch.from_numpy(theta).to(cuda)
     for w in (Wc[:m].contiguous(), Wc):
-        got, ref = gossip_mix(w, tc), gossip_mix_ref(w, tc)
-        torch.cuda.synchronize()
-        assert torch.equal(got, ref)
+        for t in (tc, tc.to(torch.bfloat16)):
+            got, ref = gossip_mix(w, t), gossip_mix_ref(w, t)
+            torch.cuda.synchronize()
+            assert got.dtype == torch.float32 and torch.equal(got, ref)
     mean, sq = panel_mean_consensus(tc)
     rmean, rsq = panel_mean_consensus_ref(tc)
     torch.cuda.synchronize()
@@ -72,19 +80,24 @@ def test_kernels_match_plain(cuda, m, D):
     assert torch.equal(gossip_mix(Wc, t1), gossip_mix_ref(Wc, t1))
     torch.testing.assert_close(panel_mean_consensus(t1)[0], rmean,
                                atol=TOL, rtol=TOL)
+    b1 = torch.empty((m * D + 1,), dtype=torch.bfloat16, device=cuda)[1:]
+    b1 = b1.view(m, D)
+    b1.copy_(tc)
+    assert torch.equal(gossip_mix(Wc, b1), gossip_mix_ref(Wc, b1))
 
 
-def test_equal_weight_rows_are_bitwise_equal(cuda):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_equal_weight_rows_are_bitwise_equal(cuda, dtype):
     _, theta = _inputs(8, 4099)
     W = torch.full((9, 8), 1.0 / 8, device=cuda)
-    out = gossip_mix(W, torch.from_numpy(theta).to(cuda))
+    out = gossip_mix(W, torch.from_numpy(theta).to(cuda, dtype))
     assert torch.equal(out, out[:1].expand_as(out))
 
 
 def test_wrappers_raise_instead_of_falling_back(cuda):
     t = torch.zeros((4, 16), device=cuda)
-    with pytest.raises(TypeError):
-        gossip_mix(torch.eye(4, device=cuda), t.to(torch.bfloat16))
+    with pytest.raises(TypeError):  # float32 and bfloat16 theta only
+        gossip_mix(torch.eye(4, device=cuda), t.to(torch.float16))
     with pytest.raises(ValueError):
         gossip_mix(torch.eye(4, device=cuda), t.t())
     with pytest.raises(ValueError):
@@ -98,8 +111,12 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
 def _launch_all(W, theta):
     s = int8_scale_ref(theta)
     q = quantize_int8(theta, s)
-    return (gossip_mix(W, theta), panel_mean_consensus(theta),
-            dequantize_int8(q, s), sparsify_topk(theta, s))
+    s4 = int4_group_scale_ref(theta)
+    q4 = quantize_int4(theta, s4)
+    return (gossip_mix(W, theta), gossip_mix(W, theta.to(torch.bfloat16)),
+            panel_mean_consensus(theta), dequantize_int8(q, s),
+            sparsify_topk(theta, s), dequantize_int4(q4, s4),
+            unpack_int4(pack_int4(q4), theta.shape[1]))
 
 
 def test_launch_counts_only_on_the_card(cuda):
@@ -110,8 +127,10 @@ def test_launch_counts_only_on_the_card(cuda):
     assert set(launch_counts().values()) == {0}
     _launch_all(W.to(cuda), torch.from_numpy(theta).to(cuda))
     assert launch_counts() == {
-        "gossip_mix": 1, "panel_mean_consensus": 1, "quantize_int8": 1,
-        "dequantize_int8": 1, "sparsify_topk": 1}
+        "gossip_mix": 2, "gossip_mix_bf16": 1, "panel_mean_consensus": 1,
+        "quantize_int8": 1, "dequantize_int8": 1, "sparsify_topk": 1,
+        "quantize_int4": 1, "dequantize_int4": 1, "pack_int4": 1,
+        "unpack_int4": 1}
 
 
 def _quant_inputs(m, D, seed=0):
@@ -174,6 +193,98 @@ def test_wire_wrappers_raise_instead_of_falling_back(cuda):
         sparsify_topk(x, torch.ones((4,), device=cuda))  # not (m, 1)
 
 
+def _int4_inputs(m, D, group, seed=0):
+    """x (m, D) with an all-zero row and a row on exact half steps (every
+    group's amax 7/64, so its scale is 1/64 and x / s = k + 1/2), and
+    uniforms."""
+    rng = np.random.default_rng(seed + D)
+    x = rng.standard_normal((m, D)).astype(np.float32)
+    x[1] = 0.0
+    x[2] = ((rng.integers(-7, 7, size=D) + 0.5) / 64).astype(np.float32)
+    x[2, ::group] = 7 / 64
+    return x, rng.random((m, D), dtype=np.float32)
+
+
+@pytest.mark.parametrize("m,D,group", [(8, 333, 128), (8, 1000, 128),
+                                       (8, 1001, 128), (4, 64, 32),
+                                       (3, 4096, 128), (16, 1 << 20, 128),
+                                       (3, 5, 128), (3, 130, 6)])
+def test_int4_kernels_match_plain(cuda, m, D, group):
+    x, u = _int4_inputs(m, D, group)
+    xc, uc = torch.from_numpy(x).to(cuda), torch.from_numpy(u).to(cuda)
+    s = int4_group_scale_ref(xc, group)
+    assert torch.all(s[2] == 1 / 64)
+    for uu in (None, uc):
+        q = quantize_int4(xc, s, uu, group)
+        torch.cuda.synchronize()
+        assert torch.equal(q, quantize_int4_ref(xc, s, uu, group))
+        p = pack_int4(q)
+        torch.cuda.synchronize()
+        assert p.shape == (m, (D + 1) // 2)
+        assert torch.equal(p, pack_int4_ref(q))
+        back = unpack_int4(p, D)
+        torch.cuda.synchronize()
+        assert torch.equal(back, unpack_int4_ref(p, D))
+        assert torch.equal(back, q)
+        y = dequantize_int4(back, s, group)
+        torch.cuda.synchronize()
+        assert torch.equal(y, dequantize_int4_ref(back, s, group))
+    # every nibble value, packed and unpacked, on an odd width
+    q8 = torch.arange(-8, 8, dtype=torch.int8, device=cuda).repeat(m, 3)
+    q8 = q8[:, :47].contiguous()
+    assert torch.equal(unpack_int4(pack_int4(q8), 47), q8)
+    # views one element past an aligned address take the one-column paths
+    xb = torch.empty((m * D + 1,), dtype=torch.float32, device=cuda)[1:]
+    x1 = xb.view(m, D)
+    x1.copy_(xc)
+    q1 = quantize_int4(x1, s, uc, group)
+    assert torch.equal(q1, quantize_int4_ref(xc, s, uc, group))
+    qb = torch.empty((m * D + 1,), dtype=torch.int8, device=cuda)[1:]
+    qv = qb.view(m, D)
+    qv.copy_(q1)
+    assert torch.equal(dequantize_int4(qv, s, group),
+                       dequantize_int4_ref(q1, s, group))
+    assert torch.equal(pack_int4(qv), pack_int4_ref(q1))
+    pb = torch.empty((m * ((D + 1) // 2) + 1,), dtype=torch.uint8,
+                     device=cuda)[1:]
+    pv = pb.view(m, (D + 1) // 2)
+    pv.copy_(pack_int4_ref(q1))
+    assert torch.equal(unpack_int4(pv, D), q1)
+
+
+def test_int4_round_to_nearest_takes_ties_to_even(cuda):
+    x, _ = _int4_inputs(4, 1001, 128)
+    xc = torch.from_numpy(x).to(cuda)
+    q = quantize_int4(xc, int4_group_scale_ref(xc)).cpu().numpy()
+    ties = np.ones(1001, bool)
+    ties[::128] = False
+    assert np.all(q[2][ties] % 2 == 0) and np.all(q[1] == 0)
+
+
+def test_int4_wrappers_raise_instead_of_falling_back(cuda):
+    x = torch.zeros((4, 256), device=cuda)
+    s = torch.ones((4, 2), device=cuda)
+    q = torch.zeros((4, 256), dtype=torch.int8, device=cuda)
+    with pytest.raises(TypeError):
+        quantize_int4(x.double(), s)
+    with pytest.raises(ValueError):
+        quantize_int4(x, torch.ones((4, 1), device=cuda))  # not (m, G)
+    with pytest.raises(ValueError):
+        quantize_int4(x, s, torch.rand((4, 256)))  # u on the CPU
+    with pytest.raises(TypeError):
+        dequantize_int4(x, s)  # float32 where int8 is taken
+    with pytest.raises(ValueError):
+        dequantize_int4(q, s.cpu())
+    with pytest.raises(TypeError):
+        pack_int4(q.to(torch.uint8))
+    with pytest.raises(ValueError):
+        pack_int4(torch.zeros((4, 512), dtype=torch.int8,
+                              device=cuda)[:, ::2])  # not contiguous
+    with pytest.raises(ValueError):
+        unpack_int4(torch.zeros((4, 128), dtype=torch.uint8, device=cuda),
+                    300)  # 128 bytes hold 255 or 256 columns
+
+
 def test_panel_ops_match_cpu(cuda):
     _, theta = _inputs(4, 2000, seed=3)
     pan = {"float32": torch.from_numpy(theta)}
@@ -191,13 +302,16 @@ def test_panel_ops_match_cpu(cuda):
                                atol=0.0)
 
 
-@pytest.mark.parametrize("wire", [None, "topk", "int8_ef_rtn"])
+@pytest.mark.parametrize("wire", [None, "topk", "int8_ef_rtn", "bf16",
+                                  "int4_ef_rtn"])
 def test_segment_on_card_matches_cpu(cuda, wire):
     """The reduced olmo-1b segment on the card against the same segment on
-    the CPU, on the f32 wire and on the two wire paths (the round-to-nearest
-    int8_ef: the generators of the card and the CPU give other uniforms):
-    rtol 1e-3, since cuBLAS and the CPU's GEMMs sum in other orders and
-    AdamW amplifies float32 rounding."""
+    the CPU, on the f32 wire and on the wire paths (the round-to-nearest
+    int8_ef and int4_ef: the generators of the card and the CPU give other
+    uniforms): rtol 1e-3, since cuBLAS and the CPU's GEMMs sum in other
+    orders and AdamW amplifies float32 rounding. After the final merge
+    every row is the same; Xi is 0 but under bf16, whose rows are rounded
+    through bf16 while the folded mean stays float32."""
     from repro_torch.configs import get_config
     from repro_torch.launch.train import (build_cpu_preset,
                                           sample_segment_batches)
@@ -213,8 +327,12 @@ def test_segment_on_card_matches_cpu(cuda, wire):
     batches = sample_segment_batches(
         lm, lm.domain_mixtures(m, 0.1, seed=1), rounds, H, 4, 32,
         np.random.default_rng(2))
+    name = wire
     if wire == "int8_ef_rtn":
         wire = {"float32": Int8Codec("int8_ef", stochastic=False,
+                                     error_feedback=True)}
+    if wire == "int4_ef_rtn":
+        wire = {"float32": Int4Codec("int4_ef", stochastic=False,
                                      error_feedback=True)}
     mets = {}
     for dev in ("cpu", cuda):
@@ -227,9 +345,11 @@ def test_segment_on_card_matches_cpu(cuda, wire):
                                   state["wire_err"].items()}}
                     if "wire_err" in state else {})}
         seg = dsgd.make_panel_segment(model.loss_fn, opt, H, spec)
-        _, out = seg(state, batches, Ws)
+        state, out = seg(state, batches, Ws)
         mets[str(dev)] = {k: v.cpu().numpy() for k, v in out.items()}
+        x = state["panel"]["float32"]
+        assert torch.equal(x, x[:1].expand_as(x))
     for k in mets["cpu"]:
         np.testing.assert_allclose(mets["cuda"][k], mets["cpu"][k],
                                    rtol=1e-3, atol=1e-5)
-    assert mets["cuda"]["consensus"][-1] == 0.0
+    assert name == "bf16" or mets["cuda"]["consensus"][-1] == 0.0
