@@ -12,17 +12,23 @@ Phases, each printing its lines:
      version, byte bound and the one PyTorch call that computes the same
      function where there is one (torch.matmul for the mix, on float32 and
      on bf16 operands, torch.quantize_per_channel and dequantize() for
-     round-to-nearest int8; none for grouped int4 or nibble packing);
+     round-to-nearest int8; none for grouped int4, nibble packing or the
+     merge operators' column merges); the TIES thresholds computed on the
+     card equal the CPU's bit for bit;
   4. a small run of the training segment on the card against the same run
      on the CPU (plain versions), from one init, one batch stream, one W
      stream: on the f32 wire, with topk, bf16 and a round-to-nearest int8_ef
-     and int4_ef (the card's and the CPU's generators give other uniforms);
+     and int4_ef (the card's and the CPU's generators give other uniforms),
+     and under the weighted, var, fisher, ties and swa merge operators
+     (ties also over the round-to-nearest int8_ef);
   5. the main path: olmo-1b at full width cut to 2 layers, 8 agents, the
      final-merge schedule, through init_panel_state -> make_panel_segment
      -> merged and local eval on the f32 wire; then, on the trained state,
      each piece of a round timed on its own (the breakdown line);
   6. the wire paths: the same cell with --wire int8_ef and int4_ef
-     (stochastic rounding, error feedback), topk and bf16;
+     (stochastic rounding, error feedback), topk and bf16; then the merge
+     paths: the same cell on the f32 wire with --merge var and --merge
+     ties;
   each path of 5 and 6 with the launch counts set to 0 just before it and
   read just after, and its peak device memory;
 then a JSON line of per-kernel numbers, the card's line again and, last,
@@ -54,14 +60,18 @@ DATA_VOCAB = 1024     # token ids the synthetic streams draw (of 50304)
 REPS = 20             # timed launches per measurement
 
 # the paths driven at full width (f32 is the main path) and the kernels
-# each must launch
+# each must launch; a path is a wire codec, or "merge <operator>" on the
+# f32 wire
 PATH_KERNELS = {"f32": ("gossip_mix", "panel_mean_consensus"),
                 "int8_ef": ("quantize_int8", "dequantize_int8", "gossip_mix"),
                 "topk": ("sparsify_topk", "gossip_mix",
                          "panel_mean_consensus"),
                 "int4_ef": ("quantize_int4", "pack_int4", "unpack_int4",
                             "dequantize_int4", "gossip_mix"),
-                "bf16": ("gossip_mix_bf16", "panel_mean_consensus")}
+                "bf16": ("gossip_mix_bf16", "panel_mean_consensus"),
+                "merge var": ("gossip_mix", "weighted_colmerge"),
+                "merge ties": ("gossip_mix", "panel_mean_consensus",
+                               "ties_colmerge")}
 
 
 def card_line():
@@ -428,9 +438,97 @@ def int4_checks(torch, D_main):
     return out
 
 
+def merge_checks(torch, D_main):
+    """Phase 3, merge kernels: the weighted and the TIES column merge
+    (trim 0.2 and 1.0) against their plain versions (max |err| must be 0),
+    the TIES thresholds on the card against the CPU's (bit for bit); times
+    at m = 8, D = D_main. No single PyTorch call computes either column
+    merge: library_ms null."""
+    from repro_torch.kernels.merge_ops import ties_colmerge, weighted_colmerge
+    from repro_torch.kernels.ref import (ties_colmerge_ref, ties_thresh_ref,
+                                         weighted_colmerge_ref)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    out = {}
+    for D in (333, 1000, 1001, D_main):
+        x = torch.randn((M, D), generator=gen, device="cuda")
+        w = torch.rand((M, D), generator=gen, device="cuda").add_(1e-3)
+        got = weighted_colmerge(x, w)
+        check(torch.equal(got, weighted_colmerge_ref(x, w)),
+              f"weighted_colmerge disagrees at D={D}")
+        del got
+        if D == D_main:
+            nbytes, ops = 4 * (2 * M * D + D), 3 * M * D
+            b_ms, b_by = bound(nbytes, ops)
+            out["weighted_colmerge"] = {
+                "ms": time_ms(torch, lambda: weighted_colmerge(x, w)),
+                "plain_ms": time_ms(torch,
+                                    lambda: weighted_colmerge_ref(x, w)),
+                "library_ms": None, "bytes": nbytes, "ops": ops,
+                "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": 0.0}
+        del w
+        tau = x - torch.mean(x, dim=0)
+        del x
+        secs = {}
+        for trim in (0.2, 1.0):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            th = ties_thresh_ref(tau, trim)
+            torch.cuda.synchronize()
+            secs[trim] = time.perf_counter() - t0
+            check(torch.equal(th.cpu(), ties_thresh_ref(tau.cpu(), trim)),
+                  f"TIES thresholds (trim {trim}) on the card differ from "
+                  f"the CPU's at D={D}")
+            got = ties_colmerge(tau, th)
+            check(torch.equal(got, ties_colmerge_ref(tau, th)),
+                  f"ties_colmerge (trim {trim}) disagrees at D={D}")
+            del got
+        print(f"check D={D}: weighted_colmerge, ties_colmerge (trim 0.2, "
+              f"1.0) max|err| 0; TIES thresholds card == CPU, "
+              f"{secs[0.2]:.3f} s / {secs[1.0]:.3f} s on the card for "
+              f"{M} rows", flush=True)
+        if D == D_main:
+            # why the thresholds sort on the card: one row's order
+            # statistic by torch.kthvalue against one torch.sort
+            mag = torch.abs(tau[0])
+            sel = {}
+            for name, fn in (("kthvalue", lambda: torch.kthvalue(
+                    mag, int(0.8 * D)).values),
+                             ("sort", lambda: torch.sort(mag).values)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                sel[name] = time.perf_counter() - t0
+            del mag
+            print(f"one row of |tau| (D={D}): torch.kthvalue "
+                  f"{sel['kthvalue']:.3f} s, torch.sort {sel['sort']:.3f} s "
+                  f"on the card", flush=True)
+            th = ties_thresh_ref(tau, 0.2)
+            nbytes, ops = 4 * (M * D + M + D), 8 * M * D
+            b_ms, b_by = bound(nbytes, ops)
+            out["ties_colmerge"] = {
+                "ms": time_ms(torch, lambda: ties_colmerge(tau, th)),
+                "plain_ms": time_ms(torch,
+                                    lambda: ties_colmerge_ref(tau, th)),
+                "library_ms": None, "bytes": nbytes, "ops": ops,
+                "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": 0.0,
+                "thresholds_s": secs[0.2]}
+            for name in ("weighted_colmerge", "ties_colmerge"):
+                r_ = out[name]
+                print(f"time {name} (m={M}, D={D}): kernel {r_['ms']:.4f} "
+                      f"ms, plain {r_['plain_ms']:.4f} ms, library none, "
+                      f"bound {r_['bound_ms']:.4f} ms ({r_['bytes']} "
+                      f"bytes), {100 * r_['bound_ms'] / r_['ms']:.1f}% of "
+                      f"the bound", flush=True)
+        del tau
+    torch.cuda.empty_cache()
+    return out
+
+
 def segment_inputs(cfg, m, rounds, seed=0, data_vocab=None, batch=BATCH,
                    seq=SEQ):
-    """W stream and batches as the launcher draws them (schedule first)."""
+    """(W, batches, global) per round as the launcher draws them (schedule
+    first; ``global`` is the schedule's own mark of a global round)."""
     import numpy as np
     from repro_torch.core.schedule import make_schedule
     from repro_torch.data.synthetic import SyntheticLM, make_agent_lm_batches
@@ -443,8 +541,9 @@ def segment_inputs(cfg, m, rounds, seed=0, data_vocab=None, batch=BATCH,
     per_round = []
     for t in range(rounds):
         W = np.asarray(sched.mixing_matrix(t), np.float32)[None]
+        glob = np.asarray([sched.last_kind == "global"])
         per_round.append((W, sample_segment_batches(
-            lm, mixtures, 1, H, batch, seq, rng_np)))
+            lm, mixtures, 1, H, batch, seq, rng_np), glob))
     glob_mix = np.ones(lm.num_domains) / lm.num_domains
     eval_batch = {k: v[0] for k, v in make_agent_lm_batches(
         lm, [glob_mix], 2 * batch, seq, np.random.default_rng(999)).items()}
@@ -454,7 +553,9 @@ def segment_inputs(cfg, m, rounds, seed=0, data_vocab=None, batch=BATCH,
 def small_parity(torch):
     """Phase 4: the reduced olmo-1b segment on the card (kernels) against
     the same segment on the CPU (plain versions), on the f32 wire, with
-    topk, bf16 and a round-to-nearest int8_ef and int4_ef."""
+    topk, bf16 and a round-to-nearest int8_ef and int4_ef, and under every
+    non-uniform merge operator (ties also over the round-to-nearest
+    int8_ef)."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.core import dsgd
@@ -465,25 +566,31 @@ def small_parity(torch):
     cfg = build_cpu_preset(get_config("olmo-1b"), 4)
     model = build_model(cfg)
     per_round, _ = segment_inputs(cfg, 4, 3, batch=4, seq=32)
-    wires = {"f32": None, "topk": "topk", "bf16": "bf16",
-             "int8_ef round to nearest": {"float32": Int8Codec(
-                 "int8_ef", stochastic=False, error_feedback=True)},
-             "int4_ef round to nearest": {"float32": Int4Codec(
-                 "int4_ef", stochastic=False, error_feedback=True)}}
-    for label, wire in wires.items():
+    int8_rtn = {"float32": Int8Codec("int8_ef", stochastic=False,
+                                     error_feedback=True)}
+    # label: (wire, merge operator)
+    cases = {"f32": (None, None), "topk": ("topk", None),
+             "bf16": ("bf16", None),
+             "int8_ef round to nearest": (int8_rtn, None),
+             "int4_ef round to nearest": ({"float32": Int4Codec(
+                 "int4_ef", stochastic=False, error_feedback=True)}, None),
+             "merge weighted": (None, "weighted"),
+             "merge var": (None, "var"), "merge fisher": (None, "fisher"),
+             "merge ties": (None, "ties"), "merge swa": (None, "swa"),
+             "merge ties, int8_ef round to nearest": (int8_rtn, "ties")}
+    for label, (wire, merger) in cases.items():
         runs, same = {}, {}
         for dev in ("cpu", "cuda"):
             opt = make_optimizer("adamw", 3e-3, total_steps=3 * H)
             state, spec = dsgd.init_panel_state(model.init_params, opt, 4, 0,
-                                                device="cpu", wire=wire)
-            state = {k: ({g: x.to(dev) for g, x in v.items()}
-                         if k in ("panel", "wire_err") else v)
-                     for k, v in state.items()}
+                                                device="cpu", wire=wire,
+                                                merger=merger)
+            state = {k: tree_to(v, dev) for k, v in state.items()}
             state["opt"] = opt.init(state["panel"])
             seg = dsgd.make_panel_segment(model.loss_fn, opt, H, spec)
             rows = []
-            for W, b in per_round:
-                state, mets = seg(state, b, W)
+            for W, b, glob in per_round:
+                state, mets = seg(state, b, W, global_rounds=glob)
                 rows.append([float(mets["loss"][0]),
                              float(mets["consensus"][0])])
             runs[dev] = np.asarray(rows)
@@ -502,13 +609,23 @@ def small_parity(torch):
               f"{label}: Xi after the final merge is not 0")
 
 
-def drive_path(torch, wire):
+def tree_to(tree, dev):
+    """A state's tensors (nested dicts of them) moved to ``dev``."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, dev) for k, v in tree.items()}
+    return tree.to(dev) if hasattr(tree, "to") else tree
+
+
+def drive_path(torch, path):
     """Phases 5 and 6: olmo-1b at full width, 2 layers, 8 agents, the
     final-merge schedule, through init_panel_state -> make_panel_segment
-    -> merged and local eval, with the gossip payload through ``wire``
-    (``f32`` is the main path, as the launcher's default). The launch
-    counts are set to 0 just before and read just after; the main path then
-    times each piece of a round (breakdown). Returns (counts, D)."""
+    -> merged and local eval. ``path`` is the wire codec of the gossip
+    payload (``f32`` is the main path, as the launcher's default), or
+    ``merge <operator>``: the f32 wire with that merge operator on the
+    global round (the segment told which round is global, as the launcher
+    tells it). The launch counts are set to 0 just before and read just
+    after; the main path then times each piece of a round (breakdown).
+    Returns (counts, D)."""
     from repro_torch.configs import get_config
     from repro_torch.core import dsgd
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -526,55 +643,61 @@ def drive_path(torch, wire):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
+    wire, merger = ((None, path.split()[1]) if path.startswith("merge ")
+                    else (path, None))
     reset_launch_counts()
     gen = torch.Generator(device=dev).manual_seed(0)
     state, spec = dsgd.init_panel_state(model.init_params, opt, M, gen,
-                                        device=dev, wire=wire)
+                                        device=dev, wire=wire, merger=merger)
     seg = dsgd.make_panel_segment(model.loss_fn, opt, H, spec)
     wire_gen = torch.Generator(device=dev).manual_seed(3)
-    print(f"path {wire}: {cfg.name} d_model {cfg.d_model}, {cfg.num_layers} "
+    print(f"path {path}: {cfg.name} d_model {cfg.d_model}, {cfg.num_layers} "
           f"layers, vocab {cfg.vocab_size} padded to {cfg.padded_vocab}, "
           f"D {spec.width} per agent, m {M}, H {H}, batch {BATCH}, seq "
           f"{SEQ}; device memory held before the path {held} bytes; "
           f"{spec.wire_payload_bytes} B/agent payload "
           f"({spec.wire_total_bytes} B with scales/indices) per full-panel "
-          f"exchange", flush=True)
+          f"exchange; merge operator {spec.merger}", flush=True)
     losses, xis = [], []
-    for t, (W, b) in enumerate(per_round):
+    for t, (W, b, glob) in enumerate(per_round):
         t0 = time.perf_counter()
-        state, mets = seg(state, b, W, wire_gen)
+        state, mets = seg(state, b, W, wire_gen, global_rounds=glob)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         losses.append(float(mets["loss"][0]))
         xis.append(float(mets["consensus"][0]))
         kind = ("idle" if (W[0] == torch.eye(M).numpy()).all() else
                 "merge" if (W[0] == 1.0 / M).all() else "mix")
-        print(f"round {t} ({kind}, {wire}): loss {losses[-1]:.6f} Xi "
+        print(f"round {t} ({kind}, {path}): loss {losses[-1]:.6f} Xi "
               f"{xis[-1]!r} {dt:.3f}s; device memory peak so far "
               f"{torch.cuda.max_memory_allocated()} bytes, held "
               f"{torch.cuda.memory_allocated()}", flush=True)
-    merged = eval_merged(model.loss_fn, state["panel"], spec, eval_batch)
+    t0 = time.perf_counter()
+    merged = eval_merged(model.loss_fn, state["panel"], spec, eval_batch,
+                         state.get("merge_stat"))
     local = eval_local(model.loss_fn, state["panel"], spec, eval_batch)
     torch.cuda.synchronize()
+    dt_eval = time.perf_counter() - t0
     counts = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     same = rows_identical(torch, state["panel"])
-    print(f"kernels ({wire}) {json.dumps(counts)}", flush=True)
-    print(f"eval ({wire}): merged {merged!r} local {local!r}; peak device "
-          f"memory {peak} bytes; after the final merge the rows are "
-          f"identical: {same}, Xi reported {xis[-1]!r}", flush=True)
-    check(all(counts[k] > 0 for k in PATH_KERNELS[wire]),
-          f"a kernel of the {wire} path never launched: {counts}")
-    check(same, f"{wire}: the agents' rows differ after the final merge")
+    print(f"kernels ({path}) {json.dumps(counts)}", flush=True)
+    print(f"eval ({path}): merged {merged!r} local {local!r} "
+          f"({dt_eval:.3f}s for both); peak device memory {peak} bytes; "
+          f"after the final merge the rows are identical: {same}, Xi "
+          f"reported {xis[-1]!r}", flush=True)
+    check(all(counts[k] > 0 for k in PATH_KERNELS[path]),
+          f"a kernel of the {path} path never launched: {counts}")
+    check(same, f"{path}: the agents' rows differ after the final merge")
     # bf16 rounds the merged rows through bf16 while the folded mean stays
     # float32 (the reference's rule): the segment's Xi is that rounding
     check(xis[-1] == 0.0 or wire == "bf16",
-          f"{wire}: Xi after the final merge is {xis[-1]!r}, not 0")
+          f"{path}: Xi after the final merge is {xis[-1]!r}, not 0")
     check(all(math.isfinite(x) for x in losses + [merged, local]),
-          f"{wire}: a loss is not finite")
+          f"{path}: a loss is not finite")
     check(abs(local - merged) <= 1e-6 * abs(merged),
-          f"{wire}: local eval {local!r} != merged eval {merged!r}")
-    if wire == "f32":
+          f"{path}: local eval {local!r} != merged eval {merged!r}")
+    if path == "f32":
         breakdown(torch, model, opt, state, spec, per_round[0])
     width = spec.width
     del state, seg
@@ -595,7 +718,7 @@ def breakdown(torch, model, opt, state, spec, round_inputs, reps=3):
     state. Runs after the main path's counts were read."""
     from repro_torch.core import dsgd
     from repro_torch.core import panel as panel_mod
-    _, b = round_inputs
+    b = round_inputs[1]
     W_mix = torch.full((M, M), 1.0 / M).numpy()
     dev = next(iter(state["panel"].values())).device
     batch = {k: torch.as_tensor(v[0, 0]).to(dev) for k, v in b.items()}
@@ -653,11 +776,12 @@ def main():
     measured = kernel_checks(torch, D)
     measured.update(wire_checks(torch, D))
     measured.update(int4_checks(torch, D))
+    measured.update(merge_checks(torch, D))
     small_parity(torch)
     counts = {}
-    for wire in PATH_KERNELS:
-        counts[wire], width = drive_path(torch, wire)
-        check(width == D, f"{wire} path D {width} != checked D {D}")
+    for path in PATH_KERNELS:
+        counts[path], width = drive_path(torch, path)
+        check(width == D, f"{path} path D {width} != checked D {D}")
 
     # name: (source, the TPU kernel it replaces, the run its launches are
     # read from)
@@ -678,7 +802,11 @@ def main():
         "pack_int4": ("wire_int4.cu", "wire_quant.py:358",
                       counts["int4_ef"]),
         "unpack_int4": ("wire_int4.cu", "wire_quant.py:377",
-                        counts["int4_ef"])}
+                        counts["int4_ef"]),
+        "weighted_colmerge": ("merge_ops.cu", "merge_ops.py:62",
+                              counts["merge var"]),
+        "ties_colmerge": ("merge_ops.cu", "merge_ops.py:85",
+                          counts["merge ties"])}
     # sub-rows: the round-to-nearest quantizes, the bf16 variant of the mix
     variants = {"quantize_int8": ("rtn", "quantize_int8_rtn", None),
                 "quantize_int4": ("rtn", "quantize_int4_rtn", None),

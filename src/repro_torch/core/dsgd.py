@@ -29,7 +29,16 @@ innovation over a mirror panel, mixed in damped delta form). An
 error-feedback codec keeps ``state["wire_err"]``, one float32 panel per
 dtype group. Stochastic rounding draws from a ``torch.Generator`` (the
 segment's ``rng``), one draw per stochastic group per communicating round.
-The non-uniform mergers, liveness, storage residency and telemetry are
+
+Merge operators (``repro_torch.merging``, named on the spec by
+``panel.with_merger`` / ``init_panel_state(merger=...)``): 'uniform' keeps
+the path above byte for byte. Any other operator takes the GLOBAL rounds
+through ``merging.merge_panel`` (the payload still through the wire
+policy, one merged row broadcast back; Xi is 0). A statistical operator
+(var, fisher, swa) carries its per-agent statistics panels as
+``state["merge_stat"]``, updated in place every local step from the
+gradients (fisher) or once per round from the parameters before the
+communication (var, swa). Liveness, storage residency and telemetry are
 later slices.
 
 The reference scans a whole segment on device under jit with donated
@@ -40,7 +49,6 @@ caller's state is consumed).
 """
 from __future__ import annotations
 
-import dataclasses
 from typing import Callable
 
 import numpy as np
@@ -78,6 +86,15 @@ def _with_wire_state(state, spec):
     return state
 
 
+def _with_merge_stats(state, spec):
+    """Add fresh statistics panels when the spec's merge operator keeps
+    any (``Merger.init_stats`` of the initial parameter panel)."""
+    mg = get_merger(spec.merger)
+    if mg.stat_panels:
+        state["merge_stat"] = mg.init_stats(state["panel"])
+    return state
+
+
 def init_panel_state(init_params: Callable, optimizer: Optimizer, m: int,
                      rng=None, *, device=None, merger=None, wire=None):
     """Panel train state: params AND optimizer moments as per-dtype (m, D)
@@ -93,12 +110,16 @@ def init_panel_state(init_params: Callable, optimizer: Optimizer, m: int,
     codec for every dtype group, or a per-group dict). An error-feedback
     codec adds ``state["wire_err"]``: the zero-initialised residual for
     int8_ef and int4_ef, the MIRROR (a copy of the initial panel) for
-    topk."""
+    topk.
+
+    ``merger`` names the merge operator of global rounds
+    (panel.with_merger). A statistical operator (var, fisher, swa) adds
+    ``state["merge_stat"]``, its per-agent float32 statistics panels in
+    the parameter panel's layout."""
     device = resolve_device(device)
     gen = _generator(rng, device)
     first = init_params(gen, device)
-    spec = dataclasses.replace(panel_mod.make_spec(first, rows=m),
-                               merger=get_merger(merger or "uniform").name)
+    spec = panel_mod.with_merger(panel_mod.make_spec(first, rows=m), merger)
     spec = panel_mod.with_wire(spec, wire)
     pan = {g: torch.empty((m, w), dtype=getattr(torch, g), device=device)
            for g, w in spec.groups}
@@ -106,20 +127,24 @@ def init_panel_state(init_params: Callable, optimizer: Optimizer, m: int,
     for k in range(1, m):
         panel_mod.write_row(pan, spec, k, init_params(gen, device))
     del first
-    return _with_wire_state(
-        {"panel": pan, "opt": optimizer.init(pan), "step": 0}, spec), spec
+    return _with_merge_stats(_with_wire_state(
+        {"panel": pan, "opt": optimizer.init(pan), "step": 0}, spec),
+        spec), spec
 
 
 def panel_state_from_params(params_stacked, optimizer: Optimizer, *,
-                            wire=None):
+                            wire=None, merger=None):
     """Panel train state from an agent-stacked parameter tree (e.g. one
     handed over from the reference by ``weights.from_reference_params``),
-    with the wire policy of :func:`init_panel_state`. Returns (state,
-    spec)."""
-    spec = panel_mod.with_wire(panel_mod.make_spec(params_stacked), wire)
+    with the wire policy and the merge operator of
+    :func:`init_panel_state`. Returns (state, spec)."""
+    spec = panel_mod.with_wire(
+        panel_mod.with_merger(panel_mod.make_spec(params_stacked), merger),
+        wire)
     pan = panel_mod.to_panel(params_stacked, spec)
-    return _with_wire_state(
-        {"panel": pan, "opt": optimizer.init(pan), "step": 0}, spec), spec
+    return _with_merge_stats(_with_wire_state(
+        {"panel": pan, "opt": optimizer.init(pan), "step": 0}, spec),
+        spec), spec
 
 
 def panel_grads(loss_fn: Callable, panel, spec, batch):
@@ -155,7 +180,8 @@ def make_panel_segment(loss_fn: Callable, optimizer: Optimizer,
                        local_steps: int, spec):
     """Panel driver for one SCHEDULE SEGMENT of rounds.
 
-    segment(state, batches, Ws, rng=None) -> (state, metrics) with
+    segment(state, batches, Ws, rng=None, global_rounds=None)
+        -> (state, metrics) with
       batches leaves (S, H, m, b, ...) — H DISTINCT batches per round
                                          (numpy arrays or tensors),
       Ws (S, m, m)                     — the rounds' mixing matrices,
@@ -163,6 +189,10 @@ def make_panel_segment(loss_fn: Callable, optimizer: Optimizer,
                                          panel's device or an integer seed;
                                          required when the wire policy
                                          rounds stochastically,
+      global_rounds (S,) bool          — which rounds are GLOBAL merges
+                                         (the launcher reads the schedule's
+                                         ``last_kind``); None fingerprints
+                                         W against the 1/m matrix,
       metrics {name: (S,) float32 tensor} on the panel's device:
         ``loss`` and ``grad_norm``/``grad_norm_max`` (mean and max over the
         H local steps of the step's mean loss and of the norm of the
@@ -173,7 +203,18 @@ def make_panel_segment(loss_fn: Callable, optimizer: Optimizer,
     init_panel_state(wire=...)). An error-feedback codec carries
     ``state["wire_err"]`` through the segment; it changes only on
     communicating rounds. A delta codec (topk) takes its global rounds
-    (W == 1/m) through ``merging.merge_panel`` and reports Xi = 0 there.
+    through ``merging.merge_panel`` and reports Xi = 0 there.
+
+    The merge operator comes from the spec too (panel.with_merger). A
+    non-uniform operator takes the global rounds through
+    ``merging.merge_panel`` and reports Xi = 0; a statistical one needs
+    ``state["merge_stat"]`` (init_panel_state(merger=...)) and updates it
+    in place: fisher after each local step's gradients, before the
+    optimizer; var and swa after the local steps, before the
+    communication. Without ``global_rounds`` a round is global when its W
+    equals the 1/m matrix, which a gossip round can equal too (a matched
+    pair at m = 2, a 3-agent ring): pass the mask when a non-uniform
+    operator runs on such topologies.
 
     The state is consumed (the counterpart of the reference's donated
     buffers): the segment takes its panels out of the caller's dict, the
@@ -189,8 +230,10 @@ def make_panel_segment(loss_fn: Callable, optimizer: Optimizer,
     # round and cannot stay inside the damped delta mix
     plain_merge = (merger.name == "uniform"
                    and not _wire_any(spec, "delta_mix"))
+    local_stat = not plain_merge and merger.local_stat
+    round_stat = not plain_merge and merger.round_stat
 
-    def segment(state, batches, Ws, rng=None):
+    def segment(state, batches, Ws, rng=None, global_rounds=None):
         x0 = next(iter(state["panel"].values()))
         m, dev = x0.shape[0], x0.device
         del x0
@@ -199,6 +242,11 @@ def make_panel_segment(loss_fn: Callable, optimizer: Optimizer,
                 "spec's wire policy uses error feedback but the state has "
                 "no 'wire_err' panel; build the state with "
                 "init_panel_state(..., wire=...)")
+        if merger.stat_panels and "merge_stat" not in state:
+            raise ValueError(
+                f"spec's merge operator '{merger.name}' keeps statistics "
+                "panels but the state has no 'merge_stat'; build the state "
+                "with init_panel_state(..., merger=...)")
         if needs_key and rng is None:
             raise ValueError(
                 "spec's wire policy rounds stochastically and needs rng= "
@@ -208,8 +256,14 @@ def make_panel_segment(loss_fn: Callable, optimizer: Optimizer,
         # replaces is freed at once
         pan, opt = state.pop("panel"), state.pop("opt")
         werr = state.pop("wire_err") if needs_ef else None
+        mstat = state.pop("merge_stat", None)
         Ws_host = np.asarray(torch.as_tensor(Ws, dtype=torch.float32).cpu())
         S = Ws_host.shape[0]
+        glob = (None if global_rounds is None else
+                np.asarray(torch.as_tensor(global_rounds).cpu(), bool))
+        if glob is not None and glob.shape != (S,):
+            raise ValueError(f"global_rounds must be ({S},), got "
+                             f"{glob.shape}")
         eye = np.eye(m, dtype=np.float32)
         full = np.full((m, m), 1.0 / m, dtype=np.float32)
         batches = {k: torch.as_tensor(v).to(dev) for k, v in batches.items()}
@@ -220,20 +274,29 @@ def make_panel_segment(loss_fn: Callable, optimizer: Optimizer,
             for h in range(local_steps):
                 batch = {k: v[s, h] for k, v in batches.items()}
                 gpan, agent_losses = panel_grads(loss_fn, pan, spec, batch)
+                if local_stat:
+                    mstat = merger.update_local(mstat, gpan)
                 pan, opt = optimizer.update(gpan, opt, pan)
                 losses.append(torch.mean(agent_losses))
                 gns.append(panel_mod.panel_norm(gpan, axis_mean=True))
                 del gpan
+            if round_stat:
+                mstat = merger.update_round(mstat, pan)
             W = Ws_host[s]
-            # W == I rounds communicate nothing: no sweep over the panel,
-            # no codec, no draw
-            if np.array_equal(W, eye):
-                mets["consensus"].append(panel_mod.consensus_distance(pan))
-            elif not plain_merge and np.array_equal(W, full):
-                pan, _, werr = merge_panel(pan, merger, spec=spec, gen=gen,
-                                           err=werr)
+            # non-uniform operators (and delta codecs) take the GLOBAL
+            # rounds: the explicit mask when given, else the W fingerprint
+            is_global = not plain_merge and (
+                bool(glob[s]) if glob is not None
+                else np.array_equal(W, full))
+            if is_global:
+                pan, _, werr = merge_panel(pan, merger, stats=mstat,
+                                           spec=spec, gen=gen, err=werr)
                 mets["consensus"].append(
                     torch.zeros((), dtype=torch.float32, device=dev))
+            # W == I rounds communicate nothing: no sweep over the panel,
+            # no codec, no draw
+            elif np.array_equal(W, eye):
+                mets["consensus"].append(panel_mod.consensus_distance(pan))
             else:
                 pan, mean, werr = panel_mod.mix_dense_mean(
                     pan, W, spec=spec, gen=gen, err=werr)
@@ -248,6 +311,8 @@ def make_panel_segment(loss_fn: Callable, optimizer: Optimizer,
                "step": state["step"] + S * local_steps}
         if werr is not None:
             out["wire_err"] = werr
+        if mstat is not None:
+            out["merge_stat"] = mstat
         return out, {k: torch.stack(v) for k, v in mets.items()}
 
     return segment

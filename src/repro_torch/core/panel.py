@@ -16,6 +16,9 @@ The communication ops run one fused op per dtype group:
   column mean and the consensus distance Xi through the
   ``panel_mean_consensus`` kernel.
 
+The merge operator of global rounds is named on the spec
+(:func:`with_merger`, ``repro_torch.merging``).
+
 The payload travels through the spec's wire policy (:func:`with_wire`,
 ``repro_torch.wire``): the float32 identity, ``bf16`` (the mix reads the
 bf16 payload through the ``gossip_mix`` kernel's bf16 variant and rounds
@@ -145,6 +148,28 @@ def with_wire(spec: PanelSpec, wire) -> PanelSpec:
     for name in mapping.values():
         wire_mod.get_codec(name)
     return replace(spec, wire=tuple(sorted(mapping.items())))
+
+
+def with_merger(spec: PanelSpec, merger) -> PanelSpec:
+    """Attach a merge operator, by its ``merging.MERGERS`` registry name, to
+    ``spec``: the operator every GLOBAL round applies (the paper's single
+    final merging included). Validated here, so a typo fails when the spec
+    is built; None resets to 'uniform'. A ``Merger`` instance raises: the
+    spec names registry entries only, so register a configured instance
+    first (``merging.MERGERS['my_ties'] = TiesMerger(trim=0.5)``) and pass
+    its name."""
+    if merger is None:
+        return replace(spec, merger="uniform")
+    from repro_torch import merging as merging_mod  # merging imports panel
+    resolved = merging_mod.get_merger(merger)
+    if not isinstance(merger, str):
+        raise ValueError(
+            "with_merger takes a registry NAME. To use a configured "
+            f"instance, register it first — merging.MERGERS['my_"
+            f"{resolved.name}'] = instance — and pass that name; the "
+            f"registry entry {resolved.name!r} may carry other "
+            "hyperparameters than your instance")
+    return replace(spec, merger=merger)
 
 
 def to_panel(tree, spec: PanelSpec):

@@ -14,9 +14,17 @@ nearest (ties to even, as ``jnp.round``) or stochastic rounding
 ``floor(x / scale + u)``, dequantize, the int4 nibble pack and unpack, and
 the top-k threshold and mask. The scales and the threshold are row passes
 computed outside the kernels, as in the reference.
+
+The merge functions are the counterparts of the merge operators' oracles:
+the weighted column merge, the TIES trim thresholds (``jnp.quantile``'s
+float32 arithmetic, outside the kernel as in the reference) and the TIES
+column merge. The two column merges agree with their kernels bit for bit.
 """
 from __future__ import annotations
 
+from fractions import Fraction
+
+import numpy as np
 import torch
 
 
@@ -169,3 +177,130 @@ def unpack_int4_ref(p, D: int):
     m = p.shape[0]
     nib = torch.stack([p & 0xF, p >> 4], dim=2).reshape(m, -1)[:, :D]
     return ((nib.to(torch.int8) ^ 8) - 8).to(torch.int8)
+
+
+def weighted_colmerge_ref(x, w):
+    """x: (m, D) float32 panel; w: (m, D) float32 per-coordinate weights ->
+    (D,) float32 sum_k w_kj x_kj / sum_k w_kj.
+
+    Fixed order over k from k = 0, a row at a time: num = w_0 x_0, then
+    num + w_k x_k with the product and the sum rounded on their own (no
+    fused multiply-add), den = w_0 + w_1 + ..., and one IEEE division at
+    the end — the kernel's sequence. Callers keep the denominator positive
+    by folding their eps into w."""
+    num = w[0] * x[0]
+    den = w[0].clone()
+    for k in range(1, x.shape[0]):
+        num.add_(w[k] * x[k])
+        den.add_(w[k])
+    return num.div_(den)
+
+
+def _fma32(a, b, c):
+    """float32 fused multiply-add: a * b + c rounded once to float32 (to
+    nearest, ties to even), computed exactly with rationals."""
+    if not all(np.isfinite(v) for v in (a, b, c)):
+        return np.float32(np.float64(a) * np.float64(b) + np.float64(c))
+    exact = Fraction(float(a)) * Fraction(float(b)) + Fraction(float(c))
+    f = np.float32(float(exact))  # within an ulp of the answer
+    cands = (np.nextafter(f, np.float32(-np.inf)), f,
+             np.nextafter(f, np.float32(np.inf)))
+    return min(cands, key=lambda v: (abs(Fraction(float(v)) - exact),
+                                     int(np.float32(v).view(np.uint32)) & 1))
+
+
+def _order_stats(v, lo: int, hi: int):
+    """The lo-th and hi-th smallest entries (0-based) of the 1-D tensor v,
+    exactly, as float32 numpy scalars: ``torch.kthvalue`` on the CPU (a
+    selection), one sort on the card, whose ``kthvalue`` selects with a
+    single thread block per row (one row at olmo-1b's width, on an H100
+    80GB HBM3 at 700 W: kthvalue 1.733 s, sort 0.012 s; chip_smoke.py
+    times both)."""
+    if v.device.type == "cpu":
+        low = torch.kthvalue(v, lo + 1).values.item()
+        high = low if hi == lo else torch.kthvalue(v, hi + 1).values.item()
+    else:
+        srt = torch.sort(v).values
+        low, high = srt[lo].item(), srt[hi].item()
+    return np.float32(low), np.float32(high)
+
+
+def ties_thresh_ref(tau, trim: float):
+    """Per-row magnitude threshold of the TIES trim: the ``1 - trim``
+    quantile of |tau| in each row, as ``jnp.quantile(|tau|, 1 - trim,
+    axis=1, keepdims=True)`` computes it (method 'linear'): q =
+    float32(1 - trim), n = float32(D), the index q * (n - 1), its floor and
+    ceil and both interpolation weights all in float32, the two order
+    statistics picked exactly, one row at a time (the index clamped to
+    D - 1 as XLA's gather clamps it; :func:`_order_stats`), and the
+    interpolation low * lw + high * hw as XLA on the CPU compiles it under
+    jit (JAX 0.9.0): high * hw rounded to float32, then one fused
+    multiply-add fma(low, lw, .) (held against jitted ``jnp.quantile`` bit
+    for bit by the tests; both products rounded on their own would differ
+    by an ulp in about one row in six). A row
+    holding a NaN gives NaN. tau: (m, D) -> (m, 1) float32 on tau's
+    device.
+
+    ``torch.quantile`` is not used: it refuses more than 2^24 elements and
+    does its own index arithmetic. Nor is the index taken in float64: at
+    D = 237,502,464 and trim 0.2 the float32 index is 190,001,968 with
+    weight 0, the exact one 190,001,970.4."""
+    if not 0.0 < trim <= 1.0:
+        raise ValueError(f"trim fraction must be in (0, 1], got {trim}")
+    m, D = tau.shape
+    one = np.float32(1.0)
+    q = np.float32(1.0 - trim)
+    n = np.float32(D)
+    pos = q * (n - one)
+    lo, hi = np.floor(pos), np.ceil(pos)
+    hw = pos - lo
+    lw = one - hw
+    top = n - one
+    lo_i = min(int(np.clip(lo, 0, top)), D - 1)
+    hi_i = min(int(np.clip(hi, 0, top)), D - 1)
+    out = np.empty((m, 1), dtype=np.float32)
+    for r in range(m):
+        mag = torch.abs(tau[r].to(torch.float32))
+        if bool(torch.isnan(mag).any()):
+            out[r, 0] = np.nan
+            continue
+        low, high = _order_stats(mag, lo_i, hi_i)
+        del mag
+        out[r, 0] = _fma32(low, lw, high * hw)
+    return torch.from_numpy(out).to(tau.device)
+
+
+def _ties_trimmed(t, th):
+    """One row of deviations with the entries below the row's threshold
+    set to +0."""
+    return torch.where(torch.abs(t) >= th, t,
+                       torch.zeros((), dtype=t.dtype, device=t.device))
+
+
+def ties_colmerge_ref(tau, thresh):
+    """TIES column merge: tau (m, D) float32 deviations; thresh (m, 1)
+    float32 per-row thresholds (ties_thresh_ref) -> (D,) float32.
+
+    Per column, in the reference's order (``kernels/merge_ops.py`` of the
+    reference): entries below their row's threshold are trimmed to 0, the
+    trimmed column is summed over k in fixed order, its sign elected (a
+    sum of 0 elects +), and only the surviving entries that agree with the
+    sign are averaged: count and sum in fixed order over k from 0, then
+    sum / max(count, 1) in IEEE division, 0 where nothing survives. A row
+    at a time; the trimmed row is formed again for the second pass rather
+    than kept (the kernel keeps it in registers)."""
+    m = tau.shape[0]
+    col = _ties_trimmed(tau[0], thresh[0])
+    for k in range(1, m):
+        col.add_(_ties_trimmed(tau[k], thresh[k]))
+    up = col >= 0
+    del col
+    cnt = torch.zeros_like(tau[0])
+    dev = torch.zeros_like(tau[0])
+    zero = torch.zeros((), dtype=tau.dtype, device=tau.device)
+    for k in range(m):
+        tk = _ties_trimmed(tau[k], thresh[k])
+        agree = torch.where(up, tk > 0, tk < 0)
+        cnt.add_(agree.to(torch.float32))
+        dev.add_(torch.where(agree, tk, zero))
+    return torch.where(cnt > 0, dev.div_(torch.clamp_min(cnt, 1.0)), zero)

@@ -3,10 +3,10 @@
 
 Runs the paper's algorithm end to end on synthetic non-IID token streams:
 per-agent local AdamW/SGD steps, scheduled gossip, and the single final
-global merge, on the panel engine (core/dsgd.py). It draws the schedule's
-mixing matrices and the batches from the same numpy seeds, in the same
-order, as the reference launcher, so both see byte-identical W streams and
-batches.
+global merge, on the panel engine (core/dsgd.py), under any merge operator
+of ``repro_torch.merging`` (``--merge``). It draws the schedule's mixing
+matrices and the batches from the same numpy seeds, in the same order, as
+the reference launcher, so both see byte-identical W streams and batches.
 
 Runs on the CUDA card unless ``--device cpu`` is given. Example:
   PYTHONPATH=src python -m repro_torch.launch.train --rounds 10 \
@@ -31,6 +31,7 @@ from repro_torch.core import panel as panel_mod
 from repro_torch.core.schedule import make_schedule
 from repro_torch.data.synthetic import SyntheticLM, make_agent_lm_batches
 from repro_torch.device import resolve_device
+from repro_torch.merging import MERGERS
 from repro_torch.models import build_model
 from repro_torch.optim import make_optimizer
 from repro_torch.wire import CODECS
@@ -59,10 +60,11 @@ def to_device(batch, device):
 
 
 @torch.no_grad()
-def eval_merged(loss_fn, panel, spec, batch):
-    """Loss of the uniformly merged model on ``batch`` (a float)."""
+def eval_merged(loss_fn, panel, spec, batch, stats=None):
+    """Loss on ``batch`` (a float) of the model merged by the spec's merge
+    operator (``stats``: the state's ``merge_stat``)."""
     return float(merge_mod.counterfactual_eval_panel(
-        lambda p: loss_fn(p, batch, None)[0], panel, spec))
+        lambda p: loss_fn(p, batch, None)[0], panel, spec, stats=stats))
 
 
 @torch.no_grad()
@@ -97,6 +99,16 @@ def main(argv=None):
                          "stochastic rounding, the _ef variants add error "
                          "feedback, topk sends the top 1/8 of the "
                          "innovation over a mirror")
+    ap.add_argument("--merge", default="uniform", choices=sorted(MERGERS),
+                    help="merge operator of global rounds "
+                         "(repro_torch.merging): uniform mean, weighted "
+                         "(inverse consensus distance), var/fisher "
+                         "(per-coordinate precision weights; extra stats "
+                         "panels), ties (trim and sign election), swa "
+                         "(merge of per-agent EMA accumulators)")
+    ap.add_argument("--eval-merged-every", type=int, default=0,
+                    help="merged/local eval cadence in rounds (segments "
+                         "are cut at it); 0 = once per segment")
     ap.add_argument("--optimizer", default="adamw")
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--alpha", type=float, default=0.1,
@@ -116,13 +128,15 @@ def main(argv=None):
     model = build_model(cfg)
     opt = make_optimizer(args.optimizer, args.lr, weight_decay=5e-4,
                          total_steps=args.rounds * args.local_steps)
-    kw = {"prob": 0.2, "seed": args.seed, "merger": "uniform"}
+    kw = {"prob": 0.2, "seed": args.seed, "merger": args.merge}
     if args.schedule == "windowed":
         kw.update(start=args.window_start, end=args.window_end or
                   args.rounds // 10)
     sched = make_schedule(args.schedule, m, args.rounds, **kw)
     seg_len = 1 if args.schedule == "adaptive" else max(1, args.segment)
     tag = f"{args.arch}_{args.schedule}_a{args.alpha}"
+    if args.merge != "uniform":
+        tag += f"_m{args.merge}"
 
     gen = torch.Generator(device=device).manual_seed(args.seed)
     state, spec = dsgd.init_panel_state(model.init_params, opt, m, gen,
@@ -153,25 +167,35 @@ def main(argv=None):
     comm_cost = 0.0
     t = 0
     t0 = time.time()
+    ev = args.eval_merged_every
     while t < args.rounds:
         S = min(seg_len, args.rounds - t)
-        Ws, comm_after = [], []
+        if ev > 0:  # cut segments at the eval cadence
+            S = min(S, (t // ev + 1) * ev - t)
+        Ws, comm_after, glob = [], [], []
         for s in range(S):
             W = sched.mixing_matrix(t + s, monitor)
             comm_cost += sched.round_cost(W)
             comm_after.append(comm_cost)
             Ws.append(W)
+            # the schedule knows which rounds are global: a gossip W can
+            # equal the 1/m average at small m
+            glob.append(sched.last_kind == "global")
         batches = sample_segment_batches(lm, mixtures, S, args.local_steps,
                                          args.batch, args.seq, rng_np)
         seg_t0 = time.perf_counter()
         state, mets = segment_fn(state, batches,
-                                 np.stack(Ws).astype(np.float32), wire_gen)
+                                 np.stack(Ws).astype(np.float32), wire_gen,
+                                 global_rounds=np.asarray(glob))
         mets = {k: v.cpu().numpy() for k, v in mets.items()}  # one transfer
         monitor = {"grad_norm": float(mets["grad_norm"][-1]),
                    "consensus": float(mets["consensus"][-1])}
-        merged_l = eval_merged(model.loss_fn, state["panel"], spec,
-                               eval_batch)
-        local_l = eval_local(model.loss_fn, state["panel"], spec, eval_batch)
+        merged_l = local_l = None
+        if ev == 0 or (t + S) % ev == 0 or t + S == args.rounds:
+            merged_l = eval_merged(model.loss_fn, state["panel"], spec,
+                                   eval_batch, state.get("merge_stat"))
+            local_l = eval_local(model.loss_fn, state["panel"], spec,
+                                 eval_batch)
         dt = time.perf_counter() - seg_t0
         for s in range(S):
             last = s == S - 1
@@ -183,9 +207,10 @@ def main(argv=None):
                             "local_eval": local_l if last else None,
                             "comm_cost_P": comm_after[s]})
         t += S
+        evals = ("" if merged_l is None else
+                 f" merged {merged_l:.4f} local {local_l:.4f}")
         print(f"round {t - 1}: loss {mets['loss'][-1]:.4f} "
-              f"Xi {mets['consensus'][-1]:.6g} merged {merged_l:.4f} "
-              f"local {local_l:.4f} comm {comm_cost:.1f}P "
+              f"Xi {mets['consensus'][-1]:.6g}{evals} comm {comm_cost:.1f}P "
               f"({dt:.2f}s for {S} rounds)", flush=True)
     print(f"total {time.time() - t0:.1f}s")
     os.makedirs(args.out, exist_ok=True)

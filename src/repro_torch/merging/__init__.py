@@ -1,2 +1,5 @@
-from repro_torch.merging.ops import (MERGERS, Merger,  # noqa: F401
-                                     UniformMerger, get_merger, merge_panel)
+"""Merge-operator registry (see merging/ops.py for the contract)."""
+from repro_torch.merging.ops import (MERGERS, FisherMerger,  # noqa: F401
+                                     Merger, SwaMerger, TiesMerger,
+                                     UniformMerger, VarMerger,
+                                     WeightedMerger, get_merger, merge_panel)

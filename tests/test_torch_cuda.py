@@ -11,9 +11,10 @@ its plain version (both sum over k in the same order with separately
 rounded products; asserted with equality, so also within the stated 1e-6);
 the column mean likewise to 1e-6; the sum of squares to 1e-5 relative
 (another summation order). The wire kernels (int8 and int4 quantize and
-dequantize, nibble pack and unpack, sparsify) are bit-identical to their
-plain versions (max |err| 0). Segments on the card are held against the
-CPU at rtol 1e-3.
+dequantize, nibble pack and unpack, sparsify) and the merge kernels (the
+weighted and the TIES column merge) are bit-identical to their plain
+versions (max |err| 0), as are the TIES thresholds on the card and on the
+CPU. Segments on the card are held against the CPU at rtol 1e-3.
 """
 import numpy as np
 import pytest
@@ -25,14 +26,16 @@ from repro_torch.core.topology import random_matching
 from repro_torch.data.synthetic import SyntheticLM
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels.gossip_mix import gossip_mix
+from repro_torch.kernels.merge_ops import ties_colmerge, weighted_colmerge
 from repro_torch.kernels.panel_reduce import panel_mean_consensus
 from repro_torch.kernels.ref import (dequantize_int4_ref, dequantize_int8_ref,
                                      gossip_mix_ref, int4_group_scale_ref,
                                      int8_scale_ref, pack_int4_ref,
                                      panel_mean_consensus_ref,
                                      quantize_int4_ref, quantize_int8_ref,
-                                     sparsify_topk_ref, topk_threshold_ref,
-                                     unpack_int4_ref)
+                                     sparsify_topk_ref, ties_colmerge_ref,
+                                     ties_thresh_ref, topk_threshold_ref,
+                                     unpack_int4_ref, weighted_colmerge_ref)
 from repro_torch.kernels.wire_quant import (dequantize_int4, dequantize_int8,
                                             pack_int4, quantize_int4,
                                             quantize_int8, sparsify_topk,
@@ -116,7 +119,9 @@ def _launch_all(W, theta):
     return (gossip_mix(W, theta), gossip_mix(W, theta.to(torch.bfloat16)),
             panel_mean_consensus(theta), dequantize_int8(q, s),
             sparsify_topk(theta, s), dequantize_int4(q4, s4),
-            unpack_int4(pack_int4(q4), theta.shape[1]))
+            unpack_int4(pack_int4(q4), theta.shape[1]),
+            weighted_colmerge(theta, torch.ones_like(theta)),
+            ties_colmerge(theta, s))
 
 
 def test_launch_counts_only_on_the_card(cuda):
@@ -130,7 +135,7 @@ def test_launch_counts_only_on_the_card(cuda):
         "gossip_mix": 2, "gossip_mix_bf16": 1, "panel_mean_consensus": 1,
         "quantize_int8": 1, "dequantize_int8": 1, "sparsify_topk": 1,
         "quantize_int4": 1, "dequantize_int4": 1, "pack_int4": 1,
-        "unpack_int4": 1}
+        "unpack_int4": 1, "weighted_colmerge": 1, "ties_colmerge": 1}
 
 
 def _quant_inputs(m, D, seed=0):
@@ -285,6 +290,97 @@ def test_int4_wrappers_raise_instead_of_falling_back(cuda):
                     300)  # 128 bytes hold 255 or 256 columns
 
 
+def _merge_inputs(m, D, seed=0):
+    """x, w and TIES deviations tau (m, D): tau's column 0 has no survivor
+    (all of it below every threshold), column 1 a trimmed sum of exactly 0
+    (+1 and -1 survive, elected +), and with m >= 2 the rest random."""
+    rng = np.random.default_rng(seed + 7 * m + D)
+    x = rng.standard_normal((m, D)).astype(np.float32)
+    w = rng.uniform(1e-3, 2.0, (m, D)).astype(np.float32)
+    tau = rng.standard_normal((m, D)).astype(np.float32)
+    tau[:, 0] = 1e-30
+    if D > 1:
+        tau[:, 1] = 0.0
+        tau[0, 1] = 4.0
+        if m > 1:
+            tau[1, 1] = -4.0
+    return x, w, tau
+
+
+@pytest.mark.parametrize("m,D", [(8, 333), (8, 1000), (8, 1001), (1, 7),
+                                 (3, 4096), (16, 1 << 20), (32, 1003),
+                                 (2, 1)])
+@pytest.mark.parametrize("trim", [0.2, 1.0])
+def test_merge_kernels_match_plain(cuda, m, D, trim):
+    x, w, tau = (torch.from_numpy(a).to(cuda) for a in _merge_inputs(m, D))
+    got = weighted_colmerge(x, w)
+    torch.cuda.synchronize()
+    assert got.shape == (D,) and torch.equal(got, weighted_colmerge_ref(x, w))
+    th = ties_thresh_ref(tau, trim)
+    assert torch.equal(th.cpu(), ties_thresh_ref(tau.cpu(), trim))
+    got = ties_colmerge(tau, th)
+    torch.cuda.synchronize()
+    want = ties_colmerge_ref(tau, th)
+    assert torch.equal(got, want)
+    if trim == 0.2 and D > 1:
+        assert float(got[0]) == 0.0  # no survivor
+        if m > 1:  # a trimmed sum of exactly 0 elects +: the +4 survives
+            assert float(got[1]) == 4.0
+    # views one element past an aligned address take the one-column path
+    x1, w1, tau1 = (_off_by_one(a) for a in (x, w, tau))
+    assert torch.equal(weighted_colmerge(x1, w1), weighted_colmerge_ref(x, w))
+    assert torch.equal(ties_colmerge(tau1, th), want)
+
+
+def _off_by_one(a):
+    """A contiguous copy of ``a`` one element past an aligned address."""
+    b = torch.empty((a.numel() + 1,), dtype=a.dtype, device=a.device)[1:]
+    return b.view(a.shape).copy_(a)
+
+
+def test_merge_wrappers_raise_instead_of_falling_back(cuda):
+    x = torch.zeros((4, 16), device=cuda)
+    th = torch.ones((4, 1), device=cuda)
+    with pytest.raises(TypeError):
+        weighted_colmerge(x.double(), x.double())
+    with pytest.raises(ValueError):
+        weighted_colmerge(x, x.cpu())  # weights on the CPU
+    with pytest.raises(ValueError):
+        weighted_colmerge(x, x[:, :8])  # another shape
+    with pytest.raises(ValueError):
+        weighted_colmerge(x.t().contiguous().t(), x)  # not contiguous
+    with pytest.raises(ValueError):
+        ties_colmerge(x, torch.ones((4,), device=cuda))  # not (m, 1)
+    with pytest.raises(ValueError):
+        ties_colmerge(torch.zeros((33, 16), device=cuda),
+                      torch.ones((33, 1), device=cuda))  # m > 32
+    with pytest.raises(ValueError):
+        ties_colmerge(x, th.cpu())
+
+
+def test_merge_wrappers_launch_on_the_card_only(cuda, monkeypatch):
+    """A CUDA tensor reaching merge_ops launches the kernel (the count
+    rises) and never runs the plain version."""
+    from repro_torch.kernels import merge_ops
+
+    def refuse(*args):
+        raise AssertionError("the plain version ran for a CUDA tensor")
+
+    x, w, tau = (torch.from_numpy(a).to(cuda)
+                 for a in _merge_inputs(8, 1000))
+    th = ties_thresh_ref(tau, 0.2)
+    monkeypatch.setattr(merge_ops, "weighted_colmerge_ref", refuse)
+    monkeypatch.setattr(merge_ops, "ties_colmerge_ref", refuse)
+    reset_launch_counts()
+    weighted_colmerge(x, w)
+    ties_colmerge(tau, th)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["weighted_colmerge"] == 1 and counts["ties_colmerge"] == 1
+    with pytest.raises(AssertionError, match="plain version"):
+        weighted_colmerge(x.cpu(), w.cpu())
+
+
 def test_panel_ops_match_cpu(cuda):
     _, theta = _inputs(4, 2000, seed=3)
     pan = {"float32": torch.from_numpy(theta)}
@@ -302,16 +398,26 @@ def test_panel_ops_match_cpu(cuda):
                                atol=0.0)
 
 
-@pytest.mark.parametrize("wire", [None, "topk", "int8_ef_rtn", "bf16",
-                                  "int4_ef_rtn"])
-def test_segment_on_card_matches_cpu(cuda, wire):
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev) if torch.is_tensor(tree) else tree
+
+
+@pytest.mark.parametrize("wire,merger", [
+    (None, None), ("topk", None), ("int8_ef_rtn", None), ("bf16", None),
+    ("int4_ef_rtn", None), (None, "weighted"), (None, "var"),
+    (None, "fisher"), (None, "ties"), (None, "swa"),
+    ("int8_ef_rtn", "ties")])
+def test_segment_on_card_matches_cpu(cuda, wire, merger):
     """The reduced olmo-1b segment on the card against the same segment on
     the CPU, on the f32 wire and on the wire paths (the round-to-nearest
     int8_ef and int4_ef: the generators of the card and the CPU give other
-    uniforms): rtol 1e-3, since cuBLAS and the CPU's GEMMs sum in other
-    orders and AdamW amplifies float32 rounding. After the final merge
-    every row is the same; Xi is 0 but under bf16, whose rows are rounded
-    through bf16 while the folded mean stays float32."""
+    uniforms), and under every non-uniform merge operator: rtol 1e-3,
+    since cuBLAS and the CPU's GEMMs sum in other orders and AdamW
+    amplifies float32 rounding. After the final merge every row is the
+    same; Xi is 0 but under bf16, whose rows are rounded through bf16
+    while the folded mean stays float32."""
     from repro_torch.configs import get_config
     from repro_torch.launch.train import (build_cpu_preset,
                                           sample_segment_batches)
@@ -338,12 +444,11 @@ def test_segment_on_card_matches_cpu(cuda, wire):
     for dev in ("cpu", cuda):
         opt = make_optimizer("adamw", 3e-3, total_steps=rounds * H)
         state, spec = dsgd.init_panel_state(model.init_params, opt, m, 0,
-                                            device="cpu", wire=wire)
-        pan = {k: v.to(dev) for k, v in state["panel"].items()}
-        state = {"panel": pan, "opt": opt.init(pan), "step": 0,
-                 **({"wire_err": {k: v.to(dev) for k, v in
-                                  state["wire_err"].items()}}
-                    if "wire_err" in state else {})}
+                                            device="cpu", wire=wire,
+                                            merger=merger)
+        state = {k: v for k, v in state.items() if k != "opt"}
+        state = {k: _to(v, dev) for k, v in state.items()}
+        state["opt"] = opt.init(state["panel"])
         seg = dsgd.make_panel_segment(model.loss_fn, opt, H, spec)
         state, out = seg(state, batches, Ws)
         mets[str(dev)] = {k: v.cpu().numpy() for k, v in out.items()}
