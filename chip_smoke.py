@@ -14,13 +14,18 @@ Phases, each printing its lines:
      on bf16 operands, torch.quantize_per_channel and dequantize() for
      round-to-nearest int8; none for grouped int4, nibble packing or the
      merge operators' column merges); the TIES thresholds computed on the
-     card equal the CPU's bit for bit;
+     card equal the CPU's bit for bit; the residency kernels (grouped int8
+     quantize and dequantize, the fused AdamW step on grouped-int8 moments,
+     library torch.quantize_per_channel on the (m G, 128) view for the
+     round-to-nearest pair);
   4. a small run of the training segment on the card against the same run
      on the CPU (plain versions), from one init, one batch stream, one W
      stream: on the f32 wire, with topk, bf16 and a round-to-nearest int8_ef
      and int4_ef (the card's and the CPU's generators give other uniforms),
-     and under the weighted, var, fisher, ties and swa merge operators
-     (ties also over the round-to-nearest int8_ef);
+     under the weighted, var, fisher, ties and swa merge operators (ties
+     also over the round-to-nearest int8_ef), and under residency policies
+     (int8 moments fused and unfused, bf16, int8g, int8r statistics, an
+     int8 error-feedback panel);
   5. the main path: olmo-1b at full width cut to 2 layers, 8 agents, the
      final-merge schedule, through init_panel_state -> make_panel_segment
      -> merged and local eval on the f32 wire; then, on the trained state,
@@ -28,7 +33,9 @@ Phases, each printing its lines:
   6. the wire paths: the same cell with --wire int8_ef and int4_ef
      (stochastic rounding, error feedback), topk and bf16; then the merge
      paths: the same cell on the f32 wire with --merge var and --merge
-     ties;
+     ties; then the residency paths: --residency moments=int8 with the
+     fused moment update and with the unfused one, which must agree bit for
+     bit, the fused one's peak at least 8 GB under the f32 path's;
   each path of 5 and 6 with the launch counts set to 0 just before it and
   read just after, and its peak device memory;
 then a JSON line of per-kernel numbers, the card's line again and, last,
@@ -60,8 +67,9 @@ DATA_VOCAB = 1024     # token ids the synthetic streams draw (of 50304)
 REPS = 20             # timed launches per measurement
 
 # the paths driven at full width (f32 is the main path) and the kernels
-# each must launch; a path is a wire codec, or "merge <operator>" on the
-# f32 wire
+# each must launch; a path is a wire codec, "merge <operator>" on the f32
+# wire, or "residency int8" (--residency moments=int8 on the f32 wire, the
+# fused moment update; "unfused" forces the read -> AdamW -> write path)
 PATH_KERNELS = {"f32": ("gossip_mix", "panel_mean_consensus"),
                 "int8_ef": ("quantize_int8", "dequantize_int8", "gossip_mix"),
                 "topk": ("sparsify_topk", "gossip_mix",
@@ -71,7 +79,13 @@ PATH_KERNELS = {"f32": ("gossip_mix", "panel_mean_consensus"),
                 "bf16": ("gossip_mix_bf16", "panel_mean_consensus"),
                 "merge var": ("gossip_mix", "weighted_colmerge"),
                 "merge ties": ("gossip_mix", "panel_mean_consensus",
-                               "ties_colmerge")}
+                               "ties_colmerge"),
+                "residency int8": ("adamw_fused_int8", "gossip_mix",
+                                   "panel_mean_consensus"),
+                "residency int8 unfused": ("dequantize_int8_grouped",
+                                           "quantize_int8_grouped",
+                                           "gossip_mix",
+                                           "panel_mean_consensus")}
 
 
 def card_line():
@@ -525,6 +539,241 @@ def merge_checks(torch, D_main):
     return out
 
 
+def residency_panel(torch, m, D, group, gen):
+    """(x, u): an (m, D) float32 panel whose row 1 starts with an all-zero
+    group (scale 1/127) and whose row 2 lies on exact half steps (every
+    group's amax is 127/64, so its scale is 1/64 and x / s = k + 1/2: ties
+    to even), and uniforms in [0, 1)."""
+    x = torch.randn((m, D), generator=gen, device="cuda")
+    if m > 1:
+        x[1, :group] = 0.0
+    if m > 2:
+        k = torch.randint(-127, 127, (D,), generator=gen, device="cuda")
+        x[2] = (k.to(torch.float32) + 0.5) / 64
+        x[2, ::group] = 127 / 64
+    return x, torch.rand((m, D), generator=gen, device="cuda")
+
+
+def fused_inputs(torch, m, D, group, gen):
+    """The fused step's inputs: gradients, parameters, companded grouped
+    int8 moments (m of both signs, v positive; row 1's first group of m and
+    of the gradient all zero, so its new m is a zero group), uniforms, and
+    per-agent lr / bc1 / bc2 columns (rows at different step counts)."""
+    from repro_torch.residency import Int8Storage
+    st = Int8Storage("check", group=group, transform="sqrt")
+    dev = "cuda"
+    g = torch.randn((m, D), generator=gen, device=dev).mul_(0.1)
+    p = torch.randn((m, D), generator=gen, device=dev)
+    x = torch.randn((m, D), generator=gen, device=dev).mul_(1e-2)
+    if m > 1:
+        x[1, :group] = 0.0
+        g[1, :group] = 0.0
+    mom = st.init(x)
+    torch.square(torch.randn((m, D), generator=gen, device=dev), out=x)
+    vel = st.init(x.mul_(1e-4))
+    del x
+    um = torch.rand((m, D), generator=gen, device=dev)
+    uv = torch.rand((m, D), generator=gen, device=dev)
+    c = torch.arange(1, m + 1, dtype=torch.float32, device=dev)[:, None]
+    cols = (torch.full((m, 1), 3e-3, device=dev),
+            1 - torch.pow(torch.tensor(0.9, device=dev), c),
+            1 - torch.pow(torch.tensor(0.999, device=dev), c))
+    return (g, p, mom["q"], mom["scale"], vel["q"], vel["scale"], um, uv,
+            *cols)
+
+
+def residency_checks(torch, D_main):
+    """Phase 3, residency kernels: the grouped int8 quantize (stochastic
+    and round to nearest) and dequantize, and the fused AdamW step, against
+    their plain versions (max |err| 0; for the fused step p, both q and
+    both scales equal) at D = 333, 1000, 1001 and D_main, groups 128 and
+    32, m = 8 (and m = 1, 16 at D = 1001), with an all-zero group and a
+    slab launched in place; card scales == CPU scales. At D_main the fused
+    step is held against its plain version a slab of 2^22 columns at a
+    time. Times at m = 8, D = D_main, group 128 (the int8 storage's):
+    library torch.quantize_per_channel on the (m G, 128) view and its
+    dequantize() for the round-to-nearest pair, none for the stochastic
+    quantize or the fused step."""
+    from repro_torch.kernels.ref import (dequantize_int8_grouped_ref,
+                                         int8_group_scale_ref,
+                                         quantize_int8_grouped_ref)
+    from repro_torch.kernels.wire_quant import (dequantize_int8_grouped,
+                                                quantize_int8_grouped)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    out = {}
+    cases = [(M, 333), (M, 1000), (M, 1001), (1, 1001), (16, 1001),
+             (M, D_main)]
+    for group in (128, 32):
+        for m, D in cases:
+            x, u = residency_panel(torch, m, D, group, gen)
+            s = int8_group_scale_ref(x, group)
+            if D != D_main or group == 128:
+                check(torch.equal(s.cpu(), int8_group_scale_ref(x.cpu(),
+                                                                group)),
+                      f"int8 group scales on the card differ from the "
+                      f"CPU's at m={m}, D={D}, group {group}")
+            check(m < 2 or float(s[1, 0]) == float(torch.tensor(1.0)
+                                                   / 127.0),
+                  "the all-zero group's scale is not 1/127")
+            q = {}
+            for name, uu in (("sr", u), ("rtn", None)):
+                q[name] = quantize_int8_grouped(x, s, uu, group)
+                ref = quantize_int8_grouped_ref(x, s, uu, group)
+                torch.cuda.synchronize()
+                check(torch.equal(q[name], ref),
+                      f"quantize_int8_grouped ({name}) disagrees at m={m}, "
+                      f"D={D}, group {group}")
+                del ref
+            if m > 2:
+                ties = torch.ones(D, dtype=torch.bool, device="cuda")
+                ties[::group] = False
+                check(bool(torch.all(q["rtn"][2][ties] % 2 == 0)),
+                      "round to nearest did not take the half steps to even")
+            y = dequantize_int8_grouped(q["sr"], s, group)
+            check(torch.equal(y, dequantize_int8_grouped_ref(q["sr"], s,
+                                                             group)),
+                  f"dequantize_int8_grouped disagrees at m={m}, D={D}, "
+                  f"group {group}")
+            del y
+            if D < D_main:  # a slab of a wider panel, launched in place
+                lo = group
+                qs = torch.zeros_like(q["sr"])
+                quantize_int8_grouped(x[:, lo:], s[:, 1:], u[:, lo:], group,
+                                      out=qs[:, lo:])
+                ys = torch.zeros_like(x)
+                dequantize_int8_grouped(q["sr"][:, lo:], s[:, 1:], group,
+                                        out=ys[:, lo:])
+                torch.cuda.synchronize()
+                check(torch.equal(qs[:, lo:], q["sr"][:, lo:])
+                      and torch.equal(ys[:, lo:], dequantize_int8_grouped_ref(
+                          q["sr"], s, group)[:, lo:]),
+                      f"a slab launched in place disagrees at D={D}")
+            if D == D_main and group == 128:
+                n, sb = m * D, 4 * m * s.shape[1]
+                qsr = q["sr"]
+                timed = {
+                    "quantize_int8_grouped": (
+                        lambda: quantize_int8_grouped(x, s, u),
+                        lambda: quantize_int8_grouped_ref(x, s, u),
+                        9 * n + sb, 5 * n),
+                    "quantize_int8_grouped_rtn": (
+                        lambda: quantize_int8_grouped(x, s),
+                        lambda: quantize_int8_grouped_ref(x, s),
+                        5 * n + sb, 4 * n),
+                    "dequantize_int8_grouped": (
+                        lambda: dequantize_int8_grouped(qsr, s),
+                        lambda: dequantize_int8_grouped_ref(qsr, s),
+                        5 * n + sb, 2 * n)}
+                for name, (fn, plain, nbytes, ops) in timed.items():
+                    b_ms, b_by = bound(nbytes, ops)
+                    out[name] = {"ms": time_ms(torch, fn),
+                                 "plain_ms": time_ms(torch, plain),
+                                 "library_ms": None, "bytes": nbytes,
+                                 "ops": ops, "bound_ms": b_ms,
+                                 "bound_by": b_by, "max_abs_err": 0.0}
+                    torch.cuda.empty_cache()
+                # the library yardstick: one scale per 128-column row of the
+                # (m G, 128) view (D is a whole number of groups here)
+                check(D % 128 == 0, f"D={D} is not a whole number of groups")
+                xv = x.view(-1, 128)
+                zp = torch.zeros((xv.shape[0],), dtype=torch.int64,
+                                 device="cuda")
+                qt, why = library_quantize(torch, xv, s.reshape(-1, 1))
+                if qt is None:
+                    print(f"library: torch.quantize_per_channel does not "
+                          f"run on the card ({why})", flush=True)
+                else:
+                    out["quantize_int8_grouped_rtn"]["library_ms"] = time_ms(
+                        torch, lambda: torch.quantize_per_channel(
+                            xv, s.reshape(-1), zp, 0, torch.qint8))
+                    out["dequantize_int8_grouped"]["library_ms"] = time_ms(
+                        torch, lambda: qt.dequantize())
+                del qt, xv, zp, qsr, timed
+            del x, u, q, s
+            torch.cuda.empty_cache()
+            fused_check(torch, m, D, group, gen, D_main, out)
+            print(f"check m={m} D={D} group {group}: quantize_int8_grouped "
+                  f"(stochastic, round to nearest), dequantize_int8_grouped, "
+                  f"adamw_fused_int8 max|err| 0", flush=True)
+    for name, r_ in out.items():
+        print(f"time {name} (m={M}, D={D_main}, group 128): kernel "
+              f"{r_['ms']:.4f} ms, plain {r_['plain_ms']:.4f} ms, library "
+              f"{r_['library_ms']} ms, bound {r_['bound_ms']:.4f} ms "
+              f"({r_['bytes']} bytes), "
+              f"{100 * r_['bound_ms'] / r_['ms']:.1f}% of the bound",
+              flush=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+def fused_check(torch, m, D, group, gen, D_main, out):
+    """The fused step on the card against its plain version: one launch
+    over the whole panel (on copies: the kernel works in place), then the
+    plain version a slab at a time (all of D at once would need some 26 GB
+    more); below D_main also a slab launched in place. At D_main, group
+    128, times it (the plain version over its slabs, median of 5)."""
+    from repro_torch.kernels.opt_fused import adamw_fused_int8 as kernel
+    from repro_torch.kernels.ref import adamw_fused_int8_ref as plain
+    from repro_torch.optim import make_optimizer
+    from repro_torch.residency import SLAB as slab
+    hp = make_optimizer("adamw", 3e-3, weight_decay=5e-4).hparams
+    args = fused_inputs(torch, m, D, group, gen)
+    g, p, qm, sm, qv, sv, um, uv, lr, bc1, bc2 = args
+    kw = dict(group=group, transform="sqrt", **hp)
+    got = [t.clone() for t in (p, qm, sm, qv, sv)]
+    kernel(g, got[0], got[1], got[2], got[3], got[4], um, uv, lr, bc1, bc2,
+           **kw)
+    torch.cuda.synchronize()
+    step = slab if D == D_main else max(group, (D // 3) // group * group)
+    for lo in range(0, D, step):
+        cs = slice(lo, min(lo + step, D))
+        gs = slice(lo // group, -(-cs.stop // group))
+        want = plain(g[:, cs], p[:, cs], qm[:, cs], sm[:, gs], qv[:, cs],
+                     sv[:, gs], um[:, cs], uv[:, cs], lr, bc1, bc2, **kw)
+        for a, b, sl in zip(got, want, (cs, cs, gs, cs, gs)):
+            check(torch.equal(a[:, sl], b),
+                  f"adamw_fused_int8 disagrees at m={m}, D={D}, group "
+                  f"{group}, columns {lo}:{cs.stop}")
+        if m > 1 and lo == 0:
+            check(float(want[2][1, 0]) == float(torch.tensor(1.0) / 127.0),
+                  "the fused step's all-zero group is not at scale 1/127")
+        del want
+    if D < D_main:  # the slab from the second group on, in place
+        ins = [t.clone() for t in (p, qm, sm, qv, sv)]
+        ins_s = [ins[0][:, group:], ins[1][:, group:], ins[2][:, 1:],
+                 ins[3][:, group:], ins[4][:, 1:]]
+        kernel(g[:, group:], *ins_s[:2], ins_s[2], ins_s[3], ins_s[4],
+               um[:, group:], uv[:, group:], lr, bc1, bc2, **kw)
+        want = plain(g[:, group:], p[:, group:], qm[:, group:], sm[:, 1:],
+                     qv[:, group:], sv[:, 1:], um[:, group:], uv[:, group:],
+                     lr, bc1, bc2, **kw)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(ins_s, want))
+              and torch.equal(ins[0][:, :group], p[:, :group]),
+              f"the fused step on a slab disagrees at m={m}, D={D}")
+    if D == D_main and group == 128:
+        n, G = m * D, sm.shape[1]
+        nbytes, ops = 24 * n + 16 * m * G, 38 * n
+        b_ms, b_by = bound(nbytes, ops)
+
+        def plain_all():
+            for lo in range(0, D, slab):
+                cs = slice(lo, min(lo + slab, D))
+                gs = slice(lo // group, -(-cs.stop // group))
+                plain(g[:, cs], p[:, cs], qm[:, cs], sm[:, gs], qv[:, cs],
+                      sv[:, gs], um[:, cs], uv[:, cs], lr, bc1, bc2, **kw)
+
+        out["adamw_fused_int8"] = {
+            "ms": time_ms(torch, lambda: kernel(
+                g, got[0], got[1], got[2], got[3], got[4], um, uv, lr, bc1,
+                bc2, **kw)),
+            "plain_ms": time_ms(torch, plain_all, reps=5, warmup=1),
+            "library_ms": None, "bytes": nbytes, "ops": ops,
+            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": 0.0}
+    del args, g, p, qm, sm, qv, sv, um, uv, got
+    torch.cuda.empty_cache()
+
+
 def segment_inputs(cfg, m, rounds, seed=0, data_vocab=None, batch=BATCH,
                    seq=SEQ):
     """(W, batches, global) per round as the launcher draws them (schedule
@@ -553,9 +802,11 @@ def segment_inputs(cfg, m, rounds, seed=0, data_vocab=None, batch=BATCH,
 def small_parity(torch):
     """Phase 4: the reduced olmo-1b segment on the card (kernels) against
     the same segment on the CPU (plain versions), on the f32 wire, with
-    topk, bf16 and a round-to-nearest int8_ef and int4_ef, and under every
+    topk, bf16 and a round-to-nearest int8_ef and int4_ef, under every
     non-uniform merge operator (ties also over the round-to-nearest
-    int8_ef)."""
+    int8_ef), and under residency policies: int8 moments fused and
+    unfused, bf16 and int8g moments, int8r statistics under var, an int8
+    error-feedback panel under the round-to-nearest int8_ef."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.core import dsgd
@@ -578,19 +829,32 @@ def small_parity(torch):
              "merge var": (None, "var"), "merge fisher": (None, "fisher"),
              "merge ties": (None, "ties"), "merge swa": (None, "swa"),
              "merge ties, int8_ef round to nearest": (int8_rtn, "ties")}
-    for label, (wire, merger) in cases.items():
+    # label: (wire, merge operator, residency policy, fused); the card's
+    # and the CPU's generators give the stochastic storages other uniforms
+    cases = {k: v + (None, None) for k, v in cases.items()}
+    cases.update({
+        "residency moments=int8 fused": (None, None, "moments=int8", True),
+        "residency moments=int8 unfused": (None, None, "moments=int8",
+                                           False),
+        "residency moments=bf16": (None, None, "moments=bf16", None),
+        "residency moments=int8g": (None, None, "moments=int8g", None),
+        "residency stats=int8r, merge var": (None, "var", "stats=int8r",
+                                             None),
+        "residency wire_err=int8, int8_ef round to nearest": (
+            int8_rtn, None, "wire_err=int8", None)})
+    for label, (wire, merger, res, fused) in cases.items():
         runs, same = {}, {}
         for dev in ("cpu", "cuda"):
             opt = make_optimizer("adamw", 3e-3, total_steps=3 * H)
             state, spec = dsgd.init_panel_state(model.init_params, opt, 4, 0,
                                                 device="cpu", wire=wire,
-                                                merger=merger)
+                                                merger=merger, residency=res)
             state = {k: tree_to(v, dev) for k, v in state.items()}
-            state["opt"] = opt.init(state["panel"])
-            seg = dsgd.make_panel_segment(model.loss_fn, opt, H, spec)
+            seg = dsgd.make_panel_segment(model.loss_fn, opt, H, spec,
+                                          fused=fused)
             rows = []
             for W, b, glob in per_round:
-                state, mets = seg(state, b, W, global_rounds=glob)
+                state, mets = seg(state, b, W, 0, global_rounds=glob)
                 rows.append([float(mets["loss"][0]),
                              float(mets["consensus"][0])])
             runs[dev] = np.asarray(rows)
@@ -625,13 +889,19 @@ def drive_path(torch, path):
     global round (the segment told which round is global, as the launcher
     tells it). The launch counts are set to 0 just before and read just
     after; the main path then times each piece of a round (breakdown).
-    Returns (counts, D)."""
+    ``residency int8`` keeps its moments as companded grouped int8 (the
+    launcher's --residency moments=int8), updated by the fused kernel, or
+    with `` unfused`` through the storage's read, AdamW and write. Returns
+    (counts, record): the per-round losses and Xi, the peak, the evals and,
+    on a residency path, the final state's panels and moments."""
     from repro_torch.configs import get_config
     from repro_torch.core import dsgd
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch.train import eval_local, eval_merged, to_device
     from repro_torch.models import build_model
     from repro_torch.optim import make_optimizer
+    from repro_torch.telemetry.metrics import (fused_moments_auto,
+                                               resident_bytes_model)
     dev = torch.device("cuda")
     cfg = get_config("olmo-1b").replace(num_layers=2)
     model = build_model(cfg)
@@ -643,13 +913,18 @@ def drive_path(torch, path):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
-    wire, merger = ((None, path.split()[1]) if path.startswith("merge ")
-                    else (path, None))
+    wire, merger, res, fused = path, None, None, None
+    if path.startswith("merge "):
+        wire, merger = None, path.split()[1]
+    elif path.startswith("residency "):
+        wire, res = None, "moments=" + path.split()[1]
+        fused = False if path.endswith(" unfused") else None
     reset_launch_counts()
     gen = torch.Generator(device=dev).manual_seed(0)
     state, spec = dsgd.init_panel_state(model.init_params, opt, M, gen,
-                                        device=dev, wire=wire, merger=merger)
-    seg = dsgd.make_panel_segment(model.loss_fn, opt, H, spec)
+                                        device=dev, wire=wire, merger=merger,
+                                        residency=res)
+    seg = dsgd.make_panel_segment(model.loss_fn, opt, H, spec, fused=fused)
     wire_gen = torch.Generator(device=dev).manual_seed(3)
     print(f"path {path}: {cfg.name} d_model {cfg.d_model}, {cfg.num_layers} "
           f"layers, vocab {cfg.vocab_size} padded to {cfg.padded_vocab}, "
@@ -658,6 +933,13 @@ def drive_path(torch, path):
           f"{spec.wire_payload_bytes} B/agent payload "
           f"({spec.wire_total_bytes} B with scales/indices) per full-panel "
           f"exchange; merge operator {spec.merger}", flush=True)
+    active = fused_moments_auto(spec, opt) if fused is None else fused
+    rb = resident_bytes_model(spec, opt, fused=active)
+    print(f"residency {res or 'f32'} ({path}): {rb['total']} B/agent "
+          f"resident (params {rb['params']}, moments {rb['moments']}, "
+          f"wire_err {rb['wire_err']}, merge_stat {rb['merge_stat']}); peak "
+          f"{rb['peak']} B/agent (+{rb['transient_bytes']} transient); fused "
+          f"moments {'on' if active else 'off'}", flush=True)
     losses, xis = [], []
     for t, (W, b, glob) in enumerate(per_round):
         t0 = time.perf_counter()
@@ -699,10 +981,38 @@ def drive_path(torch, path):
           f"{path}: local eval {local!r} != merged eval {merged!r}")
     if path == "f32":
         breakdown(torch, model, opt, state, spec, per_round[0])
-    width = spec.width
+    record = {"losses": losses, "xis": xis, "peak": peak, "width": spec.width,
+              "merged": merged, "local": local}
+    if res:  # kept for the fused == unfused comparison
+        record["panel"] = state["panel"]
+        record["opt"] = state["opt"]
     del state, seg
     torch.cuda.empty_cache()
-    return counts, width
+    return counts, record
+
+
+def compare_fused_unfused(torch, fused, unfused, f32_peak):
+    """The two residency paths drew the same uniforms in the same slabs, so
+    their per-round losses, Xi, evals, final parameter panels and stored
+    moments must be the same bit for bit; the fused path's peak must sit at
+    least 8 GB under the f32 path's."""
+    same = (fused["losses"] == unfused["losses"]
+            and fused["xis"] == unfused["xis"]
+            and fused["merged"] == unfused["merged"]
+            and all(torch.equal(fused["panel"][k], unfused["panel"][k])
+                    for k in fused["panel"])
+            and all(torch.equal(fused["opt"][mk][g][part],
+                                unfused["opt"][mk][g][part])
+                    for mk in ("m", "v") for g in fused["opt"][mk]
+                    for part in ("q", "scale")))
+    saved = f32_peak - fused["peak"]
+    print(f"residency int8 fused vs unfused: losses, Xi, evals, final panels "
+          f"and stored moments bit-identical: {same}; peaks f32 {f32_peak}, "
+          f"fused {fused['peak']}, unfused {unfused['peak']} bytes; the fused "
+          f"path holds {saved} bytes less than the f32 path", flush=True)
+    check(same, "the fused and unfused residency paths differ")
+    check(saved >= 8e9, f"the int8 residency path saves only {saved} bytes "
+                        "of peak device memory against the f32 path")
 
 
 def rows_identical(torch, panel):
@@ -777,11 +1087,19 @@ def main():
     measured.update(wire_checks(torch, D))
     measured.update(int4_checks(torch, D))
     measured.update(merge_checks(torch, D))
+    measured.update(residency_checks(torch, D))
     small_parity(torch)
-    counts = {}
+    counts, records = {}, {}
     for path in PATH_KERNELS:
-        counts[path], width = drive_path(torch, path)
-        check(width == D, f"{path} path D {width} != checked D {D}")
+        counts[path], records[path] = drive_path(torch, path)
+        check(records[path]["width"] == D,
+              f"{path} path D {records[path]['width']} != checked D {D}")
+        if path == "residency int8 unfused":
+            compare_fused_unfused(torch, records.pop("residency int8"),
+                                  records[path], records["f32"]["peak"])
+            records[path].pop("panel")
+            records[path].pop("opt")
+            torch.cuda.empty_cache()
 
     # name: (source, the TPU kernel it replaces, the run its launches are
     # read from)
@@ -806,10 +1124,18 @@ def main():
         "weighted_colmerge": ("merge_ops.cu", "merge_ops.py:62",
                               counts["merge var"]),
         "ties_colmerge": ("merge_ops.cu", "merge_ops.py:85",
-                          counts["merge ties"])}
+                          counts["merge ties"]),
+        "quantize_int8_grouped": ("wire_int8g.cu", "wire_quant.py:282",
+                                  counts["residency int8 unfused"]),
+        "dequantize_int8_grouped": ("wire_int8g.cu", "wire_quant.py:319",
+                                    counts["residency int8 unfused"]),
+        "adamw_fused_int8": ("opt_fused.cu", "opt_fused.py:94",
+                             counts["residency int8"])}
     # sub-rows: the round-to-nearest quantizes, the bf16 variant of the mix
     variants = {"quantize_int8": ("rtn", "quantize_int8_rtn", None),
                 "quantize_int4": ("rtn", "quantize_int4_rtn", None),
+                "quantize_int8_grouped": ("rtn", "quantize_int8_grouped_rtn",
+                                          None),
                 "gossip_mix": ("bf16", "gossip_mix_bf16",
                                counts["bf16"]["gossip_mix_bf16"])}
     kernels = []

@@ -38,8 +38,25 @@ policy, one merged row broadcast back; Xi is 0). A statistical operator
 (var, fisher, swa) carries its per-agent statistics panels as
 ``state["merge_stat"]``, updated in place every local step from the
 gradients (fisher) or once per round from the parameters before the
-communication (var, swa). Liveness, storage residency and telemetry are
-later slices.
+communication (var, swa).
+
+Storage residency (``repro_torch.residency``, named on the spec by
+``panel.with_residency`` / ``init_panel_state(residency=...)``) keeps state
+panels in a compressed storage for the whole segment: the optimizer
+moments (float32 groups), the merge statistics and the error-feedback
+panel. The stored moments are built as the canonical stored zero, with no
+float32 panel; each local step decodes, updates and re-encodes them — in
+one sweep of the ``adamw_fused_int8`` kernel for grouped int8 moments
+(``fused``, on by default where it applies), else through the storages'
+read, the optimizer and write. Statistics decode once at round entry and
+encode once at round exit; the error-feedback panel decodes and encodes
+only inside communicating rounds, idle rows keeping their stored bits, and
+idle W = I rounds touch no stored bits. A stochastic storage draws its
+uniforms a column slab at a time from its own generators
+(``residency.storage_generators``: seeded from the segment's ``rng``, the
+state kind, the local step or round, the state entry and the dtype group),
+never from the wire codec's generator; an f32 policy is no policy.
+Liveness and telemetry are later slices.
 
 The reference scans a whole segment on device under jit with donated
 buffers; here the segment is a Python loop over rounds, the optimizer
@@ -54,11 +71,15 @@ from typing import Callable
 import numpy as np
 import torch
 
+from repro_torch import residency as residency_mod
 from repro_torch import wire as wire_mod
 from repro_torch.core import panel as panel_mod
+from repro_torch.kernels.opt_fused import adamw_fused_int8
 from repro_torch.device import resolve_device
 from repro_torch.merging import get_merger, merge_panel
 from repro_torch.optim.optim import Optimizer
+from repro_torch.residency import storage_generators
+from repro_torch.telemetry.metrics import fused_moments_auto
 from repro_torch.utils.tree import tree_unflatten
 
 
@@ -75,28 +96,154 @@ def _wire_any(spec, flag: str) -> bool:
     return any(getattr(wire_mod.get_codec(c), flag) for _, c in spec.wire)
 
 
-def _with_wire_state(state, spec):
+def _res_plan(spec):
+    """{state kind: {dtype group: Storage}}: where the spec's residency
+    policy applies. Moment panels mirror each group's dtype, so only the
+    float32 group's moments are stored; merge statistics and
+    error-feedback panels are float32 in every group, so they are stored in
+    every group."""
+    plan = {}
+    for kind, name in spec.residency:
+        st = residency_mod.get_storage(name)
+        groups = [g for g, _ in spec.groups
+                  if kind != "moments" or g == "float32"]
+        if groups:
+            plan[kind] = {g: st for g in groups}
+    return plan
+
+
+def _res_read(stored, sts):
+    """Decode a stored {group: panel} dict to its float32 view (groups
+    without a storage pass through)."""
+    return {k: (sts[k].read(v) if k in sts else v)
+            for k, v in stored.items()}
+
+
+def _res_write(panel, sts, gens):
+    """Encode a float32 {group: panel} dict into storage, each stochastic
+    group drawing from its generator in ``gens``."""
+    return {k: (sts[k].write(v, gen=gens[k]) if k in sts else v)
+            for k, v in panel.items()}
+
+
+def _res_init(panel, sts):
+    """Deterministic encode of a fresh {group: panel} dict."""
+    return {k: (sts[k].init(v) if k in sts else v)
+            for k, v in panel.items()}
+
+
+def _opt_read(opt, sts, mom_keys):
+    """Optimizer state -> its float32 compute view: the moment entries
+    decode, everything else (step_count) passes through."""
+    return {k: (_res_read(v, sts) if k in mom_keys else v)
+            for k, v in opt.items()}
+
+
+def _opt_write(opt, sts, mom_keys, seed, tick, device):
+    """Encode the updated moments back into storage: moment entry i (sorted
+    order) draws from its own generators at this local step."""
+    out = dict(opt)
+    for i, k in enumerate(sorted(k for k in opt if k in mom_keys)):
+        gens = storage_generators(sts, seed, tick, "moments", i, device)
+        out[k] = _res_write(opt[k], sts, gens)
+    return out
+
+
+def _fused_opt_update(gpan, opt, pan, optimizer, sts, seed, tick):
+    """One local step's optimizer update with the stored grouped-int8
+    moments updated by the ``adamw_fused_int8`` kernel, in place, a column
+    slab at a time: the slab's uniforms for m and v are drawn (from the
+    same generators, in the same slabs, as the unfused write draws them),
+    then the kernel decodes, updates and re-encodes the slab. No float32
+    moment panel is made. Groups without a storage take
+    ``optimizer.update``; the per-agent lr, bc1 and bc2 columns come from
+    ``optimizer.hyper``, as the optimizer's own update computes them."""
+    count = opt["step_count"] + 1
+    mom = sorted(k for k in opt if k in optimizer.moment_keys)
+    rest = [k for k in pan if k not in sts]
+    if rest:
+        def sub(d):
+            return {k: d[k] for k in rest}
+        optimizer.update(sub(gpan), {k: (sub(v) if k in mom else v)
+                                     for k, v in opt.items()}, sub(pan))
+    for k in pan:
+        if k not in sts:
+            continue
+        st, x = sts[k], pan[k]
+        m, D = x.shape
+        lr, bc1, bc2 = optimizer.hyper(count, None, x.device)
+        gens = {mk: storage_generators(sts, seed, tick, "moments", i,
+                                       x.device)[k]
+                for i, mk in enumerate(mom)}
+        (qm, sm), (qv, sv) = ((opt[mk][k]["q"], opt[mk][k]["scale"])
+                              for mk in ("m", "v"))
+        step = st.slab()
+        for lo in range(0, D, step):
+            sl = slice(lo, min(lo + step, D))
+            w = sl.stop - lo
+            gs = slice(lo // st.group, lo // st.group + st.scale_count(w))
+            um, uv = (torch.rand((m, w), generator=gens[mk],
+                                 dtype=torch.float32, device=x.device)
+                      for mk in ("m", "v"))
+            adamw_fused_int8(gpan[k][:, sl], x[:, sl], qm[:, sl], sm[:, gs],
+                             qv[:, sl], sv[:, gs], um, uv, lr, bc1, bc2,
+                             group=st.group, transform=st.transform,
+                             **optimizer.hparams)
+            del um, uv
+    out = dict(opt)
+    out["step_count"] = count
+    return pan, out
+
+
+def _init_opt(optimizer, pan, sts):
+    """Optimizer state of a fresh panel; the stored moment groups are made
+    directly as their storage's canonical zero (the optimizers' moments
+    start at zero), so no float32 moment panel is allocated for them."""
+    if not sts:
+        return optimizer.init(pan)
+    opt = optimizer.init({g: x for g, x in pan.items() if g not in sts})
+    for k in optimizer.moment_keys:
+        zero = {g: sts[g].zeros(*pan[g].shape, pan[g].device) for g in sts}
+        opt[k] = {g: (zero[g] if g in zero else opt[k][g]) for g in pan}
+    return opt
+
+
+def _with_wire_state(state, spec, sts=None):
     """Add fresh error-feedback panels when the spec's wire policy has
     error feedback: each dtype group's codec seeds its own (zeros for the
     int8_ef residual, a copy of the panel for the topk mirror —
-    Codec.init_err)."""
+    Codec.init_err); ``sts`` (the wire_err storages) encodes them
+    deterministically."""
     if _wire_any(spec, "error_feedback"):
-        state["wire_err"] = {k: wire_mod.get_codec(spec.wire_of(k))
-                             .init_err(v) for k, v in state["panel"].items()}
+        werr = {k: wire_mod.get_codec(spec.wire_of(k)).init_err(v)
+                for k, v in state["panel"].items()}
+        state["wire_err"] = _res_init(werr, sts) if sts else werr
     return state
 
 
-def _with_merge_stats(state, spec):
+def _with_merge_stats(state, spec, sts=None):
     """Add fresh statistics panels when the spec's merge operator keeps
-    any (``Merger.init_stats`` of the initial parameter panel)."""
+    any (``Merger.init_stats`` of the initial parameter panel), encoded
+    deterministically by ``sts`` (the stats storages) when given."""
     mg = get_merger(spec.merger)
     if mg.stat_panels:
-        state["merge_stat"] = mg.init_stats(state["panel"])
+        stats = mg.init_stats(state["panel"])
+        state["merge_stat"] = ({n: _res_init(v, sts)
+                                for n, v in stats.items()} if sts else stats)
     return state
+
+
+def _build_state(pan, spec, optimizer):
+    plan = _res_plan(spec)
+    state = {"panel": pan, "opt": _init_opt(optimizer, pan,
+                                            plan.get("moments")), "step": 0}
+    _with_wire_state(state, spec, plan.get("wire_err"))
+    return _with_merge_stats(state, spec, plan.get("stats"))
 
 
 def init_panel_state(init_params: Callable, optimizer: Optimizer, m: int,
-                     rng=None, *, device=None, merger=None, wire=None):
+                     rng=None, *, device=None, merger=None, wire=None,
+                     residency=None):
     """Panel train state: params AND optimizer moments as per-dtype (m, D)
     panels. Returns (state, spec).
 
@@ -115,36 +262,39 @@ def init_panel_state(init_params: Callable, optimizer: Optimizer, m: int,
     ``merger`` names the merge operator of global rounds
     (panel.with_merger). A statistical operator (var, fisher, swa) adds
     ``state["merge_stat"]``, its per-agent float32 statistics panels in
-    the parameter panel's layout."""
+    the parameter panel's layout.
+
+    ``residency`` attaches a storage policy (panel.with_residency: a
+    {kind: storage} dict or a 'moments=int8,stats=bf16' string). The named
+    state panels are built in their stored form: stored moments directly
+    as the canonical stored zero (``Storage.zeros``, no float32 panel),
+    statistics and error-feedback panels by the deterministic encode."""
     device = resolve_device(device)
     gen = _generator(rng, device)
     first = init_params(gen, device)
     spec = panel_mod.with_merger(panel_mod.make_spec(first, rows=m), merger)
-    spec = panel_mod.with_wire(spec, wire)
+    spec = panel_mod.with_residency(panel_mod.with_wire(spec, wire),
+                                    residency)
     pan = {g: torch.empty((m, w), dtype=getattr(torch, g), device=device)
            for g, w in spec.groups}
     panel_mod.write_row(pan, spec, 0, first)
     for k in range(1, m):
         panel_mod.write_row(pan, spec, k, init_params(gen, device))
     del first
-    return _with_merge_stats(_with_wire_state(
-        {"panel": pan, "opt": optimizer.init(pan), "step": 0}, spec),
-        spec), spec
+    return _build_state(pan, spec, optimizer), spec
 
 
 def panel_state_from_params(params_stacked, optimizer: Optimizer, *,
-                            wire=None, merger=None):
+                            wire=None, merger=None, residency=None):
     """Panel train state from an agent-stacked parameter tree (e.g. one
     handed over from the reference by ``weights.from_reference_params``),
-    with the wire policy and the merge operator of
+    with the wire policy, the merge operator and the residency policy of
     :func:`init_panel_state`. Returns (state, spec)."""
-    spec = panel_mod.with_wire(
+    spec = panel_mod.with_residency(panel_mod.with_wire(
         panel_mod.with_merger(panel_mod.make_spec(params_stacked), merger),
-        wire)
+        wire), residency)
     pan = panel_mod.to_panel(params_stacked, spec)
-    return _with_merge_stats(_with_wire_state(
-        {"panel": pan, "opt": optimizer.init(pan), "step": 0}, spec),
-        spec), spec
+    return _build_state(pan, spec, optimizer), spec
 
 
 def panel_grads(loss_fn: Callable, panel, spec, batch):
@@ -177,7 +327,7 @@ def panel_grads(loss_fn: Callable, panel, spec, batch):
 
 
 def make_panel_segment(loss_fn: Callable, optimizer: Optimizer,
-                       local_steps: int, spec):
+                       local_steps: int, spec, *, fused=None):
     """Panel driver for one SCHEDULE SEGMENT of rounds.
 
     segment(state, batches, Ws, rng=None, global_rounds=None)
@@ -187,8 +337,11 @@ def make_panel_segment(loss_fn: Callable, optimizer: Optimizer,
       Ws (S, m, m)                     — the rounds' mixing matrices,
       rng                              — a ``torch.Generator`` on the
                                          panel's device or an integer seed;
-                                         required when the wire policy
-                                         rounds stochastically,
+                                         required when the wire policy or
+                                         the residency policy rounds
+                                         stochastically (the residency
+                                         streams are seeded from it, the
+                                         wire draws from it),
       global_rounds (S,) bool          — which rounds are GLOBAL merges
                                          (the launcher reads the schedule's
                                          ``last_kind``); None fingerprints
@@ -216,6 +369,15 @@ def make_panel_segment(loss_fn: Callable, optimizer: Optimizer,
     pair at m = 2, a 3-agent ring): pass the mask when a non-uniform
     operator runs on such topologies.
 
+    The residency policy comes from the spec (panel.with_residency; see the
+    module docstring for where each stored kind is decoded and encoded).
+    ``fused`` picks the moment update of grouped-int8 moments: None uses
+    the fused kernel wherever ``telemetry.metrics.fused_moments_auto``
+    says it applies, True requires it (and raises where it does not
+    apply), False forces the unfused read -> update -> write. Both draw the
+    same uniforms in the same slabs, so their trajectories are the same bit
+    for bit.
+
     The state is consumed (the counterpart of the reference's donated
     buffers): the segment takes its panels out of the caller's dict, the
     optimizer updates them in place, and each communicating round replaces
@@ -232,6 +394,21 @@ def make_panel_segment(loss_fn: Callable, optimizer: Optimizer,
                    and not _wire_any(spec, "delta_mix"))
     local_stat = not plain_merge and merger.local_stat
     round_stat = not plain_merge and merger.round_stat
+    plan = _res_plan(spec)
+    res_mom, res_stat = plan.get("moments"), plan.get("stats")
+    res_err = plan.get("wire_err")
+    res_key = any(st.needs_key for sts in plan.values()
+                  for st in sts.values())
+    mom_keys = tuple(optimizer.moment_keys)
+    fused_ok = fused_moments_auto(spec, optimizer)
+    if fused and not fused_ok:
+        raise ValueError(
+            "fused=True but the fused moment update does not apply: it "
+            "needs a grouped-int8 moments storage (fused_update "
+            f"capability; policy has '{spec.residency_of('moments')}') "
+            "and an optimizer exposing core/hyper with (m, v) moments "
+            f"(got '{optimizer.name}')")
+    res_fused = fused_ok if fused is None else bool(fused)
 
     def segment(state, batches, Ws, rng=None, global_rounds=None):
         x0 = next(iter(state["panel"].values()))
@@ -251,7 +428,14 @@ def make_panel_segment(loss_fn: Callable, optimizer: Optimizer,
             raise ValueError(
                 "spec's wire policy rounds stochastically and needs rng= "
                 "(a torch.Generator or an integer seed)")
+        if res_key and rng is None:
+            raise ValueError(
+                "spec's residency policy rounds stochastically and needs "
+                "rng= (a torch.Generator or an integer seed)")
         gen = _generator(rng, dev) if needs_key else None
+        seed = (None if not res_key else rng.initial_seed()
+                if isinstance(rng, torch.Generator) else int(rng))
+        step0 = state["step"]
         # the caller's dict gives up its panels, so a panel that a round
         # replaces is freed at once
         pan, opt = state.pop("panel"), state.pop("opt")
@@ -269,14 +453,52 @@ def make_panel_segment(loss_fn: Callable, optimizer: Optimizer,
         batches = {k: torch.as_tensor(v).to(dev) for k, v in batches.items()}
         mets = {"loss": [], "grad_norm": [], "grad_norm_max": [],
                 "consensus": []}
+
+        def err_dec(e):
+            # the stored residual decodes only inside communicating rounds
+            return _res_read(e, res_err) if res_err and e is not None else e
+
+        def err_enc(ne, tick, old, W):
+            # re-encode the new residual; idle ROWS of W (agents that sent
+            # nothing, their residual untouched by the mix) keep their old
+            # stored bits instead of re-quantizing the decoded value
+            if not res_err or ne is None:
+                return ne
+            enc = _res_write(ne, res_err, storage_generators(
+                res_err, seed, tick, "wire_err", 0, dev))
+            if old is not None:
+                for r in panel_mod._idle_rows(W, m):
+                    for k in res_err:
+                        if isinstance(enc[k], dict):
+                            for part in enc[k]:
+                                enc[k][part][r] = old[k][part][r]
+                        else:
+                            enc[k][r] = old[k][r]
+            return enc
+
         for s in range(S):
             losses, gns = [], []
+            # round tick of the stats and wire_err streams: the local-step
+            # count at the round's end
+            tick = step0 + (s + 1) * local_steps
+            if res_stat and mstat is not None:
+                # one decode at round entry, one encode at round exit
+                mstat = {n: _res_read(g, res_stat) for n, g in mstat.items()}
             for h in range(local_steps):
                 batch = {k: v[s, h] for k, v in batches.items()}
                 gpan, agent_losses = panel_grads(loss_fn, pan, spec, batch)
                 if local_stat:
                     mstat = merger.update_local(mstat, gpan)
-                pan, opt = optimizer.update(gpan, opt, pan)
+                step = step0 + s * local_steps + h
+                if not res_mom:
+                    pan, opt = optimizer.update(gpan, opt, pan)
+                elif res_fused:
+                    pan, opt = _fused_opt_update(gpan, opt, pan, optimizer,
+                                                 res_mom, seed, step)
+                else:
+                    opt = _opt_read(opt, res_mom, mom_keys)
+                    pan, opt = optimizer.update(gpan, opt, pan)
+                    opt = _opt_write(opt, res_mom, mom_keys, seed, step, dev)
                 losses.append(torch.mean(agent_losses))
                 gns.append(panel_mod.panel_norm(gpan, axis_mean=True))
                 del gpan
@@ -288,21 +510,29 @@ def make_panel_segment(loss_fn: Callable, optimizer: Optimizer,
             is_global = not plain_merge and (
                 bool(glob[s]) if glob is not None
                 else np.array_equal(W, full))
+            ne = None
             if is_global:
-                pan, _, werr = merge_panel(pan, merger, stats=mstat,
-                                           spec=spec, gen=gen, err=werr)
+                pan, _, ne = merge_panel(pan, merger, stats=mstat, spec=spec,
+                                         gen=gen, err=err_dec(werr))
+                werr = err_enc(ne, tick, None, None)
                 mets["consensus"].append(
                     torch.zeros((), dtype=torch.float32, device=dev))
             # W == I rounds communicate nothing: no sweep over the panel,
-            # no codec, no draw
+            # no codec, no draw, no stored bit touched
             elif np.array_equal(W, eye):
                 mets["consensus"].append(panel_mod.consensus_distance(pan))
             else:
-                pan, mean, werr = panel_mod.mix_dense_mean(
-                    pan, W, spec=spec, gen=gen, err=werr)
+                pan, mean, ne = panel_mod.mix_dense_mean(
+                    pan, W, spec=spec, gen=gen, err=err_dec(werr))
+                werr = err_enc(ne, tick, werr, W)
                 mets["consensus"].append(
                     panel_mod.consensus_from_mean(pan, mean))
                 del mean
+            del ne
+            if res_stat and mstat is not None:
+                mstat = {n: _res_write(mstat[n], res_stat, storage_generators(
+                    res_stat, seed, tick, "stats", i, dev))
+                    for i, n in enumerate(sorted(mstat))}
             gn = torch.stack(gns)
             mets["loss"].append(torch.mean(torch.stack(losses)))
             mets["grad_norm"].append(torch.mean(gn))

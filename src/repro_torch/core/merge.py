@@ -58,8 +58,10 @@ def counterfactual_eval(eval_fn, params_stacked, merger="uniform",
 
 def merged_panel_tree(panel, spec, merger=None, stats=None, weights=None):
     """Merged (non-stacked, float32-leaf) model of an engine panel under the
-    spec's (or an explicit) merge operator."""
+    spec's (or an explicit) merge operator; ``stats`` may be held in the
+    spec's residency storage (``merging.decode_stats``)."""
     mg = merging_mod.get_merger(spec.merger if merger is None else merger)
+    stats = merging_mod.decode_stats(stats, spec)
     row = mg.merge_row(panel, stats=stats, weights=weights)
     return panel_mod.from_panel(row, spec, cast=False)
 

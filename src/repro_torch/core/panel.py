@@ -26,9 +26,14 @@ its rows back through bf16), ``int8`` / ``int8_ef`` and ``int4`` /
 ``int4_ef`` (per-row int8 or grouped packed int4 with stochastic rounding,
 without and with the error-feedback residual; the quantize, dequantize,
 pack and unpack kernels) and ``topk`` (the sparse innovation over a mirror
-panel through ``sparsify_topk``, mixed in damped delta form). The panels
-themselves are float32: bf16 storage comes with storage residency, and so
-do the legacy ``wire_dtype`` cast and sharded panels in later slices.
+panel through ``sparsify_topk``, mixed in damped delta form).
+
+The residency policy of the state panels (:func:`with_residency`,
+``repro_torch.residency``) is named on the spec too; it never applies to
+the parameter panels. The communication ops take float32 parameter
+groups: groups of another dtype come with the architecture families that
+have them, and the legacy ``wire_dtype`` cast and sharded panels with
+later slices.
 
 On CUDA tensors the kernel wrappers launch the Hopper kernels; on CPU
 tensors they run the plain versions.
@@ -66,6 +71,7 @@ class PanelSpec:
     rows: int = 0                        # m (agents)
     merger: str = "uniform"              # merge operator of global rounds
     wire: Tuple[Tuple[str, object], ...] = ()  # (dtype key, codec) policy
+    residency: Tuple[Tuple[str, str], ...] = ()  # (state kind, storage)
 
     @property
     def width(self) -> int:
@@ -94,6 +100,35 @@ class PanelSpec:
         exchange."""
         return sum(wire_mod.get_codec(self.wire_of(k)).total_bytes(1, w, k)
                    for k, w in self.groups)
+
+
+    def residency_of(self, kind: str) -> str:
+        """Storage name of one state-panel kind ('moments', 'stats',
+        'wire_err'); 'f32' when no policy is set."""
+        for k, name in self.residency:
+            if k == kind:
+                return name
+        return "f32"
+
+    def storage_bytes(self, kind: str, state_dtype: Optional[str] = None
+                      ) -> int:
+        """Exact per-agent resident bytes of ONE state panel of ``kind``
+        under the residency policy, scales included. Storage codecs act on
+        float32 state only: with ``state_dtype=None`` the state mirrors each
+        group's dtype (the optimizer moments) and a non-float32 group pays
+        its itemsize; ``state_dtype='float32'`` models the panels that are
+        float32 for every group (merge statistics, error-feedback panels).
+        """
+        from repro_torch import residency as residency_mod
+        st = residency_mod.get_storage(self.residency_of(kind))
+        total = 0
+        for g, w in self.groups:
+            dt = state_dtype or g
+            if dt == "float32":
+                total += st.resident_bytes(1, w)
+            else:
+                total += wire_mod.codec._itemsize(dt) * w
+        return total
 
 
 def dtype_name(dtype: torch.dtype) -> str:
@@ -148,6 +183,31 @@ def with_wire(spec: PanelSpec, wire) -> PanelSpec:
     for name in mapping.values():
         wire_mod.get_codec(name)
     return replace(spec, wire=tuple(sorted(mapping.items())))
+
+
+def with_residency(spec: PanelSpec, residency) -> PanelSpec:
+    """Attach a storage-codec residency policy to ``spec``.
+
+    ``residency`` is a {state kind: storage name} dict or a policy string
+    for ``residency.parse_policy`` ('moments=int8,stats=bf16', or a bare
+    storage name for the moments); kinds are 'moments', 'stats' and
+    'wire_err' (parameters keep their dtype), names are
+    ``residency.STORAGE`` keys. Explicit 'f32' entries are dropped: the f32
+    policy IS the empty policy. None clears. Only registry NAMES live on
+    the spec."""
+    if residency is None:
+        return replace(spec, residency=())
+    from repro_torch import residency as residency_mod
+    named = {}
+    for kind, name in residency_mod.parse_policy(residency).items():
+        if not isinstance(name, str):
+            raise ValueError(
+                "with_residency takes registry NAMES; register a custom "
+                "Storage instance in residency.STORAGE first")
+        st = residency_mod.get_storage(name)
+        if st.name != "f32":
+            named[kind] = st.name
+    return replace(spec, residency=tuple(sorted(named.items())))
 
 
 def with_merger(spec: PanelSpec, merger) -> PanelSpec:
@@ -281,8 +341,9 @@ def _mix_dense_groups(panel, W, *, with_mean, spec=None, gen=None,
         x = panel[k]
         if x.dtype != torch.float32:
             raise NotImplementedError(
-                f"group {k!r} is stored as {x.dtype}: the port's panels are "
-                "float32 (bf16 storage comes with storage residency)")
+                f"group {k!r} is stored as {x.dtype}: the port mixes float32 "
+                "parameter groups (groups of other dtypes come with the "
+                "architecture families that have them)")
         e = err[k] if err is not None else None
         xw, back, ne = codecs[k].encode(x, gen=gen, err=e)
         if codecs[k].delta_mix:

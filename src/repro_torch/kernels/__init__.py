@@ -4,12 +4,15 @@
 ``panel_reduce.panel_mean_consensus`` are the wrappers the panel engine
 calls; ``wire_quant`` holds the wire codecs' kernels (int8 quantize and
 dequantize, the top-k sparsifier, int4 quantize, dequantize, nibble pack
-and unpack); ``merge_ops`` the merge operators' column reductions (the
-weighted and the TIES column merge); ``ref`` holds the plain versions;
+and unpack) and the residency storages' grouped int8 quantize and
+dequantize; ``merge_ops`` the merge operators' column reductions (the
+weighted and the TIES column merge); ``opt_fused`` the fused AdamW step on
+grouped-int8 moments; ``ref`` holds the plain versions;
 ``build`` compiles the CUDA sources under ``csrc/`` at first use.
 """
 from repro_torch.kernels import gossip_mix as _gossip_mix
 from repro_torch.kernels import merge_ops as _merge_ops
+from repro_torch.kernels import opt_fused as _opt_fused
 from repro_torch.kernels import panel_reduce as _panel_reduce
 from repro_torch.kernels import wire_quant as _wire_quant
 
@@ -24,11 +27,14 @@ KERNELS = {"gossip_mix": _gossip_mix.gossip_mix,
            "pack_int4": _wire_quant.pack_int4,
            "unpack_int4": _wire_quant.unpack_int4,
            "weighted_colmerge": _merge_ops.weighted_colmerge,
-           "ties_colmerge": _merge_ops.ties_colmerge}
+           "ties_colmerge": _merge_ops.ties_colmerge,
+           "quantize_int8_grouped": _wire_quant.quantize_int8_grouped,
+           "dequantize_int8_grouped": _wire_quant.dequantize_int8_grouped,
+           "adamw_fused_int8": _opt_fused.adamw_fused_int8}
 
 # the CUDA sources (csrc/<name>.cu) the kernels are built from
 SOURCES = ("gossip_mix", "panel_reduce", "wire_quant", "wire_int4",
-           "merge_ops")
+           "merge_ops", "wire_int8g", "opt_fused")
 
 
 def reset_launch_counts():

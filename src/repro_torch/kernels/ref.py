@@ -15,6 +15,12 @@ nearest (ties to even, as ``jnp.round``) or stochastic rounding
 the top-k threshold and mask. The scales and the threshold are row passes
 computed outside the kernels, as in the reference.
 
+The residency functions are the counterparts of the storages' oracles:
+the grouped int8 scales (amax / 127), quantize and dequantize, the
+signed-sqrt companding and the fused AdamW step on grouped-int8 moments
+(decode, ``optim.adamw_core``, re-encode), each bit for bit with its kernel
+on the card.
+
 The merge functions are the counterparts of the merge operators' oracles:
 the weighted column merge, the TIES trim thresholds (``jnp.quantile``'s
 float32 arithmetic, outside the kernel as in the reference) and the TIES
@@ -115,11 +121,10 @@ def sparsify_topk_ref(x, thresh):
                        torch.zeros((), dtype=torch.float32, device=x.device))
 
 
-def int4_group_scale_ref(x, group: int = 128):
-    """Grouped symmetric int4 scales of an (m, D) panel: amax / 7 per row
-    per ``group``-column block -> (m, ceil(D / group)) float32. A partial
-    tail group reduces over its real columns only; an all-zero group gets
-    scale 1/7, so dequantizing stays a plain multiply."""
+def _group_scale(x, group: int, qmax: float):
+    """amax / qmax per row per ``group``-column block of an (m, D) panel ->
+    (m, ceil(D / group)) float32; a partial tail group reduces over its real
+    columns only, an all-zero group gets 1 / qmax."""
     x32 = x.to(torch.float32)
     m, D = x32.shape
     full = D // group * group
@@ -133,7 +138,23 @@ def int4_group_scale_ref(x, group: int = 128):
     if full < D:
         parts.append(amax(x32[:, full:], 1)[:, None])
     a = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
-    return div_exact(torch.where(a > 0, a, torch.ones_like(a)), 7.0)
+    return div_exact(torch.where(a > 0, a, torch.ones_like(a)), qmax)
+
+
+def int4_group_scale_ref(x, group: int = 128):
+    """Grouped symmetric int4 scales of an (m, D) panel: amax / 7 per row
+    per ``group``-column block -> (m, ceil(D / group)) float32. A partial
+    tail group reduces over its real columns only; an all-zero group gets
+    scale 1/7, so dequantizing stays a plain multiply."""
+    return _group_scale(x, group, 7.0)
+
+
+def int8_group_scale_ref(x, group: int = 128):
+    """Grouped symmetric int8 scales (the residency storages' layout):
+    amax / 127 per row per ``group``-column block -> (m, ceil(D / group))
+    float32, the tail group over its real columns, an all-zero group 1/127.
+    """
+    return _group_scale(x, group, 127.0)
 
 
 def expand_group_scale(scale, D: int, group: int = 128):
@@ -156,6 +177,69 @@ def dequantize_int4_ref(q, scale, group: int = 128):
     """q: (m, D) int4-valued int8; scale: (m, ceil(D / group)) float32 ->
     float32 (m, D) q * s."""
     return q.to(torch.float32) * expand_group_scale(scale, q.shape[1], group)
+
+
+def quantize_int8_grouped_ref(x, scale, u=None, group: int = 128):
+    """x: (m, D); scale: (m, ceil(D / group)) float32 -> int8 (m, D) in
+    [-127, 127]: floor(x / s + u) with ``u`` (uniform in [0, 1), the shape
+    of x), else x / s rounded to nearest (ties to even); s the scale of the
+    column's group, true IEEE division."""
+    s = x.to(torch.float32) / expand_group_scale(scale, x.shape[1], group)
+    q = torch.floor(s.add_(u)) if u is not None else torch.round(s)
+    return torch.clamp(q, -127.0, 127.0).to(torch.int8)
+
+
+def dequantize_int8_grouped_ref(q, scale, group: int = 128):
+    """q: (m, D) int8; scale: (m, ceil(D / group)) float32 -> float32
+    (m, D) q * s, s the scale of the column's group."""
+    return q.to(torch.float32) * expand_group_scale(scale, q.shape[1], group)
+
+
+def signed_sqrt(x):
+    """The companding of the int8 moment storages: sign(x) * sqrt(|x|),
+    with the correctly rounded float32 square root on every device (the
+    float64 root rounded once; PyTorch's float32 square root on the CPU
+    lands an ulp off for some inputs, the kernel's ``__fsqrt_rn`` and
+    XLA's do not)."""
+    x = x.to(torch.float32)
+    r = torch.sqrt(torch.abs(x).to(torch.float64)).to(torch.float32)
+    return torch.sign(x) * r
+
+
+def signed_square(y):
+    """The inverse companding: sign(y) * y^2."""
+    return torch.sign(y) * torch.square(y)
+
+
+def adamw_fused_int8_ref(g, p, qm, sm, qv, sv, um, uv, lr, bc1, bc2, *,
+                         group: int = 128, b1: float = 0.9,
+                         b2: float = 0.999, eps: float = 1e-8,
+                         weight_decay: float = 0.0, transform=None):
+    """One AdamW step on grouped-int8 moments, decode -> update -> encode.
+
+    g, p: (m, D) float32; qm, qv: (m, D) int8; sm, sv: (m, ceil(D / group))
+    float32 scales; um, uv: (m, D) uniforms in [0, 1) for the stochastic
+    re-encode; lr, bc1, bc2: (m, 1) float32 per-agent columns; ``transform``
+    None (linear) or "sqrt" (signed-sqrt companding). Decodes both moments
+    (dequantize, then the inverse transform), runs ``optim.adamw_core``
+    with these constants, then takes the forward transform of the new
+    moments, their fresh grouped scales (amax / 127, an all-zero group
+    1/127) and the stochastic re-encode floor(z / s + u). Returns new
+    tensors (p, qm, sm, qv, sv): by construction the unfused composition
+    of the storages' read, the optimizer and write."""
+    from repro_torch.optim.optim import adamw_core
+    fwd = signed_sqrt if transform == "sqrt" else (lambda x: x)
+    inv = signed_square if transform == "sqrt" else (lambda y: y)
+    m = inv(dequantize_int8_grouped_ref(qm, sm, group))
+    v = inv(dequantize_int8_grouped_ref(qv, sv, group))
+    p, m, v = adamw_core(g, m, v, p, lr=lr, bc1=bc1, bc2=bc2, b1=b1, b2=b2,
+                         eps=eps, weight_decay=weight_decay)
+    out = [p]
+    for x, u in ((m, um), (v, uv)):
+        z = fwd(x)
+        s = int8_group_scale_ref(z, group)
+        out += [quantize_int8_grouped_ref(z, s, u, group), s]
+    return tuple(out)
 
 
 def pack_int4_ref(q):

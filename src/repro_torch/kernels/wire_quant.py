@@ -1,18 +1,21 @@
 """The wire codecs' kernels: int8 quantize and dequantize against a per-row
-scale, the top-k sparsifier against a per-row threshold, and the int4
-family (quantize and dequantize against grouped scales, nibble pack and
-unpack).
+scale, the top-k sparsifier against a per-row threshold, the int4 family
+(quantize and dequantize against grouped scales, nibble pack and unpack),
+and the grouped int8 pair of the residency storages.
 
 Replaces the Pallas TPU kernels ``quantize_int8_panel``,
-``dequantize_int8_panel``, ``sparsify_topk_panel`` (``csrc/wire_quant.cu``)
-and ``quantize_int4_panel``, ``dequantize_int4_panel``,
-``pack_int4_panel``, ``unpack_int4_panel`` (``csrc/wire_int4.cu``) of
-``src/repro/kernels/wire_quant.py``. The scales (``ref.int8_scale_ref``,
-``ref.int4_group_scale_ref``) and the threshold
+``dequantize_int8_panel``, ``sparsify_topk_panel`` (``csrc/wire_quant.cu``),
+``quantize_int4_panel``, ``dequantize_int4_panel``, ``pack_int4_panel``,
+``unpack_int4_panel`` (``csrc/wire_int4.cu``),
+``quantize_int8_grouped_panel`` and ``dequantize_int8_grouped_panel``
+(``csrc/wire_int8g.cu``) of ``src/repro/kernels/wire_quant.py``. The
+scales (``ref.int8_scale_ref``, ``ref.int4_group_scale_ref``,
+``ref.int8_group_scale_ref``) and the threshold
 (``ref.topk_threshold_ref``) are computed by the caller outside the
 kernels, as in the reference. For CPU tensors each wrapper runs its plain
 version (``kernels/ref.py``); for CUDA tensors it launches its kernel or
-raises — there is no fallback.
+raises — there is no fallback. The grouped int8 pair takes rows with a
+stride, so a column slab of a wider panel is processed in place.
 """
 from __future__ import annotations
 
@@ -21,8 +24,11 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import (dequantize_int4_ref, dequantize_int8_ref,
-                                     pack_int4_ref, quantize_int4_ref,
+from repro_torch.kernels.ref import (dequantize_int4_ref,
+                                     dequantize_int8_grouped_ref,
+                                     dequantize_int8_ref, pack_int4_ref,
+                                     quantize_int4_ref,
+                                     quantize_int8_grouped_ref,
                                      quantize_int8_ref, sparsify_topk_ref,
                                      unpack_int4_ref)
 
@@ -38,6 +44,13 @@ _SIGNATURES_INT4 = {
     "dequantize_int4_f32": (ctypes.c_int, [_P, _P, _P, _I, _L, _I, _I, _P]),
     "pack_int4_i8": (ctypes.c_int, [_P, _P, _I, _L, _P]),
     "unpack_int4_u8": (ctypes.c_int, [_P, _P, _I, _L, _P]),
+}
+
+_SIGNATURES_INT8G = {
+    "quantize_int8g_f32": (ctypes.c_int, [_P, _P, _P, _P, _I, _L, _I, _I, _L,
+                                          _L, _L, _L, _P]),
+    "dequantize_int8g_f32": (ctypes.c_int, [_P, _P, _P, _I, _L, _I, _I, _L,
+                                            _L, _L, _P]),
 }
 
 MAX_ROWS = 65535  # the kernels' bound on m (one grid row per agent)
@@ -220,6 +233,96 @@ def unpack_int4(p, D: int):
     return q
 
 
+def check_rows(name, t, dtype, shape, device):
+    """A CUDA operand given as rows with a stride: ``dtype`` of ``shape``
+    on ``device``, unit column stride (a column slab of a wider panel is
+    fine) and rows that do not overlap."""
+    if t.device != device:
+        raise ValueError(f"{name}: arguments on several devices "
+                         f"{{{t.device}, {device}}}")
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} takes {dtype} {tuple(shape)}, got "
+                         f"{t.dtype} {tuple(t.shape)}")
+    if t.dim() != 2 or (t.shape[1] > 1 and t.stride(1) != 1) \
+            or (t.shape[0] > 1 and t.stride(0) < t.shape[1]):
+        raise ValueError(f"{name} takes rows with a unit column stride, "
+                         f"got strides {t.stride()}")
+
+
+def row_stride(t):
+    """The row stride (leading dimension) a kernel is given for ``t``."""
+    return t.stride(0) if t.shape[0] > 1 else t.shape[1]
+
+
+def _grouped_panel(name, x, dtype, group):
+    if x.device.type != "cuda":
+        raise ValueError(f"{name} runs on cpu or cuda, got {x.device}")
+    if x.dim() != 2 or not 1 <= x.shape[0] <= MAX_ROWS or x.shape[1] < 1:
+        raise ValueError(f"{name} takes an (m, D) panel with 1 <= m <= "
+                         f"{MAX_ROWS}, got {tuple(x.shape)}")
+    _check_cols(name, x.shape[1])
+    m, D = x.shape
+    G = _n_groups(D, group)
+    check_rows(name, x, dtype, (m, D), x.device)
+    return m, D, G
+
+
+def quantize_int8_grouped(x, scale, u=None, group: int = 128, out=None):
+    """x: (m, D) float32; scale: (m, ceil(D / group)) float32 grouped
+    scales; u: (m, D) float32 uniforms in [0, 1) or None -> int8 (m, D) in
+    [-127, 127]: floor(x / s + u) with u, else x / s rounded to nearest
+    (ties to even), s the scale of the column's group.
+
+    Every tensor may be a column slab of a wider panel (rows with a stride,
+    unit column stride), so a slab of whole groups is quantized in place;
+    ``out`` (int8 (m, D)) receives q when given."""
+    if _on_cpu(x, scale, u, out):
+        q = quantize_int8_grouped_ref(x, scale, u, group)
+        return q if out is None else out.copy_(q)
+    m, D, G = _grouped_panel("quantize_int8_grouped", x, torch.float32,
+                             group)
+    check_rows("quantize_int8_grouped", scale, torch.float32, (m, G),
+               x.device)
+    if u is not None:
+        check_rows("quantize_int8_grouped", u, torch.float32, (m, D),
+                   x.device)
+    if out is None:
+        out = torch.empty((m, D), dtype=torch.int8, device=x.device)
+    check_rows("quantize_int8_grouped", out, torch.int8, (m, D), x.device)
+    lib = build.load("wire_int8g", _SIGNATURES_INT8G)
+    _launch("quantize_int8_grouped", lib.quantize_int8g_f32, x.data_ptr(),
+            scale.data_ptr(), None if u is None else u.data_ptr(),
+            out.data_ptr(), m, D, G, group, row_stride(x),
+            row_stride(scale), 0 if u is None else row_stride(u),
+            row_stride(out), torch.cuda.current_stream(x.device).cuda_stream)
+    quantize_int8_grouped.launches += 1
+    return out
+
+
+def dequantize_int8_grouped(q, scale, group: int = 128, out=None):
+    """q: (m, D) int8; scale: (m, ceil(D / group)) float32 -> float32
+    (m, D) q * s, s the scale of the column's group (into ``out`` when
+    given). Strided rows are taken as by :func:`quantize_int8_grouped`."""
+    if _on_cpu(q, scale, out):
+        y = dequantize_int8_grouped_ref(q, scale, group)
+        return y if out is None else out.copy_(y)
+    m, D, G = _grouped_panel("dequantize_int8_grouped", q, torch.int8,
+                             group)
+    check_rows("dequantize_int8_grouped", scale, torch.float32, (m, G),
+               q.device)
+    if out is None:
+        out = torch.empty((m, D), dtype=torch.float32, device=q.device)
+    check_rows("dequantize_int8_grouped", out, torch.float32, (m, D),
+               q.device)
+    lib = build.load("wire_int8g", _SIGNATURES_INT8G)
+    _launch("dequantize_int8_grouped", lib.dequantize_int8g_f32,
+            q.data_ptr(), scale.data_ptr(), out.data_ptr(), m, D, G, group,
+            row_stride(q), row_stride(scale), row_stride(out),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    dequantize_int8_grouped.launches += 1
+    return out
+
+
 # kernel launches since the counts were last set to 0
 quantize_int8.launches = 0
 dequantize_int8.launches = 0
@@ -228,3 +331,5 @@ quantize_int4.launches = 0
 dequantize_int4.launches = 0
 pack_int4.launches = 0
 unpack_int4.launches = 0
+quantize_int8_grouped.launches = 0
+dequantize_int8_grouped.launches = 0

@@ -3,10 +3,12 @@
 
 Runs the paper's algorithm end to end on synthetic non-IID token streams:
 per-agent local AdamW/SGD steps, scheduled gossip, and the single final
-global merge, on the panel engine (core/dsgd.py), under any merge operator
-of ``repro_torch.merging`` (``--merge``). It draws the schedule's mixing
-matrices and the batches from the same numpy seeds, in the same order, as
-the reference launcher, so both see byte-identical W streams and batches.
+global merge, on the panel engine (core/dsgd.py), under any wire codec
+(``--wire``), merge operator (``--merge``) and residency policy of the
+state panels (``--residency``, ``--fused-moments``). It draws the
+schedule's mixing matrices and the batches from the same numpy seeds, in
+the same order, as the reference launcher, so both see byte-identical W
+streams and batches.
 
 Runs on the CUDA card unless ``--device cpu`` is given. Example:
   PYTHONPATH=src python -m repro_torch.launch.train --rounds 10 \
@@ -34,6 +36,9 @@ from repro_torch.device import resolve_device
 from repro_torch.merging import MERGERS
 from repro_torch.models import build_model
 from repro_torch.optim import make_optimizer
+from repro_torch.residency import STORAGE
+from repro_torch.telemetry.metrics import (fused_moments_auto,
+                                           resident_bytes_model)
 from repro_torch.wire import CODECS
 
 
@@ -99,6 +104,28 @@ def main(argv=None):
                          "stochastic rounding, the _ef variants add error "
                          "feedback, topk sends the top 1/8 of the "
                          "innovation over a mirror")
+    ap.add_argument("--residency", default="",
+                    help="storage policy of the state panels "
+                         "(repro_torch.residency): 'kind=storage' pairs "
+                         "joined by ',' over the kinds moments, stats and "
+                         "wire_err, or a bare storage for the moments "
+                         "(e.g. 'moments=int8,stats=bf16'). Storages: "
+                         + ", ".join(sorted(STORAGE)) + ". int8 and int8g "
+                         "keep signed-sqrt companded int8 with one scale "
+                         "per row per 128 (int8g: 32) columns and "
+                         "stochastic rounding, about 4x fewer bytes per "
+                         "moment panel; int8r is linear int8 with one "
+                         "scale per row (for stats and wire_err, not for "
+                         "moments); bf16 halves the bytes. Parameters stay "
+                         "float32; empty or f32 = no policy")
+    ap.add_argument("--fused-moments", default="auto",
+                    choices=["auto", "on", "off"],
+                    help="the fused int8 moment update (the "
+                         "adamw_fused_int8 kernel: decode, AdamW and the "
+                         "stochastic re-encode in one sweep, no float32 "
+                         "moment panel): auto = on wherever the moments' "
+                         "storage is grouped int8; its trajectory equals "
+                         "the unfused one bit for bit")
     ap.add_argument("--merge", default="uniform", choices=sorted(MERGERS),
                     help="merge operator of global rounds "
                          "(repro_torch.merging): uniform mean, weighted "
@@ -137,20 +164,35 @@ def main(argv=None):
     tag = f"{args.arch}_{args.schedule}_a{args.alpha}"
     if args.merge != "uniform":
         tag += f"_m{args.merge}"
+    if args.residency:
+        tag += "_r" + args.residency.replace("=", "").replace(",", "_")
 
     gen = torch.Generator(device=device).manual_seed(args.seed)
     state, spec = dsgd.init_panel_state(model.init_params, opt, m, gen,
                                         device=device, merger=sched.merger,
-                                        wire=args.wire)
+                                        wire=args.wire,
+                                        residency=args.residency or None)
     print(f"{cfg.name}: {spec.width} parameters per agent, {m} agents, "
           f"device {device}")
     print(f"wire codec {args.wire}: {spec.wire_payload_bytes} B/agent "
           f"payload ({spec.wire_total_bytes} B with scales/indices) per "
           f"full-panel exchange; merge operator {spec.merger}")
-    # the stochastic codecs' draws: one generator for the whole run
+    fused = {"auto": None, "on": True, "off": False}[args.fused_moments]
+    fused_active = fused_moments_auto(spec, opt) if fused is None else fused
+    res_bytes = resident_bytes_model(spec, opt, fused=fused_active)
+    print(f"residency {args.residency or 'f32'}: "
+          f"{res_bytes['total']} B/agent resident "
+          f"(params {res_bytes['params']}, moments {res_bytes['moments']}, "
+          f"wire_err {res_bytes['wire_err']}, "
+          f"merge_stat {res_bytes['merge_stat']}); "
+          f"peak {res_bytes['peak']} B/agent "
+          f"(+{res_bytes['transient_bytes']} transient); "
+          f"fused moments {'on' if fused_active else 'off'}")
+    # the stochastic codecs' draws: one generator for the whole run (the
+    # residency streams are seeded from it and never draw from it)
     wire_gen = torch.Generator(device=device).manual_seed(args.seed + 3)
     segment_fn = dsgd.make_panel_segment(model.loss_fn, opt,
-                                         args.local_steps, spec)
+                                         args.local_steps, spec, fused=fused)
 
     lm = SyntheticLM(vocab=cfg.vocab_size, num_domains=8, seed=args.seed)
     mixtures = lm.domain_mixtures(m, args.alpha, seed=args.seed + 1)

@@ -2,4 +2,5 @@
 from repro_torch.merging.ops import (MERGERS, FisherMerger,  # noqa: F401
                                      Merger, SwaMerger, TiesMerger,
                                      UniformMerger, VarMerger,
-                                     WeightedMerger, get_merger, merge_panel)
+                                     WeightedMerger, decode_stats,
+                                     get_merger, merge_panel)

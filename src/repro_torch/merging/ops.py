@@ -32,8 +32,9 @@ panel). The updates run IN PLACE, one row at a time: each product of the
 EMA goes into a (D,) temporary and the sum is rounded once, as the
 reference's ``b * s + (1 - b) * x`` rounds each product on its own.
 
-Not in this slice: statistics held in a residency storage layout
-(``decode_stats``, with storage residency) and the ``live=`` agent mask
+Statistics held in a residency storage (``--residency stats=...``) are
+decoded by :func:`decode_stats` before an operator reads them; every merge
+entry point goes through it. Not in this slice: the ``live=`` agent mask
 (with liveness).
 """
 from __future__ import annotations
@@ -282,6 +283,23 @@ def get_merger(name):
         ) from None
 
 
+def decode_stats(stats, spec):
+    """Statistics panels held in the spec's ``stats`` residency storage ->
+    their float32 view ({stat: {group: (m, D_g) f32}}). ``maybe_read``
+    lets already decoded float32 panels pass, so the segment's own decoded
+    statistics, and every run without a stats policy, go through
+    unchanged."""
+    if stats is None or spec is None:
+        return stats
+    name = spec.residency_of("stats")
+    if name == "f32":
+        return stats
+    from repro_torch import residency as residency_mod
+    st = residency_mod.get_storage(name)
+    return {sn: {g: st.maybe_read(v) for g, v in grp.items()}
+            for sn, grp in stats.items()}
+
+
 def merge_panel(panel, merger, *, stats=None, weights=None, spec=None,
                 gen=None, err=None):
     """One global merge ROUND: every agent transmits its panel through the
@@ -302,6 +320,7 @@ def merge_panel(panel, merger, *, stats=None, weights=None, spec=None,
     dtypes, the merged {group: (D_g,) f32} row, and the updated
     error-feedback state (None when ``err`` is)."""
     merger = get_merger(merger)
+    stats = decode_stats(stats, spec)
     enc, backs = {}, {}
     if merger.uses_panel:
         codecs = panel_mod._codecs(panel, spec)

@@ -14,7 +14,7 @@ number.
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable
 
 import torch
@@ -67,6 +67,9 @@ class Optimizer:
     core: Callable = None
     # (count, step=None, device=None) -> (lr, bc1, bc2) float32 scalars
     hyper: Callable = None
+    # the constants ``core`` applies ({"b1", "b2", "eps", "weight_decay"}
+    # for AdamW): the fused int8 kernel takes the same numbers
+    hparams: dict = field(default=None, compare=False)
 
 
 def _column_chunks(width: int):
@@ -128,9 +131,11 @@ def adamw(schedule, b1=0.9, b2=0.999, eps=1e-8,
                 "v": {k: torch.zeros_like(v) for k, v in params.items()},
                 "step_count": 0}
 
+    hparams = {"b1": b1, "b2": b2, "eps": eps,
+               "weight_decay": weight_decay}
+
     def core(g, m, v, p, *, lr, bc1, bc2):
-        return adamw_core(g, m, v, p, lr=lr, bc1=bc1, bc2=bc2, b1=b1, b2=b2,
-                          eps=eps, weight_decay=weight_decay)
+        return adamw_core(g, m, v, p, lr=lr, bc1=bc1, bc2=bc2, **hparams)
 
     def hyper(count, step=None, device=None):
         step = count if step is None else step + 1
@@ -152,7 +157,8 @@ def adamw(schedule, b1=0.9, b2=0.999, eps=1e-8,
                         "step_count": count}
 
     return Optimizer(init=init, update=update, name="adamw",
-                     moment_keys=("m", "v"), core=core, hyper=hyper)
+                     moment_keys=("m", "v"), core=core, hyper=hyper,
+                     hparams=hparams)
 
 
 def make_optimizer(name: str, lr, total_steps: int = 1000,

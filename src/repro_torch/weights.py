@@ -6,7 +6,9 @@ tree, turned into numpy arrays, becomes the port's tree and panel here.
 Leaves keep the reference's shapes (the stacked layer axis included) and
 go into the panel in ``jax.tree_util`` flatten order (sorted dict keys), so a
 reference panel loads bit for bit. The merge operators' statistics panels
-(the reference's ``state["merge_stat"]``) hand over the same way.
+(the reference's ``state["merge_stat"]``) and the residency storages'
+stored panels (int8 ``{"q", "scale"}`` dicts, bf16 arrays) hand over the
+same way.
 """
 from __future__ import annotations
 
@@ -51,3 +53,33 @@ def merge_stat_from_reference(stats, spec, device=None):
                     f"spec has {spec.rows or 'm'} rows of width {widths[g]}")
             out[name][g] = torch.from_numpy(a).to(device)
     return out
+
+
+def _tensor(a, device):
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # numpy has no bf16: move its bits
+        bits = np.array(a.view(np.uint16), copy=True).view(np.int16)
+        return torch.from_numpy(bits).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def stored_from_reference(stored, device=None):
+    """One of the reference's stored panels (a residency storage's form:
+    ``{"q": int8, "scale": float32}`` for the int8 storages, a bf16 array
+    for bf16, a float32 array for the identity) -> the port's stored form
+    on ``device``, bit for bit."""
+    device = resolve_device(device)
+    if isinstance(stored, dict):
+        if set(stored) != {"q", "scale"}:
+            raise ValueError(f"a stored int8 panel has keys q and scale, "
+                             f"got {sorted(stored)}")
+        q, scale = _tensor(stored["q"], device), _tensor(stored["scale"],
+                                                         device)
+        if q.dtype != torch.int8 or scale.dtype != torch.float32 \
+                or q.dim() != 2 or scale.dim() != 2 \
+                or scale.shape[0] != q.shape[0]:
+            raise ValueError(f"stored int8 panel: q {q.dtype} "
+                             f"{tuple(q.shape)}, scale {scale.dtype} "
+                             f"{tuple(scale.shape)}")
+        return {"q": q, "scale": scale}
+    return _tensor(stored, device)
