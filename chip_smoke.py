@@ -17,7 +17,9 @@ Phases, each printing its lines:
      card equal the CPU's bit for bit; the residency kernels (grouped int8
      quantize and dequantize, the fused AdamW step on grouped-int8 moments,
      library torch.quantize_per_channel on the (m G, 128) view for the
-     round-to-nearest pair);
+     round-to-nearest pair); flash attention forward (float32, bfloat16)
+     and backward at odd sizes, at the attn_block path's shape and at a GQA
+     shape (library torch's scaled_dot_product_attention, is_causal);
   4. a small run of the training segment on the card against the same run
      on the CPU (plain versions), from one init, one batch stream, one W
      stream: on the f32 wire, with topk, bf16 and a round-to-nearest int8_ef
@@ -25,7 +27,8 @@ Phases, each printing its lines:
      under the weighted, var, fisher, ties and swa merge operators (ties
      also over the round-to-nearest int8_ef), and under residency policies
      (int8 moments fused and unfused, bf16, int8g, int8r statistics, an
-     int8 error-feedback panel);
+     int8 error-feedback panel), and with attn_block 8 (the blockwise
+     attention route);
   5. the main path: olmo-1b at full width cut to 2 layers, 8 agents, the
      final-merge schedule, through init_panel_state -> make_panel_segment
      -> merged and local eval on the f32 wire; then, on the trained state,
@@ -35,12 +38,18 @@ Phases, each printing its lines:
      paths: the same cell on the f32 wire with --merge var and --merge
      ties; then the residency paths: --residency moments=int8 with the
      fused moment update and with the unfused one, which must agree bit for
-     bit, the fused one's peak at least 8 GB under the f32 path's;
+     bit, the fused one's peak at least 8 GB under the f32 path's (both
+     count, after each local step, the entries whose decoded second moment
+     is 0 under a nonzero first moment); then the attn_block 512 path: the
+     f32 wire with cfg.dist.attn_block = 512 at batch 2, seq 2048 (the
+     flash attention kernels, forward and backward, in every local step),
+     and one agent's gradient through it against the dense route's;
   each path of 5 and 6 with the launch counts set to 0 just before it and
   read just after, and its peak device memory;
-then a JSON line of per-kernel numbers, the card's line again and, last,
-the result line. It fails (non-zero exit, no result line) if there is no
-card, if a kernel does not build, launch or agree, or if any check fails.
+then the script's total time, a JSON line of per-kernel numbers, the
+card's line again and, last, the result line. It fails (non-zero exit, no
+result line) if there is no card, if the port's package is not beside it,
+if a kernel does not build, launch or agree, or if any check fails.
 Imports torch, numpy and the port only.
 """
 from __future__ import annotations
@@ -65,11 +74,16 @@ ROUNDS, H = 4, 2      # rounds, local steps per round
 BATCH, SEQ = 4, 512
 DATA_VOCAB = 1024     # token ids the synthetic streams draw (of 50304)
 REPS = 20             # timed launches per measurement
+# the attn_block path's input: olmo-1b's context length, blocks of 512 keys
+# (the dry-run's flashxla value: 4 key blocks a row)
+ATTN_BLOCK, ATTN_BATCH, ATTN_SEQ = 512, 2, 2048
 
 # the paths driven at full width (f32 is the main path) and the kernels
 # each must launch; a path is a wire codec, "merge <operator>" on the f32
-# wire, or "residency int8" (--residency moments=int8 on the f32 wire, the
-# fused moment update; "unfused" forces the read -> AdamW -> write path)
+# wire, "residency int8" (--residency moments=int8 on the f32 wire, the
+# fused moment update; "unfused" forces the read -> AdamW -> write path),
+# or "attn_block <n>" (the f32 wire with cfg.dist.attn_block = n: the
+# blockwise attention route, at batch ATTN_BATCH and seq ATTN_SEQ)
 PATH_KERNELS = {"f32": ("gossip_mix", "panel_mean_consensus"),
                 "int8_ef": ("quantize_int8", "dequantize_int8", "gossip_mix"),
                 "topk": ("sparsify_topk", "gossip_mix",
@@ -85,7 +99,11 @@ PATH_KERNELS = {"f32": ("gossip_mix", "panel_mean_consensus"),
                 "residency int8 unfused": ("dequantize_int8_grouped",
                                            "quantize_int8_grouped",
                                            "gossip_mix",
-                                           "panel_mean_consensus")}
+                                           "panel_mean_consensus"),
+                f"attn_block {ATTN_BLOCK}": ("flash_attention_fwd",
+                                             "flash_attention_bwd",
+                                             "gossip_mix",
+                                             "panel_mean_consensus")}
 
 
 def card_line():
@@ -774,6 +792,145 @@ def fused_check(torch, m, D, group, gen, D_main, out):
     torch.cuda.empty_cache()
 
 
+def visible_pairs(S, causal, window):
+    """The (query, key) pairs a causal and/or windowed mask lets through
+    over positions 0 .. S-1: what the attention kernels' work is counted
+    on."""
+    n = 0
+    for i in range(S):
+        lo = 0 if window is None else max(0, i - window + 1)
+        n += (i if causal else S - 1) - lo + 1
+    return n
+
+
+def flash_checks(torch):
+    """Phase 3, flash attention: the forward kernel (float32 and bfloat16)
+    and the backward kernels against their plain versions (the online loop,
+    and torch autograd through it) at odd sizes (S = 100, hd 64 and 128, a
+    window, GQA) and at the attn_block path's shape (B 2, S 2048, H 16, hd
+    128) and a GQA one (H 32 on Kv 8). Tolerances: float32 output and lse
+    2e-5, gradients 1e-4, bfloat16 output 2e-2 (other summation orders).
+    Times at the path's shape: kernel, plain version, the bound (float32
+    operations over the visible pairs) and torch's
+    scaled_dot_product_attention(is_causal=True) on the same float32
+    tensors, forward, and its backward on a retained graph."""
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd,
+                                                     flash_attention_fwd)
+    from repro_torch.kernels.ref import (flash_attention_bwd_ref,
+                                         flash_attention_fwd_ref)
+    F = torch.nn.functional
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(6)
+    err = {"fwd": 0.0, "fwd_bf16": 0.0, "bwd": 0.0}
+    out = {}
+    # (B, S, H, Kv, hd, window, dtype)
+    cases = [(2, 100, 4, 2, 64, None, torch.float32),
+             (1, 100, 2, 2, 128, 48, torch.float32),
+             (2, 100, 4, 2, 64, None, torch.bfloat16),
+             (1, 100, 2, 1, 128, 48, torch.bfloat16),
+             (ATTN_BATCH, ATTN_SEQ, 16, 16, 128, None, torch.float32),
+             (ATTN_BATCH, ATTN_SEQ, 32, 8, 128, None, torch.float32)]
+    for B, S, Hq, Kv, hd, window, dtype in cases:
+        q = torch.randn((B, S, Hq, hd), generator=gen, device=dev)
+        k = torch.randn((B, S, Kv, hd), generator=gen, device=dev)
+        v = torch.randn((B, S, Kv, hd), generator=gen, device=dev)
+        do = torch.randn((B, S, Hq, hd), generator=gen, device=dev)
+        pos = torch.arange(S, dtype=torch.int32, device=dev).expand(B, S)
+        kw = dict(causal=True, window=window)
+        bf16 = dtype == torch.bfloat16
+        qc, kc, vc = (t.to(dtype) for t in (q, k, v))
+        o, lse = flash_attention_fwd(qc, kc, vc, pos, pos, **kw)
+        ro, rlse = flash_attention_fwd_ref(qc, kc, vc, pos, pos, **kw)
+        torch.cuda.synchronize()
+        tol = 2e-2 if bf16 else 2e-5
+        e = float(torch.max(torch.abs(o.float() - ro.float())))
+        el = float(torch.max(torch.abs(lse - rlse)))
+        label = (f"B={B} S={S} H={Hq} Kv={Kv} hd={hd} window={window} "
+                 f"{str(dtype)[6:]}")
+        check(o.dtype == dtype
+              and torch.allclose(o.float(), ro.float(), atol=tol, rtol=tol)
+              and torch.allclose(lse, rlse, atol=tol, rtol=tol),
+              f"flash_attention_fwd disagrees at {label}: {e}, lse {el}")
+        key = "fwd_bf16" if bf16 else "fwd"
+        err[key] = max(err[key], e)
+        line = (f"check flash attention {label}: forward max|err| {e:.3g} "
+                f"(lse {el:.3g})")
+        del ro, rlse
+        if not bf16:
+            g = flash_attention_bwd(q, k, v, o, lse, do, pos, pos, **kw)
+            rg = flash_attention_bwd_ref(q, k, v, do, pos, pos, **kw)
+            torch.cuda.synchronize()
+            eb = max(float(torch.max(torch.abs(a - b)))
+                     for a, b in zip(g, rg))
+            rel = max(float(torch.linalg.vector_norm(a - b)
+                            / torch.linalg.vector_norm(b))
+                      for a, b in zip(g, rg))
+            check(all(torch.allclose(a, b, atol=1e-4, rtol=1e-4)
+                      for a, b in zip(g, rg)),
+                  f"flash_attention_bwd disagrees at {label}: {eb}")
+            err["bwd"] = max(err["bwd"], eb)
+            line += f"; backward max|err| {eb:.3g} (rel l2 {rel:.3g})"
+            del g, rg
+        print(line, flush=True)
+        if S == ATTN_SEQ and Hq == 16:
+            pairs = visible_pairs(S, True, window)
+            n_q, n_kv, rows = B * S * Hq * hd, B * S * Kv * hd, B * Hq * S
+            cost = {"flash_attention_fwd": (
+                        4 * (2 * n_q + 2 * n_kv + rows) + 8 * B * S,
+                        4 * hd * pairs * B * Hq),
+                    "flash_attention_bwd": (
+                        4 * (4 * n_q + 4 * n_kv + rows) + 8 * B * S,
+                        10 * hd * pairs * B * Hq)}
+            timed = {"flash_attention_fwd": (
+                         lambda: flash_attention_fwd(q, k, v, pos, pos),
+                         lambda: flash_attention_fwd_ref(q, k, v, pos, pos)),
+                     "flash_attention_bwd": (
+                         lambda: flash_attention_bwd(q, k, v, o, lse, do,
+                                                     pos, pos),
+                         lambda: flash_attention_bwd_ref(q, k, v, do, pos,
+                                                         pos))}
+            for name, (fn, plain) in timed.items():
+                nbytes, ops = cost[name]
+                b_ms, b_by = bound(nbytes, ops)
+                out[name] = {"ms": time_ms(torch, fn),
+                             "plain_ms": time_ms(torch, plain, reps=5,
+                                                 warmup=1),
+                             "library_ms": None, "bytes": nbytes, "ops": ops,
+                             "bound_ms": b_ms, "bound_by": b_by}
+            # the library yardstick, in its (B, H, S, hd) layout
+            ql, kl, vl = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                          for t in (q, k, v))
+            dol = do.transpose(1, 2).contiguous()
+            try:
+                lo = F.scaled_dot_product_attention(ql, kl, vl,
+                                                    is_causal=True)
+                out["flash_attention_fwd"]["library_ms"] = time_ms(
+                    torch, lambda: F.scaled_dot_product_attention(
+                        ql, kl, vl, is_causal=True))
+                out["flash_attention_bwd"]["library_ms"] = time_ms(
+                    torch, lambda: torch.autograd.grad(
+                        lo, (ql, kl, vl), dol, retain_graph=True))
+                del lo
+            except (RuntimeError, NotImplementedError) as exc:
+                print(f"library: scaled_dot_product_attention does not run "
+                      f"on float32 here ({type(exc).__name__}: "
+                      f"{str(exc).splitlines()[0]})", flush=True)
+            del ql, kl, vl, dol
+            for name, r_ in out.items():
+                print(f"time {name} (B={B}, S={S}, H={Hq}, hd={hd}, causal): "
+                      f"kernel {r_['ms']:.4f} ms, plain {r_['plain_ms']:.4f} "
+                      f"ms, library {r_['library_ms']} ms, bound "
+                      f"{r_['bound_ms']:.4f} ms ({r_['ops']} float32 "
+                      f"operations), {100 * r_['bound_ms'] / r_['ms']:.1f}% "
+                      f"of the bound", flush=True)
+        del q, k, v, do, qc, kc, vc, o, lse
+        torch.cuda.empty_cache()
+    out["flash_attention_fwd"]["max_abs_err"] = err["fwd"]
+    out["flash_attention_fwd"]["max_abs_err_bf16"] = err["fwd_bf16"]
+    out["flash_attention_bwd"]["max_abs_err"] = err["bwd"]
+    return out
+
+
 def segment_inputs(cfg, m, rounds, seed=0, data_vocab=None, batch=BATCH,
                    seq=SEQ):
     """(W, batches, global) per round as the launcher draws them (schedule
@@ -804,18 +961,22 @@ def small_parity(torch):
     the same segment on the CPU (plain versions), on the f32 wire, with
     topk, bf16 and a round-to-nearest int8_ef and int4_ef, under every
     non-uniform merge operator (ties also over the round-to-nearest
-    int8_ef), and under residency policies: int8 moments fused and
-    unfused, bf16 and int8g moments, int8r statistics under var, an int8
-    error-feedback panel under the round-to-nearest int8_ef."""
+    int8_ef), under residency policies: int8 moments fused and unfused,
+    bf16 and int8g moments, int8r statistics under var, an int8
+    error-feedback panel under the round-to-nearest int8_ef; and with
+    attn_block 8 (the flash attention kernels on the card, the plain online
+    loop on the CPU)."""
+    import dataclasses
+
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.core import dsgd
+    from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch.train import build_cpu_preset
     from repro_torch.models import build_model
     from repro_torch.optim import make_optimizer
     from repro_torch.wire import Int4Codec, Int8Codec
     cfg = build_cpu_preset(get_config("olmo-1b"), 4)
-    model = build_model(cfg)
     per_round, _ = segment_inputs(cfg, 4, 3, batch=4, seq=32)
     int8_rtn = {"float32": Int8Codec("int8_ef", stochastic=False,
                                      error_feedback=True)}
@@ -842,8 +1003,14 @@ def small_parity(torch):
                                              None),
         "residency wire_err=int8, int8_ef round to nearest": (
             int8_rtn, None, "wire_err=int8", None)})
-    for label, (wire, merger, res, fused) in cases.items():
+    # label: (..., attn_block)
+    cases = {k: v + (0,) for k, v in cases.items()}
+    cases["attn_block 8"] = (None, None, None, None, 8)
+    for label, (wire, merger, res, fused, block) in cases.items():
+        model = build_model(cfg.replace(dist=dataclasses.replace(
+            cfg.dist, attn_block=block)))
         runs, same = {}, {}
+        reset_launch_counts()
         for dev in ("cpu", "cuda"):
             opt = make_optimizer("adamw", 3e-3, total_steps=3 * H)
             state, spec = dsgd.init_panel_state(model.init_params, opt, 4, 0,
@@ -866,6 +1033,10 @@ def small_parity(torch):
               f"cuda {runs['cuda'].tolist()} cpu {runs['cpu'].tolist()}; "
               f"rows identical after the final merge: {same}", flush=True)
         check(ok, f"the {label} segment on the card disagrees with the CPU")
+        check(not block or min(launch_counts()["flash_attention_fwd"],
+                               launch_counts()["flash_attention_bwd"]) > 0,
+              f"the {label} segment on the card ran no flash attention "
+              f"kernel: {launch_counts()}")
         # bf16 rounds the merged rows through bf16 while the folded mean
         # stays float32 (the reference's rule): its Xi reports that rounding
         check(all(same.values()) and (label == "bf16"
@@ -891,9 +1062,16 @@ def drive_path(torch, path):
     after; the main path then times each piece of a round (breakdown).
     ``residency int8`` keeps its moments as companded grouped int8 (the
     launcher's --residency moments=int8), updated by the fused kernel, or
-    with `` unfused`` through the storage's read, AdamW and write. Returns
-    (counts, record): the per-round losses and Xi, the peak, the evals and,
-    on a residency path, the final state's panels and moments."""
+    with `` unfused`` through the storage's read, AdamW and write; after
+    each local step it counts the entries whose decoded second moment is 0
+    while the first moment is not (plain versions: no launch is counted).
+    ``attn_block <n>`` runs the blockwise attention route at batch
+    ATTN_BATCH, seq ATTN_SEQ, then holds one agent's gradient through it
+    against the dense route's. Returns (counts, record): the per-round
+    losses and Xi, the peak, the evals and, on a residency path, the final
+    state's panels and moments and the per-step counts."""
+    import dataclasses
+
     from repro_torch.configs import get_config
     from repro_torch.core import dsgd
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -904,11 +1082,17 @@ def drive_path(torch, path):
                                                resident_bytes_model)
     dev = torch.device("cuda")
     cfg = get_config("olmo-1b").replace(num_layers=2)
+    batch, seq = BATCH, SEQ
+    if path.startswith("attn_block "):
+        cfg = cfg.replace(dist=dataclasses.replace(
+            cfg.dist, attn_block=int(path.split()[1])))
+        batch, seq = ATTN_BATCH, ATTN_SEQ
     model = build_model(cfg)
     opt = make_optimizer("adamw", 3e-3, weight_decay=5e-4,
                          total_steps=ROUNDS * H)
     per_round, eval_batch = segment_inputs(cfg, M, ROUNDS,
-                                           data_vocab=DATA_VOCAB)
+                                           data_vocab=DATA_VOCAB,
+                                           batch=batch, seq=seq)
     eval_batch = to_device(eval_batch, dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -919,17 +1103,28 @@ def drive_path(torch, path):
     elif path.startswith("residency "):
         wire, res = None, "moments=" + path.split()[1]
         fused = False if path.endswith(" unfused") else None
+    elif path.startswith("attn_block "):
+        wire = "f32"
     reset_launch_counts()
     gen = torch.Generator(device=dev).manual_seed(0)
     state, spec = dsgd.init_panel_state(model.init_params, opt, M, gen,
                                         device=dev, wire=wire, merger=merger,
                                         residency=res)
-    seg = dsgd.make_panel_segment(model.loss_fn, opt, H, spec, fused=fused)
+    zero_v, after_step = [], None
+    if res:
+        moments = dsgd._res_plan(spec)["moments"]
+
+        def after_step(step, opt_state):
+            zero_v.append(zero_v_count(torch, opt_state, moments))
+
+    seg = dsgd.make_panel_segment(model.loss_fn, opt, H, spec, fused=fused,
+                                  after_step=after_step)
     wire_gen = torch.Generator(device=dev).manual_seed(3)
     print(f"path {path}: {cfg.name} d_model {cfg.d_model}, {cfg.num_layers} "
           f"layers, vocab {cfg.vocab_size} padded to {cfg.padded_vocab}, "
-          f"D {spec.width} per agent, m {M}, H {H}, batch {BATCH}, seq "
-          f"{SEQ}; device memory held before the path {held} bytes; "
+          f"D {spec.width} per agent, m {M}, H {H}, batch {batch}, seq "
+          f"{seq}, attn_block {cfg.dist.attn_block}; device memory held "
+          f"before the path {held} bytes; "
           f"{spec.wire_payload_bytes} B/agent payload "
           f"({spec.wire_total_bytes} B with scales/indices) per full-panel "
           f"exchange; merge operator {spec.merger}", flush=True)
@@ -979,16 +1174,86 @@ def drive_path(torch, path):
           f"{path}: a loss is not finite")
     check(abs(local - merged) <= 1e-6 * abs(merged),
           f"{path}: local eval {local!r} != merged eval {merged!r}")
-    if path == "f32":
-        breakdown(torch, model, opt, state, spec, per_round[0])
+    if path == "f32" or cfg.dist.attn_block:
+        breakdown(torch, model, opt, state, spec, per_round[0], path)
     record = {"losses": losses, "xis": xis, "peak": peak, "width": spec.width,
               "merged": merged, "local": local}
+    if cfg.dist.attn_block:
+        check(counts["flash_attention_bwd"] == ROUNDS * H * M * cfg.num_layers
+              and counts["flash_attention_fwd"] >= counts[
+                  "flash_attention_bwd"],
+              f"{path}: flash attention launches {counts} are not one "
+              f"forward and one backward per layer, agent and local step "
+              f"(plus the evals' forwards)")
+        record["grad_rel_l2"] = grad_route_check(torch, cfg, state, spec,
+                                                 per_round[0])
     if res:  # kept for the fused == unfused comparison
+        print(f"int8 moments ({path}): entries with a decoded second moment "
+              f"of 0 under a nonzero first moment, per local step, of "
+              f"{M * spec.width}: {zero_v}", flush=True)
         record["panel"] = state["panel"]
         record["opt"] = state["opt"]
+        record["zero_v"] = zero_v
     del state, seg
     torch.cuda.empty_cache()
     return counts, record
+
+
+def zero_v_count(torch, opt, sts):
+    """Entries whose decoded second moment v is 0 while the decoded first
+    moment m is not, over the stored grouped-int8 moments ``opt`` (storages
+    ``sts`` by dtype group); decoded a slab at a time by the plain
+    versions, so no kernel launch is counted."""
+    from repro_torch.kernels.ref import dequantize_int8_grouped_ref
+    n = 0
+    for g, st in sts.items():
+        m, v = opt["m"][g], opt["v"][g]
+        D, step = m["q"].shape[1], st.slab()
+        for lo in range(0, D, step):
+            cs = slice(lo, min(lo + step, D))
+            gs = slice(lo // st.group, -(-cs.stop // st.group))
+            dm, dv = (st.transform_inv(dequantize_int8_grouped_ref(
+                x["q"][:, cs], x["scale"][:, gs], st.group)) for x in (m, v))
+            n += int(torch.count_nonzero((dv == 0) & (dm != 0)))
+            del dm, dv
+    return n
+
+
+def grad_route_check(torch, cfg, state, spec, round_inputs, tol=1e-4):
+    """One agent's gradient at full width through the blockwise route (the
+    flash attention kernels) against the dense _sdpa route (attn_block 0):
+    agent 0's parameters of the trained state, its first batch; relative
+    l2 of the whole gradient <= ``tol``. Returns it."""
+    import dataclasses
+    from repro_torch.core import panel as panel_mod
+    from repro_torch.models import build_model
+    from repro_torch.utils.tree import tree_flatten, tree_unflatten
+    dev = next(iter(state["panel"].values())).device
+    batch = {k: torch.as_tensor(v[0, 0, 0]).to(dev)
+             for k, v in round_inputs[1].items()}
+    grads = {}
+    for route, block in (("blockwise", cfg.dist.attn_block), ("dense", 0)):
+        model = build_model(cfg.replace(dist=dataclasses.replace(
+            cfg.dist, attn_block=block)))
+        leaves, skel = tree_flatten(panel_mod.agent_params(state["panel"],
+                                                           spec, 0))
+        leaves = [x.detach().requires_grad_(True) for x in leaves]
+        loss, _ = model.loss_fn(tree_unflatten(skel, leaves), batch)
+        grads[route] = torch.cat([g.reshape(-1) for g in
+                                  torch.autograd.grad(loss, leaves)])
+        del leaves, loss
+    rel = float(torch.linalg.vector_norm(grads["blockwise"] - grads["dense"])
+                / torch.linalg.vector_norm(grads["dense"]))
+    err = float(torch.max(torch.abs(grads["blockwise"] - grads["dense"])))
+    print(f"gradient route check (agent 0, batch {tuple(batch['tokens'].shape)}"
+          f", {grads['dense'].numel()} entries): blockwise (flash kernels) vs "
+          f"dense _sdpa relative l2 {rel:.3g}, max|err| {err:.3g}",
+          flush=True)
+    check(rel <= tol, f"the blockwise route's gradient is {rel} (relative "
+                      f"l2) from the dense route's, over {tol}")
+    del grads
+    torch.cuda.empty_cache()
+    return rel
 
 
 def compare_fused_unfused(torch, fused, unfused, f32_peak):
@@ -998,6 +1263,7 @@ def compare_fused_unfused(torch, fused, unfused, f32_peak):
     least 8 GB under the f32 path's."""
     same = (fused["losses"] == unfused["losses"]
             and fused["xis"] == unfused["xis"]
+            and fused["zero_v"] == unfused["zero_v"]
             and fused["merged"] == unfused["merged"]
             and all(torch.equal(fused["panel"][k], unfused["panel"][k])
                     for k in fused["panel"])
@@ -1006,8 +1272,9 @@ def compare_fused_unfused(torch, fused, unfused, f32_peak):
                     for mk in ("m", "v") for g in fused["opt"][mk]
                     for part in ("q", "scale")))
     saved = f32_peak - fused["peak"]
-    print(f"residency int8 fused vs unfused: losses, Xi, evals, final panels "
-          f"and stored moments bit-identical: {same}; peaks f32 {f32_peak}, "
+    print(f"residency int8 fused vs unfused: losses, Xi, evals, final panels, "
+          f"stored moments and zero-v counts bit-identical: {same}; peaks "
+          f"f32 {f32_peak}, "
           f"fused {fused['peak']}, unfused {unfused['peak']} bytes; the fused "
           f"path holds {saved} bytes less than the f32 path", flush=True)
     check(same, "the fused and unfused residency paths differ")
@@ -1022,7 +1289,8 @@ def rows_identical(torch, panel):
                for r in range(1, x.shape[0]))
 
 
-def breakdown(torch, model, opt, state, spec, round_inputs, reps=3):
+def breakdown(torch, model, opt, state, spec, round_inputs, label,
+              reps=3):
     """Where a round's time goes at full width: each piece of the round
     timed on its own (median of ``reps``, CUDA events) on the trained
     state. Runs after the main path's counts were read."""
@@ -1053,15 +1321,21 @@ def breakdown(torch, model, opt, state, spec, round_inputs, reps=3):
                 + out["grad_norm"])
     out["round_estimate"] = (H * per_step + out["mix_dense_mean"]
                              + out["consensus_from_mean"])
-    print("breakdown ms " + json.dumps(
+    print(f"breakdown ms ({label}) " + json.dumps(
         {k: round(v, 3) for k, v in out.items()}), flush=True)
     return out
 
 
 def main():
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    if not os.path.isdir(os.path.join(ROOT, "src", "repro_torch")):
+        print(f"chip_smoke: the port's package src/repro_torch is not beside "
+              f"this script (in {ROOT}); run it from a checkout of the "
+              f"repository", file=sys.stderr)
         return 2
     import repro_torch  # noqa: F401  (sets TF32 off)
     from repro_torch.configs import get_config
@@ -1088,6 +1362,7 @@ def main():
     measured.update(int4_checks(torch, D))
     measured.update(merge_checks(torch, D))
     measured.update(residency_checks(torch, D))
+    measured.update(flash_checks(torch))
     small_parity(torch)
     counts, records = {}, {}
     for path in PATH_KERNELS:
@@ -1130,7 +1405,11 @@ def main():
         "dequantize_int8_grouped": ("wire_int8g.cu", "wire_quant.py:319",
                                     counts["residency int8 unfused"]),
         "adamw_fused_int8": ("opt_fused.cu", "opt_fused.py:94",
-                             counts["residency int8"])}
+                             counts["residency int8"]),
+        "flash_attention_fwd": ("flash_attention.cu", "flash_attention.py:69",
+                                counts[f"attn_block {ATTN_BLOCK}"]),
+        "flash_attention_bwd": ("flash_attention.cu", "flash_attention.py:69",
+                                counts[f"attn_block {ATTN_BLOCK}"])}
     # sub-rows: the round-to-nearest quantizes, the bf16 variant of the mix
     variants = {"quantize_int8": ("rtn", "quantize_int8_rtn", None),
                 "quantize_int4": ("rtn", "quantize_int4_rtn", None),
@@ -1148,8 +1427,9 @@ def main():
                "ms": r["ms"], "plain_ms": r["plain_ms"],
                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                "library_ms": r["library_ms"]}
-        if "sq_rel_err" in r:
-            row["sq_rel_err"] = r["sq_rel_err"]
+        for extra in ("sq_rel_err", "max_abs_err_bf16"):
+            if extra in r:
+                row[extra] = r[extra]
         if name in variants:
             key, sub, launches = variants[name]
             row[key] = {k: measured[sub][k] for k in (
@@ -1158,6 +1438,7 @@ def main():
             if launches is not None:
                 row[key]["launches"] = launches
         kernels.append(row)
+    print(f"total: {time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -66,7 +66,7 @@ caller's state is consumed).
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -327,7 +327,8 @@ def panel_grads(loss_fn: Callable, panel, spec, batch):
 
 
 def make_panel_segment(loss_fn: Callable, optimizer: Optimizer,
-                       local_steps: int, spec, *, fused=None):
+                       local_steps: int, spec, *, fused=None,
+                       after_step: Optional[Callable] = None):
     """Panel driver for one SCHEDULE SEGMENT of rounds.
 
     segment(state, batches, Ws, rng=None, global_rounds=None)
@@ -377,6 +378,10 @@ def make_panel_segment(loss_fn: Callable, optimizer: Optimizer,
     apply), False forces the unfused read -> update -> write. Both draw the
     same uniforms in the same slabs, so their trajectories are the same bit
     for bit.
+
+    ``after_step(step, opt)``, if given, is called after each local step's
+    optimizer update with the local step's index and the optimizer state
+    in its stored form; it is for measurement, and must only read.
 
     The state is consumed (the counterpart of the reference's donated
     buffers): the segment takes its panels out of the caller's dict, the
@@ -499,6 +504,8 @@ def make_panel_segment(loss_fn: Callable, optimizer: Optimizer,
                     opt = _opt_read(opt, res_mom, mom_keys)
                     pan, opt = optimizer.update(gpan, opt, pan)
                     opt = _opt_write(opt, res_mom, mom_keys, seed, step, dev)
+                if after_step is not None:
+                    after_step(step, opt)
                 losses.append(torch.mean(agent_losses))
                 gns.append(panel_mod.panel_norm(gpan, axis_mean=True))
                 del gpan

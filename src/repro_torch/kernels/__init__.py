@@ -7,9 +7,11 @@ dequantize, the top-k sparsifier, int4 quantize, dequantize, nibble pack
 and unpack) and the residency storages' grouped int8 quantize and
 dequantize; ``merge_ops`` the merge operators' column reductions (the
 weighted and the TIES column merge); ``opt_fused`` the fused AdamW step on
-grouped-int8 moments; ``ref`` holds the plain versions;
+grouped-int8 moments; ``flash_attention`` the blockwise attention
+route's forward and backward kernels; ``ref`` holds the plain versions;
 ``build`` compiles the CUDA sources under ``csrc/`` at first use.
 """
+from repro_torch.kernels import flash_attention as _flash_attention
 from repro_torch.kernels import gossip_mix as _gossip_mix
 from repro_torch.kernels import merge_ops as _merge_ops
 from repro_torch.kernels import opt_fused as _opt_fused
@@ -30,11 +32,13 @@ KERNELS = {"gossip_mix": _gossip_mix.gossip_mix,
            "ties_colmerge": _merge_ops.ties_colmerge,
            "quantize_int8_grouped": _wire_quant.quantize_int8_grouped,
            "dequantize_int8_grouped": _wire_quant.dequantize_int8_grouped,
-           "adamw_fused_int8": _opt_fused.adamw_fused_int8}
+           "adamw_fused_int8": _opt_fused.adamw_fused_int8,
+           "flash_attention_fwd": _flash_attention.flash_attention_fwd,
+           "flash_attention_bwd": _flash_attention.flash_attention_bwd}
 
 # the CUDA sources (csrc/<name>.cu) the kernels are built from
 SOURCES = ("gossip_mix", "panel_reduce", "wire_quant", "wire_int4",
-           "merge_ops", "wire_int8g", "opt_fused")
+           "merge_ops", "wire_int8g", "opt_fused", "flash_attention")
 
 
 def reset_launch_counts():

@@ -1,0 +1,250 @@
+"""Flash attention, forward and backward: the CUDA kernels' wrappers.
+
+Replaces the Pallas TPU kernel ``flash_attention_bh``
+(``src/repro/kernels/flash_attention.py``) and its GQA wrapper
+(``src/repro/kernels/ops.py:flash_attention``); the kernels are
+``csrc/flash_attention.cu``: a forward kernel that also writes the
+float32 log-sum-exp of each row, and a backward pass (a row-sum kernel,
+then dK/dV and dQ), which the Pallas kernel does not have.
+``FlashAttention`` ties the two together for autograd, and
+``blockwise_attention`` is the route of ``models/attention.py`` when
+``cfg.dist.attn_block > 0``.
+
+For CPU tensors the wrappers run the plain versions
+(``kernels/ref.py:flash_attention_ref`` and its forward/backward
+companions); for CUDA tensors they launch the kernels or raise — there is
+no fallback. The kernels take float32 or bfloat16 forward, float32
+backward (a bfloat16 backward raises TypeError), head dims 16, 32, 64 and
+128, and (B, S, heads, hd) tensors with hd contiguous and any other
+strides. Their own tiles are 64 x 64; the plain version's ``block`` is
+the key block of its loop, which the kernels do not need.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.ref import (flash_attention_bwd_ref,
+                                     flash_attention_fwd_ref,
+                                     flash_attention_ref)
+
+HEAD_DIMS = (16, 32, 64, 128)
+TILE = 64  # the kernels' query and key tile: the plain versions' block
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_STRIDES = ctypes.POINTER(ctypes.c_longlong)
+_SIGNATURES = {
+    "flash_attention_fwd": (_I, [_I] + [_P] * 7 + [_I] * 8
+                            + [ctypes.c_float, _STRIDES, _P]),
+    "flash_attention_bwd": (_I, [_P] * 12 + [_I] * 8
+                            + [ctypes.c_float, _STRIDES, _P]),
+}
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _scale(q, scale):
+    return scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+
+
+def _window(window):
+    """None -> -1 (the kernels' "no window"); a window must be >= 1."""
+    if window is None:
+        return -1
+    if window < 1:
+        raise ValueError(f"window must be None or >= 1, got {window}")
+    return int(window)
+
+
+def _rows(t):
+    """``t`` itself when its last dim is contiguous (the kernels take the
+    other strides as they are), else a contiguous copy."""
+    return t if t.stride(-1) == 1 else t.contiguous()
+
+
+def _positions(pos, B, S, device):
+    return torch.broadcast_to(pos, (B, S)).to(device=device,
+                                              dtype=torch.int32).contiguous()
+
+
+def _check(q, k, v):
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash attention takes float32 or bfloat16 q, k, v "
+                        f"of one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"flash attention takes q (B, Sq, H, hd) and k, v "
+                         f"(B, Sk, Kv, hd), got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    B, Sq, H, hd = q.shape
+    _, Sk, Kv, hk = k.shape
+    if k.shape[0] != B or hk != hd or H % Kv:
+        raise ValueError(f"q {tuple(q.shape)} and k/v {tuple(k.shape)} do "
+                         f"not match (batch, head dim, H % Kv == 0)")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"the flash attention kernels take head dims "
+                         f"{HEAD_DIMS}, got {hd}")
+    if min(B, Sq, Sk) < 1 or max(B, H) > 65535:
+        raise ValueError(f"flash attention shape out of range: q "
+                         f"{tuple(q.shape)}, k {tuple(k.shape)}")
+    if not (q.device == k.device == v.device):
+        raise ValueError("q, k and v lie on different devices")
+
+
+def _strides(*ts):
+    vals = [s for t in ts for s in (t.stride(0), t.stride(1), t.stride(2))]
+    return (ctypes.c_longlong * len(vals))(*vals)
+
+
+def _launch(entry, *args):
+    lib = build.load("flash_attention", _SIGNATURES)
+    rc = getattr(lib, entry)(*args)
+    if rc != 0:
+        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc}")
+
+
+def flash_attention_fwd(q, k, v, q_pos, k_pos, *, causal=True, window=None,
+                        scale=None):
+    """q (B, Sq, H, hd), k, v (B, Sk, Kv, hd), float32 or bfloat16;
+    positions (B, Sq), (B, Sk) -> (out (B, Sq, H, hd) in q's dtype, lse
+    (B, H, Sq) float32). One launch of the forward kernel."""
+    scale = _scale(q, scale)
+    if q.device.type == "cpu":
+        return flash_attention_fwd_ref(q, k, v, q_pos, k_pos, causal=causal,
+                                       window=window, scale=scale,
+                                       block=TILE)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash attention runs on cpu or cuda, got "
+                         f"{q.device}")
+    _check(q, k, v)
+    q, k, v = _rows(q), _rows(k), _rows(v)
+    B, Sq, H, hd = q.shape
+    Sk, Kv = k.shape[1], k.shape[2]
+    qp = _positions(q_pos, B, Sq, q.device)
+    kp = _positions(k_pos, B, Sk, q.device)
+    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    _launch("flash_attention_fwd", int(q.dtype == torch.bfloat16),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), qp.data_ptr(),
+            kp.data_ptr(), out.data_ptr(), lse.data_ptr(), B, H, Kv, Sq, Sk,
+            hd, int(causal), _window(window), scale, _strides(q, k, v, out),
+            stream)
+    flash_attention_fwd.launches += 1
+    return out, lse
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, q_pos, k_pos, *,
+                        causal=True, window=None, scale=None):
+    """The backward pass of ``flash_attention_fwd``: (dq, dk, dv), float32,
+    shaped as q, k, v. ``out`` and ``lse`` are the forward's outputs,
+    ``dout`` the gradient of ``out``. One launch of the backward pass (its
+    row-sum, dK/dV and dQ kernels)."""
+    scale = _scale(q, scale)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, dout, q_pos, k_pos,
+                                       causal=causal, window=window,
+                                       scale=scale, block=TILE)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash attention runs on cpu or cuda, got "
+                         f"{q.device}")
+    _check(q, k, v)
+    if any(t.dtype != torch.float32 for t in (q, out, lse, dout)):
+        raise TypeError(f"the flash attention backward kernels take float32 "
+                        f"only, got {q.dtype} inputs, a {out.dtype} output, "
+                        f"a {lse.dtype} lse and a {dout.dtype} gradient")
+    B, Sq, H, hd = q.shape
+    Sk, Kv = k.shape[1], k.shape[2]
+    if (dout.shape != q.shape or out.shape != q.shape
+            or lse.shape != (B, H, Sq)):
+        raise ValueError(f"out {tuple(out.shape)} and dout "
+                         f"{tuple(dout.shape)} must be shaped as q "
+                         f"{tuple(q.shape)}, lse {tuple(lse.shape)} as "
+                         f"{(B, H, Sq)}")
+    if any(t.device != q.device for t in (out, lse, dout)):
+        raise ValueError("out, lse and dout must lie on q's device")
+    q, k, v, out, dout = (_rows(t) for t in (q, k, v, out, dout))
+    qp = _positions(q_pos, B, Sq, q.device)
+    kp = _positions(k_pos, B, Sk, q.device)
+    lse = lse.contiguous()
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
+    dv = torch.empty(v.shape, dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    _launch("flash_attention_bwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), dout.data_ptr(), qp.data_ptr(), kp.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), B, H, Kv, Sq, Sk, hd, int(causal),
+            _window(window), scale,
+            _strides(q, k, v, out, dout, dq, dk, dv), stream)
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+# kernel launches since the counts were last set to 0
+flash_attention_fwd.launches = 0
+flash_attention_bwd.launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention through the kernels on the card: the forward kernel, and
+    the backward kernels for the gradient of q, k and v (none for the
+    positions)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, k_pos, causal, window, scale):
+        out, lse = flash_attention_fwd(q, k, v, q_pos, k_pos, causal=causal,
+                                       window=window, scale=scale)
+        ctx.save_for_backward(q, k, v, out, lse, q_pos, k_pos)
+        ctx.opts = (causal, window, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse, q_pos, k_pos = ctx.saved_tensors
+        causal, window, scale = ctx.opts
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, q_pos,
+                                         k_pos, causal=causal, window=window,
+                                         scale=scale)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def blockwise_attention(q, k, v, q_pos, k_pos, *, causal=True, window=None,
+                        scale=None, block=TILE):
+    """Online-softmax attention, differentiable. q (B, Sq, H, hd), k, v
+    (B, Sk, Kv, hd), positions (B, Sq), (B, Sk) -> (B, Sq, H, hd). CPU
+    tensors: the plain loop over key blocks of ``block``
+    (``flash_attention_ref``), through torch autograd; CUDA tensors:
+    ``FlashAttention``."""
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, q_pos, k_pos, causal=causal,
+                                   window=window, scale=scale, block=block)
+    return FlashAttention.apply(q, k, v, q_pos, k_pos, causal, window,
+                                _scale(q, scale))
+
+
+def flash_attention_bh(q, k, v, *, causal=True, window=None, scale=None,
+                       block_q=128, block_k=128):
+    """The counterpart of the reference's ``flash_attention_bh``: q, k, v
+    (BH, S, hd), batch and heads merged -> (BH, S, hd). ``block_k`` is the
+    plain version's key block (``block_q`` is accepted for signature
+    parity); unlike the Pallas kernel, S need not be a multiple of either."""
+    BH, S, _ = q.shape
+    pos = torch.arange(S, dtype=torch.int32, device=q.device).expand(BH, S)
+    out = blockwise_attention(q[:, :, None], k[:, :, None], v[:, :, None],
+                              pos, pos, causal=causal, window=window,
+                              scale=scale, block=min(block_k, S))
+    return out[:, :, 0]
+
+
+def flash_attention(q, k, v, *, causal=True, window=None, block_q=128,
+                    block_k=128):
+    """The counterpart of the reference's ``kernels/ops.py:flash_attention``:
+    q (B, S, H, hd), k, v (B, S, Kv, hd) with H % Kv == 0 -> (B, S, H, hd),
+    scale 1 / sqrt(hd). GQA by index: K and V are not expanded."""
+    B, S = q.shape[:2]
+    pos = torch.arange(S, dtype=torch.int32, device=q.device).expand(B, S)
+    return blockwise_attention(q, k, v, pos, pos, causal=causal,
+                               window=window, block=min(block_k, S))

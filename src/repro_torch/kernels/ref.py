@@ -25,9 +25,17 @@ The merge functions are the counterparts of the merge operators' oracles:
 the weighted column merge, the TIES trim thresholds (``jnp.quantile``'s
 float32 arithmetic, outside the kernel as in the reference) and the TIES
 column merge. The two column merges agree with their kernels bit for bit.
+
+The attention functions are the counterparts of the reference's
+``attention_ref`` (materialised scores) and of the online-softmax loop of
+``models/attention.py:_sdpa_blockwise``, which the flash attention kernels
+compute; torch autograd through that loop is the plain version of their
+backward pass. They agree with the kernels to float32 tolerance (other
+summation orders), not bit for bit.
 """
 from __future__ import annotations
 
+import math
 from fractions import Fraction
 
 import numpy as np
@@ -388,3 +396,109 @@ def ties_colmerge_ref(tau, thresh):
         cnt.add_(agree.to(torch.float32))
         dev.add_(torch.where(agree, tk, zero))
     return torch.where(cnt > 0, dev.div_(torch.clamp_min(cnt, 1.0)), zero)
+
+
+NEG_INF = -1e30
+
+
+def attention_ref(q, k, v, *, causal: bool = True, window=None, scale=None):
+    """q, k, v: (B, S, H, hd), the same H (GQA expanded by the caller) ->
+    (B, S, H, hd). Float32 scores, masked by a NEG_INF fill (causal and/or
+    keep k > q - window), softmax, cast to v's type, then the second
+    product."""
+    B, S, H, hd = q.shape
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k).to(torch.float32) * scale
+    qp = torch.arange(S, device=q.device)[:, None]
+    kp = torch.arange(S, device=q.device)[None, :]
+    ok = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    if causal:
+        ok = ok & (kp <= qp)
+    if window is not None:
+        ok = ok & (kp > qp - window)
+    scores = scores.masked_fill(~ok, NEG_INF)
+    attn = torch.softmax(scores, dim=-1).to(v.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", attn, v)
+
+
+def _online_softmax(q, k, v, q_pos, k_pos, *, causal, window, scale, block):
+    """The loop of ``_sdpa_blockwise``: -> (acc, m, l), float32, with
+    acc (B, Kv, G, Sq, dv) and m, l (B, Kv, G, Sq)."""
+    B, Sq, H, dq = q.shape
+    Sk, Kv = k.shape[1], k.shape[2]
+    dv = v.shape[-1]
+    G = H // Kv
+    block = min(block, Sk)
+    pad = (-Sk) % block
+    if pad:  # the key tail: zero keys at position -1, never visible
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+        k_pos = torch.nn.functional.pad(k_pos, (0, pad), value=-1)
+    qr = q.reshape(B, Sq, Kv, G, dq)
+    qp = q_pos[:, None, None, :, None]
+    m = torch.full((B, Kv, G, Sq), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((B, Kv, G, Sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, Kv, G, Sq, dv), dtype=torch.float32,
+                      device=q.device)
+    for lo in range(0, Sk + pad, block):
+        kb, vb = k[:, lo:lo + block], v[:, lo:lo + block]
+        kp = k_pos[:, lo:lo + block][:, None, None, None, :]
+        s = torch.einsum("bqkgd,bskd->bkgqs", qr, kb).to(torch.float32)
+        s = s * scale
+        ok = kp >= 0
+        if causal:
+            ok = ok & (kp <= qp)
+        if window is not None:
+            ok = ok & (kp > qp - window)
+        s = s.masked_fill(~ok, NEG_INF)
+        m_new = torch.maximum(m, torch.amax(s, dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + torch.sum(p, dim=-1)
+        acc = (acc * alpha[..., None]
+               + torch.einsum("bkgqs,bskd->bkgqd", p.to(vb.dtype),
+                              vb).to(torch.float32))
+        m = m_new
+    return acc, m, l
+
+
+def flash_attention_ref(q, k, v, q_pos, k_pos, *, causal: bool = True,
+                        window=None, scale=None, block: int = 64):
+    """Blockwise online-softmax attention, the twin of the reference's
+    ``_sdpa_blockwise`` and the function the flash attention kernels
+    compute. q: (B, Sq, H, dq); k: (B, Sk, Kv, dq); v: (B, Sk, Kv, dv) with
+    H % Kv == 0 (query head h reads key/value head h // (H / Kv));
+    q_pos (B, Sq), k_pos (B, Sk) integer positions (k_pos < 0: no key).
+    Keys are taken ``block`` at a time, the tail padded at position -1;
+    masked scores are a NEG_INF fill; the running max, l and acc stay
+    float32, p is cast to v's type before its product, and the output is
+    acc / max(l, 1e-30) in v's type. Returns (B, Sq, H, dv)."""
+    return flash_attention_fwd_ref(q, k, v, q_pos, k_pos, causal=causal,
+                                   window=window, scale=scale,
+                                   block=block)[0]
+
+
+def flash_attention_fwd_ref(q, k, v, q_pos, k_pos, *, causal: bool = True,
+                            window=None, scale=None, block: int = 64):
+    """The forward kernel's outputs: (``flash_attention_ref``'s output,
+    the float32 log-sum-exp m + log(l) per (B, H, Sq) row)."""
+    B, Sq, H, _ = q.shape
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    acc, m, l = _online_softmax(q, k, v, q_pos, k_pos, causal=causal,
+                                window=window, scale=scale, block=block)
+    out = (acc / torch.clamp(l, min=1e-30)[..., None]).to(v.dtype)
+    return (out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, v.shape[-1]),
+            (m + torch.log(l)).reshape(B, H, Sq))
+
+
+def flash_attention_bwd_ref(q, k, v, dout, q_pos, k_pos, *,
+                            causal: bool = True, window=None, scale=None,
+                            block: int = 64):
+    """The backward kernels' outputs: (dq, dk, dv), torch autograd through
+    ``flash_attention_ref`` with cotangent ``dout``."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out = flash_attention_ref(*leaves, q_pos, k_pos, causal=causal,
+                                  window=window, scale=scale, block=block)
+        return torch.autograd.grad(out, leaves, dout)

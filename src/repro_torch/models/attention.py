@@ -2,7 +2,9 @@
 
 Scores, the additive mask bias and the softmax are float32; the mask is the
 reference's additive ``NEG_INF`` bias, not a boolean fill, so the padded
-positions carry exactly the same numbers as in the reference.
+positions carry exactly the same numbers as in the reference. With
+``cfg.dist.attn_block > 0`` attention takes the blockwise online-softmax
+route instead (``_sdpa_blockwise``), as in the reference.
 """
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import AttentionConfig, LayerSpec, ModelConfig
+from repro_torch.kernels.flash_attention import blockwise_attention
 from repro_torch.models.layers import apply_rope, dense_init
 
 NEG_INF = -1e30
@@ -69,15 +72,27 @@ def _sdpa(q, k, v, bias, scale):
     return out.reshape(B, Sq, H, dv)
 
 
+def _sdpa_blockwise(q, k, v, q_pos, k_pos, *, causal, window, scale,
+                    block: int):
+    """Online-softmax attention that never materialises the (Sq, Sk) scores
+    (the reference's ``_sdpa_blockwise``). q: (B,Sq,H,dq) k/v: (B,Sk,Kv,d);
+    positions (B,Sq), (B,Sk). Returns (B,Sq,H,d).
+
+    On CPU tensors the plain loop over key blocks of ``block``
+    (``kernels/ref.py:flash_attention_ref``), differentiated by torch
+    autograd; on the card the flash attention kernels, forward and backward
+    (``kernels/flash_attention.py:FlashAttention``), whose own tiles stand
+    in for ``block``."""
+    return blockwise_attention(q, k, v, q_pos, k_pos, causal=causal,
+                               window=window, scale=scale, block=block)
+
+
 def gqa_forward(params, x, *, cfg: ModelConfig, lspec: LayerSpec,
                 positions, mode: str = "train", causal=True):
     """Returns (y, None). Only ``mode="train"`` is ported in this slice."""
     if mode != "train":
         raise NotImplementedError(
             f"gqa_forward mode {mode!r}: the port runs train mode only")
-    if cfg.dist.attn_block:
-        raise NotImplementedError("blockwise attention (dist.attn_block) is "
-                                  "not ported yet")
     a = cfg.attn
     B, S, _ = x.shape
     q = (x @ params["wq"]).reshape(B, S, a.num_heads, a.head_dim)
@@ -87,7 +102,12 @@ def gqa_forward(params, x, *, cfg: ModelConfig, lspec: LayerSpec,
     k = _rope_q_or_k(k, positions, a)
     scale = 1.0 / math.sqrt(a.head_dim)
     pos_b = torch.broadcast_to(positions, (B, S))
-    bias = _mask_bias(pos_b, pos_b, causal=causal, window=lspec.window)
-    y = _sdpa(q, k, v, bias, scale)
+    if cfg.dist.attn_block:
+        y = _sdpa_blockwise(q, k, v, pos_b, pos_b, causal=causal,
+                            window=lspec.window, scale=scale,
+                            block=cfg.dist.attn_block)
+    else:
+        bias = _mask_bias(pos_b, pos_b, causal=causal, window=lspec.window)
+        y = _sdpa(q, k, v, bias, scale)
     y = y.reshape(B, S, a.q_dim) @ params["wo"]
     return y, None

@@ -17,7 +17,12 @@ int8 quantize and dequantize, the fused AdamW step on grouped-int8
 moments) are bit-identical to their plain versions (max |err| 0), as are
 the TIES thresholds on the card and on the CPU. Segments on the card are
 held against the CPU at rtol 1e-3; the fused and unfused residency
-segments on the card against each other bit for bit.
+segments on the card against each other bit for bit. The flash attention
+kernels are held against their plain versions on the card (the online
+loop in cuBLAS float32 products, summed in another order): the float32
+output and log-sum-exp at 2e-5, the gradients at 1e-4 (each sums up to S
+products of the scores' rounding), the bfloat16 output at 2e-2; a strided
+view gives the contiguous result bit for bit, and two runs the same bits.
 """
 import numpy as np
 import pytest
@@ -39,9 +44,14 @@ from repro_torch.kernels.ref import (dequantize_int4_ref, dequantize_int8_ref,
                                      sparsify_topk_ref, ties_colmerge_ref,
                                      ties_thresh_ref, topk_threshold_ref,
                                      unpack_int4_ref, weighted_colmerge_ref)
+from repro_torch.kernels.flash_attention import (FlashAttention,
+                                                 flash_attention_bwd,
+                                                 flash_attention_fwd)
 from repro_torch.kernels.opt_fused import adamw_fused_int8
 from repro_torch.kernels.ref import (adamw_fused_int8_ref,
                                      dequantize_int8_grouped_ref,
+                                     flash_attention_bwd_ref,
+                                     flash_attention_fwd_ref,
                                      int8_group_scale_ref,
                                      quantize_int8_grouped_ref)
 from repro_torch.kernels.wire_quant import (dequantize_int4, dequantize_int8,
@@ -131,7 +141,15 @@ def _launch_all(W, theta):
             sparsify_topk(theta, s), dequantize_int4(q4, s4),
             unpack_int4(pack_int4(q4), theta.shape[1]),
             weighted_colmerge(theta, torch.ones_like(theta)),
-            ties_colmerge(theta, s), _launch_residency(theta))
+            ties_colmerge(theta, s), _launch_residency(theta),
+            _launch_attention(theta.device))
+
+
+def _launch_attention(dev):
+    q = torch.ones((1, 8, 2, 16), device=dev)
+    pos = torch.arange(8, device=dev)[None]
+    out, lse = flash_attention_fwd(q, q, q, pos, pos)
+    return flash_attention_bwd(q, q, q, out, lse, q, pos, pos)
 
 
 def _launch_residency(theta):
@@ -157,7 +175,8 @@ def test_launch_counts_only_on_the_card(cuda):
         "quantize_int4": 1, "dequantize_int4": 1, "pack_int4": 1,
         "unpack_int4": 1, "weighted_colmerge": 1, "ties_colmerge": 1,
         "quantize_int8_grouped": 1, "dequantize_int8_grouped": 1,
-        "adamw_fused_int8": 1}
+        "adamw_fused_int8": 1, "flash_attention_fwd": 1,
+        "flash_attention_bwd": 1}
 
 
 def _quant_inputs(m, D, seed=0):
@@ -640,3 +659,127 @@ def test_residency_segment_on_card_matches_cpu(cuda, policy):
             mc[k], mh[k], atol=1e-5,
             rtol=1e-3 if k in ("loss", "consensus") else 1e-2)
     assert mc["consensus"][-1] == 0.0
+
+
+def _attention_inputs(B, S, H, Kv, hd, seed, dev):
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(dev) for shape in ((B, S, H, hd), (B, S, Kv, hd),
+                                           (B, S, Kv, hd), (B, S, H, hd)))
+    pos = torch.arange(S, dtype=torch.int32, device=dev).expand(B, S)
+    return q, k, v, do, pos
+
+
+# (B, S, H, Kv, hd, causal, window): key and query tails (S % 64 != 0),
+# GQA, windows, no causal mask, every head dim the kernels take
+ATTENTION = [(2, 100, 4, 2, 64, True, None), (1, 100, 2, 2, 128, True, None),
+             (2, 256, 8, 2, 32, True, 64), (2, 130, 4, 4, 16, True, 40),
+             (1, 77, 2, 1, 64, False, None), (2, 64, 2, 2, 128, True, None),
+             (1, 300, 4, 1, 128, True, 100)]
+
+
+@pytest.mark.parametrize("B,S,H,Kv,hd,causal,window", ATTENTION)
+def test_flash_attention_kernels_match_plain(cuda, B, S, H, Kv, hd, causal,
+                                             window):
+    q, k, v, do, pos = _attention_inputs(B, S, H, Kv, hd, S + hd, cuda)
+    kw = dict(causal=causal, window=window)
+    reset_launch_counts()
+    out, lse = flash_attention_fwd(q, k, v, pos, pos, **kw)
+    grads = flash_attention_bwd(q, k, v, out, lse, do, pos, pos, **kw)
+    torch.cuda.synchronize()
+    assert launch_counts()["flash_attention_fwd"] == 1
+    assert launch_counts()["flash_attention_bwd"] == 1
+    r_out, r_lse = flash_attention_fwd_ref(q, k, v, pos, pos, **kw)
+    torch.testing.assert_close(out, r_out, atol=2e-5, rtol=2e-5)
+    torch.testing.assert_close(lse, r_lse, atol=2e-5, rtol=2e-5)
+    for g, r in zip(grads, flash_attention_bwd_ref(q, k, v, do, pos, pos,
+                                                   **kw)):
+        assert g.shape == r.shape and g.dtype == torch.float32
+        torch.testing.assert_close(g, r, atol=1e-4, rtol=1e-4)
+    # strided views (q, k, v inside one packed tensor) read in place give
+    # the same bits; so does a second run
+    packed = torch.cat([q, k, v], dim=2)
+    qs, ks, vs = packed.split([H, Kv, Kv], dim=2)
+    assert not qs.is_contiguous()
+    out2, lse2 = flash_attention_fwd(qs, ks, vs, pos, pos, **kw)
+    assert torch.equal(out2, out) and torch.equal(lse2, lse)
+    grads2 = flash_attention_bwd(qs, ks, vs, out, lse, do, pos, pos, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(grads2, grads))
+    # through autograd, as the train path calls it
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    y = FlashAttention.apply(*leaves, pos, pos, causal, window,
+                             1.0 / np.sqrt(hd))
+    assert torch.equal(y.detach(), out)
+    auto = torch.autograd.grad(y, leaves, do)
+    assert all(torch.equal(a, b) for a, b in zip(auto, grads))
+
+
+def test_flash_attention_bf16_forward(cuda):
+    q, k, v, do, pos = _attention_inputs(2, 100, 4, 2, 64, 3, cuda)
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    out, lse = flash_attention_fwd(q, k, v, pos, pos, window=48)
+    r_out, r_lse = flash_attention_fwd_ref(q, k, v, pos, pos, window=48)
+    assert out.dtype == torch.bfloat16
+    torch.testing.assert_close(out.float(), r_out.float(), atol=2e-2,
+                               rtol=2e-2)
+    torch.testing.assert_close(lse, r_lse, atol=2e-2, rtol=2e-2)
+    with pytest.raises(TypeError):  # the backward kernels take float32 only
+        flash_attention_bwd(q, k, v, out, lse, do, pos, pos)
+
+
+def test_flash_attention_wrappers_raise_instead_of_falling_back(cuda):
+    q, k, v, do, pos = _attention_inputs(1, 8, 2, 2, 16, 0, cuda)
+    with pytest.raises(TypeError):
+        flash_attention_fwd(q.half(), k.half(), v.half(), pos, pos)
+    with pytest.raises(ValueError):  # head dim 24 is not a kernel's
+        flash_attention_fwd(q[..., :12], k[..., :12], v[..., :12], pos, pos)
+    with pytest.raises(ValueError):  # 2 query heads on 3 kv heads
+        flash_attention_fwd(q, torch.cat([k, k[:, :, :1]], 2),
+                            torch.cat([v, v[:, :, :1]], 2), pos, pos)
+    with pytest.raises(ValueError):
+        flash_attention_fwd(q, k.cpu(), v, pos, pos)
+    with pytest.raises(ValueError):
+        flash_attention_fwd(q, k, v, pos, pos, window=0)
+
+
+def test_blockwise_segment_on_card_matches_cpu(cuda):
+    """The reduced olmo-1b segment with attn_block 8 at seq 32 on the card
+    (the flash attention kernels, forward and backward) against the CPU
+    (the plain loop): rtol 1e-3 on loss and Xi, as the other segments;
+    after the final merge the rows are equal and Xi is 0."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import (build_cpu_preset,
+                                          sample_segment_batches)
+    from repro_torch.models import build_model
+    from repro_torch.optim import make_optimizer
+    m, rounds, H = 4, 4, 2
+    cfg = build_cpu_preset(get_config("olmo-1b"), m)
+    cfg = cfg.replace(dist=dataclasses.replace(cfg.dist, attn_block=8))
+    model = build_model(cfg)
+    sched = make_schedule("final_merge", m, rounds, prob=0.2, seed=0)
+    Ws = np.stack([sched.mixing_matrix(t)
+                   for t in range(rounds)]).astype(np.float32)
+    lm = SyntheticLM(vocab=cfg.vocab_size, seed=0)
+    batches = sample_segment_batches(
+        lm, lm.domain_mixtures(m, 0.1, seed=1), rounds, H, 4, 32,
+        np.random.default_rng(2))
+    mets = {}
+    reset_launch_counts()
+    for dev in ("cpu", cuda):
+        opt = make_optimizer("adamw", 3e-3, total_steps=rounds * H)
+        state, spec = dsgd.init_panel_state(model.init_params, opt, m, 0,
+                                            device="cpu")
+        state = {k: _to(v, dev) for k, v in state.items()}
+        seg = dsgd.make_panel_segment(model.loss_fn, opt, H, spec)
+        state, out = seg(state, batches, Ws)
+        mets[str(dev)] = {k: v.cpu().numpy() for k, v in out.items()}
+        x = state["panel"]["float32"]
+        assert torch.equal(x, x[:1].expand_as(x))
+    counts = launch_counts()
+    # 2 layers x 4 agents x 2 local steps x 4 rounds
+    assert counts["flash_attention_fwd"] == counts["flash_attention_bwd"] == 64
+    for key in ("loss", "consensus"):
+        np.testing.assert_allclose(mets["cuda"][key], mets["cpu"][key],
+                                   rtol=1e-3, atol=1e-5)
+    assert mets["cuda"]["consensus"][-1] == 0.0

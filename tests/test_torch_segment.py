@@ -202,3 +202,31 @@ def test_segment_leaves_no_tensor_in_reference_cycles(wire):
         train.eval_local(model.loss_fn, state["panel"], spec, eval_b)
 
     assert _no_tensor_in_cycles(run) == []
+
+
+def test_after_step_reads_every_local_step():
+    """``make_panel_segment(after_step=)`` is called once per local step, in
+    order, with the optimizer state in its stored form (grouped int8
+    moments under --residency moments=int8), and changes nothing: the
+    segment's metrics and panels equal those of a run without it."""
+    cfg = train.build_cpu_preset(get_config("olmo-1b"), M)
+    model = build_model(cfg)
+    W = np.stack([np.full((M, M), 1.0 / M)] * 2).astype(np.float32)
+    lm = SyntheticLM(vocab=cfg.vocab_size, seed=0)
+    batches = train.sample_segment_batches(
+        lm, lm.domain_mixtures(M, 0.1, seed=1), 2, H, 2, 16,
+        np.random.default_rng(2))
+    runs, seen = [], []
+    for hook in (None, lambda step, opt: seen.append(
+            (step, sorted(opt["v"]["float32"])))):
+        opt = make_optimizer("adamw", 3e-3)
+        state, spec = dsgd.init_panel_state(model.init_params, opt, M, 0,
+                                            device="cpu",
+                                            residency="moments=int8")
+        seg = dsgd.make_panel_segment(model.loss_fn, opt, H, spec,
+                                      after_step=hook)
+        runs.append(seg(state, batches, W, 7))
+    assert seen == [(s, ["q", "scale"]) for s in range(2 * H)]
+    (s0, m0), (s1, m1) = runs
+    assert all(torch.equal(m0[k], m1[k]) for k in m0)
+    assert torch.equal(s0["panel"]["float32"], s1["panel"]["float32"])
