@@ -19,7 +19,13 @@ Phases, each printing its lines:
      library torch.quantize_per_channel on the (m G, 128) view for the
      round-to-nearest pair); flash attention forward (float32, bfloat16)
      and backward at odd sizes, at the attn_block path's shape and at a GQA
-     shape (library torch's scaled_dot_product_attention, is_causal);
+     shape (library torch's scaled_dot_product_attention, is_causal); the
+     on-chip-seeded int8 quantize: its Philox4x32-10 against the toolkit's
+     curand_Philox4x32_10 and the plain twin, the kernel bit for bit against
+     its plain twin at odd widths and at the main shape, the mean of q s - x
+     within 4 standard errors of 0, timed beside the pair it replaces
+     (torch.rand of the uniform panel and the supplied-uniform quantize; no
+     library call);
   4. a small run of the training segment on the card against the same run
      on the CPU (plain versions), from one init, one batch stream, one W
      stream: on the f32 wire, with topk, bf16 and a round-to-nearest int8_ef
@@ -27,13 +33,22 @@ Phases, each printing its lines:
      under the weighted, var, fisher, ties and swa merge operators (ties
      also over the round-to-nearest int8_ef), and under residency policies
      (int8 moments fused and unfused, bf16, int8g, int8r statistics, an
-     int8 error-feedback panel), and with attn_block 8 (the blockwise
-     attention route);
+     int8 error-feedback panel), with attn_block 8 (the blockwise
+     attention route), and, at 8 agents and 4 rounds, under the fault plan
+     FAULTS on the f32 wire, with --merge ties and with int8 moments fused
+     and unfused (the dead rows bit for bit on each device);
   5. the main path: olmo-1b at full width cut to 2 layers, 8 agents, the
      final-merge schedule, through init_panel_state -> make_panel_segment
      -> merged and local eval on the f32 wire; then, on the trained state,
      each piece of a round timed on its own (the breakdown line);
-  6. the wire paths: the same cell with --wire int8_ef and int4_ef
+  6. the elastic path: the main path's cell under the fault plan FAULTS
+     (agent 2 dead in round 1 and rejoining in round 2, agent 5 dead from
+     round 2: the final merge is over 7 agents), its dead row bit for bit,
+     the live rows identical, the live Xi 0 and merged == live local eval;
+     the wire paths: the same cell with --wire int8_ef, then int8_ef with
+     the kernel's draws (an Int8Codec(draws="kernel") instance: the
+     on-chip-seeded quantize, no uniform panel; its rounds and peak printed
+     beside int8_ef's), int4_ef
      (stochastic rounding, error feedback), topk and bf16; then the merge
      paths: the same cell on the f32 wire with --merge var and --merge
      ties; then the residency paths: --residency moments=int8 with the
@@ -82,10 +97,18 @@ ATTN_BLOCK, ATTN_BATCH, ATTN_SEQ = 512, 2, 2048
 # each must launch; a path is a wire codec, "merge <operator>" on the f32
 # wire, "residency int8" (--residency moments=int8 on the f32 wire, the
 # fused moment update; "unfused" forces the read -> AdamW -> write path),
-# or "attn_block <n>" (the f32 wire with cfg.dist.attn_block = n: the
-# blockwise attention route, at batch ATTN_BATCH and seq ATTN_SEQ)
+# "attn_block <n>" (the f32 wire with cfg.dist.attn_block = n: the
+# blockwise attention route, at batch ATTN_BATCH and seq ATTN_SEQ),
+# "faults" (the f32 wire under the fault plan FAULTS) or "int8_ef native"
+# (int8_ef with the kernel's draws)
+# the elastic path's fault plan (core.faults syntax, as --faults takes it)
+FAULTS = "2@1-2;5@2"
+
 PATH_KERNELS = {"f32": ("gossip_mix", "panel_mean_consensus"),
+                "faults": ("gossip_mix", "panel_mean_consensus"),
                 "int8_ef": ("quantize_int8", "dequantize_int8", "gossip_mix"),
+                "int8_ef native": ("quantize_int8_native", "dequantize_int8",
+                                   "gossip_mix"),
                 "topk": ("sparsify_topk", "gossip_mix",
                          "panel_mean_consensus"),
                 "int4_ef": ("quantize_int4", "pack_int4", "unpack_int4",
@@ -354,6 +377,139 @@ def wire_checks(torch, D_main):
                   f"{100 * r_['bound_ms'] / r_['ms']:.1f}% of the bound",
                   flush=True)
         del x, u, q, s, t
+    torch.cuda.empty_cache()
+    return out
+
+
+# Random123 kat_vectors, philox4x32 10: (counter, key, output words)
+PHILOX_KAT = [((0, 0, 0, 0), (0, 0),
+               (0x6627e8d5, 0xe169c58d, 0xbc57ac4c, 0x9b00dbd8)),
+              ((0x243f6a88, 0x85a308d3, 0x13198a2e, 0x03707344),
+               (0xa4093822, 0x299f31d0),
+               (0xd16cfe09, 0x94fdcceb, 0x5001e420, 0x24126ea1))]
+
+
+def philox_checks(torch, gen):
+    """The native quantize's Philox4x32-10 (wire_native.cu) against the CUDA
+    toolkit's curand_Philox4x32_10 (csrc/philox_check.cu) and the plain
+    twin, on the known-answer pairs and 4096 random pairs, bit for bit."""
+    import ctypes
+
+    import numpy as np
+    from repro_torch.kernels import build
+    from repro_torch.kernels.ref import philox4x32_ref
+    from repro_torch.kernels.wire_quant import philox4x32
+    dev = torch.device("cuda")
+    n = 4096
+    ctr = torch.randint(-2 ** 31, 2 ** 31 - 1, (n, 4), generator=gen,
+                        dtype=torch.int32, device=dev)
+    key = torch.randint(-2 ** 31, 2 ** 31 - 1, (n, 2), generator=gen,
+                        dtype=torch.int32, device=dev)
+    for i, (c, k, _) in enumerate(PHILOX_KAT):
+        ctr[i] = torch.from_numpy(np.array(c, np.uint32).view(np.int32))
+        key[i] = torch.from_numpy(np.array(k, np.uint32).view(np.int32))
+    ours = philox4x32(ctr, key)
+    lib = build.load("philox_check", {"curand_philox4x32_10_u32": (
+        ctypes.c_int, [ctypes.c_void_p] * 3 + [ctypes.c_int,
+                                               ctypes.c_void_p])})
+    theirs = torch.empty_like(ours)
+    rc = lib.curand_philox4x32_10_u32(
+        ctr.data_ptr(), key.data_ptr(), theirs.data_ptr(), n,
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    check(rc == 0, f"curand_Philox4x32_10 launch failed: CUDA error {rc}")
+    c64, k64 = (t.cpu().long() & 0xFFFFFFFF for t in (ctr, key))
+    plain = torch.stack(philox4x32_ref((k64[:, 0], k64[:, 1]), tuple(
+        c64[:, j] for j in range(4))), 1)
+    words = [[int(w) & 0xFFFFFFFF for w in theirs[i].tolist()]
+             for i in range(len(PHILOX_KAT))]
+    print(f"philox: the kernel's Philox4x32-10 == curand_Philox4x32_10 on "
+          f"{n} pairs: {torch.equal(ours, theirs)}; == the plain twin: "
+          f"{torch.equal(plain, ours.cpu().long() & 0xFFFFFFFF)}; toolkit on "
+          f"the known-answer pairs {[[hex(w) for w in r] for r in words]}",
+          flush=True)
+    check(torch.equal(ours, theirs),
+          "the kernel's Philox4x32-10 disagrees with curand_Philox4x32_10")
+    check(torch.equal(plain, ours.cpu().long() & 0xFFFFFFFF),
+          "the kernel's Philox4x32-10 disagrees with its plain twin")
+    check(words == [list(o) for _, _, o in PHILOX_KAT],
+          "the toolkit's Philox4x32-10 disagrees with the known answers")
+
+
+def native_checks(torch, D_main):
+    """Phase 3, the on-chip-seeded int8 quantize: the generator
+    (philox_checks), the kernel bit for bit against its plain twin at odd
+    widths (several seeds) and at the main path's shape, the mean of
+    q s - x over the full panel within 4 standard errors of 0; times at
+    m = 8, D = D_main: the kernel, its plain twin (median of 3), and the
+    pair it replaces, torch.rand of the (m, D) uniforms plus the
+    supplied-uniform quantize (and torch.rand alone). No PyTorch call
+    quantizes with in-kernel draws: library_ms null."""
+    from repro_torch.kernels.ref import (int8_scale_ref,
+                                         quantize_int8_native_ref)
+    from repro_torch.kernels.wire_quant import (quantize_int8,
+                                                quantize_int8_native)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    philox_checks(torch, gen)
+    out = {}
+    for D in (1, 3, 511, 513, 4097, D_main):
+        x, _ = wire_panel(torch, D, gen)
+        s = int8_scale_ref(x)
+        seeds = (0, -1, 2 ** 31 - 1, 12345) if D != D_main else (987654321,)
+        for sd in seeds:
+            seed = torch.tensor([sd], dtype=torch.int32, device=dev)
+            q = quantize_int8_native(x, s, seed)
+            ref = quantize_int8_native_ref(x, s, seed)
+            torch.cuda.synchronize()
+            check(torch.equal(q, ref),
+                  f"quantize_int8_native disagrees at D={D}, seed {sd}: "
+                  f"max|err| {int(torch.max(torch.abs(q.int() - ref.int())))}")
+            del ref
+        print(f"check D={D}: quantize_int8_native max|err| 0 (seeds "
+              f"{list(seeds)})", flush=True)
+        if D != D_main:
+            continue
+        # E[q s] = x: the rounding error's mean over the panel, against its
+        # standard error (float64 sums a row at a time)
+        tot = sq = 0.0
+        for r in range(M):
+            e = (q[r].double() * s[r].double() - x[r].double())
+            tot += float(e.sum())
+            sq += float((e * e).sum())
+            del e
+        n = M * D
+        mean = tot / n
+        se = math.sqrt(max(sq / n - mean * mean, 0.0) / n)
+        print(f"quantize_int8_native unbiased (m={M}, D={D}): mean of q s - x "
+              f"{mean:.3e}, standard error {se:.3e}, "
+              f"{abs(mean) / se:.2f} of them", flush=True)
+        check(abs(mean) <= 4 * se, f"quantize_int8_native is biased: mean "
+                                   f"{mean} over a standard error {se}")
+        quads = -(-D // 4)
+        nbytes = 5 * n + 4 * M + 4  # x in, q out, the scales, the seed
+        ops = 8 * n + 98 * M * quads  # quantize + u; Philox per 4 columns
+        b_ms, b_by = bound(nbytes, ops)
+        out["quantize_int8_native"] = {
+            "ms": time_ms(torch, lambda: quantize_int8_native(x, s, seed)),
+            "plain_ms": time_ms(torch, lambda: quantize_int8_native_ref(
+                x, s, seed), reps=3, warmup=1),
+            "library_ms": None, "bytes": nbytes, "ops": ops,
+            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": 0.0}
+        out["quantize_int8_native"]["supplied"] = {
+            "rand_and_quantize_ms": time_ms(torch, lambda: quantize_int8(
+                x, s, torch.rand((M, D), generator=gen, device=dev))),
+            "rand_ms": time_ms(torch, lambda: torch.rand(
+                (M, D), generator=gen, device=dev))}
+        r_ = out["quantize_int8_native"]
+        print(f"time quantize_int8_native (m={M}, D={D}): kernel "
+              f"{r_['ms']:.4f} ms, plain {r_['plain_ms']:.4f} ms, library "
+              f"None, bound {r_['bound_ms']:.4f} ms ({nbytes} bytes, {ops} "
+              f"operations), {100 * r_['bound_ms'] / r_['ms']:.1f}% of the "
+              f"bound; the pair it replaces: torch.rand + quantize_int8 "
+              f"{r_['supplied']['rand_and_quantize_ms']:.4f} ms (torch.rand "
+              f"alone {r_['supplied']['rand_ms']:.4f} ms)", flush=True)
+        del x, q, s
     torch.cuda.empty_cache()
     return out
 
@@ -932,14 +1088,19 @@ def flash_checks(torch):
 
 
 def segment_inputs(cfg, m, rounds, seed=0, data_vocab=None, batch=BATCH,
-                   seq=SEQ):
-    """(W, batches, global) per round as the launcher draws them (schedule
-    first; ``global`` is the schedule's own mark of a global round)."""
+                   seq=SEQ, faults=None):
+    """(W, batches, global, live) per round as the launcher draws them
+    (schedule first; ``global`` is the schedule's own mark of a global
+    round; under the fault plan ``faults`` W is degraded and ``live`` the
+    round's (1, m) trits, else None)."""
     import numpy as np
+    from repro_torch.core.faults import FaultPlan
     from repro_torch.core.schedule import make_schedule
     from repro_torch.data.synthetic import SyntheticLM, make_agent_lm_batches
     from repro_torch.launch.train import sample_segment_batches
-    sched = make_schedule("final_merge", m, rounds, prob=0.2, seed=seed)
+    kw = {} if faults is None else {"faults": FaultPlan.parse(m, faults)}
+    sched = make_schedule("final_merge", m, rounds, prob=0.2, seed=seed,
+                          **kw)
     lm = SyntheticLM(vocab=data_vocab or cfg.vocab_size, num_domains=8,
                      seed=seed)
     mixtures = lm.domain_mixtures(m, 0.1, seed=seed + 1)
@@ -948,8 +1109,10 @@ def segment_inputs(cfg, m, rounds, seed=0, data_vocab=None, batch=BATCH,
     for t in range(rounds):
         W = np.asarray(sched.mixing_matrix(t), np.float32)[None]
         glob = np.asarray([sched.last_kind == "global"])
+        live = (None if sched.last_live is None
+                else np.asarray(sched.last_live)[None])
         per_round.append((W, sample_segment_batches(
-            lm, mixtures, 1, H, batch, seq, rng_np), glob))
+            lm, mixtures, 1, H, batch, seq, rng_np), glob, live))
     glob_mix = np.ones(lm.num_domains) / lm.num_domains
     eval_batch = {k: v[0] for k, v in make_agent_lm_batches(
         lm, [glob_mix], 2 * batch, seq, np.random.default_rng(999)).items()}
@@ -1003,33 +1166,58 @@ def small_parity(torch):
                                              None),
         "residency wire_err=int8, int8_ef round to nearest": (
             int8_rtn, None, "wire_err=int8", None)})
-    # label: (..., attn_block)
-    cases = {k: v + (0,) for k, v in cases.items()}
-    cases["attn_block 8"] = (None, None, None, None, 8)
-    for label, (wire, merger, res, fused, block) in cases.items():
-        model = build_model(cfg.replace(dist=dataclasses.replace(
-            cfg.dist, attn_block=block)))
+    # label: (..., attn_block, fault plan); the elastic cases at 8 agents
+    # and 4 rounds (the plan names agent 5)
+    cases = {k: v + (0, None) for k, v in cases.items()}
+    cases["attn_block 8"] = (None, None, None, None, 8, None)
+    cases.update({
+        f"faults {FAULTS}": (None, None, None, None, 0, FAULTS),
+        f"faults {FAULTS}, merge ties": (None, "ties", None, None, 0, FAULTS),
+        f"faults {FAULTS}, residency moments=int8 fused": (
+            None, None, "moments=int8", True, 0, FAULTS),
+        f"faults {FAULTS}, residency moments=int8 unfused": (
+            None, None, "moments=int8", False, 0, FAULTS)})
+    cfg8 = build_cpu_preset(get_config("olmo-1b"), M)
+    per_round8, _ = segment_inputs(cfg8, M, ROUNDS, batch=4, seq=32,
+                                   faults=FAULTS)
+    for label, (wire, merger, res, fused, block, plan) in cases.items():
+        m, c, rounds = (4, cfg, per_round) if plan is None else (
+            M, cfg8, per_round8)
+        model = build_model(c.replace(dist=dataclasses.replace(
+            c.dist, attn_block=block)))
         runs, same = {}, {}
         reset_launch_counts()
         for dev in ("cpu", "cuda"):
             opt = make_optimizer("adamw", 3e-3, total_steps=3 * H)
-            state, spec = dsgd.init_panel_state(model.init_params, opt, 4, 0,
+            state, spec = dsgd.init_panel_state(model.init_params, opt, m, 0,
                                                 device="cpu", wire=wire,
                                                 merger=merger, residency=res)
             state = {k: tree_to(v, dev) for k, v in state.items()}
             seg = dsgd.make_panel_segment(model.loss_fn, opt, H, spec,
                                           fused=fused)
-            rows = []
-            for W, b, glob in per_round:
-                state, mets = seg(state, b, W, 0, global_rounds=glob)
+            rows, before = [], []
+            for W, b, glob, live in rounds:
+                before.append(agent_rows(state))
+                state, mets = seg(state, b, W, 0, global_rounds=glob,
+                                  live=live)
                 rows.append([float(mets["loss"][0]),
                              float(mets["consensus"][0])])
             runs[dev] = np.asarray(rows)
-            same[dev] = rows_identical(torch, state["panel"])
+            alive = None if plan is None else rounds[-1][3][0] == 1
+            same[dev] = rows_identical(torch, state["panel"], alive)
+            if plan is not None:
+                # agent 2 dead in round 1, agent 5 from round 2 on
+                after = agent_rows(state)
+                check(tree_equal(torch, agent_rows_of(before[2], 2),
+                                 agent_rows_of(before[1], 2))
+                      and tree_equal(torch, agent_rows_of(after, 5),
+                                     agent_rows_of(before[2], 5)),
+                      f"{label} on {dev}: a dead agent's rows changed")
         # rtol 1e-3: cuBLAS and the CPU's GEMMs sum in other orders, and six
         # AdamW steps amplify float32 rounding (elements with |g| near eps)
         ok = np.allclose(runs["cuda"], runs["cpu"], rtol=1e-3, atol=1e-5)
-        print(f"small parity {label} (reduced olmo-1b, 4 agents, 3 rounds): "
+        print(f"small parity {label} (reduced olmo-1b, {m} agents, "
+              f"{len(rounds)} rounds): "
               f"cuda {runs['cuda'].tolist()} cpu {runs['cpu'].tolist()}; "
               f"rows identical after the final merge: {same}", flush=True)
         check(ok, f"the {label} segment on the card disagrees with the CPU")
@@ -1042,6 +1230,33 @@ def small_parity(torch):
         check(all(same.values()) and (label == "bf16"
                                       or runs["cuda"][-1, 1] == 0.0),
               f"{label}: Xi after the final merge is not 0")
+
+
+def agent_rows(state):
+    """Copies of every agent's parameter and moment rows (stored q and
+    scale bits included) of a state, on the CPU."""
+    from repro_torch.core import dsgd
+    mom = {k: v for k, v in state["opt"].items() if k != "step_count"}
+    return tree_to(dsgd._take_rows({"panel": state["panel"], "opt": mom},
+                                   slice(None)), "cpu")
+
+
+def agent_rows_of(rows, r):
+    """Agent r's rows out of :func:`agent_rows`."""
+    if isinstance(rows, dict):
+        return {k: agent_rows_of(v, r) for k, v in rows.items()}
+    return rows[r]
+
+
+def tree_equal(torch, a, b):
+    """Two trees of tensors bit for bit (compared as integers of their
+    width, so -0.0 is not 0.0 and a NaN equals its own bits)."""
+    if isinstance(a, dict):
+        return set(a) == set(b) and all(tree_equal(torch, a[k], b[k])
+                                        for k in a)
+    as_int = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    return (a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.view(as_int[a.element_size()]), b.view(as_int[b.element_size()])))
 
 
 def tree_to(tree, dev):
@@ -1067,9 +1282,17 @@ def drive_path(torch, path):
     while the first moment is not (plain versions: no launch is counted).
     ``attn_block <n>`` runs the blockwise attention route at batch
     ATTN_BATCH, seq ATTN_SEQ, then holds one agent's gradient through it
-    against the dense route's. Returns (counts, record): the per-round
-    losses and Xi, the peak, the evals and, on a residency path, the final
-    state's panels and moments and the per-step counts."""
+    against the dense route's. ``faults`` runs the f32 wire under the fault
+    plan FAULTS (the schedule's degraded W and live trits, as the
+    launcher's --faults): the dead agent 5's parameter and moment rows
+    after the last round equal their copy after round 1 bit for bit, the 7
+    live rows are identical after the final merge, the live Xi reads 0.0,
+    and the merged eval (the live agents) equals the live local eval.
+    ``int8_ef native`` is int8_ef with an Int8Codec(draws="kernel")
+    instance: the on-chip-seeded quantize in every communicating round and
+    the supplied-uniform one never. Returns (counts, record): the per-round
+    losses, Xi and times, the peak, the evals and, on a residency path, the
+    final state's panels and moments and the per-step counts."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -1080,6 +1303,7 @@ def drive_path(torch, path):
     from repro_torch.optim import make_optimizer
     from repro_torch.telemetry.metrics import (fused_moments_auto,
                                                resident_bytes_model)
+    from repro_torch.wire import Int8Codec
     dev = torch.device("cuda")
     cfg = get_config("olmo-1b").replace(num_layers=2)
     batch, seq = BATCH, SEQ
@@ -1090,9 +1314,10 @@ def drive_path(torch, path):
     model = build_model(cfg)
     opt = make_optimizer("adamw", 3e-3, weight_decay=5e-4,
                          total_steps=ROUNDS * H)
+    plan = FAULTS if path == "faults" else None
     per_round, eval_batch = segment_inputs(cfg, M, ROUNDS,
                                            data_vocab=DATA_VOCAB,
-                                           batch=batch, seq=seq)
+                                           batch=batch, seq=seq, faults=plan)
     eval_batch = to_device(eval_batch, dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1103,8 +1328,10 @@ def drive_path(torch, path):
     elif path.startswith("residency "):
         wire, res = None, "moments=" + path.split()[1]
         fused = False if path.endswith(" unfused") else None
-    elif path.startswith("attn_block "):
+    elif path.startswith("attn_block ") or path == "faults":
         wire = "f32"
+    elif path == "int8_ef native":
+        wire = Int8Codec("int8_ef", error_feedback=True, draws="kernel")
     reset_launch_counts()
     gen = torch.Generator(device=dev).manual_seed(0)
     state, spec = dsgd.init_panel_state(model.init_params, opt, M, gen,
@@ -1135,29 +1362,39 @@ def drive_path(torch, path):
           f"wire_err {rb['wire_err']}, merge_stat {rb['merge_stat']}); peak "
           f"{rb['peak']} B/agent (+{rb['transient_bytes']} transient); fused "
           f"moments {'on' if active else 'off'}", flush=True)
-    losses, xis = [], []
-    for t, (W, b, glob) in enumerate(per_round):
+    losses, xis, times, dead_row = [], [], [], None
+    for t, (W, b, glob, live) in enumerate(per_round):
         t0 = time.perf_counter()
-        state, mets = seg(state, b, W, wire_gen, global_rounds=glob)
+        state, mets = seg(state, b, W, wire_gen, global_rounds=glob,
+                          live=live)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
+        times.append(dt)
         losses.append(float(mets["loss"][0]))
         xis.append(float(mets["consensus"][0]))
         kind = ("idle" if (W[0] == torch.eye(M).numpy()).all() else
-                "merge" if (W[0] == 1.0 / M).all() else "mix")
-        print(f"round {t} ({kind}, {path}): loss {losses[-1]:.6f} Xi "
+                "merge" if glob[0] else "mix")
+        trits = "" if live is None else f", live {live[0].tolist()}"
+        print(f"round {t} ({kind}{trits}, {path}): loss {losses[-1]:.6f} Xi "
               f"{xis[-1]!r} {dt:.3f}s; device memory peak so far "
               f"{torch.cuda.max_memory_allocated()} bytes, held "
               f"{torch.cuda.memory_allocated()}", flush=True)
+        if plan is not None and t == 1:
+            # agent 5 is dead from round 2 on: its rows from here
+            dead_row = dsgd._take_rows(
+                {"panel": state["panel"], "m": state["opt"]["m"],
+                 "v": state["opt"]["v"]}, [5])
+    alive = None if plan is None else per_round[-1][3][0] == 1
     t0 = time.perf_counter()
     merged = eval_merged(model.loss_fn, state["panel"], spec, eval_batch,
-                         state.get("merge_stat"))
-    local = eval_local(model.loss_fn, state["panel"], spec, eval_batch)
+                         state.get("merge_stat"), live=alive)
+    local = eval_local(model.loss_fn, state["panel"], spec, eval_batch,
+                       live=alive)
     torch.cuda.synchronize()
     dt_eval = time.perf_counter() - t0
     counts = launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    same = rows_identical(torch, state["panel"])
+    same = rows_identical(torch, state["panel"], alive)
     print(f"kernels ({path}) {json.dumps(counts)}", flush=True)
     print(f"eval ({path}): merged {merged!r} local {local!r} "
           f"({dt_eval:.3f}s for both); peak device memory {peak} bytes; "
@@ -1165,6 +1402,22 @@ def drive_path(torch, path):
           f"reported {xis[-1]!r}", flush=True)
     check(all(counts[k] > 0 for k in PATH_KERNELS[path]),
           f"a kernel of the {path} path never launched: {counts}")
+    if plan is not None:
+        kept = tree_equal(torch, dead_row, dsgd._take_rows(
+            {"panel": state["panel"], "m": state["opt"]["m"],
+             "v": state["opt"]["v"]}, [5]))
+        print(f"faults ({FAULTS}): the dead agent 5's parameter and moment "
+              f"rows after round 3 equal their copy after round 1 bit for "
+              f"bit: {kept}; live agents after the final merge "
+              f"{alive.tolist()}", flush=True)
+        check(kept, "faults: the dead agent's rows changed")
+        del dead_row
+    if path == "int8_ef native":
+        comm = sum(not (W[0] == torch.eye(M).numpy()).all()
+                   for W, *_ in per_round)
+        check(counts["quantize_int8_native"] == comm == counts[
+            "dequantize_int8"] and counts["quantize_int8"] == 0,
+              f"{path}: {comm} communicating rounds but launches {counts}")
     check(same, f"{path}: the agents' rows differ after the final merge")
     # bf16 rounds the merged rows through bf16 while the folded mean stays
     # float32 (the reference's rule): the segment's Xi is that rounding
@@ -1177,7 +1430,7 @@ def drive_path(torch, path):
     if path == "f32" or cfg.dist.attn_block:
         breakdown(torch, model, opt, state, spec, per_round[0], path)
     record = {"losses": losses, "xis": xis, "peak": peak, "width": spec.width,
-              "merged": merged, "local": local}
+              "merged": merged, "local": local, "times": times}
     if cfg.dist.attn_block:
         check(counts["flash_attention_bwd"] == ROUNDS * H * M * cfg.num_layers
               and counts["flash_attention_fwd"] >= counts[
@@ -1282,11 +1535,15 @@ def compare_fused_unfused(torch, fused, unfused, f32_peak):
                         "of peak device memory against the f32 path")
 
 
-def rows_identical(torch, panel):
-    """Whether every agent's row equals row 0 bit for bit (Xi = 0 exactly;
-    the reduce's column mean of 8 equal float32 rows need not be exact)."""
-    return all(torch.equal(x[r], x[0]) for x in panel.values()
-               for r in range(1, x.shape[0]))
+def rows_identical(torch, panel, alive=None):
+    """Whether every agent's row (every live agent's, given the (m,) bool
+    ``alive``) equals the first one's bit for bit (Xi = 0 exactly; the
+    reduce's column mean of 8 equal float32 rows need not be exact)."""
+    import numpy as np
+    m = next(iter(panel.values())).shape[0]
+    rows = list(range(m)) if alive is None else np.flatnonzero(alive).tolist()
+    return all(torch.equal(x[r], x[rows[0]]) for x in panel.values()
+               for r in rows[1:])
 
 
 def breakdown(torch, model, opt, state, spec, round_inputs, label,
@@ -1347,7 +1604,7 @@ def main():
           f"{torch.version.cuda}", flush=True)
 
     t0 = time.perf_counter()
-    report = build.build(SOURCES)
+    report = build.build(SOURCES + ("philox_check",))
     print(f"build: {time.perf_counter() - t0:.1f}s", flush=True)
     for name, log in report.items():
         for line in log.splitlines():
@@ -1359,6 +1616,7 @@ def main():
                             rows=M).width
     measured = kernel_checks(torch, D)
     measured.update(wire_checks(torch, D))
+    measured.update(native_checks(torch, D))
     measured.update(int4_checks(torch, D))
     measured.update(merge_checks(torch, D))
     measured.update(residency_checks(torch, D))
@@ -1375,6 +1633,11 @@ def main():
             records[path].pop("panel")
             records[path].pop("opt")
             torch.cuda.empty_cache()
+    for path, base in (("int8_ef native", "int8_ef"), ("faults", "f32")):
+        a, b = records[path], records[base]
+        print(f"{path} against {base}: rounds (s) {a['times']} against "
+              f"{b['times']}; peak {a['peak']} against {b['peak']} bytes "
+              f"({a['peak'] - b['peak']:+d})", flush=True)
 
     # name: (source, the TPU kernel it replaces, the run its launches are
     # read from)
@@ -1384,6 +1647,8 @@ def main():
                                  counts["f32"]),
         "quantize_int8": ("wire_quant.cu", "wire_quant.py:63",
                           counts["int8_ef"]),
+        "quantize_int8_native": ("wire_native.cu", "wire_quant.py:96",
+                                 counts["int8_ef native"]),
         "dequantize_int8": ("wire_quant.cu", "wire_quant.py:140",
                             counts["int8_ef"]),
         "sparsify_topk": ("wire_quant.cu", "wire_quant.py:404",
@@ -1427,7 +1692,7 @@ def main():
                "ms": r["ms"], "plain_ms": r["plain_ms"],
                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                "library_ms": r["library_ms"]}
-        for extra in ("sq_rel_err", "max_abs_err_bf16"):
+        for extra in ("sq_rel_err", "max_abs_err_bf16", "supplied"):
             if extra in r:
                 row[extra] = r[extra]
         if name in variants:

@@ -56,7 +56,22 @@ uniforms a column slab at a time from its own generators
 (``residency.storage_generators``: seeded from the segment's ``rng``, the
 state kind, the local step or round, the state entry and the dtype group),
 never from the wire codec's generator; an f32 policy is no policy.
-Liveness and telemetry are later slices.
+
+Liveness (elastic runs): the segment's ``live`` gives each round a DEAD / LIVE
+/ RESYNC trit per agent (``core.faults``); the caller hands in the matching
+degraded W (``Schedule(faults=)``). A DEAD or RESYNC agent takes no local step:
+its gradient is not computed, and its parameter, moment (stored q and scale
+bits included) and statistics rows are put back after the local steps, so they
+pass through bit for bit, while every generator is drawn as without the mask.
+After the communication every non-LIVE row is put back once more (the per-row
+idle rule already keeps the codecs off their identity rows of W); a RESYNC row
+then takes the live agents' post-mix mean (``panel.merged(live=)``), zero
+moments (the storage's canonical zero) and a step count of 0, a fresh
+error-feedback row and fresh statistics. Dead rows keep their stored residual
+and statistics bits. The metrics average over the live agents and Xi is the
+live rows' consensus. A round whose agents are all LIVE is an unmasked round,
+so an all-live mask gives ``live=None``'s result bit for bit. Telemetry is a
+later slice.
 
 The reference scans a whole segment on device under jit with donated
 buffers; here the segment is a Python loop over rounds, the optimizer
@@ -74,6 +89,7 @@ import torch
 from repro_torch import residency as residency_mod
 from repro_torch import wire as wire_mod
 from repro_torch.core import panel as panel_mod
+from repro_torch.core.faults import LIVE, RESYNC
 from repro_torch.kernels.opt_fused import adamw_fused_int8
 from repro_torch.device import resolve_device
 from repro_torch.merging import get_merger, merge_panel
@@ -195,6 +211,38 @@ def _fused_opt_update(gpan, opt, pan, optimizer, sts, seed, tick):
     return pan, out
 
 
+def _take_rows(tree, rows):
+    """Copies of rows ``rows`` of every per-agent leaf of ``tree`` (nested
+    dicts of (m, ...) tensors and of the (m,) step-count array), in the
+    tree's shape; other leaves (a shared integer count) give None."""
+    if isinstance(tree, dict):
+        return {k: _take_rows(v, rows) for k, v in tree.items()}
+    if torch.is_tensor(tree):
+        return tree[rows].clone()
+    if isinstance(tree, np.ndarray):
+        return tree[rows].copy()
+    return None
+
+
+def _put_rows(tree, saved, rows):
+    """Write rows taken by :func:`_take_rows` back into a tree of the same
+    shape, in place."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            _put_rows(v, saved[k], rows)
+    elif saved is not None:
+        tree[rows] = saved
+
+
+def _per_agent_count(opt, m):
+    """The optimizer state with its step count per agent (an (m,) int64
+    array): an elastic round freezes some agents' counts and restarts
+    others'."""
+    if not isinstance(opt["step_count"], np.ndarray):
+        opt["step_count"] = np.full(m, opt["step_count"], dtype=np.int64)
+    return opt
+
+
 def _init_opt(optimizer, pan, sts):
     """Optimizer state of a fresh panel; the stored moment groups are made
     directly as their storage's canonical zero (the optimizers' moments
@@ -297,18 +345,23 @@ def panel_state_from_params(params_stacked, optimizer: Optimizer, *,
     return _build_state(pan, spec, optimizer), spec
 
 
-def panel_grads(loss_fn: Callable, panel, spec, batch):
+def panel_grads(loss_fn: Callable, panel, spec, batch, rows=None):
     """Per-agent gradients as a panel: ({group: (m, D_g)}, losses (m,)).
 
     Agent k's parameters are leaf views of its panel row; its loss is
     differentiated on its own batch ``{key: v[k]}`` and the gradient leaves
     are written into row k of the gradient panel. The parameter panel stays
-    the source of truth."""
+    the source of truth. ``rows`` (agent indices) differentiates only those
+    agents; the other rows of the gradient panel and their losses are 0."""
     m = spec.rows
     x0 = next(iter(panel.values()))
-    gpan = {g: torch.empty_like(x) for g, x in panel.items()}
-    losses = torch.empty((m,), dtype=torch.float32, device=x0.device)
-    for k in range(m):
+    if rows is None:
+        gpan = {g: torch.empty_like(x) for g, x in panel.items()}
+        losses = torch.empty((m,), dtype=torch.float32, device=x0.device)
+    else:
+        gpan = {g: torch.zeros_like(x) for g, x in panel.items()}
+        losses = torch.zeros((m,), dtype=torch.float32, device=x0.device)
+    for k in range(m) if rows is None else rows:
         leaves = [panel[ls.group][k, ls.offset:ls.offset + ls.size]
                   .detach().view(ls.shape).requires_grad_(True)
                   for ls in spec.leaves]
@@ -331,7 +384,7 @@ def make_panel_segment(loss_fn: Callable, optimizer: Optimizer,
                        after_step: Optional[Callable] = None):
     """Panel driver for one SCHEDULE SEGMENT of rounds.
 
-    segment(state, batches, Ws, rng=None, global_rounds=None)
+    segment(state, batches, Ws, rng=None, global_rounds=None, live=None)
         -> (state, metrics) with
       batches leaves (S, H, m, b, ...) — H DISTINCT batches per round
                                          (numpy arrays or tensors),
@@ -347,11 +400,16 @@ def make_panel_segment(loss_fn: Callable, optimizer: Optimizer,
                                          (the launcher reads the schedule's
                                          ``last_kind``); None fingerprints
                                          W against the 1/m matrix,
+      live (S, m) int                  — each round's DEAD 0 / LIVE 1 /
+                                         RESYNC 2 trit per agent (the
+                                         launcher stacks
+                                         ``Schedule.last_live``); None: all
+                                         live,
       metrics {name: (S,) float32 tensor} on the panel's device:
         ``loss`` and ``grad_norm``/``grad_norm_max`` (mean and max over the
         H local steps of the step's mean loss and of the norm of the
         agent-mean gradient) and ``consensus``, Xi after the round's
-        communication.
+        communication; under ``live`` each over the live agents only.
 
     The wire policy comes from the spec (panel.with_wire,
     init_panel_state(wire=...)). An error-feedback codec carries
@@ -378,6 +436,12 @@ def make_panel_segment(loss_fn: Callable, optimizer: Optimizer,
     apply), False forces the unfused read -> update -> write. Both draw the
     same uniforms in the same slabs, so their trajectories are the same bit
     for bit.
+
+    ``live`` makes the run elastic (see the module docstring for the rules;
+    the reference's are ``repro/core/dsgd.py:make_panel_segment``). W must
+    be the degraded matrix of the round's live agents, and a non-uniform
+    operator needs ``global_rounds``: a degraded global W is no longer the
+    1/m matrix.
 
     ``after_step(step, opt)``, if given, is called after each local step's
     optimizer update with the local step's index and the optimizer state
@@ -415,7 +479,8 @@ def make_panel_segment(loss_fn: Callable, optimizer: Optimizer,
             f"(got '{optimizer.name}')")
     res_fused = fused_ok if fused is None else bool(fused)
 
-    def segment(state, batches, Ws, rng=None, global_rounds=None):
+    def segment(state, batches, Ws, rng=None, global_rounds=None,
+                live=None):
         x0 = next(iter(state["panel"].values()))
         m, dev = x0.shape[0], x0.device
         del x0
@@ -437,6 +502,19 @@ def make_panel_segment(loss_fn: Callable, optimizer: Optimizer,
             raise ValueError(
                 "spec's residency policy rounds stochastically and needs "
                 "rng= (a torch.Generator or an integer seed)")
+        Ws_host = np.asarray(torch.as_tensor(Ws, dtype=torch.float32).cpu())
+        S = Ws_host.shape[0]
+        glob = (None if global_rounds is None else
+                np.asarray(torch.as_tensor(global_rounds).cpu(), bool))
+        if glob is not None and glob.shape != (S,):
+            raise ValueError(f"global_rounds must be ({S},), got "
+                             f"{glob.shape}")
+        lives = (None if live is None else
+                 np.asarray(torch.as_tensor(live).cpu(), np.int64))
+        if lives is not None and (lives.shape != (S, m) or not np.isin(
+                lives, (0, 1, 2)).all()):
+            raise ValueError(f"live must be ({S}, {m}) trits DEAD 0 / LIVE "
+                             f"1 / RESYNC 2, got {lives.shape} {lives}")
         gen = _generator(rng, dev) if needs_key else None
         seed = (None if not res_key else rng.initial_seed()
                 if isinstance(rng, torch.Generator) else int(rng))
@@ -446,13 +524,6 @@ def make_panel_segment(loss_fn: Callable, optimizer: Optimizer,
         pan, opt = state.pop("panel"), state.pop("opt")
         werr = state.pop("wire_err") if needs_ef else None
         mstat = state.pop("merge_stat", None)
-        Ws_host = np.asarray(torch.as_tensor(Ws, dtype=torch.float32).cpu())
-        S = Ws_host.shape[0]
-        glob = (None if global_rounds is None else
-                np.asarray(torch.as_tensor(global_rounds).cpu(), bool))
-        if glob is not None and glob.shape != (S,):
-            raise ValueError(f"global_rounds must be ({S},), got "
-                             f"{glob.shape}")
         eye = np.eye(m, dtype=np.float32)
         full = np.full((m, m), 1.0 / m, dtype=np.float32)
         batches = {k: torch.as_tensor(v).to(dev) for k, v in batches.items()}
@@ -486,12 +557,30 @@ def make_panel_segment(loss_fn: Callable, optimizer: Optimizer,
             # round tick of the stats and wire_err streams: the local-step
             # count at the round's end
             tick = step0 + (s + 1) * local_steps
+            lv = None if lives is None else lives[s]
+            if lv is not None and bool(np.all(lv == LIVE)):
+                lv = None  # an all-live round is an unmasked round
+            if lv is not None:
+                alive = lv == LIVE
+                frozen = np.flatnonzero(~alive).tolist()
+                sync = np.flatnonzero(lv == RESYNC).tolist()
+                lw = panel_mod._live_weights(alive, m, dev)
+                opt = _per_agent_count(opt, m)
+                # what the non-live rows hold now; they take no local step
+                keep = {"panel": _take_rows(pan, frozen),
+                        "opt": _take_rows(opt, frozen)}
+                if mstat is not None:
+                    keep["stat"] = _take_rows(mstat, frozen)
             if res_stat and mstat is not None:
                 # one decode at round entry, one encode at round exit
                 mstat = {n: _res_read(g, res_stat) for n, g in mstat.items()}
+                if lv is not None:
+                    keep["stat_view"] = _take_rows(mstat, frozen)
             for h in range(local_steps):
                 batch = {k: v[s, h] for k, v in batches.items()}
-                gpan, agent_losses = panel_grads(loss_fn, pan, spec, batch)
+                gpan, agent_losses = panel_grads(
+                    loss_fn, pan, spec, batch,
+                    rows=None if lv is None else np.flatnonzero(alive))
                 if local_stat:
                     mstat = merger.update_local(mstat, gpan)
                 step = step0 + s * local_steps + h
@@ -506,40 +595,70 @@ def make_panel_segment(loss_fn: Callable, optimizer: Optimizer,
                     opt = _opt_write(opt, res_mom, mom_keys, seed, step, dev)
                 if after_step is not None:
                     after_step(step, opt)
-                losses.append(torch.mean(agent_losses))
-                gns.append(panel_mod.panel_norm(gpan, axis_mean=True))
+                if lv is None:
+                    losses.append(torch.mean(agent_losses))
+                    gns.append(panel_mod.panel_norm(gpan, axis_mean=True))
+                else:
+                    losses.append(torch.sum(lw * agent_losses))
+                    gns.append(panel_mod.panel_norm(gpan, axis_mean=True,
+                                                    rows=lw))
                 del gpan
             if round_stat:
                 mstat = merger.update_round(mstat, pan)
+            if lv is not None:
+                # the non-live rows' updates are discarded
+                _put_rows(pan, keep["panel"], frozen)
+                _put_rows(opt, keep["opt"], frozen)
+                if mstat is not None:
+                    _put_rows(mstat, keep.get("stat_view", keep["stat"]),
+                              frozen)
             W = Ws_host[s]
             # non-uniform operators (and delta codecs) take the GLOBAL
             # rounds: the explicit mask when given, else the W fingerprint
             is_global = not plain_merge and (
                 bool(glob[s]) if glob is not None
                 else np.array_equal(W, full))
-            ne = None
+            werr_in, ne = werr, None
             if is_global:
-                pan, _, ne = merge_panel(pan, merger, stats=mstat, spec=spec,
-                                         gen=gen, err=err_dec(werr))
+                pan, _, ne = merge_panel(
+                    pan, merger, stats=mstat, spec=spec, gen=gen,
+                    err=err_dec(werr), live=None if lv is None else alive)
                 werr = err_enc(ne, tick, None, None)
-                mets["consensus"].append(
-                    torch.zeros((), dtype=torch.float32, device=dev))
+                xi = torch.zeros((), dtype=torch.float32, device=dev)
             # W == I rounds communicate nothing: no sweep over the panel,
             # no codec, no draw, no stored bit touched
             elif np.array_equal(W, eye):
-                mets["consensus"].append(panel_mod.consensus_distance(pan))
+                xi = (panel_mod.consensus_distance(pan) if lv is None
+                      else None)
             else:
                 pan, mean, ne = panel_mod.mix_dense_mean(
                     pan, W, spec=spec, gen=gen, err=err_dec(werr))
                 werr = err_enc(ne, tick, werr, W)
-                mets["consensus"].append(
-                    panel_mod.consensus_from_mean(pan, mean))
+                xi = (panel_mod.consensus_from_mean(pan, mean) if lv is None
+                      else None)
                 del mean
             del ne
+            if lv is not None:
+                _live_comm_rows(pan, opt, werr, werr_in, mstat, keep,
+                                frozen, sync, alive)
+                xi = panel_mod.consensus_distance(pan, live=alive)
+            del werr_in
+            mets["consensus"].append(xi)
             if res_stat and mstat is not None:
-                mstat = {n: _res_write(mstat[n], res_stat, storage_generators(
+                view = mstat
+                mstat = {n: _res_write(view[n], res_stat, storage_generators(
                     res_stat, seed, tick, "stats", i, dev))
-                    for i, n in enumerate(sorted(mstat))}
+                    for i, n in enumerate(sorted(view))}
+                if lv is not None:
+                    # dead rows keep their stored bits; a RESYNC row's fresh
+                    # statistics encode deterministically
+                    _put_rows(mstat, keep["stat"], frozen)
+                    _put_rows(mstat, {n: _res_init(_take_rows(view[n], sync),
+                                                   res_stat)
+                                      for n in view}, sync)
+                del view
+            if lv is not None:
+                del keep  # the non-live rows' copies, freed with the round
             gn = torch.stack(gns)
             mets["loss"].append(torch.mean(torch.stack(losses)))
             mets["grad_norm"].append(torch.mean(gn))
@@ -551,5 +670,43 @@ def make_panel_segment(loss_fn: Callable, optimizer: Optimizer,
         if mstat is not None:
             out["merge_stat"] = mstat
         return out, {k: torch.stack(v) for k, v in mets.items()}
+
+    def _live_comm_rows(pan, opt, werr, werr_in, mstat, keep, frozen, sync,
+                        alive):
+        """An elastic round's rows after the communication, in place: the
+        non-live rows as they were before it (they are identity rows of
+        the degraded W), then each RESYNC row restarted from the live
+        agents' post-mix mean."""
+        _put_rows(pan, keep["panel"], frozen)
+        if werr is not None and werr is not werr_in:
+            _put_rows(werr, _take_rows(werr_in, frozen), frozen)
+        if not sync:
+            return
+        for k, mu in panel_mod.merged(pan, live=alive).items():
+            pan[k][sync] = mu.to(pan[k].dtype)
+            del mu
+        for k, v in opt.items():
+            if k == "step_count":
+                v[sync] = 0
+                continue
+            for g, x in v.items():
+                if isinstance(x, dict) or (res_mom and g in res_mom):
+                    # the stored canonical zero: the row bit for bit a
+                    # freshly initialised agent's
+                    _put_rows(x, res_mom[g].zero_like(_take_rows(x, sync)),
+                              sync)
+                else:
+                    x[sync] = 0
+        rows = {k: x[sync] for k, x in pan.items()}
+        if werr is not None:
+            for k, e in werr.items():
+                fresh = wire_mod.get_codec(spec.wire_of(k)).init_err(
+                    rows[k]).to(torch.float32)
+                if res_err and k in res_err:
+                    fresh = res_err[k].init(fresh)
+                _put_rows(e, fresh, sync)
+        if mstat is not None:
+            fresh = merger.init_stats(rows)
+            _put_rows(mstat, fresh, sync)
 
     return segment

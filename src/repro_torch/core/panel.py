@@ -14,7 +14,9 @@ The communication ops run one fused op per dtype group:
   column mean comes out of the same sweep.
 * :func:`global_merge`, :func:`merged` / :func:`consensus_distance` — the
   column mean and the consensus distance Xi through the
-  ``panel_mean_consensus`` kernel.
+  ``panel_mean_consensus`` kernel; with ``live=`` (an elastic run's (m,)
+  mask) the mean of the live rows (the kernel on the gathered live rows)
+  and their consensus (a float64 row pass, exactly 0 for identical rows).
 
 The merge operator of global rounds is named on the spec
 (:func:`with_merger`, ``repro_torch.merging``).
@@ -413,16 +415,73 @@ def global_merge(panel, *, spec: Optional[PanelSpec] = None, gen=None,
     return mixed if err is None else (mixed, new_err)
 
 
-def merged(panel):
-    """The (counterfactual) averaged model as {dtype: (D_dtype,)} f32."""
-    return {k: panel_mean_consensus(x.to(torch.float32))[0]
-            for k, x in panel.items()}
+def _live_mask(live, m):
+    """An (m,) host bool array of a live mask (a tensor, an array or a
+    list)."""
+    if torch.is_tensor(live):
+        live = live.cpu().numpy()
+    return np.asarray(live, dtype=bool).reshape(m)
 
 
-def consensus_distance(panel):
-    """Xi_t = sqrt((1/m) sum_k ||theta_k - bar||^2), a float32 scalar."""
+def _live_weights(live, m, device=None):
+    """(m,) float32 convex weights over the live rows of an (m,) bool mask;
+    an all-dead mask gives zeros, not NaN."""
+    lf = torch.as_tensor(_live_mask(live, m), dtype=torch.float32,
+                         device=device)
+    return lf / torch.clamp(torch.sum(lf), min=1.0)
+
+
+def merged(panel, live=None):
+    """The (counterfactual) averaged model as {dtype: (D_dtype,)} f32.
+
+    ``live`` ((m,) bool) restricts the mean to the live rows (the merge of
+    an elastic run, where a dead agent's stale row must not enter it): the
+    live rows are gathered into a sub-panel and reduced by the unmasked
+    ``panel_mean_consensus`` kernel, so the result is the sub-panel's mean
+    (the reference takes the live-weighted sum; the two agree to float32
+    rounding). No live row gives zeros."""
+    if live is None:
+        return {k: panel_mean_consensus(x.to(torch.float32))[0]
+                for k, x in panel.items()}
     x0 = next(iter(panel.values()))
     m = x0.shape[0]
+    rows = np.flatnonzero(_live_mask(live, m))
+    out = {}
+    for k, x in panel.items():
+        if not len(rows):
+            out[k] = torch.zeros(x.shape[1], dtype=torch.float32,
+                                 device=x.device)
+            continue
+        sub = x if len(rows) == m else x[torch.as_tensor(rows,
+                                                         device=x.device)]
+        out[k] = panel_mean_consensus(sub.to(torch.float32))[0]
+        del sub
+    return out
+
+
+def consensus_distance(panel, live=None):
+    """Xi_t = sqrt((1/m) sum_k ||theta_k - bar||^2), a float32 scalar.
+
+    ``live`` ((m,) bool) takes the consensus of the live rows only: their
+    mean, their deviations, over the live count. That mean and the sum of
+    squares are taken in float64 a row at a time (no (m, D) temporary), so
+    identical live rows read exactly 0 whatever the live count (a float32
+    mean of 7 equal rows need not equal the row)."""
+    x0 = next(iter(panel.values()))
+    m = x0.shape[0]
+    if live is not None:
+        rows = np.flatnonzero(_live_mask(live, m))
+        total = torch.zeros((), dtype=torch.float64, device=x0.device)
+        for x in panel.values() if len(rows) else ():
+            mean = torch.zeros(x.shape[1], dtype=torch.float64,
+                               device=x.device)
+            for r in rows:
+                mean += x[r]
+            mean /= len(rows)
+            for r in rows:
+                total = total + torch.sum(torch.square(x[r].double() - mean))
+            del mean
+        return torch.sqrt(total / max(len(rows), 1)).to(torch.float32)
     total = torch.zeros((), dtype=torch.float32, device=x0.device)
     for x in panel.values():
         total = total + panel_mean_consensus(x.to(torch.float32))[1]
@@ -443,14 +502,18 @@ def consensus_from_mean(panel, means):
     return torch.sqrt(total / m)
 
 
-def panel_norm(panel, axis_mean: bool = False):
+def panel_norm(panel, axis_mean: bool = False, rows=None):
     """Global l2 norm of the panel (f32). With ``axis_mean`` the rows are
-    averaged first (norm of the agent-mean, e.g. for grad-norm metrics)."""
+    averaged first (norm of the agent-mean, e.g. for grad-norm metrics);
+    ``rows`` ((m,) float32 convex weights, e.g. :func:`_live_weights` of a
+    live mask) replaces the uniform mean by the weighted one: the grad norm
+    of an elastic round averages the live agents only."""
     x0 = next(iter(panel.values()))
     total = torch.zeros((), dtype=torch.float32, device=x0.device)
     for x in panel.values():
         x32 = x.to(torch.float32)
         if axis_mean:
-            x32 = torch.mean(x32, dim=0)
+            x32 = (torch.mean(x32, dim=0) if rows is None else
+                   torch.matmul(rows.to(x32.device), x32))
         total = total + torch.sum(torch.square(x32))
     return torch.sqrt(total)

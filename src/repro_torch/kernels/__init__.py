@@ -2,8 +2,9 @@
 
 ``gossip_mix.gossip_mix`` (float32 and bfloat16 payloads) and
 ``panel_reduce.panel_mean_consensus`` are the wrappers the panel engine
-calls; ``wire_quant`` holds the wire codecs' kernels (int8 quantize and
-dequantize, the top-k sparsifier, int4 quantize, dequantize, nibble pack
+calls; ``wire_quant`` holds the wire codecs' kernels (int8 quantize, with
+supplied uniforms or with Philox draws on the chip, and dequantize, the
+top-k sparsifier, int4 quantize, dequantize, nibble pack
 and unpack) and the residency storages' grouped int8 quantize and
 dequantize; ``merge_ops`` the merge operators' column reductions (the
 weighted and the TIES column merge); ``opt_fused`` the fused AdamW step on
@@ -22,6 +23,7 @@ from repro_torch.kernels import wire_quant as _wire_quant
 KERNELS = {"gossip_mix": _gossip_mix.gossip_mix,
            "panel_mean_consensus": _panel_reduce.panel_mean_consensus,
            "quantize_int8": _wire_quant.quantize_int8,
+           "quantize_int8_native": _wire_quant.quantize_int8_native,
            "dequantize_int8": _wire_quant.dequantize_int8,
            "sparsify_topk": _wire_quant.sparsify_topk,
            "quantize_int4": _wire_quant.quantize_int4,
@@ -37,8 +39,9 @@ KERNELS = {"gossip_mix": _gossip_mix.gossip_mix,
            "flash_attention_bwd": _flash_attention.flash_attention_bwd}
 
 # the CUDA sources (csrc/<name>.cu) the kernels are built from
-SOURCES = ("gossip_mix", "panel_reduce", "wire_quant", "wire_int4",
-           "merge_ops", "wire_int8g", "opt_fused", "flash_attention")
+SOURCES = ("gossip_mix", "panel_reduce", "wire_quant", "wire_native",
+           "wire_int4", "merge_ops", "wire_int8g", "opt_fused",
+           "flash_attention")
 
 
 def reset_launch_counts():

@@ -8,12 +8,14 @@ with their kernels bit for bit; only the reduce's sum of squares is summed
 in another order.
 
 The wire functions are the counterparts of the reference's oracles
-(``src/repro/kernels/ref.py``): the per-row int8 scale and the grouped
-int4 scales (one per row per ``group`` columns), quantize with round to
-nearest (ties to even, as ``jnp.round``) or stochastic rounding
-``floor(x / scale + u)``, dequantize, the int4 nibble pack and unpack, and
-the top-k threshold and mask. The scales and the threshold are row passes
-computed outside the kernels, as in the reference.
+(``src/repro/kernels/ref.py``): the per-row int8 scale and the grouped int4
+scales (one per row per ``group`` columns), quantize with round to nearest
+(ties to even, as ``jnp.round``) or stochastic rounding ``floor(x / scale +
+u)`` (with the uniforms supplied, or drawn by Philox4x32-10 as the
+on-chip-seeded quantize draws them: the generator in int64 arithmetic, bit for
+bit with the kernel's), dequantize, the int4 nibble pack and unpack, and the
+top-k threshold and mask. The scales and the threshold are row passes computed
+outside the kernels, as in the reference.
 
 The residency functions are the counterparts of the storages' oracles:
 the grouped int8 scales (amax / 127), quantize and dequantize, the
@@ -106,6 +108,79 @@ def quantize_int8_ref(x, scale, u=None):
     s = x.to(torch.float32) / scale
     q = torch.floor(s + u) if u is not None else torch.round(s)
     return torch.clamp(q, -127.0, 127.0).to(torch.int8)
+
+
+# Philox4x32-10 (Salmon et al., SC'11; Random123's and the CUDA toolkit's
+# constants): the multipliers, the key increments (Weyl sequence)
+PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+_U32 = 0xFFFFFFFF
+NATIVE_BLOCK = 512  # columns per key word of the in-kernel draws
+
+
+def _mulhilo32(a, b: int):
+    """(high, low) 32-bit halves of a * b for int64 tensors ``a`` holding
+    uint32 values and a uint32 constant ``b``, without overflowing int64
+    (b split into 16-bit halves: each partial product is under 2^48)."""
+    p0 = a * (b & 0xFFFF)
+    p1 = a * (b >> 16)
+    low = p0 + ((p1 & 0xFFFF) << 16)
+    return ((p1 >> 16) + (low >> 32)) & _U32, low & _U32
+
+
+def philox4x32_ref(key, counter):
+    """Philox4x32-10 in int64 arithmetic: ``key`` two uint32 words and
+    ``counter`` four (int64 tensors or ints, broadcast together) -> the
+    four uint32 output words as int64 tensors."""
+    dev = next((w.device for w in (*key, *counter) if torch.is_tensor(w)),
+               None)
+    c = [torch.as_tensor(w, dtype=torch.int64, device=dev)
+         for w in (*counter, *key)]
+    c = list(torch.broadcast_tensors(*c))
+    k0, k1 = c[4], c[5]
+    c = c[:4]
+    for i in range(10):
+        if i:
+            k0 = (k0 + PHILOX_W[0]) & _U32
+            k1 = (k1 + PHILOX_W[1]) & _U32
+        hi0, lo0 = _mulhilo32(c[0], PHILOX_M[0])
+        hi1, lo1 = _mulhilo32(c[2], PHILOX_M[1])
+        c = [hi1 ^ c[1] ^ k0, lo1, hi0 ^ c[3] ^ k1, lo0]
+    return c
+
+
+def native_uniforms_ref(seed, m: int, D: int, lo: int = 0, hi=None,
+                        device=None):
+    """The uniforms ``quantize_int8_native`` draws for columns [lo, hi) of
+    an (m, D) panel (``lo`` a multiple of 4): column c of row r is word
+    c % 4 of Philox4x32-10 on key (seed, c // 512) and counter (r,
+    (c % 512) // 4, 0, 0), its low 24 bits times 2^-24. ``seed`` is an
+    int or a 1-element int32 tensor (its bits as a uint32)."""
+    hi = D if hi is None else hi
+    seed = int(seed.reshape(-1)[0]) if torch.is_tensor(seed) else int(seed)
+    q = torch.arange(lo // 4, (hi + 3) // 4, dtype=torch.int64,
+                     device=device)
+    rows = torch.arange(m, dtype=torch.int64, device=device)[:, None]
+    quads_per_block = NATIVE_BLOCK // 4
+    words = philox4x32_ref(
+        (seed & _U32, (q // quads_per_block)[None]),
+        (rows, (q % quads_per_block)[None], 0, 0))
+    bits = torch.stack(words, dim=-1).reshape(m, -1)[:, :hi - lo]
+    return (bits & 0xFFFFFF).to(torch.float32) * (1.0 / (1 << 24))
+
+
+def quantize_int8_native_ref(x, scale, seed, chunk: int = 1 << 21):
+    """The plain version of ``quantize_int8_native``: quantize_int8_ref
+    with stochastic rounding against :func:`native_uniforms_ref`'s draws,
+    a column chunk at a time (``chunk`` a multiple of 512)."""
+    m, D = x.shape
+    q = torch.empty((m, D), dtype=torch.int8, device=x.device)
+    for lo in range(0, D, chunk):
+        hi = min(lo + chunk, D)
+        u = native_uniforms_ref(seed, m, D, lo, hi, device=x.device)
+        q[:, lo:hi] = quantize_int8_ref(x[:, lo:hi], scale, u)
+        del u
+    return q
 
 
 def dequantize_int8_ref(q, scale):

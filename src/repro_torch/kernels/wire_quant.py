@@ -1,4 +1,5 @@
-"""The wire codecs' kernels: int8 quantize and dequantize against a per-row
+"""The wire codecs' kernels: int8 quantize (with supplied uniforms, or with
+its uniforms drawn on the chip from a seed) and dequantize against a per-row
 scale, the top-k sparsifier against a per-row threshold, the int4 family
 (quantize and dequantize against grouped scales, nibble pack and unpack),
 and the grouped int8 pair of the residency storages.
@@ -8,7 +9,8 @@ Replaces the Pallas TPU kernels ``quantize_int8_panel``,
 ``quantize_int4_panel``, ``dequantize_int4_panel``, ``pack_int4_panel``,
 ``unpack_int4_panel`` (``csrc/wire_int4.cu``),
 ``quantize_int8_grouped_panel`` and ``dequantize_int8_grouped_panel``
-(``csrc/wire_int8g.cu``) of ``src/repro/kernels/wire_quant.py``. The
+(``csrc/wire_int8g.cu``) and ``quantize_int8_panel_native``
+(``csrc/wire_native.cu``) of ``src/repro/kernels/wire_quant.py``. The
 scales (``ref.int8_scale_ref``, ``ref.int4_group_scale_ref``,
 ``ref.int8_group_scale_ref``) and the threshold
 (``ref.topk_threshold_ref``) are computed by the caller outside the
@@ -29,6 +31,7 @@ from repro_torch.kernels.ref import (dequantize_int4_ref,
                                      dequantize_int8_ref, pack_int4_ref,
                                      quantize_int4_ref,
                                      quantize_int8_grouped_ref,
+                                     quantize_int8_native_ref,
                                      quantize_int8_ref, sparsify_topk_ref,
                                      unpack_int4_ref)
 
@@ -51,6 +54,11 @@ _SIGNATURES_INT8G = {
                                           _L, _L, _L, _P]),
     "dequantize_int8g_f32": (ctypes.c_int, [_P, _P, _P, _I, _L, _I, _I, _L,
                                             _L, _L, _P]),
+}
+
+_SIGNATURES_NATIVE = {
+    "quantize_int8_native_f32": (ctypes.c_int, [_P, _P, _P, _P, _I, _L, _P]),
+    "philox4x32_10_u32": (ctypes.c_int, [_P, _P, _P, _I, _P]),
 }
 
 MAX_ROWS = 65535  # the kernels' bound on m (one grid row per agent)
@@ -113,6 +121,50 @@ def quantize_int8(x, scale, u=None):
             .cuda_stream)
     quantize_int8.launches += 1
     return q
+
+
+def quantize_int8_native(x, scale, seed):
+    """x: (m, D) float32; scale: (m, 1) float32; seed: a 1-element int32
+    tensor on x's device -> int8 (m, D) in [-127, 127]: floor(x / scale + u)
+    with u drawn inside the kernel by Philox4x32-10 from (seed, the 512-column
+    block) and (row, column) (``ref.native_uniforms_ref``); no uniform panel
+    is read or made. The seed stays on the device: nothing waits for the
+    host."""
+    if _on_cpu(x, scale, seed):
+        return quantize_int8_native_ref(x, scale, seed)
+    _check("quantize_int8_native", x, torch.float32, scale)
+    if seed.device != x.device or seed.dtype != torch.int32 \
+            or seed.numel() != 1:
+        raise ValueError(f"quantize_int8_native takes a 1-element int32 seed "
+                         f"on {x.device}, got {seed.dtype} "
+                         f"{tuple(seed.shape)} on {seed.device}")
+    m, D = x.shape
+    _check_cols("quantize_int8_native", D)
+    q = torch.empty((m, D), dtype=torch.int8, device=x.device)
+    lib = build.load("wire_native", _SIGNATURES_NATIVE)
+    _launch("quantize_int8_native", lib.quantize_int8_native_f32,
+            x.data_ptr(), scale.data_ptr(), seed.data_ptr(), q.data_ptr(), m,
+            D, torch.cuda.current_stream(x.device).cuda_stream)
+    quantize_int8_native.launches += 1
+    return q
+
+
+def philox4x32(ctr, key):
+    """The native quantize's Philox4x32-10 on the card, for checks: ctr
+    (n, 4) and key (n, 2) int32 CUDA tensors holding uint32 bits -> (n, 4)
+    int32 words. Not a kernel of any path (no launch count)."""
+    n = ctr.shape[0]
+    if ctr.device.type != "cuda" or ctr.shape != (n, 4) \
+            or key.shape != (n, 2) or ctr.dtype != torch.int32 \
+            or key.dtype != torch.int32:
+        raise ValueError("philox4x32 takes int32 CUDA (n, 4) counters and "
+                         "(n, 2) keys")
+    out = torch.empty((n, 4), dtype=torch.int32, device=ctr.device)
+    lib = build.load("wire_native", _SIGNATURES_NATIVE)
+    _launch("philox4x32", lib.philox4x32_10_u32, ctr.contiguous().data_ptr(),
+            key.contiguous().data_ptr(), out.data_ptr(), n,
+            torch.cuda.current_stream(ctr.device).cuda_stream)
+    return out
 
 
 def dequantize_int8(q, scale):
@@ -325,6 +377,7 @@ def dequantize_int8_grouped(q, scale, group: int = 128, out=None):
 
 # kernel launches since the counts were last set to 0
 quantize_int8.launches = 0
+quantize_int8_native.launches = 0
 dequantize_int8.launches = 0
 sparsify_topk.launches = 0
 quantize_int4.launches = 0

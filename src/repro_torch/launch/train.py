@@ -5,7 +5,8 @@ Runs the paper's algorithm end to end on synthetic non-IID token streams:
 per-agent local AdamW/SGD steps, scheduled gossip, and the single final
 global merge, on the panel engine (core/dsgd.py), under any wire codec
 (``--wire``), merge operator (``--merge``) and residency policy of the
-state panels (``--residency``, ``--fused-moments``). It draws the
+state panels (``--residency``, ``--fused-moments``), and under a fault plan
+(``--faults``: agents that die and rejoin, the elastic run). It draws the
 schedule's mixing matrices and the batches from the same numpy seeds, in
 the same order, as the reference launcher, so both see byte-identical W
 streams and batches.
@@ -28,6 +29,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.core import dsgd
+from repro_torch.core import faults as faults_mod
 from repro_torch.core import merge as merge_mod
 from repro_torch.core import panel as panel_mod
 from repro_torch.core.schedule import make_schedule
@@ -65,18 +67,22 @@ def to_device(batch, device):
 
 
 @torch.no_grad()
-def eval_merged(loss_fn, panel, spec, batch, stats=None):
+def eval_merged(loss_fn, panel, spec, batch, stats=None, live=None):
     """Loss on ``batch`` (a float) of the model merged by the spec's merge
-    operator (``stats``: the state's ``merge_stat``)."""
+    operator (``stats``: the state's ``merge_stat``; ``live``: (m,) bool,
+    the agents holding a usable model, the only ones merged)."""
     return float(merge_mod.counterfactual_eval_panel(
-        lambda p: loss_fn(p, batch, None)[0], panel, spec, stats=stats))
+        lambda p: loss_fn(p, batch, None)[0], panel, spec, stats=stats,
+        live=live))
 
 
 @torch.no_grad()
-def eval_local(loss_fn, panel, spec, batch):
-    """Mean over agents of each agent's own loss on ``batch`` (a float)."""
+def eval_local(loss_fn, panel, spec, batch, live=None):
+    """Mean over agents of each agent's own loss on ``batch`` (a float);
+    with ``live`` ((m,) bool) over the live agents only."""
+    rows = range(spec.rows) if live is None else np.flatnonzero(live)
     losses = [loss_fn(panel_mod.agent_params(panel, spec, k), batch,
-                      None)[0] for k in range(spec.rows)]
+                      None)[0] for k in rows]
     return float(torch.mean(torch.stack(losses)))
 
 
@@ -136,6 +142,11 @@ def main(argv=None):
     ap.add_argument("--eval-merged-every", type=int, default=0,
                     help="merged/local eval cadence in rounds (segments "
                          "are cut at it); 0 = once per segment")
+    ap.add_argument("--faults", default="",
+                    help="fault plan 'AGENT@KILL[-REJOIN]' joined by ';' "
+                         "(core.faults.FaultPlan.parse): the agent is dead "
+                         "from round KILL and rejoins at round REJOIN by "
+                         "pulling the live agents' mean (e.g. '2@5-9;0@3')")
     ap.add_argument("--optimizer", default="adamw")
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--alpha", type=float, default=0.1,
@@ -155,10 +166,14 @@ def main(argv=None):
     model = build_model(cfg)
     opt = make_optimizer(args.optimizer, args.lr, weight_decay=5e-4,
                          total_steps=args.rounds * args.local_steps)
+    plan = (faults_mod.FaultPlan.parse(m, args.faults) if args.faults
+            else None)
     kw = {"prob": 0.2, "seed": args.seed, "merger": args.merge}
     if args.schedule == "windowed":
         kw.update(start=args.window_start, end=args.window_end or
                   args.rounds // 10)
+    if plan is not None:
+        kw["faults"] = plan
     sched = make_schedule(args.schedule, m, args.rounds, **kw)
     seg_len = 1 if args.schedule == "adaptive" else max(1, args.segment)
     tag = f"{args.arch}_{args.schedule}_a{args.alpha}"
@@ -204,6 +219,12 @@ def main(argv=None):
             lm, [glob_mix], 2 * args.batch, args.seq,
             np.random.default_rng(999)).items()}, device)
 
+    def alive_after(r):
+        """(m,) bool of the agents holding a usable model after round r
+        (None without a fault plan): dead agents' rows are stale and left
+        out of both evals."""
+        return None if plan is None else plan.mask(r) >= faults_mod.LIVE
+
     history = []
     monitor = {}
     comm_cost = 0.0
@@ -214,7 +235,7 @@ def main(argv=None):
         S = min(seg_len, args.rounds - t)
         if ev > 0:  # cut segments at the eval cadence
             S = min(S, (t // ev + 1) * ev - t)
-        Ws, comm_after, glob = [], [], []
+        Ws, comm_after, glob, lives = [], [], [], []
         for s in range(S):
             W = sched.mixing_matrix(t + s, monitor)
             comm_cost += sched.round_cost(W)
@@ -223,21 +244,26 @@ def main(argv=None):
             # the schedule knows which rounds are global: a gossip W can
             # equal the 1/m average at small m
             glob.append(sched.last_kind == "global")
+            lives.append(sched.last_live)
         batches = sample_segment_batches(lm, mixtures, S, args.local_steps,
                                          args.batch, args.seq, rng_np)
         seg_t0 = time.perf_counter()
         state, mets = segment_fn(state, batches,
                                  np.stack(Ws).astype(np.float32), wire_gen,
-                                 global_rounds=np.asarray(glob))
+                                 global_rounds=np.asarray(glob),
+                                 live=None if plan is None else
+                                 np.stack(lives))
         mets = {k: v.cpu().numpy() for k, v in mets.items()}  # one transfer
         monitor = {"grad_norm": float(mets["grad_norm"][-1]),
                    "consensus": float(mets["consensus"][-1])}
         merged_l = local_l = None
         if ev == 0 or (t + S) % ev == 0 or t + S == args.rounds:
+            lv_now = alive_after(t + S - 1)
             merged_l = eval_merged(model.loss_fn, state["panel"], spec,
-                                   eval_batch, state.get("merge_stat"))
+                                   eval_batch, state.get("merge_stat"),
+                                   live=lv_now)
             local_l = eval_local(model.loss_fn, state["panel"], spec,
-                                 eval_batch)
+                                 eval_batch, live=lv_now)
         dt = time.perf_counter() - seg_t0
         for s in range(S):
             last = s == S - 1

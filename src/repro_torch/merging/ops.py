@@ -34,17 +34,24 @@ reference's ``b * s + (1 - b) * x`` rounds each product on its own.
 
 Statistics held in a residency storage (``--residency stats=...``) are
 decoded by :func:`decode_stats` before an operator reads them; every merge
-entry point goes through it. Not in this slice: the ``live=`` agent mask
-(with liveness).
+entry point goes through it.
+
+Liveness: ``live=`` ((m,) bool) restricts every operator to the live
+agents' rows, exactly as if it ran on the live sub-panel: the live mean
+(uniform, swa), weight 0 for a dead agent (weighted), the weight panel
+times the live column so that ``weighted_colmerge`` leaves dead rows out of
+both of its sums (var, fisher), and the live mean as the reference row with
+dead agents' deviation rows zeroed, which TIES's trim, election and
+agreeing mean ignore (ties).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.core import panel as panel_mod
 from repro_torch.kernels.gossip_mix import gossip_mix
 from repro_torch.kernels.merge_ops import ties_colmerge, weighted_colmerge
-from repro_torch.kernels.panel_reduce import panel_mean_consensus
 from repro_torch.kernels.ref import ties_thresh_ref
 
 
@@ -55,6 +62,13 @@ def _ema_(stat, x, b: float, square: bool = False):
         xr = x[r].to(torch.float32)
         xr = torch.square(xr) if square else xr
         torch.add(stat[r] * b, xr * (1.0 - b), out=stat[r])
+
+
+def _live_col(live, x):
+    """The (m, 1) float32 live column of a live mask, on x's device."""
+    m = x.shape[0]
+    return torch.as_tensor(panel_mod._live_mask(live, m), dtype=torch.float32,
+                           device=x.device)[:, None]
 
 
 def _need_stats(name, stats, what):
@@ -89,9 +103,10 @@ class Merger:
         (in place)."""
         return stats
 
-    def merge_row(self, panel, stats=None, weights=None):
-        """One merged row {group: (D_g,) f32} from the (m, D) panel."""
-        return panel_mod.merged(panel)
+    def merge_row(self, panel, stats=None, weights=None, live=None):
+        """One merged row {group: (D_g,) f32} from the (m, D) panel; with
+        ``live`` ((m,) bool) from the live rows alone."""
+        return panel_mod.merged(panel, live=live)
 
 
 class UniformMerger(Merger):
@@ -109,24 +124,30 @@ class WeightedMerger(Merger):
     def __init__(self, eps: float = 1e-8):
         self.eps = eps
 
-    def agent_weights(self, panel):
+    def agent_weights(self, panel, live=None):
+        """(m,) convex weights; with ``live`` the distances are taken to the
+        live mean and a dead agent's weight is 0."""
         d = None
-        for x in panel.values():
+        for k, x in panel.items():
             x32 = x.to(torch.float32)
-            mu = panel_mean_consensus(x32)[0]
+            mu = panel_mod.merged({k: x32}, live=live)[k]
             dk = torch.stack([torch.sum(torch.square(x32[r] - mu))
                               for r in range(x32.shape[0])])
             d = dk if d is None else d + dk
         w = torch.reciprocal(d + self.eps)
+        if live is not None:
+            w = w * _live_col(live, w)[:, 0]
         return w / torch.sum(w)
 
-    def merge_row(self, panel, stats=None, weights=None):
+    def merge_row(self, panel, stats=None, weights=None, live=None):
         x0 = next(iter(panel.values()))
         if weights is None:
-            w = self.agent_weights(panel)
+            w = self.agent_weights(panel, live=live)
         else:
             w = torch.as_tensor(weights, dtype=torch.float32,
                                 device=x0.device)
+            if live is not None:
+                w = w * _live_col(live, w)[:, 0]
             w = w / torch.sum(w)
         W = w[None].contiguous()
         return {k: gossip_mix(W, x)[0] for k, x in panel.items()}
@@ -168,11 +189,17 @@ class VarMerger(Merger):
             w[r].clamp_min_(0.0).add_(self.eps).reciprocal_()
         return w
 
-    def merge_row(self, panel, stats=None, weights=None):
+    def merge_row(self, panel, stats=None, weights=None, live=None):
         _need_stats(self.name, stats, "trajectory stats panels")
-        return {k: weighted_colmerge(x.to(torch.float32),
-                                     self.weight_panel(stats, k))
-                for k, x in panel.items()}
+        out = {}
+        for k, x in panel.items():
+            w = self.weight_panel(stats, k)
+            if live is not None:
+                # the column merge divides by the per-column weight sum, so
+                # a zero row is out of both sums
+                w.mul_(_live_col(live, w))
+            out[k] = weighted_colmerge(x.to(torch.float32), w)
+        return out
 
 
 class FisherMerger(Merger):
@@ -199,11 +226,15 @@ class FisherMerger(Merger):
             _ema_(stats["fisher"][k], g, self.ema, square=True)
         return stats
 
-    def merge_row(self, panel, stats=None, weights=None):
+    def merge_row(self, panel, stats=None, weights=None, live=None):
         _need_stats(self.name, stats, "Fisher stats panel")
-        return {k: weighted_colmerge(x.to(torch.float32),
-                                     stats["fisher"][k] + self.eps)
-                for k, x in panel.items()}
+        out = {}
+        for k, x in panel.items():
+            w = stats["fisher"][k] + self.eps
+            if live is not None:
+                w.mul_(_live_col(live, w))
+            out[k] = weighted_colmerge(x.to(torch.float32), w)
+        return out
 
 
 class TiesMerger(Merger):
@@ -219,13 +250,17 @@ class TiesMerger(Merger):
             raise ValueError(f"trim fraction must be in (0, 1], got {trim}")
         self.trim = trim
 
-    def merge_row(self, panel, stats=None, weights=None):
+    def merge_row(self, panel, stats=None, weights=None, live=None):
         out = {}
         for k, x in panel.items():
             x32 = x.to(torch.float32)
-            ref_row = panel_mean_consensus(x32)[0]
+            ref_row = panel_mod.merged({k: x32}, live=live)[k]
             tau = x32 - ref_row
             del x32
+            if live is not None:
+                # a zero deviation row is inert through the trim, the sign
+                # election and the agreeing mean: the live sub-panel's TIES
+                tau.mul_(_live_col(live, tau))
             dev = ties_colmerge(tau, ties_thresh_ref(tau, self.trim))
             del tau
             out[k] = dev.add_(ref_row)
@@ -255,9 +290,9 @@ class SwaMerger(Merger):
             _ema_(stats["swa"][k], x, self.decay)
         return stats
 
-    def merge_row(self, panel, stats=None, weights=None):
+    def merge_row(self, panel, stats=None, weights=None, live=None):
         _need_stats(self.name, stats, "accumulator stats panel")
-        return panel_mod.merged(stats["swa"])
+        return panel_mod.merged(stats["swa"], live=live)
 
 
 MERGERS = {
@@ -301,7 +336,7 @@ def decode_stats(stats, spec):
 
 
 def merge_panel(panel, merger, *, stats=None, weights=None, spec=None,
-                gen=None, err=None):
+                gen=None, err=None, live=None):
     """One global merge ROUND: every agent transmits its panel through the
     spec's wire policy (as ``panel.global_merge``: stochastic codecs draw
     from ``gen``, error feedback threads ``err``), the operator folds the
@@ -315,6 +350,10 @@ def merge_panel(panel, merger, *, stats=None, weights=None, spec=None,
     swa merges its accumulators) skips the codec entirely: nothing travels
     the parameter wire, so nothing is quantized and the error-feedback
     state passes through untouched.
+
+    ``live`` ((m,) bool) makes the round elastic: only live rows feed the
+    operator and receive the broadcast; a dead agent's parameter row and
+    its error-feedback (residual or mirror) row pass through bit for bit.
 
     Returns ``(mixed, row, new_err)``: the broadcast (m, D) panel in storage
     dtypes, the merged {group: (D_g,) f32} row, and the updated
@@ -344,7 +383,10 @@ def merge_panel(panel, merger, *, stats=None, weights=None, spec=None,
         enc = panel
         backs = {k: (lambda y: y) for k in panel}
         new_err = err
-    row = merger.merge_row(enc, stats=stats, weights=weights)
+    row = merger.merge_row(enc, stats=stats, weights=weights, live=live)
+    dead = ([] if live is None else
+            np.flatnonzero(~panel_mod._live_mask(live, next(iter(
+                panel.values())).shape[0])).tolist())
     mixed = {}
     for k, x in panel.items():
         if backs[k] is None:  # delta codec: panel and mirror take the row
@@ -353,7 +395,14 @@ def merge_panel(panel, merger, *, stats=None, weights=None, spec=None,
             if new_err is not None:
                 new_err[k] = (y32.clone() if x.dtype == torch.float32
                               else y32)
-            continue
-        mixed[k] = backs[k](row[k][None].expand(x.shape)
-                            .to(enc[k].dtype).contiguous())
+        else:
+            mixed[k] = backs[k](row[k][None].expand(x.shape)
+                                .to(enc[k].dtype).contiguous())
+        # dead agents did not take part: parameters and error-feedback
+        # rows as they were (a dead mirror stays pre-merge, so its next
+        # delta mix still pulls against it)
+        for r in dead:
+            mixed[k][r].copy_(x[r])
+            if new_err is not None and new_err[k] is not err[k]:
+                new_err[k][r].copy_(err[k][r])
     return mixed, row, new_err

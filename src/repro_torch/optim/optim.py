@@ -10,6 +10,13 @@ at a time, into the tensors it was given, and returns them: at full width a
 whole-panel expression would hold several (m, D) float32 temporaries (7.6 GB
 each for olmo-1b at m = 8). Chunking an elementwise expression changes no
 number.
+
+``step_count`` is one integer for all agents, or an (m,) int64 numpy array
+once an elastic run's agents diverge (a dead agent's count stands still, a
+rejoined agent's restarts at 0; the reference keeps a count per agent).
+Then the step's learning rate and bias corrections are each agent's own
+scalars, computed one agent at a time as for one count, and stacked into
+(m, 1) columns.
 """
 from __future__ import annotations
 
@@ -17,6 +24,7 @@ import math
 from dataclasses import dataclass, field
 from typing import Callable
 
+import numpy as np
 import torch
 
 # columns per in-place chunk of the elementwise update (per row-block of m
@@ -72,6 +80,15 @@ class Optimizer:
     hparams: dict = field(default=None, compare=False)
 
 
+def _per_agent(fn, count):
+    """``fn(count)`` -> a tuple of float32 scalars; for an (m,) array of
+    per-agent counts, each agent's tuple stacked into (m, 1) columns."""
+    if not isinstance(count, np.ndarray):
+        return fn(count)
+    rows = [fn(int(c)) for c in count]
+    return tuple(torch.stack(col).reshape(-1, 1) for col in zip(*rows))
+
+
 def _column_chunks(width: int):
     for lo in range(0, width, _CHUNK):
         yield slice(lo, min(lo + _CHUNK, width))
@@ -90,7 +107,7 @@ def sgd(schedule, momentum: float = 0.0, weight_decay: float = 0.0,
     def update(grads, state, params, step=None):
         step = state["step_count"] if step is None else step
         for k, p in params.items():
-            lr = sched(step, p.device)
+            lr, = _per_agent(lambda c: (sched(c, p.device),), step)
             for sl in _column_chunks(p.shape[-1]):
                 g = grads[k][..., sl]
                 if weight_decay:
@@ -138,11 +155,12 @@ def adamw(schedule, b1=0.9, b2=0.999, eps=1e-8,
         return adamw_core(g, m, v, p, lr=lr, bc1=bc1, bc2=bc2, **hparams)
 
     def hyper(count, step=None, device=None):
-        step = count if step is None else step + 1
-        lr = sched(step - 1, device)
-        c = _f32(count, device)
-        return (lr, 1 - torch.pow(_f32(b1, device), c),
-                1 - torch.pow(_f32(b2, device), c))
+        def one(count):
+            s = count if step is None else step + 1
+            c = _f32(count, device)
+            return (sched(s - 1, device), 1 - torch.pow(_f32(b1, device), c),
+                    1 - torch.pow(_f32(b2, device), c))
+        return _per_agent(one, count)
 
     def update(grads, state, params, step=None):
         count = state["step_count"] + 1

@@ -38,7 +38,11 @@ Codecs (``CODECS``, the reference's registry):
 Randomness: stochastic rounding draws ``u`` uniform in [0, 1) with
 ``torch.rand`` from a ``torch.Generator`` (``gen=``) on the panel's device,
 or takes the uniforms explicitly (``u=``, how the tests feed the
-reference's draws). The port cannot reproduce ``jax.random``'s bits.
+reference's draws). The port cannot reproduce ``jax.random``'s bits. An
+``Int8Codec`` built with ``draws="kernel"`` (an instance, given to
+``panel.with_wire``; no registry name) draws instead one int32 seed a call
+from ``gen`` and quantizes through ``quantize_int8_native``, whose kernel
+draws the uniforms on the chip: no (m, D) uniform panel is made.
 
 Kernels: quantize, dequantize, pack, unpack and sparsify go through the
 wrappers of ``kernels/wire_quant.py`` (the CUDA kernels on the card, the
@@ -61,8 +65,9 @@ from repro_torch.kernels.ref import (int4_group_scale_ref, int8_scale_ref,
                                      topk_threshold_ref)
 from repro_torch.kernels.wire_quant import (dequantize_int4, dequantize_int8,
                                             pack_int4, quantize_int4,
-                                            quantize_int8, sparsify_topk,
-                                            unpack_int4)
+                                            quantize_int8,
+                                            quantize_int8_native,
+                                            sparsify_topk, unpack_int4)
 
 
 def _identity(y):
@@ -209,7 +214,22 @@ class _Quantized(Codec):
 
 
 class Int8Codec(_Quantized):
-    """int8 payload with one scale per row."""
+    """int8 payload with one scale per row.
+
+    ``draws`` picks where stochastic rounding's uniforms come from:
+    "generator" (the default, the reference's route) draws the (m, D)
+    panel from ``gen`` (or takes ``u=``); "kernel" draws one int32 seed a
+    call from ``gen`` on the panel's device and lets the
+    ``quantize_int8_native`` kernel draw the uniforms (``u=`` is then
+    refused)."""
+
+    def __init__(self, name: str, stochastic: bool = True,
+                 error_feedback: bool = False, draws: str = "generator"):
+        super().__init__(name, stochastic, error_feedback)
+        if draws not in ("generator", "kernel"):
+            raise ValueError(f"draws must be 'generator' or 'kernel', got "
+                             f"{draws!r}")
+        self.draws = draws
 
     def payload_bytes(self, rows: int, width: int, dtype) -> int:
         return rows * width
@@ -218,6 +238,19 @@ class Int8Codec(_Quantized):
         return rows * (width + self.SCALE_BYTES)
 
     def _quantize(self, x32, gen, u):
+        if self.stochastic and self.draws == "kernel":
+            if u is not None:
+                raise ValueError(
+                    f"codec '{self.name}' draws its uniforms in the kernel "
+                    "(draws='kernel') and takes no u=")
+            if gen is None:
+                raise ValueError(
+                    f"codec '{self.name}' uses stochastic rounding and needs "
+                    "a torch.Generator (gen=...) for its kernel's seed")
+            seed = torch.randint(-2 ** 31, 2 ** 31 - 1, (1,), generator=gen,
+                                 dtype=torch.int32, device=x32.device)
+            scale = int8_scale_ref(x32)
+            return quantize_int8_native(x32, scale, seed), scale
         u = self._uniforms(x32, gen, u)
         scale = int8_scale_ref(x32)
         return quantize_int8(x32, scale, u), scale

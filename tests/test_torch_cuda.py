@@ -23,6 +23,10 @@ loop in cuBLAS float32 products, summed in another order): the float32
 output and log-sum-exp at 2e-5, the gradients at 1e-4 (each sums up to S
 products of the scores' rounding), the bfloat16 output at 2e-2; a strided
 view gives the contiguous result bit for bit, and two runs the same bits.
+The on-chip-seeded int8 quantize is bit-identical to its plain Philox twin
+at odd widths; elastic segments (a fault plan with a DEAD and a RESYNC
+agent) on the card are held against the CPU at rtol 1e-3 like the others,
+their dead rows bit for bit against the card's own state before the kill.
 """
 import numpy as np
 import pytest
@@ -54,11 +58,13 @@ from repro_torch.kernels.ref import (adamw_fused_int8_ref,
                                      flash_attention_fwd_ref,
                                      int8_group_scale_ref,
                                      quantize_int8_grouped_ref)
+from repro_torch.kernels.ref import quantize_int8_native_ref
 from repro_torch.kernels.wire_quant import (dequantize_int4, dequantize_int8,
                                             dequantize_int8_grouped,
                                             pack_int4, quantize_int4,
                                             quantize_int8,
                                             quantize_int8_grouped,
+                                            quantize_int8_native,
                                             sparsify_topk, unpack_int4)
 from repro_torch.wire import Int4Codec, Int8Codec
 
@@ -136,8 +142,10 @@ def _launch_all(W, theta):
     q = quantize_int8(theta, s)
     s4 = int4_group_scale_ref(theta)
     q4 = quantize_int4(theta, s4)
+    seed = torch.zeros((1,), dtype=torch.int32, device=theta.device)
     return (gossip_mix(W, theta), gossip_mix(W, theta.to(torch.bfloat16)),
             panel_mean_consensus(theta), dequantize_int8(q, s),
+            quantize_int8_native(theta, s, seed),
             sparsify_topk(theta, s), dequantize_int4(q4, s4),
             unpack_int4(pack_int4(q4), theta.shape[1]),
             weighted_colmerge(theta, torch.ones_like(theta)),
@@ -171,9 +179,10 @@ def test_launch_counts_only_on_the_card(cuda):
     _launch_all(W.to(cuda), torch.from_numpy(theta).to(cuda))
     assert launch_counts() == {
         "gossip_mix": 2, "gossip_mix_bf16": 1, "panel_mean_consensus": 1,
-        "quantize_int8": 1, "dequantize_int8": 1, "sparsify_topk": 1,
-        "quantize_int4": 1, "dequantize_int4": 1, "pack_int4": 1,
-        "unpack_int4": 1, "weighted_colmerge": 1, "ties_colmerge": 1,
+        "quantize_int8": 1, "quantize_int8_native": 1,
+        "dequantize_int8": 1, "sparsify_topk": 1, "quantize_int4": 1,
+        "dequantize_int4": 1, "pack_int4": 1, "unpack_int4": 1,
+        "weighted_colmerge": 1, "ties_colmerge": 1,
         "quantize_int8_grouped": 1, "dequantize_int8_grouped": 1,
         "adamw_fused_int8": 1, "flash_attention_fwd": 1,
         "flash_attention_bwd": 1}
@@ -783,3 +792,142 @@ def test_blockwise_segment_on_card_matches_cpu(cuda):
         np.testing.assert_allclose(mets["cuda"][key], mets["cpu"][key],
                                    rtol=1e-3, atol=1e-5)
     assert mets["cuda"]["consensus"][-1] == 0.0
+
+
+@pytest.mark.parametrize("m,D", [(8, 1), (8, 3), (8, 511), (8, 513),
+                                 (8, 4097), (3, 1000), (1, 2048)])
+def test_native_quantize_matches_twin(cuda, m, D):
+    """The in-kernel Philox draws equal the plain twin's bit for bit (the
+    seed read on the card), at widths off 4 and off 512; one launch each."""
+    g = torch.Generator(device=cuda).manual_seed(m * 7 + D)
+    x = torch.randn((m, D), generator=g, device=cuda)
+    x[0, :2] = 0.0
+    s = int8_scale_ref(x)
+    for seed in (0, -1, 2 ** 31 - 1, 12345):
+        t = torch.tensor([seed], dtype=torch.int32, device=cuda)
+        reset_launch_counts()
+        q = quantize_int8_native(x, s, t)
+        assert launch_counts()["quantize_int8_native"] == 1
+        ref = quantize_int8_native_ref(x, s, t)
+        torch.cuda.synchronize()
+        assert torch.equal(q, ref), (seed, int(torch.max(torch.abs(
+            q.int() - ref.int()))))
+
+
+def test_native_wrapper_raises_instead_of_falling_back(cuda):
+    x = torch.randn((4, 100), device=cuda)
+    s = int8_scale_ref(x)
+    for seed in (torch.tensor([1], dtype=torch.int32),
+                 torch.tensor([1], dtype=torch.int64, device=cuda),
+                 torch.tensor([1, 2], dtype=torch.int32, device=cuda)):
+        with pytest.raises(ValueError):
+            quantize_int8_native(x, s, seed)
+
+
+def _live_segment(dev, wire=None, merger=None, policy=None, fused=None):
+    """Reduced olmo-1b, m = 4, 4 rounds under the plan 2@1-2;3@2 (agent 2
+    DEAD then RESYNC, agent 3 DEAD from round 2), the schedule's degraded
+    W and global marks, in two segments; returns the state after round 1
+    and after round 3, and the metrics."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.faults import FaultPlan
+    from repro_torch.launch.train import (build_cpu_preset,
+                                          sample_segment_batches)
+    from repro_torch.models import build_model
+    from repro_torch.optim import make_optimizer
+    m, rounds, H = 4, 4, 2
+    cfg = build_cpu_preset(get_config("olmo-1b"), m)
+    model = build_model(cfg)
+    plan = FaultPlan.parse(m, "2@1-2;3@2")
+    sched = make_schedule("final_merge", m, rounds, prob=0.5, seed=0,
+                          merger=merger or "uniform", faults=plan)
+    Ws, glob, live = [], [], []
+    for t in range(rounds):
+        Ws.append(sched.mixing_matrix(t))
+        glob.append(sched.last_kind == "global")
+        live.append(sched.last_live)
+    Ws = np.stack(Ws).astype(np.float32)
+    lm = SyntheticLM(vocab=cfg.vocab_size, seed=0)
+    batches = sample_segment_batches(
+        lm, lm.domain_mixtures(m, 0.1, seed=1), rounds, H, 4, 32,
+        np.random.default_rng(2))
+    opt = make_optimizer("adamw", 3e-3, total_steps=rounds * H)
+    state, spec = dsgd.init_panel_state(model.init_params, opt, m, 0,
+                                        device="cpu", wire=wire,
+                                        merger=merger, residency=policy)
+    state = _to(state, dev)
+    seg = dsgd.make_panel_segment(model.loss_fn, opt, H, spec, fused=fused)
+    mets, snaps = [], []
+    for part in (slice(0, 2), slice(2, 4)):
+        state, out = seg(state, {k: v[part] for k, v in batches.items()},
+                         Ws[part], 7, global_rounds=np.asarray(glob)[part],
+                         live=np.stack(live)[part])
+        mets.append({k: v.cpu().numpy() for k, v in out.items()})
+        snaps.append(_to(state, "cpu"))
+    return snaps, {k: np.concatenate([a[k], b[k]]) for a, b in [mets]
+                   for k in a}
+
+
+@pytest.mark.parametrize("wire,merger,policy,fused", [
+    (None, None, None, None), (None, "ties", None, None),
+    (None, None, "moments=int8", True), (None, None, "moments=int8", False)])
+def test_live_segment_on_card_matches_cpu(cuda, wire, merger, policy, fused):
+    """An elastic segment on the card against the CPU (rtol 1e-3); on the
+    card the dead agent 3's rows (parameters, stored moment bits) after the
+    last round equal its rows after round 1, the live rows are identical
+    after the final merge and the live Xi is 0."""
+    snaps, mc = _live_segment(cuda, wire, merger, policy, fused)
+    _, mh = _live_segment("cpu", wire, merger, policy, fused)
+    for k in mh:
+        np.testing.assert_allclose(
+            mc[k], mh[k], atol=1e-5,
+            rtol=1e-3 if policy is None or k in ("loss", "consensus")
+            else 1e-2)
+    early, last = snaps
+    assert torch.equal(last["panel"]["float32"][3],
+                       early["panel"]["float32"][3])
+    for mk in ("m", "v"):
+        a, b = last["opt"][mk]["float32"], early["opt"][mk]["float32"]
+        for part in (("q", "scale") if policy else (None,)):
+            x, y = (a, b) if part is None else (a[part], b[part])
+            assert torch.equal(x[3], y[3])
+    x = last["panel"]["float32"]
+    assert torch.equal(x[:3], x[:1].expand(3, -1))
+    assert mc["consensus"][-1] == 0.0
+
+
+def test_native_codec_segment_on_card(cuda):
+    """int8_ef with the kernel's draws on the card: the native quantize in
+    every communicating round, the supplied-uniform one never; rows
+    identical and Xi 0 after the final merge."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import (build_cpu_preset,
+                                          sample_segment_batches)
+    from repro_torch.models import build_model
+    from repro_torch.optim import make_optimizer
+    m, rounds, H = 4, 4, 2
+    cfg = build_cpu_preset(get_config("olmo-1b"), m)
+    model = build_model(cfg)
+    sched = make_schedule("final_merge", m, rounds, prob=0.5, seed=0)
+    Ws = np.stack([sched.mixing_matrix(t)
+                   for t in range(rounds)]).astype(np.float32)
+    lm = SyntheticLM(vocab=cfg.vocab_size, seed=0)
+    batches = sample_segment_batches(
+        lm, lm.domain_mixtures(m, 0.1, seed=1), rounds, H, 4, 32,
+        np.random.default_rng(2))
+    opt = make_optimizer("adamw", 3e-3, total_steps=rounds * H)
+    codec = Int8Codec("int8_ef", error_feedback=True, draws="kernel")
+    state, spec = dsgd.init_panel_state(model.init_params, opt, m, 0,
+                                        device=cuda, wire=codec)
+    seg = dsgd.make_panel_segment(model.loss_fn, opt, H, spec)
+    reset_launch_counts()
+    state, out = seg(state, batches, Ws,
+                     torch.Generator(device=cuda).manual_seed(3))
+    counts = launch_counts()
+    eye = np.eye(m, dtype=np.float32)
+    comm = sum(not np.array_equal(W, eye) for W in Ws)
+    assert counts["quantize_int8_native"] == comm > 0
+    assert counts["quantize_int8"] == 0
+    x = state["panel"]["float32"]
+    assert torch.equal(x, x[:1].expand_as(x))
+    assert float(out["consensus"][-1]) == 0.0
