@@ -19,7 +19,10 @@ Phases, each printing its lines:
      library torch.quantize_per_channel on the (m G, 128) view for the
      round-to-nearest pair); flash attention forward (float32, bfloat16)
      and backward at odd sizes, at the attn_block path's shape and at a GQA
-     shape (library torch's scaled_dot_product_attention, is_causal); the
+     shape (library torch's scaled_dot_product_attention, is_causal; the
+     bound of the kernels' split-TF32 tensor-core route, and the float32
+     CUDA cores' figure in the text; each kernel's registers, local (spill)
+     bytes and blocks per SM, checked for no spills and 8 warps an SM); the
      on-chip-seeded int8 quantize: its Philox4x32-10 against the toolkit's
      curand_Philox4x32_10 and the plain twin, the kernel bit for bit against
      its plain twin at odd widths and at the main shape, the mean of q s - x
@@ -83,6 +86,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 # NVIDIA H100 SXM published peaks (data sheet; dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+TF32_SPLIT_FLOPS = 495e12 / 3  # TF32 tensor cores, 3 products a float32 one
 
 M = 8                 # agents
 ROUNDS, H = 4, 2      # rounds, local steps per round
@@ -256,10 +260,11 @@ def kernel_checks(torch, D_main):
     return out
 
 
-def bound(nbytes, ops):
+def bound(nbytes, ops, flops=FP32_FLOPS):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    operations over the float32 peak."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS
+    operations over the peak ``flops`` of the unit that runs them (the
+    float32 CUDA cores unless said)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / flops
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -960,21 +965,36 @@ def visible_pairs(S, causal, window):
 
 
 def flash_checks(torch):
-    """Phase 3, flash attention: the forward kernel (float32 and bfloat16)
+    """Phase 3, flash attention: first each kernel's resources at hd 128
+    (registers and local (spill) bytes from the runtime's function
+    attributes, blocks per SM from its occupancy calculator), which must
+    show no local memory and at least 8 warps an SM; then the forward kernel (float32 and bfloat16)
     and the backward kernels against their plain versions (the online loop,
     and torch autograd through it) at odd sizes (S = 100, hd 64 and 128, a
     window, GQA) and at the attn_block path's shape (B 2, S 2048, H 16, hd
     128) and a GQA one (H 32 on Kv 8). Tolerances: float32 output and lse
     2e-5, gradients 1e-4, bfloat16 output 2e-2 (other summation orders).
-    Times at the path's shape: kernel, plain version, the bound (float32
-    operations over the visible pairs) and torch's
-    scaled_dot_product_attention(is_causal=True) on the same float32
-    tensors, forward, and its backward on a retained graph."""
+    Times at the path's shape: kernel, plain version, the bound on the
+    kernels' split-TF32 route (three TF32 products a float32 operation over
+    the visible pairs at the tensor cores' 495 TFLOP/s, or the bytes if
+    larger; the share printed is of it; beside it, for continuity, the
+    float32 operations at the CUDA cores' 67 TFLOP/s) and torch's scaled_dot_product_attention(is_causal=True) on the same
+    float32 tensors, forward, and its backward on a retained graph."""
     from repro_torch.kernels.flash_attention import (flash_attention_bwd,
-                                                     flash_attention_fwd)
+                                                     flash_attention_fwd,
+                                                     occupancy)
     from repro_torch.kernels.ref import (flash_attention_bwd_ref,
                                          flash_attention_fwd_ref)
     F = torch.nn.functional
+    for name, r in occupancy(128, ATTN_SEQ).items():
+        print(f"flash attention {name} at hd 128: {r['registers']} "
+              f"registers, {r['local_bytes']} B local (spills) a thread, "
+              f"{r['blocks_per_sm']} blocks ({4 * r['blocks_per_sm']} warps) "
+              f"per SM, {r['smem']} B shared memory", flush=True)
+        check(r["registers"] > 0 and r["local_bytes"] == 0
+              and 4 * r["blocks_per_sm"] >= 8,
+              f"flash attention {name} at hd 128 spills or runs under 8 "
+              f"warps an SM: {r}")
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(6)
     err = {"fwd": 0.0, "fwd_bf16": 0.0, "bwd": 0.0}
@@ -1047,7 +1067,7 @@ def flash_checks(torch):
                                                          pos))}
             for name, (fn, plain) in timed.items():
                 nbytes, ops = cost[name]
-                b_ms, b_by = bound(nbytes, ops)
+                b_ms, b_by = bound(nbytes, ops, TF32_SPLIT_FLOPS)
                 out[name] = {"ms": time_ms(torch, fn),
                              "plain_ms": time_ms(torch, plain, reps=5,
                                                  warmup=1),
@@ -1075,10 +1095,12 @@ def flash_checks(torch):
             for name, r_ in out.items():
                 print(f"time {name} (B={B}, S={S}, H={Hq}, hd={hd}, causal): "
                       f"kernel {r_['ms']:.4f} ms, plain {r_['plain_ms']:.4f} "
-                      f"ms, library {r_['library_ms']} ms, bound "
-                      f"{r_['bound_ms']:.4f} ms ({r_['ops']} float32 "
-                      f"operations), {100 * r_['bound_ms'] / r_['ms']:.1f}% "
-                      f"of the bound", flush=True)
+                      f"ms, library {r_['library_ms']} ms; bound "
+                      f"{r_['bound_ms']:.4f} ms ({r_['bound_by']}: 3 TF32 "
+                      f"products for each of {r_['ops']} float32 operations "
+                      f"at 495 TFLOP/s), {100 * r_['bound_ms'] / r_['ms']:.1f}"
+                      f"% of it; on the float32 CUDA cores (67 TFLOP/s) "
+                      f"{1e3 * r_['ops'] / FP32_FLOPS:.4f} ms", flush=True)
         del q, k, v, do, qc, kc, vc, o, lse
         torch.cuda.empty_cache()
     out["flash_attention_fwd"]["max_abs_err"] = err["fwd"]

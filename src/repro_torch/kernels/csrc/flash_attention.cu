@@ -1,6 +1,6 @@
 // flash_attention.cu -- Hopper (sm_90a) kernels for causal / windowed
 // online-softmax attention with grouped-query heads: the forward pass and
-// its backward pass.
+// its backward pass, with every product on the tensor cores.
 //
 // Replaces the Pallas TPU kernel flash_attention_bh
 // (src/repro/kernels/flash_attention.py, body _flash_kernel) and the GQA
@@ -21,41 +21,103 @@
 //   p_j v_j (p rounded to v's type first), out_i = acc / max(l, 1e-30),
 //   and lse_i = m + log(l) for the backward pass.
 // A wholly masked tile is skipped: its p are exp(-1e30 - m) = 0 exactly once
-// the row has seen a visible key, so skipping it changes no number. A row
-// with no visible key at all is outside the contract (the plain version
-// averages the masked keys' v there, the kernel writes 0).
+// the row has seen a visible key, and before that alpha = 0 wipes what it
+// added, so skipping it changes no number. A row with no visible key at all
+// is outside the contract (the plain version averages the masked keys' v
+// there, the kernel writes 0).
 //
 // Backward (float32 only): delta_i = sum_c dO_ic O_ic (delta_kernel), then
 //   P_ij = exp(s_ij - lse_i) (0 where masked), dP = dO V^T,
 //   dS = P o (dP - delta), dV = P^T dO, dK = scale dS^T Q, dQ = scale dS K.
-// dkdv_kernel owns (b, kv head, key tile) and loops over the G query heads
-// of its group and over the query tiles; dq_kernel owns (b, h, query tile)
-// and loops over the key tiles. Every sum runs in a fixed order and no
-// output is shared between blocks: no atomics, the same bits every run.
+// dkdv_kernel owns (b, kv head, 64 keys) and loops over the G query heads of
+// its group and their query tiles; dq_kernel owns (b, h, 64 queries) and
+// loops over the key tiles. Both recompute S and dP (14 hd operations a
+// visible pair against the 10 of the bound): one S per backward would need
+// dQ summed across the key tiles' blocks, which takes atomics in a varying
+// order or a second pass over partial sums.
+//
+// Determinism: every output element is written by one thread of one block,
+// after sums in a fixed order (tiles in ascending order, the mma sequence,
+// shuffles in a fixed pattern): the same bits on every run. The only atomic
+// is an OR into a block's own bitmaps of tiles in shared memory, whose bits
+// do not depend on the order.
 //
 // What bounds it: operations. At the train path's shape (B 2, S 2048, H 16,
-// hd 128) the forward does 2 B H S^2 hd flops (the causal half of two
-// products) on 4 tensors of 33.5 MB, ~256 flops a byte; the H100's
-// float32 rate (67 TFLOP/s) over its memory rate (3.35 TB/s) is 20 flops a
-// byte. The products run as plain float32 FMAs on the CUDA cores (no TF32:
-// the port's float32 parity with the reference depends on it).
+// hd 128) the forward does 4 hd flops a visible pair (S = QK^T, PV) and the
+// backward 10 (S, dP, dV, dK, dQ), ~256 and ~320 flops a byte moved; the
+// H100's float32 CUDA cores (67 TFLOP/s) give ~20 flops a byte. So every
+// product runs on the tensor cores, as warp-level
+// mma.sync.m16n8k8.row.col.f32.tf32.tf32.f32, in split TF32:
+//   each float32 operand x is split into hi = tf32(x) (cvt.rna: 10 mantissa
+//   bits, round to nearest, ties away; done as two integer operations) and
+//   lo = tf32(x - hi) (the subtraction is exact); a b becomes lo_a hi_b +
+//   hi_a lo_b + hi_a hi_b (small terms first) into a float32 accumulator.
+//   |a - hi_a| <= 2^-11 |a| and |lo_a - (a - hi_a)| <= 2^-22 |a|, so each
+//   product's error is the dropped lo_a lo_b <= 2^-22 |a b| plus the lo
+//   rounding, 2 2^-22 |a b|: about 7e-7 relative, the order of float32's
+//   own rounding of the sum. One-pass TF32 (hi_a hi_b alone) errs by 2^-10
+//   |a b| and misses the tolerances (tests/test_torch_flash_tf32.py
+//   emulates both on the CPU). The tensor cores' accumulation is not
+//   IEEE: each mma truncates the sum toward zero at the accumulator's ulp,
+//   so a long chain of mma on one accumulator drifts (dV summed over 8192
+//   queries, ~3000 chained mma, erred 2x the gradient tolerance). Every
+//   sum that runs over tiles (O, dQ, dK, dV) therefore takes each tile's
+//   product in a fresh accumulator and adds it by one rounded fmaf: no
+//   truncating chain is longer than 3 x 8 k steps, and the results sit
+//   within 0.15 of the tolerances of float64, as the plain float32 version
+//   does (H100 80GB HBM3 at 700 W).
+// Three tensor-core products a float32 product: 3 x 4 hd a pair at 495
+// TFLOP/s (TF32, dense) is the route's bound. bfloat16 inputs are exact in
+// TF32, so the bfloat16 forward takes one product a pair (p rounded to
+// bfloat16 first, as the plain version does).
 //
-// What the design does about it: tiles of 64 queries x 64 keys, 256
-// threads, each owning a 4 x 4 micro-tile of the scores and 4 rows of the
-// output. Operands sit in shared memory as float32 in the layout each
-// product reads with float4 loads: the reduction index major, the thread's
-// 4 rows or columns contiguous (a transposed tile [d][64 + 4], or a natural
-// one [row][hd + 4]); each step of a product loads 2 float4 for 16 FMAs.
-// Row statistics (max, sum) reduce over the 16 lanes of a half-warp that
-// share the rows. Tiles above 48 KB of shared memory are raised with
-// cudaFuncSetAttribute. Loads are plain (no cp.async / TMA, no wgmma):
-// making it fast is later work.
+// Why mma.sync and not wgmma: wgmma takes tf32 operands K-major from shared
+// memory only (its transpose bits are for 16-bit types), so split TF32
+// through it would hold hi and lo tiles of Q, K and V in shared memory
+// (~192 KB at hd 128 before double buffering, of 227 KB). mma.sync reads its
+// fragments from float32 tiles and splits them in registers.
+//
+// Tiles, warps and shared memory. A block is 4 warps (128 threads); each
+// warp owns 16 rows of the block's 64 (queries; keys in dK/dV) and keeps
+// its S and P fragments and its accumulators in registers (FA2 style).
+// Tiles lie in shared memory as float32, rows padded to hd + 4 floats;
+// row-major fragments come by ldmatrix (8 rows of 16 bytes at a stride of
+// 4 (mod 32) words cover the 32 banks), column reads at rows 2t, columns g
+// (8t + g covers them too). A C-layout accumulator (S, P, dS) becomes the
+// A operand of the next product without moving: lane (g, t) holds columns
+// 2t, 2t + 1 of each 8-column block, which stand for the k indices t, t + 4
+// when the B rows are read at 2t, 2t + 1 (the same permutation of the
+// reduction), so P and dS never pass through shared memory.
+//   forward  Q [64] resident; a two-slot ring: slot 0 the key tile [32],
+//            slot 1 the value tile [32], each as hi and lo tiles: the
+//            threads split the chunks they copied once they land, so the
+//            four warps read split fragments (a warp splits only Q and P).
+//            Key tile k + 1 loads while tile k's P V runs, value tile k + 1
+//            while tile k + 1's S runs.
+//   dQ       Q, dO [64] resident; slot 0 keys [32], slot 1 values [32];
+//            dP (values) first, then S and dS K (keys): each slot refills
+//            during the other's products.
+//   dK/dV    K, V [64] resident; slot 0 Q [32] (+ positions, lse), slot 1
+//            dO [32] (+ delta); S^T, dP^T, dK += dS^T Q, dV += P^T dO.
+// At hd 128 each kernel takes 101,376 bytes of tiles (+ < 1 KB of
+// positions and the tile bitmaps): two blocks, 8 warps, an SM (the dK/dV
+// kernel of the first design took 174 KB, one block). ptxas gives the
+// three 254-255 registers and no spills (the cap of two 128-thread blocks
+// an SM). The ring is filled by 16-byte cp.async.cg, zero-filled past S
+// (src-size 0); bfloat16 tiles are widened to float32 by plain 16-byte
+// loads. Blocks run the longest tiles first: the forward and dQ take the
+// query tiles from the last (the most keys under a causal mask), dK/dV the
+// key tiles from the first. Each block builds, from the positions, bitmaps
+// of the tiles that hold a visible pair (the others are never loaded) and
+// of those whose every pair is visible (no mask is applied to them).
 //
 // Layout: q (B, Sq, H, hd), k and v (B, Sk, Kv, hd), dO, O alike, hd
-// contiguous, element strides for B, S and the head given per tensor (the
-// wrapper copies nothing); positions int32 (B, Sq) and (B, Sk); lse and
-// delta float32 (B, H, Sq). Forward inputs float32 or bfloat16 (out in
-// the input type, accumulated in float32); backward float32.
+// contiguous, element strides for B, S and the head given per tensor; the
+// rows the kernels read start on 16 bytes (the wrapper copies a tensor that
+// does not), and the outputs are written as float pairs. Positions int32
+// (B, Sq) and (B, Sk); lse and delta float32 (B, H, Sq). Forward inputs
+// float32 or bfloat16 (out in the input type, accumulated in float32);
+// backward float32.
 //
 // C interface for ctypes. The kernels allocate nothing and launch on the
 // stream they are given; each entry point returns cudaGetLastError() after
@@ -66,43 +128,36 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int BQ = 64;          // query rows of a tile
-constexpr int BK = 64;          // keys of a tile
-constexpr int kThreads = 256;   // 16 x 16: thread (ty, tx) = (t / 16, t % 16)
-constexpr int TS = BQ + 4;      // row stride of a transposed tile [d][64 + 4]
+constexpr int kThreads = 128;         // 4 warps
+constexpr int kRows = 64;             // a block's own rows: 16 a warp
+constexpr int kFwdKeys = 32;          // the forward's key tile
+constexpr int kBwdTile = 32;          // dQ's key tile, dK/dV's query tile
+constexpr int kDeltaThreads = 256;    // delta_kernel: a warp a row
 constexpr float kNegInf = -1e30f;
+// n-tiles a fresh accumulator takes in mma_pb (half of it in dK/dV, which
+// holds two long accumulators); at most hd / 8
+template <int HD>
+constexpr int kChunkOf = HD / 8 < 4 ? HD / 8 : 4;
 
 struct Strides {  // element strides of a (B, S, heads, hd) tensor
   long long b, s, h;
 };
 
-// a thread's output columns: NCH chunks of VW consecutive columns, chunk J
-// at J * 16 * VW + tx * VW; the row stride NS of a natural tile [row][hd +
-// 4]; BUF floats hold a 64-row tile in either layout
-template <int HD>
-struct Tile {
-  static constexpr int VW = HD >= 64 ? 4 : HD / 16;
-  static constexpr int NCH = HD / (16 * VW);
-  static constexpr int N = HD / 16;
-  static constexpr int NS = HD + 4;
-  static constexpr int BUF = HD * TS > BK * NS ? HD * TS : BK * NS;
-};
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store_as(float x, float* p) { *p = x; }
-__device__ __forceinline__ void store_as(float x, __nv_bfloat16* p) {
-  *p = __float2bfloat16_rn(x);
-}
-// p rounded to v's type before its product (the plain version's
-// p.to(v.dtype)); exact for float32
 __device__ __forceinline__ float round_as(float x, const float*) { return x; }
+// p rounded to v's type before its product (the plain version's
+// p.to(v.dtype))
 __device__ __forceinline__ float round_as(float x, const __nv_bfloat16*) {
   return __bfloat162float(__float2bfloat16_rn(x));
+}
+__device__ __forceinline__ void store2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
 }
 
 __device__ __forceinline__ bool visible(int qp, int kp, int causal,
@@ -111,101 +166,278 @@ __device__ __forceinline__ bool visible(int qp, int kp, int causal,
          (window <= 0 || (long long)kp > (long long)qp - window);
 }
 
-// rows [r0, r0 + 64) of head h of batch b -> shared memory as float32, rows
-// at or past S as 0; transposed dst[d * TS + r], else dst[r * (HD + 4) + d]
-template <int HD, bool TRANS, typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* src,
-                                          Strides st, int b, int h, int r0,
-                                          int S) {
-  const T* base = src + b * st.b + h * st.h;
-  for (int e = threadIdx.x; e < 64 * HD; e += kThreads) {
-    const int r = e / HD, d = e % HD;
-    float x = 0.f;
-    if (r0 + r < S) x = to_f32(base[(long long)(r0 + r) * st.s + d]);
-    if (TRANS)
-      dst[d * TS + r] = x;
-    else
-      dst[r * Tile<HD>::NS + d] = x;
-  }
+// ---- split TF32 on the tensor cores -------------------------------------
+
+// cvt.rna.tf32.f32 of a finite x: the 13 dropped bits rounded to nearest,
+// ties away, in two integer operations (the instruction adds an inf/NaN
+// guard, a third)
+__device__ __forceinline__ uint32_t tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }
 
-// acc[i][j] += sum_x A[x * TS + i] B[x * TS + j] over i, j < 4: A and B are
-// transposed tiles at the thread's 4 rows and 4 columns
-__device__ __forceinline__ void mma_tt(float (&acc)[4][4], const float* A,
-                                       const float* B, int n) {
-#pragma unroll 4
-  for (int x = 0; x < n; ++x) {
-    const float4 a = *reinterpret_cast<const float4*>(A + x * TS);
-    const float4 b = *reinterpret_cast<const float4*>(B + x * TS);
-    const float av[4] = {a.x, a.y, a.z, a.w};
-    const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-  }
-}
-
-template <int VW>
-__device__ __forceinline__ void load_vec(const float* p, float* out) {
-  if constexpr (VW == 4) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    out[0] = v.x;
-    out[1] = v.y;
-    out[2] = v.z;
-    out[3] = v.w;
-  } else if constexpr (VW == 2) {
-    const float2 v = *reinterpret_cast<const float2*>(p);
-    out[0] = v.x;
-    out[1] = v.y;
+// x as an operand: hi = tf32(x), lo = tf32(x - hi) when SPLIT (float32);
+// else x itself, a bfloat16 value (exact in TF32), and no lo
+template <bool SPLIT>
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  if constexpr (SPLIT) {
+    hi = tf32(x);
+    lo = tf32(__fsub_rn(x, __uint_as_float(hi)));
   } else {
-    out[0] = p[0];
+    hi = __float_as_uint(x);
+    lo = 0u;
   }
 }
 
-// acc[i][c] += sum_x A[x * TS + i] Bn[x * (HD + 4) + col(c)]: A a transposed
-// tile at the thread's 4 rows, Bn a natural tile at the thread's first
-// column (tx * VW)
-template <int HD>
-__device__ __forceinline__ void mma_tn(float (&acc)[4][HD / 16],
-                                       const float* A, const float* Bn,
-                                       int n) {
-  using C = Tile<HD>;
-#pragma unroll 4
-  for (int x = 0; x < n; ++x) {
-    const float4 a = *reinterpret_cast<const float4*>(A + x * TS);
-    const float av[4] = {a.x, a.y, a.z, a.w};
-    float bv[C::N];
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a b: lo_a hi_b, hi_a lo_b, hi_a hi_b when SPLIT (the small terms
+// first), else hi_a hi_b
+template <bool SPLIT>
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], uint2 bh,
+                                     uint2 bl) {
+  if constexpr (SPLIT) {
+    mma(d, al, bh.x, bh.y);
+    mma(d, ah, bl.x, bl.y);
+  }
+  mma(d, ah, bh.x, bh.y);
+}
+
+// where a product's operands come from: float32 A and B both split in
+// registers (kSplit); float32 A split in registers and B's hi and lo tiles
+// split once per block in shared memory (kPreB); bfloat16 values, exact in
+// TF32, one product (kExact)
+enum Mode { kSplit, kPreB, kExact };
+
+template <int N>
+__device__ __forceinline__ void zero(float (&x)[N][4]) {
 #pragma unroll
-    for (int J = 0; J < C::NCH; ++J)
-      load_vec<C::VW>(Bn + x * Tile<HD>::NS + J * 16 * C::VW,
-                      bv + J * C::VW);
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[n][e] = 0.f;
+}
+
+// four 8 x 4 float32 blocks of shared memory, one a register (ldmatrix's
+// 8 x 8 16-bit matrices): lane l gives the address of row l % 8 of block
+// l / 8, and gets word l % 4 of row l / 4 of each block
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const float* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+// acc[j] = A B_j^T over k < HD, 16 x 8 each in C layout (lane (g, t):
+// rows g, g + 8, columns 2t, 2t + 1): A the warp's 16 rows of a tile, B_j
+// rows 8j .. 8j + 7 of another (Bh, and its lo tile Bl under kPreB), all
+// [row][HD + 4] with k along the row. Fragments come by ldmatrix: A's four
+// (rows 0-7 / 8-15 x columns k-k+3 / k+4-k+7) and two n-tiles' B at a
+// time; 8 rows of 16 bytes at a stride of 4 (mod 32) words cover the 32
+// banks.
+template <int HD, int NT, Mode MODE>
+__device__ __forceinline__ void mma_abt(float (&acc)[NT][4], const float* A,
+                                        const float* Bh, const float* Bl) {
+  static_assert(NT % 2 == 0, "n-tiles in pairs");
+  constexpr int RS = HD + 4;
+  constexpr bool SPLIT = MODE != kExact;
+  zero(acc);
+  const int lane = threadIdx.x & 31, m = lane >> 3, rr = lane & 7;
+  const float* a = A + (rr + 8 * (m & 1)) * RS + 4 * (m >> 1);
+  const int bo = (rr + 8 * (m >> 1)) * RS + 4 * (m & 1);
+#pragma unroll 4
+  for (int k = 0; k < HD; k += 8) {
+    uint32_t ar[4], ah[4], al[4];
+    ldsm4(ar, a + k);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
+      split<SPLIT>(__uint_as_float(ar[i]), ah[i], al[i]);
 #pragma unroll
-      for (int c = 0; c < C::N; ++c) acc[i][c] = fmaf(av[i], bv[c], acc[i][c]);
+    for (int j = 0; j < NT; j += 2) {
+      // b0, b1 of n-tile j, then of j + 1
+      uint32_t bh[4], bl[4];
+      ldsm4(bh, Bh + bo + 8 * j * RS + k);
+      if constexpr (MODE == kPreB) {
+        ldsm4(bl, Bl + bo + 8 * j * RS + k);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          split<SPLIT>(__uint_as_float(bh[i]), bh[i], bl[i]);
+      }
+      mma3<SPLIT>(acc[j], ah, al, make_uint2(bh[0], bh[1]),
+                  make_uint2(bl[0], bl[1]));
+      mma3<SPLIT>(acc[j + 1], ah, al, make_uint2(bh[2], bh[3]),
+                  make_uint2(bl[2], bl[3]));
+    }
   }
 }
 
-// store v[0..3][j] (4 consecutive rows at row0, column col) of a transposed
-// tile as one float4
-__device__ __forceinline__ void store_col4(float* dst, int col, int row0,
-                                           const float (&v)[4][4], int j) {
-  *reinterpret_cast<float4*>(dst + col * TS + row0) =
-      make_float4(v[0][j], v[1][j], v[2][j], v[3][j]);
+// acc[n] = alpha acc[n] + P B over k < 8 KS (columns 8n .. 8n + 7 of the
+// output; alpha[0] for row g, alpha[1] for row g + 8): P the C-layout
+// accumulator of mma_abt (p[s]: its columns 8s .. 8s + 7) taken as the A
+// operand in place, lane (g, t)'s k = t, t + 4 standing for columns 2t,
+// 2t + 1; B [k][HD + 4] read at rows 8s + 2t, 8s + 2t + 1 (the same
+// permutation) and column 8n + g: 8t + g covers the 32 banks. The tensor
+// cores truncate at each accumulation (to the accumulator's ulp, toward
+// zero), so the tile's product runs in a fresh accumulator, NB n-tiles at
+// a time, and joins acc by one rounded fmaf: no truncating chain outlives
+// a tile (dV over 8192 queries was ~3000 chained mma and erred 2x the
+// tolerance).
+template <int HD, int KS, int NB, Mode MODE>
+__device__ __forceinline__ void mma_pb(float (&acc)[HD / 8][4],
+                                       const float (&p)[KS][4],
+                                       const float* Bh, const float* Bl,
+                                       const float (&alpha)[2]) {
+  static_assert(HD / 8 % NB == 0, "whole chunks of n-tiles");
+  constexpr int RS = HD + 4;
+  constexpr bool SPLIT = MODE != kExact;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int bo = 2 * t * RS + g;
+#pragma unroll
+  for (int n0 = 0; n0 < HD / 8; n0 += NB) {
+    float part[NB][4];
+    zero(part);
+#pragma unroll
+    for (int s = 0; s < KS; ++s) {
+      uint32_t ah[4], al[4];
+      split<SPLIT>(p[s][0], ah[0], al[0]);
+      split<SPLIT>(p[s][2], ah[1], al[1]);
+      split<SPLIT>(p[s][1], ah[2], al[2]);
+      split<SPLIT>(p[s][3], ah[3], al[3]);
+#pragma unroll
+      for (int n = 0; n < NB; ++n) {
+        const int at0 = bo + 8 * s * RS + 8 * (n0 + n), at1 = at0 + RS;
+        uint2 bh, bl;
+        if constexpr (MODE == kPreB) {
+          bh = make_uint2(__float_as_uint(Bh[at0]), __float_as_uint(Bh[at1]));
+          bl = make_uint2(__float_as_uint(Bl[at0]), __float_as_uint(Bl[at1]));
+        } else {
+          split<SPLIT>(Bh[at0], bh.x, bl.x);
+          split<SPLIT>(Bh[at1], bh.y, bl.y);
+        }
+        mma3<SPLIT>(part[n], ah, al, bh, bl);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        acc[n0 + n][e] = fmaf(acc[n0 + n][e], alpha[e >> 1], part[n][e]);
+  }
 }
 
-__device__ __forceinline__ float half_warp_max(float x) {
-#pragma unroll
-  for (int o = 1; o < 16; o <<= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
+// ---- asynchronous copies -------------------------------------------------
+
+__device__ __forceinline__ void cp16(float* dst, const float* src, bool ok) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
 }
-__device__ __forceinline__ float half_warp_sum(float x) {
-#pragma unroll
-  for (int o = 1; o < 16; o <<= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+__device__ __forceinline__ void cp4(void* dst, const void* src, bool ok) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(d),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
 }
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+// wait until at most N of this thread's copy groups are in flight (a
+// barrier then makes every thread's copies visible)
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ float bf_lo(uint32_t w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float bf_hi(uint32_t w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+
+// rows r0 .. r0 + R - 1 of a (b, head) slice (row stride ss elements, hd
+// contiguous) -> dst [R][HD + 4] float32, rows at or past S as 0; r0 < S.
+// float32 by 16-byte cp.async (src-size 0 past S); bfloat16 by plain
+// 16-byte loads, widened.
+template <int HD, int R, typename T>
+__device__ __forceinline__ void load_rows(float* dst, const T* src,
+                                          long long ss, int r0, int S) {
+  constexpr int RS = HD + 4;
+  if constexpr (std::is_same<T, float>::value) {
+    constexpr int C = HD / 4;
+    static_assert(R * C % kThreads == 0, "whole chunks a thread");
+#pragma unroll
+    for (int i = 0; i < R * C / kThreads; ++i) {
+      const int e = threadIdx.x + i * kThreads, r = e / C, c = e % C;
+      const bool ok = r0 + r < S;
+      cp16(dst + r * RS + 4 * c, src + (long long)(ok ? r0 + r : r0) * ss + 4 * c,
+           ok);
+    }
+  } else {
+    constexpr int C = HD / 8;
+    for (int e = threadIdx.x; e < R * C; e += kThreads) {
+      const int r = e / C, c = e % C;
+      uint4 u = make_uint4(0u, 0u, 0u, 0u);
+      if (r0 + r < S)
+        u = *reinterpret_cast<const uint4*>(src + (long long)(r0 + r) * ss +
+                                            8 * c);
+      float4* d = reinterpret_cast<float4*>(dst + r * RS + 8 * c);
+      d[0] = make_float4(bf_lo(u.x), bf_hi(u.x), bf_lo(u.y), bf_hi(u.y));
+      d[1] = make_float4(bf_lo(u.z), bf_hi(u.z), bf_lo(u.w), bf_hi(u.w));
+    }
+  }
+}
+
+// the chunks this thread copied by load_rows<HD, R, float> into hi, split
+// in place: hi = tf32(x), lo = tf32(x - hi). Right after the thread's own
+// cp.async group is complete (its copies are visible to it); a barrier
+// then publishes both tiles.
+template <int HD, int R>
+__device__ __forceinline__ void split_rows(float* hi, float* lo) {
+  constexpr int RS = HD + 4, C = HD / 4;
+#pragma unroll
+  for (int i = 0; i < R * C / kThreads; ++i) {
+    const int e = threadIdx.x + i * kThreads, at = e / C * RS + 4 * (e % C);
+    float4 x = *reinterpret_cast<float4*>(hi + at), h, l;
+    uint32_t uh, ul;
+    split<true>(x.x, uh, ul);
+    h.x = __uint_as_float(uh);
+    l.x = __uint_as_float(ul);
+    split<true>(x.y, uh, ul);
+    h.y = __uint_as_float(uh);
+    l.y = __uint_as_float(ul);
+    split<true>(x.z, uh, ul);
+    h.z = __uint_as_float(uh);
+    l.z = __uint_as_float(ul);
+    split<true>(x.w, uh, ul);
+    h.w = __uint_as_float(uh);
+    l.w = __uint_as_float(ul);
+    *reinterpret_cast<float4*>(hi + at) = h;
+    *reinterpret_cast<float4*>(lo + at) = l;
+  }
+}
+
+// n values src[i0 + i] (i < n, i0 + i < S; else 0) -> dst[i], by threads
+// lo .. lo + n - 1, 4-byte cp.async
+__device__ __forceinline__ void load_vals(void* dst, const void* src, int lo,
+                                          int n, int i0, int S) {
+  const int i = (int)threadIdx.x - lo;
+  if (i >= 0 && i < n) {
+    const bool ok = i0 + i < S;
+    cp4(static_cast<int*>(dst) + i,
+        static_cast<const int*>(src) + (ok ? i0 + i : i0), ok);
+  }
+}
+
+// ---- tiles to skip -------------------------------------------------------
 
 // min and max of pos[r] over r < n with pos[r] >= 0 (all of them when
 // !only_valid), into out[0], out[1]; INT_MAX / INT_MIN when there is none.
@@ -233,119 +465,218 @@ __device__ __forceinline__ void pos_range(const int* pos, int n,
   __syncthreads();
 }
 
+__host__ __device__ constexpr int bitmap_words(int tiles) {
+  return (tiles + 31) / 32;
+}
+
+// Bitmaps of the tiles (TILE indices each) along the streamed axis, from
+// the positions pos[j], j < n: bit i of live is set iff tile i holds some
+// j with live_ok(pos[j]) (a necessary condition for a visible pair in the
+// tile); bit i of part iff some j of tile i fails full_ok(pos[j]) (every
+// pair of j with the block's own rows visible), so a live tile without a
+// part bit needs no mask (a tile past n must be tested apart). Each warp
+// reads 32 consecutive positions, one tile's. Called by every thread; ends
+// with a barrier.
+template <int TILE, typename Live, typename Full>
+__device__ __forceinline__ void mark_tiles(unsigned* live, unsigned* part,
+                                           int tiles, const int* pos, int n,
+                                           Live live_ok, Full full_ok) {
+  static_assert(TILE % 32 == 0, "a warp's 32 positions lie in one tile");
+  for (int i = threadIdx.x; i < bitmap_words(tiles); i += kThreads)
+    live[i] = part[i] = 0u;
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+#pragma unroll 4
+  for (int j0 = (int)threadIdx.x - lane; j0 < n; j0 += kThreads) {
+    const int j = j0 + lane;
+    const int x = j < n ? pos[j] : 0;
+    const bool hit = __any_sync(0xffffffffu, j < n && live_ok(x));
+    const bool all = __all_sync(0xffffffffu, j < n && full_ok(x));
+    if (lane == 0) {
+      const int word = j0 / TILE / 32;
+      const unsigned bit = 1u << (j0 / TILE % 32);
+      if (hit) atomicOr(live + word, bit);
+      if (!all) atomicOr(part + word, bit);
+    }
+  }
+  __syncthreads();
+}
+
+__device__ __forceinline__ bool bit_set(const unsigned* bits, int i) {
+  return (bits[i >> 5] >> (i & 31)) & 1u;
+}
+
+// the first live tile at or after i, or tiles
+__device__ __forceinline__ int next_live(const unsigned* live, int i,
+                                         int tiles) {
+  while (i < tiles) {
+    const unsigned w = live[i >> 5] >> (i & 31);
+    if (w) return i + __ffs(w) - 1;
+    i = (i | 31) + 1;
+  }
+  return tiles;
+}
+
+// ---- forward -------------------------------------------------------------
+
 template <int HD, typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
     fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                const T* __restrict__ v, const int* __restrict__ qpos,
                const int* __restrict__ kpos, T* __restrict__ o,
-               float* __restrict__ lse, int H, int G, int Sq, int Sk,
+               float* __restrict__ lse, int B, int H, int G, int Sq, int Sk,
                int causal, int window, float scale, Strides sq, Strides sk,
                Strides sv, Strides so) {
-  using C = Tile<HD>;
+  constexpr int RS = HD + 4, BK = kFwdKeys, NT = BK / 8;
+  constexpr bool SPLIT = std::is_same<T, float>::value;
+  constexpr Mode MODE = SPLIT ? kPreB : kExact;
   extern __shared__ float4 smem4[];
-  float* Qt = reinterpret_cast<float*>(smem4);  // [HD][TS]
-  float* KV = Qt + HD * TS;                     // K transposed, then V natural
-  float* Pt = KV + Tile<HD>::BUF;            // P transposed [key][TS]
-  int* qp = reinterpret_cast<int*>(Pt + BK * TS);
-  int* kp = qp + BQ;
-  int* rng = kp + BK;
+  float* Qs = reinterpret_cast<float*>(smem4);  // [64][RS]
+  float* Ks = Qs + kRows * RS;  // slot 0: keys [BK][RS], their hi once split
+  float* Kl = Ks + BK * RS;     // their lo [BK][RS]
+  float* Vs = Kl + BK * RS;     // slot 1: values, hi
+  float* Vl = Vs + BK * RS;     // their lo
+  int* kp = reinterpret_cast<int*>(Vl + BK * RS);  // slot 0's positions
+  int* qp = kp + BK;
+  int* rng = qp + kRows;
+  const int nqt = (Sq + kRows - 1) / kRows, nkt = (Sk + BK - 1) / BK;
+  unsigned* live = reinterpret_cast<unsigned*>(rng + 4);
+  unsigned* part = live + bitmap_words(nkt);
 
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * BQ;
-  const int kvh = h / G;
-  const int t = threadIdx.x, ty = t >> 4, tx = t & 15;
-  const int nq = min(BQ, Sq - q0);
+  const int bh = blockIdx.x % (B * H);
+  const int qt = nqt - 1 - (int)(blockIdx.x / (B * H));  // longest first
+  const int h = bh % H, b = bh / H, kvh = h / G, q0 = qt * kRows;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int nq = min(kRows, Sq - q0);
+  const int* kpb = kpos + (long long)b * Sk;
+  const T* kb = k + b * sk.b + kvh * sk.h;
+  const T* vb = v + b * sv.b + kvh * sv.h;
+
   // rows past Sq repeat the last row's position: computed, never written
-  if (t < BQ) qp[t] = qpos[(long long)b * Sq + q0 + min(t, nq - 1)];
-  load_tile<HD, true>(Qt, q, sq, b, h, q0, Sq);
+  if (threadIdx.x < kRows)
+    qp[threadIdx.x] =
+        qpos[(long long)b * Sq + q0 + min((int)threadIdx.x, nq - 1)];
+  load_rows<HD, kRows>(Qs, q + b * sq.b + h * sq.h, sq.s, q0, Sq);
+  cp_commit();
   __syncthreads();
   pos_range(qp, nq, false, rng);
   const int qmin = rng[0], qmax = rng[1];
-
-  float m_run[4], l_run[4], acc[4][C::N];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m_run[i] = kNegInf;
-    l_run[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < C::N; ++c) acc[i][c] = 0.f;
+  mark_tiles<BK>(
+      live, part, nkt, kpb, Sk,
+      [&](int kk) {
+        return kk >= 0 && (!causal || kk <= qmax) &&
+               (window <= 0 || (long long)kk > (long long)qmin - window);
+      },
+      [&](int kk) {
+        return kk >= 0 && (!causal || kk <= qmin) &&
+               (window <= 0 || (long long)kk > (long long)qmax - window);
+      });
+  int kt = next_live(live, 0, nkt);
+  if (kt < nkt) {
+    load_rows<HD, BK>(Ks, kb, sk.s, kt * BK, Sk);
+    load_vals(kp, kpb, 0, BK, kt * BK, Sk);
   }
+  cp_commit();
+  if (kt < nkt) load_rows<HD, BK>(Vs, vb, sv.s, kt * BK, Sk);
+  cp_commit();
 
-  const int nkt = (Sk + BK - 1) / BK;
-  for (int kt = 0; kt < nkt; ++kt) {
+  const int qrow[2] = {qp[16 * warp + g], qp[16 * warp + g + 8]};
+  const float* Qw = Qs + 16 * warp * RS;
+  float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.f, 0.f};
+  float acc[HD / 8][4];
+  zero(acc);
+
+  while (kt < nkt) {
     const int k0 = kt * BK;
-    __syncthreads();  // the previous tile's KV, Pt and kp are free
-    int any = 0;
-    if (t < BK) {
-      const int kk = k0 + t < Sk ? kpos[(long long)b * Sk + k0 + t] : -1;
-      kp[t] = kk;
-      // a key some query of the tile may see (necessary, not sufficient)
-      any = kk >= 0 && (!causal || kk <= qmax) &&
-            (window <= 0 || (long long)kk > (long long)qmin - window);
-    }
-    if (!__syncthreads_or(any)) continue;  // wholly masked tile
-    load_tile<HD, true>(KV, k, sk, b, kvh, k0, Sk);
+    cp_wait<1>();  // Q, this tile's keys and positions
+    if constexpr (SPLIT) split_rows<HD, BK>(Ks, Kl);
     __syncthreads();
-    float s[4][4] = {};
-    mma_tt(s, Qt + ty * 4, KV + tx * 4, HD);
+    float s[NT][4];
+    mma_abt<HD, NT, MODE>(s, Qw, Ks, Kl);
+    if (!bit_set(part, kt) && k0 + BK <= Sk) {  // every pair visible
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qq = qp[ty * 4 + i];
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = __fmul_rn(s[j][e], scale);
+    } else {
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = 8 * j + 2 * t + (e & 1);
+          s[j][e] =
+              k0 + c < Sk && visible(qrow[e >> 1], kp[c], causal, window)
+                  ? __fmul_rn(s[j][e], scale)
+                  : kNegInf;
+        }
+    }
+    __syncthreads();  // every warp is done with slot 0
+    const int next = next_live(live, kt + 1, nkt);
+    if (next < nkt) {
+      load_rows<HD, BK>(Ks, kb, sk.s, next * BK, Sk);
+      load_vals(kp, kpb, 0, BK, next * BK, Sk);
+    }
+    cp_commit();
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
       float mx = kNegInf;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = visible(qq, kp[tx * 4 + j], causal, window)
-                      ? __fmul_rn(s[i][j], scale)
-                      : kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m_run[i], half_warp_max(mx));
+      for (int j = 0; j < NT; ++j)
+        mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m_run[r], mx);
       float rs = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = expf(s[i][j] - m_new);
-        rs += s[i][j];
-      }
-      rs = half_warp_sum(rs);
-      const float alpha = expf(m_run[i] - m_new);
-      l_run[i] = alpha * l_run[i] + rs;
+      for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int c = 0; c < C::N; ++c) acc[i][c] *= alpha;
-      m_run[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = round_as(s[i][j], v);
+        for (int e = 2 * r; e < 2 * r + 2; ++e) {
+          s[j][e] = expf(s[j][e] - m_new);
+          rs += s[j][e];
+          s[j][e] = round_as(s[j][e], v);
+        }
+      rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+      rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+      alpha[r] = expf(m_run[r] - m_new);
+      l_run[r] = alpha[r] * l_run[r] + rs;
+      m_run[r] = m_new;
     }
-    __syncthreads();  // every thread has read K
-#pragma unroll
-    for (int j = 0; j < 4; ++j) store_col4(Pt, tx * 4 + j, ty * 4, s, j);
-    load_tile<HD, false>(KV, v, sv, b, kvh, k0, Sk);
+    cp_wait<1>();  // this tile's values
+    if constexpr (SPLIT) split_rows<HD, BK>(Vs, Vl);
     __syncthreads();
-    mma_tn<HD>(acc, Pt + ty * 4, KV + tx * C::VW, BK);
+    mma_pb<HD, NT, kChunkOf<HD>, MODE>(acc, s, Vs, Vl, alpha);
+    __syncthreads();  // every warp is done with slot 1
+    if (next < nkt) load_rows<HD, BK>(Vs, vb, sv.s, next * BK, Sk);
+    cp_commit();
+    kt = next;
   }
+  cp_wait<0>();
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty * 4 + i;
-    if (r >= nq) continue;
-    const float den = fmaxf(l_run[i], 1e-30f);
-    T* orow = o + b * so.b + (long long)(q0 + r) * so.s + h * so.h;
+  for (int r = 0; r < 2; ++r) {
+    const int row = 16 * warp + g + 8 * r;
+    if (row >= nq) continue;
+    const float den = fmaxf(l_run[r], 1e-30f);
+    T* orow = o + b * so.b + (long long)(q0 + row) * so.s + h * so.h + 2 * t;
 #pragma unroll
-    for (int J = 0; J < C::NCH; ++J)
-#pragma unroll
-      for (int jj = 0; jj < C::VW; ++jj)
-        store_as(acc[i][J * C::VW + jj] / den,
-                 orow + J * 16 * C::VW + tx * C::VW + jj);
-    if (tx == 0)
-      lse[((long long)b * H + h) * Sq + q0 + r] = m_run[i] + logf(l_run[i]);
+    for (int n = 0; n < HD / 8; ++n)
+      store2(orow + 8 * n, acc[n][2 * r] / den, acc[n][2 * r + 1] / den);
+    if (t == 0)
+      lse[((long long)b * H + h) * Sq + q0 + row] = m_run[r] + logf(l_run[r]);
   }
 }
 
+// ---- backward ------------------------------------------------------------
+
 // delta[b, h, i] = sum_c dO[b, i, h, c] O[b, i, h, c]: a warp a row, the
 // lanes' partial sums reduced in a fixed order
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kDeltaThreads)
     delta_kernel(const float* __restrict__ o, const float* __restrict__ dout,
                  float* __restrict__ delta, int H, int Sq, int hd,
                  long long rows, Strides so, Strides sdo) {
-  const long long row = (long long)blockIdx.x * (kThreads / 32) +
+  const long long row = (long long)blockIdx.x * (kDeltaThreads / 32) +
                         threadIdx.x / 32;
   if (row >= rows) return;
   const int lane = threadIdx.x & 31;
@@ -363,231 +694,314 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <int HD>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
     dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, const float* __restrict__ dout,
                 const int* __restrict__ qpos, const int* __restrict__ kpos,
                 const float* __restrict__ lse,
                 const float* __restrict__ delta, float* __restrict__ dk,
-                float* __restrict__ dv, int H, int G, int Sq, int Sk,
-                int causal, int window, float scale, Strides sq, Strides sk,
-                Strides sv, Strides sdo, Strides sdk, Strides sdv) {
-  using C = Tile<HD>;
+                float* __restrict__ dv, int B, int H, int Kv, int G, int Sq,
+                int Sk, int causal, int window, float scale, Strides sq,
+                Strides sk, Strides sv, Strides sdo, Strides sdk,
+                Strides sdv) {
+  constexpr int RS = HD + 4, BQ = kBwdTile, NT = BQ / 8;
   extern __shared__ float4 smem4[];
-  float* Kt = reinterpret_cast<float*>(smem4);  // [HD][TS], the block's keys
-  float* Vt = Kt + HD * TS;                     // [HD][TS]
-  float* QA = Vt + HD * TS;                     // Q transposed, then natural
-  float* DA = QA + Tile<HD>::BUF;            // dO transposed, then natural
-  float* Ps = DA + Tile<HD>::BUF;            // P [query][TS]
-  float* dSs = Ps + BQ * TS;                    // dS [query][TS]
-  int* qp = reinterpret_cast<int*>(dSs + BQ * TS);
-  int* kp = qp + BQ;
-  float* lse_s = reinterpret_cast<float*>(kp + BK);
-  float* dl_s = lse_s + BQ;
-  int* rng = reinterpret_cast<int*>(dl_s + BQ);
+  float* Ks = reinterpret_cast<float*>(smem4);  // [64][RS], the block's keys
+  float* Vs = Ks + kRows * RS;                  // [64][RS]
+  float* Qs = Vs + kRows * RS;                  // slot 0: queries [BQ][RS]
+  float* dOs = Qs + BQ * RS;                    // slot 1: dO [BQ][RS]
+  int* qp = reinterpret_cast<int*>(dOs + BQ * RS);  // slot 0
+  float* ls = reinterpret_cast<float*>(qp + BQ);    // slot 0: lse
+  float* dl = ls + BQ;                              // slot 1: delta
+  int* kp = reinterpret_cast<int*>(dl + BQ);
+  int* rng = kp + kRows;
+  const int nqt = (Sq + BQ - 1) / BQ;
+  unsigned* live = reinterpret_cast<unsigned*>(rng + 4);
+  unsigned* part = live + bitmap_words(nqt);
 
-  const int b = blockIdx.z, kvh = blockIdx.y, k0 = blockIdx.x * BK;
-  const int t = threadIdx.x, ty = t >> 4, tx = t & 15;
-  const int nk = min(BK, Sk - k0);
-  if (t < BK) kp[t] = t < nk ? kpos[(long long)b * Sk + k0 + t] : -1;
-  load_tile<HD, true>(Kt, k, sk, b, kvh, k0, Sk);
-  load_tile<HD, true>(Vt, v, sv, b, kvh, k0, Sk);
+  const int bk = blockIdx.x % (B * Kv);
+  const int kt = blockIdx.x / (B * Kv);  // the first key tiles see the most
+  const int kvh = bk % Kv, b = bk / Kv, k0 = kt * kRows;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int nk = min(kRows, Sk - k0);
+  const int* qpb = qpos + (long long)b * Sq;
+
+  if (threadIdx.x < kRows)
+    kp[threadIdx.x] = (int)threadIdx.x < nk
+                          ? kpos[(long long)b * Sk + k0 + threadIdx.x]
+                          : -1;
+  load_rows<HD, kRows>(Ks, k + b * sk.b + kvh * sk.h, sk.s, k0, Sk);
+  load_rows<HD, kRows>(Vs, v + b * sv.b + kvh * sv.h, sv.s, k0, Sk);
+  cp_commit();
   __syncthreads();
-  pos_range(kp, BK, true, rng);
+  pos_range(kp, kRows, true, rng);
   const int kmin = rng[0], kmax = rng[1];
   const bool any_key = kmin <= kmax;
+  // every one of the 64 keys valid (none past Sk, no negative position)
+  const bool all_keys = !__syncthreads_or(threadIdx.x < kRows &&
+                                          kp[threadIdx.x] < 0);
+  mark_tiles<BQ>(
+      live, part, nqt, qpb, Sq,
+      [&](int qq) {
+        return any_key && (!causal || kmin <= qq) &&
+               (window <= 0 || (long long)kmax > (long long)qq - window);
+      },
+      [&](int qq) {
+        return all_keys && (!causal || kmax <= qq) &&
+               (window <= 0 || (long long)kmin > (long long)qq - window);
+      });
 
-  float accK[4][C::N], accV[4][C::N];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < C::N; ++c) accK[i][c] = accV[i][c] = 0.f;
+  // the (head of the group, query tile) pairs in order, live tiles only
+  int gi = 0, qt = next_live(live, 0, nqt);
+  if (qt == nqt) gi = G;
+  auto load_q = [&](int gg, int tt) {
+    const int hh = kvh * G + gg, r0 = tt * BQ;
+    load_rows<HD, BQ>(Qs, q + b * sq.b + hh * sq.h, sq.s, r0, Sq);
+    load_vals(qp, qpb, 0, BQ, r0, Sq);
+    load_vals(ls, lse + ((long long)b * H + hh) * Sq, BQ, BQ, r0, Sq);
+  };
+  auto load_do = [&](int gg, int tt) {
+    const int hh = kvh * G + gg, r0 = tt * BQ;
+    load_rows<HD, BQ>(dOs, dout + b * sdo.b + hh * sdo.h, sdo.s, r0, Sq);
+    load_vals(dl, delta + ((long long)b * H + hh) * Sq, 0, BQ, r0, Sq);
+  };
+  if (gi < G) load_q(gi, qt);
+  cp_commit();
+  if (gi < G) load_do(gi, qt);
+  cp_commit();
 
-  const int nqt = (Sq + BQ - 1) / BQ;
-  for (int g = 0; g < G && any_key; ++g) {
-    const int h = kvh * G + g;
-    for (int qt = 0; qt < nqt; ++qt) {
-      const int q0 = qt * BQ;
-      __syncthreads();  // the previous tile's buffers are free
-      int any = 0;
-      if (t < BQ) {
-        const bool ok = q0 + t < Sq;
-        const int qq = ok ? qpos[(long long)b * Sq + q0 + t] : 0;
-        const long long row = ((long long)b * H + h) * Sq + q0 + t;
-        qp[t] = qq;
-        lse_s[t] = ok ? lse[row] : 0.f;
-        dl_s[t] = ok ? delta[row] : 0.f;
-        // a query that may see some key of the tile (necessary)
-        any = ok && (!causal || kmin <= qq) &&
-              (window <= 0 || (long long)kmax > (long long)qq - window);
-      }
-      if (!__syncthreads_or(any)) continue;  // wholly masked tile
-      load_tile<HD, true>(QA, q, sq, b, h, q0, Sq);
-      load_tile<HD, true>(DA, dout, sdo, b, h, q0, Sq);
-      __syncthreads();
-      // transposed scores: keys ty * 4 + i, queries tx * 4 + j
-      float p[4][4] = {}, ds[4][4] = {};
-      mma_tt(p, Kt + ty * 4, QA + tx * 4, HD);
-      mma_tt(ds, Vt + ty * 4, DA + tx * 4, HD);
+  const int krow[2] = {kp[16 * warp + g], kp[16 * warp + g + 8]};
+  const float* Kw = Ks + 16 * warp * RS;
+  const float* Vw = Vs + 16 * warp * RS;
+  const float one[2] = {1.f, 1.f};
+  float accK[HD / 8][4], accV[HD / 8][4];
+  zero(accK);
+  zero(accV);
+
+  while (gi < G) {
+    const int q0 = qt * BQ;
+    cp_wait<1>();  // K, V, this tile's queries, positions and lse
+    __syncthreads();
+    float p[NT][4], ds[NT][4];
+    // transposed scores: keys (rows) x queries (columns)
+    mma_abt<HD, NT, kSplit>(p, Kw, Qs, nullptr);
+    const bool full = !bit_set(part, qt) && q0 + BQ <= Sq;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int qr = tx * 4 + j;
-        const bool row_ok = q0 + qr < Sq;
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const bool ok =
-              row_ok && visible(qp[qr], kp[ty * 4 + i], causal, window);
-          p[i][j] = ok ? expf(__fmul_rn(p[i][j], scale) - lse_s[qr]) : 0.f;
-          ds[i][j] = p[i][j] * (ds[i][j] - dl_s[qr]);
-        }
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * j + 2 * t + (e & 1);
+        p[j][e] = full || (q0 + c < Sq &&
+                           visible(qp[c], krow[e >> 1], causal, window))
+                      ? expf(__fmul_rn(p[j][e], scale) - ls[c])
+                      : 0.f;
       }
-      __syncthreads();  // every thread has read Q and dO transposed
+    cp_wait<0>();  // this tile's dO and delta
+    __syncthreads();
+    mma_abt<HD, NT, kSplit>(ds, Vw, dOs, nullptr);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        store_col4(Ps, tx * 4 + j, ty * 4, p, j);
-        store_col4(dSs, tx * 4 + j, ty * 4, ds, j);
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * j + 2 * t + (e & 1);
+        ds[j][e] = p[j][e] * (ds[j][e] - dl[c]);
       }
-      load_tile<HD, false>(QA, q, sq, b, h, q0, Sq);
-      load_tile<HD, false>(DA, dout, sdo, b, h, q0, Sq);
-      __syncthreads();
-      mma_tn<HD>(accV, Ps + ty * 4, DA + tx * C::VW, BQ);
-      mma_tn<HD>(accK, dSs + ty * 4, QA + tx * C::VW, BQ);
+    mma_pb<HD, NT, kChunkOf<HD> / 2, kSplit>(accK, ds, Qs, nullptr, one);
+    int ngi = gi, nqt2 = next_live(live, qt + 1, nqt);
+    if (nqt2 == nqt) {
+      ++ngi;
+      nqt2 = next_live(live, 0, nqt);
     }
+    __syncthreads();  // every warp is done with slot 0
+    if (ngi < G) load_q(ngi, nqt2);
+    cp_commit();
+    mma_pb<HD, NT, kChunkOf<HD> / 2, kSplit>(accV, p, dOs, nullptr, one);
+    __syncthreads();  // every warp is done with slot 1
+    if (ngi < G) load_do(ngi, nqt2);
+    cp_commit();
+    gi = ngi;
+    qt = nqt2;
   }
+  cp_wait<0>();
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty * 4 + i;
-    if (r >= nk) continue;
-    float* krow = dk + b * sdk.b + (long long)(k0 + r) * sdk.s + kvh * sdk.h;
-    float* vrow = dv + b * sdv.b + (long long)(k0 + r) * sdv.s + kvh * sdv.h;
+  for (int r = 0; r < 2; ++r) {
+    const int row = 16 * warp + g + 8 * r;
+    if (row >= nk) continue;
+    float* krow_out =
+        dk + b * sdk.b + (long long)(k0 + row) * sdk.s + kvh * sdk.h + 2 * t;
+    float* vrow_out =
+        dv + b * sdv.b + (long long)(k0 + row) * sdv.s + kvh * sdv.h + 2 * t;
 #pragma unroll
-    for (int J = 0; J < C::NCH; ++J)
-#pragma unroll
-      for (int jj = 0; jj < C::VW; ++jj) {
-        const int c = J * 16 * C::VW + tx * C::VW + jj;
-        krow[c] = accK[i][J * C::VW + jj] * scale;
-        vrow[c] = accV[i][J * C::VW + jj];
-      }
+    for (int n = 0; n < HD / 8; ++n) {
+      store2(krow_out + 8 * n, accK[n][2 * r] * scale,
+             accK[n][2 * r + 1] * scale);
+      store2(vrow_out + 8 * n, accV[n][2 * r], accV[n][2 * r + 1]);
+    }
   }
 }
 
 template <int HD>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
     dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, const float* __restrict__ dout,
               const int* __restrict__ qpos, const int* __restrict__ kpos,
               const float* __restrict__ lse, const float* __restrict__ delta,
-              float* __restrict__ dq, int H, int G, int Sq, int Sk,
+              float* __restrict__ dq, int B, int H, int G, int Sq, int Sk,
               int causal, int window, float scale, Strides sq, Strides sk,
               Strides sv, Strides sdo, Strides sdq) {
-  using C = Tile<HD>;
+  constexpr int RS = HD + 4, BK = kBwdTile, NT = BK / 8;
   extern __shared__ float4 smem4[];
-  float* Qt = reinterpret_cast<float*>(smem4);  // [HD][TS]
-  float* dOt = Qt + HD * TS;                    // [HD][TS]
-  float* Kb = dOt + HD * TS;                    // K transposed, then natural
-  float* Vt = Kb + Tile<HD>::BUF;            // [HD][TS]
-  float* dSt = Vt + HD * TS;                    // dS transposed [key][TS]
-  int* qp = reinterpret_cast<int*>(dSt + BK * TS);
-  int* kp = qp + BQ;
-  float* lse_s = reinterpret_cast<float*>(kp + BK);
-  float* dl_s = lse_s + BQ;
-  int* rng = reinterpret_cast<int*>(dl_s + BQ);
+  float* Qs = reinterpret_cast<float*>(smem4);  // [64][RS]
+  float* dOs = Qs + kRows * RS;                 // [64][RS]
+  float* Ks = dOs + kRows * RS;                 // slot 0: keys [BK][RS]
+  float* Vs = Ks + BK * RS;                     // slot 1: values [BK][RS]
+  int* kp = reinterpret_cast<int*>(Vs + BK * RS);  // slot 0's positions
+  int* qp = kp + BK;
+  int* rng = qp + kRows;
+  const int nqt = (Sq + kRows - 1) / kRows, nkt = (Sk + BK - 1) / BK;
+  unsigned* live = reinterpret_cast<unsigned*>(rng + 4);
+  unsigned* part = live + bitmap_words(nkt);
 
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * BQ;
-  const int kvh = h / G;
-  const int t = threadIdx.x, ty = t >> 4, tx = t & 15;
-  const int nq = min(BQ, Sq - q0);
-  if (t < BQ) {
-    const long long row = ((long long)b * H + h) * Sq + q0 + t;
-    qp[t] = qpos[(long long)b * Sq + q0 + min(t, nq - 1)];
-    lse_s[t] = t < nq ? lse[row] : 0.f;
-    dl_s[t] = t < nq ? delta[row] : 0.f;
+  const int bh = blockIdx.x % (B * H);
+  const int qt = nqt - 1 - (int)(blockIdx.x / (B * H));  // longest first
+  const int h = bh % H, b = bh / H, kvh = h / G, q0 = qt * kRows;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int nq = min(kRows, Sq - q0);
+  const int* kpb = kpos + (long long)b * Sk;
+  const float* kb = k + b * sk.b + kvh * sk.h;
+  const float* vb = v + b * sv.b + kvh * sv.h;
+
+  if (threadIdx.x < kRows)
+    qp[threadIdx.x] =
+        qpos[(long long)b * Sq + q0 + min((int)threadIdx.x, nq - 1)];
+  load_rows<HD, kRows>(Qs, q + b * sq.b + h * sq.h, sq.s, q0, Sq);
+  load_rows<HD, kRows>(dOs, dout + b * sdo.b + h * sdo.h, sdo.s, q0, Sq);
+  cp_commit();
+  float lrow[2], drow[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = 16 * warp + g + 8 * r;
+    const long long at = ((long long)b * H + h) * Sq + q0 + row;
+    lrow[r] = row < nq ? lse[at] : 0.f;
+    drow[r] = row < nq ? delta[at] : 0.f;
   }
-  load_tile<HD, true>(Qt, q, sq, b, h, q0, Sq);
-  load_tile<HD, true>(dOt, dout, sdo, b, h, q0, Sq);
   __syncthreads();
   pos_range(qp, nq, false, rng);
   const int qmin = rng[0], qmax = rng[1];
+  mark_tiles<BK>(
+      live, part, nkt, kpb, Sk,
+      [&](int kk) {
+        return kk >= 0 && (!causal || kk <= qmax) &&
+               (window <= 0 || (long long)kk > (long long)qmin - window);
+      },
+      [&](int kk) {
+        return kk >= 0 && (!causal || kk <= qmin) &&
+               (window <= 0 || (long long)kk > (long long)qmax - window);
+      });
+  int kt = next_live(live, 0, nkt);
+  if (kt < nkt) load_rows<HD, BK>(Vs, vb, sv.s, kt * BK, Sk);
+  cp_commit();
+  if (kt < nkt) {
+    load_rows<HD, BK>(Ks, kb, sk.s, kt * BK, Sk);
+    load_vals(kp, kpb, 0, BK, kt * BK, Sk);
+  }
+  cp_commit();
 
-  float acc[4][C::N];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < C::N; ++c) acc[i][c] = 0.f;
+  const int qrow[2] = {qp[16 * warp + g], qp[16 * warp + g + 8]};
+  const float* Qw = Qs + 16 * warp * RS;
+  const float* dOw = dOs + 16 * warp * RS;
+  const float one[2] = {1.f, 1.f};
+  float acc[HD / 8][4];
+  zero(acc);
 
-  const int nkt = (Sk + BK - 1) / BK;
-  for (int kt = 0; kt < nkt; ++kt) {
+  while (kt < nkt) {
     const int k0 = kt * BK;
-    __syncthreads();  // the previous tile's buffers are free
-    int any = 0;
-    if (t < BK) {
-      const int kk = k0 + t < Sk ? kpos[(long long)b * Sk + k0 + t] : -1;
-      kp[t] = kk;
-      any = kk >= 0 && (!causal || kk <= qmax) &&
-            (window <= 0 || (long long)kk > (long long)qmin - window);
-    }
-    if (!__syncthreads_or(any)) continue;  // wholly masked tile
-    load_tile<HD, true>(Kb, k, sk, b, kvh, k0, Sk);
-    load_tile<HD, true>(Vt, v, sv, b, kvh, k0, Sk);
+    cp_wait<1>();  // Q, dO, this tile's values
     __syncthreads();
-    float p[4][4] = {}, ds[4][4] = {};
-    mma_tt(p, Qt + ty * 4, Kb + tx * 4, HD);
-    mma_tt(ds, dOt + ty * 4, Vt + tx * 4, HD);
+    float s[NT][4], ds[NT][4];
+    mma_abt<HD, NT, kSplit>(ds, dOw, Vs, nullptr);  // dP
+    __syncthreads();  // every warp is done with slot 1
+    const int next = next_live(live, kt + 1, nkt);
+    if (next < nkt) load_rows<HD, BK>(Vs, vb, sv.s, next * BK, Sk);
+    cp_commit();
+    cp_wait<1>();  // this tile's keys and positions
+    __syncthreads();
+    mma_abt<HD, NT, kSplit>(s, Qw, Ks, nullptr);
+    const bool full = !bit_set(part, kt) && k0 + BK <= Sk;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty * 4 + i;
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const bool ok = visible(qp[r], kp[tx * 4 + j], causal, window);
-        p[i][j] = ok ? expf(__fmul_rn(p[i][j], scale) - lse_s[r]) : 0.f;
-        ds[i][j] = p[i][j] * (ds[i][j] - dl_s[r]);
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * j + 2 * t + (e & 1), r = e >> 1;
+        const float p =
+            full || (k0 + c < Sk && visible(qrow[r], kp[c], causal, window))
+                ? expf(__fmul_rn(s[j][e], scale) - lrow[r])
+                : 0.f;
+        ds[j][e] = p * (ds[j][e] - drow[r]);
       }
+    mma_pb<HD, NT, kChunkOf<HD>, kSplit>(acc, ds, Ks, nullptr, one);
+    __syncthreads();  // every warp is done with slot 0
+    if (next < nkt) {
+      load_rows<HD, BK>(Ks, kb, sk.s, next * BK, Sk);
+      load_vals(kp, kpb, 0, BK, next * BK, Sk);
     }
-    __syncthreads();  // every thread has read K transposed
-#pragma unroll
-    for (int j = 0; j < 4; ++j) store_col4(dSt, tx * 4 + j, ty * 4, ds, j);
-    load_tile<HD, false>(Kb, k, sk, b, kvh, k0, Sk);
-    __syncthreads();
-    mma_tn<HD>(acc, dSt + ty * 4, Kb + tx * C::VW, BK);
+    cp_commit();
+    kt = next;
   }
+  cp_wait<0>();
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty * 4 + i;
-    if (r >= nq) continue;
-    float* row = dq + b * sdq.b + (long long)(q0 + r) * sdq.s + h * sdq.h;
+  for (int r = 0; r < 2; ++r) {
+    const int row = 16 * warp + g + 8 * r;
+    if (row >= nq) continue;
+    float* out =
+        dq + b * sdq.b + (long long)(q0 + row) * sdq.s + h * sdq.h + 2 * t;
 #pragma unroll
-    for (int J = 0; J < C::NCH; ++J)
-#pragma unroll
-      for (int jj = 0; jj < C::VW; ++jj)
-        row[J * 16 * C::VW + tx * C::VW + jj] =
-            acc[i][J * C::VW + jj] * scale;
+    for (int n = 0; n < HD / 8; ++n)
+      store2(out + 8 * n, acc[n][2 * r] * scale, acc[n][2 * r + 1] * scale);
   }
 }
 
-constexpr size_t kIntBytes = sizeof(int) * (BQ + BK + 2 * BQ + 4);
+// ---- host ----------------------------------------------------------------
+
+constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 template <int HD>
-constexpr size_t fwd_smem() {
-  return sizeof(float) * (HD * TS + Tile<HD>::BUF + BK * TS) + kIntBytes;
+constexpr size_t tile_bytes(int rows) {
+  return sizeof(float) * (size_t)rows * (HD + 4);
 }
 template <int HD>
-constexpr size_t dkdv_smem() {
-  return sizeof(float) * (2 * HD * TS + 2 * Tile<HD>::BUF + 2 * BQ * TS) +
-         kIntBytes;
+size_t fwd_smem(int Sk) {
+  return tile_bytes<HD>(kRows + 4 * kFwdKeys) +
+         sizeof(int) * (kFwdKeys + kRows + 4 +
+                        2 * bitmap_words(cdiv(Sk, kFwdKeys)));
 }
 template <int HD>
-constexpr size_t dq_smem() {
-  return sizeof(float) * (3 * HD * TS + Tile<HD>::BUF + BK * TS) +
-         kIntBytes;
+size_t dkdv_smem(int Sq) {
+  return tile_bytes<HD>(2 * kRows + 2 * kBwdTile) +
+         sizeof(int) * (3 * kBwdTile + kRows + 4 +
+                        2 * bitmap_words(cdiv(Sq, kBwdTile)));
+}
+template <int HD>
+size_t dq_smem(int Sk) {
+  return tile_bytes<HD>(2 * kRows + 2 * kBwdTile) +
+         sizeof(int) * (kBwdTile + kRows + 4 +
+                        2 * bitmap_words(cdiv(Sk, kBwdTile)));
 }
 
+// shared memory above 48 KB, and the SM's carve-out at its most, so that
+// two blocks fit an SM
 template <typename K>
-cudaError_t allow_smem(K kernel, size_t bytes) {
+cudaError_t prepare(K kernel, size_t bytes) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e != cudaSuccess) return e;
   return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              (int)cudaSharedmemCarveoutMaxShared);
 }
 
 Strides strides_at(const long long* s, int i) {
@@ -599,13 +1013,12 @@ cudaError_t fwd(const void* q, const void* k, const void* v, const int* qpos,
                 const int* kpos, void* o, float* lse, int B, int H, int Kv,
                 int Sq, int Sk, int causal, int window, float scale,
                 const long long* st, cudaStream_t stream) {
-  const size_t smem = fwd_smem<HD>();
-  cudaError_t e = allow_smem(fwd_kernel<HD, T>, smem);
+  const size_t smem = fwd_smem<HD>(Sk);
+  cudaError_t e = prepare(fwd_kernel<HD, T>, smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  fwd_kernel<HD, T><<<grid, kThreads, smem, stream>>>(
+  fwd_kernel<HD, T><<<cdiv(Sq, kRows) * H * B, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), qpos, kpos, static_cast<T*>(o), lse, H,
+      static_cast<const T*>(v), qpos, kpos, static_cast<T*>(o), lse, B, H,
       H / Kv, Sq, Sk, causal, window, scale, strides_at(st, 0),
       strides_at(st, 1), strides_at(st, 2), strides_at(st, 3));
   return cudaGetLastError();
@@ -619,32 +1032,63 @@ cudaError_t bwd(const float* q, const float* k, const float* v,
                 int causal, int window, float scale, const long long* st,
                 cudaStream_t stream) {
   const long long rows = (long long)B * H * Sq;
-  const long long warps = kThreads / 32;
-  delta_kernel<<<(unsigned)((rows + warps - 1) / warps), kThreads, 0,
+  const long long warps = kDeltaThreads / 32;
+  delta_kernel<<<(unsigned)((rows + warps - 1) / warps), kDeltaThreads, 0,
                  stream>>>(o, dout, delta, H, Sq, HD, rows, strides_at(st, 3),
                            strides_at(st, 4));
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const int G = H / Kv;
-  const size_t s1 = dkdv_smem<HD>();
-  if ((e = allow_smem(dkdv_kernel<HD>, s1)) != cudaSuccess) return e;
-  dkdv_kernel<HD><<<dim3((Sk + BK - 1) / BK, Kv, B), kThreads, s1, stream>>>(
-      q, k, v, dout, qpos, kpos, lse, delta, dk, dv, H, G, Sq, Sk, causal,
-      window, scale, strides_at(st, 0), strides_at(st, 1), strides_at(st, 2),
-      strides_at(st, 4), strides_at(st, 6), strides_at(st, 7));
+  const size_t s1 = dkdv_smem<HD>(Sq);
+  if ((e = prepare(dkdv_kernel<HD>, s1)) != cudaSuccess) return e;
+  dkdv_kernel<HD><<<cdiv(Sk, kRows) * Kv * B, kThreads, s1, stream>>>(
+      q, k, v, dout, qpos, kpos, lse, delta, dk, dv, B, H, Kv, G, Sq, Sk,
+      causal, window, scale, strides_at(st, 0), strides_at(st, 1),
+      strides_at(st, 2), strides_at(st, 4), strides_at(st, 6),
+      strides_at(st, 7));
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  const size_t s2 = dq_smem<HD>();
-  if ((e = allow_smem(dq_kernel<HD>, s2)) != cudaSuccess) return e;
-  dq_kernel<HD><<<dim3((Sq + BQ - 1) / BQ, H, B), kThreads, s2, stream>>>(
-      q, k, v, dout, qpos, kpos, lse, delta, dq, H, G, Sq, Sk, causal, window,
-      scale, strides_at(st, 0), strides_at(st, 1), strides_at(st, 2),
+  const size_t s2 = dq_smem<HD>(Sk);
+  if ((e = prepare(dq_kernel<HD>, s2)) != cudaSuccess) return e;
+  dq_kernel<HD><<<cdiv(Sq, kRows) * H * B, kThreads, s2, stream>>>(
+      q, k, v, dout, qpos, kpos, lse, delta, dq, B, H, G, Sq, Sk, causal,
+      window, scale, strides_at(st, 0), strides_at(st, 1), strides_at(st, 2),
       strides_at(st, 4), strides_at(st, 5));
   return cudaGetLastError();
 }
 
+// blocks per SM, dynamic shared memory, registers and local (spill) bytes
+// of one kernel: res[0..3]
+template <typename K>
+cudaError_t resources_of(K kernel, size_t bytes, int* res) {
+  cudaError_t e = prepare(kernel, bytes);
+  if (e != cudaSuccess) return e;
+  cudaFuncAttributes a;
+  if ((e = cudaFuncGetAttributes(&a, kernel)) != cudaSuccess) return e;
+  res[1] = (int)bytes;
+  res[2] = a.numRegs;
+  res[3] = (int)a.localSizeBytes;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(res, kernel, kThreads,
+                                                       bytes);
+}
+
+template <int HD>
+cudaError_t occupancy(int S, int* res) {
+  cudaError_t e;
+  if ((e = resources_of(fwd_kernel<HD, float>, fwd_smem<HD>(S), res)) !=
+          cudaSuccess ||
+      (e = resources_of(fwd_kernel<HD, __nv_bfloat16>, fwd_smem<HD>(S),
+                        res + 4)) != cudaSuccess ||
+      (e = resources_of(dkdv_kernel<HD>, dkdv_smem<HD>(S), res + 8)) !=
+          cudaSuccess)
+    return e;
+  return resources_of(dq_kernel<HD>, dq_smem<HD>(S), res + 12);
+}
+
 bool shape_ok(int B, int H, int Kv, int Sq, int Sk) {
   return B >= 1 && H >= 1 && Kv >= 1 && H % Kv == 0 && Sq >= 1 && Sk >= 1 &&
-         B <= 65535 && H <= 65535;
+         B <= 65535 && H <= 65535 &&
+         (long long)cdiv(Sq, kRows) * H * B <= INT_MAX &&
+         (long long)cdiv(Sk, kRows) * Kv * B <= INT_MAX;
 }
 
 }  // namespace
@@ -712,4 +1156,20 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
     default: return (int)cudaErrorInvalidValue;
   }
 #undef BWD
+}
+
+// Blocks per SM, dynamic shared memory (bytes), registers a thread and
+// local memory (bytes a thread: spills) of the forward (float32, bfloat16),
+// dK/dV and dQ kernels at head dim hd and sequence length S, from the
+// runtime's occupancy calculator and function attributes: res[16], four a
+// kernel.
+extern "C" int flash_attention_occupancy(int hd, int S, int* res) {
+  if (S < 1) return (int)cudaErrorInvalidValue;
+  switch (hd) {
+    case 16: return (int)occupancy<16>(S, res);
+    case 32: return (int)occupancy<32>(S, res);
+    case 64: return (int)occupancy<64>(S, res);
+    case 128: return (int)occupancy<128>(S, res);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

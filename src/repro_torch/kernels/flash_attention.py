@@ -16,8 +16,13 @@ companions); for CUDA tensors they launch the kernels or raise — there is
 no fallback. The kernels take float32 or bfloat16 forward, float32
 backward (a bfloat16 backward raises TypeError), head dims 16, 32, 64 and
 128, and (B, S, heads, hd) tensors with hd contiguous and any other
-strides. Their own tiles are 64 x 64; the plain version's ``block`` is
-the key block of its loop, which the kernels do not need.
+strides whose rows start on 16 bytes (their tiles stream through 16-byte
+``cp.async``; a tensor whose base or strides break that is copied). Their
+products run on the tensor cores in split TF32 (three TF32 products a
+float32 product, see the source's note), so the float32 results keep the
+plain versions' tolerances. Their own tiles are 64 rows by 32 keys (by 32
+queries in dK/dV); the plain version's ``block`` is the key block of its
+loop, which the kernels do not need.
 """
 from __future__ import annotations
 
@@ -32,7 +37,7 @@ from repro_torch.kernels.ref import (flash_attention_bwd_ref,
                                      flash_attention_ref)
 
 HEAD_DIMS = (16, 32, 64, 128)
-TILE = 64  # the kernels' query and key tile: the plain versions' block
+TILE = 64  # the plain versions' key block on the CPU (the kernels' rows)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _STRIDES = ctypes.POINTER(ctypes.c_longlong)
@@ -41,7 +46,10 @@ _SIGNATURES = {
                             + [ctypes.c_float, _STRIDES, _P]),
     "flash_attention_bwd": (_I, [_P] * 12 + [_I] * 8
                             + [ctypes.c_float, _STRIDES, _P]),
+    "flash_attention_occupancy": (_I, [_I, _I, _P]),
 }
+# the kernels of each launch, in the order flash_attention_occupancy reports
+KERNELS = ("forward float32", "forward bfloat16", "dK/dV", "dQ")
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -59,9 +67,16 @@ def _window(window):
 
 
 def _rows(t):
-    """``t`` itself when its last dim is contiguous (the kernels take the
-    other strides as they are), else a contiguous copy."""
-    return t if t.stride(-1) == 1 else t.contiguous()
+    """``t`` itself when the kernels can read it in place: its last dim
+    contiguous, its base and the strides of its other dims (those longer
+    than 1) on 16 bytes, the rows' 16-byte copies; else a contiguous copy
+    in a new allocation (``contiguous()`` would keep a misaligned base)."""
+    step = 16 // t.element_size()
+    if (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(s % step == 0 for s, n in zip(t.stride()[:-1],
+                                                  t.shape[:-1]) if n > 1)):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
 
 
 def _positions(pos, B, S, device):
@@ -181,6 +196,23 @@ def flash_attention_bwd(q, k, v, out, lse, dout, q_pos, k_pos, *,
             _strides(q, k, v, out, dout, dq, dk, dv), stream)
     flash_attention_bwd.launches += 1
     return dq, dk, dv
+
+
+def occupancy(hd, S):
+    """{kernel: {"blocks_per_sm", "smem", "registers", "local_bytes"}} of
+    the forward (float32, bfloat16), dK/dV and dQ kernels at head dim
+    ``hd`` and sequence length ``S``: blocks per SM and dynamic shared
+    memory bytes from the CUDA runtime's occupancy calculator, registers
+    and local memory bytes (spills) a thread from its function attributes.
+    Needs a card; launches nothing."""
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"the flash attention kernels take head dims "
+                         f"{HEAD_DIMS}, got {hd}")
+    res = (ctypes.c_int * 16)()
+    _launch("flash_attention_occupancy", hd, S, ctypes.addressof(res))
+    keys = ("blocks_per_sm", "smem", "registers", "local_bytes")
+    return {name: dict(zip(keys, res[4 * i:4 * i + 4]))
+            for i, name in enumerate(KERNELS)}
 
 
 # kernel launches since the counts were last set to 0

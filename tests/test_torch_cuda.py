@@ -22,7 +22,9 @@ kernels are held against their plain versions on the card (the online
 loop in cuBLAS float32 products, summed in another order): the float32
 output and log-sum-exp at 2e-5, the gradients at 1e-4 (each sums up to S
 products of the scores' rounding), the bfloat16 output at 2e-2; a strided
-view gives the contiguous result bit for bit, and two runs the same bits.
+view gives the contiguous result bit for bit, a q off 16 bytes (copied by
+the wrapper) the aligned q's, and three runs at the attn_block path's
+shape the same bits.
 The on-chip-seeded int8 quantize is bit-identical to its plain Philox twin
 at odd widths; elastic segments (a fault plan with a DEAD and a RESYNC
 agent) on the card are held against the CPU at rtol 1e-3 like the others,
@@ -50,7 +52,8 @@ from repro_torch.kernels.ref import (dequantize_int4_ref, dequantize_int8_ref,
                                      unpack_int4_ref, weighted_colmerge_ref)
 from repro_torch.kernels.flash_attention import (FlashAttention,
                                                  flash_attention_bwd,
-                                                 flash_attention_fwd)
+                                                 flash_attention_fwd,
+                                                 occupancy)
 from repro_torch.kernels.opt_fused import adamw_fused_int8
 from repro_torch.kernels.ref import (adamw_fused_int8_ref,
                                      dequantize_int8_grouped_ref,
@@ -680,11 +683,15 @@ def _attention_inputs(B, S, H, Kv, hd, seed, dev):
 
 
 # (B, S, H, Kv, hd, causal, window): key and query tails (S % 64 != 0),
-# GQA, windows, no causal mask, every head dim the kernels take
+# GQA, windows, no causal mask, every head dim the kernels take, a single
+# position, the attn_block path's own shape, and GQA over 2048 positions
+# (the longest sums of dK and dV: 4 query heads a key head)
 ATTENTION = [(2, 100, 4, 2, 64, True, None), (1, 100, 2, 2, 128, True, None),
              (2, 256, 8, 2, 32, True, 64), (2, 130, 4, 4, 16, True, 40),
              (1, 77, 2, 1, 64, False, None), (2, 64, 2, 2, 128, True, None),
-             (1, 300, 4, 1, 128, True, 100)]
+             (1, 300, 4, 1, 128, True, 100), (2, 1, 2, 1, 128, True, None),
+             (2, 2048, 16, 16, 128, True, None),
+             (2, 2048, 32, 8, 128, True, None)]
 
 
 @pytest.mark.parametrize("B,S,H,Kv,hd,causal,window", ATTENTION)
@@ -721,6 +728,52 @@ def test_flash_attention_kernels_match_plain(cuda, B, S, H, Kv, hd, causal,
     assert torch.equal(y.detach(), out)
     auto = torch.autograd.grad(y, leaves, do)
     assert all(torch.equal(a, b) for a, b in zip(auto, grads))
+
+
+def test_flash_attention_unaligned_input_is_copied(cuda):
+    """A q and a dO whose storage starts 1 float off 16 bytes cannot feed
+    the kernels' 16-byte copies: the wrapper copies them to fresh tensors,
+    and the results are the aligned inputs' bit for bit."""
+    q, k, v, do, pos = _attention_inputs(2, 100, 4, 2, 128, 11, cuda)
+
+    def off_by_one_float(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        u = buf[1:].view(t.shape)
+        u.copy_(t)
+        assert u.data_ptr() % 16 == 4 and u.is_contiguous()
+        return u
+
+    qu, dou = off_by_one_float(q), off_by_one_float(do)
+    out, lse = flash_attention_fwd(q, k, v, pos, pos)
+    out_u, lse_u = flash_attention_fwd(qu, k, v, pos, pos)
+    assert torch.equal(out_u, out) and torch.equal(lse_u, lse)
+    grads = flash_attention_bwd(q, k, v, out, lse, do, pos, pos)
+    grads_u = flash_attention_bwd(qu, k, v, out, lse, dou, pos, pos)
+    assert all(torch.equal(a, b) for a, b in zip(grads_u, grads))
+    r_out, _ = flash_attention_fwd_ref(q, k, v, pos, pos)
+    torch.testing.assert_close(out_u, r_out, atol=2e-5, rtol=2e-5)
+
+
+def test_flash_attention_runs_are_bit_identical(cuda):
+    """Three runs of the forward and backward kernels at the attn_block
+    path's shape (B 2, S 2048, H 16, hd 128, causal) give the same bits:
+    every sum runs in a fixed order and no output is shared."""
+    q, k, v, do, pos = _attention_inputs(2, 2048, 16, 16, 128, 5, cuda)
+    runs = []
+    for _ in range(3):
+        out, lse = flash_attention_fwd(q, k, v, pos, pos)
+        runs.append((out, lse) + tuple(flash_attention_bwd(
+            q, k, v, out, lse, do, pos, pos)))
+    for run in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(run, runs[0]))
+
+
+def test_flash_attention_kernels_fit_two_blocks_without_spills(cuda):
+    """At hd 128 and S 2048 every kernel keeps its values in registers (no
+    local memory a thread) and runs at least two 4-warp blocks an SM."""
+    for name, r in occupancy(128, 2048).items():
+        assert r["registers"] > 0 and r["local_bytes"] == 0, (name, r)
+        assert r["blocks_per_sm"] >= 2, (name, r)
 
 
 def test_flash_attention_bf16_forward(cuda):
