@@ -62,8 +62,23 @@ Phases, each printing its lines:
      f32 wire with cfg.dist.attn_block = 512 at batch 2, seq 2048 (the
      flash attention kernels, forward and backward, in every local step),
      and one agent's gradient through it against the dense route's;
-  each path of 5 and 6 with the launch counts set to 0 just before it and
-  read just after, and its peak device memory;
+  7. the tree path: the main path's cell (same init, batch stream and W
+     stack) through the tree-state driver (dsgd.init_state ->
+     make_dsgd_round, the per-leaf tensordot mix), each round's loss and
+     grad norm against the main path's within TREE_RTOL; after the final
+     merge consensus.consensus_distance (the reduce kernel) < 1e-3 and the
+     merged eval (gossip.merged_model) within 1e-5 of the local eval; the
+     state before the final merge merged by gossip_merge_rounds (3 rounds
+     of the exponential graph: exactly 3 gossip_mix launches) within 1e-4
+     of its max |theta| of gossip.merged_model of that state; its rounds
+     and peak printed;
+  each path of 5, 6 and 7 with the launch counts set to 0 just before it
+  and read just after, and its peak device memory;
+  8. the figure harness (repro_torch.bench.figures): its 8 functions on the
+     card, their CSV lines, the reference tests' claims (Fig. 1's merge gain
+     and local-only merge, Fig. 2c's gaps, App. C.3.4's 3-round gossip
+     merge, Cor. D.2's bound, Table 1's finite ratio), and Fig. 1 on the
+     CPU from the same init within 0.01 of the card's accuracies;
 then the script's total time, a JSON line of per-kernel numbers, the
 card's line again and, last, the result line. It fails (non-zero exit, no
 result line) if there is no card, if the port's package is not beside it,
@@ -107,6 +122,10 @@ ATTN_BLOCK, ATTN_BATCH, ATTN_SEQ = 512, 2, 2048
 # (int8_ef with the kernel's draws)
 # the elastic path's fault plan (core.faults syntax, as --faults takes it)
 FAULTS = "2@1-2;5@2"
+# the tree path (the tree-state driver on the main path's cell) against the
+# main path, round by round: the per-leaf sums of the grad norm run in
+# another order than the panel's (loss and grad norm, relative)
+TREE_RTOL = 1e-5
 
 PATH_KERNELS = {"f32": ("gossip_mix", "panel_mean_consensus"),
                 "faults": ("gossip_mix", "panel_mean_consensus"),
@@ -130,7 +149,11 @@ PATH_KERNELS = {"f32": ("gossip_mix", "panel_mean_consensus"),
                 f"attn_block {ATTN_BLOCK}": ("flash_attention_fwd",
                                              "flash_attention_bwd",
                                              "gossip_mix",
-                                             "panel_mean_consensus")}
+                                             "panel_mean_consensus"),
+                # the tree-state driver: its rounds mix per leaf (no
+                # kernel); the consensus and merged model after the merge
+                # and the gossip merge of the pre-merge state launch these
+                "tree": ("gossip_mix", "panel_mean_consensus")}
 
 
 def card_line():
@@ -1384,7 +1407,7 @@ def drive_path(torch, path):
           f"wire_err {rb['wire_err']}, merge_stat {rb['merge_stat']}); peak "
           f"{rb['peak']} B/agent (+{rb['transient_bytes']} transient); fused "
           f"moments {'on' if active else 'off'}", flush=True)
-    losses, xis, times, dead_row = [], [], [], None
+    losses, gnorms, xis, times, dead_row = [], [], [], [], None
     for t, (W, b, glob, live) in enumerate(per_round):
         t0 = time.perf_counter()
         state, mets = seg(state, b, W, wire_gen, global_rounds=glob,
@@ -1393,6 +1416,7 @@ def drive_path(torch, path):
         dt = time.perf_counter() - t0
         times.append(dt)
         losses.append(float(mets["loss"][0]))
+        gnorms.append(float(mets["grad_norm"][0]))
         xis.append(float(mets["consensus"][0]))
         kind = ("idle" if (W[0] == torch.eye(M).numpy()).all() else
                 "merge" if glob[0] else "mix")
@@ -1451,7 +1475,8 @@ def drive_path(torch, path):
           f"{path}: local eval {local!r} != merged eval {merged!r}")
     if path == "f32" or cfg.dist.attn_block:
         breakdown(torch, model, opt, state, spec, per_round[0], path)
-    record = {"losses": losses, "xis": xis, "peak": peak, "width": spec.width,
+    record = {"losses": losses, "grad_norms": gnorms, "xis": xis,
+              "peak": peak, "width": spec.width,
               "merged": merged, "local": local, "times": times}
     if cfg.dist.attn_block:
         check(counts["flash_attention_bwd"] == ROUNDS * H * M * cfg.num_layers
@@ -1472,6 +1497,174 @@ def drive_path(torch, path):
     del state, seg
     torch.cuda.empty_cache()
     return counts, record
+
+
+def drive_tree_path(torch, main):
+    """Phase 7: the main path's cell (olmo-1b at full width, 2 layers, 8
+    agents, AdamW, H local steps, the final-merge schedule; the same init,
+    batch stream and W stack) through the tree-state driver: dsgd.init_state
+    -> make_dsgd_round, whose rounds mix per leaf (torch.tensordot, no
+    kernel). Each round's loss and grad norm against the main path's record
+    ``main`` within TREE_RTOL; after the final merge the consensus of the
+    tree state (consensus.consensus_distance: the reduce kernel) < 1e-3, its
+    exact value printed, and the merged eval (gossip.merged_model) within
+    1e-5 of the mean local eval; then the state before the final merge
+    merged by gossip_merge_rounds over log2(M) rounds of the exponential
+    graph (the gossip_mix kernel, one launch a round) against
+    gossip.merged_model of that state, max |err| <= 1e-4 max |theta|. The
+    launch counts are set to 0 just before and read just after. Returns
+    (counts, record)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core import consensus, dsgd, gossip, topology
+    from repro_torch.core.merge import gossip_merge_rounds
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.train import to_device
+    from repro_torch.models import build_model
+    from repro_torch.optim import make_optimizer
+    from repro_torch.utils.tree import tree_flatten, tree_map, tree_unflatten
+    dev = torch.device("cuda")
+    cfg = get_config("olmo-1b").replace(num_layers=2)
+    model = build_model(cfg)
+    opt = make_optimizer("adamw", 3e-3, weight_decay=5e-4,
+                         total_steps=ROUNDS * H)
+    per_round, eval_batch = segment_inputs(cfg, M, ROUNDS,
+                                           data_vocab=DATA_VOCAB)
+    eval_batch = to_device(eval_batch, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    reset_launch_counts()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state = dsgd.init_state(lambda g: model.init_params(g, dev), opt, M, gen)
+    width = sum(x[0].numel() for x in tree_flatten(state["params"])[0])
+    round_fn = dsgd.make_dsgd_round(model.loss_fn, opt, H)
+    n_leaves = len(tree_flatten(state["params"])[0])
+    print(f"path tree: {cfg.name} d_model {cfg.d_model}, {cfg.num_layers} "
+          f"layers, D {width} per agent as {n_leaves} agent-stacked leaves, "
+          f"m {M}, H {H}, batch {BATCH}, seq {SEQ}; "
+          f"device memory held before the path {held} bytes", flush=True)
+    losses, gnorms, xis, times, pre_merge = [], [], [], [], None
+    for t, (W, b, glob, live) in enumerate(per_round):
+        if t == ROUNDS - 1:  # the state before the final merge
+            pre_merge = tree_map(lambda x: x.clone(), state["params"])
+        t0 = time.perf_counter()
+        state, mets = round_fn(state, {k: torch.as_tensor(v[0]).to(dev)
+                                       for k, v in b.items()}, W[0])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(mets["loss"]))
+        gnorms.append(float(mets["grad_norm"]))
+        xis.append(float(mets["consensus"]))
+        print(f"round {t} (tree): loss {losses[-1]:.6f} (main path "
+              f"{main['losses'][t]:.6f}) grad_norm {gnorms[-1]!r} (main "
+              f"{main['grad_norms'][t]!r}) Xi {xis[-1]!r} (main "
+              f"{main['xis'][t]!r}) {times[-1]:.3f}s; device memory peak so "
+              f"far {torch.cuda.max_memory_allocated()} bytes", flush=True)
+    rel = {name: max(abs(a - b) / abs(b) for a, b in zip(ours, main[key]))
+           for name, ours, key in (("loss", losses, "losses"),
+                                   ("grad_norm", gnorms, "grad_norms"))}
+    params = state["params"]
+    leaves, skel = tree_flatten(params)
+    same = all(torch.equal(x[k], x[0]) for x in leaves for k in range(1, M))
+    xi = float(consensus.consensus_distance(params))
+    with torch.no_grad():
+        merged = float(model.loss_fn(gossip.merged_model(params), eval_batch,
+                                     None)[0])
+        local = float(torch.mean(torch.stack([
+            model.loss_fn(tree_unflatten(skel, [x[k] for x in leaves]),
+                          eval_batch, None)[0] for k in range(M)])))
+    print(f"tree path: largest relative difference from the main path over "
+          f"the rounds {json.dumps(rel)} (tolerance {TREE_RTOL}); after the "
+          f"final merge the rows are identical: {same}, "
+          f"consensus.consensus_distance {xi!r}; eval merged {merged!r} "
+          f"local {local!r}", flush=True)
+    check(all(v <= TREE_RTOL for v in rel.values()),
+          f"tree path: rounds differ from the main path's by {rel}")
+    check(xi < 1e-3, f"tree path: Xi after the final merge is {xi!r}")
+    check(abs(merged - local) <= 1e-5 and math.isfinite(merged),
+          f"tree path: merged eval {merged!r} against local {local!r}")
+    del state, params, leaves
+    torch.cuda.empty_cache()
+    mix_before = launch_counts()["gossip_mix"]
+    target = gossip.merged_model(pre_merge)
+    t0 = time.perf_counter()
+    approx, gxis = gossip_merge_rounds(
+        pre_merge, topology.make_sampler("exponential", M), int(np.log2(M)),
+        np.random.default_rng(0), return_xi=True)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    mixes = launch_counts()["gossip_mix"] - mix_before
+    err = max(float(torch.max(torch.abs(a - tgt[None]))) for a, tgt in zip(
+        tree_flatten(approx)[0], tree_flatten(target)[0]))
+    scale = max(float(torch.max(torch.abs(tgt)))
+                for tgt in tree_flatten(target)[0])
+    del approx, target, pre_merge
+    torch.cuda.empty_cache()
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"gossip_merge_rounds (tree path, {int(np.log2(M))} rounds of the "
+          f"exponential graph): max |err| {err!r} against gossip.merged_model "
+          f"(max |theta| {scale!r}); Xi trace {gxis.tolist()}; "
+          f"{mixes} gossip_mix launches; {dt:.3f}s", flush=True)
+    print(f"kernels (tree) {json.dumps(counts)}", flush=True)
+    print(f"tree path: rounds (s) {times}; peak device memory {peak} bytes",
+          flush=True)
+    check(mixes == counts["gossip_mix"] == int(np.log2(M)),
+          f"tree path: {counts['gossip_mix']} gossip_mix launches, not "
+          f"{int(np.log2(M))}")
+    check(counts["panel_mean_consensus"] >= 1,
+          f"tree path: no panel_mean_consensus launch: {counts}")
+    check(err <= 1e-4 * scale,
+          f"tree path: the gossip merge is {err!r} from the merged model")
+    return counts, {"losses": losses, "grad_norms": gnorms, "xis": xis,
+                    "peak": peak, "width": width, "times": times,
+                    "merged": merged, "local": local}
+
+
+def figure_phase(torch):
+    """Phase 8: the paper's figures on the card (repro_torch.bench.figures),
+    their CSV lines, the reference tests' claims on them, and Fig. 1 on the
+    CPU from the same init (the plain versions) within 0.01 of the card's
+    accuracies. Returns the card's derived values."""
+    from repro_torch.bench import figures
+    t0 = time.perf_counter()
+    got = {}
+    for name, fn in figures.BENCHES:
+        us, derived = fn(device="cuda")
+        got[name] = derived
+        print(f"figure {figures.csv_line(name, us, derived)}", flush=True)
+    t_card = time.perf_counter() - t0
+    fig1, c34 = (got["fig1_single_global_merging"],
+                 got["appendix_c34_gossip_merge"])
+    claims = {
+        "fig1 merged > local + 0.05 and > 0.30": (
+            fig1["gossip_merged_acc"] > fig1["gossip_local_acc"] + 0.05
+            and fig1["gossip_merged_acc"] > 0.30),
+        "fig1 local-only merged < 0.25": fig1["localonly_merged_acc"] < 0.25,
+        "fig2c gap with communication > without": (
+            got["fig2c_counterfactual_mergeability"]["mean_gap_comm"]
+            > got["fig2c_counterfactual_mergeability"]["mean_gap_nocomm"]),
+        "C.3.4 3-round gossip merge within 0.01 of the exact merge": abs(
+            c34["gossip_3r"] - c34["exact_merge"]) <= 0.01,
+        "Cor. D.2 bound satisfied": bool(
+            got["corollary_d2_consensus_bound"]["satisfied"]),
+        "Table 1 ratio finite": math.isfinite(
+            got["table1_convergence_rates"]["ratio"])}
+    t0 = time.perf_counter()
+    _, cpu = figures.fig1_single_global_merging(device="cpu")
+    t_cpu = time.perf_counter() - t0
+    accs = ("gossip_local_acc", "gossip_merged_acc", "localonly_merged_acc")
+    diff = {k: round(abs(cpu[k] - fig1[k]), 4) for k in accs}
+    print(f"figures: {t_card:.1f}s on the card; claims {json.dumps(claims)}; "
+          f"fig1 on the CPU {json.dumps(cpu)} ({t_cpu:.1f}s), |card - cpu| "
+          f"{json.dumps(diff)}", flush=True)
+    for what, ok in claims.items():
+        check(ok, f"figures: the card does not hold '{what}': {got}")
+    check(all(v <= 0.01 for v in diff.values()),
+          f"figures: fig1 on the CPU {cpu} is not within 0.01 of the card's "
+          f"{fig1}")
+    return got
 
 
 def zero_v_count(torch, opt, sts):
@@ -1646,7 +1839,11 @@ def main():
     small_parity(torch)
     counts, records = {}, {}
     for path in PATH_KERNELS:
-        counts[path], records[path] = drive_path(torch, path)
+        if path == "tree":
+            counts[path], records[path] = drive_tree_path(torch,
+                                                          records["f32"])
+        else:
+            counts[path], records[path] = drive_path(torch, path)
         check(records[path]["width"] == D,
               f"{path} path D {records[path]['width']} != checked D {D}")
         if path == "residency int8 unfused":
@@ -1655,7 +1852,9 @@ def main():
             records[path].pop("panel")
             records[path].pop("opt")
             torch.cuda.empty_cache()
-    for path, base in (("int8_ef native", "int8_ef"), ("faults", "f32")):
+    figure_phase(torch)
+    for path, base in (("int8_ef native", "int8_ef"), ("faults", "f32"),
+                       ("tree", "f32")):
         a, b = records[path], records[base]
         print(f"{path} against {base}: rounds (s) {a['times']} against "
               f"{b['times']}; peak {a['peak']} against {b['peak']} bytes "

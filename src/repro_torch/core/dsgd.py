@@ -1,10 +1,23 @@
-"""Decentralized training engine, panel state (Algorithm 1 of the paper;
-counterpart of ``repro/core/dsgd.py``).
+"""Decentralized training engine (Algorithm 1 of the paper; counterpart of
+``repro/core/dsgd.py``).
 
-Parameters and AdamW moments live as persistent per-dtype (m, D) panels
-(core/panel.py). One round is H local steps per agent — per-agent gradients
-of the agent's own batch, then the optimizer on the whole panel — followed
-by the round's communication:
+Two state layouts:
+
+* **Tree state** (:func:`init_state` + :func:`make_dsgd_step` /
+  :func:`make_dsgd_round`, and the parallel-SGD baseline
+  :func:`init_parallel_state` + :func:`make_parallel_step`) — every
+  parameter leaf carries a leading (m,) agent axis; the optimizer runs on a
+  flat dict of the agent-stacked leaves (each seen as an (m, size) view,
+  updated in place) and the mix is per leaf (``gossip.*_tree``: plain
+  ``torch.tensordot``). The reference's figure harness runs on it
+  (``repro_torch.bench``).
+* **Panel state** (:func:`init_panel_state` + :func:`make_panel_segment`),
+  the hot path of the launcher, described below.
+
+Panel state: parameters and AdamW moments live as persistent per-dtype (m,
+D) panels (core/panel.py). One round is H local steps per agent —
+per-agent gradients of the agent's own batch, then the optimizer on the
+whole panel — followed by the round's communication:
 
 * W == I (an idle round): nothing travels and no codec runs (no draw, the
   error-feedback panel passes through untouched); the consensus distance
@@ -88,7 +101,9 @@ import torch
 
 from repro_torch import residency as residency_mod
 from repro_torch import wire as wire_mod
+from repro_torch.core import gossip
 from repro_torch.core import panel as panel_mod
+from repro_torch.core.consensus import consensus_distance_tree
 from repro_torch.core.faults import LIVE, RESYNC
 from repro_torch.kernels.opt_fused import adamw_fused_int8
 from repro_torch.device import resolve_device
@@ -96,7 +111,7 @@ from repro_torch.merging import get_merger, merge_panel
 from repro_torch.optim.optim import Optimizer
 from repro_torch.residency import storage_generators
 from repro_torch.telemetry.metrics import fused_moments_auto
-from repro_torch.utils.tree import tree_unflatten
+from repro_torch.utils.tree import tree_flatten, tree_unflatten
 
 
 def _generator(rng, device):
@@ -110,6 +125,285 @@ def _wire_any(spec, flag: str) -> bool:
     """Whether the codec of any dtype group sets ``flag`` (``needs_key``,
     ``error_feedback`` or ``delta_mix``)."""
     return any(getattr(wire_mod.get_codec(c), flag) for _, c in spec.wire)
+
+
+# ---------------------------------------------------------------------------
+# Tree state: every parameter leaf (m, ...), one local step per agent per
+# call (make_dsgd_step) or H of them (make_dsgd_round), then the mix.
+# ---------------------------------------------------------------------------
+
+
+def _init_agent_params(init_params: Callable, m: int, gen, same_init: bool):
+    """The agent-stacked tree: ``init_params(gen)`` drawn once per agent in
+    turn (the paper's independent inits), or once and copied to every row
+    (``same_init``: theta_k^0 = theta^0, the theory's setting). The stack
+    is allocated once and filled a row at a time; its rows are real copies
+    (the optimizer updates them in place)."""
+    first, skel = tree_flatten(init_params(gen))
+    stacked = [torch.empty((m,) + tuple(x.shape), dtype=x.dtype,
+                           device=x.device) for x in first]
+    for k in range(m):
+        row = first if k == 0 or same_init else tree_flatten(
+            init_params(gen))[0]
+        for s, x in zip(stacked, row):
+            s[k].copy_(x)
+        del row
+    del first
+    return tree_unflatten(skel, stacked)
+
+
+def _opt_view(tree, stacked: bool = True):
+    """The optimizer's flat dict of a parameter (or gradient) tree: leaf i
+    as an (m, size) view of the agent-stacked leaf (``stacked``) or a (size,)
+    view of a single model's leaf. The optimizer's elementwise update runs
+    on the views, in place, a column chunk at a time."""
+    return {f"{i:04d}": (x.view(x.shape[0], -1) if stacked else x.view(-1))
+            for i, x in enumerate(tree_flatten(tree)[0])}
+
+
+def init_state(init_params: Callable, optimizer: Optimizer, m: int,
+               gen=None, same_init: bool = False):
+    """Agent-stacked train state {"params", "opt", "step"}.
+
+    ``init_params(gen)`` returns one agent's parameter tree and is called
+    once per agent in turn (once with ``same_init``). Handing over another
+    package's initial rows is the same argument: a callable that returns
+    them in turn."""
+    params = _init_agent_params(init_params, m, gen, same_init)
+    return {"params": params, "opt": optimizer.init(_opt_view(params)),
+            "step": 0}
+
+
+def _tree_wire_check(wire) -> bool:
+    """Validate a codec for the tree-state drivers when they are built
+    (error feedback needs the panel engine's residual state); returns
+    whether the codec rounds stochastically."""
+    if wire is None:
+        return False
+    codec = wire_mod.get_codec(wire)
+    if codec.error_feedback:
+        raise ValueError(
+            f"codec '{codec.name}' needs an error-feedback residual; the "
+            "tree-state drivers carry none — use the panel engine "
+            "(make_panel_segment + init_panel_state(wire=...)) or 'int8'")
+    return codec.needs_key
+
+
+def _wire_gen(rng, needs_key: bool, device):
+    if not needs_key:
+        return None
+    if rng is None:
+        raise ValueError("the wire codec rounds stochastically and needs "
+                         "rng= (a torch.Generator or an integer seed)")
+    return _generator(rng, device)
+
+
+def _mix(params, W, impl: str, wire_dtype, wire=None, gen=None):
+    """The round's per-leaf communication. For impl == "pairwise" the W
+    argument IS the (m,) partner array (``topology.partner_array``)."""
+    if impl == "dense":
+        if wire_dtype is None and wire is None:
+            return gossip.mix_dense_tree(params, W)
+        # W == I rounds communicate nothing, so no codec may touch the
+        # state (the panel engine's idle guard; pairwise idles per row
+        # inside mix_pairwise_tree)
+        Wh = np.asarray(torch.as_tensor(W, dtype=torch.float32).cpu())
+        if np.array_equal(Wh, np.eye(Wh.shape[0], dtype=np.float32)):
+            return params
+        return gossip.mix_dense_tree(params, W, wire_dtype, wire, gen)
+    if impl == "pairwise":
+        return gossip.mix_pairwise_tree(params, W, wire_dtype=wire_dtype,
+                                        wire=wire, gen=gen)
+    if impl == "merge":
+        return gossip.global_merge_tree(params, wire_dtype, wire, gen)
+    if impl == "none":
+        return params
+    raise ValueError(impl)
+
+
+def _agent_batch(batch, k):
+    """Agent k's batch out of a tree (tensor, tuple, list or dict) of (m,
+    b, ...) leaves."""
+    if isinstance(batch, dict):
+        return {key: _agent_batch(v, k) for key, v in batch.items()}
+    if isinstance(batch, (tuple, list)):
+        return type(batch)(_agent_batch(v, k) for v in batch)
+    return batch[k]
+
+
+def _batch_to(batch, device):
+    if isinstance(batch, dict):
+        return {key: _batch_to(v, device) for key, v in batch.items()}
+    if isinstance(batch, (tuple, list)):
+        return type(batch)(_batch_to(v, device) for v in batch)
+    return torch.as_tensor(batch).to(device)
+
+
+def tree_grads(loss_fn: Callable, params, batch, m: Optional[int] = None):
+    """Per-agent gradients: (agent-stacked gradient tree, losses (m,)).
+
+    Agent k's loss is differentiated on its own batch (``batch`` leaves (m,
+    b, ...)) at its rows of the agent-stacked ``params`` (detached views),
+    one agent at a time as ``panel_grads`` does; its gradient leaves are
+    written into row k. With ``m`` the ``params`` are ONE shared model (the
+    parallel-SGD baseline) differentiated on each of the m batches."""
+    leaves, skel = tree_flatten(params)
+    shared = m is not None
+    m = m if shared else leaves[0].shape[0]
+    dev = leaves[0].device
+    grads = [torch.empty((m,) + tuple(x.shape if shared else x.shape[1:]),
+                         dtype=x.dtype, device=dev) for x in leaves]
+    losses = torch.empty((m,), dtype=torch.float32, device=dev)
+    batch = _batch_to(batch, dev)
+    for k in range(m):
+        ps = [(x if shared else x[k]).detach().requires_grad_(True)
+              for x in leaves]
+        loss, _ = loss_fn(tree_unflatten(skel, ps), _agent_batch(batch, k),
+                          None)
+        for out, g in zip(grads, torch.autograd.grad(loss, ps,
+                                                     allow_unused=True)):
+            if g is None:
+                out[k].zero_()
+            else:
+                out[k].copy_(g)
+        losses[k] = loss.detach()
+        del ps, loss
+    return tree_unflatten(skel, grads), losses
+
+
+def _mean_grad_norm(grads):
+    """Norm of the agent-mean gradient (the grad_norm metric)."""
+    leaves = tree_flatten(grads)[0]
+    total = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+    for g in leaves:
+        total = total + torch.sum(torch.square(torch.mean(g, dim=0)))
+    return torch.sqrt(total)
+
+
+def _local_update(loss_fn, optimizer, params, opt, batch):
+    """One local step of every agent: per-agent gradients, then the
+    optimizer on the stacked leaves, in place. Returns (opt, losses (m,),
+    grad norm of the agent mean)."""
+    grads, losses = tree_grads(loss_fn, params, batch)
+    _, opt = optimizer.update(_opt_view(grads), opt, _opt_view(params))
+    return opt, losses, _mean_grad_norm(grads)
+
+
+def make_dsgd_step(loss_fn: Callable, optimizer: Optimizer, *,
+                   gossip_impl: str = "dense", wire_dtype=None, wire=None,
+                   monitor: bool = True):
+    """One communication round with ONE local step per agent.
+
+    step(state, batch, W, rng=None) -> (state, metrics); batch leaves (m, b,
+    ...) (tensors or numpy arrays); W (m, m). With gossip_impl="pairwise"
+    pass the (m,) partner array as W; "merge" is the global merge, "none"
+    no communication. ``wire`` names a codec of ``repro_torch.wire`` for
+    the payload (a stochastic one draws from ``rng``: a torch.Generator or
+    an integer seed); ``wire_dtype`` is the legacy payload cast (e.g.
+    torch.bfloat16). Error-feedback codecs are panel-engine-only and are
+    refused here. Metrics: ``loss`` (mean over agents) and, with
+    ``monitor``, ``grad_norm`` (of the agent-mean gradient) and
+    ``consensus`` (Xi of the mixed tree, ``consensus_distance_tree``).
+
+    The state's parameter leaves and moments are updated in place (the
+    caller's state is consumed, as the panel segment consumes its own);
+    the mix makes the new parameter leaves."""
+    needs_key = _tree_wire_check(wire)
+
+    def step(state, batch, W, rng=None):
+        params = state["params"]
+        dev = tree_flatten(params)[0][0].device
+        gen = _wire_gen(rng, needs_key, dev)
+        opt, losses, gn = _local_update(loss_fn, optimizer, params,
+                                        state["opt"], batch)
+        mixed = _mix(params, W, gossip_impl, wire_dtype, wire, gen)
+        metrics = {"loss": torch.mean(losses)}
+        if monitor:
+            metrics["grad_norm"] = gn
+            metrics["consensus"] = consensus_distance_tree(mixed)
+        return {"params": mixed, "opt": opt, "step": state["step"] + 1}, \
+            metrics
+
+    return step
+
+
+def make_dsgd_round(loss_fn: Callable, optimizer: Optimizer,
+                    local_steps: int, *, gossip_impl: str = "dense",
+                    wire_dtype=None, wire=None, monitor: bool = True):
+    """One communication round with H local steps (paper: H = 100).
+
+    step(state, batches, W, rng=None): batches leaves (H, m, b, ...).
+    ``wire`` / ``wire_dtype`` as in :func:`make_dsgd_step`. Metrics:
+    ``loss`` and ``grad_norm`` (means over the H local steps),
+    ``grad_norm_max`` (their max: a spike at any local step shows) and,
+    with ``monitor``, ``consensus`` of the mixed tree."""
+    needs_key = _tree_wire_check(wire)
+
+    def round_fn(state, batches, W, rng=None):
+        params, opt = state["params"], state["opt"]
+        dev = tree_flatten(params)[0][0].device
+        gen = _wire_gen(rng, needs_key, dev)
+        losses, gns = [], []
+        for h in range(local_steps):
+            opt, agent_losses, gn = _local_update(
+                loss_fn, optimizer, params, opt,
+                _agent_batch(batches, h))
+            losses.append(torch.mean(agent_losses))
+            gns.append(gn)
+        mixed = _mix(params, W, gossip_impl, wire_dtype, wire, gen)
+        gns = torch.stack(gns)
+        metrics = {"loss": torch.mean(torch.stack(losses)),
+                   "grad_norm": torch.mean(gns),
+                   "grad_norm_max": torch.max(gns)}
+        if monitor:
+            metrics["consensus"] = consensus_distance_tree(mixed)
+        return {"params": mixed, "opt": opt,
+                "step": state["step"] + local_steps}, metrics
+
+    return round_fn
+
+
+def make_parallel_step(loss_fn: Callable, optimizer: Optimizer):
+    """Parallel SGD / FedAvg(H=1) baseline: one shared model; the gradients
+    of the m per-agent batches are averaged every step (the paper's
+    reference rate O(sigma^2/(m eps^2) + 1/eps)).
+
+    step(state, batch, rng=None) -> (state, {"loss"}); the model is updated
+    in place."""
+
+    def step(state, batch, rng=None):
+        params = state["params"]
+        grads, losses = tree_grads(loss_fn, params, batch,
+                                   m=_first_leaf(batch).shape[0])
+        gbar = {k: torch.mean(g, dim=0)
+                for k, g in _opt_view(grads).items()}
+        del grads
+        _, opt = optimizer.update(gbar, state["opt"],
+                                  _opt_view(params, stacked=False))
+        return {"params": params, "opt": opt, "step": state["step"] + 1}, \
+            {"loss": torch.mean(losses)}
+
+    return step
+
+
+def _first_leaf(batch):
+    while isinstance(batch, (dict, tuple, list)):
+        batch = (batch[sorted(batch)[0]] if isinstance(batch, dict)
+                 else batch[0])
+    return batch
+
+
+def init_parallel_state(init_params: Callable, optimizer: Optimizer,
+                        gen=None):
+    """The parallel baseline's state: ONE model, ``init_params(gen)``."""
+    p = init_params(gen)
+    return {"params": p, "opt": optimizer.init(_opt_view(p, stacked=False)),
+            "step": 0}
+
+
+# ---------------------------------------------------------------------------
+# Panel state.
+# ---------------------------------------------------------------------------
 
 
 def _res_plan(spec):

@@ -8,14 +8,16 @@ are tested against), :func:`counterfactual_eval` evaluates the
 hypothetical merged model without touching training state (Fig. 2c's
 merged-model curve), and their panel counterparts
 :func:`merged_panel_tree` / :func:`counterfactual_eval_panel` work on the
-engine's panel state. The scanned gossip approximation of the final merge
-(``gossip_merge_rounds``, Appendix C.3.4) comes in a later slice.
+engine's panel state, and :func:`gossip_merge_rounds` approximates the final
+merge by rounds of gossip (Appendix C.3.4).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch import merging as merging_mod
+from repro_torch import wire as wire_mod
 from repro_torch.core import panel as panel_mod
 from repro_torch.utils.tree import tree_flatten, tree_map
 
@@ -79,3 +81,40 @@ def counterfactual_eval_panel(eval_fn, panel, spec, merger=None, stats=None,
     return eval_fn(merged_panel_tree(panel, spec, merger=merger,
                                      stats=stats, weights=weights,
                                      live=live))
+
+
+def gossip_merge_rounds(params_stacked, sampler, rounds: int, rng,
+                        wire=None, gen=None, return_xi: bool = False):
+    """Approximate the final global merging by ``rounds`` rounds of gossip
+    on a (e.g. exponential) topology: paper Appendix C.3.4.
+
+    Panelises once, samples every W^(t) = ``sampler(t, rng)`` up front with
+    numpy, and runs the folded-mean mix (``panel.mix_dense_mean``, the
+    engine's round primitive: the ``gossip_mix`` kernel on the card, one
+    launch a round and dtype group) for each round. ``wire`` names a codec
+    of ``repro_torch.wire`` for the payload (a stochastic one draws from
+    ``gen``); error-feedback codecs are refused, since this stateless path
+    carries no residual. ``return_xi=True`` also returns the (rounds,)
+    consensus-distance trace read off the folded mean
+    (``panel.consensus_from_mean``): how fast the approximation converges
+    to the true merge."""
+    spec = panel_mod.make_spec(params_stacked)
+    if wire is not None:
+        if wire_mod.get_codec(wire).error_feedback:
+            raise ValueError(
+                f"codec '{wire}' needs an error-feedback residual, which "
+                "this stateless approximation path cannot carry; use the "
+                "panel engine (dsgd.make_panel_segment) or 'int8'")
+        spec = panel_mod.with_wire(spec, wire)
+    Ws = [np.asarray(sampler(t, rng), np.float32) for t in range(rounds)]
+    pan = panel_mod.to_panel(params_stacked, spec)
+    xis = []
+    for W in Ws:
+        pan, mean, _ = panel_mod.mix_dense_mean(pan, W, spec=spec, gen=gen)
+        xis.append(panel_mod.consensus_from_mean(pan, mean))
+        del mean
+    out = panel_mod.from_panel(pan, spec)
+    if not return_xi:
+        return out
+    return out, (torch.stack(xis) if xis else torch.zeros(
+        0, device=next(iter(pan.values())).device))

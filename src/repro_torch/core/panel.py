@@ -12,6 +12,8 @@ The communication ops run one fused op per dtype group:
 * :func:`mix_dense` / :func:`mix_dense_mean` — Theta <- W Theta through the
   ``gossip_mix`` kernel; ``mix_dense_mean`` appends a 1^T/m row to W so the
   column mean comes out of the same sweep.
+* :func:`mix_pairwise` — theta_k <- (1-w) theta_k + w theta_{partner[k]} for
+  a (partial) matching: one row gather and one weighted sum per group.
 * :func:`global_merge`, :func:`merged` / :func:`consensus_distance` — the
   column mean and the consensus distance Xi through the
   ``panel_mean_consensus`` kernel; with ``live=`` (an elastic run's (m,)
@@ -32,10 +34,11 @@ panel through ``sparsify_topk``, mixed in damped delta form).
 
 The residency policy of the state panels (:func:`with_residency`,
 ``repro_torch.residency``) is named on the spec too; it never applies to
-the parameter panels. The communication ops take float32 parameter
-groups: groups of another dtype come with the architecture families that
-have them, and the legacy ``wire_dtype`` cast and sharded panels with
-later slices.
+the parameter panels. The reference's legacy ``wire_dtype=`` argument (a
+cast of the payload, e.g. bf16) is taken by every communication op in place
+of a spec policy; passing both raises. The dense mix takes float32
+parameter groups: groups of another dtype come with the architecture
+families that have them, and sharded panels with a later slice.
 
 On CUDA tensors the kernel wrappers launch the Hopper kernels; on CPU
 tensors they run the plain versions.
@@ -281,9 +284,17 @@ def _device_w(W, device):
                            device=device).contiguous()
 
 
-def _codecs(panel, spec: Optional[PanelSpec]):
-    """Codec of each dtype group for one communication op: the spec's wire
-    policy, else the float32 identity (shared with merging.merge_panel)."""
+def _codecs(panel, spec: Optional[PanelSpec], wire_dtype=None):
+    """Codec of each dtype group for one communication op: the legacy
+    ``wire_dtype`` cast when given (it refuses to combine with a spec
+    policy: one compression authority a call), else the spec's wire policy,
+    else the float32 identity (shared with merging.merge_panel)."""
+    if wire_dtype is not None:
+        if spec is not None and spec.wire:
+            raise ValueError("pass either wire_dtype= (legacy cast) or a "
+                             "spec wire policy (with_wire), not both")
+        c = wire_mod.dtype_codec(wire_dtype)
+        return {k: c for k in panel}
     if spec is not None and spec.wire:
         return {k: wire_mod.get_codec(spec.wire_of(k)) for k in panel}
     f32 = wire_mod.CODECS["f32"]
@@ -308,7 +319,7 @@ def _idle_rows(W, m):
 
 
 def _mix_dense_groups(panel, W, *, with_mean, spec=None, gen=None,
-                      err=None):
+                      err=None, wire_dtype=None):
     """Shared body of mix_dense / mix_dense_mean: (mixed, means or None,
     new_err or None).
 
@@ -329,7 +340,7 @@ def _mix_dense_groups(panel, W, *, with_mean, spec=None, gen=None,
     W32 = _device_w(W, x0.device)
     if W32.shape != (m, m):
         raise ValueError(f"W must be ({m}, {m}), got {tuple(W32.shape)}")
-    codecs = _codecs(panel, spec)
+    codecs = _codecs(panel, spec, wire_dtype)
     _require_gen(codecs, gen)
     lossy = any(not isinstance(c, wire_mod.F32Codec)
                 for c in codecs.values())
@@ -379,39 +390,88 @@ def _mix_dense_groups(panel, W, *, with_mean, spec=None, gen=None,
     return mixed, means, new_err
 
 
-def mix_dense(panel, W, *, spec: Optional[PanelSpec] = None, gen=None,
-              err=None):
+def mix_dense(panel, W, *, wire_dtype=None, spec: Optional[PanelSpec] = None,
+              gen=None, err=None):
     """Theta <- W Theta, one float32 sweep per dtype group, the payload
-    compressed by the spec's wire policy (stochastic codecs draw from
-    ``gen``). Passing ``err=`` (the error-feedback panel, {group: (m, D_g)
-    f32}) switches the return to ``(mixed, new_err)``."""
+    compressed by the spec's wire policy or the legacy ``wire_dtype`` cast
+    (stochastic codecs draw from ``gen``). Passing ``err=`` (the
+    error-feedback panel, {group: (m, D_g) f32}) switches the return to
+    ``(mixed, new_err)``."""
     mixed, _, new_err = _mix_dense_groups(panel, W, with_mean=False,
-                                          spec=spec, gen=gen, err=err)
+                                          spec=spec, gen=gen, err=err,
+                                          wire_dtype=wire_dtype)
     return mixed if err is None else (mixed, new_err)
 
 
-def mix_dense_mean(panel, W, *, spec: Optional[PanelSpec] = None, gen=None,
-                   err=None):
+def mix_dense_mean(panel, W, *, wire_dtype=None,
+                   spec: Optional[PanelSpec] = None, gen=None, err=None):
     """mix_dense with the consensus mean folded into the mixing sweep.
 
     Returns ``(mixed, mean, new_err)`` — mean is {group: (D_g,) f32}, the
     column mean of the mixed panel (exact for doubly-stochastic W), ready
     for :func:`consensus_from_mean`; new_err is None when ``err`` is."""
     return _mix_dense_groups(panel, W, with_mean=True, spec=spec, gen=gen,
-                             err=err)
+                             err=err, wire_dtype=wire_dtype)
 
 
-def global_merge(panel, *, spec: Optional[PanelSpec] = None, gen=None,
-                 err=None):
+def _lerp(xw, peer, weight):
+    """(1-w) xw + w peer in the payload's dtype, the weights first rounded
+    to it (as the reference's weakly typed scalars are)."""
+    a, b = (torch.tensor(v, dtype=xw.dtype, device=xw.device)
+            for v in (1.0 - weight, weight))
+    return a * xw + b * peer
+
+
+def mix_pairwise(panel, partner, weight=0.5, *, wire_dtype=None,
+                 spec: Optional[PanelSpec] = None, gen=None, err=None):
+    """theta_k <- (1-w) theta_k + w theta_{partner[k]}: one row gather and
+    one weighted sum per dtype group. partner[k] == k means agent k idles
+    this round: idle rows keep their EXACT parameters (and error-feedback
+    rows), since nothing of theirs travels. The payload goes through the
+    codecs of :func:`mix_dense`; a delta (mirror) codec pulls toward the
+    partner's mirror, x + gamma w (x̂_partner - x̂), keeping the
+    untransmitted rest of x. ``err=`` switches the return to ``(mixed,
+    new_err)``."""
+    codecs = _codecs(panel, spec, wire_dtype)
+    _require_gen(codecs, gen)
+    x0 = next(iter(panel.values()))
+    m = x0.shape[0]
+    part = np.asarray(torch.as_tensor(partner).cpu(), np.int64).reshape(m)
+    idle = np.flatnonzero(part == np.arange(m)).tolist()
+    index = torch.as_tensor(part, device=x0.device)
+    mixed, new_err = {}, ({} if err is not None else None)
+    for k in sorted(panel):
+        x = panel[k]
+        e = err[k] if err is not None else None
+        xw, back, ne = codecs[k].encode(x, gen=gen, err=e)
+        peer = torch.index_select(xw, 0, index)
+        if codecs[k].delta_mix:
+            y = back(x.to(torch.float32)
+                     + codecs[k].gamma * weight * (peer - xw))
+        else:
+            y = back(_lerp(xw, peer, weight))
+        del xw, peer
+        for r in idle:
+            y[r].copy_(x[r])
+            if e is not None:
+                ne[r].copy_(e[r])
+        mixed[k] = y
+        if err is not None:
+            new_err[k] = ne
+    return mixed if err is None else (mixed, new_err)
+
+
+def global_merge(panel, *, wire_dtype=None, spec: Optional[PanelSpec] = None,
+                 gen=None, err=None):
     """theta_k <- mean_l theta_l for every row, the payload through the
     spec's wire policy — EXCEPT delta (mirror) codecs: the global merge is
     their full-bandwidth round, so the exact panel travels and the mirror
     resets to the merged state. It is ``merging.merge_panel`` under the
-    uniform operator. ``err=`` switches the return to ``(mixed,
-    new_err)``."""
+    uniform operator; ``wire_dtype`` as in :func:`mix_dense`. ``err=``
+    switches the return to ``(mixed, new_err)``."""
     from repro_torch.merging import merge_panel  # merging imports panel
     mixed, _, new_err = merge_panel(panel, "uniform", spec=spec, gen=gen,
-                                    err=err)
+                                    err=err, wire_dtype=wire_dtype)
     return mixed if err is None else (mixed, new_err)
 
 
@@ -457,6 +517,12 @@ def merged(panel, live=None):
         out[k] = panel_mean_consensus(sub.to(torch.float32))[0]
         del sub
     return out
+
+
+def merged_tree(panel, spec: PanelSpec):
+    """The averaged model as a (non-stacked) tree with float32 leaves: the
+    panel counterpart of ``gossip.merged_model``."""
+    return from_panel(merged(panel), spec, cast=False)
 
 
 def consensus_distance(panel, live=None):

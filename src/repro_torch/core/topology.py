@@ -5,6 +5,10 @@ topology is "random R": each agent activates an exchange with one random
 peer with probability R (R=0.2 in the main experiments); we realise this as
 a random partial matching — pairs average 50/50, unmatched agents keep their
 parameters (W row = e_k).
+
+``spectral_p(W)`` and ``expected_p(sampler, ...)`` estimate the
+consensus-contraction constant p of Assumption 1: for a fixed W it is
+1 - lambda_2(W^T W), for a randomized topology it comes from E[W W^T].
 """
 from __future__ import annotations
 
@@ -79,6 +83,46 @@ def random_matching(m: int, prob: float, rng: np.random.Generator
         W[a, a] = W[b, b] = 0.5
         W[a, b] = W[b, a] = 0.5
     return W
+
+
+def partner_array(W: np.ndarray) -> np.ndarray:
+    """For pairwise-matching W: partner[k] (or k itself if idle)."""
+    m = W.shape[0]
+    partner = np.arange(m)
+    for k in range(m):
+        for l in range(m):
+            if l != k and W[k, l] > 0:
+                partner[k] = l
+    return partner
+
+
+def is_doubly_stochastic(W: np.ndarray, tol=1e-8) -> bool:
+    return (np.all(W >= -tol)
+            and np.allclose(W.sum(0), 1.0, atol=tol)
+            and np.allclose(W.sum(1), 1.0, atol=tol))
+
+
+def spectral_p(W: np.ndarray) -> float:
+    """p from Assumption 1 for a fixed W: 1 - lambda_max(W^T W) on 1^perp."""
+    m = W.shape[0]
+    P = np.eye(m) - np.full((m, m), 1.0 / m)
+    M = P @ (W.T @ W) @ P
+    lam = np.max(np.linalg.eigvalsh(0.5 * (M + M.T)))
+    return float(1.0 - min(max(lam, 0.0), 1.0))
+
+
+def expected_p(sampler, m: int, rounds: int, rng) -> float:
+    """Monte-Carlo estimate of p for a randomized topology: uses
+    E_W[||Theta W - Thetabar||^2] = Tr(Theta P E[W W^T] P Theta^T)."""
+    acc = np.zeros((m, m))
+    for t in range(rounds):
+        W = sampler(t, rng)
+        acc += W @ W.T
+    E = acc / rounds
+    P = np.eye(m) - np.full((m, m), 1.0 / m)
+    M = P @ E @ P
+    lam = np.max(np.linalg.eigvalsh(0.5 * (M + M.T)))
+    return float(1.0 - min(max(lam, 0.0), 1.0))
 
 
 def degrade_to_live(W: np.ndarray, live) -> np.ndarray:

@@ -336,7 +336,7 @@ def decode_stats(stats, spec):
 
 
 def merge_panel(panel, merger, *, stats=None, weights=None, spec=None,
-                gen=None, err=None, live=None):
+                gen=None, err=None, live=None, wire_dtype=None):
     """One global merge ROUND: every agent transmits its panel through the
     spec's wire policy (as ``panel.global_merge``: stochastic codecs draw
     from ``gen``, error feedback threads ``err``), the operator folds the
@@ -351,6 +351,9 @@ def merge_panel(panel, merger, *, stats=None, weights=None, spec=None,
     the parameter wire, so nothing is quantized and the error-feedback
     state passes through untouched.
 
+    ``wire_dtype`` is the reference's legacy payload cast, in place of the
+    spec's wire policy (``panel._codecs``).
+
     ``live`` ((m,) bool) makes the round elastic: only live rows feed the
     operator and receive the broadcast; a dead agent's parameter row and
     its error-feedback (residual or mirror) row pass through bit for bit.
@@ -362,7 +365,7 @@ def merge_panel(panel, merger, *, stats=None, weights=None, spec=None,
     stats = decode_stats(stats, spec)
     enc, backs = {}, {}
     if merger.uses_panel:
-        codecs = panel_mod._codecs(panel, spec)
+        codecs = panel_mod._codecs(panel, spec, wire_dtype)
         panel_mod._require_gen(codecs, gen)
         new_err = {} if err is not None else None
         for k in sorted(panel):

@@ -98,3 +98,49 @@ def test_configs_identical():
         assert cfg.padded_vocab == ref_cfg.padded_vocab
         assert repr(cfg) == repr(ref_cfg)
     assert get_config("olmo-1b").padded_vocab == 50432
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+def test_synthetic_classification_byte_identical(seed):
+    """The figure harness's data: the blobs, the Dirichlet partitions and a
+    stream of per-agent batches from one default_rng, byte for byte."""
+    kw = dict(num_classes=10, dim=32, n_train=4096, n_test=1024, seed=seed)
+    ref = ref_synthetic.SyntheticClassification(**kw)
+    port = synthetic.SyntheticClassification(**kw)
+    for name in ("centers", "x_train", "y_train", "x_test", "y_test"):
+        a, b = getattr(ref, name), getattr(port, name)
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), name
+    pa, pb = ref.partition(8, 0.1, seed=seed + 1), port.partition(
+        8, 0.1, seed=seed + 1)
+    assert len(pa) == len(pb) == 8
+    for x, y in zip(pa, pb):
+        assert x.tobytes() == y.tobytes()
+    ra, rb = np.random.default_rng(seed), np.random.default_rng(seed)
+    for _ in range(5):
+        xa, ya = ref_synthetic.make_agent_batches(ref, pa, 32, ra)
+        xb, yb = synthetic.make_agent_batches(port, pb, 32, rb)
+        assert xa.shape == (8, 32, 32) and xa.tobytes() == xb.tobytes()
+        assert ya.dtype == yb.dtype and ya.tobytes() == yb.tobytes()
+
+
+@pytest.mark.parametrize("m", [2, 4, 8, 16])
+def test_topology_diagnostics_identical(m):
+    """partner_array, is_doubly_stochastic, spectral_p and expected_p: the
+    same floats, exactly."""
+    rng = np.random.default_rng(m)
+    mats = [ref_topology.random_matching(m, 0.7, rng) for _ in range(3)]
+    mats += [ref_topology.ring(m), ref_topology.exponential(m),
+             ref_topology.fully_connected(m), ref_topology.identity(m),
+             np.full((m, m), 0.5)]
+    for W in mats:
+        assert (ref_topology.partner_array(W).tobytes()
+                == topology.partner_array(W).tobytes())
+        assert (ref_topology.is_doubly_stochastic(W)
+                == topology.is_doubly_stochastic(W))
+        assert ref_topology.spectral_p(W) == topology.spectral_p(W)
+    for kind in ("random", "ring", "exponential", "full", "none"):
+        a = ref_topology.expected_p(ref_topology.make_sampler(kind, m, 0.2),
+                                    m, 50, np.random.default_rng(1))
+        b = topology.expected_p(topology.make_sampler(kind, m, 0.2), m, 50,
+                                np.random.default_rng(1))
+        assert a == b, kind

@@ -119,3 +119,22 @@ def test_chip_smoke_refuses_without_a_card(tmp_path):
             env={**os.environ, "CUDA_VISIBLE_DEVICES": "", "PYTHONPATH": ""})
         assert out.returncode != 0
         assert '"ok"' not in out.stdout
+
+
+def test_figures_cli_without_device_raises(no_gpu, capsys):
+    """``python -m repro_torch.bench.figures`` raises with no card and
+    prints no result line."""
+    from repro_torch.bench import figures
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        figures.main(["appendix_c34"])
+    assert "us_per_call" not in capsys.readouterr().out
+
+
+def test_figures_cli_on_cpu_when_asked(no_gpu, capsys):
+    from repro_torch.bench import figures
+    assert figures.main(["appendix_c34", "--device", "cpu"]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert lines[0] == "name,us_per_call,derived"
+    assert len(lines) == 2
+    assert lines[1].startswith("appendix_c34_gossip_merge,")
+    assert "ERROR" not in lines[1]
