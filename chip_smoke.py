@@ -9,7 +9,8 @@ Phases, each printing its lines:
      (one nvcc per source, all started together);
   3. hold each kernel against its plain PyTorch version on the card, at odd
      widths and at the main path's own shapes, and time kernel, plain
-     version, byte bound and the one PyTorch call that computes the same
+     version (the median of PLAIN_REPS calls; the kernel and the library
+     call of REPS), byte bound and the one PyTorch call that computes the same
      function where there is one (torch.matmul for the mix, on float32 and
      on bf16 operands, torch.quantize_per_channel and dequantize() for
      round-to-nearest int8; none for grouped int4, nibble packing or the
@@ -48,6 +49,8 @@ Phases, each printing its lines:
      (agent 2 dead in round 1 and rejoining in round 2, agent 5 dead from
      round 2: the final merge is over 7 agents), its dead row bit for bit,
      the live rows identical, the live Xi 0 and merged == live local eval;
+     then, each in SIDE_ROUNDS rounds (two gossip rounds and the merge;
+     the main and elastic paths take ROUNDS),
      the wire paths: the same cell with --wire int8_ef, then int8_ef with
      the kernel's draws (an Int8Codec(draws="kernel") instance: the
      on-chip-seeded quantize, no uniform panel; its rounds and peak printed
@@ -74,6 +77,30 @@ Phases, each printing its lines:
      and peak printed;
   each path of 5, 6 and 7 with the launch counts set to 0 just before it
   and read just after, and its peak device memory;
+  9. (run right after phase 5, on its final state) the merged model saved
+     and served: the main path's state merged as launch/train.py
+     --save-merged merges it (the reduce kernel), saved with
+     checkpoint.save, restored into an init of another seed and held bit
+     for bit against the in-memory merged model (blob bytes, save and
+     restore seconds); then the ServingEngine on the restored model
+     (SERVE_C slots, SERVE_REQUESTS requests with prompts of SERVE_PROMPTS
+     tokens in turn, SERVE_NEW new tokens each, a warmup then reset()),
+     with dense prefill and with attn_block SERVE_BLOCK prefill (the flash
+     attention forward kernel), and the same traffic on olmo-1b at its
+     published depth (16 layers, ~4.7 GB of float32 parameters, the port's
+     own init) with attn_block SERVE_BLOCK: per run tok/s, TTFT p50/p99,
+     decode step p50 beside its byte bound, per-token p50, occupancy, peak
+     device memory and the flash forward launches; checked: no OOV id, the
+     greedy tokens of two requests (one at 16 layers) equal generate of
+     each alone (the in-memory merged model for the restored one), the
+     flash forward launched exactly once a layer a prefill, the attn_block
+     run's prefill logits within 2e-5 (+ 2e-5 relative) of the dense
+     run's and its greedy tokens equal to the dense run's in every
+     request, and SERVE_PROBE decode
+     steps of a batch of SERVE_C against each row alone (the largest logit
+     difference and the smallest top-1/top-2 gap printed); the launch
+     counts of the merge and of each engine run (its warmup included, the
+     checks not) summed into the kernels line's ``launches_serve``;
   8. the figure harness (repro_torch.bench.figures): its 8 functions on the
      card, their CSV lines, the reference tests' claims (Fig. 1's merge gain
      and local-only merge, Fig. 2c's gaps, App. C.3.4's 3-round gossip
@@ -105,9 +132,11 @@ TF32_SPLIT_FLOPS = 495e12 / 3  # TF32 tensor cores, 3 products a float32 one
 
 M = 8                 # agents
 ROUNDS, H = 4, 2      # rounds, local steps per round
+SIDE_ROUNDS = 3       # rounds of the phase-6 paths but faults (2 + merge)
 BATCH, SEQ = 4, 512
 DATA_VOCAB = 1024     # token ids the synthetic streams draw (of 50304)
 REPS = 20             # timed launches per measurement
+PLAIN_REPS = 5        # timed calls of a plain version (10-1000x slower)
 # the attn_block path's input: olmo-1b's context length, blocks of 512 keys
 # (the dry-run's flashxla value: 4 key blocks a row)
 ATTN_BLOCK, ATTN_BATCH, ATTN_SEQ = 512, 2, 2048
@@ -126,6 +155,13 @@ FAULTS = "2@1-2;5@2"
 # main path, round by round: the per-leaf sums of the grad norm run in
 # another order than the panel's (loss and grad norm, relative)
 TREE_RTOL = 1e-5
+# the serve phase's traffic: SERVE_C slots, SERVE_REQUESTS requests whose
+# prompts take SERVE_PROMPTS tokens in turn (olmo-1b's context and half of
+# it), SERVE_NEW new tokens each; attn_block prefill at SERVE_BLOCK; the
+# batch-independence probe's decode steps
+SERVE_C, SERVE_REQUESTS, SERVE_NEW = 8, 16, 128
+SERVE_PROMPTS = (2048, 1024)
+SERVE_BLOCK, SERVE_SEED, SERVE_PROBE = 512, 0, 8
 
 PATH_KERNELS = {"f32": ("gossip_mix", "panel_mean_consensus"),
                 "faults": ("gossip_mix", "panel_mean_consensus"),
@@ -243,7 +279,8 @@ def kernel_checks(torch, D_main):
         red_bytes = 4 * (M * D + D + 1)
         red_ops = 5 * M * D
         ms = time_ms(torch, lambda: gossip_mix(Wm, theta))
-        plain = time_ms(torch, lambda: gossip_mix_ref(Wm, theta))
+        plain = time_ms(torch, lambda: gossip_mix_ref(Wm, theta),
+                        reps=PLAIN_REPS, warmup=1)
         lib = time_ms(torch, lambda: torch.matmul(Wm, theta))
         b_ms, b_by = bound(mix_bytes, mix_ops)
         out["gossip_mix"] = {
@@ -256,13 +293,15 @@ def kernel_checks(torch, D_main):
         Wm16 = Wm.to(torch.bfloat16)
         out["gossip_mix_bf16"] = {
             "ms": time_ms(torch, lambda: gossip_mix(Wm, theta16)),
-            "plain_ms": time_ms(torch, lambda: gossip_mix_ref(Wm, theta16)),
+            "plain_ms": time_ms(torch, lambda: gossip_mix_ref(Wm, theta16),
+                                reps=PLAIN_REPS, warmup=1),
             "library_ms": time_ms(torch, lambda: torch.matmul(Wm16,
                                                               theta16)),
             "bytes": mix16_bytes, "ops": mix_ops, "bound_ms": b_ms,
             "bound_by": b_by}
         ms = time_ms(torch, lambda: panel_mean_consensus(theta))
-        plain = time_ms(torch, lambda: panel_mean_consensus_ref(theta))
+        plain = time_ms(torch, lambda: panel_mean_consensus_ref(theta),
+                        reps=PLAIN_REPS, warmup=1)
         b_ms, b_by = bound(red_bytes, red_ops)
         out["panel_mean_consensus"] = {
             "ms": ms, "plain_ms": plain, "library_ms": None,
@@ -378,7 +417,8 @@ def wire_checks(torch, D_main):
         for name, (fn, plain, nbytes, ops) in cases.items():
             b_ms, b_by = bound(nbytes, ops)
             out[name] = {"ms": time_ms(torch, fn),
-                         "plain_ms": time_ms(torch, plain),
+                         "plain_ms": time_ms(torch, plain, reps=PLAIN_REPS,
+                                               warmup=1),
                          "library_ms": None, "bytes": nbytes, "ops": ops,
                          "bound_ms": b_ms, "bound_by": b_by,
                          "max_abs_err": 0.0}
@@ -637,7 +677,8 @@ def int4_checks(torch, D_main):
         for name, (fn, plain, nbytes, ops) in cases.items():
             b_ms, b_by = bound(nbytes, ops)
             out[name] = {"ms": time_ms(torch, fn),
-                         "plain_ms": time_ms(torch, plain),
+                         "plain_ms": time_ms(torch, plain, reps=PLAIN_REPS,
+                                               warmup=1),
                          "library_ms": None, "bytes": nbytes, "ops": ops,
                          "bound_ms": b_ms, "bound_by": b_by,
                          "max_abs_err": 0.0}
@@ -678,7 +719,8 @@ def merge_checks(torch, D_main):
             out["weighted_colmerge"] = {
                 "ms": time_ms(torch, lambda: weighted_colmerge(x, w)),
                 "plain_ms": time_ms(torch,
-                                    lambda: weighted_colmerge_ref(x, w)),
+                                    lambda: weighted_colmerge_ref(x, w),
+                                    reps=PLAIN_REPS, warmup=1),
                 "library_ms": None, "bytes": nbytes, "ops": ops,
                 "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": 0.0}
         del w
@@ -725,7 +767,8 @@ def merge_checks(torch, D_main):
             out["ties_colmerge"] = {
                 "ms": time_ms(torch, lambda: ties_colmerge(tau, th)),
                 "plain_ms": time_ms(torch,
-                                    lambda: ties_colmerge_ref(tau, th)),
+                                    lambda: ties_colmerge_ref(tau, th),
+                                    reps=PLAIN_REPS, warmup=1),
                 "library_ms": None, "bytes": nbytes, "ops": ops,
                 "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": 0.0,
                 "thresholds_s": secs[0.2]}
@@ -869,7 +912,9 @@ def residency_checks(torch, D_main):
                 for name, (fn, plain, nbytes, ops) in timed.items():
                     b_ms, b_by = bound(nbytes, ops)
                     out[name] = {"ms": time_ms(torch, fn),
-                                 "plain_ms": time_ms(torch, plain),
+                                 "plain_ms": time_ms(
+                                     torch, plain, reps=PLAIN_REPS,
+                                     warmup=1),
                                  "library_ms": None, "bytes": nbytes,
                                  "ops": ops, "bound_ms": b_ms,
                                  "bound_by": b_by, "max_abs_err": 0.0}
@@ -994,8 +1039,9 @@ def flash_checks(torch):
     show no local memory and at least 8 warps an SM; then the forward kernel (float32 and bfloat16)
     and the backward kernels against their plain versions (the online loop,
     and torch autograd through it) at odd sizes (S = 100, hd 64 and 128, a
-    window, GQA) and at the attn_block path's shape (B 2, S 2048, H 16, hd
-    128) and a GQA one (H 32 on Kv 8). Tolerances: float32 output and lse
+    window, GQA), at the attn_block path's shape (B 2, S 2048, H 16, hd
+    128), a GQA one (H 32 on Kv 8) and the serve path's prefills (B 1, S
+    1024 and 2048, H 16, hd 128). Tolerances: float32 output and lse
     2e-5, gradients 1e-4, bfloat16 output 2e-2 (other summation orders).
     Times at the path's shape: kernel, plain version, the bound on the
     kernels' split-TF32 route (three TF32 products a float32 operation over
@@ -1029,6 +1075,10 @@ def flash_checks(torch):
              (1, 100, 2, 1, 128, 48, torch.bfloat16),
              (ATTN_BATCH, ATTN_SEQ, 16, 16, 128, None, torch.float32),
              (ATTN_BATCH, ATTN_SEQ, 32, 8, 128, None, torch.float32)]
+    # the serve path's prefills (phase 9): one request a call, a prompt of
+    # each bucket
+    cases += [(1, S, 16, 16, 128, None, torch.float32)
+              for S in sorted(SERVE_PROMPTS)]
     for B, S, Hq, Kv, hd, window, dtype in cases:
         q = torch.randn((B, S, Hq, hd), generator=gen, device=dev)
         k = torch.randn((B, S, Kv, hd), generator=gen, device=dev)
@@ -1071,7 +1121,7 @@ def flash_checks(torch):
             line += f"; backward max|err| {eb:.3g} (rel l2 {rel:.3g})"
             del g, rg
         print(line, flush=True)
-        if S == ATTN_SEQ and Hq == 16:
+        if B == ATTN_BATCH and S == ATTN_SEQ and Hq == 16:
             pairs = visible_pairs(S, True, window)
             n_q, n_kv, rows = B * S * Hq * hd, B * S * Kv * hd, B * Hq * S
             cost = {"flash_attention_fwd": (
@@ -1357,10 +1407,11 @@ def drive_path(torch, path):
             cfg.dist, attn_block=int(path.split()[1])))
         batch, seq = ATTN_BATCH, ATTN_SEQ
     model = build_model(cfg)
+    rounds = ROUNDS if path in ("f32", "faults") else SIDE_ROUNDS
     opt = make_optimizer("adamw", 3e-3, weight_decay=5e-4,
-                         total_steps=ROUNDS * H)
+                         total_steps=rounds * H)
     plan = FAULTS if path == "faults" else None
-    per_round, eval_batch = segment_inputs(cfg, M, ROUNDS,
+    per_round, eval_batch = segment_inputs(cfg, M, rounds,
                                            data_vocab=DATA_VOCAB,
                                            batch=batch, seq=seq, faults=plan)
     eval_batch = to_device(eval_batch, dev)
@@ -1479,7 +1530,7 @@ def drive_path(torch, path):
               "peak": peak, "width": spec.width,
               "merged": merged, "local": local, "times": times}
     if cfg.dist.attn_block:
-        check(counts["flash_attention_bwd"] == ROUNDS * H * M * cfg.num_layers
+        check(counts["flash_attention_bwd"] == rounds * H * M * cfg.num_layers
               and counts["flash_attention_fwd"] >= counts[
                   "flash_attention_bwd"],
               f"{path}: flash attention launches {counts} are not one "
@@ -1494,6 +1545,8 @@ def drive_path(torch, path):
         record["panel"] = state["panel"]
         record["opt"] = state["opt"]
         record["zero_v"] = zero_v
+    if path == "f32":  # the serve phase merges, saves and serves it
+        record["state"], record["spec"] = state, spec
     del state, seg
     torch.cuda.empty_cache()
     return counts, record
@@ -1667,6 +1720,318 @@ def figure_phase(torch):
     return got
 
 
+def tree_nbytes(tree):
+    if isinstance(tree, dict):
+        return sum(tree_nbytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def serve_requests(cfg, n, seed=SERVE_SEED):
+    """The serve phase's traffic: ``n`` requests, prompts of SERVE_PROMPTS
+    tokens in turn (two buckets), ids drawn as launch/serve.py draws them,
+    SERVE_NEW new tokens each."""
+    from repro_torch.launch.serve import request_tokens
+    from repro_torch.serving import Request
+    return [Request(rid=i, tokens=request_tokens(
+        cfg, seed, i, SERVE_PROMPTS[i % len(SERVE_PROMPTS)]),
+        max_new=SERVE_NEW) for i in range(n)]
+
+
+def decode_bound_ms(cfg, params, C, live_keys):
+    """The least time of one decode step over C slots: every weight read
+    once, plus the keys and values the step's queries attend to
+    (``live_keys`` of them, summed over the C slots: the cache positions
+    each slot holds), over the memory rate; the logits (C, padded vocab)
+    written once."""
+    a = cfg.attn
+    kv = 2 * live_keys * cfg.num_layers * a.num_kv_heads * a.head_dim * 4
+    nbytes = tree_nbytes(params) + kv + C * cfg.padded_vocab * 4
+    return 1e3 * nbytes / HBM_BYTES_PER_S, nbytes
+
+
+def batch_probe(torch, model, params, reqs, max_len, steps=SERVE_PROBE):
+    """Batch independence on the card: the C prompts of ``reqs`` prefilled
+    one at a time and put in the slots of one cache, then ``steps`` decode
+    steps over all C slots against each row decoded alone (B = 1), both fed
+    the lone rows' greedy tokens. Returns (max |logit difference|, the
+    smallest top-1/top-2 gap of the lone rows' masked logits, the steps
+    whose greedy token differs)."""
+    from repro_torch.serving import make_decode_fn, make_prefill_fn, mask_oov
+    from repro_torch.serving.engine import _tree_insert
+    dev = torch.device("cuda")
+    C = len(reqs)
+    prefill = make_prefill_fn(model, max_len=max_len)
+    decode = make_decode_fn(model)
+    batched = model.init_cache(C, max_len, device=dev)
+    rows, last, pos = [], [], []
+    for i, r in enumerate(reqs):
+        logits, row = prefill(params, {"tokens": torch.from_numpy(
+            r.tokens[None]).to(dev)})
+        _tree_insert(batched, row, i)
+        rows.append(row)
+        last.append(int(torch.argmax(mask_oov(logits, model.cfg.vocab_size))))
+        pos.append(len(r.tokens))
+    diff, gap, flips = 0.0, math.inf, 0
+    for _ in range(steps):
+        tok = torch.tensor(last, dtype=torch.int32, device=dev)[:, None]
+        idx = torch.tensor(pos, dtype=torch.int32, device=dev)
+        lb, _ = decode(params, batched, tok, idx)
+        lb = mask_oov(lb, model.cfg.vocab_size)
+        for i in range(C):
+            li, _ = decode(params, rows[i], tok[i:i + 1], pos[i])
+            li = mask_oov(li, model.cfg.vocab_size)[0]
+            fin = torch.isfinite(li)
+            diff = max(diff, float(torch.max(torch.abs(lb[i][fin] - li[fin]))))
+            top2 = torch.topk(li, 2).values
+            gap = min(gap, float(top2[0] - top2[1]))
+            flips += int(torch.argmax(lb[i]) != torch.argmax(li))
+            last[i] = int(torch.argmax(li))
+            pos[i] += 1
+    return diff, gap, flips
+
+
+def serve_run(torch, label, model, params, merged_ref=None, checked=2):
+    """One engine run of the serve phase: SERVE_C slots, warmed up on one
+    request of each prompt bucket (4 new tokens; then reset), SERVE_REQUESTS
+    requests
+    timed; the launch counts set to 0 before the warmup and read after the
+    timed run. Then the checks: no id >= vocab_size, and the greedy tokens
+    of the first ``checked`` requests equal ``generate`` of each alone (on
+    ``merged_ref``
+    when given, the in-memory merged model the engine's restored params
+    came from). Returns (counts, record, the served tokens by request)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving import ServingEngine, generate
+    cfg = model.cfg
+    dev = torch.device("cuda")
+    max_len = max(SERVE_PROMPTS) + SERVE_NEW
+    reqs = serve_requests(cfg, SERVE_REQUESTS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    eng = ServingEngine(model, params, max_concurrency=SERVE_C,
+                        max_len=max_len)
+    warm = serve_requests(cfg, len(SERVE_PROMPTS), seed=SERVE_SEED + 1)
+    for r in warm:
+        r.max_new = 4
+    eng.serve(warm)
+    eng.reset()
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = eng.serve(reqs)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    snap = eng.snapshot()
+    lat = snap["latency"]
+    n_tok = sum(len(v) for v in out.values())
+    b_ms, b_bytes = decode_bound_ms(
+        cfg, params, SERVE_C,
+        sum(len(r.tokens) + SERVE_NEW // 2 for r in reqs[:SERVE_C]))
+    rec = {"tok_s": n_tok / dt, "seconds": dt, "tokens": n_tok,
+           "ticks": snap["ticks"], "occupancy": snap["occupancy"],
+           "ttft_p50_ms": 1e3 * lat["ttft_s"]["p50_s"],
+           "ttft_p99_ms": 1e3 * lat["ttft_s"]["p99_s"],
+           "queue_p50_ms": 1e3 * lat["queue_wait_s"]["p50_s"],
+           "decode_step_p50_ms": 1e3 * lat["decode_step_s"]["p50_s"],
+           "per_token_p50_ms": 1e3 * lat["per_token_s"]["p50_s"],
+           "decode_bound_ms": b_ms, "decode_bound_bytes": b_bytes,
+           "peak": peak, "held": held, "warmup_s": t_warm,
+           "flash_fwd": counts["flash_attention_fwd"]}
+    print(f"serve ({label}): {cfg.num_layers} layers, attn_block "
+          f"{cfg.dist.attn_block}, {SERVE_C} slots, {SERVE_REQUESTS} "
+          f"requests of {SERVE_PROMPTS} prompt tokens, {SERVE_NEW} new: "
+          f"{rec['tok_s']:.1f} tok/s ({n_tok} tokens in {dt:.3f}s, "
+          f"{snap['ticks']} ticks) | ttft p50/p99 {rec['ttft_p50_ms']:.1f}/"
+          f"{rec['ttft_p99_ms']:.1f} ms | queue p50 {rec['queue_p50_ms']:.1f}"
+          f" ms | decode step p50 {rec['decode_step_p50_ms']:.3f} ms (bound "
+          f"{b_ms:.3f} ms: {b_bytes} bytes) | per-token p50 "
+          f"{rec['per_token_p50_ms']:.3f} ms | occupancy "
+          f"{snap['occupancy']:.4f} | peak device memory {peak} bytes "
+          f"({held} held before) | warmup {t_warm:.1f}s | flash forward "
+          f"launches {rec['flash_fwd']}", flush=True)
+    print(f"kernels (serve {label}) {json.dumps(counts)}", flush=True)
+    oov = [rid for rid, v in out.items()
+           if not ((v >= 0) & (v < cfg.vocab_size)).all()]
+    check(not oov, f"serve ({label}): requests {oov} emitted an OOV id")
+    check(len(out) == SERVE_REQUESTS and all(
+        len(v) == SERVE_NEW for v in out.values()),
+        f"serve ({label}): not every request got {SERVE_NEW} tokens")
+    check(snap["occupancy"] > 0.9,
+          f"serve ({label}): occupancy {snap['occupancy']}")
+    same = []
+    for r in reqs[:checked]:
+        alone = generate(model, params if merged_ref is None else merged_ref,
+                         {"tokens": torch.from_numpy(r.tokens[None]).to(dev)},
+                         SERVE_NEW, max_len=max_len)[0]
+        same.append(bool((alone == out[r.rid]).all()))
+    diff, gap, flips = batch_probe(torch, model, params, reqs[:SERVE_C],
+                                   max_len)
+    rec.update(logit_diff=diff, min_gap=gap, flips=flips)
+    print(f"serve ({label}): greedy tokens of the first {checked} "
+          f"requests equal generate alone: {same}; batch of {SERVE_C} "
+          f"against each row "
+          f"alone over {SERVE_PROBE} decode steps: max |logit difference| "
+          f"{diff!r}, smallest top-1/top-2 gap {gap!r}, argmax flips "
+          f"{flips}", flush=True)
+    check(all(same), f"serve ({label}): the engine's greedy tokens differ "
+                     f"from generate alone")
+    del eng
+    torch.cuda.empty_cache()
+    return counts, rec, out
+
+
+def prefill_agreement(torch, dense, blockwise, params, reqs, max_len):
+    """The attn_block model's prefill logits (the flash attention forward
+    kernel) against the dense model's (plain ``_sdpa``) on the same
+    restored params and prompts, one request a call as the engine
+    prefills: max |difference| and whether every one is within the phase-3
+    float32 tolerance (2e-5 absolute + 2e-5 relative)."""
+    from repro_torch.serving import make_prefill_fn
+    fd = make_prefill_fn(dense, max_len=max_len)
+    fb = make_prefill_fn(blockwise, max_len=max_len)
+    diff, ok = 0.0, True
+    for r in reqs:
+        batch = {"tokens": torch.from_numpy(r.tokens[None]).cuda()}
+        ld, _ = fd(params, batch)
+        lb, _ = fb(params, batch)
+        diff = max(diff, float(torch.max(torch.abs(ld - lb))))
+        ok = ok and torch.allclose(lb, ld, atol=2e-5, rtol=2e-5)
+    return diff, ok
+
+
+def serve_phase(torch, state, spec):
+    """Phase 9, the merged model saved and served (run on the main path's
+    final state, right after it): the merged model (``merged_panel_tree``,
+    the reduce kernel, as launch/train.py --save-merged takes it) saved with
+    checkpoint.save, restored into a fresh init of another seed, every leaf
+    held bit for bit against the in-memory merged tree; then the
+    ServingEngine on the restored model with dense prefill and with
+    attn_block SERVE_BLOCK prefill (the flash attention forward kernel,
+    once a layer a prefill), the two runs held against each other
+    (prefill_agreement, and their greedy tokens equal), and the whole
+    published olmo-1b (16 layers, the port's own init) with attn_block
+    SERVE_BLOCK (serve_run). Returns (counts summed over its runs,
+    records)."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.checkpoint import restore, save
+    from repro_torch.configs import get_config
+    from repro_torch.core import merge as merge_mod
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import build_model
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    total = {}
+
+    def add(c):
+        for k, v in c.items():
+            total[k] = total.get(k, 0) + v
+
+    reset_launch_counts()
+    merged = merge_mod.merged_panel_tree(state["panel"], spec,
+                                         stats=state.get("merge_stat"))
+    del state
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix=".serve_ckpt_", dir=ROOT)
+    try:
+        path = os.path.join(tmp, "merged.ckpt")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save(path, merged)
+        t_save = time.perf_counter() - t0
+        add(launch_counts())
+        nbytes = os.path.getsize(path)
+        cfg2 = get_config("olmo-1b").replace(num_layers=2)
+        model = build_model(cfg2)
+        template = model.init_params(
+            torch.Generator(device=dev).manual_seed(1), dev)
+        t0 = time.perf_counter()
+        restored = restore(path, template)
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del template
+    same = tree_equal(torch, restored, merged)
+    print(f"serve: merged model ({spec.merger}) saved to a "
+          f"{nbytes}-byte blob ({tree_nbytes(merged)} bytes of float32 "
+          f"leaves) in {t_save:.3f}s, restored into an init of another seed "
+          f"in {t_restore:.3f}s; every leaf equal to the in-memory merged "
+          f"model bit for bit: {same}; launches {json.dumps(total)}",
+          flush=True)
+    check(same, "serve: the restored model differs from the merged one")
+    check(total["panel_mean_consensus"] == 1,
+          f"serve: the merge launched {total}")
+    records = {"save_s": t_save, "restore_s": t_restore, "bytes": nbytes}
+    # one flash forward launch a layer a prefill: every timed request and
+    # the warmup's one of each bucket
+    prefills = SERVE_REQUESTS + len(SERVE_PROMPTS)
+    models, served = {}, {}
+    for label, blk in (("dense", 0), (f"attn_block {SERVE_BLOCK}",
+                                      SERVE_BLOCK)):
+        models[blk] = build_model(cfg2.replace(dist=dataclasses.replace(
+            cfg2.dist, attn_block=blk)))
+        c, records[label], served[blk] = serve_run(
+            torch, label, models[blk], restored, merged)
+        add(c)
+        want = prefills * cfg2.num_layers if blk else 0
+        check(c["flash_attention_fwd"] == want,
+              f"serve ({label}): {c['flash_attention_fwd']} flash forward "
+              f"launches, not {want}")
+    diff, close = prefill_agreement(
+        torch, models[0], models[SERVE_BLOCK], restored,
+        serve_requests(cfg2, SERVE_C), max(SERVE_PROMPTS) + SERVE_NEW)
+    same = [rid for rid, v in served[0].items()
+            if np.array_equal(v, served[SERVE_BLOCK][rid])]
+    print(f"serve: attn_block {SERVE_BLOCK} prefill (flash forward) against "
+          f"dense prefill on the restored model, {SERVE_C} prompts of "
+          f"{SERVE_PROMPTS} tokens: max |logit difference| {diff!r} "
+          f"(within 2e-5 + 2e-5 relative: {close}); greedy tokens equal "
+          f"between the two runs in {len(same)} of {SERVE_REQUESTS} "
+          f"requests", flush=True)
+    check(close, f"serve: attn_block prefill logits differ from dense by "
+                 f"{diff}")
+    check(len(same) == SERVE_REQUESTS,
+          "serve: the attn_block run's greedy tokens differ from the dense "
+          "run's")
+    del restored, merged, models, served
+    torch.cuda.empty_cache()
+    full = get_config("olmo-1b")
+    full = full.replace(dist=dataclasses.replace(full.dist,
+                                                 attn_block=SERVE_BLOCK))
+    model = build_model(full)
+    t0 = time.perf_counter()
+    params = model.init_params(torch.Generator(device=dev).manual_seed(2),
+                               dev)
+    torch.cuda.synchronize()
+    print(f"serve: olmo-1b at its published depth ({full.num_layers} "
+          f"layers, d_model {full.d_model}, vocab {full.vocab_size} padded "
+          f"to {full.padded_vocab}): {tree_nbytes(params)} bytes of float32 "
+          f"parameters, initialised on the card in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    label = f"olmo-1b {full.num_layers} layers, attn_block {SERVE_BLOCK}"
+    c, records["full"], _ = serve_run(torch, label, model, params,
+                                      checked=1)
+    add(c)
+    want = prefills * full.num_layers
+    check(c["flash_attention_fwd"] == want,
+          f"serve ({label}): {c['flash_attention_fwd']} flash forward "
+          f"launches, not {want}")
+    del params
+    torch.cuda.empty_cache()
+    print(f"serve phase: {time.perf_counter() - t_phase:.1f}s", flush=True)
+    return total, records
+
+
 def zero_v_count(torch, opt, sts):
     """Entries whose decoded second moment v is 0 while the decoded first
     moment m is not, over the stored grouped-int8 moments ``opt`` (storages
@@ -1829,14 +2194,23 @@ def main():
     cfg = get_config("olmo-1b").replace(num_layers=2)
     D = panel_mod.make_spec(build_model(cfg).init_params(None, "meta"),
                             rows=M).width
-    measured = kernel_checks(torch, D)
-    measured.update(wire_checks(torch, D))
-    measured.update(native_checks(torch, D))
-    measured.update(int4_checks(torch, D))
-    measured.update(merge_checks(torch, D))
-    measured.update(residency_checks(torch, D))
+    t_mark = [time.perf_counter()]
+
+    def lap(what):
+        now = time.perf_counter()
+        print(f"time: {what} {now - t_mark[0]:.1f}s (script "
+              f"{now - t_start:.1f}s)", flush=True)
+        t_mark[0] = now
+
+    measured = {}
+    for checks in (kernel_checks, wire_checks, native_checks, int4_checks,
+                   merge_checks, residency_checks):
+        measured.update(checks(torch, D))
+        lap(f"phase 3 {checks.__name__}")
     measured.update(flash_checks(torch))
+    lap("phase 3 flash_checks")
     small_parity(torch)
+    lap("phase 4")
     counts, records = {}, {}
     for path in PATH_KERNELS:
         if path == "tree":
@@ -1844,6 +2218,12 @@ def main():
                                                           records["f32"])
         else:
             counts[path], records[path] = drive_path(torch, path)
+        lap(f"path {path}")
+        if path == "f32":
+            counts["serve"], _ = serve_phase(torch,
+                                             records[path].pop("state"),
+                                             records[path].pop("spec"))
+            lap("phase 9")
         check(records[path]["width"] == D,
               f"{path} path D {records[path]['width']} != checked D {D}")
         if path == "residency int8 unfused":
@@ -1853,6 +2233,7 @@ def main():
             records[path].pop("opt")
             torch.cuda.empty_cache()
     figure_phase(torch)
+    lap("phase 8")
     for path, base in (("int8_ef native", "int8_ef"), ("faults", "f32"),
                        ("tree", "f32")):
         a, b = records[path], records[base]
@@ -1912,7 +2293,8 @@ def main():
                "launches": run[name], "max_abs_err": r["max_abs_err"],
                "ms": r["ms"], "plain_ms": r["plain_ms"],
                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-               "library_ms": r["library_ms"]}
+               "library_ms": r["library_ms"],
+               "launches_serve": counts["serve"][name]}
         for extra in ("sq_rel_err", "max_abs_err_bf16", "supplied"):
             if extra in r:
                 row[extra] = r[extra]

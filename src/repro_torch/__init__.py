@@ -1,8 +1,10 @@
 """PyTorch/CUDA port of the decentralized-learning system in ``repro``.
 
 The package mirrors the JAX package's layout (configs, data, core, models,
-optim, kernels, merging, launch) and runs its main path — decentralized
-training with the single final global merge — on an NVIDIA Hopper card.
+optim, kernels, merging, residency, wire, checkpoint, serving, telemetry,
+launch) and runs its main path — decentralized training with the single
+final global merge, then the merged model saved and served — on an NVIDIA
+Hopper card.
 The two Pallas kernels of that path are CUDA C++ kernels for ``sm_90a``
 under ``kernels/csrc``; on CPU tensors their wrappers take the plain
 PyTorch versions in ``kernels/ref.py``.

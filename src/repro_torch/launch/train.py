@@ -6,7 +6,8 @@ per-agent local AdamW/SGD steps, scheduled gossip, and the single final
 global merge, on the panel engine (core/dsgd.py), under any wire codec
 (``--wire``), merge operator (``--merge``) and residency policy of the
 state panels (``--residency``, ``--fused-moments``), and under a fault plan
-(``--faults``: agents that die and rejoin, the elastic run). It draws the
+(``--faults``: agents that die and rejoin, the elastic run), and saves the
+merged model for serving (``--save-merged``). It draws the
 schedule's mixing matrices and the batches from the same numpy seeds, in
 the same order, as the reference launcher, so both see byte-identical W
 streams and batches.
@@ -27,6 +28,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import save
 from repro_torch.configs import get_config
 from repro_torch.core import dsgd
 from repro_torch.core import faults as faults_mod
@@ -153,6 +155,11 @@ def main(argv=None):
                     help="Dirichlet heterogeneity")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default="results/torch_train")
+    ap.add_argument("--save-merged", default="",
+                    help="after the run, save the model merged by the run's "
+                         "merge operator (over the agents alive at the end) "
+                         "to this checkpoint file (repro_torch.checkpoint; "
+                         "launch/serve.py --restore serves it)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' to "
                          "run on the CPU)")
@@ -286,6 +293,14 @@ def main(argv=None):
     with open(path, "w") as f:
         json.dump({"args": vars(args), "history": history}, f, indent=1)
     print(f"history: {path}")
+    if args.save_merged:
+        # merge with the RUN'S operator (+ its stats), not the uniform mean:
+        # the checkpoint is the model whose merged eval the history reports;
+        # under a fault plan only the agents alive at the end contribute
+        save(args.save_merged, merge_mod.merged_panel_tree(
+            state["panel"], spec, stats=state.get("merge_stat"),
+            live=alive_after(args.rounds - 1)))
+        print(f"saved {spec.merger}-merged model to", args.save_merged)
     return history
 
 

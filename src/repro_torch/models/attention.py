@@ -1,10 +1,18 @@
-"""GQA/MQA attention in train mode (counterpart of ``repro/models/attention.py``).
+"""GQA/MQA attention in train, prefill and decode modes (counterpart of
+``repro/models/attention.py``).
 
 Scores, the additive mask bias and the softmax are float32; the mask is the
 reference's additive ``NEG_INF`` bias, not a boolean fill, so the padded
 positions carry exactly the same numbers as in the reference. With
-``cfg.dist.attn_block > 0`` attention takes the blockwise online-softmax
-route instead (``_sdpa_blockwise``), as in the reference.
+``cfg.dist.attn_block > 0`` train and prefill attention take the blockwise
+online-softmax route instead (``_sdpa_blockwise``), as in the reference.
+
+Decode uses the reference's cache layout ``{"k", "v", "pos"}``: ``pos``
+holds the absolute position of each cache slot (-1 = empty, masked), and a
+sliding window allocates only ``window`` slots written round-robin (slot =
+pos mod W). The reference returns an updated copy of a donated cache; here
+decode writes the new key, value and position into the given cache tensors
+in place and returns the same dict.
 """
 from __future__ import annotations
 
@@ -88,11 +96,15 @@ def _sdpa_blockwise(q, k, v, q_pos, k_pos, *, causal, window, scale,
 
 
 def gqa_forward(params, x, *, cfg: ModelConfig, lspec: LayerSpec,
-                positions, mode: str = "train", causal=True):
-    """Returns (y, None). Only ``mode="train"`` is ported in this slice."""
-    if mode != "train":
-        raise NotImplementedError(
-            f"gqa_forward mode {mode!r}: the port runs train mode only")
+                positions, mode: str = "train", cache=None, causal=True,
+                cache_max_len=None):
+    """Returns (y, new_cache). mode in {"train", "prefill", "decode"}:
+    train returns no cache; prefill a fresh one sized ``cache_max_len``
+    (default S); decode (S == 1, ``positions`` (B, 1), each row at its own
+    depth) writes into ``cache`` in place and returns it."""
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"gqa_forward mode {mode!r}: train, prefill or "
+                         "decode")
     a = cfg.attn
     B, S, _ = x.shape
     q = (x @ params["wq"]).reshape(B, S, a.num_heads, a.head_dim)
@@ -101,13 +113,71 @@ def gqa_forward(params, x, *, cfg: ModelConfig, lspec: LayerSpec,
     q = _rope_q_or_k(q, positions, a)
     k = _rope_q_or_k(k, positions, a)
     scale = 1.0 / math.sqrt(a.head_dim)
-    pos_b = torch.broadcast_to(positions, (B, S))
-    if cfg.dist.attn_block:
-        y = _sdpa_blockwise(q, k, v, pos_b, pos_b, causal=causal,
-                            window=lspec.window, scale=scale,
-                            block=cfg.dist.attn_block)
+    new_cache = None
+    if mode == "decode":
+        # every row writes at its OWN absolute position: under continuous
+        # batching each slot sits at a different depth, so this is a
+        # per-row scatter, not a shared slice write
+        W = cache["k"].shape[1]
+        idx = positions[:, 0].to(torch.int64)
+        slots = torch.remainder(idx, W)
+        rows = torch.arange(B, device=x.device)
+        ck, cv, cpos = cache["k"], cache["v"], cache["pos"]
+        ck.index_put_((rows, slots), k[:, 0].to(ck.dtype))
+        cv.index_put_((rows, slots), v[:, 0].to(cv.dtype))
+        cpos.index_put_((rows, slots), idx.to(cpos.dtype))
+        bias = _mask_bias(positions, cpos, causal=causal, window=lspec.window)
+        y = _sdpa(q, ck, cv, bias, scale)
+        new_cache = cache
     else:
-        bias = _mask_bias(pos_b, pos_b, causal=causal, window=lspec.window)
-        y = _sdpa(q, k, v, bias, scale)
+        pos_b = torch.broadcast_to(positions, (B, S))
+        if cfg.dist.attn_block:
+            y = _sdpa_blockwise(q, k, v, pos_b, pos_b, causal=causal,
+                                window=lspec.window, scale=scale,
+                                block=cfg.dist.attn_block)
+        else:
+            bias = _mask_bias(pos_b, pos_b, causal=causal,
+                              window=lspec.window)
+            y = _sdpa(q, k, v, bias, scale)
+        if mode == "prefill":
+            new_cache = _prefill_cache(lspec, k, v, positions, B, S,
+                                       cache_max_len or S)
     y = y.reshape(B, S, a.q_dim) @ params["wo"]
-    return y, None
+    return y, new_cache
+
+
+def _prefill_cache(lspec: LayerSpec, k, v, positions, B, S, max_len):
+    """The prompt's k, v and positions as a cache of ``cache_len`` slots:
+    zero-padded (pos -1) when it holds the whole prompt, else the trailing
+    window laid out so that slot = pos mod W (the ring decode writes)."""
+    W = cache_len(lspec, max_len)
+    pos = torch.broadcast_to(positions, (B, S)).to(torch.int32)
+    if W >= S:
+        pad = W - S
+        ck = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        cv = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+        cpos = torch.nn.functional.pad(pos, (0, pad), value=-1)
+    else:
+        tail_k, tail_v, tail_p = k[:, S - W:], v[:, S - W:], pos[:, S - W:]
+        slots = torch.remainder(tail_p[0], W)  # the same for every row
+        inv = torch.argsort(slots)
+        ck, cv, cpos = tail_k[:, inv], tail_v[:, inv], tail_p[:, inv]
+    return {"k": ck, "v": cv, "pos": cpos}
+
+
+def cache_len(lspec: LayerSpec, seq_len: int) -> int:
+    """Cache slots of a layer: the window where it has one, else
+    ``seq_len``."""
+    return min(lspec.window, seq_len) if lspec.window else seq_len
+
+
+def init_gqa_cache(cfg: ModelConfig, lspec: LayerSpec, B: int, seq_len: int,
+                   *, device, dtype=torch.float32):
+    """An empty cache: k and v (B, W, Kv, hd) zeros, pos (B, W) int32 -1."""
+    a = cfg.attn
+    W = cache_len(lspec, seq_len)
+    return {"k": torch.zeros((B, W, a.num_kv_heads, a.head_dim),
+                             dtype=dtype, device=device),
+            "v": torch.zeros((B, W, a.num_kv_heads, a.head_dim),
+                             dtype=dtype, device=device),
+            "pos": torch.full((B, W), -1, dtype=torch.int32, device=device)}

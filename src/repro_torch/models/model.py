@@ -1,4 +1,5 @@
-"""Public model API: build_model(cfg) -> Model (dense family, train mode).
+"""Public model API: build_model(cfg) -> Model (dense family: training loss,
+prefill and decode).
 
 Counterpart of ``repro/models/model.py``. Parameters are a nested dict of
 tensors with the reference's keys and shapes::
@@ -10,15 +11,22 @@ tensors with the reference's keys and shapes::
 The head is tied to the embedding and projects over the PADDED vocabulary
 (50432 columns for olmo-1b); the padding columns take part in the softmax
 as in the reference.
+
+Serving: ``prefill`` runs a prompt and returns the last position's logits
+with fresh caches sized for the whole decode horizon; ``decode_step`` feeds
+one token a row, each row at its own absolute position, and writes the
+caches in place; ``init_cache`` allocates empty ones (pos -1). Logits are
+float32 over the padded vocabulary.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import (apply_norm, chunked_softmax_xent,
                                        embed_tokens, init_embed, init_norm)
@@ -33,6 +41,11 @@ class Model:
     cfg: ModelConfig
     init_params: Callable  # (generator, device) -> params
     loss_fn: Callable  # (params, batch, rng=None) -> (loss, metrics)
+    prefill: Callable  # (params, batch, max_len=None) -> (logits, caches)
+    decode_step: Callable  # (params, caches, tokens, index) -> (logits,
+    #                        caches), the caches written in place
+    init_cache: Callable  # (B, seq_len, dtype=, enc_len=, device=) -> caches
+    head_w: Callable  # params -> (d_model, padded_vocab)
 
 
 def build_model(cfg: ModelConfig) -> Model:
@@ -52,6 +65,9 @@ def build_model(cfg: ModelConfig) -> Model:
                 "decoder": tfm.init_stack(generator, cfg, device=device,
                                           dtype=dt)}
 
+    def head_w(params):
+        return params["embed"]["table"].T
+
     def loss_fn(params, batch, rng=None):
         """Mean next-token cross-entropy over the masked positions. ``rng``
         is accepted for signature parity and unused: the dense train path
@@ -69,10 +85,52 @@ def build_model(cfg: ModelConfig) -> Model:
         if mask is None:
             mask = torch.ones(targets.shape, dtype=torch.float32,
                               device=x.device)
-        head_w = params["embed"]["table"].T
-        nll, count = chunked_softmax_xent(h, head_w, targets, mask,
+        nll, count = chunked_softmax_xent(h, head_w(params), targets, mask,
                                           cfg.dist.loss_chunk)
         loss = nll / torch.clamp(count, min=1.0)
         return loss, {"nll": loss, "loss": loss}
 
-    return Model(cfg=cfg, init_params=init_params, loss_fn=loss_fn)
+    def prefill(params, batch, max_len: Optional[int] = None):
+        """batch["tokens"] (B, S) -> (logits (B, padded_vocab) float32 of
+        the last position, caches of ``max_len`` (default S) slots)."""
+        tokens = batch["tokens"]
+        B, S = tokens.shape
+        x = embed_tokens(params["embed"], tokens, scale=cfg.embed_scale)
+        positions = torch.broadcast_to(
+            torch.arange(S, dtype=torch.int32, device=x.device), (B, S))
+        h, caches = tfm.apply_stack(params["decoder"], x, cfg=cfg,
+                                    positions=positions, mode="prefill",
+                                    cache_max_len=max_len or S)
+        h = apply_norm(params["final_norm"], h[:, -1:], cfg.norm)
+        logits = (h @ head_w(params)).to(torch.float32)[:, 0]
+        return logits, caches
+
+    def decode_step(params, caches, tokens, index):
+        """tokens: (B, 1) int; index: the absolute position(s) — a scalar
+        shared by the batch, or a (B,) vector when every row sits at its own
+        depth (continuous batching over slots). Writes ``caches`` in place
+        and returns (logits (B, padded_vocab) float32, caches)."""
+        B = tokens.shape[0]
+        x = embed_tokens(params["embed"], tokens, scale=cfg.embed_scale)
+        idx = torch.as_tensor(index, dtype=torch.int32, device=x.device)
+        positions = (idx.reshape(B, 1) if idx.dim()
+                     else torch.full((B, 1), int(idx), dtype=torch.int32,
+                                     device=x.device))
+        h, caches = tfm.apply_stack(params["decoder"], x, cfg=cfg,
+                                    positions=positions, mode="decode",
+                                    caches=caches)
+        h = apply_norm(params["final_norm"], h, cfg.norm)
+        logits = (h @ head_w(params)).to(torch.float32)[:, 0]
+        return logits, caches
+
+    def init_cache(B, seq_len, dtype=None, enc_len: int = 0, device=None):
+        """Empty caches for B rows of ``seq_len`` positions on ``device``
+        (default: the card). ``enc_len`` is accepted for signature parity:
+        the dense family has no cross-attention cache."""
+        return tfm.init_stack_cache(cfg, B, seq_len,
+                                    device=resolve_device(device),
+                                    dtype=dtype or dt)
+
+    return Model(cfg=cfg, init_params=init_params, loss_fn=loss_fn,
+                 prefill=prefill, decode_step=decode_step,
+                 init_cache=init_cache, head_w=head_w)

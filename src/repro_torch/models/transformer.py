@@ -4,7 +4,10 @@
 Layers are grouped into segments exactly as in the reference; each
 period position's parameters are stacked along a leading ``n_rep`` axis.
 The reference scans over that axis (with remat); here a Python loop indexes
-it, which changes no number.
+it, which changes no number. Caches (prefill, decode) have the reference's
+tree, ``{seg.name: {"p{i}": {"mixer": {"k", "v", "pos"}}}}``, each leaf
+stacked on the layer axis first, so a cache row (a batch entry, a serving
+slot) is axis 1.
 """
 from __future__ import annotations
 
@@ -70,16 +73,29 @@ def init_block(generator, cfg: ModelConfig, lspec: LayerSpec, *, device,
 
 
 def apply_block(params, x, *, cfg: ModelConfig, lspec: LayerSpec, positions,
-                causal=True):
-    """One pre-norm block in train mode: x + attn(norm(x)), then
-    x + mlp(norm(x))."""
+                mode: str = "train", cache=None, causal=True,
+                cache_max_len=None):
+    """One pre-norm block: x + attn(norm(x)), then x + mlp(norm(x)).
+    Returns x in train mode, else (x, {"mixer": the attention cache})."""
     _check_dense(lspec)
     h = apply_norm(params["norm1"], x, cfg.norm)
-    y, _ = attn.gqa_forward(params["mixer"], h, cfg=cfg, lspec=lspec,
-                            positions=positions, mode="train", causal=causal)
+    y, new_cache = attn.gqa_forward(params["mixer"], h, cfg=cfg, lspec=lspec,
+                                    positions=positions, mode=mode,
+                                    cache=cache, causal=causal,
+                                    cache_max_len=cache_max_len)
     x = x + y
     h2 = apply_norm(params["norm2"], x, cfg.norm)
-    return x + apply_mlp(params["ffn"], h2, activation(cfg.act), gated=True)
+    x = x + apply_mlp(params["ffn"], h2, activation(cfg.act), gated=True)
+    if mode == "train":
+        return x
+    return x, {"mixer": new_cache}
+
+
+def init_block_cache(cfg: ModelConfig, lspec: LayerSpec, B: int,
+                     seq_len: int, *, device, dtype=torch.float32):
+    _check_dense(lspec)
+    return {"mixer": attn.init_gqa_cache(cfg, lspec, B, seq_len,
+                                         device=device, dtype=dtype)}
 
 
 def _stack(trees):
@@ -107,12 +123,46 @@ def init_stack(generator, cfg: ModelConfig, *, device, dtype=torch.float32):
     return out
 
 
-def apply_stack(params, x, *, cfg: ModelConfig, positions, causal=True):
-    """Run all segments in train mode. Returns x."""
+def init_stack_cache(cfg: ModelConfig, B: int, seq_len: int, *, device,
+                     dtype=torch.float32):
+    """Empty caches of every layer, each leaf (n_rep, B, ...)."""
+    out = {}
+    for seg in build_segments(cfg):
+        out[seg.name] = {
+            f"p{i}": _stack([init_block_cache(cfg, ls, B, seq_len,
+                                              device=device, dtype=dtype)
+                             for _ in range(seg.n_rep)])
+            for i, ls in enumerate(seg.specs)}
+    return out
+
+
+def apply_stack(params, x, *, cfg: ModelConfig, positions, mode="train",
+                caches=None, causal=True, cache_max_len=None):
+    """Run all segments. Train mode returns x; prefill returns (x, fresh
+    caches sized ``cache_max_len``); decode takes ``caches``, writes each
+    layer's row of them in place and returns (x, caches)."""
+    new_caches = {}
     for seg in build_segments(cfg):
         seg_params = params[seg.name]
+        per_rep = []
         for r in range(seg.n_rep):
+            blk_caches = {}
             for i, ls in enumerate(seg.specs):
-                x = apply_block(_index(seg_params[f"p{i}"], r), x, cfg=cfg,
-                                lspec=ls, positions=positions, causal=causal)
-    return x
+                p = _index(seg_params[f"p{i}"], r)
+                if mode == "train":
+                    x = apply_block(p, x, cfg=cfg, lspec=ls,
+                                    positions=positions, causal=causal)
+                    continue
+                cache = None
+                if mode == "decode":
+                    # views of the stacked leaves: decode writes through them
+                    cache = _index(caches[seg.name][f"p{i}"], r)["mixer"]
+                x, blk_caches[f"p{i}"] = apply_block(
+                    p, x, cfg=cfg, lspec=ls, positions=positions, mode=mode,
+                    cache=cache, causal=causal, cache_max_len=cache_max_len)
+            per_rep.append(blk_caches)
+        if mode == "prefill":
+            new_caches[seg.name] = _stack(per_rep)
+    if mode == "train":
+        return x
+    return x, (new_caches if mode == "prefill" else caches)

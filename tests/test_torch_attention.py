@@ -28,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401
 from repro.configs import get_config as ref_get_config
 from repro.core import dsgd as ref_dsgd
 from repro.core import merge as ref_merge

@@ -27,6 +27,7 @@ import pytest
 import torch
 
 from benchmarks.common import make_problem as ref_make_problem
+import _torch_threads  # noqa: F401
 from repro import wire as ref_wire
 from repro.core import consensus as ref_consensus
 from repro.core import dsgd as ref_dsgd

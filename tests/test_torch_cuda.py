@@ -29,6 +29,11 @@ The on-chip-seeded int8 quantize is bit-identical to its plain Philox twin
 at odd widths; elastic segments (a fault plan with a DEAD and a RESYNC
 agent) on the card are held against the CPU at rtol 1e-3 like the others,
 their dead rows bit for bit against the card's own state before the kill.
+The serving path: a checkpoint restores onto the card bit for bit, and a
+blob saved from the card is byte-identical to the one saved from the CPU;
+prefill logits on the card within 1e-4 of the CPU's (float32 products in
+other orders), and the engine's greedy tokens equal to each request
+generated alone on the card.
 """
 import numpy as np
 import pytest
@@ -984,3 +989,67 @@ def test_native_codec_segment_on_card(cuda):
     x = state["panel"]["float32"]
     assert torch.equal(x, x[:1].expand_as(x))
     assert float(out["consensus"][-1]) == 0.0
+
+
+def test_checkpoint_restores_onto_the_card(cuda, tmp_path):
+    """A blob saved from CPU tensors restores onto the devices of the
+    ``like`` tree's tensors, bit for bit (bfloat16 by its bits)."""
+    from repro_torch.checkpoint import restore, save
+    gen = torch.Generator().manual_seed(0)
+    tree = {"w": torch.randn((70, 300), generator=gen),
+            "e": torch.randn(5, generator=gen).to(torch.bfloat16),
+            "q": torch.arange(-4, 4, dtype=torch.int8), "norm": {}}
+    path = str(tmp_path / "s.ckpt")
+    save(path, tree)
+    like = {**tree, "w": tree["w"].to(cuda), "e": tree["e"].to(cuda)}
+    back = restore(path, like)
+    assert back["w"].device.type == "cuda" and back["q"].device.type == "cpu"
+    for k in ("w", "e", "q"):
+        assert back[k].dtype == tree[k].dtype
+        assert torch.equal(back[k].cpu(), tree[k])
+    save(str(tmp_path / "card.ckpt"), back)  # saved from the card
+    assert (tmp_path / "card.ckpt").read_bytes() == open(path, "rb").read()
+
+
+@pytest.mark.parametrize("attn_block", [0, 8])
+def test_engine_on_the_card(cuda, attn_block):
+    """The serving path on the card (reduced olmo-1b): prefill logits
+    within 1e-4 of the CPU's (float32 products in other orders), the
+    engine's greedy tokens equal to generate of each request alone on the
+    card, the flash attention forward kernel launched by the attn_block
+    prefill (under no_grad) and never by decode."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serving import Request, ServingEngine, generate
+    from repro_torch.utils.tree import tree_map
+    cfg = get_config("olmo-1b").reduced(d_model=128, vocab=256)
+    cfg = cfg.replace(dist=dataclasses.replace(cfg.dist,
+                                               attn_block=attn_block))
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator().manual_seed(0), "cpu")
+    card = tree_map(lambda x: x.to(cuda), params)
+    rng = np.random.default_rng(0)
+    reqs = [Request(rid=i, tokens=rng.integers(0, 256, [24, 13][i % 2])
+                    .astype(np.int32), max_new=6) for i in range(5)]
+    toks = torch.from_numpy(reqs[0].tokens[None])
+    with torch.no_grad():
+        cpu_logits, _ = model.prefill(params, {"tokens": toks}, max_len=40)
+    reset_launch_counts()
+    with torch.no_grad():
+        logits, _ = model.prefill(card, {"tokens": toks.to(cuda)},
+                                  max_len=40)
+    assert launch_counts()["flash_attention_fwd"] == (
+        cfg.num_layers if attn_block else 0)
+    np.testing.assert_allclose(logits.cpu().numpy(), cpu_logits.numpy(),
+                               rtol=1e-4, atol=1e-4)
+    eng = ServingEngine(model, card, max_concurrency=3, max_len=40)
+    reset_launch_counts()
+    out = eng.serve(reqs)
+    assert launch_counts()["flash_attention_fwd"] == (
+        5 * cfg.num_layers if attn_block else 0)
+    for r in reqs:
+        alone = generate(model, card, {"tokens": torch.from_numpy(
+            r.tokens[None]).to(cuda)}, r.max_new, max_len=40)[0]
+        np.testing.assert_array_equal(out[r.rid], alone)

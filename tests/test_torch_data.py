@@ -4,6 +4,7 @@ partitions and W stacks, so both packages train on the same stream."""
 import numpy as np
 import pytest
 
+import _torch_threads  # noqa: F401
 from repro.configs import get_config as ref_get_config
 from repro.core import schedule as ref_schedule
 from repro.core import topology as ref_topology

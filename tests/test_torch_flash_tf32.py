@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401
 from repro_torch.kernels.flash_attention import _rows, occupancy
 
 S, HD, TILE = 1024, 128, 64

@@ -1,6 +1,7 @@
 """Guards of the port's boundaries: ``repro_torch`` and ``chip_smoke.py``
-import neither ``jax`` nor anything of ``repro``, and the entry points run
-on the CPU only when asked to."""
+import neither ``jax`` nor anything of ``repro``, nor ``msgpack`` (the GPU
+host has none: the checkpoint blob is written with ``struct``), and the
+entry points run on the CPU only when asked to."""
 import ast
 import os
 import pkgutil
@@ -11,6 +12,7 @@ from pathlib import Path
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401
 import repro_torch
 from repro_torch.configs import get_config
 from repro_torch.core import dsgd
@@ -37,7 +39,7 @@ def _imported(path):
 
 def _forbidden(name):
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "repro", "flax", "optax")
+    return top in ("jax", "jaxlib", "repro", "flax", "optax", "msgpack")
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(
@@ -49,12 +51,12 @@ def test_source_imports_no_jax_and_no_reference(path):
 
 def test_import_with_jax_and_reference_blocked():
     """Every module of the port, and chip_smoke.py, imports in a process in
-    which ``import jax`` and ``import repro`` fail."""
+    which ``import jax``, ``import repro`` and ``import msgpack`` fail."""
     mods = ["repro_torch"] + [
         m.name for m in pkgutil.walk_packages([str(PKG)], "repro_torch.")]
     code = "\n".join([
         "import importlib, sys",
-        "for name in ('jax', 'jaxlib', 'repro'):",
+        "for name in ('jax', 'jaxlib', 'repro', 'msgpack'):",
         "    sys.modules[name] = None",
         f"sys.path[:0] = [{str(ROOT / 'src')!r}, {str(ROOT)!r}]",
         f"for m in {mods!r} + ['chip_smoke']:",
@@ -66,6 +68,10 @@ def test_import_with_jax_and_reference_blocked():
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
     assert len(mods) > 20
+    for new in ("repro_torch.checkpoint.io", "repro_torch.serving.engine",
+                "repro_torch.launch.serve", "repro_torch.telemetry.events",
+                "repro_torch.telemetry.latency", "repro_torch.telemetry.trace"):
+        assert new in mods
 
 
 @pytest.fixture

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401
 from repro.core.topology import random_matching
 from repro.kernels.gossip_mix import gossip_mix_panel
 from repro.kernels.panel_reduce import panel_mean_consensus as jax_reduce

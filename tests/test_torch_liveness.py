@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401
 from repro.core import dsgd as ref_dsgd
 from repro.core import faults as ref_faults
 from repro.core import merge as ref_merge

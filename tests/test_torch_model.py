@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401
 from repro.configs import get_config as ref_get_config
 from repro.launch.train import build_cpu_preset as ref_cpu_preset
 from repro.models import attention as ref_attn

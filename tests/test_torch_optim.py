@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401
 from repro.optim import optim as ref_optim
 from repro_torch.optim import optim
 

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401
 from repro.configs import get_config as ref_get_config
 from repro.core import panel as ref_panel
 from repro.core.topology import fully_connected, random_matching

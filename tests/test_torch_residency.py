@@ -38,6 +38,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401
 from repro import residency as ref_res
 from repro.core import panel as ref_panel
 from repro.kernels import opt_fused as jof

@@ -29,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401
 from repro.core.topology import random_matching
 from repro.kernels import ref as jref
 from repro.kernels import wire_quant as jwq

@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401
 from repro.kernels import wire_quant as jwq
 from repro_torch import wire
 from repro_torch.core import dsgd, topology
