@@ -106,6 +106,21 @@ Phases, each printing its lines:
      and local-only merge, Fig. 2c's gaps, App. C.3.4's 3-round gossip
      merge, Cor. D.2's bound, Table 1's finite ratio), and Fig. 1 on the
      CPU from the same init within 0.01 of the card's accuracies;
+  10. (after phase 8) the launcher's own loop, launch/train.py:run, on the
+     main path's cell (olmo-1b cut to 2 layers through run(cfg=), its data
+     over DATA_VOCAB ids through run(lm=); segments of 2 rounds) with
+     --telemetry --events --snapshot --profile: its per-round loss, grad
+     norm and Xi and its final evals equal phase 5's bit for bit, the last
+     Xi 0.0 and merged == local, the stream valid, sqrt(mean(dist_to_mean^2))
+     equal to Xi to 1e-4 relative each round, the wire_bytes summing to the
+     codec model's count, the peak within 1 GB of phase 5's; from the
+     profiler's Chrome trace the device busy share over the traced window,
+     the top device operations and the longest idle gaps; then
+     scripts/fault_smoke.py's CFG on the card in three children of the
+     launcher (a baseline, a run SIGKILLed after its first segment, its
+     --resume): equal histories, byte-identical valid streams, and the
+     baseline and resumed children launching the int8 quantize and
+     dequantize, the weighted column merge and the mix;
 then the script's total time, a JSON line of per-kernel numbers, the
 card's line again and, last, the result line. It fails (non-zero exit, no
 result line) if there is no card, if the port's package is not beside it,
@@ -162,6 +177,26 @@ TREE_RTOL = 1e-5
 SERVE_C, SERVE_REQUESTS, SERVE_NEW = 8, 16, 128
 SERVE_PROMPTS = (2048, 1024)
 SERVE_BLOCK, SERVE_SEED, SERVE_PROBE = 512, 0, 8
+
+# phase 10: the launcher's own loop on the main path's cell (two segments
+# of two rounds) and scripts/fault_smoke.py's CFG on the card, with the
+# kernels its baseline and resumed children must launch (int8_ef wire,
+# fisher merge) and the children's wrapper (launch_counts() after main)
+LAUNCHER_ARGS = ["--agents", str(M), "--rounds", str(ROUNDS),
+                 "--local-steps", str(H), "--batch", str(BATCH), "--seq",
+                 str(SEQ), "--segment", "2", "--seed", "0"]
+FAULT_SMOKE_CFG = ["--rounds", "6", "--segment", "2", "--agents", "4",
+                   "--local-steps", "2", "--batch", "4", "--seq", "32",
+                   "--wire", "int8_ef", "--merge", "fisher",
+                   "--schedule", "final_merge", "--seed", "0", "--telemetry"]
+FAULT_SMOKE_TAG = "olmo-1b_final_merge_a0.1_mfisher"
+FAULT_SMOKE_KERNELS = ("quantize_int8", "dequantize_int8",
+                       "weighted_colmerge", "gossip_mix")
+CHILD = ("import json, sys\n"
+         "from repro_torch.kernels import launch_counts\n"
+         "from repro_torch.launch import train\n"
+         "train.main(sys.argv[1:])\n"
+         "print('launch counts ' + json.dumps(launch_counts()), flush=True)\n")
 
 PATH_KERNELS = {"f32": ("gossip_mix", "panel_mean_consensus"),
                 "faults": ("gossip_mix", "panel_mean_consensus"),
@@ -1524,6 +1559,9 @@ def drive_path(torch, path):
           f"{path}: a loss is not finite")
     check(abs(local - merged) <= 1e-6 * abs(merged),
           f"{path}: local eval {local!r} != merged eval {merged!r}")
+    # the main path's final state, before the breakdown's timed AdamW
+    # steps update it in place (phase 10 holds the launcher's to it)
+    fingerprint = state_fingerprint(torch, state) if path == "f32" else None
     if path == "f32" or cfg.dist.attn_block:
         breakdown(torch, model, opt, state, spec, per_round[0], path)
     record = {"losses": losses, "grad_norms": gnorms, "xis": xis,
@@ -1547,9 +1585,32 @@ def drive_path(torch, path):
         record["zero_v"] = zero_v
     if path == "f32":  # the serve phase merges, saves and serves it
         record["state"], record["spec"] = state, spec
+        record["fingerprint"] = fingerprint
     del state, seg
     torch.cuda.empty_cache()
     return counts, record
+
+
+def state_fingerprint(torch, state, slab=1 << 22):
+    """{panel, m, v: [sum of the float32 bit patterns, sum of the patterns
+    times (column % 65521 + 1), mod 2^64]} of a float32 panel state: equal
+    states give equal fingerprints; taken a column slab at a time (int64
+    views of SLAB columns, no (m, D) temporary)."""
+    out = {}
+    for name, x in (("panel", state["panel"]["float32"]),
+                    ("m", state["opt"]["m"]["float32"]),
+                    ("v", state["opt"]["v"]["float32"])):
+        bits = x.view(torch.int32)
+        tot = torch.zeros((), dtype=torch.int64, device=x.device)
+        wtot = torch.zeros((), dtype=torch.int64, device=x.device)
+        for lo in range(0, x.shape[1], slab):
+            c = bits[:, lo:lo + slab].to(torch.int64)
+            w = torch.arange(lo, lo + c.shape[1], device=x.device) % 65521
+            tot += c.sum()
+            wtot += (c * (w + 1)).sum()
+            del c, w
+        out[name] = [int(tot), int(wtot)]
+    return out
 
 
 def drive_tree_path(torch, main):
@@ -2130,7 +2191,8 @@ def breakdown(torch, model, opt, state, spec, round_inputs, label,
               reps=3):
     """Where a round's time goes at full width: each piece of the round
     timed on its own (median of ``reps``, CUDA events) on the trained
-    state. Runs after the main path's counts were read."""
+    state (its AdamW steps update the state in place). Runs after the main
+    path's counts were read."""
     from repro_torch.core import dsgd
     from repro_torch.core import panel as panel_mod
     b = round_inputs[1]
@@ -2161,6 +2223,274 @@ def breakdown(torch, model, opt, state, spec, round_inputs, label,
     print(f"breakdown ms ({label}) " + json.dumps(
         {k: round(v, 3) for k, v in out.items()}), flush=True)
     return out
+
+
+def trace_summary(path, top=10, gaps=5):
+    """The device's share of a torch.profiler Chrome trace: the union of
+    its kernel, memcpy and memset intervals over the traced window (the
+    span of every timed event), the ``top`` device operations by total
+    time and the ``gaps`` longest idle gaps between device intervals (each
+    with the device operations on either side and the innermost host
+    operation spanning its middle)."""
+    with open(path) as f:
+        events = [e for e in json.load(f).get("traceEvents", [])
+                  if e.get("ph") == "X" and "ts" in e]
+    device = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)),
+                     e.get("name", "?")) for e in events
+                    if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    check(device, f"the trace {path} holds no device operation")
+    lo = min(float(e["ts"]) for e in events)
+    hi = max(float(e["ts"]) + float(e.get("dur", 0)) for e in events)
+    merged = []  # (start, end, first name, last name)
+    for a, b, name in device:
+        if merged and a <= merged[-1][1]:
+            if b > merged[-1][1]:
+                merged[-1] = (merged[-1][0], b, merged[-1][2], name)
+        else:
+            merged.append((a, b, name, name))
+    busy = sum(b - a for a, b, *_ in merged)
+    per_op = {}
+    for a, b, name in device:
+        n, t = per_op.get(name, (0, 0.0))
+        per_op[name] = (n + 1, t + b - a)
+    host = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)),
+                   e.get("name", "?")) for e in events
+                  if e.get("cat") == "cpu_op")
+    holes = sorted(((merged[i + 1][0] - merged[i][1], i)
+                    for i in range(len(merged) - 1)), reverse=True)[:gaps]
+    longest = []
+    for gap, i in holes:
+        mid = merged[i][1] + gap / 2
+        over = [h for h in host if h[0] <= mid <= h[1]]
+        ended = [h for h in host if h[1] < mid]
+        starts = [h for h in host if h[0] > mid]
+        longest.append({
+            "ms": round(gap / 1e3, 3),
+            "at_ms": round((merged[i][1] - lo) / 1e3, 3),
+            "after": merged[i][3][:60], "before": merged[i + 1][2][:60],
+            # the innermost host operation spanning the gap's middle, else
+            # the host operations on either side of it
+            "host_op": (min(over, key=lambda h: h[1] - h[0])[2] if over
+                        else None),
+            "host_before": max(ended, key=lambda h: h[1])[2] if ended
+            else None,
+            "host_after": starts[0][2] if starts else None})
+    return {"window_ms": round((hi - lo) / 1e3, 3),
+            "device_busy_ms": round(busy / 1e3, 3),
+            "device_busy_share": busy / (hi - lo),
+            "device_ops": len(device),
+            "top_ops": [{"name": k[:80], "launches": n, "ms": round(t / 1e3,
+                                                                    3)}
+                        for k, (n, t) in sorted(per_op.items(),
+                                                key=lambda kv: -kv[1][1])
+                        [:top]],
+            "longest_gaps": longest}
+
+
+def launcher_run(torch, main, tmp):
+    """Phase 10 (a): the launcher's own loop (launch/train.py:run) on the
+    main path's cell, with --telemetry --events --snapshot --profile into
+    ``tmp``; held against phase 5's record ``main``. Returns (counts,
+    record)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import train
+    from repro_torch.telemetry import (export_stream, read_events,
+                                       validate_stream)
+    import numpy as np
+    cfg = get_config("olmo-1b").replace(num_layers=2)
+    lm = SyntheticLM(vocab=DATA_VOCAB, num_domains=8, seed=0)
+    ev = os.path.join(tmp, "events.jsonl")
+    prof = os.path.join(tmp, "profile")
+    args = train.parse_args(LAUNCHER_ARGS + [
+        "--telemetry", "--events", ev, "--snapshot",
+        os.path.join(tmp, "snapshot.json"), "--profile", prof, "--out", tmp])
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # the segment's last output state, kept for its fingerprint (the run
+    # returns its history only)
+    last, make = {}, train.dsgd.make_panel_segment
+
+    def keeping(*a, **kw):
+        seg = make(*a, **kw)
+
+        def run_seg(*sa, **skw):
+            out = seg(*sa, **skw)
+            last["state"] = out[0]
+            return out
+        return run_seg
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    train.dsgd.make_panel_segment = keeping
+    try:
+        hist = train.run(args, cfg=cfg, lm=lm)
+    finally:
+        train.dsgd.make_panel_segment = make
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    fingerprint = state_fingerprint(torch, last.pop("state"))
+    print(f"kernels (launcher) {json.dumps(counts)}", flush=True)
+    check(all(counts[k] > 0 for k in PATH_KERNELS["f32"]),
+          f"a kernel of the main path never launched in the launcher's run: "
+          f"{counts}")
+    got = {"losses": [h["train_loss"] for h in hist],
+           "grad_norms": [h["grad_norm"] for h in hist],
+           "xis": [h["consensus"] for h in hist],
+           "merged": hist[-1]["merged_eval"], "local": hist[-1]["local_eval"]}
+    same = {k: got[k] == main[k] for k in got}
+    same["state"] = fingerprint == main["fingerprint"]
+    errors = validate_stream(ev)
+    rounds = [e for e in read_events(ev) if e["type"] == "round"]
+    decomp = [abs(math.sqrt(sum(d * d for d in e["dist_to_mean"])
+                            / len(e["dist_to_mean"])) - e["consensus"])
+              / max(e["consensus"], 1e-30) if e["consensus"] else
+              max(e["dist_to_mean"]) for e in rounds]
+    wire = sum(sum(e["wire_bytes"]) for e in rounds)
+    per_round, _ = segment_inputs(cfg, M, ROUNDS, data_vocab=DATA_VOCAB)
+    rows = sum(int(np.sum(~np.all(W[0] == np.eye(M, dtype=np.float32),
+                                  axis=1))) for W, *_ in per_round)
+    want = rows * 4 * main["width"]  # the f32 codec: 4 B a value
+    with open(os.path.join(tmp, "snapshot.json")) as f:
+        snap = json.load(f)
+    snap_ok = (snap == export_stream(ev)
+               and snap["last_round"]["round"] == ROUNDS - 1)
+    trace_path = os.path.join(prof, "trace.json")
+    check(os.path.exists(trace_path),
+          f"launcher: --profile wrote no trace at {trace_path}")
+    trace = trace_summary(trace_path)
+    print(f"launcher (phase 10a, {args.rounds} rounds, segment "
+          f"{args.segment}, telemetry, events, snapshot, profile): {dt:.1f}s; "
+          f"history and final state (panel, m, v fingerprints "
+          f"{json.dumps(fingerprint)}) equal to phase 5's "
+          f"{json.dumps(same)}; last round Xi "
+          f"{got['xis'][-1]!r}, merged {got['merged']!r} local "
+          f"{got['local']!r}; stream {len(rounds)} rounds, validation errors "
+          f"{errors}, snapshot equal to its export {snap_ok}; "
+          f"|sqrt(mean(dist_to_mean^2)) - Xi| / Xi per round "
+          f"{decomp}; wire bytes {wire} against the codec model's {want} "
+          f"({rows} sending rows x 4 B x D); peak {peak} bytes against the "
+          f"f32 path's {main['peak']} ({peak - main['peak']:+d})",
+          flush=True)
+    print(f"trace (phase 10a, {card_line()}) {json.dumps(trace)}",
+          flush=True)
+    check(all(same.values()), f"launcher: the history or the final state "
+          f"differs from phase 5's: {got} {fingerprint} against {main}")
+    check(got["xis"][-1] == 0.0, f"launcher: last Xi {got['xis'][-1]!r}")
+    check(abs(got["local"] - got["merged"]) <= 1e-6 * abs(got["merged"]),
+          f"launcher: local {got['local']!r} != merged {got['merged']!r}")
+    check(not errors and len(rounds) == ROUNDS,
+          f"launcher: the event stream is not valid: {errors}")
+    check(snap_ok, f"launcher: the snapshot {snap} is not its stream's")
+    check(all(d <= 1e-4 for d in decomp),
+          f"launcher: dist_to_mean does not decompose Xi: {decomp}")
+    check(wire == want, f"launcher: wire bytes {wire} != {want}")
+    check(abs(peak - main["peak"]) <= 1e9,
+          f"launcher: peak {peak} not within 1 GB of {main['peak']}")
+    return counts, {"seconds": dt, "peak": peak, "trace": trace}
+
+
+def fault_smoke_children(torch, tmp):
+    """Phase 10 (b): scripts/fault_smoke.py's kill and resume on the card:
+    three children of the port's launcher with its CFG (no --device): a
+    baseline, a run SIGKILLed after its first segment's checkpoint and its
+    --resume (the two sharing one events path). The histories equal, the
+    streams byte-identical and valid (the port's validate CLI), and the
+    baseline and resumed children launched the path's kernels (each child
+    prints launch_counts() after main returns)."""
+    import signal
+    from repro_torch.telemetry import validate
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    base, intr = os.path.join(tmp, "baseline"), os.path.join(tmp, "intr")
+    ev_base = os.path.join(base, "events.jsonl")
+    ev_intr = os.path.join(intr, "events.jsonl")
+
+    def child(out, extra):
+        return subprocess.Popen(
+            [sys.executable, "-c", CHILD, *FAULT_SMOKE_CFG, "--out", out,
+             *extra], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+
+    def finish(proc, what, rc=0):
+        out, err = proc.communicate(timeout=300)
+        check(proc.returncode == rc, f"fault smoke {what}: exit "
+              f"{proc.returncode}, expected {rc}:\n{out}\n{err}")
+        return out
+
+    t0 = time.perf_counter()
+    runs = [child(base, ["--events", ev_base]),
+            child(intr, ["--checkpoint-every", "1", "--die-after-segments",
+                         "1", "--events", ev_intr])]
+    try:
+        outs = {"baseline": finish(runs[0], "baseline")}
+        finish(runs[1], "interrupted", -signal.SIGKILL)
+        runs.append(child(intr, ["--checkpoint-every", "1", "--resume",
+                                 "--events", ev_intr]))
+        outs["resumed"] = finish(runs[2], "resumed")
+    finally:
+        for proc in runs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    dt = time.perf_counter() - t0
+    counts = {k: json.loads(o.strip().splitlines()[-1].split(" ", 2)[2])
+              for k, o in outs.items()}
+    hist = {}
+    for k, d in (("baseline", base), ("resumed", intr)):
+        with open(os.path.join(d, FAULT_SMOKE_TAG + ".json")) as f:
+            hist[k] = json.load(f)["history"]
+    with open(ev_base, "rb") as f:
+        eb = f.read()
+    with open(ev_intr, "rb") as f:
+        er = f.read()
+    valid = validate.main([ev_base, ev_intr]) == 0
+    resumed = "resumed from checkpoint" in outs["resumed"]
+    with open(os.path.join(intr, "events.wall.jsonl")) as f:
+        saves = [(op["bytes"], round(op["dt"], 3)) for op in map(
+            json.loads, f) if op.get("op") == "checkpoint_save"]
+    print(f"fault smoke (phase 10b, {card_line()}): 3 children in "
+          f"{dt:.1f}s; checkpoints (bytes, seconds to pack and write) "
+          f"{saves}; resumed from a checkpoint {resumed}; histories equal "
+          f"{hist['baseline'] == hist['resumed']} ({len(hist['baseline'])} "
+          f"rounds, final merged eval {hist['baseline'][-1]['merged_eval']!r}"
+          f"); streams byte-identical {eb == er} ({len(eb)} bytes), valid "
+          f"{valid}; launches (nonzero) baseline "
+          f"{json.dumps({k: v for k, v in counts['baseline'].items() if v})}"
+          f", resumed "
+          f"{json.dumps({k: v for k, v in counts['resumed'].items() if v})}",
+          flush=True)
+    check(resumed, "fault smoke: the resumed run restored no checkpoint")
+    check(hist["baseline"] == hist["resumed"],
+          "fault smoke: the resumed history differs from the baseline's")
+    check(eb == er and eb, "fault smoke: the event streams differ")
+    check(valid, "fault smoke: an event stream is not valid")
+    for k, c in counts.items():
+        check(all(c[n] > 0 for n in FAULT_SMOKE_KERNELS),
+              f"fault smoke: the {k} child did not launch every one of "
+              f"{FAULT_SMOKE_KERNELS}: {c}")
+    return {"seconds": dt, "bytes": len(eb)}
+
+
+def launcher_phase(torch, main):
+    """Phase 10: (a) launcher_run, (b) fault_smoke_children, in a directory
+    of the checkout removed at the end."""
+    import shutil
+    import tempfile
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix=".launcher_run_", dir=ROOT)
+    try:
+        counts, rec = launcher_run(torch, main, tmp)
+        torch.cuda.empty_cache()
+        rec["fault_smoke"] = fault_smoke_children(torch, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"launcher phase ({card_line()}): {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    return counts, rec
 
 
 def main():
@@ -2234,6 +2564,8 @@ def main():
             torch.cuda.empty_cache()
     figure_phase(torch)
     lap("phase 8")
+    counts["launcher"], _ = launcher_phase(torch, records["f32"])
+    lap("phase 10")
     for path, base in (("int8_ef native", "int8_ef"), ("faults", "f32"),
                        ("tree", "f32")):
         a, b = records[path], records[base]

@@ -59,6 +59,9 @@ FORMAT_VERSION = 2
 # the array-table schema is identical)
 READABLE_VERSIONS = (1, 2)
 MANIFEST_NAME = "MANIFEST.json"
+# the array table is ONE msgpack bin (bin 32): its bytes, headers included,
+# cannot exceed this, in both packages' format
+MAX_PAYLOAD_BYTES = (1 << 32) - 1
 _STEP_FILE = re.compile(r"step_(\d+)\.ckpt$")
 
 # torch dtype -> the numpy name stored in the blob (bfloat16 by its bits)
@@ -122,6 +125,25 @@ def _host(leaf):
 def _flatten_to_host(tree) -> dict:
     """{key-path: (dtype name, host ndarray)} in flatten order."""
     return {_key_str(kp): _host(leaf) for kp, leaf in _leaves_with_path(tree)}
+
+
+def payload_bytes(tree) -> int:
+    """Bytes of the array table :func:`save` would write for ``tree`` (the
+    blob's ``payload``), from the leaves' dtypes and shapes, without a copy
+    of their data; above :data:`MAX_PAYLOAD_BYTES` the format cannot hold
+    the tree."""
+    table, data = {}, 0
+    for kp, leaf in _leaves_with_path(tree):
+        if isinstance(leaf, torch.Tensor):
+            shape, n = list(leaf.shape), leaf.numel() * leaf.element_size()
+        else:
+            a = np.asarray(leaf)
+            shape, n = list(a.shape), a.nbytes
+        table[_key_str(kp)] = {"dtype": _dtype_name(leaf), "shape": shape,
+                               "data": b""}
+        # the bin header of n bytes in place of the empty bin's 2
+        data += n + (0 if n < (1 << 8) else 1 if n < (1 << 16) else 3)
+    return len(_msgpack.packb(table)) + data
 
 
 def _pack_blob(flat: dict, meta) -> tuple:

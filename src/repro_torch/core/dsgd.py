@@ -110,7 +110,7 @@ from repro_torch.device import resolve_device
 from repro_torch.merging import get_merger, merge_panel
 from repro_torch.optim.optim import Optimizer
 from repro_torch.residency import storage_generators
-from repro_torch.telemetry.metrics import fused_moments_auto
+from repro_torch.telemetry import metrics as tmetrics
 from repro_torch.utils.tree import tree_flatten, tree_unflatten
 
 
@@ -675,6 +675,7 @@ def panel_grads(loss_fn: Callable, panel, spec, batch, rows=None):
 
 def make_panel_segment(loss_fn: Callable, optimizer: Optimizer,
                        local_steps: int, spec, *, fused=None,
+                       telemetry: bool = False,
                        after_step: Optional[Callable] = None):
     """Panel driver for one SCHEDULE SEGMENT of rounds.
 
@@ -704,6 +705,23 @@ def make_panel_segment(loss_fn: Callable, optimizer: Optimizer,
         H local steps of the step's mean loss and of the norm of the
         agent-mean gradient) and ``consensus``, Xi after the round's
         communication; under ``live`` each over the live agents only.
+
+    ``telemetry=True`` adds five per-agent (S, m) columns
+    (``telemetry/metrics.py``), each a pure read of what the round already
+    made, so the panels, moments and scalar metrics are bit for bit what
+    they are with it off:
+      loss_agent      float32 — each agent's mean loss over the H steps,
+      grad_norm_agent float32 — each agent's mean gradient l2 norm,
+      dist_to_mean    float32 — each agent's distance to the (live) mean
+                                after the round (Xi is sqrt of the live
+                                mean of its squares),
+      live            int64   — the round's DEAD/LIVE/RESYNC trits,
+      wire_bytes      int64   — the codec bytes each agent paid (idle rows
+                                0; a delta codec's global round and a
+                                RESYNC pull at full precision).
+    The float columns are on the panel's device; ``live`` and
+    ``wire_bytes`` are computed on the host from W and the trits and come
+    back as CPU tensors. Non-live rows report a loss and grad norm of 0.
 
     The wire policy comes from the spec (panel.with_wire,
     init_panel_state(wire=...)). An error-feedback codec carries
@@ -763,7 +781,7 @@ def make_panel_segment(loss_fn: Callable, optimizer: Optimizer,
     res_key = any(st.needs_key for sts in plan.values()
                   for st in sts.values())
     mom_keys = tuple(optimizer.moment_keys)
-    fused_ok = fused_moments_auto(spec, optimizer)
+    fused_ok = tmetrics.fused_moments_auto(spec, optimizer)
     if fused and not fused_ok:
         raise ValueError(
             "fused=True but the fused moment update does not apply: it "
@@ -772,6 +790,10 @@ def make_panel_segment(loss_fn: Callable, optimizer: Optimizer,
             "and an optimizer exposing core/hyper with (m, v) moments "
             f"(got '{optimizer.name}')")
     res_fused = fused_ok if fused is None else bool(fused)
+    if telemetry:
+        # host constants of the codec cost model of the wire_bytes column
+        t_bytes_wire, t_bytes_full = tmetrics.wire_bytes_model(spec)
+        t_delta = _wire_any(spec, "delta_mix")
 
     def segment(state, batches, Ws, rng=None, global_rounds=None,
                 live=None):
@@ -823,6 +845,8 @@ def make_panel_segment(loss_fn: Callable, optimizer: Optimizer,
         batches = {k: torch.as_tensor(v).to(dev) for k, v in batches.items()}
         mets = {"loss": [], "grad_norm": [], "grad_norm_max": [],
                 "consensus": []}
+        cols = ({k: [] for k in tmetrics.AGENT_COLUMNS} if telemetry
+                else None)
 
         def err_dec(e):
             # the stored residual decodes only inside communicating rounds
@@ -847,7 +871,7 @@ def make_panel_segment(loss_fn: Callable, optimizer: Optimizer,
             return enc
 
         for s in range(S):
-            losses, gns = [], []
+            losses, gns, la, ga = [], [], [], []
             # round tick of the stats and wire_err streams: the local-step
             # count at the round's end
             tick = step0 + (s + 1) * local_steps
@@ -896,6 +920,10 @@ def make_panel_segment(loss_fn: Callable, optimizer: Optimizer,
                     losses.append(torch.sum(lw * agent_losses))
                     gns.append(panel_mod.panel_norm(gpan, axis_mean=True,
                                                     rows=lw))
+                if telemetry:
+                    on = None if lv is None else alive
+                    la.append(tmetrics.agent_loss(agent_losses, on))
+                    ga.append(tmetrics.agent_grad_norm(gpan, on))
                 del gpan
             if round_stat:
                 mstat = merger.update_round(mstat, pan)
@@ -938,6 +966,18 @@ def make_panel_segment(loss_fn: Callable, optimizer: Optimizer,
                 xi = panel_mod.consensus_distance(pan, live=alive)
             del werr_in
             mets["consensus"].append(xi)
+            if telemetry:
+                trits = None if lives is None else lives[s]
+                cols["loss_agent"].append(torch.mean(torch.stack(la), 0))
+                cols["grad_norm_agent"].append(torch.mean(torch.stack(ga),
+                                                          0))
+                cols["dist_to_mean"].append(tmetrics.agent_dist_to_mean(
+                    pan, live=None if lv is None else alive))
+                cols["live"].append(tmetrics.live_trits(trits, m))
+                cols["wire_bytes"].append(tmetrics.round_wire_bytes(
+                    W, bytes_wire=t_bytes_wire, bytes_full=t_bytes_full,
+                    full_bandwidth=is_global if t_delta else None,
+                    lv=trits))
             if res_stat and mstat is not None:
                 view = mstat
                 mstat = {n: _res_write(view[n], res_stat, storage_generators(
@@ -963,7 +1003,13 @@ def make_panel_segment(loss_fn: Callable, optimizer: Optimizer,
             out["wire_err"] = werr
         if mstat is not None:
             out["merge_stat"] = mstat
-        return out, {k: torch.stack(v) for k, v in mets.items()}
+        mets = {k: torch.stack(v) for k, v in mets.items()}
+        if telemetry:
+            for k, v in cols.items():
+                mets[k] = (torch.from_numpy(np.stack(v))
+                           if isinstance(v[0], np.ndarray)
+                           else torch.stack(v))
+        return out, mets
 
     def _live_comm_rows(pan, opt, werr, werr_in, mstat, keep, frozen, sync,
                         alive):

@@ -1,4 +1,4 @@
-"""Decentralized LM training launcher, main path (counterpart of
+"""Decentralized LM training launcher (counterpart of
 ``repro/launch/train.py``).
 
 Runs the paper's algorithm end to end on synthetic non-IID token streams:
@@ -12,6 +12,18 @@ schedule's mixing matrices and the batches from the same numpy seeds, in
 the same order, as the reference launcher, so both see byte-identical W
 streams and batches.
 
+The run is observable and resumable as the reference's is:
+``--telemetry`` adds the per-agent (S, m) columns to every round event,
+``--events`` writes the deterministic JSONL stream (+ a wall-clock
+sidecar), ``--snapshot`` a JSON snapshot rewritten each round,
+``--profile`` a Chrome trace of the training loop; ``--checkpoint-every``
+saves the state, the numpy and generator streams and the stream's seq
+asynchronously every N segments, and ``--resume`` continues from the
+newest good checkpoint bit for bit (the event stream truncated back to the
+checkpointed seq, so a killed and resumed run writes the same bytes as an
+uninterrupted one). The console prints the stream's events
+(``telemetry.format_event``).
+
 Runs on the CUDA card unless ``--device cpu`` is given. Example:
   PYTHONPATH=src python -m repro_torch.launch.train --rounds 10 \
       --segment 4 --agents 4 --local-steps 2 --batch 4 --seq 32 \
@@ -23,12 +35,15 @@ import argparse
 import dataclasses
 import json
 import os
+import signal
 import time
 
 import numpy as np
 import torch
 
-from repro_torch.checkpoint import save
+from repro_torch import telemetry
+from repro_torch.checkpoint import Checkpointer, save
+from repro_torch.checkpoint import io as ckpt_io
 from repro_torch.configs import get_config
 from repro_torch.core import dsgd
 from repro_torch.core import faults as faults_mod
@@ -40,8 +55,9 @@ from repro_torch.device import resolve_device
 from repro_torch.merging import MERGERS
 from repro_torch.models import build_model
 from repro_torch.optim import make_optimizer
-from repro_torch.residency import STORAGE
-from repro_torch.telemetry.metrics import (fused_moments_auto,
+from repro_torch.residency import STORAGE, parse_policy
+from repro_torch.telemetry.metrics import (AGENT_COLUMNS,
+                                           fused_moments_auto,
                                            resident_bytes_model)
 from repro_torch.wire import CODECS
 
@@ -88,7 +104,7 @@ def eval_local(loss_fn, panel, spec, batch, live=None):
     return float(torch.mean(torch.stack(losses)))
 
 
-def main(argv=None):
+def parse_args(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="olmo-1b")
     ap.add_argument("--preset", default="cpu", choices=["cpu", "pod"])
@@ -160,15 +176,126 @@ def main(argv=None):
                          "merge operator (over the agents alive at the end) "
                          "to this checkpoint file (repro_torch.checkpoint; "
                          "launch/serve.py --restore serves it)")
+    ap.add_argument("--checkpoint-every", type=int, default=0,
+                    help="save a resumable checkpoint every N SEGMENTS (0 = "
+                         "off; and after the last segment); saves are "
+                         "asynchronous (a host copy on this thread, the "
+                         "write on another). The whole state must fit the "
+                         "blob's 4 GiB payload: a larger one is refused at "
+                         "startup")
+    ap.add_argument("--checkpoint-dir", default="",
+                    help="checkpoint directory (default: OUT/ckpt_<run "
+                         "tag>)")
+    ap.add_argument("--checkpoint-keep", type=int, default=3,
+                    help="keep only the newest K checkpoints")
+    ap.add_argument("--resume", action="store_true",
+                    help="resume from the newest good checkpoint of the "
+                         "checkpoint directory, bit for bit: the panel "
+                         "state, the wire generator, the data and schedule "
+                         "streams, the round counter and the event stream's "
+                         "seq; starts fresh when the directory is empty")
+    ap.add_argument("--die-after-segments", type=int, default=0,
+                    help="fault injection: SIGKILL the process after N "
+                         "segments (a pending checkpoint is written first)")
+    ap.add_argument("--telemetry", action="store_true",
+                    help="per-agent (S, m) metric columns from the segment "
+                         "(loss, grad norm, distance to the mean, liveness, "
+                         "exact codec wire bytes) on each round event; "
+                         "fetched with the scalars in one transfer a "
+                         "segment; the trajectory is the same bit for bit")
+    ap.add_argument("--events", default="",
+                    help="deterministic JSONL event stream path (+ a "
+                         ".wall.jsonl wall-clock sidecar); default "
+                         "OUT/events_<tag>.jsonl under --telemetry, else "
+                         "console only. A resume truncates it to the "
+                         "checkpointed seq, so a killed and resumed run "
+                         "writes the same bytes as an uninterrupted one")
+    ap.add_argument("--snapshot", default="",
+                    help="JSON telemetry snapshot path "
+                         "(telemetry.SnapshotExporter on the event log's "
+                         "sink; rewritten atomically each round)")
+    ap.add_argument("--profile", default="",
+                    help="capture a torch.profiler trace of the training "
+                         "loop (host and card) into this directory as "
+                         "trace.json (a Chrome trace; a profiler that "
+                         "cannot start only warns)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' to "
                          "run on the CPU)")
-    args = ap.parse_args(argv)
-    device = resolve_device(args.device)
+    return ap.parse_args(argv)
 
-    cfg = get_config(args.arch)
-    if args.preset == "cpu":
-        cfg = build_cpu_preset(cfg, args.agents)
+
+def main(argv=None):
+    return run(parse_args(argv))
+
+
+def _fetch(mets):
+    """The segment's metrics on the host: every device tensor in ONE
+    transfer (the float columns with the scalars), the host-computed
+    integer columns as they are. {name: numpy array}."""
+    dev = [k for k, v in mets.items() if v.device.type != "cpu"]
+    out = {k: v.numpy() for k, v in mets.items() if k not in dev}
+    if dev:
+        S = mets[dev[0]].shape[0]
+        flat = torch.cat([mets[k].reshape(S, -1).to(torch.float32)
+                          for k in dev], 1).cpu().numpy()
+        lo = 0
+        for k in dev:
+            n = int(np.prod(mets[k].shape[1:], dtype=np.int64))
+            out[k] = flat[:, lo:lo + n].reshape(mets[k].shape)
+            lo += n
+    return out
+
+
+def _ckpt_tree(state, wire_gen, m):
+    """The checkpointed tree: the panel state with its optimizer step count
+    as an (m,) array (a shared count is one repeated; ``meta`` says which
+    it was) and the wire generator's state."""
+    opt = dict(state["opt"])
+    opt["step_count"] = np.broadcast_to(
+        np.asarray(opt["step_count"], np.int64), (m,)).copy()
+    return {"state": {**state, "opt": opt}, "wire_gen": wire_gen.get_state()}
+
+
+def _from_ckpt(tree, per_agent):
+    """The panel state of a restored :func:`_ckpt_tree`: Python ints where
+    the live state holds them."""
+    state = tree["state"]
+    state["step"] = int(state["step"])
+    if not per_agent:
+        state["opt"]["step_count"] = int(state["opt"]["step_count"][0])
+    return state
+
+
+def refuse_oversized_checkpoint(tree, res_total: int, m: int):
+    """SystemExit when ``tree`` cannot fit the checkpoint blob: its array
+    table is one msgpack bin of at most ``checkpoint.io.MAX_PAYLOAD_BYTES``
+    (4,294,967,295) bytes, in both packages' format."""
+    need = ckpt_io.payload_bytes(tree)
+    if need > ckpt_io.MAX_PAYLOAD_BYTES:
+        raise SystemExit(
+            f"--checkpoint-every/--resume: the state is {m} agents x "
+            f"{res_total} B resident = {m * res_total} B, a checkpoint "
+            f"payload of {need} B with its headers, over the checkpoint "
+            f"format's {ckpt_io.MAX_PAYLOAD_BYTES} B (one msgpack bin); "
+            f"run fewer agents or a narrower model, or without "
+            f"checkpoints")
+
+
+def run(args, *, cfg=None, lm=None):
+    """Train as ``args`` (parse_args) say; returns the per-round history.
+
+    ``cfg`` replaces the model config of ``--arch``/``--preset`` (e.g. a
+    full-width model cut in depth, which no preset gives) and ``lm`` the
+    synthetic data source (e.g. a ``SyntheticLM`` over fewer token ids than
+    the vocabulary: its tables are num_domains x V x V); neither enters the
+    run's id or the checkpoint fingerprint, which are the reference's
+    (the run configuration of the flags)."""
+    device = resolve_device(args.device)
+    if cfg is None:
+        cfg = get_config(args.arch)
+        if args.preset == "cpu":
+            cfg = build_cpu_preset(cfg, args.agents)
     m = args.agents
     model = build_model(cfg)
     opt = make_optimizer(args.optimizer, args.lr, weight_decay=5e-4,
@@ -183,17 +310,38 @@ def main(argv=None):
         kw["faults"] = plan
     sched = make_schedule(args.schedule, m, args.rounds, **kw)
     seg_len = 1 if args.schedule == "adaptive" else max(1, args.segment)
+    if args.schedule == "adaptive" and (args.checkpoint_every or
+                                        args.resume):
+        raise SystemExit(
+            "--checkpoint-every/--resume do not support the adaptive "
+            "schedule: its controller state is host-side feedback that a "
+            "checkpoint cannot replay bit-exactly")
     tag = f"{args.arch}_{args.schedule}_a{args.alpha}"
     if args.merge != "uniform":
         tag += f"_m{args.merge}"
     if args.residency:
         tag += "_r" + args.residency.replace("=", "").replace(",", "_")
 
+    # the run configuration that DEFINES the trajectory (the reference's
+    # keys: equal configurations give equal ids in both packages);
+    # checkpoint, telemetry and device plumbing stay out, so a baseline and
+    # its kill+resume twin share one run_id
+    run_cfg = {k: vars(args)[k] for k in (
+        "arch", "preset", "agents", "rounds", "local_steps", "batch",
+        "seq", "segment", "schedule", "window_start", "window_end",
+        "optimizer", "lr", "alpha", "wire", "residency", "merge",
+        "eval_merged_every", "seed", "faults")}
+    run_id = telemetry.make_run_id(run_cfg)
+    events_path = args.events or (
+        os.path.join(args.out, f"events_{tag}.jsonl")
+        if args.telemetry else None)
+
     gen = torch.Generator(device=device).manual_seed(args.seed)
     state, spec = dsgd.init_panel_state(model.init_params, opt, m, gen,
                                         device=device, merger=sched.merger,
                                         wire=args.wire,
                                         residency=args.residency or None)
+    del gen
     print(f"{cfg.name}: {spec.width} parameters per agent, {m} agents, "
           f"device {device}")
     print(f"wire codec {args.wire}: {spec.wire_payload_bytes} B/agent "
@@ -211,12 +359,26 @@ def main(argv=None):
           f"(+{res_bytes['transient_bytes']} transient); "
           f"fused moments {'on' if fused_active else 'off'}")
     # the stochastic codecs' draws: one generator for the whole run (the
-    # residency streams are seeded from it and never draw from it)
+    # residency streams are seeded from it and never draw from it); a
+    # checkpoint carries its state where the reference's carries a key
     wire_gen = torch.Generator(device=device).manual_seed(args.seed + 3)
-    segment_fn = dsgd.make_panel_segment(model.loss_fn, opt,
-                                         args.local_steps, spec, fused=fused)
 
-    lm = SyntheticLM(vocab=cfg.vocab_size, num_domains=8, seed=args.seed)
+    ckpt = None
+    if args.checkpoint_every or args.resume:
+        refuse_oversized_checkpoint(_ckpt_tree(state, wire_gen, m),
+                                    res_bytes["total"], m)
+        # the residency stamp guards --resume against decoding stored
+        # panels with another --residency
+        ckpt = Checkpointer(
+            args.checkpoint_dir or os.path.join(args.out, "ckpt_" + tag),
+            keep=args.checkpoint_keep, fingerprint=run_cfg,
+            residency=parse_policy(args.residency or None))
+    segment_fn = dsgd.make_panel_segment(model.loss_fn, opt,
+                                         args.local_steps, spec, fused=fused,
+                                         telemetry=args.telemetry)
+
+    if lm is None:
+        lm = SyntheticLM(vocab=cfg.vocab_size, num_domains=8, seed=args.seed)
     mixtures = lm.domain_mixtures(m, args.alpha, seed=args.seed + 1)
     rng_np = np.random.default_rng(args.seed + 2)
     # a fixed GLOBAL eval batch (uniform domain mixture = global dist)
@@ -236,6 +398,49 @@ def main(argv=None):
     monitor = {}
     comm_cost = 0.0
     t = 0
+    seg_idx = 0
+    resume_seq = None
+    if args.resume:
+        rec = ckpt.restore_latest(_ckpt_tree(state, wire_gen, m))
+        if rec is None:
+            print("resume: no checkpoint found, starting fresh")
+        else:
+            step, tree, meta = rec
+            del state
+            state = _from_ckpt(tree, meta.get("count_per_agent", False))
+            wire_gen.set_state(tree["wire_gen"])
+            del tree
+            t = int(meta["round"])
+            seg_idx = int(meta["segments"])
+            comm_cost = float(meta["comm_cost"])
+            monitor = meta["monitor"]
+            history = meta["history"]
+            rng_np.bit_generator.state = meta["data_rng"]
+            sched.rng.bit_generator.state = meta["sched_rng"]
+            resume_seq = meta.get("events_seq")
+            print(f"resumed from checkpoint step {step} (round {t})")
+
+    # the event log: the deterministic stream (+ wall sidecar) when a path
+    # is set, console only otherwise. On resume the stream is truncated
+    # back to the checkpointed seq: replayed rounds are emitted exactly
+    # once, keeping a baseline and its kill+resume twin byte-identical
+    snap = (telemetry.SnapshotExporter(args.snapshot)
+            if args.snapshot else None)
+    log = telemetry.EventLog(
+        events_path, run_id=run_id,
+        resume_at=resume_seq if events_path else None, sink=snap)
+    if resume_seq is None:
+        print(telemetry.format_event(log.emit(
+            "run_start", run_id=run_id, schema=telemetry.SCHEMA_VERSION,
+            config=run_cfg)), flush=True)
+    else:
+        log.emit_op("resume", round=t, segments=seg_idx, seq=log.seq)
+    if ckpt is not None:
+        ckpt.events = log  # sidecar checkpoint_save records
+    prof = telemetry.profile_trace(args.profile,
+                                   enabled=bool(args.profile)).start()
+    if prof:
+        log.emit_op("profile_start", logdir=args.profile)
     t0 = time.time()
     ev = args.eval_merged_every
     while t < args.rounds:
@@ -260,9 +465,11 @@ def main(argv=None):
                                  global_rounds=np.asarray(glob),
                                  live=None if plan is None else
                                  np.stack(lives))
-        mets = {k: v.cpu().numpy() for k, v in mets.items()}  # one transfer
+        mets = _fetch(mets)
         monitor = {"grad_norm": float(mets["grad_norm"][-1]),
                    "consensus": float(mets["consensus"][-1])}
+        # merged/local eval at the eval cadence (--eval-merged-every, or at
+        # every segment's end when 0) and always after the last round
         merged_l = local_l = None
         if ev == 0 or (t + S) % ev == 0 or t + S == args.rounds:
             lv_now = alive_after(t + S - 1)
@@ -271,10 +478,28 @@ def main(argv=None):
                                    live=lv_now)
             local_l = eval_local(model.loss_fn, state["panel"], spec,
                                  eval_batch, live=lv_now)
-        dt = time.perf_counter() - seg_t0
+        rev = None
         for s in range(S):
+            r = t + s
+            if plan is not None:
+                for agent, kind in plan.at(r):
+                    log.emit("fault", round=r, agent=agent, kind=kind)
+            extra = ({k: mets[k][s] for k in AGENT_COLUMNS}
+                     if args.telemetry else {})
+            rev = log.emit(
+                "round", round=r, loss=float(mets["loss"][s]),
+                grad_norm=float(mets["grad_norm"][s]),
+                grad_norm_max=float(mets["grad_norm_max"][s]),
+                consensus=float(mets["consensus"][s]),
+                comm_cost_P=float(comm_after[s]),
+                resident_bytes=int(res_bytes["total"]),
+                transient_bytes=int(res_bytes["transient_bytes"]), **extra)
+            if glob[s]:
+                log.emit("merge", round=r, operator=spec.merger)
+            # the evals are measured at the segment's end; the other
+            # rounds carry None, so every record has the same keys
             last = s == S - 1
-            history.append({"round": t + s,
+            history.append({"round": r,
                             "train_loss": float(mets["loss"][s]),
                             "consensus": float(mets["consensus"][s]),
                             "grad_norm": float(mets["grad_norm"][s]),
@@ -282,12 +507,51 @@ def main(argv=None):
                             "local_eval": local_l if last else None,
                             "comm_cost_P": comm_after[s]})
         t += S
-        evals = ("" if merged_l is None else
-                 f" merged {merged_l:.4f} local {local_l:.4f}")
-        print(f"round {t - 1}: loss {mets['loss'][-1]:.4f} "
-              f"Xi {mets['consensus'][-1]:.6g}{evals} comm {comm_cost:.1f}P "
-              f"({dt:.2f}s for {S} rounds)", flush=True)
+        seg_idx += 1
+        print(telemetry.format_event(rev), flush=True)
+        if merged_l is not None:
+            print(telemetry.format_event(log.emit(
+                "eval", round=t - 1, merged_eval=merged_l,
+                local_eval=local_l)), flush=True)
+        log.emit_op("segment", seg=seg_idx, rounds=S,
+                    dt=time.perf_counter() - seg_t0)
+        if ckpt is not None and args.checkpoint_every and (
+                seg_idx % args.checkpoint_every == 0 or t >= args.rounds):
+            # asynchronous: the host copy is taken before save() returns,
+            # so the next segment may update the state in place; events_seq
+            # is the stream's position, the truncate-on-resume cursor
+            ckpt.save(t, _ckpt_tree(state, wire_gen, m), block=False, meta={
+                "round": t, "segments": seg_idx, "comm_cost": comm_cost,
+                "monitor": monitor, "history": history,
+                "data_rng": rng_np.bit_generator.state,
+                "sched_rng": sched.rng.bit_generator.state,
+                "events_seq": log.seq,
+                "count_per_agent": isinstance(state["opt"]["step_count"],
+                                              np.ndarray)})
+        if args.die_after_segments and seg_idx >= args.die_after_segments:
+            if ckpt is not None:
+                ckpt.wait()
+            print(f"fault injection: dying after segment {seg_idx} "
+                  f"(round {t})", flush=True)
+            os.kill(os.getpid(), signal.SIGKILL)
+    if prof:
+        prof.stop()
+        log.emit_op("profile_stop", logdir=args.profile)
+        print(f"profiler trace captured to {args.profile}")
+    print(telemetry.format_event(log.emit(
+        "run_end", rounds=args.rounds,
+        final_loss=history[-1]["train_loss"] if history else 0.0,
+        comm_cost_P=comm_cost)), flush=True)
     print(f"total {time.time() - t0:.1f}s")
+    if ckpt is not None:
+        ckpt.wait()
+    log.close()
+    if snap is not None:
+        snap.close()
+        print(f"telemetry snapshot: {args.snapshot}")
+    if events_path:
+        print(f"events: {events_path} (+ {telemetry.wall_path(events_path)})")
+
     os.makedirs(args.out, exist_ok=True)
     path = os.path.join(args.out, tag + ".json")
     with open(path, "w") as f:

@@ -34,6 +34,12 @@ blob saved from the card is byte-identical to the one saved from the CPU;
 prefill logits on the card within 1e-4 of the CPU's (float32 products in
 other orders), and the engine's greedy tokens equal to each request
 generated alone on the card.
+Telemetry and resumed runs: the segment's per-agent columns on the card
+within 1e-4 of the CPU's from one init over two rounds (relative, with
+1e-5 absolute), its integer columns equal, and the card's panels and
+scalars bit for bit with the columns on and off; a CUDA generator's state
+restored through the Checkpointer gives back its initial seed and its next
+draws bit for bit.
 """
 import numpy as np
 import pytest
@@ -1053,3 +1059,83 @@ def test_engine_on_the_card(cuda, attn_block):
         alone = generate(model, card, {"tokens": torch.from_numpy(
             r.tokens[None]).to(cuda)}, r.max_new, max_len=40)[0]
         np.testing.assert_array_equal(out[r.rid], alone)
+
+
+@pytest.mark.parametrize("wire", [None, "int8_ef_rtn", "topk"])
+def test_telemetry_segment_on_card_matches_cpu(cuda, wire):
+    """make_panel_segment(telemetry=True) on the card against the CPU from
+    one init, over two rounds (a gossip round and the final merge): the
+    float columns within 1e-4, the integer columns (live, wire_bytes)
+    equal; on the card the panels and the scalar metrics are the same bits
+    with the columns on and off."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import (build_cpu_preset,
+                                          sample_segment_batches)
+    from repro_torch.models import build_model
+    from repro_torch.optim import make_optimizer
+    from repro_torch.telemetry.metrics import AGENT_COLUMNS
+    m, rounds, H = 4, 2, 2
+    cfg = build_cpu_preset(get_config("olmo-1b"), m)
+    model = build_model(cfg)
+    sched = make_schedule("final_merge", m, rounds, prob=0.5, seed=0)
+    Ws = np.stack([sched.mixing_matrix(t)
+                   for t in range(rounds)]).astype(np.float32)
+    lm = SyntheticLM(vocab=cfg.vocab_size, seed=0)
+    batches = sample_segment_batches(
+        lm, lm.domain_mixtures(m, 0.1, seed=1), rounds, H, 4, 32,
+        np.random.default_rng(2))
+    if wire == "int8_ef_rtn":
+        wire = {"float32": Int8Codec("int8_ef", stochastic=False,
+                                     error_feedback=True)}
+    mets, panels = {}, {}
+    for dev, tel in (("cpu", True), (cuda, True), (cuda, False)):
+        opt = make_optimizer("adamw", 3e-3, total_steps=rounds * H)
+        state, spec = dsgd.init_panel_state(model.init_params, opt, m, 0,
+                                            device="cpu", wire=wire)
+        state = {k: v for k, v in state.items() if k != "opt"}
+        state = {k: _to(v, dev) for k, v in state.items()}
+        state["opt"] = opt.init(state["panel"])
+        seg = dsgd.make_panel_segment(model.loss_fn, opt, H, spec,
+                                      telemetry=tel)
+        state, out = seg(state, batches, Ws)
+        key = (str(dev), tel)
+        mets[key] = {k: v.cpu().numpy() for k, v in out.items()}
+        panels[key] = state["panel"]["float32"].cpu()
+    cpu, card, off = (mets[("cpu", True)], mets[("cuda", True)],
+                      mets[("cuda", False)])
+    assert set(card) - set(off) == set(AGENT_COLUMNS)
+    for k in ("loss_agent", "grad_norm_agent", "dist_to_mean"):
+        assert card[k].shape == (rounds, m)
+        np.testing.assert_allclose(card[k], cpu[k], rtol=1e-4, atol=1e-5,
+                                   err_msg=k)
+    for k in ("live", "wire_bytes"):
+        np.testing.assert_array_equal(card[k], cpu[k])
+    assert torch.equal(panels[("cuda", True)], panels[("cuda", False)])
+    for k in off:
+        np.testing.assert_array_equal(card[k], off[k])
+    np.testing.assert_allclose(
+        np.sqrt(np.mean(card["dist_to_mean"] ** 2, axis=1)),
+        card["consensus"], rtol=1e-4, atol=0.0)
+    assert card["dist_to_mean"][-1].max() == 0.0
+
+
+def test_cuda_generator_state_through_checkpointer(cuda, tmp_path):
+    """A CUDA generator's state (its seed and Philox offset, the launcher's
+    wire generator) saved and restored through the Checkpointer: the
+    restored generator reports the same initial seed and draws the same
+    next uniforms bit for bit."""
+    from repro_torch.checkpoint import Checkpointer
+    gen = torch.Generator(device=cuda).manual_seed(1234)
+    torch.rand((3, 1001), generator=gen, device=cuda)
+    ck = Checkpointer(str(tmp_path), keep=1, fingerprint={"seed": 1234})
+    ck.save(1, {"wire_gen": gen.get_state()}, block=False)
+    want = torch.rand((4, 777), generator=gen, device=cuda)
+    ck.wait()
+    other = torch.Generator(device=cuda).manual_seed(7)
+    torch.rand(5, generator=other, device=cuda)
+    step, tree, _ = Checkpointer(str(tmp_path), fingerprint={
+        "seed": 1234}).restore_latest({"wire_gen": other.get_state()})
+    other.set_state(tree["wire_gen"])
+    assert step == 1 and other.initial_seed() == 1234
+    assert torch.equal(torch.rand((4, 777), generator=other, device=cuda),
+                       want)

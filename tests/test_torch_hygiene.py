@@ -70,7 +70,9 @@ def test_import_with_jax_and_reference_blocked():
     assert len(mods) > 20
     for new in ("repro_torch.checkpoint.io", "repro_torch.serving.engine",
                 "repro_torch.launch.serve", "repro_torch.telemetry.events",
-                "repro_torch.telemetry.latency", "repro_torch.telemetry.trace"):
+                "repro_torch.telemetry.latency", "repro_torch.telemetry.trace",
+                "repro_torch.telemetry.export",
+                "repro_torch.telemetry.validate"):
         assert new in mods
 
 
