@@ -23,7 +23,11 @@ Phases, each printing its lines:
      shape (library torch's scaled_dot_product_attention, is_causal; the
      bound of the kernels' split-TF32 tensor-core route, and the float32
      CUDA cores' figure in the text; each kernel's registers, local (spill)
-     bytes and blocks per SM, checked for no spills and 8 warps an SM); the
+     bytes and blocks per SM, checked for no spills and 8 warps an SM);
+     the same at head dims 96 and 256 (odd sizes, windows, GQA/MQA,
+     bfloat16; resources checked for no spills and 8 warps an SM at hd
+     96, 4 at hd 256; timed at FLASH_TIMED's shapes beside their bound and
+     scaled_dot_product_attention with enable_gqa); the
      on-chip-seeded int8 quantize: its Philox4x32-10 against the toolkit's
      curand_Philox4x32_10 and the plain twin, the kernel bit for bit against
      its plain twin at odd widths and at the main shape, the mean of q s - x
@@ -121,7 +125,28 @@ Phases, each printing its lines:
      --resume): equal histories, byte-identical valid streams, and the
      baseline and resumed children launching the int8 quantize and
      dequantize, the weighted column merge and the mix;
-then the script's total time, a JSON line of per-kernel numbers, the
+  11. (after phase 10) the registry's attention decoders (ARCH_CELLS):
+     phi3-mini-3.8b, gemma-2b (attn_block 512: the flash kernels at hd 256,
+     MQA), yi-34b (m D > 2^31), arctic-480b (MoE, 8 of its 128 experts)
+     at their published widths cut in depth, and deepseek-v3-671b's
+     reduced() config (MLA, MoE, MTP), each through init_panel_state ->
+     make_panel_segment for ARCH_ROUNDS rounds: D against ARCH_D, losses
+     finite, the rows identical bit for bit and Xi 0.0 after the merge,
+     merged == local eval to 1e-6, the mix and reduce (and on gemma the
+     flash kernels) launched; the merged phi3 and arctic models served by
+     the engine (ARCH_SERVE_C slots, ARCH_SERVE_REQUESTS requests of
+     ARCH_SERVE_PROMPT tokens, ARCH_SERVE_NEW new: every request's tokens
+     equal to it generated alone), and deepseek's teacher-forced decode
+     (the absorbed MLA path) against the whole sequence's prefill at
+     2e-5 + 1e-5 relative; then deepseek-v3 at its published widths (d_model
+     7168, 128 heads, MLA ranks 1536/512, vocab 129,280, top-8 sigmoid
+     router, shared expert, MTP), cut to its dense front layer, one MoE
+     layer and MLA_WIDE_EXPERTS experts: its loss finite with the MTP and
+     load-balance terms, the MoE layer's dispatch against its dense twin,
+     and the same decode check;
+then the script's total time, a JSON line of per-kernel numbers (the
+flash rows with their hd96 and hd256 timings; every row with its phase-11
+launches by cell, ``launches_arch``), the
 card's line again and, last, the result line. It fails (non-zero exit, no
 result line) if there is no card, if the port's package is not beside it,
 if a kernel does not build, launch or agree, or if any check fails.
@@ -155,6 +180,11 @@ PLAIN_REPS = 5        # timed calls of a plain version (10-1000x slower)
 # the attn_block path's input: olmo-1b's context length, blocks of 512 keys
 # (the dry-run's flashxla value: 4 key blocks a row)
 ATTN_BLOCK, ATTN_BATCH, ATTN_SEQ = 512, 2, 2048
+# phase 3's timed flash shapes (at ATTN_BATCH, ATTN_SEQ, causal): (H, Kv,
+# hd) of the attn_block path (hd 128, the kernel rows' own numbers), of
+# phi3-mini (hd 96) and of gemma-2b (hd 256, MQA: phase 11's gemma cell)
+FLASH_TIMED = {"hd128": (16, 16, 128), "hd96": (32, 32, 96),
+               "hd256": (8, 1, 256)}
 
 # the paths driven at full width (f32 is the main path) and the kernels
 # each must launch; a path is a wire codec, "merge <operator>" on the f32
@@ -192,6 +222,41 @@ FAULT_SMOKE_CFG = ["--rounds", "6", "--segment", "2", "--agents", "4",
 FAULT_SMOKE_TAG = "olmo-1b_final_merge_a0.1_mfisher"
 FAULT_SMOKE_KERNELS = ("quantize_int8", "dequantize_int8",
                        "weighted_colmerge", "gossip_mix")
+# phase 11: the registry's attention decoders at their published widths, cut
+# in depth (and agents; arctic in experts) to fit one card: cell: (arch,
+# layers, m, batch, seq, attn_block, experts); deepseek-v3 runs its
+# reduced() config (layers None). ARCH_ROUNDS rounds (two gossip rounds and
+# the merge), H local steps; ARCH_D the width D of an agent each cut gives.
+ARCH_CELLS = {"phi3": ("phi3-mini-3.8b", 2, 8, 4, 512, 0, None),
+              "gemma": ("gemma-2b", 2, 4, 2, 2048, 512, None),
+              "yi": ("yi-34b", 1, 2, 4, 512, 0, None),
+              "arctic": ("arctic-480b", 1, 2, 4, 512, 0, 8),
+              "deepseek": ("deepseek-v3-671b", None, 8, 4, 256, 0, None)}
+ARCH_ROUNDS = 3
+ARCH_D = {"phi3": 424_688_640, "gemma": 744_499_200, "yi": 1_475_367_936,
+          "arctic": 1_517_630_464, "deepseek": 5_361_952}
+# the merged models served (C slots, requests of PROMPT tokens, NEW new
+# tokens each, greedy) and the MLA cell's teacher-forced decode (a prompt
+# of MLA_PROMPT tokens, MLA_STEPS steps, 2 rows)
+ARCH_SERVED = ("phi3", "arctic")
+ARCH_SERVE_C, ARCH_SERVE_REQUESTS = 4, 8
+ARCH_SERVE_PROMPT, ARCH_SERVE_NEW = 512, 32
+MLA_PROMPT, MLA_STEPS = 192, 8
+# deepseek-v3 at its published widths (d_model 7168, 128 heads, q/kv LoRA
+# ranks 1536/512, rope 64, vocab 129,280, the top-8 sigmoid router, the
+# shared expert, MTP 1) cut in depth to its dense front layer and one MoE
+# layer, and in routed experts from 256 to MLA_WIDE_EXPERTS. An expert is
+# 44.0 M parameters in the MoE layer and as many in the MTP block; the
+# rest (the embedding, the untied head, the front layer, the three MLA
+# mixers, the MTP projection) is 12.0 GB of float32. At 256 experts the
+# weights are 102.2 GB against the card's 85.0 GB (79.18 GiB); at 160,
+# 68.4 GB, and the draw of a bank (or moe_ref's einsum copy of one) 9.4 GB
+# more, with no room left for the allocator's slack; at 128, 57.1 GB and
+# 7.5 GB. The loss (no gradient: the weights alone take 67% of the card)
+# at MLA_WIDE_BATCH rows of MLA_WIDE_SEQ tokens; the MoE layer's dispatch
+# against its dense twin at as many tokens
+MLA_WIDE_EXPERTS = 128
+MLA_WIDE_BATCH, MLA_WIDE_SEQ = 2, 256
 CHILD = ("import json, sys\n"
          "from repro_torch.kernels import launch_counts\n"
          "from repro_torch.launch import train\n"
@@ -1071,38 +1136,37 @@ def flash_checks(torch):
     """Phase 3, flash attention: first each kernel's resources at hd 128
     (registers and local (spill) bytes from the runtime's function
     attributes, blocks per SM from its occupancy calculator), which must
-    show no local memory and at least 8 warps an SM; then the forward kernel (float32 and bfloat16)
-    and the backward kernels against their plain versions (the online loop,
+    show no local memory and at least 8 warps an SM; then the forward
+    kernel (float32 and bfloat16) and the backward kernels against their plain versions (the online loop,
     and torch autograd through it) at odd sizes (S = 100, hd 64 and 128, a
     window, GQA), at the attn_block path's shape (B 2, S 2048, H 16, hd
     128), a GQA one (H 32 on Kv 8) and the serve path's prefills (B 1, S
     1024 and 2048, H 16, hd 128). Tolerances: float32 output and lse
     2e-5, gradients 1e-4, bfloat16 output 2e-2 (other summation orders).
-    Times at the path's shape: kernel, plain version, the bound on the
-    kernels' split-TF32 route (three TF32 products a float32 operation over
-    the visible pairs at the tensor cores' 495 TFLOP/s, or the bytes if
-    larger; the share printed is of it; beside it, for continuity, the
-    float32 operations at the CUDA cores' 67 TFLOP/s) and torch's scaled_dot_product_attention(is_causal=True) on the same
-    float32 tensors, forward, and its backward on a retained graph."""
+    Times at FLASH_TIMED's shapes (flash_times): the hd 128 one gives the
+    kernel rows their numbers, the hd 96 and hd 256 ones their sub-rows."""
     from repro_torch.kernels.flash_attention import (flash_attention_bwd,
                                                      flash_attention_fwd,
                                                      occupancy)
     from repro_torch.kernels.ref import (flash_attention_bwd_ref,
                                          flash_attention_fwd_ref)
-    F = torch.nn.functional
-    for name, r in occupancy(128, ATTN_SEQ).items():
-        print(f"flash attention {name} at hd 128: {r['registers']} "
-              f"registers, {r['local_bytes']} B local (spills) a thread, "
-              f"{r['blocks_per_sm']} blocks ({4 * r['blocks_per_sm']} warps) "
-              f"per SM, {r['smem']} B shared memory", flush=True)
-        check(r["registers"] > 0 and r["local_bytes"] == 0
-              and 4 * r["blocks_per_sm"] >= 8,
-              f"flash attention {name} at hd 128 spills or runs under 8 "
-              f"warps an SM: {r}")
+    # warps an SM each head dim must reach: two 4-warp blocks up to hd 128,
+    # one at hd 256 (its tiles take 166,912-199,680 bytes of shared memory)
+    for hd, warps in ((128, 8), (96, 8), (256, 4)):
+        for name, r in occupancy(hd, ATTN_SEQ).items():
+            print(f"flash attention {name} at hd {hd}: {r['registers']} "
+                  f"registers, {r['local_bytes']} B local (spills) a "
+                  f"thread, {r['blocks_per_sm']} blocks "
+                  f"({4 * r['blocks_per_sm']} warps) per SM, {r['smem']} B "
+                  f"shared memory", flush=True)
+            check(r["registers"] > 0 and r["local_bytes"] == 0
+                  and 4 * r["blocks_per_sm"] >= warps,
+                  f"flash attention {name} at hd {hd} spills or runs under "
+                  f"{warps} warps an SM: {r}")
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(6)
     err = {"fwd": 0.0, "fwd_bf16": 0.0, "bwd": 0.0}
-    out = {}
+    timed = {}
     # (B, S, H, Kv, hd, window, dtype)
     cases = [(2, 100, 4, 2, 64, None, torch.float32),
              (1, 100, 2, 2, 128, 48, torch.float32),
@@ -1114,6 +1178,17 @@ def flash_checks(torch):
     # each bucket
     cases += [(1, S, 16, 16, 128, None, torch.float32)
               for S in sorted(SERVE_PROMPTS)]
+    # the wide heads: hd 96 (phi3-mini) and 256 (gemma-2b: two column blocks
+    # a row tile, MQA), odd sizes, windows and bfloat16; then the timed
+    # shapes of FLASH_TIMED
+    cases += [(2, 100, 4, 2, 96, None, torch.float32),
+              (1, 300, 8, 1, 96, 100, torch.float32),
+              (2, 100, 4, 2, 96, 48, torch.bfloat16),
+              (2, 100, 8, 1, 256, None, torch.float32),
+              (1, 130, 4, 2, 256, 48, torch.float32),
+              (2, 100, 8, 1, 256, None, torch.bfloat16)]
+    cases += [(ATTN_BATCH, ATTN_SEQ, *shape, None, torch.float32)
+              for key, shape in FLASH_TIMED.items() if key != "hd128"]
     for B, S, Hq, Kv, hd, window, dtype in cases:
         q = torch.randn((B, S, Hq, hd), generator=gen, device=dev)
         k = torch.randn((B, S, Kv, hd), generator=gen, device=dev)
@@ -1156,65 +1231,87 @@ def flash_checks(torch):
             line += f"; backward max|err| {eb:.3g} (rel l2 {rel:.3g})"
             del g, rg
         print(line, flush=True)
-        if B == ATTN_BATCH and S == ATTN_SEQ and Hq == 16:
-            pairs = visible_pairs(S, True, window)
-            n_q, n_kv, rows = B * S * Hq * hd, B * S * Kv * hd, B * Hq * S
-            cost = {"flash_attention_fwd": (
-                        4 * (2 * n_q + 2 * n_kv + rows) + 8 * B * S,
-                        4 * hd * pairs * B * Hq),
-                    "flash_attention_bwd": (
-                        4 * (4 * n_q + 4 * n_kv + rows) + 8 * B * S,
-                        10 * hd * pairs * B * Hq)}
-            timed = {"flash_attention_fwd": (
-                         lambda: flash_attention_fwd(q, k, v, pos, pos),
-                         lambda: flash_attention_fwd_ref(q, k, v, pos, pos)),
-                     "flash_attention_bwd": (
-                         lambda: flash_attention_bwd(q, k, v, o, lse, do,
-                                                     pos, pos),
-                         lambda: flash_attention_bwd_ref(q, k, v, do, pos,
-                                                         pos))}
-            for name, (fn, plain) in timed.items():
-                nbytes, ops = cost[name]
-                b_ms, b_by = bound(nbytes, ops, TF32_SPLIT_FLOPS)
-                out[name] = {"ms": time_ms(torch, fn),
-                             "plain_ms": time_ms(torch, plain, reps=5,
-                                                 warmup=1),
-                             "library_ms": None, "bytes": nbytes, "ops": ops,
-                             "bound_ms": b_ms, "bound_by": b_by}
-            # the library yardstick, in its (B, H, S, hd) layout
-            ql, kl, vl = (t.transpose(1, 2).contiguous().requires_grad_(True)
-                          for t in (q, k, v))
-            dol = do.transpose(1, 2).contiguous()
-            try:
-                lo = F.scaled_dot_product_attention(ql, kl, vl,
-                                                    is_causal=True)
-                out["flash_attention_fwd"]["library_ms"] = time_ms(
-                    torch, lambda: F.scaled_dot_product_attention(
-                        ql, kl, vl, is_causal=True))
-                out["flash_attention_bwd"]["library_ms"] = time_ms(
-                    torch, lambda: torch.autograd.grad(
-                        lo, (ql, kl, vl), dol, retain_graph=True))
-                del lo
-            except (RuntimeError, NotImplementedError) as exc:
-                print(f"library: scaled_dot_product_attention does not run "
-                      f"on float32 here ({type(exc).__name__}: "
-                      f"{str(exc).splitlines()[0]})", flush=True)
-            del ql, kl, vl, dol
-            for name, r_ in out.items():
-                print(f"time {name} (B={B}, S={S}, H={Hq}, hd={hd}, causal): "
-                      f"kernel {r_['ms']:.4f} ms, plain {r_['plain_ms']:.4f} "
-                      f"ms, library {r_['library_ms']} ms; bound "
-                      f"{r_['bound_ms']:.4f} ms ({r_['bound_by']}: 3 TF32 "
-                      f"products for each of {r_['ops']} float32 operations "
-                      f"at 495 TFLOP/s), {100 * r_['bound_ms'] / r_['ms']:.1f}"
-                      f"% of it; on the float32 CUDA cores (67 TFLOP/s) "
-                      f"{1e3 * r_['ops'] / FP32_FLOPS:.4f} ms", flush=True)
+        key = [k_ for k_, v_ in FLASH_TIMED.items() if v_ == (Hq, Kv, hd)]
+        if B == ATTN_BATCH and S == ATTN_SEQ and key:
+            timed[key[0]] = flash_times(torch, q, k, v, do, pos, o, lse)
         del q, k, v, do, qc, kc, vc, o, lse
         torch.cuda.empty_cache()
+    out = timed.pop("hd128")
     out["flash_attention_fwd"]["max_abs_err"] = err["fwd"]
     out["flash_attention_fwd"]["max_abs_err_bf16"] = err["fwd_bf16"]
     out["flash_attention_bwd"]["max_abs_err"] = err["bwd"]
+    for key, res in timed.items():
+        for name, r_ in res.items():
+            out[name][key] = r_
     return out
+
+
+def flash_times(torch, q, k, v, do, pos, o, lse):
+    """Phase 3, a timed shape of FLASH_TIMED (causal, no window): the
+    forward and backward kernels, their plain versions, the bound of the
+    kernels' split-TF32 route (three TF32 products a float32 operation over
+    the visible pairs at the tensor cores' 495 TFLOP/s, or the bytes if
+    larger; beside it, for continuity, the float32 operations at the CUDA
+    cores' 67 TFLOP/s) and torch's scaled_dot_product_attention(
+    is_causal=True, enable_gqa for Kv < H) on the same float32 tensors in
+    its (B, H, S, hd) layout, forward, and its backward on a retained
+    graph. Returns {kernel: its numbers}."""
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd,
+                                                     flash_attention_fwd)
+    from repro_torch.kernels.ref import (flash_attention_bwd_ref,
+                                         flash_attention_fwd_ref)
+    F = torch.nn.functional
+    B, S, Hq, hd = q.shape
+    Kv = k.shape[2]
+    pairs = visible_pairs(S, True, None)
+    n_q, n_kv, rows = B * S * Hq * hd, B * S * Kv * hd, B * Hq * S
+    cost = {"flash_attention_fwd": (4 * (2 * n_q + 2 * n_kv + rows)
+                                    + 8 * B * S, 4 * hd * pairs * B * Hq),
+            "flash_attention_bwd": (4 * (4 * n_q + 4 * n_kv + rows)
+                                    + 8 * B * S, 10 * hd * pairs * B * Hq)}
+    timed = {"flash_attention_fwd": (
+                 lambda: flash_attention_fwd(q, k, v, pos, pos),
+                 lambda: flash_attention_fwd_ref(q, k, v, pos, pos)),
+             "flash_attention_bwd": (
+                 lambda: flash_attention_bwd(q, k, v, o, lse, do, pos, pos),
+                 lambda: flash_attention_bwd_ref(q, k, v, do, pos, pos))}
+    res = {}
+    for name, (fn, plain) in timed.items():
+        nbytes, ops = cost[name]
+        b_ms, b_by = bound(nbytes, ops, TF32_SPLIT_FLOPS)
+        res[name] = {"shape": [B, S, Hq, Kv, hd], "ms": time_ms(torch, fn),
+                     "plain_ms": time_ms(torch, plain, reps=PLAIN_REPS,
+                                         warmup=1),
+                     "library_ms": None, "bytes": nbytes, "ops": ops,
+                     "bound_ms": b_ms, "bound_by": b_by}
+    ql, kl, vl = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                  for t in (q, k, v))
+    dol = do.transpose(1, 2).contiguous()
+    kw = dict(is_causal=True, enable_gqa=True) if Kv < Hq else dict(
+        is_causal=True)
+    try:
+        lo = F.scaled_dot_product_attention(ql, kl, vl, **kw)
+        res["flash_attention_fwd"]["library_ms"] = time_ms(
+            torch, lambda: F.scaled_dot_product_attention(ql, kl, vl, **kw))
+        res["flash_attention_bwd"]["library_ms"] = time_ms(
+            torch, lambda: torch.autograd.grad(lo, (ql, kl, vl), dol,
+                                               retain_graph=True))
+        del lo
+    except (RuntimeError, NotImplementedError) as exc:
+        print(f"library: scaled_dot_product_attention does not run on "
+              f"float32 here ({type(exc).__name__}: "
+              f"{str(exc).splitlines()[0]})", flush=True)
+    del ql, kl, vl, dol
+    for name, r_ in res.items():
+        print(f"time {name} (B={B}, S={S}, H={Hq}, Kv={Kv}, hd={hd}, "
+              f"causal; {card_line()}): kernel {r_['ms']:.4f} ms, plain "
+              f"{r_['plain_ms']:.4f} ms, library {r_['library_ms']} ms; "
+              f"bound {r_['bound_ms']:.4f} ms ({r_['bound_by']}: 3 TF32 "
+              f"products for each of {r_['ops']} float32 operations at 495 "
+              f"TFLOP/s), {100 * r_['bound_ms'] / r_['ms']:.1f}% of it; on "
+              f"the float32 CUDA cores (67 TFLOP/s) "
+              f"{1e3 * r_['ops'] / FP32_FLOPS:.4f} ms", flush=True)
+    return res
 
 
 def segment_inputs(cfg, m, rounds, seed=0, data_vocab=None, batch=BATCH,
@@ -2493,6 +2590,354 @@ def launcher_phase(torch, main):
     return counts, rec
 
 
+def arch_config(name):
+    """Phase 11's model config of a cell of ARCH_CELLS."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    arch, layers, _, _, _, block, experts = ARCH_CELLS[name]
+    cfg = get_config(arch)
+    cfg = cfg.reduced() if layers is None else cfg.replace(num_layers=layers)
+    if experts:
+        cfg = cfg.replace(moe=dataclasses.replace(cfg.moe,
+                                                  num_experts=experts))
+    if block:
+        cfg = cfg.replace(dist=dataclasses.replace(cfg.dist,
+                                                   attn_block=block))
+    return cfg
+
+
+def drive_arch(torch, name):
+    """Phase 11, one cell: the arch at its cut (arch_config) through
+    init_panel_state -> make_panel_segment -> merged and local eval on the
+    f32 wire, the final-merge schedule, ARCH_ROUNDS rounds of H local
+    steps, the data over min(DATA_VOCAB, vocab) ids. Checked: the width D
+    against ARCH_D, every round's loss finite, after the merge every row
+    identical bit for bit and Xi 0.0, merged eval == local eval to 1e-6
+    relative, the mix and the reduce launched (with attn_block, one flash
+    forward and one backward a layer, agent and local step, and one forward
+    a layer for the merged eval and a layer and agent for the local evals,
+    exactly). Returns
+    (counts, record, the merged model or None, model)."""
+    from repro_torch.core import dsgd
+    from repro_torch.core import merge as merge_mod
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.train import eval_local, eval_merged, to_device
+    from repro_torch.models import build_model
+    from repro_torch.optim import make_optimizer
+    dev = torch.device("cuda")
+    _, _, m, batch, seq, _, _ = ARCH_CELLS[name]
+    cfg = arch_config(name)
+    model = build_model(cfg)
+    opt = make_optimizer("adamw", 3e-3, weight_decay=5e-4,
+                         total_steps=ARCH_ROUNDS * H)
+    per_round, eval_batch = segment_inputs(
+        cfg, m, ARCH_ROUNDS, data_vocab=min(DATA_VOCAB, cfg.vocab_size),
+        batch=batch, seq=seq)
+    eval_batch = to_device(eval_batch, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    state, spec = dsgd.init_panel_state(
+        model.init_params, opt, m, torch.Generator(device=dev).manual_seed(0),
+        device=dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    seg = dsgd.make_panel_segment(model.loss_fn, opt, H, spec)
+    moe = cfg.moe
+    print(f"cell {name} (phase 11, {card_line()}): {cfg.name} d_model "
+          f"{cfg.d_model}, {cfg.num_layers} layers, heads {cfg.attn.num_heads}"
+          f" (kv {cfg.attn.num_kv_heads}) x {cfg.attn.head_dim}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size} padded to {cfg.padded_vocab}, "
+          f"untied head {not cfg.tie_embeddings}, experts "
+          f"{moe.num_experts if moe else 0} (top {moe.top_k if moe else 0}), "
+          f"mla {cfg.layer_period[0].mixer == 'mla'}, mtp {cfg.mtp_depth}; "
+          f"D {spec.width} per agent, m {m} (m D {m * spec.width}, 2^31 = "
+          f"{2 ** 31}), H {H}, batch {batch}, seq {seq}, attn_block "
+          f"{cfg.dist.attn_block}; init {t_init:.2f}s, device memory held "
+          f"before {held} bytes", flush=True)
+    check(spec.width == ARCH_D[name],
+          f"cell {name}: D {spec.width} != {ARCH_D[name]}")
+    losses, xis, times = [], [], []
+    for t, (W, b, glob, live) in enumerate(per_round):
+        t0 = time.perf_counter()
+        state, mets = seg(state, b, W, global_rounds=glob, live=live)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(mets["loss"][0]))
+        xis.append(float(mets["consensus"][0]))
+        kind = ("idle" if (W[0] == torch.eye(m).numpy()).all() else
+                "merge" if glob[0] else "mix")
+        print(f"round {t} ({kind}, {name}): loss {losses[-1]:.6f} Xi "
+              f"{xis[-1]!r} {times[-1]:.3f}s; device memory peak so far "
+              f"{torch.cuda.max_memory_allocated()} bytes", flush=True)
+    t0 = time.perf_counter()
+    merged = eval_merged(model.loss_fn, state["panel"], spec, eval_batch)
+    local = eval_local(model.loss_fn, state["panel"], spec, eval_batch)
+    torch.cuda.synchronize()
+    dt_eval = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    same = rows_identical(torch, state["panel"])
+    print(f"kernels ({cfg.name}) {json.dumps(counts)}", flush=True)
+    print(f"eval ({name}, {card_line()}): merged {merged!r} local {local!r} "
+          f"({dt_eval:.3f}s for both); rounds (s) {times}; peak device "
+          f"memory {peak} bytes ({peak / (m * spec.width * 4):.2f} panels); "
+          f"after the final merge the rows are identical: {same}, Xi "
+          f"{xis[-1]!r}", flush=True)
+    check(counts["gossip_mix"] > 0 and counts["panel_mean_consensus"] > 0,
+          f"cell {name}: the mix or the reduce never launched: {counts}")
+    if cfg.dist.attn_block:
+        steps = ARCH_ROUNDS * H * m * cfg.num_layers
+        check(counts["flash_attention_bwd"] == steps
+              and counts["flash_attention_fwd"]
+              == steps + cfg.num_layers + m * cfg.num_layers,
+              f"cell {name}: flash attention launches {counts} are not one "
+              f"forward and one backward a layer, agent and local step, "
+              f"plus one forward a layer for the merged eval and one a "
+              f"layer and agent for the local evals")
+    check(all(math.isfinite(x) for x in losses + [merged, local]),
+          f"cell {name}: a loss is not finite: {losses} {merged} {local}")
+    check(same and xis[-1] == 0.0,
+          f"cell {name}: rows differ or Xi {xis[-1]!r} after the merge")
+    check(abs(local - merged) <= 1e-6 * abs(merged),
+          f"cell {name}: local eval {local!r} != merged eval {merged!r}")
+    record = {"losses": losses, "xis": xis, "times": times, "peak": peak,
+              "width": spec.width, "merged": merged, "local": local,
+              "init_s": t_init}
+    served = None
+    if name in ARCH_SERVED or cfg.layer_period[0].mixer == "mla":
+        served = merge_mod.merged_panel_tree(state["panel"], spec)
+    del state, seg
+    torch.cuda.empty_cache()
+    return counts, record, served, model
+
+
+def arch_serve(torch, name, model, params):
+    """Phase 11, a served cell: the merged model in the ServingEngine
+    (ARCH_SERVE_C slots, ARCH_SERVE_REQUESTS requests of ARCH_SERVE_PROMPT
+    prompt tokens, ARCH_SERVE_NEW new each, greedy; a one-request warmup,
+    then reset()); every request's tokens equal to the request generated
+    alone, no OOV id. Returns (counts, record)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.serve import request_tokens
+    from repro_torch.serving import Request, ServingEngine, generate
+    cfg = model.cfg
+    dev = torch.device("cuda")
+    max_len = ARCH_SERVE_PROMPT + ARCH_SERVE_NEW
+    reqs = [Request(rid=i, tokens=request_tokens(cfg, SERVE_SEED, i,
+                                                 ARCH_SERVE_PROMPT),
+                    max_new=ARCH_SERVE_NEW)
+            for i in range(ARCH_SERVE_REQUESTS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    eng = ServingEngine(model, params, max_concurrency=ARCH_SERVE_C,
+                        max_len=max_len)
+    eng.serve([Request(rid=-1, tokens=request_tokens(
+        cfg, SERVE_SEED + 1, 0, ARCH_SERVE_PROMPT), max_new=4)])
+    eng.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = eng.serve(reqs)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    snap = eng.snapshot()
+    lat = snap["latency"]
+    n_tok = sum(len(v) for v in out.values())
+    rec = {"tok_s": n_tok / dt, "seconds": dt, "occupancy": snap["occupancy"],
+           "ttft_p50_ms": 1e3 * lat["ttft_s"]["p50_s"],
+           "decode_step_p50_ms": 1e3 * lat["decode_step_s"]["p50_s"],
+           "peak": peak}
+    del eng
+    same = []
+    for r in reqs:
+        alone = generate(model, params,
+                         {"tokens": torch.from_numpy(r.tokens[None]).to(dev)},
+                         ARCH_SERVE_NEW, max_len=max_len)[0]
+        same.append(bool((alone == out[r.rid]).all()))
+    print(f"serve ({name}, phase 11, {card_line()}): {ARCH_SERVE_C} slots, "
+          f"{ARCH_SERVE_REQUESTS} requests of {ARCH_SERVE_PROMPT} prompt "
+          f"tokens, {ARCH_SERVE_NEW} new: {rec['tok_s']:.1f} tok/s "
+          f"({n_tok} tokens in {dt:.3f}s) | ttft p50 "
+          f"{rec['ttft_p50_ms']:.1f} ms | decode step p50 "
+          f"{rec['decode_step_p50_ms']:.3f} ms | occupancy "
+          f"{snap['occupancy']:.4f} | peak device memory {peak} bytes; "
+          f"tokens equal to each request generated alone: {same}",
+          flush=True)
+    print(f"kernels (serve {cfg.name}) {json.dumps(counts)}", flush=True)
+    oov = [rid for rid, v in out.items()
+           if not ((v >= 0) & (v < cfg.vocab_size)).all()]
+    check(not oov, f"serve ({name}): requests {oov} emitted an OOV id")
+    check(len(out) == ARCH_SERVE_REQUESTS and all(
+        len(v) == ARCH_SERVE_NEW for v in out.values()),
+        f"serve ({name}): not every request got {ARCH_SERVE_NEW} tokens")
+    check(all(same), f"serve ({name}): the engine's greedy tokens differ "
+                     f"from generate alone: {same}")
+    torch.cuda.empty_cache()
+    return counts, rec
+
+
+def mla_decode_check(torch, name, model, params):
+    """Phase 11, the MLA cell's merged model: a prompt of MLA_PROMPT tokens
+    prefilled, then MLA_STEPS teacher-forced decode steps (the absorbed
+    latent-space attention over the {ckv, krope, pos} cache, the dropless
+    MoE); each step's logits against the prefill of the whole sequence up
+    to that token (the materialised attention) at the serving tolerance,
+    2e-5 absolute + 1e-5 relative. Returns the largest difference."""
+    import numpy as np
+    cfg = model.cfg
+    dev = torch.device("cuda")
+    total = MLA_PROMPT + MLA_STEPS
+    toks = torch.from_numpy(np.random.default_rng(7).integers(
+        0, cfg.vocab_size, size=(2, total)).astype(np.int32)).to(dev)
+    with torch.no_grad():
+        logits, caches = model.prefill(
+            params, {"tokens": toks[:, :MLA_PROMPT]}, max_len=total)
+        diff, ok = 0.0, True
+        for i in range(MLA_STEPS):
+            at = MLA_PROMPT + i
+            logits, caches = model.decode_step(params, caches,
+                                               toks[:, at:at + 1], at)
+            ref, _ = model.prefill(params, {"tokens": toks[:, :at + 1]},
+                                   max_len=total)
+            diff = max(diff, float(torch.max(torch.abs(logits - ref))))
+            ok = ok and torch.allclose(logits, ref, atol=2e-5, rtol=1e-5)
+    print(f"mla decode ({name}, phase 11, {card_line()}): {MLA_STEPS} "
+          f"teacher-forced steps after a {MLA_PROMPT}-token prompt against "
+          f"the whole sequence's prefill: max |logit difference| {diff!r}, "
+          f"within 2e-5 + 1e-5 relative: {ok}", flush=True)
+    check(ok, f"mla decode ({name}): decode differs from prefill by {diff}")
+    return diff
+
+
+def mla_width_check(torch):
+    """Phase 11, deepseek-v3 at its published widths, cut in depth and in
+    experts (MLA_WIDE_EXPERTS): the weights drawn on the card from seed 0;
+    the training loss at MLA_WIDE_BATCH x MLA_WIDE_SEQ (the materialised
+    MLA, the front layer's dense FFN, the capacity-capped MoE, the MTP
+    head) finite, with its MTP and load-balance terms; the MoE layer's
+    dropless moe_forward against its dense twin moe_ref on one draw of
+    inputs at 2e-5 + 2e-5 relative (float32 products summed in other
+    orders); then mla_decode_check (the absorbed decode against the
+    prefill). Returns a record."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.moe import moe_forward, moe_ref
+    from repro_torch.utils.tree import tree_leaves
+    dev = torch.device("cuda")
+    cfg = get_config("deepseek-v3-671b")
+    cfg = cfg.replace(num_layers=2, dense_ff_first_k=1,
+                      moe=dataclasses.replace(
+                          cfg.moe, num_experts=MLA_WIDE_EXPERTS))
+    model = build_model(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0),
+                               dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    peaks = {"init": torch.cuda.max_memory_allocated()}
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    a, moe = cfg.attn, cfg.moe
+    print(f"mla width ({card_line()}): {cfg.name} d_model {cfg.d_model}, "
+          f"heads {a.num_heads}, q/kv LoRA ranks {a.q_lora_rank}/"
+          f"{a.kv_lora_rank}, nope/rope/v {a.qk_nope_dim}/{a.qk_rope_dim}/"
+          f"{a.v_head_dim}, vocab {cfg.vocab_size}, layers {cfg.num_layers} "
+          f"(dense front {cfg.dense_ff_first_k}, d_ff {cfg.dense_ff_size}), "
+          f"experts {moe.num_experts} of 256 (top {moe.top_k}, "
+          f"{moe.router}, expert_ff {moe.expert_ff}, shared "
+          f"{moe.shared_ff}), mtp {cfg.mtp_depth}: {n_params} parameters, "
+          f"init {t_init:.2f}s", flush=True)
+    rng = np.random.default_rng(3)
+    toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, size=(MLA_WIDE_BATCH, MLA_WIDE_SEQ + 1)).astype(
+        np.int32)).to(dev)
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    with torch.no_grad():
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss, mets = model.loss_fn(params, batch)
+        torch.cuda.synchronize()
+        dt_loss = time.perf_counter() - t0
+        terms = {k: float(v) for k, v in mets.items()}
+        del loss, mets
+        peaks["loss"] = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        blk = tfm._index(params["decoder"]["main"]["p0"]["ffn"], 0)
+        x = torch.randn((MLA_WIDE_BATCH, MLA_WIDE_SEQ, cfg.d_model),
+                        generator=torch.Generator(device=dev).manual_seed(4),
+                        device=dev)
+        y, aux = moe_forward(blk, x, cfg=cfg, act_name=cfg.act,
+                             dropless=True)
+        y_ref, aux_ref = moe_ref(blk, x, cfg=cfg, act_name=cfg.act)
+        moe_diff = float(torch.max(torch.abs(y - y_ref)))
+        moe_ok = (torch.allclose(y, y_ref, atol=2e-5, rtol=2e-5)
+                  and abs(float(aux) - float(aux_ref)) <= 1e-6)
+        del x, y, y_ref
+    peaks["moe check"] = torch.cuda.max_memory_allocated()
+    print(f"mla width loss ({card_line()}): {MLA_WIDE_BATCH} x "
+          f"{MLA_WIDE_SEQ} tokens, {json.dumps(terms)} in {dt_loss:.3f}s; "
+          f"moe_forward (dropless) against moe_ref: max |difference| "
+          f"{moe_diff!r}, aux {float(aux)!r} against {float(aux_ref)!r}, "
+          f"within 2e-5 + 2e-5 relative: {moe_ok}", flush=True)
+    check(all(math.isfinite(v) for v in terms.values())
+          and {"nll", "mtp", "aux"} <= set(terms),
+          f"mla width: the loss or a term of it is missing or not finite: "
+          f"{terms}")
+    check(moe_ok, f"mla width: moe_forward differs from moe_ref by "
+                  f"{moe_diff} (aux {float(aux)} against {float(aux_ref)})")
+    torch.cuda.reset_peak_memory_stats()
+    rec = {"params": n_params, "init_s": t_init, "loss_s": dt_loss,
+           "terms": terms, "moe_diff": moe_diff,
+           "mla_decode_diff": mla_decode_check(torch, "deepseek width",
+                                               model, params)}
+    peaks["decode check"] = torch.cuda.max_memory_allocated()
+    rec["peaks"] = peaks
+    print(f"mla width ({card_line()}): peak device memory (bytes) of each "
+          f"step {json.dumps(peaks)}", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return rec
+
+
+def arch_phase(torch):
+    """Phase 11: every cell of ARCH_CELLS (drive_arch), the served ones
+    through the engine (arch_serve), the MLA cell's teacher-forced decode
+    (mla_decode_check), then deepseek-v3 at its published widths
+    (mla_width_check). Returns ({cell: counts}, {cell: record})."""
+    counts, records = {}, {}
+    for name in ARCH_CELLS:
+        t0 = time.perf_counter()
+        counts[name], records[name], merged, model = drive_arch(torch, name)
+        if name in ARCH_SERVED:
+            c, records[name]["serve"] = arch_serve(torch, name, model,
+                                                   merged)
+            counts[f"serve {name}"] = c
+        elif merged is not None:
+            records[name]["mla_decode_diff"] = mla_decode_check(
+                torch, name, model, merged)
+        del merged, model
+        torch.cuda.empty_cache()
+        print(f"time: phase 11 cell {name} {time.perf_counter() - t0:.1f}s",
+              flush=True)
+    t0 = time.perf_counter()
+    records["deepseek width"] = mla_width_check(torch)
+    print(f"time: phase 11 deepseek width {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    return counts, records
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -2566,6 +3011,8 @@ def main():
     lap("phase 8")
     counts["launcher"], _ = launcher_phase(torch, records["f32"])
     lap("phase 10")
+    counts["arch"], _ = arch_phase(torch)
+    lap("phase 11")
     for path, base in (("int8_ef native", "int8_ef"), ("faults", "f32"),
                        ("tree", "f32")):
         a, b = records[path], records[base]
@@ -2626,8 +3073,11 @@ def main():
                "ms": r["ms"], "plain_ms": r["plain_ms"],
                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                "library_ms": r["library_ms"],
-               "launches_serve": counts["serve"][name]}
-        for extra in ("sq_rel_err", "max_abs_err_bf16", "supplied"):
+               "launches_serve": counts["serve"][name],
+               "launches_arch": {c: n[name]
+                                 for c, n in counts["arch"].items()}}
+        for extra in ("sq_rel_err", "max_abs_err_bf16", "supplied", "hd96",
+                      "hd256"):
             if extra in r:
                 row[extra] = r[extra]
         if name in variants:

@@ -103,7 +103,16 @@
 // positions and the tile bitmaps): two blocks, 8 warps, an SM (the dK/dV
 // kernel of the first design took 174 KB, one block). ptxas gives the
 // three 254-255 registers and no spills (the cap of two 128-thread blocks
-// an SM). The ring is filled by 16-byte cp.async.cg, zero-filled past S
+// an SM). Head dims 96 and 256 take the same kernels: at hd 96 the tiles
+// take 76,800 bytes (two blocks an SM). At hd 256 one block's accumulators
+// of hd floats a thread (two in dK/dV) would not fit the registers, so the
+// output columns are split in two blocks of 128 (kColsOf): each computes
+// the whole S (and dP) over hd 256 and its own 128 columns of O (dQ, dK,
+// dV), so the accumulators and their registers are hd 128's; the forward
+// keeps only its value columns (166,912 bytes), the backward kernels whole
+// tiles (199,680): one block an SM. Both halves of the forward compute the
+// same lse bit for bit; the first writes it.
+// The ring is filled by 16-byte cp.async.cg, zero-filled past S
 // (src-size 0); bfloat16 tiles are widened to float32 by plain 16-byte
 // loads. Blocks run the longest tiles first: the forward and dQ take the
 // query tiles from the last (the most keys under a causal mask), dK/dV the
@@ -142,6 +151,12 @@ constexpr float kNegInf = -1e30f;
 // holds two long accumulators); at most hd / 8
 template <int HD>
 constexpr int kChunkOf = HD / 8 < 4 ? HD / 8 : 4;
+
+// copies a thread's row loop issues unrolled: all of them up to hd 128; 8
+// past it, where the fully unrolled loop's hoisted addresses made hd 256's
+// kernels spill (24-72 bytes a thread)
+template <int HD, int N>
+constexpr int kRowsUnroll = HD > 128 && N > 8 ? 8 : N;
 
 struct Strides {  // element strides of a (B, S, heads, hd) tensor
   long long b, s, h;
@@ -279,7 +294,8 @@ __device__ __forceinline__ void mma_abt(float (&acc)[NT][4], const float* A,
 }
 
 // acc[n] = alpha acc[n] + P B over k < 8 KS (columns 8n .. 8n + 7 of the
-// output; alpha[0] for row g, alpha[1] for row g + 8): P the C-layout
+// output, n < DC / 8: B's first DC columns, B's rows HD + 4 floats apart;
+// alpha[0] for row g, alpha[1] for row g + 8): P the C-layout
 // accumulator of mma_abt (p[s]: its columns 8s .. 8s + 7) taken as the A
 // operand in place, lane (g, t)'s k = t, t + 4 standing for columns 2t,
 // 2t + 1; B [k][HD + 4] read at rows 8s + 2t, 8s + 2t + 1 (the same
@@ -289,18 +305,18 @@ __device__ __forceinline__ void mma_abt(float (&acc)[NT][4], const float* A,
 // a time, and joins acc by one rounded fmaf: no truncating chain outlives
 // a tile (dV over 8192 queries was ~3000 chained mma and erred 2x the
 // tolerance).
-template <int HD, int KS, int NB, Mode MODE>
-__device__ __forceinline__ void mma_pb(float (&acc)[HD / 8][4],
+template <int HD, int DC, int KS, int NB, Mode MODE>
+__device__ __forceinline__ void mma_pb(float (&acc)[DC / 8][4],
                                        const float (&p)[KS][4],
                                        const float* Bh, const float* Bl,
                                        const float (&alpha)[2]) {
-  static_assert(HD / 8 % NB == 0, "whole chunks of n-tiles");
+  static_assert(DC / 8 % NB == 0, "whole chunks of n-tiles");
   constexpr int RS = HD + 4;
   constexpr bool SPLIT = MODE != kExact;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int bo = 2 * t * RS + g;
 #pragma unroll
-  for (int n0 = 0; n0 < HD / 8; n0 += NB) {
+  for (int n0 = 0; n0 < DC / 8; n0 += NB) {
     float part[NB][4];
     zero(part);
 #pragma unroll
@@ -374,7 +390,7 @@ __device__ __forceinline__ void load_rows(float* dst, const T* src,
   if constexpr (std::is_same<T, float>::value) {
     constexpr int C = HD / 4;
     static_assert(R * C % kThreads == 0, "whole chunks a thread");
-#pragma unroll
+#pragma unroll (kRowsUnroll<HD, R * C / kThreads>)
     for (int i = 0; i < R * C / kThreads; ++i) {
       const int e = threadIdx.x + i * kThreads, r = e / C, c = e % C;
       const bool ok = r0 + r < S;
@@ -403,7 +419,7 @@ __device__ __forceinline__ void load_rows(float* dst, const T* src,
 template <int HD, int R>
 __device__ __forceinline__ void split_rows(float* hi, float* lo) {
   constexpr int RS = HD + 4, C = HD / 4;
-#pragma unroll
+#pragma unroll (kRowsUnroll<HD, R * C / kThreads>)
   for (int i = 0; i < R * C / kThreads; ++i) {
     const int e = threadIdx.x + i * kThreads, at = e / C * RS + 4 * (e % C);
     float4 x = *reinterpret_cast<float4*>(hi + at), h, l;
@@ -519,7 +535,7 @@ __device__ __forceinline__ int next_live(const unsigned* live, int i,
 
 // ---- forward -------------------------------------------------------------
 
-template <int HD, typename T>
+template <int HD, int DC, typename T>
 __global__ void __launch_bounds__(kThreads, 2)
     fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                const T* __restrict__ v, const int* __restrict__ qpos,
@@ -527,31 +543,33 @@ __global__ void __launch_bounds__(kThreads, 2)
                float* __restrict__ lse, int B, int H, int G, int Sq, int Sk,
                int causal, int window, float scale, Strides sq, Strides sk,
                Strides sv, Strides so) {
-  constexpr int RS = HD + 4, BK = kFwdKeys, NT = BK / 8;
+  constexpr int RS = HD + 4, RV = DC + 4, BK = kFwdKeys, NT = BK / 8;
+  constexpr int NC = HD / DC;
   constexpr bool SPLIT = std::is_same<T, float>::value;
   constexpr Mode MODE = SPLIT ? kPreB : kExact;
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);  // [64][RS]
   float* Ks = Qs + kRows * RS;  // slot 0: keys [BK][RS], their hi once split
   float* Kl = Ks + BK * RS;     // their lo [BK][RS]
-  float* Vs = Kl + BK * RS;     // slot 1: values, hi
-  float* Vl = Vs + BK * RS;     // their lo
-  int* kp = reinterpret_cast<int*>(Vl + BK * RS);  // slot 0's positions
+  float* Vs = Kl + BK * RS;     // slot 1: the block's DC value columns, hi
+  float* Vl = Vs + BK * RV;     // their lo
+  int* kp = reinterpret_cast<int*>(Vl + BK * RV);  // slot 0's positions
   int* qp = kp + BK;
   int* rng = qp + kRows;
   const int nqt = (Sq + kRows - 1) / kRows, nkt = (Sk + BK - 1) / BK;
   unsigned* live = reinterpret_cast<unsigned*>(rng + 4);
   unsigned* part = live + bitmap_words(nkt);
 
-  const int bh = blockIdx.x % (B * H);
-  const int qt = nqt - 1 - (int)(blockIdx.x / (B * H));  // longest first
+  const int bh = blockIdx.x % (B * H), rest = blockIdx.x / (B * H);
+  const int qt = nqt - 1 - rest / NC;  // longest first
+  const int c0 = DC * (rest % NC);     // the block's output columns
   const int h = bh % H, b = bh / H, kvh = h / G, q0 = qt * kRows;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int nq = min(kRows, Sq - q0);
   const int* kpb = kpos + (long long)b * Sk;
   const T* kb = k + b * sk.b + kvh * sk.h;
-  const T* vb = v + b * sv.b + kvh * sv.h;
+  const T* vb = v + b * sv.b + kvh * sv.h + c0;
 
   // rows past Sq repeat the last row's position: computed, never written
   if (threadIdx.x < kRows)
@@ -578,13 +596,13 @@ __global__ void __launch_bounds__(kThreads, 2)
     load_vals(kp, kpb, 0, BK, kt * BK, Sk);
   }
   cp_commit();
-  if (kt < nkt) load_rows<HD, BK>(Vs, vb, sv.s, kt * BK, Sk);
+  if (kt < nkt) load_rows<DC, BK>(Vs, vb, sv.s, kt * BK, Sk);
   cp_commit();
 
   const int qrow[2] = {qp[16 * warp + g], qp[16 * warp + g + 8]};
   const float* Qw = Qs + 16 * warp * RS;
   float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.f, 0.f};
-  float acc[HD / 8][4];
+  float acc[DC / 8][4];
   zero(acc);
 
   while (kt < nkt) {
@@ -644,11 +662,11 @@ __global__ void __launch_bounds__(kThreads, 2)
       m_run[r] = m_new;
     }
     cp_wait<1>();  // this tile's values
-    if constexpr (SPLIT) split_rows<HD, BK>(Vs, Vl);
+    if constexpr (SPLIT) split_rows<DC, BK>(Vs, Vl);
     __syncthreads();
-    mma_pb<HD, NT, kChunkOf<HD>, MODE>(acc, s, Vs, Vl, alpha);
+    mma_pb<DC, DC, NT, kChunkOf<DC>, MODE>(acc, s, Vs, Vl, alpha);
     __syncthreads();  // every warp is done with slot 1
-    if (next < nkt) load_rows<HD, BK>(Vs, vb, sv.s, next * BK, Sk);
+    if (next < nkt) load_rows<DC, BK>(Vs, vb, sv.s, next * BK, Sk);
     cp_commit();
     kt = next;
   }
@@ -659,11 +677,12 @@ __global__ void __launch_bounds__(kThreads, 2)
     const int row = 16 * warp + g + 8 * r;
     if (row >= nq) continue;
     const float den = fmaxf(l_run[r], 1e-30f);
-    T* orow = o + b * so.b + (long long)(q0 + row) * so.s + h * so.h + 2 * t;
+    T* orow =
+        o + b * so.b + (long long)(q0 + row) * so.s + h * so.h + c0 + 2 * t;
 #pragma unroll
-    for (int n = 0; n < HD / 8; ++n)
+    for (int n = 0; n < DC / 8; ++n)
       store2(orow + 8 * n, acc[n][2 * r] / den, acc[n][2 * r + 1] / den);
-    if (t == 0)
+    if (t == 0 && c0 == 0)
       lse[((long long)b * H + h) * Sq + q0 + row] = m_run[r] + logf(l_run[r]);
   }
 }
@@ -693,7 +712,7 @@ __global__ void __launch_bounds__(kDeltaThreads)
   if (lane == 0) delta[row] = acc;
 }
 
-template <int HD>
+template <int HD, int DC>
 __global__ void __launch_bounds__(kThreads, 2)
     dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, const float* __restrict__ dout,
@@ -704,7 +723,7 @@ __global__ void __launch_bounds__(kThreads, 2)
                 int Sk, int causal, int window, float scale, Strides sq,
                 Strides sk, Strides sv, Strides sdo, Strides sdk,
                 Strides sdv) {
-  constexpr int RS = HD + 4, BQ = kBwdTile, NT = BQ / 8;
+  constexpr int RS = HD + 4, BQ = kBwdTile, NT = BQ / 8, NC = HD / DC;
   extern __shared__ float4 smem4[];
   float* Ks = reinterpret_cast<float*>(smem4);  // [64][RS], the block's keys
   float* Vs = Ks + kRows * RS;                  // [64][RS]
@@ -719,8 +738,9 @@ __global__ void __launch_bounds__(kThreads, 2)
   unsigned* live = reinterpret_cast<unsigned*>(rng + 4);
   unsigned* part = live + bitmap_words(nqt);
 
-  const int bk = blockIdx.x % (B * Kv);
-  const int kt = blockIdx.x / (B * Kv);  // the first key tiles see the most
+  const int bk = blockIdx.x % (B * Kv), rest = blockIdx.x / (B * Kv);
+  const int kt = rest / NC;  // the first key tiles see the most
+  const int c0 = DC * (rest % NC);  // the block's dK and dV columns
   const int kvh = bk % Kv, b = bk / Kv, k0 = kt * kRows;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -775,7 +795,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   const float* Kw = Ks + 16 * warp * RS;
   const float* Vw = Vs + 16 * warp * RS;
   const float one[2] = {1.f, 1.f};
-  float accK[HD / 8][4], accV[HD / 8][4];
+  float accK[DC / 8][4], accV[DC / 8][4];
   zero(accK);
   zero(accV);
 
@@ -807,7 +827,8 @@ __global__ void __launch_bounds__(kThreads, 2)
         const int c = 8 * j + 2 * t + (e & 1);
         ds[j][e] = p[j][e] * (ds[j][e] - dl[c]);
       }
-    mma_pb<HD, NT, kChunkOf<HD> / 2, kSplit>(accK, ds, Qs, nullptr, one);
+    mma_pb<HD, DC, NT, kChunkOf<DC> / 2, kSplit>(accK, ds, Qs + c0, nullptr,
+                                                 one);
     int ngi = gi, nqt2 = next_live(live, qt + 1, nqt);
     if (nqt2 == nqt) {
       ++ngi;
@@ -816,7 +837,8 @@ __global__ void __launch_bounds__(kThreads, 2)
     __syncthreads();  // every warp is done with slot 0
     if (ngi < G) load_q(ngi, nqt2);
     cp_commit();
-    mma_pb<HD, NT, kChunkOf<HD> / 2, kSplit>(accV, p, dOs, nullptr, one);
+    mma_pb<HD, DC, NT, kChunkOf<DC> / 2, kSplit>(accV, p, dOs + c0, nullptr,
+                                                 one);
     __syncthreads();  // every warp is done with slot 1
     if (ngi < G) load_do(ngi, nqt2);
     cp_commit();
@@ -829,12 +851,12 @@ __global__ void __launch_bounds__(kThreads, 2)
   for (int r = 0; r < 2; ++r) {
     const int row = 16 * warp + g + 8 * r;
     if (row >= nk) continue;
-    float* krow_out =
-        dk + b * sdk.b + (long long)(k0 + row) * sdk.s + kvh * sdk.h + 2 * t;
-    float* vrow_out =
-        dv + b * sdv.b + (long long)(k0 + row) * sdv.s + kvh * sdv.h + 2 * t;
+    float* krow_out = dk + b * sdk.b + (long long)(k0 + row) * sdk.s +
+                      kvh * sdk.h + c0 + 2 * t;
+    float* vrow_out = dv + b * sdv.b + (long long)(k0 + row) * sdv.s +
+                      kvh * sdv.h + c0 + 2 * t;
 #pragma unroll
-    for (int n = 0; n < HD / 8; ++n) {
+    for (int n = 0; n < DC / 8; ++n) {
       store2(krow_out + 8 * n, accK[n][2 * r] * scale,
              accK[n][2 * r + 1] * scale);
       store2(vrow_out + 8 * n, accV[n][2 * r], accV[n][2 * r + 1]);
@@ -842,7 +864,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
-template <int HD>
+template <int HD, int DC>
 __global__ void __launch_bounds__(kThreads, 2)
     dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, const float* __restrict__ dout,
@@ -851,7 +873,7 @@ __global__ void __launch_bounds__(kThreads, 2)
               float* __restrict__ dq, int B, int H, int G, int Sq, int Sk,
               int causal, int window, float scale, Strides sq, Strides sk,
               Strides sv, Strides sdo, Strides sdq) {
-  constexpr int RS = HD + 4, BK = kBwdTile, NT = BK / 8;
+  constexpr int RS = HD + 4, BK = kBwdTile, NT = BK / 8, NC = HD / DC;
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);  // [64][RS]
   float* dOs = Qs + kRows * RS;                 // [64][RS]
@@ -864,8 +886,9 @@ __global__ void __launch_bounds__(kThreads, 2)
   unsigned* live = reinterpret_cast<unsigned*>(rng + 4);
   unsigned* part = live + bitmap_words(nkt);
 
-  const int bh = blockIdx.x % (B * H);
-  const int qt = nqt - 1 - (int)(blockIdx.x / (B * H));  // longest first
+  const int bh = blockIdx.x % (B * H), rest = blockIdx.x / (B * H);
+  const int qt = nqt - 1 - rest / NC;  // longest first
+  const int c0 = DC * (rest % NC);     // the block's dQ columns
   const int h = bh % H, b = bh / H, kvh = h / G, q0 = qt * kRows;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -914,7 +937,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   const float* Qw = Qs + 16 * warp * RS;
   const float* dOw = dOs + 16 * warp * RS;
   const float one[2] = {1.f, 1.f};
-  float acc[HD / 8][4];
+  float acc[DC / 8][4];
   zero(acc);
 
   while (kt < nkt) {
@@ -942,7 +965,7 @@ __global__ void __launch_bounds__(kThreads, 2)
                 : 0.f;
         ds[j][e] = p * (ds[j][e] - drow[r]);
       }
-    mma_pb<HD, NT, kChunkOf<HD>, kSplit>(acc, ds, Ks, nullptr, one);
+    mma_pb<HD, DC, NT, kChunkOf<DC>, kSplit>(acc, ds, Ks + c0, nullptr, one);
     __syncthreads();  // every warp is done with slot 0
     if (next < nkt) {
       load_rows<HD, BK>(Ks, kb, sk.s, next * BK, Sk);
@@ -957,10 +980,10 @@ __global__ void __launch_bounds__(kThreads, 2)
   for (int r = 0; r < 2; ++r) {
     const int row = 16 * warp + g + 8 * r;
     if (row >= nq) continue;
-    float* out =
-        dq + b * sdq.b + (long long)(q0 + row) * sdq.s + h * sdq.h + 2 * t;
+    float* out = dq + b * sdq.b + (long long)(q0 + row) * sdq.s + h * sdq.h +
+                 c0 + 2 * t;
 #pragma unroll
-    for (int n = 0; n < HD / 8; ++n)
+    for (int n = 0; n < DC / 8; ++n)
       store2(out + 8 * n, acc[n][2 * r] * scale, acc[n][2 * r + 1] * scale);
   }
 }
@@ -969,13 +992,21 @@ __global__ void __launch_bounds__(kThreads, 2)
 
 constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
 
+// the output columns a block owns: all of them up to hd 128; at hd 256 two
+// blocks of 128 each (an accumulator of hd floats a thread, or two in
+// dK/dV, would not fit the registers), both computing the whole S (and dP)
+template <int HD>
+constexpr int kColsOf = HD > 128 ? 128 : HD;
+constexpr int col_blocks(int hd) { return hd > 128 ? hd / 128 : 1; }
+
 template <int HD>
 constexpr size_t tile_bytes(int rows) {
   return sizeof(float) * (size_t)rows * (HD + 4);
 }
 template <int HD>
 size_t fwd_smem(int Sk) {
-  return tile_bytes<HD>(kRows + 4 * kFwdKeys) +
+  return tile_bytes<HD>(kRows + 2 * kFwdKeys) +
+         tile_bytes<kColsOf<HD>>(2 * kFwdKeys) +
          sizeof(int) * (kFwdKeys + kRows + 4 +
                         2 * bitmap_words(cdiv(Sk, kFwdKeys)));
 }
@@ -1013,10 +1044,12 @@ cudaError_t fwd(const void* q, const void* k, const void* v, const int* qpos,
                 const int* kpos, void* o, float* lse, int B, int H, int Kv,
                 int Sq, int Sk, int causal, int window, float scale,
                 const long long* st, cudaStream_t stream) {
+  constexpr int DC = kColsOf<HD>;
   const size_t smem = fwd_smem<HD>(Sk);
-  cudaError_t e = prepare(fwd_kernel<HD, T>, smem);
+  cudaError_t e = prepare(fwd_kernel<HD, DC, T>, smem);
   if (e != cudaSuccess) return e;
-  fwd_kernel<HD, T><<<cdiv(Sq, kRows) * H * B, kThreads, smem, stream>>>(
+  fwd_kernel<HD, DC, T><<<cdiv(Sq, kRows) * H * B * (HD / DC), kThreads, smem,
+                          stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), qpos, kpos, static_cast<T*>(o), lse, B, H,
       H / Kv, Sq, Sk, causal, window, scale, strides_at(st, 0),
@@ -1039,17 +1072,19 @@ cudaError_t bwd(const float* q, const float* k, const float* v,
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const int G = H / Kv;
+  constexpr int DC = kColsOf<HD>, NC = HD / DC;
   const size_t s1 = dkdv_smem<HD>(Sq);
-  if ((e = prepare(dkdv_kernel<HD>, s1)) != cudaSuccess) return e;
-  dkdv_kernel<HD><<<cdiv(Sk, kRows) * Kv * B, kThreads, s1, stream>>>(
+  if ((e = prepare(dkdv_kernel<HD, DC>, s1)) != cudaSuccess) return e;
+  dkdv_kernel<HD, DC><<<cdiv(Sk, kRows) * Kv * B * NC, kThreads, s1,
+                        stream>>>(
       q, k, v, dout, qpos, kpos, lse, delta, dk, dv, B, H, Kv, G, Sq, Sk,
       causal, window, scale, strides_at(st, 0), strides_at(st, 1),
       strides_at(st, 2), strides_at(st, 4), strides_at(st, 6),
       strides_at(st, 7));
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   const size_t s2 = dq_smem<HD>(Sk);
-  if ((e = prepare(dq_kernel<HD>, s2)) != cudaSuccess) return e;
-  dq_kernel<HD><<<cdiv(Sq, kRows) * H * B, kThreads, s2, stream>>>(
+  if ((e = prepare(dq_kernel<HD, DC>, s2)) != cudaSuccess) return e;
+  dq_kernel<HD, DC><<<cdiv(Sq, kRows) * H * B * NC, kThreads, s2, stream>>>(
       q, k, v, dout, qpos, kpos, lse, delta, dq, B, H, G, Sq, Sk, causal,
       window, scale, strides_at(st, 0), strides_at(st, 1), strides_at(st, 2),
       strides_at(st, 4), strides_at(st, 5));
@@ -1074,21 +1109,22 @@ cudaError_t resources_of(K kernel, size_t bytes, int* res) {
 template <int HD>
 cudaError_t occupancy(int S, int* res) {
   cudaError_t e;
-  if ((e = resources_of(fwd_kernel<HD, float>, fwd_smem<HD>(S), res)) !=
+  constexpr int DC = kColsOf<HD>;
+  if ((e = resources_of(fwd_kernel<HD, DC, float>, fwd_smem<HD>(S), res)) !=
           cudaSuccess ||
-      (e = resources_of(fwd_kernel<HD, __nv_bfloat16>, fwd_smem<HD>(S),
+      (e = resources_of(fwd_kernel<HD, DC, __nv_bfloat16>, fwd_smem<HD>(S),
                         res + 4)) != cudaSuccess ||
-      (e = resources_of(dkdv_kernel<HD>, dkdv_smem<HD>(S), res + 8)) !=
+      (e = resources_of(dkdv_kernel<HD, DC>, dkdv_smem<HD>(S), res + 8)) !=
           cudaSuccess)
     return e;
-  return resources_of(dq_kernel<HD>, dq_smem<HD>(S), res + 12);
+  return resources_of(dq_kernel<HD, DC>, dq_smem<HD>(S), res + 12);
 }
 
-bool shape_ok(int B, int H, int Kv, int Sq, int Sk) {
+bool shape_ok(int B, int H, int Kv, int Sq, int Sk, int hd) {
   return B >= 1 && H >= 1 && Kv >= 1 && H % Kv == 0 && Sq >= 1 && Sk >= 1 &&
          B <= 65535 && H <= 65535 &&
-         (long long)cdiv(Sq, kRows) * H * B <= INT_MAX &&
-         (long long)cdiv(Sk, kRows) * Kv * B <= INT_MAX;
+         (long long)cdiv(Sq, kRows) * H * B * col_blocks(hd) <= INT_MAX &&
+         (long long)cdiv(Sk, kRows) * Kv * B * col_blocks(hd) <= INT_MAX;
 }
 
 }  // namespace
@@ -1096,7 +1132,7 @@ bool shape_ok(int B, int H, int Kv, int Sq, int Sk) {
 // q (B, Sq, H, hd), k, v (B, Sk, Kv, hd), float32 (bf16 == 0) or bfloat16;
 // positions int32 (B, Sq), (B, Sk); -> o (B, Sq, H, hd) in the input type,
 // lse (B, H, Sq) float32. strides: 12 element strides (b, s, head) of q, k,
-// v, o. window <= 0: none. hd one of 16, 32, 64, 128.
+// v, o. window <= 0: none. hd one of 16, 32, 64, 96, 128, 256.
 extern "C" int flash_attention_fwd(int bf16, const void* q, const void* k,
                                    const void* v, const void* qpos,
                                    const void* kpos, void* o, void* lse,
@@ -1104,7 +1140,7 @@ extern "C" int flash_attention_fwd(int bf16, const void* q, const void* k,
                                    int hd, int causal, int window,
                                    float scale, const long long* strides,
                                    void* stream) {
-  if (!shape_ok(B, H, Kv, Sq, Sk)) return (int)cudaErrorInvalidValue;
+  if (!shape_ok(B, H, Kv, Sq, Sk, hd)) return (int)cudaErrorInvalidValue;
   const int* qp = static_cast<const int*>(qpos);
   const int* kp = static_cast<const int*>(kpos);
   float* l = static_cast<float*>(lse);
@@ -1119,7 +1155,9 @@ extern "C" int flash_attention_fwd(int bf16, const void* q, const void* k,
     case 16: FWD(16);
     case 32: FWD(32);
     case 64: FWD(64);
+    case 96: FWD(96);
     case 128: FWD(128);
+    case 256: FWD(256);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef FWD
@@ -1138,7 +1176,7 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    int hd, int causal, int window,
                                    float scale, const long long* strides,
                                    void* stream) {
-  if (!shape_ok(B, H, Kv, Sq, Sk)) return (int)cudaErrorInvalidValue;
+  if (!shape_ok(B, H, Kv, Sq, Sk, hd)) return (int)cudaErrorInvalidValue;
 #define BWD(HD)                                                               \
   return (int)bwd<HD>(                                                        \
       static_cast<const float*>(q), static_cast<const float*>(k),             \
@@ -1152,7 +1190,9 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
     case 16: BWD(16);
     case 32: BWD(32);
     case 64: BWD(64);
+    case 96: BWD(96);
     case 128: BWD(128);
+    case 256: BWD(256);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef BWD
@@ -1169,7 +1209,9 @@ extern "C" int flash_attention_occupancy(int hd, int S, int* res) {
     case 16: return (int)occupancy<16>(S, res);
     case 32: return (int)occupancy<32>(S, res);
     case 64: return (int)occupancy<64>(S, res);
+    case 96: return (int)occupancy<96>(S, res);
     case 128: return (int)occupancy<128>(S, res);
+    case 256: return (int)occupancy<256>(S, res);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -14,8 +14,9 @@ For CPU tensors the wrappers run the plain versions
 (``kernels/ref.py:flash_attention_ref`` and its forward/backward
 companions); for CUDA tensors they launch the kernels or raise — there is
 no fallback. The kernels take float32 or bfloat16 forward, float32
-backward (a bfloat16 backward raises TypeError), head dims 16, 32, 64 and
-128, and (B, S, heads, hd) tensors with hd contiguous and any other
+backward (a bfloat16 backward raises TypeError), head dims 16, 32, 64,
+96, 128 and 256 (at 256 two blocks share a row tile, 128 output columns
+each), and (B, S, heads, hd) tensors with hd contiguous and any other
 strides whose rows start on 16 bytes (their tiles stream through 16-byte
 ``cp.async``; a tensor whose base or strides break that is copied). Their
 products run on the tensor cores in split TF32 (three TF32 products a
@@ -36,7 +37,7 @@ from repro_torch.kernels.ref import (flash_attention_bwd_ref,
                                      flash_attention_fwd_ref,
                                      flash_attention_ref)
 
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 96, 128, 256)
 TILE = 64  # the plain versions' key block on the CPU (the kernels' rows)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int

@@ -1,5 +1,5 @@
-"""GQA/MQA attention in train, prefill and decode modes (counterpart of
-``repro/models/attention.py``).
+"""GQA/MQA and MLA attention in train, prefill and decode modes
+(counterpart of ``repro/models/attention.py``).
 
 Scores, the additive mask bias and the softmax are float32; the mask is the
 reference's additive ``NEG_INF`` bias, not a boolean fill, so the padded
@@ -13,6 +13,12 @@ sliding window allocates only ``window`` slots written round-robin (slot =
 pos mod W). The reference returns an updated copy of a donated cache; here
 decode writes the new key, value and position into the given cache tensors
 in place and returns the same dict.
+
+MLA (deepseek-v3) runs the materialised form in train and prefill, always
+through the dense ``_sdpa`` (as the reference: never the blockwise route),
+and the absorbed latent-space form in decode over its cache ``{"ckv",
+"krope", "pos"}`` (the normalised latent and the rotated shared key of
+each position), written per row in place as the GQA cache.
 """
 from __future__ import annotations
 
@@ -23,7 +29,7 @@ import torch
 
 from repro_torch.configs.base import AttentionConfig, LayerSpec, ModelConfig
 from repro_torch.kernels.flash_attention import blockwise_attention
-from repro_torch.models.layers import apply_rope, dense_init
+from repro_torch.models.layers import apply_norm, apply_rope, dense_init
 
 NEG_INF = -1e30
 
@@ -181,3 +187,117 @@ def init_gqa_cache(cfg: ModelConfig, lspec: LayerSpec, B: int, seq_len: int,
             "v": torch.zeros((B, W, a.num_kv_heads, a.head_dim),
                              dtype=dtype, device=device),
             "pos": torch.full((B, W), -1, dtype=torch.int32, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V3)
+# ---------------------------------------------------------------------------
+
+
+def init_mla(generator, cfg: ModelConfig, *, device, dtype=torch.float32):
+    a = cfg.attn
+    H = a.num_heads
+
+    def dense(d_in, d_out):
+        return dense_init(generator, d_in, d_out, device=device, dtype=dtype)
+
+    return {
+        "wq_a": dense(cfg.d_model, a.q_lora_rank),
+        "q_norm": {"scale": torch.ones((a.q_lora_rank,), device=device,
+                                       dtype=dtype)},
+        "wq_b": dense(a.q_lora_rank, H * (a.qk_nope_dim + a.qk_rope_dim)),
+        "wkv_a": dense(cfg.d_model, a.kv_lora_rank + a.qk_rope_dim),
+        "kv_norm": {"scale": torch.ones((a.kv_lora_rank,), device=device,
+                                        dtype=dtype)},
+        "wkv_b": dense(a.kv_lora_rank, H * (a.qk_nope_dim + a.v_head_dim)),
+        "wo": dense(H * a.v_head_dim, cfg.d_model),
+    }
+
+
+def _mla_qkr(params, x, a: AttentionConfig, positions):
+    """-> q_nope (B,S,H,dn), q_rope (B,S,H,dr) rotated, ckv (B,S,r)
+    normalised, k_rope (B,S,dr) rotated (one shared rope key a position)."""
+    B, S, _ = x.shape
+    H = a.num_heads
+    ql = apply_norm(params["q_norm"], x @ params["wq_a"], "rmsnorm")
+    q = (ql @ params["wq_b"]).reshape(B, S, H, a.qk_nope_dim + a.qk_rope_dim)
+    q_nope, q_rope = q[..., :a.qk_nope_dim], q[..., a.qk_nope_dim:]
+    q_rope = apply_rope(q_rope, positions, a.rope_theta)
+    kv = x @ params["wkv_a"]
+    ckv, k_rope = kv[..., :a.kv_lora_rank], kv[..., a.kv_lora_rank:]
+    ckv = apply_norm(params["kv_norm"], ckv, "rmsnorm")
+    k_rope = apply_rope(k_rope[:, :, None, :], positions,
+                        a.rope_theta)[:, :, 0]
+    return q_nope, q_rope, ckv, k_rope
+
+
+def mla_forward(params, x, *, cfg: ModelConfig, lspec: LayerSpec, positions,
+                mode: str = "train", cache=None, cache_max_len=None, **_):
+    """Returns (y, new_cache), modes as ``gqa_forward`` (always causal).
+    Decode writes the new latent, rope key and position into ``cache`` in
+    place (each row at its own position) and attends in latent space: the
+    key up-projection folded into the query, the value up-projection
+    applied after the weighted sum."""
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"mla_forward mode {mode!r}: train, prefill or "
+                         "decode")
+    a = cfg.attn
+    B, S, _ = x.shape
+    H = a.num_heads
+    q_nope, q_rope, ckv, k_rope = _mla_qkr(params, x, a, positions)
+    scale = 1.0 / math.sqrt(a.qk_nope_dim + a.qk_rope_dim)
+    wkv_b = params["wkv_b"].reshape(a.kv_lora_rank, H,
+                                    a.qk_nope_dim + a.v_head_dim)
+    wk = wkv_b[..., :a.qk_nope_dim]  # (r, H, dn)
+    wv = wkv_b[..., a.qk_nope_dim:]  # (r, H, dv)
+    new_cache = None
+    if mode == "decode":
+        W = cache["ckv"].shape[1]
+        idx = positions[:, 0].to(torch.int64)
+        slots = torch.remainder(idx, W)
+        rows = torch.arange(B, device=x.device)
+        cc, cr, cpos = cache["ckv"], cache["krope"], cache["pos"]
+        cc.index_put_((rows, slots), ckv[:, 0].to(cc.dtype))
+        cr.index_put_((rows, slots), k_rope[:, 0].to(cr.dtype))
+        cpos.index_put_((rows, slots), idx.to(cpos.dtype))
+        bias = _mask_bias(positions, cpos, causal=True, window=lspec.window)
+        q_lat = torch.einsum("bqhd,rhd->bqhr", q_nope, wk)
+        scores = (torch.einsum("bqhr,bsr->bhqs", q_lat, cc)
+                  + torch.einsum("bqhd,bsd->bhqs", q_rope, cr)
+                  ).to(torch.float32)
+        scores = scores * scale + bias[:, None, :, :]
+        attn = torch.softmax(scores, dim=-1).to(cc.dtype)
+        o_lat = torch.einsum("bhqs,bsr->bqhr", attn, cc)
+        out = torch.einsum("bqhr,rhd->bqhd", o_lat, wv)
+        new_cache = cache
+    else:
+        k_nope = torch.einsum("bsr,rhd->bshd", ckv, wk)
+        v = torch.einsum("bsr,rhd->bshd", ckv, wv)
+        k = torch.cat([k_nope, torch.broadcast_to(
+            k_rope[:, :, None, :], (B, S, H, a.qk_rope_dim))], dim=-1)
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        pos_b = torch.broadcast_to(positions, (B, S))
+        bias = _mask_bias(pos_b, pos_b, causal=True, window=lspec.window)
+        out = _sdpa(q, k, v, bias, scale)
+        if mode == "prefill":
+            pad = max(0, (cache_max_len or S) - S)
+            F = torch.nn.functional
+            new_cache = {"ckv": F.pad(ckv, (0, 0, 0, pad)),
+                         "krope": F.pad(k_rope, (0, 0, 0, pad)),
+                         "pos": F.pad(pos_b.to(torch.int32), (0, pad),
+                                      value=-1)}
+    y = out.reshape(B, S, H * a.v_head_dim) @ params["wo"]
+    return y, new_cache
+
+
+def init_mla_cache(cfg: ModelConfig, lspec: LayerSpec, B: int, seq_len: int,
+                   *, device, dtype=torch.float32):
+    """An empty cache: ckv (B, seq_len, r) and krope (B, seq_len, dr) zeros,
+    pos (B, seq_len) int32 -1."""
+    a = cfg.attn
+    return {"ckv": torch.zeros((B, seq_len, a.kv_lora_rank), dtype=dtype,
+                               device=device),
+            "krope": torch.zeros((B, seq_len, a.qk_rope_dim), dtype=dtype,
+                                 device=device),
+            "pos": torch.full((B, seq_len), -1, dtype=torch.int32,
+                              device=device)}

@@ -1,16 +1,21 @@
-"""Public model API: build_model(cfg) -> Model (dense family: training loss,
-prefill and decode).
+"""Public model API: build_model(cfg) -> Model (the attention decoders,
+dense and MoE: training loss, prefill and decode).
 
 Counterpart of ``repro/models/model.py``. Parameters are a nested dict of
 tensors with the reference's keys and shapes::
 
     {"decoder": {"main": {"p0": {"ffn": {...}, "mixer": {...},
                                  "norm1": {}, "norm2": {}}}},
-     "embed": {"table": (padded_vocab, d_model)}, "final_norm": {}}
+     "embed": {"table": (padded_vocab, d_model)}, "final_norm": {},
+     ["head": {"w": (d_model, padded_vocab)}], ["mtp": {...}]}
 
-The head is tied to the embedding and projects over the PADDED vocabulary
-(50432 columns for olmo-1b); the padding columns take part in the softmax
-as in the reference.
+The head is tied to the embedding (``head_w`` its transpose) or, with
+``tie_embeddings=False``, its own ``head.w``; it projects over the PADDED
+vocabulary (50432 columns for olmo-1b), and the padding columns take part
+in the softmax as in the reference. With ``mtp_depth`` (deepseek-v3) an
+``mtp`` subtree holds the multi-token-prediction head (``proj`` of
+h ++ emb(t + 1), one stacked block, its norm), trained through the loss
+only.
 
 Serving: ``prefill`` runs a prompt and returns the last position's logits
 with fresh caches sized for the whole decode horizon; ``decode_step`` feeds
@@ -29,7 +34,10 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import (apply_norm, chunked_softmax_xent,
-                                       embed_tokens, init_embed, init_norm)
+                                       dense_init, embed_tokens, init_embed,
+                                       init_norm)
+
+MTP_WEIGHT = 0.3
 
 
 def _dtype(name: str):
@@ -49,46 +57,82 @@ class Model:
 
 
 def build_model(cfg: ModelConfig) -> Model:
-    if (cfg.family != "dense" or cfg.encoder_layers or cfg.mm_prefix
-            or cfg.mtp_depth or cfg.moe is not None
-            or not cfg.tie_embeddings):
+    if (cfg.family not in ("dense", "moe") or cfg.encoder_layers
+            or cfg.mm_prefix):
         raise NotImplementedError(
-            f"{cfg.name}: the port runs the dense tied-embedding family only")
+            f"{cfg.name}: the {cfg.family} family (multimodal prefix, "
+            "encoder-decoder or recurrent mixers) is not ported; the port "
+            "runs the attention decoders (dense and moe)")
     dt = _dtype(cfg.param_dtype)
     V = cfg.padded_vocab
 
     def init_params(generator, device):
-        return {"embed": init_embed(generator, V, cfg.d_model, device=device,
-                                    dtype=dt),
-                "final_norm": init_norm(cfg.norm, cfg.d_model, device=device,
-                                        dtype=dt),
-                "decoder": tfm.init_stack(generator, cfg, device=device,
-                                          dtype=dt)}
+        d = cfg.d_model
+        p = {"embed": init_embed(generator, V, d, device=device, dtype=dt),
+             "final_norm": init_norm(cfg.norm, d, device=device, dtype=dt),
+             "decoder": tfm.init_stack(generator, cfg, device=device,
+                                       dtype=dt)}
+        if not cfg.tie_embeddings:
+            p["head"] = {"w": dense_init(generator, d, V, device=device,
+                                         dtype=dt)}
+        if cfg.mtp_depth:
+            p["mtp"] = {
+                "proj": dense_init(generator, 2 * d, d, device=device,
+                                   dtype=dt),
+                "block": tfm._stack([
+                    tfm.init_block(generator, cfg, cfg.layer_period[0],
+                                   device=device, dtype=dt)
+                    for _ in range(cfg.mtp_depth)]),
+                "norm": init_norm(cfg.norm, d, device=device, dtype=dt)}
+        return p
 
     def head_w(params):
-        return params["embed"]["table"].T
+        if cfg.tie_embeddings:
+            return params["embed"]["table"].T
+        return params["head"]["w"]
 
     def loss_fn(params, batch, rng=None):
-        """Mean next-token cross-entropy over the masked positions. ``rng``
-        is accepted for signature parity and unused: the dense train path
-        draws no randomness."""
+        """Mean next-token cross-entropy over the masked positions, plus
+        MTP_WEIGHT times the MTP head's (predicting t + 2 from h_t and the
+        embedding of t + 1) and the MoE load-balance loss. ``rng`` is
+        accepted for signature parity and unused: the train path draws no
+        randomness."""
         tokens = batch["tokens"]
         B, S = tokens.shape
         x = embed_tokens(params["embed"], tokens, scale=cfg.embed_scale)
         positions = torch.broadcast_to(
             torch.arange(S, dtype=torch.int32, device=x.device), (B, S))
-        h = tfm.apply_stack(params["decoder"], x, cfg=cfg,
-                            positions=positions)
+        h, _, aux = tfm.apply_stack(params["decoder"], x, cfg=cfg,
+                                    positions=positions)
         h = apply_norm(params["final_norm"], h, cfg.norm)
         targets = batch["targets"]
         mask = batch.get("mask")
         if mask is None:
             mask = torch.ones(targets.shape, dtype=torch.float32,
                               device=x.device)
-        nll, count = chunked_softmax_xent(h, head_w(params), targets, mask,
+        hw = head_w(params)
+        nll, count = chunked_softmax_xent(h, hw, targets, mask,
                                           cfg.dist.loss_chunk)
         loss = nll / torch.clamp(count, min=1.0)
-        return loss, {"nll": loss, "loss": loss}
+        metrics = {"nll": loss, "aux": aux}
+        if cfg.mtp_depth:
+            hm = torch.cat([h[:, :-1], x[:, 1:]], dim=-1)
+            hm = hm @ params["mtp"]["proj"]
+            blk = tfm._index(params["mtp"]["block"], 0)
+            # the block's own MoE loss is not added (as in the reference)
+            hm, _, _ = tfm.apply_block(blk, hm, cfg=cfg,
+                                       lspec=cfg.layer_period[0],
+                                       positions=positions[:, :-1])
+            hm = apply_norm(params["mtp"]["norm"], hm, cfg.norm)
+            mtp_nll, mtp_cnt = chunked_softmax_xent(
+                hm[:, :-1], hw, targets[:, 2:], mask[:, 2:],
+                cfg.dist.loss_chunk)
+            mtp_loss = mtp_nll / torch.clamp(mtp_cnt, min=1.0)
+            metrics["mtp"] = mtp_loss
+            loss = loss + MTP_WEIGHT * mtp_loss
+        loss = loss + aux
+        metrics["loss"] = loss
+        return loss, metrics
 
     def prefill(params, batch, max_len: Optional[int] = None):
         """batch["tokens"] (B, S) -> (logits (B, padded_vocab) float32 of
@@ -98,9 +142,9 @@ def build_model(cfg: ModelConfig) -> Model:
         x = embed_tokens(params["embed"], tokens, scale=cfg.embed_scale)
         positions = torch.broadcast_to(
             torch.arange(S, dtype=torch.int32, device=x.device), (B, S))
-        h, caches = tfm.apply_stack(params["decoder"], x, cfg=cfg,
-                                    positions=positions, mode="prefill",
-                                    cache_max_len=max_len or S)
+        h, caches, _ = tfm.apply_stack(params["decoder"], x, cfg=cfg,
+                                       positions=positions, mode="prefill",
+                                       cache_max_len=max_len or S)
         h = apply_norm(params["final_norm"], h[:, -1:], cfg.norm)
         logits = (h @ head_w(params)).to(torch.float32)[:, 0]
         return logits, caches
@@ -116,9 +160,9 @@ def build_model(cfg: ModelConfig) -> Model:
         positions = (idx.reshape(B, 1) if idx.dim()
                      else torch.full((B, 1), int(idx), dtype=torch.int32,
                                      device=x.device))
-        h, caches = tfm.apply_stack(params["decoder"], x, cfg=cfg,
-                                    positions=positions, mode="decode",
-                                    caches=caches)
+        h, caches, _ = tfm.apply_stack(params["decoder"], x, cfg=cfg,
+                                       positions=positions, mode="decode",
+                                       caches=caches)
         h = apply_norm(params["final_norm"], h, cfg.norm)
         logits = (h @ head_w(params)).to(torch.float32)[:, 0]
         return logits, caches
@@ -126,7 +170,7 @@ def build_model(cfg: ModelConfig) -> Model:
     def init_cache(B, seq_len, dtype=None, enc_len: int = 0, device=None):
         """Empty caches for B rows of ``seq_len`` positions on ``device``
         (default: the card). ``enc_len`` is accepted for signature parity:
-        the dense family has no cross-attention cache."""
+        the attention decoders have no cross-attention cache."""
         return tfm.init_stack_cache(cfg, B, seq_len,
                                     device=resolve_device(device),
                                     dtype=dtype or dt)

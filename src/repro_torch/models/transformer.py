@@ -1,11 +1,13 @@
-"""Decoder stack for the dense family (counterpart of
-``repro/models/transformer.py``).
+"""Decoder stack of the attention decoders (counterpart of
+``repro/models/transformer.py``): GQA or MLA mixers, gated-MLP or MoE
+FFNs, and deepseek-v3's dense ``front`` segment.
 
 Layers are grouped into segments exactly as in the reference; each
 period position's parameters are stacked along a leading ``n_rep`` axis.
 The reference scans over that axis (with remat); here a Python loop indexes
 it, which changes no number. Caches (prefill, decode) have the reference's
-tree, ``{seg.name: {"p{i}": {"mixer": {"k", "v", "pos"}}}}``, each leaf
+tree, ``{seg.name: {"p{i}": {"mixer": {"k", "v", "pos"}}}}`` (MLA:
+``{"ckv", "krope", "pos"}``), each leaf
 stacked on the layer axis first, so a cache row (a batch entry, a serving
 slot) is axis 1.
 """
@@ -18,6 +20,7 @@ import torch
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (activation, apply_mlp, apply_norm,
                                        init_mlp, init_norm)
 
@@ -52,55 +55,81 @@ def build_segments(cfg: ModelConfig):
     return segments
 
 
-def _check_dense(lspec: LayerSpec):
-    if lspec.mixer != "gqa" or lspec.ffn not in ("swiglu", "geglu"):
+_MIXERS = ("gqa", "mla")
+_FFNS = ("swiglu", "geglu", "moe")
+
+
+def _check(lspec: LayerSpec):
+    if lspec.mixer not in _MIXERS or lspec.ffn not in _FFNS:
         raise NotImplementedError(
-            f"layer {lspec}: the port runs the dense family (gqa mixer, "
-            "gated MLP) only")
+            f"layer {lspec}: the port runs the attention mixers {_MIXERS} "
+            f"and the FFNs {_FFNS}; the recurrent mixers (rglru, mlstm, "
+            "slstm) are not ported")
 
 
 def init_block(generator, cfg: ModelConfig, lspec: LayerSpec, *, device,
                d_ff_override: Optional[int] = None, dtype=torch.float32):
-    _check_dense(lspec)
-    return {"norm1": init_norm(cfg.norm, cfg.d_model, device=device,
-                               dtype=dtype),
-            "mixer": attn.init_gqa(generator, cfg, device=device,
-                                   dtype=dtype),
-            "norm2": init_norm(cfg.norm, cfg.d_model, device=device,
-                               dtype=dtype),
-            "ffn": init_mlp(generator, cfg.d_model, d_ff_override or cfg.d_ff,
-                            device=device, gated=True, dtype=dtype)}
+    _check(lspec)
+    init_mixer = attn.init_gqa if lspec.mixer == "gqa" else attn.init_mla
+    p = {"norm1": init_norm(cfg.norm, cfg.d_model, device=device,
+                            dtype=dtype),
+         "mixer": init_mixer(generator, cfg, device=device, dtype=dtype),
+         "norm2": init_norm(cfg.norm, cfg.d_model, device=device,
+                            dtype=dtype)}
+    if lspec.ffn == "moe":
+        p["ffn"] = moe_mod.init_moe(generator, cfg, device=device,
+                                    dtype=dtype)
+    else:
+        p["ffn"] = init_mlp(generator, cfg.d_model, d_ff_override or cfg.d_ff,
+                            device=device, gated=True, dtype=dtype)
+    return p
 
 
 def apply_block(params, x, *, cfg: ModelConfig, lspec: LayerSpec, positions,
                 mode: str = "train", cache=None, causal=True,
                 cache_max_len=None):
-    """One pre-norm block: x + attn(norm(x)), then x + mlp(norm(x)).
-    Returns x in train mode, else (x, {"mixer": the attention cache})."""
-    _check_dense(lspec)
+    """One pre-norm block: x + mixer(norm(x)), then x + ffn(norm(x)).
+    Returns (x, cache, aux): cache None in train mode, else {"mixer": the
+    attention cache}; aux the MoE load-balance loss (weighted; 0 without
+    a MoE FFN). A MoE FFN runs dropless outside training."""
+    _check(lspec)
     h = apply_norm(params["norm1"], x, cfg.norm)
-    y, new_cache = attn.gqa_forward(params["mixer"], h, cfg=cfg, lspec=lspec,
-                                    positions=positions, mode=mode,
-                                    cache=cache, causal=causal,
-                                    cache_max_len=cache_max_len)
+    fwd = attn.gqa_forward if lspec.mixer == "gqa" else attn.mla_forward
+    y, new_cache = fwd(params["mixer"], h, cfg=cfg, lspec=lspec,
+                       positions=positions, mode=mode, cache=cache,
+                       causal=causal, cache_max_len=cache_max_len)
     x = x + y
     h2 = apply_norm(params["norm2"], x, cfg.norm)
-    x = x + apply_mlp(params["ffn"], h2, activation(cfg.act), gated=True)
+    if lspec.ffn == "moe":
+        y2, aux = moe_mod.moe_forward(params["ffn"], h2, cfg=cfg,
+                                      act_name=cfg.act,
+                                      dropless=mode != "train")
+    else:
+        y2 = apply_mlp(params["ffn"], h2, activation(cfg.act), gated=True)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    x = x + y2
     if mode == "train":
-        return x
-    return x, {"mixer": new_cache}
+        return x, None, aux
+    return x, {"mixer": new_cache}, aux
 
 
 def init_block_cache(cfg: ModelConfig, lspec: LayerSpec, B: int,
                      seq_len: int, *, device, dtype=torch.float32):
-    _check_dense(lspec)
-    return {"mixer": attn.init_gqa_cache(cfg, lspec, B, seq_len,
-                                         device=device, dtype=dtype)}
+    _check(lspec)
+    init = (attn.init_gqa_cache if lspec.mixer == "gqa"
+            else attn.init_mla_cache)
+    return {"mixer": init(cfg, lspec, B, seq_len, device=device,
+                          dtype=dtype)}
 
 
 def _stack(trees):
+    """Stack same-shaped trees along a new leading axis. One tree is viewed
+    with that axis, not copied: a copy would hold its block twice while the
+    stack is built (7 GiB an expert bank at deepseek-v3's width)."""
     if isinstance(trees[0], dict):
         return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    if len(trees) == 1:
+        return trees[0].unsqueeze(0)
     return torch.stack(trees, 0)
 
 
@@ -138,10 +167,12 @@ def init_stack_cache(cfg: ModelConfig, B: int, seq_len: int, *, device,
 
 def apply_stack(params, x, *, cfg: ModelConfig, positions, mode="train",
                 caches=None, causal=True, cache_max_len=None):
-    """Run all segments. Train mode returns x; prefill returns (x, fresh
-    caches sized ``cache_max_len``); decode takes ``caches``, writes each
-    layer's row of them in place and returns (x, caches)."""
+    """Run all segments. Returns (x, caches, aux): train mode no caches;
+    prefill fresh caches sized ``cache_max_len``; decode takes ``caches``,
+    writes each layer's row of them in place and returns them. ``aux`` is
+    the sum of the blocks' MoE losses (float32)."""
     new_caches = {}
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for seg in build_segments(cfg):
         seg_params = params[seg.name]
         per_rep = []
@@ -149,20 +180,18 @@ def apply_stack(params, x, *, cfg: ModelConfig, positions, mode="train",
             blk_caches = {}
             for i, ls in enumerate(seg.specs):
                 p = _index(seg_params[f"p{i}"], r)
-                if mode == "train":
-                    x = apply_block(p, x, cfg=cfg, lspec=ls,
-                                    positions=positions, causal=causal)
-                    continue
                 cache = None
                 if mode == "decode":
                     # views of the stacked leaves: decode writes through them
                     cache = _index(caches[seg.name][f"p{i}"], r)["mixer"]
-                x, blk_caches[f"p{i}"] = apply_block(
+                x, blk_cache, aux = apply_block(
                     p, x, cfg=cfg, lspec=ls, positions=positions, mode=mode,
                     cache=cache, causal=causal, cache_max_len=cache_max_len)
+                aux_total = aux_total + aux
+                blk_caches[f"p{i}"] = blk_cache
             per_rep.append(blk_caches)
         if mode == "prefill":
             new_caches[seg.name] = _stack(per_rep)
     if mode == "train":
-        return x
-    return x, (new_caches if mode == "prefill" else caches)
+        return x, None, aux_total
+    return x, (new_caches if mode == "prefill" else caches), aux_total

@@ -1,0 +1,358 @@
+"""The registry's attention decoders on the port (gemma-2b, gemma-2b-sw,
+phi3-mini-3.8b, yi-34b, arctic-480b, deepseek-v3-671b) against the JAX
+package, each at its ``reduced()`` size (d_model 256, 2 layers, vocab 512,
+4 experts) with the reference's init handed over:
+
+- the port's configs pinned to the reference's field by field, the
+  registry's other four families refused by name;
+- the four cases of ``tests/test_archs.py`` (a forward and one
+  decentralized step, the parameter tree, the cache tree, teacher-forced
+  decode against the whole-sequence prefill);
+- the loss and every gradient (as ``tests/test_torch_model.py``), prefill
+  and decode logits at each step, and the panel segment
+  (``make_panel_segment``) over 3 rounds (loss, grad norm and Xi a round,
+  the merged and local evals);
+- the serving engine over the MoE and MLA caches, its tokens equal to
+  each request generated alone.
+
+Tolerances: loss, Xi and evals at rtol 1e-5 (float32 products summed in
+other orders), the segment's grad norms at 1e-4; gradients at atol 1e-5;
+logits at atol 2e-5 + rtol 1e-5 (``tests/test_torch_serving.py``'s);
+teacher-forced decode within the reference test's 2e-2 of the prefill
+(measured far below)."""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import _torch_threads  # noqa: F401
+from repro import configs as ref_configs
+from repro.configs import get_config as ref_get_config
+from repro.core import dsgd as ref_dsgd
+from repro.core import merge as ref_merge
+from repro.core import panel as ref_panel
+from repro.models import build_model as ref_build_model
+from repro.optim import make_optimizer as ref_make_optimizer
+from repro_torch import configs
+from repro_torch.configs import get_config, list_archs
+from repro_torch.core import dsgd
+from repro_torch.core import panel as panel_mod
+from repro_torch.core.consensus import consensus_distance
+from repro_torch.core.schedule import make_schedule
+from repro_torch.data.synthetic import SyntheticLM, make_agent_lm_batches
+from repro_torch.launch import train
+from repro_torch.models import build_model
+from repro_torch.optim import make_optimizer
+from repro_torch.utils.tree import tree_flatten, tree_unflatten
+from repro_torch.weights import from_reference_params
+
+NEW = ["gemma-2b", "gemma-2b-sw", "phi3-mini-3.8b", "yi-34b", "arctic-480b",
+       "deepseek-v3-671b"]
+UNPORTED = {"qwen2-vl-72b": "vlm", "seamless-m4t-medium": "audio",
+            "xlstm-1.3b": "ssm", "recurrentgemma-2b": "hybrid"}
+ATOL, RTOL = 2e-5, 1e-5
+
+
+def _pair(arch):
+    return ref_get_config(arch).reduced(), get_config(arch).reduced()
+
+
+def _batch(vocab, b=2, seq=32, seed=0, lead=()):
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, vocab, size=lead + (b, seq + 1)).astype(np.int32)
+    return {"tokens": toks[..., :-1], "targets": toks[..., 1:],
+            "mask": np.ones(lead + (b, seq), np.float32)}
+
+
+def _handover(ref_params):
+    stacked = jax.tree.map(lambda x: np.asarray(x)[None], ref_params)
+    _, panel, spec = from_reference_params(stacked, device="cpu")
+    return panel_mod.agent_params(panel, spec, 0)
+
+
+def _port_cfg(ref_cfg):
+    """A reference ModelConfig rebuilt from the port's dataclasses."""
+    base = configs.base
+    d = dataclasses.asdict(ref_cfg)
+    d["attn"] = base.AttentionConfig(**d["attn"])
+    d["layer_period"] = tuple(base.LayerSpec(**s) for s in d["layer_period"])
+    d["dist"] = base.DistConfig(**d["dist"])
+    if d["moe"] is not None:
+        d["moe"] = base.MoEConfig(**d["moe"])
+    if d["recurrent"] is not None:
+        d["recurrent"] = base.RecurrentConfig(**d["recurrent"])
+    return base.ModelConfig(**d)
+
+
+# ------------------------------------------------------------- registry
+
+
+def test_registry_lists_the_attention_decoders():
+    assert list_archs() == sorted(NEW + ["olmo-1b"])
+    assert set(list_archs()) | set(UNPORTED) == set(ref_configs.list_archs())
+
+
+@pytest.mark.parametrize("arch", NEW + ["olmo-1b"])
+def test_config_pinned_to_reference(arch):
+    ref, ours = ref_get_config(arch), get_config(arch)
+    assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
+    assert dataclasses.asdict(ours.reduced()) == dataclasses.asdict(
+        ref.reduced())
+    assert ours.padded_vocab == ref.padded_vocab
+
+
+@pytest.mark.parametrize("arch", sorted(UNPORTED))
+def test_unported_families_refused_by_name(arch):
+    with pytest.raises(KeyError):
+        get_config(arch)
+    cfg = _port_cfg(ref_get_config(arch).reduced())
+    with pytest.raises(NotImplementedError, match=UNPORTED[arch]):
+        build_model(cfg)
+
+
+# ------------------------------------------- tests/test_archs.py's cases
+
+
+@pytest.mark.parametrize("arch", NEW)
+def test_smoke_forward_and_train_step(arch):
+    cfg = get_config(arch).reduced()
+    assert cfg.d_model <= 512 and cfg.num_layers <= 2
+    if cfg.moe:
+        assert cfg.moe.num_experts <= 4
+    model = build_model(cfg)
+    gen = torch.Generator().manual_seed(0)
+    params = model.init_params(gen, "cpu")
+    batch = {k: torch.from_numpy(v) for k, v in
+             _batch(cfg.vocab_size).items()}
+    loss, _ = model.loss_fn(params, batch)
+    assert loss.shape == () and bool(torch.isfinite(loss))
+
+    m = 2
+    opt = make_optimizer("adamw", 1e-3)
+    state = dsgd.init_state(lambda g: model.init_params(g, "cpu"), opt, m,
+                            torch.Generator().manual_seed(1))
+    step = dsgd.make_dsgd_step(model.loss_fn, opt)
+    abatch = _batch(cfg.vocab_size, lead=(m,), seed=1)
+    W = torch.full((m, m), 0.5)
+    new_state, mets = step(state, abatch, W)
+    assert bool(torch.all(torch.isfinite(torch.as_tensor(mets["loss"]))))
+    for leaf in tree_flatten(new_state["params"])[0]:
+        assert bool(torch.all(torch.isfinite(leaf)))
+    assert float(consensus_distance(new_state["params"])) < 1e-4
+
+
+@pytest.mark.parametrize("arch", NEW)
+def test_param_tree_matches_reference(arch):
+    ref_cfg, cfg = _pair(arch)
+    shapes = jax.eval_shape(ref_build_model(ref_cfg).init_params,
+                            jax.random.PRNGKey(0))
+    ref_leaves = jax.tree_util.tree_flatten_with_path(shapes)[0]
+    ours = build_model(cfg).init_params(torch.Generator().manual_seed(0),
+                                        "cpu")
+    leaves = tree_flatten(ours)[0]
+    assert [x.shape for _, x in ref_leaves] == [tuple(x.shape)
+                                                for x in leaves]
+    assert [str(x.dtype) for _, x in ref_leaves] == [
+        str(x.dtype).replace("torch.", "") for x in leaves]
+    keys = {jax.tree_util.keystr(p) for p, _ in ref_leaves}
+    assert ("['head']['w']" in keys) == (not cfg.tie_embeddings)
+
+
+@pytest.mark.parametrize("arch", NEW)
+def test_cache_tree_matches_reference(arch):
+    ref_cfg, cfg = _pair(arch)
+    ref_c = jax.eval_shape(lambda: ref_build_model(ref_cfg).init_cache(2, 16))
+    ours = build_model(cfg).init_cache(2, 16, device="cpu")
+    ref_leaves = jax.tree_util.tree_flatten_with_path(ref_c)[0]
+    leaves = tree_flatten(ours)[0]
+    assert [jax.tree_util.keystr(p) for p, _ in ref_leaves] == [
+        jax.tree_util.keystr(p) for p, _ in
+        jax.tree_util.tree_flatten_with_path(jax.tree.map(
+            lambda t: np.zeros(()), ours))[0]]
+    assert [x.shape for _, x in ref_leaves] == [tuple(x.shape)
+                                                for x in leaves]
+    for (p, x), t in zip(ref_leaves, leaves):
+        if jax.tree_util.keystr(p).endswith("['pos']"):
+            assert bool(torch.all(t == -1)) and t.dtype == torch.int32
+
+
+@pytest.mark.parametrize("arch", NEW)
+def test_prefill_decode_matches_full_forward(arch):
+    """Teacher-forced decode reproduces the whole sequence's prefill."""
+    cfg = get_config(arch).reduced()
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator().manual_seed(1), "cpu")
+    B, S, T = 2, 24, 8
+    toks = torch.from_numpy(_batch(cfg.vocab_size, B, S + T, 1)["tokens"])
+    ref, _ = model.prefill(params, {"tokens": toks}, max_len=S + T)
+    logits, caches = model.prefill(params, {"tokens": toks[:, :S]},
+                                   max_len=S + T)
+    for i in range(T):
+        logits, caches = model.decode_step(params, caches,
+                                           toks[:, S + i:S + i + 1], S + i)
+    err = float(torch.max(torch.abs(logits - ref)))
+    assert err < 2e-2, f"{arch}: decode drift {err}"
+
+
+# ------------------------------------------------- against the reference
+
+
+@pytest.mark.parametrize("arch", NEW)
+def test_loss_and_grads_match_reference(arch):
+    ref_cfg, cfg = _pair(arch)
+    ref_model = ref_build_model(ref_cfg)
+    ref_params = ref_model.init_params(jax.random.PRNGKey(0))
+    batch = _batch(cfg.vocab_size, b=2, seq=32, seed=3)
+    batch["mask"][:, 27:] = 0.0
+    (ref_loss, ref_mets), ref_grads = jax.jit(jax.value_and_grad(
+        ref_model.loss_fn, has_aux=True))(
+            ref_params, jax.tree.map(jnp.asarray, batch), None)
+
+    leaves, skel = tree_flatten(_handover(ref_params))
+    leaves = [x.detach().clone().requires_grad_(True) for x in leaves]
+    loss, mets = build_model(cfg).loss_fn(
+        tree_unflatten(skel, leaves),
+        {k: torch.from_numpy(v) for k, v in batch.items()})
+    grads = torch.autograd.grad(loss, leaves)
+
+    np.testing.assert_allclose(float(loss.detach()), float(ref_loss),
+                               rtol=1e-5)
+    assert set(mets) == set(ref_mets)
+    for k in mets:
+        np.testing.assert_allclose(float(mets[k].detach()),
+                                   float(ref_mets[k]), rtol=1e-5, atol=1e-7)
+    ref_leaves = jax.tree_util.tree_leaves(ref_grads)
+    assert len(ref_leaves) == len(grads)
+    for g, rg in zip(grads, ref_leaves):
+        assert tuple(g.shape) == rg.shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(rg), atol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ["gemma-2b-sw", "yi-34b", "arctic-480b",
+                                  "deepseek-v3-671b"])
+def test_prefill_and_decode_logits_match_reference(arch):
+    """A 70-token prompt (past gemma-2b-sw's reduced window of 64: the ring
+    wraps) and 8 decode steps, rows at the same depth; logits at every
+    step and the prefill caches against the reference's."""
+    ref_cfg, cfg = _pair(arch)
+    ref_model, model = ref_build_model(ref_cfg), build_model(cfg)
+    ref_params = ref_model.init_params(jax.random.PRNGKey(2))
+    params = _handover(ref_params)
+    B, S, T = 2, 70, 8
+    toks = _batch(cfg.vocab_size, B, S + T, 4)["tokens"]
+    r_logits, r_caches = jax.jit(lambda p, t: ref_model.prefill(
+        p, {"tokens": t}, max_len=S + T))(ref_params, jnp.asarray(toks[:, :S]))
+    logits, caches = model.prefill(params, {"tokens": torch.from_numpy(
+        toks[:, :S])}, max_len=S + T)
+    np.testing.assert_allclose(logits.numpy(), np.asarray(r_logits),
+                               atol=ATOL, rtol=RTOL)
+    for (p, rc), c in zip(jax.tree_util.tree_flatten_with_path(r_caches)[0],
+                          tree_flatten(caches)[0]):
+        if jax.tree_util.keystr(p).endswith("['pos']"):
+            np.testing.assert_array_equal(c.numpy(), np.asarray(rc))
+        else:
+            np.testing.assert_allclose(c.numpy(), np.asarray(rc), atol=1e-5)
+    dec = jax.jit(ref_model.decode_step)
+    for i in range(T):
+        tok = toks[:, S + i:S + i + 1]
+        r_logits, r_caches = dec(ref_params, r_caches, jnp.asarray(tok),
+                                 jnp.asarray(S + i, jnp.int32))
+        logits, caches = model.decode_step(params, caches,
+                                           torch.from_numpy(tok), S + i)
+        np.testing.assert_allclose(logits.numpy(), np.asarray(r_logits),
+                                   atol=ATOL, rtol=RTOL)
+
+
+ROUNDS, M, H, B, SEQ = 3, 4, 2, 4, 32
+
+
+@pytest.mark.parametrize("arch", ["phi3-mini-3.8b", "arctic-480b",
+                                  "deepseek-v3-671b"])
+def test_segment_matches_reference(arch):
+    """The panel segment (``make_panel_segment``), 3 rounds of the
+    final-merge schedule (the last is the merge), from one handed-over
+    init, one batch stream and one W stream: loss and Xi a round and the
+    merged and local evals at rtol 1e-5, the grad norm at
+    ``tests/test_torch_segment.py``'s 1e-4 (arctic's last round reads
+    1.2e-5 relative: a norm over every gradient after four AdamW steps);
+    after the merge Xi 0 and local == merged."""
+    ref_cfg, cfg = _pair(arch)
+    ref_model, model = ref_build_model(ref_cfg), build_model(cfg)
+    ref_opt = ref_make_optimizer("adamw", 3e-3, weight_decay=5e-4,
+                                 total_steps=ROUNDS * H)
+    opt = make_optimizer("adamw", 3e-3, weight_decay=5e-4,
+                         total_steps=ROUNDS * H)
+    ref_state, ref_spec = ref_dsgd.init_panel_state(
+        ref_model.init_params, ref_opt, M, jax.random.PRNGKey(0),
+        merger="uniform")
+    stacked = jax.tree.map(np.asarray,
+                           ref_panel.from_panel(ref_state["panel"], ref_spec))
+    params, _, _ = from_reference_params(stacked, device="cpu")
+    state, spec = dsgd.panel_state_from_params(params, opt)
+
+    sched = make_schedule("final_merge", M, ROUNDS, prob=0.2, seed=0)
+    lm = SyntheticLM(vocab=cfg.vocab_size, num_domains=8, seed=0)
+    mixtures = lm.domain_mixtures(M, 0.1, seed=1)
+    Ws = np.stack([sched.mixing_matrix(t)
+                   for t in range(ROUNDS)]).astype(np.float32)
+    batches = train.sample_segment_batches(lm, mixtures, ROUNDS, H, B, SEQ,
+                                           np.random.default_rng(2))
+    eval_b = {k: v[0] for k, v in make_agent_lm_batches(
+        lm, [np.ones(8) / 8], 2 * B, SEQ, np.random.default_rng(9)).items()}
+
+    ref_seg = ref_dsgd.make_panel_segment(ref_model.loss_fn, ref_opt, H,
+                                          ref_spec)
+    ref_state, ref_mets = ref_seg(ref_state,
+                                  jax.tree.map(jnp.asarray, batches),
+                                  jnp.asarray(Ws), jax.random.PRNGKey(1))
+    jb = jax.tree.map(jnp.asarray, eval_b)
+
+    def ref_loss(p):
+        return ref_model.loss_fn(p, jb, None)[0]
+
+    ref_merged = float(jax.jit(lambda pan: ref_merge.counterfactual_eval_panel(
+        ref_loss, pan, ref_spec))(ref_state["panel"]))
+    ref_local = float(jax.jit(lambda pan: jnp.mean(jax.vmap(ref_loss)(
+        ref_panel.from_panel(pan, ref_spec))))(ref_state["panel"]))
+
+    seg = dsgd.make_panel_segment(model.loss_fn, opt, H, spec)
+    state, mets = seg(state, batches, Ws)
+    tb = train.to_device(eval_b, "cpu")
+    merged = train.eval_merged(model.loss_fn, state["panel"], spec, tb)
+    local = train.eval_local(model.loss_fn, state["panel"], spec, tb)
+    for k in ("loss", "consensus"):
+        np.testing.assert_allclose(mets[k].numpy(), np.asarray(ref_mets[k]),
+                                   rtol=1e-5, atol=1e-7, err_msg=k)
+    np.testing.assert_allclose(mets["grad_norm"].numpy(),
+                               np.asarray(ref_mets["grad_norm"]), rtol=1e-4)
+    np.testing.assert_allclose(merged, ref_merged, rtol=1e-5)
+    np.testing.assert_allclose(local, ref_local, rtol=1e-5)
+    assert float(mets["consensus"][-1]) == 0.0
+    assert abs(local - merged) <= 1e-6 * abs(merged)
+
+
+@pytest.mark.parametrize("arch", ["arctic-480b", "deepseek-v3-671b"])
+def test_engine_matches_generate_alone(arch):
+    """The slotted engine over the MoE (dropless) and MLA caches: prompts
+    of two lengths padded into 4 slots of one cache (MLA's rank-3 leaves
+    through ``insert``), every request's greedy tokens equal to it
+    generated alone."""
+    from repro_torch.serving import Request, ServingEngine, generate
+    cfg = get_config(arch).reduced()
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator().manual_seed(5), "cpu")
+    rng = np.random.default_rng(6)
+    reqs = [Request(rid=i, tokens=rng.integers(0, cfg.vocab_size,
+                                               [20, 13][i % 2]).astype(
+                                                   np.int32), max_new=6)
+            for i in range(6)]
+    eng = ServingEngine(model, params, max_concurrency=4, max_len=32)
+    out = eng.serve(reqs)
+    for r in reqs:
+        alone = generate(model, params,
+                         {"tokens": torch.from_numpy(r.tokens[None])}, 6,
+                         max_len=32)[0]
+        assert (np.asarray(alone) == np.asarray(out[r.rid])).all(), r.rid

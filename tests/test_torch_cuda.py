@@ -696,13 +696,20 @@ def _attention_inputs(B, S, H, Kv, hd, seed, dev):
 # (B, S, H, Kv, hd, causal, window): key and query tails (S % 64 != 0),
 # GQA, windows, no causal mask, every head dim the kernels take, a single
 # position, the attn_block path's own shape, and GQA over 2048 positions
-# (the longest sums of dK and dV: 4 query heads a key head)
+# (the longest sums of dK and dV: 4 query heads a key head); at hd 96
+# (phi3-mini) and 256 (gemma-2b, two column blocks a row tile) GQA, MQA
+# (gemma's 8 query heads on one key head), windows, no causal mask, and
+# gemma's attn_block cell (B 2, S 2048, MQA)
 ATTENTION = [(2, 100, 4, 2, 64, True, None), (1, 100, 2, 2, 128, True, None),
              (2, 256, 8, 2, 32, True, 64), (2, 130, 4, 4, 16, True, 40),
              (1, 77, 2, 1, 64, False, None), (2, 64, 2, 2, 128, True, None),
              (1, 300, 4, 1, 128, True, 100), (2, 1, 2, 1, 128, True, None),
              (2, 2048, 16, 16, 128, True, None),
-             (2, 2048, 32, 8, 128, True, None)]
+             (2, 2048, 32, 8, 128, True, None),
+             (2, 100, 4, 2, 96, True, None), (1, 300, 8, 1, 96, True, 100),
+             (1, 77, 2, 2, 96, False, None), (2, 100, 8, 1, 256, True, None),
+             (1, 130, 4, 2, 256, True, 48), (1, 77, 2, 1, 256, False, None),
+             (2, 1, 2, 1, 256, True, None), (2, 2048, 8, 1, 256, True, None)]
 
 
 @pytest.mark.parametrize("B,S,H,Kv,hd,causal,window", ATTENTION)
@@ -785,6 +792,29 @@ def test_flash_attention_kernels_fit_two_blocks_without_spills(cuda):
     for name, r in occupancy(128, 2048).items():
         assert r["registers"] > 0 and r["local_bytes"] == 0, (name, r)
         assert r["blocks_per_sm"] >= 2, (name, r)
+
+
+@pytest.mark.parametrize("hd", [96, 256])
+def test_flash_attention_wide_heads_fit_without_spills(cuda, hd):
+    """At hd 96 and 256 (two column blocks a row tile) every kernel keeps
+    its values in registers (no local memory a thread); hd 96 runs two
+    4-warp blocks an SM, hd 256 (166,912 and 199,680 bytes of tiles) one."""
+    for name, r in occupancy(hd, 2048).items():
+        assert r["registers"] > 0 and r["local_bytes"] == 0, (name, r)
+        assert r["blocks_per_sm"] >= (2 if hd == 96 else 1), (name, r)
+
+
+@pytest.mark.parametrize("hd,Kv,window", [(96, 2, None), (96, 1, 40),
+                                          (256, 1, None), (256, 2, 48)])
+def test_flash_attention_bf16_forward_wide_heads(cuda, hd, Kv, window):
+    q, k, v, _, pos = _attention_inputs(2, 130, 4, Kv, hd, hd + Kv, cuda)
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    out, lse = flash_attention_fwd(q, k, v, pos, pos, window=window)
+    r_out, r_lse = flash_attention_fwd_ref(q, k, v, pos, pos, window=window)
+    assert out.dtype == torch.bfloat16
+    torch.testing.assert_close(out.float(), r_out.float(), atol=2e-2,
+                               rtol=2e-2)
+    torch.testing.assert_close(lse, r_lse, atol=2e-2, rtol=2e-2)
 
 
 def test_flash_attention_bf16_forward(cuda):

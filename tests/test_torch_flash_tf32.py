@@ -186,9 +186,10 @@ def test_rows_copies_only_what_is_off_16_bytes():
     assert _rows(odd.to(torch.bfloat16)).is_contiguous()
 
 
-@pytest.mark.parametrize("hd", [8, 24, 96, 256])
+@pytest.mark.parametrize("hd", [8, 24, 48, 512])
 def test_occupancy_refuses_head_dims_without_a_kernel(hd):
-    """The kernels are built for hd 16, 32, 64 and 128; any other head dim
-    is refused before the library is loaded (so here, without a card)."""
+    """The kernels are built for hd 16, 32, 64, 96, 128 and 256; any other
+    head dim is refused before the library is loaded (so here, without a
+    card)."""
     with pytest.raises(ValueError, match="head dims"):
         occupancy(hd, 2048)

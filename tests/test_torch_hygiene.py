@@ -72,7 +72,8 @@ def test_import_with_jax_and_reference_blocked():
                 "repro_torch.launch.serve", "repro_torch.telemetry.events",
                 "repro_torch.telemetry.latency", "repro_torch.telemetry.trace",
                 "repro_torch.telemetry.export",
-                "repro_torch.telemetry.validate"):
+                "repro_torch.telemetry.validate", "repro_torch.models.moe",
+                "repro_torch.configs.deepseek_v3_671b"):
         assert new in mods
 
 
