@@ -125,27 +125,40 @@ Phases, each printing its lines:
      --resume): equal histories, byte-identical valid streams, and the
      baseline and resumed children launching the int8 quantize and
      dequantize, the weighted column merge and the mix;
-  11. (after phase 10) the registry's attention decoders (ARCH_CELLS):
+  11. (after phase 10) the registry's decoders (ARCH_CELLS):
      phi3-mini-3.8b, gemma-2b (attn_block 512: the flash kernels at hd 256,
      MQA), yi-34b (m D > 2^31), arctic-480b (MoE, 8 of its 128 experts)
-     at their published widths cut in depth, and deepseek-v3-671b's
-     reduced() config (MLA, MoE, MTP), each through init_panel_state ->
-     make_panel_segment for ARCH_ROUNDS rounds: D against ARCH_D, losses
-     finite, the rows identical bit for bit and Xi 0.0 after the merge,
-     merged == local eval to 1e-6, the mix and reduce (and on gemma the
-     flash kernels) launched; the merged phi3 and arctic models served by
-     the engine (ARCH_SERVE_C slots, ARCH_SERVE_REQUESTS requests of
-     ARCH_SERVE_PROMPT tokens, ARCH_SERVE_NEW new: every request's tokens
-     equal to it generated alone), and deepseek's teacher-forced decode
-     (the absorbed MLA path) against the whole sequence's prefill at
-     2e-5 + 1e-5 relative; then deepseek-v3 at its published widths (d_model
-     7168, 128 heads, MLA ranks 1536/512, vocab 129,280, top-8 sigmoid
-     router, shared expert, MTP), cut to its dense front layer, one MoE
-     layer and MLA_WIDE_EXPERTS experts: its loss finite with the MTP and
-     load-balance terms, the MoE layer's dispatch against its dense twin,
-     and the same decode check;
+     at their published widths cut in depth, deepseek-v3-671b's reduced()
+     config (MLA, MoE, MTP), and the recurrent decoders cut to one period:
+     recurrentgemma-2b (RG-LRU, RG-LRU, local attention at attn_block 512:
+     the flash kernels at hd 256, 10 query heads on 1) and xlstm-1.3b (7
+     mLSTM, 1 sLSTM), each through init_panel_state -> make_panel_segment
+     for ARCH_ROUNDS rounds: D against ARCH_D, losses finite, the rows
+     identical bit for bit and Xi 0.0 after the merge, merged == local
+     eval to 1e-6, the mix and reduce launched (and with attn_block the
+     flash kernels exactly once forward and once backward an attention
+     layer, agent and local step, plus the evals' forwards); the merged
+     phi3, arctic, recurrentgemma and xlstm models served by the engine
+     (ARCH_SERVE_C slots, ARCH_SERVE_REQUESTS requests of ARCH_SERVE_PROMPT
+     tokens, ARCH_SERVE_NEW new: every request's tokens equal to it
+     generated alone), the recurrent ones then timed mixer by mixer
+     inside one agent's local step (CUDA events: the sLSTM loop's share),
+     and deepseek's teacher-forced decode (the absorbed MLA path) against
+     the whole sequence's prefill at 2e-5 + 1e-5 relative; then deepseek-v3
+     at its published widths (d_model 7168, 128 heads, MLA ranks 1536/512,
+     vocab 129,280, top-8 sigmoid router, shared expert, MTP), cut to its
+     dense front layer, one MoE layer and MLA_WIDE_EXPERTS experts: its
+     loss finite with the MTP and load-balance terms, the MoE layer's
+     dispatch against its dense twin, and the same decode check; then
+     recurrentgemma-2b (26 layers, the RG-LRU tail) and xlstm-1.3b (48
+     layers) at their published depth and widths: the loss finite and the
+     teacher-forced decode against prefill at REC_ATOL + REC_RTOL relative
+     (recurrentgemma in float32, its attention layers running the flash
+     kernels; xlstm, whose float32 logits at 48 layers are themselves
+     farther than that from exact arithmetic, in float64 at REC64_ATOL +
+     REC64_RTOL, its float32 reading printed beside);
 then the script's total time, a JSON line of per-kernel numbers (the
-flash rows with their hd96 and hd256 timings; every row with its phase-11
+flash rows with their hd96, hd256 and hd256_h10 timings; every row with its phase-11
 launches by cell, ``launches_arch``), the
 card's line again and, last, the result line. It fails (non-zero exit, no
 result line) if there is no card, if the port's package is not beside it,
@@ -154,6 +167,7 @@ Imports torch, numpy and the port only.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -182,9 +196,10 @@ PLAIN_REPS = 5        # timed calls of a plain version (10-1000x slower)
 ATTN_BLOCK, ATTN_BATCH, ATTN_SEQ = 512, 2, 2048
 # phase 3's timed flash shapes (at ATTN_BATCH, ATTN_SEQ, causal): (H, Kv,
 # hd) of the attn_block path (hd 128, the kernel rows' own numbers), of
-# phi3-mini (hd 96) and of gemma-2b (hd 256, MQA: phase 11's gemma cell)
+# phi3-mini (hd 96), of gemma-2b (hd 256, MQA: phase 11's gemma cell) and
+# of recurrentgemma-2b's local attention (hd 256, 10 query heads on 1)
 FLASH_TIMED = {"hd128": (16, 16, 128), "hd96": (32, 32, 96),
-               "hd256": (8, 1, 256)}
+               "hd256": (8, 1, 256), "hd256_h10": (10, 1, 256)}
 
 # the paths driven at full width (f32 is the main path) and the kernels
 # each must launch; a path is a wire codec, "merge <operator>" on the f32
@@ -222,23 +237,32 @@ FAULT_SMOKE_CFG = ["--rounds", "6", "--segment", "2", "--agents", "4",
 FAULT_SMOKE_TAG = "olmo-1b_final_merge_a0.1_mfisher"
 FAULT_SMOKE_KERNELS = ("quantize_int8", "dequantize_int8",
                        "weighted_colmerge", "gossip_mix")
-# phase 11: the registry's attention decoders at their published widths, cut
-# in depth (and agents; arctic in experts) to fit one card: cell: (arch,
-# layers, m, batch, seq, attn_block, experts); deepseek-v3 runs its
-# reduced() config (layers None). ARCH_ROUNDS rounds (two gossip rounds and
-# the merge), H local steps; ARCH_D the width D of an agent each cut gives.
+# phase 11: the registry's decoders at their published widths, cut in depth
+# (and agents; arctic in experts) to fit one card: cell: (arch, layers, m,
+# batch, seq, attn_block, experts); deepseek-v3 runs its reduced() config
+# (layers None). The recurrent decoders are cut to one period: for
+# recurrentgemma (RG-LRU, RG-LRU, local attention with window 2048; its
+# attention layer at attn_block 512: the flash kernels at hd 256, 10 query
+# heads on 1 key head), for xlstm 7 mLSTM and 1 sLSTM layers.
+# ARCH_ROUNDS rounds (two gossip rounds and the merge), H local steps;
+# ARCH_D the width D of an agent each cut gives.
 ARCH_CELLS = {"phi3": ("phi3-mini-3.8b", 2, 8, 4, 512, 0, None),
               "gemma": ("gemma-2b", 2, 4, 2, 2048, 512, None),
               "yi": ("yi-34b", 1, 2, 4, 512, 0, None),
               "arctic": ("arctic-480b", 1, 2, 4, 512, 0, 8),
-              "deepseek": ("deepseek-v3-671b", None, 8, 4, 256, 0, None)}
+              "deepseek": ("deepseek-v3-671b", None, 8, 4, 256, 0, None),
+              "recurrentgemma": ("recurrentgemma-2b", 3, 3, 2, 2048, 512,
+                                 None),
+              "xlstm": ("xlstm-1.3b", 8, 8, 4, 512, 0, None)}
 ARCH_ROUNDS = 3
 ARCH_D = {"phi3": 424_688_640, "gemma": 744_499_200, "yi": 1_475_367_936,
-          "arctic": 1_517_630_464, "deepseek": 5_361_952}
+          "arctic": 1_517_630_464, "deepseek": 5_361_952,
+          "recurrentgemma": 912_320_000, "xlstm": 378_712_120}
 # the merged models served (C slots, requests of PROMPT tokens, NEW new
 # tokens each, greedy) and the MLA cell's teacher-forced decode (a prompt
-# of MLA_PROMPT tokens, MLA_STEPS steps, 2 rows)
-ARCH_SERVED = ("phi3", "arctic")
+# of MLA_PROMPT tokens, MLA_STEPS steps, 2 rows; the recurrent decoders'
+# full-depth check takes the same prompt and steps)
+ARCH_SERVED = ("phi3", "arctic", "recurrentgemma", "xlstm")
 ARCH_SERVE_C, ARCH_SERVE_REQUESTS = 4, 8
 ARCH_SERVE_PROMPT, ARCH_SERVE_NEW = 512, 32
 MLA_PROMPT, MLA_STEPS = 192, 8
@@ -257,6 +281,21 @@ MLA_PROMPT, MLA_STEPS = 192, 8
 # against its dense twin at as many tokens
 MLA_WIDE_EXPERTS = 128
 MLA_WIDE_BATCH, MLA_WIDE_SEQ = 2, 256
+# the recurrent decoders at their published depth (recurrentgemma-2b's 26
+# layers: 8 periods and the 2-layer RG-LRU tail; xlstm-1.3b's 48), one
+# model each, no panel, no gradient: the loss at REC_DEPTH_BATCH rows of
+# REC_DEPTH_SEQ tokens, then the teacher-forced decode against prefill at
+# the reference's recurrent-decode tolerance (tests/test_models.py:
+# atol 1e-4, rtol 1e-3)
+REC_DEPTH = ("recurrentgemma-2b", "xlstm-1.3b")
+REC_DEPTH_BATCH, REC_DEPTH_SEQ = 2, 512
+REC_ATOL, REC_RTOL = 1e-4, 1e-3
+# a stack without attention is held in float64 (float64_model), at that
+# tolerance times 1e-6: float64 rounds 1.9e-9 as coarsely as float32, so
+# this is no tighter against each one's rounding, and it catches what the
+# literal tolerance lets through in float64 (tests/test_torch_recurrent.py:
+# test_float64_decode_check_catches_a_dropped_state_term)
+REC64_ATOL, REC64_RTOL = 1e-10, 1e-9
 CHILD = ("import json, sys\n"
          "from repro_torch.kernels import launch_counts\n"
          "from repro_torch.launch import train\n"
@@ -2653,7 +2692,8 @@ def drive_arch(torch, name):
           f"{cfg.d_ff}, vocab {cfg.vocab_size} padded to {cfg.padded_vocab}, "
           f"untied head {not cfg.tie_embeddings}, experts "
           f"{moe.num_experts if moe else 0} (top {moe.top_k if moe else 0}), "
-          f"mla {cfg.layer_period[0].mixer == 'mla'}, mtp {cfg.mtp_depth}; "
+          f"mla {cfg.layer_period[0].mixer == 'mla'}, mtp {cfg.mtp_depth}, "
+          f"mixers {[s_.mixer for s_ in cfg.layer_specs()]}; "
           f"D {spec.width} per agent, m {m} (m D {m * spec.width}, 2^31 = "
           f"{2 ** 31}), H {H}, batch {batch}, seq {seq}, attn_block "
           f"{cfg.dist.attn_block}; init {t_init:.2f}s, device memory held "
@@ -2690,14 +2730,18 @@ def drive_arch(torch, name):
     check(counts["gossip_mix"] > 0 and counts["panel_mean_consensus"] > 0,
           f"cell {name}: the mix or the reduce never launched: {counts}")
     if cfg.dist.attn_block:
-        steps = ARCH_ROUNDS * H * m * cfg.num_layers
-        check(counts["flash_attention_bwd"] == steps
+        # the stack's attention layers (MLA never takes the blockwise
+        # route; the recurrent mixers have no attention)
+        n_attn = sum(s_.mixer == "gqa" for s_ in cfg.layer_specs())
+        steps = ARCH_ROUNDS * H * m * n_attn
+        check(n_attn > 0 and counts["flash_attention_bwd"] == steps
               and counts["flash_attention_fwd"]
-              == steps + cfg.num_layers + m * cfg.num_layers,
+              == steps + n_attn + m * n_attn,
               f"cell {name}: flash attention launches {counts} are not one "
-              f"forward and one backward a layer, agent and local step, "
-              f"plus one forward a layer for the merged eval and one a "
-              f"layer and agent for the local evals")
+              f"forward and one backward an attention layer ({n_attn}), "
+              f"agent and local step, plus one forward an attention layer "
+              f"for the merged eval and one an attention layer and agent "
+              f"for the local evals")
     check(all(math.isfinite(x) for x in losses + [merged, local]),
           f"cell {name}: a loss is not finite: {losses} {merged} {local}")
     check(same and xis[-1] == 0.0,
@@ -2782,37 +2826,107 @@ def arch_serve(torch, name, model, params):
     return counts, rec
 
 
-def mla_decode_check(torch, name, model, params):
-    """Phase 11, the MLA cell's merged model: a prompt of MLA_PROMPT tokens
-    prefilled, then MLA_STEPS teacher-forced decode steps (the absorbed
-    latent-space attention over the {ckv, krope, pos} cache, the dropless
-    MoE); each step's logits against the prefill of the whole sequence up
-    to that token (the materialised attention) at the serving tolerance,
-    2e-5 absolute + 1e-5 relative. Returns the largest difference."""
+def tol_share(torch, pairs, atol, rtol):
+    """(largest |a - ref|, largest |a - ref| / (atol + rtol |ref|)) over
+    the (a, ref) pairs, in float64."""
+    diff, share = 0.0, 0.0
+    for a, ref in pairs:
+        d = torch.abs(a.double() - ref.double())
+        diff = max(diff, float(torch.max(d)))
+        share = max(share, float(torch.max(
+            d / (atol + rtol * torch.abs(ref.double())))))
+    return diff, share
+
+
+def decode_steps(torch, model, params):
+    """Teacher-forced decode: a prompt of MLA_PROMPT tokens (2 rows, seed 7)
+    prefilled, then MLA_STEPS decode steps, on the parameters' device.
+    Returns [(the decode logits,
+    the prefill logits of the whole sequence up to that token)] a step."""
     import numpy as np
+
+    from repro_torch.utils.tree import tree_leaves
     cfg = model.cfg
-    dev = torch.device("cuda")
+    dev = tree_leaves(params)[0].device
     total = MLA_PROMPT + MLA_STEPS
     toks = torch.from_numpy(np.random.default_rng(7).integers(
         0, cfg.vocab_size, size=(2, total)).astype(np.int32)).to(dev)
+    steps = []
     with torch.no_grad():
         logits, caches = model.prefill(
             params, {"tokens": toks[:, :MLA_PROMPT]}, max_len=total)
-        diff, ok = 0.0, True
         for i in range(MLA_STEPS):
             at = MLA_PROMPT + i
             logits, caches = model.decode_step(params, caches,
                                                toks[:, at:at + 1], at)
             ref, _ = model.prefill(params, {"tokens": toks[:, :at + 1]},
                                    max_len=total)
-            diff = max(diff, float(torch.max(torch.abs(logits - ref))))
-            ok = ok and torch.allclose(logits, ref, atol=2e-5, rtol=1e-5)
-    print(f"mla decode ({name}, phase 11, {card_line()}): {MLA_STEPS} "
+            steps.append((logits, ref))
+    return steps
+
+
+def decode_share(torch, name, steps, atol, rtol, what):
+    """Prints decode_steps' largest |decode - prefill| and its largest share
+    of atol + rtol relative; returns (difference, share)."""
+    diff, share = tol_share(torch, steps, atol, rtol)
+    print(f"{what} ({name}, phase 11, {card_line()}): {MLA_STEPS} "
           f"teacher-forced steps after a {MLA_PROMPT}-token prompt against "
-          f"the whole sequence's prefill: max |logit difference| {diff!r}, "
-          f"within 2e-5 + 1e-5 relative: {ok}", flush=True)
-    check(ok, f"mla decode ({name}): decode differs from prefill by {diff}")
-    return diff
+          f"the whole sequence's prefill ({steps[0][0].dtype}): max |logit "
+          f"difference| {diff!r}, largest share of {atol} + {rtol} relative "
+          f"{share!r}, within it: {share <= 1.0}", flush=True)
+    return diff, share
+
+
+def decode_check(torch, name, steps, atol=2e-5, rtol=1e-5,
+                 what="mla decode"):
+    """Phase 11, decode_steps' decode against its prefill: fails unless
+    within atol + rtol relative. For the MLA cell (the default tolerance,
+    the serving one): the absorbed latent-space attention over the {ckv,
+    krope, pos} cache and the dropless MoE against the materialised
+    attention; for a recurrent decoder: the one-step updates of its states
+    against the prefill's scan and chunk loop. Returns (the largest
+    difference, its largest share of the tolerance)."""
+    diff, share = decode_share(torch, name, steps, atol, rtol, what)
+    check(share <= 1.0,
+          f"{what} ({name}): decode differs from prefill by {diff}")
+    return diff, share
+
+
+class _Float64Torch:
+    """torch, its ``float32`` reading float64."""
+
+    def __init__(self, torch):
+        self._torch = torch
+        self.float32 = torch.float64
+
+    def __getattr__(self, name):
+        return getattr(self._torch, name)
+
+
+@contextlib.contextmanager
+def float64_model(torch, cfg):
+    """Within it, a model of ``cfg`` whose parameters are float64 computes
+    in float64 throughout: the port's model modules (layers, recurrent,
+    transformer, model) read ``torch.float32`` as float64 wherever they
+    cast or allocate. A stack with attention is refused: its flash kernels
+    take float32 and bfloat16 only. A cast written otherwise would stay
+    float32 and add float32 rounding to the float64 run, so a decode check
+    inside it reads more noise, never less."""
+    from repro_torch.models import layers, recurrent, transformer
+    from repro_torch.models import model as model_mod
+    if any(s.mixer not in ("rglru", "mlstm", "slstm")
+           for s in cfg.layer_specs()):
+        raise ValueError(f"{cfg.name}: float64_model takes a stack without "
+                         "attention")
+    mods = (layers, recurrent, transformer, model_mod)
+    saved = [m.torch for m in mods]
+    try:
+        for m in mods:
+            m.torch = _Float64Torch(torch)
+        yield
+    finally:
+        for m, t in zip(mods, saved):
+            m.torch = t
 
 
 def mla_width_check(torch):
@@ -2823,7 +2937,7 @@ def mla_width_check(torch):
     head) finite, with its MTP and load-balance terms; the MoE layer's
     dropless moe_forward against its dense twin moe_ref on one draw of
     inputs at 2e-5 + 2e-5 relative (float32 products summed in other
-    orders); then mla_decode_check (the absorbed decode against the
+    orders); then decode_check (the absorbed decode against the
     prefill). Returns a record."""
     import dataclasses
 
@@ -2900,8 +3014,9 @@ def mla_width_check(torch):
     torch.cuda.reset_peak_memory_stats()
     rec = {"params": n_params, "init_s": t_init, "loss_s": dt_loss,
            "terms": terms, "moe_diff": moe_diff,
-           "mla_decode_diff": mla_decode_check(torch, "deepseek width",
-                                               model, params)}
+           "mla_decode_diff": decode_check(
+               torch, "deepseek width", decode_steps(torch, model,
+                                                     params))[0]}
     peaks["decode check"] = torch.cuda.max_memory_allocated()
     rec["peaks"] = peaks
     print(f"mla width ({card_line()}): peak device memory (bytes) of each "
@@ -2911,11 +3026,221 @@ def mla_width_check(torch):
     return rec
 
 
+def mixer_share(torch, name, model, params):
+    """Phase 11, a recurrent cell's merged model: one agent's local step
+    (the loss's forward and backward at the cell's batch and seq) with CUDA
+    events around each recurrent mixer inside it: its forward from the
+    call to its return, its backward from the gradient reaching its output
+    to the gradient leaving its input. The events come from wrappers put
+    into transformer._RECURRENT for these steps only. A mixer kind's time
+    is the sum of its layers' spans, its share that over the step's time:
+    medians of 3 steps after a warmup, beside the step's time without the
+    events (time_ms). Returns {"step_ms": t, "step_ms_bare": t, kind:
+    {"ms": t, "layers": n, "share": x}}."""
+    import numpy as np
+
+    from repro_torch.models import transformer as tfm
+    from repro_torch.utils.tree import tree_flatten, tree_unflatten
+    cfg = model.cfg
+    _, _, _, batch, seq, _, _ = ARCH_CELLS[name]
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(11)
+    toks = torch.from_numpy(rng.integers(
+        0, min(DATA_VOCAB, cfg.vocab_size), size=(batch, seq + 1)).astype(
+        np.int32)).to(dev)
+    b = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    leaves, skel = tree_flatten(params)
+    leaves = [t.detach().requires_grad_(True) for t in leaves]
+    tree = tree_unflatten(skel, leaves)
+
+    def step():
+        torch.autograd.grad(model.loss_fn(tree, b)[0], leaves)
+
+    def event():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    class Mark(torch.autograd.Function):
+        """The identity; its backward records an event as span[at]."""
+
+        @staticmethod
+        def forward(ctx, x, span, at):
+            ctx.span, ctx.at = span, at
+            return x.view_as(x)
+
+        @staticmethod
+        def backward(ctx, g):
+            ctx.span[ctx.at] = event()
+            return g, None, None
+
+    spans = []
+
+    def timed(kind, fwd):
+        def run(p, h, **kw):
+            span = {"kind": kind}
+            spans.append(span)
+            h = Mark.apply(h, span, "bwd_end")
+            span["fwd_start"] = event()
+            y, state = fwd(p, h, **kw)
+            span["fwd_end"] = event()
+            return Mark.apply(y, span, "bwd_start"), state
+        return run
+
+    bare = time_ms(torch, step, reps=3, warmup=1)
+    layers = {}
+    for ls in cfg.layer_specs():
+        if ls.mixer in tfm._RECURRENT:
+            layers[ls.mixer] = layers.get(ls.mixer, 0) + 1
+    step_ms, ms = [], {k: [] for k in layers}
+    saved = dict(tfm._RECURRENT)
+    try:
+        tfm._RECURRENT.update({k: timed(k, f) for k, f in saved.items()})
+        for rep in range(4):
+            spans.clear()
+            start = event()
+            step()
+            end = event()
+            end.synchronize()
+            check(sorted(s_["kind"] for s_ in spans)
+                  == sorted(k for k, n in layers.items() for _ in range(n))
+                  and all(len(s_) == 5 for s_ in spans),
+                  f"mixer share ({name}): a step's mixer spans "
+                  f"{[sorted(s_) for s_ in spans]} are not one forward and "
+                  f"one backward a recurrent layer {layers}")
+            if rep == 0:
+                continue
+            step_ms.append(start.elapsed_time(end))
+            for k in layers:
+                ms[k].append(sum(
+                    s_["fwd_start"].elapsed_time(s_["fwd_end"])
+                    + s_["bwd_start"].elapsed_time(s_["bwd_end"])
+                    for s_ in spans if s_["kind"] == k))
+    finally:
+        tfm._RECURRENT.update(saved)
+    rec_ = {"step_ms": statistics.median(step_ms), "step_ms_bare": bare}
+    for k, n in layers.items():
+        rec_[k] = {"ms": statistics.median(ms[k]), "layers": n,
+                   "share": statistics.median(
+                       t / st for t, st in zip(ms[k], step_ms))}
+    del leaves, tree
+    print(f"mixer share ({name}, phase 11, {card_line()}): one agent's "
+          f"local step (loss forward and backward, batch {batch}, seq "
+          f"{seq}) {rec_['step_ms']:.3f} ms with the mixers' events, "
+          f"{bare:.3f} ms without; inside it "
+          + "; ".join(f"{k} (forward and backward, {v['layers']} layers) "
+                      f"{v['ms']:.3f} ms = {100 * v['share']:.1f}% of the "
+                      f"step" for k, v in rec_.items()
+                      if k not in ("step_ms", "step_ms_bare")),
+          flush=True)
+    torch.cuda.empty_cache()
+    return rec_
+
+
+def recurrent_depth_check(torch, arch):
+    """Phase 11, a recurrent decoder at its published depth and widths
+    (recurrentgemma-2b: 26 layers, 8 (RG-LRU, RG-LRU, local attention)
+    periods and the 2-layer RG-LRU tail; xlstm-1.3b: 48 layers, 6 periods of
+    7 mLSTM and 1 sLSTM), one model, no panel and no gradient: the weights
+    drawn on the card from seed 0, the training loss at REC_DEPTH_BATCH
+    rows of REC_DEPTH_SEQ tokens finite, then decode_check (the one-step
+    decode of every layer's state against the prefill's scan and chunk
+    loop). A stack with attention is checked in float32 (its flash kernels
+    take no float64) at REC_ATOL + REC_RTOL relative. A stack without it
+    is checked in float64 (float64_model) at REC64_ATOL + REC64_RTOL: the
+    same decode against the same prefill with float32's rounding taken
+    out, which at xlstm-1.3b's 48 layers puts the float32 logits
+    themselves farther than REC_ATOL + REC_RTOL from exact arithmetic; its
+    float32 reading at that tolerance is printed beside. Returns a
+    record."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models import transformer as tfm
+    from repro_torch.utils.tree import tree_leaves, tree_map
+    dev = torch.device("cuda")
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0),
+                               dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    segs = [(seg.name, seg.n_rep, [ls.mixer for ls in seg.specs])
+            for seg in tfm.build_segments(cfg)]
+    print(f"recurrent depth ({card_line()}): {cfg.name} d_model "
+          f"{cfg.d_model}, {cfg.num_layers} layers {segs}, vocab "
+          f"{cfg.vocab_size}: {n_params} parameters, init {t_init:.2f}s",
+          flush=True)
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, size=(REC_DEPTH_BATCH, REC_DEPTH_SEQ + 1)).astype(
+        np.int32)).to(dev)
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        loss, _ = model.loss_fn(params, {"tokens": toks[:, :-1],
+                                         "targets": toks[:, 1:]})
+        loss = float(loss)
+        dt_loss = time.perf_counter() - t0
+    check(math.isfinite(loss),
+          f"recurrent depth ({arch}): the loss {loss} is not finite")
+    t0 = time.perf_counter()
+    what = "recurrent decode"
+    rec_ = {}
+    attention = any(ls.mixer not in tfm._RECURRENT
+                    for ls in cfg.layer_specs())
+    if not attention:
+        steps32 = decode_steps(torch, model, params)
+        rec_["float32_diff"], rec_["float32_share"] = decode_share(
+            torch, f"{arch} full depth, printed", steps32, REC_ATOL,
+            REC_RTOL, what)
+        params = tree_map(lambda t: t.double(), params)
+        torch.cuda.empty_cache()
+    with (contextlib.nullcontext() if attention
+          else float64_model(torch, cfg)):
+        steps = decode_steps(torch, model, params)
+    dtype = torch.float32 if attention else torch.float64
+    check(all(t.dtype == dtype for st in steps for t in st),
+          f"recurrent decode ({arch}): logits {steps[0][0].dtype}, not "
+          f"{dtype}")
+    if not attention:
+        d, sh = tol_share(torch, [(a[1], b[1]) for a, b in
+                                  zip(steps32, steps)], REC_ATOL, REC_RTOL)
+        rec_["float32_prefill_diff"], rec_["float32_prefill_share"] = d, sh
+        print(f"{what} ({arch} full depth, phase 11, {card_line()}): the "
+              f"float32 prefill against the float64 one: max |logit "
+              f"difference| {d!r}, largest share of {REC_ATOL} + {REC_RTOL} "
+              f"relative {sh!r}", flush=True)
+        del steps32
+    atol, rtol = ((REC_ATOL, REC_RTOL) if attention
+                  else (REC64_ATOL, REC64_RTOL))
+    rec_["decode_diff"], rec_["decode_share"] = decode_check(
+        torch, f"{arch} full depth", steps, atol=atol, rtol=rtol, what=what)
+    del steps
+    dt_decode = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    print(f"recurrent depth ({arch}, {card_line()}): loss {loss!r} at "
+          f"{REC_DEPTH_BATCH} x {REC_DEPTH_SEQ} tokens in {dt_loss:.3f}s; "
+          f"the decode check {dt_decode:.3f}s; peak device memory {peak} "
+          f"bytes", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    rec_.update(params=n_params, loss=loss, loss_s=dt_loss,
+                decode_s=dt_decode, peak=peak, init_s=t_init,
+                decode_dtype=str(dtype))
+    return rec_
+
+
 def arch_phase(torch):
     """Phase 11: every cell of ARCH_CELLS (drive_arch), the served ones
-    through the engine (arch_serve), the MLA cell's teacher-forced decode
-    (mla_decode_check), then deepseek-v3 at its published widths
-    (mla_width_check). Returns ({cell: counts}, {cell: record})."""
+    through the engine (arch_serve; the recurrent ones then timed by
+    mixer_share), the MLA cell's teacher-forced decode (decode_check),
+    deepseek-v3 at its published widths (mla_width_check), then the
+    recurrent decoders at their published depth (recurrent_depth_check).
+    Returns ({cell: counts}, {cell: record})."""
     counts, records = {}, {}
     for name in ARCH_CELLS:
         t0 = time.perf_counter()
@@ -2924,9 +3249,12 @@ def arch_phase(torch):
             c, records[name]["serve"] = arch_serve(torch, name, model,
                                                    merged)
             counts[f"serve {name}"] = c
+            if model.cfg.recurrent is not None:
+                records[name]["mixers"] = mixer_share(torch, name, model,
+                                                      merged)
         elif merged is not None:
-            records[name]["mla_decode_diff"] = mla_decode_check(
-                torch, name, model, merged)
+            records[name]["mla_decode_diff"] = decode_check(
+                torch, name, decode_steps(torch, model, merged))[0]
         del merged, model
         torch.cuda.empty_cache()
         print(f"time: phase 11 cell {name} {time.perf_counter() - t0:.1f}s",
@@ -2935,6 +3263,11 @@ def arch_phase(torch):
     records["deepseek width"] = mla_width_check(torch)
     print(f"time: phase 11 deepseek width {time.perf_counter() - t0:.1f}s",
           flush=True)
+    for arch in REC_DEPTH:
+        t0 = time.perf_counter()
+        records[f"{arch} depth"] = recurrent_depth_check(torch, arch)
+        print(f"time: phase 11 {arch} depth "
+              f"{time.perf_counter() - t0:.1f}s", flush=True)
     return counts, records
 
 
@@ -3077,7 +3410,7 @@ def main():
                "launches_arch": {c: n[name]
                                  for c, n in counts["arch"].items()}}
         for extra in ("sq_rel_err", "max_abs_err_bf16", "supplied", "hd96",
-                      "hd256"):
+                      "hd256", "hd256_h10"):
             if extra in r:
                 row[extra] = r[extra]
         if name in variants:

@@ -1,9 +1,9 @@
 """Architecture registry. ``get_config(arch_id)`` returns the full pool config.
 
-The port registers the reference registry's attention decoders (the dense
-family and the MoE family, MLA and MTP included); the recurrent, prefix
-and encoder-decoder families (qwen2-vl, seamless-m4t, xlstm,
-recurrentgemma) are not registered.
+The port registers the reference registry's decoders: the attention
+decoders (the dense family and the MoE family, MLA and MTP included) and
+the recurrent ones (xlstm-1.3b, ssm; recurrentgemma-2b, hybrid). The prefix
+and encoder-decoder families (qwen2-vl, seamless-m4t) are not registered.
 """
 from __future__ import annotations
 
@@ -38,7 +38,8 @@ def list_archs():
 def _load_all():
     from repro_torch.configs import (arctic_480b,  # noqa: F401
                                      deepseek_v3_671b, gemma_2b, olmo_1b,
-                                     phi3_mini_3_8b, yi_34b)
+                                     phi3_mini_3_8b, recurrentgemma_2b,
+                                     xlstm_1_3b, yi_34b)
 
 
 __all__ = ["get_config", "list_archs", "register", "ModelConfig", "ShapeConfig",

@@ -1,5 +1,5 @@
-"""Public model API: build_model(cfg) -> Model (the attention decoders,
-dense and MoE: training loss, prefill and decode).
+"""Public model API: build_model(cfg) -> Model (the decoders of the dense,
+MoE, ssm and hybrid families: training loss, prefill and decode).
 
 Counterpart of ``repro/models/model.py``. Parameters are a nested dict of
 tensors with the reference's keys and shapes::
@@ -20,8 +20,9 @@ only.
 Serving: ``prefill`` runs a prompt and returns the last position's logits
 with fresh caches sized for the whole decode horizon; ``decode_step`` feeds
 one token a row, each row at its own absolute position, and writes the
-caches in place; ``init_cache`` allocates empty ones (pos -1). Logits are
-float32 over the padded vocabulary.
+caches in place; ``init_cache`` allocates empty ones (attention slots at
+pos -1, recurrent states at zero with the mLSTM and sLSTM stabiliser m at
+-1e30). Logits are float32 over the padded vocabulary.
 """
 from __future__ import annotations
 
@@ -57,12 +58,12 @@ class Model:
 
 
 def build_model(cfg: ModelConfig) -> Model:
-    if (cfg.family not in ("dense", "moe") or cfg.encoder_layers
-            or cfg.mm_prefix):
+    if (cfg.family not in ("dense", "moe", "ssm", "hybrid")
+            or cfg.encoder_layers or cfg.mm_prefix):
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family (multimodal prefix, "
-            "encoder-decoder or recurrent mixers) is not ported; the port "
-            "runs the attention decoders (dense and moe)")
+            f"{cfg.name}: the {cfg.family} family (multimodal prefix or "
+            "encoder-decoder) is not ported; the port runs the decoders "
+            "(dense, moe, ssm and hybrid)")
     dt = _dtype(cfg.param_dtype)
     V = cfg.padded_vocab
 
@@ -170,7 +171,7 @@ def build_model(cfg: ModelConfig) -> Model:
     def init_cache(B, seq_len, dtype=None, enc_len: int = 0, device=None):
         """Empty caches for B rows of ``seq_len`` positions on ``device``
         (default: the card). ``enc_len`` is accepted for signature parity:
-        the attention decoders have no cross-attention cache."""
+        the port's decoders have no cross-attention cache."""
         return tfm.init_stack_cache(cfg, B, seq_len,
                                     device=resolve_device(device),
                                     dtype=dtype or dt)

@@ -1,15 +1,19 @@
-"""Decoder stack of the attention decoders (counterpart of
-``repro/models/transformer.py``): GQA or MLA mixers, gated-MLP or MoE
-FFNs, and deepseek-v3's dense ``front`` segment.
+"""Decoder stack (counterpart of ``repro/models/transformer.py``): GQA,
+MLA or recurrent (RG-LRU, mLSTM, sLSTM) mixers, gated-MLP, MoE or no FFN
+(``"none"``: the block is norm + mixer + residual), and deepseek-v3's
+dense ``front`` segment.
 
-Layers are grouped into segments exactly as in the reference; each
-period position's parameters are stacked along a leading ``n_rep`` axis.
-The reference scans over that axis (with remat); here a Python loop indexes
-it, which changes no number. Caches (prefill, decode) have the reference's
-tree, ``{seg.name: {"p{i}": {"mixer": {"k", "v", "pos"}}}}`` (MLA:
-``{"ckv", "krope", "pos"}``), each leaf
+Layers are grouped into segments exactly as in the reference (e.g.
+recurrentgemma-2b: (rglru, rglru, local attention) x 8 and a (rglru,
+rglru) ``tail``); each period position's parameters are stacked along a
+leading ``n_rep`` axis. The reference scans over that axis (with remat);
+here a Python loop indexes it, which changes no number. Caches (prefill,
+decode) have the reference's tree, ``{seg.name: {"p{i}": {"mixer":
+...}}}`` with the attention caches ``{"k", "v", "pos"}`` (MLA: ``{"ckv",
+"krope", "pos"}``) and the recurrent states (RG-LRU ``{"h", "conv"}``,
+mLSTM ``{"C", "n", "m"}``, sLSTM ``{"c", "n", "h", "m"}``), each leaf
 stacked on the layer axis first, so a cache row (a batch entry, a serving
-slot) is axis 1.
+slot) is axis 1. Decode writes every layer's row of the caches in place.
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ import torch
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import recurrent as rec
 from repro_torch.models.layers import (activation, apply_mlp, apply_norm,
                                        init_mlp, init_norm)
 
@@ -55,27 +60,31 @@ def build_segments(cfg: ModelConfig):
     return segments
 
 
-_MIXERS = ("gqa", "mla")
-_FFNS = ("swiglu", "geglu", "moe")
+_MIXER_INIT = {"gqa": attn.init_gqa, "mla": attn.init_mla,
+               "rglru": rec.init_rglru, "mlstm": rec.init_mlstm,
+               "slstm": rec.init_slstm}
+_RECURRENT = {"rglru": rec.rglru_forward, "mlstm": rec.mlstm_forward,
+              "slstm": rec.slstm_forward}
+_FFNS = ("swiglu", "geglu", "moe", "none")
 
 
 def _check(lspec: LayerSpec):
-    if lspec.mixer not in _MIXERS or lspec.ffn not in _FFNS:
+    if lspec.mixer not in _MIXER_INIT or lspec.ffn not in _FFNS:
         raise NotImplementedError(
-            f"layer {lspec}: the port runs the attention mixers {_MIXERS} "
-            f"and the FFNs {_FFNS}; the recurrent mixers (rglru, mlstm, "
-            "slstm) are not ported")
+            f"layer {lspec}: the port runs the mixers {tuple(_MIXER_INIT)} "
+            f"and the FFNs {_FFNS}")
 
 
 def init_block(generator, cfg: ModelConfig, lspec: LayerSpec, *, device,
                d_ff_override: Optional[int] = None, dtype=torch.float32):
     _check(lspec)
-    init_mixer = attn.init_gqa if lspec.mixer == "gqa" else attn.init_mla
     p = {"norm1": init_norm(cfg.norm, cfg.d_model, device=device,
                             dtype=dtype),
-         "mixer": init_mixer(generator, cfg, device=device, dtype=dtype),
-         "norm2": init_norm(cfg.norm, cfg.d_model, device=device,
-                            dtype=dtype)}
+         "mixer": _MIXER_INIT[lspec.mixer](generator, cfg, device=device,
+                                           dtype=dtype)}
+    if lspec.ffn == "none":
+        return p
+    p["norm2"] = init_norm(cfg.norm, cfg.d_model, device=device, dtype=dtype)
     if lspec.ffn == "moe":
         p["ffn"] = moe_mod.init_moe(generator, cfg, device=device,
                                     dtype=dtype)
@@ -88,26 +97,40 @@ def init_block(generator, cfg: ModelConfig, lspec: LayerSpec, *, device,
 def apply_block(params, x, *, cfg: ModelConfig, lspec: LayerSpec, positions,
                 mode: str = "train", cache=None, causal=True,
                 cache_max_len=None):
-    """One pre-norm block: x + mixer(norm(x)), then x + ffn(norm(x)).
-    Returns (x, cache, aux): cache None in train mode, else {"mixer": the
-    attention cache}; aux the MoE load-balance loss (weighted; 0 without
-    a MoE FFN). A MoE FFN runs dropless outside training."""
+    """One pre-norm block: x + mixer(norm(x)), then (unless the FFN is
+    "none") x + ffn(norm(x)). Returns (x, cache, aux): cache None in train
+    mode, else {"mixer": the attention cache or recurrent state}; aux the
+    MoE load-balance loss (weighted; 0 without a MoE FFN). A MoE FFN runs
+    dropless outside training. In decode the mixer's cache is written in
+    place (a recurrent state copied into the given tensors)."""
     _check(lspec)
     h = apply_norm(params["norm1"], x, cfg.norm)
-    fwd = attn.gqa_forward if lspec.mixer == "gqa" else attn.mla_forward
-    y, new_cache = fwd(params["mixer"], h, cfg=cfg, lspec=lspec,
-                       positions=positions, mode=mode, cache=cache,
-                       causal=causal, cache_max_len=cache_max_len)
-    x = x + y
-    h2 = apply_norm(params["norm2"], x, cfg.norm)
-    if lspec.ffn == "moe":
-        y2, aux = moe_mod.moe_forward(params["ffn"], h2, cfg=cfg,
-                                      act_name=cfg.act,
-                                      dropless=mode != "train")
+    if lspec.mixer in _RECURRENT:
+        y, new_cache = _RECURRENT[lspec.mixer](params["mixer"], h, cfg=cfg,
+                                               mode=mode, state=cache)
+        if mode == "decode":
+            # the cache's tensors are views of the stacked serving cache:
+            # the new state is copied into them, so the slots advance
+            for k, v in new_cache.items():
+                cache[k].copy_(v)
+            new_cache = cache
     else:
-        y2 = apply_mlp(params["ffn"], h2, activation(cfg.act), gated=True)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    x = x + y2
+        fwd = attn.gqa_forward if lspec.mixer == "gqa" else attn.mla_forward
+        y, new_cache = fwd(params["mixer"], h, cfg=cfg, lspec=lspec,
+                           positions=positions, mode=mode, cache=cache,
+                           causal=causal, cache_max_len=cache_max_len)
+    x = x + y
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if lspec.ffn != "none":
+        h2 = apply_norm(params["norm2"], x, cfg.norm)
+        if lspec.ffn == "moe":
+            y2, aux = moe_mod.moe_forward(params["ffn"], h2, cfg=cfg,
+                                          act_name=cfg.act,
+                                          dropless=mode != "train")
+        else:
+            y2 = apply_mlp(params["ffn"], h2, activation(cfg.act),
+                           gated=True)
+        x = x + y2
     if mode == "train":
         return x, None, aux
     return x, {"mixer": new_cache}, aux
@@ -116,10 +139,17 @@ def apply_block(params, x, *, cfg: ModelConfig, lspec: LayerSpec, positions,
 def init_block_cache(cfg: ModelConfig, lspec: LayerSpec, B: int,
                      seq_len: int, *, device, dtype=torch.float32):
     _check(lspec)
-    init = (attn.init_gqa_cache if lspec.mixer == "gqa"
-            else attn.init_mla_cache)
-    return {"mixer": init(cfg, lspec, B, seq_len, device=device,
-                          dtype=dtype)}
+    if lspec.mixer == "rglru":
+        c = rec.init_rglru_state(cfg, B, device=device, dtype=dtype)
+    elif lspec.mixer == "mlstm":
+        c = rec.init_mlstm_state(cfg, B, device=device)
+    elif lspec.mixer == "slstm":
+        c = rec.init_slstm_state(cfg, B, device=device)
+    else:
+        init = (attn.init_gqa_cache if lspec.mixer == "gqa"
+                else attn.init_mla_cache)
+        c = init(cfg, lspec, B, seq_len, device=device, dtype=dtype)
+    return {"mixer": c}
 
 
 def _stack(trees):

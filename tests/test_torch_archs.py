@@ -1,10 +1,16 @@
-"""The registry's attention decoders on the port (gemma-2b, gemma-2b-sw,
-phi3-mini-3.8b, yi-34b, arctic-480b, deepseek-v3-671b) against the JAX
-package, each at its ``reduced()`` size (d_model 256, 2 layers, vocab 512,
-4 experts) with the reference's init handed over:
+"""The registry's decoders on the port against the JAX package: the
+attention decoders (gemma-2b, gemma-2b-sw, phi3-mini-3.8b, yi-34b,
+arctic-480b, deepseek-v3-671b) each at its ``reduced()`` size (d_model
+256, 2 layers, vocab 512, 4 experts), and the recurrent ones at reduced
+sizes that hold every mixer (``reduced()``'s 2 layers would drop
+recurrentgemma's local attention and xlstm's sLSTM): recurrentgemma-2b at
+``reduced(layers=3)`` (one RG-LRU, RG-LRU, local attention period; window
+64) and ``reduced(layers=5)`` (that period and the 2-layer RG-LRU
+``tail``), xlstm-1.3b at ``reduced()`` with the period (mLSTM, sLSTM);
+the reference's init handed over:
 
 - the port's configs pinned to the reference's field by field, the
-  registry's other four families refused by name;
+  registry's other two families (vlm, audio) refused by name;
 - the four cases of ``tests/test_archs.py`` (a forward and one
   decentralized step, the parameter tree, the cache tree, teacher-forced
   decode against the whole-sequence prefill);
@@ -12,8 +18,9 @@ package, each at its ``reduced()`` size (d_model 256, 2 layers, vocab 512,
   and decode logits at each step, and the panel segment
   (``make_panel_segment``) over 3 rounds (loss, grad norm and Xi a round,
   the merged and local evals);
-- the serving engine over the MoE and MLA caches, its tokens equal to
-  each request generated alone.
+- the serving engine over the MoE, MLA and recurrent caches (the hybrid's
+  prompts past its window: the ring wraps), its tokens equal to each
+  request generated alone.
 
 Tolerances: loss, Xi and evals at rtol 1e-5 (float32 products summed in
 other orders), the segment's grad norms at 1e-4; gradients at atol 1e-5;
@@ -51,13 +58,32 @@ from repro_torch.weights import from_reference_params
 
 NEW = ["gemma-2b", "gemma-2b-sw", "phi3-mini-3.8b", "yi-34b", "arctic-480b",
        "deepseek-v3-671b"]
-UNPORTED = {"qwen2-vl-72b": "vlm", "seamless-m4t-medium": "audio",
-            "xlstm-1.3b": "ssm", "recurrentgemma-2b": "hybrid"}
+RECURRENT = ["recurrentgemma-2b", "xlstm-1.3b"]
+# the recurrent test configs: case -> (arch, layers of reduced())
+REC_CASES = {"recurrentgemma-2b": ("recurrentgemma-2b", 3),
+             "recurrentgemma-2b-tail": ("recurrentgemma-2b", 5),
+             "xlstm-1.3b": ("xlstm-1.3b", None)}
+UNPORTED = {"qwen2-vl-72b": "vlm", "seamless-m4t-medium": "audio"}
 ATOL, RTOL = 2e-5, 1e-5
 
 
-def _pair(arch):
-    return ref_get_config(arch).reduced(), get_config(arch).reduced()
+def _reduced(case, get):
+    """The test config of ``case`` from a package's ``get_config``: an
+    attention decoder's ``reduced()``; a recurrent case's (see the module
+    docstring)."""
+    if case not in REC_CASES:
+        return get(case).reduced()
+    arch, layers = REC_CASES[case]
+    cfg = get(arch).reduced(layers=layers)
+    if arch == "xlstm-1.3b":
+        m = cfg.layer_period[0]
+        cfg = cfg.replace(layer_period=(m, dataclasses.replace(
+            m, mixer="slstm")))
+    return cfg
+
+
+def _pair(case):
+    return _reduced(case, ref_get_config), _reduced(case, get_config)
 
 
 def _batch(vocab, b=2, seq=32, seed=0, lead=()):
@@ -91,11 +117,11 @@ def _port_cfg(ref_cfg):
 
 
 def test_registry_lists_the_attention_decoders():
-    assert list_archs() == sorted(NEW + ["olmo-1b"])
+    assert list_archs() == sorted(NEW + RECURRENT + ["olmo-1b"])
     assert set(list_archs()) | set(UNPORTED) == set(ref_configs.list_archs())
 
 
-@pytest.mark.parametrize("arch", NEW + ["olmo-1b"])
+@pytest.mark.parametrize("arch", NEW + RECURRENT + ["olmo-1b"])
 def test_config_pinned_to_reference(arch):
     ref, ours = ref_get_config(arch), get_config(arch)
     assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
@@ -116,10 +142,11 @@ def test_unported_families_refused_by_name(arch):
 # ------------------------------------------- tests/test_archs.py's cases
 
 
-@pytest.mark.parametrize("arch", NEW)
+@pytest.mark.parametrize("arch", NEW + list(REC_CASES))
 def test_smoke_forward_and_train_step(arch):
-    cfg = get_config(arch).reduced()
-    assert cfg.d_model <= 512 and cfg.num_layers <= 2
+    cfg = _reduced(arch, get_config)
+    assert cfg.d_model <= 512 and cfg.num_layers <= (
+        2 if arch in NEW else 5)
     if cfg.moe:
         assert cfg.moe.num_experts <= 4
     model = build_model(cfg)
@@ -144,7 +171,7 @@ def test_smoke_forward_and_train_step(arch):
     assert float(consensus_distance(new_state["params"])) < 1e-4
 
 
-@pytest.mark.parametrize("arch", NEW)
+@pytest.mark.parametrize("arch", NEW + list(REC_CASES))
 def test_param_tree_matches_reference(arch):
     ref_cfg, cfg = _pair(arch)
     shapes = jax.eval_shape(ref_build_model(ref_cfg).init_params,
@@ -161,10 +188,12 @@ def test_param_tree_matches_reference(arch):
     assert ("['head']['w']" in keys) == (not cfg.tie_embeddings)
 
 
-@pytest.mark.parametrize("arch", NEW)
+@pytest.mark.parametrize("arch", NEW + list(REC_CASES))
 def test_cache_tree_matches_reference(arch):
+    """The empty cache's keys, shapes and values (attention slots at pos
+    -1, recurrent states zero with mLSTM's and sLSTM's m at -1e30)."""
     ref_cfg, cfg = _pair(arch)
-    ref_c = jax.eval_shape(lambda: ref_build_model(ref_cfg).init_cache(2, 16))
+    ref_c = ref_build_model(ref_cfg).init_cache(2, 16)
     ours = build_model(cfg).init_cache(2, 16, device="cpu")
     ref_leaves = jax.tree_util.tree_flatten_with_path(ref_c)[0]
     leaves = tree_flatten(ours)[0]
@@ -177,12 +206,13 @@ def test_cache_tree_matches_reference(arch):
     for (p, x), t in zip(ref_leaves, leaves):
         if jax.tree_util.keystr(p).endswith("['pos']"):
             assert bool(torch.all(t == -1)) and t.dtype == torch.int32
+        np.testing.assert_array_equal(t.numpy(), np.asarray(x))
 
 
-@pytest.mark.parametrize("arch", NEW)
+@pytest.mark.parametrize("arch", NEW + list(REC_CASES))
 def test_prefill_decode_matches_full_forward(arch):
     """Teacher-forced decode reproduces the whole sequence's prefill."""
-    cfg = get_config(arch).reduced()
+    cfg = _reduced(arch, get_config)
     model = build_model(cfg)
     params = model.init_params(torch.Generator().manual_seed(1), "cpu")
     B, S, T = 2, 24, 8
@@ -200,7 +230,7 @@ def test_prefill_decode_matches_full_forward(arch):
 # ------------------------------------------------- against the reference
 
 
-@pytest.mark.parametrize("arch", NEW)
+@pytest.mark.parametrize("arch", NEW + list(REC_CASES))
 def test_loss_and_grads_match_reference(arch):
     ref_cfg, cfg = _pair(arch)
     ref_model = ref_build_model(ref_cfg)
@@ -232,11 +262,13 @@ def test_loss_and_grads_match_reference(arch):
 
 
 @pytest.mark.parametrize("arch", ["gemma-2b-sw", "yi-34b", "arctic-480b",
-                                  "deepseek-v3-671b"])
+                                  "deepseek-v3-671b",
+                                  "recurrentgemma-2b-tail", "xlstm-1.3b"])
 def test_prefill_and_decode_logits_match_reference(arch):
-    """A 70-token prompt (past gemma-2b-sw's reduced window of 64: the ring
-    wraps) and 8 decode steps, rows at the same depth; logits at every
-    step and the prefill caches against the reference's."""
+    """A 70-token prompt (past gemma-2b-sw's and recurrentgemma's reduced
+    window of 64: the ring wraps) and 8 decode steps, rows at the same
+    depth; logits at every step and the prefill caches (the recurrent
+    states too) against the reference's."""
     ref_cfg, cfg = _pair(arch)
     ref_model, model = ref_build_model(ref_cfg), build_model(cfg)
     ref_params = ref_model.init_params(jax.random.PRNGKey(2))
@@ -251,10 +283,15 @@ def test_prefill_and_decode_logits_match_reference(arch):
                                atol=ATOL, rtol=RTOL)
     for (p, rc), c in zip(jax.tree_util.tree_flatten_with_path(r_caches)[0],
                           tree_flatten(caches)[0]):
-        if jax.tree_util.keystr(p).endswith("['pos']"):
+        key = jax.tree_util.keystr(p)
+        if key.endswith("['pos']"):
             np.testing.assert_array_equal(c.numpy(), np.asarray(rc))
-        else:
+        elif key.rsplit("[", 1)[-1] in ("'k']", "'v']", "'ckv']",
+                                        "'krope']"):
             np.testing.assert_allclose(c.numpy(), np.asarray(rc), atol=1e-5)
+        else:  # a recurrent state (up to ~10 in xlstm's sLSTM c and n)
+            np.testing.assert_allclose(c.numpy(), np.asarray(rc), atol=ATOL,
+                                       rtol=RTOL, err_msg=key)
     dec = jax.jit(ref_model.decode_step)
     for i in range(T):
         tok = toks[:, S + i:S + i + 1]
@@ -267,18 +304,30 @@ def test_prefill_and_decode_logits_match_reference(arch):
 
 
 ROUNDS, M, H, B, SEQ = 3, 4, 2, 4, 32
+# xlstm's segment tolerances (the others: grad norm 1e-4, evals 1e-5).
+# Its trajectory drifts from the reference's by more than rounding: the
+# sLSTM's output is invariant to a shift of its input-gate bias, so that
+# bias's exact gradient is 0 and the computed one is rounding, which
+# AdamW's first steps turn into updates of about lr of either sign; and
+# the mLSTM's gradient is ill-conditioned in float32
+# (tests/test_torch_recurrent_launch.py: test_grad_norm_conditioning).
+# This test read, in 4 runs, the loss up to 5.45e-6, the grad norm
+# 1.21e-4, the evals 1.003e-5 relative
+SEGMENT_RTOL = {"xlstm-1.3b": {"grad_norm": 5e-4, "eval": 5e-5}}
 
 
 @pytest.mark.parametrize("arch", ["phi3-mini-3.8b", "arctic-480b",
-                                  "deepseek-v3-671b"])
+                                  "deepseek-v3-671b", "recurrentgemma-2b",
+                                  "xlstm-1.3b"])
 def test_segment_matches_reference(arch):
     """The panel segment (``make_panel_segment``), 3 rounds of the
     final-merge schedule (the last is the merge), from one handed-over
     init, one batch stream and one W stream: loss and Xi a round and the
     merged and local evals at rtol 1e-5, the grad norm at
     ``tests/test_torch_segment.py``'s 1e-4 (arctic's last round reads
-    1.2e-5 relative: a norm over every gradient after four AdamW steps);
-    after the merge Xi 0 and local == merged."""
+    1.2e-5 relative: a norm over every gradient after four AdamW steps;
+    xlstm's grad norm and evals at SEGMENT_RTOL); after the merge Xi 0 and
+    local == merged."""
     ref_cfg, cfg = _pair(arch)
     ref_model, model = ref_build_model(ref_cfg), build_model(cfg)
     ref_opt = ref_make_optimizer("adamw", 3e-3, weight_decay=5e-4,
@@ -327,32 +376,45 @@ def test_segment_matches_reference(arch):
         np.testing.assert_allclose(mets[k].numpy(), np.asarray(ref_mets[k]),
                                    rtol=1e-5, atol=1e-7, err_msg=k)
     np.testing.assert_allclose(mets["grad_norm"].numpy(),
-                               np.asarray(ref_mets["grad_norm"]), rtol=1e-4)
-    np.testing.assert_allclose(merged, ref_merged, rtol=1e-5)
-    np.testing.assert_allclose(local, ref_local, rtol=1e-5)
+                               np.asarray(ref_mets["grad_norm"]),
+                               rtol=SEGMENT_RTOL.get(arch, {}).get(
+                                   "grad_norm", 1e-4))
+    eval_rtol = SEGMENT_RTOL.get(arch, {}).get("eval", 1e-5)
+    np.testing.assert_allclose(merged, ref_merged, rtol=eval_rtol)
+    np.testing.assert_allclose(local, ref_local, rtol=eval_rtol)
     assert float(mets["consensus"][-1]) == 0.0
     assert abs(local - merged) <= 1e-6 * abs(merged)
 
 
-@pytest.mark.parametrize("arch", ["arctic-480b", "deepseek-v3-671b"])
+# (prompt lengths, max_len) of the engine test: the recurrent cases'
+# prompts pass the hybrid's reduced window of 64, so its ring wraps
+ENGINE_PROMPTS = {"arctic-480b": ((20, 13), 32),
+                  "deepseek-v3-671b": ((20, 13), 32),
+                  "recurrentgemma-2b": ((70, 81), 96),
+                  "xlstm-1.3b": ((70, 81), 96)}
+
+
+@pytest.mark.parametrize("arch", sorted(ENGINE_PROMPTS))
 def test_engine_matches_generate_alone(arch):
-    """The slotted engine over the MoE (dropless) and MLA caches: prompts
-    of two lengths padded into 4 slots of one cache (MLA's rank-3 leaves
-    through ``insert``), every request's greedy tokens equal to it
-    generated alone."""
+    """The slotted engine over the MoE (dropless), MLA and recurrent caches:
+    prompts of two lengths padded into 4 slots of one cache (MLA's rank-3
+    leaves and the recurrent states through ``insert``, the states of
+    retired slots overwritten by the next admission), every request's
+    greedy tokens equal to it generated alone."""
     from repro_torch.serving import Request, ServingEngine, generate
-    cfg = get_config(arch).reduced()
+    cfg = _reduced(arch, get_config)
     model = build_model(cfg)
     params = model.init_params(torch.Generator().manual_seed(5), "cpu")
     rng = np.random.default_rng(6)
+    lens, max_len = ENGINE_PROMPTS[arch]
     reqs = [Request(rid=i, tokens=rng.integers(0, cfg.vocab_size,
-                                               [20, 13][i % 2]).astype(
+                                               lens[i % 2]).astype(
                                                    np.int32), max_new=6)
             for i in range(6)]
-    eng = ServingEngine(model, params, max_concurrency=4, max_len=32)
+    eng = ServingEngine(model, params, max_concurrency=4, max_len=max_len)
     out = eng.serve(reqs)
     for r in reqs:
         alone = generate(model, params,
                          {"tokens": torch.from_numpy(r.tokens[None])}, 6,
-                         max_len=32)[0]
+                         max_len=max_len)[0]
         assert (np.asarray(alone) == np.asarray(out[r.rid])).all(), r.rid

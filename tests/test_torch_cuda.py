@@ -40,6 +40,12 @@ within 1e-4 of the CPU's from one init over two rounds (relative, with
 scalars bit for bit with the columns on and off; a CUDA generator's state
 restored through the Checkpointer gives back its initial seed and its next
 draws bit for bit.
+The recurrent decoders: each mixer's (RG-LRU, mLSTM, sLSTM) train-mode
+forward and backward on the card within 1e-4 of the CPU's (gradients
+relative to max(1, their largest entry)); decode writing the recurrent
+states through the stacked cache's views (the storage kept), the states
+and logits within 1e-4 of a whole-sequence prefill; a merged hybrid model
+trained on the card and served, its tokens equal to each request alone.
 """
 import numpy as np
 import pytest
@@ -1169,3 +1175,148 @@ def test_cuda_generator_state_through_checkpointer(cuda, tmp_path):
     assert step == 1 and other.initial_seed() == 1234
     assert torch.equal(torch.rand((4, 777), generator=other, device=cuda),
                        want)
+
+
+# --------------------------------------------------- the recurrent decoders
+
+
+def _recurrent_cfg(arch):
+    """The reduced recurrent decoders of tests/test_torch_archs.py:
+    recurrentgemma-2b with its local attention layer (window 64), xlstm-1.3b
+    with a (mLSTM, sLSTM) period."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    if arch == "recurrentgemma-2b":
+        return get_config(arch).reduced(layers=3)
+    cfg = get_config(arch).reduced()
+    m = cfg.layer_period[0]
+    return cfg.replace(layer_period=(m, dataclasses.replace(m,
+                                                            mixer="slstm")))
+
+
+@pytest.mark.parametrize("kind", ["rglru", "mlstm", "slstm"])
+def test_recurrent_mixer_on_card_matches_cpu(cuda, kind):
+    """Each mixer's train-mode forward and backward (every parameter and
+    the input, of sum(y * w)) on the card against the same code on the
+    CPU: y at 1e-4 (relative and absolute), each gradient at 1e-4 of
+    max(1, its largest |entry|) (float32 products in other orders; the
+    RG-LRU scan at S 37, not a power of two; the mLSTM's trailing partial
+    chunk)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import recurrent as rec
+    from repro_torch.utils.tree import tree_flatten, tree_unflatten
+    arch = "recurrentgemma-2b" if kind == "rglru" else "xlstm-1.3b"
+    cfg = get_config(arch).reduced()
+    params = getattr(rec, f"init_{kind}")(torch.Generator().manual_seed(0),
+                                          cfg, device="cpu")
+    fwd = getattr(rec, f"{kind}_forward")
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.standard_normal((2, 37, cfg.d_model)).astype(
+        np.float32))
+    w = torch.from_numpy(rng.standard_normal((2, 37, cfg.d_model)).astype(
+        np.float32))
+    out = []
+    for dev in ("cpu", cuda):
+        leaves, skel = tree_flatten(params)
+        leaves = [t.to(dev).requires_grad_(True) for t in leaves]
+        xd = x.to(dev).requires_grad_(True)
+        y, _ = fwd(tree_unflatten(skel, leaves), xd, cfg=cfg, mode="train")
+        grads = torch.autograd.grad(torch.sum(y * w.to(dev)), leaves + [xd])
+        out.append((y.detach().cpu(), [g.cpu() for g in grads]))
+    (y_c, g_c), (y_g, g_g) = out
+    torch.testing.assert_close(y_g, y_c, rtol=1e-4, atol=1e-4)
+    for a, b in zip(g_g, g_c):
+        assert bool(torch.all(torch.isfinite(a)))
+        scale = max(1.0, float(b.abs().max()))
+        torch.testing.assert_close(a / scale, b / scale, rtol=0.0, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "xlstm-1.3b"])
+def test_recurrent_decode_writes_the_stacked_state(cuda, arch):
+    """On the card, decode writes each layer's recurrent state through the
+    views of the stacked cache: every leaf keeps its storage, and after a
+    prefill of 70 tokens (past the window of 64) and 3 decode steps the
+    states and the last logits equal a prefill of the 73 tokens' at 1e-4
+    (the scan against the one-step updates, float32)."""
+    from repro_torch.models import build_model
+    from repro_torch.utils.tree import tree_flatten
+    cfg = _recurrent_cfg(arch)
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator(device=cuda).manual_seed(0),
+                               cuda)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, 73)).astype(np.int32)).to(cuda)
+    with torch.no_grad():
+        _, caches = model.prefill(params, {"tokens": toks[:, :70]},
+                                  max_len=80)
+        leaves = tree_flatten(caches)[0]
+        ptrs = [t.data_ptr() for t in leaves]
+        before = [t.clone() for t in leaves]
+        for i in range(70, 73):
+            logits, out = model.decode_step(params, caches,
+                                            toks[:, i:i + 1], i)
+            assert out is caches
+        ref_logits, ref = model.prefill(params, {"tokens": toks},
+                                        max_len=80)
+    after = tree_flatten(caches)[0]
+    assert [t.data_ptr() for t in after] == ptrs
+    paths = tree_flatten(_key_tree(caches))[0]
+    states = [i for i, p in enumerate(paths)
+              if p.rsplit("/", 1)[-1] not in ("k", "v", "pos")]
+    assert states
+    for i in states:
+        assert not torch.equal(after[i], before[i]), paths[i]
+        torch.testing.assert_close(after[i], tree_flatten(ref)[0][i],
+                                   rtol=1e-4, atol=1e-4, msg=paths[i])
+    torch.testing.assert_close(logits, ref_logits, rtol=1e-4, atol=1e-4)
+
+
+def _key_tree(tree, prefix=""):
+    """The tree with each leaf replaced by its key path."""
+    if isinstance(tree, dict):
+        return {k: _key_tree(v, f"{prefix}/{k}") for k, v in tree.items()}
+    return prefix
+
+
+def test_merged_hybrid_served_on_card(cuda):
+    """The reduced recurrentgemma-2b (RG-LRU, RG-LRU, local attention
+    with window 64) trained on the card for 2 rounds of 2 agents (the
+    last the final merge), merged, and served by the engine (3 slots,
+    prompts of 70 and 81 tokens: the window's ring wraps): the rows
+    identical after the merge, every request's greedy tokens equal to it
+    generated alone, no id outside the vocabulary."""
+    from repro_torch.core import merge as merge_mod
+    from repro_torch.launch.train import sample_segment_batches
+    from repro_torch.models import build_model
+    from repro_torch.optim import make_optimizer
+    from repro_torch.serving import Request, ServingEngine, generate
+    cfg = _recurrent_cfg("recurrentgemma-2b")
+    model = build_model(cfg)
+    m, rounds, H = 2, 2, 2
+    opt = make_optimizer("adamw", 3e-3, total_steps=rounds * H)
+    state, spec = dsgd.init_panel_state(
+        model.init_params, opt, m, torch.Generator(device=cuda).manual_seed(0),
+        device=cuda)
+    lm = SyntheticLM(vocab=cfg.vocab_size, seed=0)
+    batches = sample_segment_batches(
+        lm, lm.domain_mixtures(m, 0.1, seed=1), rounds, H, 2, 32,
+        np.random.default_rng(2))
+    Ws = np.stack([np.eye(m), np.full((m, m), 1.0 / m)]).astype(np.float32)
+    seg = dsgd.make_panel_segment(model.loss_fn, opt, H, spec)
+    state, _ = seg(state, batches, Ws)
+    x = state["panel"]["float32"]
+    assert torch.equal(x, x[:1].expand_as(x))
+    merged = merge_mod.merged_panel_tree(state["panel"], spec)
+    rng = np.random.default_rng(3)
+    reqs = [Request(rid=i, tokens=rng.integers(0, cfg.vocab_size,
+                                               [70, 81][i % 2]).astype(
+                                                   np.int32), max_new=8)
+            for i in range(5)]
+    out = ServingEngine(model, merged, max_concurrency=3,
+                        max_len=96).serve(reqs)
+    for r in reqs:
+        assert ((out[r.rid] >= 0) & (out[r.rid] < cfg.vocab_size)).all()
+        alone = generate(model, merged, {"tokens": torch.from_numpy(
+            r.tokens[None]).to(cuda)}, r.max_new, max_len=96)[0]
+        np.testing.assert_array_equal(out[r.rid], alone)
