@@ -24,10 +24,15 @@ Phases, each printing its lines:
      bound of the kernels' split-TF32 tensor-core route, and the float32
      CUDA cores' figure in the text; each kernel's registers, local (spill)
      bytes and blocks per SM, checked for no spills and 8 warps an SM);
-     the same at head dims 96 and 256 (odd sizes, windows, GQA/MQA,
-     bfloat16; resources checked for no spills and 8 warps an SM at hd
-     96, 4 at hd 256; timed at FLASH_TIMED's shapes beside their bound and
-     scaled_dot_product_attention with enable_gqa); the
+     the same at head dims 96 and 256 (odd sizes, windows, tails, GQA/MQA
+     with 8 and 10 query heads on 1, no causal mask, one position,
+     bfloat16; resources checked for no spills and 8 warps an SM at hd 96
+     and for the hd-256 backward, 4 for the hd-256 forward; three
+     backward runs at each hd-256 MQA shape bit for bit; timed at
+     FLASH_TIMED's shapes beside their bound and
+     scaled_dot_product_attention with enable_gqa, the backward's own
+     kernels, row sums, dK/dV, its reduction and dQ, from a torch.profiler
+     trace); the
      on-chip-seeded int8 quantize: its Philox4x32-10 against the toolkit's
      curand_Philox4x32_10 and the plain twin, the kernel bit for bit against
      its plain twin at odd widths and at the main shape, the mean of q s - x
@@ -158,7 +163,8 @@ Phases, each printing its lines:
      farther than that from exact arithmetic, in float64 at REC64_ATOL +
      REC64_RTOL, its float32 reading printed beside);
 then the script's total time, a JSON line of per-kernel numbers (the
-flash rows with their hd96, hd256 and hd256_h10 timings; every row with its phase-11
+flash rows with their hd96, hd256 and hd256_h10 timings and the
+backward's own kernels' times, kernels_ms; every row with its phase-11
 launches by cell, ``launches_arch``), the
 card's line again and, last, the result line. It fails (non-zero exit, no
 result line) if there is no card, if the port's package is not beside it,
@@ -1189,52 +1195,59 @@ def flash_checks(torch):
                                                      occupancy)
     from repro_torch.kernels.ref import (flash_attention_bwd_ref,
                                          flash_attention_fwd_ref)
-    # warps an SM each head dim must reach: two 4-warp blocks up to hd 128,
-    # one at hd 256 (its tiles take 166,912-199,680 bytes of shared memory)
-    for hd, warps in ((128, 8), (96, 8), (256, 4)):
+    # warps an SM each kernel must reach: two 4-warp blocks up to hd 128;
+    # at hd 256 the forward one (its tiles take 166,912 bytes of shared
+    # memory), the backward one 8-warp block (warp pairs)
+    for hd in (128, 96, 256):
         for name, r in occupancy(hd, ATTN_SEQ).items():
+            warps = 4 if hd == 256 and name.startswith("forward") else 8
             print(f"flash attention {name} at hd {hd}: {r['registers']} "
                   f"registers, {r['local_bytes']} B local (spills) a "
                   f"thread, {r['blocks_per_sm']} blocks "
-                  f"({4 * r['blocks_per_sm']} warps) per SM, {r['smem']} B "
+                  f"({r['warps_per_sm']} warps) per SM, {r['smem']} B "
                   f"shared memory", flush=True)
             check(r["registers"] > 0 and r["local_bytes"] == 0
-                  and 4 * r["blocks_per_sm"] >= warps,
+                  and r["warps_per_sm"] >= warps,
                   f"flash attention {name} at hd {hd} spills or runs under "
                   f"{warps} warps an SM: {r}")
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(6)
     err = {"fwd": 0.0, "fwd_bf16": 0.0, "bwd": 0.0}
     timed = {}
-    # (B, S, H, Kv, hd, window, dtype)
-    cases = [(2, 100, 4, 2, 64, None, torch.float32),
-             (1, 100, 2, 2, 128, 48, torch.float32),
-             (2, 100, 4, 2, 64, None, torch.bfloat16),
-             (1, 100, 2, 1, 128, 48, torch.bfloat16),
-             (ATTN_BATCH, ATTN_SEQ, 16, 16, 128, None, torch.float32),
-             (ATTN_BATCH, ATTN_SEQ, 32, 8, 128, None, torch.float32)]
+    f32, bf16_ = torch.float32, torch.bfloat16
+    # (B, S, H, Kv, hd, window, dtype, causal)
+    cases = [(2, 100, 4, 2, 64, None, f32, True),
+             (1, 100, 2, 2, 128, 48, f32, True),
+             (2, 100, 4, 2, 64, None, bf16_, True),
+             (1, 100, 2, 1, 128, 48, bf16_, True),
+             (ATTN_BATCH, ATTN_SEQ, 16, 16, 128, None, f32, True),
+             (ATTN_BATCH, ATTN_SEQ, 32, 8, 128, None, f32, True)]
     # the serve path's prefills (phase 9): one request a call, a prompt of
     # each bucket
-    cases += [(1, S, 16, 16, 128, None, torch.float32)
+    cases += [(1, S, 16, 16, 128, None, f32, True)
               for S in sorted(SERVE_PROMPTS)]
-    # the wide heads: hd 96 (phi3-mini) and 256 (gemma-2b: two column blocks
-    # a row tile, MQA), odd sizes, windows and bfloat16; then the timed
-    # shapes of FLASH_TIMED
-    cases += [(2, 100, 4, 2, 96, None, torch.float32),
-              (1, 300, 8, 1, 96, 100, torch.float32),
-              (2, 100, 4, 2, 96, 48, torch.bfloat16),
-              (2, 100, 8, 1, 256, None, torch.float32),
-              (1, 130, 4, 2, 256, 48, torch.float32),
-              (2, 100, 8, 1, 256, None, torch.bfloat16)]
-    cases += [(ATTN_BATCH, ATTN_SEQ, *shape, None, torch.float32)
+    # the wide heads: hd 96 (phi3-mini) and 256 (gemma-2b: 8 query heads
+    # on 1; recurrentgemma-2b: 10 on 1), odd sizes, tails, windows, no
+    # causal mask, one position and bfloat16; then the timed shapes of
+    # FLASH_TIMED
+    cases += [(2, 100, 4, 2, 96, None, f32, True),
+              (1, 300, 8, 1, 96, 100, f32, True),
+              (2, 100, 4, 2, 96, 48, bf16_, True),
+              (2, 100, 8, 1, 256, None, f32, True),
+              (1, 130, 4, 2, 256, 48, f32, True),
+              (1, 300, 10, 1, 256, 100, f32, True),
+              (1, 77, 2, 1, 256, None, f32, False),
+              (2, 1, 2, 1, 256, None, f32, True),
+              (2, 100, 8, 1, 256, None, bf16_, True)]
+    cases += [(ATTN_BATCH, ATTN_SEQ, *shape, None, f32, True)
               for key, shape in FLASH_TIMED.items() if key != "hd128"]
-    for B, S, Hq, Kv, hd, window, dtype in cases:
+    for B, S, Hq, Kv, hd, window, dtype, causal in cases:
         q = torch.randn((B, S, Hq, hd), generator=gen, device=dev)
         k = torch.randn((B, S, Kv, hd), generator=gen, device=dev)
         v = torch.randn((B, S, Kv, hd), generator=gen, device=dev)
         do = torch.randn((B, S, Hq, hd), generator=gen, device=dev)
         pos = torch.arange(S, dtype=torch.int32, device=dev).expand(B, S)
-        kw = dict(causal=True, window=window)
+        kw = dict(causal=causal, window=window)
         bf16 = dtype == torch.bfloat16
         qc, kc, vc = (t.to(dtype) for t in (q, k, v))
         o, lse = flash_attention_fwd(qc, kc, vc, pos, pos, **kw)
@@ -1244,7 +1257,7 @@ def flash_checks(torch):
         e = float(torch.max(torch.abs(o.float() - ro.float())))
         el = float(torch.max(torch.abs(lse - rlse)))
         label = (f"B={B} S={S} H={Hq} Kv={Kv} hd={hd} window={window} "
-                 f"{str(dtype)[6:]}")
+                 f"{str(dtype)[6:]}" + ("" if causal else " non-causal"))
         check(o.dtype == dtype
               and torch.allclose(o.float(), ro.float(), atol=tol, rtol=tol)
               and torch.allclose(lse, rlse, atol=tol, rtol=tol),
@@ -1260,14 +1273,26 @@ def flash_checks(torch):
             torch.cuda.synchronize()
             eb = max(float(torch.max(torch.abs(a - b)))
                      for a, b in zip(g, rg))
-            rel = max(float(torch.linalg.vector_norm(a - b)
-                            / torch.linalg.vector_norm(b))
-                      for a, b in zip(g, rg))
+            # (a gradient that is 0, as dQ and dK at S = 1, has none)
+            rel = max((float(torch.linalg.vector_norm(a - b)
+                             / torch.linalg.vector_norm(b))
+                       for a, b in zip(g, rg) if bool(torch.any(b != 0))),
+                      default=0.0)
             check(all(torch.allclose(a, b, atol=1e-4, rtol=1e-4)
                       for a, b in zip(g, rg)),
                   f"flash_attention_bwd disagrees at {label}: {eb}")
             err["bwd"] = max(err["bwd"], eb)
             line += f"; backward max|err| {eb:.3g} (rel l2 {rel:.3g})"
+            if hd == 256 and Kv == 1 and S == ATTN_SEQ:
+                # MQA: dK/dV's partial sums over the heads' parts
+                for _ in range(2):
+                    g2 = flash_attention_bwd(q, k, v, o, lse, do, pos, pos,
+                                             **kw)
+                    check(all(torch.equal(a, b) for a, b in zip(g2, g)),
+                          f"flash_attention_bwd at {label}: three runs do "
+                          f"not give the same bits")
+                line += "; three runs bit for bit"
+                del g2
             del g, rg
         print(line, flush=True)
         key = [k_ for k_, v_ in FLASH_TIMED.items() if v_ == (Hq, Kv, hd)]
@@ -1294,12 +1319,16 @@ def flash_times(torch, q, k, v, do, pos, o, lse):
     cores' 67 TFLOP/s) and torch's scaled_dot_product_attention(
     is_causal=True, enable_gqa for Kv < H) on the same float32 tensors in
     its (B, H, S, hd) layout, forward, and its backward on a retained
-    graph. Returns {kernel: its numbers}."""
+    graph; then the backward's own kernels (row sums, dK/dV, the reduction
+    of its partial sums where the heads are split, dQ): each one's device
+    time a call from a torch.profiler trace (flash_bench.backward_kernel_ms,
+    "kernels_ms"). Returns {kernel: its numbers}."""
     from repro_torch.kernels.flash_attention import (flash_attention_bwd,
                                                      flash_attention_fwd)
+    from repro_torch.kernels.flash_bench import (backward_kernel_ms,
+                                                 library_ms, shares_line)
     from repro_torch.kernels.ref import (flash_attention_bwd_ref,
                                          flash_attention_fwd_ref)
-    F = torch.nn.functional
     B, S, Hq, hd = q.shape
     Kv = k.shape[2]
     pairs = visible_pairs(S, True, None)
@@ -1321,26 +1350,15 @@ def flash_times(torch, q, k, v, do, pos, o, lse):
         res[name] = {"shape": [B, S, Hq, Kv, hd], "ms": time_ms(torch, fn),
                      "plain_ms": time_ms(torch, plain, reps=PLAIN_REPS,
                                          warmup=1),
-                     "library_ms": None, "bytes": nbytes, "ops": ops,
-                     "bound_ms": b_ms, "bound_by": b_by}
-    ql, kl, vl = (t.transpose(1, 2).contiguous().requires_grad_(True)
-                  for t in (q, k, v))
-    dol = do.transpose(1, 2).contiguous()
-    kw = dict(is_causal=True, enable_gqa=True) if Kv < Hq else dict(
-        is_causal=True)
-    try:
-        lo = F.scaled_dot_product_attention(ql, kl, vl, **kw)
-        res["flash_attention_fwd"]["library_ms"] = time_ms(
-            torch, lambda: F.scaled_dot_product_attention(ql, kl, vl, **kw))
-        res["flash_attention_bwd"]["library_ms"] = time_ms(
-            torch, lambda: torch.autograd.grad(lo, (ql, kl, vl), dol,
-                                               retain_graph=True))
-        del lo
-    except (RuntimeError, NotImplementedError) as exc:
-        print(f"library: scaled_dot_product_attention does not run on "
-              f"float32 here ({type(exc).__name__}: "
-              f"{str(exc).splitlines()[0]})", flush=True)
-    del ql, kl, vl, dol
+                     "bytes": nbytes, "ops": ops, "bound_ms": b_ms,
+                     "bound_by": b_by}
+    (res["flash_attention_fwd"]["library_ms"],
+     res["flash_attention_bwd"]["library_ms"]) = library_ms(q, k, v, do)
+    per = backward_kernel_ms(timed["flash_attention_bwd"][0])
+    res["flash_attention_bwd"]["kernels_ms"] = per
+    print(f"time flash_attention_bwd's kernels (B={B}, S={S}, H={Hq}, "
+          f"Kv={Kv}, hd={hd}, causal; torch.profiler, a call): "
+          f"{shares_line(per)}; {card_line()}", flush=True)
     for name, r_ in res.items():
         print(f"time {name} (B={B}, S={S}, H={Hq}, Kv={Kv}, hd={hd}, "
               f"causal; {card_line()}): kernel {r_['ms']:.4f} ms, plain "
@@ -3409,8 +3427,8 @@ def main():
                "launches_serve": counts["serve"][name],
                "launches_arch": {c: n[name]
                                  for c, n in counts["arch"].items()}}
-        for extra in ("sq_rel_err", "max_abs_err_bf16", "supplied", "hd96",
-                      "hd256", "hd256_h10"):
+        for extra in ("sq_rel_err", "max_abs_err_bf16", "supplied",
+                      "kernels_ms", "hd96", "hd256", "hd256_h10"):
             if extra in r:
                 row[extra] = r[extra]
         if name in variants:

@@ -31,16 +31,21 @@
 //   dS = P o (dP - delta), dV = P^T dO, dK = scale dS^T Q, dQ = scale dS K.
 // dkdv_kernel owns (b, kv head, 64 keys) and loops over the G query heads of
 // its group and their query tiles; dq_kernel owns (b, h, 64 queries) and
-// loops over the key tiles. Both recompute S and dP (14 hd operations a
-// visible pair against the 10 of the bound): one S per backward would need
-// dQ summed across the key tiles' blocks, which takes atomics in a varying
-// order or a second pass over partial sums.
+// loops over the key tiles. Both compute S and dP, each once a visible
+// pair: dK/dV 8 hd operations a pair (S^T, dP^T, dK, dV at 2 hd each), dQ
+// 6 hd (S, dP, dQ), 14 hd against the 10 of the bound. One S per backward
+// would need dQ summed across the key tiles' blocks, which takes atomics
+// in a varying order or a second pass over partial sums. Up to hd 128 those
+// are the kernels; hd 256 takes their warp-pair versions (below).
 //
 // Determinism: every output element is written by one thread of one block,
 // after sums in a fixed order (tiles in ascending order, the mma sequence,
-// shuffles in a fixed pattern): the same bits on every run. The only atomic
-// is an OR into a block's own bitmaps of tiles in shared memory, whose bits
-// do not depend on the order.
+// shuffles in a fixed pattern; at hd 256 the two 128-column partials of S
+// and dP added as two terms, which IEEE addition gives the same bits in
+// either order, and dK/dV's parts added in ascending order by
+// dkdv_reduce_kernel, one thread an output element): the same bits on
+// every run. The only atomic is an OR into a block's own bitmaps of tiles
+// in shared memory, whose bits do not depend on the order.
 //
 // What bounds it: operations. At the train path's shape (B 2, S 2048, H 16,
 // hd 128) the forward does 4 hd flops a visible pair (S = QK^T, PV) and the
@@ -103,15 +108,50 @@
 // positions and the tile bitmaps): two blocks, 8 warps, an SM (the dK/dV
 // kernel of the first design took 174 KB, one block). ptxas gives the
 // three 254-255 registers and no spills (the cap of two 128-thread blocks
-// an SM). Head dims 96 and 256 take the same kernels: at hd 96 the tiles
-// take 76,800 bytes (two blocks an SM). At hd 256 one block's accumulators
-// of hd floats a thread (two in dK/dV) would not fit the registers, so the
-// output columns are split in two blocks of 128 (kColsOf): each computes
-// the whole S (and dP) over hd 256 and its own 128 columns of O (dQ, dK,
-// dV), so the accumulators and their registers are hd 128's; the forward
-// keeps only its value columns (166,912 bytes), the backward kernels whole
-// tiles (199,680): one block an SM. Both halves of the forward compute the
-// same lse bit for bit; the first writes it.
+// an SM). Head dim 96 takes the same kernels: its tiles take 76,800 bytes
+// (two blocks an SM). At hd 256 a warp's accumulators of hd floats a
+// thread (two in dK/dV) would not fit the registers. The forward splits
+// its output columns in two blocks of 128 (kColsOf), each computing the
+// whole S over hd 256 (166,912 bytes of tiles, one 4-warp block an SM;
+// both halves compute the same lse bit for bit, the first writes it).
+// The backward runs warp pairs instead (dkdv_pair_kernel, dq_pair_kernel):
+//   8-warp blocks; warps w and w + 4 own the same 16 rows, w the output
+//   columns 0-127, w + 4 the columns 128-255, so each thread's
+//   accumulators are hd 128's (two of 64 floats in dK/dV, one in dQ).
+//   Each warp of a pair computes S (S^T in dK/dV) and dP over its own 128
+//   columns of the hd reduction; the two partials pass through shared
+//   memory (a 2 KB slot a warp, which S and then dP reuse: 16 KB a block)
+//   and are added, so both warps form the same P and dS and every product
+//   is computed once: dK/dV 8 hd operations a visible pair (the first
+//   design, two column blocks each computing the whole S and dP, did 12),
+//   dQ 6 hd (it did 10). A named barrier of the pair (64 threads) orders a
+//   slot's write before the partner's read; the block's barriers between
+//   the ring's stages order the read before the slot's next write.
+//   Tiles 199,680 bytes + the slots 16,384 + < 1 KB = 216,736 (dK/dV) and
+//   216,480 (dQ) bytes at S 2048, under a block's 232,448: one block, 8
+//   warps, an SM, with __launch_bounds__(256, 1): 255 and 254 registers a
+//   thread (256 x 255 = 65,280 of the SM's 65,536) and no spills (the
+//   dK/dV kernel reads its keys' positions from shared memory in the mask
+//   and adds dK's tile product one n-tile at a time: 8 bytes a thread
+//   spilled otherwise).
+//   dK/dV's grid: a block owns a pair of key tiles, kt and nkt - 1 - kt,
+//   one after the other (under a causal mask their live 32-query tiles
+//   add up to the same count, nqt + 2 at S 2048: 64 - 2 kt + 2 + 2 kt =
+//   66), and a part of the group's heads (bwd_parts in the wrapper: the
+//   fewest parts, a divisor of G, that give the grid two blocks an SM,
+//   else G). gemma-2b's (B 2, S 2048, H 8 on Kv 1): 16 pairs x 2 x 8 parts
+//   = 256 blocks (1.94 waves of 132), each 66 (head, query tile)
+//   iterations, the max 1.00x the mean (the first design: 32 key tiles x
+//   B 2 x 2 column blocks = 128 blocks, one wave, the blocks of key tile 0
+//   looping over 8 heads x 64 tiles = 512, 1.94x the mean of 264).
+//   recurrentgemma-2b's (H 10 on 1, window 2048 = causal here): 10 parts,
+//   320 blocks of 66 (2.42 waves). With more than one part each block
+//   writes partial dK, dV sums to a float32 workspace the wrapper
+//   allocates (parts x 2 x B x Sk x Kv x hd x 4 bytes: 67,108,864 at
+//   gemma's shape, 83,886,080 at recurrentgemma's), and dkdv_reduce_kernel
+//   adds the parts in ascending order (and scales dK).
+//   dQ's grid: cdiv(S, 64) x H x B blocks (512 at gemma's shape, 640 at
+//   recurrentgemma's), the longest query tiles first.
 // The ring is filled by 16-byte cp.async.cg, zero-filled past S
 // (src-size 0); bfloat16 tiles are widened to float32 by plain 16-byte
 // loads. Blocks run the longest tiles first: the forward and dQ take the
@@ -249,14 +289,15 @@ __device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const float* p) {
       : "r"(a));
 }
 
-// acc[j] = A B_j^T over k < HD, 16 x 8 each in C layout (lane (g, t):
+// acc[j] = A B_j^T over k < KD, 16 x 8 each in C layout (lane (g, t):
 // rows g, g + 8, columns 2t, 2t + 1): A the warp's 16 rows of a tile, B_j
 // rows 8j .. 8j + 7 of another (Bh, and its lo tile Bl under kPreB), all
-// [row][HD + 4] with k along the row. Fragments come by ldmatrix: A's four
+// [row][HD + 4] with k along the row (KD < HD: the KD columns from where A
+// and B point, a partial product). Fragments come by ldmatrix: A's four
 // (rows 0-7 / 8-15 x columns k-k+3 / k+4-k+7) and two n-tiles' B at a
 // time; 8 rows of 16 bytes at a stride of 4 (mod 32) words cover the 32
 // banks.
-template <int HD, int NT, Mode MODE>
+template <int HD, int NT, Mode MODE, int KD = HD>
 __device__ __forceinline__ void mma_abt(float (&acc)[NT][4], const float* A,
                                         const float* Bh, const float* Bl) {
   static_assert(NT % 2 == 0, "n-tiles in pairs");
@@ -267,7 +308,7 @@ __device__ __forceinline__ void mma_abt(float (&acc)[NT][4], const float* A,
   const float* a = A + (rr + 8 * (m & 1)) * RS + 4 * (m >> 1);
   const int bo = (rr + 8 * (m >> 1)) * RS + 4 * (m & 1);
 #pragma unroll 4
-  for (int k = 0; k < HD; k += 8) {
+  for (int k = 0; k < KD; k += 8) {
     uint32_t ar[4], ah[4], al[4];
     ldsm4(ar, a + k);
 #pragma unroll
@@ -380,19 +421,19 @@ __device__ __forceinline__ float bf_hi(uint32_t w) {
 }
 
 // rows r0 .. r0 + R - 1 of a (b, head) slice (row stride ss elements, hd
-// contiguous) -> dst [R][HD + 4] float32, rows at or past S as 0; r0 < S.
-// float32 by 16-byte cp.async (src-size 0 past S); bfloat16 by plain
-// 16-byte loads, widened.
-template <int HD, int R, typename T>
+// contiguous) -> dst [R][HD + 4] float32, rows at or past S as 0; r0 < S;
+// by the block's NTH threads. float32 by 16-byte cp.async (src-size 0 past
+// S); bfloat16 by plain 16-byte loads, widened.
+template <int HD, int R, typename T, int NTH = kThreads>
 __device__ __forceinline__ void load_rows(float* dst, const T* src,
                                           long long ss, int r0, int S) {
   constexpr int RS = HD + 4;
   if constexpr (std::is_same<T, float>::value) {
     constexpr int C = HD / 4;
-    static_assert(R * C % kThreads == 0, "whole chunks a thread");
-#pragma unroll (kRowsUnroll<HD, R * C / kThreads>)
-    for (int i = 0; i < R * C / kThreads; ++i) {
-      const int e = threadIdx.x + i * kThreads, r = e / C, c = e % C;
+    static_assert(R * C % NTH == 0, "whole chunks a thread");
+#pragma unroll (kRowsUnroll<HD, R * C / NTH>)
+    for (int i = 0; i < R * C / NTH; ++i) {
+      const int e = threadIdx.x + i * NTH, r = e / C, c = e % C;
       const bool ok = r0 + r < S;
       cp16(dst + r * RS + 4 * c, src + (long long)(ok ? r0 + r : r0) * ss + 4 * c,
            ok);
@@ -491,19 +532,19 @@ __host__ __device__ constexpr int bitmap_words(int tiles) {
 // tile); bit i of part iff some j of tile i fails full_ok(pos[j]) (every
 // pair of j with the block's own rows visible), so a live tile without a
 // part bit needs no mask (a tile past n must be tested apart). Each warp
-// reads 32 consecutive positions, one tile's. Called by every thread; ends
-// with a barrier.
-template <int TILE, typename Live, typename Full>
+// reads 32 consecutive positions, one tile's. Called by every one of the
+// block's NTH threads; ends with a barrier.
+template <int TILE, int NTH = kThreads, typename Live, typename Full>
 __device__ __forceinline__ void mark_tiles(unsigned* live, unsigned* part,
                                            int tiles, const int* pos, int n,
                                            Live live_ok, Full full_ok) {
   static_assert(TILE % 32 == 0, "a warp's 32 positions lie in one tile");
-  for (int i = threadIdx.x; i < bitmap_words(tiles); i += kThreads)
+  for (int i = threadIdx.x; i < bitmap_words(tiles); i += NTH)
     live[i] = part[i] = 0u;
   __syncthreads();
   const int lane = threadIdx.x & 31;
 #pragma unroll 4
-  for (int j0 = (int)threadIdx.x - lane; j0 < n; j0 += kThreads) {
+  for (int j0 = (int)threadIdx.x - lane; j0 < n; j0 += NTH) {
     const int j = j0 + lane;
     const int x = j < n ? pos[j] : 0;
     const bool hit = __any_sync(0xffffffffu, j < n && live_ok(x));
@@ -712,7 +753,7 @@ __global__ void __launch_bounds__(kDeltaThreads)
   if (lane == 0) delta[row] = acc;
 }
 
-template <int HD, int DC>
+template <int HD>
 __global__ void __launch_bounds__(kThreads, 2)
     dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, const float* __restrict__ dout,
@@ -723,7 +764,7 @@ __global__ void __launch_bounds__(kThreads, 2)
                 int Sk, int causal, int window, float scale, Strides sq,
                 Strides sk, Strides sv, Strides sdo, Strides sdk,
                 Strides sdv) {
-  constexpr int RS = HD + 4, BQ = kBwdTile, NT = BQ / 8, NC = HD / DC;
+  constexpr int RS = HD + 4, BQ = kBwdTile, NT = BQ / 8;
   extern __shared__ float4 smem4[];
   float* Ks = reinterpret_cast<float*>(smem4);  // [64][RS], the block's keys
   float* Vs = Ks + kRows * RS;                  // [64][RS]
@@ -738,9 +779,8 @@ __global__ void __launch_bounds__(kThreads, 2)
   unsigned* live = reinterpret_cast<unsigned*>(rng + 4);
   unsigned* part = live + bitmap_words(nqt);
 
-  const int bk = blockIdx.x % (B * Kv), rest = blockIdx.x / (B * Kv);
-  const int kt = rest / NC;  // the first key tiles see the most
-  const int c0 = DC * (rest % NC);  // the block's dK and dV columns
+  const int bk = blockIdx.x % (B * Kv);
+  const int kt = blockIdx.x / (B * Kv);  // the first key tiles see the most
   const int kvh = bk % Kv, b = bk / Kv, k0 = kt * kRows;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -795,7 +835,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   const float* Kw = Ks + 16 * warp * RS;
   const float* Vw = Vs + 16 * warp * RS;
   const float one[2] = {1.f, 1.f};
-  float accK[DC / 8][4], accV[DC / 8][4];
+  float accK[HD / 8][4], accV[HD / 8][4];
   zero(accK);
   zero(accV);
 
@@ -827,8 +867,7 @@ __global__ void __launch_bounds__(kThreads, 2)
         const int c = 8 * j + 2 * t + (e & 1);
         ds[j][e] = p[j][e] * (ds[j][e] - dl[c]);
       }
-    mma_pb<HD, DC, NT, kChunkOf<DC> / 2, kSplit>(accK, ds, Qs + c0, nullptr,
-                                                 one);
+    mma_pb<HD, HD, NT, kChunkOf<HD> / 2, kSplit>(accK, ds, Qs, nullptr, one);
     int ngi = gi, nqt2 = next_live(live, qt + 1, nqt);
     if (nqt2 == nqt) {
       ++ngi;
@@ -837,8 +876,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     __syncthreads();  // every warp is done with slot 0
     if (ngi < G) load_q(ngi, nqt2);
     cp_commit();
-    mma_pb<HD, DC, NT, kChunkOf<DC> / 2, kSplit>(accV, p, dOs + c0, nullptr,
-                                                 one);
+    mma_pb<HD, HD, NT, kChunkOf<HD> / 2, kSplit>(accV, p, dOs, nullptr, one);
     __syncthreads();  // every warp is done with slot 1
     if (ngi < G) load_do(ngi, nqt2);
     cp_commit();
@@ -852,11 +890,11 @@ __global__ void __launch_bounds__(kThreads, 2)
     const int row = 16 * warp + g + 8 * r;
     if (row >= nk) continue;
     float* krow_out = dk + b * sdk.b + (long long)(k0 + row) * sdk.s +
-                      kvh * sdk.h + c0 + 2 * t;
+                      kvh * sdk.h + 2 * t;
     float* vrow_out = dv + b * sdv.b + (long long)(k0 + row) * sdv.s +
-                      kvh * sdv.h + c0 + 2 * t;
+                      kvh * sdv.h + 2 * t;
 #pragma unroll
-    for (int n = 0; n < DC / 8; ++n) {
+    for (int n = 0; n < HD / 8; ++n) {
       store2(krow_out + 8 * n, accK[n][2 * r] * scale,
              accK[n][2 * r + 1] * scale);
       store2(vrow_out + 8 * n, accV[n][2 * r], accV[n][2 * r + 1]);
@@ -864,7 +902,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
-template <int HD, int DC>
+template <int HD>
 __global__ void __launch_bounds__(kThreads, 2)
     dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, const float* __restrict__ dout,
@@ -873,7 +911,7 @@ __global__ void __launch_bounds__(kThreads, 2)
               float* __restrict__ dq, int B, int H, int G, int Sq, int Sk,
               int causal, int window, float scale, Strides sq, Strides sk,
               Strides sv, Strides sdo, Strides sdq) {
-  constexpr int RS = HD + 4, BK = kBwdTile, NT = BK / 8, NC = HD / DC;
+  constexpr int RS = HD + 4, BK = kBwdTile, NT = BK / 8;
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);  // [64][RS]
   float* dOs = Qs + kRows * RS;                 // [64][RS]
@@ -886,9 +924,8 @@ __global__ void __launch_bounds__(kThreads, 2)
   unsigned* live = reinterpret_cast<unsigned*>(rng + 4);
   unsigned* part = live + bitmap_words(nkt);
 
-  const int bh = blockIdx.x % (B * H), rest = blockIdx.x / (B * H);
-  const int qt = nqt - 1 - rest / NC;  // longest first
-  const int c0 = DC * (rest % NC);     // the block's dQ columns
+  const int bh = blockIdx.x % (B * H);
+  const int qt = nqt - 1 - blockIdx.x / (B * H);  // longest first
   const int h = bh % H, b = bh / H, kvh = h / G, q0 = qt * kRows;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -937,7 +974,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   const float* Qw = Qs + 16 * warp * RS;
   const float* dOw = dOs + 16 * warp * RS;
   const float one[2] = {1.f, 1.f};
-  float acc[DC / 8][4];
+  float acc[HD / 8][4];
   zero(acc);
 
   while (kt < nkt) {
@@ -965,7 +1002,7 @@ __global__ void __launch_bounds__(kThreads, 2)
                 : 0.f;
         ds[j][e] = p * (ds[j][e] - drow[r]);
       }
-    mma_pb<HD, DC, NT, kChunkOf<DC>, kSplit>(acc, ds, Ks + c0, nullptr, one);
+    mma_pb<HD, HD, NT, kChunkOf<HD>, kSplit>(acc, ds, Ks, nullptr, one);
     __syncthreads();  // every warp is done with slot 0
     if (next < nkt) {
       load_rows<HD, BK>(Ks, kb, sk.s, next * BK, Sk);
@@ -980,6 +1017,418 @@ __global__ void __launch_bounds__(kThreads, 2)
   for (int r = 0; r < 2; ++r) {
     const int row = 16 * warp + g + 8 * r;
     if (row >= nq) continue;
+    float* out =
+        dq + b * sdq.b + (long long)(q0 + row) * sdq.s + h * sdq.h + 2 * t;
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n)
+      store2(out + 8 * n, acc[n][2 * r] * scale, acc[n][2 * r + 1] * scale);
+  }
+}
+
+// ---- backward at hd 256: warp pairs --------------------------------------
+
+constexpr int kPairThreads = 256;  // 8 warps: pairs (w, w + 4), w < 4
+
+// the named barrier of warp pair (w, w + 4), w = pair (barrier 0 is
+// __syncthreads')
+__device__ __forceinline__ void pair_sync(int pair) {
+  asm volatile("bar.sync %0, 64;" ::"r"(pair + 1) : "memory");
+}
+
+// the exchange slots xs [8][NT 4 32]: a warp's C-layout fragments s[NT][4]
+// -> slot w, lane l's float4 j at float4 32 j + l (32 lanes store 512
+// contiguous bytes)
+template <int NT>
+__device__ __forceinline__ void put_slot(float* xs, int w,
+                                         const float (&s)[NT][4]) {
+  float4* d = reinterpret_cast<float4*>(xs) + 32 * NT * w + (threadIdx.x & 31);
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+    d[32 * j] = make_float4(s[j][0], s[j][1], s[j][2], s[j][3]);
+}
+
+// s += the fragments in slot w, the partner warp's. Each warp of a pair
+// holds the product over its own 128 columns of the reduction; IEEE
+// addition is commutative, so both hold the same bits: (columns 0-127's
+// partial) + (columns 128-255's).
+template <int NT>
+__device__ __forceinline__ void add_slot(float (&s)[NT][4], const float* xs,
+                                         int w) {
+  const float4* d = reinterpret_cast<const float4*>(xs) + 32 * NT * w +
+                    (threadIdx.x & 31);
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    const float4 x = d[32 * j];
+    s[j][0] += x.x;
+    s[j][1] += x.y;
+    s[j][2] += x.z;
+    s[j][3] += x.w;
+  }
+}
+
+// dK/dV at hd 256. A block owns (b, kv head, a pair of key tiles kt and
+// nkt - 1 - kt, taken one after the other, a part of gpp consecutive heads
+// of the group); warps w and w + 4 own the same 16 keys of the tile, w the
+// dK/dV columns 0-127 and the reduction's columns 0-127 of S^T and dP^T,
+// w + 4 the columns 128-255. With more than one part (ws not null) the
+// block writes its partial dK (not yet scaled) and dV to ws [G / gpp][2][B]
+// [Sk][Kv][HD], summed by dkdv_reduce_kernel; else dK and dV.
+template <int HD>
+__global__ void __launch_bounds__(kPairThreads, 1)
+    dkdv_pair_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ dout,
+                     const int* __restrict__ qpos,
+                     const int* __restrict__ kpos,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, float* __restrict__ dk,
+                     float* __restrict__ dv, float* __restrict__ ws, int B,
+                     int H, int Kv, int G, int gpp, int Sq, int Sk,
+                     int causal, int window, float scale, Strides sq,
+                     Strides sk, Strides sv, Strides sdo, Strides sdk,
+                     Strides sdv) {
+  constexpr int RS = HD + 4, DC = HD / 2, BQ = kBwdTile, NT = BQ / 8;
+  constexpr int NTH = kPairThreads, XS = NT * 4 * 32;
+  extern __shared__ float4 smem4[];
+  float* Ks = reinterpret_cast<float*>(smem4);  // [64][RS], the tile's keys
+  float* Vs = Ks + kRows * RS;                  // [64][RS]
+  float* Qs = Vs + kRows * RS;                  // slot 0: queries [BQ][RS]
+  float* dOs = Qs + BQ * RS;                    // slot 1: dO [BQ][RS]
+  float* xs = dOs + BQ * RS;  // [8][XS]: each warp's partial S^T, then dP^T
+  int* qp = reinterpret_cast<int*>(xs + 8 * XS);  // slot 0
+  float* ls = reinterpret_cast<float*>(qp + BQ);  // slot 0: lse
+  float* dl = ls + BQ;                            // slot 1: delta
+  int* kp = reinterpret_cast<int*>(dl + BQ);
+  int* rng = kp + kRows;
+  const int nqt = (Sq + BQ - 1) / BQ, nkt = (Sk + kRows - 1) / kRows;
+  unsigned* live = reinterpret_cast<unsigned*>(rng + 4);
+  unsigned* part = live + bitmap_words(nqt);
+
+  const int npairs = (nkt + 1) / 2;
+  const int bk = blockIdx.x % (B * Kv), rest = blockIdx.x / (B * Kv);
+  const int pi = rest % npairs;
+  const int kvh = bk % Kv, b = bk / Kv;
+  const int h0 = kvh * G + rest / npairs * gpp;  // the part's first head
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wr = warp & 3, c0 = DC * (warp >> 2);  // its rows, its columns
+  const int* qpb = qpos + (long long)b * Sq;
+  const float one[2] = {1.f, 1.f};
+
+  auto load_q = [&](int gg, int tt) {
+    const int hh = h0 + gg, r0 = tt * BQ;
+    load_rows<HD, BQ, float, NTH>(Qs, q + b * sq.b + hh * sq.h, sq.s, r0,
+                                  Sq);
+    load_vals(qp, qpb, 0, BQ, r0, Sq);
+    load_vals(ls, lse + ((long long)b * H + hh) * Sq, BQ, BQ, r0, Sq);
+  };
+  auto load_do = [&](int gg, int tt) {
+    const int hh = h0 + gg, r0 = tt * BQ;
+    load_rows<HD, BQ, float, NTH>(dOs, dout + b * sdo.b + hh * sdo.h, sdo.s,
+                                  r0, Sq);
+    load_vals(dl, delta + ((long long)b * H + hh) * Sq, 0, BQ, r0, Sq);
+  };
+
+  // key tile pi, then nkt - 1 - pi (unless pi is the middle tile)
+  for (int kt = pi, last = nkt - 1 - pi;; kt = last) {
+    const int k0 = kt * kRows, nk = min(kRows, Sk - k0);
+    __syncthreads();  // every warp is done with the last tile's K, V, bitmaps
+    if (threadIdx.x < kRows)
+      kp[threadIdx.x] = (int)threadIdx.x < nk
+                            ? kpos[(long long)b * Sk + k0 + threadIdx.x]
+                            : -1;
+    load_rows<HD, kRows, float, NTH>(Ks, k + b * sk.b + kvh * sk.h, sk.s, k0,
+                                     Sk);
+    load_rows<HD, kRows, float, NTH>(Vs, v + b * sv.b + kvh * sv.h, sv.s, k0,
+                                     Sk);
+    cp_commit();
+    __syncthreads();
+    pos_range(kp, kRows, true, rng);
+    const int kmin = rng[0], kmax = rng[1];
+    const bool any_key = kmin <= kmax;
+    const bool all_keys = !__syncthreads_or(threadIdx.x < kRows &&
+                                            kp[threadIdx.x] < 0);
+    mark_tiles<BQ, NTH>(
+        live, part, nqt, qpb, Sq,
+        [&](int qq) {
+          return any_key && (!causal || kmin <= qq) &&
+                 (window <= 0 || (long long)kmax > (long long)qq - window);
+        },
+        [&](int qq) {
+          return all_keys && (!causal || kmax <= qq) &&
+                 (window <= 0 || (long long)kmin > (long long)qq - window);
+        });
+
+    // the part's (head, query tile) pairs in order, live tiles only
+    int gi = 0, qt = next_live(live, 0, nqt);
+    if (qt == nqt) gi = gpp;
+    if (gi < gpp) load_q(gi, qt);
+    cp_commit();
+    if (gi < gpp) load_do(gi, qt);
+    cp_commit();
+
+    const float* Kw = Ks + 16 * wr * RS + c0;
+    const float* Vw = Vs + 16 * wr * RS + c0;
+    float accK[DC / 8][4], accV[DC / 8][4];
+    zero(accK);
+    zero(accV);
+
+    while (gi < gpp) {
+      const int q0 = qt * BQ;
+      cp_wait<1>();  // K, V, this tile's queries, positions and lse
+      __syncthreads();
+      float p[NT][4], ds[NT][4];
+      // transposed scores, keys (rows) x queries (columns): the warp's
+      // 128 columns of the reduction, then its partner's added
+      mma_abt<HD, NT, kSplit, DC>(p, Kw, Qs + c0, nullptr);
+      put_slot(xs, warp, p);
+      pair_sync(wr);
+      add_slot(p, xs, warp ^ 4);
+      const bool full = !bit_set(part, qt) && q0 + BQ <= Sq;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          // the key's position read here, not held in a register across
+          // the loop (this kernel's registers are at the cap)
+          const int c = 8 * j + 2 * t + (e & 1);
+          p[j][e] = full || (q0 + c < Sq &&
+                             visible(qp[c], kp[16 * wr + g + 4 * (e & 2)],
+                                     causal, window))
+                        ? expf(__fmul_rn(p[j][e], scale) - ls[c])
+                        : 0.f;
+        }
+      cp_wait<0>();  // this tile's dO and delta
+      __syncthreads();  // (and every partner has read this warp's S^T)
+      mma_abt<HD, NT, kSplit, DC>(ds, Vw, dOs + c0, nullptr);
+      put_slot(xs, warp, ds);
+      pair_sync(wr);
+      add_slot(ds, xs, warp ^ 4);
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = 8 * j + 2 * t + (e & 1);
+          ds[j][e] = p[j][e] * (ds[j][e] - dl[c]);
+        }
+      // one n-tile of fresh accumulator at a time while p and ds are both
+      // live (two spilled 8 bytes a thread), two for dV
+      mma_pb<HD, DC, NT, kChunkOf<DC> / 4, kSplit>(accK, ds, Qs + c0,
+                                                   nullptr, one);
+      int ngi = gi, nqt2 = next_live(live, qt + 1, nqt);
+      if (nqt2 == nqt) {
+        ++ngi;
+        nqt2 = next_live(live, 0, nqt);
+      }
+      __syncthreads();  // every warp is done with slot 0 and its partner's dP^T
+      if (ngi < gpp) load_q(ngi, nqt2);
+      cp_commit();
+      mma_pb<HD, DC, NT, kChunkOf<DC> / 2, kSplit>(accV, p, dOs + c0,
+                                                   nullptr, one);
+      __syncthreads();  // every warp is done with slot 1
+      if (ngi < gpp) load_do(ngi, nqt2);
+      cp_commit();
+      gi = ngi;
+      qt = nqt2;
+    }
+    cp_wait<0>();
+
+    const long long plane = (long long)B * Sk * Kv * HD;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = 16 * wr + g + 8 * r;
+      if (row >= nk) continue;
+      float *krow_out, *vrow_out, sc;
+      if (ws) {
+        krow_out = ws + 2 * (blockIdx.x / (B * Kv) / npairs) * plane +
+                   (((long long)b * Sk + k0 + row) * Kv + kvh) * HD + c0 +
+                   2 * t;
+        vrow_out = krow_out + plane;
+        sc = 1.f;
+      } else {
+        krow_out = dk + b * sdk.b + (long long)(k0 + row) * sdk.s +
+                   kvh * sdk.h + c0 + 2 * t;
+        vrow_out = dv + b * sdv.b + (long long)(k0 + row) * sdv.s +
+                   kvh * sdv.h + c0 + 2 * t;
+        sc = scale;
+      }
+#pragma unroll
+      for (int n = 0; n < DC / 8; ++n) {
+        store2(krow_out + 8 * n, accK[n][2 * r] * sc,
+               accK[n][2 * r + 1] * sc);
+        store2(vrow_out + 8 * n, accV[n][2 * r], accV[n][2 * r + 1]);
+      }
+    }
+    if (kt >= last) break;
+  }
+}
+
+// dK = scale (ws[0, 0] + ws[1, 0] + ...), dV = ws[0, 1] + ws[1, 1] + ...:
+// the parts added in ascending order, a thread four consecutive columns
+template <int HD>
+__global__ void __launch_bounds__(kDeltaThreads)
+    dkdv_reduce_kernel(const float* __restrict__ ws, float* __restrict__ dk,
+                       float* __restrict__ dv, int parts, int Sk, int Kv,
+                       long long plane, float scale, Strides sdk,
+                       Strides sdv) {
+  const long long n = plane / 4;  // float4s of one of dK, dV
+  const float4* w4 = reinterpret_cast<const float4*>(ws);
+  for (long long i = (long long)blockIdx.x * kDeltaThreads + threadIdx.x;
+       i < 2 * n; i += (long long)gridDim.x * kDeltaThreads) {
+    const int which = i >= n;  // 0: dK, 1: dV
+    const long long j = i - which * n, e = 4 * j;
+    float4 a = w4[which * n + j];
+    for (int p = 1; p < parts; ++p) {
+      const float4 x = w4[(2 * p + which) * n + j];
+      a.x += x.x;
+      a.y += x.y;
+      a.z += x.z;
+      a.w += x.w;
+    }
+    const int c = (int)(e % HD);
+    const long long row = e / HD;  // (b, s, kv head)
+    const int kvh = (int)(row % Kv), s = (int)(row / Kv % Sk);
+    const int b = (int)(row / Kv / Sk);
+    float* out =
+        which ? dv + b * sdv.b + (long long)s * sdv.s + kvh * sdv.h + c
+              : dk + b * sdk.b + (long long)s * sdk.s + kvh * sdk.h + c;
+    const float f = which ? 1.f : scale;
+    store2(out, a.x * f, a.y * f);
+    store2(out + 2, a.z * f, a.w * f);
+  }
+}
+
+// dQ at hd 256. A block owns (b, h, 64 queries) and loops over the key
+// tiles; warps w and w + 4 own the same 16 queries, w the dQ columns 0-127
+// and the reduction's columns 0-127 of S and dP, w + 4 the columns
+// 128-255.
+template <int HD>
+__global__ void __launch_bounds__(kPairThreads, 1)
+    dq_pair_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v,
+                   const float* __restrict__ dout,
+                   const int* __restrict__ qpos, const int* __restrict__ kpos,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta, float* __restrict__ dq,
+                   int B, int H, int G, int Sq, int Sk, int causal,
+                   int window, float scale, Strides sq, Strides sk,
+                   Strides sv, Strides sdo, Strides sdq) {
+  constexpr int RS = HD + 4, DC = HD / 2, BK = kBwdTile, NT = BK / 8;
+  constexpr int NTH = kPairThreads, XS = NT * 4 * 32;
+  extern __shared__ float4 smem4[];
+  float* Qs = reinterpret_cast<float*>(smem4);  // [64][RS]
+  float* dOs = Qs + kRows * RS;                 // [64][RS]
+  float* Ks = dOs + kRows * RS;                 // slot 0: keys [BK][RS]
+  float* Vs = Ks + BK * RS;                     // slot 1: values [BK][RS]
+  float* xs = Vs + BK * RS;  // [8][XS]: each warp's partial dP, then S
+  int* kp = reinterpret_cast<int*>(xs + 8 * XS);  // slot 0's positions
+  int* qp = kp + BK;
+  int* rng = qp + kRows;
+  const int nqt = (Sq + kRows - 1) / kRows, nkt = (Sk + BK - 1) / BK;
+  unsigned* live = reinterpret_cast<unsigned*>(rng + 4);
+  unsigned* part = live + bitmap_words(nkt);
+
+  const int bh = blockIdx.x % (B * H);
+  const int qt = nqt - 1 - blockIdx.x / (B * H);  // longest first
+  const int h = bh % H, b = bh / H, kvh = h / G, q0 = qt * kRows;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wr = warp & 3, c0 = DC * (warp >> 2);  // its rows, its columns
+  const int nq = min(kRows, Sq - q0);
+  const int* kpb = kpos + (long long)b * Sk;
+  const float* kb = k + b * sk.b + kvh * sk.h;
+  const float* vb = v + b * sv.b + kvh * sv.h;
+
+  if (threadIdx.x < kRows)
+    qp[threadIdx.x] =
+        qpos[(long long)b * Sq + q0 + min((int)threadIdx.x, nq - 1)];
+  load_rows<HD, kRows, float, NTH>(Qs, q + b * sq.b + h * sq.h, sq.s, q0,
+                                   Sq);
+  load_rows<HD, kRows, float, NTH>(dOs, dout + b * sdo.b + h * sdo.h, sdo.s,
+                                   q0, Sq);
+  cp_commit();
+  float lrow[2], drow[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = 16 * wr + g + 8 * r;
+    const long long at = ((long long)b * H + h) * Sq + q0 + row;
+    lrow[r] = row < nq ? lse[at] : 0.f;
+    drow[r] = row < nq ? delta[at] : 0.f;
+  }
+  __syncthreads();
+  pos_range(qp, nq, false, rng);
+  const int qmin = rng[0], qmax = rng[1];
+  mark_tiles<BK, NTH>(
+      live, part, nkt, kpb, Sk,
+      [&](int kk) {
+        return kk >= 0 && (!causal || kk <= qmax) &&
+               (window <= 0 || (long long)kk > (long long)qmin - window);
+      },
+      [&](int kk) {
+        return kk >= 0 && (!causal || kk <= qmin) &&
+               (window <= 0 || (long long)kk > (long long)qmax - window);
+      });
+  int kt = next_live(live, 0, nkt);
+  if (kt < nkt) load_rows<HD, BK, float, NTH>(Vs, vb, sv.s, kt * BK, Sk);
+  cp_commit();
+  if (kt < nkt) {
+    load_rows<HD, BK, float, NTH>(Ks, kb, sk.s, kt * BK, Sk);
+    load_vals(kp, kpb, 0, BK, kt * BK, Sk);
+  }
+  cp_commit();
+
+  const int qrow[2] = {qp[16 * wr + g], qp[16 * wr + g + 8]};
+  const float* Qw = Qs + 16 * wr * RS + c0;
+  const float* dOw = dOs + 16 * wr * RS + c0;
+  const float one[2] = {1.f, 1.f};
+  float acc[DC / 8][4];
+  zero(acc);
+
+  while (kt < nkt) {
+    const int k0 = kt * BK;
+    cp_wait<1>();  // Q, dO, this tile's values
+    __syncthreads();
+    float s[NT][4], ds[NT][4];
+    mma_abt<HD, NT, kSplit, DC>(ds, dOw, Vs + c0, nullptr);  // dP, partial
+    put_slot(xs, warp, ds);
+    __syncthreads();  // every warp is done with slot 1, its dP put
+    add_slot(ds, xs, warp ^ 4);
+    const int next = next_live(live, kt + 1, nkt);
+    if (next < nkt) load_rows<HD, BK, float, NTH>(Vs, vb, sv.s, next * BK, Sk);
+    cp_commit();
+    cp_wait<1>();  // this tile's keys and positions
+    __syncthreads();  // (and every partner has read this warp's dP)
+    mma_abt<HD, NT, kSplit, DC>(s, Qw, Ks + c0, nullptr);  // S, partial
+    put_slot(xs, warp, s);
+    pair_sync(wr);
+    add_slot(s, xs, warp ^ 4);
+    const bool full = !bit_set(part, kt) && k0 + BK <= Sk;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * j + 2 * t + (e & 1), r = e >> 1;
+        const float p =
+            full || (k0 + c < Sk && visible(qrow[r], kp[c], causal, window))
+                ? expf(__fmul_rn(s[j][e], scale) - lrow[r])
+                : 0.f;
+        ds[j][e] = p * (ds[j][e] - drow[r]);
+      }
+    mma_pb<HD, DC, NT, kChunkOf<DC>, kSplit>(acc, ds, Ks + c0, nullptr, one);
+    __syncthreads();  // every warp is done with slot 0 and its partner's S
+    if (next < nkt) {
+      load_rows<HD, BK, float, NTH>(Ks, kb, sk.s, next * BK, Sk);
+      load_vals(kp, kpb, 0, BK, next * BK, Sk);
+    }
+    cp_commit();
+    kt = next;
+  }
+  cp_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = 16 * wr + g + 8 * r;
+    if (row >= nq) continue;
     float* out = dq + b * sdq.b + (long long)(q0 + row) * sdq.s + h * sdq.h +
                  c0 + 2 * t;
 #pragma unroll
@@ -992,9 +1441,9 @@ __global__ void __launch_bounds__(kThreads, 2)
 
 constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
 
-// the output columns a block owns: all of them up to hd 128; at hd 256 two
-// blocks of 128 each (an accumulator of hd floats a thread, or two in
-// dK/dV, would not fit the registers), both computing the whole S (and dP)
+// the output columns a forward block owns: all of them up to hd 128; at hd
+// 256 two blocks of 128 each (an accumulator of hd floats a thread would
+// not fit the registers), both computing the whole S
 template <int HD>
 constexpr int kColsOf = HD > 128 ? 128 : HD;
 constexpr int col_blocks(int hd) { return hd > 128 ? hd / 128 : 1; }
@@ -1022,6 +1471,8 @@ size_t dq_smem(int Sk) {
          sizeof(int) * (kBwdTile + kRows + 4 +
                         2 * bitmap_words(cdiv(Sk, kBwdTile)));
 }
+// the warp-pair kernels add the warps' exchange slots: 8 x 16 x 32 floats
+constexpr size_t kExchangeBytes = sizeof(float) * 8 * 16 * kBwdTile;
 
 // shared memory above 48 KB, and the SM's carve-out at its most, so that
 // two blocks fit an SM
@@ -1061,9 +1512,9 @@ template <int HD>
 cudaError_t bwd(const float* q, const float* k, const float* v,
                 const float* o, const float* dout, const int* qpos,
                 const int* kpos, const float* lse, float* delta, float* dq,
-                float* dk, float* dv, int B, int H, int Kv, int Sq, int Sk,
-                int causal, int window, float scale, const long long* st,
-                cudaStream_t stream) {
+                float* dk, float* dv, float* ws, int B, int H, int Kv,
+                int Sq, int Sk, int causal, int window, int parts,
+                float scale, const long long* st, cudaStream_t stream) {
   const long long rows = (long long)B * H * Sq;
   const long long warps = kDeltaThreads / 32;
   delta_kernel<<<(unsigned)((rows + warps - 1) / warps), kDeltaThreads, 0,
@@ -1072,29 +1523,55 @@ cudaError_t bwd(const float* q, const float* k, const float* v,
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const int G = H / Kv;
-  constexpr int DC = kColsOf<HD>, NC = HD / DC;
-  const size_t s1 = dkdv_smem<HD>(Sq);
-  if ((e = prepare(dkdv_kernel<HD, DC>, s1)) != cudaSuccess) return e;
-  dkdv_kernel<HD, DC><<<cdiv(Sk, kRows) * Kv * B * NC, kThreads, s1,
-                        stream>>>(
-      q, k, v, dout, qpos, kpos, lse, delta, dk, dv, B, H, Kv, G, Sq, Sk,
-      causal, window, scale, strides_at(st, 0), strides_at(st, 1),
-      strides_at(st, 2), strides_at(st, 4), strides_at(st, 6),
-      strides_at(st, 7));
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  const size_t s2 = dq_smem<HD>(Sk);
-  if ((e = prepare(dq_kernel<HD, DC>, s2)) != cudaSuccess) return e;
-  dq_kernel<HD, DC><<<cdiv(Sq, kRows) * H * B * NC, kThreads, s2, stream>>>(
-      q, k, v, dout, qpos, kpos, lse, delta, dq, B, H, G, Sq, Sk, causal,
-      window, scale, strides_at(st, 0), strides_at(st, 1), strides_at(st, 2),
-      strides_at(st, 4), strides_at(st, 5));
+  const Strides sq = strides_at(st, 0), sk = strides_at(st, 1),
+                sv = strides_at(st, 2), sdo = strides_at(st, 4),
+                sdq = strides_at(st, 5), sdk = strides_at(st, 6),
+                sdv = strides_at(st, 7);
+  if constexpr (HD > 128) {
+    const size_t s1 = dkdv_smem<HD>(Sq) + kExchangeBytes;
+    if ((e = prepare(dkdv_pair_kernel<HD>, s1)) != cudaSuccess) return e;
+    dkdv_pair_kernel<HD><<<cdiv(cdiv(Sk, kRows), 2) * Kv * B * parts,
+                           kPairThreads, s1, stream>>>(
+        q, k, v, dout, qpos, kpos, lse, delta, dk, dv,
+        parts > 1 ? ws : nullptr, B, H, Kv, G, G / parts, Sq, Sk, causal,
+        window, scale, sq, sk, sv, sdo, sdk, sdv);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+    if (parts > 1) {
+      const long long plane = (long long)B * Sk * Kv * HD;
+      const long long blocks =
+          (2 * plane / 4 + kDeltaThreads - 1) / kDeltaThreads;
+      dkdv_reduce_kernel<HD><<<(unsigned)(blocks < 4096 ? blocks : 4096),
+                               kDeltaThreads, 0, stream>>>(
+          ws, dk, dv, parts, Sk, Kv, plane, scale, sdk, sdv);
+      if ((e = cudaGetLastError()) != cudaSuccess) return e;
+    }
+    const size_t s2 = dq_smem<HD>(Sk) + kExchangeBytes;
+    if ((e = prepare(dq_pair_kernel<HD>, s2)) != cudaSuccess) return e;
+    dq_pair_kernel<HD><<<cdiv(Sq, kRows) * H * B, kPairThreads, s2,
+                         stream>>>(q, k, v, dout, qpos, kpos, lse, delta, dq,
+                                   B, H, G, Sq, Sk, causal, window, scale,
+                                   sq, sk, sv, sdo, sdq);
+  } else {
+    const size_t s1 = dkdv_smem<HD>(Sq);
+    if ((e = prepare(dkdv_kernel<HD>, s1)) != cudaSuccess) return e;
+    dkdv_kernel<HD><<<cdiv(Sk, kRows) * Kv * B, kThreads, s1, stream>>>(
+        q, k, v, dout, qpos, kpos, lse, delta, dk, dv, B, H, Kv, G, Sq, Sk,
+        causal, window, scale, sq, sk, sv, sdo, sdk, sdv);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+    const size_t s2 = dq_smem<HD>(Sk);
+    if ((e = prepare(dq_kernel<HD>, s2)) != cudaSuccess) return e;
+    dq_kernel<HD><<<cdiv(Sq, kRows) * H * B, kThreads, s2, stream>>>(
+        q, k, v, dout, qpos, kpos, lse, delta, dq, B, H, G, Sq, Sk, causal,
+        window, scale, sq, sk, sv, sdo, sdq);
+  }
   return cudaGetLastError();
 }
 
 // blocks per SM, dynamic shared memory, registers and local (spill) bytes
-// of one kernel: res[0..3]
+// of one kernel, and its threads a block: res[0..4]
 template <typename K>
-cudaError_t resources_of(K kernel, size_t bytes, int* res) {
+cudaError_t resources_of(K kernel, size_t bytes, int* res,
+                         int threads = kThreads) {
   cudaError_t e = prepare(kernel, bytes);
   if (e != cudaSuccess) return e;
   cudaFuncAttributes a;
@@ -1102,7 +1579,8 @@ cudaError_t resources_of(K kernel, size_t bytes, int* res) {
   res[1] = (int)bytes;
   res[2] = a.numRegs;
   res[3] = (int)a.localSizeBytes;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(res, kernel, kThreads,
+  res[4] = threads;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(res, kernel, threads,
                                                        bytes);
 }
 
@@ -1113,11 +1591,21 @@ cudaError_t occupancy(int S, int* res) {
   if ((e = resources_of(fwd_kernel<HD, DC, float>, fwd_smem<HD>(S), res)) !=
           cudaSuccess ||
       (e = resources_of(fwd_kernel<HD, DC, __nv_bfloat16>, fwd_smem<HD>(S),
-                        res + 4)) != cudaSuccess ||
-      (e = resources_of(dkdv_kernel<HD, DC>, dkdv_smem<HD>(S), res + 8)) !=
-          cudaSuccess)
+                        res + 5)) != cudaSuccess)
     return e;
-  return resources_of(dq_kernel<HD, DC>, dq_smem<HD>(S), res + 12);
+  if constexpr (HD > 128) {
+    if ((e = resources_of(dkdv_pair_kernel<HD>,
+                          dkdv_smem<HD>(S) + kExchangeBytes, res + 10,
+                          kPairThreads)) != cudaSuccess)
+      return e;
+    return resources_of(dq_pair_kernel<HD>, dq_smem<HD>(S) + kExchangeBytes,
+                        res + 15, kPairThreads);
+  } else {
+    if ((e = resources_of(dkdv_kernel<HD>, dkdv_smem<HD>(S), res + 10)) !=
+        cudaSuccess)
+      return e;
+    return resources_of(dq_kernel<HD>, dq_smem<HD>(S), res + 15);
+  }
 }
 
 bool shape_ok(int B, int H, int Kv, int Sq, int Sk, int hd) {
@@ -1166,17 +1654,22 @@ extern "C" int flash_attention_fwd(int bf16, const void* q, const void* k,
 // float32 throughout: q, k, v, o, dout as in the forward; lse (B, H, Sq)
 // from it; delta (B, H, Sq) scratch; -> dq (B, Sq, H, hd), dk, dv (B, Sk,
 // Kv, hd). strides: 24 element strides (b, s, head) of q, k, v, o, dout,
-// dq, dk, dv.
+// dq, dk, dv. parts: the hd-256 dK/dV kernel's split of each group's
+// H / Kv heads (a divisor of it; 1 below hd 256); with parts > 1, ws holds
+// parts x 2 x B x Sk x Kv x hd floats of scratch for its partial sums.
 extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    const void* v, const void* o,
                                    const void* dout, const void* qpos,
                                    const void* kpos, const void* lse,
                                    void* delta, void* dq, void* dk, void* dv,
-                                   int B, int H, int Kv, int Sq, int Sk,
-                                   int hd, int causal, int window,
-                                   float scale, const long long* strides,
-                                   void* stream) {
-  if (!shape_ok(B, H, Kv, Sq, Sk, hd)) return (int)cudaErrorInvalidValue;
+                                   void* ws, int B, int H, int Kv, int Sq,
+                                   int Sk, int hd, int causal, int window,
+                                   int parts, float scale,
+                                   const long long* strides, void* stream) {
+  if (!shape_ok(B, H, Kv, Sq, Sk, hd) || parts < 1 || (H / Kv) % parts ||
+      (parts > 1 && (hd <= 128 || ws == nullptr)) ||
+      (long long)cdiv(cdiv(Sk, kRows), 2) * Kv * B * parts > INT_MAX)
+    return (int)cudaErrorInvalidValue;
 #define BWD(HD)                                                               \
   return (int)bwd<HD>(                                                        \
       static_cast<const float*>(q), static_cast<const float*>(k),             \
@@ -1184,8 +1677,9 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
       static_cast<const float*>(dout), static_cast<const int*>(qpos),         \
       static_cast<const int*>(kpos), static_cast<const float*>(lse),          \
       static_cast<float*>(delta), static_cast<float*>(dq),                    \
-      static_cast<float*>(dk), static_cast<float*>(dv), B, H, Kv, Sq, Sk,     \
-      causal, window, scale, strides, static_cast<cudaStream_t>(stream))
+      static_cast<float*>(dk), static_cast<float*>(dv),                       \
+      static_cast<float*>(ws), B, H, Kv, Sq, Sk, causal, window, parts,       \
+      scale, strides, static_cast<cudaStream_t>(stream))
   switch (hd) {
     case 16: BWD(16);
     case 32: BWD(32);
@@ -1198,11 +1692,11 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
 #undef BWD
 }
 
-// Blocks per SM, dynamic shared memory (bytes), registers a thread and
-// local memory (bytes a thread: spills) of the forward (float32, bfloat16),
-// dK/dV and dQ kernels at head dim hd and sequence length S, from the
-// runtime's occupancy calculator and function attributes: res[16], four a
-// kernel.
+// Blocks per SM, dynamic shared memory (bytes), registers a thread, local
+// memory (bytes a thread: spills) and threads a block of the forward
+// (float32, bfloat16), dK/dV and dQ kernels at head dim hd and sequence
+// length S, from the runtime's occupancy calculator and function
+// attributes: res[20], five a kernel.
 extern "C" int flash_attention_occupancy(int hd, int S, int* res) {
   if (S < 1) return (int)cudaErrorInvalidValue;
   switch (hd) {

@@ -15,15 +15,22 @@ For CPU tensors the wrappers run the plain versions
 companions); for CUDA tensors they launch the kernels or raise — there is
 no fallback. The kernels take float32 or bfloat16 forward, float32
 backward (a bfloat16 backward raises TypeError), head dims 16, 32, 64,
-96, 128 and 256 (at 256 two blocks share a row tile, 128 output columns
-each), and (B, S, heads, hd) tensors with hd contiguous and any other
-strides whose rows start on 16 bytes (their tiles stream through 16-byte
-``cp.async``; a tensor whose base or strides break that is copied). Their
-products run on the tensor cores in split TF32 (three TF32 products a
-float32 product, see the source's note), so the float32 results keep the
-plain versions' tolerances. Their own tiles are 64 rows by 32 keys (by 32
-queries in dK/dV); the plain version's ``block`` is the key block of its
-loop, which the kernels do not need.
+96, 128 and 256, and (B, S, heads, hd) tensors with hd contiguous and any
+other strides whose rows start on 16 bytes (their tiles stream through
+16-byte ``cp.async``; a tensor whose base or strides break that is
+copied). At hd 256 the forward splits a row tile's output columns over
+two blocks, and the backward runs 8-warp blocks of warp pairs, each warp
+a half of the columns, S and dP computed once a pair; its dK/dV kernel
+takes two key tiles a block and, where that leaves the grid short of two
+blocks an SM (MQA: gemma-2b, recurrentgemma-2b), a part of each group's
+query heads (``bwd_parts``), writing partial sums to a float32 workspace
+that the wrapper allocates (parts x 2 x k's elements; 64 MiB at gemma's
+B 2, S 2048) and a second kernel adds in order. Their products run on the
+tensor cores in split TF32 (three TF32 products a float32 product, see the
+source's note), so the float32 results keep the plain versions'
+tolerances. Their own tiles are 64 rows by 32 keys (by 32 queries in
+dK/dV); the plain version's ``block`` is the key block of its loop, which
+the kernels do not need.
 """
 from __future__ import annotations
 
@@ -39,13 +46,14 @@ from repro_torch.kernels.ref import (flash_attention_bwd_ref,
 
 HEAD_DIMS = (16, 32, 64, 96, 128, 256)
 TILE = 64  # the plain versions' key block on the CPU (the kernels' rows)
+SMS = 132  # the H100's SMs, which the hd-256 dK/dV grid is sized for
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _STRIDES = ctypes.POINTER(ctypes.c_longlong)
 _SIGNATURES = {
     "flash_attention_fwd": (_I, [_I] + [_P] * 7 + [_I] * 8
                             + [ctypes.c_float, _STRIDES, _P]),
-    "flash_attention_bwd": (_I, [_P] * 12 + [_I] * 8
+    "flash_attention_bwd": (_I, [_P] * 13 + [_I] * 9
                             + [ctypes.c_float, _STRIDES, _P]),
     "flash_attention_occupancy": (_I, [_I, _I, _P]),
 }
@@ -78,6 +86,21 @@ def _rows(t):
                                                   t.shape[:-1]) if n > 1)):
         return t
     return t.clone(memory_format=torch.contiguous_format)
+
+
+def bwd_parts(B, Sk, H, Kv, hd):
+    """The parts into which the hd-256 dK/dV kernel splits each group's G =
+    H / Kv query heads (1 up to hd 128, whose kernel takes the whole
+    group): the fewest, a divisor of G, that give its grid of B * Kv *
+    ceil(ceil(Sk / 64) / 2) key-tile pairs two blocks an SM, else G. Each
+    part's block writes partial dK and dV sums to a float32 workspace,
+    which a second kernel adds in ascending order of the part."""
+    G = H // Kv
+    if hd <= 128:
+        return 1
+    base = B * Kv * ((-(-Sk // TILE) + 1) // 2)
+    return next((d for d in range(1, G + 1)
+                 if G % d == 0 and base * d >= 2 * SMS), G)
 
 
 def _positions(pos, B, S, device):
@@ -156,7 +179,8 @@ def flash_attention_bwd(q, k, v, out, lse, dout, q_pos, k_pos, *,
     """The backward pass of ``flash_attention_fwd``: (dq, dk, dv), float32,
     shaped as q, k, v. ``out`` and ``lse`` are the forward's outputs,
     ``dout`` the gradient of ``out``. One launch of the backward pass (its
-    row-sum, dK/dV and dQ kernels)."""
+    row-sum, dK/dV and dQ kernels; at hd 256 with the heads split, the
+    reduction of dK/dV's partial sums too)."""
     scale = _scale(q, scale)
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, dout, q_pos, k_pos,
@@ -188,32 +212,39 @@ def flash_attention_bwd(q, k, v, out, lse, dout, q_pos, k_pos, *,
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
     dv = torch.empty(v.shape, dtype=torch.float32, device=q.device)
+    parts = bwd_parts(B, Sk, H, Kv, hd)
+    ws = (torch.empty(parts * 2 * k.numel(), dtype=torch.float32,
+                      device=q.device) if parts > 1 else None)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     _launch("flash_attention_bwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
             out.data_ptr(), dout.data_ptr(), qp.data_ptr(), kp.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), B, H, Kv, Sq, Sk, hd, int(causal),
-            _window(window), scale,
+            dv.data_ptr(), None if ws is None else ws.data_ptr(), B, H, Kv,
+            Sq, Sk, hd, int(causal), _window(window), parts, scale,
             _strides(q, k, v, out, dout, dq, dk, dv), stream)
     flash_attention_bwd.launches += 1
     return dq, dk, dv
 
 
 def occupancy(hd, S):
-    """{kernel: {"blocks_per_sm", "smem", "registers", "local_bytes"}} of
-    the forward (float32, bfloat16), dK/dV and dQ kernels at head dim
-    ``hd`` and sequence length ``S``: blocks per SM and dynamic shared
-    memory bytes from the CUDA runtime's occupancy calculator, registers
-    and local memory bytes (spills) a thread from its function attributes.
+    """{kernel: {"blocks_per_sm", "smem", "registers", "local_bytes",
+    "threads", "warps_per_sm"}} of the forward (float32, bfloat16), dK/dV
+    and dQ kernels at head dim ``hd`` and sequence length ``S``: blocks per
+    SM and dynamic shared memory bytes from the CUDA runtime's occupancy
+    calculator, registers and local memory bytes (spills) a thread from its
+    function attributes, threads a block, and the warps per SM they make.
     Needs a card; launches nothing."""
     if hd not in HEAD_DIMS:
         raise ValueError(f"the flash attention kernels take head dims "
                          f"{HEAD_DIMS}, got {hd}")
-    res = (ctypes.c_int * 16)()
+    res = (ctypes.c_int * 20)()
     _launch("flash_attention_occupancy", hd, S, ctypes.addressof(res))
-    keys = ("blocks_per_sm", "smem", "registers", "local_bytes")
-    return {name: dict(zip(keys, res[4 * i:4 * i + 4]))
-            for i, name in enumerate(KERNELS)}
+    keys = ("blocks_per_sm", "smem", "registers", "local_bytes", "threads")
+    out = {name: dict(zip(keys, res[5 * i:5 * i + 5]))
+           for i, name in enumerate(KERNELS)}
+    for r in out.values():
+        r["warps_per_sm"] = r["blocks_per_sm"] * r["threads"] // 32
+    return out
 
 
 # kernel launches since the counts were last set to 0

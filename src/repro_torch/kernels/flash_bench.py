@@ -2,29 +2,38 @@
 
   python -m repro_torch.kernels.flash_bench
 
-First each kernel's resources at hd 128: registers and local (spill)
-bytes a thread from the CUDA runtime's function attributes, blocks per SM
-and dynamic shared memory from its occupancy calculator. Then, at the
-attn_block path's shape (B 2, S 2048, H 16, hd 128, causal), a GQA shape
-(H 32 on Kv 8) and a head dim of 64, it holds the forward and the
-backward kernels against their plain versions (2e-5 and 1e-4) and prints
-each one's median time over 20 launches (CUDA events, after 3 warm-up
-launches) beside two operation bounds over the visible pairs: the float32
-CUDA cores' (the operations at 67 TFLOP/s) and that of the route the
-kernels take, three TF32 tensor-core products a float32 product (3 x the
-operations at 495 TFLOP/s); the H100's published dense rates. The share
-printed is of the tensor-core bound. (The library's time on the same
-inputs is ``chip_smoke.py``'s, phase 3.) Beside the times, each output's
-(out, lse, dq, dk, dv) worst error as a share of its tolerance against a
-dense float64 answer, for the kernels and for the plain versions. Last,
-the card's name and power limit. It exits 2 without a card, 1 if a kernel
+First each kernel's resources at hd 128 and 256: registers and local
+(spill) bytes a thread from the CUDA runtime's function attributes, blocks
+and warps per SM and dynamic shared memory from its occupancy calculator.
+Then, at the attn_block path's shape (B 2, S 2048, H 16, hd 128, causal),
+a GQA shape (H 32 on Kv 8), a head dim of 64, gemma-2b's (H 8 on Kv 1, hd
+256) and recurrentgemma-2b's local attention (H 10 on Kv 1, hd 256), it
+holds the forward and the backward kernels against their plain versions
+(2e-5 and 1e-4) and prints each one's median time over 20 launches (CUDA
+events, after 3 warm-up launches) beside two operation bounds over the
+visible pairs: the float32 CUDA cores' (the operations at 67 TFLOP/s) and
+that of the route the kernels take, three TF32 tensor-core products a
+float32 product (3 x the operations at 495 TFLOP/s); the H100's published
+dense rates. The share printed is of the tensor-core bound. Beside them,
+torch's ``scaled_dot_product_attention`` on the same float32 tensors
+(forward, and its backward on a retained graph): the library's time, used
+nowhere in the port. Then the backward's own kernels (row sums, dK/dV, the
+reduction of dK/dV's partial sums where there is one, dQ): each one's
+device time a backward call and its share, from a ``torch.profiler``
+trace of 10 calls. Beside the times, each output's (out, lse, dq, dk, dv)
+worst error as a share of its tolerance against a dense float64 answer,
+for the kernels and for the plain versions. Every timed line ends with the
+card's name and power limit. It exits 2 without a card, 1 if a kernel
 disagrees.
 """
 from __future__ import annotations
 
+import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 
 import torch
 
@@ -32,8 +41,12 @@ FP32_FLOPS = 67e12   # float32 on the CUDA cores
 TF32_FLOPS = 495e12  # TF32 on the tensor cores, dense
 SPLIT = 3            # TF32 products a float32 product (hi hi, hi lo, lo hi)
 SHAPES = ((2, 2048, 16, 16, 128), (2, 2048, 32, 8, 128),
-          (4, 1024, 16, 16, 64))  # (B, S, H, Kv, hd)
+          (4, 1024, 16, 16, 64), (2, 2048, 8, 1, 256),
+          (2, 2048, 10, 1, 256))  # (B, S, H, Kv, hd)
 TOLS = (2e-5, 2e-5, 1e-4, 1e-4, 1e-4)  # out, lse, dq, dk, dv
+# the backward's kernels by a piece of their names, in the order tried
+BWD_KERNELS = (("delta_kernel", "row sums"), ("reduce", "dK/dV reduction"),
+               ("dkdv", "dK/dV"), ("dq_", "dQ"))
 
 
 def bounds_ms(ops):
@@ -48,14 +61,20 @@ def flops(B, S, H, hd, pairs):
     return 4 * hd * pairs * B * H, 10 * hd * pairs * B * H
 
 
+def card_line():
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
+
+
 def resource_lines(hd=128, S=2048):
     """One line a kernel: its resources at head dim ``hd`` and sequence
     length ``S`` (``flash_attention.occupancy``)."""
     from repro_torch.kernels.flash_attention import occupancy
     return [f"  {name} (hd {hd}): {r['registers']} registers, "
             f"{r['local_bytes']} B local (spills) a thread, "
-            f"{r['blocks_per_sm']} blocks ({4 * r['blocks_per_sm']} warps) "
-            f"per SM, {r['smem']} B shared memory"
+            f"{r['blocks_per_sm']} blocks ({r['warps_per_sm']} warps) per "
+            f"SM, {r['smem']} B shared memory"
             for name, r in occupancy(hd, S).items()]
 
 
@@ -73,6 +92,80 @@ def time_ms(fn, reps=20, warmup=3):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def kernel_ms(fn, reps=10):
+    """{kernel name: mean device ms a call} of the CUDA kernels that
+    ``fn`` launches, from the Chrome trace of a ``torch.profiler`` run of
+    ``reps`` calls (after one warm-up call); {} when the trace holds no
+    kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    out = {}
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") == "kernel":
+            name = e.get("name", "?")
+            out[name] = out.get(name, 0.0) + float(e.get("dur", 0)) / 1e3
+    return {k: v / reps for k, v in out.items()}
+
+
+def backward_kernel_ms(fn, reps=10):
+    """{"row sums", "dK/dV reduction", "dK/dV", "dQ": mean device ms a
+    call} of the flash backward ``fn`` (``kernel_ms``, its kernels told
+    apart by ``BWD_KERNELS``; a kernel it did not launch is absent, any
+    other kernel is "other"); {} when the profiler saw no kernel."""
+    out = {}
+    for name, ms in kernel_ms(fn, reps).items():
+        label = next((lab for piece, lab in BWD_KERNELS if piece in name),
+                     "other")
+        out[label] = out.get(label, 0.0) + ms
+    return out
+
+
+def shares_line(per):
+    """The backward's kernels, each one's ms and share of their sum."""
+    if not per:
+        return "not measured (the profiler saw no kernel)"
+    total = sum(per.values())
+    return ", ".join(f"{k} {ms:.4f} ms ({100 * ms / total:.1f}%)"
+                     for k, ms in per.items()) + f"; sum {total:.4f} ms"
+
+
+def library_ms(q, k, v, do):
+    """(forward, backward) ms of ``scaled_dot_product_attention``
+    (is_causal, enable_gqa where Kv < H) on the same float32 tensors in its
+    (B, H, S, hd) layout, the backward on a retained graph; (None, None)
+    where it does not run on float32."""
+    F = torch.nn.functional
+    ql, kl, vl = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                  for t in (q, k, v))
+    dol = do.transpose(1, 2).contiguous()
+    kw = dict(is_causal=True)
+    if k.shape[2] < q.shape[2]:
+        kw["enable_gqa"] = True
+    try:
+        lo = F.scaled_dot_product_attention(ql, kl, vl, **kw)
+        fwd = time_ms(lambda: F.scaled_dot_product_attention(ql, kl, vl,
+                                                             **kw))
+        bwd = time_ms(lambda: torch.autograd.grad(lo, (ql, kl, vl), dol,
+                                                  retain_graph=True))
+        return fwd, bwd
+    except (RuntimeError, NotImplementedError) as exc:
+        print(f"library: scaled_dot_product_attention does not run on "
+              f"float32 here ({type(exc).__name__}: "
+              f"{str(exc).splitlines()[0]})", flush=True)
+        return None, None
 
 
 def dense64(q, k, v, do):
@@ -106,7 +199,9 @@ def main():
                                                      flash_attention_fwd)
     from repro_torch.kernels.ref import (flash_attention_bwd_ref,
                                          flash_attention_fwd_ref)
-    print("\n".join(resource_lines()), flush=True)
+    card = card_line()
+    for hd in (128, 256):
+        print("\n".join(resource_lines(hd)), flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
     ok = True
     for B, S, H, Kv, hd in SHAPES:
@@ -126,26 +221,35 @@ def main():
         shares = (tolerance_shares((o, lse) + tuple(grads), want),
                   tolerance_shares(plain, want))
         del plain, want
-        fwd = time_ms(lambda: flash_attention_fwd(q, k, v, pos, pos))
-        bwd = time_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do, pos,
-                                                  pos))
-        line = f"B={B} S={S} H={H} Kv={Kv} hd={hd}: agree {agree}"
-        for name, ms, ops in zip(("forward", "backward"), (fwd, bwd),
-                                 flops(B, S, H, hd, S * (S + 1) // 2)):
+        torch.cuda.empty_cache()
+
+        def bwd():
+            return flash_attention_bwd(q, k, v, o, lse, do, pos, pos)
+
+        fwd_ms = time_ms(lambda: flash_attention_fwd(q, k, v, pos, pos))
+        bwd_ms = time_ms(bwd)
+        lib = library_ms(q, k, v, do)
+        shape = f"B={B} S={S} H={H} Kv={Kv} hd={hd}"
+        line = f"{shape}: agree {agree}"
+        for name, ms, ops, lib_ms in zip(
+                ("forward", "backward"), (fwd_ms, bwd_ms),
+                flops(B, S, H, hd, S * (S + 1) // 2), lib):
             fp32, tc = bounds_ms(ops)
             line += (f"; {name} {ms:.4f} ms (bounds "
                      f"{fp32:.4f} float32, {tc:.4f} split TF32: "
-                     f"{100 * tc / ms:.1f}% of it)")
-        print(line, flush=True)
+                     f"{100 * tc / ms:.1f}% of it; library "
+                     + (f"{lib_ms:.4f} ms)" if lib_ms is not None
+                        else "none)"))
+        print(f"{line}; {card}", flush=True)
+        print(f"  {shape} backward's kernels (torch.profiler, a call): "
+              f"{shares_line(backward_kernel_ms(bwd))}; {card}", flush=True)
         print("  worst error / tolerance against float64 (out, lse, dq, dk, "
               "dv): kernels " + " ".join(f"{x:.3g}" for x in shares[0])
               + "; plain versions " + " ".join(f"{x:.3g}" for x in shares[1]),
               flush=True)
         del q, k, v, do, o, lse, grads
         torch.cuda.empty_cache()
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip())
+    print(card)
     return 0 if ok else 1
 
 

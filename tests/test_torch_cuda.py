@@ -703,9 +703,10 @@ def _attention_inputs(B, S, H, Kv, hd, seed, dev):
 # GQA, windows, no causal mask, every head dim the kernels take, a single
 # position, the attn_block path's own shape, and GQA over 2048 positions
 # (the longest sums of dK and dV: 4 query heads a key head); at hd 96
-# (phi3-mini) and 256 (gemma-2b, two column blocks a row tile) GQA, MQA
-# (gemma's 8 query heads on one key head), windows, no causal mask, and
-# gemma's attn_block cell (B 2, S 2048, MQA)
+# (phi3-mini) and 256 (gemma-2b; the backward's warp pairs) GQA, MQA
+# (gemma's 8 query heads on one key head; recurrentgemma's 10, with a
+# window and a tail), windows, no causal mask, and gemma's attn_block cell
+# (B 2, S 2048, MQA)
 ATTENTION = [(2, 100, 4, 2, 64, True, None), (1, 100, 2, 2, 128, True, None),
              (2, 256, 8, 2, 32, True, 64), (2, 130, 4, 4, 16, True, 40),
              (1, 77, 2, 1, 64, False, None), (2, 64, 2, 2, 128, True, None),
@@ -715,7 +716,8 @@ ATTENTION = [(2, 100, 4, 2, 64, True, None), (1, 100, 2, 2, 128, True, None),
              (2, 100, 4, 2, 96, True, None), (1, 300, 8, 1, 96, True, 100),
              (1, 77, 2, 2, 96, False, None), (2, 100, 8, 1, 256, True, None),
              (1, 130, 4, 2, 256, True, 48), (1, 77, 2, 1, 256, False, None),
-             (2, 1, 2, 1, 256, True, None), (2, 2048, 8, 1, 256, True, None)]
+             (2, 1, 2, 1, 256, True, None), (2, 2048, 8, 1, 256, True, None),
+             (1, 300, 10, 1, 256, True, 100)]
 
 
 @pytest.mark.parametrize("B,S,H,Kv,hd,causal,window", ATTENTION)
@@ -778,11 +780,15 @@ def test_flash_attention_unaligned_input_is_copied(cuda):
     torch.testing.assert_close(out_u, r_out, atol=2e-5, rtol=2e-5)
 
 
-def test_flash_attention_runs_are_bit_identical(cuda):
+@pytest.mark.parametrize("H,Kv,hd", [(16, 16, 128), (8, 1, 256),
+                                     (10, 1, 256)])
+def test_flash_attention_runs_are_bit_identical(cuda, H, Kv, hd):
     """Three runs of the forward and backward kernels at the attn_block
-    path's shape (B 2, S 2048, H 16, hd 128, causal) give the same bits:
-    every sum runs in a fixed order and no output is shared."""
-    q, k, v, do, pos = _attention_inputs(2, 2048, 16, 16, 128, 5, cuda)
+    path's shape (B 2, S 2048, H 16, hd 128, causal) and at gemma-2b's and
+    recurrentgemma-2b's MQA shapes (hd 256: 8 and 10 query heads on one,
+    dK/dV's partial sums over the heads' parts) give the same bits: every
+    sum runs in a fixed order and no output is shared."""
+    q, k, v, do, pos = _attention_inputs(2, 2048, H, Kv, hd, 5, cuda)
     runs = []
     for _ in range(3):
         out, lse = flash_attention_fwd(q, k, v, pos, pos)
@@ -802,12 +808,19 @@ def test_flash_attention_kernels_fit_two_blocks_without_spills(cuda):
 
 @pytest.mark.parametrize("hd", [96, 256])
 def test_flash_attention_wide_heads_fit_without_spills(cuda, hd):
-    """At hd 96 and 256 (two column blocks a row tile) every kernel keeps
-    its values in registers (no local memory a thread); hd 96 runs two
-    4-warp blocks an SM, hd 256 (166,912 and 199,680 bytes of tiles) one."""
+    """At hd 96 and 256 every kernel keeps its values in registers (no
+    local memory a thread); hd 96 runs two 4-warp blocks an SM; at hd 256
+    the forward (two column blocks a row tile, 166,912 bytes of tiles) one,
+    and the backward's 8-warp blocks (warp pairs, 216,064 bytes of tiles
+    and exchange slots) one: 8 warps an SM."""
     for name, r in occupancy(hd, 2048).items():
         assert r["registers"] > 0 and r["local_bytes"] == 0, (name, r)
-        assert r["blocks_per_sm"] >= (2 if hd == 96 else 1), (name, r)
+        if hd == 96:
+            assert r["blocks_per_sm"] >= 2, (name, r)
+        elif name.startswith("forward"):
+            assert r["blocks_per_sm"] >= 1, (name, r)
+        else:
+            assert r["warps_per_sm"] >= 8, (name, r)
 
 
 @pytest.mark.parametrize("hd,Kv,window", [(96, 2, None), (96, 1, 40),

@@ -16,6 +16,14 @@ control shows the test has teeth: one-pass TF32 (hi_a hi_b alone) misses
 cores' own accumulation truncates, which the kernels bound by short chains
 (a fresh accumulator a tile) and the card tests hold.
 
+At hd 256 the backward kernels split each product's reduction over the
+two warps of a pair (S and dP as two 128-column partial products, added)
+and, for MQA, dK/dV over parts of the query heads, whose partial sums a
+second kernel adds in ascending order: that order is emulated too, at
+gemma-2b's 8 query heads on one (S 1024, causal and a window of 100), and
+the dK/dV grid's size and balance at the cells' shapes is reckoned from
+the kernel's rule (``bwd_parts``).
+
 Also here, on CPU tensors: the wrapper's rule for reading a tensor in place
 (16-byte rows), and the resource query's refusal of a head dim that no
 kernel takes.
@@ -27,9 +35,11 @@ import pytest
 import torch
 
 import _torch_threads  # noqa: F401
-from repro_torch.kernels.flash_attention import _rows, occupancy
+from repro_torch.kernels.flash_attention import (SMS, _rows, bwd_parts,
+                                                 occupancy)
 
 S, HD, TILE = 1024, 128, 64
+WIDE = 256  # the head dim of the backward's warp pairs (gemma-2b's)
 NEG_INF = -1e30
 
 
@@ -143,6 +153,90 @@ def test_split_tf32_gradients_within_tolerance(H, Kv, window):
     for a, b in zip(got[2:], want[2:]):
         assert a.shape == b.shape
         torch.testing.assert_close(a.double(), b, atol=1e-4, rtol=1e-4)
+
+
+def backward_pairs(q, k, v, out, lse, do, window, mm, parts):
+    """(dq, dk, dv) of MQA (q, do (H, S, hd); k, v (1, S, hd)) in the
+    hd-256 kernels' order of summation, every product through ``mm``: S
+    and dP as columns 0-127's partial product plus columns 128-255's; dK
+    and dV a fresh product a (head, 32-query tile), added over the tiles
+    and then the heads of each of ``parts`` parts in ascending order, the
+    parts' sums then added in ascending order, dK scaled last."""
+    H, _, hd = q.shape
+    scale, c = 1.0 / math.sqrt(hd), hd // 2
+
+    def halves(a, b):
+        return (mm(a[..., :c], b[..., :c].transpose(1, 2))
+                + mm(a[..., c:], b[..., c:].transpose(1, 2)))
+
+    s = halves(q, k) * scale
+    p = torch.exp(s - lse[..., None]).masked_fill(~_mask(window), 0.0)
+    ds = p * (halves(do, v) - (do * out).sum(-1)[..., None])
+    dq = scale * mm(ds, k)
+    dk, dv = torch.zeros_like(k[0]), torch.zeros_like(v[0])
+    for part in range(parts):
+        pk, pv = torch.zeros_like(dk), torch.zeros_like(dv)
+        for h in range(part * H // parts, (part + 1) * H // parts):
+            for q0 in range(0, S, 32):
+                # the keys a tile of causal queries can see
+                lo = 0 if window is None else max(0, q0 - window + 1)
+                hi, rows = q0 + 32, slice(q0, q0 + 32)
+                pk[lo:hi] += mm(ds[h, rows, lo:hi].T, q[h, rows])
+                pv[lo:hi] += mm(p[h, rows, lo:hi].T, do[h, rows])
+        dk, dv = dk + pk, dv + pv
+    return dq, scale * dk[None], dv[None]
+
+
+WIDE_CASES = [(None, bwd_parts(1, S, 8, 1, WIDE)),
+              (100, bwd_parts(1, S, 8, 1, WIDE)), (None, 2)]
+
+
+@pytest.mark.parametrize("window,parts", WIDE_CASES)
+def test_hd256_summation_order_within_tolerance(window, parts):
+    """The hd-256 backward's order of summation in split TF32 (8 query
+    heads on 1, S 1024: one head a part as the wrapper splits them at this
+    shape, and four heads a part) keeps the gradients within 1e-4 of
+    float64."""
+    rng = np.random.default_rng(7)
+    q, do = (torch.from_numpy(rng.standard_normal((8, S, WIDE)).astype(
+        np.float32)) for _ in range(2))
+    k, v = (torch.from_numpy(rng.standard_normal((1, S, WIDE)).astype(
+        np.float32)) for _ in range(2))
+    got, want = [], []
+    for dtype, f in ((torch.float32, mm_split), (torch.float64, mm_exact)):
+        qq, kk, vv, dd = (t.to(dtype) for t in (q, k, v, do))
+        kx, vx = kk.expand(8, -1, -1), vv.expand(8, -1, -1)
+        out, lse = forward(qq, kx, vx, window, f)
+        if dtype == torch.float32:
+            got = backward_pairs(qq, kk, vv, out, lse, dd, window, f, parts)
+        else:
+            want = backward(qq, kx, vx, out, lse, dd, window, f, 8)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        torch.testing.assert_close(a.double(), b, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("H", [8, 10])
+def test_hd256_dkdv_grid_fills_the_sms(H):
+    """At gemma-2b's (B 2, S 2048, 8 query heads on 1, hd 256) and
+    recurrentgemma-2b's (10 on 1) shapes, the dK/dV kernel's grid (B x the
+    pairs of key tiles kt, nkt - 1 - kt x ``bwd_parts``' parts of the
+    heads) has a block for every SM, no block more than 1.25x the mean
+    block's (head, query tile) iterations under the causal mask, and a
+    workspace of partial sums (parts x dK and dV in float32) of at most
+    128 MB."""
+    B, Sk, hd = 2, 2048, WIDE
+    parts = bwd_parts(B, Sk, H, 1, hd)
+    nkt, nqt = Sk // TILE, Sk // 32
+    iters = []
+    for _ in range(B):
+        for pair in range((nkt + 1) // 2):
+            # a key tile's live query tiles: those past its first key
+            live = sum(nqt - TILE * kt // 32 for kt in {pair, nkt - 1 - pair})
+            iters += [live * (H // parts)] * parts
+    assert len(iters) >= SMS
+    assert max(iters) <= 1.25 * sum(iters) / len(iters)
+    assert parts * 2 * B * Sk * hd * 4 <= 128 * 2 ** 20
 
 
 def test_one_pass_tf32_misses_the_tolerance():
