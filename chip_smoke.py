@@ -26,8 +26,8 @@ Phases, each printing its lines:
      bytes and blocks per SM, checked for no spills and 8 warps an SM);
      the same at head dims 96 and 256 (odd sizes, windows, tails, GQA/MQA
      with 8 and 10 query heads on 1, no causal mask, one position,
-     bfloat16; resources checked for no spills and 8 warps an SM at hd 96
-     and for the hd-256 backward, 4 for the hd-256 forward; three
+     bfloat16; resources checked for no spills and 8 warps an SM, the
+     hd-256 forward and backward warp pairs included; three forward and
      backward runs at each hd-256 MQA shape bit for bit; timed at
      FLASH_TIMED's shapes beside their bound and
      scaled_dot_product_attention with enable_gqa, the backward's own
@@ -1195,21 +1195,19 @@ def flash_checks(torch):
                                                      occupancy)
     from repro_torch.kernels.ref import (flash_attention_bwd_ref,
                                          flash_attention_fwd_ref)
-    # warps an SM each kernel must reach: two 4-warp blocks up to hd 128;
-    # at hd 256 the forward one (its tiles take 166,912 bytes of shared
-    # memory), the backward one 8-warp block (warp pairs)
+    # 8 warps an SM for each kernel: two 4-warp blocks up to hd 128, one
+    # 8-warp block (warp pairs) at hd 256
     for hd in (128, 96, 256):
         for name, r in occupancy(hd, ATTN_SEQ).items():
-            warps = 4 if hd == 256 and name.startswith("forward") else 8
             print(f"flash attention {name} at hd {hd}: {r['registers']} "
                   f"registers, {r['local_bytes']} B local (spills) a "
                   f"thread, {r['blocks_per_sm']} blocks "
                   f"({r['warps_per_sm']} warps) per SM, {r['smem']} B "
                   f"shared memory", flush=True)
             check(r["registers"] > 0 and r["local_bytes"] == 0
-                  and r["warps_per_sm"] >= warps,
+                  and r["warps_per_sm"] >= 8,
                   f"flash attention {name} at hd {hd} spills or runs under "
-                  f"{warps} warps an SM: {r}")
+                  f"8 warps an SM: {r}")
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(6)
     err = {"fwd": 0.0, "fwd_bf16": 0.0, "bwd": 0.0}
@@ -1284,15 +1282,20 @@ def flash_checks(torch):
             err["bwd"] = max(err["bwd"], eb)
             line += f"; backward max|err| {eb:.3g} (rel l2 {rel:.3g})"
             if hd == 256 and Kv == 1 and S == ATTN_SEQ:
-                # MQA: dK/dV's partial sums over the heads' parts
+                # MQA: the warp pairs' exchanged partials of S, dK/dV's
+                # partial sums over the heads' parts
                 for _ in range(2):
+                    o2, lse2 = flash_attention_fwd(q, k, v, pos, pos, **kw)
                     g2 = flash_attention_bwd(q, k, v, o, lse, do, pos, pos,
                                              **kw)
+                    check(torch.equal(o2, o) and torch.equal(lse2, lse),
+                          f"flash_attention_fwd at {label}: three runs do "
+                          f"not give the same bits")
                     check(all(torch.equal(a, b) for a, b in zip(g2, g)),
                           f"flash_attention_bwd at {label}: three runs do "
                           f"not give the same bits")
-                line += "; three runs bit for bit"
-                del g2
+                line += "; three forward and backward runs bit for bit"
+                del o2, lse2, g2
             del g, rg
         print(line, flush=True)
         key = [k_ for k_, v_ in FLASH_TIMED.items() if v_ == (Hq, Kv, hd)]

@@ -41,7 +41,7 @@
 // Determinism: every output element is written by one thread of one block,
 // after sums in a fixed order (tiles in ascending order, the mma sequence,
 // shuffles in a fixed pattern; at hd 256 the two 128-column partials of S
-// and dP added as two terms, which IEEE addition gives the same bits in
+// (forward and backward) and dP added as two terms, which IEEE addition gives the same bits in
 // either order, and dK/dV's parts added in ascending order by
 // dkdv_reduce_kernel, one thread an output element): the same bits on
 // every run. The only atomic is an OR into a block's own bitmaps of tiles
@@ -96,7 +96,8 @@
 //   forward  Q [64] resident; a two-slot ring: slot 0 the key tile [32],
 //            slot 1 the value tile [32], each as hi and lo tiles: the
 //            threads split the chunks they copied once they land, so the
-//            four warps read split fragments (a warp splits only Q and P).
+//            block's warps read split fragments (a warp splits only Q and
+//            P).
 //            Key tile k + 1 loads while tile k's P V runs, value tile k + 1
 //            while tile k + 1's S runs.
 //   dQ       Q, dO [64] resident; slot 0 keys [32], slot 1 values [32];
@@ -110,30 +111,30 @@
 // three 254-255 registers and no spills (the cap of two 128-thread blocks
 // an SM). Head dim 96 takes the same kernels: its tiles take 76,800 bytes
 // (two blocks an SM). At hd 256 a warp's accumulators of hd floats a
-// thread (two in dK/dV) would not fit the registers. The forward splits
-// its output columns in two blocks of 128 (kColsOf), each computing the
-// whole S over hd 256 (166,912 bytes of tiles, one 4-warp block an SM;
-// both halves compute the same lse bit for bit, the first writes it).
-// The backward runs warp pairs instead (dkdv_pair_kernel, dq_pair_kernel):
+// thread (two in dK/dV) would not fit the registers, so all three kernels
+// run warp pairs (fwd_pair_kernel, dkdv_pair_kernel, dq_pair_kernel):
 //   8-warp blocks; warps w and w + 4 own the same 16 rows, w the output
 //   columns 0-127, w + 4 the columns 128-255, so each thread's
-//   accumulators are hd 128's (two of 64 floats in dK/dV, one in dQ).
-//   Each warp of a pair computes S (S^T in dK/dV) and dP over its own 128
-//   columns of the hd reduction; the two partials pass through shared
-//   memory (a 2 KB slot a warp, which S and then dP reuse: 16 KB a block)
-//   and are added, so both warps form the same P and dS and every product
-//   is computed once: dK/dV 8 hd operations a visible pair (the first
-//   design, two column blocks each computing the whole S and dP, did 12),
-//   dQ 6 hd (it did 10). A named barrier of the pair (64 threads) orders a
+//   accumulators are hd 128's (two of 64 floats in dK/dV, one in the
+//   forward and dQ). Each warp of a pair computes S (S^T in dK/dV; and dP
+//   in the backward) over its own 128 columns of the hd reduction; the
+//   two partials pass through shared memory (a 2 KB slot a warp, which S
+//   and then dP reuse: 16 KB a block) and are added, so both warps form
+//   the same m, l and P (and dS) and every product is computed once: the
+//   forward 4 hd operations a visible pair, dK/dV 8 hd, dQ 6 hd (the
+//   first designs, two column blocks each computing the whole S and dP,
+//   did 6, 12 and 10). A named barrier of the pair (64 threads) orders a
 //   slot's write before the partner's read; the block's barriers between
 //   the ring's stages order the read before the slot's next write.
-//   Tiles 199,680 bytes + the slots 16,384 + < 1 KB = 216,736 (dK/dV) and
-//   216,480 (dQ) bytes at S 2048, under a block's 232,448: one block, 8
-//   warps, an SM, with __launch_bounds__(256, 1): 255 and 254 registers a
-//   thread (256 x 255 = 65,280 of the SM's 65,536) and no spills (the
-//   dK/dV kernel reads its keys' positions from shared memory in the mask
-//   and adds dK's tile product one n-tile at a time: 8 bytes a thread
-//   spilled otherwise).
+//   The forward's tiles are Q [64] and the key and value tiles [32] as hi
+//   and lo, all 256 columns: 199,680 bytes, + the slots 16,384 + <
+//   1 KB = 216,480 bytes at S 2048 (dK/dV 216,736, dQ 216,480), under a
+//   block's 232,448: one block, 8 warps, an SM, with
+//   __launch_bounds__(256, 1), 255 registers a thread at most (256 x 255
+//   = 65,280 of the SM's 65,536), and no spills (the forward and dK/dV
+//   kernels read the rows' positions from shared memory in the mask and
+//   take P V's tile product two n-tiles at a time, dK's one: 4 and 8
+//   bytes a thread spilled otherwise).
 //   dK/dV's grid: a block owns a pair of key tiles, kt and nkt - 1 - kt,
 //   one after the other (under a causal mask their live 32-query tiles
 //   add up to the same count, nqt + 2 at S 2048: 64 - 2 kt + 2 + 2 kt =
@@ -150,8 +151,9 @@
 //   allocates (parts x 2 x B x Sk x Kv x hd x 4 bytes: 67,108,864 at
 //   gemma's shape, 83,886,080 at recurrentgemma's), and dkdv_reduce_kernel
 //   adds the parts in ascending order (and scales dK).
-//   dQ's grid: cdiv(S, 64) x H x B blocks (512 at gemma's shape, 640 at
-//   recurrentgemma's), the longest query tiles first.
+//   The forward's and dQ's grids: cdiv(S, 64) x H x B blocks (512 at
+//   gemma's shape, 3.88 waves of 132; 640 at recurrentgemma's), the
+//   longest query tiles first.
 // The ring is filled by 16-byte cp.async.cg, zero-filled past S
 // (src-size 0); bfloat16 tiles are widened to float32 by plain 16-byte
 // loads. Blocks run the longest tiles first: the forward and dQ take the
@@ -440,7 +442,7 @@ __device__ __forceinline__ void load_rows(float* dst, const T* src,
     }
   } else {
     constexpr int C = HD / 8;
-    for (int e = threadIdx.x; e < R * C; e += kThreads) {
+    for (int e = threadIdx.x; e < R * C; e += NTH) {
       const int r = e / C, c = e % C;
       uint4 u = make_uint4(0u, 0u, 0u, 0u);
       if (r0 + r < S)
@@ -456,13 +458,13 @@ __device__ __forceinline__ void load_rows(float* dst, const T* src,
 // the chunks this thread copied by load_rows<HD, R, float> into hi, split
 // in place: hi = tf32(x), lo = tf32(x - hi). Right after the thread's own
 // cp.async group is complete (its copies are visible to it); a barrier
-// then publishes both tiles.
-template <int HD, int R>
+// then publishes both tiles. By the block's NTH threads, as load_rows.
+template <int HD, int R, int NTH = kThreads>
 __device__ __forceinline__ void split_rows(float* hi, float* lo) {
   constexpr int RS = HD + 4, C = HD / 4;
-#pragma unroll (kRowsUnroll<HD, R * C / kThreads>)
-  for (int i = 0; i < R * C / kThreads; ++i) {
-    const int e = threadIdx.x + i * kThreads, at = e / C * RS + 4 * (e % C);
+#pragma unroll (kRowsUnroll<HD, R * C / NTH>)
+  for (int i = 0; i < R * C / NTH; ++i) {
+    const int e = threadIdx.x + i * NTH, at = e / C * RS + 4 * (e % C);
     float4 x = *reinterpret_cast<float4*>(hi + at), h, l;
     uint32_t uh, ul;
     split<true>(x.x, uh, ul);
@@ -576,7 +578,46 @@ __device__ __forceinline__ int next_live(const unsigned* live, int i,
 
 // ---- forward -------------------------------------------------------------
 
-template <int HD, int DC, typename T>
+// The online softmax over one key tile of a warp's rows: the scaled and
+// masked scores s (C layout: rows g, g + 8 in r = 0, 1; a row's 32 keys
+// over the 4 lanes of its quad) become p = exp(s - m') rounded to v's
+// type; m and l move to the tile's, and alpha = exp(m - m') is what the
+// accumulator is scaled by.
+template <int NT, typename T>
+__device__ __forceinline__ void online_softmax(float (&s)[NT][4],
+                                               float (&m_run)[2],
+                                               float (&l_run)[2],
+                                               float (&alpha)[2],
+                                               const T* v) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mx = kNegInf;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+      mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m_run[r], mx);
+    float rs = 0.f;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 2 * r; e < 2 * r + 2; ++e) {
+        s[j][e] = expf(s[j][e] - m_new);
+        rs += s[j][e];
+        s[j][e] = round_as(s[j][e], v);
+      }
+    rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+    rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+    alpha[r] = expf(m_run[r] - m_new);
+    l_run[r] = alpha[r] * l_run[r] + rs;
+    m_run[r] = m_new;
+  }
+}
+
+// up to hd 128: a block owns (b, h, 64 queries) and loops over the key
+// tiles; each warp its 16 queries, all hd columns
+template <int HD, typename T>
 __global__ void __launch_bounds__(kThreads, 2)
     fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                const T* __restrict__ v, const int* __restrict__ qpos,
@@ -584,33 +625,31 @@ __global__ void __launch_bounds__(kThreads, 2)
                float* __restrict__ lse, int B, int H, int G, int Sq, int Sk,
                int causal, int window, float scale, Strides sq, Strides sk,
                Strides sv, Strides so) {
-  constexpr int RS = HD + 4, RV = DC + 4, BK = kFwdKeys, NT = BK / 8;
-  constexpr int NC = HD / DC;
+  constexpr int RS = HD + 4, BK = kFwdKeys, NT = BK / 8;
   constexpr bool SPLIT = std::is_same<T, float>::value;
   constexpr Mode MODE = SPLIT ? kPreB : kExact;
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);  // [64][RS]
   float* Ks = Qs + kRows * RS;  // slot 0: keys [BK][RS], their hi once split
   float* Kl = Ks + BK * RS;     // their lo [BK][RS]
-  float* Vs = Kl + BK * RS;     // slot 1: the block's DC value columns, hi
-  float* Vl = Vs + BK * RV;     // their lo
-  int* kp = reinterpret_cast<int*>(Vl + BK * RV);  // slot 0's positions
+  float* Vs = Kl + BK * RS;     // slot 1: values [BK][RS], hi
+  float* Vl = Vs + BK * RS;     // their lo
+  int* kp = reinterpret_cast<int*>(Vl + BK * RS);  // slot 0's positions
   int* qp = kp + BK;
   int* rng = qp + kRows;
   const int nqt = (Sq + kRows - 1) / kRows, nkt = (Sk + BK - 1) / BK;
   unsigned* live = reinterpret_cast<unsigned*>(rng + 4);
   unsigned* part = live + bitmap_words(nkt);
 
-  const int bh = blockIdx.x % (B * H), rest = blockIdx.x / (B * H);
-  const int qt = nqt - 1 - rest / NC;  // longest first
-  const int c0 = DC * (rest % NC);     // the block's output columns
+  const int bh = blockIdx.x % (B * H);
+  const int qt = nqt - 1 - blockIdx.x / (B * H);  // longest first
   const int h = bh % H, b = bh / H, kvh = h / G, q0 = qt * kRows;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int nq = min(kRows, Sq - q0);
   const int* kpb = kpos + (long long)b * Sk;
   const T* kb = k + b * sk.b + kvh * sk.h;
-  const T* vb = v + b * sv.b + kvh * sv.h + c0;
+  const T* vb = v + b * sv.b + kvh * sv.h;
 
   // rows past Sq repeat the last row's position: computed, never written
   if (threadIdx.x < kRows)
@@ -637,13 +676,13 @@ __global__ void __launch_bounds__(kThreads, 2)
     load_vals(kp, kpb, 0, BK, kt * BK, Sk);
   }
   cp_commit();
-  if (kt < nkt) load_rows<DC, BK>(Vs, vb, sv.s, kt * BK, Sk);
+  if (kt < nkt) load_rows<HD, BK>(Vs, vb, sv.s, kt * BK, Sk);
   cp_commit();
 
   const int qrow[2] = {qp[16 * warp + g], qp[16 * warp + g + 8]};
   const float* Qw = Qs + 16 * warp * RS;
   float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.f, 0.f};
-  float acc[DC / 8][4];
+  float acc[HD / 8][4];
   zero(acc);
 
   while (kt < nkt) {
@@ -678,36 +717,13 @@ __global__ void __launch_bounds__(kThreads, 2)
     }
     cp_commit();
     float alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-        mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m_run[r], mx);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 2 * r; e < 2 * r + 2; ++e) {
-          s[j][e] = expf(s[j][e] - m_new);
-          rs += s[j][e];
-          s[j][e] = round_as(s[j][e], v);
-        }
-      rs += __shfl_xor_sync(0xffffffffu, rs, 1);
-      rs += __shfl_xor_sync(0xffffffffu, rs, 2);
-      alpha[r] = expf(m_run[r] - m_new);
-      l_run[r] = alpha[r] * l_run[r] + rs;
-      m_run[r] = m_new;
-    }
+    online_softmax(s, m_run, l_run, alpha, v);
     cp_wait<1>();  // this tile's values
-    if constexpr (SPLIT) split_rows<DC, BK>(Vs, Vl);
+    if constexpr (SPLIT) split_rows<HD, BK>(Vs, Vl);
     __syncthreads();
-    mma_pb<DC, DC, NT, kChunkOf<DC>, MODE>(acc, s, Vs, Vl, alpha);
+    mma_pb<HD, HD, NT, kChunkOf<HD>, MODE>(acc, s, Vs, Vl, alpha);
     __syncthreads();  // every warp is done with slot 1
-    if (next < nkt) load_rows<DC, BK>(Vs, vb, sv.s, next * BK, Sk);
+    if (next < nkt) load_rows<HD, BK>(Vs, vb, sv.s, next * BK, Sk);
     cp_commit();
     kt = next;
   }
@@ -718,12 +734,11 @@ __global__ void __launch_bounds__(kThreads, 2)
     const int row = 16 * warp + g + 8 * r;
     if (row >= nq) continue;
     const float den = fmaxf(l_run[r], 1e-30f);
-    T* orow =
-        o + b * so.b + (long long)(q0 + row) * so.s + h * so.h + c0 + 2 * t;
+    T* orow = o + b * so.b + (long long)(q0 + row) * so.s + h * so.h + 2 * t;
 #pragma unroll
-    for (int n = 0; n < DC / 8; ++n)
+    for (int n = 0; n < HD / 8; ++n)
       store2(orow + 8 * n, acc[n][2 * r] / den, acc[n][2 * r + 1] / den);
-    if (t == 0 && c0 == 0)
+    if (t == 0)
       lse[((long long)b * H + h) * Sq + q0 + row] = m_run[r] + logf(l_run[r]);
   }
 }
@@ -1025,7 +1040,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
-// ---- backward at hd 256: warp pairs --------------------------------------
+// ---- hd 256: warp pairs -------------------------------------------------
 
 constexpr int kPairThreads = 256;  // 8 warps: pairs (w, w + 4), w < 4
 
@@ -1063,6 +1078,150 @@ __device__ __forceinline__ void add_slot(float (&s)[NT][4], const float* xs,
     s[j][1] += x.y;
     s[j][2] += x.z;
     s[j][3] += x.w;
+  }
+}
+
+// The forward at hd 256. A block owns (b, h, 64 queries) and loops over the
+// key tiles; warps w and w + 4 own the same 16 queries, w the output
+// columns 0-127 and the reduction's columns 0-127 of S, w + 4 the columns
+// 128-255. The two partials of S are added in both warps, so both form the
+// same m, l, alpha and P, and each runs P V over its own output columns;
+// warp w writes lse.
+template <int HD, typename T>
+__global__ void __launch_bounds__(kPairThreads, 1)
+    fwd_pair_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const int* __restrict__ qpos,
+                    const int* __restrict__ kpos, T* __restrict__ o,
+                    float* __restrict__ lse, int B, int H, int G, int Sq,
+                    int Sk, int causal, int window, float scale, Strides sq,
+                    Strides sk, Strides sv, Strides so) {
+  constexpr int RS = HD + 4, DC = HD / 2, BK = kFwdKeys, NT = BK / 8;
+  constexpr int NTH = kPairThreads, XS = NT * 4 * 32;
+  constexpr bool SPLIT = std::is_same<T, float>::value;
+  constexpr Mode MODE = SPLIT ? kPreB : kExact;
+  extern __shared__ float4 smem4[];
+  float* Qs = reinterpret_cast<float*>(smem4);  // [64][RS]
+  float* Ks = Qs + kRows * RS;  // slot 0: keys [BK][RS], their hi once split
+  float* Kl = Ks + BK * RS;     // their lo [BK][RS]
+  float* Vs = Kl + BK * RS;     // slot 1: values [BK][RS], hi
+  float* Vl = Vs + BK * RS;     // their lo
+  float* xs = Vl + BK * RS;     // [8][XS]: each warp's partial S
+  int* kp = reinterpret_cast<int*>(xs + 8 * XS);  // slot 0's positions
+  int* qp = kp + BK;
+  int* rng = qp + kRows;
+  const int nqt = (Sq + kRows - 1) / kRows, nkt = (Sk + BK - 1) / BK;
+  unsigned* live = reinterpret_cast<unsigned*>(rng + 4);
+  unsigned* part = live + bitmap_words(nkt);
+
+  const int bh = blockIdx.x % (B * H);
+  const int qt = nqt - 1 - blockIdx.x / (B * H);  // longest first
+  const int h = bh % H, b = bh / H, kvh = h / G, q0 = qt * kRows;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wr = warp & 3, c0 = DC * (warp >> 2);  // its rows, its columns
+  const int nq = min(kRows, Sq - q0);
+  const int* kpb = kpos + (long long)b * Sk;
+  const T* kb = k + b * sk.b + kvh * sk.h;
+  const T* vb = v + b * sv.b + kvh * sv.h;
+
+  // rows past Sq repeat the last row's position: computed, never written
+  if (threadIdx.x < kRows)
+    qp[threadIdx.x] =
+        qpos[(long long)b * Sq + q0 + min((int)threadIdx.x, nq - 1)];
+  load_rows<HD, kRows, T, NTH>(Qs, q + b * sq.b + h * sq.h, sq.s, q0, Sq);
+  cp_commit();
+  __syncthreads();
+  pos_range(qp, nq, false, rng);
+  const int qmin = rng[0], qmax = rng[1];
+  mark_tiles<BK, NTH>(
+      live, part, nkt, kpb, Sk,
+      [&](int kk) {
+        return kk >= 0 && (!causal || kk <= qmax) &&
+               (window <= 0 || (long long)kk > (long long)qmin - window);
+      },
+      [&](int kk) {
+        return kk >= 0 && (!causal || kk <= qmin) &&
+               (window <= 0 || (long long)kk > (long long)qmax - window);
+      });
+  int kt = next_live(live, 0, nkt);
+  if (kt < nkt) {
+    load_rows<HD, BK, T, NTH>(Ks, kb, sk.s, kt * BK, Sk);
+    load_vals(kp, kpb, 0, BK, kt * BK, Sk);
+  }
+  cp_commit();
+  if (kt < nkt) load_rows<HD, BK, T, NTH>(Vs, vb, sv.s, kt * BK, Sk);
+  cp_commit();
+
+  const float* Qw = Qs + 16 * wr * RS + c0;
+  float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.f, 0.f};
+  float acc[DC / 8][4];
+  zero(acc);
+
+  while (kt < nkt) {
+    const int k0 = kt * BK;
+    cp_wait<1>();  // Q, this tile's keys and positions
+    if constexpr (SPLIT) split_rows<HD, BK, NTH>(Ks, Kl);
+    __syncthreads();
+    float s[NT][4];
+    // the warp's 128 columns of the reduction, then its partner's added
+    mma_abt<HD, NT, MODE, DC>(s, Qw, Ks + c0, Kl + c0);
+    put_slot(xs, warp, s);
+    pair_sync(wr);
+    add_slot(s, xs, warp ^ 4);
+    if (!bit_set(part, kt) && k0 + BK <= Sk) {  // every pair visible
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = __fmul_rn(s[j][e], scale);
+    } else {
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          // the query's position read here, not held in a register
+          // across the loop (this kernel's registers are at the cap)
+          const int c = 8 * j + 2 * t + (e & 1);
+          s[j][e] = k0 + c < Sk && visible(qp[16 * wr + g + 4 * (e & 2)],
+                                           kp[c], causal, window)
+                  ? __fmul_rn(s[j][e], scale)
+                  : kNegInf;
+        }
+    }
+    __syncthreads();  // every warp is done with slot 0 and its partner's S
+    const int next = next_live(live, kt + 1, nkt);
+    if (next < nkt) {
+      load_rows<HD, BK, T, NTH>(Ks, kb, sk.s, next * BK, Sk);
+      load_vals(kp, kpb, 0, BK, next * BK, Sk);
+    }
+    cp_commit();
+    float alpha[2];
+    online_softmax(s, m_run, l_run, alpha, v);
+    cp_wait<1>();  // this tile's values
+    if constexpr (SPLIT) split_rows<HD, BK, NTH>(Vs, Vl);
+    __syncthreads();
+    // two n-tiles of fresh accumulator at a time (four spilled 8 bytes a
+    // thread)
+    mma_pb<HD, DC, NT, kChunkOf<DC> / 2, MODE>(acc, s, Vs + c0, Vl + c0,
+                                               alpha);
+    __syncthreads();  // every warp is done with slot 1
+    if (next < nkt) load_rows<HD, BK, T, NTH>(Vs, vb, sv.s, next * BK, Sk);
+    cp_commit();
+    kt = next;
+  }
+  cp_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = 16 * wr + g + 8 * r;
+    if (row >= nq) continue;
+    const float den = fmaxf(l_run[r], 1e-30f);
+    T* orow = o + b * so.b + (long long)(q0 + row) * so.s + h * so.h + c0 +
+              2 * t;
+#pragma unroll
+    for (int n = 0; n < DC / 8; ++n)
+      store2(orow + 8 * n, acc[n][2 * r] / den, acc[n][2 * r + 1] / den);
+    if (t == 0 && warp < 4)
+      lse[((long long)b * H + h) * Sq + q0 + row] = m_run[r] + logf(l_run[r]);
   }
 }
 
@@ -1441,21 +1600,33 @@ __global__ void __launch_bounds__(kPairThreads, 1)
 
 constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
 
-// the output columns a forward block owns: all of them up to hd 128; at hd
-// 256 two blocks of 128 each (an accumulator of hd floats a thread would
-// not fit the registers), both computing the whole S
+// the warp-pair kernels' exchange slots: 8 x 16 x 32 floats (a warp's S
+// fragments over a tile of 32 keys or queries)
+static_assert(kFwdKeys == kBwdTile, "one size of exchange slot");
+constexpr size_t kExchangeBytes = sizeof(float) * 8 * 16 * kBwdTile;
+
+// the forward kernel of a head dim and its threads a block: warp pairs at
+// hd 256 (an accumulator of hd floats a thread would not fit the
+// registers)
+template <int HD, typename T>
+auto fwd_kernel_of() {
+  if constexpr (HD > 128)
+    return fwd_pair_kernel<HD, T>;
+  else
+    return fwd_kernel<HD, T>;
+}
 template <int HD>
-constexpr int kColsOf = HD > 128 ? 128 : HD;
-constexpr int col_blocks(int hd) { return hd > 128 ? hd / 128 : 1; }
+constexpr int kFwdThreads = HD > 128 ? kPairThreads : kThreads;
 
 template <int HD>
 constexpr size_t tile_bytes(int rows) {
   return sizeof(float) * (size_t)rows * (HD + 4);
 }
+// Q, the keys' and the values' hi and lo tiles (+ the slots at hd 256)
 template <int HD>
 size_t fwd_smem(int Sk) {
-  return tile_bytes<HD>(kRows + 2 * kFwdKeys) +
-         tile_bytes<kColsOf<HD>>(2 * kFwdKeys) +
+  return tile_bytes<HD>(kRows + 4 * kFwdKeys) +
+         (HD > 128 ? kExchangeBytes : 0) +
          sizeof(int) * (kFwdKeys + kRows + 4 +
                         2 * bitmap_words(cdiv(Sk, kFwdKeys)));
 }
@@ -1471,9 +1642,6 @@ size_t dq_smem(int Sk) {
          sizeof(int) * (kBwdTile + kRows + 4 +
                         2 * bitmap_words(cdiv(Sk, kBwdTile)));
 }
-// the warp-pair kernels add the warps' exchange slots: 8 x 16 x 32 floats
-constexpr size_t kExchangeBytes = sizeof(float) * 8 * 16 * kBwdTile;
-
 // shared memory above 48 KB, and the SM's carve-out at its most, so that
 // two blocks fit an SM
 template <typename K>
@@ -1495,12 +1663,11 @@ cudaError_t fwd(const void* q, const void* k, const void* v, const int* qpos,
                 const int* kpos, void* o, float* lse, int B, int H, int Kv,
                 int Sq, int Sk, int causal, int window, float scale,
                 const long long* st, cudaStream_t stream) {
-  constexpr int DC = kColsOf<HD>;
+  auto kernel = fwd_kernel_of<HD, T>();
   const size_t smem = fwd_smem<HD>(Sk);
-  cudaError_t e = prepare(fwd_kernel<HD, DC, T>, smem);
+  cudaError_t e = prepare(kernel, smem);
   if (e != cudaSuccess) return e;
-  fwd_kernel<HD, DC, T><<<cdiv(Sq, kRows) * H * B * (HD / DC), kThreads, smem,
-                          stream>>>(
+  kernel<<<cdiv(Sq, kRows) * H * B, kFwdThreads<HD>, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), qpos, kpos, static_cast<T*>(o), lse, B, H,
       H / Kv, Sq, Sk, causal, window, scale, strides_at(st, 0),
@@ -1587,11 +1754,10 @@ cudaError_t resources_of(K kernel, size_t bytes, int* res,
 template <int HD>
 cudaError_t occupancy(int S, int* res) {
   cudaError_t e;
-  constexpr int DC = kColsOf<HD>;
-  if ((e = resources_of(fwd_kernel<HD, DC, float>, fwd_smem<HD>(S), res)) !=
-          cudaSuccess ||
-      (e = resources_of(fwd_kernel<HD, DC, __nv_bfloat16>, fwd_smem<HD>(S),
-                        res + 5)) != cudaSuccess)
+  if ((e = resources_of(fwd_kernel_of<HD, float>(), fwd_smem<HD>(S), res,
+                        kFwdThreads<HD>)) != cudaSuccess ||
+      (e = resources_of(fwd_kernel_of<HD, __nv_bfloat16>(), fwd_smem<HD>(S),
+                        res + 5, kFwdThreads<HD>)) != cudaSuccess)
     return e;
   if constexpr (HD > 128) {
     if ((e = resources_of(dkdv_pair_kernel<HD>,
@@ -1608,11 +1774,11 @@ cudaError_t occupancy(int S, int* res) {
   }
 }
 
-bool shape_ok(int B, int H, int Kv, int Sq, int Sk, int hd) {
+bool shape_ok(int B, int H, int Kv, int Sq, int Sk) {
   return B >= 1 && H >= 1 && Kv >= 1 && H % Kv == 0 && Sq >= 1 && Sk >= 1 &&
          B <= 65535 && H <= 65535 &&
-         (long long)cdiv(Sq, kRows) * H * B * col_blocks(hd) <= INT_MAX &&
-         (long long)cdiv(Sk, kRows) * Kv * B * col_blocks(hd) <= INT_MAX;
+         (long long)cdiv(Sq, kRows) * H * B <= INT_MAX &&
+         (long long)cdiv(Sk, kRows) * Kv * B <= INT_MAX;
 }
 
 }  // namespace
@@ -1628,7 +1794,7 @@ extern "C" int flash_attention_fwd(int bf16, const void* q, const void* k,
                                    int hd, int causal, int window,
                                    float scale, const long long* strides,
                                    void* stream) {
-  if (!shape_ok(B, H, Kv, Sq, Sk, hd)) return (int)cudaErrorInvalidValue;
+  if (!shape_ok(B, H, Kv, Sq, Sk)) return (int)cudaErrorInvalidValue;
   const int* qp = static_cast<const int*>(qpos);
   const int* kp = static_cast<const int*>(kpos);
   float* l = static_cast<float*>(lse);
@@ -1666,7 +1832,7 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    int Sk, int hd, int causal, int window,
                                    int parts, float scale,
                                    const long long* strides, void* stream) {
-  if (!shape_ok(B, H, Kv, Sq, Sk, hd) || parts < 1 || (H / Kv) % parts ||
+  if (!shape_ok(B, H, Kv, Sq, Sk) || parts < 1 || (H / Kv) % parts ||
       (parts > 1 && (hd <= 128 || ws == nullptr)) ||
       (long long)cdiv(cdiv(Sk, kRows), 2) * Kv * B * parts > INT_MAX)
     return (int)cudaErrorInvalidValue;

@@ -18,9 +18,9 @@ backward (a bfloat16 backward raises TypeError), head dims 16, 32, 64,
 96, 128 and 256, and (B, S, heads, hd) tensors with hd contiguous and any
 other strides whose rows start on 16 bytes (their tiles stream through
 16-byte ``cp.async``; a tensor whose base or strides break that is
-copied). At hd 256 the forward splits a row tile's output columns over
-two blocks, and the backward runs 8-warp blocks of warp pairs, each warp
-a half of the columns, S and dP computed once a pair; its dK/dV kernel
+copied). At hd 256 the forward and the backward run 8-warp blocks of
+warp pairs, each warp a half of the columns, S (and dP) computed once a
+pair, the two warps' partial products added; the backward's dK/dV kernel
 takes two key tiles a block and, where that leaves the grid short of two
 blocks an SM (MQA: gemma-2b, recurrentgemma-2b), a part of each group's
 query heads (``bwd_parts``), writing partial sums to a float32 workspace

@@ -703,7 +703,7 @@ def _attention_inputs(B, S, H, Kv, hd, seed, dev):
 # GQA, windows, no causal mask, every head dim the kernels take, a single
 # position, the attn_block path's own shape, and GQA over 2048 positions
 # (the longest sums of dK and dV: 4 query heads a key head); at hd 96
-# (phi3-mini) and 256 (gemma-2b; the backward's warp pairs) GQA, MQA
+# (phi3-mini) and 256 (gemma-2b; the warp pairs) GQA, MQA
 # (gemma's 8 query heads on one key head; recurrentgemma's 10, with a
 # window and a tail), windows, no causal mask, and gemma's attn_block cell
 # (B 2, S 2048, MQA)
@@ -810,15 +810,12 @@ def test_flash_attention_kernels_fit_two_blocks_without_spills(cuda):
 def test_flash_attention_wide_heads_fit_without_spills(cuda, hd):
     """At hd 96 and 256 every kernel keeps its values in registers (no
     local memory a thread); hd 96 runs two 4-warp blocks an SM; at hd 256
-    the forward (two column blocks a row tile, 166,912 bytes of tiles) one,
-    and the backward's 8-warp blocks (warp pairs, 216,064 bytes of tiles
-    and exchange slots) one: 8 warps an SM."""
+    the forward's and the backward's 8-warp blocks (warp pairs, 216,480
+    to 216,736 bytes of tiles and exchange slots) one: 8 warps an SM."""
     for name, r in occupancy(hd, 2048).items():
         assert r["registers"] > 0 and r["local_bytes"] == 0, (name, r)
         if hd == 96:
             assert r["blocks_per_sm"] >= 2, (name, r)
-        elif name.startswith("forward"):
-            assert r["blocks_per_sm"] >= 1, (name, r)
         else:
             assert r["warps_per_sm"] >= 8, (name, r)
 

@@ -16,13 +16,14 @@ control shows the test has teeth: one-pass TF32 (hi_a hi_b alone) misses
 cores' own accumulation truncates, which the kernels bound by short chains
 (a fresh accumulator a tile) and the card tests hold.
 
-At hd 256 the backward kernels split each product's reduction over the
-two warps of a pair (S and dP as two 128-column partial products, added)
-and, for MQA, dK/dV over parts of the query heads, whose partial sums a
-second kernel adds in ascending order: that order is emulated too, at
-gemma-2b's 8 query heads on one (S 1024, causal and a window of 100), and
-the dK/dV grid's size and balance at the cells' shapes is reckoned from
-the kernel's rule (``bwd_parts``).
+At hd 256 the kernels split each product's reduction over the two warps
+of a pair (S, and dP in the backward, as two 128-column partial
+products, added) and, for MQA, the backward's dK/dV over parts of the
+query heads, whose partial sums a second kernel adds in ascending order:
+those orders are emulated too, the forward's over its 32-key tiles, at
+gemma-2b's 8 query heads on one and recurrentgemma-2b's 10 (S 1024,
+causal and a window of 100), and the dK/dV grid's size and balance at the
+cells' shapes is reckoned from the kernel's rule (``bwd_parts``).
 
 Also here, on CPU tensors: the wrapper's rule for reading a tensor in place
 (16-byte rows), and the resource query's refusal of a head dim that no
@@ -39,7 +40,8 @@ from repro_torch.kernels.flash_attention import (SMS, _rows, bwd_parts,
                                                  occupancy)
 
 S, HD, TILE = 1024, 128, 64
-WIDE = 256  # the head dim of the backward's warp pairs (gemma-2b's)
+WIDE = 256  # the head dim of the warp pairs (gemma-2b's)
+FWD_KEYS = 32  # the forward kernels' key tile (kFwdKeys)
 NEG_INF = -1e30
 
 
@@ -214,6 +216,53 @@ def test_hd256_summation_order_within_tolerance(window, parts):
     for a, b in zip(got, want):
         assert a.shape == b.shape
         torch.testing.assert_close(a.double(), b, atol=1e-4, rtol=1e-4)
+
+
+def forward_pairs(q, k, v, window, mm):
+    """(out, lse) of causal attention, q (H, S, hd), k, v (H, S, hd) (MQA
+    already by index), in the hd-256 forward kernel's order of summation,
+    every product through ``mm``: S as columns 0-127's partial product
+    plus columns 128-255's, scaled after the sum; the online softmax over
+    32-key tiles; P V a fresh product a tile and a half of the output
+    columns, joined to the accumulator as alpha acc + the product."""
+    scale, c = 1.0 / math.sqrt(q.shape[-1]), q.shape[-1] // 2
+    ok = _mask(window)
+    H = q.shape[0]
+    m = torch.full((H, S), NEG_INF, dtype=q.dtype)
+    l = torch.zeros((H, S), dtype=q.dtype)
+    acc = torch.zeros_like(q)
+    for k0 in range(0, S, FWD_KEYS):
+        kt, vt = k[:, k0:k0 + FWD_KEYS], v[:, k0:k0 + FWD_KEYS]
+        s = (mm(q[..., :c], kt[..., :c].transpose(1, 2))
+             + mm(q[..., c:], kt[..., c:].transpose(1, 2))) * scale
+        s = s.masked_fill(~ok[:, k0:k0 + FWD_KEYS], NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + p.sum(-1)
+        pv = torch.cat([mm(p, vt[..., :c]), mm(p, vt[..., c:])], -1)
+        acc = alpha[..., None] * acc + pv
+        m = m_new
+    return acc / l[..., None], m + torch.log(l)
+
+
+@pytest.mark.parametrize("H,window", [(8, None), (8, 100), (10, None),
+                                      (10, 100)])
+def test_hd256_forward_summation_order_within_tolerance(H, window):
+    """The hd-256 forward's order of summation in split TF32 (gemma-2b's 8
+    and recurrentgemma-2b's 10 query heads on 1, S 1024, causal, with and
+    without a window of 100) keeps the output and the log-sum-exp within
+    2e-5 of float64."""
+    rng = np.random.default_rng(11)
+    q = torch.from_numpy(rng.standard_normal((H, S, WIDE)).astype(
+        np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((1, S, WIDE)).astype(
+        np.float32)).expand(H, -1, -1) for _ in range(2))
+    got = forward_pairs(q, k, v, window, mm_split)
+    want = forward(q.double(), k.double(), v.double(), window, mm_exact)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        torch.testing.assert_close(a.double(), b, atol=2e-5, rtol=2e-5)
 
 
 @pytest.mark.parametrize("H", [8, 10])
