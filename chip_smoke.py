@@ -28,7 +28,11 @@ Phases, each printing its lines:
      with 8 and 10 query heads on 1, no causal mask, one position,
      bfloat16; resources checked for no spills and 8 warps an SM, the
      hd-256 forward and backward warp pairs included; three forward and
-     backward runs at each hd-256 MQA shape bit for bit; timed at
+     backward runs at each hd-256 MQA shape bit for bit); phase 11's
+     multimodal shapes (hd 128 with 64 query heads on 8 at S 2048, causal:
+     qwen2-vl's widths; hd 64 with 16 heads at B 4, S 1024, not causal and
+     causal: seamless's encoder and decoder), forward and backward against
+     the plain versions; timed at
      FLASH_TIMED's shapes beside their bound and
      scaled_dot_product_attention with enable_gqa, the backward's own
      kernels, row sums, dK/dV, its reduction and dQ, from a torch.profiler
@@ -161,7 +165,33 @@ Phases, each printing its lines:
      (recurrentgemma in float32, its attention layers running the flash
      kernels; xlstm, whose float32 logits at 48 layers are themselves
      farther than that from exact arithmetic, in float64 at REC64_ATOL +
-     REC64_RTOL, its float32 reading printed beside);
+     REC64_RTOL, its float32 reading printed beside); and the last two
+     families: (h) qwen2-vl-72b's reduced() (M-RoPE (8, 4, 4), an 8-row
+     patch prefix; m 8, batch 4 x 256, a seeded patch_embeds in every
+     batch: the loss sliced past the prefix trains) and (i)
+     seamless-m4t-medium at its published widths and depth (12 encoder +
+     12 decoder layers, m 2, batch 4 x 1024 with 1024 seeded frames a row,
+     attn_block 512) as ARCH_CELLS cells, held to the same row, Xi and
+     eval gates, the mix and reduce launched, (i)'s flash kernels at hd 64
+     exactly once forward and once backward an attention layer (12
+     non-causal encoder and 12 causal decoder layers), agent and local
+     step, plus the evals' forwards (24 + 2 x 24); both merged models
+     served with their extras (every request with its prefix or its
+     ARCH_SERVE_PROMPT frames, the cross keys and values padded to max_len
+     at pos -1) and their teacher-forced decode against prefill at
+     2e-5 + 1e-5 relative, (i)'s flash prefill (logits, the self and cross
+     keys and values) against its dense route's at the same tolerance
+     (route_check); then (h') qwen2-vl-72b at its published widths
+     cut to VLM_LAYERS layers, one model (vlm_width_check): the loss and
+     its gradient at 1 x (256 patch rows + 1792 tokens), finite, the flash
+     kernels at hd 128 (64 query heads on 8) exactly once forward and once
+     backward a layer, the loss equal to the dense route's within 1e-5
+     relative and every gradient leaf within VLM_GRAD_RTOL relative in l2,
+     the decode against the prefill in float64 on the dense route at
+     REC64_ATOL + REC64_RTOL and the flash route's float32 prefill and
+     decode against that float64 prefill at VLM32_ATOL + VLM32_RTOL (the
+     float32 readings against 2e-5 + 1e-5 printed), served with every
+     other request carrying a 256-row prefix;
 then the script's total time, a JSON line of per-kernel numbers (the
 flash rows with their hd96, hd256 and hd256_h10 timings and the
 backward's own kernels' times, kernels_ms; every row with its phase-11
@@ -259,16 +289,33 @@ ARCH_CELLS = {"phi3": ("phi3-mini-3.8b", 2, 8, 4, 512, 0, None),
               "deepseek": ("deepseek-v3-671b", None, 8, 4, 256, 0, None),
               "recurrentgemma": ("recurrentgemma-2b", 3, 3, 2, 2048, 512,
                                  None),
-              "xlstm": ("xlstm-1.3b", 8, 8, 4, 512, 0, None)}
+              "xlstm": ("xlstm-1.3b", 8, 8, 4, 512, 0, None),
+              "qwen2vl": ("qwen2-vl-72b", None, 8, 4, 256, 0, None),
+              "seamless": ("seamless-m4t-medium", 12, 2, 4, 1024, 512,
+                           None)}
 ARCH_ROUNDS = 3
 ARCH_D = {"phi3": 424_688_640, "gemma": 744_499_200, "yi": 1_475_367_936,
           "arctic": 1_517_630_464, "deepseek": 5_361_952,
-          "recurrentgemma": 912_320_000, "xlstm": 378_712_120}
+          "recurrentgemma": 912_320_000, "xlstm": 378_712_120,
+          "qwen2vl": 2_032_896, "seamless": 977_924_096}
+# the last two families' cells: qwen2-vl-72b's reduced() (hd 32, M-RoPE
+# sections (8, 4, 4), an 8-row patch prefix) with a seeded patch_embeds
+# (b, 8, d) in every batch, so the loss sliced past the prefix is what
+# trains; seamless-m4t-medium at its published widths and depth (12
+# encoder + 12 decoder layers, hd 64, attn_block 512: the flash kernels
+# non-causal in the encoder, causal in the decoder), its batches carrying
+# seq seeded Gaussian frames a row (tests/test_archs.py:make_batch's
+# spec). m 2: m D 4 = 7.8 GB a panel, ~5.5 panels and the activations
+# (the 512-token loss chunks over 256,256 columns) fit; m 3 would hold
+# 64.5 GB before them. The extras are drawn from numpy generators seeded
+# EXTRAS_SEED and the round.
+EXTRAS_SEED = 11
 # the merged models served (C slots, requests of PROMPT tokens, NEW new
 # tokens each, greedy) and the MLA cell's teacher-forced decode (a prompt
 # of MLA_PROMPT tokens, MLA_STEPS steps, 2 rows; the recurrent decoders'
 # full-depth check takes the same prompt and steps)
-ARCH_SERVED = ("phi3", "arctic", "recurrentgemma", "xlstm")
+ARCH_SERVED = ("phi3", "arctic", "recurrentgemma", "xlstm", "qwen2vl",
+               "seamless")
 ARCH_SERVE_C, ARCH_SERVE_REQUESTS = 4, 8
 ARCH_SERVE_PROMPT, ARCH_SERVE_NEW = 512, 32
 MLA_PROMPT, MLA_STEPS = 192, 8
@@ -302,6 +349,32 @@ REC_ATOL, REC_RTOL = 1e-4, 1e-3
 # literal tolerance lets through in float64 (tests/test_torch_recurrent.py:
 # test_float64_decode_check_catches_a_dropped_state_term)
 REC64_ATOL, REC64_RTOL = 1e-10, 1e-9
+# qwen2-vl-72b at its published widths (d_model 8192, 64 heads on 8 x 128,
+# d_ff 29,568, vocab 152,064, untied head, M-RoPE (16, 24, 24)) cut to 2 of
+# its 80 layers, one model: 4,246,773,760 parameters (the embedding and
+# head alone 2,491,416,576), 17.0 GB of float32. Decentralized training
+# holds Theta, two moments and a gradient, 16 B a parameter an agent: at
+# m >= 2 the embedding and head alone take 79.7 GB, so no depth fits one
+# card as a panel; its panel path runs at reduced() (the qwen2vl cell).
+# Here the loss and its gradient at batch 1 x (VLM_PREFIX patch rows +
+# VLM_TOKENS tokens) with attn_block VLM_BLOCK (the flash kernels at hd
+# 128, 64 query heads on 8, causal across the prefix), then the
+# teacher-forced decode with the prefix and the engine (ARCH_SERVE_C
+# slots, ARCH_SERVE_REQUESTS requests of ARCH_SERVE_PROMPT tokens and
+# ARCH_SERVE_NEW new, every other one with a VLM_PREFIX-row prefix: the
+# reference's tests/test_serving.py:201-219 mix)
+VLM_LAYERS, VLM_PREFIX, VLM_TOKENS, VLM_BLOCK = 2, 256, 1792, 512
+VLM_PARAMS = 4_246_773_760
+# the flash route against the dense one there: each gradient leaf within
+# VLM_GRAD_RTOL relative in l2, flash_checks' gradient tolerance (the
+# kernels' own gradients read ~3e-6 relative in l2 against their plain
+# versions); the flash route's float32 prefill and decode logits within
+# VLM32_ATOL + VLM32_RTOL of the float64 dense prefill, 5x the serving
+# tolerance: the float32 dense prefill reads 1.91 of that tolerance from
+# the float64 one at these widths (H100 80GB HBM3, 700.00 W), and a wrong
+# mask, head group or prefix offset moves logits by O(0.1)
+VLM_GRAD_RTOL = 1e-4
+VLM32_ATOL, VLM32_RTOL = 1e-4, 5e-5
 CHILD = ("import json, sys\n"
          "from repro_torch.kernels import launch_counts\n"
          "from repro_torch.launch import train\n"
@@ -1185,8 +1258,10 @@ def flash_checks(torch):
     kernel (float32 and bfloat16) and the backward kernels against their plain versions (the online loop,
     and torch autograd through it) at odd sizes (S = 100, hd 64 and 128, a
     window, GQA), at the attn_block path's shape (B 2, S 2048, H 16, hd
-    128), a GQA one (H 32 on Kv 8) and the serve path's prefills (B 1, S
-    1024 and 2048, H 16, hd 128). Tolerances: float32 output and lse
+    128), a GQA one (H 32 on Kv 8), the serve path's prefills (B 1, S
+    1024 and 2048, H 16, hd 128) and phase 11's multimodal shapes
+    (qwen2-vl's 64 heads on 8 at hd 128, S 2048; seamless's hd 64, H 16,
+    B 4, S 1024, not causal and causal). Tolerances: float32 output and lse
     2e-5, gradients 1e-4, bfloat16 output 2e-2 (other summation orders).
     Times at FLASH_TIMED's shapes (flash_times): the hd 128 one gives the
     kernel rows their numbers, the hd 96 and hd 256 ones their sub-rows."""
@@ -1239,6 +1314,13 @@ def flash_checks(torch):
               (2, 100, 8, 1, 256, None, bf16_, True)]
     cases += [(ATTN_BATCH, ATTN_SEQ, *shape, None, f32, True)
               for key, shape in FLASH_TIMED.items() if key != "hd128"]
+    # phase 11's multimodal shapes: qwen2-vl's widths (hd 128, 64 query
+    # heads on 8, causal across the prefix: VLM_PREFIX + VLM_TOKENS rows),
+    # seamless-m4t's batch (hd 64, 16 heads; its encoder non-causal, its
+    # decoder causal)
+    cases += [(1, VLM_PREFIX + VLM_TOKENS, 64, 8, 128, None, f32, True),
+              (4, 1024, 16, 16, 64, None, f32, False),
+              (4, 1024, 16, 16, 64, None, f32, True)]
     for B, S, Hq, Kv, hd, window, dtype, causal in cases:
         q = torch.randn((B, S, Hq, hd), generator=gen, device=dev)
         k = torch.randn((B, S, Kv, hd), generator=gen, device=dev)
@@ -2667,17 +2749,47 @@ def arch_config(name):
     return cfg
 
 
+def cell_extras(cfg, batch, seed):
+    """The model's other inputs (repro_torch.models.extra_inputs: the vlm's
+    patch prefix, the encoder-decoder's frames, one a token) of a batch
+    dict whose tokens are (..., seq), float32 standard normals from the
+    numpy generator seeded ``seed``; {} for a decoder of tokens alone."""
+    import numpy as np
+
+    from repro_torch.models import extra_inputs
+    rng = np.random.default_rng(seed)
+    lead, seq = batch["tokens"].shape[:-1], batch["tokens"].shape[-1]
+    return {name: rng.standard_normal(lead + shape, dtype=np.float32)
+            for name, shape in extra_inputs(cfg, seq).items()}
+
+
+def attention_layers(cfg):
+    """The attention layers a forward runs through the blockwise route:
+    the decoder's GQA layers and the encoder's (MLA never takes it; the
+    recurrent mixers have no attention; cross attention is the plain
+    _sdpa)."""
+    n = sum(s_.mixer == "gqa" for s_ in cfg.layer_specs())
+    if cfg.encoder_layers:
+        n += sum(s_.mixer == "gqa" for s_ in cfg.replace(
+            num_layers=cfg.encoder_layers,
+            dense_ff_first_k=0).layer_specs())
+    return n
+
+
 def drive_arch(torch, name):
     """Phase 11, one cell: the arch at its cut (arch_config) through
     init_panel_state -> make_panel_segment -> merged and local eval on the
     f32 wire, the final-merge schedule, ARCH_ROUNDS rounds of H local
-    steps, the data over min(DATA_VOCAB, vocab) ids. Checked: the width D
-    against ARCH_D, every round's loss finite, after the merge every row
-    identical bit for bit and Xi 0.0, merged eval == local eval to 1e-6
-    relative, the mix and the reduce launched (with attn_block, one flash
-    forward and one backward a layer, agent and local step, and one forward
-    a layer for the merged eval and a layer and agent for the local evals,
-    exactly). Returns
+    steps, the data over min(DATA_VOCAB, vocab) ids, every batch with the
+    model's other inputs (cell_extras: the vlm's patch prefix, the
+    encoder-decoder's frames). Checked: the width D against ARCH_D, every
+    round's loss finite, after the merge every row identical bit for bit
+    and Xi 0.0, merged eval == local eval to 1e-6 relative, the mix and the
+    reduce launched (with attn_block, one flash forward and one backward an
+    attention layer (attention_layers: the encoder's included), agent and
+    local step, and one forward an attention layer for the merged eval and
+    one an attention layer and agent for the local evals, exactly).
+    Returns
     (counts, record, the merged model or None, model)."""
     from repro_torch.core import dsgd
     from repro_torch.core import merge as merge_mod
@@ -2694,6 +2806,10 @@ def drive_arch(torch, name):
     per_round, eval_batch = segment_inputs(
         cfg, m, ARCH_ROUNDS, data_vocab=min(DATA_VOCAB, cfg.vocab_size),
         batch=batch, seq=seq)
+    for t, (_, b, _, _) in enumerate(per_round):
+        b.update(cell_extras(cfg, b, (EXTRAS_SEED, t)))
+    eval_batch.update(cell_extras(cfg, eval_batch,
+                                  (EXTRAS_SEED, ARCH_ROUNDS)))
     eval_batch = to_device(eval_batch, dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2714,7 +2830,11 @@ def drive_arch(torch, name):
           f"untied head {not cfg.tie_embeddings}, experts "
           f"{moe.num_experts if moe else 0} (top {moe.top_k if moe else 0}), "
           f"mla {cfg.layer_period[0].mixer == 'mla'}, mtp {cfg.mtp_depth}, "
-          f"mixers {[s_.mixer for s_ in cfg.layer_specs()]}; "
+          f"mixers {[s_.mixer for s_ in cfg.layer_specs()]}, encoder "
+          f"layers {cfg.encoder_layers} (cross attention in every decoder "
+          f"layer: {cfg.encoder_layers > 0}), rope {cfg.attn.rope} "
+          f"{cfg.attn.mrope_sections}, patch prefix "
+          f"{max(0, cfg.mm_prefix)}; "
           f"D {spec.width} per agent, m {m} (m D {m * spec.width}, 2^31 = "
           f"{2 ** 31}), H {H}, batch {batch}, seq {seq}, attn_block "
           f"{cfg.dist.attn_block}; init {t_init:.2f}s, device memory held "
@@ -2751,9 +2871,7 @@ def drive_arch(torch, name):
     check(counts["gossip_mix"] > 0 and counts["panel_mean_consensus"] > 0,
           f"cell {name}: the mix or the reduce never launched: {counts}")
     if cfg.dist.attn_block:
-        # the stack's attention layers (MLA never takes the blockwise
-        # route; the recurrent mixers have no attention)
-        n_attn = sum(s_.mixer == "gqa" for s_ in cfg.layer_specs())
+        n_attn = attention_layers(cfg)
         steps = ARCH_ROUNDS * H * m * n_attn
         check(n_attn > 0 and counts["flash_attention_bwd"] == steps
               and counts["flash_attention_fwd"]
@@ -2780,29 +2898,37 @@ def drive_arch(torch, name):
     return counts, record, served, model
 
 
-def arch_serve(torch, name, model, params):
+def arch_serve(torch, name, model, params, mixed=False):
     """Phase 11, a served cell: the merged model in the ServingEngine
     (ARCH_SERVE_C slots, ARCH_SERVE_REQUESTS requests of ARCH_SERVE_PROMPT
     prompt tokens, ARCH_SERVE_NEW new each, greedy; a one-request warmup,
-    then reset()); every request's tokens equal to the request generated
-    alone, no OOV id. Returns (counts, record)."""
+    then reset()), each request with the model's other inputs
+    (launch/serve.py:request_inputs: the vlm's patch prefix, the
+    encoder-decoder's ARCH_SERVE_PROMPT frames, whose cross keys and values
+    the slots hold padded to max_len at pos -1); with ``mixed`` every other
+    request drops its prefix. Every request's tokens equal to the request
+    generated alone, no OOV id. Returns (counts, record)."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.launch.serve import request_tokens
+    from repro_torch.launch.serve import request_inputs
     from repro_torch.serving import Request, ServingEngine, generate
     cfg = model.cfg
     dev = torch.device("cuda")
-    max_len = ARCH_SERVE_PROMPT + ARCH_SERVE_NEW
-    reqs = [Request(rid=i, tokens=request_tokens(cfg, SERVE_SEED, i,
-                                                 ARCH_SERVE_PROMPT),
-                    max_new=ARCH_SERVE_NEW)
+    max_len = ARCH_SERVE_PROMPT + max(0, cfg.mm_prefix) + ARCH_SERVE_NEW
+
+    def request(rid, seed, i, max_new):
+        toks, extras = request_inputs(cfg, seed, i, ARCH_SERVE_PROMPT)
+        if mixed and i % 2:
+            extras.pop("patch_embeds", None)
+        return Request(rid=rid, tokens=toks, max_new=max_new, extras=extras)
+
+    reqs = [request(i, SERVE_SEED, i, ARCH_SERVE_NEW)
             for i in range(ARCH_SERVE_REQUESTS)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     eng = ServingEngine(model, params, max_concurrency=ARCH_SERVE_C,
                         max_len=max_len)
-    eng.serve([Request(rid=-1, tokens=request_tokens(
-        cfg, SERVE_SEED + 1, 0, ARCH_SERVE_PROMPT), max_new=4)])
+    eng.serve([request(-1, SERVE_SEED + 1, 0, 4)])
     eng.reset()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2818,19 +2944,30 @@ def arch_serve(torch, name, model, params):
            "ttft_p50_ms": 1e3 * lat["ttft_s"]["p50_s"],
            "decode_step_p50_ms": 1e3 * lat["decode_step_s"]["p50_s"],
            "peak": peak}
+    # the decode steps' share of the serving time (the rest: admissions,
+    # each a prefill, an insert and the first sample)
+    rec["decode_share"] = (lat["decode_step_s"]["count"]
+                           * lat["decode_step_s"]["mean_s"] / dt
+                           if "mean_s" in lat["decode_step_s"] else None)
     del eng
     same = []
     for r in reqs:
-        alone = generate(model, params,
-                         {"tokens": torch.from_numpy(r.tokens[None]).to(dev)},
-                         ARCH_SERVE_NEW, max_len=max_len)[0]
+        batch = {"tokens": torch.from_numpy(r.tokens[None]).to(dev)}
+        for k, v in r.extras.items():
+            batch[k] = torch.from_numpy(v[None]).to(dev)
+        alone = generate(model, params, batch, ARCH_SERVE_NEW,
+                         max_len=max_len)[0]
         same.append(bool((alone == out[r.rid]).all()))
+    extras = sorted(reqs[0].extras)
     print(f"serve ({name}, phase 11, {card_line()}): {ARCH_SERVE_C} slots, "
           f"{ARCH_SERVE_REQUESTS} requests of {ARCH_SERVE_PROMPT} prompt "
-          f"tokens, {ARCH_SERVE_NEW} new: {rec['tok_s']:.1f} tok/s "
+          f"tokens (extras {extras}"
+          f"{', every other request without its prefix' if mixed else ''}),"
+          f" {ARCH_SERVE_NEW} new: {rec['tok_s']:.1f} tok/s "
           f"({n_tok} tokens in {dt:.3f}s) | ttft p50 "
           f"{rec['ttft_p50_ms']:.1f} ms | decode step p50 "
-          f"{rec['decode_step_p50_ms']:.3f} ms | occupancy "
+          f"{rec['decode_step_p50_ms']:.3f} ms | decode share "
+          f"{rec['decode_share']!r} | occupancy "
           f"{snap['occupancy']:.4f} | peak device memory {peak} bytes; "
           f"tokens equal to each request generated alone: {same}",
           flush=True)
@@ -2859,29 +2996,36 @@ def tol_share(torch, pairs, atol, rtol):
     return diff, share
 
 
-def decode_steps(torch, model, params):
+def decode_steps(torch, model, params, extras=None):
     """Teacher-forced decode: a prompt of MLA_PROMPT tokens (2 rows, seed 7)
-    prefilled, then MLA_STEPS decode steps, on the parameters' device.
-    Returns [(the decode logits,
-    the prefill logits of the whole sequence up to that token)] a step."""
+    prefilled, then MLA_STEPS decode steps, on the parameters' device;
+    ``extras`` (tensors of 2 rows) go into every prefill: a patch prefix
+    shifts the decode positions by its rows, an encoder's frames feed the
+    cross attention. Returns [(the decode logits, the prefill logits of the
+    whole sequence up to that token)] a step."""
     import numpy as np
 
     from repro_torch.utils.tree import tree_leaves
     cfg = model.cfg
     dev = tree_leaves(params)[0].device
+    extras = extras or {}
+    off = (extras["patch_embeds"].shape[1] if "patch_embeds" in extras
+           else 0)
     total = MLA_PROMPT + MLA_STEPS
     toks = torch.from_numpy(np.random.default_rng(7).integers(
         0, cfg.vocab_size, size=(2, total)).astype(np.int32)).to(dev)
     steps = []
     with torch.no_grad():
         logits, caches = model.prefill(
-            params, {"tokens": toks[:, :MLA_PROMPT]}, max_len=total)
+            params, {"tokens": toks[:, :MLA_PROMPT], **extras},
+            max_len=off + total)
         for i in range(MLA_STEPS):
             at = MLA_PROMPT + i
             logits, caches = model.decode_step(params, caches,
-                                               toks[:, at:at + 1], at)
-            ref, _ = model.prefill(params, {"tokens": toks[:, :at + 1]},
-                                   max_len=total)
+                                               toks[:, at:at + 1], off + at)
+            ref, _ = model.prefill(
+                params, {"tokens": toks[:, :at + 1], **extras},
+                max_len=off + total)
             steps.append((logits, ref))
     return steps
 
@@ -2927,19 +3071,20 @@ class _Float64Torch:
 @contextlib.contextmanager
 def float64_model(torch, cfg):
     """Within it, a model of ``cfg`` whose parameters are float64 computes
-    in float64 throughout: the port's model modules (layers, recurrent,
-    transformer, model) read ``torch.float32`` as float64 wherever they
-    cast or allocate. A stack with attention is refused: its flash kernels
+    in float64 throughout: the port's model modules (layers, attention,
+    recurrent, transformer, model) read ``torch.float32`` as float64
+    wherever they cast or allocate. A stack whose attention takes the flash
+    route (attn_block > 0: attention_layers) is refused: the flash kernels
     take float32 and bfloat16 only. A cast written otherwise would stay
     float32 and add float32 rounding to the float64 run, so a decode check
     inside it reads more noise, never less."""
+    from repro_torch.models import attention as attention_mod
     from repro_torch.models import layers, recurrent, transformer
     from repro_torch.models import model as model_mod
-    if any(s.mixer not in ("rglru", "mlstm", "slstm")
-           for s in cfg.layer_specs()):
-        raise ValueError(f"{cfg.name}: float64_model takes a stack without "
-                         "attention")
-    mods = (layers, recurrent, transformer, model_mod)
+    if cfg.dist.attn_block and attention_layers(cfg):
+        raise ValueError(f"{cfg.name}: float64_model takes attention on the "
+                         "dense route (attn_block 0) only")
+    mods = (layers, attention_mod, recurrent, transformer, model_mod)
     saved = [m.torch for m in mods]
     try:
         for m in mods:
@@ -3045,6 +3190,235 @@ def mla_width_check(torch):
     del params
     torch.cuda.empty_cache()
     return rec
+
+
+def extras_on(torch, cfg, rows, seq, seed):
+    """cell_extras for ``rows`` rows of ``seq`` tokens, as tensors on the
+    card."""
+    import numpy as np
+    x = cell_extras(cfg, {"tokens": np.zeros((rows, seq), np.int32)}, seed)
+    return {k: torch.from_numpy(v).to(torch.device("cuda"))
+            for k, v in x.items()}
+
+
+def key_paths(tree, at=""):
+    """The tree with each leaf replaced by its path of keys ("/a/b")."""
+    if isinstance(tree, dict):
+        return {k: key_paths(v, f"{at}/{k}") for k, v in tree.items()}
+    return at
+
+
+def vlm_width_check(torch):
+    """Phase 11, qwen2-vl-72b at its published widths cut to VLM_LAYERS
+    layers, one model (no panel: see VLM_LAYERS), attn_block VLM_BLOCK: the
+    weights drawn on the card from seed 0 (VLM_PARAMS of them); the loss
+    and its gradient at batch 1 x (VLM_PREFIX seeded patch rows +
+    VLM_TOKENS tokens), finite, with the flash kernels launched exactly
+    once forward and once backward a layer (hd 128, 64 query heads on 8
+    key heads, causal across the prefix); the same loss and gradient on the
+    dense route (attn_block 0): the loss within 1e-5 relative, every
+    gradient leaf within VLM_GRAD_RTOL relative in l2 (the flash route's
+    gradient held in host memory meanwhile). The teacher-forced decode with
+    a VLM_PREFIX-row prefix against the prefill, in float64 on the dense
+    route (float64_model) at REC64_ATOL + REC64_RTOL (decode_check); the
+    flash route's float32 prefill and decode logits against that float64
+    prefill at VLM32_ATOL + VLM32_RTOL, the float32 readings against the
+    serving tolerance 2e-5 + 1e-5 printed beside; then the engine
+    (arch_serve, every other request without its prefix). Returns (counts
+    of the loss and gradient, counts of the engine, record)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import build_model
+    from repro_torch.utils.tree import tree_leaves, tree_map
+    dev = torch.device("cuda")
+    cfg = get_config("qwen2-vl-72b")
+    cfg = cfg.replace(num_layers=VLM_LAYERS, dist=dataclasses.replace(
+        cfg.dist, attn_block=VLM_BLOCK))
+    check(cfg.mm_prefix == VLM_PREFIX,
+          f"vlm width: the config's prefix {cfg.mm_prefix} != {VLM_PREFIX}")
+    model = build_model(cfg)
+    dense = build_model(cfg.replace(dist=dataclasses.replace(
+        cfg.dist, attn_block=0)))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0),
+                               dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    leaves = tree_leaves(params)
+    paths = tree_leaves(key_paths(params))
+    n_params = sum(t.numel() for t in leaves)
+    a = cfg.attn
+    print(f"vlm width ({card_line()}): {cfg.name} d_model {cfg.d_model}, "
+          f"{cfg.num_layers} of 80 layers, heads {a.num_heads} (kv "
+          f"{a.num_kv_heads}) x {a.head_dim}, M-RoPE {a.mrope_sections} "
+          f"theta {a.rope_theta}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size} "
+          f"padded to {cfg.padded_vocab}, untied head, patch prefix "
+          f"{cfg.mm_prefix}, attn_block {cfg.dist.attn_block}: {n_params} "
+          f"parameters, init {t_init:.2f}s", flush=True)
+    check(n_params == VLM_PARAMS,
+          f"vlm width: {n_params} parameters != {VLM_PARAMS}")
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, size=(1, VLM_TOKENS + 1)).astype(np.int32)).to(dev)
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:],
+             **extras_on(torch, cfg, 1, VLM_TOKENS, (EXTRAS_SEED, 99))}
+    for t in leaves:
+        t.requires_grad_(True)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    loss, _ = model.loss_fn(params, batch)
+    grads = torch.autograd.grad(loss, leaves)
+    torch.cuda.synchronize()
+    dt_grad = time.perf_counter() - t0
+    counts = launch_counts()
+    loss = float(loss.detach())
+    finite = all(bool(torch.isfinite(g).all()) for g in grads)
+    gnorm = math.sqrt(sum(float(torch.sum(g.double() ** 2)) for g in grads))
+    peak_grad = torch.cuda.max_memory_allocated()
+    # the flash route's gradient waits in host memory (17.0 GB) while the
+    # dense route's is taken
+    grads = [g.cpu() for g in grads]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    loss_dense, _ = dense.loss_fn(params, batch)
+    dense_grads = torch.autograd.grad(loss_dense, leaves)
+    torch.cuda.synchronize()
+    dt_dense = time.perf_counter() - t0
+    loss_dense = float(loss_dense.detach())
+    for t in leaves:
+        t.requires_grad_(False)
+    rel = {}
+    for path, g, gd in zip(paths, grads, dense_grads):
+        n = float(torch.linalg.vector_norm(gd))
+        e = float(torch.linalg.vector_norm(g.to(dev).sub_(gd)))
+        rel[path] = e / n if n > 0 else e
+    del grads, dense_grads, batch, g, gd
+    torch.cuda.empty_cache()
+    worst = max(rel, key=rel.get)
+    print(f"vlm width loss ({card_line()}): 1 x ({VLM_PREFIX} patch rows "
+          f"+ {VLM_TOKENS} tokens): loss {loss!r} (dense route "
+          f"{loss_dense!r}), gradient norm {gnorm!r}, finite {finite}, "
+          f"{dt_grad:.3f}s for the loss and gradient ({dt_dense:.3f}s on the "
+          f"dense route); peak device memory {peak_grad} bytes; kernels "
+          f"{json.dumps(counts)}", flush=True)
+    print(f"vlm width gradient ({card_line()}): the flash route's against "
+          f"the dense route's, relative l2 a leaf: largest {rel[worst]!r} "
+          f"({worst}; tolerance {VLM_GRAD_RTOL}); {json.dumps(rel)}",
+          flush=True)
+    check(math.isfinite(loss) and finite and math.isfinite(gnorm),
+          f"vlm width: loss {loss} or its gradient is not finite")
+    check(abs(loss - loss_dense) <= 1e-5 * abs(loss_dense),
+          f"vlm width: the flash route's loss {loss} differs from the "
+          f"dense route's {loss_dense}")
+    check(rel[worst] <= VLM_GRAD_RTOL,
+          f"vlm width: the flash route's gradient of {worst} differs from "
+          f"the dense route's by {rel[worst]} relative")
+    check(counts["flash_attention_fwd"] == VLM_LAYERS
+          and counts["flash_attention_bwd"] == VLM_LAYERS,
+          f"vlm width: flash launches {counts} are not one forward and one "
+          f"backward a layer ({VLM_LAYERS})")
+    torch.cuda.reset_peak_memory_stats()
+    rec = {"params": n_params, "init_s": t_init, "loss": loss,
+           "loss_dense": loss_dense, "grad_norm": gnorm,
+           "grad_s": dt_grad, "peak_grad": peak_grad,
+           "grad_rel_max": rel[worst]}
+    # the decode logic (the prefix's offset, M-RoPE's broadcast positions,
+    # the cache) against the prefill in float64 on the dense route
+    # (float64_model), at REC64_ATOL + REC64_RTOL: in float32 at d_model
+    # 8192 the decode's one-row products and the prefill's batched ones
+    # round ~4e-5 apart, past the serving tolerance 2e-5 + 1e-5 relative.
+    # The flash route (the engine's prefills) is held in float32 against
+    # that float64 prefill at VLM32_ATOL + VLM32_RTOL
+    extras = extras_on(torch, cfg, 2, 0, (EXTRAS_SEED, 98))
+    steps32 = {}
+    for label, m_ in (("dense", dense), ("flash", model)):
+        steps32[label] = decode_steps(torch, m_, params, extras)
+        rec[f"{label}_float32_diff"], rec[f"{label}_float32_share"] = \
+            decode_share(torch, f"qwen2-vl width, {label} prefill, float32,"
+                         f" printed", steps32[label], 2e-5, 1e-5,
+                         "vlm decode")
+    params64 = tree_map(lambda t: t.double(), params)
+    x64 = {k: v.double() for k, v in extras.items()}
+    with float64_model(torch, dense.cfg):
+        steps = decode_steps(torch, dense, params64, x64)
+    del params64, x64
+    torch.cuda.empty_cache()
+    check(all(t.dtype == torch.float64 for st in steps for t in st),
+          f"vlm decode: logits {steps[0][0].dtype}, not float64")
+    exact = [ref for _, ref in steps]
+    for label in ("dense", "flash"):
+        for i, what in ((1, "prefill"), (0, "decode")):
+            pairs = [(st[i], e) for st, e in zip(steps32[label], exact)]
+            d, sh = tol_share(torch, pairs, 2e-5, 1e-5)
+            _, sh32 = tol_share(torch, pairs, VLM32_ATOL, VLM32_RTOL)
+            rec[f"{label}_float32_{what}_vs_float64"] = [d, sh, sh32]
+            print(f"vlm decode (qwen2-vl width, phase 11, {card_line()}): "
+                  f"the float32 {label} route's {what} against the float64 "
+                  f"dense prefill: max |logit difference| {d!r}, largest "
+                  f"share of 2e-05 + 1e-05 relative {sh!r}, of {VLM32_ATOL}"
+                  f" + {VLM32_RTOL} relative {sh32!r}", flush=True)
+            if label == "flash":
+                check(sh32 <= 1.0,
+                      f"vlm decode: the flash route's float32 {what} is "
+                      f"{d} from the float64 dense prefill, past "
+                      f"{VLM32_ATOL} + {VLM32_RTOL} relative")
+    rec["decode_diff"], rec["decode_share"] = decode_check(
+        torch, "qwen2-vl width, dense prefill, float64", steps,
+        atol=REC64_ATOL, rtol=REC64_RTOL, what="vlm decode")
+    del steps, steps32, exact, extras
+    rec["peak_decode"] = torch.cuda.max_memory_allocated()
+    serve_counts, rec["serve"] = arch_serve(torch, "qwen2-vl width", model,
+                                            params, mixed=True)
+    del params, leaves
+    torch.cuda.empty_cache()
+    return counts, serve_counts, rec
+
+
+def route_check(torch, name, model, params, extras):
+    """Phase 11, an attn_block cell's merged model: the prefill of
+    decode_steps' sequence (MLA_PROMPT + MLA_STEPS tokens, 2 rows, seed 7,
+    with ``extras``) on the flash route against the same prefill on the
+    dense route (attn_block 0): the logits and every cache's keys and
+    values (an encoder's output reaches the cross ones) within 2e-5 + 1e-5
+    relative. decode_check holds decode against the flash route's own
+    prefill, where a wrong encoder kernel would show on both sides; this
+    holds the flash kernels against the dense attention on the cell's
+    path. Returns (the largest difference, its share)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.models import build_model
+    from repro_torch.utils.tree import tree_leaves
+    cfg = model.cfg
+    dense = build_model(cfg.replace(dist=dataclasses.replace(
+        cfg.dist, attn_block=0)))
+    toks = torch.from_numpy(np.random.default_rng(7).integers(
+        0, cfg.vocab_size, size=(2, MLA_PROMPT + MLA_STEPS)).astype(
+        np.int32)).to(torch.device("cuda"))
+    batch = {"tokens": toks, **extras}
+    with torch.no_grad():
+        logits, caches = model.prefill(params, batch)
+        d_logits, d_caches = dense.prefill(params, batch)
+    paths = tree_leaves(key_paths(caches))
+    pairs = [(logits, d_logits)] + [
+        (c, dc) for p, c, dc in zip(paths, tree_leaves(caches),
+                                    tree_leaves(d_caches))
+        if p.rsplit("/", 1)[-1] in ("k", "v")]
+    diff, share = tol_share(torch, pairs, 2e-5, 1e-5)
+    print(f"route ({name}, phase 11, {card_line()}): the flash route's "
+          f"prefill ({MLA_PROMPT + MLA_STEPS} tokens, {len(pairs) - 1} "
+          f"key and value caches, {sorted(extras)}) against the dense "
+          f"route's: max |difference| {diff!r}, largest share of 2e-05 + "
+          f"1e-05 relative {share!r}", flush=True)
+    check(share <= 1.0, f"route ({name}): the flash route's prefill differs "
+                        f"from the dense route's by {diff}")
+    return diff, share
 
 
 def mixer_share(torch, name, model, params):
@@ -3258,10 +3632,13 @@ def recurrent_depth_check(torch, arch):
 def arch_phase(torch):
     """Phase 11: every cell of ARCH_CELLS (drive_arch), the served ones
     through the engine (arch_serve; the recurrent ones then timed by
-    mixer_share), the MLA cell's teacher-forced decode (decode_check),
-    deepseek-v3 at its published widths (mla_width_check), then the
-    recurrent decoders at their published depth (recurrent_depth_check).
-    Returns ({cell: counts}, {cell: record})."""
+    mixer_share; the vlm's and the encoder-decoder's then held by
+    decode_check with their prefix or frames), the MLA cell's teacher-forced
+    decode (decode_check), qwen2-vl-72b at its published widths
+    (vlm_width_check), deepseek-v3 at its published widths
+    (mla_width_check), then the recurrent decoders at their published
+    depth (recurrent_depth_check). Returns ({cell: counts}, {cell:
+    record})."""
     counts, records = {}, {}
     for name in ARCH_CELLS:
         t0 = time.perf_counter()
@@ -3273,6 +3650,18 @@ def arch_phase(torch):
             if model.cfg.recurrent is not None:
                 records[name]["mixers"] = mixer_share(torch, name, model,
                                                       merged)
+            cfg = model.cfg
+            if cfg.mm_prefix > 0 or cfg.encoder_layers:
+                # the prefix's offset, the encoder's cross keys and values
+                extras = extras_on(torch, cfg, 2, ARCH_SERVE_PROMPT // 2,
+                                   (EXTRAS_SEED, 97))
+                records[name]["decode_diff"] = decode_check(
+                    torch, name, decode_steps(torch, model, merged, extras),
+                    what="decode")[0]
+                if cfg.dist.attn_block:
+                    records[name]["route_diff"] = route_check(
+                        torch, name, model, merged, extras)[0]
+                del extras
         elif merged is not None:
             records[name]["mla_decode_diff"] = decode_check(
                 torch, name, decode_steps(torch, model, merged))[0]
@@ -3280,6 +3669,11 @@ def arch_phase(torch):
         torch.cuda.empty_cache()
         print(f"time: phase 11 cell {name} {time.perf_counter() - t0:.1f}s",
               flush=True)
+    t0 = time.perf_counter()
+    (counts["qwen2vl width"], counts["serve qwen2vl width"],
+     records["qwen2vl width"]) = vlm_width_check(torch)
+    print(f"time: phase 11 qwen2-vl width {time.perf_counter() - t0:.1f}s",
+          flush=True)
     t0 = time.perf_counter()
     records["deepseek width"] = mla_width_check(torch)
     print(f"time: phase 11 deepseek width {time.perf_counter() - t0:.1f}s",

@@ -1,9 +1,10 @@
 """Architecture registry. ``get_config(arch_id)`` returns the full pool config.
 
-The port registers the reference registry's decoders: the attention
-decoders (the dense family and the MoE family, MLA and MTP included) and
-the recurrent ones (xlstm-1.3b, ssm; recurrentgemma-2b, hybrid). The prefix
-and encoder-decoder families (qwen2-vl, seamless-m4t) are not registered.
+The port registers every config of the reference registry: the attention
+decoders (the dense family and the MoE family, MLA and MTP included), the
+recurrent ones (xlstm-1.3b, ssm; recurrentgemma-2b, hybrid), the
+patch-prefix decoder qwen2-vl-72b (vlm, M-RoPE) and the encoder-decoder
+seamless-m4t-medium (audio).
 """
 from __future__ import annotations
 
@@ -38,7 +39,8 @@ def list_archs():
 def _load_all():
     from repro_torch.configs import (arctic_480b,  # noqa: F401
                                      deepseek_v3_671b, gemma_2b, olmo_1b,
-                                     phi3_mini_3_8b, recurrentgemma_2b,
+                                     phi3_mini_3_8b, qwen2_vl_72b,
+                                     recurrentgemma_2b, seamless_m4t_medium,
                                      xlstm_1_3b, yi_34b)
 
 

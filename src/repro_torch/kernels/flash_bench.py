@@ -6,8 +6,10 @@ First each kernel's resources at hd 128 and 256: registers and local
 (spill) bytes a thread from the CUDA runtime's function attributes, blocks
 and warps per SM and dynamic shared memory from its occupancy calculator.
 Then, at the attn_block path's shape (B 2, S 2048, H 16, hd 128, causal),
-a GQA shape (H 32 on Kv 8), a head dim of 64, gemma-2b's (H 8 on Kv 1, hd
-256) and recurrentgemma-2b's local attention (H 10 on Kv 1, hd 256), it
+a GQA shape (H 32 on Kv 8), a head dim of 64 (B 4, S 1024, H 16:
+seamless-m4t-medium's, causal as in its decoder and not causal as in its
+encoder), gemma-2b's (H 8 on Kv 1, hd 256) and recurrentgemma-2b's local
+attention (H 10 on Kv 1, hd 256), it
 holds the forward and the backward kernels against their plain versions
 (2e-5 and 1e-4) and prints each one's median time over 20 launches (CUDA
 events, after 3 warm-up launches) beside two operation bounds over the
@@ -40,9 +42,10 @@ import torch
 FP32_FLOPS = 67e12   # float32 on the CUDA cores
 TF32_FLOPS = 495e12  # TF32 on the tensor cores, dense
 SPLIT = 3            # TF32 products a float32 product (hi hi, hi lo, lo hi)
-SHAPES = ((2, 2048, 16, 16, 128), (2, 2048, 32, 8, 128),
-          (4, 1024, 16, 16, 64), (2, 2048, 8, 1, 256),
-          (2, 2048, 10, 1, 256))  # (B, S, H, Kv, hd)
+SHAPES = ((2, 2048, 16, 16, 128, True), (2, 2048, 32, 8, 128, True),
+          (4, 1024, 16, 16, 64, True), (4, 1024, 16, 16, 64, False),
+          (2, 2048, 8, 1, 256, True),
+          (2, 2048, 10, 1, 256, True))  # (B, S, H, Kv, hd, causal)
 TOLS = (2e-5, 2e-5, 1e-4, 1e-4, 1e-4)  # out, lse, dq, dk, dv
 # the backward's kernels by a piece of their names, in the order tried
 BWD_KERNELS = (("delta_kernel", "row sums"), ("reduce", "dK/dV reduction"),
@@ -142,16 +145,17 @@ def shares_line(per):
                      for k, ms in per.items()) + f"; sum {total:.4f} ms"
 
 
-def library_ms(q, k, v, do):
+def library_ms(q, k, v, do, causal=True):
     """(forward, backward) ms of ``scaled_dot_product_attention``
-    (is_causal, enable_gqa where Kv < H) on the same float32 tensors in its
+    (is_causal as ``causal``, enable_gqa where Kv < H) on the same float32
+    tensors in its
     (B, H, S, hd) layout, the backward on a retained graph; (None, None)
     where it does not run on float32."""
     F = torch.nn.functional
     ql, kl, vl = (t.transpose(1, 2).contiguous().requires_grad_(True)
                   for t in (q, k, v))
     dol = do.transpose(1, 2).contiguous()
-    kw = dict(is_causal=True)
+    kw = dict(is_causal=causal)
     if k.shape[2] < q.shape[2]:
         kw["enable_gqa"] = True
     try:
@@ -168,16 +172,17 @@ def library_ms(q, k, v, do):
         return None, None
 
 
-def dense64(q, k, v, do):
-    """(out, lse, dq, dk, dv) of causal attention in float64 (dense, K and
-    V expanded for GQA; lse (B, H, S)): the yardstick of the errors."""
+def dense64(q, k, v, do, causal=True):
+    """(out, lse, dq, dk, dv) of (causal) attention in float64 (dense, K
+    and V expanded for GQA; lse (B, H, S)): the yardstick of the errors."""
     q, k, v = (t.double().requires_grad_(True) for t in (q, k, v))
     G = q.shape[2] // k.shape[2]
     S = q.shape[1]
     s = torch.einsum("bqhd,bkhd->bhqk", q, k.repeat_interleave(G, 2))
     s = s / q.shape[-1] ** 0.5
-    i = torch.arange(S, device=q.device)
-    s = s.masked_fill(i[None, :] > i[:, None], float("-inf"))
+    if causal:
+        i = torch.arange(S, device=q.device)
+        s = s.masked_fill(i[None, :] > i[:, None], float("-inf"))
     out = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1),
                        v.repeat_interleave(G, 2))
     grads = torch.autograd.grad(out, (q, k, v), do.double())
@@ -204,36 +209,41 @@ def main():
         print("\n".join(resource_lines(hd)), flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
     ok = True
-    for B, S, H, Kv, hd in SHAPES:
+    for B, S, H, Kv, hd, causal in SHAPES:
         q = torch.randn((B, S, H, hd), generator=gen, device="cuda")
         k = torch.randn((B, S, Kv, hd), generator=gen, device="cuda")
         v = torch.randn((B, S, Kv, hd), generator=gen, device="cuda")
         do = torch.randn((B, S, H, hd), generator=gen, device="cuda")
         pos = torch.arange(S, dtype=torch.int32, device="cuda").expand(B, S)
-        o, lse = flash_attention_fwd(q, k, v, pos, pos)
-        grads = flash_attention_bwd(q, k, v, o, lse, do, pos, pos)
-        plain = (flash_attention_fwd_ref(q, k, v, pos, pos)
-                 + tuple(flash_attention_bwd_ref(q, k, v, do, pos, pos)))
+        kw = dict(causal=causal)
+        o, lse = flash_attention_fwd(q, k, v, pos, pos, **kw)
+        grads = flash_attention_bwd(q, k, v, o, lse, do, pos, pos, **kw)
+        plain = (flash_attention_fwd_ref(q, k, v, pos, pos, **kw)
+                 + tuple(flash_attention_bwd_ref(q, k, v, do, pos, pos,
+                                                 **kw)))
         agree = all(torch.allclose(a, b, atol=t, rtol=t) for a, b, t in
                     zip((o, lse) + tuple(grads), plain, TOLS))
         ok = ok and agree
-        want = dense64(q, k, v, do)
+        want = dense64(q, k, v, do, causal)
         shares = (tolerance_shares((o, lse) + tuple(grads), want),
                   tolerance_shares(plain, want))
         del plain, want
         torch.cuda.empty_cache()
 
         def bwd():
-            return flash_attention_bwd(q, k, v, o, lse, do, pos, pos)
+            return flash_attention_bwd(q, k, v, o, lse, do, pos, pos, **kw)
 
-        fwd_ms = time_ms(lambda: flash_attention_fwd(q, k, v, pos, pos))
+        fwd_ms = time_ms(lambda: flash_attention_fwd(q, k, v, pos, pos,
+                                                     **kw))
         bwd_ms = time_ms(bwd)
-        lib = library_ms(q, k, v, do)
-        shape = f"B={B} S={S} H={H} Kv={Kv} hd={hd}"
+        lib = library_ms(q, k, v, do, causal)
+        shape = (f"B={B} S={S} H={H} Kv={Kv} hd={hd}"
+                 + ("" if causal else " not causal"))
         line = f"{shape}: agree {agree}"
         for name, ms, ops, lib_ms in zip(
                 ("forward", "backward"), (fwd_ms, bwd_ms),
-                flops(B, S, H, hd, S * (S + 1) // 2), lib):
+                flops(B, S, H, hd, S * (S + 1) // 2 if causal else S * S),
+                lib):
             fp32, tc = bounds_ms(ops)
             line += (f"; {name} {ms:.4f} ms (bounds "
                      f"{fp32:.4f} float32, {tc:.4f} split TF32: "

@@ -13,9 +13,11 @@ same) via ``--restore``. ``--one-shot`` runs the plain static batched
 :func:`repro_torch.serving.generate` path instead.
 
 The demo prompts are drawn with numpy from ``--seed`` (request i from the
-generator seeded ``(seed, i)``): ``jax.random.randint``'s bits, which the
-reference launcher draws them from, cannot be reproduced, so the two
-launchers serve other prompts for the same seed.
+generator seeded ``(seed, i)``), and so are the model's other inputs (the
+vlm's patch prefix, the encoder-decoder's frames: ``request_inputs``):
+``jax.random``'s bits, which the reference launcher draws them from,
+cannot be reproduced, so the two launchers serve other inputs for the same
+seed.
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ from repro_torch import telemetry
 from repro_torch.checkpoint import restore
 from repro_torch.configs import get_config
 from repro_torch.device import resolve_device
-from repro_torch.models import build_model
+from repro_torch.models import build_model, extra_inputs
 from repro_torch.serving import Request, ServingEngine, generate
 
 
@@ -38,6 +40,18 @@ def request_tokens(cfg, seed: int, i: int, S: int) -> np.ndarray:
     generator seeded (seed, i)."""
     rng = np.random.default_rng((seed, i))
     return rng.integers(0, cfg.vocab_size, size=S).astype(np.int32)
+
+
+def request_inputs(cfg, seed: int, i: int, S: int):
+    """Demo request ``i``'s prompt (``request_tokens``) and the model's
+    other inputs (``extra_inputs``: the vlm's patch prefix, the
+    encoder-decoder's S frames), float32 standard normals drawn in that
+    order from the numpy generator seeded (seed, i, 1). Returns (tokens,
+    extras)."""
+    rng = np.random.default_rng((seed, i, 1))
+    extras = {name: rng.standard_normal(shape, dtype=np.float32)
+              for name, shape in extra_inputs(cfg, S).items()}
+    return request_tokens(cfg, seed, i, S), extras
 
 
 def main(argv=None):
@@ -52,7 +66,7 @@ def main(argv=None):
                     help="longest demo prompt (half of them use len//2)")
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--max-len", type=int, default=0,
-                    help="slot length; 0 = prompt+max_new")
+                    help="slot length; 0 = prompt+mm_prefix+max_new")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--eos-id", type=int, default=-1,
                     help="stop token (>=0 enables early slot retirement)")
@@ -84,10 +98,6 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.preset == "cpu":
         cfg = cfg.reduced(d_model=128, layers=2, vocab=256)
-    if cfg.mm_prefix > 0 or cfg.encoder_layers:
-        raise NotImplementedError(
-            f"{cfg.name}: the multimodal-prefix and encoder-decoder serving "
-            "paths arrive with the other families (ROADMAP A15)")
     model = build_model(cfg)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = model.init_params(gen, device)
@@ -99,9 +109,11 @@ def main(argv=None):
 
     if args.one_shot:
         B, S = args.requests, args.prompt_len
-        batch = {"tokens": torch.from_numpy(np.stack([
-            request_tokens(cfg, args.seed, i, S) for i in range(B)])).to(
-                device)}
+        inputs = [request_inputs(cfg, args.seed, i, S) for i in range(B)]
+        batch = {"tokens": np.stack([t for t, _ in inputs])}
+        for key in inputs[0][1]:
+            batch[key] = np.stack([x[key] for _, x in inputs])
+        batch = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
         t0 = time.time()
         out = generate(model, params, batch, args.max_new,
                        temperature=args.temperature, rng=sample_gen,
@@ -114,7 +126,8 @@ def main(argv=None):
 
     # two prompt-length buckets
     lengths = [args.prompt_len, max(1, args.prompt_len // 2)]
-    max_len = args.max_len or (args.prompt_len + args.max_new)
+    max_len = args.max_len or (args.prompt_len + max(0, cfg.mm_prefix)
+                               + args.max_new)
     serve_cfg = {k: vars(args)[k] for k in (
         "arch", "preset", "concurrency", "requests", "prompt_len",
         "max_new", "temperature", "eos_id", "seed")}
@@ -126,9 +139,12 @@ def main(argv=None):
                            max_len=max_len, eos_id=eos_id,
                            temperature=args.temperature, rng=sample_gen,
                            events=log)
-    reqs = [Request(rid=i, tokens=request_tokens(
-        cfg, args.seed, i, lengths[i % len(lengths)]), max_new=args.max_new)
-        for i in range(args.requests)]
+    reqs = []
+    for i in range(args.requests):
+        toks, extras = request_inputs(cfg, args.seed, i,
+                                      lengths[i % len(lengths)])
+        reqs.append(Request(rid=i, tokens=toks, max_new=args.max_new,
+                            extras=extras))
     stream_cb = ((lambda rid, t: print(f"  req {rid}: {t}"))
                  if args.stream else None)
     prof = telemetry.profile_trace(args.profile,

@@ -7,7 +7,11 @@ global merge, on the panel engine (core/dsgd.py), under any wire codec
 (``--wire``), merge operator (``--merge``) and residency policy of the
 state panels (``--residency``, ``--fused-moments``), and under a fault plan
 (``--faults``: agents that die and rejoin, the elastic run), and saves the
-merged model for serving (``--save-merged``). It draws the
+merged model for serving (``--save-merged``). Every registered ``--arch``
+trains (qwen2-vl on tokens alone, its M-RoPE positions broadcast from the
+1-D ones, as the reference's launcher trains it) but the encoder-decoder
+seamless-m4t-medium, which is refused by name: the batches carry no
+encoder frames. It draws the
 schedule's mixing matrices and the batches from the same numpy seeds, in
 the same order, as the reference launcher, so both see byte-identical W
 streams and batches.
@@ -296,6 +300,14 @@ def run(args, *, cfg=None, lm=None):
         cfg = get_config(args.arch)
         if args.preset == "cpu":
             cfg = build_cpu_preset(cfg, args.agents)
+    if cfg.encoder_layers:
+        raise SystemExit(
+            f"--arch {args.arch}: the encoder-decoder {cfg.name} is not "
+            "trained by the launcher: its synthetic batches carry tokens "
+            "only, and the model's encoder reads batch['frame_embeds'] (the "
+            "reference's launcher raises KeyError: 'frame_embeds'; ROADMAP "
+            "C, findings about the reference). Train it through "
+            "core.dsgd.make_panel_segment with frame_embeds in the batches")
     m = args.agents
     model = build_model(cfg)
     opt = make_optimizer(args.optimizer, args.lr, weight_decay=5e-4,

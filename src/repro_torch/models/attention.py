@@ -19,6 +19,11 @@ through the dense ``_sdpa`` (as the reference: never the blockwise route),
 and the absorbed latent-space form in decode over its cache ``{"ckv",
 "krope", "pos"}`` (the normalised latent and the rotated shared key of
 each position), written per row in place as the GQA cache.
+
+Rotary kinds: "rope", "mrope" (qwen2-vl's t/h/w sections, from
+``positions3``) and "none". Cross attention (seamless-m4t's decoder)
+attends to the encoder's keys and values, projected once (``cross_kv``)
+and cached as ``{"k", "v", "pos"}``, through the plain ``_sdpa``.
 """
 from __future__ import annotations
 
@@ -29,7 +34,8 @@ import torch
 
 from repro_torch.configs.base import AttentionConfig, LayerSpec, ModelConfig
 from repro_torch.kernels.flash_attention import blockwise_attention
-from repro_torch.models.layers import apply_norm, apply_rope, dense_init
+from repro_torch.models.layers import (apply_mrope, apply_norm, apply_rope,
+                                       dense_init)
 
 NEG_INF = -1e30
 
@@ -48,12 +54,14 @@ def init_gqa(generator, cfg: ModelConfig, *, device, dtype=torch.float32):
     }
 
 
-def _rope_q_or_k(x, positions, a: AttentionConfig):
+def _rope_q_or_k(x, positions, a: AttentionConfig, positions3=None):
     if a.rope == "rope":
         return apply_rope(x, positions, a.rope_theta)
+    if a.rope == "mrope":
+        return apply_mrope(x, positions3, a.mrope_sections, a.rope_theta)
     if a.rope == "none":
         return x
-    raise NotImplementedError(f"rope kind {a.rope!r} is not ported yet")
+    raise ValueError(f"rope kind {a.rope!r}")
 
 
 def _mask_bias(q_pos, k_pos, *, causal: bool, window: Optional[int]):
@@ -102,12 +110,13 @@ def _sdpa_blockwise(q, k, v, q_pos, k_pos, *, causal, window, scale,
 
 
 def gqa_forward(params, x, *, cfg: ModelConfig, lspec: LayerSpec,
-                positions, mode: str = "train", cache=None, causal=True,
-                cache_max_len=None):
+                positions, mode: str = "train", cache=None, positions3=None,
+                causal=True, cache_max_len=None):
     """Returns (y, new_cache). mode in {"train", "prefill", "decode"}:
     train returns no cache; prefill a fresh one sized ``cache_max_len``
     (default S); decode (S == 1, ``positions`` (B, 1), each row at its own
-    depth) writes into ``cache`` in place and returns it."""
+    depth) writes into ``cache`` in place and returns it. ``positions3``
+    (3, B, S) are M-RoPE's t/h/w positions (rope "mrope" only)."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"gqa_forward mode {mode!r}: train, prefill or "
                          "decode")
@@ -116,8 +125,8 @@ def gqa_forward(params, x, *, cfg: ModelConfig, lspec: LayerSpec,
     q = (x @ params["wq"]).reshape(B, S, a.num_heads, a.head_dim)
     k = (x @ params["wk"]).reshape(B, S, a.num_kv_heads, a.head_dim)
     v = (x @ params["wv"]).reshape(B, S, a.num_kv_heads, a.head_dim)
-    q = _rope_q_or_k(q, positions, a)
-    k = _rope_q_or_k(k, positions, a)
+    q = _rope_q_or_k(q, positions, a, positions3)
+    k = _rope_q_or_k(k, positions, a, positions3)
     scale = 1.0 / math.sqrt(a.head_dim)
     new_cache = None
     if mode == "decode":
@@ -301,3 +310,42 @@ def init_mla_cache(cfg: ModelConfig, lspec: LayerSpec, B: int, seq_len: int,
                                  device=device),
             "pos": torch.full((B, seq_len), -1, dtype=torch.int32,
                               device=device)}
+
+
+# ---------------------------------------------------------------------------
+# Cross attention (encoder-decoder)
+# ---------------------------------------------------------------------------
+
+
+init_cross = init_gqa  # the same four projections: wq, wk, wv, wo
+
+
+def cross_kv(params, enc_out, *, cfg: ModelConfig):
+    """The encoder output projected once to keys and values, cached across
+    decode steps: {"k", "v" (B, Se, Kv, hd), "pos" (B, Se) int32}. The
+    ``pos`` row (-1 = empty) keeps a cache row padded to a larger encoder
+    capacity (the engine's slots hold ``max_len`` rows) masked there."""
+    a = cfg.attn
+    B, Se, _ = enc_out.shape
+    k = (enc_out @ params["wk"]).reshape(B, Se, a.num_kv_heads, a.head_dim)
+    v = (enc_out @ params["wv"]).reshape(B, Se, a.num_kv_heads, a.head_dim)
+    pos = torch.broadcast_to(
+        torch.arange(Se, dtype=torch.int32, device=enc_out.device), (B, Se))
+    return {"k": k, "v": v, "pos": pos}
+
+
+def cross_forward(params, x, kv, *, cfg: ModelConfig):
+    """Full (non-causal) attention from the decoder states x (B, S, d) to
+    the cached encoder keys and values, the slots at pos -1 under the
+    NEG_INF bias; the plain ``_sdpa`` (as the reference: never the
+    blockwise route)."""
+    a = cfg.attn
+    B, S, _ = x.shape
+    Se = kv["k"].shape[1]
+    q = (x @ params["wq"]).reshape(B, S, a.num_heads, a.head_dim)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    neg = torch.full((), NEG_INF, dtype=torch.float32, device=x.device)
+    bias = torch.broadcast_to(
+        torch.where(kv["pos"][:, None, :] >= 0, zero, neg), (B, S, Se))
+    y = _sdpa(q, kv["k"], kv["v"], bias, 1.0 / math.sqrt(a.head_dim))
+    return y.reshape(B, S, a.q_dim) @ params["wo"]

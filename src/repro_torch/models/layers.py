@@ -90,6 +90,24 @@ def apply_rope(x, positions, theta=10000.0):
     return out.to(x.dtype)
 
 
+def apply_mrope(x, positions3, sections, theta=1000000.0):
+    """Multimodal RoPE (Qwen2-VL). x: (B, S, H, hd); positions3: (3, B, S)
+    temporal / height / width position ids; ``sections`` splits the hd/2
+    frequencies into (t, h, w) groups: frequency i rotates by the position
+    of row ``sec[i]`` of positions3. The half-split rotation of
+    ``apply_rope``."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, device=x.device)  # (hd/2,)
+    sec = torch.cat([torch.full((s,), i, dtype=torch.long, device=x.device)
+                     for i, s in enumerate(sections)])  # (hd/2,)
+    pos = torch.movedim(positions3[sec], 0, -1)  # (B, S, hd/2)
+    angles = (pos.to(torch.float32) * freqs)[..., None, :]  # (B, S, 1, hd/2)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # MLPs
 # ---------------------------------------------------------------------------

@@ -1,5 +1,6 @@
-"""Public model API: build_model(cfg) -> Model (the decoders of the dense,
-MoE, ssm and hybrid families: training loss, prefill and decode).
+"""Public model API: build_model(cfg) -> Model (every family of the
+registry: dense, MoE, ssm, hybrid, the vlm's patch prefix and the audio
+encoder-decoder; training loss, prefill and decode).
 
 Counterpart of ``repro/models/model.py``. Parameters are a nested dict of
 tensors with the reference's keys and shapes::
@@ -7,7 +8,8 @@ tensors with the reference's keys and shapes::
     {"decoder": {"main": {"p0": {"ffn": {...}, "mixer": {...},
                                  "norm1": {}, "norm2": {}}}},
      "embed": {"table": (padded_vocab, d_model)}, "final_norm": {},
-     ["head": {"w": (d_model, padded_vocab)}], ["mtp": {...}]}
+     ["head": {"w": (d_model, padded_vocab)}], ["mtp": {...}],
+     ["encoder": {"main": {"p0": {...}}}, "enc_norm": {...}]}
 
 The head is tied to the embedding (``head_w`` its transpose) or, with
 ``tie_embeddings=False``, its own ``head.w``; it projects over the PADDED
@@ -15,7 +17,14 @@ vocabulary (50432 columns for olmo-1b), and the padding columns take part
 in the softmax as in the reference. With ``mtp_depth`` (deepseek-v3) an
 ``mtp`` subtree holds the multi-token-prediction head (``proj`` of
 h ++ emb(t + 1), one stacked block, its norm), trained through the loss
-only.
+only. The vlm (qwen2-vl) takes ``batch["patch_embeds"]`` (B, P, d), the
+stubbed vision tower's output, as a prefix before the tokens: positions
+count from the prefix's first row, M-RoPE's ``positions3`` are the
+batch's or the 1-D positions broadcast, and the loss drops the prefix's
+rows before the head. The encoder-decoder (seamless-m4t) runs
+``batch["frame_embeds"]`` (B, S_src, d) through a non-causal ``encoder``
+stack and ``enc_norm``; every decoder block attends to that output through
+its ``cross`` leaves.
 
 Serving: ``prefill`` runs a prompt and returns the last position's logits
 with fresh caches sized for the whole decode horizon; ``decode_step`` feeds
@@ -57,25 +66,41 @@ class Model:
     head_w: Callable  # params -> (d_model, padded_vocab)
 
 
+def extra_inputs(cfg: ModelConfig, S: int) -> dict:
+    """The inputs beside the tokens that a model of ``cfg`` reads, unbatched,
+    for S tokens: name -> (rows, d_model). The vlm's ``patch_embeds``
+    (mm_prefix rows, before the tokens), the encoder-decoder's
+    ``frame_embeds`` (S frames, as the reference's test batches carry);
+    {} for a decoder of tokens alone."""
+    out = {}
+    if cfg.mm_prefix > 0:
+        out["patch_embeds"] = (cfg.mm_prefix, cfg.d_model)
+    if cfg.encoder_layers:
+        out["frame_embeds"] = (S, cfg.d_model)
+    return out
+
+
 def build_model(cfg: ModelConfig) -> Model:
-    if (cfg.family not in ("dense", "moe", "ssm", "hybrid")
-            or cfg.encoder_layers or cfg.mm_prefix):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family (multimodal prefix or "
-            "encoder-decoder) is not ported; the port runs the decoders "
-            "(dense, moe, ssm and hybrid)")
     dt = _dtype(cfg.param_dtype)
     V = cfg.padded_vocab
+    is_encdec = cfg.encoder_layers > 0
+    has_prefix = cfg.mm_prefix > 0  # the vlm's patch prefix
+    enc_cfg = (cfg.replace(num_layers=cfg.encoder_layers, dense_ff_first_k=0)
+               if is_encdec else None)
 
     def init_params(generator, device):
         d = cfg.d_model
         p = {"embed": init_embed(generator, V, d, device=device, dtype=dt),
              "final_norm": init_norm(cfg.norm, d, device=device, dtype=dt),
              "decoder": tfm.init_stack(generator, cfg, device=device,
-                                       dtype=dt)}
+                                       cross=is_encdec, dtype=dt)}
         if not cfg.tie_embeddings:
             p["head"] = {"w": dense_init(generator, d, V, device=device,
                                          dtype=dt)}
+        if is_encdec:
+            p["encoder"] = tfm.init_stack(generator, enc_cfg, device=device,
+                                          dtype=dt)
+            p["enc_norm"] = init_norm(cfg.norm, d, device=device, dtype=dt)
         if cfg.mtp_depth:
             p["mtp"] = {
                 "proj": dense_init(generator, 2 * d, d, device=device,
@@ -92,20 +117,51 @@ def build_model(cfg: ModelConfig) -> Model:
             return params["embed"]["table"].T
         return params["head"]["w"]
 
-    def loss_fn(params, batch, rng=None):
-        """Mean next-token cross-entropy over the masked positions, plus
-        MTP_WEIGHT times the MTP head's (predicting t + 2 from h_t and the
-        embedding of t + 1) and the MoE load-balance loss. ``rng`` is
-        accepted for signature parity and unused: the train path draws no
-        randomness."""
+    def run_encoder(params, frame_embeds):
+        """frame_embeds (B, S_src, d) -> the encoder's output (B, S_src, d):
+        the encoder stack, non-causal, then ``enc_norm``."""
+        B, S, _ = frame_embeds.shape
+        pos = torch.broadcast_to(torch.arange(
+            S, dtype=torch.int32, device=frame_embeds.device), (B, S))
+        h, _, _ = tfm.apply_stack(params["encoder"], frame_embeds,
+                                  cfg=enc_cfg, positions=pos, causal=False)
+        return apply_norm(params["enc_norm"], h, cfg.norm)
+
+    def embed_inputs(params, batch):
+        """-> (x, positions, positions3, enc_out): the token embeddings
+        after the patch prefix when the batch has one, positions 0.. over
+        the whole sequence, M-RoPE's (3, B, S) positions (the batch's, else
+        the 1-D ones broadcast; None without M-RoPE) and the encoder's
+        output of the batch's frames (None without an encoder)."""
         tokens = batch["tokens"]
-        B, S = tokens.shape
         x = embed_tokens(params["embed"], tokens, scale=cfg.embed_scale)
+        if has_prefix and "patch_embeds" in batch:
+            x = torch.cat([batch["patch_embeds"].to(x.dtype), x], dim=1)
+        B, S = x.shape[:2]
         positions = torch.broadcast_to(
             torch.arange(S, dtype=torch.int32, device=x.device), (B, S))
+        positions3 = batch.get("positions3")
+        if cfg.attn.rope == "mrope" and positions3 is None:
+            positions3 = torch.broadcast_to(positions[None], (3, B, S))
+        enc_out = (run_encoder(params, batch["frame_embeds"]) if is_encdec
+                   else None)
+        return x, positions, positions3, enc_out
+
+    def loss_fn(params, batch, rng=None):
+        """Mean next-token cross-entropy over the masked positions (the
+        patch prefix's rows dropped before the head), plus MTP_WEIGHT times
+        the MTP head's (predicting t + 2 from h_t and the embedding of
+        t + 1) and the MoE load-balance loss. ``rng`` is accepted for
+        signature parity and unused: the train path draws no
+        randomness."""
+        x, positions, positions3, enc_out = embed_inputs(params, batch)
         h, _, aux = tfm.apply_stack(params["decoder"], x, cfg=cfg,
-                                    positions=positions)
+                                    positions=positions,
+                                    positions3=positions3, enc_out=enc_out)
         h = apply_norm(params["final_norm"], h, cfg.norm)
+        P = (batch["patch_embeds"].shape[1]
+             if has_prefix and "patch_embeds" in batch else 0)
+        h = h[:, P:]
         targets = batch["targets"]
         mask = batch.get("mask")
         if mask is None:
@@ -117,7 +173,7 @@ def build_model(cfg: ModelConfig) -> Model:
         loss = nll / torch.clamp(count, min=1.0)
         metrics = {"nll": loss, "aux": aux}
         if cfg.mtp_depth:
-            hm = torch.cat([h[:, :-1], x[:, 1:]], dim=-1)
+            hm = torch.cat([h[:, :-1], x[:, P + 1:]], dim=-1)
             hm = hm @ params["mtp"]["proj"]
             blk = tfm._index(params["mtp"]["block"], 0)
             # the block's own MoE loss is not added (as in the reference)
@@ -136,44 +192,50 @@ def build_model(cfg: ModelConfig) -> Model:
         return loss, metrics
 
     def prefill(params, batch, max_len: Optional[int] = None):
-        """batch["tokens"] (B, S) -> (logits (B, padded_vocab) float32 of
-        the last position, caches of ``max_len`` (default S) slots)."""
-        tokens = batch["tokens"]
-        B, S = tokens.shape
-        x = embed_tokens(params["embed"], tokens, scale=cfg.embed_scale)
-        positions = torch.broadcast_to(
-            torch.arange(S, dtype=torch.int32, device=x.device), (B, S))
+        """batch["tokens"] (B, S) (and the patch prefix or the encoder's
+        frames) -> (logits (B, padded_vocab) float32 of the last position,
+        caches of ``max_len`` (default: the prefix and S) slots; with an
+        encoder, each block's cross keys and values of its S_src rows)."""
+        x, positions, positions3, enc_out = embed_inputs(params, batch)
+        S = x.shape[1]
         h, caches, _ = tfm.apply_stack(params["decoder"], x, cfg=cfg,
                                        positions=positions, mode="prefill",
+                                       positions3=positions3,
+                                       enc_out=enc_out,
                                        cache_max_len=max_len or S)
         h = apply_norm(params["final_norm"], h[:, -1:], cfg.norm)
         logits = (h @ head_w(params)).to(torch.float32)[:, 0]
         return logits, caches
 
     def decode_step(params, caches, tokens, index):
-        """tokens: (B, 1) int; index: the absolute position(s) — a scalar
-        shared by the batch, or a (B,) vector when every row sits at its own
-        depth (continuous batching over slots). Writes ``caches`` in place
-        and returns (logits (B, padded_vocab) float32, caches)."""
+        """tokens: (B, 1) int; index: the absolute position(s), prefix
+        included — a scalar shared by the batch, or a (B,) vector when
+        every row sits at its own depth (continuous batching over slots).
+        Writes ``caches`` in place and returns (logits (B, padded_vocab)
+        float32, caches)."""
         B = tokens.shape[0]
         x = embed_tokens(params["embed"], tokens, scale=cfg.embed_scale)
         idx = torch.as_tensor(index, dtype=torch.int32, device=x.device)
         positions = (idx.reshape(B, 1) if idx.dim()
                      else torch.full((B, 1), int(idx), dtype=torch.int32,
                                      device=x.device))
+        positions3 = (torch.broadcast_to(positions[None], (3, B, 1))
+                      if cfg.attn.rope == "mrope" else None)
         h, caches, _ = tfm.apply_stack(params["decoder"], x, cfg=cfg,
                                        positions=positions, mode="decode",
-                                       caches=caches)
+                                       positions3=positions3, caches=caches)
         h = apply_norm(params["final_norm"], h, cfg.norm)
         logits = (h @ head_w(params)).to(torch.float32)[:, 0]
         return logits, caches
 
     def init_cache(B, seq_len, dtype=None, enc_len: int = 0, device=None):
         """Empty caches for B rows of ``seq_len`` positions on ``device``
-        (default: the card). ``enc_len`` is accepted for signature parity:
-        the port's decoders have no cross-attention cache."""
+        (default: the card); with an encoder, each block's cross keys and
+        values of ``enc_len`` (default ``seq_len``) slots at pos -1."""
         return tfm.init_stack_cache(cfg, B, seq_len,
                                     device=resolve_device(device),
+                                    cross=is_encdec,
+                                    enc_len=enc_len or seq_len,
                                     dtype=dtype or dt)
 
     return Model(cfg=cfg, init_params=init_params, loss_fn=loss_fn,

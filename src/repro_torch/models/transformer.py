@@ -1,7 +1,9 @@
-"""Decoder stack (counterpart of ``repro/models/transformer.py``): GQA,
-MLA or recurrent (RG-LRU, mLSTM, sLSTM) mixers, gated-MLP, MoE or no FFN
-(``"none"``: the block is norm + mixer + residual), and deepseek-v3's
-dense ``front`` segment.
+"""Decoder and encoder stacks (counterpart of
+``repro/models/transformer.py``): GQA, MLA or recurrent (RG-LRU, mLSTM,
+sLSTM) mixers, gated-MLP, MoE or no FFN (``"none"``: the block is norm +
+mixer + residual), deepseek-v3's dense ``front`` segment, and (with
+``cross``) a cross-attention sub-block after the mixer (``norm_x`` and
+``cross`` leaves: seamless-m4t's decoder).
 
 Layers are grouped into segments exactly as in the reference (e.g.
 recurrentgemma-2b: (rglru, rglru, local attention) x 8 and a (rglru,
@@ -11,9 +13,11 @@ here a Python loop indexes it, which changes no number. Caches (prefill,
 decode) have the reference's tree, ``{seg.name: {"p{i}": {"mixer":
 ...}}}`` with the attention caches ``{"k", "v", "pos"}`` (MLA: ``{"ckv",
 "krope", "pos"}``) and the recurrent states (RG-LRU ``{"h", "conv"}``,
-mLSTM ``{"C", "n", "m"}``, sLSTM ``{"c", "n", "h", "m"}``), each leaf
-stacked on the layer axis first, so a cache row (a batch entry, a serving
-slot) is axis 1. Decode writes every layer's row of the caches in place.
+mLSTM ``{"C", "n", "m"}``, sLSTM ``{"c", "n", "h", "m"}``); a
+cross-attention block adds ``"cross"``, ``{"k", "v", "pos"}`` over the
+encoder's rows, beside ``"mixer"``. Each leaf is stacked on the layer
+axis first, so a cache row (a batch entry, a serving slot) is axis 1.
+Decode writes every layer's row of the caches in place.
 """
 from __future__ import annotations
 
@@ -76,12 +80,18 @@ def _check(lspec: LayerSpec):
 
 
 def init_block(generator, cfg: ModelConfig, lspec: LayerSpec, *, device,
-               d_ff_override: Optional[int] = None, dtype=torch.float32):
+               cross: bool = False, d_ff_override: Optional[int] = None,
+               dtype=torch.float32):
     _check(lspec)
     p = {"norm1": init_norm(cfg.norm, cfg.d_model, device=device,
                             dtype=dtype),
          "mixer": _MIXER_INIT[lspec.mixer](generator, cfg, device=device,
                                            dtype=dtype)}
+    if cross:
+        p["norm_x"] = init_norm(cfg.norm, cfg.d_model, device=device,
+                                dtype=dtype)
+        p["cross"] = attn.init_cross(generator, cfg, device=device,
+                                     dtype=dtype)
     if lspec.ffn == "none":
         return p
     p["norm2"] = init_norm(cfg.norm, cfg.d_model, device=device, dtype=dtype)
@@ -95,12 +105,16 @@ def init_block(generator, cfg: ModelConfig, lspec: LayerSpec, *, device,
 
 
 def apply_block(params, x, *, cfg: ModelConfig, lspec: LayerSpec, positions,
-                mode: str = "train", cache=None, causal=True,
+                mode: str = "train", cache=None, positions3=None,
+                enc_out=None, cross_kv=None, causal=True,
                 cache_max_len=None):
-    """One pre-norm block: x + mixer(norm(x)), then (unless the FFN is
-    "none") x + ffn(norm(x)). Returns (x, cache, aux): cache None in train
-    mode, else {"mixer": the attention cache or recurrent state}; aux the
-    MoE load-balance loss (weighted; 0 without a MoE FFN). A MoE FFN runs
+    """One pre-norm block: x + mixer(norm(x)); with cross attention (the
+    block has ``cross`` leaves) x + cross(norm_x(x)) over ``cross_kv``, or
+    the keys and values projected from ``enc_out`` when none is given;
+    then (unless the FFN is "none") x + ffn(norm(x)). Returns (x, cache,
+    aux): cache None in train mode, else {"mixer": the attention cache or
+    recurrent state[, "cross": the cross keys and values]}; aux the MoE
+    load-balance loss (weighted; 0 without a MoE FFN). A MoE FFN runs
     dropless outside training. In decode the mixer's cache is written in
     place (a recurrent state copied into the given tensors)."""
     _check(lspec)
@@ -118,8 +132,14 @@ def apply_block(params, x, *, cfg: ModelConfig, lspec: LayerSpec, positions,
         fwd = attn.gqa_forward if lspec.mixer == "gqa" else attn.mla_forward
         y, new_cache = fwd(params["mixer"], h, cfg=cfg, lspec=lspec,
                            positions=positions, mode=mode, cache=cache,
-                           causal=causal, cache_max_len=cache_max_len)
+                           positions3=positions3, causal=causal,
+                           cache_max_len=cache_max_len)
     x = x + y
+    if "cross" in params:
+        hx = apply_norm(params["norm_x"], x, cfg.norm)
+        if cross_kv is None:
+            cross_kv = attn.cross_kv(params["cross"], enc_out, cfg=cfg)
+        x = x + attn.cross_forward(params["cross"], hx, cross_kv, cfg=cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if lspec.ffn != "none":
         h2 = apply_norm(params["norm2"], x, cfg.norm)
@@ -133,11 +153,15 @@ def apply_block(params, x, *, cfg: ModelConfig, lspec: LayerSpec, positions,
         x = x + y2
     if mode == "train":
         return x, None, aux
-    return x, {"mixer": new_cache}, aux
+    out = {"mixer": new_cache}
+    if cross_kv is not None:
+        out["cross"] = cross_kv
+    return x, out, aux
 
 
 def init_block_cache(cfg: ModelConfig, lspec: LayerSpec, B: int,
-                     seq_len: int, *, device, dtype=torch.float32):
+                     seq_len: int, *, device, cross: bool = False,
+                     enc_len: int = 0, dtype=torch.float32):
     _check(lspec)
     if lspec.mixer == "rglru":
         c = rec.init_rglru_state(cfg, B, device=device, dtype=dtype)
@@ -149,7 +173,16 @@ def init_block_cache(cfg: ModelConfig, lspec: LayerSpec, B: int,
         init = (attn.init_gqa_cache if lspec.mixer == "gqa"
                 else attn.init_mla_cache)
         c = init(cfg, lspec, B, seq_len, device=device, dtype=dtype)
-    return {"mixer": c}
+    out = {"mixer": c}
+    if cross:
+        a = cfg.attn
+        shape = (B, enc_len, a.num_kv_heads, a.head_dim)
+        out["cross"] = {
+            "k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "pos": torch.full((B, enc_len), -1, dtype=torch.int32,
+                              device=device)}
+    return out
 
 
 def _stack(trees):
@@ -169,12 +202,15 @@ def _index(tree, i):
     return tree[i]
 
 
-def init_stack(generator, cfg: ModelConfig, *, device, dtype=torch.float32):
-    """Params for all segments: {seg.name: {"p{i}": stacked params}}."""
+def init_stack(generator, cfg: ModelConfig, *, device, cross: bool = False,
+               dtype=torch.float32):
+    """Params for all segments: {seg.name: {"p{i}": stacked params}}; with
+    ``cross`` every block has cross-attention leaves."""
     out = {}
     for seg in build_segments(cfg):
         out[seg.name] = {
             f"p{i}": _stack([init_block(generator, cfg, ls, device=device,
+                                        cross=cross,
                                         d_ff_override=seg.d_ff_override,
                                         dtype=dtype)
                              for _ in range(seg.n_rep)])
@@ -183,24 +219,31 @@ def init_stack(generator, cfg: ModelConfig, *, device, dtype=torch.float32):
 
 
 def init_stack_cache(cfg: ModelConfig, B: int, seq_len: int, *, device,
+                     cross: bool = False, enc_len: int = 0,
                      dtype=torch.float32):
-    """Empty caches of every layer, each leaf (n_rep, B, ...)."""
+    """Empty caches of every layer, each leaf (n_rep, B, ...); with
+    ``cross`` each block's cross keys and values of ``enc_len`` slots at
+    pos -1."""
     out = {}
     for seg in build_segments(cfg):
         out[seg.name] = {
             f"p{i}": _stack([init_block_cache(cfg, ls, B, seq_len,
-                                              device=device, dtype=dtype)
+                                              device=device, cross=cross,
+                                              enc_len=enc_len, dtype=dtype)
                              for _ in range(seg.n_rep)])
             for i, ls in enumerate(seg.specs)}
     return out
 
 
 def apply_stack(params, x, *, cfg: ModelConfig, positions, mode="train",
-                caches=None, causal=True, cache_max_len=None):
+                caches=None, positions3=None, enc_out=None, causal=True,
+                cache_max_len=None):
     """Run all segments. Returns (x, caches, aux): train mode no caches;
-    prefill fresh caches sized ``cache_max_len``; decode takes ``caches``,
-    writes each layer's row of them in place and returns them. ``aux`` is
-    the sum of the blocks' MoE losses (float32)."""
+    prefill fresh caches sized ``cache_max_len`` (with cross attention,
+    each block's keys and values of ``enc_out``); decode takes ``caches``,
+    writes each layer's row of them in place and returns them (the cross
+    keys and values read as they are). ``aux`` is the sum of the blocks'
+    MoE losses (float32). ``causal=False`` is the encoder's attention."""
     new_caches = {}
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for seg in build_segments(cfg):
@@ -210,13 +253,16 @@ def apply_stack(params, x, *, cfg: ModelConfig, positions, mode="train",
             blk_caches = {}
             for i, ls in enumerate(seg.specs):
                 p = _index(seg_params[f"p{i}"], r)
-                cache = None
+                cache = cross_kv = None
                 if mode == "decode":
                     # views of the stacked leaves: decode writes through them
-                    cache = _index(caches[seg.name][f"p{i}"], r)["mixer"]
+                    row = _index(caches[seg.name][f"p{i}"], r)
+                    cache, cross_kv = row["mixer"], row.get("cross")
                 x, blk_cache, aux = apply_block(
                     p, x, cfg=cfg, lspec=ls, positions=positions, mode=mode,
-                    cache=cache, causal=causal, cache_max_len=cache_max_len)
+                    cache=cache, positions3=positions3, enc_out=enc_out,
+                    cross_kv=cross_kv, causal=causal,
+                    cache_max_len=cache_max_len)
                 aux_total = aux_total + aux
                 blk_caches[f"p{i}"] = blk_cache
             per_rep.append(blk_caches)

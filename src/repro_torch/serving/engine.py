@@ -10,9 +10,11 @@ split:
 * **insert(row, slot)** — copy that B=1 cache row into slot ``s`` of the
   engine's persistent slotted cache: every cache leaf is laid out
   ``(n_rep, max_concurrency, ...)`` and a slot is row ``s`` of axis 1
-  across all layers' KV rings. The cache is allocated once and written in
-  place (``copy_``, ``index_put_``) by insert and step, so decode never
-  reallocates it (the reference donates the buffer to the same end);
+  across all layers' KV rings, recurrent states and cross-attention
+  caches (an encoder's rows padded to ``max_len`` at pos -1). The cache
+  is allocated once and written in place (``copy_``, ``index_put_``) by
+  insert and step, so decode never reallocates it (the reference donates
+  the buffer to the same end);
 * **step()** — ONE decode step over all slots at once, each at its own
   absolute position (per-slot position vectors), sampling one token per
   slot.
@@ -37,12 +39,13 @@ from __future__ import annotations
 
 import collections
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.models.model import extra_inputs
 from repro_torch.telemetry import annotate, histogram_set, scope
 from repro_torch.utils.tree import tree_leaves
 
@@ -125,32 +128,37 @@ def _sync(device):
 # ---------------------------------------------------------------------------
 
 
-def _tokens_only(batch):
-    """The port's models read token ids only: a multimodal or encoder input
-    would be ignored by prefill while shifting the decode positions, so it
-    is refused."""
-    extra = sorted(set(batch) - {"tokens"})
-    if extra:
-        raise NotImplementedError(
-            f"model inputs {extra}: the multimodal-prefix and "
-            "encoder-decoder serving paths arrive with the other families "
-            "(ROADMAP A15)")
+def _refuse_unread(cfg, batch, what="model inputs"):
+    """An input the model does not read would be ignored by its prefill
+    while a patch prefix still shifted the decode positions, so it is
+    refused: beside the tokens a model reads its ``extra_inputs`` (and an
+    M-RoPE model its ``positions3``)."""
+    reads = {"tokens", *extra_inputs(cfg, 0)}
+    if cfg.attn.rope == "mrope":
+        reads.add("positions3")
+    unread = sorted(set(batch) - reads)
+    if unread:
+        raise ValueError(f"{what} {unread}: {cfg.name} reads only "
+                         f"{sorted(reads)}")
 
 
 @torch.no_grad()
 def generate(model, params, batch, max_new: int, *, temperature: float = 0.0,
              rng: Optional[torch.Generator] = None,
              max_len: Optional[int] = None, eos_id: Optional[int] = None):
-    """batch: model input dict with 'tokens' (B, S_prompt). Returns
-    (B, max_new) int32 numpy tokens.
+    """batch: model input dict with 'tokens' (B, S_prompt) (and a model's
+    other inputs: the vlm's ``patch_embeds`` (B, P, d), whose P rows come
+    before the prompt and count in its positions; the encoder-decoder's
+    ``frame_embeds``). Returns (B, max_new) int32 numpy tokens.
 
     The tokens collect in a device buffer and are fetched ONCE at the end.
     Rows that hit ``eos_id`` keep emitting ``eos_id``; once every row is
     done the loop exits early (a host read of one flag a step, only when
-    ``eos_id`` is set)."""
-    _tokens_only(batch)
-    tokens = batch["tokens"]
-    B, S = tokens.shape
+    ``eos_id`` is set). An input the model does not read is refused."""
+    _refuse_unread(model.cfg, batch)
+    B, S = batch["tokens"].shape
+    if "patch_embeds" in batch:  # absolute positions include the prefix
+        S += batch["patch_embeds"].shape[1]
     total = max_len or (S + max_new)
     V = model.cfg.vocab_size
     logits, caches = make_prefill_fn(model, max_len=total)(params, batch)
@@ -178,12 +186,13 @@ def generate(model, params, batch, max_new: int, *, temperature: float = 0.0,
 
 @dataclass
 class Request:
-    """One serving request: prompt ids (unbatched) and its token budget.
-    The reference's ``extras`` (multimodal inputs) arrive with those
-    families (ROADMAP A15)."""
+    """One serving request: prompt ids (unbatched), its token budget and
+    the model's other inputs, unbatched (``patch_embeds`` (P, d),
+    ``frame_embeds`` (S_src, d); numpy arrays or tensors)."""
     rid: Any
     tokens: np.ndarray
     max_new: int = 16
+    extras: Dict[str, Any] = field(default_factory=dict)
 
 
 class _Slot:
@@ -200,7 +209,9 @@ class _Slot:
 class ServingEngine:
     """Slotted continuous-batching engine (see module docstring).
 
-    ``max_len`` bounds prompt + max_new per request; the slotted
+    ``max_len`` bounds prefix + prompt + max_new per request (and an
+    encoder's rows: the cross keys and values of a slot hold ``max_len``,
+    a shorter encoder's padding at pos -1); the slotted
     cache holds ``max_concurrency`` such rows as one persistent set of
     tensors on the params' device, written in place. ``step()`` fetches
     exactly one (C,) token vector to the host per tick — the scheduler
@@ -330,14 +341,25 @@ class ServingEngine:
             if t_sub is not None:
                 self.hists["queue_wait_s"].record(
                     time.perf_counter() - t_sub)
+            _refuse_unread(self.cfg, {"tokens": None, **req.extras},
+                           what=f"request {req.rid!r}: extras")
             prompt = np.asarray(req.tokens, np.int32).reshape(-1)
             batch = {"tokens": torch.from_numpy(prompt[None]).to(
                 self.device)}
-            start = prompt.shape[0]
+            for key, val in req.extras.items():
+                batch[key] = torch.as_tensor(val).to(self.device)[None]
+            prefix = (batch["patch_embeds"].shape[1]
+                      if "patch_embeds" in batch else 0)
+            start = prefix + prompt.shape[0]
             if start + req.max_new > self.max_len:
                 raise ValueError(
-                    f"request {req.rid!r}: prompt+max_new = "
+                    f"request {req.rid!r}: prefix+prompt+max_new = "
                     f"{start + req.max_new} exceeds max_len={self.max_len}")
+            if ("frame_embeds" in batch
+                    and batch["frame_embeds"].shape[1] > self.max_len):
+                raise ValueError(
+                    f"request {req.rid!r}: {batch['frame_embeds'].shape[1]} "
+                    f"encoder rows exceed the slots' max_len={self.max_len}")
             with annotate("serve.admit"):
                 logits, row = self._prefill(self.params, batch)
                 self.insert(row, slot)

@@ -32,6 +32,7 @@ not a loss's ~1e-2, and float32 sums in other orders miss by ~1e-6 of
 that scale (measured up to 1.25e-6); the naive
 recurrence and decode-vs-scan at the reference tests' atol 1e-4 + rtol
 1e-3."""
+import dataclasses
 import functools
 import importlib.util
 from pathlib import Path
@@ -384,7 +385,9 @@ def test_float64_model():
     """chip_smoke's ``float64_model``: inside it a float64 model's logits
     are float64 and agree with the float32 model's to float32 rounding (at
     the reference's recurrent-decode tolerance), outside it the model
-    modules read float32 again; a stack with attention is refused."""
+    modules read float32 again; a stack whose attention takes the flash
+    route (attn_block > 0) is refused, the same stack on the dense route
+    is not."""
     from repro_torch.models import build_model
     from repro_torch.models import layers
     from repro_torch.utils.tree import tree_map
@@ -403,9 +406,12 @@ def test_float64_model():
     assert layers.torch is torch
     np.testing.assert_allclose(l32.numpy(), l64.numpy(), atol=cs.REC_ATOL,
                                rtol=cs.REC_RTOL)
-    with pytest.raises(ValueError, match="without attention"):
-        with cs.float64_model(torch, get_config("recurrentgemma-2b").reduced(
-                layers=3)):
+    hybrid = get_config("recurrentgemma-2b").reduced(layers=3)
+    with cs.float64_model(torch, hybrid):
+        assert layers.torch is not torch
+    with pytest.raises(ValueError, match="dense route"):
+        with cs.float64_model(torch, hybrid.replace(dist=dataclasses.replace(
+                hybrid.dist, attn_block=8))):
             pass
 
 

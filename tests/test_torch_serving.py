@@ -4,8 +4,11 @@ says otherwise): the model's prefill and decode modes, greedy ``generate``,
 and mirrors of ``tests/test_serving.py``'s engine tests (OOV-safe
 sampling, the persistent cache written in place, continuous batching equal
 to sequential generate, slot insert/evict/reuse, EOS retirement, oversized
-requests, the merged checkpoint served), then ``launch/train.py
---save-merged`` -> ``launch/serve.py --restore`` on the CPU.
+requests, the merged checkpoint served), the patch-prefix and
+encoder-decoder families' serving (``tests/test_serving.py:68, 170-198,
+201-219``: the reference's tokens the oracle, the extras handed over as
+numpy), then ``launch/train.py --save-merged`` -> ``launch/serve.py
+--restore`` on the CPU.
 
 Tolerances: prefill and decode logits against the reference's at atol 2e-5
 + rtol 1e-5 (float32; the products and softmax sums run in another order;
@@ -33,7 +36,7 @@ from repro_torch.core import merge as merge_mod
 from repro_torch.core import panel as panel_mod
 from repro_torch.launch import serve as serve_launch
 from repro_torch.launch import train as train_launch
-from repro_torch.models import build_model
+from repro_torch.models import build_model, extra_inputs
 from repro_torch.optim import make_optimizer
 from repro_torch.serving import (Request, ServingEngine, generate,
                                  make_decode_fn, make_prefill_fn, mask_oov,
@@ -337,14 +340,152 @@ def test_engine_rejects_oversized_request():
         eng.admit()
 
 
-def test_generate_refuses_inputs_beside_tokens():
-    """A multimodal input would shift the decode positions by a prefix the
-    port's prefill never ran: refused, not ignored."""
-    cfg, model, params = _tiny()
-    batch = {"tokens": torch.from_numpy(_prompt(0, 8, 64)[None]),
-             "patch_embeds": torch.zeros((1, 4, cfg.d_model))}
-    with pytest.raises(NotImplementedError, match="A15"):
-        generate(model, params, batch, 4)
+# ------------------------------------ the patch-prefix and encoder families
+
+
+_FAMILY = {}
+
+
+def _family(arch, d=64, vocab=64):
+    """(ref_model, ref_params, model, params) of ``arch`` reduced to
+    d_model ``d`` and ``vocab`` (the reference tests' ``_tiny``), the
+    port's parameters handed over from the reference's seed-0 init."""
+    key = (arch, d, vocab)
+    if key not in _FAMILY:
+        ref_model = ref_build_model(ref_get_config(arch).reduced(
+            d_model=d, vocab=vocab))
+        ref_params = ref_model.init_params(jax.random.PRNGKey(0))
+        model = build_model(get_config(arch).reduced(d_model=d, vocab=vocab))
+        _FAMILY[key] = (ref_model, ref_params, model, _handover(ref_params))
+    return _FAMILY[key]
+
+
+def _extra(cfg, name, i, rows):
+    """Request ``i``'s patch prefix or frames: (rows, d) float32 standard
+    normals from the numpy generator seeded (3, i)."""
+    return np.random.default_rng((3, i)).standard_normal(
+        (rows, cfg.d_model), dtype=np.float32)
+
+
+def _batches_of(req):
+    """The request as a batch of one row: (the reference's, the port's)."""
+    b = {"tokens": np.asarray(req.tokens)[None],
+         **{k: np.asarray(v)[None] for k, v in req.extras.items()}}
+    return (jax.tree.map(jnp.asarray, b),
+            {k: torch.from_numpy(v) for k, v in b.items()})
+
+
+def _serve_both(arch, reqs, max_len, C=3):
+    """The requests through the port's engine and the reference's (C
+    slots); asserts their tokens equal, request by request, and equal to
+    the port's generate of each alone. Returns the port's engine."""
+    from repro.serving import Request as RefRequest
+    from repro.serving import ServingEngine as RefEngine
+    ref_model, ref_params, model, params = _family(arch)
+    eng = ServingEngine(model, params, max_concurrency=C, max_len=max_len)
+    out = eng.serve(reqs)
+    ref_out = RefEngine(ref_model, ref_params, max_concurrency=C,
+                        max_len=max_len).serve([
+        RefRequest(rid=r.rid, tokens=r.tokens, max_new=r.max_new,
+                   extras=r.extras) for r in reqs])
+    assert eng.stats["admitted"] == eng.stats["retired"] == len(reqs)
+    for r in reqs:
+        np.testing.assert_array_equal(out[r.rid], ref_out[r.rid])
+        alone = generate(model, params, _batches_of(r)[1], r.max_new,
+                         max_len=max_len)[0]
+        np.testing.assert_array_equal(out[r.rid], alone)
+    return eng
+
+
+def test_generate_vlm_with_prefix_matches_reference():
+    """tests/test_serving.py:68: qwen2-vl (d_model 128, vocab 128) with an
+    8-row patch prefix before 8 prompt tokens; the greedy tokens equal the
+    reference's (its decode positions start after the prefix)."""
+    ref_model, ref_params, model, params = _family("qwen2-vl-72b", 128, 128)
+    cfg = model.cfg
+    toks = np.stack([_prompt(i, 8, cfg.vocab_size) for i in range(2)])
+    pe = np.stack([_extra(cfg, "patch_embeds", i, cfg.mm_prefix)
+                   for i in range(2)])
+    out = generate(model, params, {"tokens": torch.from_numpy(toks),
+                                   "patch_embeds": torch.from_numpy(pe)}, 4)
+    ref = ref_generate(ref_model, ref_params, {
+        "tokens": jnp.asarray(toks), "patch_embeds": jnp.asarray(pe)}, 4)
+    assert out.shape == (2, 4)
+    np.testing.assert_array_equal(out, np.asarray(ref))
+
+
+def test_continuous_batching_encdec_padded_cross_kv():
+    """tests/test_serving.py:170-198 on seamless-m4t: five requests of 8
+    or 12 prompt tokens, each with as many frames, through 3 slots whose
+    cross keys and values hold max_len 48 rows (a request's rows padded at
+    pos -1): tokens equal to the reference engine's and to each request
+    generated alone."""
+    cfg = _family("seamless-m4t-medium")[2].cfg
+    reqs = []
+    for i in range(5):
+        S = [8, 12][i % 2]
+        reqs.append(Request(rid=i, tokens=_prompt(i, S, cfg.vocab_size),
+                            max_new=4 + (i % 3), extras={
+                                "frame_embeds": _extra(cfg, "frame_embeds",
+                                                       i, S)}))
+    eng = _serve_both("seamless-m4t-medium", reqs, 48)
+    pos = eng.caches["main"]["p0"]["cross"]["pos"]
+    assert tuple(pos.shape) == (cfg.num_layers, 3, 48)
+    # each slot's last request: its own frames' rows, then padding at -1
+    for slot in range(3):
+        S = int((pos[0, slot] >= 0).sum())
+        assert S in (8, 12)
+        assert bool(torch.all(pos[:, slot, :S] == torch.arange(S)))
+        assert bool(torch.all(pos[:, slot, S:] == -1))
+    with pytest.raises(ValueError, match="encoder rows"):
+        eng.serve([Request(rid=9, tokens=_prompt(9, 4, cfg.vocab_size),
+                           extras={"frame_embeds": _extra(
+                               cfg, "frame_embeds", 9, 49)})])
+
+
+def test_mixed_batch_multimodal_prefix_parity():
+    """tests/test_serving.py:201-219: qwen2-vl requests with and without a
+    patch prefix share 3 slots; tokens equal to the reference engine's and
+    to each request generated alone."""
+    cfg = _family("qwen2-vl-72b")[2].cfg
+    reqs = []
+    for i in range(4):
+        extras = ({"patch_embeds": _extra(cfg, "patch_embeds", i,
+                                          cfg.mm_prefix)}
+                  if i % 2 == 0 else {})
+        reqs.append(Request(rid=i, tokens=_prompt(i, 8, cfg.vocab_size),
+                            max_new=5, extras=extras))
+    _serve_both("qwen2-vl-72b", reqs, 48)
+
+
+@pytest.mark.parametrize("arch,extra", [("olmo-1b", "patch_embeds"),
+                                        ("qwen2-vl-72b", "frame_embeds"),
+                                        ("seamless-m4t-medium",
+                                         "patch_embeds")])
+def test_inputs_the_model_does_not_read_are_refused(arch, extra):
+    """A patch prefix sent to a model without one would be ignored by its
+    prefill while it shifted the decode positions, and frames sent to a
+    decoder would be dropped: generate and the engine's admit refuse an
+    input the model does not read, by name (beside the inputs it does
+    read, which pass)."""
+    model, params = _family(arch)[2:]
+    cfg = model.cfg
+    extras = {name: _extra(cfg, name, 0, shape[0])
+              for name, shape in extra_inputs(cfg, 8).items()}
+    toks = _prompt(0, 8, cfg.vocab_size)
+    out = generate(model, params, {
+        "tokens": torch.from_numpy(toks[None]),
+        **{k: torch.from_numpy(v[None]) for k, v in extras.items()}}, 2)
+    assert out.shape == (1, 2)
+    extras[extra] = _extra(cfg, extra, 0, 4)
+    with pytest.raises(ValueError, match=extra):
+        generate(model, params, {
+            "tokens": torch.from_numpy(toks[None]),
+            **{k: torch.from_numpy(v[None]) for k, v in extras.items()}}, 2)
+    eng = ServingEngine(model, params, max_concurrency=1, max_len=32)
+    eng.submit(Request(rid=0, tokens=toks, max_new=2, extras=extras))
+    with pytest.raises(ValueError, match=f"request 0: extras.*{extra}"):
+        eng.admit()
 
 
 def test_engine_events_snapshot_and_reset():
