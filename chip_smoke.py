@@ -11,8 +11,9 @@ Phases, each printing its lines:
      widths and at the main path's own shapes, and time kernel, plain
      version (the median of PLAIN_REPS calls; the kernel and the library
      call of REPS), byte bound and the one PyTorch call that computes the same
-     function where there is one (torch.matmul for the mix, on float32 and
-     on bf16 operands, torch.quantize_per_channel and dequantize() for
+     function where there is one (torch.matmul for the mix, on float32,
+     bf16 and f16 operands: the mix's float16 entry and the reduce's
+     bfloat16 and float16 entries bit for bit with their plain versions, torch.quantize_per_channel and dequantize() for
      round-to-nearest int8; none for grouped int4, nibble packing or the
      merge operators' column merges); the TIES thresholds computed on the
      card equal the CPU's bit for bit; the residency kernels (grouped int8
@@ -192,10 +193,24 @@ Phases, each printing its lines:
      decode against that float64 prefill at VLM32_ATOL + VLM32_RTOL (the
      float32 readings against 2e-5 + 1e-5 printed), served with every
      other request carrying a 256-row prefix;
+  12. (after phase 11) (a) the main path's cell with bfloat16 parameters
+     (param_dtype, BF16_ROUNDS rounds): the rows identical after the merge,
+     consensus_distance 0.0, the merged model in bfloat16 equal to the
+     local eval within 1e-6 relative (the float32-leaf merged eval printed
+     beside it), the bf16 entries of the mix and the reduce launched; its
+     rounds and peak against phase 5's; (b) the main path sharded over
+     SHARD_MESH, 4 ranks sharing the card over gloo (launch/mesh.py,
+     init_panel_state(mesh=)): the ranks' shards sum to phase 5's state
+     fingerprint, their evals and losses equal phase 5's bit for bit, Xi
+     within 1e-6 relative and 0.0 after the merge; then one round at world
+     size 1 over NCCL against phase 5's first round;
 then the script's total time, a JSON line of per-kernel numbers (the
 flash rows with their hd96, hd256 and hd256_h10 timings and the
 backward's own kernels' times, kernels_ms; every row with its phase-11
-launches by cell, ``launches_arch``), the
+launches by cell, ``launches_arch``, and phase 12's, ``launches_phase12``;
+the mix's bf16 and f16 and the reduce's bf16 and f16 sub-rows, each with
+that variant's own launches: the bf16 wire path's for bf16, the main
+path's for f16, and its own ``launches_phase12``), the
 card's line again and, last, the result line. It fails (non-zero exit, no
 result line) if there is no card, if the port's package is not beside it,
 if a kernel does not build, launch or agree, or if any check fails.
@@ -452,18 +467,21 @@ def kernel_checks(torch, D_main):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     rng = np.random.default_rng(0)
-    err = {"gossip_mix": 0.0, "gossip_mix_bf16": 0.0,
-           "panel_mean_consensus": 0.0}
-    sq_rel = 0.0
+    err = {"gossip_mix": 0.0, "gossip_mix_bf16": 0.0, "gossip_mix_f16": 0.0,
+           "panel_mean_consensus": 0.0, "panel_mean_consensus_bf16": 0.0,
+           "panel_mean_consensus_f16": 0.0}
+    sq_rel = {"": 0.0, "_bf16": 0.0, "_f16": 0.0}
     out = {}
     for D in (333, 1000, 1001, D_main):
         theta = torch.randn((M, D), generator=gen, device=dev)
         theta16 = theta.to(torch.bfloat16)
+        thetah = theta.to(torch.float16)
         W = torch.as_tensor(random_matching(M, 0.7, rng), dtype=torch.float32)
         Wm = torch.cat([W, torch.full((1, M), 1.0 / M)]).to(dev)
         for Wk in (W.to(dev), Wm):
             for name, t in (("gossip_mix", theta),
-                            ("gossip_mix_bf16", theta16)):
+                            ("gossip_mix_bf16", theta16),
+                            ("gossip_mix_f16", thetah)):
                 got, ref = gossip_mix(Wk, t), gossip_mix_ref(Wk, t)
                 torch.cuda.synchronize()
                 e = float(torch.max(torch.abs(got - ref)))
@@ -482,10 +500,29 @@ def kernel_checks(torch, D_main):
                          f"rel {r}")
         err["panel_mean_consensus"] = max(
             err["panel_mean_consensus"], e, abs(float(sq) - float(rsq)))
-        sq_rel = max(sq_rel, r)
+        sq_rel[""] = max(sq_rel[""], r)
+        # 16-bit panels (bfloat16 and float16 parameter groups): the same
+        # float32 mean of the exactly widened values, bit for bit
+        for sfx, t in (("_bf16", theta16), ("_f16", thetah)):
+            hmean, hsq = panel_mean_consensus(t)
+            rhmean, rhsq = panel_mean_consensus_ref(t)
+            torch.cuda.synchronize()
+            eh = float(torch.max(torch.abs(hmean - rhmean)))
+            rh = abs(float(hsq) - float(rhsq)) / abs(float(rhsq))
+            check(hmean.dtype == torch.float32 and torch.equal(hmean, rhmean),
+                  f"panel_mean_consensus{sfx} mean disagrees at D={D}: {eh}")
+            check(rh <= 1e-5, f"panel_mean_consensus{sfx} sq disagrees at "
+                              f"D={D}: rel {rh}")
+            err["panel_mean_consensus" + sfx] = max(
+                err["panel_mean_consensus" + sfx], eh,
+                abs(float(hsq) - float(rhsq)))
+            sq_rel[sfx] = max(sq_rel[sfx], rh)
+            del hmean, hsq, rhmean, rhsq
         print(f"check D={D}: gossip_mix max|err| {err['gossip_mix']:.3g} "
-              f"(bf16 theta {err['gossip_mix_bf16']:.3g}), "
-              f"panel_mean_consensus mean max|err| {e:.3g} sq rel {r:.3g}",
+              f"(bf16 theta {err['gossip_mix_bf16']:.3g}, f16 theta "
+              f"{err['gossip_mix_f16']:.3g}), panel_mean_consensus mean "
+              f"max|err| {e:.3g} sq rel {r:.3g} (bf16 {sq_rel['_bf16']:.3g}, "
+              f"f16 {sq_rel['_f16']:.3g} sq rel; means bit for bit)",
               flush=True)
         if D != D_main:
             continue
@@ -517,6 +554,16 @@ def kernel_checks(torch, D_main):
                                                               theta16)),
             "bytes": mix16_bytes, "ops": mix_ops, "bound_ms": b_ms,
             "bound_by": b_by}
+        # a float16 group's mix: f16 theta, float32 rows out (library:
+        # torch.matmul on half operands)
+        Wmh = Wm.to(torch.float16)
+        out["gossip_mix_f16"] = {
+            "ms": time_ms(torch, lambda: gossip_mix(Wm, thetah)),
+            "plain_ms": time_ms(torch, lambda: gossip_mix_ref(Wm, thetah),
+                                reps=PLAIN_REPS, warmup=1),
+            "library_ms": time_ms(torch, lambda: torch.matmul(Wmh, thetah)),
+            "bytes": mix16_bytes, "ops": mix_ops, "bound_ms": b_ms,
+            "bound_by": b_by}
         ms = time_ms(torch, lambda: panel_mean_consensus(theta))
         plain = time_ms(torch, lambda: panel_mean_consensus_ref(theta),
                         reps=PLAIN_REPS, warmup=1)
@@ -525,17 +572,28 @@ def kernel_checks(torch, D_main):
             "ms": ms, "plain_ms": plain, "library_ms": None,
             "bytes": red_bytes, "ops": red_ops, "bound_ms": b_ms,
             "bound_by": b_by}
+        # the reduce of a 16-bit group: 2 bytes an element read
+        red16_bytes = 2 * M * D + 4 * (D + 1)
+        b_ms, b_by = bound(red16_bytes, red_ops)
+        for sfx, t in (("_bf16", theta16), ("_f16", thetah)):
+            out["panel_mean_consensus" + sfx] = {
+                "ms": time_ms(torch, lambda: panel_mean_consensus(t)),
+                "plain_ms": time_ms(torch,
+                                    lambda: panel_mean_consensus_ref(t),
+                                    reps=PLAIN_REPS, warmup=1),
+                "library_ms": None, "bytes": red16_bytes, "ops": red_ops,
+                "bound_ms": b_ms, "bound_by": b_by}
         for name, r_ in out.items():
             print(f"time {name} (m={M}, D={D}): kernel {r_['ms']:.4f} ms, "
                   f"plain {r_['plain_ms']:.4f} ms, library "
                   f"{r_['library_ms']} ms, bound {r_['bound_ms']:.4f} ms "
                   f"({r_['bytes']} bytes), {100 * r_['bound_ms'] / r_['ms']:.1f}"
                   f"% of the bound", flush=True)
-        del theta, theta16
-    out["gossip_mix"]["max_abs_err"] = err["gossip_mix"]
-    out["gossip_mix_bf16"]["max_abs_err"] = err["gossip_mix_bf16"]
-    out["panel_mean_consensus"]["max_abs_err"] = err["panel_mean_consensus"]
-    out["panel_mean_consensus"]["sq_rel_err"] = sq_rel
+        del theta, theta16, thetah
+    for name, e in err.items():
+        out[name]["max_abs_err"] = e
+    for sfx, r in sq_rel.items():
+        out["panel_mean_consensus" + sfx]["sq_rel_err"] = r
     torch.cuda.empty_cache()
     return out
 
@@ -1830,11 +1888,13 @@ def drive_path(torch, path):
     return counts, record
 
 
-def state_fingerprint(torch, state, slab=1 << 22):
+def state_fingerprint(torch, state, slab=1 << 22, col0=0):
     """{panel, m, v: [sum of the float32 bit patterns, sum of the patterns
     times (column % 65521 + 1), mod 2^64]} of a float32 panel state: equal
     states give equal fingerprints; taken a column slab at a time (int64
-    views of SLAB columns, no (m, D) temporary)."""
+    views of SLAB columns, no (m, D) temporary). A shard whose first column
+    is ``col0`` gives its part (the parts of a sharded state sum to the
+    whole's, modulo 2^64)."""
     out = {}
     for name, x in (("panel", state["panel"]["float32"]),
                     ("m", state["opt"]["m"]["float32"]),
@@ -1844,7 +1904,8 @@ def state_fingerprint(torch, state, slab=1 << 22):
         wtot = torch.zeros((), dtype=torch.int64, device=x.device)
         for lo in range(0, x.shape[1], slab):
             c = bits[:, lo:lo + slab].to(torch.int64)
-            w = torch.arange(lo, lo + c.shape[1], device=x.device) % 65521
+            w = torch.arange(col0 + lo, col0 + lo + c.shape[1],
+                             device=x.device) % 65521
             tot += c.sum()
             wtot += (c * (w + 1)).sum()
             del c, w
@@ -2730,6 +2791,318 @@ def launcher_phase(torch, main):
     print(f"launcher phase ({card_line()}): {time.perf_counter() - t0:.1f}s",
           flush=True)
     return counts, rec
+
+
+# phase 12: (a) the main path's cell with bfloat16 parameters
+# (cfg.param_dtype, as the reference's dry-run sets it), BF16_ROUNDS rounds
+# (two gossip rounds and the merge); (b) the main path sharded over a world
+# of ranks sharing the one card (launch/mesh.py): SHARD_MESH (pod, agent,
+# fsdp, model) = (1, 2, 2, 1), 4 ranks (agents over 2, columns over 2), the
+# main path's cell, rounds and seeds, held against phase 5's run; then one
+# round at world size 1 over NCCL. A rank's process gets SHARD_TIMEOUT
+# seconds.
+BF16_ROUNDS = SIDE_ROUNDS
+SHARD_MESH = (1, 2, 2, 1)
+SHARD_TIMEOUT = 600
+SHARD_CHILD = ("import sys\n"
+               "sys.path.insert(0, sys.argv[1])\n"
+               "import chip_smoke\n"
+               "chip_smoke.sharded_child(sys.argv[2])\n")
+
+
+def bf16_params_phase(torch, main):
+    """Phase 12 (a): olmo-1b at full width cut to 2 layers with
+    param_dtype bfloat16 (one bfloat16 group: parameters, gradients and
+    both AdamW moments in bfloat16), m 8, H 2, batch 4 x 512, BF16_ROUNDS
+    rounds from the main path's seeds: the bf16 mix (gossip_mix's bf16
+    entry, rows rounded once to bfloat16) and the reduce's bf16 entry (the
+    idle rounds' Xi, the evals' merged row). Gates: every row identical bit
+    for bit after the merge, consensus_distance of the merged panel 0.0,
+    the merged model in the group's dtype evaluated equal to the local
+    eval within 1e-6 relative, every loss finite. The float32 merged eval
+    (the reference's merged_panel_tree: float32 leaves) is printed beside
+    it with its gap: a float32 forward of the same numbers. Round times
+    and the peak are printed against phase 5's."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import dsgd
+    from repro_torch.core import panel as panel_mod
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.train import eval_local, eval_merged, to_device
+    from repro_torch.models import build_model
+    from repro_torch.optim import make_optimizer
+    dev = torch.device("cuda")
+    cfg = get_config("olmo-1b").replace(num_layers=2,
+                                        param_dtype="bfloat16")
+    model = build_model(cfg)
+    opt = make_optimizer("adamw", 3e-3, weight_decay=5e-4,
+                         total_steps=BF16_ROUNDS * H)
+    per_round, eval_batch = segment_inputs(cfg, M, BF16_ROUNDS,
+                                           data_vocab=DATA_VOCAB)
+    eval_batch = to_device(eval_batch, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state, spec = dsgd.init_panel_state(model.init_params, opt, M, gen,
+                                        device=dev)
+    check(spec.groups == (("bfloat16", main["width"]),),
+          f"bf16 params: groups {spec.groups}")
+    seg = dsgd.make_panel_segment(model.loss_fn, opt, H, spec)
+    print(f"bf16 params (phase 12a, {card_line()}): {cfg.name} d_model "
+          f"{cfg.d_model}, {cfg.num_layers} layers, param_dtype "
+          f"{cfg.param_dtype}, groups {spec.groups}, m {M}, H {H}, batch "
+          f"{BATCH}, seq {SEQ}", flush=True)
+    losses, xis, times = [], [], []
+    for t, (W, b, glob, live) in enumerate(per_round):
+        t0 = time.perf_counter()
+        state, mets = seg(state, b, W, None, global_rounds=glob)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(mets["loss"][0]))
+        xis.append(float(mets["consensus"][0]))
+        print(f"round {t} (bf16 params): loss {losses[-1]!r} Xi "
+              f"{xis[-1]!r} {times[-1]:.3f}s; device memory peak so far "
+              f"{torch.cuda.max_memory_allocated()} bytes", flush=True)
+    pan = state["panel"]
+    check(pan["bfloat16"].dtype == torch.bfloat16
+          and state["opt"]["m"]["bfloat16"].dtype == torch.bfloat16,
+          "bf16 params: the panel or the moments left bfloat16")
+    same = rows_identical(torch, pan)
+    xi_rows = float(panel_mod.consensus_distance(pan))
+    merged32 = eval_merged(model.loss_fn, pan, spec, eval_batch)
+    row = panel_mod.merged(pan)
+    merged16 = float(model.loss_fn(panel_mod.from_panel(row, spec), eval_batch,
+                                   None)[0])
+    local = eval_local(model.loss_fn, pan, spec, eval_batch)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"kernels (bf16 params) {json.dumps(counts)}", flush=True)
+    print(f"eval (bf16 params): merged (bfloat16 leaves) {merged16!r} local "
+          f"{local!r}; merged with float32 leaves (the reference's "
+          f"merged_panel_tree) {merged32!r}, {abs(merged32 - local) / local!r}"
+          f" relative from local: a float32 forward of the same values; rows "
+          f"identical {same}; consensus_distance of the merged panel "
+          f"{xi_rows!r} (the segment's Xi {xis[-1]!r}: the rows rounded to "
+          f"bfloat16 against the float32 folded mean, the reference's rule)",
+          flush=True)
+    print(f"bf16 params against f32 (phase 5): rounds (s) {times} against "
+          f"{main['times'][:BF16_ROUNDS]}; peak {peak} against "
+          f"{main['peak']} bytes ({peak - main['peak']:+d})", flush=True)
+    check(same, "bf16 params: the rows differ after the final merge")
+    check(xi_rows == 0.0, f"bf16 params: Xi of the merged rows {xi_rows!r}")
+    check(all(math.isfinite(x) for x in losses + [merged16, merged32,
+                                                  local]),
+          "bf16 params: a loss is not finite")
+    check(abs(local - merged16) <= 1e-6 * abs(merged16),
+          f"bf16 params: local eval {local!r} != merged eval {merged16!r}")
+    check(counts["gossip_mix_bf16"] > 0
+          and counts["panel_mean_consensus_bf16"] > 0,
+          f"bf16 params: the bf16 kernel entries never launched: {counts}")
+    del state, seg, pan, row
+    torch.cuda.empty_cache()
+    return counts, {"times": times, "peak": peak, "losses": losses,
+                    "xis": xis}
+
+
+def _wrap64(v):
+    return (v + (1 << 63)) % (1 << 64) - (1 << 63)
+
+
+def sharded_child(kind):
+    """One rank of phase 12 (b), in its own process (torch.distributed from
+    the environment sharded_phase sets): ``gloo4`` runs the main path's cell
+    on SHARD_MESH, ``nccl1`` one round of it on the (1, 1, 1, 1) mesh over
+    NCCL. Prints one ``SHARD {json}`` line: per-round loss, Xi, grad norm
+    and seconds, the evals, the rank's fingerprint part and coordinate, the
+    row check, launch counts and peak device memory."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    import repro_torch  # noqa: F401  (sets TF32 off)
+    from repro_torch.configs import get_config
+    from repro_torch.core import dsgd
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch.train import eval_local, eval_merged, to_device
+    from repro_torch.models import build_model
+    from repro_torch.optim import make_optimizer
+    shape = SHARD_MESH if kind == "gloo4" else (1, 1, 1, 1)
+    rounds = ROUNDS if kind == "gloo4" else 1
+    mesh = mesh_mod.make_mesh(shape)
+    dev = mesh.device
+    cfg = get_config("olmo-1b").replace(num_layers=2)
+    model = build_model(cfg)
+    opt = make_optimizer("adamw", 3e-3, weight_decay=5e-4,
+                         total_steps=ROUNDS * H)
+    per_round, eval_batch = segment_inputs(cfg, M, ROUNDS,
+                                           data_vocab=DATA_VOCAB)
+    eval_batch = to_device(eval_batch, dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    t_init = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state, spec = dsgd.init_panel_state(model.init_params, opt, M, gen,
+                                        wire="f32", mesh=mesh)
+    seg = dsgd.make_panel_segment(model.loss_fn, opt, H, spec)
+    torch.cuda.synchronize(dev)
+    t_init = time.perf_counter() - t_init
+    torch.cuda.empty_cache()  # the 8 inits drawn whole, kept in part
+    rec = {"rank": mesh.rank, "coord": mesh.coord, "backend": mesh.backend,
+           "device": str(dev), "init_s": t_init, "losses": [], "xis": [],
+           "grad_norms": [], "times": []}
+    for W, b, glob, _ in per_round[:rounds]:
+        t0 = time.perf_counter()
+        state, mets = seg(state, b, W, None, global_rounds=glob)
+        torch.cuda.synchronize(dev)
+        rec["times"].append(time.perf_counter() - t0)
+        rec["losses"].append(float(mets["loss"][0]))
+        rec["xis"].append(float(mets["consensus"][0]))
+        rec["grad_norms"].append(float(mets["grad_norm"][0]))
+    t0 = time.perf_counter()
+    rec["merged"] = eval_merged(model.loss_fn, state["panel"], spec,
+                                eval_batch)
+    rec["local"] = eval_local(model.loss_fn, state["panel"], spec,
+                              eval_batch)
+    torch.cuda.synchronize(dev)
+    rec["eval_s"] = time.perf_counter() - t0
+    rec["counts"] = launch_counts()
+    rec["fingerprint"] = state_fingerprint(
+        torch, state, col0=spec.col_range("float32")[0])
+    rec["rows"] = list(spec.row_range("float32"))
+    rec["cols"] = list(spec.col_range("float32"))
+    rec["rows_identical"] = rows_identical(torch, state["panel"])
+    first = state["panel"]["float32"][0].contiguous().view(torch.int32)
+    rec["row_digest"] = hashlib.sha256(
+        first.cpu().numpy().tobytes()).hexdigest()
+    one = torch.full((4,), 2.0, device=dev)
+    mesh.all_reduce(one, "rows")
+    rec["all_reduce"] = one.tolist()
+    rec["peak"] = torch.cuda.max_memory_allocated(dev)
+    print("SHARD " + json.dumps(rec), flush=True)
+    del state, seg
+    dist.destroy_process_group()
+
+
+def _run_ranks(kind, world, tmp):
+    """Start ``world`` children of sharded_child(kind) on the card (a
+    file:// rendezvous in ``tmp``), wait for all (SHARD_TIMEOUT each) and
+    return their SHARD records; a rank that fails fails the phase."""
+    # the ranks share the card: segments that grow and are freed keep each
+    # rank's reserve near its live memory
+    env = dict(os.environ, WORLD_SIZE=str(world),
+               LOCAL_WORLD_SIZE=str(world),
+               REPRO_TORCH_INIT_METHOD=f"file://{tmp}/rdv_{kind}",
+               PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", SHARD_CHILD, ROOT, kind],
+        env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=SHARD_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    recs, failed = [], []
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        lines = [ln for ln in log.splitlines() if ln.startswith("SHARD ")]
+        if p.returncode != 0 or not lines:
+            failed.append(f"--- rank {r} (exit {p.returncode}):\n"
+                          + log[-3000:])
+        else:
+            recs.append(json.loads(lines[-1][len("SHARD "):]))
+    check(not failed, f"phase 12b: {kind} ranks failed:\n" + "\n".join(
+        failed))
+    return recs
+
+
+def sharded_phase(torch, main):
+    """Phase 12 (b): the main path sharded over 4 ranks on the one card
+    (gloo: NCCL takes one rank a device; CUDA tensors travel through host
+    memory), then one round at world size 1 over NCCL. Gates: every rank's
+    final panel and moments, summed over the ranks' shards, give phase 5's
+    fingerprint exactly (the bits of every row and column); every rank's
+    rows identical after the merge and the first row's digest equal across
+    ranks of one column shard; the evals and the per-round losses equal
+    phase 5's bit for bit; Xi within 1e-6 relative of phase 5's each round
+    and 0.0 after the merge; gossip_mix and panel_mean_consensus launched on
+    every rank. The NCCL round: the backend NCCL, its all-reduce right, its
+    loss equal to phase 5's first round's bit for bit and its Xi within
+    1e-6 relative."""
+    import tempfile
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_shard_")
+    t0 = time.perf_counter()
+    recs = _run_ranks("gloo4", 4, tmp)
+    wall = time.perf_counter() - t0
+    for r in recs:
+        print(f"rank {r['rank']} {r['coord']} ({r['backend']}, {r['device']};"
+              f" rows {r['rows']}, columns {r['cols']}): init {r['init_s']:.2f}s,"
+              f" rounds (s) {[round(x, 3) for x in r['times']]}, evals "
+              f"{r['eval_s']:.2f}s, peak {r['peak']} bytes; losses "
+              f"{r['losses']}, Xi {r['xis']}, grad norms {r['grad_norms']}",
+              flush=True)
+    fp = {name: [_wrap64(sum(r["fingerprint"][name][i] for r in recs))
+                 for i in (0, 1)] for name in ("panel", "m", "v")}
+    merged, local = recs[0]["merged"], recs[0]["local"]
+    print(f"sharded (phase 12b, {card_line()}): mesh {SHARD_MESH} on one "
+          f"card over {recs[0]['backend']}, {wall:.1f}s for the world; "
+          f"fingerprint {json.dumps(fp)} against phase 5's "
+          f"{json.dumps(main['fingerprint'])}; evals merged {merged!r} "
+          f"local {local!r} against {main['merged']!r} {main['local']!r}; "
+          f"rounds (s) {[max(r['times'][t] for r in recs) for t in range(ROUNDS)]}"
+          f" against {main['times']}; peak per rank "
+          f"{max(r['peak'] for r in recs)} bytes against phase 5's "
+          f"{main['peak']}", flush=True)
+    check(fp == main["fingerprint"],
+          f"phase 12b: the sharded state {fp} differs from phase 5's "
+          f"{main['fingerprint']}")
+    for r in recs:
+        check(r["rows_identical"], f"phase 12b: rank {r['rank']}'s rows "
+                                   f"differ after the merge")
+        check(r["merged"] == main["merged"] and r["local"] == main["local"],
+              f"phase 12b: rank {r['rank']}'s evals {r['merged']!r} "
+              f"{r['local']!r} differ from phase 5's")
+        check(r["losses"] == main["losses"],
+              f"phase 12b: rank {r['rank']}'s losses {r['losses']} differ "
+              f"from phase 5's {main['losses']}")
+        check(all(abs(a - b) <= 1e-6 * abs(b) for a, b in
+                  zip(r["xis"], main["xis"])) and r["xis"][-1] == 0.0,
+              f"phase 12b: rank {r['rank']}'s Xi {r['xis']} against "
+              f"{main['xis']}")
+        check(r["counts"]["gossip_mix"] > 0
+              and r["counts"]["panel_mean_consensus"] > 0,
+              f"phase 12b: rank {r['rank']} launched {r['counts']}")
+        check(r["all_reduce"] == [4.0] * 4,
+              f"phase 12b: all_reduce over 2 ranks gave {r['all_reduce']}")
+        mate = [o for o in recs if o["cols"] == r["cols"]]
+        check(len({o["row_digest"] for o in mate}) == 1,
+              "phase 12b: the merged rows differ between ranks")
+    counts = {k: sum(r["counts"][k] for r in recs) for k in recs[0]["counts"]}
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    one, = _run_ranks("nccl1", 1, tmp)
+    print(f"sharded world 1 (phase 12b, {card_line()}): backend "
+          f"{one['backend']} on {one['device']}, {time.perf_counter() - t1:.1f}"
+          f"s with the process; init {one['init_s']:.2f}s, round "
+          f"{one['times'][0]:.3f}s; loss {one['losses'][0]!r} Xi "
+          f"{one['xis'][0]!r} against phase 5's round 0 "
+          f"{main['losses'][0]!r} {main['xis'][0]!r}; all_reduce "
+          f"{one['all_reduce']}; peak {one['peak']} bytes", flush=True)
+    check(one["backend"] == "nccl", f"world 1 ran on {one['backend']}")
+    check(one["all_reduce"] == [2.0] * 4, "world 1: all_reduce")
+    check(one["losses"][0] == main["losses"][0]
+          and abs(one["xis"][0] - main["xis"][0])
+          <= 1e-6 * abs(main["xis"][0]),
+          f"world 1: round 0 {one['losses'][0]!r} {one['xis'][0]!r}")
+    return counts, {"recs": recs, "nccl": one, "wall": wall}
 
 
 def arch_config(name):
@@ -3761,6 +4134,10 @@ def main():
     lap("phase 10")
     counts["arch"], _ = arch_phase(torch)
     lap("phase 11")
+    counts["bf16 params"], _ = bf16_params_phase(torch, records["f32"])
+    lap("phase 12a")
+    counts["sharded"], _ = sharded_phase(torch, records["f32"])
+    lap("phase 12b")
     for path, base in (("int8_ef native", "int8_ef"), ("faults", "f32"),
                        ("tree", "f32")):
         a, b = records[path], records[base]
@@ -3804,13 +4181,21 @@ def main():
                                 counts[f"attn_block {ATTN_BLOCK}"]),
         "flash_attention_bwd": ("flash_attention.cu", "flash_attention.py:69",
                                 counts[f"attn_block {ATTN_BLOCK}"])}
-    # sub-rows: the round-to-nearest quantizes, the bf16 variant of the mix
-    variants = {"quantize_int8": ("rtn", "quantize_int8_rtn", None),
-                "quantize_int4": ("rtn", "quantize_int4_rtn", None),
-                "quantize_int8_grouped": ("rtn", "quantize_int8_grouped_rtn",
-                                          None),
-                "gossip_mix": ("bf16", "gossip_mix_bf16",
-                               counts["bf16"]["gossip_mix_bf16"])}
+    # sub-rows: the round-to-nearest quantizes, the bf16 and f16 variants
+    # of the mix and the reduce. A variant's launches are its count in its
+    # own path's run (the bf16 wire's path for bf16, the row's main path
+    # for f16: no path runs a float16 group), its launches_phase12 its
+    # counts in phase 12's runs; each a count of that variant alone
+    p12 = counts["bf16 params"]
+    variants = {"quantize_int8": [("rtn", "quantize_int8_rtn", None)],
+                "quantize_int4": [("rtn", "quantize_int4_rtn", None)],
+                "quantize_int8_grouped": [("rtn", "quantize_int8_grouped_rtn",
+                                           None)],
+                "gossip_mix": [("bf16", "gossip_mix_bf16", counts["bf16"]),
+                               ("f16", "gossip_mix_f16", counts["f32"])],
+                "panel_mean_consensus": [
+                    ("bf16", "panel_mean_consensus_bf16", counts["bf16"]),
+                    ("f16", "panel_mean_consensus_f16", counts["f32"])]}
     kernels = []
     for name, (src, replaces, run) in kernels_of.items():
         r = measured[name]
@@ -3828,13 +4213,17 @@ def main():
                       "kernels_ms", "hd96", "hd256", "hd256_h10"):
             if extra in r:
                 row[extra] = r[extra]
-        if name in variants:
-            key, sub, launches = variants[name]
+        for key, sub, launches in variants.get(name, ()):
             row[key] = {k: measured[sub][k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                 "max_abs_err")}
             if launches is not None:
-                row[key]["launches"] = launches
+                row[key]["launches"] = launches[sub]
+                row[key]["launches_phase12"] = {
+                    "bf16_params": p12[sub],
+                    "sharded": counts["sharded"][sub]}
+        row["launches_phase12"] = {"bf16_params": p12[name],
+                                   "sharded": counts["sharded"][name]}
         kernels.append(row)
     print(f"total: {time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -583,9 +583,21 @@ def _build_state(pan, spec, optimizer):
     return _with_merge_stats(state, spec, plan.get("stats"))
 
 
+def _write_row_cols(pan, spec, j, tree):
+    """Copy ONE agent's tree (leaves without the agent axis) into row j of
+    this rank's shard: each leaf's part that falls in the rank's columns."""
+    leaves, _ = tree_flatten(tree)
+    for x, ls in zip(leaves, spec.leaves):
+        c0, c1 = spec.col_range(ls.group)
+        lo, hi = max(ls.offset, c0), min(ls.offset + ls.size, c1)
+        if lo < hi:
+            pan[ls.group][j, lo - c0:hi - c0] = x.reshape(-1)[
+                lo - ls.offset:hi - ls.offset]
+
+
 def init_panel_state(init_params: Callable, optimizer: Optimizer, m: int,
                      rng=None, *, device=None, merger=None, wire=None,
-                     residency=None):
+                     residency=None, mesh=None):
     """Panel train state: params AND optimizer moments as per-dtype (m, D)
     panels. Returns (state, spec).
 
@@ -610,13 +622,36 @@ def init_panel_state(init_params: Callable, optimizer: Optimizer, m: int,
     {kind: storage} dict or a 'moments=int8,stats=bf16' string). The named
     state panels are built in their stored form: stored moments directly
     as the canonical stored zero (``Storage.zeros``, no float32 panel),
-    statistics and error-feedback panels by the deterministic encode."""
+    statistics and error-feedback panels by the deterministic encode.
+
+    ``mesh`` (``launch.mesh.Mesh``) shards the state (panel.shard_spec):
+    this rank holds its agents' rows x its columns of the parameters and
+    of the moments. Every rank draws all m inits in turn, as one process
+    does, and keeps its part, so the shards are the single-process state's
+    bit for bit. A sharded spec takes the f32 and bf16 wires, the uniform
+    merge and no residency policy (the rest: ROADMAP A16b)."""
+    device = mesh.device if mesh is not None and device is None else device
     device = resolve_device(device)
     gen = _generator(rng, device)
     first = init_params(gen, device)
     spec = panel_mod.with_merger(panel_mod.make_spec(first, rows=m), merger)
     spec = panel_mod.with_residency(panel_mod.with_wire(spec, wire),
                                     residency)
+    if mesh is not None:
+        spec = panel_mod.shard_spec(spec, mesh)
+        pan = {}
+        for g, _ in spec.groups:
+            (r0, r1), (c0, c1) = spec.row_range(g), spec.col_range(g)
+            pan[g] = torch.empty((r1 - r0, c1 - c0), dtype=getattr(torch, g),
+                                 device=device)
+        r0, r1 = spec.agent_range()
+        for k in range(m):
+            tree = first if k == 0 else init_params(gen, device)
+            if r0 <= k < r1:
+                _write_row_cols(pan, spec, k - r0, tree)
+            del tree
+        del first
+        return _build_state(pan, spec, optimizer), spec
     pan = {g: torch.empty((m, w), dtype=getattr(torch, g), device=device)
            for g, w in spec.groups}
     panel_mod.write_row(pan, spec, 0, first)
@@ -646,31 +681,56 @@ def panel_grads(loss_fn: Callable, panel, spec, batch, rows=None):
     differentiated on its own batch ``{key: v[k]}`` and the gradient leaves
     are written into row k of the gradient panel. The parameter panel stays
     the source of truth. ``rows`` (agent indices) differentiates only those
-    agents; the other rows of the gradient panel and their losses are 0."""
-    m = spec.rows
+    agents; the other rows of the gradient panel and their losses are 0.
+
+    On a sharded spec the panel is this rank's shard and so is the gradient
+    panel: each of the rank's agents gathers its whole row over the
+    ``fsdp`` line, differentiates there and keeps the rank's columns (every
+    fsdp rank of an agent computes the same gradient, as the reference's
+    launcher places a batch on the agent axes only). The losses of all m
+    agents are gathered over the ``rows`` line. No ``rows`` subset there."""
+    lo, hi = spec.agent_range()
     x0 = next(iter(panel.values()))
     if rows is None:
         gpan = {g: torch.empty_like(x) for g, x in panel.items()}
-        losses = torch.empty((m,), dtype=torch.float32, device=x0.device)
+        losses = torch.empty((hi - lo,), dtype=torch.float32,
+                             device=x0.device)
     else:
         gpan = {g: torch.zeros_like(x) for g, x in panel.items()}
-        losses = torch.zeros((m,), dtype=torch.float32, device=x0.device)
-    for k in range(m) if rows is None else rows:
-        leaves = [panel[ls.group][k, ls.offset:ls.offset + ls.size]
+        losses = torch.zeros((hi - lo,), dtype=torch.float32,
+                             device=x0.device)
+    split = {g: panel_mod._claimed(spec, g)[1] for g in panel}
+    for k in range(lo, hi) if rows is None else rows:
+        j = k - lo
+        full = {g: panel_mod.gather_cols(x[j], spec, g)
+                for g, x in panel.items()}
+        leaves = [full[ls.group][ls.offset:ls.offset + ls.size]
                   .detach().view(ls.shape).requires_grad_(True)
                   for ls in spec.leaves]
         params = tree_unflatten(spec.treedef, leaves)
         loss, _ = loss_fn(params, {key: v[k] for key, v in batch.items()},
                           None)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        del leaves, params
+        # the gradient's whole row: the panel's own row unless its columns
+        # are split, then a buffer of which the rank keeps its columns
+        grow = {g: torch.empty_like(full[g]) if split[g] else gpan[g][j]
+                for g in panel}
+        del full
         for ls, g in zip(spec.leaves, grads):
-            row = gpan[ls.group][k, ls.offset:ls.offset + ls.size]
+            row = grow[ls.group][ls.offset:ls.offset + ls.size]
             if g is None:
                 row.zero_()
             else:
                 row.copy_(g.reshape(-1))
-        losses[k] = loss.detach()
-    return gpan, losses
+        del grads
+        for g in panel:
+            if split[g]:
+                c0, c1 = spec.col_range(g)
+                gpan[g][j].copy_(grow[g][c0:c1])
+        del grow
+        losses[j] = loss.detach()
+    return gpan, panel_mod.gather_agents(losses, spec)
 
 
 def make_panel_segment(loss_fn: Callable, optimizer: Optimizer,
@@ -759,12 +819,26 @@ def make_panel_segment(loss_fn: Callable, optimizer: Optimizer,
     optimizer update with the local step's index and the optimizer state
     in its stored form; it is for measurement, and must only read.
 
+    On a sharded spec (``init_panel_state(mesh=)``) the state is this
+    rank's shard and ``batches`` are the whole batches: panel_grads gathers
+    each of the rank's agents' rows, the optimizer runs on the rank's
+    column shard, and the sharded panel ops communicate, so the panels, the
+    moments and the mean loss are the single-process ones bit for bit; the
+    grad norm and Xi are summed over the ranks in another order. It takes
+    what ``panel.refuse_sharded`` allows, and no live mask or telemetry
+    yet (ROADMAP A16b).
+
     The state is consumed (the counterpart of the reference's donated
     buffers): the segment takes its panels out of the caller's dict, the
     optimizer updates them in place, and each communicating round replaces
     the parameter and error-feedback panels by its output, so the panels it
     consumed are freed at once and no round holds more than one extra
     panel of each."""
+    if spec.sharded:
+        panel_mod.refuse_sharded(spec)
+        if telemetry:
+            raise NotImplementedError("the telemetry columns on a sharded "
+                                      "panel come with ROADMAP A16b")
     needs_key = _wire_any(spec, "needs_key")
     needs_ef = _wire_any(spec, "error_feedback")
     merger = get_merger(spec.merger)
@@ -798,8 +872,12 @@ def make_panel_segment(loss_fn: Callable, optimizer: Optimizer,
     def segment(state, batches, Ws, rng=None, global_rounds=None,
                 live=None):
         x0 = next(iter(state["panel"].values()))
-        m, dev = x0.shape[0], x0.device
+        m, dev = spec.rows, x0.device
         del x0
+        if spec.sharded and live is not None:
+            raise NotImplementedError("a live mask on a sharded panel comes "
+                                      "with the sharded faults (ROADMAP "
+                                      "A16b)")
         if needs_ef and "wire_err" not in state:
             raise ValueError(
                 "spec's wire policy uses error feedback but the state has "
@@ -915,7 +993,8 @@ def make_panel_segment(loss_fn: Callable, optimizer: Optimizer,
                     after_step(step, opt)
                 if lv is None:
                     losses.append(torch.mean(agent_losses))
-                    gns.append(panel_mod.panel_norm(gpan, axis_mean=True))
+                    gns.append(panel_mod.panel_norm(gpan, axis_mean=True,
+                                                    spec=spec))
                 else:
                     losses.append(torch.sum(lw * agent_losses))
                     gns.append(panel_mod.panel_norm(gpan, axis_mean=True,
@@ -950,14 +1029,14 @@ def make_panel_segment(loss_fn: Callable, optimizer: Optimizer,
             # W == I rounds communicate nothing: no sweep over the panel,
             # no codec, no draw, no stored bit touched
             elif np.array_equal(W, eye):
-                xi = (panel_mod.consensus_distance(pan) if lv is None
-                      else None)
+                xi = (panel_mod.consensus_distance(pan, spec=spec)
+                      if lv is None else None)
             else:
                 pan, mean, ne = panel_mod.mix_dense_mean(
                     pan, W, spec=spec, gen=gen, err=err_dec(werr))
                 werr = err_enc(ne, tick, werr, W)
-                xi = (panel_mod.consensus_from_mean(pan, mean) if lv is None
-                      else None)
+                xi = (panel_mod.consensus_from_mean(pan, mean, spec=spec)
+                      if lv is None else None)
                 del mean
             del ne
             if lv is not None:
@@ -1050,3 +1129,4 @@ def make_panel_segment(loss_fn: Callable, optimizer: Optimizer,
             _put_rows(mstat, fresh, sync)
 
     return segment
+

@@ -29,8 +29,9 @@ panel, and the mirror of topk its delta mix.
 
 The per-leaf ``*_tree`` functions are the reference the panel path is held
 against, and the tree-state driver's mix (``core/dsgd.py``): plain
-``torch.tensordot`` a leaf, no kernel. The reference's shard_map merge
-(``global_merge_shmap``) comes with the multi-GPU slice.
+``torch.tensordot`` a leaf, no kernel. :func:`global_merge_allreduce` is
+the counterpart of the reference's shard_map merge (``global_merge_shmap``):
+the agent rows spread over the ranks of a mesh, one all-reduce a leaf.
 """
 from __future__ import annotations
 
@@ -238,3 +239,20 @@ def merged_model_tree(params, live=None):
     lw = panel_mod._live_weights(live, x0.shape[0], x0.device)
     return tree_map(
         lambda x: torch.tensordot(lw, x.to(torch.float32), dims=1), params)
+
+
+def global_merge_allreduce(params, mesh):
+    """The global merge of an agent-stacked tree whose rows are spread over
+    the ``rows`` line of ``mesh`` (``launch.mesh``): each leaf holds this
+    rank's (m_local, ...) agents, m = m_local x the line's ranks. One sum of
+    the local rows, one all-reduce of it over the line, divided by m and
+    broadcast back to the local rows (float32 sums, cast back to each
+    leaf's dtype): every rank ends with the mean of all m agents."""
+    n = len(mesh.members["rows"])
+
+    def leaf(x):
+        tot = mesh.all_reduce(torch.sum(x.to(torch.float32), dim=0), "rows")
+        mean = tot / (x.shape[0] * n)
+        return mean[None].expand(x.shape).to(x.dtype).contiguous()
+
+    return tree_map(leaf, params)

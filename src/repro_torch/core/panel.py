@@ -36,9 +36,13 @@ The residency policy of the state panels (:func:`with_residency`,
 ``repro_torch.residency``) is named on the spec too; it never applies to
 the parameter panels. The reference's legacy ``wire_dtype=`` argument (a
 cast of the payload, e.g. bf16) is taken by every communication op in place
-of a spec policy; passing both raises. The dense mix takes float32
-parameter groups: groups of another dtype come with the architecture
-families that have them, and sharded panels with a later slice.
+of a spec policy; passing both raises.
+
+Parameter groups of every dtype the reference groups are taken: float32,
+bfloat16 and float16 groups go through the kernels as they are stored (the
+mix accumulates in float32 and rounds each row once to the group dtype; the
+mean and Xi widen exactly to float32), an int32 group through the plain
+versions (on the CPU; the kernels take floating-point panels).
 
 On CUDA tensors the kernel wrappers launch the Hopper kernels; on CPU
 tensors they run the plain versions.
@@ -54,6 +58,7 @@ import torch
 from repro_torch import wire as wire_mod
 from repro_torch.kernels.gossip_mix import gossip_mix
 from repro_torch.kernels.panel_reduce import panel_mean_consensus
+from repro_torch.models.sharding import panel_pspec
 from repro_torch.utils.tree import tree_flatten, tree_unflatten
 
 
@@ -77,6 +82,42 @@ class PanelSpec:
     merger: str = "uniform"              # merge operator of global rounds
     wire: Tuple[Tuple[str, object], ...] = ()  # (dtype key, codec) policy
     residency: Tuple[Tuple[str, str], ...] = ()  # (state kind, storage)
+    # set by shard_spec: the mesh (launch.mesh.Mesh) and each group's
+    # (row entry, column entry) layout (models.sharding.panel_pspec)
+    mesh: object = None
+    pspecs: Tuple[Tuple[str, tuple], ...] = ()
+
+    @property
+    def sharded(self) -> bool:
+        return self.mesh is not None and bool(self.pspecs)
+
+    def pspec(self, key: str):
+        for k, ps in self.pspecs:
+            if k == key:
+                return ps
+        return (None, None)
+
+    def _range(self, axes, n: int):
+        if axes is None:
+            return 0, n
+        parts = self.mesh.axis_size(axes)
+        i = self.mesh.axis_index(axes)
+        return i * (n // parts), (i + 1) * (n // parts)
+
+    def agent_range(self) -> Tuple[int, int]:
+        """[lo, hi) of the agents this rank holds (every group's rows
+        shard alike: the claim depends on m alone)."""
+        return self.row_range(self.groups[0][0])
+
+    def row_range(self, key: str) -> Tuple[int, int]:
+        """[lo, hi) of the agent rows this rank holds of group ``key`` (all
+        m when the rows are not sharded)."""
+        return self._range(self.pspec(key)[0], self.rows)
+
+    def col_range(self, key: str) -> Tuple[int, int]:
+        """[lo, hi) of the columns this rank holds of group ``key`` (all
+        of them when the columns are not sharded)."""
+        return self._range(self.pspec(key)[1], dict(self.groups)[key])
 
     @property
     def width(self) -> int:
@@ -237,6 +278,115 @@ def with_merger(spec: PanelSpec, merger) -> PanelSpec:
     return replace(spec, merger=merger)
 
 
+def shard_spec(spec: PanelSpec, mesh) -> PanelSpec:
+    """Attach a mesh (``launch.mesh.Mesh``) and one (row entry, column
+    entry) layout per dtype group to ``spec``: rows on the ('pod', 'agent')
+    axes, columns on 'fsdp' (the lines the mesh's ``rows`` and ``fsdp``
+    groups run along), each dropped for a group whose dim does not divide
+    by the axes' size (that group is then replicated along them). The spec
+    must take what a sharded panel takes (:func:`refuse_sharded`)."""
+    pspecs = tuple((k, panel_pspec(mesh, spec.rows, w))
+                   for k, w in spec.groups)
+    spec = replace(spec, mesh=mesh, pspecs=pspecs)
+    refuse_sharded(spec)
+    return spec
+
+
+def refuse_sharded(spec: PanelSpec, wire_dtype=None, merger=None):
+    """What a sharded panel takes: the float32 identity and cast wires (f32,
+    bf16; ``wire_dtype`` is a call's legacy cast), the uniform merge (the
+    spec's, or a call's ``merger`` name) and no residency policy. The
+    others raise NotImplementedError: they wait for the sharded codecs,
+    merges and storages (ROADMAP A16b)."""
+    codecs = ([wire_mod.dtype_codec(wire_dtype)] if wire_dtype is not None
+              else [wire_mod.get_codec(c) for _, c in spec.wire])
+    for c in codecs:
+        if not isinstance(c, (wire_mod.F32Codec, wire_mod.DtypeCodec)):
+            raise NotImplementedError(
+                f"the wire codec '{c.name}' on a sharded panel comes with "
+                "the sharded codecs (ROADMAP A16b); a sharded spec takes the "
+                "f32 and bf16 wires")
+    merger = spec.merger if merger is None else merger
+    if merger != "uniform":
+        raise NotImplementedError(
+            f"the merge operator '{merger}' on a sharded panel comes "
+            "with the sharded merges (ROADMAP A16b)")
+    if spec.residency:
+        raise NotImplementedError(
+            "a residency policy on a sharded panel comes with the sharded "
+            "storages (ROADMAP A16b)")
+
+
+def _claimed(spec: PanelSpec, key: str):
+    """(rows sharded, columns sharded) for group ``key``."""
+    r, c = spec.pspec(key)
+    return r is not None, c is not None
+
+
+def shard_panel(panel, spec: PanelSpec):
+    """A full {group: (m, D_g)} panel -> this rank's shard {group: (rows,
+    columns)} (copies)."""
+    out = {}
+    for k, x in panel.items():
+        (r0, r1), (c0, c1) = spec.row_range(k), spec.col_range(k)
+        out[k] = x[r0:r1, c0:c1].clone()
+    return out
+
+
+def gather_rows(x, spec: PanelSpec, key: str):
+    """Every agent's rows of this rank's column shard of group ``key``:
+    the ``rows`` line's shards concatenated in agent order (x itself when
+    the rows are not sharded)."""
+    return spec.mesh.all_gather(x, "rows") if _claimed(spec, key)[0] else x
+
+
+def gather_cols(v, spec: PanelSpec, key: str):
+    """A (c,) column shard of one row of group ``key`` -> the whole (D_g,)
+    row (v itself when the columns are not sharded)."""
+    return spec.mesh.all_gather(v, "fsdp") if _claimed(spec, key)[1] else v
+
+
+def gather_agents(v, spec: PanelSpec):
+    """A per-agent (hi - lo,) vector of this rank's agents -> the (m,)
+    vector of every agent (v itself when the rows are not sharded)."""
+    return gather_rows(v, spec, spec.groups[0][0])
+
+
+def sum_rows(v, spec: PanelSpec, key: str):
+    """The sum of ``v`` over the ranks that hold the other rows of group
+    ``key`` (in place; v itself when the rows are not sharded)."""
+    return spec.mesh.all_reduce(v, "rows") if _claimed(spec, key)[0] else v
+
+
+def gather_panel(panel, spec: PanelSpec):
+    """This rank's shard -> the full {group: (m, D_g)} panel on every rank
+    (for tests, evals and saving)."""
+    out = {}
+    for k, x in panel.items():
+        rows = gather_rows(x, spec, k)
+        out[k] = torch.stack([gather_cols(r.contiguous(), spec, k)
+                              for r in rows])
+        del rows
+    return out
+
+
+def _reduce_groups(parts, spec: Optional[PanelSpec], rows: bool = True):
+    """Sum of per-group float32 partial sums, each first summed over the
+    ranks that hold the other parts of its group on a sharded spec: over
+    ``rows`` where the group's rows are sharded (unless ``rows`` is False:
+    the partials cover every row), over ``fsdp`` where its columns are."""
+    sharded = spec is not None and spec.sharded
+    total = None
+    for k, v in parts.items():
+        if sharded:
+            if rows:
+                v = sum_rows(v, spec, k)
+            if _claimed(spec, k)[1]:
+                v = spec.mesh.all_reduce(v, "fsdp")
+        total = v if total is None else total + v
+    return total
+
+
 def to_panel(tree, spec: PanelSpec):
     """Flatten an agent-stacked tree into {dtype: (m, D_dtype)} panels."""
     leaves, _ = tree_flatten(tree)
@@ -272,8 +422,12 @@ def from_panel(panel, spec: PanelSpec, cast: bool = True):
 
 
 def agent_params(panel, spec: PanelSpec, k: int):
-    """Agent k's parameter tree as views of its panel row."""
-    return from_panel({g: x[k] for g, x in panel.items()}, spec)
+    """Agent k's parameter tree as views of its panel row; on a sharded
+    spec (k one of this rank's agents) its row gathered over the ``fsdp``
+    line."""
+    j = k - spec.agent_range()[0]
+    return from_panel({g: gather_cols(x[j], spec, g)
+                       for g, x in panel.items()}, spec)
 
 
 # ------------------------------------------------------------ fused ops
@@ -332,9 +486,15 @@ def _mix_dense_groups(panel, W, *, with_mean, spec=None, gen=None,
     dtype and cast back by the codec, as the reference's plain path does;
     the folded mean row stays float32 (the reference's fold rule), so the
     consensus monitor measures the rounded rows against the unrounded mean.
+    A group stored in another dtype (bfloat16, float16) is mixed the same
+    way and its rows rounded once to the group dtype; an int32 group is
+    truncated back to int32 (the reference's ``astype``).
     Under a lossy codec, idle ROWS of W (rows equal to the identity row)
     get back their exact parameters and error-feedback rows: nothing of
     theirs travelled."""
+    if spec is not None and spec.sharded:
+        return _mix_dense_sharded(panel, W, with_mean=with_mean, spec=spec,
+                                  wire_dtype=wire_dtype, err=err)
     x0 = next(iter(panel.values()))
     m = x0.shape[0]
     W32 = _device_w(W, x0.device)
@@ -352,11 +512,6 @@ def _mix_dense_groups(panel, W, *, with_mean, spec=None, gen=None,
     new_err = {} if err is not None else None
     for k in sorted(panel):
         x = panel[k]
-        if x.dtype != torch.float32:
-            raise NotImplementedError(
-                f"group {k!r} is stored as {x.dtype}: the port mixes float32 "
-                "parameter groups (groups of other dtypes come with the "
-                "architecture families that have them)")
         e = err[k] if err is not None else None
         xw, back, ne = codecs[k].encode(x, gen=gen, err=e)
         if codecs[k].delta_mix:
@@ -370,16 +525,11 @@ def _mix_dense_groups(panel, W, *, with_mean, spec=None, gen=None,
                 means[k] = panel_mean_consensus(y)[0]
         else:
             y = gossip_mix(Wop, xw)
-            wire_dtype = xw.dtype
-            del xw
             if with_mean:
                 means[k] = y[m]
                 y = y[:m]
-            if wire_dtype != torch.float32:
-                # the payload dtype's rounding, a row at a time in place
-                for r in range(m):
-                    y[r].copy_(y[r].to(wire_dtype))
-            y = back(y)
+            y = back(_round_rows(y, x, xw, m))
+            del xw
         for r in idle:
             y[r].copy_(x[r])
             if e is not None:
@@ -388,6 +538,68 @@ def _mix_dense_groups(panel, W, *, with_mean, spec=None, gen=None,
         if err is not None:
             new_err[k] = ne
     return mixed, means, new_err
+
+
+def _round_rows(y, x, xw, m=None):
+    """The mixed float32 rows ``y`` in the payload's dtype: a narrower wire
+    over a float32 group rounds a row at a time in place (the rows stay
+    float32); a group of another dtype is rounded once to it."""
+    if xw.dtype == torch.float32:
+        return y
+    if x.dtype == torch.float32:
+        for r in range(y.shape[0] if m is None else m):
+            y[r].copy_(y[r].to(xw.dtype))
+        return y
+    return y.to(xw.dtype)
+
+
+def _mix_dense_sharded(panel, W, *, with_mean, spec, wire_dtype=None,
+                       err=None):
+    """_mix_dense_groups on this rank's shard of a sharded panel: each
+    group's payload is encoded on the rank's rows, the ``rows`` line's
+    payloads are gathered into every agent's rows of the rank's column
+    shard and one ``gossip_mix`` sweep computes the rank's rows of W and,
+    with ``with_mean``, the 1^T/m row (every row of the shard is here, so
+    the mean is folded into the same sweep as on one process). Every
+    output row and column is its own fixed-order sum, so the result is the
+    single-process one's bits. The f32 and bf16 wires only (ROADMAP
+    A16b)."""
+    if err is not None:
+        raise NotImplementedError(
+            "error feedback on a sharded panel comes with the sharded codecs "
+            "(ROADMAP A16b)")
+    x0 = next(iter(panel.values()))
+    m, dev = spec.rows, x0.device
+    W32 = _device_w(W, dev)
+    if W32.shape != (m, m):
+        raise ValueError(f"W must be ({m}, {m}), got {tuple(W32.shape)}")
+    refuse_sharded(spec, wire_dtype)
+    codecs = _codecs(panel, spec, wire_dtype)
+    lossy = any(not isinstance(c, wire_mod.F32Codec)
+                for c in codecs.values())
+    idle = _idle_rows(W, m) if lossy else []
+    mean_row = torch.full((1, m), 1.0 / m, dtype=torch.float32, device=dev)
+    mixed, means = {}, ({} if with_mean else None)
+    for k in sorted(panel):
+        x = panel[k]
+        lo, hi = spec.row_range(k)
+        Wk = W32[lo:hi]
+        if with_mean:
+            Wk = torch.cat([Wk, mean_row])
+        xw, back, _ = codecs[k].encode(x)
+        full = gather_rows(xw, spec, k)
+        y = gossip_mix(Wk.contiguous(), full)
+        del full
+        if with_mean:
+            means[k] = y[hi - lo].clone()
+            y = y[:hi - lo]
+        y = back(_round_rows(y, x, xw))
+        del xw
+        for r in idle:
+            if lo <= r < hi:
+                y[r - lo].copy_(x[r - lo])
+        mixed[k] = y
+    return mixed, means, None
 
 
 def mix_dense(panel, W, *, wire_dtype=None, spec: Optional[PanelSpec] = None,
@@ -416,8 +628,10 @@ def mix_dense_mean(panel, W, *, wire_dtype=None,
 
 def _lerp(xw, peer, weight):
     """(1-w) xw + w peer in the payload's dtype, the weights first rounded
-    to it (as the reference's weakly typed scalars are)."""
-    a, b = (torch.tensor(v, dtype=xw.dtype, device=xw.device)
+    to it (as the reference's weakly typed scalars are); an integer payload
+    is promoted to float32, as the reference's float weights promote it."""
+    dt = xw.dtype if xw.dtype.is_floating_point else torch.float32
+    a, b = (torch.tensor(v, dtype=dt, device=xw.device)
             for v in (1.0 - weight, weight))
     return a * xw + b * peer
 
@@ -432,6 +646,10 @@ def mix_pairwise(panel, partner, weight=0.5, *, wire_dtype=None,
     partner's mirror, x + gamma w (x̂_partner - x̂), keeping the
     untransmitted rest of x. ``err=`` switches the return to ``(mixed,
     new_err)``."""
+    if spec is not None and spec.sharded:
+        raise NotImplementedError(
+            "mix_pairwise takes an unsharded panel: on a mesh the segment "
+            "mixes a matching as its dense W (mix_dense)")
     codecs = _codecs(panel, spec, wire_dtype)
     _require_gen(codecs, gen)
     x0 = next(iter(panel.values()))
@@ -469,10 +687,34 @@ def global_merge(panel, *, wire_dtype=None, spec: Optional[PanelSpec] = None,
     resets to the merged state. It is ``merging.merge_panel`` under the
     uniform operator; ``wire_dtype`` as in :func:`mix_dense`. ``err=``
     switches the return to ``(mixed, new_err)``."""
+    if spec is not None and spec.sharded:
+        return _global_merge_sharded(panel, spec, wire_dtype, err)
     from repro_torch.merging import merge_panel  # merging imports panel
     mixed, _, new_err = merge_panel(panel, "uniform", spec=spec, gen=gen,
                                     err=err, wire_dtype=wire_dtype)
     return mixed if err is None else (mixed, new_err)
+
+
+def _global_merge_sharded(panel, spec, wire_dtype=None, err=None):
+    """global_merge on this rank's shard: each group's payload is encoded
+    on the rank's rows, gathered over the ``rows`` line, reduced by the
+    ``panel_mean_consensus`` kernel to the column shard's mean and broadcast
+    back to the rank's rows (the single-process merge's arithmetic, a
+    column at a time)."""
+    if err is not None:
+        raise NotImplementedError(
+            "error feedback on a sharded panel comes with the sharded codecs "
+            "(ROADMAP A16b)")
+    refuse_sharded(spec, wire_dtype)
+    codecs = _codecs(panel, spec, wire_dtype)
+    mixed = {}
+    for k in sorted(panel):
+        x = panel[k]
+        xw, back, _ = codecs[k].encode(x)
+        mean = panel_mean_consensus(_stat_view(gather_rows(xw, spec, k)))[0]
+        mixed[k] = back(mean[None].expand(x.shape).to(xw.dtype).contiguous())
+        del xw, mean
+    return mixed
 
 
 def _live_mask(live, m):
@@ -491,8 +733,21 @@ def _live_weights(live, m, device=None):
     return lf / torch.clamp(torch.sum(lf), min=1.0)
 
 
-def merged(panel, live=None):
+def _stat_view(x):
+    """The panel the ``panel_mean_consensus`` kernel reads: float32,
+    bfloat16 and float16 groups as they are (the kernel widens them), any
+    other dtype (int32) as float32."""
+    if x.dtype in (torch.float32, torch.bfloat16, torch.float16):
+        return x
+    return x.to(torch.float32)
+
+
+def merged(panel, live=None, spec: Optional[PanelSpec] = None):
     """The (counterfactual) averaged model as {dtype: (D_dtype,)} f32.
+
+    On a sharded ``spec`` the panel is this rank's shard and the result its
+    column shard of the mean: the ``rows`` line's rows gathered and reduced
+    by the kernel, bit for bit the single-process columns.
 
     ``live`` ((m,) bool) restricts the mean to the live rows (the merge of
     an elastic run, where a dead agent's stale row must not enter it): the
@@ -500,8 +755,15 @@ def merged(panel, live=None):
     ``panel_mean_consensus`` kernel, so the result is the sub-panel's mean
     (the reference takes the live-weighted sum; the two agree to float32
     rounding). No live row gives zeros."""
+    if spec is not None and spec.sharded:
+        if live is not None:
+            raise NotImplementedError("a live mask on a sharded panel comes "
+                                      "with the sharded faults (ROADMAP "
+                                      "A16b)")
+        return {k: panel_mean_consensus(_stat_view(gather_rows(x, spec, k)))
+                [0] for k, x in panel.items()}
     if live is None:
-        return {k: panel_mean_consensus(x.to(torch.float32))[0]
+        return {k: panel_mean_consensus(_stat_view(x))[0]
                 for k, x in panel.items()}
     x0 = next(iter(panel.values()))
     m = x0.shape[0]
@@ -514,25 +776,45 @@ def merged(panel, live=None):
             continue
         sub = x if len(rows) == m else x[torch.as_tensor(rows,
                                                          device=x.device)]
-        out[k] = panel_mean_consensus(sub.to(torch.float32))[0]
+        out[k] = panel_mean_consensus(_stat_view(sub))[0]
         del sub
     return out
 
 
-def merged_tree(panel, spec: PanelSpec):
+def merged_tree(panel, spec: PanelSpec, live=None):
     """The averaged model as a (non-stacked) tree with float32 leaves: the
-    panel counterpart of ``gossip.merged_model``."""
-    return from_panel(merged(panel), spec, cast=False)
+    panel counterpart of ``gossip.merged_model`` (``live`` as in
+    :func:`merged`); on a sharded spec every rank gets the whole model (the
+    column shards gathered)."""
+    row = merged(panel, live=live, spec=spec)
+    if spec.sharded:
+        row = {k: gather_cols(v, spec, k) for k, v in row.items()}
+    return from_panel(row, spec, cast=False)
 
 
-def consensus_distance(panel, live=None):
+def consensus_distance(panel, live=None, spec: Optional[PanelSpec] = None):
     """Xi_t = sqrt((1/m) sum_k ||theta_k - bar||^2), a float32 scalar.
+
+    On a sharded ``spec``: the kernel on the gathered rows of the rank's
+    column shard, then one sum of the squared deviations over the ``fsdp``
+    line (another order of summation than one process's).
 
     ``live`` ((m,) bool) takes the consensus of the live rows only: their
     mean, their deviations, over the live count. That mean and the sum of
     squares are taken in float64 a row at a time (no (m, D) temporary), so
     identical live rows read exactly 0 whatever the live count (a float32
     mean of 7 equal rows need not equal the row)."""
+    if spec is not None and spec.sharded:
+        if live is not None:
+            raise NotImplementedError("a live mask on a sharded panel comes "
+                                      "with the sharded faults (ROADMAP "
+                                      "A16b)")
+        # every row of the column shard is gathered: only the column
+        # shards' sums are summed
+        parts = {k: panel_mean_consensus(_stat_view(gather_rows(x, spec, k)))
+                 [1] for k, x in panel.items()}
+        return torch.sqrt(_reduce_groups(parts, spec, rows=False)
+                          / spec.rows)
     x0 = next(iter(panel.values()))
     m = x0.shape[0]
     if live is not None:
@@ -550,15 +832,27 @@ def consensus_distance(panel, live=None):
         return torch.sqrt(total / max(len(rows), 1)).to(torch.float32)
     total = torch.zeros((), dtype=torch.float32, device=x0.device)
     for x in panel.values():
-        total = total + panel_mean_consensus(x.to(torch.float32))[1]
+        total = total + panel_mean_consensus(_stat_view(x))[1]
     return torch.sqrt(total / m)
 
 
-def consensus_from_mean(panel, means):
+def consensus_from_mean(panel, means, spec: Optional[PanelSpec] = None):
     """Xi_t from a PRECOMPUTED column-mean panel ({group: (D_g,) f32},
     e.g. the folded row of :func:`mix_dense_mean`): one deviation pass,
-    taken a row at a time so no (m, D) temporary is made."""
+    taken a row at a time so no (m, D) temporary is made. On a sharded
+    ``spec`` the panel and the means are this rank's shards: each group's
+    partial sum is summed over the ranks holding its other rows and
+    columns."""
     x0 = next(iter(panel.values()))
+    if spec is not None and spec.sharded:
+        parts = {}
+        for k, x in panel.items():
+            part = torch.zeros((), dtype=torch.float32, device=x0.device)
+            for r in range(x.shape[0]):
+                part = part + torch.sum(torch.square(
+                    x[r].to(torch.float32) - means[k]))
+            parts[k] = part
+        return torch.sqrt(_reduce_groups(parts, spec) / spec.rows)
     m = x0.shape[0]
     total = torch.zeros((), dtype=torch.float32, device=x0.device)
     for k, x in panel.items():
@@ -568,12 +862,26 @@ def consensus_from_mean(panel, means):
     return torch.sqrt(total / m)
 
 
-def panel_norm(panel, axis_mean: bool = False, rows=None):
+def panel_norm(panel, axis_mean: bool = False, rows=None,
+               spec: Optional[PanelSpec] = None):
     """Global l2 norm of the panel (f32). With ``axis_mean`` the rows are
     averaged first (norm of the agent-mean, e.g. for grad-norm metrics);
     ``rows`` ((m,) float32 convex weights, e.g. :func:`_live_weights` of a
     live mask) replaces the uniform mean by the weighted one: the grad norm
-    of an elastic round averages the live agents only."""
+    of an elastic round averages the live agents only.
+
+    On a sharded ``spec`` (no ``rows``) the panel is this rank's shard: the
+    agent mean is the column sums summed over the ``rows`` line over m, and
+    each group's sum of squares is summed over the ranks of its other parts
+    (another order of summation than one process's)."""
+    if spec is not None and spec.sharded:
+        parts = {}
+        for k, x in panel.items():
+            x32 = x.to(torch.float32)
+            if axis_mean:
+                x32 = sum_rows(torch.sum(x32, dim=0), spec, k) / spec.rows
+            parts[k] = torch.sum(torch.square(x32))
+        return torch.sqrt(_reduce_groups(parts, spec, rows=not axis_mean))
     x0 = next(iter(panel.values()))
     total = torch.zeros((), dtype=torch.float32, device=x0.device)
     for x in panel.values():

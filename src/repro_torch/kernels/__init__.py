@@ -1,7 +1,7 @@
 """Hopper kernels of the port and their plain PyTorch versions.
 
-``gossip_mix.gossip_mix`` (float32 and bfloat16 payloads) and
-``panel_reduce.panel_mean_consensus`` are the wrappers the panel engine
+``gossip_mix.gossip_mix`` and ``panel_reduce.panel_mean_consensus``
+(float32, bfloat16 and float16 panels) are the wrappers the panel engine
 calls; ``wire_quant`` holds the wire codecs' kernels (int8 quantize, with
 supplied uniforms or with Philox draws on the chip, and dequantize, the
 top-k sparsifier, int4 quantize, dequantize, nibble pack
@@ -48,11 +48,21 @@ def reset_launch_counts():
     for fn in KERNELS.values():
         fn.launches = 0
     _gossip_mix.gossip_mix.launches_bf16 = 0
+    _gossip_mix.gossip_mix.launches_f16 = 0
+    _panel_reduce.panel_mean_consensus.launches_bf16 = 0
+    _panel_reduce.panel_mean_consensus.launches_f16 = 0
 
 
 def launch_counts():
-    """{kernel: launches}, with ``gossip_mix_bf16`` the bf16 variant's
-    share of ``gossip_mix``."""
+    """{kernel: launches}, with ``gossip_mix_bf16`` / ``gossip_mix_f16``
+    the bf16 / f16 variants' share of ``gossip_mix`` and
+    ``panel_mean_consensus_bf16`` / ``panel_mean_consensus_f16`` theirs of
+    ``panel_mean_consensus``."""
     counts = {name: fn.launches for name, fn in KERNELS.items()}
     counts["gossip_mix_bf16"] = _gossip_mix.gossip_mix.launches_bf16
+    counts["gossip_mix_f16"] = _gossip_mix.gossip_mix.launches_f16
+    counts["panel_mean_consensus_bf16"] = (
+        _panel_reduce.panel_mean_consensus.launches_bf16)
+    counts["panel_mean_consensus_f16"] = (
+        _panel_reduce.panel_mean_consensus.launches_f16)
     return counts

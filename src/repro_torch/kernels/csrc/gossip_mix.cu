@@ -4,10 +4,11 @@
 // (src/repro/kernels/gossip_mix.py, body _mix_kernel). W is (n, m) float32
 // with n = m (a mixing matrix) or n = m + 1 (an extra 1^T/m row folds the
 // column mean into the same sweep, see core/panel.py:mix_dense_mean); theta
-// is the (m, D) parameter panel or wire payload, float32 or bfloat16 (the
-// bf16 wire); out is (n, D) float32 for either, the folded mean row
-// included. The caller rounds a bf16 payload's mixed rows back through
-// bf16, as the reference's plain path does (core/panel.py of the reference:
+// is the (m, D) parameter panel or wire payload: float32, bfloat16 (the
+// bf16 wire, or a bfloat16 parameter group) or float16 (a float16 group);
+// out is (n, D) float32 for each, the folded mean row included. The caller
+// rounds a narrower payload's mixed rows back to its dtype, as the
+// reference's plain path does (core/panel.py of the reference:
 // y32 = W @ xw.astype(f32), y = y32.astype(xw.dtype)).
 //
 // What bounds it: bytes. m is small (4 to 32) and D is the whole model
@@ -39,6 +40,7 @@
 // stream it is given; each entry point returns cudaGetLastError() after the
 // launch, or cudaErrorInvalidValue for a shape it does not take.
 
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -52,6 +54,18 @@ constexpr long long kMaxBlocks = 132LL * 16;
 struct bf16_t {
   uint16_t bits;
 };
+
+// float16 travels as its 16 bits too; widening to float32 is exact
+struct f16_t {
+  uint16_t bits;
+};
+
+__device__ __forceinline__ float f16_lo(uint32_t w) {
+  return __half2float(__ushort_as_half((unsigned short)(w & 0xFFFFu)));
+}
+__device__ __forceinline__ float f16_hi(uint32_t w) {
+  return __half2float(__ushort_as_half((unsigned short)(w >> 16)));
+}
 
 __device__ __forceinline__ float bf16_lo(uint32_t w) {
   return __uint_as_float(w << 16);
@@ -80,6 +94,17 @@ __device__ __forceinline__ void load_cols(const bf16_t* p, float (&v)[4]) {
   v[1] = bf16_hi(x.x);
   v[2] = bf16_lo(x.y);
   v[3] = bf16_hi(x.y);
+}
+
+__device__ __forceinline__ void load_cols(const f16_t* p, float (&v)[1]) {
+  v[0] = f16_lo(__ldg(reinterpret_cast<const unsigned short*>(p)));
+}
+__device__ __forceinline__ void load_cols(const f16_t* p, float (&v)[4]) {
+  const uint2 x = __ldg(reinterpret_cast<const uint2*>(p));
+  v[0] = f16_lo(x.x);
+  v[1] = f16_hi(x.x);
+  v[2] = f16_lo(x.y);
+  v[3] = f16_hi(x.y);
 }
 
 __device__ __forceinline__ void store_cols(float* p, const float (&v)[1]) {
@@ -133,7 +158,7 @@ bool aligned(const void* p, uintptr_t bytes) {
 template <int MAXM, typename T>
 cudaError_t launch(const float* W, const T* theta, float* out, int n, int m,
                    long long D, cudaStream_t stream) {
-  // four columns of a row: 16 bytes of float32 or 8 bytes of bf16
+  // four columns of a row: 16 bytes of float32 or 8 bytes of bf16 / f16
   const bool vec = (D % 4 == 0) && aligned(theta, 4 * sizeof(T)) &&
                    aligned(out, 16);
   const long long groups = vec ? D / 4 : D;
@@ -175,4 +200,10 @@ extern "C" int gossip_mix_f32(const void* W, const void* theta, void* out,
 extern "C" int gossip_mix_bf16(const void* W, const void* theta, void* out,
                                int n, int m, long long D, void* stream) {
   return mix<bf16_t>(W, theta, out, n, m, D, stream);
+}
+
+// W (n, m) f32, theta (m, D) f16 -> out (n, D) f32
+extern "C" int gossip_mix_f16(const void* W, const void* theta, void* out,
+                              int n, int m, long long D, void* stream) {
+  return mix<f16_t>(W, theta, out, n, m, D, stream);
 }

@@ -2,8 +2,9 @@
 
 Replaces the Pallas TPU kernel ``gossip_mix_panel``
 (``src/repro/kernels/gossip_mix.py``); the kernel is
-``csrc/gossip_mix.cu``, with a float32 and a bfloat16 variant (the bf16
-wire's payload); both write float32. For a CPU tensor the wrapper runs the
+``csrc/gossip_mix.cu``, with a float32, a bfloat16 (the bf16 wire's
+payload, or a bfloat16 parameter group) and a float16 variant (a float16
+group); each writes float32. For a CPU tensor the wrapper runs the
 plain version (``kernels/ref.py:gossip_mix_ref``); for a CUDA tensor it
 launches the kernel or raises — there is no fallback.
 """
@@ -19,17 +20,19 @@ from repro_torch.kernels.ref import gossip_mix_ref
 _ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
          ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
 _SIGNATURES = {"gossip_mix_f32": (ctypes.c_int, _ARGS),
-               "gossip_mix_bf16": (ctypes.c_int, _ARGS)}
+               "gossip_mix_bf16": (ctypes.c_int, _ARGS),
+               "gossip_mix_f16": (ctypes.c_int, _ARGS)}
 # theta's dtype -> the kernel's entry point
-_ENTRY = {torch.float32: "gossip_mix_f32", torch.bfloat16: "gossip_mix_bf16"}
+_ENTRY = {torch.float32: "gossip_mix_f32", torch.bfloat16: "gossip_mix_bf16",
+          torch.float16: "gossip_mix_f16"}
 
 MAX_ROWS = 32  # the kernel's bound on m (agents)
 
 
 def _check(W, theta):
     if W.dtype != torch.float32 or theta.dtype not in _ENTRY:
-        raise TypeError(f"gossip_mix takes float32 W and float32 or bfloat16 "
-                        f"theta, got {W.dtype} and {theta.dtype}")
+        raise TypeError(f"gossip_mix takes float32 W and float32, bfloat16 "
+                        f"or float16 theta, got {W.dtype} and {theta.dtype}")
     if W.dim() != 2 or theta.dim() != 2:
         raise ValueError(f"W must be (n, m) and theta (m, D), got "
                          f"{tuple(W.shape)} and {tuple(theta.shape)}")
@@ -45,8 +48,8 @@ def _check(W, theta):
 
 
 def gossip_mix(W, theta):
-    """W: (n, m) float32; theta: (m, D) float32 or bfloat16 -> (n, D)
-    float32 W @ theta, accumulated in float32.
+    """W: (n, m) float32; theta: (m, D) float32, bfloat16 or float16 ->
+    (n, D) float32 W @ theta, accumulated in float32.
 
     n == m for a mixing matrix; n == m + 1 when W carries the folded
     1^T/m row, whose output row is the column mean."""
@@ -71,10 +74,13 @@ def gossip_mix(W, theta):
     gossip_mix.launches += 1
     if theta.dtype == torch.bfloat16:
         gossip_mix.launches_bf16 += 1
+    elif theta.dtype == torch.float16:
+        gossip_mix.launches_f16 += 1
     return out
 
 
 # kernel launches since the counts were last set to 0: all of them, and of
-# those the bf16 variant's
+# those the bf16 and the f16 variants'
 gossip_mix.launches = 0
 gossip_mix.launches_bf16 = 0
+gossip_mix.launches_f16 = 0

@@ -16,6 +16,21 @@ schedule's mixing matrices and the batches from the same numpy seeds, in
 the same order, as the reference launcher, so both see byte-identical W
 streams and batches.
 
+``--mesh`` spreads the run over the ranks of a ``torch.distributed``
+world (launch/mesh.py; started by ``torchrun``): the panel rows over
+('pod', 'agent'), the flat parameter columns over 'fsdp', as the
+reference's ``--mesh`` shards its panel (``auto`` is ``train`` for
+``--preset pod`` and ``none`` otherwise; ``debug`` is the (1, 2, 2, 2)
+mesh of 8 ranks). Every rank runs the same loop on its shard, draws the
+same batches and keeps its agents' rows; the history, the events and
+``--save-merged`` are written by rank 0 alone, and the console is rank
+0's. A sharded run takes the f32 and bf16 wires and the uniform merge;
+the other codecs and merges, --residency, --faults, --telemetry and
+checkpoints on a mesh are refused by name (ROADMAP A16b). On the CPU:
+  torchrun --nproc-per-node 8 -m repro_torch.launch.train --device cpu \
+      --mesh debug --rounds 6 --segment 3 --agents 4 --local-steps 2 \
+      --batch 4 --seq 32
+
 The run is observable and resumable as the reference's is:
 ``--telemetry`` adds the per-agent (S, m) columns to every round event,
 ``--events`` writes the deterministic JSONL stream (+ a wall-clock
@@ -36,6 +51,7 @@ Runs on the CUDA card unless ``--device cpu`` is given. Example:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -56,6 +72,7 @@ from repro_torch.core import panel as panel_mod
 from repro_torch.core.schedule import make_schedule
 from repro_torch.data.synthetic import SyntheticLM, make_agent_lm_batches
 from repro_torch.device import resolve_device
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.merging import MERGERS
 from repro_torch.models import build_model
 from repro_torch.optim import make_optimizer
@@ -64,6 +81,42 @@ from repro_torch.telemetry.metrics import (AGENT_COLUMNS,
                                            fused_moments_auto,
                                            resident_bytes_model)
 from repro_torch.wire import CODECS
+
+
+def build_mesh(kind: str, cfg, device=None):
+    """This rank's ('pod', 'agent', 'fsdp', 'model') mesh (launch/mesh.py)
+    of ``--mesh train`` or ``debug``, the panel is sharded on."""
+    if kind == "train":
+        return mesh_mod.make_training_mesh(cfg.dist.agents_per_pod,
+                                           device=device)
+    if kind == "debug":
+        return mesh_mod.make_debug_mesh(agents=2, fsdp=2, model=2,
+                                        device=device)
+    raise ValueError(kind)
+
+
+def refuse_on_mesh(args):
+    """SystemExit naming each flag a sharded run does not take yet: the
+    lossy codecs, the non-uniform merges, residency, faults, telemetry and
+    checkpoints on a mesh come with ROADMAP A16b."""
+    named = []
+    if args.wire not in ("f32", "bf16"):
+        named.append(f"--wire {args.wire}")
+    if args.merge != "uniform":
+        named.append(f"--merge {args.merge}")
+    for flag, on in (("--residency", args.residency),
+                     ("--faults", args.faults),
+                     ("--telemetry", args.telemetry),
+                     ("--checkpoint-every", args.checkpoint_every),
+                     ("--resume", args.resume)):
+        if on:
+            named.append(flag)
+    if named:
+        raise SystemExit(
+            f"--mesh {args.mesh} does not take {', '.join(named)} yet: a "
+            "sharded run takes the f32 and bf16 wires and the uniform merge; "
+            "the sharded codecs, merges, storages, faults, telemetry and "
+            "checkpoints are ROADMAP A16b")
 
 
 def build_cpu_preset(cfg, agents):
@@ -101,11 +154,15 @@ def eval_merged(loss_fn, panel, spec, batch, stats=None, live=None):
 @torch.no_grad()
 def eval_local(loss_fn, panel, spec, batch, live=None):
     """Mean over agents of each agent's own loss on ``batch`` (a float);
-    with ``live`` ((m,) bool) over the live agents only."""
-    rows = range(spec.rows) if live is None else np.flatnonzero(live)
+    with ``live`` ((m,) bool) over the live agents only. On a sharded spec
+    each rank evaluates its agents (their rows gathered over the fsdp
+    line) and the losses are gathered in agent order."""
+    lo, hi = spec.agent_range()
+    rows = range(lo, hi) if live is None else np.flatnonzero(live)
     losses = [loss_fn(panel_mod.agent_params(panel, spec, k), batch,
                       None)[0] for k in rows]
-    return float(torch.mean(torch.stack(losses)))
+    return float(torch.mean(panel_mod.gather_agents(torch.stack(losses),
+                                                    spec)))
 
 
 def parse_args(argv=None):
@@ -223,6 +280,13 @@ def parse_args(argv=None):
                          "loop (host and card) into this directory as "
                          "trace.json (a Chrome trace; a profiler that "
                          "cannot start only warns)")
+    ap.add_argument("--mesh", default="auto",
+                    choices=["auto", "none", "train", "debug"],
+                    help="shard the (m, D) panel over the ranks of a "
+                         "torch.distributed world (launch with torchrun): "
+                         "rows over ('pod', 'agent'), D over 'fsdp' (auto: "
+                         "train for --preset pod, none for cpu; debug: the "
+                         "(1, 2, 2, 2) mesh of 8 ranks)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' to "
                          "run on the CPU)")
@@ -294,12 +358,32 @@ def run(args, *, cfg=None, lm=None):
     synthetic data source (e.g. a ``SyntheticLM`` over fewer token ids than
     the vocabulary: its tables are num_domains x V x V); neither enters the
     run's id or the checkpoint fingerprint, which are the reference's
-    (the run configuration of the flags)."""
-    device = resolve_device(args.device)
+    (the run configuration of the flags). Under ``--mesh`` every rank
+    returns the same history; rank 0 alone prints and writes."""
     if cfg is None:
         cfg = get_config(args.arch)
         if args.preset == "cpu":
             cfg = build_cpu_preset(cfg, args.agents)
+    kind = getattr(args, "mesh", "none")
+    if kind == "auto":
+        kind = "train" if args.preset == "pod" else "none"
+    if kind == "none":
+        return _run(args, cfg, lm, None)
+    refuse_on_mesh(args)
+    mesh = build_mesh(kind, cfg, args.device)
+    try:
+        if mesh_mod.is_primary(mesh):
+            return _run(args, cfg, lm, mesh)
+        with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
+            return _run(args, cfg, lm, mesh)
+    finally:
+        import torch.distributed as dist
+        dist.destroy_process_group()
+
+
+def _run(args, cfg, lm, mesh):
+    device = mesh.device if mesh is not None else resolve_device(args.device)
+    primary = mesh_mod.is_primary(mesh)
     if cfg.encoder_layers:
         raise SystemExit(
             f"--arch {args.arch}: the encoder-decoder {cfg.name} is not "
@@ -309,6 +393,13 @@ def run(args, *, cfg=None, lm=None):
             "C, findings about the reference). Train it through "
             "core.dsgd.make_panel_segment with frame_embeds in the batches")
     m = args.agents
+    if mesh is not None:
+        rows = mesh_mod.num_agents(mesh)
+        if m % rows:
+            raise SystemExit(f"--agents {m} must be divisible by the mesh's "
+                             f"pod*agent = {rows} so panel rows shard evenly")
+        print(f"panel sharded on mesh {mesh.shape} ({mesh.backend}, rank "
+              f"{mesh.rank} on {mesh.device})")
     model = build_model(cfg)
     opt = make_optimizer(args.optimizer, args.lr, weight_decay=5e-4,
                          total_steps=args.rounds * args.local_steps)
@@ -347,12 +438,16 @@ def run(args, *, cfg=None, lm=None):
     events_path = args.events or (
         os.path.join(args.out, f"events_{tag}.jsonl")
         if args.telemetry else None)
+    if not primary:  # rank 0 alone writes the stream and the snapshot
+        events_path = None
 
     gen = torch.Generator(device=device).manual_seed(args.seed)
     state, spec = dsgd.init_panel_state(model.init_params, opt, m, gen,
                                         device=device, merger=sched.merger,
                                         wire=args.wire,
-                                        residency=args.residency or None)
+                                        residency=args.residency or None,
+                                        **({} if mesh is None
+                                           else {"mesh": mesh}))
     del gen
     print(f"{cfg.name}: {spec.width} parameters per agent, {m} agents, "
           f"device {device}")
@@ -437,7 +532,7 @@ def run(args, *, cfg=None, lm=None):
     # back to the checkpointed seq: replayed rounds are emitted exactly
     # once, keeping a baseline and its kill+resume twin byte-identical
     snap = (telemetry.SnapshotExporter(args.snapshot)
-            if args.snapshot else None)
+            if args.snapshot and primary else None)
     log = telemetry.EventLog(
         events_path, run_id=run_id,
         resume_at=resume_seq if events_path else None, sink=snap)
@@ -450,7 +545,8 @@ def run(args, *, cfg=None, lm=None):
     if ckpt is not None:
         ckpt.events = log  # sidecar checkpoint_save records
     prof = telemetry.profile_trace(args.profile,
-                                   enabled=bool(args.profile)).start()
+                                   enabled=bool(args.profile)
+                                   and primary).start()
     if prof:
         log.emit_op("profile_start", logdir=args.profile)
     t0 = time.time()
@@ -564,19 +660,24 @@ def run(args, *, cfg=None, lm=None):
     if events_path:
         print(f"events: {events_path} (+ {telemetry.wall_path(events_path)})")
 
-    os.makedirs(args.out, exist_ok=True)
-    path = os.path.join(args.out, tag + ".json")
-    with open(path, "w") as f:
-        json.dump({"args": vars(args), "history": history}, f, indent=1)
-    print(f"history: {path}")
+    if primary:
+        os.makedirs(args.out, exist_ok=True)
+        path = os.path.join(args.out, tag + ".json")
+        with open(path, "w") as f:
+            json.dump({"args": vars(args), "history": history}, f, indent=1)
+        print(f"history: {path}")
     if args.save_merged:
         # merge with the RUN'S operator (+ its stats), not the uniform mean:
         # the checkpoint is the model whose merged eval the history reports;
-        # under a fault plan only the agents alive at the end contribute
-        save(args.save_merged, merge_mod.merged_panel_tree(
+        # under a fault plan only the agents alive at the end contribute.
+        # On a mesh every rank takes part in the merge; rank 0 saves it
+        tree = merge_mod.merged_panel_tree(
             state["panel"], spec, stats=state.get("merge_stat"),
-            live=alive_after(args.rounds - 1)))
-        print(f"saved {spec.merger}-merged model to", args.save_merged)
+            live=alive_after(args.rounds - 1))
+        if primary:
+            save(args.save_merged, tree)
+            print(f"saved {spec.merger}-merged model to", args.save_merged)
+        del tree
     return history
 
 

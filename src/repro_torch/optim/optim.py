@@ -130,7 +130,36 @@ def sgd(schedule, momentum: float = 0.0, weight_decay: float = 0.0,
 
 def adamw_core(g, m, v, p, *, lr, bc1, bc2, b1=0.9, b2=0.999, eps=1e-8,
                weight_decay: float = 0.0):
-    """Elementwise AdamW step: (grad, moments, param) -> (param, moments)."""
+    """Elementwise AdamW step: (grad, moments, param) -> (param, moments).
+
+    A bfloat16 or float16 group keeps its moments in its own dtype (the
+    reference's ``init`` is ``zeros_like(params)``) and follows the
+    reference's rounding (ROADMAP C): each product of a moment update is
+    rounded to the group dtype (its weakly typed constants too) and their
+    sum, taken in float32, is rounded to it for the stored moment; the
+    update reads that sum unrounded for bfloat16 (as the jitted reference
+    does) and the rounded moment for float16 (as the eager reference does;
+    jitted XLA keeps float16 products in float32). The bias corrections,
+    the learning rate and so the parameter update run in float32 (the
+    reference's float32 scalars promote them), the weight-decay product in
+    the group dtype. The new parameters are rounded once to the group dtype
+    (the reference's update returns them as float32, which its segment's
+    scan cannot carry: ROADMAP C)."""
+    if p.dtype in (torch.bfloat16, torch.float16):
+        dt, f32 = p.dtype, torch.float32
+
+        def c(x):
+            return torch.tensor(x, dtype=dt, device=p.device)
+
+        m32 = (c(b1) * m).to(f32) + (c(1 - b1) * g).to(f32)
+        v32 = (c(b2) * v).to(f32) + (c(1 - b2) * torch.square(g)).to(f32)
+        m, v = m32.to(dt), v32.to(dt)
+        if dt == torch.float16:
+            m32, v32 = m.to(f32), v.to(f32)
+        p32 = p.to(f32) - lr * (
+            (m32 / bc1) / (torch.sqrt(v32 / bc2) + eps)
+            + (c(weight_decay) * p).to(f32))
+        return p32.to(dt), m, v
     m = b1 * m + (1 - b1) * g
     v = b2 * v + (1 - b2) * torch.square(g)
     mhat = m / bc1

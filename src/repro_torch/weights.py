@@ -23,10 +23,10 @@ from repro_torch.utils.tree import tree_map
 def from_reference_params(tree, device=None):
     """Agent-stacked reference tree of numpy arrays (every leaf (m, ...)) ->
     (params, panel, spec): the port's tree of tensors on ``device``, its
-    {dtype: (m, D)} panel and the panel's spec."""
+    {dtype: (m, D)} panel and the panel's spec. bfloat16 leaves (numpy's
+    ml_dtypes bfloat16) move as their bits."""
     device = resolve_device(device)
-    params = tree_map(
-        lambda x: torch.from_numpy(np.array(x, copy=True)).to(device), tree)
+    params = tree_map(lambda x: _tensor(x, device), tree)
     spec = panel_mod.make_spec(params)
     return params, panel_mod.to_panel(params, spec), spec
 

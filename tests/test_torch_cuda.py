@@ -6,11 +6,12 @@ PyTorch (the repository's conftest imports JAX, hence ``--noconftest``):
 
   python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerances: the mix, on float32 and on bfloat16 theta, is bit-identical to
-its plain version (both sum over k in the same order with separately
-rounded products; asserted with equality, so also within the stated 1e-6);
-the column mean likewise to 1e-6; the sum of squares to 1e-5 relative
-(another summation order). The wire kernels (int8 and int4 quantize and
+Tolerances: the mix, on float32, bfloat16 and float16 theta, is
+bit-identical to its plain version (both sum over k in the same order with
+separately rounded products; asserted with equality, so also within the
+stated 1e-6); the column mean likewise to 1e-6 (bit for bit for bfloat16
+and float16 panels); the sum of squares to 1e-5 relative (another
+summation order). The wire kernels (int8 and int4 quantize and
 dequantize, nibble pack and unpack, sparsify) and the merge kernels (the
 weighted and the TIES column merge) and the residency kernels (grouped
 int8 quantize and dequantize, the fused AdamW step on grouped-int8
@@ -143,10 +144,38 @@ def test_equal_weight_rows_are_bitwise_equal(cuda, dtype):
     assert torch.equal(out, out[:1].expand_as(out))
 
 
+@pytest.mark.parametrize("m,D", [(8, 333), (8, 1000), (4, 64), (32, 1001),
+                                 (8, 1 << 20), (1, 5)])
+def test_half_entries_match_plain(cuda, m, D):
+    """The float16 mix and the bfloat16 / float16 reduce (the parameter
+    groups of those dtypes) against their plain versions: the mix and the
+    mean bit for bit, the sum of squares to 1e-5 relative; also through the
+    one-column path (a view one element past an aligned address)."""
+    W, theta = _inputs(m, D)
+    Wc, tc = torch.from_numpy(W).to(cuda), torch.from_numpy(theta).to(cuda)
+    th = tc.to(torch.float16)
+    for w in (Wc[:m].contiguous(), Wc):
+        got, ref = gossip_mix(w, th), gossip_mix_ref(w, th)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.float32 and torch.equal(got, ref)
+    for dt in (torch.bfloat16, torch.float16):
+        t = tc.to(dt)
+        mean, sq = panel_mean_consensus(t)
+        rmean, rsq = panel_mean_consensus_ref(t)
+        torch.cuda.synchronize()
+        assert mean.dtype == torch.float32 and torch.equal(mean, rmean)
+        torch.testing.assert_close(sq, rsq, atol=0.0, rtol=1e-5)
+        t1 = torch.empty((m * D + 1,), dtype=dt, device=cuda)[1:].view(m, D)
+        t1.copy_(t)
+        assert torch.equal(panel_mean_consensus(t1)[0], rmean)
+        if dt == torch.float16:
+            assert torch.equal(gossip_mix(Wc, t1), gossip_mix_ref(Wc, t1))
+
+
 def test_wrappers_raise_instead_of_falling_back(cuda):
     t = torch.zeros((4, 16), device=cuda)
-    with pytest.raises(TypeError):  # float32 and bfloat16 theta only
-        gossip_mix(torch.eye(4, device=cuda), t.to(torch.float16))
+    with pytest.raises(TypeError):  # float32, bfloat16 and float16 theta
+        gossip_mix(torch.eye(4, device=cuda), t.double())
     with pytest.raises(ValueError):
         gossip_mix(torch.eye(4, device=cuda), t.t())
     with pytest.raises(ValueError):
@@ -198,7 +227,9 @@ def test_launch_counts_only_on_the_card(cuda):
     assert set(launch_counts().values()) == {0}
     _launch_all(W.to(cuda), torch.from_numpy(theta).to(cuda))
     assert launch_counts() == {
-        "gossip_mix": 2, "gossip_mix_bf16": 1, "panel_mean_consensus": 1,
+        "gossip_mix": 2, "gossip_mix_bf16": 1, "gossip_mix_f16": 0,
+        "panel_mean_consensus": 1, "panel_mean_consensus_bf16": 0,
+        "panel_mean_consensus_f16": 0,
         "quantize_int8": 1, "quantize_int8_native": 1,
         "dequantize_int8": 1, "sparsify_topk": 1, "quantize_int4": 1,
         "dequantize_int4": 1, "pack_int4": 1, "unpack_int4": 1,
