@@ -199,15 +199,34 @@ Phases, each printing its lines:
      local eval within 1e-6 relative (the float32-leaf merged eval printed
      beside it), the bf16 entries of the mix and the reduce launched; its
      rounds and peak against phase 5's; (b) the main path sharded over
-     SHARD_MESH, 4 ranks sharing the card over gloo (launch/mesh.py,
-     init_panel_state(mesh=)): the ranks' shards sum to phase 5's state
-     fingerprint, their evals and losses equal phase 5's bit for bit, Xi
-     within 1e-6 relative and 0.0 after the merge; then one round at world
-     size 1 over NCCL against phase 5's first round;
+     SHARD_MESH, 4 ranks sharing the card over gloo, their CUDA tensors
+     exchanged through CUDA IPC buffers, every rank's route checked
+     (launch/mesh.py, init_panel_state(mesh=)): the ranks' shards sum to
+     phase 5's state fingerprint, their evals and losses equal phase 5's
+     bit for bit, Xi within 1e-6 relative and 0.0 after the merge; then
+     one round at world size 1 over NCCL against phase 5's first round;
+     (c) the sharded run's other options: the native quantize at a
+     shard's offsets, the top-k sparsify, the column merges and the fused
+     int8 AdamW (the block's slab draws) at a shard's shapes against their
+     plain versions; then OPTIONS on one process and on SHARD_MESH's 4
+     ranks: at the main path's cell (A) the kernel-drawn int8_ef, var,
+     int8 moments fused and the telemetry columns, (B) topk, ties and the
+     fault plan OPT_FAULTS, and at reduced() width int8 with weighted and
+     int8g moments unfused, int4 with fisher and int8r statistics, int4_ef
+     with swa and bf16 / int8r storages: each sharded state bit for bit
+     with the one-process run's (weighted's parameters within 1e-5), its
+     losses and evals bit for bit, Xi and the grad norms within 1e-6 and
+     Xi 0.0 after the merge, the live rows identical, merged == local eval
+     (but swa, which merges its accumulators), the telemetry columns' loss,
+     live and wire bytes equal and their norms within 1e-4, the native
+     quantize once a communicating round; each run's rounds, evals, peak
+     and collective seconds a rank beside 12b's;
 then the script's total time, a JSON line of per-kernel numbers (the
 flash rows with their hd96, hd256 and hd256_h10 timings and the
 backward's own kernels' times, kernels_ms; every row with its phase-11
-launches by cell, ``launches_arch``, and phase 12's, ``launches_phase12``;
+launches by cell, ``launches_arch``, and phase 12's, ``launches_phase12``:
+bf16_params (12a), sharded (12b) and sharded_options (12c, summed over the
+ranks and the runs);
 the mix's bf16 and f16 and the reduce's bf16 and f16 sub-rows, each with
 that variant's own launches: the bf16 wire path's for bf16, the main
 path's for f16, and its own ``launches_phase12``), the
@@ -1894,23 +1913,11 @@ def state_fingerprint(torch, state, slab=1 << 22, col0=0):
     states give equal fingerprints; taken a column slab at a time (int64
     views of SLAB columns, no (m, D) temporary). A shard whose first column
     is ``col0`` gives its part (the parts of a sharded state sum to the
-    whole's, modulo 2^64)."""
-    out = {}
-    for name, x in (("panel", state["panel"]["float32"]),
-                    ("m", state["opt"]["m"]["float32"]),
-                    ("v", state["opt"]["v"]["float32"])):
-        bits = x.view(torch.int32)
-        tot = torch.zeros((), dtype=torch.int64, device=x.device)
-        wtot = torch.zeros((), dtype=torch.int64, device=x.device)
-        for lo in range(0, x.shape[1], slab):
-            c = bits[:, lo:lo + slab].to(torch.int64)
-            w = torch.arange(col0 + lo, col0 + lo + c.shape[1],
-                             device=x.device) % 65521
-            tot += c.sum()
-            wtot += (c * (w + 1)).sum()
-            del c, w
-        out[name] = [int(tot), int(wtot)]
-    return out
+    whole's, modulo 2^64): tensors_fingerprint of the three panels."""
+    return tensors_fingerprint(torch, {
+        "panel": (state["panel"]["float32"], col0),
+        "m": (state["opt"]["m"]["float32"], col0),
+        "v": (state["opt"]["v"]["float32"], col0)}, slab)
 
 
 def drive_tree_path(torch, main):
@@ -2929,6 +2936,8 @@ def sharded_child(kind):
     from repro_torch.launch.train import eval_local, eval_merged, to_device
     from repro_torch.models import build_model
     from repro_torch.optim import make_optimizer
+    if kind == "options":
+        return options_child(os.environ["SHARD_TMP"])
     shape = SHARD_MESH if kind == "gloo4" else (1, 1, 1, 1)
     rounds = ROUNDS if kind == "gloo4" else 1
     mesh = mesh_mod.make_mesh(shape)
@@ -2951,8 +2960,9 @@ def sharded_child(kind):
     t_init = time.perf_counter() - t_init
     torch.cuda.empty_cache()  # the 8 inits drawn whole, kept in part
     rec = {"rank": mesh.rank, "coord": mesh.coord, "backend": mesh.backend,
-           "device": str(dev), "init_s": t_init, "losses": [], "xis": [],
+           "transport": mesh.transport, "device": str(dev), "init_s": t_init, "losses": [], "xis": [],
            "grad_norms": [], "times": []}
+    mesh.stats.update(dict.fromkeys(mesh.stats, 0))
     for W, b, glob, _ in per_round[:rounds]:
         t0 = time.perf_counter()
         state, mets = seg(state, b, W, None, global_rounds=glob)
@@ -2969,6 +2979,7 @@ def sharded_child(kind):
     torch.cuda.synchronize(dev)
     rec["eval_s"] = time.perf_counter() - t0
     rec["counts"] = launch_counts()
+    rec["comm"] = dict(mesh.stats)
     rec["fingerprint"] = state_fingerprint(
         torch, state, col0=spec.col_range("float32")[0])
     rec["rows"] = list(spec.row_range("float32"))
@@ -2995,6 +3006,7 @@ def _run_ranks(kind, world, tmp):
     env = dict(os.environ, WORLD_SIZE=str(world),
                LOCAL_WORLD_SIZE=str(world),
                REPRO_TORCH_INIT_METHOD=f"file://{tmp}/rdv_{kind}",
+               SHARD_TMP=tmp,
                PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
     procs = [subprocess.Popen(
         [sys.executable, "-c", SHARD_CHILD, ROOT, kind],
@@ -3018,7 +3030,7 @@ def _run_ranks(kind, world, tmp):
                           + log[-3000:])
         else:
             recs.append(json.loads(lines[-1][len("SHARD "):]))
-    check(not failed, f"phase 12b: {kind} ranks failed:\n" + "\n".join(
+    check(not failed, f"phase 12: {kind} ranks failed:\n" + "\n".join(
         failed))
     return recs
 
@@ -3043,17 +3055,19 @@ def sharded_phase(torch, main):
     recs = _run_ranks("gloo4", 4, tmp)
     wall = time.perf_counter() - t0
     for r in recs:
-        print(f"rank {r['rank']} {r['coord']} ({r['backend']}, {r['device']};"
+        print(f"rank {r['rank']} {r['coord']} ({r['transport']}, "
+              f"{r['device']};"
               f" rows {r['rows']}, columns {r['cols']}): init {r['init_s']:.2f}s,"
               f" rounds (s) {[round(x, 3) for x in r['times']]}, evals "
-              f"{r['eval_s']:.2f}s, peak {r['peak']} bytes; losses "
+              f"{r['eval_s']:.2f}s, peak {r['peak']} bytes; collectives "
+              f"{r['comm']}; losses "
               f"{r['losses']}, Xi {r['xis']}, grad norms {r['grad_norms']}",
               flush=True)
     fp = {name: [_wrap64(sum(r["fingerprint"][name][i] for r in recs))
                  for i in (0, 1)] for name in ("panel", "m", "v")}
     merged, local = recs[0]["merged"], recs[0]["local"]
     print(f"sharded (phase 12b, {card_line()}): mesh {SHARD_MESH} on one "
-          f"card over {recs[0]['backend']}, {wall:.1f}s for the world; "
+          f"card over {recs[0]['transport']}, {wall:.1f}s for the world; "
           f"fingerprint {json.dumps(fp)} against phase 5's "
           f"{json.dumps(main['fingerprint'])}; evals merged {merged!r} "
           f"local {local!r} against {main['merged']!r} {main['local']!r}; "
@@ -3065,6 +3079,9 @@ def sharded_phase(torch, main):
           f"phase 12b: the sharded state {fp} differs from phase 5's "
           f"{main['fingerprint']}")
     for r in recs:
+        check(r["transport"] == "cuda ipc",
+              f"phase 12b: rank {r['rank']}'s collectives went over "
+              f"{r['transport']}, not CUDA IPC")
         check(r["rows_identical"], f"phase 12b: rank {r['rank']}'s rows "
                                    f"differ after the merge")
         check(r["merged"] == main["merged"] and r["local"] == main["local"],
@@ -3103,6 +3120,507 @@ def sharded_phase(torch, main):
           <= 1e-6 * abs(main["xis"][0]),
           f"world 1: round 0 {one['losses'][0]!r} {one['xis'][0]!r}")
     return counts, {"recs": recs, "nccl": one, "wall": wall}
+
+
+# phase 12c: the sharded run's other options (ROADMAP A16b) on SHARD_MESH
+# (4 gloo ranks on the card), each run gated against the same run on one
+# process in this phase (the same seeds, batches and W stream). At the main
+# path's cell (olmo-1b full width, 2 layers, m 8, H 2, batch 4 x 512),
+# OPT_ROUNDS rounds (two gossip rounds, then the merge): (A) the int8_ef
+# wire with the kernel's draws (Int8Codec(draws="kernel")), --merge var,
+# --residency moments=int8 with the fused moment update, the telemetry
+# columns; (B) --wire topk, --merge ties, the fault plan OPT_FAULTS (agent
+# 2 dead in the second gossip round, back for the merge). Then at reduced()
+# width (batch 4 x 32), SMALL_ROUNDS rounds (a gossip round, the merge),
+# the remaining codecs, operators and storages, unfused. label: (wire,
+# merge operator, residency, fused, fault plan, telemetry); "native" is
+# the kernel-drawn int8_ef.
+OPT_ROUNDS = SIDE_ROUNDS
+OPT_FAULTS = "2@1-2"
+OPT_RUNS = {"A": ("native", "var", "moments=int8", True, None, True),
+            "B": ("topk", "ties", None, None, OPT_FAULTS, False)}
+SMALL_ROUNDS = 2
+SMALL_OPTIONS = {
+    "int8 weighted moments=int8g": ("int8", "weighted", "moments=int8g",
+                                    False, None, False),
+    "int4 fisher stats=int8r": ("int4", "fisher", "stats=int8r", None, None,
+                                False),
+    "int4_ef swa moments=bf16 wire_err=int8r": (
+        "int4_ef", "swa", "moments=bf16,stats=bf16,wire_err=int8r", None,
+        None, False)}
+OPTIONS = {**OPT_RUNS, **SMALL_OPTIONS}
+# what each run must launch on every rank
+OPTION_KERNELS = {
+    "A": ("quantize_int8_native", "dequantize_int8", "gossip_mix",
+          "adamw_fused_int8", "weighted_colmerge"),
+    "B": ("sparsify_topk", "gossip_mix", "panel_mean_consensus",
+          "ties_colmerge"),
+    "int8 weighted moments=int8g": ("quantize_int8", "dequantize_int8",
+                                    "quantize_int8_grouped",
+                                    "dequantize_int8_grouped", "gossip_mix"),
+    "int4 fisher stats=int8r": ("quantize_int4", "pack_int4", "unpack_int4",
+                                "dequantize_int4", "weighted_colmerge",
+                                "quantize_int8", "dequantize_int8"),
+    "int4_ef swa moments=bf16 wire_err=int8r": (
+        "quantize_int4", "dequantize_int4", "quantize_int8",
+        "dequantize_int8", "gossip_mix", "panel_mean_consensus")}
+# the sums over whole rows (Xi, grad norms; test_torch_sharded.py's bound),
+# weighted's distances (the reference's own bound for its sharded
+# merge_row) and the per-agent telemetry columns summed over the ranks
+OPT_XI_RTOL, OPT_WEIGHTED_RTOL, OPT_COL_RTOL = 1e-6, 1e-5, 1e-4
+
+
+def tensors_fingerprint(torch, named, slab=1 << 22):
+    """{name: [sum of the bit patterns, sum of the patterns times (column %
+    65521 + 1), mod 2^64]} of ``named`` {name: (2-D tensor, the panel
+    column of its first column)}, a column slab at a time: the parts of a
+    sharded state (each rank's, with its columns' offsets) sum to the
+    whole's."""
+    as_int = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    out = {}
+    for name, (x, col0) in named.items():
+        bits = x.view(as_int[x.element_size()])
+        tot = torch.zeros((), dtype=torch.int64, device=x.device)
+        wtot = torch.zeros((), dtype=torch.int64, device=x.device)
+        for lo in range(0, x.shape[1], slab):
+            c = bits[:, lo:lo + slab].to(torch.int64)
+            w = torch.arange(col0 + lo, col0 + lo + c.shape[1],
+                             device=x.device) % 65521
+            tot += c.sum()
+            wtot += (c * (w + 1)).sum()
+            del c, w
+        out[name] = [int(tot), int(wtot)]
+    return out
+
+
+def state_tensors(state, spec, every=False):
+    """{name: (2-D tensor, first column)} of every panel of a state (this
+    rank's shard of it): the parameters, each moment (a stored one's q
+    and scales: a grouped scale's first group; a per-row scale, held by
+    every column shard, counted on the first unless ``every``), the
+    error-feedback and the statistics panels."""
+    out = {}
+
+    def add(name, x, k):
+        c0 = spec.col_range(k)[0]
+        if not isinstance(x, dict):
+            out[name] = (x, c0)
+            return
+        out[name + ".q"] = (x["q"], c0)
+        G, c = x["scale"].shape[1], x["q"].shape[1]
+        if G > 1 or c0 == 0 or every:
+            out[name + ".scale"] = (x["scale"], c0 * G // c)
+
+    for k, x in state["panel"].items():
+        add(f"panel.{k}", x, k)
+    for mk in ("m", "v"):
+        for k, x in state["opt"][mk].items():
+            add(f"{mk}.{k}", x, k)
+    for k, x in state.get("wire_err", {}).items():
+        add(f"wire_err.{k}", x, k)
+    for n, grp in state.get("merge_stat", {}).items():
+        for k, x in grp.items():
+            add(f"stat.{n}.{k}", x, k)
+    return out
+
+
+def gathered_state(state, spec):
+    """Every panel of a sharded state gathered whole (state_tensors' names;
+    a per-row scale gathered over the rows alone), on the CPU."""
+    import torch
+    from repro_torch.core import panel as panel_mod
+    out = {}
+    for name, (x, _) in state_tensors(state, spec, every=True).items():
+        k = name.split(".")[-1] if not name.endswith((".q", ".scale")) \
+            else name.split(".")[-2]
+        rows = panel_mod.gather_rows(x.contiguous(), spec, k)
+        if name.endswith(".scale") and x.shape[1] == 1:
+            out[name] = rows.cpu()
+        else:
+            out[name] = torch.stack([panel_mod.gather_cols(
+                r.contiguous(), spec, k) for r in rows]).cpu()
+        del rows
+    return out
+
+
+def option_run(torch, label, mesh=None, save=None):
+    """One run of phase 12c (OPTIONS[label]) on the card: on ``mesh`` (this
+    rank's shard) or on one process. Returns a JSON-able record: per-round
+    loss, Xi, grad norm, seconds and (with telemetry) the per-agent
+    columns, the evals, the state's fingerprint, the rows check, the
+    launch counts and the peak; ``save``: a path where a small run's whole
+    state is written (rank 0 of a mesh; on one process the state is
+    returned under "state")."""
+    import hashlib
+
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core import dsgd
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.train import eval_local, eval_merged, to_device
+    from repro_torch.models import build_model
+    from repro_torch.optim import make_optimizer
+    from repro_torch.telemetry.metrics import AGENT_COLUMNS
+    from repro_torch.wire import Int8Codec
+    wire, merger, res, fused, plan, tele = OPTIONS[label]
+    small = label in SMALL_OPTIONS
+    dev = mesh.device if mesh is not None else torch.device("cuda")
+    if small:
+        cfg, rounds, batch, seq, vocab = (get_config("olmo-1b").reduced(),
+                                          SMALL_ROUNDS, 4, 32, None)
+    else:
+        cfg, rounds, batch, seq, vocab = (
+            get_config("olmo-1b").replace(num_layers=2), OPT_ROUNDS, BATCH,
+            SEQ, DATA_VOCAB)
+    model = build_model(cfg)
+    opt = make_optimizer("adamw", 3e-3, weight_decay=5e-4,
+                         total_steps=rounds * H)
+    per_round, eval_batch = segment_inputs(cfg, M, rounds, data_vocab=vocab,
+                                           batch=batch, seq=seq, faults=plan)
+    eval_batch = to_device(eval_batch, dev)
+    if wire == "native":
+        wire = Int8Codec("int8_ef", error_feedback=True, draws="kernel")
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    if mesh is not None:
+        mesh.stats.update(dict.fromkeys(mesh.stats, 0))
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    kw = {"mesh": mesh} if mesh is not None else {"device": dev}
+    state, spec = dsgd.init_panel_state(model.init_params, opt, M, gen,
+                                        wire=wire, merger=merger,
+                                        residency=res, **kw)
+    seg = dsgd.make_panel_segment(model.loss_fn, opt, H, spec, fused=fused,
+                                  telemetry=tele)
+    torch.cuda.synchronize(dev)
+    rec = {"init_s": time.perf_counter() - t0, "losses": [], "xis": [],
+           "grad_norms": [], "times": [], "cols": {k: [] for k in (
+               AGENT_COLUMNS if tele else ())}}
+    wire_gen = torch.Generator(device=dev).manual_seed(3)
+    comm = 0
+    for W, b, glob, live in per_round:
+        t0 = time.perf_counter()
+        state, mets = seg(state, b, W, wire_gen, global_rounds=glob,
+                          live=live)
+        torch.cuda.synchronize(dev)
+        rec["times"].append(time.perf_counter() - t0)
+        comm += not (W[0] == np.eye(M, dtype=np.float32)).all()
+        for key, name in (("losses", "loss"), ("xis", "consensus"),
+                          ("grad_norms", "grad_norm")):
+            rec[key].append(float(mets[name][0]))
+        for k in rec["cols"]:
+            rec["cols"][k].append(mets[k][0].tolist())
+        if mesh is None or mesh.rank == 0:
+            print(f"round {len(rec['times']) - 1} (phase 12c {label}, "
+                  f"{'rank 0' if mesh is not None else 'one process'}): "
+                  f"loss {rec['losses'][-1]!r} Xi {rec['xis'][-1]!r} "
+                  f"{rec['times'][-1]:.3f}s; peak so far "
+                  f"{torch.cuda.max_memory_allocated(dev)}", flush=True)
+    rec["comm_rounds"] = int(comm)
+    # the agents live in the merge round (drive_path's faults path)
+    alive = None if plan is None else per_round[-1][3][0] == 1
+    t0 = time.perf_counter()
+    rec["merged"] = eval_merged(model.loss_fn, state["panel"], spec,
+                                eval_batch, state.get("merge_stat"),
+                                live=alive)
+    rec["local"] = eval_local(model.loss_fn, state["panel"], spec,
+                              eval_batch, live=alive)
+    torch.cuda.synchronize(dev)
+    rec["eval_s"] = time.perf_counter() - t0
+    rec["counts"] = launch_counts()
+    rec["peak"] = torch.cuda.max_memory_allocated(dev)
+    rec["comm"] = None if mesh is None else dict(mesh.stats)
+    lo, hi = spec.agent_range()
+    here = None if alive is None else alive[lo:hi]
+    rec["rows_identical"] = rows_identical(torch, state["panel"], here)
+    first = lo + (0 if here is None else int(np.flatnonzero(here)[0]))
+    row = state["panel"]["float32"][first - lo].contiguous()
+    rec["row_digest"] = hashlib.sha256(
+        row.view(torch.int32).cpu().numpy().tobytes()).hexdigest()
+    rec["cols_range"] = list(spec.col_range("float32"))
+    rec["rows_range"] = [lo, hi]
+    rec["width"] = spec.width
+    if small:
+        if mesh is None:
+            rec["state"] = {k: x.cpu() for k, (x, _) in
+                            state_tensors(state, spec).items()}
+        else:
+            whole = gathered_state(state, spec)
+            if mesh.rank == 0:
+                torch.save(whole, save)
+            del whole
+    else:
+        rec["fingerprint"] = tensors_fingerprint(torch,
+                                                 state_tensors(state, spec))
+    del state, seg
+    torch.cuda.empty_cache()
+    return rec
+
+
+def options_child(tmp):
+    """Phase 12c's ranks: every OPTIONS run in turn on SHARD_MESH."""
+    import torch
+    import torch.distributed as dist
+
+    import repro_torch  # noqa: F401  (sets TF32 off)
+    from repro_torch.launch import mesh as mesh_mod
+    mesh = mesh_mod.make_mesh(SHARD_MESH)
+    runs = {}
+    for i, label in enumerate(OPTIONS):
+        runs[label] = option_run(torch, label, mesh,
+                                 save=os.path.join(tmp, f"opt{i}.pt"))
+    print("SHARD " + json.dumps({"rank": mesh.rank, "coord": mesh.coord,
+                                 "backend": mesh.backend,
+                                 "transport": mesh.transport, "runs": runs}),
+          flush=True)
+    dist.destroy_process_group()
+
+
+def shard_kernel_checks(torch, D):
+    """Phase 12c's kernels at a rank's shapes: the native quantize of the
+    block at rows [4, 8) and columns [D/2, D) (row0, col0) equal to its
+    plain twin and to that block of the whole panel's quantize; the top-k
+    sparsify on the (4, D/2) shard, and the TIES and weighted column
+    merges on a gathered (8, 2^22) slab, and the fused int8 AdamW on the
+    (4, D/2) block a slab at a time (the block's slab_draws uniforms, its
+    grouped scales), equal to their plain versions."""
+    from repro_torch.kernels import merge_ops, ref, wire_quant
+    g = torch.Generator(device="cuda").manual_seed(12)
+    c0 = D // 2
+    x = torch.randn((M, D), generator=g, device="cuda")
+    s = ref.int8_scale_ref(x)
+    seed = torch.tensor([12345], dtype=torch.int32, device="cuda")
+    whole = wire_quant.quantize_int8_native(x, s, seed)
+    blk = x[4:, c0:].contiguous()
+    q = wire_quant.quantize_int8_native(blk, s[4:].contiguous(), seed,
+                                        row0=4, col0=c0)
+    plain = ref.quantize_int8_native_ref(blk, s[4:].contiguous(), seed,
+                                         row0=4, col0=c0)
+    ok_native = torch.equal(q, plain) and torch.equal(q, whole[4:, c0:])
+    del x, whole, q, plain
+    th = ref.topk_threshold_ref(blk, max(1, int(D * 0.125)) // 2)
+    ok_topk = torch.equal(wire_quant.sparsify_topk(blk, th),
+                          ref.sparsify_topk_ref(blk, th))
+    del blk, th
+    slab = torch.randn((M, 1 << 22), generator=g, device="cuda")
+    w = torch.rand((M, 1 << 22), generator=g, device="cuda") + 0.1
+    tth = ref.ties_thresh_ref(slab, 0.2)
+    ok_merge = (torch.equal(merge_ops.weighted_colmerge(slab, w),
+                            ref.weighted_colmerge_ref(slab, w))
+                and torch.equal(merge_ops.ties_colmerge(slab, tth),
+                                ref.ties_colmerge_ref(slab, tth)))
+    del slab, w
+    torch.cuda.empty_cache()
+    ok_fused = shard_fused_check(torch, D, c0, g)
+    print(f"shard kernels (phase 12c): native quantize of the block at "
+          f"(row0 4, col0 {c0}) == its plain twin == the whole panel's "
+          f"block: {ok_native}; sparsify_topk on (4, {D - c0}): {ok_topk}; "
+          f"weighted and TIES column merges on (8, {1 << 22}): {ok_merge}; "
+          f"adamw_fused_int8 on the (4, {D - c0}) block: {ok_fused}",
+          flush=True)
+    check(ok_native and ok_topk and ok_merge and ok_fused,
+          "phase 12c: a kernel on a shard's shape disagrees with its plain "
+          "version")
+
+
+def shard_fused_check(torch, D, c0, gen):
+    """The fused int8 AdamW step on rows [4, 8) and columns [c0, D) of an
+    (M, D) panel, as dsgd._fused_opt_update runs it on that rank's block:
+    one launch a range of storage.slab_ranges (the panel's 2^22-column
+    slabs cut to the block), the uniforms from storage.slab_draws on the
+    block's Shard, group 128; each range bit for bit with the plain
+    version on the same inputs."""
+    from repro_torch.core.panel import Shard
+    from repro_torch.kernels.opt_fused import adamw_fused_int8 as kernel
+    from repro_torch.kernels.ref import adamw_fused_int8_ref as plain
+    from repro_torch.optim import make_optimizer
+    from repro_torch.residency import SLAB
+    from repro_torch.residency.storage import slab_draws, slab_ranges
+    group = 128
+    kw = dict(group=group, transform="sqrt",
+              **make_optimizer("adamw", 3e-3, weight_decay=5e-4).hparams)
+    g, p, qm, sm, qv, sv, um, uv, lr, bc1, bc2 = fused_inputs(
+        torch, 4, D - c0, group, gen)
+    del um, uv
+    sh = Shard(mesh=None, rows=(4, M), cols=(c0, D), m=M, D=D, split=True)
+    draws = [slab_draws(torch.Generator(device="cuda").manual_seed(s), M, D,
+                        SLAB, sh, "cuda") for s in (21, 22)]
+    got = [t.clone() for t in (p, qm, sm, qv, sv)]
+    ok = True
+    for lo, hi in slab_ranges(D - c0, SLAB, c0):
+        cs, gs = slice(lo, hi), slice(lo // group, -(-hi // group))
+        du, dv = next(draws[0]), next(draws[1])
+        kernel(g[:, cs], got[0][:, cs], got[1][:, cs], got[2][:, gs],
+               got[3][:, cs], got[4][:, gs], du, dv, lr, bc1, bc2, **kw)
+        want = plain(g[:, cs], p[:, cs], qm[:, cs], sm[:, gs], qv[:, cs],
+                     sv[:, gs], du, dv, lr, bc1, bc2, **kw)
+        ok = ok and all(torch.equal(a[:, sl], b) for a, b, sl in
+                        zip(got, want, (cs, cs, gs, cs, gs)))
+        del du, dv, want
+    del g, p, qm, sm, qv, sv, got
+    torch.cuda.empty_cache()
+    return ok
+
+
+def _close(a, b, rtol):
+    import numpy as np
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return bool(np.all(np.abs(a - b) <= rtol * np.abs(b) + 1e-12))
+
+
+def _gap(a, b):
+    """The largest relative gap of a from b."""
+    import numpy as np
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-30)))
+
+
+def options_phase(torch, main, sharded):
+    """Phase 12 (c): shard_kernel_checks, then every OPTIONS run on one
+    process, then all of them on SHARD_MESH's 4 ranks (one world). Gates
+    for each run, rank by rank: the losses and evals equal the one-process
+    run's bit for bit, Xi and the grad norms within OPT_XI_RTOL and Xi 0.0
+    after the merge, merged == local eval, the (live) rows identical after
+    the merge and equal across the ranks of one column shard, the state
+    (parameters, moments with their stored bits, error-feedback and
+    statistics panels) bit for bit: at full width the ranks' fingerprints
+    summed against the one-process state's, at reduced width the gathered
+    state (weighted's parameters and evals within OPT_WEIGHTED_RTOL);
+    the telemetry columns: losses, live trits and wire bytes equal, grad
+    norms and distances within OPT_COL_RTOL (gaps printed); each run's
+    OPTION_KERNELS launched on every rank, the native quantize once a
+    communicating round. Prints rounds and peaks beside phase 12b's."""
+    import tempfile
+    shard_kernel_checks(torch, main["width"])
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_opts_")
+    singles = {}
+    t0 = time.perf_counter()
+    for label in OPTIONS:
+        singles[label] = option_run(torch, label)
+        r = singles[label]
+        print(f"one process (phase 12c {label}): rounds (s) "
+              f"{[round(t, 3) for t in r['times']]}, evals {r['eval_s']:.2f}s,"
+              f" peak {r['peak']} bytes; merged {r['merged']!r} local "
+              f"{r['local']!r}", flush=True)
+    t_single = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    recs = _run_ranks("options", 4, tmp)
+    wall = time.perf_counter() - t0
+    for r in recs:
+        check(r["transport"] == "cuda ipc",
+              f"phase 12c: rank {r['rank']}'s collectives went over "
+              f"{r['transport']}, not CUDA IPC")
+    counts = {}
+    for i, label in enumerate(OPTIONS):
+        one = singles[label]
+        runs = [r["runs"][label] for r in recs]
+        weighted = OPTIONS[label][1] == "weighted"
+        for r, run in zip(recs, runs):
+            print(f"rank {r['rank']} (phase 12c {label}; rows "
+                  f"{run['rows_range']}, columns {run['cols_range']}): init "
+                  f"{run['init_s']:.2f}s, rounds (s) "
+                  f"{[round(t, 3) for t in run['times']]}, evals "
+                  f"{run['eval_s']:.2f}s, peak {run['peak']} bytes; "
+                  f"collectives {run['comm']}", flush=True)
+        gaps = {"xi": _gap(runs[0]["xis"][:-1], one["xis"][:-1]),
+                "grad_norm": _gap(runs[0]["grad_norms"], one["grad_norms"])}
+        for k in ("grad_norm_agent", "dist_to_mean"):
+            if k in one["cols"]:
+                gaps[k] = _gap(runs[0]["cols"][k], one["cols"][k])
+        if label in OPT_RUNS:
+            fp = {n: [_wrap64(sum(run["fingerprint"][n][j] for run in runs))
+                      for j in (0, 1)] for n in one["fingerprint"]}
+            same_state = fp == one["fingerprint"]
+            state_note = f"fingerprint of {len(fp)} panels"
+        else:
+            whole = torch.load(os.path.join(tmp, f"opt{i}.pt"),
+                               weights_only=False)
+            diff = {n: x for n, x in whole.items()
+                    if not tree_equal(torch, x, one["state"][n])}
+            if weighted:  # the parameters move with the weights: their
+                # largest gap over the panel's largest |value|
+                gaps["panel"] = max([float(
+                    (x.float() - one["state"][n].float()).abs().max()
+                    / one["state"][n].float().abs().max())
+                    for n, x in diff.items() if n.startswith("panel.")]
+                    or [0.0])
+                diff = {n: x for n, x in diff.items()
+                        if not n.startswith("panel.")}
+            same_state = set(whole) == set(one["state"]) and not diff
+            state_note = f"gathered state of {len(whole)} panels"
+            del whole
+        print(f"sharded (phase 12c {label}, {card_line()}): mesh {SHARD_MESH}"
+              f", {state_note} bit for bit with one process: {same_state}; "
+              f"losses {runs[0]['losses']} against {one['losses']}; Xi "
+              f"{runs[0]['xis']} against {one['xis']}; evals merged "
+              f"{runs[0]['merged']!r} local {runs[0]['local']!r} against "
+              f"{one['merged']!r} {one['local']!r}; rounds (s) "
+              f"{[round(max(r['times'][t] for r in runs), 3) for t in range(len(one['times']))]}"
+              f" against one process's "
+              f"{[round(t, 3) for t in one['times']]}; peak per rank "
+              f"{max(r['peak'] for r in runs)} against one process's "
+              f"{one['peak']}; relative gaps {gaps} (bounds: Xi, grad norm "
+              f"{OPT_XI_RTOL}, columns {OPT_COL_RTOL}, weighted "
+              f"{OPT_WEIGHTED_RTOL})", flush=True)
+        check(same_state, f"phase 12c {label}: the sharded state differs "
+                          f"from one process's")
+        check(gaps["xi"] <= OPT_XI_RTOL and gaps["grad_norm"] <= OPT_XI_RTOL
+              and all(gaps.get(k, 0.0) <= OPT_COL_RTOL
+                      for k in ("grad_norm_agent", "dist_to_mean"))
+              and gaps.get("panel", 0.0) <= OPT_WEIGHTED_RTOL,
+              f"phase 12c {label}: relative gaps {gaps}")
+        for r, run in zip(recs, runs):
+            ev_ok = (_close([run["merged"], run["local"]],
+                            [one["merged"], one["local"]], OPT_WEIGHTED_RTOL)
+                     if weighted else run["merged"] == one["merged"]
+                     and run["local"] == one["local"])
+            check(ev_ok and run["losses"] == one["losses"],
+                  f"phase 12c {label}: rank {r['rank']}'s evals or losses "
+                  f"differ from one process's")
+            # swa merges its accumulators, not the rows: its merged model
+            # is another model than the agents'
+            check(run["xis"][-1] == 0.0 and run["rows_identical"]
+                  and (OPTIONS[label][1] == "swa"
+                       or abs(run["local"] - run["merged"])
+                       <= 1e-6 * abs(run["merged"])),
+                  f"phase 12c {label}: rank {r['rank']}: Xi {run['xis']}, "
+                  f"rows identical {run['rows_identical']}, evals "
+                  f"{run['merged']!r} {run['local']!r}")
+            for k in ("loss_agent", "live", "wire_bytes"):
+                if k in one["cols"]:
+                    check(run["cols"][k] == one["cols"][k],
+                          f"phase 12c {label}: rank {r['rank']}'s {k}")
+            missing = [k for k in OPTION_KERNELS[label]
+                       if run["counts"][k] == 0]
+            check(not missing, f"phase 12c {label}: rank {r['rank']} never "
+                               f"launched {missing}")
+            if OPTIONS[label][0] == "native":
+                check(run["counts"]["quantize_int8_native"]
+                      == run["comm_rounds"]
+                      and run["counts"]["quantize_int8"] == 0,
+                      f"phase 12c {label}: rank {r['rank']} quantized "
+                      f"{run['counts']} in {run['comm_rounds']} rounds")
+            for k, n in run["counts"].items():
+                counts[k] = counts.get(k, 0) + n
+        for mate in {tuple(r["cols_range"]) for r in runs}:
+            digests = {r["row_digest"] for r in runs
+                       if tuple(r["cols_range"]) == mate}
+            check(len(digests) == 1, f"phase 12c {label}: the merged rows "
+                                     f"differ between ranks")
+    b12 = sharded["recs"]
+    print(f"sharded options (phase 12c, {card_line()}): {len(OPTIONS)} runs"
+          f" on one process {t_single:.1f}s, on {SHARD_MESH} over "
+          f"{recs[0]['transport']} {wall:.1f}s for the world; full-width "
+          f"rounds (s) "
+          f"{ {k: [round(max(r['runs'][k]['times'][t] for r in recs), 3) for t in range(OPT_ROUNDS)] for k in OPT_RUNS} }"
+          f" and peaks per rank "
+          f"{ {k: max(r['runs'][k]['peak'] for r in recs) for k in OPT_RUNS} }"
+          f" against phase 12b's rounds "
+          f"{[round(max(r['times'][t] for r in b12), 3) for t in range(ROUNDS)]}"
+          f" and peak {max(r['peak'] for r in b12)}", flush=True)
+    return counts, {"recs": recs, "singles": singles}
 
 
 def arch_config(name):
@@ -4080,7 +4598,7 @@ def main():
           f"{torch.version.cuda}", flush=True)
 
     t0 = time.perf_counter()
-    report = build.build(SOURCES + ("philox_check",))
+    report = build.build(SOURCES + ("philox_check", "ipc_buffer"))
     print(f"build: {time.perf_counter() - t0:.1f}s", flush=True)
     for name, log in report.items():
         for line in log.splitlines():
@@ -4136,8 +4654,11 @@ def main():
     lap("phase 11")
     counts["bf16 params"], _ = bf16_params_phase(torch, records["f32"])
     lap("phase 12a")
-    counts["sharded"], _ = sharded_phase(torch, records["f32"])
+    counts["sharded"], sharded_rec = sharded_phase(torch, records["f32"])
     lap("phase 12b")
+    counts["sharded options"], _ = options_phase(torch, records["f32"],
+                                                 sharded_rec)
+    lap("phase 12c")
     for path, base in (("int8_ef native", "int8_ef"), ("faults", "f32"),
                        ("tree", "f32")):
         a, b = records[path], records[base]
@@ -4221,9 +4742,11 @@ def main():
                 row[key]["launches"] = launches[sub]
                 row[key]["launches_phase12"] = {
                     "bf16_params": p12[sub],
-                    "sharded": counts["sharded"][sub]}
-        row["launches_phase12"] = {"bf16_params": p12[name],
-                                   "sharded": counts["sharded"][name]}
+                    "sharded": counts["sharded"][sub],
+                    "sharded_options": counts["sharded options"][sub]}
+        row["launches_phase12"] = {
+            "bf16_params": p12[name], "sharded": counts["sharded"][name],
+            "sharded_options": counts["sharded options"][name]}
         kernels.append(row)
     print(f"total: {time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps({"kernels": kernels}))

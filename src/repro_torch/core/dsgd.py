@@ -83,8 +83,11 @@ moments (the storage's canonical zero) and a step count of 0, a fresh
 error-feedback row and fresh statistics. Dead rows keep their stored residual
 and statistics bits. The metrics average over the live agents and Xi is the
 live rows' consensus. A round whose agents are all LIVE is an unmasked round,
-so an all-live mask gives ``live=None``'s result bit for bit. Telemetry is a
-later slice.
+so an all-live mask gives ``live=None``'s result bit for bit.
+
+Sharded state (``init_panel_state(mesh=)``): a rank holds its agents' rows
+x its columns of every state panel and runs the same segment on them (see
+:func:`make_panel_segment`).
 
 The reference scans a whole segment on device under jit with donated
 buffers; here the segment is a Python loop over rounds, the optimizer
@@ -110,6 +113,7 @@ from repro_torch.device import resolve_device
 from repro_torch.merging import get_merger, merge_panel
 from repro_torch.optim.optim import Optimizer
 from repro_torch.residency import storage_generators
+from repro_torch.residency.storage import slab_draws, slab_ranges
 from repro_torch.telemetry import metrics as tmetrics
 from repro_torch.utils.tree import tree_flatten, tree_unflatten
 
@@ -429,16 +433,22 @@ def _res_read(stored, sts):
             for k, v in stored.items()}
 
 
-def _res_write(panel, sts, gens):
+def _shard(spec, k):
+    return None if spec is None else spec.shard(k)
+
+
+def _res_write(panel, sts, gens, spec=None):
     """Encode a float32 {group: panel} dict into storage, each stochastic
-    group drawing from its generator in ``gens``."""
-    return {k: (sts[k].write(v, gen=gens[k]) if k in sts else v)
+    group drawing from its generator in ``gens`` (on a sharded ``spec``
+    each group's block of the whole panel's stored form)."""
+    return {k: (sts[k].write(v, gen=gens[k], shard=_shard(spec, k))
+                if k in sts else v)
             for k, v in panel.items()}
 
 
-def _res_init(panel, sts):
+def _res_init(panel, sts, spec=None):
     """Deterministic encode of a fresh {group: panel} dict."""
-    return {k: (sts[k].init(v) if k in sts else v)
+    return {k: (sts[k].init(v, shard=_shard(spec, k)) if k in sts else v)
             for k, v in panel.items()}
 
 
@@ -449,17 +459,18 @@ def _opt_read(opt, sts, mom_keys):
             for k, v in opt.items()}
 
 
-def _opt_write(opt, sts, mom_keys, seed, tick, device):
+def _opt_write(opt, sts, mom_keys, seed, tick, device, spec=None):
     """Encode the updated moments back into storage: moment entry i (sorted
     order) draws from its own generators at this local step."""
     out = dict(opt)
     for i, k in enumerate(sorted(k for k in opt if k in mom_keys)):
         gens = storage_generators(sts, seed, tick, "moments", i, device)
-        out[k] = _res_write(opt[k], sts, gens)
+        out[k] = _res_write(opt[k], sts, gens, spec)
     return out
 
 
-def _fused_opt_update(gpan, opt, pan, optimizer, sts, seed, tick):
+def _fused_opt_update(gpan, opt, pan, optimizer, sts, seed, tick,
+                      spec=None):
     """One local step's optimizer update with the stored grouped-int8
     moments updated by the ``adamw_fused_int8`` kernel, in place, a column
     slab at a time: the slab's uniforms for m and v are drawn (from the
@@ -467,7 +478,10 @@ def _fused_opt_update(gpan, opt, pan, optimizer, sts, seed, tick):
     then the kernel decodes, updates and re-encodes the slab. No float32
     moment panel is made. Groups without a storage take
     ``optimizer.update``; the per-agent lr, bc1 and bc2 columns come from
-    ``optimizer.hyper``, as the optimizer's own update computes them."""
+    ``optimizer.hyper``, as the optimizer's own update computes them. On a
+    sharded ``spec`` the slabs are the whole panel's (``slab_draws``: each
+    drawn whole and cut to the rank's block), so the block is updated to
+    the single-process bits."""
     count = opt["step_count"] + 1
     mom = sorted(k for k in opt if k in optimizer.moment_keys)
     rest = [k for k in pan if k not in sts]
@@ -482,19 +496,17 @@ def _fused_opt_update(gpan, opt, pan, optimizer, sts, seed, tick):
         st, x = sts[k], pan[k]
         m, D = x.shape
         lr, bc1, bc2 = optimizer.hyper(count, None, x.device)
-        gens = {mk: storage_generators(sts, seed, tick, "moments", i,
-                                       x.device)[k]
-                for i, mk in enumerate(mom)}
+        sh = _shard(spec, k)
+        draws = {mk: slab_draws(storage_generators(
+            sts, seed, tick, "moments", i, x.device)[k], m, D, st.slab(), sh,
+            x.device) for i, mk in enumerate(mom)}
         (qm, sm), (qv, sv) = ((opt[mk][k]["q"], opt[mk][k]["scale"])
                               for mk in ("m", "v"))
-        step = st.slab()
-        for lo in range(0, D, step):
-            sl = slice(lo, min(lo + step, D))
-            w = sl.stop - lo
+        for lo, hi in slab_ranges(D, st.slab(), 0 if sh is None
+                                  else sh.cols[0]):
+            sl, w = slice(lo, hi), hi - lo
             gs = slice(lo // st.group, lo // st.group + st.scale_count(w))
-            um, uv = (torch.rand((m, w), generator=gens[mk],
-                                 dtype=torch.float32, device=x.device)
-                      for mk in ("m", "v"))
+            um, uv = next(draws["m"]), next(draws["v"])
             adamw_fused_int8(gpan[k][:, sl], x[:, sl], qm[:, sl], sm[:, gs],
                              qv[:, sl], sv[:, gs], um, uv, lr, bc1, bc2,
                              group=st.group, transform=st.transform,
@@ -555,22 +567,23 @@ def _with_wire_state(state, spec, sts=None):
     error feedback: each dtype group's codec seeds its own (zeros for the
     int8_ef residual, a copy of the panel for the topk mirror —
     Codec.init_err); ``sts`` (the wire_err storages) encodes them
-    deterministically."""
+    deterministically. On a sharded spec: the rank's block of each."""
     if _wire_any(spec, "error_feedback"):
         werr = {k: wire_mod.get_codec(spec.wire_of(k)).init_err(v)
                 for k, v in state["panel"].items()}
-        state["wire_err"] = _res_init(werr, sts) if sts else werr
+        state["wire_err"] = _res_init(werr, sts, spec) if sts else werr
     return state
 
 
 def _with_merge_stats(state, spec, sts=None):
     """Add fresh statistics panels when the spec's merge operator keeps
     any (``Merger.init_stats`` of the initial parameter panel), encoded
-    deterministically by ``sts`` (the stats storages) when given."""
+    deterministically by ``sts`` (the stats storages) when given; on a
+    sharded spec the rank's block of each."""
     mg = get_merger(spec.merger)
     if mg.stat_panels:
         stats = mg.init_stats(state["panel"])
-        state["merge_stat"] = ({n: _res_init(v, sts)
+        state["merge_stat"] = ({n: _res_init(v, sts, spec)
                                 for n, v in stats.items()} if sts else stats)
     return state
 
@@ -625,11 +638,13 @@ def init_panel_state(init_params: Callable, optimizer: Optimizer, m: int,
     statistics and error-feedback panels by the deterministic encode.
 
     ``mesh`` (``launch.mesh.Mesh``) shards the state (panel.shard_spec):
-    this rank holds its agents' rows x its columns of the parameters and
-    of the moments. Every rank draws all m inits in turn, as one process
-    does, and keeps its part, so the shards are the single-process state's
-    bit for bit. A sharded spec takes the f32 and bf16 wires, the uniform
-    merge and no residency policy (the rest: ROADMAP A16b)."""
+    this rank holds its agents' rows x its columns of the parameters, the
+    moments (stored ones with their grouped scales beside their columns,
+    a per-row scale whole on every column shard), the error-feedback and
+    the statistics panels. Every rank draws all m inits in turn, as one
+    process does, and keeps its part, so the shards are the
+    single-process state's bit for bit. Every wire codec, merge operator
+    and residency policy runs sharded."""
     device = mesh.device if mesh is not None and device is None else device
     device = resolve_device(device)
     gen = _generator(rng, device)
@@ -688,7 +703,8 @@ def panel_grads(loss_fn: Callable, panel, spec, batch, rows=None):
     ``fsdp`` line, differentiates there and keeps the rank's columns (every
     fsdp rank of an agent computes the same gradient, as the reference's
     launcher places a batch on the agent axes only). The losses of all m
-    agents are gathered over the ``rows`` line. No ``rows`` subset there."""
+    agents are gathered over the ``rows`` line; ``rows`` (global indices)
+    differentiates those of the rank's agents."""
     lo, hi = spec.agent_range()
     x0 = next(iter(panel.values()))
     if rows is None:
@@ -700,7 +716,8 @@ def panel_grads(loss_fn: Callable, panel, spec, batch, rows=None):
         losses = torch.zeros((hi - lo,), dtype=torch.float32,
                              device=x0.device)
     split = {g: panel_mod._claimed(spec, g)[1] for g in panel}
-    for k in range(lo, hi) if rows is None else rows:
+    for k in range(lo, hi) if rows is None else \
+            [int(r) for r in rows if lo <= int(r) < hi]:
         j = k - lo
         full = {g: panel_mod.gather_cols(x[j], spec, g)
                 for g, x in panel.items()}
@@ -824,9 +841,14 @@ def make_panel_segment(loss_fn: Callable, optimizer: Optimizer,
     each of the rank's agents' rows, the optimizer runs on the rank's
     column shard, and the sharded panel ops communicate, so the panels, the
     moments and the mean loss are the single-process ones bit for bit; the
-    grad norm and Xi are summed over the ranks in another order. It takes
-    what ``panel.refuse_sharded`` allows, and no live mask or telemetry
-    yet (ROADMAP A16b).
+    grad norm and Xi are summed over the ranks in another order. Every
+    codec, merge operator (``weighted``'s distances summed over the ranks
+    in another order too), residency storage, live mask and telemetry
+    column runs there: the wire's and the storages' draws are the whole
+    panel's, cut to the rank's block; the elastic round saves, restores
+    and restarts the rank's rows of the non-live agents (an (rows,) step
+    count a rank); the telemetry columns are every agent's on every rank
+    (the row norms and distances summed over ``fsdp`` in another order).
 
     The state is consumed (the counterpart of the reference's donated
     buffers): the segment takes its panels out of the caller's dict, the
@@ -834,11 +856,6 @@ def make_panel_segment(loss_fn: Callable, optimizer: Optimizer,
     the parameter and error-feedback panels by its output, so the panels it
     consumed are freed at once and no round holds more than one extra
     panel of each."""
-    if spec.sharded:
-        panel_mod.refuse_sharded(spec)
-        if telemetry:
-            raise NotImplementedError("the telemetry columns on a sharded "
-                                      "panel come with ROADMAP A16b")
     needs_key = _wire_any(spec, "needs_key")
     needs_ef = _wire_any(spec, "error_feedback")
     merger = get_merger(spec.merger)
@@ -872,12 +889,8 @@ def make_panel_segment(loss_fn: Callable, optimizer: Optimizer,
     def segment(state, batches, Ws, rng=None, global_rounds=None,
                 live=None):
         x0 = next(iter(state["panel"].values()))
-        m, dev = spec.rows, x0.device
+        m, dev, here = spec.rows, x0.device, x0.shape[0]
         del x0
-        if spec.sharded and live is not None:
-            raise NotImplementedError("a live mask on a sharded panel comes "
-                                      "with the sharded faults (ROADMAP "
-                                      "A16b)")
         if needs_ef and "wire_err" not in state:
             raise ValueError(
                 "spec's wire policy uses error feedback but the state has "
@@ -937,9 +950,10 @@ def make_panel_segment(loss_fn: Callable, optimizer: Optimizer,
             if not res_err or ne is None:
                 return ne
             enc = _res_write(ne, res_err, storage_generators(
-                res_err, seed, tick, "wire_err", 0, dev))
+                res_err, seed, tick, "wire_err", 0, dev), spec)
             if old is not None:
-                for r in panel_mod._idle_rows(W, m):
+                for r in panel_mod.local_rows(spec,
+                                              panel_mod._idle_rows(W, m)):
                     for k in res_err:
                         if isinstance(enc[k], dict):
                             for part in enc[k]:
@@ -958,10 +972,11 @@ def make_panel_segment(loss_fn: Callable, optimizer: Optimizer,
                 lv = None  # an all-live round is an unmasked round
             if lv is not None:
                 alive = lv == LIVE
-                frozen = np.flatnonzero(~alive).tolist()
-                sync = np.flatnonzero(lv == RESYNC).tolist()
+                # the rank's rows of the non-live and the rejoining agents
+                frozen = panel_mod.local_rows(spec, np.flatnonzero(~alive))
+                sync = panel_mod.local_rows(spec, np.flatnonzero(lv == RESYNC))
                 lw = panel_mod._live_weights(alive, m, dev)
-                opt = _per_agent_count(opt, m)
+                opt = _per_agent_count(opt, here)
                 # what the non-live rows hold now; they take no local step
                 keep = {"panel": _take_rows(pan, frozen),
                         "opt": _take_rows(opt, frozen)}
@@ -984,11 +999,12 @@ def make_panel_segment(loss_fn: Callable, optimizer: Optimizer,
                     pan, opt = optimizer.update(gpan, opt, pan)
                 elif res_fused:
                     pan, opt = _fused_opt_update(gpan, opt, pan, optimizer,
-                                                 res_mom, seed, step)
+                                                 res_mom, seed, step, spec)
                 else:
                     opt = _opt_read(opt, res_mom, mom_keys)
                     pan, opt = optimizer.update(gpan, opt, pan)
-                    opt = _opt_write(opt, res_mom, mom_keys, seed, step, dev)
+                    opt = _opt_write(opt, res_mom, mom_keys, seed, step, dev,
+                                     spec)
                 if after_step is not None:
                     after_step(step, opt)
                 if lv is None:
@@ -998,11 +1014,11 @@ def make_panel_segment(loss_fn: Callable, optimizer: Optimizer,
                 else:
                     losses.append(torch.sum(lw * agent_losses))
                     gns.append(panel_mod.panel_norm(gpan, axis_mean=True,
-                                                    rows=lw))
+                                                    rows=lw, spec=spec))
                 if telemetry:
                     on = None if lv is None else alive
                     la.append(tmetrics.agent_loss(agent_losses, on))
-                    ga.append(tmetrics.agent_grad_norm(gpan, on))
+                    ga.append(tmetrics.agent_grad_norm(gpan, on, spec=spec))
                 del gpan
             if round_stat:
                 mstat = merger.update_round(mstat, pan)
@@ -1041,8 +1057,9 @@ def make_panel_segment(loss_fn: Callable, optimizer: Optimizer,
             del ne
             if lv is not None:
                 _live_comm_rows(pan, opt, werr, werr_in, mstat, keep,
-                                frozen, sync, alive)
-                xi = panel_mod.consensus_distance(pan, live=alive)
+                                frozen, sync, alive, bool(np.any(
+                                    lv == RESYNC)))
+                xi = panel_mod.consensus_distance(pan, live=alive, spec=spec)
             del werr_in
             mets["consensus"].append(xi)
             if telemetry:
@@ -1051,7 +1068,7 @@ def make_panel_segment(loss_fn: Callable, optimizer: Optimizer,
                 cols["grad_norm_agent"].append(torch.mean(torch.stack(ga),
                                                           0))
                 cols["dist_to_mean"].append(tmetrics.agent_dist_to_mean(
-                    pan, live=None if lv is None else alive))
+                    pan, live=None if lv is None else alive, spec=spec))
                 cols["live"].append(tmetrics.live_trits(trits, m))
                 cols["wire_bytes"].append(tmetrics.round_wire_bytes(
                     W, bytes_wire=t_bytes_wire, bytes_full=t_bytes_full,
@@ -1060,15 +1077,16 @@ def make_panel_segment(loss_fn: Callable, optimizer: Optimizer,
             if res_stat and mstat is not None:
                 view = mstat
                 mstat = {n: _res_write(view[n], res_stat, storage_generators(
-                    res_stat, seed, tick, "stats", i, dev))
+                    res_stat, seed, tick, "stats", i, dev), spec)
                     for i, n in enumerate(sorted(view))}
                 if lv is not None:
                     # dead rows keep their stored bits; a RESYNC row's fresh
                     # statistics encode deterministically
                     _put_rows(mstat, keep["stat"], frozen)
-                    _put_rows(mstat, {n: _res_init(_take_rows(view[n], sync),
-                                                   res_stat)
-                                      for n in view}, sync)
+                    if sync:
+                        _put_rows(mstat, {n: _res_init(
+                            _take_rows(view[n], sync), res_stat, spec)
+                            for n in view}, sync)
                 del view
             if lv is not None:
                 del keep  # the non-live rows' copies, freed with the round
@@ -1091,19 +1109,23 @@ def make_panel_segment(loss_fn: Callable, optimizer: Optimizer,
         return out, mets
 
     def _live_comm_rows(pan, opt, werr, werr_in, mstat, keep, frozen, sync,
-                        alive):
+                        alive, any_sync):
         """An elastic round's rows after the communication, in place: the
         non-live rows as they were before it (they are identity rows of
         the degraded W), then each RESYNC row restarted from the live
-        agents' post-mix mean."""
+        agents' post-mix mean. ``frozen`` and ``sync`` are the rank's rows
+        of them (local indices); ``any_sync``: whether any agent rejoins
+        (every rank then takes part in the live mean)."""
         _put_rows(pan, keep["panel"], frozen)
         if werr is not None and werr is not werr_in:
             _put_rows(werr, _take_rows(werr_in, frozen), frozen)
-        if not sync:
+        if not any_sync:
             return
-        for k, mu in panel_mod.merged(pan, live=alive).items():
+        for k, mu in panel_mod.merged(pan, live=alive, spec=spec).items():
             pan[k][sync] = mu.to(pan[k].dtype)
             del mu
+        if not sync:
+            return
         for k, v in opt.items():
             if k == "step_count":
                 v[sync] = 0
@@ -1122,7 +1144,7 @@ def make_panel_segment(loss_fn: Callable, optimizer: Optimizer,
                 fresh = wire_mod.get_codec(spec.wire_of(k)).init_err(
                     rows[k]).to(torch.float32)
                 if res_err and k in res_err:
-                    fresh = res_err[k].init(fresh)
+                    fresh = res_err[k].init(fresh, shard=_shard(spec, k))
                 _put_rows(e, fresh, sync)
         if mstat is not None:
             fresh = merger.init_stats(rows)

@@ -65,14 +65,16 @@ def merged_panel_tree(panel, spec, merger=None, stats=None, weights=None,
     """Merged (non-stacked, float32-leaf) model of an engine panel under the
     spec's (or an explicit) merge operator; ``stats`` may be held in the
     spec's residency storage (``merging.decode_stats``); ``live`` ((m,)
-    bool) merges the live rows only. On a sharded spec the panel is this
-    rank's shard and every rank gets the whole uniform-merged model."""
+    bool) merges the live rows only. On a sharded spec the panel and the
+    stats are this rank's shards, the operator merges the rank's column
+    shard (``merge_row(spec=)``) and every rank gets the whole model (the
+    column shards gathered)."""
     mg = merging_mod.get_merger(spec.merger if merger is None else merger)
-    if spec.sharded:
-        panel_mod.refuse_sharded(spec, merger=mg.name)
-        return panel_mod.merged_tree(panel, spec, live=live)
     stats = merging_mod.decode_stats(stats, spec)
-    row = mg.merge_row(panel, stats=stats, weights=weights, live=live)
+    row = mg.merge_row(panel, stats=stats, weights=weights, live=live,
+                       spec=spec)
+    if spec.sharded:
+        row = {k: panel_mod.gather_cols(v, spec, k) for k, v in row.items()}
     return panel_mod.from_panel(row, spec, cast=False)
 
 

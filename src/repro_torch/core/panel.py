@@ -23,6 +23,17 @@ The communication ops run one fused op per dtype group:
 The merge operator of global rounds is named on the spec
 (:func:`with_merger`, ``repro_torch.merging``).
 
+Sharded panels (:func:`shard_spec`, ``launch/mesh.py``): a rank holds its
+agents' rows x its columns of each group. Every op above takes such a
+shard and gives the rank's block of the single-process result: the rows a
+column needs are gathered over the mesh's ``rows`` line (a column slab of
+``GATHER_SLAB`` at a time where only a column result is wanted), and what
+a codec or a storage needs of a whole row comes through the group's
+:class:`Shard` (``spec.shard(key)``: the block's place in the panel and
+the max, sum and gathers over the ``fsdp`` line). Column results are the
+single-process bits; sums over whole rows (Xi, norms) are summed over the
+ranks in another order.
+
 The payload travels through the spec's wire policy (:func:`with_wire`,
 ``repro_torch.wire``): the float32 identity, ``bf16`` (the mix reads the
 bf16 payload through the ``gossip_mix`` kernel's bf16 variant and rounds
@@ -148,6 +159,16 @@ class PanelSpec:
                    for k, w in self.groups)
 
 
+    def shard(self, key: str) -> Optional[Shard]:
+        """The :class:`Shard` of group ``key`` on a sharded spec, else
+        None."""
+        if not self.sharded:
+            return None
+        return Shard(mesh=self.mesh, rows=self.row_range(key),
+                     cols=self.col_range(key), m=self.rows,
+                     D=dict(self.groups)[key],
+                     split=self.pspec(key)[1] is not None)
+
     def residency_of(self, kind: str) -> str:
         """Storage name of one state-panel kind ('moments', 'stats',
         'wire_err'); 'f32' when no policy is set."""
@@ -175,6 +196,66 @@ class PanelSpec:
             else:
                 total += wire_mod.codec._itemsize(dt) * w
         return total
+
+
+@dataclass(frozen=True, eq=False)
+class Shard:
+    """A rank's block of one dtype group's (m, D) panel: its rows [r0, r1)
+    and columns [c0, c1), and the collectives over the ``fsdp`` line (the
+    ranks holding the other columns of the same rows) that give a codec or
+    a storage what it would compute over whole rows. ``split`` is whether
+    the group's columns are split at all (else the fsdp ops are the
+    identity)."""
+    mesh: object
+    rows: Tuple[int, int]
+    cols: Tuple[int, int]
+    m: int
+    D: int
+    split: bool
+
+    def block(self, full):
+        """The rank's (r1 - r0, c1 - c0) block of an (m, D) tensor, as a
+        contiguous copy."""
+        (r0, r1), (c0, c1) = self.rows, self.cols
+        return full[r0:r1, c0:c1].contiguous()
+
+    def col_max(self, t):
+        """Elementwise max of ``t`` over the fsdp line (in place)."""
+        return self.mesh.all_reduce(t, "fsdp", op="max") if self.split else t
+
+    def col_sum(self, t):
+        """Elementwise sum of ``t`` over the fsdp line (in place)."""
+        return self.mesh.all_reduce(t, "fsdp") if self.split else t
+
+    def _parts(self) -> int:
+        return len(self.mesh.members["fsdp"]) if self.split else 1
+
+    def col_gather(self, t):
+        """(rows, c) column shards of the same rows -> (rows, D) whole rows
+        in column order."""
+        if not self.split:
+            return t
+        F, r = self._parts(), t.shape[0]
+        g = self.mesh.all_gather(t.contiguous(), "fsdp")
+        return g.view(F, r, -1).permute(1, 0, 2).reshape(r, -1)
+
+    def col_gather_strided(self, t, stride: int):
+        """The panel columns 0, stride, 2 stride, ... < D of the rows of
+        ``t`` (this rank's (rows, c) shard), i.e. ``whole[:, ::stride]``,
+        each rank's part gathered in column order (the parts' lengths
+        differ: padded for the gather, cut after)."""
+        if not self.split:
+            return t[:, ::stride]
+        F, w = self._parts(), self.cols[1] - self.cols[0]
+        firsts = [(-i * w) % stride for i in range(F)]
+        counts = [len(range(f, w, stride)) for f in firsts]
+        n = max(counts)
+        i = self.cols[0] // w
+        mine = t[:, firsts[i]::stride]
+        pad = torch.zeros((t.shape[0], n), dtype=t.dtype, device=t.device)
+        pad[:, :counts[i]] = mine
+        g = self.mesh.all_gather(pad, "fsdp").view(F, t.shape[0], n)
+        return torch.cat([g[j, :, :counts[j]] for j in range(F)], dim=1)
 
 
 def dtype_name(dtype: torch.dtype) -> str:
@@ -283,38 +364,50 @@ def shard_spec(spec: PanelSpec, mesh) -> PanelSpec:
     entry) layout per dtype group to ``spec``: rows on the ('pod', 'agent')
     axes, columns on 'fsdp' (the lines the mesh's ``rows`` and ``fsdp``
     groups run along), each dropped for a group whose dim does not divide
-    by the axes' size (that group is then replicated along them). The spec
-    must take what a sharded panel takes (:func:`refuse_sharded`)."""
+    by the axes' size (that group is then replicated along them). Every
+    wire codec, merge operator and residency storage runs on the shards;
+    a split of columns that a block-local layout cannot take is refused
+    (:func:`check_shard_alignment`)."""
     pspecs = tuple((k, panel_pspec(mesh, spec.rows, w))
                    for k, w in spec.groups)
     spec = replace(spec, mesh=mesh, pspecs=pspecs)
-    refuse_sharded(spec)
+    check_shard_alignment(spec)
     return spec
 
 
-def refuse_sharded(spec: PanelSpec, wire_dtype=None, merger=None):
-    """What a sharded panel takes: the float32 identity and cast wires (f32,
-    bf16; ``wire_dtype`` is a call's legacy cast), the uniform merge (the
-    spec's, or a call's ``merger`` name) and no residency policy. The
-    others raise NotImplementedError: they wait for the sharded codecs,
-    merges and storages (ROADMAP A16b)."""
-    codecs = ([wire_mod.dtype_codec(wire_dtype)] if wire_dtype is not None
-              else [wire_mod.get_codec(c) for _, c in spec.wire])
-    for c in codecs:
-        if not isinstance(c, (wire_mod.F32Codec, wire_mod.DtypeCodec)):
-            raise NotImplementedError(
-                f"the wire codec '{c.name}' on a sharded panel comes with "
-                "the sharded codecs (ROADMAP A16b); a sharded spec takes the "
-                "f32 and bf16 wires")
-    merger = spec.merger if merger is None else merger
-    if merger != "uniform":
-        raise NotImplementedError(
-            f"the merge operator '{merger}' on a sharded panel comes "
-            "with the sharded merges (ROADMAP A16b)")
-    if spec.residency:
-        raise NotImplementedError(
-            "a residency policy on a sharded panel comes with the sharded "
-            "storages (ROADMAP A16b)")
+def check_shard_alignment(spec: PanelSpec):
+    """Refuse (ValueError, by name) a column split that a codec or a
+    storage cannot take block by block: the kernel-drawn int8 quantize
+    keys its draws by 512-column blocks, int4 and the grouped int8
+    storages keep a scale per ``group`` columns, so each column shard must
+    start on such a boundary (at olmo-1b's D / 2 = 118,751,232 =
+    231,936 x 512 it does)."""
+    from repro_torch import residency as residency_mod
+    from repro_torch.kernels.ref import NATIVE_BLOCK
+    for k, D in spec.groups:
+        sh = spec.shard(k)
+        if sh is None or not sh.split:
+            continue
+        w = sh.cols[1] - sh.cols[0]
+        need = []
+        c = wire_mod.get_codec(spec.wire_of(k))
+        if isinstance(c, wire_mod.Int8Codec) and c.stochastic \
+                and c.draws == "kernel":
+            need.append((f"the wire codec '{c.name}' (kernel draws)",
+                         NATIVE_BLOCK))
+        if isinstance(c, wire_mod.Int4Codec):
+            need.append((f"the wire codec '{c.name}'", c.group))
+        for kind, name in spec.residency:
+            st = residency_mod.get_storage(name)
+            if getattr(st, "group", None) and (kind != "moments"
+                                               or k == "float32"):
+                need.append((f"the {kind} storage '{st.name}'", st.group))
+        for what, mult in need:
+            if w % mult:
+                raise ValueError(
+                    f"group {k!r}: {what} needs each column shard to start "
+                    f"on a multiple of {mult} columns, but D = {D} splits "
+                    f"into shards of {w} columns")
 
 
 def _claimed(spec: PanelSpec, key: str):
@@ -367,6 +460,44 @@ def gather_panel(panel, spec: PanelSpec):
         out[k] = torch.stack([gather_cols(r.contiguous(), spec, k)
                               for r in rows])
         del rows
+    return out
+
+
+# columns of a rank's shard whose rows are gathered at once where only a
+# column result is wanted (8 agents: 134 MB of float32 a slab)
+GATHER_SLAB = 1 << 22
+
+
+def row_slabs(x, spec: PanelSpec, key: str, slab: int = GATHER_SLAB):
+    """(lo, hi, rows) for each column slab [lo, hi) of this rank's shard
+    ``x`` of group ``key``: every agent's rows of the slab, in agent order
+    (gathered over the ``rows`` line; a contiguous copy of x's slab when
+    the rows are not sharded)."""
+    for lo in range(0, x.shape[1], slab):
+        hi = min(lo + slab, x.shape[1])
+        yield lo, hi, gather_rows(x[:, lo:hi].contiguous(), spec, key)
+
+
+def local_rows(spec: PanelSpec, rows):
+    """The shard-local indices of the agents ``rows`` (global indices) that
+    this rank holds, in order (all of them on an unsharded spec)."""
+    lo, hi = (0, spec.rows) if spec is None or not spec.sharded \
+        else spec.agent_range()
+    return [int(r) - lo for r in rows if lo <= int(r) < hi]
+
+
+def _col_mean(x, spec: PanelSpec, key: str, rows=None):
+    """This rank's column shard of the column mean of group ``key`` (the
+    ``panel_mean_consensus`` kernel over the gathered rows, a slab at a
+    time; ``rows``: only those agents' rows, global indices)."""
+    out = torch.empty(x.shape[1], dtype=torch.float32, device=x.device)
+    sel = None if rows is None or len(rows) == spec.rows else \
+        torch.as_tensor(np.asarray(rows, np.int64), device=x.device)
+    for lo, hi, full in row_slabs(x, spec, key):
+        sub = full if sel is None else full[sel]
+        del full
+        out[lo:hi] = panel_mean_consensus(_stat_view(sub))[0]
+        del sub
     return out
 
 
@@ -494,7 +625,7 @@ def _mix_dense_groups(panel, W, *, with_mean, spec=None, gen=None,
     theirs travelled."""
     if spec is not None and spec.sharded:
         return _mix_dense_sharded(panel, W, with_mean=with_mean, spec=spec,
-                                  wire_dtype=wire_dtype, err=err)
+                                  gen=gen, wire_dtype=wire_dtype, err=err)
     x0 = next(iter(panel.values()))
     m = x0.shape[0]
     W32 = _device_w(W, x0.device)
@@ -540,6 +671,20 @@ def _mix_dense_groups(panel, W, *, with_mean, spec=None, gen=None,
     return mixed, means, new_err
 
 
+def _mix_slabs(Wk, xw, spec, key):
+    """``gossip_mix(Wk, every agent's rows of xw)`` for this rank's shard
+    ``xw`` of group ``key``, a column slab at a time: each slab's rows
+    gathered over the ``rows`` line and mixed into the float32 output's
+    slab (each column is its own sum, so the slabs give the whole sweep's
+    bits, and no (m, c) gathered panel is held)."""
+    y = torch.empty((Wk.shape[0], xw.shape[1]), dtype=torch.float32,
+                    device=xw.device)
+    for lo, hi, full in row_slabs(xw, spec, key):
+        y[:, lo:hi] = gossip_mix(Wk, full)
+        del full
+    return y
+
+
 def _round_rows(y, x, xw, m=None):
     """The mixed float32 rows ``y`` in the payload's dtype: a narrower wire
     over a float32 group rounds a row at a time in place (the rows stay
@@ -553,53 +698,63 @@ def _round_rows(y, x, xw, m=None):
     return y.to(xw.dtype)
 
 
-def _mix_dense_sharded(panel, W, *, with_mean, spec, wire_dtype=None,
-                       err=None):
+def _mix_dense_sharded(panel, W, *, with_mean, spec, gen=None,
+                       wire_dtype=None, err=None):
     """_mix_dense_groups on this rank's shard of a sharded panel: each
-    group's payload is encoded on the rank's rows, the ``rows`` line's
-    payloads are gathered into every agent's rows of the rank's column
-    shard and one ``gossip_mix`` sweep computes the rank's rows of W and,
-    with ``with_mean``, the 1^T/m row (every row of the shard is here, so
-    the mean is folded into the same sweep as on one process). Every
-    output row and column is its own fixed-order sum, so the result is the
-    single-process one's bits. The f32 and bf16 wires only (ROADMAP
-    A16b)."""
-    if err is not None:
-        raise NotImplementedError(
-            "error feedback on a sharded panel comes with the sharded codecs "
-            "(ROADMAP A16b)")
+    group's payload is encoded on the rank's block (the codec given the
+    group's :class:`Shard`, so the block is the single-process payload's
+    bits), the ``rows`` line's payloads are gathered into every agent's
+    rows of the rank's column shard, a column slab at a time, and a
+    ``gossip_mix`` sweep a slab computes the rank's rows of W and, with
+    ``with_mean``, the 1^T/m row (every row of the shard is here, so the
+    mean is folded into the same sweep as on one process). A delta codec mixes its mirrors in the damped delta form
+    and takes the mean of the mixed rows (gathered a column slab at a
+    time). Every output row and column is its own fixed-order sum, so the
+    result is the single-process one's bits."""
     x0 = next(iter(panel.values()))
     m, dev = spec.rows, x0.device
     W32 = _device_w(W, dev)
     if W32.shape != (m, m):
         raise ValueError(f"W must be ({m}, {m}), got {tuple(W32.shape)}")
-    refuse_sharded(spec, wire_dtype)
     codecs = _codecs(panel, spec, wire_dtype)
+    _require_gen(codecs, gen)
     lossy = any(not isinstance(c, wire_mod.F32Codec)
                 for c in codecs.values())
     idle = _idle_rows(W, m) if lossy else []
     mean_row = torch.full((1, m), 1.0 / m, dtype=torch.float32, device=dev)
     mixed, means = {}, ({} if with_mean else None)
+    new_err = {} if err is not None else None
     for k in sorted(panel):
         x = panel[k]
+        e = err[k] if err is not None else None
         lo, hi = spec.row_range(k)
-        Wk = W32[lo:hi]
-        if with_mean:
-            Wk = torch.cat([Wk, mean_row])
-        xw, back, _ = codecs[k].encode(x)
-        full = gather_rows(xw, spec, k)
-        y = gossip_mix(Wk.contiguous(), full)
-        del full
-        if with_mean:
-            means[k] = y[hi - lo].clone()
-            y = y[:hi - lo]
-        y = back(_round_rows(y, x, xw))
-        del xw
-        for r in idle:
-            if lo <= r < hi:
-                y[r - lo].copy_(x[r - lo])
+        xw, back, ne = codecs[k].encode(x, gen=gen, err=e,
+                                        shard=spec.shard(k))
+        if codecs[k].delta_mix:
+            Wd = W32 - torch.eye(m, dtype=torch.float32, device=dev)
+            y = _mix_slabs(Wd[lo:hi].contiguous(), xw, spec, k)
+            del xw
+            y.mul_(codecs[k].gamma).add_(x)
+            if with_mean:
+                means[k] = _col_mean(y, spec, k)
+        else:
+            Wk = W32[lo:hi]
+            if with_mean:
+                Wk = torch.cat([Wk, mean_row])
+            y = _mix_slabs(Wk.contiguous(), xw, spec, k)
+            if with_mean:
+                means[k] = y[hi - lo].clone()
+                y = y[:hi - lo]
+            y = back(_round_rows(y, x, xw))
+            del xw
+        for r in local_rows(spec, idle):
+            y[r].copy_(x[r])
+            if e is not None:
+                ne[r].copy_(e[r])
         mixed[k] = y
-    return mixed, means, None
+        if err is not None:
+            new_err[k] = ne
+    return mixed, means, new_err
 
 
 def mix_dense(panel, W, *, wire_dtype=None, spec: Optional[PanelSpec] = None,
@@ -686,35 +841,12 @@ def global_merge(panel, *, wire_dtype=None, spec: Optional[PanelSpec] = None,
     their full-bandwidth round, so the exact panel travels and the mirror
     resets to the merged state. It is ``merging.merge_panel`` under the
     uniform operator; ``wire_dtype`` as in :func:`mix_dense`. ``err=``
-    switches the return to ``(mixed, new_err)``."""
-    if spec is not None and spec.sharded:
-        return _global_merge_sharded(panel, spec, wire_dtype, err)
+    switches the return to ``(mixed, new_err)``. On a sharded spec the
+    panel is this rank's shard (``merge_panel`` takes it)."""
     from repro_torch.merging import merge_panel  # merging imports panel
     mixed, _, new_err = merge_panel(panel, "uniform", spec=spec, gen=gen,
                                     err=err, wire_dtype=wire_dtype)
     return mixed if err is None else (mixed, new_err)
-
-
-def _global_merge_sharded(panel, spec, wire_dtype=None, err=None):
-    """global_merge on this rank's shard: each group's payload is encoded
-    on the rank's rows, gathered over the ``rows`` line, reduced by the
-    ``panel_mean_consensus`` kernel to the column shard's mean and broadcast
-    back to the rank's rows (the single-process merge's arithmetic, a
-    column at a time)."""
-    if err is not None:
-        raise NotImplementedError(
-            "error feedback on a sharded panel comes with the sharded codecs "
-            "(ROADMAP A16b)")
-    refuse_sharded(spec, wire_dtype)
-    codecs = _codecs(panel, spec, wire_dtype)
-    mixed = {}
-    for k in sorted(panel):
-        x = panel[k]
-        xw, back, _ = codecs[k].encode(x)
-        mean = panel_mean_consensus(_stat_view(gather_rows(xw, spec, k)))[0]
-        mixed[k] = back(mean[None].expand(x.shape).to(xw.dtype).contiguous())
-        del xw, mean
-    return mixed
 
 
 def _live_mask(live, m):
@@ -754,14 +886,15 @@ def merged(panel, live=None, spec: Optional[PanelSpec] = None):
     live rows are gathered into a sub-panel and reduced by the unmasked
     ``panel_mean_consensus`` kernel, so the result is the sub-panel's mean
     (the reference takes the live-weighted sum; the two agree to float32
-    rounding). No live row gives zeros."""
+    rounding). No live row gives zeros. On a sharded spec the live rows of
+    each gathered column slab."""
     if spec is not None and spec.sharded:
-        if live is not None:
-            raise NotImplementedError("a live mask on a sharded panel comes "
-                                      "with the sharded faults (ROADMAP "
-                                      "A16b)")
-        return {k: panel_mean_consensus(_stat_view(gather_rows(x, spec, k)))
-                [0] for k, x in panel.items()}
+        rows = (None if live is None else
+                np.flatnonzero(_live_mask(live, spec.rows)))
+        return {k: (_col_mean(x, spec, k, rows) if rows is None or len(rows)
+                    else torch.zeros(x.shape[1], dtype=torch.float32,
+                                     device=x.device))
+                for k, x in panel.items()}
     if live is None:
         return {k: panel_mean_consensus(_stat_view(x))[0]
                 for k, x in panel.items()}
@@ -803,37 +936,54 @@ def consensus_distance(panel, live=None, spec: Optional[PanelSpec] = None):
     mean, their deviations, over the live count. That mean and the sum of
     squares are taken in float64 a row at a time (no (m, D) temporary), so
     identical live rows read exactly 0 whatever the live count (a float32
-    mean of 7 equal rows need not equal the row)."""
-    if spec is not None and spec.sharded:
-        if live is not None:
-            raise NotImplementedError("a live mask on a sharded panel comes "
-                                      "with the sharded faults (ROADMAP "
-                                      "A16b)")
-        # every row of the column shard is gathered: only the column
-        # shards' sums are summed
-        parts = {k: panel_mean_consensus(_stat_view(gather_rows(x, spec, k)))
-                 [1] for k, x in panel.items()}
-        return torch.sqrt(_reduce_groups(parts, spec, rows=False)
-                          / spec.rows)
+    mean of 7 equal rows need not equal the row).
+
+    On a sharded spec every row of the rank's column shard is gathered, a
+    slab at a time (the live rows' float64 pass the same way), and the
+    column shards' sums are summed over the ``fsdp`` line in float64."""
     x0 = next(iter(panel.values()))
-    m = x0.shape[0]
+    m = x0.shape[0] if spec is None or not spec.sharded else spec.rows
+    if spec is not None and spec.sharded:
+        rows = (None if live is None else
+                np.flatnonzero(_live_mask(live, m)))
+        parts = {}
+        for k, x in panel.items():
+            part = torch.zeros((), dtype=torch.float64, device=x.device)
+            if rows is None:
+                for _, _, full in row_slabs(x, spec, k):
+                    part += panel_mean_consensus(_stat_view(full))[1]
+                    del full
+            elif len(rows):
+                for _, _, full in row_slabs(x, spec, k):
+                    part += _live_sq(full, rows)
+                    del full
+            parts[k] = part
+        total = _reduce_groups(parts, spec, rows=False)
+        n = m if rows is None else max(len(rows), 1)
+        return torch.sqrt(total / n).to(torch.float32)
     if live is not None:
         rows = np.flatnonzero(_live_mask(live, m))
         total = torch.zeros((), dtype=torch.float64, device=x0.device)
         for x in panel.values() if len(rows) else ():
-            mean = torch.zeros(x.shape[1], dtype=torch.float64,
-                               device=x.device)
-            for r in rows:
-                mean += x[r]
-            mean /= len(rows)
-            for r in rows:
-                total = total + torch.sum(torch.square(x[r].double() - mean))
-            del mean
+            total = total + _live_sq(x, rows)
         return torch.sqrt(total / max(len(rows), 1)).to(torch.float32)
     total = torch.zeros((), dtype=torch.float32, device=x0.device)
     for x in panel.values():
         total = total + panel_mean_consensus(_stat_view(x))[1]
     return torch.sqrt(total / m)
+
+
+def _live_sq(x, rows):
+    """The float64 sum over the ``rows`` of x of the squared deviations
+    from their float64 column mean (a row at a time: no (m, D) temporary)."""
+    mean = torch.zeros(x.shape[1], dtype=torch.float64, device=x.device)
+    for r in rows:
+        mean += x[r]
+    mean /= len(rows)
+    total = torch.zeros((), dtype=torch.float64, device=x.device)
+    for r in rows:
+        total = total + torch.sum(torch.square(x[r].double() - mean))
+    return total
 
 
 def consensus_from_mean(panel, means, spec: Optional[PanelSpec] = None):
@@ -870,16 +1020,21 @@ def panel_norm(panel, axis_mean: bool = False, rows=None,
     live mask) replaces the uniform mean by the weighted one: the grad norm
     of an elastic round averages the live agents only.
 
-    On a sharded ``spec`` (no ``rows``) the panel is this rank's shard: the
-    agent mean is the column sums summed over the ``rows`` line over m, and
-    each group's sum of squares is summed over the ranks of its other parts
-    (another order of summation than one process's)."""
+    On a sharded ``spec`` the panel is this rank's shard: the agent mean
+    is the column sums (``rows``: the weighted sums of the rank's rows)
+    summed over the ``rows`` line over m, and each group's sum of squares
+    is summed over the ranks of its other parts (another order of
+    summation than one process's)."""
     if spec is not None and spec.sharded:
         parts = {}
         for k, x in panel.items():
             x32 = x.to(torch.float32)
-            if axis_mean:
+            if axis_mean and rows is None:
                 x32 = sum_rows(torch.sum(x32, dim=0), spec, k) / spec.rows
+            elif axis_mean:
+                lo, hi = spec.row_range(k)
+                x32 = sum_rows(torch.matmul(rows[lo:hi].to(x32.device), x32),
+                               spec, k)
             parts[k] = torch.sum(torch.square(x32))
         return torch.sqrt(_reduce_groups(parts, spec, rows=not axis_mean))
     x0 = next(iter(panel.values()))

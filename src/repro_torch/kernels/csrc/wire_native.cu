@@ -32,6 +32,11 @@
 // IEEE division __fdiv_rn, the sum as a separately rounded __fadd_rn, floor,
 // clamp. Build without --use_fast_math.
 //
+// A block of a wider panel (a rank's shard of a sharded panel) passes the
+// panel row of its first row (row0) and the panel column of its first
+// column (col0, a multiple of 512): its draws are then the wider panel's,
+// so the shards of a panel quantize to the whole panel's bits.
+//
 // C interface for ctypes: the kernel allocates nothing and launches on the
 // stream it is given; the entry point returns cudaGetLastError() after the
 // launch, or cudaErrorInvalidValue for a shape it does not take.
@@ -82,20 +87,22 @@ __global__ void __launch_bounds__(kThreads)
     quantize_native_kernel(const float* __restrict__ x,
                            const float* __restrict__ scale,
                            const int32_t* __restrict__ seed,
-                           int8_t* __restrict__ q, long long D) {
-  const uint32_t row = blockIdx.y;
-  const float s = scale[row];
+                           int8_t* __restrict__ q, long long D,
+                           uint32_t row0, long long quad0) {
+  const uint32_t row = row0 + blockIdx.y;
+  const float s = scale[blockIdx.y];
   const uint32_t sd = static_cast<uint32_t>(__ldg(seed));
-  const float* xr = x + (long long)row * D;
-  int8_t* qr = q + (long long)row * D;
+  const float* xr = x + (long long)blockIdx.y * D;
+  int8_t* qr = q + (long long)blockIdx.y * D;
   const long long quads = (D + 3) / 4;
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        g < quads; g += stride) {
     const long long col = g * 4;
+    const long long gq = quad0 + g;  // the quad's index in the panel row
     const uint4 r = philox4x32_10(
-        make_uint4(row, static_cast<uint32_t>(g % kQuadsPerBlock), 0u, 0u),
-        make_uint2(sd, static_cast<uint32_t>(g / kQuadsPerBlock)));
+        make_uint4(row, static_cast<uint32_t>(gq % kQuadsPerBlock), 0u, 0u),
+        make_uint2(sd, static_cast<uint32_t>(gq / kQuadsPerBlock)));
     if (VEC) {
       const float4 xv = __ldg(reinterpret_cast<const float4*>(xr + col));
       char4 out;
@@ -128,11 +135,14 @@ dim3 grid_for(int m, long long quads) {
 
 }  // namespace
 
-// x (m, D) f32, scale (m, 1) f32, seed (1,) int32 -> q (m, D) int8
+// x (m, D) f32, scale (m, 1) f32, seed (1,) int32 -> q (m, D) int8; the
+// block's first row and column in its panel (row0, col0 % 512 == 0)
 extern "C" int quantize_int8_native_f32(const void* x, const void* scale,
                                         const void* seed, void* q, int m,
-                                        long long D, void* stream) {
-  if (m < 1 || m > 65535 || D < 1 || D > 2147483647LL) {
+                                        long long D, int row0,
+                                        long long col0, void* stream) {
+  if (m < 1 || m > 65535 || D < 1 || D > 2147483647LL || row0 < 0 ||
+      col0 < 0 || col0 % 512 != 0 || col0 + D > 2147483647LL) {
     return (int)cudaErrorInvalidValue;
   }
   const float* xp = static_cast<const float*>(x);
@@ -145,11 +155,11 @@ extern "C" int quantize_int8_native_f32(const void* x, const void* scale,
                    (reinterpret_cast<uintptr_t>(qp) & 3u) == 0;
   const dim3 grid = grid_for(m, (D + 3) / 4);
   if (vec) {
-    quantize_native_kernel<true><<<grid, kThreads, 0, st>>>(xp, sp, seedp,
-                                                             qp, D);
+    quantize_native_kernel<true><<<grid, kThreads, 0, st>>>(
+        xp, sp, seedp, qp, D, (uint32_t)row0, col0 / 4);
   } else {
-    quantize_native_kernel<false><<<grid, kThreads, 0, st>>>(xp, sp, seedp,
-                                                              qp, D);
+    quantize_native_kernel<false><<<grid, kThreads, 0, st>>>(
+        xp, sp, seedp, qp, D, (uint32_t)row0, col0 / 4);
   }
   return (int)cudaGetLastError();
 }

@@ -80,15 +80,25 @@ def panel_mean_consensus_ref(theta):
     return mean, sq.to(torch.float32)
 
 
+def row_amax(x):
+    """(m, 1) float32 max |x| of each row of an (m, D) panel, without an
+    (m, D) temporary of |x|."""
+    return torch.linalg.vector_norm(x.to(torch.float32), ord=float("inf"),
+                                    dim=1, keepdim=True)
+
+
+def amax_scale(amax, qmax: float = 127.0):
+    """The symmetric scale amax / qmax of a float32 amax tensor; an amax of
+    0 gets 1 / qmax, so dequantizing stays a plain multiply."""
+    return div_exact(torch.where(amax > 0, amax, torch.ones_like(amax)),
+                     qmax)
+
+
 def int8_scale_ref(x):
     """Per-row symmetric int8 scale of an (m, D) panel: amax / 127 as
     (m, 1) float32; an all-zero row gets scale 1/127, so dequantizing stays
     a plain multiply."""
-    # the row max of |x| without an (m, D) temporary of |x|
-    amax = torch.linalg.vector_norm(x.to(torch.float32), ord=float("inf"),
-                                    dim=1, keepdim=True)
-    return div_exact(torch.where(amax > 0, amax, torch.ones_like(amax)),
-                     127.0)
+    return amax_scale(row_amax(x))
 
 
 def div_exact(a, d: float):
@@ -150,17 +160,20 @@ def philox4x32_ref(key, counter):
 
 
 def native_uniforms_ref(seed, m: int, D: int, lo: int = 0, hi=None,
-                        device=None):
+                        device=None, row0: int = 0):
     """The uniforms ``quantize_int8_native`` draws for columns [lo, hi) of
     an (m, D) panel (``lo`` a multiple of 4): column c of row r is word
     c % 4 of Philox4x32-10 on key (seed, c // 512) and counter (r,
     (c % 512) // 4, 0, 0), its low 24 bits times 2^-24. ``seed`` is an
-    int or a 1-element int32 tensor (its bits as a uint32)."""
+    int or a 1-element int32 tensor (its bits as a uint32). ``row0`` is
+    the panel row of the first of the m rows (a row shard of a wider
+    panel); the columns are the panel's own."""
     hi = D if hi is None else hi
     seed = int(seed.reshape(-1)[0]) if torch.is_tensor(seed) else int(seed)
     q = torch.arange(lo // 4, (hi + 3) // 4, dtype=torch.int64,
                      device=device)
-    rows = torch.arange(m, dtype=torch.int64, device=device)[:, None]
+    rows = torch.arange(row0, row0 + m, dtype=torch.int64,
+                        device=device)[:, None]
     quads_per_block = NATIVE_BLOCK // 4
     words = philox4x32_ref(
         (seed & _U32, (q // quads_per_block)[None]),
@@ -169,15 +182,19 @@ def native_uniforms_ref(seed, m: int, D: int, lo: int = 0, hi=None,
     return (bits & 0xFFFFFF).to(torch.float32) * (1.0 / (1 << 24))
 
 
-def quantize_int8_native_ref(x, scale, seed, chunk: int = 1 << 21):
+def quantize_int8_native_ref(x, scale, seed, chunk: int = 1 << 21,
+                             row0: int = 0, col0: int = 0):
     """The plain version of ``quantize_int8_native``: quantize_int8_ref
     with stochastic rounding against :func:`native_uniforms_ref`'s draws,
-    a column chunk at a time (``chunk`` a multiple of 512)."""
+    a column chunk at a time (``chunk`` a multiple of 512). ``x`` may be
+    the block of a wider panel whose first row is ``row0`` and first
+    column ``col0`` (a multiple of 512): it draws that block's uniforms."""
     m, D = x.shape
     q = torch.empty((m, D), dtype=torch.int8, device=x.device)
     for lo in range(0, D, chunk):
         hi = min(lo + chunk, D)
-        u = native_uniforms_ref(seed, m, D, lo, hi, device=x.device)
+        u = native_uniforms_ref(seed, m, col0 + D, col0 + lo, col0 + hi,
+                                device=x.device, row0=row0)
         q[:, lo:hi] = quantize_int8_ref(x[:, lo:hi], scale, u)
         del u
     return q
@@ -392,6 +409,25 @@ def _order_stats(v, lo: int, hi: int):
     return np.float32(low), np.float32(high)
 
 
+def ties_index(D: int, trim: float):
+    """(lo index, hi index, low weight, high weight) of the ``1 - trim``
+    quantile of D values, in jnp.quantile's float32 arithmetic (see
+    :func:`ties_thresh_ref`)."""
+    if not 0.0 < trim <= 1.0:
+        raise ValueError(f"trim fraction must be in (0, 1], got {trim}")
+    one = np.float32(1.0)
+    q = np.float32(1.0 - trim)
+    n = np.float32(D)
+    pos = q * (n - one)
+    lo, hi = np.floor(pos), np.ceil(pos)
+    hw = pos - lo
+    lw = one - hw
+    top = n - one
+    lo_i = min(int(np.clip(lo, 0, top)), D - 1)
+    hi_i = min(int(np.clip(hi, 0, top)), D - 1)
+    return lo_i, hi_i, lw, hw
+
+
 def ties_thresh_ref(tau, trim: float):
     """Per-row magnitude threshold of the TIES trim: the ``1 - trim``
     quantile of |tau| in each row, as ``jnp.quantile(|tau|, 1 - trim,
@@ -412,19 +448,8 @@ def ties_thresh_ref(tau, trim: float):
     does its own index arithmetic. Nor is the index taken in float64: at
     D = 237,502,464 and trim 0.2 the float32 index is 190,001,968 with
     weight 0, the exact one 190,001,970.4."""
-    if not 0.0 < trim <= 1.0:
-        raise ValueError(f"trim fraction must be in (0, 1], got {trim}")
     m, D = tau.shape
-    one = np.float32(1.0)
-    q = np.float32(1.0 - trim)
-    n = np.float32(D)
-    pos = q * (n - one)
-    lo, hi = np.floor(pos), np.ceil(pos)
-    hw = pos - lo
-    lw = one - hw
-    top = n - one
-    lo_i = min(int(np.clip(lo, 0, top)), D - 1)
-    hi_i = min(int(np.clip(hi, 0, top)), D - 1)
+    lo_i, hi_i, lw, hw = ties_index(D, trim)
     out = np.empty((m, 1), dtype=np.float32)
     for r in range(m):
         mag = torch.abs(tau[r].to(torch.float32))

@@ -26,7 +26,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import (dequantize_int4_ref,
+from repro_torch.kernels.ref import (NATIVE_BLOCK, dequantize_int4_ref,
                                      dequantize_int8_grouped_ref,
                                      dequantize_int8_ref, pack_int4_ref,
                                      quantize_int4_ref,
@@ -57,7 +57,8 @@ _SIGNATURES_INT8G = {
 }
 
 _SIGNATURES_NATIVE = {
-    "quantize_int8_native_f32": (ctypes.c_int, [_P, _P, _P, _P, _I, _L, _P]),
+    "quantize_int8_native_f32": (ctypes.c_int, [_P, _P, _P, _P, _I, _L, _I,
+                                                 _L, _P]),
     "philox4x32_10_u32": (ctypes.c_int, [_P, _P, _P, _I, _P]),
 }
 
@@ -123,15 +124,21 @@ def quantize_int8(x, scale, u=None):
     return q
 
 
-def quantize_int8_native(x, scale, seed):
+def quantize_int8_native(x, scale, seed, row0: int = 0, col0: int = 0):
     """x: (m, D) float32; scale: (m, 1) float32; seed: a 1-element int32
     tensor on x's device -> int8 (m, D) in [-127, 127]: floor(x / scale + u)
     with u drawn inside the kernel by Philox4x32-10 from (seed, the 512-column
     block) and (row, column) (``ref.native_uniforms_ref``); no uniform panel
     is read or made. The seed stays on the device: nothing waits for the
-    host."""
+    host. ``x`` may be the block of a wider panel whose first row is
+    ``row0`` and first column ``col0`` (a multiple of 512: a rank's shard):
+    the block then quantizes to the wider panel's bits."""
+    if col0 % NATIVE_BLOCK or row0 < 0 or col0 < 0:
+        raise ValueError(f"quantize_int8_native takes a block at row0 >= 0 "
+                         f"and a column col0 that is a multiple of "
+                         f"{NATIVE_BLOCK}, got ({row0}, {col0})")
     if _on_cpu(x, scale, seed):
-        return quantize_int8_native_ref(x, scale, seed)
+        return quantize_int8_native_ref(x, scale, seed, row0=row0, col0=col0)
     _check("quantize_int8_native", x, torch.float32, scale)
     if seed.device != x.device or seed.dtype != torch.int32 \
             or seed.numel() != 1:
@@ -139,12 +146,12 @@ def quantize_int8_native(x, scale, seed):
                          f"on {x.device}, got {seed.dtype} "
                          f"{tuple(seed.shape)} on {seed.device}")
     m, D = x.shape
-    _check_cols("quantize_int8_native", D)
+    _check_cols("quantize_int8_native", col0 + D)
     q = torch.empty((m, D), dtype=torch.int8, device=x.device)
     lib = build.load("wire_native", _SIGNATURES_NATIVE)
     _launch("quantize_int8_native", lib.quantize_int8_native_f32,
             x.data_ptr(), scale.data_ptr(), seed.data_ptr(), q.data_ptr(), m,
-            D, torch.cuda.current_stream(x.device).cuda_stream)
+            D, row0, col0, torch.cuda.current_stream(x.device).cuda_stream)
     quantize_int8_native.launches += 1
     return q
 

@@ -20,9 +20,20 @@ rendezvous (e.g. ``file:///tmp/rdv``: no TCP port). Rank r computes on
 card), or on the CPU when the caller asks for it. The backend is NCCL when
 every rank of the host has a card of its own, gloo otherwise (the CPU, or
 ranks sharing a card; NCCL refuses two ranks on one device). Under gloo a
-CUDA tensor travels through host memory: :meth:`Mesh.all_gather` and
-:meth:`Mesh.all_reduce` stage it there, so the result is the same bits
-either way.
+CUDA tensor travels one route a layout (``Mesh.transport`` names it):
+- ranks that all share ONE card exchange their CUDA tensors through CUDA
+  IPC: each rank holds an exchange buffer (``csrc/ipc_buffer.cu``,
+  ``IPC_BYTES``) that every other rank maps, and a collective is, a
+  buffer's worth of bytes at a time, a device copy into it, a barrier,
+  device copies out of the members' buffers and a barrier (an all-reduce
+  sums or takes the max of the gathered parts in member order). A rank
+  that cannot build, allocate or map the buffers is a RuntimeError on
+  every rank, never another route;
+- ranks sharing the cards of a host of several (gloo on CUDA) stage
+  their tensors through host memory, so the result is the same bits
+  either way.
+:meth:`Mesh.all_reduce` sums or takes the max (gloo and NCCL both have
+``ReduceOp.MAX``).
 
 Shapes: ``make_training_mesh`` gives the reference's (1 or 2, agents per
 pod, 16 / agents per pod, 16), 256 or 512 ranks; ``make_debug_mesh`` a small
@@ -32,7 +43,9 @@ both. Importing this module touches no process group.
 """
 from __future__ import annotations
 
+import ctypes
 import os
+import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
@@ -62,6 +75,24 @@ class Mesh:
     backend: str
     groups: Dict[str, object] = field(default_factory=dict)
     members: Dict[str, List[int]] = field(default_factory=dict)
+    # host seconds in the collectives: "stage" copying CUDA tensors to and
+    # from host memory (gloo), "wire" inside the collective calls; "calls"
+    # and "bytes" (this rank's payload); read and reset by the caller
+    stats: Dict[str, float] = field(default_factory=lambda: dict.fromkeys(
+        ("stage", "wire", "calls", "bytes"), 0))
+    # the CUDA IPC exchange buffers of ranks sharing one card (or None)
+    ipc: object = None
+
+    @property
+    def transport(self) -> str:
+        """How CUDA tensors travel: 'nccl', 'cuda ipc' (ranks sharing one
+        card), 'gloo (host staged)' (ranks sharing the cards of a host of
+        several), or 'gloo' (CPU tensors)."""
+        if self.backend == "nccl":
+            return "nccl"
+        if self.ipc is not None:
+            return "cuda ipc"
+        return "gloo (host staged)" if self.device.type == "cuda" else "gloo"
 
     def axis_index(self, axes) -> int:
         """This rank's row-major index along ``axes`` (a name, a tuple of
@@ -86,25 +117,104 @@ class Mesh:
         in line order (every member gets the same result)."""
         import torch.distributed as dist
         n = len(self.members[line])
+        if self._via_ipc(x):
+            return self._ipc_gather(x, line)
+        t0 = time.perf_counter()
         src = x.contiguous()
         if self._staged(src):
             src = src.cpu()
         out = torch.empty((n * src.shape[0],) + tuple(src.shape[1:]),
                           dtype=src.dtype, device=src.device)
+        t1 = time.perf_counter()
         dist.all_gather(list(out.chunk(n)), src, group=self.groups[line])
-        return out.to(x.device)
+        t2 = time.perf_counter()
+        out = out.to(x.device)
+        self._count(x, t0, t1, t2)
+        return out
 
-    def all_reduce(self, x: torch.Tensor, line: str) -> torch.Tensor:
-        """The sum of the ``line`` group's tensors like ``x`` (in place
-        when no staging is needed; returns the result)."""
+    def all_reduce(self, x: torch.Tensor, line: str,
+                   op: str = "sum") -> torch.Tensor:
+        """The elementwise ``op`` ("sum" or "max") of the ``line`` group's
+        tensors like ``x``, in place (through host memory when staged);
+        returns ``x``. A max is exact in any order, so a row's amax taken
+        over its column shards is the whole row's bit for bit."""
         import torch.distributed as dist
+        rop = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+        if self._via_ipc(x):
+            # a buffer's worth of elements at a time: the gathered parts
+            # reduced in line order
+            flat = x.reshape(-1)
+            out = torch.empty_like(flat)
+            step = max(1, self.ipc.nbytes // x.element_size())
+            for lo in range(0, flat.numel(), step):
+                g = self._ipc_gather(flat[lo:lo + step].reshape(1, -1), line)
+                acc = out[lo:lo + step]
+                acc.copy_(g[0])
+                for part in g[1:]:
+                    if op == "sum":
+                        acc += part
+                    else:
+                        torch.maximum(acc, part, out=acc)
+            x.copy_(out.view(x.shape))
+            return x
+        t0 = time.perf_counter()
         if self._staged(x):
             h = x.cpu()
-            dist.all_reduce(h, group=self.groups[line])
+            t1 = time.perf_counter()
+            dist.all_reduce(h, op=rop, group=self.groups[line])
+            t2 = time.perf_counter()
             x.copy_(h)
-            return x
-        dist.all_reduce(x, group=self.groups[line])
+        else:
+            t1 = t0
+            dist.all_reduce(x, op=rop, group=self.groups[line])
+            t2 = time.perf_counter()
+        self._count(x, t0, t1, t2)
         return x
+
+    def _via_ipc(self, x) -> bool:
+        return self.ipc is not None and x.device.type == "cuda"
+
+    def _ipc_gather(self, x, line):
+        """all_gather through the members' CUDA IPC exchange buffers, a
+        buffer's worth of bytes at a time: this rank's bytes into its own
+        buffer, a barrier, every member's bytes copied out in line order, a
+        barrier (so no buffer is written again before every member has
+        read it)."""
+        import torch.distributed as dist
+        t0 = time.perf_counter()
+        members, group = self.members[line], self.groups[line]
+        src = x.contiguous()
+        nb = src.numel() * src.element_size()
+        stream = torch.cuda.current_stream(self.device)
+        raw = src.view(-1).view(torch.uint8)
+        out = torch.empty((len(members) * src.shape[0],)
+                          + tuple(src.shape[1:]), dtype=src.dtype,
+                          device=src.device)
+        ob = out.view(-1).view(torch.uint8)
+        for lo in range(0, nb, self.ipc.nbytes):
+            hi = min(nb, lo + self.ipc.nbytes)
+            self.ipc.views[self.rank][:hi - lo].copy_(raw[lo:hi])
+            stream.synchronize()
+            dist.barrier(group=group)
+            for j, r in enumerate(members):
+                ob[j * nb + lo:j * nb + hi].copy_(
+                    raw[lo:hi] if r == self.rank
+                    else self.ipc.views[r][:hi - lo])
+            stream.synchronize()
+            dist.barrier(group=group)
+        t1 = time.perf_counter()
+        self._count(x, t0, t0, t1, t1)
+        return out
+
+    def _count(self, x, t0, t1, t2, now=None):
+        """Add one collective to ``stats`` (t0 start, t1 staged in, t2 the
+        call done, ``now`` (default: now) the result back)."""
+        now = time.perf_counter() if now is None else now
+        st = self.stats
+        st["stage"] += (t1 - t0) + (now - t2)
+        st["wire"] += t2 - t1
+        st["calls"] += 1
+        st["bytes"] += x.numel() * x.element_size()
 
 
 def _names(axes) -> Tuple[str, ...]:
@@ -220,7 +330,109 @@ def make_mesh(shape, axis_names=AXES, *, device=None) -> Mesh:
             if rank in ranks:
                 mesh.groups[name] = group
                 mesh.members[name] = ranks
+    if backend == "gloo" and dev.type == "cuda" \
+            and torch.cuda.device_count() == 1:
+        # every rank on the one card: device copies through CUDA IPC
+        mesh.ipc = _open_ipc(mesh, IPC_BYTES)
     return mesh
+
+
+# bytes of each rank's CUDA IPC exchange buffer: a collective's tensor up
+# to this size (olmo-1b's row shard at 2-way fsdp, 475 MB) takes one
+# exchange, a larger one a buffer's worth at a time
+IPC_BYTES = 512 << 20
+_IPC_SIGNATURES = {
+    "ipc_alloc": (ctypes.c_int, [ctypes.c_longlong,
+                                 ctypes.POINTER(ctypes.c_void_p)]),
+    "ipc_handle": (ctypes.c_int, [ctypes.c_void_p, ctypes.c_void_p]),
+    "ipc_open": (ctypes.c_int, [ctypes.c_void_p,
+                                ctypes.POINTER(ctypes.c_void_p)]),
+    "ipc_handle_bytes": (ctypes.c_int, []),
+}
+
+
+class _DeviceBytes:
+    """A (n,) uint8 view of raw device memory for torch.as_tensor."""
+
+    def __init__(self, ptr: int, n: int):
+        self.__cuda_array_interface__ = {"shape": (n,), "typestr": "|u1",
+                                         "data": (ptr, False), "version": 2}
+
+
+@dataclass(eq=False)
+class _IpcBuffers:
+    """Every rank's exchange buffer as a uint8 device tensor of this
+    process (its own, and the others' mapped through CUDA IPC)."""
+    nbytes: int
+    views: Dict[int, torch.Tensor]
+
+
+def _open_ipc(mesh: Mesh, nbytes: int) -> _IpcBuffers:
+    """Every rank allocates its exchange buffer and maps every other
+    rank's (a collective over the world). A rank that cannot is a
+    RuntimeError on every rank (the ranks agree before each step, so none
+    waits on another that has given up)."""
+    import torch.distributed as dist
+    from repro_torch.kernels import build
+    err, ptr, hb = "", ctypes.c_void_p(), 64
+    handle = (ctypes.c_uint8 * hb)()
+    try:
+        with torch.cuda.device(mesh.device):
+            lib = build.load("ipc_buffer", _IPC_SIGNATURES)
+            hb = lib.ipc_handle_bytes()
+            handle = (ctypes.c_uint8 * hb)()
+            rc = (lib.ipc_alloc(nbytes, ctypes.byref(ptr))
+                  or lib.ipc_handle(ptr, handle))
+            if rc:
+                err = f"cudaError {rc} allocating or exporting its buffer"
+    except (OSError, RuntimeError) as e:
+        err = f"ipc_buffer did not build or load: {e}"
+    _agree(mesh, err)
+    mine = torch.tensor(list(handle), dtype=torch.uint8)
+    every = [torch.empty_like(mine) for _ in range(dist.get_world_size())]
+    dist.all_gather(every, mine)
+    views = {}
+    with torch.cuda.device(mesh.device):
+        views[mesh.rank] = torch.as_tensor(_DeviceBytes(ptr.value, nbytes),
+                                           device=mesh.device)
+        for r, h in enumerate(every):
+            if r == mesh.rank:
+                continue
+            p = ctypes.c_void_p()
+            rc = lib.ipc_open((ctypes.c_uint8 * hb)(*h.tolist()),
+                              ctypes.byref(p))
+            if rc:
+                err = f"cudaError {rc} mapping rank {r}'s buffer"
+                break
+            views[r] = torch.as_tensor(_DeviceBytes(p.value, nbytes),
+                                       device=mesh.device)
+    _agree(mesh, err)
+    return _IpcBuffers(nbytes=nbytes, views=views)
+
+
+def _agree(mesh: Mesh, err: str):
+    """RuntimeError on every rank when any rank reports ``err`` (this
+    rank's own, or that another failed)."""
+    import torch.distributed as dist
+    flag = torch.tensor([0 if err else 1], dtype=torch.int64)
+    dist.all_reduce(flag, op=dist.ReduceOp.MIN)
+    if int(flag) == 0:
+        raise RuntimeError(
+            "the ranks sharing one card exchange CUDA tensors through CUDA "
+            f"IPC buffers (launch/mesh.py), and rank {mesh.rank} "
+            f"{'found ' + err if err else 'saw another rank fail'}")
+
+
+def rank_share_bytes(mesh: Mesh) -> int:
+    """This rank's share of its device's memory: the card's over the host's
+    ranks that compute on it (``cuda:LOCAL_RANK`` modulo the cards), or the
+    host's memory over the host's ranks on the CPU."""
+    local = _env_int("LOCAL_WORLD_SIZE", _env_int("WORLD_SIZE", 1))
+    if mesh.device.type == "cuda":
+        on_card = -(-local // torch.cuda.device_count())
+        total = torch.cuda.get_device_properties(mesh.device).total_memory
+        return total // on_card
+    return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES") // local
 
 
 def is_primary(mesh: Optional[Mesh]) -> bool:

@@ -24,12 +24,16 @@ reference's ``--mesh`` shards its panel (``auto`` is ``train`` for
 mesh of 8 ranks). Every rank runs the same loop on its shard, draws the
 same batches and keeps its agents' rows; the history, the events and
 ``--save-merged`` are written by rank 0 alone, and the console is rank
-0's. A sharded run takes the f32 and bf16 wires and the uniform merge;
-the other codecs and merges, --residency, --faults, --telemetry and
-checkpoints on a mesh are refused by name (ROADMAP A16b). On the CPU:
+0's. A sharded run takes every ``--wire``, ``--merge``, ``--residency``
+(fused and unfused), ``--faults`` and ``--telemetry`` (every agent's
+columns in rank 0's stream); ``--checkpoint-every`` and ``--resume`` on a
+mesh are refused by name (ROADMAP A16b': sharded checkpoints), and so is
+a generator-drawn ``--wire`` (int8, int4 and their ``_ef``) whose whole
+(m, D_g) uniform panel, which every rank draws, would take over a quarter
+of the rank's device memory (``refuse_oversized_draws``). On the CPU:
   torchrun --nproc-per-node 8 -m repro_torch.launch.train --device cpu \
       --mesh debug --rounds 6 --segment 3 --agents 4 --local-steps 2 \
-      --batch 4 --seq 32
+      --batch 4 --seq 32 --wire int8_ef --merge ties
 
 The run is observable and resumable as the reference's is:
 ``--telemetry`` adds the per-agent (S, m) columns to every round event,
@@ -80,7 +84,7 @@ from repro_torch.residency import STORAGE, parse_policy
 from repro_torch.telemetry.metrics import (AGENT_COLUMNS,
                                            fused_moments_auto,
                                            resident_bytes_model)
-from repro_torch.wire import CODECS
+from repro_torch.wire import CODECS, get_codec
 
 
 def build_mesh(kind: str, cfg, device=None):
@@ -96,27 +100,50 @@ def build_mesh(kind: str, cfg, device=None):
 
 
 def refuse_on_mesh(args):
-    """SystemExit naming each flag a sharded run does not take yet: the
-    lossy codecs, the non-uniform merges, residency, faults, telemetry and
-    checkpoints on a mesh come with ROADMAP A16b."""
-    named = []
-    if args.wire not in ("f32", "bf16"):
-        named.append(f"--wire {args.wire}")
-    if args.merge != "uniform":
-        named.append(f"--merge {args.merge}")
-    for flag, on in (("--residency", args.residency),
-                     ("--faults", args.faults),
-                     ("--telemetry", args.telemetry),
-                     ("--checkpoint-every", args.checkpoint_every),
-                     ("--resume", args.resume)):
-        if on:
-            named.append(flag)
+    """SystemExit naming each flag a sharded run does not take yet: saving,
+    restoring and re-sharding a sharded state come with ROADMAP A16b'."""
+    named = [flag for flag, on in (("--checkpoint-every",
+                                    args.checkpoint_every),
+                                   ("--resume", args.resume)) if on]
     if named:
         raise SystemExit(
-            f"--mesh {args.mesh} does not take {', '.join(named)} yet: a "
-            "sharded run takes the f32 and bf16 wires and the uniform merge; "
-            "the sharded codecs, merges, storages, faults, telemetry and "
-            "checkpoints are ROADMAP A16b")
+            f"--mesh {args.mesh} does not take {', '.join(named)} yet: "
+            "saving, restoring and re-sharding a sharded state are ROADMAP "
+            "A16b' (sharded checkpoints)")
+
+
+# the share of a rank's device memory that a generator-drawn wire's
+# uniform panel may take (the rest holds the rank's panel shard, its
+# gathered rows, its optimizer state and its activations)
+DRAW_SHARE = 0.25
+
+
+def refuse_oversized_draws(spec, share_bytes: int):
+    """SystemExit naming the ``--wire`` of a sharded ``spec`` whose
+    stochastic rounding draws from the generator when its (m, D_g) float32
+    uniform panel exceeds DRAW_SHARE of ``share_bytes`` (the rank's share
+    of its device's memory): on a mesh every rank draws a group's whole
+    panel each encode and keeps its block (ROADMAP C)."""
+    if not spec.sharded:
+        return
+    widths = dict(spec.groups)
+    for key, name in spec.wire:
+        codec = get_codec(name)
+        if not codec.needs_key \
+                or getattr(codec, "draws", "generator") != "generator":
+            continue
+        need = spec.rows * widths[key] * 4
+        if need > DRAW_SHARE * share_bytes:
+            raise SystemExit(
+                f"--wire {codec.name} on --mesh: every rank draws the "
+                f"{key} group's whole ({spec.rows}, {widths[key]}) float32 "
+                f"uniform panel each encode ({need} bytes), over "
+                f"{DRAW_SHARE} of the rank's {share_bytes} bytes of device "
+                "memory (ROADMAP C, the generator route's draws on a "
+                "mesh). Take --wire topk, bf16 or f32, fewer agents or "
+                "more cards, or an Int8Codec(draws='kernel') through "
+                "core.dsgd.init_panel_state(wire=): its draws are keyed "
+                "by panel row and column, each block drawn alone")
 
 
 def build_cpu_preset(cfg, agents):
@@ -154,15 +181,21 @@ def eval_merged(loss_fn, panel, spec, batch, stats=None, live=None):
 @torch.no_grad()
 def eval_local(loss_fn, panel, spec, batch, live=None):
     """Mean over agents of each agent's own loss on ``batch`` (a float);
-    with ``live`` ((m,) bool) over the live agents only. On a sharded spec
-    each rank evaluates its agents (their rows gathered over the fsdp
-    line) and the losses are gathered in agent order."""
+    with ``live`` ((m,) bool) over the live agents only (a dead one's place
+    holds 0, unevaluated). On a sharded spec each rank evaluates its agents
+    (their rows gathered over the fsdp line) and the losses are gathered
+    in agent order."""
+    alive = (np.ones(spec.rows, bool) if live is None
+             else np.asarray(live, bool))
+    dev = next(iter(panel.values())).device
     lo, hi = spec.agent_range()
-    rows = range(lo, hi) if live is None else np.flatnonzero(live)
     losses = [loss_fn(panel_mod.agent_params(panel, spec, k), batch,
-                      None)[0] for k in rows]
-    return float(torch.mean(panel_mod.gather_agents(torch.stack(losses),
-                                                    spec)))
+                      None)[0] if alive[k] else
+              torch.zeros((), dtype=torch.float32, device=dev)
+              for k in range(lo, hi)]
+    every = panel_mod.gather_agents(torch.stack(losses), spec)
+    return float(torch.mean(every[torch.as_tensor(np.flatnonzero(alive),
+                                                  device=every.device)]))
 
 
 def parse_args(argv=None):
@@ -449,6 +482,8 @@ def _run(args, cfg, lm, mesh):
                                         **({} if mesh is None
                                            else {"mesh": mesh}))
     del gen
+    if mesh is not None:
+        refuse_oversized_draws(spec, mesh_mod.rank_share_bytes(mesh))
     print(f"{cfg.name}: {spec.width} parameters per agent, {m} agents, "
           f"device {device}")
     print(f"wire codec {args.wire}: {spec.wire_payload_bytes} B/agent "

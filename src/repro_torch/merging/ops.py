@@ -36,6 +36,18 @@ Statistics held in a residency storage (``--residency stats=...``) are
 decoded by :func:`decode_stats` before an operator reads them; every merge
 entry point goes through it.
 
+Sharded panels (``panel.shard_spec``): ``merge_row(..., spec=)`` and
+:func:`merge_panel` take a rank's shard of the panel and of the statistics
+and give the rank's column shard of the merged row, the single-process
+columns bit for bit: the per-column operators (uniform, var, fisher, swa,
+TIES's election and agreeing mean) run on every agent's rows of a column
+slab at a time (gathered over the ``rows`` line), TIES's per-row trim
+thresholds come from an exact distributed selection
+(:func:`ties_thresh_sharded`: a radix select on the float32 bit patterns
+of |tau|, its 256-bin histograms summed over ``fsdp``), and ``weighted``'s
+per-agent squared distances are the column shards' partial sums summed
+over ``fsdp`` (another order of summation: within float32 tolerance).
+
 Liveness: ``live=`` ((m,) bool) restricts every operator to the live
 agents' rows, exactly as if it ran on the live sub-panel: the live mean
 (uniform, swa), weight 0 for a dead agent (weighted), the weight panel
@@ -52,7 +64,7 @@ import torch
 from repro_torch.core import panel as panel_mod
 from repro_torch.kernels.gossip_mix import gossip_mix
 from repro_torch.kernels.merge_ops import ties_colmerge, weighted_colmerge
-from repro_torch.kernels.ref import ties_thresh_ref
+from repro_torch.kernels.ref import _fma32, ties_index, ties_thresh_ref
 
 
 def _ema_(stat, x, b: float, square: bool = False):
@@ -64,11 +76,33 @@ def _ema_(stat, x, b: float, square: bool = False):
         torch.add(stat[r] * b, xr * (1.0 - b), out=stat[r])
 
 
-def _live_col(live, x):
-    """The (m, 1) float32 live column of a live mask, on x's device."""
-    m = x.shape[0]
-    return torch.as_tensor(panel_mod._live_mask(live, m), dtype=torch.float32,
+def _live_col(live, x, rows=None):
+    """The (m, 1) float32 live column of a live mask, on x's device;
+    ``rows``: the (lo, hi) agents of x, a row shard of the m rows."""
+    if rows is None:
+        mask = panel_mod._live_mask(live, x.shape[0])
+    else:
+        mask = panel_mod._live_mask(live, len(live))[rows[0]:rows[1]]
+    return torch.as_tensor(mask, dtype=torch.float32,
                            device=x.device)[:, None]
+
+
+def _sharded(spec) -> bool:
+    return spec is not None and spec.sharded
+
+
+def _colwise(spec, k, fn, *panels):
+    """The rank's (c,) column shard of ``fn(*gathered)``, a per-column
+    function of every agent's rows of a column slab of each of the rank's
+    shards ``panels`` of group ``k`` (gathered over the ``rows`` line), a
+    slab at a time."""
+    x0 = panels[0]
+    out = torch.empty(x0.shape[1], dtype=torch.float32, device=x0.device)
+    for slabs in zip(*(panel_mod.row_slabs(p, spec, k) for p in panels)):
+        lo, hi, _ = slabs[0]
+        out[lo:hi] = fn(*(g for _, _, g in slabs))
+        del slabs
+    return out
 
 
 def _need_stats(name, stats, what):
@@ -103,10 +137,13 @@ class Merger:
         (in place)."""
         return stats
 
-    def merge_row(self, panel, stats=None, weights=None, live=None):
+    def merge_row(self, panel, stats=None, weights=None, live=None,
+                  spec=None):
         """One merged row {group: (D_g,) f32} from the (m, D) panel; with
-        ``live`` ((m,) bool) from the live rows alone."""
-        return panel_mod.merged(panel, live=live)
+        ``live`` ((m,) bool) from the live rows alone. On a sharded
+        ``spec`` the panel and the stats are this rank's shards and the
+        row its column shard."""
+        return panel_mod.merged(panel, live=live, spec=spec)
 
 
 class UniformMerger(Merger):
@@ -124,25 +161,30 @@ class WeightedMerger(Merger):
     def __init__(self, eps: float = 1e-8):
         self.eps = eps
 
-    def agent_weights(self, panel, live=None):
+    def agent_weights(self, panel, live=None, spec=None):
         """(m,) convex weights; with ``live`` the distances are taken to the
-        live mean and a dead agent's weight is 0."""
+        live mean and a dead agent's weight is 0. On a sharded ``spec``
+        each agent's squared distance is its column shards' partial sums
+        summed over ``fsdp``, gathered over the ``rows`` line."""
         d = None
         for k, x in panel.items():
             x32 = x.to(torch.float32)
-            mu = panel_mod.merged({k: x32}, live=live)[k]
+            mu = panel_mod.merged({k: x32}, live=live, spec=spec)[k]
             dk = torch.stack([torch.sum(torch.square(x32[r] - mu))
                               for r in range(x32.shape[0])])
+            if _sharded(spec):
+                dk = panel_mod.gather_rows(spec.shard(k).col_sum(dk), spec, k)
             d = dk if d is None else d + dk
         w = torch.reciprocal(d + self.eps)
         if live is not None:
             w = w * _live_col(live, w)[:, 0]
         return w / torch.sum(w)
 
-    def merge_row(self, panel, stats=None, weights=None, live=None):
+    def merge_row(self, panel, stats=None, weights=None, live=None,
+                  spec=None):
         x0 = next(iter(panel.values()))
         if weights is None:
-            w = self.agent_weights(panel, live=live)
+            w = self.agent_weights(panel, live=live, spec=spec)
         else:
             w = torch.as_tensor(weights, dtype=torch.float32,
                                 device=x0.device)
@@ -150,6 +192,9 @@ class WeightedMerger(Merger):
                 w = w * _live_col(live, w)[:, 0]
             w = w / torch.sum(w)
         W = w[None].contiguous()
+        if _sharded(spec):
+            return {k: _colwise(spec, k, lambda g: gossip_mix(W, g)[0], x)
+                    for k, x in panel.items()}
         return {k: gossip_mix(W, x)[0] for k, x in panel.items()}
 
 
@@ -189,8 +234,21 @@ class VarMerger(Merger):
             w[r].clamp_min_(0.0).add_(self.eps).reciprocal_()
         return w
 
-    def merge_row(self, panel, stats=None, weights=None, live=None):
+    def merge_row(self, panel, stats=None, weights=None, live=None,
+                  spec=None):
         _need_stats(self.name, stats, "trajectory stats panels")
+        if _sharded(spec):
+            def one(k):
+                def fn(x, mu, m2):
+                    w = self.weight_panel({"traj_mu": {k: mu},
+                                           "traj_m2": {k: m2}}, k)
+                    if live is not None:
+                        w.mul_(_live_col(live, w))
+                    return weighted_colmerge(x.to(torch.float32), w)
+                return fn
+            return {k: _colwise(spec, k, one(k), x, stats["traj_mu"][k],
+                                stats["traj_m2"][k])
+                    for k, x in panel.items()}
         out = {}
         for k, x in panel.items():
             w = self.weight_panel(stats, k)
@@ -226,8 +284,17 @@ class FisherMerger(Merger):
             _ema_(stats["fisher"][k], g, self.ema, square=True)
         return stats
 
-    def merge_row(self, panel, stats=None, weights=None, live=None):
+    def merge_row(self, panel, stats=None, weights=None, live=None,
+                  spec=None):
         _need_stats(self.name, stats, "Fisher stats panel")
+        if _sharded(spec):
+            def fn(x, f):
+                w = f + self.eps
+                if live is not None:
+                    w.mul_(_live_col(live, w))
+                return weighted_colmerge(x.to(torch.float32), w)
+            return {k: _colwise(spec, k, fn, x, stats["fisher"][k])
+                    for k, x in panel.items()}
         out = {}
         for k, x in panel.items():
             w = stats["fisher"][k] + self.eps
@@ -250,7 +317,11 @@ class TiesMerger(Merger):
             raise ValueError(f"trim fraction must be in (0, 1], got {trim}")
         self.trim = trim
 
-    def merge_row(self, panel, stats=None, weights=None, live=None):
+    def merge_row(self, panel, stats=None, weights=None, live=None,
+                  spec=None):
+        if _sharded(spec):
+            return {k: self._merge_sharded(k, x, live, spec)
+                    for k, x in panel.items()}
         out = {}
         for k, x in panel.items():
             x32 = x.to(torch.float32)
@@ -264,6 +335,32 @@ class TiesMerger(Merger):
             dev = ties_colmerge(tau, ties_thresh_ref(tau, self.trim))
             del tau
             out[k] = dev.add_(ref_row)
+        return out
+
+    def _merge_sharded(self, k, x, live, spec):
+        """merge_row of group ``k`` on this rank's shard ``x``: the
+        deviations of the rank's rows are formed a column slab at a time
+        from the (live) mean row, each row's trim threshold comes from
+        :func:`ties_thresh_sharded` over its column shards, and the column
+        merge runs on every agent's deviations of a slab (gathered)."""
+        x32 = x.to(torch.float32)
+        ref_row = panel_mod.merged({k: x32}, live=live, spec=spec)[k]
+        lcol = None if live is None else _live_col(live, x32,
+                                                   spec.row_range(k))
+
+        def tau(lo, hi):
+            t = x32[:, lo:hi] - ref_row[lo:hi]
+            return t if lcol is None else t.mul_(lcol)
+
+        c = x32.shape[1]
+        th = panel_mod.gather_rows(ties_thresh_sharded(
+            tau, x32.shape[0], c, self.trim, spec.shard(k)), spec, k)
+        out = torch.empty(c, dtype=torch.float32, device=x.device)
+        for lo in range(0, c, panel_mod.GATHER_SLAB):
+            hi = min(lo + panel_mod.GATHER_SLAB, c)
+            full = panel_mod.gather_rows(tau(lo, hi), spec, k)
+            out[lo:hi] = ties_colmerge(full, th).add_(ref_row[lo:hi])
+            del full
         return out
 
 
@@ -290,9 +387,73 @@ class SwaMerger(Merger):
             _ema_(stats["swa"][k], x, self.decay)
         return stats
 
-    def merge_row(self, panel, stats=None, weights=None, live=None):
+    def merge_row(self, panel, stats=None, weights=None, live=None,
+                  spec=None):
         _need_stats(self.name, stats, "accumulator stats panel")
-        return panel_mod.merged(stats["swa"], live=live)
+        return panel_mod.merged(stats["swa"], live=live, spec=spec)
+
+
+# columns of |tau| a pass of the distributed TIES selection reads at once
+TIES_SLAB = 1 << 20
+_RADIX_SHIFTS = (24, 16, 8, 0)
+
+
+def ties_thresh_sharded(tau, rows: int, width: int, trim: float, shard):
+    """``ref.ties_thresh_ref`` of whole rows held as column shards: the
+    (rows, 1) float32 thresholds of this rank's ``rows`` deviation rows,
+    bit for bit the single-process ones.
+
+    ``tau(lo, hi)`` gives the rank's (rows, hi - lo) deviations of its
+    column shard's columns [lo, hi) (``width`` of them); ``shard`` is the
+    group's ``panel.Shard`` (the whole rows' width ``shard.D``, the sums
+    over ``fsdp``; None: the rows are whole). The two order statistics of
+    each row's |tau| are selected exactly by a radix select on the float32
+    bit patterns (the patterns of non-negative floats order as their
+    values): four passes of 8 bits, each a 256-bin histogram of the
+    entries that match the prefix found so far, read ``TIES_SLAB`` columns
+    at a time and summed over the ``fsdp`` line; then the index and
+    interpolation arithmetic of ``ties_thresh_ref``. A row holding a NaN
+    anywhere gives NaN."""
+    D = width if shard is None else shard.D
+    lo_i, hi_i, lw, hw = ties_index(D, trim)
+    dev = tau(0, 0).device
+    want = torch.tensor([lo_i, hi_i], dtype=torch.int64,
+                        device=dev).expand(rows, 2).clone()
+    prefix = torch.zeros((rows, 2), dtype=torch.int64, device=dev)
+    pmask = torch.zeros((rows, 2), dtype=torch.int64, device=dev)
+    nans = torch.zeros((rows,), dtype=torch.int64, device=dev)
+    base = (torch.arange(rows * 2, dtype=torch.int64, device=dev)
+            .view(rows, 2, 1) * 256)
+    for shift in _RADIX_SHIFTS:
+        hist = torch.zeros(rows * 2 * 256, dtype=torch.int64, device=dev)
+        for lo in range(0, width, TIES_SLAB):
+            t = tau(lo, min(lo + TIES_SLAB, width))
+            if shift == _RADIX_SHIFTS[0]:
+                nans += torch.isnan(t).sum(dim=1)
+            bits = torch.abs(t).view(torch.int32).to(torch.int64)
+            del t
+            match = (bits[:, None, :] & pmask[:, :, None]) \
+                == prefix[:, :, None]
+            idx = base + ((bits >> shift) & 0xFF)[:, None, :]
+            hist += torch.bincount(idx[match], minlength=rows * 2 * 256)
+            del bits, match, idx
+        if shard is not None:
+            hist = shard.col_sum(hist)
+        cum = torch.cumsum(hist.view(rows, 2, 256), dim=2)
+        bucket = torch.sum(cum <= want[:, :, None], dim=2)
+        below = torch.gather(cum, 2, (bucket - 1).clamp(min=0)[:, :, None])
+        want -= torch.where(bucket > 0, below[:, :, 0], 0)
+        prefix |= bucket << shift
+        pmask |= 0xFF << shift
+    if shard is not None:
+        nans = shard.col_sum(nans)
+    vals = prefix.to(torch.int32).view(torch.float32).cpu().numpy()
+    nan_rows = nans.cpu().numpy() > 0
+    out = np.empty((rows, 1), dtype=np.float32)
+    for r in range(rows):
+        out[r, 0] = (np.nan if nan_rows[r] else
+                     _fma32(vals[r, 0], lw, vals[r, 1] * hw))
+    return torch.from_numpy(out).to(dev)
 
 
 MERGERS = {
@@ -358,11 +519,17 @@ def merge_panel(panel, merger, *, stats=None, weights=None, spec=None,
     operator and receive the broadcast; a dead agent's parameter row and
     its error-feedback (residual or mirror) row pass through bit for bit.
 
+    On a sharded ``spec`` the panel, the stats and ``err`` are this rank's
+    shards: each group encodes on its block (``Codec.encode(shard=)``) and
+    the operator merges column shards (``merge_row(spec=)``); the returned
+    row is the rank's column shard.
+
     Returns ``(mixed, row, new_err)``: the broadcast (m, D) panel in storage
     dtypes, the merged {group: (D_g,) f32} row, and the updated
     error-feedback state (None when ``err`` is)."""
     merger = get_merger(merger)
     stats = decode_stats(stats, spec)
+    sharded = _sharded(spec)
     enc, backs = {}, {}
     if merger.uses_panel:
         codecs = panel_mod._codecs(panel, spec, wire_dtype)
@@ -379,17 +546,19 @@ def merge_panel(panel, merger, *, stats=None, weights=None, spec=None,
                 enc[k] = x.to(torch.float32)
                 backs[k] = None
                 continue
-            enc[k], backs[k], ne = codecs[k].encode(x, gen=gen, err=e)
+            enc[k], backs[k], ne = codecs[k].encode(
+                x, gen=gen, err=e, shard=spec.shard(k) if sharded else None)
             if err is not None:
                 new_err[k] = ne
     else:
         enc = panel
         backs = {k: (lambda y: y) for k in panel}
         new_err = err
-    row = merger.merge_row(enc, stats=stats, weights=weights, live=live)
-    dead = ([] if live is None else
-            np.flatnonzero(~panel_mod._live_mask(live, next(iter(
-                panel.values())).shape[0])).tolist())
+    row = merger.merge_row(enc, stats=stats, weights=weights, live=live,
+                           spec=spec)
+    m = spec.rows if sharded else next(iter(panel.values())).shape[0]
+    dead = ([] if live is None else panel_mod.local_rows(
+        spec, np.flatnonzero(~panel_mod._live_mask(live, m))))
     mixed = {}
     for k, x in panel.items():
         if backs[k] is None:  # delta codec: panel and mirror take the row

@@ -47,14 +47,26 @@ with a mix of the segment's seed and those words, so the residency draws
 never touch the wire codec's generator, every local step (tick) draws
 fresh bits, and two paths that draw the same slabs from the same streams
 (the fused and the unfused moment update) see the same uniforms.
+
+Sharded panels: ``init``/``write`` take ``shard=`` (``panel.Shard``), a
+rank's block of the (m, D) panel, and store that block of the whole
+panel's stored form bit for bit. The slabs are the panel's: each slab
+that overlaps the block is drawn whole, (m, SLAB) from its generator, and
+cut to the block; the slabs before it are drawn and dropped, so the
+stream stands where it stands for the whole panel (:func:`slab_draws`).
+The grouped scales are the block's own when the block starts on a group
+boundary (``panel.shard_spec`` refuses any other split), and sit beside
+its columns; the per-row scale of ``int8r`` is the whole row's (the
+column shards' amax, max over ``fsdp``), held by every column shard of
+the row.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.ref import (div_exact, int8_group_scale_ref,
-                                     int8_scale_ref, signed_sqrt,
-                                     signed_square)
+from repro_torch.kernels.ref import (amax_scale, div_exact,
+                                     int8_group_scale_ref, row_amax,
+                                     signed_sqrt, signed_square)
 from repro_torch.kernels.wire_quant import (dequantize_int8,
                                             dequantize_int8_grouped,
                                             quantize_int8,
@@ -78,11 +90,12 @@ class Storage:
     # local to a group
     fused_update = False
 
-    def init(self, x):
-        """Deterministic encode (state build)."""
+    def init(self, x, shard=None):
+        """Deterministic encode (state build); ``shard``: x is a rank's
+        block of the panel."""
         return x
 
-    def write(self, x, gen=None, u=None):
+    def write(self, x, gen=None, u=None, shard=None):
         """Encode of the training loop."""
         return x
 
@@ -125,10 +138,10 @@ class Bf16Storage(Storage):
 
     name = "bf16"
 
-    def init(self, x):
+    def init(self, x, shard=None):
         return x.to(torch.bfloat16)
 
-    def write(self, x, gen=None, u=None):
+    def write(self, x, gen=None, u=None, shard=None):
         return x.to(torch.bfloat16)
 
     def read(self, stored):
@@ -182,25 +195,27 @@ class Int8Storage(Storage):
             return SLAB
         return max(SLAB // self.group, 1) * self.group
 
-    def _encode(self, x, gen, u, stochastic):
+    def _encode(self, x, gen, u, stochastic, shard=None):
         m, D = x.shape
         dev = x.device
         q = torch.empty((m, D), dtype=torch.int8, device=dev)
         if self.group is None:
-            scale = int8_scale_ref(self.transform_fwd(x))
+            amax = row_amax(self.transform_fwd(x))
+            scale = amax_scale(amax if shard is None else shard.col_max(amax))
         else:
             scale = torch.empty((m, self.scale_count(D)),
                                 dtype=torch.float32, device=dev)
-        step = self.slab()
-        for lo in range(0, D, step):
-            sl = slice(lo, min(lo + step, D))
-            w = sl.stop - lo
+        c0 = 0 if shard is None else shard.cols[0]
+        if stochastic and u is not None and shard is not None:
+            u = shard.block(u)
+        draws = (slab_draws(gen, m, D, self.slab(), shard, dev)
+                 if stochastic and u is None else None)
+        for lo, hi in slab_ranges(D, self.slab(), c0):
+            sl, w = slice(lo, hi), hi - lo
             z = self.transform_fwd(x[:, sl].to(torch.float32))
             uu = None
             if stochastic:
-                uu = (u[:, sl] if u is not None else
-                      torch.rand((m, w), generator=gen, dtype=torch.float32,
-                                 device=dev))
+                uu = u[:, sl] if u is not None else next(draws)
             if self.group is None:
                 q[:, sl] = quantize_int8(
                     z.contiguous(), scale,
@@ -213,16 +228,16 @@ class Int8Storage(Storage):
             del z, uu
         return {"q": q, "scale": scale}
 
-    def init(self, x):
-        return self._encode(x, None, None, stochastic=False)
+    def init(self, x, shard=None):
+        return self._encode(x, None, None, stochastic=False, shard=shard)
 
-    def write(self, x, gen=None, u=None):
+    def write(self, x, gen=None, u=None, shard=None):
         if gen is None and u is None:
             raise ValueError(
                 f"storage '{self.name}' uses stochastic rounding and needs "
                 "a torch.Generator (gen=...) or the uniforms (u=...); use "
                 "init() for the deterministic encode")
-        return self._encode(x, gen, u, stochastic=True)
+        return self._encode(x, gen, u, stochastic=True, shard=shard)
 
     def read(self, stored):
         q, scale = stored["q"], stored["scale"]
@@ -257,6 +272,39 @@ class Int8Storage(Storage):
 
     def resident_bytes(self, rows: int, width: int) -> int:
         return rows * (width + self.scale_count(width) * self.SCALE_BYTES)
+
+
+def slab_ranges(D: int, step: int, c0: int = 0):
+    """[lo, hi) column ranges of a block of ``D`` columns whose first
+    column is the panel's ``c0``: its parts in each ``step``-column slab of
+    the panel (the whole block's slabs when c0 = 0)."""
+    lo = 0
+    while lo < D:
+        hi = min(D, (c0 + lo) // step * step + step - c0)
+        yield lo, hi
+        lo = hi
+
+
+def slab_draws(gen, m: int, D: int, step: int, shard, device):
+    """The uniforms of each range of :func:`slab_ranges` in turn, drawn
+    from ``gen`` as an encode of the whole panel draws them: (m, w) a slab.
+    On a ``shard`` every slab of the panel up to the block's last is drawn
+    whole, (shard.m, slab width), those before the block dropped, and the
+    overlapping ones cut to the block's rows and columns."""
+    if shard is None:
+        for lo, hi in slab_ranges(D, step):
+            yield torch.rand((m, hi - lo), generator=gen,
+                             dtype=torch.float32, device=device)
+        return
+    (r0, r1), (c0, c1) = shard.rows, shard.cols
+    for lo in range(0, c1, step):
+        hi = min(lo + step, shard.D)
+        full = torch.rand((shard.m, hi - lo), generator=gen,
+                          dtype=torch.float32, device=device)
+        if hi > c0:
+            yield full[r0:r1, max(lo, c0) - lo:min(hi, c1) - lo] \
+                .contiguous()
+        del full
 
 
 STORAGE = {

@@ -9,7 +9,11 @@ made: telemetry never perturbs the trajectory. The float columns are
 tensors on the panel's device, reduced without an (m, D) temporary (a
 row-wise norm; float64 column slabs); the integer columns are computed on the
 host from W and the trits, as exact int64 (the reference's int32 wraps
-above 2 GiB an agent-round).
+above 2 GiB an agent-round). On a sharded spec (``spec=``) the panels are
+the rank's shards and every rank gets all m agents' columns: the row
+norms' and distances' partial sums over the rank's columns are summed
+over the ``fsdp`` line (another order of summation than one process's)
+and gathered over the ``rows`` line.
 
 Wire bytes follow the codec cost model (:attr:`PanelSpec.wire_total_bytes`:
 payload + scales/indices): a row of W equal to the identity row sends
@@ -29,6 +33,7 @@ import torch
 from repro_torch import merging as merging_mod
 from repro_torch import residency as residency_mod
 from repro_torch import wire as wire_mod
+from repro_torch.core import panel as panel_mod
 from repro_torch.wire.codec import _itemsize
 
 
@@ -53,20 +58,25 @@ def agent_loss(losses, alive=None):
     return torch.where(_row_mask(alive, x.device), x, 0.0)
 
 
-def agent_grad_norm(gpan, alive=None):
+def agent_grad_norm(gpan, alive=None, spec=None):
     """(m,) per-agent gradient l2 norm over every dtype group of a grad
     panel ({group: (m, D_g)}); non-live rows report 0. Each group is
     reduced by one row-wise norm (no (m, D) temporary)."""
     norms = [torch.linalg.vector_norm(x, dim=1, dtype=torch.float32)
              for x in gpan.values()]
-    gn = (norms[0] if len(norms) == 1 else
-          torch.sqrt(sum(torch.square(n) for n in norms)))
+    if spec is not None and spec.sharded:
+        sq = [panel_mod.gather_rows(spec.shard(k).col_sum(torch.square(n)),
+                                    spec, k) for k, n in zip(gpan, norms)]
+        gn = torch.sqrt(sum(sq[1:], sq[0]))
+    else:
+        gn = (norms[0] if len(norms) == 1 else
+              torch.sqrt(sum(torch.square(n) for n in norms)))
     if alive is None:
         return gn
     return torch.where(_row_mask(alive, gn.device), gn, 0.0)
 
 
-def agent_dist_to_mean(panel, live=None):
+def agent_dist_to_mean(panel, live=None, spec=None):
     """(m,) float32 per-agent distance to the panel mean, the consensus
     decomposition: the consensus distance is ``sqrt(mean(dist**2))`` of
     these rows (over the live rows under a liveness mask). Non-live rows
@@ -75,24 +85,36 @@ def agent_dist_to_mean(panel, live=None):
 
     The mean and the squares are taken in float64, a slab of DIST_SLAB
     columns at a time (no (m, D) temporary), so identical rows read exactly
-    0 whatever the count; no live row gives a mean of 0."""
+    0 whatever the count; no live row gives a mean of 0. On a sharded
+    ``spec`` every agent's rows of a slab of the rank's columns are
+    gathered, and each group's totals summed over ``fsdp``."""
     x0 = next(iter(panel.values()))
-    m, dev = x0.shape[0], x0.device
+    sharded = spec is not None and spec.sharded
+    m, dev = (spec.rows if sharded else x0.shape[0]), x0.device
     rows = None
     if live is not None:
         rows = torch.as_tensor(np.flatnonzero(np.asarray(live, dtype=bool)
                                               .reshape(m)), device=dev)
     n = m if rows is None else len(rows)
     total = torch.zeros((m,), dtype=torch.float64, device=dev)
-    for x in panel.values():
-        for lo in range(0, x.shape[1], DIST_SLAB):
-            xs = x[:, lo:lo + DIST_SLAB].to(torch.float64, copy=True)
+    for k, x in panel.items():
+        # one process sums every slab into the total, a shard its group's
+        part = (torch.zeros((m,), dtype=torch.float64, device=dev)
+                if sharded else total)
+        slabs = (panel_mod.row_slabs(x, spec, k, DIST_SLAB) if sharded else
+                 ((lo, None, x[:, lo:lo + DIST_SLAB])
+                  for lo in range(0, x.shape[1], DIST_SLAB)))
+        for _, _, xk in slabs:
+            xs = xk.to(torch.float64, copy=True)
+            del xk
             sub = xs if rows is None else xs[rows]
             mean = torch.sum(sub, dim=0) / max(n, 1)
             del sub
             xs.sub_(mean)
-            total += torch.sum(xs.square_(), dim=1)
+            part += torch.sum(xs.square_(), dim=1)
             del xs, mean
+        if sharded:
+            total += spec.shard(k).col_sum(part)
     return torch.sqrt(total).to(torch.float32)
 
 

@@ -49,6 +49,22 @@ wrappers of ``kernels/wire_quant.py`` (the CUDA kernels on the card, the
 plain versions on the CPU); the scales and the top-k threshold are plain
 torch row passes, as the reference leaves them to XLA.
 
+Sharded panels: ``encode(..., shard=)`` takes a rank's block of a group's
+(m, D) panel (``panel.Shard``: its rows and columns in the panel and the
+collectives over the ``fsdp`` line) and gives that block of what encode of
+the whole panel gives, bit for bit: the per-row int8 scale is the max of
+the column shards' amax over ``fsdp``; the uniforms of the generator route
+are the whole (m, D) panel's, drawn and cut to the block (an (m, D)
+float32 transient: at full width use the kernel's draws), ``u=`` of the
+whole panel's shape is cut alike, and the kernel's draws take the block's
+panel row and column (``quantize_int8_native(row0=, col0=)``, the first
+column a multiple of 512); int4's group scales and nibble pairs are local
+when every shard starts on a group boundary (``panel.shard_spec`` refuses
+any other split); top-k takes k of the whole row width and its threshold
+from the whole row: the row's |innovation| gathered over ``fsdp`` up to
+``thresh_sample`` columns, beyond it the strided subsample in panel
+columns, each rank's part gathered in column order.
+
 Byte accounting: ``payload_bytes`` counts the transmitted values alone,
 ``total_bytes`` adds scales (per row for int8, per row and group for int4)
 and packed top-k indices, and ``wire_payload``
@@ -61,8 +77,8 @@ import math
 
 import torch
 
-from repro_torch.kernels.ref import (int4_group_scale_ref, int8_scale_ref,
-                                     topk_threshold_ref)
+from repro_torch.kernels.ref import (amax_scale, int4_group_scale_ref,
+                                     row_amax, topk_threshold_ref)
 from repro_torch.kernels.wire_quant import (dequantize_int4, dequantize_int8,
                                             pack_int4, quantize_int4,
                                             quantize_int8,
@@ -127,7 +143,7 @@ class F32Codec(Codec):
     def payload_bytes(self, rows: int, width: int, dtype) -> int:
         return rows * width * _itemsize(dtype)
 
-    def encode(self, x, gen=None, err=None, u=None):
+    def encode(self, x, gen=None, err=None, u=None, shard=None):
         return x, _identity, err
 
     def wire_payload(self, x, gen=None, err=None, u=None):
@@ -146,7 +162,7 @@ class DtypeCodec(Codec):
     def payload_bytes(self, rows: int, width: int, dtype) -> int:
         return rows * width * _itemsize(self.wire_dtype)
 
-    def encode(self, x, gen=None, err=None, u=None):
+    def encode(self, x, gen=None, err=None, u=None, shard=None):
         if x.dtype == self.wire_dtype:
             return x, _identity, err
         dtype = x.dtype
@@ -188,18 +204,23 @@ class _Quantized(Codec):
             x32 = x32 + err
         return x32
 
-    def _uniforms(self, x32, gen, u):
-        """The stochastic rounding's uniforms (None rounds to nearest)."""
+    def _uniforms(self, x32, gen, u, shard=None):
+        """The stochastic rounding's uniforms (None rounds to nearest); on
+        a ``shard`` the whole panel's, cut to the rank's block."""
         if not self.stochastic:
             return None
         if u is not None:
-            return u
+            return u if shard is None else shard.block(u)
         if gen is None:
             raise ValueError(
                 f"codec '{self.name}' uses stochastic rounding and needs "
                 "a torch.Generator (gen=...) or the uniforms (u=...)")
-        return torch.rand(x32.shape, generator=gen, dtype=torch.float32,
-                          device=x32.device)
+        if shard is None:
+            return torch.rand(x32.shape, generator=gen, dtype=torch.float32,
+                              device=x32.device)
+        full = torch.rand((shard.m, shard.D), generator=gen,
+                          dtype=torch.float32, device=x32.device)
+        return shard.block(full)
 
     def _finish(self, x, x32, xhat32, err):
         """(view, back, new_err) of encode from the received panel."""
@@ -237,7 +258,13 @@ class Int8Codec(_Quantized):
     def total_bytes(self, rows: int, width: int, dtype) -> int:
         return rows * (width + self.SCALE_BYTES)
 
-    def _quantize(self, x32, gen, u):
+    def _scale(self, x32, shard):
+        """Per-row amax / 127; on a shard the amax of the whole row (the
+        column shards' max over ``fsdp``)."""
+        amax = row_amax(x32)
+        return amax_scale(amax if shard is None else shard.col_max(amax))
+
+    def _quantize(self, x32, gen, u, shard=None):
         if self.stochastic and self.draws == "kernel":
             if u is not None:
                 raise ValueError(
@@ -249,16 +276,19 @@ class Int8Codec(_Quantized):
                     "a torch.Generator (gen=...) for its kernel's seed")
             seed = torch.randint(-2 ** 31, 2 ** 31 - 1, (1,), generator=gen,
                                  dtype=torch.int32, device=x32.device)
-            scale = int8_scale_ref(x32)
-            return quantize_int8_native(x32, scale, seed), scale
-        u = self._uniforms(x32, gen, u)
-        scale = int8_scale_ref(x32)
+            scale = self._scale(x32, shard)
+            if shard is None:
+                return quantize_int8_native(x32, scale, seed), scale
+            return quantize_int8_native(x32, scale, seed, row0=shard.rows[0],
+                                        col0=shard.cols[0]), scale
+        u = self._uniforms(x32, gen, u, shard)
+        scale = self._scale(x32, shard)
         return quantize_int8(x32, scale, u), scale
 
-    def encode(self, x, gen=None, err=None, u=None):
+    def encode(self, x, gen=None, err=None, u=None, shard=None):
         _require_err(self, err)
         x32 = self._carry_in(x, err)
-        q, scale = self._quantize(x32, gen, u)
+        q, scale = self._quantize(x32, gen, u, shard)
         xhat32 = dequantize_int8(q, scale)
         del q
         return self._finish(x, x32, xhat32, err)
@@ -289,15 +319,17 @@ class Int4Codec(_Quantized):
         return (self.payload_bytes(rows, width, dtype)
                 + rows * self.n_groups(width) * self.SCALE_BYTES)
 
-    def _quantize(self, x32, gen, u):
-        u = self._uniforms(x32, gen, u)
+    def _quantize(self, x32, gen, u, shard=None):
+        # on a shard that starts on a group boundary the group scales are
+        # the block's own (panel.shard_spec refuses any other split)
+        u = self._uniforms(x32, gen, u, shard)
         scale = int4_group_scale_ref(x32, self.group)
         return quantize_int4(x32, scale, u, self.group), scale
 
-    def encode(self, x, gen=None, err=None, u=None):
+    def encode(self, x, gen=None, err=None, u=None, shard=None):
         _require_err(self, err)
         x32 = self._carry_in(x, err)
-        q, scale = self._quantize(x32, gen, u)
+        q, scale = self._quantize(x32, gen, u, shard)
         # the mixing view comes off the packed wire bytes, each transient
         # freed as it dies
         packed = pack_int4(q)
@@ -368,21 +400,31 @@ class TopKCodec(Codec):
         # innovations from then on
         return x.to(torch.float32).clone()
 
-    def _threshold(self, innov):
+    def _threshold(self, innov, shard=None):
         """Per-row selection threshold: the exact k-th largest |innov| up
-        to ``thresh_sample`` columns, a strided-subsample estimate beyond."""
-        D = innov.shape[1]
+        to ``thresh_sample`` columns, a strided-subsample estimate beyond.
+        On a ``shard`` both read the whole row: its |innov| gathered over
+        ``fsdp``, or the subsample's columns each rank holds, gathered in
+        column order."""
+        D = innov.shape[1] if shard is None else shard.D
         if D <= self.thresh_sample:
-            return topk_threshold_ref(innov, self.k_of(D))
+            mag = torch.abs(innov)
+            if shard is not None:
+                mag = shard.col_gather(mag)
+            return topk_threshold_ref(mag, self.k_of(D))
         stride = D // self.thresh_sample
-        sub = torch.abs(innov[:, ::stride].to(torch.float32))
+        if shard is None:
+            sub = torch.abs(innov[:, ::stride].to(torch.float32))
+        else:
+            sub = torch.abs(shard.col_gather_strided(innov, stride)
+                            .to(torch.float32))
         kk = max(1, int(sub.shape[1] * self.density))
         return torch.topk(sub, kk, dim=1).values[:, -1:].contiguous()
 
-    def encode(self, x, gen=None, err=None, u=None):
+    def encode(self, x, gen=None, err=None, u=None, shard=None):
         _require_err(self, err)
         innov = x.to(torch.float32) - err
-        q = sparsify_topk(innov, self._threshold(innov))
+        q = sparsify_topk(innov, self._threshold(innov, shard))
         del innov
         mirror = q.add_(err)  # err + q, into the sparsified panel's memory
         return mirror, _storage_back(x.dtype), mirror

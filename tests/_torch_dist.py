@@ -1,4 +1,5 @@
-"""Multi-rank runs of the port on the CPU for ``tests/test_torch_sharded.py``.
+"""Multi-rank runs of the port on the CPU for ``tests/test_torch_sharded.py``
+and ``tests/test_torch_sharded_options.py``.
 
 :func:`spawn` starts ``world`` processes of this file (gloo, a ``file://``
 rendezvous in the test's tmp dir, so xdist workers cannot collide on a TCP
@@ -21,7 +22,25 @@ Modes:
               round, an idle round, the final merge) with an extra unused
               bf16 leaf of 5 columns, sharded and on one process;
   launch   -- launch/train.py with the remaining arguments (every rank;
-              the mesh comes from --mesh).
+              the mesh comes from --mesh);
+  codecs   -- (test_torch_sharded_options.py) every lossy wire codec on a
+              seeded panel (float32 2 x 1024 columns: shards of 1024, a
+              multiple of 512 and of int4's 128; bfloat16 33, whole) on the
+              (1, 2, 2, 1) mesh: the encode with supplied uniforms, the mix
+              with the folded mean and the error-feedback or mirror panel,
+              Xi, then the global merge, gathered; rank 0 adds the
+              single-process results (the same generator seeds);
+  merges   -- every merge operator's merge_row (with statistics moved off
+              their initial values, with and without a live mask), a lossy
+              merge_panel under a live mask, and the distributed TIES
+              thresholds on rows with tied magnitudes, a NaN and zeros, at
+              small gather and selection slabs, gathered; rank 0 adds the
+              single-process results and the inputs;
+  options  -- reduced() olmo-1b segments (4 agents) under OPTION_CASES'
+              combinations of codec, merge operator, residency policy,
+              fault plan and telemetry, sharded and on one process;
+  ipc      -- (test_torch_cuda.py, on the card) the four ranks' mesh
+              collectives through the CUDA IPC exchange buffers.
 """
 from __future__ import annotations
 
@@ -196,6 +215,361 @@ def mode_segment(tmp):
     torch.save(out, os.path.join(tmp, f"rank{mesh.rank}.pt"))
 
 
+def _codec_tree(m=4, seed=3):
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    return {"w": torch.from_numpy(rng.standard_normal((m, 2, 1024))
+                                  .astype(np.float32)),
+            "emb": torch.from_numpy(rng.standard_normal((m, 33))
+                                    .astype(np.float32)).to(torch.bfloat16)}
+
+
+CODEC_CASES = ("int8", "int8_ef", "int8_ef native", "int4", "int4_ef",
+               "topk", "topk strided")
+
+
+def _codec(name):
+    from repro_torch.wire import CODECS, Int8Codec, TopKCodec
+    if name == "int8_ef native":
+        return Int8Codec("int8_ef", error_feedback=True, draws="kernel")
+    if name == "topk strided":
+        # 2048 columns over a sample of 60: stride 34, 31 samples in the
+        # first shard and 30 in the second
+        return TopKCodec("topk", density=0.125, thresh_sample=60)
+    return CODECS[name]
+
+
+def _small_slabs():
+    """Gather, selection and residency slabs far below the shards' width,
+    so every sharded op runs over several slabs with a ragged last one
+    (the residency's 2^17-column slabs: a shard boundary inside one)."""
+    from repro_torch.core import panel
+    from repro_torch.merging import ops
+    from repro_torch.residency import storage
+    panel.GATHER_SLAB = 300
+    ops.TIES_SLAB = 250
+    storage.SLAB = 1 << 17
+
+
+def mode_codecs(tmp):
+    import numpy as np
+    import torch
+    from repro_torch.core import panel
+    from repro_torch.core.topology import random_matching
+    from repro_torch.launch.mesh import make_debug_mesh
+    _small_slabs()
+    mesh = make_debug_mesh(agents=2, fsdp=2, model=1, device="cpu")
+    tree = _codec_tree()
+    base = panel.make_spec(tree)
+    full = panel.to_panel(tree, base)
+    W = random_matching(4, 0.9, np.random.default_rng(1)).astype(np.float32)
+    u = {k: torch.from_numpy(np.random.default_rng(9).random(x.shape)
+                             .astype(np.float32)) for k, x in full.items()}
+    out = {}
+
+    def run(pan, spec, single):
+        codec = _codec(name)
+        err = None
+        if codec.error_feedback:
+            err = {k: codec.init_err(x) for k, x in full.items()}
+            if not single:
+                err = panel.shard_panel(err, spec)
+        gen = torch.Generator().manual_seed(5)
+        res = {}
+        if codec.needs_key and name != "int8_ef native":
+            res["view"] = {k: codec.encode(
+                pan[k], u=u[k], err=None if err is None else err[k],
+                shard=None if single else spec.shard(k))[0]
+                for k in sorted(pan)}
+        mixed, mean, ne = panel.mix_dense_mean(pan, W, spec=spec, gen=gen,
+                                               err=err)
+        res["xi"] = {"xi": panel.consensus_from_mean(mixed, mean, spec=spec)}
+        res["mean"] = mean
+        res["mix"] = mixed
+        if ne is not None:
+            res["err"] = ne
+        gm = panel.global_merge(mixed, spec=spec, gen=gen, err=ne)
+        if ne is not None:
+            gm, res["gm_err"] = gm
+        res["gm"] = gm
+        return res
+
+    for name in CODEC_CASES:
+        spec1 = panel.with_wire(base, _codec(name))
+        spec = panel.shard_spec(spec1, mesh)
+        res = run(panel.shard_panel(full, spec), spec, False)
+        for part, d in res.items():
+            if part == "mean":
+                d = {k: panel.gather_cols(v, spec, k) for k, v in d.items()}
+            elif part != "xi":
+                d = panel.gather_panel(d, spec)
+            for k, v in d.items():
+                out[f"{name}.{part}.{k}"] = v
+        if mesh.rank == 0:
+            for part, d in run(full, spec1, True).items():
+                for k, v in d.items():
+                    out[f"single.{name}.{part}.{k}"] = v
+    torch.save(out, os.path.join(tmp, f"rank{mesh.rank}.pt"))
+
+
+MERGE_OPS = ("uniform", "weighted", "var", "fisher", "ties", "swa")
+MERGE_LIVE = (True, False, True, True)
+
+
+def _merge_inputs():
+    """The codec panel, a second panel the round statistics take and a
+    gradient panel the Fisher statistics take (float32 group only for the
+    statistics' EMAs to move), each seeded."""
+    import numpy as np
+    import torch
+    from repro_torch.core import panel
+    tree = _codec_tree()
+    spec = panel.make_spec(tree)
+    full = panel.to_panel(tree, spec)
+    rng = np.random.default_rng(4)
+    later = {k: (x.float() + torch.from_numpy(rng.standard_normal(
+        x.shape).astype(np.float32)) * 0.3).to(x.dtype)
+        for k, x in full.items()}
+    grads = {k: torch.from_numpy(rng.standard_normal(x.shape)
+                                 .astype(np.float32)) for k, x in full.items()}
+    return spec, full, later, grads
+
+
+def _merge_stats(name, full, later, grads):
+    from repro_torch.merging import get_merger
+    mg = get_merger(name)
+    stats = mg.init_stats(full)
+    if mg.round_stat:
+        stats = mg.update_round(stats, later)
+    if mg.local_stat:
+        stats = mg.update_local(stats, grads)
+    return stats or None
+
+
+def _ties_rows():
+    """(4, 2048) deviations: random; magnitudes drawn from 5 values (ties
+    across the two shards); a NaN in the second shard; zeros."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(8)
+    tau = rng.standard_normal((4, 2048)).astype(np.float32)
+    tau[1] = rng.choice([-2.0, -1.0, 0.0, 1.0, 2.0], 2048).astype(np.float32)
+    tau[2, 1500] = np.nan
+    tau[3] = 0.0
+    return torch.from_numpy(tau)
+
+
+def mode_merges(tmp):
+    import numpy as np
+    import torch
+    from repro_torch.core import panel
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.merging import get_merger, merge_panel
+    from repro_torch.merging.ops import ties_thresh_sharded
+    _small_slabs()
+    mesh = make_debug_mesh(agents=2, fsdp=2, model=1, device="cpu")
+    base, full, later, grads = _merge_inputs()
+    spec = panel.shard_spec(base, mesh)
+    local = panel.shard_panel(full, spec)
+    out = {}
+    for name in MERGE_OPS:
+        stats = _merge_stats(name, full, later, grads)
+        st_loc = None if stats is None else {
+            n: panel.shard_panel(v, spec) for n, v in stats.items()}
+        for tag, live in (("all", None), ("live", MERGE_LIVE)):
+            row = get_merger(name).merge_row(local, stats=st_loc, live=live,
+                                             spec=spec)
+            for k, v in row.items():
+                out[f"{name}.{tag}.{k}"] = panel.gather_cols(v, spec, k)
+            if mesh.rank == 0:
+                for k, v in get_merger(name).merge_row(
+                        full, stats=stats, live=live).items():
+                    out[f"single.{name}.{tag}.{k}"] = v
+        if mesh.rank == 0 and stats is not None:
+            for n, v in stats.items():
+                for k, x in v.items():
+                    out[f"stats.{name}.{n}.{k}"] = x
+    # a lossy merge round under a live mask: dead rows and their
+    # error-feedback rows pass through
+    from repro_torch.wire import CODECS
+    codec = CODECS["int8_ef"]
+    wspec1 = panel.with_wire(base, "int8_ef")
+    wspec = panel.shard_spec(wspec1, mesh)
+    err = {k: codec.init_err(x) + 0.01 for k, x in full.items()}
+    mixed, _, ne = merge_panel(
+        local, "ties", spec=wspec, gen=torch.Generator().manual_seed(2),
+        err=panel.shard_panel(err, wspec), live=MERGE_LIVE)
+    for part, d in (("mix", mixed), ("err", ne)):
+        for k, v in panel.gather_panel(d, wspec).items():
+            out[f"merge_panel.{part}.{k}"] = v
+    if mesh.rank == 0:
+        m1, _, ne1 = merge_panel(full, "ties", spec=wspec1,
+                                 gen=torch.Generator().manual_seed(2),
+                                 err=err, live=MERGE_LIVE)
+        for part, d in (("mix", m1), ("err", ne1)):
+            for k, v in d.items():
+                out[f"single.merge_panel.{part}.{k}"] = v
+    # the distributed TIES thresholds
+    tau = _ties_rows()
+    tspec = panel.shard_spec(panel.make_spec({"t": tau}), mesh)
+    tloc = panel.shard_panel({"float32": tau}, tspec)["float32"]
+    for trim in (0.2, 0.5, 1.0):
+        th = ties_thresh_sharded(lambda lo, hi: tloc[:, lo:hi],
+                                 tloc.shape[0], tloc.shape[1], trim,
+                                 tspec.shard("float32"))
+        out[f"ties_thresh.{trim}"] = panel.gather_rows(th, tspec, "float32")
+    out["tau"] = tau
+    torch.save(out, os.path.join(tmp, f"rank{mesh.rank}.pt"))
+
+
+# label: (wire, merge operator, residency policy, fused, fault plan,
+# telemetry); reduced() olmo-1b at 4 agents, OPT_ROUNDS rounds
+OPTION_CASES = {
+    "int8_ef var moments=int8 fused telemetry": (
+        "int8_ef", "var", "moments=int8", True, None, True),
+    "int8_ef native stats=int8r moments=int8 unfused": (
+        "native", "var", "moments=int8,stats=int8r", False, None, False),
+    "topk ties faults telemetry": ("topk", "ties", None, None, "1@0-1",
+                                   True),
+    "int4_ef fisher moments=int8g wire_err=int8r": (
+        "int4_ef", "fisher", "moments=int8g,wire_err=int8r", None, None,
+        False),
+    "int4 swa moments=bf16 stats=bf16 faults": (
+        "int4", "swa", "moments=bf16,stats=bf16", None, "2@1", False),
+    "int8 weighted faults moments=int8 fused": (
+        "int8", "weighted", "moments=int8", True, "3@0-2", True),
+}
+OPT_M, OPT_ROUNDS, OPT_H = 4, 3, 2
+
+
+def _option_inputs(plan):
+    """(Ws, global, live, batches) of OPT_ROUNDS rounds of the final-merge
+    schedule (a gossip round, another, the merge) under ``plan``."""
+    import numpy as np
+    from repro_torch.core.faults import FaultPlan
+    from repro_torch.core.schedule import make_schedule
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.launch import train
+    from repro_torch.configs import get_config
+    kw = {} if plan is None else {"faults": FaultPlan.parse(OPT_M, plan)}
+    sched = make_schedule("final_merge", OPT_M, OPT_ROUNDS, prob=1.0, seed=0,
+                          **kw)
+    Ws, glob, live = [], [], []
+    for t in range(OPT_ROUNDS):
+        Ws.append(np.asarray(sched.mixing_matrix(t), np.float32))
+        glob.append(sched.last_kind == "global")
+        live.append(np.ones(OPT_M, np.int64) if sched.last_live is None
+                    else np.asarray(sched.last_live, np.int64))
+    cfg = get_config("olmo-1b").reduced()
+    lm = SyntheticLM(vocab=cfg.vocab_size, seed=0)
+    batches = train.sample_segment_batches(
+        lm, lm.domain_mixtures(OPT_M, 0.1, seed=1), OPT_ROUNDS, OPT_H, 2, 16,
+        np.random.default_rng(2))
+    return (np.stack(Ws), np.asarray(glob),
+            None if plan is None else np.stack(live), batches)
+
+
+def mode_options(tmp, *labels):
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import dsgd, panel
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import build_model
+    from repro_torch.optim import make_optimizer
+    from repro_torch.wire import Int8Codec
+    _small_slabs()
+    mesh = make_debug_mesh(agents=2, fsdp=2, model=1, device="cpu")
+    model = build_model(get_config("olmo-1b").reduced())
+    out = {}
+    for label in labels or OPTION_CASES:
+        wire, merger, res, fused, plan, tele = OPTION_CASES[label]
+        if wire == "native":
+            wire = Int8Codec("int8_ef", error_feedback=True, draws="kernel")
+        Ws, glob, live, batches = _option_inputs(plan)
+        for where in ("shard", "single"):
+            if where == "single" and mesh.rank != 0:
+                continue
+            opt = make_optimizer("adamw", 3e-3, weight_decay=5e-4,
+                                 total_steps=OPT_ROUNDS * OPT_H)
+            kw = {"mesh": mesh} if where == "shard" else {"device": "cpu"}
+            state, spec = dsgd.init_panel_state(
+                model.init_params, opt, OPT_M, 0, wire=wire, merger=merger,
+                residency=res, **kw)
+            seg = dsgd.make_panel_segment(model.loss_fn, opt, OPT_H, spec,
+                                          fused=fused, telemetry=tele)
+            state, mets = seg(state, batches, Ws, 7, global_rounds=glob,
+                              live=live)
+            key = f"{label}.{where}"
+            for k, v in mets.items():
+                out[f"{key}.met.{k}"] = v
+            panels = {"panel": state["panel"]}
+            for mk in ("m", "v"):
+                panels[mk] = state["opt"][mk]
+            if "wire_err" in state:
+                panels["wire_err"] = state["wire_err"]
+            for n, v in state.get("merge_stat", {}).items():
+                panels[f"stat.{n}"] = v
+            for name, d in panels.items():
+                for k, v in d.items():
+                    for part, t in (v.items() if isinstance(v, dict)
+                                    else (("", v),)):
+                        if where == "shard" and (part != "scale"
+                                                 or t.shape[1] > 1):
+                            t = panel.gather_panel({k: t}, spec)[k] \
+                                if part != "scale" else _gather_scale(
+                                    t, spec, k)
+                        elif where == "shard":
+                            t = panel.gather_rows(t, spec, k)
+                        out[f"{key}.{name}.{k}.{part}"] = t
+            count = torch.as_tensor(state["opt"]["step_count"])
+            if where == "shard" and count.dim():  # an (rows,) count a rank
+                count = panel.gather_agents(count, spec)
+            out[f"{key}.step_count"] = count
+    torch.save(out, os.path.join(tmp, f"rank{mesh.rank}.pt"))
+
+
+def _gather_scale(t, spec, k):
+    """A grouped scale sidecar's shard (the rank's rows x its columns'
+    groups) -> the whole (m, groups) sidecar."""
+    import torch
+    from repro_torch.core import panel
+    rows = panel.gather_rows(t, spec, k)
+    return torch.stack([panel.gather_cols(r.contiguous(), spec, k)
+                        for r in rows])
+
+
+def mode_ipc(tmp):
+    """(test_torch_cuda.py, on the card) the (1, 2, 2, 1) mesh's four
+    ranks on one card: each line's all_gather and all_reduce (sum, max)
+    of a rank-seeded tensor through the CUDA IPC buffers, and of a tensor
+    larger than a buffer, which goes through it a buffer's worth at a
+    time."""
+    import torch
+    from repro_torch.launch.mesh import IPC_BYTES, make_debug_mesh
+    mesh = make_debug_mesh(agents=2, fsdp=2, model=1)
+    r, dev = mesh.rank, mesh.device
+    x = torch.arange(6, dtype=torch.float32, device=dev).view(2, 3) + 10 * r
+    # a tensor over the exchange buffer: two exchanges
+    big = torch.full((IPC_BYTES // 4 + 1,), float(r), device=dev)
+    big[-1] = -r
+    out = {"transport": mesh.transport,
+           "members": torch.tensor(mesh.members["rows"]
+                                   + mesh.members["fsdp"]),
+           "rows": mesh.all_gather(x, "rows").cpu(),
+           "fsdp": mesh.all_gather(x, "fsdp").cpu(),
+           "sum": mesh.all_reduce(x.clone(), "rows").cpu(),
+           "max": mesh.all_reduce(x.clone(), "fsdp", op="max").cpu(),
+           "ints": mesh.all_reduce(torch.full((3,), r + 1, dtype=torch.int64,
+                                              device=dev), "fsdp").cpu(),
+           "big": mesh.all_gather(big, "rows")[::1 << 20].cpu(),
+           "big_tail": mesh.all_gather(big[-2:], "rows").cpu(),
+           "big_max": mesh.all_reduce(big.clone(), "fsdp",
+                                      op="max")[-2:].cpu(),
+           "stats": mesh.stats}
+    torch.save(out, os.path.join(tmp, f"rank{r}.pt"))
+
+
 def mode_launch(tmp, *argv):
     from repro_torch.launch import train
     train.main(list(argv))
@@ -205,5 +579,6 @@ if __name__ == "__main__":
     import torch
     torch.set_num_threads(1)
     mode, tmp, rest = sys.argv[1], sys.argv[2], sys.argv[3:]
-    {"ops": mode_ops, "segment": mode_segment,
-     "launch": mode_launch}[mode](tmp, *rest)
+    {"ops": mode_ops, "segment": mode_segment, "launch": mode_launch,
+     "codecs": mode_codecs, "merges": mode_merges,
+     "options": mode_options, "ipc": mode_ipc}[mode](tmp, *rest)

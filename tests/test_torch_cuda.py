@@ -1361,3 +1361,53 @@ def test_merged_hybrid_served_on_card(cuda):
         alone = generate(model, merged, {"tokens": torch.from_numpy(
             r.tokens[None]).to(cuda)}, r.max_new, max_len=96)[0]
         np.testing.assert_array_equal(out[r.rid], alone)
+
+
+def test_native_quantize_of_a_block_on_the_card(cuda):
+    """The kernel-drawn quantize of a block of a panel (row0, col0: a
+    rank's shard) is that block of the whole panel's quantize and its
+    plain twin's."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn((6, 5000), generator=g, device=cuda)
+    s = int8_scale_ref(x)
+    seed = torch.tensor([991], dtype=torch.int32, device=cuda)
+    whole = quantize_int8_native(x, s, seed)
+    for r0, c0 in ((0, 2048), (2, 512), (5, 4608)):
+        blk, sb = x[r0:, c0:].contiguous(), s[r0:].contiguous()
+        q = quantize_int8_native(blk, sb, seed, row0=r0, col0=c0)
+        assert torch.equal(q, whole[r0:, c0:])
+        assert torch.equal(q, quantize_int8_native_ref(blk, sb, seed,
+                                                       row0=r0, col0=c0))
+
+
+def test_mesh_ranks_on_one_card_talk_through_cuda_ipc(cuda, tmp_path):
+    """Four ranks of the (1, 2, 2, 1) mesh on the one card: their
+    collectives go through the CUDA IPC buffers (a tensor over the buffer
+    a buffer's worth at a time, never through host memory) and give
+    gloo's results."""
+    import _torch_dist
+    from repro_torch.launch.mesh import IPC_BYTES
+    _torch_dist.spawn(4, "ipc", tmp_path, timeout=180)
+    ranks = [torch.load(tmp_path / f"rank{r}.pt", weights_only=False)
+             for r in range(4)]
+    base = torch.arange(6, dtype=torch.float32).view(2, 3)
+    for r, o in enumerate(ranks):
+        assert o["transport"] == "cuda ipc"
+        rows, fsdp = o["members"][:2].tolist(), o["members"][2:].tolist()
+        assert torch.equal(o["rows"], torch.cat([base + 10 * p
+                                                 for p in rows]))
+        assert torch.equal(o["fsdp"], torch.cat([base + 10 * p
+                                                 for p in fsdp]))
+        assert torch.equal(o["sum"], sum(base + 10 * p for p in rows))
+        assert torch.equal(o["max"], base + 10 * max(fsdp))
+        assert o["ints"].tolist() == [sum(p + 1 for p in fsdp)] * 3
+        n = IPC_BYTES // 4 + 1
+        whole = torch.cat([torch.full((n,), float(p)) for p in rows])
+        whole[n - 1::n] = -torch.tensor(rows, dtype=torch.float32)
+        assert torch.equal(o["big"], whole[::1 << 20])
+        assert o["big_tail"].tolist() == [x for p in rows
+                                          for x in (float(p), -float(p))]
+        assert o["big_max"].tolist() == [float(max(fsdp)),
+                                          -float(min(fsdp))]
+        assert o["stats"]["stage"] == 0  # nothing went through the host
+
