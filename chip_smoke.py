@@ -220,13 +220,35 @@ Phases, each printing its lines:
      (but swa, which merges its accumulators), the telemetry columns' loss,
      live and wire bytes equal and their norms within 1e-4, the native
      quantize once a communicating round; each run's rounds, evals, peak
-     and collective seconds a rank beside 12b's;
+     and collective seconds a rank beside 12b's; (d) sharded checkpoints:
+     the launcher (launch/train.py:run, phase 10a's cell and arguments) on
+     SHARD_MESH's 4 ranks with --checkpoint-every 1 --checkpoint-keep 1
+     saves each rank's blocks of the 22.8 GB state after its first
+     segment, in parts, and is SIGKILLed (rank 1 first) once MANIFEST.json
+     names the step (the disk checked first for CKPT_DISK_SHARE times the
+     state); then --resume on SHARD_MESH, on (1, 4, 1, 1) and on one
+     process, each held to phase 10a's run: the restored step, the losses
+     and evals bit for bit, grad norms and Xi within 1e-6, Xi 0.0 and
+     merged == local after the merge, the final state's fingerprint
+     (summed over the ranks) bit for bit, the mix and the reduce launched
+     on every rank; each rank's bytes written, pack + write and restore
+     seconds printed; (e) the dry run (launch/dryrun.py:reckon, traced on
+     the host in a child started before phase 11, no card) of 12b's and
+     12c (A)'s runs: its peak a rank within DRY_PEAK_SHARE of each rank's
+     measured peak, its collective calls and bytes equal to each rank's
+     Mesh.stats, no host read of a traced value, the card's memory
+     equal to the figure the dry run's ``fits`` reads, what a 12b rank
+     holds beyond its peak (its CUDA context and its allocator's reserve)
+     under ``hardware.RANK_RESERVE_BYTES``, and the reckoned device total
+     (``dryrun.device_total``: peak, reserve, IPC buffer) within
+     DRY_PEAK_SHARE of each 12b rank's measured one;
 then the script's total time, a JSON line of per-kernel numbers (the
 flash rows with their hd96, hd256 and hd256_h10 timings and the
 backward's own kernels' times, kernels_ms; every row with its phase-11
 launches by cell, ``launches_arch``, and phase 12's, ``launches_phase12``:
-bf16_params (12a), sharded (12b) and sharded_options (12c, summed over the
-ranks and the runs);
+bf16_params (12a), sharded (12b), sharded_options (12c, summed over the
+ranks and the runs) and sharded_checkpoint (12d's resumed runs, summed
+over their ranks);
 the mix's bf16 and f16 and the reduce's bf16 and f16 sub-rows, each with
 that variant's own launches: the bf16 wire path's for bf16, the main
 path's for f16, and its own ``launches_phase12``), the
@@ -249,10 +271,14 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-# NVIDIA H100 SXM published peaks (data sheet; dense, at the 700 W limit)
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS = 67e12
-TF32_SPLIT_FLOPS = 495e12 / 3  # TF32 tensor cores, 3 products a float32 one
+# NVIDIA H100 SXM published peaks (data sheet; dense, at the 700 W limit),
+# from the port's one module of them (run alone, without the port beside
+# it, main() says so and exits 2)
+try:
+    from repro_torch.hardware import FP32_FLOPS, HBM_BYTES_PER_S
+    from repro_torch.hardware import SPLIT_TF32_FLOPS as TF32_SPLIT_FLOPS
+except ImportError:
+    FP32_FLOPS = HBM_BYTES_PER_S = TF32_SPLIT_FLOPS = None
 
 M = 8                 # agents
 ROUNDS, H = 4, 2      # rounds, local steps per round
@@ -2698,7 +2724,8 @@ def launcher_run(torch, main, tmp):
     check(wire == want, f"launcher: wire bytes {wire} != {want}")
     check(abs(peak - main["peak"]) <= 1e9,
           f"launcher: peak {peak} not within 1 GB of {main['peak']}")
-    return counts, {"seconds": dt, "peak": peak, "trace": trace}
+    return counts, {"seconds": dt, "peak": peak, "trace": trace, **got,
+                    "fingerprint": fingerprint}
 
 
 def fault_smoke_children(torch, tmp):
@@ -2992,6 +3019,13 @@ def sharded_child(kind):
     mesh.all_reduce(one, "rows")
     rec["all_reduce"] = one.tolist()
     rec["peak"] = torch.cuda.max_memory_allocated(dev)
+    rec["reserved"] = torch.cuda.memory_reserved(dev)
+    rec["max_reserved"] = torch.cuda.max_memory_reserved(dev)
+    if kind == "gloo4":  # the card's used bytes, every rank holding its own
+        dist.barrier()
+        free, total = torch.cuda.mem_get_info(dev)
+        rec["card_used"] = total - free
+        dist.barrier()
     print("SHARD " + json.dumps(rec), flush=True)
     del state, seg
     dist.destroy_process_group()
@@ -3051,6 +3085,8 @@ def sharded_phase(torch, main):
     import tempfile
     torch.cuda.empty_cache()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_shard_")
+    free, total = torch.cuda.mem_get_info()
+    parent_used = total - free  # this process's context and reserve
     t0 = time.perf_counter()
     recs = _run_ranks("gloo4", 4, tmp)
     wall = time.perf_counter() - t0
@@ -3119,7 +3155,8 @@ def sharded_phase(torch, main):
           and abs(one["xis"][0] - main["xis"][0])
           <= 1e-6 * abs(main["xis"][0]),
           f"world 1: round 0 {one['losses'][0]!r} {one['xis'][0]!r}")
-    return counts, {"recs": recs, "nccl": one, "wall": wall}
+    return counts, {"recs": recs, "nccl": one, "wall": wall,
+                    "parent_used": parent_used}
 
 
 # phase 12c: the sharded run's other options (ROADMAP A16b) on SHARD_MESH
@@ -3621,6 +3658,424 @@ def options_phase(torch, main, sharded):
           f"{[round(max(r['times'][t] for r in b12), 3) for t in range(ROUNDS)]}"
           f" and peak {max(r['peak'] for r in b12)}", flush=True)
     return counts, {"recs": recs, "singles": singles}
+
+
+# phase 12d: sharded checkpoints (ROADMAP A16b'): the launcher on SHARD_MESH
+# with --checkpoint-every 1 --checkpoint-keep 1 saves each rank's blocks
+# after its first segment (the main path's cell, LAUNCHER_ARGS: rounds 0-1),
+# is killed (rank 1 first) once MANIFEST.json names the step, and resumes
+# from that step on CKPT_RESUMES' layouts in turn; each resumed run is held
+# against phase 10a's uninterrupted one-process launcher run. The
+# checkpoint directory (about 22.8 GB) lives in the checkout and is removed
+# at the end; the disk must hold CKPT_DISK_SHARE times it.
+CKPT_RESUMES = (("same mesh", 4, "1,2,2,1"), ("1,4,1,1", 4, "1,4,1,1"),
+                ("one process", 1, None))
+CKPT_DISK_SHARE = 1.25
+CKPT_TIMEOUT = 300
+# phase 12e: the dry run (launch/dryrun.py:reckon) of 12b's and 12c (A)'s
+# configurations, traced on the host in a child started before phase 11;
+# its peak a rank within DRY_PEAK_SHARE of each rank's measured one
+DRY_PEAK_SHARE = 0.10
+DRY_TIMEOUT = 900
+
+
+def ckpt_child():
+    """One rank (or the one process) of phase 12d: launch/train.py:run on
+    the main path's cell with the arguments in CKPT_ARGS. Prints "CKPT
+    {json}" once its checkpoint is written (bytes and seconds of the pack
+    and write) and "SHARD {json}" at the end: the history, the final
+    state's fingerprint part, the restore's seconds, the transport,
+    launch counts and peak."""
+    import torch
+
+    import repro_torch  # noqa: F401  (sets TF32 off)
+    from repro_torch.checkpoint import io as ckpt_io
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import train
+    args = train.parse_args(json.loads(os.environ["CKPT_ARGS"]))
+    cfg = get_config("olmo-1b").replace(num_layers=2)
+    lm = SyntheticLM(vocab=DATA_VOCAB, num_domains=8, seed=0)
+    rec = {"rank": int(os.environ.get("RANK", "0")), "restore_s": None,
+           "transport": "one process"}
+    commit, restore = (ckpt_io.ShardedCheckpointer._commit,
+                       ckpt_io.restore_latest)
+    make, build_mesh = train.dsgd.make_panel_segment, train.build_mesh
+    last = {}
+
+    def timed_commit(self, step, flat, *a):
+        t0 = time.perf_counter()
+        commit(self, step, flat, *a)
+        # the process's own stdout: the launcher sends the console of
+        # ranks but 0 to os.devnull
+        print("CKPT " + json.dumps({
+            "rank": self.rank, "step": step, "seconds":
+                time.perf_counter() - t0,
+            "bytes": sum(a.nbytes for _, a, _ in flat.values())}),
+            file=sys.__stdout__, flush=True)
+
+    def timed_restore(*a, **kw):
+        t0 = time.perf_counter()
+        out = restore(*a, **kw)
+        torch.cuda.synchronize()
+        rec["restore_s"] = time.perf_counter() - t0
+        rec["restored_step"] = None if out is None else out[0]
+        rec["restore_peak"] = torch.cuda.max_memory_allocated()
+        return out
+
+    def keeping(loss_fn, opt, H_, spec, **kw):
+        seg = make(loss_fn, opt, H_, spec, **kw)
+        last["spec"] = spec
+
+        def run_seg(*sa, **skw):
+            out = seg(*sa, **skw)
+            last["state"] = out[0]
+            return out
+        return run_seg
+
+    def noting(*a, **kw):
+        mesh = build_mesh(*a, **kw)
+        rec["transport"] = mesh.transport
+        return mesh
+
+    ckpt_io.ShardedCheckpointer._commit = timed_commit
+    ckpt_io.restore_latest = timed_restore
+    train.dsgd.make_panel_segment, train.build_mesh = keeping, noting
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    hist = train.run(args, cfg=cfg, lm=lm)
+    torch.cuda.synchronize()
+    rec["seconds"] = time.perf_counter() - t0
+    rec["counts"] = launch_counts()
+    rec["peak"] = torch.cuda.max_memory_allocated()
+    spec = last["spec"]
+    rec["fingerprint"] = state_fingerprint(
+        torch, last.pop("state"), col0=spec.col_range("float32")[0])
+    rec["history"] = hist
+    print("SHARD " + json.dumps(rec), flush=True)
+
+
+CKPT_CHILD = ("import sys\n"
+              "sys.path.insert(0, sys.argv[1])\n"
+              "import chip_smoke\n"
+              "chip_smoke.ckpt_child()\n")
+
+
+def _ckpt_ranks(world, argv, tmp, kill_when=None):
+    """Start ``world`` launcher children (``world`` 4: SHARD_MESH's ranks
+    over a file:// rendezvous in ``tmp``; 1: one process) with ``argv``;
+    returns {rank: [output lines]}. With ``kill_when`` (a callable of the
+    lines so far) the children are SIGKILLed, rank 1 first, once it holds,
+    else each must exit 0 within CKPT_TIMEOUT."""
+    import signal
+    import threading
+    env = dict(os.environ, CKPT_ARGS=json.dumps(argv),
+               PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    if world > 1:
+        env.update(WORLD_SIZE=str(world), LOCAL_WORLD_SIZE=str(world),
+                   REPRO_TORCH_INIT_METHOD=f"file://{tmp}/rdv_{time.time()}")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", CKPT_CHILD, ROOT],
+        env=dict(env, RANK=str(r), LOCAL_RANK=str(r)) if world > 1 else env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    lines = {r: [] for r in range(world)}
+
+    def pump(r, p):
+        for ln in p.stdout:
+            lines[r].append(ln.rstrip("\n"))
+
+    pumps = [threading.Thread(target=pump, args=(r, p), daemon=True)
+             for r, p in enumerate(procs)]
+    for t in pumps:
+        t.start()
+    deadline = time.monotonic() + CKPT_TIMEOUT
+    try:
+        if kill_when is not None:
+            while not kill_when(lines):
+                check(time.monotonic() < deadline and all(
+                    p.poll() is None for p in procs),
+                      "phase 12d: the checkpointed run ended or stalled "
+                      "before its step was committed:\n" + "\n".join(
+                          "\n".join(v[-20:]) for v in lines.values()))
+                time.sleep(0.05)
+            for r in [1] + [r for r in range(world) if r != 1]:
+                procs[r].send_signal(signal.SIGKILL)
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for t in pumps:
+            t.join(timeout=10)
+    if kill_when is None:
+        bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+        check(not bad, "phase 12d: ranks failed:\n" + "\n".join(
+            f"--- rank {r}:\n" + "\n".join(lines[r][-40:]) for r in bad))
+    return lines
+
+
+def _tagged(lines, tag):
+    return [json.loads(ln[len(tag) + 1:]) for ln in lines
+            if ln.startswith(tag + " ")]
+
+
+def ckpt_phase(torch, launcher):
+    """Phase 12d: the killed-and-resumed sharded launcher at full width (see
+    CKPT_RESUMES). Gates: the disk holds CKPT_DISK_SHARE times the state
+    (else it fails by name), MANIFEST.json names step 2 with every rank's
+    parts, each resume restores step 2 and its history's losses and evals
+    equal phase 10a's bit for bit (grad norms and Xi within 1e-6, summed
+    over the ranks in another order), Xi 0.0 and merged == local after the
+    merge, its final state's fingerprint (summed over the ranks) equal to
+    phase 10a's, the 4-rank runs over CUDA IPC, and gossip_mix and
+    panel_mean_consensus launched on every rank. Prints each rank's bytes
+    written, its pack + write and its restore seconds."""
+    import shutil
+    t_phase = time.perf_counter()
+    need = 3 * 4 * M * launcher["width"]  # the panel, two moments: float32
+    free = shutil.disk_usage(ROOT).free
+    check(free >= CKPT_DISK_SHARE * need,
+          f"phase 12d: the checkpoint takes {need} B; the disk under {ROOT} "
+          f"has {free} B free, under {CKPT_DISK_SHARE} x that")
+    tmp = os.path.join(ROOT, f".ckpt_12d_{os.getpid()}")
+    ck = os.path.join(tmp, "ckpt")
+    os.makedirs(tmp)
+    base = LAUNCHER_ARGS + ["--checkpoint-dir", ck]
+    try:
+        t0 = time.perf_counter()
+
+        def committed(lines):
+            try:
+                with open(os.path.join(ck, "MANIFEST.json")) as f:
+                    man = json.load(f)
+            except (OSError, ValueError):
+                return False
+            steps = [c["step"] for c in man["checkpoints"]]
+            return 2 in steps and all(_tagged(v, "CKPT") for v in
+                                      lines.values())
+        lines = _ckpt_ranks(4, base + [
+            "--mesh", ",".join(map(str, SHARD_MESH)), "--checkpoint-every",
+            "1", "--checkpoint-keep", "1", "--out",
+            os.path.join(tmp, "kill")], tmp, kill_when=committed)
+        t_kill = time.perf_counter() - t0
+        with open(os.path.join(ck, "MANIFEST.json")) as f:
+            entry = json.load(f)["checkpoints"][-1]
+        saves = {r: _tagged(v, "CKPT")[0] for r, v in lines.items()}
+        written = {r: sum(p["bytes"] for p in entry["parts"]
+                          if p["rank"] == r) for r in range(4)}
+        print(f"sharded checkpoint (phase 12d, {card_line()}): mesh "
+              f"{SHARD_MESH}, step {entry['step']}, {len(entry['parts'])} "
+              f"parts, {sum(written.values())} B on disk (state {need} B); "
+              f"the run killed (rank 1 first) once the manifest named it, "
+              f"{t_kill:.1f}s; per rank: bytes written "
+              f"{[written[r] for r in range(4)]}, pack + write (s) "
+              f"{[round(saves[r]['seconds'], 3) for r in range(4)]}",
+              flush=True)
+        check(entry["step"] == 2 and {p["rank"] for p in entry["parts"]}
+              == set(range(4)), f"phase 12d: manifest entry {entry}")
+        counts = {}
+        for label, world, shape in CKPT_RESUMES:
+            t0 = time.perf_counter()
+            lines = _ckpt_ranks(world, base + [
+                "--resume", "--out", os.path.join(tmp, label)]
+                + ([] if shape is None else ["--mesh", shape]), tmp)
+            recs = [_tagged(lines[r], "SHARD")[-1] for r in range(world)]
+            wall = time.perf_counter() - t0
+            fp = {n: [_wrap64(sum(r["fingerprint"][n][i] for r in recs))
+                      for i in (0, 1)] for n in ("panel", "m", "v")}
+            hist = recs[0]["history"]
+            got = {"losses": [h["train_loss"] for h in hist],
+                   "merged": hist[-1]["merged_eval"],
+                   "local": hist[-1]["local_eval"]}
+            print(f"resumed on {label} (phase 12d, {card_line()}): "
+                  f"{wall:.1f}s for the world; restore (s) "
+                  f"{[round(r['restore_s'], 3) for r in recs]}, run (s) "
+                  f"{[round(r['seconds'], 3) for r in recs]}, peak "
+                  f"{[r['peak'] for r in recs]} B (by the restore's end "
+                  f"{[r['restore_peak'] for r in recs]}), "
+                  f"{recs[0]['transport']}; "
+                  f"losses {got['losses']} against phase 10a's "
+                  f"{launcher['losses']}; evals {got['merged']!r} "
+                  f"{got['local']!r}; fingerprint equal to 10a's "
+                  f"{fp == launcher['fingerprint']}", flush=True)
+            for r in recs:
+                check(r["restored_step"] == 2,
+                      f"phase 12d {label}: rank {r['rank']} restored step "
+                      f"{r['restored_step']}")
+                check(r["history"] == hist, f"phase 12d {label}: the ranks' "
+                                            "histories differ")
+                check(world == 1 or r["transport"] == "cuda ipc",
+                      f"phase 12d {label}: {r['transport']}")
+                check(r["counts"]["gossip_mix"] > 0
+                      and r["counts"]["panel_mean_consensus"] > 0,
+                      f"phase 12d {label}: rank {r['rank']} launched "
+                      f"{r['counts']}")
+                for k, n in r["counts"].items():
+                    counts[k] = counts.get(k, 0) + n
+            check(got["losses"] == launcher["losses"]
+                  and got["merged"] == launcher["merged"]
+                  and got["local"] == launcher["local"],
+                  f"phase 12d {label}: {got} against phase 10a's")
+            for key, name in (("grad_norms", "grad_norm"),
+                              ("xis", "consensus")):
+                vals = [h[name] for h in hist]
+                check(all(abs(a - b) <= 1e-6 * abs(b) for a, b in
+                          zip(vals, launcher[key])),
+                      f"phase 12d {label}: {key} {vals} against "
+                      f"{launcher[key]}")
+            check(hist[-1]["consensus"] == 0.0
+                  and abs(got["local"] - got["merged"])
+                  <= 1e-6 * abs(got["merged"]),
+                  f"phase 12d {label}: last round {hist[-1]}")
+            check(fp == launcher["fingerprint"],
+                  f"phase 12d {label}: final state {fp} against phase "
+                  f"10a's {launcher['fingerprint']}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    dt = time.perf_counter() - t_phase
+    print(f"sharded checkpoints (phase 12d, {card_line()}): {dt:.1f}s",
+          flush=True)
+    return counts, {"seconds": dt, "written": written}
+
+
+def reckon_child(out):
+    """Phase 12e's host work (on the CPU, no card): launch/dryrun.py's
+    reckon of phase 12b's run and of 12c's run (A), rank 0 of SHARD_MESH,
+    written to ``out`` as JSON."""
+    import torch
+    torch.set_num_threads(2)
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.wire import Int8Codec
+    cfg = get_config("olmo-1b").replace(num_layers=2)
+    res = {}
+    for label, rounds, kw in (
+            ("12b", ROUNDS, {}),
+            ("12c A", OPT_ROUNDS, {
+                "wire": Int8Codec("int8_ef", error_feedback=True,
+                                  draws="kernel"),
+                "merger": "var", "residency": "moments=int8", "fused": True,
+                "telemetry": True})):
+        per_round, _ = segment_inputs(cfg, M, rounds, data_vocab=DATA_VOCAB)
+        t0 = time.perf_counter()
+        r = dryrun.reckon(cfg, SHARD_MESH, agents=M, local_steps=H,
+                          batch=BATCH, seq=SEQ, route="cuda ipc",
+                          rounds=[(W, g, lv) for W, _, g, lv in per_round],
+                          **kw)
+        res[label] = {k: r[k] for k in ("state_bytes", "peak", "init",
+                                        "run", "host_reads", "flops")}
+        res[label]["seconds"] = time.perf_counter() - t0
+    with open(out, "w") as f:
+        json.dump(res, f)
+
+
+RECKON_CHILD = ("import sys\n"
+                "sys.path.insert(0, sys.argv[1])\n"
+                "import chip_smoke\n"
+                "chip_smoke.reckon_child(sys.argv[2])\n")
+
+
+def start_reckon():
+    """Start reckon_child in a process of its own, with no card visible;
+    returns (process, output path)."""
+    import tempfile
+    fd, out = tempfile.mkstemp(prefix="chip_smoke_reckon_", suffix=".json")
+    os.close(fd)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="2",
+               PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.Popen([sys.executable, "-c", RECKON_CHILD, ROOT, out],
+                            env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, out
+
+
+def dryrun_phase(torch, reckoning, sharded, options):
+    """Phase 12e: the dry run's reckoning of 12b's and 12c (A)'s runs
+    against what they measured, rank by rank: the peak a rank within
+    DRY_PEAK_SHARE of the measured max_memory_allocated, the collective
+    bytes and calls equal to the run's Mesh.stats (12b's counted after the
+    init, 12c's from before it, as each run reset them); and the card's
+    memory the dry run's ``fits`` reads (``hardware.MEMORY_BYTES``) the
+    card's own. The memory a 12b rank holds beyond its peak: the card's
+    used bytes with every rank alive, less this process's, the ranks'
+    allocator reserves and their IPC buffers, over the ranks (each rank's
+    context), plus each rank's reserve over its peak; gated under
+    ``hardware.RANK_RESERVE_BYTES``, and 12b's reckoned
+    ``dryrun.device_total`` within DRY_PEAK_SHARE of what each rank's
+    measured peak, reserve and buffer come to."""
+    from repro_torch import hardware
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import IPC_BYTES
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"dry run (phase 12e, {card_line()}): the card's memory {total} B"
+          f", hardware.MEMORY_BYTES {hardware.MEMORY_BYTES}", flush=True)
+    check(total == hardware.MEMORY_BYTES,
+          f"phase 12e: the card has {total} B, the dry run reckons with "
+          f"{hardware.MEMORY_BYTES}")
+    proc, out = reckoning
+    try:
+        log = proc.communicate(timeout=DRY_TIMEOUT)[0]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    check(proc.returncode == 0, f"phase 12e: the reckoning failed:\n"
+                                f"{log[-3000:]}")
+    with open(out) as f:
+        res = json.load(f)
+    os.remove(out)
+    runs = {"12b": ([r for r in sharded["recs"]], ("run",)),
+            "12c A": ([r["runs"]["A"] for r in options["recs"]],
+                      ("init", "run"))}
+    for label, (recs, parts) in runs.items():
+        r = res[label]
+        calls = sum(r[p]["calls"] for p in parts)
+        nbytes = sum(r[p]["bytes"] for p in parts)
+        peaks = [x["peak"] for x in recs]
+        comm = [(int(x["comm"]["calls"]), int(x["comm"]["bytes"]))
+                for x in recs]
+        gaps = [(r["peak"] - p) / p for p in peaks]
+        print(f"dry run (phase 12e {label}, reckoned on the host in "
+              f"{r['seconds']:.1f}s; {card_line()}): peak a rank "
+              f"{r['peak']} B against the measured {peaks} "
+              f"({[round(g, 4) for g in gaps]}); state {r['state_bytes']} "
+              f"B; collectives {calls} calls, {nbytes} B against "
+              f"Mesh.stats {comm}; host reads {r['host_reads']}",
+              flush=True)
+        check(all(abs(g) <= DRY_PEAK_SHARE for g in gaps),
+              f"phase 12e {label}: peak {r['peak']} against {peaks}")
+        check(all(c == (calls, nbytes) for c in comm),
+              f"phase 12e {label}: collectives ({calls}, {nbytes}) against "
+              f"{comm}")
+        check(r["host_reads"]["traced"] == 0,
+              f"phase 12e {label}: host reads {r['host_reads']}")
+    recs = sharded["recs"]
+    ctx = (recs[0]["card_used"] - sharded["parent_used"]
+           - sum(x["reserved"] for x in recs)
+           - len(recs) * IPC_BYTES) // len(recs)
+    beyond = [ctx + x["max_reserved"] - x["peak"] for x in recs]
+    need = [x["max_reserved"] + ctx + IPC_BYTES for x in recs]
+    reckoned = dryrun.device_total(res["12b"]["peak"], "cuda ipc")
+    gaps = [(reckoned["per_device_total"] - n) / n for n in need]
+    print(f"dry run (phase 12e 12b, {card_line()}): the card's used bytes "
+          f"{recs[0]['card_used']} with the 4 ranks, this process's "
+          f"{sharded['parent_used']}; a rank's context {ctx} B, allocator "
+          f"reserve over its peak "
+          f"{[x['max_reserved'] - x['peak'] for x in recs]} B, beyond its "
+          f"peak {beyond} B against hardware.RANK_RESERVE_BYTES "
+          f"{hardware.RANK_RESERVE_BYTES}; device total reckoned "
+          f"{reckoned['per_device_total']} B (IPC {IPC_BYTES}) against the "
+          f"measured {need} ({[round(g, 4) for g in gaps]})", flush=True)
+    check(all(abs(g) <= DRY_PEAK_SHARE for g in gaps),
+          f"phase 12e: device total {reckoned} against {need}")
+    check(max(beyond) <= hardware.RANK_RESERVE_BYTES,
+          f"phase 12e: a rank holds {max(beyond)} B beyond its peak, over "
+          f"hardware.RANK_RESERVE_BYTES {hardware.RANK_RESERVE_BYTES}")
 
 
 def arch_config(name):
@@ -4648,17 +5103,29 @@ def main():
             torch.cuda.empty_cache()
     figure_phase(torch)
     lap("phase 8")
-    counts["launcher"], _ = launcher_phase(torch, records["f32"])
+    counts["launcher"], launcher_rec = launcher_phase(torch, records["f32"])
     lap("phase 10")
-    counts["arch"], _ = arch_phase(torch)
-    lap("phase 11")
-    counts["bf16 params"], _ = bf16_params_phase(torch, records["f32"])
-    lap("phase 12a")
-    counts["sharded"], sharded_rec = sharded_phase(torch, records["f32"])
-    lap("phase 12b")
-    counts["sharded options"], _ = options_phase(torch, records["f32"],
-                                                 sharded_rec)
-    lap("phase 12c")
+    reckoning = start_reckon()  # phase 12e's host work, beside the card's
+    try:
+        counts["arch"], _ = arch_phase(torch)
+        lap("phase 11")
+        counts["bf16 params"], _ = bf16_params_phase(torch, records["f32"])
+        lap("phase 12a")
+        counts["sharded"], sharded_rec = sharded_phase(torch, records["f32"])
+        lap("phase 12b")
+        counts["sharded options"], options_rec = options_phase(
+            torch, records["f32"], sharded_rec)
+        lap("phase 12c")
+        torch.cuda.empty_cache()
+        counts["sharded checkpoint"], _ = ckpt_phase(
+            torch, {**launcher_rec, "width": D})
+        lap("phase 12d")
+        dryrun_phase(torch, reckoning, sharded_rec, options_rec)
+        lap("phase 12e")
+    finally:
+        if reckoning[0].poll() is None:
+            reckoning[0].kill()
+            reckoning[0].wait()
     for path, base in (("int8_ef native", "int8_ef"), ("faults", "f32"),
                        ("tree", "f32")):
         a, b = records[path], records[base]
@@ -4743,10 +5210,12 @@ def main():
                 row[key]["launches_phase12"] = {
                     "bf16_params": p12[sub],
                     "sharded": counts["sharded"][sub],
-                    "sharded_options": counts["sharded options"][sub]}
+                    "sharded_options": counts["sharded options"][sub],
+                    "sharded_checkpoint": counts["sharded checkpoint"][sub]}
         row["launches_phase12"] = {
             "bf16_params": p12[name], "sharded": counts["sharded"][name],
-            "sharded_options": counts["sharded options"][name]}
+            "sharded_options": counts["sharded options"][name],
+            "sharded_checkpoint": counts["sharded checkpoint"][name]}
         kernels.append(row)
     print(f"total: {time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -64,6 +64,9 @@ def _pack(obj, out: list) -> None:
         b = obj.encode("utf-8")
         _header(len(b), 0xA0, 31, (0xD9, 0xDA, 0xDB), out)
         out.append(b)
+    elif isinstance(obj, Pieces):
+        _header(obj.nbytes, None, 0, (0xC4, 0xC5, 0xC6), out)
+        out.extend(obj.parts)
     elif isinstance(obj, (bytes, bytearray, memoryview)):
         n = memoryview(obj).nbytes
         _header(n, None, 0, (0xC4, 0xC5, 0xC6), out)
@@ -82,6 +85,23 @@ def _pack(obj, out: list) -> None:
     else:
         raise TypeError(f"the checkpoint's msgpack subset has no "
                         f"{type(obj).__name__}")
+
+
+class Pieces:
+    """A bin whose bytes are the concatenation of ``parts`` (bytes-like),
+    packed without joining them."""
+
+    def __init__(self, parts):
+        self.parts = list(parts)
+        self.nbytes = sum(memoryview(p).nbytes for p in self.parts)
+
+
+def pack_pieces(obj) -> list:
+    """``obj`` packed, as the list of pieces whose concatenation is
+    ``packb(obj)`` (a leaf's data a piece of its own, not copied)."""
+    out: list = []
+    _pack(obj, out)
+    return out
 
 
 def packb(obj) -> bytes:

@@ -38,6 +38,20 @@ thread commits off a host snapshot taken on the caller's thread (so the
 caller may update its tensors in place as soon as ``save`` returns), and
 :meth:`Checkpointer.restore_latest` with fallback to the previous good
 checkpoint when the newest one is corrupt.
+
+A sharded run (``launch/mesh.py``) saves through
+:class:`ShardedCheckpointer`: each rank writes its blocks of the state
+(``core.dsgd.panel_state_layout``) as blobs of this same format, in parts
+whose payloads stay under the one-bin limit, so a state of any size can be
+saved (22.8 GB at olmo-1b's full width and m = 8, where one blob cannot
+hold it); a step is committed once every rank's parts are on disk.
+:func:`restore_latest` restores a directory's newest good step into any
+layout: the same mesh, another mesh, or one process, from a sharded step
+or from a whole blob (the port's one-process blob or the reference's).
+:func:`assemble` writes the whole-state blob of a sharded step, which the
+reference's ``checkpoint.io.restore`` reads. A sharded directory itself is
+NOT a directory the reference reads (its manifest names parts, not one
+file a step): hand the reference an assembled blob.
 """
 from __future__ import annotations
 
@@ -146,26 +160,39 @@ def payload_bytes(tree) -> int:
     return len(_msgpack.packb(table)) + data
 
 
-def _pack_blob(flat: dict, meta) -> tuple:
-    """(blob bytes, crc). The payload is one join of the table's pieces
-    (the arrays' buffers included), so it is the only copy of the data
-    before the blob itself."""
-    payload = _msgpack.packb(
+def _table(flat: dict):
+    """The array table of ``flat`` ({key: (dtype name, array)}) as
+    unjoined pieces (``_msgpack.Pieces``: its ``nbytes`` is the payload's
+    size); the arrays' buffers are pieces of their own, not copied."""
+    return _msgpack.Pieces(_msgpack.pack_pieces(
         {k: {"dtype": name, "shape": list(a.shape),
              "data": memoryview(np.ascontiguousarray(a)).cast("B")}
-         for k, (name, a) in flat.items()})
+         for k, (name, a) in flat.items()}))
+
+
+def _blob_pieces(flat: dict, meta, table=None) -> tuple:
+    """(pieces, bytes, crc) of the blob of ``flat``'s table (or of
+    ``table``, :func:`_table`'s) and ``meta``: the pieces whose
+    concatenation is the blob, written by :func:`_write_pieces` without
+    joining them, so the host snapshot is the only copy of the data."""
+    table = _table(flat) if table is None else table
     meta_bytes = json.dumps(meta if meta is not None else {}).encode()
-    crc = zlib.crc32(payload, zlib.crc32(meta_bytes)) & 0xFFFFFFFF
-    blob = _msgpack.packb({"version": FORMAT_VERSION, "meta": meta_bytes,
-                           "crc": crc, "payload": payload})
-    return blob, crc
+    crc = zlib.crc32(meta_bytes)
+    for p in table.parts:
+        crc = zlib.crc32(p, crc)
+    crc &= 0xFFFFFFFF
+    pieces = _msgpack.pack_pieces({"version": FORMAT_VERSION,
+                                   "meta": meta_bytes, "crc": crc,
+                                   "payload": table})
+    return pieces, sum(memoryview(p).nbytes for p in pieces), crc
 
 
-def _unpack_blob(raw) -> tuple:
+def _unpack_blob(raw, crc=None) -> tuple:
     """(flat array table, meta dict); CheckpointCorruptError on any
-    decode/checksum failure. A map without a 'version' key is the legacy
-    flat format (no meta, no checksum). The table's ``data`` are views of
-    ``raw``."""
+    decode/checksum failure, or when ``crc`` is given and the blob's is
+    another (a part left by another save). A map without a 'version' key
+    is the legacy flat format (no meta, no checksum). The table's ``data``
+    are views of ``raw``."""
     try:
         obj = _msgpack.unpackb(raw)
     except Exception as exc:
@@ -184,6 +211,7 @@ def _unpack_blob(raw) -> tuple:
     except KeyError as exc:
         raise CheckpointCorruptError(
             f"checkpoint missing section {exc}") from None
+    want = crc
     try:
         crc = zlib.crc32(payload, zlib.crc32(meta_bytes)) & 0xFFFFFFFF
     except TypeError as exc:
@@ -192,6 +220,10 @@ def _unpack_blob(raw) -> tuple:
     if crc != obj.get("crc"):
         raise CheckpointCorruptError(
             "checksum mismatch (torn or corrupted write)")
+    if want is not None and want != crc:
+        raise CheckpointCorruptError(
+            f"checksum {crc} where the manifest names {want} (a part of "
+            "another save)")
     try:
         return _msgpack.unpackb(payload), json.loads(bytes(meta_bytes))
     except Exception as exc:
@@ -226,27 +258,35 @@ def _leaf_from(rec, key, ref):
     return t.to(ref.device, copy=True)
 
 
+def _map_like(node, leaf, path=()):
+    """``node``'s structure (dicts in their own key order, lists and tuples
+    by index), each leaf replaced by ``leaf(key, node)``. A module-level
+    recursion: a recursive closure would be a reference cycle holding what
+    it closes over (a restore's table or tensors) until the garbage
+    collector runs."""
+    kids = _children(node)
+    if kids is None:
+        return leaf(_key_str(path), node)
+    if node is None:
+        return None
+    built = {k: _map_like(child, leaf, path + (k,)) for k, child in kids}
+    if isinstance(node, dict):
+        return {k: built[k] for k in node}
+    return type(node)(built[i] for i in range(len(node)))
+
+
 def _rebuild(flat: dict, like):
     """``like``'s structure filled from the table; errors name the
     offending key on missing/extra keys and shape/dtype drift."""
     used = set()
 
-    def build(node, path):
-        kids = _children(node)
-        if kids is None:
-            key = _key_str(path)
-            if key not in flat:
-                raise KeyError(f"checkpoint missing key '{key}'")
-            used.add(key)
-            return _leaf_from(flat[key], key, node)
-        if node is None:
-            return None
-        built = {k: build(child, path + (k,)) for k, child in kids}
-        if isinstance(node, dict):
-            return {k: built[k] for k in node}
-        return type(node)(built[i] for i in range(len(node)))
+    def leaf(key, node):
+        if key not in flat:
+            raise KeyError(f"checkpoint missing key '{key}'")
+        used.add(key)
+        return _leaf_from(flat[key], key, node)
 
-    out = build(like, ())
+    out = _map_like(like, leaf)
     extra = sorted(set(flat) - used)
     if extra:
         raise ValueError(
@@ -255,12 +295,15 @@ def _rebuild(flat: dict, like):
     return out
 
 
-def _atomic_write(path: str, blob) -> None:
+def _write_pieces(path: str, pieces) -> None:
+    """Atomic write of a file given as pieces (tmp file + fsync +
+    os.replace), with no join of the pieces."""
     path = os.path.abspath(path)
     os.makedirs(os.path.dirname(path), exist_ok=True)
     tmp = f"{path}.tmp.{os.getpid()}"
     with open(tmp, "wb") as f:
-        f.write(blob)
+        for p in pieces:
+            f.write(p)
         f.flush()
         os.fsync(f.fileno())
     os.replace(tmp, path)
@@ -323,9 +366,9 @@ def save(path: str, tree, meta=None, residency=None) -> None:
     JSON-serializable host-side dict riding next to the arrays).
     ``residency`` ({kind: storage name}) stamps the policy whose
     stored-layout panels the blob carries (:func:`check_residency`)."""
-    blob, _ = _pack_blob(_flatten_to_host(tree),
-                         _stamp_residency(meta, residency))
-    _atomic_write(path, blob)
+    pieces, _, _ = _blob_pieces(_flatten_to_host(tree),
+                                _stamp_residency(meta, residency))
+    _write_pieces(path, pieces)
 
 
 def restore(path: str, like, with_meta: bool = False,
@@ -373,30 +416,11 @@ class Checkpointer:
         self.residency = dict(residency) if residency else None
         self._thread = None
         self._error = None
-        self._manifest = self._load_manifest()
-        if fingerprint is not None and self._manifest["checkpoints"]:
-            old = self._manifest.get("fingerprint") or {}
-            diff = sorted(k for k in set(old) | set(fingerprint)
-                          if old.get(k) != fingerprint.get(k))
-            if diff:
-                raise ValueError(
-                    f"checkpoint directory {self.directory} belongs to a "
-                    f"different run configuration; differing keys: {diff}")
+        self._manifest = _load_manifest(self.directory)
+        _guard(self._manifest, fingerprint, self.directory)
 
     def _manifest_path(self) -> str:
         return os.path.join(self.directory, MANIFEST_NAME)
-
-    def _load_manifest(self) -> dict:
-        try:
-            with open(self._manifest_path(), "r") as f:
-                man = json.load(f)
-            if isinstance(man, dict) and isinstance(
-                    man.get("checkpoints"), list):
-                return man
-        except (OSError, ValueError):
-            pass
-        return {"version": FORMAT_VERSION, "fingerprint": None,
-                "checkpoints": []}
 
     def save(self, step: int, tree, meta=None, block: bool = True) -> None:
         self.wait()
@@ -417,29 +441,27 @@ class Checkpointer:
 
     def _commit(self, step, flat, meta):
         t0 = time.perf_counter()
-        blob, crc = _pack_blob(flat, _stamp_residency(meta, self.residency))
+        pieces, nbytes, crc = _blob_pieces(
+            flat, _stamp_residency(meta, self.residency))
         fname = f"step_{step:08d}.ckpt"
-        _atomic_write(os.path.join(self.directory, fname), blob)
+        _write_pieces(os.path.join(self.directory, fname), pieces)
+        del pieces
         if self.events is not None:  # sidecar only (emit_op is thread-safe)
             self.events.emit_op("checkpoint_save", step=int(step),
-                                bytes=len(blob),
+                                bytes=nbytes,
                                 dt=time.perf_counter() - t0)
         ckpts = [c for c in self._manifest["checkpoints"]
                  if c["step"] != step]
-        ckpts.append({"step": step, "file": fname, "bytes": len(blob),
+        ckpts.append({"step": step, "file": fname, "bytes": nbytes,
                       "crc": crc})
         ckpts.sort(key=lambda c: c["step"])
         while len(ckpts) > self.keep:
-            old = ckpts.pop(0)
-            try:
-                os.remove(os.path.join(self.directory, old["file"]))
-            except OSError:
-                pass
+            _drop(self.directory, ckpts.pop(0))
         self._manifest["checkpoints"] = ckpts
         if self.fingerprint is not None:
             self._manifest["fingerprint"] = self.fingerprint
-        _atomic_write(self._manifest_path(),
-                      json.dumps(self._manifest, indent=1).encode())
+        _write_pieces(self._manifest_path(),
+                      [json.dumps(self._manifest, indent=1).encode()])
 
     def wait(self) -> None:
         """Join a pending async commit; re-raise its error, if any."""
@@ -455,36 +477,574 @@ class Checkpointer:
         return cks[-1]["step"] if cks else None
 
     def restore_latest(self, like):
-        """(step, tree, meta) from the newest GOOD checkpoint, or None.
-
-        Scans the manifest plus any on-disk ``step_*.ckpt`` orphans (a
-        checkpoint whose manifest update was lost), newest first; a
-        corrupt/torn file warns (RuntimeWarning) and falls back to the
-        previous one. A residency-policy mismatch raises instead of falling
-        back: every sibling checkpoint carries the same stamp."""
+        """(step, tree, meta) from the newest GOOD checkpoint, or None
+        (:func:`restore_latest`, one process: the manifest's entries and
+        any on-disk ``step_*.ckpt`` orphan, newest first; a missing,
+        corrupt or torn file warns (RuntimeWarning) and falls back to the
+        previous one; a residency-policy mismatch or a leaf of another
+        shape raises instead: every sibling checkpoint carries the same)."""
         self.wait()
-        cands = {c["file"]: c["step"]
-                 for c in self._manifest["checkpoints"]}
+        return restore_latest(self.directory, like, residency=self.residency)
+
+
+# ------------------------------------------------------ sharded checkpoints
+#
+# A sharded run (launch/mesh.py) saves each rank's blocks of its state
+# (``core.dsgd.panel_state_layout``) as version-2 blobs of the format
+# above, one or more PARTS a rank, a part's payload under
+# MAX_PAYLOAD_BYTES, in a directory a step:
+#
+#   DIR/MANIFEST.json                  rank 0's: the committed steps
+#   DIR/step_00000002/r00000_p000.ckpt rank 0's part 0 (its leaves under
+#                                      1 MiB: the scalar and replicated
+#                                      ones every rank reads)
+#   DIR/step_00000002/r00003.done      rank 3's done marker: its parts,
+#                                      their CRCs and pieces
+#
+# A part's ``meta`` carries the run's meta and, under SHARDED_META_KEY, the
+# mesh, the rank's coordinate, the part's PIECES ({key: [[lo, hi], ...]},
+# each a block of the whole leaf) and every leaf's whole shape in the whole
+# tree's flatten order. A step enters the manifest only after every rank's
+# parts are fsynced and its marker names them; rank 0's commit thread waits
+# for the markers (no collective leaves the caller's thread). A restore
+# cuts each rank's blocks of ANY layout (the same mesh, another, or one
+# process) out of the pieces that overlap them, and every rank takes the
+# same step: the newest that every rank reads whole.
+
+SHARDED_META_KEY = "_sharded"
+# seconds rank 0's commit thread waits for every rank's marker of a step
+COMMIT_TIMEOUT = 1800.0
+# a rank's done marker of a step, in the step's directory
+_DONE = "r{rank:05d}.done"
+
+
+def _drop(directory: str, entry) -> None:
+    """Remove a retired checkpoint: a whole blob's file, or a sharded
+    step's directory."""
+    import shutil
+    try:
+        if "parts" in entry:
+            shutil.rmtree(os.path.join(directory, entry["dir"]))
+        else:
+            os.remove(os.path.join(directory, entry["file"]))
+    except OSError:
+        pass
+
+
+def _entry_bytes(key: str, name: str, shape) -> int:
+    """Bytes of one array-table entry but its data: what a part pays for a
+    leaf beside the leaf's bytes."""
+    return len(_msgpack.packb({key: {"dtype": name, "shape": list(shape),
+                                     "data": b""}})) + 4
+
+
+def _split(a, index, budget):
+    """A block too large for one part, as [(index, array)] pieces of at
+    most ``budget`` bytes: runs of whole rows (of a 2-D block, runs of
+    columns of one row when a row alone is over)."""
+    if a.nbytes <= budget or a.ndim == 0:
+        return [(index, a)]
+    if a.ndim == 1:
+        step = max(1, budget // a.itemsize)
+        return [(((index[0][0] + lo, index[0][0] + min(lo + step,
+                                                         a.shape[0])),),
+                 a[lo:lo + step]) for lo in range(0, a.shape[0], step)]
+    row = a[0].nbytes
+    if row > budget:
+        out = []
+        for r in range(a.shape[0]):
+            r_idx = ((index[0][0] + r, index[0][0] + r + 1),)
+            for (c_idx,), sub in _split(a[r], index[1:], budget):
+                out.append((r_idx + (c_idx,), sub[None]))
+        return out
+    step = max(1, budget // row)
+    return [(((index[0][0] + lo, index[0][0] + min(lo + step, a.shape[0])),)
+             + tuple(index[1:]), a[lo:lo + step])
+            for lo in range(0, a.shape[0], step)]
+
+
+def _parts(flat: dict, part_bytes: int) -> list:
+    """The rank's owned pieces packed into parts, each a {key: (name,
+    array, index)} whose payload stays under ``part_bytes``: the leaves
+    under 1 MiB (the scalars and the replicated leaves every rank reads)
+    in part 0 alone, then the blocks in flatten order, a block larger than
+    a part in pieces of parts of their own."""
+    small = {k: v for k, v in flat.items() if v[1].nbytes < (1 << 20)}
+    big = [(k, v) for k, v in flat.items() if k not in small]
+    parts = [small] if small and big else []
+    cur, used = ({}, 0) if parts else (dict(small), sum(
+        _entry_bytes(k, n, a.shape) + a.nbytes for k, (n, a, _) in
+        small.items()))
+    part_bytes -= 64  # the table's own map header, with room to spare
+    for k, (name, a, index) in big:
+        over = _entry_bytes(k, name, a.shape)
+        need = over + a.nbytes
+        if used + need > part_bytes and cur:
+            parts.append(cur)
+            cur, used = {}, 0
+        if need <= part_bytes:
+            cur[k] = (name, a, index)
+            used += need
+            continue
+        for idx, sub in _split(a, index, part_bytes - over):
+            if cur:
+                parts.append(cur)
+            cur, used = {k: (name, sub, idx)}, over + sub.nbytes
+    if cur or not parts:
+        parts.append(cur)
+    return parts
+
+
+def _layout_leaves(like, layout):
+    """[(key, like leaf, Block)] in flatten order; ``layout`` None: every
+    leaf whole."""
+    from repro_torch.core.panel import whole_block
+    leaves = list(_leaves_with_path(like))
+    blocks = ([b for _, b in _leaves_with_path(layout)] if layout is not None
+              else [whole_block(_shape(leaf)) for _, leaf in leaves])
+    if len(blocks) != len(leaves):
+        raise ValueError(f"the layout has {len(blocks)} leaves, the tree "
+                         f"{len(leaves)}")
+    return [(_key_str(kp), leaf, b) for (kp, leaf), b in zip(leaves, blocks)]
+
+
+def _shape(leaf):
+    return tuple(leaf.shape) if isinstance(leaf, torch.Tensor) \
+        else np.shape(leaf)
+
+
+def _mesh_meta(mesh) -> dict:
+    if mesh is None:
+        return {"rank": 0, "world": 1, "mesh": None, "coord": None}
+    return {"rank": mesh.rank, "world": int(np.prod(list(
+        mesh.shape.values()))), "mesh": dict(mesh.shape),
+        "coord": dict(mesh.coord)}
+
+
+class ShardedCheckpointer:
+    """Retention + manifest + async commit of a sharded run's checkpoints
+    (see the section comment above): every rank of ``mesh`` makes one, on
+    the same directory (a file system the ranks share).
+
+    ``save(step, tree, layout, meta, block=True)`` snapshots this rank's
+    owned blocks (``layout``: a tree of ``panel.Block`` over ``tree``'s
+    leaves, whose local shapes the leaves have) to host on the caller's
+    thread, after one collective there (rank 0's token for the step, so a
+    marker left by an earlier attempt at the same step is never taken for
+    this one); the parts are written, fsynced and named in the rank's
+    marker on a background thread (``block=False``), and rank 0's thread
+    then waits up to COMMIT_TIMEOUT seconds for every rank's marker
+    before it names the step in ``MANIFEST.json`` and retires the steps
+    past the newest ``keep``. A part's payload is at most ``part_bytes``.
+
+    ``fingerprint`` guards resumes as :class:`Checkpointer`'s does;
+    ``residency`` stamps every part; ``events`` records
+    ``checkpoint_save`` lines in the event log's wall-clock sidecar.
+    :func:`restore_latest` reads the directory back."""
+
+    def __init__(self, directory: str, mesh, keep: int = 3,
+                 fingerprint=None, events=None, residency=None,
+                 part_bytes: int = MAX_PAYLOAD_BYTES):
+        self.directory = os.path.abspath(directory)
+        os.makedirs(self.directory, exist_ok=True)
+        self.mesh = mesh
+        self.keep = int(keep)
+        if self.keep < 1:
+            raise ValueError(f"keep must be >= 1, got {keep}")
+        if not 0 < part_bytes <= MAX_PAYLOAD_BYTES:
+            raise ValueError(f"part_bytes must be in (0, "
+                             f"{MAX_PAYLOAD_BYTES}], got {part_bytes}")
+        self.part_bytes = int(part_bytes)
+        self.fingerprint = fingerprint
+        self.events = events
+        self.residency = dict(residency) if residency else None
+        self.rank = 0 if mesh is None else mesh.rank
+        self._thread = None
+        self._error = None
+        self._manifest = _load_manifest(self.directory)
+        _guard(self._manifest, fingerprint, self.directory)
+
+    def save(self, step: int, tree, layout, meta=None,
+             block: bool = True) -> None:
+        from repro_torch.launch import mesh as mesh_mod
+        self.wait()
+        token = mesh_mod.broadcast_json(self.mesh, os.urandom(8).hex())
+        flat, keys = {}, []
+        for key, leaf, b in _layout_leaves(tree, layout):
+            keys.append((key, list(b.shape)))
+            if b.owner:
+                name, a = _host(leaf)
+                if tuple(a.shape) != b.local_shape:
+                    raise ValueError(f"leaf '{key}' has shape {a.shape}, "
+                                     f"its block {b.local_shape}")
+                flat[key] = (name, a, b.index)
+        args = (int(step), flat, keys, meta, token)
+        if block:
+            self._commit(*args)
+            return
+        self._thread = threading.Thread(target=self._commit_guarded,
+                                        args=args, daemon=True)
+        self._thread.start()
+
+    def _commit_guarded(self, *args):
         try:
-            names = os.listdir(self.directory)
-        except OSError:
-            names = []
-        for fn in names:
-            mobj = _STEP_FILE.fullmatch(fn)
-            if mobj and fn not in cands:
-                cands[fn] = int(mobj.group(1))
-        for fn, step in sorted(cands.items(), key=lambda kv: -kv[1]):
-            path = os.path.join(self.directory, fn)
+            self._commit(*args)
+        except BaseException as exc:  # re-raised from wait()
+            self._error = exc
+
+    def _commit(self, step, flat, keys, meta, token):
+        t0 = time.perf_counter()
+        sdir = f"step_{step:08d}"
+        where = _mesh_meta(self.mesh)
+        meta = _stamp_residency(meta, self.residency)
+        entries = []
+        for i, part in enumerate(_parts(flat, self.part_bytes)):
+            fname = f"{sdir}/r{self.rank:05d}_p{i:03d}.ckpt"
+            pieces = {k: [list(ix) for ix in idx]
+                      for k, (_, _, idx) in part.items()}
+            pmeta = dict(meta or {})
+            pmeta[SHARDED_META_KEY] = {**where, "step": step, "part": i,
+                                       "pieces": pieces, "keys": keys}
+            table = _table({k: (name, a) for k, (name, a, _) in
+                            part.items()})
+            if table.nbytes > MAX_PAYLOAD_BYTES:
+                raise ValueError(f"part {fname}'s payload is {table.nbytes}"
+                                 f" B, over {MAX_PAYLOAD_BYTES} B")
+            blob, nbytes, crc = _blob_pieces(None, pmeta, table)
+            _write_pieces(os.path.join(self.directory, fname), blob)
+            del blob
+            entries.append({"file": fname, "rank": self.rank,
+                            "bytes": nbytes, "crc": crc, "pieces": pieces})
+        _write_pieces(os.path.join(self.directory, sdir,
+                                   _DONE.format(rank=self.rank)),
+                      [json.dumps({"token": token,
+                                   "parts": entries}).encode()])
+        if self.events is not None:
+            self.events.emit_op("checkpoint_save", step=int(step),
+                                bytes=sum(e["bytes"] for e in entries),
+                                dt=time.perf_counter() - t0)
+        if self.rank != 0:
+            return
+        parts = self._await_markers(sdir, where["world"], token)
+        entry = {"step": step, "dir": sdir, "mesh": where["mesh"],
+                 "world": where["world"], "keys": keys, "parts": parts}
+        ckpts = [c for c in self._manifest["checkpoints"]
+                 if c["step"] != step]
+        ckpts.append(entry)
+        ckpts.sort(key=lambda c: c["step"])
+        while len(ckpts) > self.keep:
+            _drop(self.directory, ckpts.pop(0))
+        self._manifest["checkpoints"] = ckpts
+        if self.fingerprint is not None:
+            self._manifest["fingerprint"] = self.fingerprint
+        _write_pieces(os.path.join(self.directory, MANIFEST_NAME),
+                      [json.dumps(self._manifest, indent=1).encode()])
+
+    def _await_markers(self, sdir, world, token):
+        """Every rank's parts of this step, once all ``world`` markers
+        carrying ``token`` are on disk (rank 0's commit thread)."""
+        deadline = time.monotonic() + COMMIT_TIMEOUT
+        parts = {}
+        while len(parts) < world:
+            for r in range(world):
+                if r in parts:
+                    continue
+                try:
+                    with open(os.path.join(self.directory, sdir,
+                                           _DONE.format(rank=r))) as f:
+                        mark = json.load(f)
+                except (OSError, ValueError):
+                    continue
+                if mark.get("token") == token:
+                    parts[r] = mark["parts"]
+            if len(parts) < world:
+                if time.monotonic() > deadline:
+                    raise TimeoutError(
+                        f"checkpoint {sdir}: ranks "
+                        f"{sorted(set(range(world)) - set(parts))} wrote no "
+                        f"marker in {COMMIT_TIMEOUT} s; the step is "
+                        "not committed")
+                time.sleep(0.02)
+        return [p for r in range(world) for p in parts[r]]
+
+    def wait(self) -> None:
+        """Join a pending async commit; re-raise its error, if any."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            exc, self._error = self._error, None
+            raise exc
+
+
+def _load_manifest(directory: str) -> dict:
+    try:
+        with open(os.path.join(directory, MANIFEST_NAME), "r") as f:
+            man = json.load(f)
+        if isinstance(man, dict) and isinstance(man.get("checkpoints"),
+                                                list):
+            return man
+    except (OSError, ValueError):
+        pass
+    return {"version": FORMAT_VERSION, "fingerprint": None,
+            "checkpoints": []}
+
+
+def _guard(manifest, fingerprint, directory) -> None:
+    """ValueError when a non-empty directory belongs to another run
+    configuration (naming the differing keys)."""
+    if fingerprint is None or not manifest["checkpoints"]:
+        return
+    old = manifest.get("fingerprint") or {}
+    diff = sorted(k for k in set(old) | set(fingerprint)
+                  if old.get(k) != fingerprint.get(k))
+    if diff:
+        raise ValueError(
+            f"checkpoint directory {directory} belongs to a different run "
+            f"configuration; differing keys: {diff}")
+
+
+def _candidates(directory: str) -> list:
+    """[(step, entry)] newest first: the manifest's entries (whole blobs
+    and sharded steps) and any on-disk ``step_*.ckpt`` orphan (a whole
+    blob whose manifest update was lost)."""
+    man = _load_manifest(directory)
+    cands = {}
+    for c in man["checkpoints"]:
+        cands[c.get("dir") or c["file"]] = (c["step"], c)
+    try:
+        names = os.listdir(directory)
+    except OSError:
+        names = []
+    for fn in names:
+        mobj = _STEP_FILE.fullmatch(fn)
+        if mobj and fn not in cands:
+            cands[fn] = (int(mobj.group(1)), {"step": int(mobj.group(1)),
+                                               "file": fn})
+    return sorted(cands.values(), key=lambda se: -se[0])
+
+
+# integer counters a reference blob stores as int32 scalars ('step', the
+# optimizer's shared 'step_count'); the port's tree holds them as int64,
+# the count per agent
+_COUNTERS = ("state/step", "state/opt/step_count")
+
+
+def _whole_pieces(flat: dict, targets: dict) -> dict:
+    """{key: [(index, array)]} of a whole blob's table, each leaf one piece
+    of its full index. A reference launcher's blob is taken too: its int32
+    counters widened (a shared step count broadcast to the agents), and
+    its 'key' (a jax.random key, which the port's generator cannot take
+    up) leaves 'wire_gen' as the caller's."""
+    out = {}
+    for key, rec in flat.items():
+        name, shape = rec["dtype"], tuple(rec["shape"])
+        bits = np.int16 if name == "bfloat16" else np.dtype(name)
+        a = np.frombuffer(rec["data"], dtype=bits).reshape(shape)
+        if key in _COUNTERS and key in targets:
+            want = targets[key][1].shape
+            if np.issubdtype(a.dtype, np.integer) and shape != want \
+                    and a.ndim == 0:
+                a = np.broadcast_to(a, want)
+            a = a.astype(np.int64)
+            name = "int64"
+        if key in targets:
+            _check_shape(key, a.shape, targets[key][1].shape)
+        out[key] = (name, [(tuple((0, s) for s in a.shape), a)])
+    if "wire_gen" in targets and "wire_gen" not in out and "key" in out:
+        del out["key"]
+    return out
+
+
+def _check_shape(key, shape, want) -> None:
+    """ValueError naming ``key`` when a checkpoint's whole leaf has another
+    shape than the tree's (structure drift: no older step of the same run
+    holds another, so it raises instead of falling back)."""
+    if tuple(shape) != tuple(want):
+        raise ValueError(f"checkpoint key '{key}' has shape {tuple(shape)}"
+                         f", the reference tree expects {tuple(want)}")
+
+
+def _fill(targets, key, name, pieces, got) -> None:
+    """Cut ``pieces`` of leaf ``key`` into its target block; ``got``
+    counts the elements each target has received."""
+    from repro_torch.core.panel import cut_into
+    if key not in targets:
+        raise ValueError(
+            f"checkpoint carries key '{key}' the reference tree does not "
+            "(stale or mismatched checkpoint?)")
+    leaf, b, out = targets[key]
+    want = _dtype_name(leaf)
+    if name != want:
+        raise ValueError(f"checkpoint key '{key}' has dtype {name}, the "
+                         f"reference tree expects {want}")
+    for idx, a in pieces:
+        if len(idx) != len(b.shape) or any(
+                hi > s for (_, hi), s in zip(idx, b.shape)):
+            raise ValueError(f"checkpoint key '{key}' holds {idx}, outside "
+                             f"the leaf's shape {b.shape}")
+        got[key] += cut_into(out, b.index, a, tuple(map(tuple, idx)))
+
+
+def _read_entry(directory, entry, targets, residency, rank):
+    """Fill ``targets`` ({key: (like leaf, Block, out)}) from one
+    checkpoint: the parts whose pieces overlap a target block (always
+    every part holding a leaf the rank needs whole). Returns the run's
+    meta. CheckpointCorruptError on a missing, torn or corrupt part."""
+    from repro_torch.core.panel import overlap
+    got = dict.fromkeys(targets, 0)
+    meta = None
+    if "parts" not in entry:
+        try:
+            flat, meta = _unpack_blob(_read(os.path.join(directory,
+                                                         entry["file"])))
+        except FileNotFoundError as exc:
+            raise CheckpointCorruptError(f"missing file: {exc}") from None
+        check_residency(meta, residency)
+        # a reference launcher's blob: its jax.random 'key' in place of
+        # the port's generator, which stays the caller's
+        gen = "wire_gen" in targets and "wire_gen" not in flat \
+            and "key" in flat
+        pieces = _whole_pieces(flat, targets)
+        for key in targets:
+            if key not in pieces and not (gen and key == "wire_gen"):
+                raise KeyError(f"checkpoint missing key '{key}'")
+        for key, (name, ps) in pieces.items():
+            _fill(targets, key, name, ps, got)
+        if gen:
+            leaf, b, out = targets["wire_gen"]  # the caller's generator
+            out.copy_(leaf)
+            got["wire_gen"] = b.size
+    else:
+        for key in sorted(set(targets) - {k for k, _ in entry["keys"]}):
+            raise KeyError(f"checkpoint missing key '{key}'")
+        for key, shape in entry["keys"]:
+            if key not in targets:
+                raise ValueError(
+                    f"checkpoint carries key '{key}' the reference tree "
+                    "does not (stale or mismatched checkpoint?)")
+            _check_shape(key, shape, targets[key][1].shape)
+        for part in entry["parts"]:
+            if not any(overlap(targets[k][1].index, tuple(map(tuple, ix)))
+                       is not None for k, ix in part["pieces"].items()):
+                continue
+            path = os.path.join(directory, part["file"])
             try:
-                tree, meta = restore(path, like, with_meta=True,
-                                     expect_residency=self.residency)
+                raw = _read(path)
             except FileNotFoundError:
-                continue
-            except CheckpointCorruptError as exc:
-                warnings.warn(
-                    f"checkpoint {fn} is corrupt ({exc}); falling back to "
-                    "the previous good checkpoint", RuntimeWarning,
-                    stacklevel=2)
-                continue
-            return step, tree, meta
-        return None
+                raise CheckpointCorruptError(
+                    f"part {part['file']} is missing") from None
+            flat, pmeta = _unpack_blob(raw, crc=part["crc"])
+            sh = pmeta.pop(SHARDED_META_KEY, None)
+            if sh is None or sh.get("step") != entry["step"]:
+                raise CheckpointCorruptError(
+                    f"part {part['file']} is not a part of step "
+                    f"{entry['step']}")
+            check_residency(pmeta, residency)
+            if meta is None:
+                meta = pmeta
+            for key, rec in flat.items():
+                name, shape = rec["dtype"], tuple(rec["shape"])
+                bits = np.int16 if name == "bfloat16" else np.dtype(name)
+                a = np.frombuffer(rec["data"], dtype=bits).reshape(shape)
+                _fill(targets, key, name,
+                      [(tuple(map(tuple, sh["pieces"][key])), a)], got)
+            del flat, raw
+    short = [k for k, (_, b, _) in targets.items() if got[k] != b.size]
+    if short:
+        raise CheckpointCorruptError(
+            f"checkpoint step {entry['step']} does not hold rank {rank}'s "
+            f"blocks of {short}")
+    return meta or {}
+
+
+def restore_latest(directory: str, like, layout=None, mesh=None,
+                   residency=None):
+    """(step, tree, meta) of the newest checkpoint of ``directory`` that
+    this rank reads whole, or None: ``like``'s structure, each leaf this
+    rank's block of it (``layout``, a tree of ``panel.Block``; None: every
+    leaf whole, one process), cut from a checkpoint of ANY layout: a
+    sharded step saved on any mesh (only the parts that overlap the
+    rank's blocks are read), or a whole blob (the port's one-process blob
+    or the reference's). Tensors land on the devices of ``like``'s
+    tensors; other leaves come back as numpy arrays.
+
+    On a ``mesh`` every rank takes the same step: rank 0's list of
+    candidates is broadcast, and a step counts only when every rank read
+    its blocks of it (an all-reduce of the minimum of a success flag), so
+    a torn or corrupt part on one rank sends every rank back to the
+    previous good step (each rank that read it whole warns that another
+    did not). A residency-policy mismatch raises on every rank."""
+    from repro_torch.launch import mesh as mesh_mod
+    cands = mesh_mod.broadcast_json(mesh, _candidates(directory))
+    rank = 0 if mesh is None else mesh.rank
+    leaves = _layout_leaves(like, layout)
+    for step, entry in cands:
+        targets = {}
+        for key, leaf, b in leaves:
+            if isinstance(leaf, torch.Tensor):
+                out = torch.empty(b.local_shape, dtype=leaf.dtype,
+                                  device=leaf.device)
+            else:
+                out = np.empty(b.local_shape, dtype=np.asarray(leaf).dtype)
+            targets[key] = (leaf, b, out)
+        err = None
+        try:
+            meta = _read_entry(directory, entry, targets, residency, rank)
+        except CheckpointCorruptError as exc:
+            err = str(exc)
+        if not mesh_mod.agree_min(mesh, 0 if err else 1):
+            warnings.warn(
+                f"checkpoint step {step} is "
+                + (f"corrupt on rank {rank} ({err})" if err else
+                   "torn on another rank")
+                + "; falling back to the previous good checkpoint",
+                RuntimeWarning, stacklevel=2)
+            continue
+        return step, _map_like(like, lambda key, _: targets[key][2]), meta
+    return None
+
+
+def assemble(directory: str, step: int, path: str = None) -> str:
+    """Write the whole-state blob of a sharded ``step`` of ``directory``:
+    the array table a one-process run saves at that step, byte for byte
+    (every leaf whole, in the whole tree's flatten order), with the run's
+    meta, to ``path`` (default ``DIR/assembled_step_<step>.ckpt``).
+    Returns the path. The reference package's ``checkpoint.io.restore``
+    reads it; a sharded directory itself is not one it reads. ValueError
+    when the step is not a committed sharded step, or when the whole
+    state's payload passes MAX_PAYLOAD_BYTES (the one-bin limit that
+    splits a large state into parts)."""
+    entry = next((c for s, c in _candidates(directory)
+                  if s == step and "parts" in c), None)
+    if entry is None:
+        raise ValueError(f"{directory} has no committed sharded step {step}")
+    shapes = dict((k, tuple(s)) for k, s in entry["keys"])
+    whole, meta, names = {}, None, {}
+    for part in entry["parts"]:
+        flat, pmeta = _unpack_blob(_read(os.path.join(directory,
+                                                      part["file"])))
+        sh = pmeta.pop(SHARDED_META_KEY)
+        if meta is None or sh["rank"] == 0 and sh["part"] == 0:
+            meta = pmeta
+        for key, rec in flat.items():
+            name = rec["dtype"]
+            bits = np.int16 if name == "bfloat16" else np.dtype(name)
+            a = np.frombuffer(rec["data"], dtype=bits).reshape(rec["shape"])
+            if key not in whole:
+                whole[key] = np.empty(shapes[key], dtype=bits)
+                names[key] = name
+            idx = tuple(slice(lo, hi) for lo, hi in sh["pieces"][key])
+            whole[key][idx] = a
+        del flat
+    flat = {k: (names[k], whole[k]) for k, _ in entry["keys"]}
+    table = _table(flat)
+    if table.nbytes > MAX_PAYLOAD_BYTES:
+        raise ValueError(
+            f"step {step}'s whole state is a payload of {table.nbytes} B, "
+            f"over the blob's {MAX_PAYLOAD_BYTES} B (one msgpack bin): it "
+            "exists only as parts")
+    path = path or os.path.join(directory, f"assembled_step_{step:08d}.ckpt")
+    pieces, _, _ = _blob_pieces(flat, meta, table)
+    _write_pieces(path, pieces)
+    return path

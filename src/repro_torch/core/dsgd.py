@@ -676,6 +676,77 @@ def init_panel_state(init_params: Callable, optimizer: Optimizer, m: int,
     return _build_state(pan, spec, optimizer), spec
 
 
+def panel_state_layout(state, spec):
+    """What this rank holds of each leaf of a panel state: a tree of the
+    state's structure whose leaves are ``panel.Block`` (the counterpart of
+    the reference's ``panel_state_shardings``, ``repro/core/dsgd.py:507``).
+
+    A group's panel, its moments, error-feedback and statistics panels are
+    (m, D_g) leaves of which the rank holds its rows x its columns
+    (``spec.row_range`` / ``spec.col_range``). A stored leaf ``{q,
+    scale}``: q as the panel; grouped scales (int8, int8g: one per row per
+    ``group`` columns) beside their columns, of an (m, ceil(D_g / group))
+    leaf; a per-row scale (int8r) of an (m, 1) leaf, whole on every column
+    shard. The optimizer's step count is an (m,) leaf of which the rank
+    holds its agents (a shared count taken per agent: the checkpointed
+    form); ``step`` is a scalar. ``owner`` marks the one holder of each
+    block that saves it: the rank at coordinate 0 on every mesh axis that
+    does not split the leaf (replicas along ``model``, the fsdp ranks of a
+    per-row scale, every rank but rank 0 of a scalar save nothing). On an
+    unsharded spec every leaf is whole and owned. The same function gives
+    the layout a checkpoint saves, the one a restore cuts to, and the
+    bytes a rank holds in the dry run."""
+    plan = _res_plan(spec)
+    mesh = spec.mesh if spec.sharded else None
+
+    def axes(entry):
+        return () if entry is None else ((entry,) if isinstance(entry, str)
+                                         else tuple(entry))
+
+    def owner(split):
+        return mesh is None or all(mesh.coord[a] == 0 for a in
+                                   mesh.axis_names if a not in split)
+
+    def block(shape, index, split):
+        return panel_mod.Block(shape=tuple(int(s) for s in shape),
+                               index=tuple(index), owner=owner(split))
+
+    def group(k, x, kind):
+        m, D = spec.rows, dict(spec.groups)[k]
+        (r0, r1), (c0, c1) = spec.row_range(k), spec.col_range(k)
+        rows, cols = axes(spec.pspec(k)[0]), axes(spec.pspec(k)[1])
+        if not isinstance(x, dict):
+            return block((m, D), ((r0, r1), (c0, c1)), rows + cols)
+        st = plan[kind][k]
+        out = {"q": block((m, D), ((r0, r1), (c0, c1)), rows + cols)}
+        if st.group is None:
+            out["scale"] = block((m, 1), ((r0, r1), (0, 1)), rows)
+        else:
+            g0 = c0 // st.group
+            out["scale"] = block((m, st.scale_count(D)),
+                                 ((r0, r1), (g0, g0 + x["scale"].shape[1])),
+                                 rows + cols)
+        return out
+
+    def groups(d, kind):
+        return {k: group(k, x, kind) for k, x in d.items()}
+
+    lo, hi = spec.agent_range()
+    agents = axes(spec.pspec(spec.groups[0][0])[0])
+    opt = {}
+    for k, v in state["opt"].items():
+        opt[k] = (block((spec.rows,), ((lo, hi),), agents)
+                  if k == "step_count" else groups(v, "moments"))
+    out = {"panel": groups(state["panel"], None), "opt": opt,
+           "step": block((), (), ())}
+    if "wire_err" in state:
+        out["wire_err"] = groups(state["wire_err"], "wire_err")
+    if "merge_stat" in state:
+        out["merge_stat"] = {n: groups(v, "stats")
+                             for n, v in state["merge_stat"].items()}
+    return out
+
+
 def panel_state_from_params(params_stacked, optimizer: Optimizer, *,
                             wire=None, merger=None, residency=None):
     """Panel train state from an agent-stacked parameter tree (e.g. one
@@ -909,15 +980,15 @@ def make_panel_segment(loss_fn: Callable, optimizer: Optimizer,
             raise ValueError(
                 "spec's residency policy rounds stochastically and needs "
                 "rng= (a torch.Generator or an integer seed)")
-        Ws_host = np.asarray(torch.as_tensor(Ws, dtype=torch.float32).cpu())
+        Ws_host = panel_mod.host_array(Ws, np.float32)
         S = Ws_host.shape[0]
         glob = (None if global_rounds is None else
-                np.asarray(torch.as_tensor(global_rounds).cpu(), bool))
+                panel_mod.host_array(global_rounds, bool))
         if glob is not None and glob.shape != (S,):
             raise ValueError(f"global_rounds must be ({S},), got "
                              f"{glob.shape}")
         lives = (None if live is None else
-                 np.asarray(torch.as_tensor(live).cpu(), np.int64))
+                 panel_mod.host_array(live, np.int64))
         if lives is not None and (lives.shape != (S, m) or not np.isin(
                 lives, (0, 1, 2)).all()):
             raise ValueError(f"live must be ({S}, {m}) trits DEAD 0 / LIVE "

@@ -596,9 +596,17 @@ def _require_gen(codecs, gen):
                          "rounding and need a torch.Generator (gen=...)")
 
 
+def host_array(x, dtype):
+    """``x`` (a numpy array, a sequence or a tensor) as a numpy array of
+    ``dtype``: a host value is converted on the host, a tensor fetched."""
+    if torch.is_tensor(x):
+        return x.detach().cpu().numpy().astype(dtype, copy=False)
+    return np.asarray(x, dtype)
+
+
 def _idle_rows(W, m):
     """Rows of W equal to the identity row: agents that send nothing."""
-    Wh = np.asarray(torch.as_tensor(W, dtype=torch.float32).cpu())
+    Wh = host_array(W, np.float32)
     eye = np.eye(m, dtype=np.float32)
     return [r for r in range(m) if np.array_equal(Wh[r], eye[r])]
 
@@ -1046,3 +1054,74 @@ def panel_norm(panel, axis_mean: bool = False, rows=None,
                    torch.matmul(rows.to(x32.device), x32))
         total = total + torch.sum(torch.square(x32))
     return torch.sqrt(total)
+
+
+# ------------------------------------------------- blocks of state leaves
+#
+# A state leaf of a sharded run is held in blocks: each rank holds the
+# rectangle of rows and columns (``Block.index``) that its layout gives it
+# (``core.dsgd.panel_state_layout``). A checkpoint saves each block once
+# (``Block.owner``: the one holder among its replicas), and a restore cuts
+# the blocks of another layout (another mesh, or one process) out of the
+# saved ones, or out of a whole leaf: ``cut_into`` copies the overlap of a
+# piece into a target block, which is whole once the pieces cover it
+# (``checkpoint.io.restore_latest``).
+
+
+@dataclass(frozen=True)
+class Block:
+    """A rank's part of one state leaf whose whole shape is ``shape``:
+    [lo, hi) along each dim (``index``); ``owner`` is whether this rank is
+    the one of the block's holders that saves it."""
+    shape: Tuple[int, ...]
+    index: Tuple[Tuple[int, int], ...]
+    owner: bool = True
+
+    @property
+    def local_shape(self) -> Tuple[int, ...]:
+        return tuple(hi - lo for lo, hi in self.index)
+
+    @property
+    def size(self) -> int:
+        return int(np.prod(self.local_shape, dtype=np.int64))
+
+
+def whole_block(shape, owner: bool = True) -> Block:
+    """The whole leaf of ``shape`` as one block."""
+    shape = tuple(int(s) for s in shape)
+    return Block(shape=shape, index=tuple((0, s) for s in shape),
+                 owner=owner)
+
+
+def overlap(a, b):
+    """The intersection of two indexes ([lo, hi) a dim), or None when it is
+    empty."""
+    out = tuple((max(p, q), min(r, s)) for (p, r), (q, s) in zip(a, b))
+    return None if any(lo >= hi for lo, hi in out) else out
+
+
+def _local(index, origin):
+    return tuple(slice(lo - o, hi - o) for (lo, hi), (o, _) in
+                 zip(index, origin))
+
+
+def cut_into(dst, dst_index, piece, piece_index) -> int:
+    """Copy the overlap of ``piece`` (a tensor or numpy array holding
+    ``piece_index`` of a leaf) into ``dst`` (a tensor or numpy array
+    holding ``dst_index`` of the same leaf), in place; returns the number
+    of elements copied. A bfloat16 tensor takes its int16 bits."""
+    ov = overlap(dst_index, piece_index)
+    if ov is None:
+        return 0
+    src = piece[_local(ov, piece_index)]
+    if isinstance(dst, np.ndarray):
+        dst[_local(ov, dst_index)] = src.numpy() if torch.is_tensor(src) \
+            else src
+    else:
+        if not torch.is_tensor(src):
+            src = torch.from_numpy(np.ascontiguousarray(src))
+        part = dst[_local(ov, dst_index)]
+        if src.dtype != part.dtype:
+            src = src.view(part.dtype)
+        part.copy_(src)
+    return int(np.prod([hi - lo for lo, hi in ov], dtype=np.int64))

@@ -39,7 +39,14 @@ Shapes: ``make_training_mesh`` gives the reference's (1 or 2, agents per
 pod, 16 / agents per pod, 16), 256 or 512 ranks; ``make_debug_mesh`` a small
 (1, agents, fsdp, model) mesh, the launcher's ``--mesh debug`` (1, 2, 2,
 2). A world size other than the mesh's product is a SystemExit that names
-both. Importing this module touches no process group.
+both. :func:`mesh_of_shape` places one rank on a mesh of any shape with no
+process group (the dry run's meshes). :func:`agree_min` and
+:func:`broadcast_json` are the world's control messages (the sharded
+checkpoints' agreement on a step); on ranks sharing one card they travel
+over gloo as tiny host tensors, the CUDA tensors of the collectives above
+staying on the IPC route. :meth:`Mesh.plan` is each route's plan of a
+collective's calls and temporaries, which the dry run's recording mesh
+counts from too. Importing this module touches no process group.
 """
 from __future__ import annotations
 
@@ -59,6 +66,17 @@ AXES = ("pod", "agent", "fsdp", "model")
 MODEL_AXIS = 16
 DATA_AXIS = 16
 PODS = 2
+
+
+@dataclass(frozen=True)
+class Plan:
+    """How one collective on a tensor travels on a route: ``parts``, the
+    (lo, hi) ranges of the flat tensor's elements that each call
+    ``Mesh.stats`` counts moves; ``temps``, the shapes of the device
+    tensors (of the tensor's dtype) the route makes beside its result,
+    alive together."""
+    parts: Tuple[Tuple[int, int], ...]
+    temps: Tuple[Tuple[int, ...], ...]
 
 
 @dataclass(eq=False)
@@ -107,6 +125,22 @@ class Mesh:
         or None: 1)."""
         return int(np.prod([self.shape[a] for a in _names(axes)]))
 
+    def plan(self, x: torch.Tensor, kind: str, line: str) -> Plan:
+        """The calls and device temporaries of the collective ``kind``
+        ('all_gather' or 'all_reduce') of ``x`` over ``line`` on this
+        mesh's route: one call of the whole tensor, but for an all-reduce
+        through the CUDA IPC buffers, a call a buffer's worth of elements,
+        each gathering the members' parts ((members, part) elements) for a
+        flat result. The collectives below and the dry run's recording
+        mesh (``utils/fake_trace.py``) both count from it."""
+        n = x.numel()
+        if kind != "all_reduce" or not self._via_ipc(x):
+            return Plan(((0, n),), ())
+        nbytes = IPC_BYTES if self.ipc is None else self.ipc.nbytes
+        step = max(1, nbytes // x.element_size())
+        parts = tuple((lo, min(n, lo + step)) for lo in range(0, n, step))
+        return Plan(parts, ((n,), (len(self.members[line]), min(step, n))))
+
     def _staged(self, x: torch.Tensor) -> bool:
         """Whether a collective on ``x`` goes through host memory (gloo
         with a CUDA tensor)."""
@@ -145,10 +179,9 @@ class Mesh:
             # reduced in line order
             flat = x.reshape(-1)
             out = torch.empty_like(flat)
-            step = max(1, self.ipc.nbytes // x.element_size())
-            for lo in range(0, flat.numel(), step):
-                g = self._ipc_gather(flat[lo:lo + step].reshape(1, -1), line)
-                acc = out[lo:lo + step]
+            for lo, hi in self.plan(x, "all_reduce", line).parts:
+                g = self._ipc_gather(flat[lo:hi].reshape(1, -1), line)
+                acc = out[lo:hi]
                 acc.copy_(g[0])
                 for part in g[1:]:
                     if op == "sum":
@@ -433,6 +466,67 @@ def rank_share_bytes(mesh: Mesh) -> int:
         total = torch.cuda.get_device_properties(mesh.device).total_memory
         return total // on_card
     return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES") // local
+
+
+def _control(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
+    """``t`` where the world group's collectives take it: on the host for
+    gloo, on the rank's card for NCCL."""
+    return t if mesh.backend == "gloo" else t.to(mesh.device)
+
+
+def agree_min(mesh: Optional[Mesh], value: int) -> int:
+    """The minimum of ``value`` over every rank of the world (``value``
+    itself without a mesh): e.g. a success flag, 1 only where every rank
+    succeeded."""
+    if mesh is None:
+        return int(value)
+    import torch.distributed as dist
+    t = _control(mesh, torch.tensor([int(value)], dtype=torch.int64))
+    dist.all_reduce(t, op=dist.ReduceOp.MIN)
+    return int(t.cpu()[0])
+
+
+def broadcast_json(mesh: Optional[Mesh], obj):
+    """Rank 0's ``obj`` (anything JSON takes) on every rank (``obj``
+    itself without a mesh)."""
+    if mesh is None:
+        return obj
+    import json
+
+    import torch.distributed as dist
+    raw = json.dumps(obj).encode() if mesh.rank == 0 else b""
+    n = _control(mesh, torch.tensor([len(raw)], dtype=torch.int64))
+    dist.broadcast(n, src=0)
+    buf = torch.zeros(int(n.cpu()[0]), dtype=torch.uint8)
+    if mesh.rank == 0:
+        buf.copy_(torch.frombuffer(bytearray(raw), dtype=torch.uint8))
+    buf = _control(mesh, buf)
+    dist.broadcast(buf, src=0)
+    return json.loads(bytes(buf.cpu().numpy()))
+
+
+def mesh_of_shape(shape, rank: int = 0, axis_names=AXES,
+                  device="cpu") -> Mesh:
+    """Rank ``rank``'s :class:`Mesh` of ``shape`` with no process group
+    (backend ``"none"``): its coordinate, each line's members and every
+    size are those :func:`make_mesh` gives, so ``models.sharding`` and
+    ``panel.shard_spec`` read it as they read a live one (e.g. the dry
+    run's ``mesh_of_shape(training_shape(16))``, 256 ranks); its
+    collectives raise."""
+    shape = tuple(int(s) for s in shape)
+    n = int(np.prod(shape))
+    if not 0 <= rank < n:
+        raise ValueError(f"rank {rank} is not on a mesh of {n} ranks")
+    coords = np.array(np.unravel_index(np.arange(n), shape)).T
+    mesh = Mesh(shape=dict(zip(axis_names, shape)),
+                axis_names=tuple(axis_names), rank=rank,
+                coord=dict(zip(axis_names, (int(c) for c in coords[rank]))),
+                device=torch.device(device), backend="none")
+    for name, axes in (("rows", ROW_AXES), ("fsdp", COL_AXES)):
+        fixed = [i for i, a in enumerate(axis_names) if a not in axes]
+        mesh.members[name] = [r for r in range(n) if np.array_equal(
+            coords[r][fixed], coords[rank][fixed])]
+    return mesh
 
 
 def is_primary(mesh: Optional[Mesh]) -> bool:

@@ -21,16 +21,19 @@ world (launch/mesh.py; started by ``torchrun``): the panel rows over
 ('pod', 'agent'), the flat parameter columns over 'fsdp', as the
 reference's ``--mesh`` shards its panel (``auto`` is ``train`` for
 ``--preset pod`` and ``none`` otherwise; ``debug`` is the (1, 2, 2, 2)
-mesh of 8 ranks). Every rank runs the same loop on its shard, draws the
-same batches and keeps its agents' rows; the history, the events and
-``--save-merged`` are written by rank 0 alone, and the console is rank
-0's. A sharded run takes every ``--wire``, ``--merge``, ``--residency``
+mesh of 8 ranks, ``P,A,F,M`` a mesh of that shape). Every rank runs the
+same loop on its shard, draws the same batches and keeps its agents'
+rows; the history, the events and ``--save-merged`` are written by rank 0
+alone, and the console is rank 0's. A sharded run takes every ``--wire``, ``--merge``, ``--residency``
 (fused and unfused), ``--faults`` and ``--telemetry`` (every agent's
-columns in rank 0's stream); ``--checkpoint-every`` and ``--resume`` on a
-mesh are refused by name (ROADMAP A16b': sharded checkpoints), and so is
-a generator-drawn ``--wire`` (int8, int4 and their ``_ef``) whose whole
-(m, D_g) uniform panel, which every rank draws, would take over a quarter
-of the rank's device memory (``refuse_oversized_draws``). On the CPU:
+columns in rank 0's stream), and ``--checkpoint-every`` / ``--resume``:
+each rank saves its blocks of the state
+(``checkpoint.io.ShardedCheckpointer``), and a resume, on a mesh or on one process, cuts
+its blocks out of a checkpoint saved on any layout
+(``checkpoint.io.restore_latest``). A generator-drawn ``--wire`` (int8,
+int4 and their ``_ef``) whose whole (m, D_g) uniform panel, which every
+rank draws, would take over a quarter of the rank's device memory is
+refused by name (``refuse_oversized_draws``). On the CPU:
   torchrun --nproc-per-node 8 -m repro_torch.launch.train --device cpu \
       --mesh debug --rounds 6 --segment 3 --agents 4 --local-steps 2 \
       --batch 4 --seq 32 --wire int8_ef --merge ties
@@ -66,7 +69,7 @@ import numpy as np
 import torch
 
 from repro_torch import telemetry
-from repro_torch.checkpoint import Checkpointer, save
+from repro_torch.checkpoint import Checkpointer, ShardedCheckpointer, save
 from repro_torch.checkpoint import io as ckpt_io
 from repro_torch.configs import get_config
 from repro_torch.core import dsgd
@@ -96,20 +99,20 @@ def build_mesh(kind: str, cfg, device=None):
     if kind == "debug":
         return mesh_mod.make_debug_mesh(agents=2, fsdp=2, model=2,
                                         device=device)
-    raise ValueError(kind)
+    return mesh_mod.make_mesh(mesh_shape(kind), device=device)
 
 
-def refuse_on_mesh(args):
-    """SystemExit naming each flag a sharded run does not take yet: saving,
-    restoring and re-sharding a sharded state come with ROADMAP A16b'."""
-    named = [flag for flag, on in (("--checkpoint-every",
-                                    args.checkpoint_every),
-                                   ("--resume", args.resume)) if on]
-    if named:
-        raise SystemExit(
-            f"--mesh {args.mesh} does not take {', '.join(named)} yet: "
-            "saving, restoring and re-sharding a sharded state are ROADMAP "
-            "A16b' (sharded checkpoints)")
+def mesh_shape(kind: str):
+    """The (pod, agent, fsdp, model) shape a ``--mesh P,A,F,M`` names."""
+    try:
+        shape = tuple(int(x) for x in kind.split(","))
+    except ValueError:
+        shape = ()
+    if len(shape) != 4 or min(shape) < 1:
+        raise SystemExit(f"--mesh {kind!r}: expected auto, none, train, "
+                         "debug or four sizes P,A,F,M (pod, agent, fsdp, "
+                         "model), e.g. 1,4,1,1")
+    return shape
 
 
 # the share of a rank's device memory that a generator-drawn wire's
@@ -274,9 +277,10 @@ def parse_args(argv=None):
                     help="save a resumable checkpoint every N SEGMENTS (0 = "
                          "off; and after the last segment); saves are "
                          "asynchronous (a host copy on this thread, the "
-                         "write on another). The whole state must fit the "
-                         "blob's 4 GiB payload: a larger one is refused at "
-                         "startup")
+                         "write on another). On one process the whole "
+                         "state must fit the blob's 4 GiB payload (a larger "
+                         "one is refused at startup); on a --mesh each rank "
+                         "saves its blocks, in parts under that limit")
     ap.add_argument("--checkpoint-dir", default="",
                     help="checkpoint directory (default: OUT/ckpt_<run "
                          "tag>)")
@@ -284,7 +288,8 @@ def parse_args(argv=None):
                     help="keep only the newest K checkpoints")
     ap.add_argument("--resume", action="store_true",
                     help="resume from the newest good checkpoint of the "
-                         "checkpoint directory, bit for bit: the panel "
+                         "checkpoint directory (saved on any mesh, or on "
+                         "one process), bit for bit: the panel "
                          "state, the wire generator, the data and schedule "
                          "streams, the round counter and the event stream's "
                          "seq; starts fresh when the directory is empty")
@@ -314,12 +319,13 @@ def parse_args(argv=None):
                          "trace.json (a Chrome trace; a profiler that "
                          "cannot start only warns)")
     ap.add_argument("--mesh", default="auto",
-                    choices=["auto", "none", "train", "debug"],
                     help="shard the (m, D) panel over the ranks of a "
                          "torch.distributed world (launch with torchrun): "
-                         "rows over ('pod', 'agent'), D over 'fsdp' (auto: "
+                         "rows over ('pod', 'agent'), D over 'fsdp'. auto: "
                          "train for --preset pod, none for cpu; debug: the "
-                         "(1, 2, 2, 2) mesh of 8 ranks)")
+                         "(1, 2, 2, 2) mesh of 8 ranks; P,A,F,M: a mesh of "
+                         "that (pod, agent, fsdp, model) shape, e.g. "
+                         "1,4,1,1")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' to "
                          "run on the CPU)")
@@ -350,12 +356,23 @@ def _fetch(mets):
 
 def _ckpt_tree(state, wire_gen, m):
     """The checkpointed tree: the panel state with its optimizer step count
-    as an (m,) array (a shared count is one repeated; ``meta`` says which
-    it was) and the wire generator's state."""
+    as an (m,) array over the m agents this rank holds (a shared count is
+    one repeated; ``meta`` says which it was) and the wire generator's
+    state."""
     opt = dict(state["opt"])
     opt["step_count"] = np.broadcast_to(
         np.asarray(opt["step_count"], np.int64), (m,)).copy()
     return {"state": {**state, "opt": opt}, "wire_gen": wire_gen.get_state()}
+
+
+def _ckpt_layout(tree, spec):
+    """This rank's blocks of :func:`_ckpt_tree`'s leaves (the state's by
+    ``dsgd.panel_state_layout``; the wire generator, the same on every
+    rank, saved by rank 0)."""
+    return {"state": dsgd.panel_state_layout(tree["state"], spec),
+            "wire_gen": panel_mod.whole_block(
+                tree["wire_gen"].shape,
+                owner=not spec.sharded or spec.mesh.rank == 0)}
 
 
 def _from_ckpt(tree, per_agent):
@@ -369,18 +386,19 @@ def _from_ckpt(tree, per_agent):
 
 
 def refuse_oversized_checkpoint(tree, res_total: int, m: int):
-    """SystemExit when ``tree`` cannot fit the checkpoint blob: its array
-    table is one msgpack bin of at most ``checkpoint.io.MAX_PAYLOAD_BYTES``
-    (4,294,967,295) bytes, in both packages' format."""
+    """SystemExit when ``tree`` cannot fit the checkpoint blob one process
+    saves: its array table is one msgpack bin of at most
+    ``checkpoint.io.MAX_PAYLOAD_BYTES`` (4,294,967,295) bytes, in both
+    packages' format (the ranks of a mesh save their blocks in parts)."""
     need = ckpt_io.payload_bytes(tree)
     if need > ckpt_io.MAX_PAYLOAD_BYTES:
         raise SystemExit(
-            f"--checkpoint-every/--resume: the state is {m} agents x "
+            f"--checkpoint-every on one process: the state is {m} agents x "
             f"{res_total} B resident = {m * res_total} B, a checkpoint "
             f"payload of {need} B with its headers, over the checkpoint "
             f"format's {ckpt_io.MAX_PAYLOAD_BYTES} B (one msgpack bin); "
-            f"run fewer agents or a narrower model, or without "
-            f"checkpoints")
+            f"run fewer agents or a narrower model, on a --mesh (each rank "
+            f"saves its blocks in parts), or without checkpoints")
 
 
 def run(args, *, cfg=None, lm=None):
@@ -402,7 +420,8 @@ def run(args, *, cfg=None, lm=None):
         kind = "train" if args.preset == "pod" else "none"
     if kind == "none":
         return _run(args, cfg, lm, None)
-    refuse_on_mesh(args)
+    if kind not in ("train", "debug"):
+        mesh_shape(kind)  # refused before any process group starts
     mesh = build_mesh(kind, cfg, args.device)
     try:
         if mesh_mod.is_primary(mesh):
@@ -506,15 +525,25 @@ def _run(args, cfg, lm, mesh):
     wire_gen = torch.Generator(device=device).manual_seed(args.seed + 3)
 
     ckpt = None
+    here = spec.agent_range()[1] - spec.agent_range()[0]
+    ckpt_dir = args.checkpoint_dir or os.path.join(args.out, "ckpt_" + tag)
+    policy = parse_policy(args.residency or None)
     if args.checkpoint_every or args.resume:
-        refuse_oversized_checkpoint(_ckpt_tree(state, wire_gen, m),
-                                    res_bytes["total"], m)
         # the residency stamp guards --resume against decoding stored
-        # panels with another --residency
-        ckpt = Checkpointer(
-            args.checkpoint_dir or os.path.join(args.out, "ckpt_" + tag),
-            keep=args.checkpoint_keep, fingerprint=run_cfg,
-            residency=parse_policy(args.residency or None))
+        # panels with another --residency. One process saves whole blobs
+        # (the reference's format, one bin: refused when the state cannot
+        # fit it); the ranks of a mesh save their blocks, in parts
+        if mesh is None:
+            if args.checkpoint_every:  # a resume alone saves nothing
+                refuse_oversized_checkpoint(
+                    _ckpt_tree(state, wire_gen, here), res_bytes["total"], m)
+            ckpt = Checkpointer(ckpt_dir, keep=args.checkpoint_keep,
+                                fingerprint=run_cfg, residency=policy)
+        else:
+            ckpt = ShardedCheckpointer(ckpt_dir, mesh,
+                                       keep=args.checkpoint_keep,
+                                       fingerprint=run_cfg,
+                                       residency=policy)
     segment_fn = dsgd.make_panel_segment(model.loss_fn, opt,
                                          args.local_steps, spec, fused=fused,
                                          telemetry=args.telemetry)
@@ -543,7 +572,11 @@ def _run(args, cfg, lm, mesh):
     seg_idx = 0
     resume_seq = None
     if args.resume:
-        rec = ckpt.restore_latest(_ckpt_tree(state, wire_gen, m))
+        like = _ckpt_tree(state, wire_gen, here)
+        rec = ckpt_io.restore_latest(
+            ckpt_dir, like, _ckpt_layout(like, spec) if mesh else None,
+            mesh=mesh, residency=policy)
+        del like
         if rec is None:
             print("resume: no checkpoint found, starting fresh")
         else:
@@ -663,7 +696,9 @@ def _run(args, cfg, lm, mesh):
             # asynchronous: the host copy is taken before save() returns,
             # so the next segment may update the state in place; events_seq
             # is the stream's position, the truncate-on-resume cursor
-            ckpt.save(t, _ckpt_tree(state, wire_gen, m), block=False, meta={
+            tree = _ckpt_tree(state, wire_gen, here)
+            ckpt.save(t, tree, *(() if mesh is None else (
+                _ckpt_layout(tree, spec),)), block=False, meta={
                 "round": t, "segments": seg_idx, "comm_cost": comm_cost,
                 "monitor": monitor, "history": history,
                 "data_rng": rng_np.bit_generator.state,
@@ -671,6 +706,7 @@ def _run(args, cfg, lm, mesh):
                 "events_seq": log.seq,
                 "count_per_agent": isinstance(state["opt"]["step_count"],
                                               np.ndarray)})
+            del tree
         if args.die_after_segments and seg_idx >= args.die_after_segments:
             if ckpt is not None:
                 ckpt.wait()

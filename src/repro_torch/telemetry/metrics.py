@@ -141,14 +141,14 @@ def round_wire_bytes(W, *, bytes_wire: int, bytes_full: int,
     round) switches communicating rows to the full-precision cost; ``lv``
     (the (m,) liveness trits) zeroes DEAD rows and charges RESYNC rows the
     full-precision pull."""
-    W = np.asarray(torch.as_tensor(W, dtype=torch.float32).cpu())
+    W = panel_mod.host_array(W, np.float32)
     m = W.shape[0]
     idle = np.all(W == np.eye(m, dtype=np.float32), axis=1)
     per = np.where(idle, 0, int(bytes_wire)).astype(np.int64)
     if full_bandwidth is not None and bool(full_bandwidth):
         per = np.where(idle, per, int(bytes_full))
     if lv is not None:
-        lv = np.asarray(torch.as_tensor(lv).cpu()).reshape(m)
+        lv = panel_mod.host_array(lv, np.int64).reshape(m)
         per = np.where(lv == 0, 0, per)
         per = np.where(lv == 2, int(bytes_full), per)
     return per.astype(np.int64)
@@ -159,7 +159,7 @@ def live_trits(lv, m: int):
     mask)."""
     if lv is None:
         return np.ones((m,), np.int64)
-    return np.asarray(torch.as_tensor(lv).cpu(), np.int64).reshape(m)
+    return panel_mod.host_array(lv, np.int64).reshape(m)
 
 
 def fused_moments_auto(spec, optimizer) -> bool:

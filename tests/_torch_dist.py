@@ -40,7 +40,21 @@ Modes:
               combinations of codec, merge operator, residency policy,
               fault plan and telemetry, sharded and on one process;
   ipc      -- (test_torch_cuda.py, on the card) the four ranks' mesh
-              collectives through the CUDA IPC exchange buffers.
+              collectives through the CUDA IPC exchange buffers;
+  ckpt_save -- (test_torch_sharded_checkpoint.py) olmo-1b states at the
+              launcher's CPU preset of CKPT_CASES on the (1, 2, 2, 1) mesh, a round of the
+              segment apart, saved as steps 1 and 2 by the sharded
+              checkpointer in small parts; each rank writes its trees and
+              blocks, rank 0 also the one-process run's trees and its
+              one-process checkpoints of the same steps;
+  dryrun   -- (test_torch_dryrun.py) DRY_CASES' reduced() olmo-1b runs on
+              the (1, 2, 2, 1) mesh as launch/dryrun.py:reckon traces them
+              (the init, a segment of its default rounds, the evals), for
+              real: each rank writes Mesh.stats of the init and of the rest;
+  ckpt_restore -- the newest good step of each given checkpoint directory
+              restored on the mesh of the given shape into a fresh init
+              of its case: each rank writes its step, trees, blocks and
+              the warnings it raised.
 """
 from __future__ import annotations
 
@@ -443,9 +457,10 @@ OPTION_CASES = {
 OPT_M, OPT_ROUNDS, OPT_H = 4, 3, 2
 
 
-def _option_inputs(plan):
+def _option_inputs(plan, cfg=None):
     """(Ws, global, live, batches) of OPT_ROUNDS rounds of the final-merge
-    schedule (a gossip round, another, the merge) under ``plan``."""
+    schedule (a gossip round, another, the merge) under ``plan``; the
+    batches over ``cfg``'s vocabulary (default olmo-1b's reduced())."""
     import numpy as np
     from repro_torch.core.faults import FaultPlan
     from repro_torch.core.schedule import make_schedule
@@ -461,7 +476,7 @@ def _option_inputs(plan):
         glob.append(sched.last_kind == "global")
         live.append(np.ones(OPT_M, np.int64) if sched.last_live is None
                     else np.asarray(sched.last_live, np.int64))
-    cfg = get_config("olmo-1b").reduced()
+    cfg = cfg or get_config("olmo-1b").reduced()
     lm = SyntheticLM(vocab=cfg.vocab_size, seed=0)
     batches = train.sample_segment_batches(
         lm, lm.domain_mixtures(OPT_M, 0.1, seed=1), OPT_ROUNDS, OPT_H, 2, 16,
@@ -570,6 +585,177 @@ def mode_ipc(tmp):
     torch.save(out, os.path.join(tmp, f"rank{r}.pt"))
 
 
+# the sharded checkpoints' cases: (wire, merge, residency, fault plan)
+CKPT_CASES = {
+    "f32": ("f32", "uniform", None, None),
+    "int8_ef fisher int8": ("int8_ef", "fisher",
+                            "moments=int8,stats=int8r", None),
+    "topk ties faults": ("topk", "ties", None, "2@1-2"),
+}
+CKPT_PART_BYTES = 1 << 16  # small parts: leaves split over several
+# each case's residency stamp ({kind: storage})
+CKPT_RES = {label: None if res is None else dict(
+    kv.split("=") for kv in res.split(","))
+    for label, (_, _, res, _) in CKPT_CASES.items()}
+
+
+def ckpt_config():
+    """The checkpoint cases' model: olmo-1b at the launcher's CPU preset
+    (D = 491,520: column shards of 245,760 = 1,920 groups of 128)."""
+    from repro_torch.configs import get_config
+    return get_config("olmo-1b").reduced(d_model=128, layers=2, vocab=256)
+
+
+def _ckpt_run(label, mesh, rounds=2):
+    """[(checkpoint tree, its layout)] of CKPT_CASES[label] on ``mesh``
+    (None: one process) after each of ``rounds`` rounds (0: the fresh
+    init alone), and the spec."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import dsgd
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+    from repro_torch.optim import make_optimizer
+    import torch
+    wire, merger, res, plan = CKPT_CASES[label]
+    cfg = ckpt_config()
+    Ws, glob, live, batches = _option_inputs(plan, cfg)
+    model = build_model(cfg)
+    opt = make_optimizer("adamw", 3e-3, weight_decay=5e-4,
+                         total_steps=OPT_ROUNDS * OPT_H)
+    kw = {"mesh": mesh} if mesh is not None else {"device": "cpu"}
+    state, spec = dsgd.init_panel_state(model.init_params, opt, OPT_M, 0,
+                                        wire=wire, merger=merger,
+                                        residency=res, **kw)
+    seg = dsgd.make_panel_segment(model.loss_fn, opt, OPT_H, spec)
+    gen = torch.Generator().manual_seed(7)
+    here = spec.agent_range()[1] - spec.agent_range()[0]
+    trees = []
+    if not rounds:
+        tree = train._ckpt_tree(state, gen, here)
+        return [(tree, train._ckpt_layout(tree, spec))], spec
+    for t in range(rounds):
+        state, _ = seg(state, {k: v[t:t + 1] for k, v in batches.items()},
+                       Ws[t:t + 1], gen, global_rounds=glob[t:t + 1],
+                       live=None if live is None else live[t:t + 1])
+        tree = train._ckpt_tree(state, gen, here)
+        trees.append((tree, train._ckpt_layout(tree, spec)))
+    return trees, spec
+
+
+def _flat_blocks(tree, layout):
+    from repro_torch.checkpoint import io as ckpt_io
+    import torch
+    out = {}
+    for (kp, leaf), (_, b) in zip(ckpt_io._leaves_with_path(tree),
+                                  ckpt_io._leaves_with_path(layout)):
+        out[ckpt_io._key_str(kp)] = (torch.as_tensor(leaf).clone(), b.index,
+                                     b.shape, b.owner)
+    return out
+
+
+def mode_ckpt_save(tmp):
+    import torch
+    from repro_torch.checkpoint import Checkpointer, ShardedCheckpointer
+    from repro_torch.launch.mesh import make_debug_mesh
+    mesh = make_debug_mesh(agents=2, fsdp=2, model=1, device="cpu")
+    out = {}
+    for i, label in enumerate(CKPT_CASES):
+        trees, spec = _ckpt_run(label, mesh)
+        ck = ShardedCheckpointer(os.path.join(tmp, f"case{i}"), mesh,
+                                 part_bytes=CKPT_PART_BYTES,
+                                 residency=CKPT_RES[label])
+        # the trees the tests compare: step 2's, and the f32 case's step 1
+        # (where a torn step 2 sends a restore)
+        kept = (1, 2) if label == "f32" else (2,)
+        for step, (tree, layout) in enumerate(trees, 1):
+            ck.save(step, tree, layout, meta={"round": step}, block=False)
+            if step in kept:
+                out[f"{label}.{step}"] = _flat_blocks(tree, layout)
+        ck.wait()
+        if mesh.rank == 0:
+            one, _ = _ckpt_run(label, None)
+            ck1 = Checkpointer(os.path.join(tmp, f"one{i}"),
+                               residency=CKPT_RES[label])
+            for step, (tree, layout) in enumerate(one, 1):
+                ck1.save(step, tree, meta={"round": step})
+                if step in kept:
+                    out[f"single.{label}.{step}"] = _flat_blocks(tree,
+                                                                 layout)
+    torch.save(out, os.path.join(tmp, f"rank{mesh.rank}.pt"))
+
+
+def mode_ckpt_restore(tmp, shape, *dirs):
+    """``dirs``: 'CASE_INDEX:PATH' pairs."""
+    import warnings
+    import torch
+    from repro_torch.checkpoint import restore_latest
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh(tuple(int(x) for x in shape.split(",")), device="cpu")
+    out = {}
+    for item in dirs:
+        i, path = item.split(":", 1)
+        label = list(CKPT_CASES)[int(i)]
+        [(like, layout)], _ = _ckpt_run(label, mesh, rounds=0)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            step, tree, meta = restore_latest(path, like, layout, mesh=mesh,
+                                              residency=CKPT_RES[label])
+        out[path] = {"step": step, "meta": meta,
+                     "warnings": [str(w.message) for w in caught],
+                     "blocks": _flat_blocks(tree, layout)}
+    torch.save(out, os.path.join(tmp, f"rank{mesh.rank}.pt"))
+
+
+# the dry run's cases on the small mesh: (wire, merge, residency)
+DRY_CASES = {"f32": (None, "uniform", None),
+             "int4 fisher int8": ("int4", "fisher",
+                                  "moments=int8,stats=int8r")}
+DRY_M, DRY_H, DRY_B, DRY_S = 4, 2, 2, 16
+
+
+def mode_dryrun(tmp):
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import dsgd
+    from repro_torch.launch import train
+    from repro_torch.launch.dryrun import default_rounds
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import build_model
+    from repro_torch.optim import make_optimizer
+    mesh = make_debug_mesh(agents=2, fsdp=2, model=1, device="cpu")
+    cfg = get_config("olmo-1b").reduced()
+    model = build_model(cfg)
+    rounds = default_rounds(DRY_M)
+    Ws = np.concatenate([r[0] for r in rounds])
+    glob = np.concatenate([r[1] for r in rounds])
+    out = {}
+    for label, (wire, merger, res) in DRY_CASES.items():
+        opt = make_optimizer("adamw", 3e-3, weight_decay=5e-4,
+                             total_steps=len(Ws) * DRY_H)
+        mesh.stats.update(dict.fromkeys(mesh.stats, 0))
+        state, spec = dsgd.init_panel_state(
+            model.init_params, opt, DRY_M, torch.Generator().manual_seed(0),
+            mesh=mesh, wire=wire, merger=merger, residency=res)
+        init = dict(mesh.stats)
+        mesh.stats.update(dict.fromkeys(mesh.stats, 0))
+        seg = dsgd.make_panel_segment(model.loss_fn, opt, DRY_H, spec)
+        lead = (len(Ws), DRY_H, DRY_M, DRY_B, DRY_S)
+        batches = {"tokens": np.zeros(lead, np.int32),
+                   "targets": np.zeros(lead, np.int32),
+                   "mask": np.ones(lead, np.float32)}
+        state, _ = seg(state, batches, Ws, torch.Generator().manual_seed(3),
+                       global_rounds=glob)
+        ev = {k: torch.as_tensor(v[0, 0, 0]).repeat(2, 1)
+              for k, v in batches.items()}
+        train.eval_merged(model.loss_fn, state["panel"], spec, ev,
+                          state.get("merge_stat"))
+        train.eval_local(model.loss_fn, state["panel"], spec, ev)
+        out[label] = {"init": init, "run": dict(mesh.stats)}
+    torch.save(out, os.path.join(tmp, f"rank{mesh.rank}.pt"))
+
+
 def mode_launch(tmp, *argv):
     from repro_torch.launch import train
     train.main(list(argv))
@@ -581,4 +767,7 @@ if __name__ == "__main__":
     mode, tmp, rest = sys.argv[1], sys.argv[2], sys.argv[3:]
     {"ops": mode_ops, "segment": mode_segment, "launch": mode_launch,
      "codecs": mode_codecs, "merges": mode_merges,
-     "options": mode_options, "ipc": mode_ipc}[mode](tmp, *rest)
+     "options": mode_options, "ipc": mode_ipc,
+     "ckpt_save": mode_ckpt_save, "ckpt_restore": mode_ckpt_restore,
+     "dryrun": mode_dryrun}[mode](
+        tmp, *rest)

@@ -1,0 +1,303 @@
+"""The dry run's estimate (``launch/dryrun.py``): what one rank of a
+sharded run holds and does, traced on the CPU without allocating.
+
+* **Pod meshes.** At the reference's 16 x 16 and 2 x 16 x 16 training
+  meshes, for olmo-1b (16 agents a pod, fsdp 1) and arctic-480b (MoE, 2
+  agents a pod, fsdp 8), every panel variant's state bytes a rank equal
+  the per-device shard bytes of the reference's ``panel_state_shardings``
+  leaf by leaf (the reference's shapes in a subprocess with 512 forced host
+  devices, no compile); the one difference is named: at fsdp > 1 the
+  port's grouped scale sidecars sit beside their columns (1 / fsdp of the
+  reference's rows-only sidecar). ``panel_state_layout``'s blocks have the
+  local shapes the state's leaves have.
+* **Small mesh.** On (1, 2, 2, 1) at ``reduced()`` the recording mesh's
+  collective bytes and calls equal ``Mesh.stats`` of the same program run
+  for real over gloo (``tests/_torch_dist.py`` mode ``dryrun``), f32 and a
+  lossy case (int4, fisher, int8 moments and int8r statistics).
+* **FLOPs.** One agent's traced local step equals 6 x its matmul
+  parameters x tokens plus the attention's 12 B S^2 H hd a layer (the
+  plain attention computes the whole square; ``utils/flops.py`` counts its
+  causal half): olmo-1b's reduced() (tied embedding, norms without
+  weights: N itself) and phi3-mini's (its untied input embedding and norm
+  weights are not matmuls) within 1e-9 relative.
+* **No allocation.** The CLI's olmo-1b ``train_4k`` record at 16 x 16,
+  whose state is 14.1 GB a rank, raises the process's peak RSS by under
+  1 GB, in a subprocess; and it refuses the serve shapes and the non-panel
+  variants by name.
+"""
+import json
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+
+import _torch_threads  # noqa: F401
+from _torch_dist import DRY_B, DRY_CASES, DRY_H, DRY_M, DRY_S, spawn
+from repro_torch import hardware
+from repro_torch.checkpoint import io as ckpt_io
+from repro_torch.configs import get_config
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.core import dsgd
+from repro_torch.launch import dryrun
+from repro_torch.launch import mesh as mesh_mod
+from repro_torch.models import build_model
+from repro_torch.optim import make_optimizer
+from repro_torch.utils import flops as flops_mod
+from repro_torch.utils.fake_trace import RecordingMesh, trace
+
+SRC = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "src")
+POD_ARCHS = ["olmo-1b", "arctic-480b"]
+
+REFERENCE_SHARDS = textwrap.dedent("""
+    import json
+    import jax
+    from repro.configs import get_config
+    from repro.core import dsgd
+    from repro.core import panel as panel_mod
+    from repro.launch import mesh as mesh_mod
+    from repro.launch.dryrun import build_train_panel
+    from repro.models import build_model
+    from repro.optim import make_optimizer
+    out = {}
+    for arch in ARCHS:
+        cfg = get_config(arch)
+        model = build_model(cfg)
+        for multi in (False, True):
+            mesh = mesh_mod.make_training_mesh(cfg.dist.agents_per_pod,
+                                               multi_pod=multi)
+            m = mesh_mod.num_agents(mesh)
+            key = jax.random.PRNGKey(0)
+            params = jax.eval_shape(lambda k: dsgd._init_agent_params(
+                model.init_params, m, k, False), key)
+            for variant, (wire, res) in VARIANTS.items():
+                spec = panel_mod.shard_spec(panel_mod.make_spec(params), mesh)
+                spec = panel_mod.with_residency(
+                    panel_mod.with_wire(spec, wire), res)
+                opt = make_optimizer("adamw", 1e-4)
+                st = jax.eval_shape(lambda k: dsgd.init_panel_state(
+                    model.init_params, opt, m, k, wire=wire,
+                    residency=res)[0], key)
+                sh = dsgd.panel_state_shardings(st, spec)
+                leaves = {}
+                for (path, s), x in zip(
+                        jax.tree_util.tree_flatten_with_path(sh)[0],
+                        jax.tree.leaves(st)):
+                    k = "/".join(str(getattr(p, "key", getattr(p, "idx", p)))
+                                 for p in path)
+                    n = 1
+                    for d in s.shard_shape(x.shape):
+                        n *= d
+                    leaves[k] = n * x.dtype.itemsize
+                out[f"{arch}|{multi}|{variant}"] = leaves
+    print(json.dumps(out))
+""")
+
+
+@pytest.fixture(scope="module")
+def reference_shards():
+    from _multidevice import run_multidevice
+    variants = {v: (w, None if r is None else {"moments": "int8"})
+                for v, (w, r) in dryrun.VARIANTS.items()}
+    script = (f"ARCHS = {POD_ARCHS!r}\nVARIANTS = {variants!r}\n"
+              + REFERENCE_SHARDS)
+    return run_multidevice(script, devices=512)
+
+
+def _port_state(arch, multi, variant):
+    """{key: local bytes} of rank 0's state, and its layout's blocks."""
+    cfg = get_config(arch)
+    shape = mesh_mod.training_shape(cfg.dist.agents_per_pod, multi)
+    mesh = mesh_mod.mesh_of_shape(shape)
+    m = mesh_mod.num_agents(mesh)
+    wire, res = dryrun.VARIANTS[variant]
+    out = {}
+
+    def init(rec):
+        state, spec = dsgd.init_panel_state(
+            build_model(cfg).init_params, make_optimizer("adamw", 1e-4), m,
+            torch.Generator().manual_seed(0), mesh=mesh, wire=wire,
+            residency=res)
+        layout = dsgd.panel_state_layout(state, spec)
+        for (kp, x), (_, b) in zip(ckpt_io._leaves_with_path(state),
+                                   ckpt_io._leaves_with_path(layout)):
+            k = ckpt_io._key_str(kp)
+            if isinstance(x, torch.Tensor):
+                assert tuple(x.shape) == b.local_shape, (k, x.shape, b)
+                out[k] = x.numel() * x.element_size()
+        return spec
+
+    spec = trace(init).value
+    return out, spec, mesh
+
+
+@pytest.mark.parametrize("multi", [False, True], ids=["16x16", "2x16x16"])
+@pytest.mark.parametrize("arch", POD_ARCHS)
+def test_state_bytes_a_rank_equal_the_reference_shards(reference_shards,
+                                                       arch, multi):
+    for variant in dryrun.VARIANTS:
+        got, spec, mesh = _port_state(arch, multi, variant)
+        want = {k: v for k, v in
+                reference_shards[f"{arch}|{multi}|{variant}"].items()
+                if k not in ("step", "opt/step_count")}
+        assert set(got) == set(want), (variant, set(got) ^ set(want))
+        fsdp = mesh.shape["fsdp"]
+        for k, n in got.items():
+            if k.endswith("/scale") and fsdp > 1:
+                # beside their columns: 1 / fsdp of a rows-only sidecar
+                assert n * fsdp == want[k], (variant, k, n, want[k])
+            else:
+                assert n == want[k], (arch, multi, variant, k, n, want[k])
+
+
+@pytest.fixture(scope="module")
+def gloo_stats(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("dryrun")
+    spawn(4, "dryrun", tmp, timeout=240)
+    return [torch.load(tmp / f"rank{r}.pt", weights_only=False)
+            for r in range(4)]
+
+
+@pytest.mark.parametrize("label", list(DRY_CASES))
+def test_recording_mesh_equals_mesh_stats_of_a_real_run(gloo_stats, label):
+    wire, merger, res = DRY_CASES[label]
+    cfg = get_config("olmo-1b").reduced()
+    for rank in (0, 3):  # the ranks' collectives are alike: two corners
+        real = gloo_stats[rank]
+        r = dryrun.reckon(cfg, (1, 2, 2, 1), rank=rank, agents=DRY_M,
+                          local_steps=DRY_H, batch=DRY_B, seq=DRY_S,
+                          wire=wire, merger=merger, residency=res,
+                          route="gloo")
+        for part in ("init", "run"):
+            assert (r[part]["calls"], r[part]["bytes"]) == (
+                real[label][part]["calls"], real[label][part]["bytes"]), \
+                (label, rank, part, r[part], real[label][part])
+        assert r["host_reads"]["traced"] == 0
+        assert r["run"]["calls"] > 10
+
+
+def test_recording_mesh_counts_the_ipc_route_as_the_mesh_plans_it():
+    """On ranks sharing one card an all-reduce is a call a CUDA IPC
+    buffer's worth of elements, its flat result and gathered parts alive
+    beside the tensor (the traced peak); an all-gather is one call; the
+    other routes one call each (``Mesh.plan``, which ``Mesh``'s own
+    collectives follow)."""
+    ipc = RecordingMesh.of(mesh_mod.mesh_of_shape((1, 2, 2, 1)),
+                           route="cuda ipc")
+    step = mesh_mod.IPC_BYTES // 4
+    n = 2 * step + 5
+
+    def prog(rec):
+        ipc.all_reduce(torch.empty(n), "rows", op="max")
+        ipc.all_gather(torch.empty(3, 7), "fsdp")
+
+    r = trace(prog)
+    assert ipc.log[("rows", "all_reduce_max")] == {"calls": 3,
+                                                   "bytes": 4 * n}
+    assert ipc.log[("fsdp", "all_gather")] == {"calls": 1, "bytes": 84}
+    assert r.peak == 4 * (n + n + 2 * step)
+    plan = ipc.plan(torch.empty(n), "all_reduce", "rows")
+    assert plan.parts == ((0, step), (step, 2 * step), (2 * step, n))
+    for route in ("nccl", "gloo", "gloo (host staged)"):
+        other = RecordingMesh.of(ipc, route=route)
+        assert other.plan(torch.empty(n), "all_reduce", "rows").parts == \
+            ((0, n),)
+
+
+def _matmul_params(model, cfg):
+    """Parameters that enter a matmul: N less an untied input embedding
+    and the norms' weights (a gather and elementwise scales)."""
+    n = 0
+    for kp, x in ckpt_io._leaves_with_path(flops_mod.param_shapes(model)):
+        key = ckpt_io._key_str(kp)
+        if "norm" in key or (key == "embed/table"
+                             and not cfg.tie_embeddings):
+            continue
+        n += int(np.prod(x.shape))
+    return n
+
+
+@pytest.mark.parametrize("arch", ["olmo-1b", "phi3-mini-3.8b"])
+def test_traced_local_step_flops_are_the_model_flops(arch):
+    cfg = get_config(arch).reduced()
+    model = build_model(cfg)
+    b, S = 2, 64
+    idle = [(np.eye(1, dtype=np.float32)[None], np.array([False]), None)]
+    r = dryrun.reckon(cfg, (1, 1, 1, 1), agents=1, batch=b, seq=S,
+                      rounds=idle, evals=False)
+    mf = flops_mod.model_flops(model, ShapeConfig("step", S, b, "train"))
+    attn_full = 2 * mf["attn_flops"]  # the whole square, not its half
+    want = 6 * _matmul_params(model, cfg) * b * S + attn_full
+    assert abs(r["segment0"]["flops"] - want) <= 1e-9 * want
+    if arch == "olmo-1b":  # N itself: utils/flops.py's own count
+        assert mf["model_flops"] + attn_full == want
+
+
+def test_mesh_of_shape_reads_as_a_live_mesh():
+    shape = (2, 16, 1, 16)
+    for rank in (0, 17, 511):
+        mesh = mesh_mod.mesh_of_shape(shape, rank)
+        coord = np.unravel_index(rank, shape)
+        assert [mesh.coord[a] for a in mesh_mod.AXES] == list(coord)
+        assert rank in mesh.members["rows"] and rank in mesh.members["fsdp"]
+        assert len(mesh.members["rows"]) == 32
+        assert len(mesh.members["fsdp"]) == 1
+        assert mesh_mod.num_agents(mesh) == 32
+    with pytest.raises(ValueError, match="not on a mesh"):
+        mesh_mod.mesh_of_shape(shape, 512)
+
+
+@pytest.mark.parametrize("shape,variant", [
+    ("prefill_32k", "panel"), ("decode_32k", "panel"),
+    ("long_500k", "panel"), ("train_4k", "baseline"),
+    ("train_4k", "seqpar"), ("train_4k", "moeshard")])
+def test_dry_run_refuses_what_it_does_not_reckon(shape, variant):
+    with pytest.raises(SystemExit) as e:
+        dryrun.main(["--arch", "olmo-1b", "--shape", shape, "--variant",
+                     variant])
+    assert "A16d" in str(e.value)
+    assert (shape if shape != "train_4k" else variant) in str(e.value)
+
+
+RSS_SCRIPT = textwrap.dedent("""
+    import json, resource, sys
+    from repro_torch.launch import dryrun
+    before = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+    rc = dryrun.main(["--arch", "olmo-1b", "--shape", "train_4k", "--mesh",
+                      "single", "--variant", "panel", "--out", sys.argv[1]])
+    after = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+    print(json.dumps({"rc": rc, "kib": after - before}))
+""")
+
+
+def test_cli_record_at_16x16_allocates_no_state(tmp_path):
+    env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1")
+    out = subprocess.run([sys.executable, "-c", RSS_SCRIPT, str(tmp_path)],
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["rc"] == 0 and got["kib"] * 1024 < 1e9, got
+    rec = json.loads((tmp_path / "olmo-1b_train_4k_16x16_panel.json")
+                     .read_text())
+    assert rec["status"] == "OK" and rec["chips"] == 256
+    assert rec["agents"] == 16 and rec["agents_per_rank"] == 1
+    mem = rec["memory"]
+    assert 14.0e9 < mem["state_bytes"] < 14.2e9  # 12 B x 1,177,026,560
+    assert mem["state_bytes"] == 12 * rec["panel_width"]
+    assert mem["traced_peak_bytes"] >= mem["state_bytes"]
+    assert mem["fits"] == (mem["per_device_total"] <= mem["card_bytes"])
+    # one rank a card (NCCL): the peak and the rank's reserve, no IPC
+    assert mem["ipc_bytes"] == 0
+    assert mem["reserve_bytes"] == hardware.RANK_RESERVE_BYTES
+    assert mem["per_device_total"] == (mem["traced_peak_bytes"]
+                                       + mem["reserve_bytes"])
+    assert rec["host_reads"]["traced"] == 0
+    assert rec["collectives"]["per_line"]["rows"]["ranks"] == 16
+    assert set(rec["roofline"]) == {"compute_s", "memory_s",
+                                    "collective_s", "dominant"}
+    assert "replicas" in rec["note"]

@@ -25,8 +25,9 @@ On the (1, 2, 2, 2) ``--mesh debug`` mesh of 8 ranks the launcher with
 and evals bit for bit, grad norms and Xi within 1e-6 relative (summed over
 ranks in another order), the last Xi 0.0. The refusals: ``--agents`` not
 divisible by the mesh's agent ranks, a world size other than the mesh's,
-and each flag a sharded run does not take yet (the checkpoints, ROADMAP
-A16b'), by name. The other options on a mesh: test_torch_sharded_options.py.
+and a ``--mesh`` that names no mesh, by name. The other options on a mesh:
+test_torch_sharded_options.py; checkpoints on a mesh:
+test_torch_sharded_checkpoint.py.
 """
 import json
 
@@ -210,18 +211,10 @@ def test_launcher_refuses_indivisible_agents_and_wrong_world(tmp_path):
                for r in ranks)
 
 
-# what a sharded run does not take yet (the lossy wires, the other merges,
-# residency, faults and telemetry run on a mesh since ROADMAP A16b:
-# tests/test_torch_sharded_options.py runs each of them)
-REFUSED = [["--checkpoint-every", "1"], ["--resume"]]
-
-
-@pytest.mark.parametrize("extra", REFUSED, ids=lambda e: " ".join(e))
-def test_launcher_refuses_what_waits_for_a16b(tmp_path, extra):
+@pytest.mark.parametrize("kind", ["1,2", "1,0,1,1", "mesh"])
+def test_launcher_refuses_a_mesh_it_cannot_read(tmp_path, kind):
     with pytest.raises(SystemExit) as e:
-        train.main(ARGS + ["--mesh", "debug", "--out", str(tmp_path)]
-                   + extra)
-    msg = str(e.value)
-    assert extra[0] in msg and "ROADMAP A16b'" in msg
+        train.main(ARGS + ["--mesh", kind, "--out", str(tmp_path)])
+    assert f"--mesh {kind!r}" in str(e.value) and "P,A,F,M" in str(e.value)
     import torch.distributed as dist
     assert not dist.is_initialized()  # refused before any process group
