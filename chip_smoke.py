@@ -241,14 +241,32 @@ Phases, each printing its lines:
      holds beyond its peak (its CUDA context and its allocator's reserve)
      under ``hardware.RANK_RESERVE_BYTES``, and the reckoned device total
      (``dryrun.device_total``: peak, reserve, IPC buffer) within
-     DRY_PEAK_SHARE of each 12b rank's measured one;
+     DRY_PEAK_SHARE of each 12b rank's measured one; (f) the split route
+     (core.dsgd.make_panel_segment(param_shardings=), models/
+     tensor_parallel.py): SPLIT_CELLS' olmo cell (the main path's widths,
+     m 4) on (1, 1, 2, 2), each agent's batch over 2 fsdp ranks and its
+     heads, d_ff and vocabulary over 2 model ranks, and gemma-2b
+     reduced(d_model=512) with attn_block 512 on (1, 1, 1, 2) (the flash
+     kernels on each rank's 4 heads, the one kv head whole), SPLIT_ROUNDS
+     rounds each on the card's ranks over CUDA IPC, against the same cell
+     on one process on the replica route (and that run from its init one
+     ulp up, printed: the trajectory's float32 conditioning): one local
+     step's gradients leaf by leaf within SPLIT_GRAD_RTOL, the first
+     round's loss and grad norm and every round's Xi within SPLIT_RTOL,
+     every round and the evals within SPLIT_SAME, Xi 0.0, the rows
+     identical and merged == local after the merge, SPLIT_KERNELS
+     launched on every rank, and the
+     olmo cell's peak a rank within DRY_PEAK_SHARE of its reckon (traced
+     on the host beside phase 11) and its collective calls and bytes equal
+     to the reckoned; its rounds, peaks and collective seconds a rank
+     printed;
 then the script's total time, a JSON line of per-kernel numbers (the
 flash rows with their hd96, hd256 and hd256_h10 timings and the
 backward's own kernels' times, kernels_ms; every row with its phase-11
 launches by cell, ``launches_arch``, and phase 12's, ``launches_phase12``:
 bf16_params (12a), sharded (12b), sharded_options (12c, summed over the
-ranks and the runs) and sharded_checkpoint (12d's resumed runs, summed
-over their ranks);
+ranks and the runs), sharded_checkpoint (12d's resumed runs, summed
+over their ranks) and split (12f's two cells, summed over their ranks);
 the mix's bf16 and f16 and the reduce's bf16 and f16 sub-rows, each with
 that variant's own launches: the bf16 wire path's for bf16, the main
 path's for f16, and its own ``launches_phase12``), the
@@ -339,7 +357,9 @@ FAULT_SMOKE_KERNELS = ("quantize_int8", "dequantize_int8",
 # (layers None). The recurrent decoders are cut to one period: for
 # recurrentgemma (RG-LRU, RG-LRU, local attention with window 2048; its
 # attention layer at attn_block 512: the flash kernels at hd 256, 10 query
-# heads on 1 key head), for xlstm 7 mLSTM and 1 sLSTM layers.
+# heads on 1 key head), for xlstm 7 mLSTM and 1 sLSTM layers (at m 4
+# since phase 12f joined the script: its sLSTM's per-token loop made the
+# cell ~115 s at m 8).
 # ARCH_ROUNDS rounds (two gossip rounds and the merge), H local steps;
 # ARCH_D the width D of an agent each cut gives.
 ARCH_CELLS = {"phi3": ("phi3-mini-3.8b", 2, 8, 4, 512, 0, None),
@@ -349,7 +369,7 @@ ARCH_CELLS = {"phi3": ("phi3-mini-3.8b", 2, 8, 4, 512, 0, None),
               "deepseek": ("deepseek-v3-671b", None, 8, 4, 256, 0, None),
               "recurrentgemma": ("recurrentgemma-2b", 3, 3, 2, 2048, 512,
                                  None),
-              "xlstm": ("xlstm-1.3b", 8, 8, 4, 512, 0, None),
+              "xlstm": ("xlstm-1.3b", 8, 4, 4, 512, 0, None),
               "qwen2vl": ("qwen2-vl-72b", None, 8, 4, 256, 0, None),
               "seamless": ("seamless-m4t-medium", 12, 2, 4, 1024, 512,
                            None)}
@@ -2965,6 +2985,8 @@ def sharded_child(kind):
     from repro_torch.optim import make_optimizer
     if kind == "options":
         return options_child(os.environ["SHARD_TMP"])
+    if kind.startswith("split_"):
+        return split_child(kind)
     shape = SHARD_MESH if kind == "gloo4" else (1, 1, 1, 1)
     rounds = ROUNDS if kind == "gloo4" else 1
     mesh = mesh_mod.make_mesh(shape)
@@ -3946,7 +3968,8 @@ def ckpt_phase(torch, launcher):
 def reckon_child(out):
     """Phase 12e's host work (on the CPU, no card): launch/dryrun.py's
     reckon of phase 12b's run and of 12c's run (A), rank 0 of SHARD_MESH,
-    written to ``out`` as JSON."""
+    and of phase 12f's olmo cell on the split route, written to ``out`` as
+    JSON."""
     import torch
     torch.set_num_threads(2)
     from repro_torch.configs import get_config
@@ -3970,6 +3993,19 @@ def reckon_child(out):
         res[label] = {k: r[k] for k in ("state_bytes", "peak", "init",
                                         "run", "host_reads", "flops")}
         res[label]["seconds"] = time.perf_counter() - t0
+    # phase 12f's olmo cell on the split route, rank 0 of its mesh
+    label = "olmo"
+    shape, m = SPLIT_CELLS[label]
+    cfg = split_config(label)
+    per_round, _ = segment_inputs(cfg, m, SPLIT_ROUNDS,
+                                  data_vocab=DATA_VOCAB)
+    t0 = time.perf_counter()
+    r = dryrun.reckon(cfg, shape, agents=m, local_steps=H, batch=BATCH,
+                      seq=SEQ, route="cuda ipc", split=True,
+                      rounds=[(W, g, lv) for W, _, g, lv in per_round])
+    res["12f"] = {k: r[k] for k in ("state_bytes", "peak", "init", "run",
+                                    "host_reads", "flops", "split")}
+    res["12f"]["seconds"] = time.perf_counter() - t0
     with open(out, "w") as f:
         json.dump(res, f)
 
@@ -4076,6 +4112,7 @@ def dryrun_phase(torch, reckoning, sharded, options):
     check(max(beyond) <= hardware.RANK_RESERVE_BYTES,
           f"phase 12e: a rank holds {max(beyond)} B beyond its peak, over "
           f"hardware.RANK_RESERVE_BYTES {hardware.RANK_RESERVE_BYTES}")
+    return res
 
 
 def arch_config(name):
@@ -5032,6 +5069,273 @@ def arch_phase(torch):
     return counts, records
 
 
+# phase 12f: one agent's local step split over its agent block (the
+# param_shardings route, models/tensor_parallel.py). SPLIT_CELLS: label ->
+# (mesh, agents); "olmo" is the main path's cell (full width, 2 layers,
+# batch 4 x 512) on (1, 1, 2, 2): 4 ranks on the card, each agent's batch
+# over 2 fsdp ranks and its heads, d_ff and vocabulary over 2 model ranks;
+# "gemma" is gemma-2b reduced(d_model=512) (8 heads of 32 on one kv head)
+# with attn_block 512 on (1, 1, 1, 2): the flash kernels on each rank's 4
+# heads, the kv head whole. SPLIT_ROUNDS rounds (two gossip rounds, the
+# merge), each cell against the same cell on one process on the replica
+# route; SPLIT_RTOL the CPU tests' (tests/test_torch_tensor_parallel.py).
+SPLIT_CELLS = {"olmo": ((1, 1, 2, 2), 4), "gemma": ((1, 1, 1, 2), 4)}
+SPLIT_ROUNDS = SIDE_ROUNDS
+SPLIT_RTOL = {"losses": 5e-6, "grad_norms": 5e-5, "xis": 1e-6,
+              "merged": 5e-5, "local": 5e-5}
+# one local step's gradients leaf by leaf (relative l2); the first round
+# and Xi every round at SPLIT_RTOL. Later rounds and the evals: at full
+# width one process's own run moves past SPLIT_RTOL when its init moves
+# one ulp (AdamW amplifies float32 differences: the nudged run printed
+# beside), so they are held within SPLIT_SAME, the same trajectory
+SPLIT_GRAD_RTOL = 1e-5
+SPLIT_SAME = 1e-2
+SPLIT_KERNELS = {"olmo": ("gossip_mix", "panel_mean_consensus"),
+                 "gemma": ("gossip_mix", "panel_mean_consensus",
+                           "flash_attention_fwd", "flash_attention_bwd")}
+
+
+def split_config(label):
+    """Phase 12f's model config of a cell of SPLIT_CELLS."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    if label == "olmo":
+        return get_config("olmo-1b").replace(num_layers=2)
+    cfg = get_config("gemma-2b").reduced(d_model=512)
+    return cfg.replace(dist=dataclasses.replace(cfg.dist,
+                                                attn_block=ATTN_BLOCK))
+
+
+def split_run(torch, label, mesh=None, nudge=False):
+    """Phase 12f's cell ``label`` for SPLIT_ROUNDS rounds from the seeded
+    init: on ``mesh`` on the split route, else on one process on the
+    replica route (``nudge``: its float32 init moved one ulp up, every
+    element: the trajectory's float32 conditioning). Returns the per-round
+    losses, Xi, grad norms and seconds, the evals, launch counts, the
+    rank's peak, Mesh.stats and whether every agent's row is the same
+    after the merge; on a mesh also ``grad_err`` (split_grad_check of the
+    final state, after the peak and the collectives are read)."""
+    from repro_torch.core import dsgd
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.train import eval_local, eval_merged, to_device
+    from repro_torch.models import build_model
+    from repro_torch.models import tensor_parallel as tp
+    from repro_torch.optim import make_optimizer
+    cfg = split_config(label)
+    m = SPLIT_CELLS[label][1]
+    dev = mesh.device if mesh is not None else torch.device("cuda")
+    model = build_model(cfg)
+    opt = make_optimizer("adamw", 3e-3, weight_decay=5e-4,
+                         total_steps=SPLIT_ROUNDS * H)
+    per_round, eval_batch = segment_inputs(
+        cfg, m, SPLIT_ROUNDS, data_vocab=min(DATA_VOCAB, cfg.vocab_size))
+    eval_batch = to_device(eval_batch, dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state, spec = dsgd.init_panel_state(model.init_params, opt, m, gen,
+                                        device=dev, mesh=mesh)
+    if nudge:
+        x = state["panel"]["float32"]
+        x.copy_(torch.nextafter(x, torch.full_like(x, math.inf)))
+        del x
+    shardings = (None if mesh is None
+                 else tp.train_shardings(model, mesh, m))
+    seg = dsgd.make_panel_segment(model.loss_fn, opt, H, spec,
+                                  param_shardings=shardings)
+    rec = {"losses": [], "xis": [], "grad_norms": [], "times": []}
+    if mesh is not None:
+        mesh.stats.update(dict.fromkeys(mesh.stats, 0))
+        rec.update(rank=mesh.rank, coord=mesh.coord,
+                   transport=mesh.transport, split=tp.describe(
+                       tp.leaf_plan(cfg, tp.Split(mesh), shardings)))
+    reset_launch_counts()
+    for W, b, glob, _ in per_round:
+        t0 = time.perf_counter()
+        state, mets = seg(state, b, W, None, global_rounds=glob)
+        torch.cuda.synchronize(dev)
+        rec["times"].append(time.perf_counter() - t0)
+        rec["losses"].append(float(mets["loss"][0]))
+        rec["xis"].append(float(mets["consensus"][0]))
+        rec["grad_norms"].append(float(mets["grad_norm"][0]))
+    rec["counts"] = launch_counts()
+    rec["merged"] = eval_merged(model.loss_fn, state["panel"], spec,
+                                eval_batch)
+    rec["local"] = eval_local(model.loss_fn, state["panel"], spec,
+                              eval_batch)
+    # a rank holds every agent's rows of its columns: its rows identical
+    # are every row identical
+    rec["rows_identical"] = rows_identical(torch, state["panel"])
+    del seg
+    rec["peak"] = torch.cuda.max_memory_allocated(dev)
+    if mesh is not None:
+        rec["comm"] = dict(mesh.stats)
+        first = {k: v[0, 0] for k, v in per_round[0][1].items()}
+        rec["grad_err"] = split_grad_check(torch, model, state, spec,
+                                           shardings, first)
+    del state
+    return rec
+
+
+def split_grad_check(torch, model, state, spec, shardings, batch):
+    """One local step's gradient panel of the rank's agents at ``state`` on
+    the split route against the replica route's (the rank's columns of one
+    process's, bit for bit: 12b) on ``batch``: the largest relative l2
+    error of a leaf's part in the rank's columns, over its agents."""
+    from repro_torch.core import dsgd
+    batch = {k: torch.as_tensor(v).to(spec.mesh.device)
+             for k, v in batch.items()}
+    loss_fn, split = dsgd.split_route(model.loss_fn, spec, shardings)
+    got, _ = dsgd.panel_grads(loss_fn, state["panel"], spec, batch,
+                              split=split)
+    want, _ = dsgd.panel_grads(model.loss_fn, state["panel"], spec, batch)
+    worst = 0.0
+    for ls in spec.leaves:
+        c0, c1 = spec.col_range(ls.group)
+        lo, hi = max(ls.offset, c0), min(ls.offset + ls.size, c1)
+        for r in range(got[ls.group].shape[0]):
+            err = ref = 0.0
+            # float64 sums a 2^22-column slab at a time (no (rows, D)
+            # float64 temporary beside the ranks' states)
+            for a in range(lo - c0, hi - c0, 1 << 22):
+                b = min(a + (1 << 22), hi - c0)
+                x = want[ls.group][r, a:b].double()
+                err += float(torch.sum(torch.square(
+                    got[ls.group][r, a:b].double() - x)))
+                ref += float(torch.sum(torch.square(x)))
+            if hi > lo:
+                worst = max(worst, math.sqrt(err / max(ref, 1e-60)))
+    return worst
+
+
+def split_child(kind):
+    """One rank of phase 12f (``split_<label>``), on the mesh of its cell
+    (torch.distributed from the environment _run_ranks sets); prints one
+    ``SHARD {json}`` line."""
+    import torch
+    import torch.distributed as dist
+
+    import repro_torch  # noqa: F401  (sets TF32 off)
+    from repro_torch.launch import mesh as mesh_mod
+    label = kind[len("split_"):]
+    mesh = mesh_mod.make_mesh(SPLIT_CELLS[label][0])
+    rec = split_run(torch, label, mesh)
+    print("SHARD " + json.dumps(rec), flush=True)
+    dist.destroy_process_group()
+
+
+def split_phase(torch, reckoned):
+    """Phase 12f: each cell of SPLIT_CELLS on its mesh (ranks sharing the
+    card over CUDA IPC) on the split route, against the same cell on one
+    process on the replica route, run first here, and again from its init
+    moved one ulp up (the trajectory's float32 conditioning, printed).
+    Gates: one local step's gradients on every rank within
+    SPLIT_GRAD_RTOL of the replica route's, leaf by leaf; the first
+    round's loss and grad norm and every round's Xi within SPLIT_RTOL of
+    one process's, every round and the evals within SPLIT_SAME; Xi 0.0
+    after the merge, every row the same, merged == local; the
+    cell's kernels (SPLIT_KERNELS) launched on every rank; the olmo cell's
+    peak a rank within DRY_PEAK_SHARE of ``reckoned`` (12e's reckon of it)
+    and its collective calls and bytes equal to the reckoned."""
+    import tempfile
+
+    import numpy as np
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_split_")
+    counts, out = {}, {}
+    keys = ("losses", "grad_norms", "xis", "merged", "local")
+
+    def dev(a, b):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-30)))
+
+    for label, (shape, m) in SPLIT_CELLS.items():
+        t0 = time.perf_counter()
+        one = split_run(torch, label)
+        torch.cuda.empty_cache()
+        ulp = split_run(torch, label, nudge=True)
+        cond = {k: dev(ulp[k], one[k]) for k in keys}
+        t1 = time.perf_counter()
+        torch.cuda.empty_cache()
+        recs = _run_ranks(f"split_{label}", int(np.prod(shape)), tmp)
+        wall = time.perf_counter() - t1
+        r0 = recs[0]
+        gaps = {k: dev(r0[k], one[k]) for k in keys}
+        print(f"split (phase 12f {label}, {card_line()}): one process's "
+              f"run against its init one ulp up (relative, the largest "
+              f"over the rounds): {cond}; rank 0's split run against one "
+              f"process's: {gaps}; one step's gradients a rank (relative "
+              f"l2, the worst leaf) {[r['grad_err'] for r in recs]}",
+              flush=True)
+        print(f"split (phase 12f {label}, {card_line()}): mesh {shape}, m "
+              f"{m}, over {r0['transport']}; rounds (s) a rank "
+              f"{[max(r['times'][t] for r in recs) for t in range(SPLIT_ROUNDS)]}"
+              f" against one process's {one['times']} ({t1 - t0:.1f}s for "
+              f"its two runs; the ranks {wall:.1f}s); peak a rank "
+              f"{[r['peak'] for r in recs]} against {one['peak']}; "
+              f"collectives a rank {[r['comm'] for r in recs]}; losses "
+              f"{r0['losses']} against {one['losses']}; grad norms "
+              f"{r0['grad_norms']} against {one['grad_norms']}; Xi "
+              f"{r0['xis']} against {one['xis']}; evals {r0['merged']!r} "
+              f"{r0['local']!r} against {one['merged']!r} {one['local']!r}; "
+              f"split {r0['split']['split']}, whole {r0['split']['whole']},"
+              f" summed {r0['split']['summed']}", flush=True)
+        for r in recs:
+            check(r["transport"] == "cuda ipc",
+                  f"phase 12f {label}: rank {r['rank']} over "
+                  f"{r['transport']}")
+            for key, first in (("losses", 1), ("grad_norms", 1),
+                               ("xis", SPLIT_ROUNDS)):
+                gap = dev(r[key][:first], one[key][:first])
+                check(gap <= SPLIT_RTOL[key],
+                      f"phase 12f {label}: rank {r['rank']}'s {key} "
+                      f"{r[key][:first]} against one process's "
+                      f"{one[key][:first]}: {gap}, over {SPLIT_RTOL[key]}")
+            for key in keys:
+                gap = dev(r[key], one[key])
+                check(gap <= SPLIT_SAME,
+                      f"phase 12f {label}: rank {r['rank']}'s {key} "
+                      f"{r[key]} against one process's {one[key]}: {gap}, "
+                      f"over {SPLIT_SAME}")
+            check(r["grad_err"] <= SPLIT_GRAD_RTOL,
+                  f"phase 12f {label}: rank {r['rank']}'s gradients "
+                  f"{r['grad_err']} from the replica route's")
+            check(r["xis"][-1] == 0.0 and r["rows_identical"]
+                  and abs(r["local"] - r["merged"])
+                  <= 1e-6 * abs(r["merged"]),
+                  f"phase 12f {label}: rank {r['rank']} after the merge: "
+                  f"Xi {r['xis'][-1]}, rows identical {r['rows_identical']}"
+                  f", evals {r['merged']} {r['local']}")
+            for k in SPLIT_KERNELS[label]:
+                check(r["counts"][k] > 0,
+                      f"phase 12f {label}: rank {r['rank']} launched "
+                      f"{k} {r['counts'][k]} times")
+        if label == "olmo":
+            peaks = [r["peak"] for r in recs]
+            gaps = [(reckoned["peak"] - p) / p for p in peaks]
+            calls = reckoned["run"]["calls"]
+            nbytes = reckoned["run"]["bytes"]
+            comm = [(int(r["comm"]["calls"]), int(r["comm"]["bytes"]))
+                    for r in recs]
+            print(f"split (phase 12f {label}, reckoned on the host; "
+                  f"{card_line()}): peak a rank {reckoned['peak']} B "
+                  f"against the measured {peaks} "
+                  f"({[round(g, 4) for g in gaps]}); collectives {calls} "
+                  f"calls, {nbytes} B against Mesh.stats {comm}; FLOPs a "
+                  f"rank {reckoned['flops']}", flush=True)
+            check(all(abs(g) <= DRY_PEAK_SHARE for g in gaps),
+                  f"phase 12f: peak {reckoned['peak']} against {peaks}")
+            check(all(c == (calls, nbytes) for c in comm),
+                  f"phase 12f: collectives ({calls}, {nbytes}) against "
+                  f"{comm}")
+        counts[label] = {k: sum(r["counts"][k] for r in recs)
+                         for k in recs[0]["counts"]}
+        out[label] = {"recs": recs, "one": one, "wall": wall}
+        torch.cuda.empty_cache()
+    total = {k: sum(c[k] for c in counts.values()) for k in counts["olmo"]}
+    return total, out
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -5120,8 +5424,10 @@ def main():
         counts["sharded checkpoint"], _ = ckpt_phase(
             torch, {**launcher_rec, "width": D})
         lap("phase 12d")
-        dryrun_phase(torch, reckoning, sharded_rec, options_rec)
+        reckoned = dryrun_phase(torch, reckoning, sharded_rec, options_rec)
         lap("phase 12e")
+        counts["split"], _ = split_phase(torch, reckoned["12f"])
+        lap("phase 12f")
     finally:
         if reckoning[0].poll() is None:
             reckoning[0].kill()
@@ -5211,11 +5517,13 @@ def main():
                     "bf16_params": p12[sub],
                     "sharded": counts["sharded"][sub],
                     "sharded_options": counts["sharded options"][sub],
-                    "sharded_checkpoint": counts["sharded checkpoint"][sub]}
+                    "sharded_checkpoint": counts["sharded checkpoint"][sub],
+                    "split": counts["split"][sub]}
         row["launches_phase12"] = {
             "bf16_params": p12[name], "sharded": counts["sharded"][name],
             "sharded_options": counts["sharded options"][name],
-            "sharded_checkpoint": counts["sharded checkpoint"][name]}
+            "sharded_checkpoint": counts["sharded checkpoint"][name],
+            "split": counts["split"][name]}
         kernels.append(row)
     print(f"total: {time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps({"kernels": kernels}))

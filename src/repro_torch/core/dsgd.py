@@ -111,6 +111,8 @@ from repro_torch.core.faults import LIVE, RESYNC
 from repro_torch.kernels.opt_fused import adamw_fused_int8
 from repro_torch.device import resolve_device
 from repro_torch.merging import get_merger, merge_panel
+from repro_torch.models import build_model
+from repro_torch.models import tensor_parallel as tp
 from repro_torch.optim.optim import Optimizer
 from repro_torch.residency import storage_generators
 from repro_torch.residency.storage import slab_draws, slab_ranges
@@ -760,7 +762,8 @@ def panel_state_from_params(params_stacked, optimizer: Optimizer, *,
     return _build_state(pan, spec, optimizer), spec
 
 
-def panel_grads(loss_fn: Callable, panel, spec, batch, rows=None):
+def panel_grads(loss_fn: Callable, panel, spec, batch, rows=None,
+                split=None):
     """Per-agent gradients as a panel: ({group: (m, D_g)}, losses (m,)).
 
     Agent k's parameters are leaf views of its panel row; its loss is
@@ -775,7 +778,13 @@ def panel_grads(loss_fn: Callable, panel, spec, batch, rows=None):
     fsdp rank of an agent computes the same gradient, as the reference's
     launcher places a batch on the agent axes only). The losses of all m
     agents are gathered over the ``rows`` line; ``rows`` (global indices)
-    differentiates those of the rank's agents."""
+    differentiates those of the rank's agents.
+
+    ``split`` ((``tensor_parallel.Split``, [LeafSplit a leaf]), the
+    ``param_shardings`` route; ``loss_fn`` the split loss): the ranks of
+    an agent's block share its step (:func:`_split_grads`)."""
+    if split is not None:
+        return _split_grads(loss_fn, panel, spec, batch, rows, *split)
     lo, hi = spec.agent_range()
     x0 = next(iter(panel.values()))
     if rows is None:
@@ -821,10 +830,61 @@ def panel_grads(loss_fn: Callable, panel, spec, batch, rows=None):
     return gpan, panel_mod.gather_agents(losses, spec)
 
 
+def _split_grads(loss_fn, panel, spec, batch, rows, split, plan):
+    """panel_grads on the split route. Each of the rank's agents gathers its
+    whole row over ``fsdp`` as on the replica route; its parameters are the
+    leaf slices of that row ``plan`` names (a split leaf's block of the
+    model line, the others whole), differentiated on this fsdp rank's
+    batch rows. The rank writes its gradients into a zero row of the whole
+    width (a split leaf's block at its place, a 'once' leaf on model rank 0
+    only, a 'sum' leaf on every model rank), the row is summed over the
+    agent block (fsdp x model: the batch shares and the model ranks'
+    parts), and the rank keeps its columns. The loss is the agent's whole
+    loss (the split loss's ``metrics["loss"]``)."""
+    lo, hi = spec.agent_range()
+    x0 = next(iter(panel.values()))
+    make = torch.empty_like if rows is None else torch.zeros_like
+    gpan = {g: make(x) for g, x in panel.items()}
+    losses = torch.zeros((hi - lo,), dtype=torch.float32, device=x0.device)
+    j, M = split.model_rank, split.model_size
+
+    def piece(row, ls, rule):
+        leaf = row[ls.offset:ls.offset + ls.size].view(ls.shape)
+        if rule.kind != "split":
+            return leaf
+        n = ls.shape[rule.dim] // M
+        return leaf.narrow(rule.dim, j * n, n)
+
+    for k in range(lo, hi) if rows is None else \
+            [int(r) for r in rows if lo <= int(r) < hi]:
+        full = {g: panel_mod.gather_cols(x[k - lo], spec, g)
+                for g, x in panel.items()}
+        leaves = [piece(full[ls.group], ls, rule).detach().requires_grad_(
+            True) for ls, rule in zip(spec.leaves, plan)]
+        loss, mets = loss_fn(tree_unflatten(spec.treedef, leaves),
+                             {key: v[k] for key, v in batch.items()}, None)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        del leaves
+        grow = {g: torch.zeros_like(x) for g, x in full.items()}
+        del full
+        for ls, rule, g in zip(spec.leaves, plan, grads):
+            if g is not None and (rule.kind != "once" or j == 0):
+                piece(grow[ls.group], ls, rule).copy_(g)
+        del grads
+        for g, x in grow.items():
+            split.block_sum(x)
+            c0, c1 = spec.col_range(g)
+            gpan[g][k - lo].copy_(x[c0:c1])
+        del grow
+        losses[k - lo] = mets["loss"]
+    return gpan, panel_mod.gather_agents(losses, spec)
+
+
 def make_panel_segment(loss_fn: Callable, optimizer: Optimizer,
                        local_steps: int, spec, *, fused=None,
                        telemetry: bool = False,
-                       after_step: Optional[Callable] = None):
+                       after_step: Optional[Callable] = None,
+                       param_shardings=None):
     """Panel driver for one SCHEDULE SEGMENT of rounds.
 
     segment(state, batches, Ws, rng=None, global_rounds=None, live=None)
@@ -907,6 +967,16 @@ def make_panel_segment(loss_fn: Callable, optimizer: Optimizer,
     optimizer update with the local step's index and the optimizer state
     in its stored form; it is for measurement, and must only read.
 
+    ``param_shardings`` (the reference's route; ``loss_fn`` a model's, on
+    a sharded spec; the resolved ``TRAIN_RULES`` tree of the agent-stacked
+    parameters, ``models.tensor_parallel.train_shardings``) splits each
+    agent's local step over the ranks of its agent block: its batch rows
+    over ``fsdp``, its heads, d_ff columns and vocabulary over ``model``
+    (``models/tensor_parallel.py``; the dense GQA decoders, any other
+    family NotImplementedError by name). The gradients, summed in other
+    orders, are the replica route's within float32 rounding; everything
+    after them is as below. ``None``: the replica route, bit for bit.
+
     On a sharded spec (``init_panel_state(mesh=)``) the state is this
     rank's shard and ``batches`` are the whole batches: panel_grads gathers
     each of the rank's agents' rows, the optimizer runs on the rank's
@@ -952,6 +1022,9 @@ def make_panel_segment(loss_fn: Callable, optimizer: Optimizer,
             "and an optimizer exposing core/hyper with (m, v) moments "
             f"(got '{optimizer.name}')")
     res_fused = fused_ok if fused is None else bool(fused)
+    split = None
+    if param_shardings is not None:
+        loss_fn, split = split_route(loss_fn, spec, param_shardings)
     if telemetry:
         # host constants of the codec cost model of the wire_bytes column
         t_bytes_wire, t_bytes_full = tmetrics.wire_bytes_model(spec)
@@ -1062,7 +1135,8 @@ def make_panel_segment(loss_fn: Callable, optimizer: Optimizer,
                 batch = {k: v[s, h] for k, v in batches.items()}
                 gpan, agent_losses = panel_grads(
                     loss_fn, pan, spec, batch,
-                    rows=None if lv is None else np.flatnonzero(alive))
+                    rows=None if lv is None else np.flatnonzero(alive),
+                    split=split)
                 if local_stat:
                     mstat = merger.update_local(mstat, gpan)
                 step = step0 + s * local_steps + h
@@ -1223,3 +1297,22 @@ def make_panel_segment(loss_fn: Callable, optimizer: Optimizer,
 
     return segment
 
+
+def split_route(loss_fn, spec, param_shardings):
+    """The split route's (loss, (Split, [LeafSplit a leaf of spec])) for the
+    model whose ``loss_fn`` it is, on the spec's mesh: what
+    :func:`make_panel_segment` hands :func:`panel_grads` given
+    ``param_shardings`` (and a caller checking one step's gradients)."""
+    cfg = getattr(loss_fn, "cfg", None)
+    if cfg is None or not spec.sharded:
+        raise ValueError(
+            "param_shardings splits a model's step over the ranks of a mesh: "
+            "pass a build_model(cfg).loss_fn and a state sharded with "
+            "init_panel_state(mesh=)")
+    split = tp.Split(spec.mesh)
+    model = build_model(cfg, split=split)
+    plan = tree_flatten(tp.leaf_plan(cfg, split, param_shardings))[0]
+    if len(plan) != len(spec.leaves):
+        raise ValueError(f"param_shardings has {len(plan)} leaves, the "
+                         f"panel's parameters {len(spec.leaves)}")
+    return model.loss_fn, (split, plan)

@@ -34,15 +34,21 @@ the reference's field names where the meaning is the same:
   NVLink within a node of ``--ranks-per-node`` cards, the inter-node rate
   across), and the ``dominant`` one (``hardware``'s H100 SXM rates).
 
-The port's ``model`` axis holds replicas: every ``model`` rank computes its
-agents' whole gradients, so the activation peak at 16 x 16 is that of one
-agent's whole local step on one card. The reference shards that step by
-tensor parallelism over ``model`` (its ``param_shardings`` route), so its
-peak a device is smaller by about that factor; each record says so
-(``note``). The reference's other variants (``baseline``, ``merge``,
+The dense GQA decoders (olmo-1b, phi3-mini-3.8b, yi-34b, gemma-2b,
+gemma-2b-sw) are traced on the reference's ``param_shardings`` route
+(``core.dsgd.make_panel_segment(param_shardings=)``,
+``models/tensor_parallel.py``): each agent's local step split over its
+agent block, its batch rows over ``fsdp``, its heads, d_ff columns and
+vocabulary over ``model``; their records carry ``split``, the leaves split,
+left whole and summed. The other families' ``model`` axis still holds
+replicas (every ``model`` rank computes its agents' whole step, so the
+activation peak is one agent's whole step on one card) and their records
+say so (``note``; their split blocks are ROADMAP A16d's second item). The
+serve shapes (``prefill_32k``, ``decode_32k``, ``long_500k``: A16d's first
+item) and the reference's non-panel variants (``baseline``, ``merge``,
 ``nocomm``, ``bf16wire``, ``pairwise``, ``remat_dots``, ``nochunk``,
-``seqpar``, ``moeshard``) and the serve shapes (``prefill_32k``,
-``decode_32k``, ``long_500k``) are refused by name: ROADMAP A16d.
+``seqpar``, ``moeshard``: its third, the tree-state variants) are refused
+by name.
 
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch olmo-1b \\
       --shape train_4k --mesh single --variant panel --out results/dryrun
@@ -67,6 +73,7 @@ from repro_torch.configs import INPUT_SHAPES, get_config
 from repro_torch.core import dsgd
 from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models import build_model
+from repro_torch.models import tensor_parallel as tp
 from repro_torch.models.model import extra_inputs
 from repro_torch.optim import make_optimizer
 from repro_torch.telemetry.metrics import resident_bytes_model
@@ -82,23 +89,29 @@ VARIANTS = {"panel": (None, None), "panel_bf16wire": ("bf16", None),
             "panel_int4wire": ("int4", None),
             "panel_topkwire": ("topk", None),
             "panel_residency_int8": (None, "moments=int8")}
-# what the port does not reckon, and why (ROADMAP A16d)
+# what the port does not reckon, and the ROADMAP A16d item that owns it
+TREE_STATE = "ROADMAP A16d's tree-state variants"
 REFUSED_VARIANTS = {
-    "baseline": "the tree-state step of dense per-leaf gossip",
-    "merge": "the tree-state step's psum merge",
-    "nocomm": "the tree-state step without a mix",
-    "bf16wire": "the tree-state step with a bf16 payload",
-    "pairwise": "the tree-state step's pairwise gossip",
-    "remat_dots": "XLA's remat policy (the port has no remat)",
-    "nochunk": "the tree-state step's un-chunked loss",
-    "seqpar": "a hint to XLA's partitioner (sequence sharding)",
-    "moeshard": "a hint to XLA's partitioner (MoE dispatch sharding)",
-    "moeshard2": "a hint to XLA's partitioner (MoE dispatch sharding)",
+    "baseline": f"the tree-state step of dense per-leaf gossip ({TREE_STATE})",
+    "merge": f"the tree-state step's psum merge ({TREE_STATE})",
+    "nocomm": f"the tree-state step without a mix ({TREE_STATE})",
+    "bf16wire": f"the tree-state step with a bf16 payload ({TREE_STATE})",
+    "pairwise": f"the tree-state step's pairwise gossip ({TREE_STATE})",
+    "remat_dots": f"XLA's remat policy on the tree-state step ({TREE_STATE};"
+                  " the port has no remat)",
+    "nochunk": f"the tree-state step's un-chunked loss ({TREE_STATE})",
+    "seqpar": "a hint to XLA's partitioner (sequence sharding over model: "
+              "ROADMAP A16d's split blocks)",
+    "moeshard": "a hint to XLA's partitioner (MoE dispatch sharding: "
+                "ROADMAP A16d's split MoE blocks)",
+    "moeshard2": "a hint to XLA's partitioner (MoE dispatch sharding: "
+                 "ROADMAP A16d's split MoE blocks)",
 }
 SERVE_SHAPES = ("prefill_32k", "decode_32k", "long_500k")
-NOTE = ("the port's 'model' axis holds replicas: each model rank computes "
-        "its agents' whole local step (the reference shards it by tensor "
-        "parallelism), so the activation peak is one agent's whole step")
+NOTE = ("the port's 'model' axis holds replicas for this family: each model "
+        "rank computes its agents' whole local step (the reference shards "
+        "it by tensor parallelism; its split blocks are ROADMAP A16d's "
+        "second item), so the activation peak is one agent's whole step")
 
 
 def device_total(peak: int, route: str = "nccl") -> dict:
@@ -115,12 +128,14 @@ def device_total(peak: int, route: str = "nccl") -> dict:
 def _refuse(shape_name: str, variant: str):
     if shape_name in SERVE_SHAPES:
         raise SystemExit(f"--shape {shape_name}: the dry run of the serve "
-                         "shapes (the reference's build_serve) is ROADMAP "
-                         "A16d; the port reckons train_4k")
+                         "shapes (the reference's build_serve: weights and KV "
+                         "caches over model on the production mesh) is "
+                         "ROADMAP A16d's first item; the port reckons "
+                         "train_4k")
     if variant not in VARIANTS:
         why = REFUSED_VARIANTS.get(variant, "not a variant of the reference")
         raise SystemExit(f"--variant {variant}: {why}; the port reckons the "
-                         f"panel variants {sorted(VARIANTS)} (ROADMAP A16d)")
+                         f"panel variants {sorted(VARIANTS)}")
 
 
 def default_rounds(m: int):
@@ -168,7 +183,7 @@ def reckon(cfg, mesh_shape, *, rank: int = 0, agents=None,
            local_steps: int = 1, batch: int, seq: int, rounds=None,
            wire=None, merger="uniform", residency=None, fused=None,
            telemetry: bool = False, route: str = "nccl",
-           evals: bool = True):
+           evals: bool = True, split: bool = False):
     """Trace rank ``rank`` of a sharded run of ``cfg`` on a mesh of
     ``mesh_shape`` (pod, agent, fsdp, model): the state's init, then a
     call of the segment for each entry of ``rounds`` ([(W (S, m, m),
@@ -176,11 +191,14 @@ def reckon(cfg, mesh_shape, *, rank: int = 0, agents=None,
     in one call) with ``batch`` x ``seq`` tokens an agent a local step,
     then the merged and local evals (``evals``) on 2 x ``batch`` rows.
     ``route`` is the transport whose calls the collectives count ('nccl',
-    'gloo' or 'cuda ipc'). Returns {"spec", "state_bytes", "peak",
-    "marks", "flops", "bytes_accessed", "host_reads", "agents_here",
-    "init" and "run" (the collectives of the init and of the rest: bytes,
-    calls, log by line/kind), "segment0" (the first call's rounds and
-    FLOPs)}."""
+    'gloo' or 'cuda ipc'). ``split`` traces the ``param_shardings`` route
+    (``tensor_parallel.train_shardings`` of the mesh: each agent's step
+    split over its agent block); the evals stay whole. Returns {"spec",
+    "state_bytes", "peak", "marks", "flops", "bytes_accessed",
+    "host_reads", "agents_here", "init" and "run" (the collectives of the
+    init and of the rest: bytes, calls, log by line/kind), "segment0" (the
+    first call's rounds and FLOPs), "split" (the leaves split, whole and
+    summed, or None)}."""
     from repro_torch.launch import train
     mesh = RecordingMesh.of(mesh_mod.mesh_of_shape(mesh_shape, rank),
                             route=route)
@@ -190,10 +208,12 @@ def reckon(cfg, mesh_shape, *, rank: int = 0, agents=None,
         rounds = [(np.concatenate([W0, W1]), np.concatenate([g0, g1]),
                    None)]
     model = build_model(cfg)
+    shardings = tp.train_shardings(model, mesh, m) if split else None
+    out = {"split": None if shardings is None else tp.describe(
+        tp.leaf_plan(cfg, tp.Split(mesh), shardings))}
     n_rounds = sum(r[0].shape[0] for r in rounds)
     opt = make_optimizer("adamw", 3e-3, weight_decay=5e-4,
                          total_steps=n_rounds * local_steps)
-    out = {}
 
     def program(rec):
         gen = torch.Generator().manual_seed(0)
@@ -206,7 +226,8 @@ def reckon(cfg, mesh_shape, *, rank: int = 0, agents=None,
         out["init"] = _stats(mesh)
         mesh.reset()
         seg = dsgd.make_panel_segment(model.loss_fn, opt, local_steps, spec,
-                                      fused=fused, telemetry=telemetry)
+                                      fused=fused, telemetry=telemetry,
+                                      param_shardings=shardings)
         wire_gen = torch.Generator().manual_seed(3)
         first = None
         for W, glob, live in rounds:
@@ -286,10 +307,13 @@ def run_pair(arch: str, shape_name: str, multi_pod: bool,
     _refuse(shape_name, variant)
     mesh_name = "2x16x16" if multi_pod else "16x16"
     rec = {"arch": arch, "shape": shape_name, "mesh": mesh_name,
-           "variant": variant, "status": "OK", "note": NOTE}
+           "variant": variant, "status": "OK"}
     t0 = time.time()
     try:
         cfg = get_config(arch)
+        split = not tp.unsplit_parts(cfg)
+        if not split:
+            rec["note"] = NOTE
         shape = INPUT_SHAPES[shape_name]
         mesh_shape = mesh_mod.training_shape(cfg.dist.agents_per_pod,
                                              multi_pod)
@@ -300,7 +324,10 @@ def run_pair(arch: str, shape_name: str, multi_pod: bool,
                              f"split over {m} agents")
         wire, residency = VARIANTS[variant]
         r = reckon(cfg, mesh_shape, batch=shape.global_batch // m,
-                   seq=shape.seq_len, wire=wire, residency=residency)
+                   seq=shape.seq_len, wire=wire, residency=residency,
+                   split=split)
+        if split:
+            rec["split"] = r["split"]
         spec = r["spec"]
         opt = make_optimizer("adamw", 1e-4)
         rec.update(agents=m, panel_width=spec.width, chips=chips,

@@ -6,11 +6,18 @@ axes ``("pod", "agent", "fsdp", "model")``: rank r sits at the row-major
 coordinate of r in ``shape`` (as ``jax.make_mesh`` lays the devices out).
 For decentralized training the panel rows (one per agent) are spread over
 ``("pod", "agent")``, the paper's communication graph, and the flat
-parameter columns over ``"fsdp"``; ``"model"`` holds replicas
-(``models/sharding.py``). Each rank owns one process group per line of the
-mesh it lies on: ``rows`` (the ranks that differ from it in pod and agent
-only: the gossip partners of its column shard) and ``fsdp`` (the ranks
-that differ from it in fsdp only: the other column shards of its agents).
+parameter columns over ``"fsdp"``; ``"model"`` holds replicas of the
+panel (``models/sharding.py``). By default every rank of an agent computes
+its whole local step; on the ``param_shardings`` route
+(``core.dsgd.make_panel_segment``, ``models/tensor_parallel.py``) the
+agent's ranks split it: its batch rows over ``fsdp``, its heads, d_ff
+columns and vocabulary over ``model``. Each rank owns one process group
+per line of the mesh it lies on (``LINES``): ``rows`` (the ranks that
+differ from it in pod and agent only: the gossip partners of its column
+shard), ``fsdp`` (the ranks that differ from it in fsdp only: the other
+column shards of its agents), ``model`` (those that differ in model only:
+the tensor-parallel ranks of the split step) and ``block`` (those that
+differ in fsdp and model: the ranks sharing one agent's step).
 
 The ranks come from the environment ``torchrun`` sets (``RANK``,
 ``WORLD_SIZE``, ``LOCAL_RANK``, with ``MASTER_ADDR``/``MASTER_PORT`` for
@@ -63,6 +70,9 @@ from repro_torch.models.sharding import PANEL_COL_AXES as COL_AXES
 from repro_torch.models.sharding import PANEL_ROW_AXES as ROW_AXES
 
 AXES = ("pod", "agent", "fsdp", "model")
+# each line's axes: the ranks of a line differ in these only
+LINES = {"rows": ROW_AXES, "fsdp": COL_AXES, "model": ("model",),
+         "block": COL_AXES + ("model",)}
 MODEL_AXIS = 16
 DATA_AXIS = 16
 PODS = 2
@@ -83,8 +93,9 @@ class Plan:
 class Mesh:
     """This rank's view of a mesh of processes. ``shape`` maps each axis
     name to its size (in ``axis_names`` order), ``coord`` this rank's index
-    on each; ``groups[name]`` is the process group of this rank's ``rows``
-    or ``fsdp`` line and ``members[name]`` its global ranks in line order."""
+    on each; ``groups[name]`` is the process group of this rank's line
+    ``name`` (``LINES``) and ``members[name]`` its global ranks in line
+    order."""
     shape: Dict[str, int]
     axis_names: Tuple[str, ...]
     rank: int
@@ -183,11 +194,14 @@ class Mesh:
                 g = self._ipc_gather(flat[lo:hi].reshape(1, -1), line)
                 acc = out[lo:hi]
                 acc.copy_(g[0])
-                for part in g[1:]:
+                for j in range(1, len(g)):
                     if op == "sum":
-                        acc += part
+                        acc += g[j]
                     else:
-                        torch.maximum(acc, part, out=acc)
+                        torch.maximum(acc, g[j], out=acc)
+                # freed before the next part's are gathered: one part's
+                # gather alive at a time (Mesh.plan's temporaries)
+                del g
             x.copy_(out.view(x.shape))
             return x
         t0 = time.perf_counter()
@@ -350,9 +364,7 @@ def make_mesh(shape, axis_names=AXES, *, device=None) -> Mesh:
     mesh = Mesh(shape=dict(zip(axis_names, shape)),
                 axis_names=tuple(axis_names), rank=rank, coord=me,
                 device=dev, backend=backend)
-    line_axes = {"rows": tuple(a for a in ROW_AXES if a in axis_names),
-                 "fsdp": tuple(a for a in COL_AXES if a in axis_names)}
-    for name, axes in line_axes.items():
+    for name, axes in LINES.items():
         fixed = [i for i, a in enumerate(axis_names) if a not in axes]
         lines: Dict[tuple, List[int]] = {}
         for r in range(n):
@@ -522,7 +534,7 @@ def mesh_of_shape(shape, rank: int = 0, axis_names=AXES,
                 axis_names=tuple(axis_names), rank=rank,
                 coord=dict(zip(axis_names, (int(c) for c in coords[rank]))),
                 device=torch.device(device), backend="none")
-    for name, axes in (("rows", ROW_AXES), ("fsdp", COL_AXES)):
+    for name, axes in LINES.items():
         fixed = [i for i, a in enumerate(axis_names) if a not in axes]
         mesh.members[name] = [r for r in range(n) if np.array_equal(
             coords[r][fixed], coords[rank][fixed])]

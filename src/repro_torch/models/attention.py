@@ -24,6 +24,11 @@ Rotary kinds: "rope", "mrope" (qwen2-vl's t/h/w sections, from
 ``positions3``) and "none". Cross attention (seamless-m4t's decoder)
 attends to the encoder's keys and values, projected once (``cross_kv``)
 and cached as ``{"k", "v", "pos"}``, through the plain ``_sdpa``.
+
+Each family has the reference's logical specs (``spec_gqa``,
+``spec_gqa_cache``, ``spec_mla``, ``spec_mla_cache``, ``spec_cross``).
+On the split route (``models/tensor_parallel.py``) ``gqa_forward`` in
+train mode takes a ``split`` and runs on the rank's heads.
 """
 from __future__ import annotations
 
@@ -52,6 +57,11 @@ def init_gqa(generator, cfg: ModelConfig, *, device, dtype=torch.float32):
         "wo": dense_init(generator, a.q_dim, cfg.d_model, device=device,
                          dtype=dtype),
     }
+
+
+def spec_gqa():
+    return {"wq": ("fsdp", "model"), "wk": ("fsdp", "model"),
+            "wv": ("fsdp", "model"), "wo": ("model", "fsdp")}
 
 
 def _rope_q_or_k(x, positions, a: AttentionConfig, positions3=None):
@@ -111,20 +121,36 @@ def _sdpa_blockwise(q, k, v, q_pos, k_pos, *, causal, window, scale,
 
 def gqa_forward(params, x, *, cfg: ModelConfig, lspec: LayerSpec,
                 positions, mode: str = "train", cache=None, positions3=None,
-                causal=True, cache_max_len=None):
+                causal=True, cache_max_len=None, split=None):
     """Returns (y, new_cache). mode in {"train", "prefill", "decode"}:
     train returns no cache; prefill a fresh one sized ``cache_max_len``
     (default S); decode (S == 1, ``positions`` (B, 1), each row at its own
     depth) writes into ``cache`` in place and returns it. ``positions3``
-    (3, B, S) are M-RoPE's t/h/w positions (rope "mrope" only)."""
+    (3, B, S) are M-RoPE's t/h/w positions (rope "mrope" only).
+
+    ``split`` (train mode; ``tensor_parallel.Split`` whose ``attn(a)``
+    holds) runs the rank's H / M query heads: ``wq`` and ``wo`` are its
+    blocks, ``wk``/``wv`` its Kv / M heads' columns where M divides Kv,
+    else whole, the rank reading the one kv head its query heads share;
+    x enters through ``split.copy_in``, the output leaves through
+    ``split.reduce_out``."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"gqa_forward mode {mode!r}: train, prefill or "
                          "decode")
+    if split is not None and mode != "train":
+        raise ValueError(f"gqa_forward: the split route is a train step, "
+                         f"not {mode}")
     a = cfg.attn
     B, S, _ = x.shape
-    q = (x @ params["wq"]).reshape(B, S, a.num_heads, a.head_dim)
-    k = (x @ params["wk"]).reshape(B, S, a.num_kv_heads, a.head_dim)
-    v = (x @ params["wv"]).reshape(B, S, a.num_kv_heads, a.head_dim)
+    H, Kv = a.num_heads, a.num_kv_heads
+    if split is not None:
+        x = split.copy_in(x)
+        H, kv0, Kv = split.local_heads(a)
+    q = (x @ params["wq"]).reshape(B, S, H, a.head_dim)
+    k = (x @ params["wk"]).reshape(B, S, -1, a.head_dim)
+    v = (x @ params["wv"]).reshape(B, S, -1, a.head_dim)
+    if split is not None and k.shape[2] != Kv:
+        k, v = k[:, :, kv0:kv0 + Kv], v[:, :, kv0:kv0 + Kv]
     q = _rope_q_or_k(q, positions, a, positions3)
     k = _rope_q_or_k(k, positions, a, positions3)
     scale = 1.0 / math.sqrt(a.head_dim)
@@ -157,7 +183,9 @@ def gqa_forward(params, x, *, cfg: ModelConfig, lspec: LayerSpec,
         if mode == "prefill":
             new_cache = _prefill_cache(lspec, k, v, positions, B, S,
                                        cache_max_len or S)
-    y = y.reshape(B, S, a.q_dim) @ params["wo"]
+    y = y.reshape(B, S, H * a.head_dim) @ params["wo"]
+    if split is not None:
+        y = split.reduce_out(y)
     return y, new_cache
 
 
@@ -221,6 +249,19 @@ def init_mla(generator, cfg: ModelConfig, *, device, dtype=torch.float32):
         "wkv_b": dense(a.kv_lora_rank, H * (a.qk_nope_dim + a.v_head_dim)),
         "wo": dense(H * a.v_head_dim, cfg.d_model),
     }
+
+
+def spec_gqa_cache():
+    return {"k": ("data", None, "model", None),
+            "v": ("data", None, "model", None),
+            "pos": ("data", None)}
+
+
+def spec_mla():
+    return {"wq_a": ("fsdp", None), "q_norm": {"scale": (None,)},
+            "wq_b": (None, "model"), "wkv_a": ("fsdp", None),
+            "kv_norm": {"scale": (None,)}, "wkv_b": (None, "model"),
+            "wo": ("model", "fsdp")}
 
 
 def _mla_qkr(params, x, a: AttentionConfig, positions):
@@ -312,12 +353,18 @@ def init_mla_cache(cfg: ModelConfig, lspec: LayerSpec, B: int, seq_len: int,
                               device=device)}
 
 
+def spec_mla_cache():
+    return {"ckv": ("data", None, None), "krope": ("data", None, None),
+            "pos": ("data", None)}
+
+
 # ---------------------------------------------------------------------------
 # Cross attention (encoder-decoder)
 # ---------------------------------------------------------------------------
 
 
 init_cross = init_gqa  # the same four projections: wq, wk, wv, wo
+spec_cross = spec_gqa
 
 
 def cross_kv(params, enc_out, *, cfg: ModelConfig):

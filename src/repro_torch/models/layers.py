@@ -2,8 +2,13 @@
 
 Counterparts of ``repro/models/layers.py`` for the dense family: the same
 parameter key names and layouts (weights stored (d_in, d_out), applied as
-``x @ w``), the same float32 arithmetic. Sharding constraints of the
-reference have no counterpart on one card.
+``x @ w``), the same float32 arithmetic. Each ``init_*`` has the
+reference's ``spec_*``: the tree of logical axis names of its leaves
+(plain tuples, ``models/sharding.py`` resolves them). The reference's
+sharding constraints on activations have no counterpart; on the split
+route (``models/tensor_parallel.py``) :func:`apply_mlp` and
+:func:`chunked_softmax_xent` take a ``split`` and run on the rank's
+d_ff columns and vocabulary.
 """
 from __future__ import annotations
 
@@ -35,6 +40,14 @@ def init_norm(norm_kind: str, d: int, *, device, dtype=torch.float32):
     if norm_kind == "nonparam_ln":
         return {}
     raise ValueError(norm_kind)
+
+
+def spec_norm(norm_kind: str):
+    if norm_kind == "rmsnorm":
+        return {"scale": (None,)}
+    if norm_kind == "layernorm":
+        return {"scale": (None,), "bias": (None,)}
+    return {}
 
 
 def apply_norm(params, x, norm_kind: str, eps=1e-6):
@@ -123,14 +136,28 @@ def init_mlp(generator, d, d_ff, *, device, gated=True, dtype=torch.float32):
     return p
 
 
-def apply_mlp(params, x, act_fn, gated=True):
-    """``act(x @ w_gate) * (x @ w_in) @ w_out`` (ungated: act(x @ w_in))."""
+def spec_mlp(gated=True):
+    p = {"w_in": ("fsdp", "model"), "w_out": ("model", "fsdp")}
+    if gated:
+        p["w_gate"] = ("fsdp", "model")
+    return p
+
+
+def apply_mlp(params, x, act_fn, gated=True, split=None):
+    """``act(x @ w_gate) * (x @ w_in) @ w_out`` (ungated: act(x @ w_in)).
+    With ``split`` (``tensor_parallel.Split``) the leaves are the rank's
+    blocks: ``w_in``/``w_gate`` its d_ff columns, ``w_out`` its rows; x
+    enters through ``split.copy_in`` and the output leaves through
+    ``split.reduce_out`` (one all-reduce over the model line)."""
+    if split is not None:
+        x = split.copy_in(x)
     h = x @ params["w_in"]
     if gated:
         h = act_fn(x @ params["w_gate"]) * h
     else:
         h = act_fn(h)
-    return h @ params["w_out"]
+    y = h @ params["w_out"]
+    return y if split is None else split.reduce_out(y)
 
 
 # ---------------------------------------------------------------------------
@@ -144,6 +171,10 @@ def init_embed(generator, vocab, d, *, device, dtype=torch.float32):
     return {"table": (t * (1.0 / math.sqrt(d))).to(dtype)}
 
 
+def spec_embed():
+    return {"table": ("fsdp", "model")}
+
+
 def embed_tokens(params, tokens, scale=False):
     x = params["table"][tokens.long()]
     if scale:
@@ -151,10 +182,16 @@ def embed_tokens(params, tokens, scale=False):
     return x
 
 
-def chunked_softmax_xent(h, head_w, targets, mask, chunk: int):
+def chunked_softmax_xent(h, head_w, targets, mask, chunk: int, split=None):
     """Cross-entropy over the full (padded) head, ``chunk`` positions of S
     at a time. h: (B, S, d); head_w: (d, V); targets: (B, S) int; mask:
-    (B, S) {0,1}. Returns (sum_nll, sum_mask), both float32 scalars."""
+    (B, S) {0,1}. Returns (sum_nll, sum_mask), both float32 scalars.
+
+    With ``split`` the head is vocab-parallel: ``head_w`` is the rank's
+    (d, V / M) columns, the vocabulary's rows [j V / M, (j + 1) V / M),
+    and each chunk's logsumexp and target logit are taken over the model
+    line (``split.vocab_nll``); h must have entered through
+    ``split.copy_in``."""
     B, S, _ = h.shape
     chunk = min(chunk, S)
     total = torch.zeros((), dtype=torch.float32, device=h.device)
@@ -162,6 +199,9 @@ def chunked_softmax_xent(h, head_w, targets, mask, chunk: int):
         hc, tc, mc = h[:, lo:lo + chunk], targets[:, lo:lo + chunk], \
             mask[:, lo:lo + chunk]
         lg = (hc @ head_w).to(torch.float32)  # (B, c, V)
+        if split is not None:
+            total = total + torch.sum(split.vocab_nll(lg, tc) * mc)
+            continue
         lse = torch.logsumexp(lg, dim=-1)
         tgt = torch.gather(lg, -1, tc.long()[..., None])[..., 0]
         total = total + torch.sum((lse - tgt) * mc)

@@ -32,6 +32,13 @@ one token a row, each row at its own absolute position, and writes the
 caches in place; ``init_cache`` allocates empty ones (attention slots at
 pos -1, recurrent states at zero with the mLSTM and sLSTM stabiliser m at
 -1e30). Logits are float32 over the padded vocabulary.
+
+``param_spec()`` and ``cache_spec()`` are the reference's logical specs of
+the parameter and cache trees (plain tuples; ``models/sharding.py``
+resolves them). ``build_model(cfg, split=)`` (``models/tensor_parallel.py``
+'s ``Split``; the dense GQA decoders only) builds the split route's loss:
+the rank's share of one agent's step. ``loss_fn.cfg`` is ``cfg``, so a
+segment given ``param_shardings`` builds that loss from the model's own.
 """
 from __future__ import annotations
 
@@ -45,7 +52,8 @@ from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import (apply_norm, chunked_softmax_xent,
                                        dense_init, embed_tokens, init_embed,
-                                       init_norm)
+                                       init_norm, spec_embed, spec_norm)
+from repro_torch.models.tensor_parallel import check_family
 
 MTP_WEIGHT = 0.3
 
@@ -64,6 +72,8 @@ class Model:
     #                        caches), the caches written in place
     init_cache: Callable  # (B, seq_len, dtype=, enc_len=, device=) -> caches
     head_w: Callable  # params -> (d_model, padded_vocab)
+    param_spec: Callable  # () -> the logical spec tree of the parameters
+    cache_spec: Callable  # () -> the logical spec tree of the caches
 
 
 def extra_inputs(cfg: ModelConfig, S: int) -> dict:
@@ -80,7 +90,18 @@ def extra_inputs(cfg: ModelConfig, S: int) -> dict:
     return out
 
 
-def build_model(cfg: ModelConfig) -> Model:
+def build_model(cfg: ModelConfig, split=None) -> Model:
+    """The model of ``cfg``. With ``split`` (``tensor_parallel.Split``) its
+    ``loss_fn`` is the split route's: given the rank's pieces of the
+    parameters (``tensor_parallel.leaf_plan``: split leaves as the rank's
+    blocks, the others whole) and the agent's whole batch, it
+    differentiates this fsdp rank's rows on this model rank's heads, d_ff
+    columns and vocabulary, and returns (the rank's share of the loss,
+    metrics whose ``loss`` is the agent's whole loss); the other functions
+    are the whole model's. A family the route does not split raises
+    NotImplementedError by name."""
+    if split is not None:
+        check_family(cfg)
     dt = _dtype(cfg.param_dtype)
     V = cfg.padded_vocab
     is_encdec = cfg.encoder_layers > 0
@@ -116,6 +137,23 @@ def build_model(cfg: ModelConfig) -> Model:
         if cfg.tie_embeddings:
             return params["embed"]["table"].T
         return params["head"]["w"]
+
+    def param_spec():
+        p = {"embed": spec_embed(), "final_norm": spec_norm(cfg.norm),
+             "decoder": tfm.spec_stack(cfg, cross=is_encdec)}
+        if not cfg.tie_embeddings:
+            p["head"] = {"w": ("fsdp", "model")}
+        if is_encdec:
+            p["encoder"] = tfm.spec_stack(enc_cfg)
+            p["enc_norm"] = spec_norm(cfg.norm)
+        if cfg.mtp_depth:
+            p["mtp"] = {"proj": ("fsdp", None),
+                        "block": tfm.spec_block(cfg, cfg.layer_period[0]),
+                        "norm": spec_norm(cfg.norm)}
+        return p
+
+    def cache_spec():
+        return tfm.spec_stack_cache(cfg, cross=is_encdec)
 
     def run_encoder(params, frame_embeds):
         """frame_embeds (B, S_src, d) -> the encoder's output (B, S_src, d):
@@ -191,6 +229,43 @@ def build_model(cfg: ModelConfig) -> Model:
         metrics["loss"] = loss
         return loss, metrics
 
+    def split_loss_fn(params, batch, rng=None):
+        """The split route's loss (``build_model``'s docstring): this fsdp
+        rank's rows of ``batch``, the embedding lookup whole (differentiated
+        on model rank 0 only), the blocks split where ``split`` splits
+        them, the head vocab-parallel where it splits the vocabulary; the
+        nll over the whole batch's token count (summed over fsdp)."""
+        rows = split.batch_rows(batch["tokens"].shape[0])
+        batch = {k: v[rows] for k, v in batch.items()}
+        table = params["embed"]["table"]
+        x = embed_tokens({"table": split.first_rank_grad(table)},
+                         batch["tokens"], scale=cfg.embed_scale)
+        B, S = x.shape[:2]
+        positions = torch.broadcast_to(
+            torch.arange(S, dtype=torch.int32, device=x.device), (B, S))
+        h, _, _ = tfm.apply_stack(params["decoder"], x, cfg=cfg,
+                                  positions=positions, split=split)
+        h = apply_norm(params["final_norm"], h, cfg.norm)
+        targets = batch["targets"]
+        mask = batch.get("mask")
+        if mask is None:
+            mask = torch.ones(targets.shape, dtype=torch.float32,
+                              device=x.device)
+        vsplit = split if split.vocab(V) else None
+        hw = head_w(params)
+        if vsplit is not None:
+            h = split.copy_in(h)
+            if cfg.tie_embeddings:
+                v0, v1 = split.vocab_rows(V)
+                hw = table[v0:v1].T
+        nll, count = chunked_softmax_xent(h, hw, targets, mask,
+                                          cfg.dist.loss_chunk, split=vsplit)
+        loss = nll / torch.clamp(split.fsdp_sum(count), min=1.0)
+        whole = split.fsdp_sum(loss.detach().clone())
+        return loss, {"nll": whole, "loss": whole,
+                      "aux": torch.zeros((), dtype=torch.float32,
+                                         device=x.device)}
+
     def prefill(params, batch, max_len: Optional[int] = None):
         """batch["tokens"] (B, S) (and the patch prefix or the encoder's
         frames) -> (logits (B, padded_vocab) float32 of the last position,
@@ -238,6 +313,10 @@ def build_model(cfg: ModelConfig) -> Model:
                                     enc_len=enc_len or seq_len,
                                     dtype=dtype or dt)
 
+    if split is not None:
+        loss_fn = split_loss_fn
+    loss_fn.cfg = cfg
     return Model(cfg=cfg, init_params=init_params, loss_fn=loss_fn,
                  prefill=prefill, decode_step=decode_step,
-                 init_cache=init_cache, head_w=head_w)
+                 init_cache=init_cache, head_w=head_w,
+                 param_spec=param_spec, cache_spec=cache_spec)

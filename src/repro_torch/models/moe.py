@@ -13,7 +13,7 @@ ranked at or past the capacity C go to a discarded column C of the (E,
 C + 1, d) buffer and add nothing. The expert products are batched matrix
 products over the expert axis, as the reference's einsums; the reference's
 sharding constraints (``moe_dispatch_shard``) change no number on one
-device.
+device. ``spec_moe`` is the reference's logical spec of the leaves.
 """
 from __future__ import annotations
 
@@ -52,6 +52,23 @@ def init_moe(generator, cfg: ModelConfig, *, device, dtype=torch.float32):
         p["shared"] = mlp(m.shared_ff)
     if m.dense_ff:
         p["dense"] = mlp(m.dense_ff)
+    return p
+
+
+def spec_moe(cfg: ModelConfig):
+    """The reference's logical specs of the MoE leaves: the expert banks
+    over ``expert``, the shared and dense MLPs as ``spec_mlp``."""
+    m = cfg.moe
+    p = {"router": (None, None),
+         "w_in": ("expert", "fsdp", None),
+         "w_gate": ("expert", "fsdp", None),
+         "w_out": ("expert", None, "fsdp")}
+    mlp = {"w_in": ("fsdp", "model"), "w_gate": ("fsdp", "model"),
+           "w_out": ("model", "fsdp")}
+    if m.shared_ff:
+        p["shared"] = dict(mlp)
+    if m.dense_ff:
+        p["dense"] = dict(mlp)
     return p
 
 

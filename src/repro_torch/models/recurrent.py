@@ -21,6 +21,9 @@ decode step's state into the serving cache in place.
   (see ``_mlstm_chunk``), so that a closed forget gate cannot turn every
   gradient into NaN; the numbers are otherwise the reference's.
 - sLSTM: a loop over S steps (the recurrence is on h).
+
+Each mixer has the reference's logical specs of its parameters and of its
+decode state (``spec_rglru``, ``spec_rglru_state``, ...; plain tuples).
 """
 from __future__ import annotations
 
@@ -70,6 +73,14 @@ def init_rglru(generator, cfg: ModelConfig, *, device, dtype=torch.float32):
     p["b_a"] = torch.zeros((dr,), **zeros)
     p["b_i"] = torch.zeros((dr,), **zeros)
     return p
+
+
+def spec_rglru():
+    return {"w_gate_branch": ("fsdp", "model"), "w_x": ("fsdp", "model"),
+            "conv_w": (None, "model"), "conv_b": ("model",),
+            "w_a": ("fsdp", "model"), "b_a": ("model",),
+            "w_i": ("fsdp", "model"), "b_i": ("model",),
+            "lam": ("model",), "w_out": ("model", "fsdp")}
 
 
 def _causal_conv(u, w, b, carry=None):
@@ -173,6 +184,10 @@ def init_rglru_state(cfg: ModelConfig, B: int, *, device,
 # ---------------------------------------------------------------------------
 
 
+def spec_rglru_state():
+    return {"h": ("data", "model"), "conv": ("data", None, "model")}
+
+
 def init_mlstm(generator, cfg: ModelConfig, *, device, dtype=torch.float32):
     d = cfg.d_model
     H = cfg.recurrent.num_heads
@@ -186,6 +201,13 @@ def init_mlstm(generator, cfg: ModelConfig, *, device, dtype=torch.float32):
                            3.0 * torch.ones((H,), device=device)]).to(dtype)
     p["gn_scale"] = torch.ones((d,), device=device, dtype=dtype)
     return p
+
+
+def spec_mlstm():
+    return {"wq": ("fsdp", "model"), "wk": ("fsdp", "model"),
+            "wv": ("fsdp", "model"), "w_if": ("fsdp", None),
+            "b_if": (None,), "w_og": ("fsdp", "model"),
+            "gn_scale": ("model",), "w_out": ("model", "fsdp")}
 
 
 def _headify(x, H):
@@ -300,6 +322,11 @@ def init_mlstm_state(cfg: ModelConfig, B: int, *, device):
 # ---------------------------------------------------------------------------
 
 
+def spec_mlstm_state():
+    return {"C": ("data", "model", None, None), "n": ("data", "model", None),
+            "m": ("data", "model")}
+
+
 def init_slstm(generator, cfg: ModelConfig, *, device, dtype=torch.float32):
     d = cfg.d_model
     H = cfg.recurrent.num_heads
@@ -315,6 +342,12 @@ def init_slstm(generator, cfg: ModelConfig, *, device, dtype=torch.float32):
                               torch.zeros((d,), device=device)]).to(dtype)
     p["gn_scale"] = torch.ones((d,), device=device, dtype=dtype)
     return p
+
+
+def spec_slstm():
+    return {"w_gates": ("fsdp", None), "r_gates": (None, "model", None, None),
+            "b_gates": (None,), "gn_scale": ("model",),
+            "w_out": ("model", "fsdp")}
 
 
 def _slstm_step(params, carry, wx_t, H, dh):
@@ -379,3 +412,8 @@ def init_slstm_state(cfg: ModelConfig, B: int, *, device):
     return {"c": torch.zeros((B, d), **f32), "n": torch.zeros((B, d), **f32),
             "h": torch.zeros((B, d), **f32),
             "m": torch.full((B, d), M_INIT, **f32)}
+
+
+def spec_slstm_state():
+    return {"c": ("data", "model"), "n": ("data", "model"),
+            "h": ("data", "model"), "m": ("data", "model")}

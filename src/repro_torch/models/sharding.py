@@ -4,12 +4,19 @@
 A spec leaf is a tuple of *logical* axis names (or ``None``, or tuples of
 names) aligned to the TRAILING dims of an array; :func:`resolve_leaf`
 substitutes mesh axes for them by a rule table (``TRAIN_RULES``: fsdp ->
-'fsdp', model and expert -> 'model', data -> ('pod', 'agent')), dropping a
-name whose mesh axes are absent, of size 1, or do not divide the dim (the
-dim is then replicated). :func:`panel_pspec` gives the flat panel's layout:
+'fsdp', model and expert -> 'model', data -> ('pod', 'agent');
+``serve_rules``: fsdp -> None (small) or the data axes (big), model and
+expert -> 'model', data -> the data axes), dropping a name whose mesh axes
+are absent, of size 1, or do not divide the dim (the dim is then
+replicated). The models' trees of logical names are their ``param_spec()``
+and ``cache_spec()``. :func:`panel_pspec` gives the flat panel's layout:
 rows over ``PANEL_ROW_AXES`` ('pod', 'agent'), columns over
 ``PANEL_COL_AXES`` ('fsdp'), each claimed only when it divides; the
-'model' axis replicates the panel.
+'model' axis replicates the panel. By default every 'model' rank computes
+its agents' whole local step; on the ``param_shardings`` route (the
+resolved ``TRAIN_RULES`` tree handed to ``core.dsgd.make_panel_segment``,
+``models/tensor_parallel.py``) the 'model' ranks split it by heads, d_ff
+columns and vocabulary, and the 'fsdp' ranks by batch rows.
 
 PyTorch has no PartitionSpec: specs are plain tuples, one entry a dim (an
 axis name, a tuple of names or None), equal to the reference's
@@ -18,9 +25,8 @@ axis name, a tuple of names or None), equal to the reference's
 
 The reference's ``constrain``, ``constrain_pick`` and
 ``activation_sharding`` are hints to XLA's SPMD partitioner about
-activations inside one agent's step; the port does not shard activations
-inside an agent (each agent's step runs whole on its rank), so they have no
-counterpart here.
+activations inside one agent's step; they have no counterpart here: the
+split route places its activations explicitly.
 """
 from __future__ import annotations
 
@@ -109,3 +115,18 @@ def panel_pspec(mesh, rows: int, width: int, row_axes=PANEL_ROW_AXES,
         return axes if len(axes) > 1 else axes[0]
 
     return (claim(rows, row_axes), claim(width, col_axes))
+
+
+SERVE_RULES_SMALL = {"fsdp": None, "model": "model", "expert": "model",
+                     "data": "data"}
+
+
+def serve_rules(mesh, big: bool):
+    """The serve meshes' rules ((16, 16) over ('data', 'model'), or with a
+    'pod' axis first): weights and KV caches over 'model', the batch over
+    the data axes, and (``big``) the weights' fsdp dim over them too."""
+    data_axes = ("pod", "data") if "pod" in _axis_names(mesh) else ("data",)
+    da = data_axes if len(data_axes) > 1 else data_axes[0]
+    rules = {"model": "model", "expert": "model", "data": da}
+    rules["fsdp"] = da if big else None
+    return rules

@@ -1,0 +1,350 @@
+"""One agent's local step split over its agent block: the counterpart of the
+reference's ``param_shardings`` route (``repro/launch/dryrun.py:
+build_train_panel``, ``repro/core/dsgd.py:make_panel_segment``), for the
+dense GQA decoders (olmo-1b, phi3-mini-3.8b, yi-34b, gemma-2b, gemma-2b-sw).
+
+The ranks that hold one agent's rows (its *agent block*: the mesh's ``fsdp``
+x ``model`` lines, ``launch/mesh.py``) share its step:
+
+* its batch rows over ``fsdp``: fsdp rank f differentiates rows [f b / F,
+  (f + 1) b / F) of the agent's b; the loss stays the mean over the whole
+  batch's masked tokens (the token count summed over ``fsdp`` before the
+  division), and the shares' gradients are summed;
+* its heads, d_ff columns and vocabulary over ``model`` (tensor
+  parallelism, Megatron's column / row pairs): model rank j computes the
+  query heads [j H / M, (j + 1) H / M) (``wq``'s columns, ``wo``'s rows),
+  the kv heads [j Kv / M, ...) where M divides Kv, the d_ff columns of
+  ``w_in``/``w_gate`` and rows of ``w_out``, and the vocabulary's rows [j V
+  / M, ...) of the head (``head.w``'s columns, or the tied table's rows).
+  A split block is entered through :meth:`Split.copy_in` (identity forward,
+  all-reduce of the gradient over ``model``) and left through
+  :meth:`Split.reduce_out` (all-reduce forward, identity backward); the
+  head's logsumexp and target logit are taken over ``model``
+  (:meth:`Split.vocab_nll`).
+
+Norms, RoPE and the embedding lookup run whole on every rank. A dim that
+the model line does not divide stays whole on every model rank: the
+reference's drop-on-indivisible rule (``models/sharding.py:resolve_leaf``)
+at head granularity, e.g. gemma's one kv head at any M > 1 (every rank
+reads it for its query heads), yi's 56 heads and gemma's 8 at M = 16 (the
+whole attention on every model rank).
+
+Each parameter leaf takes one of three gradient rules (:class:`LeafSplit`,
+:func:`leaf_plan`): ``split`` (the rank's block along ``dim``), ``once``
+(whole, its gradient the same on every model rank: written by model rank 0
+only) or ``sum`` (whole, each model rank's gradient a part: summed; a
+whole kv projection feeding split heads, and the tied table, whose lookup
+only model rank 0 differentiates and whose head rows each rank's). The
+model is told its line explicitly (``build_model(cfg, split=)``).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, List
+
+import torch
+
+from repro_torch.models.sharding import TRAIN_RULES, resolve
+from repro_torch.utils.tree import tree_flatten, tree_unflatten
+
+# the dense GQA families this route splits; any other family given
+# param_shardings is refused by name (ROADMAP A16d)
+SPLIT_FAMILIES = ("olmo-1b", "phi3-mini-3.8b", "yi-34b", "gemma-2b",
+                  "gemma-2b-sw")
+
+
+def unsplit_parts(cfg) -> List[str]:
+    """What of ``cfg``'s model this route does not split (empty for the
+    dense GQA decoders): the MoE FFN, MLA, the recurrent mixers, the
+    encoder and cross attention, M-RoPE's patch prefix, the MTP head."""
+    out = []
+    specs = list(cfg.layer_specs())
+    if any(ls.ffn == "moe" for ls in specs):
+        out.append("the MoE FFN (expert over model, capacity over the "
+                   "agent's whole batch)")
+    if any(ls.mixer == "mla" for ls in specs):
+        out.append("MLA attention")
+    if any(ls.mixer in ("rglru", "mlstm", "slstm") for ls in specs):
+        out.append("the recurrent mixers")
+    if any(ls.ffn == "none" for ls in specs) or cfg.dense_ff_first_k:
+        out.append("blocks without the gated MLP")
+    if cfg.encoder_layers:
+        out.append("the encoder and cross attention")
+    if cfg.mm_prefix or cfg.attn.rope == "mrope":
+        out.append("M-RoPE and the patch prefix")
+    if cfg.mtp_depth:
+        out.append("the MTP head")
+    return out
+
+
+def check_family(cfg):
+    """NotImplementedError, by name, for a model this route does not
+    split."""
+    parts = unsplit_parts(cfg)
+    if parts:
+        raise NotImplementedError(
+            f"param_shardings: {cfg.name} has {', '.join(parts)}, which the "
+            "split route does not split yet (ROADMAP A16d); it splits the "
+            f"dense GQA decoders {', '.join(SPLIT_FAMILIES)}")
+
+
+class _CopyIn(torch.autograd.Function):
+    """Identity forward; the gradient all-reduced over the model line."""
+
+    @staticmethod
+    def forward(ctx, x, split):
+        ctx.split = split
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.split.model_sum(g.clone(
+            memory_format=torch.contiguous_format)), None
+
+
+class _ReduceOut(torch.autograd.Function):
+    """All-reduce over the model line forward; identity backward."""
+
+    @staticmethod
+    def forward(ctx, y, split):
+        return split.model_sum(y.clone(memory_format=torch.contiguous_format))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _FirstRankGrad(torch.autograd.Function):
+    """Identity forward; the gradient passes on model rank 0 only (none on
+    the others). Every rank's graph keeps the same differentiable nodes,
+    so every rank runs the same collectives in the backward pass."""
+
+    @staticmethod
+    def forward(ctx, x, split):
+        ctx.first = split.model_rank == 0
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g if ctx.first else None), None
+
+
+class _VocabNll(torch.autograd.Function):
+    """Per-position -log softmax(logits)[target] of a vocabulary split over
+    the model line: ``lg`` (B, c, V / M) float32 the rank's columns, the
+    rows [j V / M, (j + 1) V / M) of the vocabulary. The max, the sum of
+    exponentials and the target's logit are taken over the line (one max,
+    one sum of the two stacked); the gradient is the rank's columns of
+    softmax - onehot."""
+
+    @staticmethod
+    def forward(ctx, lg, targets, split):
+        n = lg.shape[-1]
+        t = targets.long() - split.model_rank * n
+        inside = (t >= 0) & (t < n)
+        t = t.clamp(0, n - 1)
+        mx = split.model_max(torch.amax(lg, dim=-1).contiguous())
+        e = torch.exp(lg - mx[..., None])
+        tgt = torch.where(inside, torch.gather(lg, -1, t[..., None])[..., 0],
+                          torch.zeros((), dtype=lg.dtype, device=lg.device))
+        st = split.model_sum(torch.stack([torch.sum(e, dim=-1), tgt]))
+        nll = torch.log(st[0]) + mx - st[1]
+        ctx.save_for_backward(e.div_(st[0][..., None]), t, inside)
+        return nll
+
+    @staticmethod
+    def backward(ctx, g):
+        p, t, inside = ctx.saved_tensors
+        d = p * g[..., None]
+        d.scatter_add_(-1, t[..., None], -(g * inside)[..., None])
+        return d, None, None
+
+
+@dataclass(frozen=True, eq=False)
+class Split:
+    """This rank's place in its agent block: ``mesh`` (``launch.mesh.Mesh``)
+    gives the ``model`` and ``fsdp`` lines, their sizes M and F and the
+    rank's coordinates j and f. The split decisions (:meth:`attn`,
+    :meth:`kv`, :meth:`mlp`, :meth:`vocab`) hold where M > 1 divides the
+    dim; the model layers and :func:`leaf_plan` both read them."""
+    mesh: object
+
+    @property
+    def model_size(self) -> int:
+        return len(self.mesh.members["model"])
+
+    @property
+    def model_rank(self) -> int:
+        return self.mesh.coord["model"]
+
+    @property
+    def fsdp_size(self) -> int:
+        return len(self.mesh.members["fsdp"])
+
+    @property
+    def fsdp_rank(self) -> int:
+        return self.mesh.coord["fsdp"]
+
+    # -- decisions ---------------------------------------------------------
+
+    def attn(self, a) -> bool:
+        """Whether the attention runs on the rank's H / M query heads: M
+        divides H, and the kv heads either split too (M divides Kv) or each
+        rank's query heads share one kv head (Kv divides M)."""
+        M, H, Kv = self.model_size, a.num_heads, a.num_kv_heads
+        return M > 1 and H % M == 0 and (Kv % M == 0 or M % Kv == 0)
+
+    def kv(self, a) -> bool:
+        """Whether ``wk``/``wv`` split by kv heads (else whole)."""
+        return self.attn(a) and a.num_kv_heads % self.model_size == 0
+
+    def local_heads(self, a):
+        """(query heads, first kv head read, kv heads read) of this rank's
+        split attention; kv heads counted in the projection's output (the
+        rank's block where :meth:`kv`, else the whole Kv)."""
+        M, H, Kv = self.model_size, a.num_heads, a.num_kv_heads
+        if self.kv(a):
+            return H // M, 0, Kv // M
+        return H // M, self.model_rank * (H // M) // (H // Kv), 1
+
+    def mlp(self, d_ff: int) -> bool:
+        return self.model_size > 1 and d_ff % self.model_size == 0
+
+    def vocab(self, V: int) -> bool:
+        return self.model_size > 1 and V % self.model_size == 0
+
+    def vocab_rows(self, V: int):
+        n = V // self.model_size
+        return self.model_rank * n, (self.model_rank + 1) * n
+
+    def batch_rows(self, b: int) -> slice:
+        """This rank's rows of an agent batch of ``b`` rows."""
+        F = self.fsdp_size
+        if b % F:
+            raise ValueError(f"the split route shares an agent's batch of "
+                             f"{b} rows over the {F} ranks of its fsdp line, "
+                             f"and {F} does not divide {b}")
+        n = b // F
+        return slice(self.fsdp_rank * n, (self.fsdp_rank + 1) * n)
+
+    # -- collectives -------------------------------------------------------
+
+    def _reduce(self, x, line, op="sum"):
+        if len(self.mesh.members[line]) == 1:
+            return x
+        return self.mesh.all_reduce(x, line, op=op)
+
+    def model_sum(self, x):
+        """``x`` summed over the model line, in place."""
+        return self._reduce(x, "model")
+
+    def model_max(self, x):
+        return self._reduce(x, "model", op="max")
+
+    def fsdp_sum(self, x):
+        """``x`` summed over the fsdp line, in place."""
+        return self._reduce(x, "fsdp")
+
+    def block_sum(self, x):
+        """``x`` summed over the agent block (fsdp x model), in place."""
+        return self._reduce(x, "block")
+
+    def copy_in(self, x):
+        return _CopyIn.apply(x, self) if self.model_size > 1 else x
+
+    def reduce_out(self, y):
+        return _ReduceOut.apply(y, self) if self.model_size > 1 else y
+
+    def first_rank_grad(self, x):
+        """``x``, differentiated on model rank 0 only: a whole input whose
+        gradient every model rank would compute alike (the embedding
+        lookup)."""
+        return _FirstRankGrad.apply(x, self) if self.model_size > 1 else x
+
+    def vocab_nll(self, lg, targets):
+        return _VocabNll.apply(lg, targets, self)
+
+
+@dataclass(frozen=True)
+class LeafSplit:
+    """A leaf's gradient rule on the split route: ``kind`` 'split' (the
+    rank's block of ``dim``, M blocks), 'once' (whole, written by model
+    rank 0) or 'sum' (whole, summed over the model line)."""
+    kind: str
+    dim: int = -1
+
+
+# (parent key, leaf key) -> the leaf's role and the per-agent dim that the
+# role splits, counted from the end
+_ROLES = {("mixer", "wq"): ("q", -1), ("mixer", "wo"): ("q", -2),
+          ("mixer", "wk"): ("kv", -1), ("mixer", "wv"): ("kv", -1),
+          ("ffn", "w_in"): ("mlp", -1), ("ffn", "w_gate"): ("mlp", -1),
+          ("ffn", "w_out"): ("mlp", -2), ("head", "w"): ("vocab", -1)}
+
+
+def _paths(tree, at=()):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _paths(tree[k], at + (k,))
+    else:
+        yield at, tree
+
+
+def leaf_plan(cfg, split: Split, param_shardings) -> Dict:
+    """The tree of :class:`LeafSplit` of ``cfg``'s parameters on ``split``'s
+    block. ``param_shardings`` is the resolved ``TRAIN_RULES`` tree of the
+    agent-stacked parameters (:func:`train_shardings`, as the reference's
+    ``build_train_panel`` builds it: the agent prefix first); a leaf that the
+    split decisions split must carry 'model' on the dim they split
+    (ValueError otherwise: the tree was resolved for another model line).
+    The tied table splits for the head by rows whatever its entry (its
+    lookup stays whole)."""
+    check_family(cfg)
+    a, V = cfg.attn, cfg.padded_vocab
+    take = {"q": split.attn(a), "kv": split.kv(a), "mlp": split.mlp(cfg.d_ff),
+            "vocab": split.vocab(V)}
+    leaves = []
+    for path, entry in _paths(param_shardings):
+        role, dim = _ROLES.get(path[-2:], (None, None))
+        if path == ("embed", "table"):
+            rule = LeafSplit("sum" if cfg.tie_embeddings and take["vocab"]
+                             else "once")
+        elif role is not None and take[role]:
+            per_agent = tuple(entry)[1:]
+            d = len(per_agent) + dim
+            if per_agent[d] != "model":
+                raise ValueError(
+                    f"param_shardings[{'.'.join(path)}] is {tuple(entry)}: "
+                    f"the split route splits its dim {d} over the "
+                    f"{split.model_size} model ranks, which it does not "
+                    "name (resolve it with TRAIN_RULES on this mesh)")
+            rule = LeafSplit("split", d)
+        elif role == "kv" and take["q"]:
+            rule = LeafSplit("sum")
+        else:
+            rule = LeafSplit("once")
+        leaves.append(rule)
+    return tree_unflatten(tree_flatten(param_shardings)[1], leaves)
+
+
+def describe(plan) -> Dict[str, List[str]]:
+    """The leaves of ``plan`` by rule: {'split': ..., 'whole': ...,
+    'summed': ...} as dotted paths (the records' and tests' names)."""
+    out = {"split": [], "whole": [], "summed": []}
+    for path, rule in _paths(plan):
+        key = {"split": "split", "once": "whole", "sum": "summed"}[rule.kind]
+        out[key].append(".".join(path))
+    return out
+
+
+def train_shardings(model, mesh, agents: int):
+    """The resolved ``TRAIN_RULES`` tree of ``model``'s agent-stacked
+    parameters on ``mesh`` with the ('pod', 'agent') prefix: the reference's
+    ``build_train_panel`` param_shardings, as tuples (shapes from the meta
+    device; nothing allocated)."""
+    one = model.init_params(None, torch.device("meta"))
+    stacked = tree_unflatten(tree_flatten(one)[1], [
+        torch.empty((agents,) + tuple(x.shape), device="meta")
+        for x in tree_flatten(one)[0]])
+    return resolve(model.param_spec(), stacked, mesh, TRAIN_RULES,
+                   prefix=(("pod", "agent"),))

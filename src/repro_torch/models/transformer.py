@@ -18,6 +18,12 @@ cross-attention block adds ``"cross"``, ``{"k", "v", "pos"}`` over the
 encoder's rows, beside ``"mixer"``. Each leaf is stacked on the layer
 axis first, so a cache row (a batch entry, a serving slot) is axis 1.
 Decode writes every layer's row of the caches in place.
+
+``spec_block``, ``spec_block_cache``, ``spec_stack`` and
+``spec_stack_cache`` are the reference's logical specs of those trees. A
+train-mode block takes a ``split`` (``models/tensor_parallel.py``): its
+GQA mixer runs on the rank's heads and its MLP on the rank's d_ff columns
+where the model line divides them.
 """
 from __future__ import annotations
 
@@ -31,7 +37,8 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import recurrent as rec
 from repro_torch.models.layers import (activation, apply_mlp, apply_norm,
-                                       init_mlp, init_norm)
+                                       init_mlp, init_norm, spec_mlp,
+                                       spec_norm)
 
 
 @dataclass(frozen=True)
@@ -67,6 +74,13 @@ def build_segments(cfg: ModelConfig):
 _MIXER_INIT = {"gqa": attn.init_gqa, "mla": attn.init_mla,
                "rglru": rec.init_rglru, "mlstm": rec.init_mlstm,
                "slstm": rec.init_slstm}
+_MIXER_SPEC = {"gqa": attn.spec_gqa, "mla": attn.spec_mla,
+               "rglru": rec.spec_rglru, "mlstm": rec.spec_mlstm,
+               "slstm": rec.spec_slstm}
+_MIXER_CACHE_SPEC = {"gqa": attn.spec_gqa_cache, "mla": attn.spec_mla_cache,
+                     "rglru": rec.spec_rglru_state,
+                     "mlstm": rec.spec_mlstm_state,
+                     "slstm": rec.spec_slstm_state}
 _RECURRENT = {"rglru": rec.rglru_forward, "mlstm": rec.mlstm_forward,
               "slstm": rec.slstm_forward}
 _FFNS = ("swiglu", "geglu", "moe", "none")
@@ -104,10 +118,22 @@ def init_block(generator, cfg: ModelConfig, lspec: LayerSpec, *, device,
     return p
 
 
+def spec_block(cfg: ModelConfig, lspec: LayerSpec, cross: bool = False):
+    p = {"norm1": spec_norm(cfg.norm), "mixer": _MIXER_SPEC[lspec.mixer]()}
+    if cross:
+        p["norm_x"] = spec_norm(cfg.norm)
+        p["cross"] = attn.spec_cross()
+    if lspec.ffn != "none":
+        p["norm2"] = spec_norm(cfg.norm)
+        p["ffn"] = (moe_mod.spec_moe(cfg) if lspec.ffn == "moe"
+                    else spec_mlp(gated=True))
+    return p
+
+
 def apply_block(params, x, *, cfg: ModelConfig, lspec: LayerSpec, positions,
                 mode: str = "train", cache=None, positions3=None,
                 enc_out=None, cross_kv=None, causal=True,
-                cache_max_len=None):
+                cache_max_len=None, split=None):
     """One pre-norm block: x + mixer(norm(x)); with cross attention (the
     block has ``cross`` leaves) x + cross(norm_x(x)) over ``cross_kv``, or
     the keys and values projected from ``enc_out`` when none is given;
@@ -116,7 +142,10 @@ def apply_block(params, x, *, cfg: ModelConfig, lspec: LayerSpec, positions,
     recurrent state[, "cross": the cross keys and values]}; aux the MoE
     load-balance loss (weighted; 0 without a MoE FFN). A MoE FFN runs
     dropless outside training. In decode the mixer's cache is written in
-    place (a recurrent state copied into the given tensors)."""
+    place (a recurrent state copied into the given tensors). ``split``
+    (train mode, a GQA block with a gated MLP): the mixer on the rank's
+    heads where ``split.attn`` holds, the MLP on its d_ff columns where
+    ``split.mlp`` does; the leaves are then the rank's blocks."""
     _check(lspec)
     h = apply_norm(params["norm1"], x, cfg.norm)
     if lspec.mixer in _RECURRENT:
@@ -133,7 +162,9 @@ def apply_block(params, x, *, cfg: ModelConfig, lspec: LayerSpec, positions,
         y, new_cache = fwd(params["mixer"], h, cfg=cfg, lspec=lspec,
                            positions=positions, mode=mode, cache=cache,
                            positions3=positions3, causal=causal,
-                           cache_max_len=cache_max_len)
+                           cache_max_len=cache_max_len,
+                           split=split if split is not None
+                           and split.attn(cfg.attn) else None)
     x = x + y
     if "cross" in params:
         hx = apply_norm(params["norm_x"], x, cfg.norm)
@@ -149,7 +180,8 @@ def apply_block(params, x, *, cfg: ModelConfig, lspec: LayerSpec, positions,
                                           dropless=mode != "train")
         else:
             y2 = apply_mlp(params["ffn"], h2, activation(cfg.act),
-                           gated=True)
+                           gated=True, split=split if split is not None
+                           and split.mlp(cfg.d_ff) else None)
         x = x + y2
     if mode == "train":
         return x, None, aux
@@ -157,6 +189,15 @@ def apply_block(params, x, *, cfg: ModelConfig, lspec: LayerSpec, positions,
     if cross_kv is not None:
         out["cross"] = cross_kv
     return x, out, aux
+
+
+def spec_block_cache(cfg: ModelConfig, lspec: LayerSpec, cross: bool):
+    c = {"mixer": _MIXER_CACHE_SPEC[lspec.mixer]()}
+    if cross:
+        c["cross"] = {"k": ("data", None, "model", None),
+                      "v": ("data", None, "model", None),
+                      "pos": ("data", None)}
+    return c
 
 
 def init_block_cache(cfg: ModelConfig, lspec: LayerSpec, B: int,
@@ -218,6 +259,12 @@ def init_stack(generator, cfg: ModelConfig, *, device, cross: bool = False,
     return out
 
 
+def spec_stack(cfg: ModelConfig, cross: bool = False):
+    return {seg.name: {f"p{i}": spec_block(cfg, ls, cross=cross)
+                       for i, ls in enumerate(seg.specs)}
+            for seg in build_segments(cfg)}
+
+
 def init_stack_cache(cfg: ModelConfig, B: int, seq_len: int, *, device,
                      cross: bool = False, enc_len: int = 0,
                      dtype=torch.float32):
@@ -235,15 +282,22 @@ def init_stack_cache(cfg: ModelConfig, B: int, seq_len: int, *, device,
     return out
 
 
+def spec_stack_cache(cfg: ModelConfig, cross: bool = False):
+    return {seg.name: {f"p{i}": spec_block_cache(cfg, ls, cross)
+                       for i, ls in enumerate(seg.specs)}
+            for seg in build_segments(cfg)}
+
+
 def apply_stack(params, x, *, cfg: ModelConfig, positions, mode="train",
                 caches=None, positions3=None, enc_out=None, causal=True,
-                cache_max_len=None):
+                cache_max_len=None, split=None):
     """Run all segments. Returns (x, caches, aux): train mode no caches;
     prefill fresh caches sized ``cache_max_len`` (with cross attention,
     each block's keys and values of ``enc_out``); decode takes ``caches``,
     writes each layer's row of them in place and returns them (the cross
     keys and values read as they are). ``aux`` is the sum of the blocks'
-    MoE losses (float32). ``causal=False`` is the encoder's attention."""
+    MoE losses (float32). ``causal=False`` is the encoder's attention;
+    ``split`` as ``apply_block``'s."""
     new_caches = {}
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for seg in build_segments(cfg):
@@ -262,7 +316,7 @@ def apply_stack(params, x, *, cfg: ModelConfig, positions, mode="train",
                     p, x, cfg=cfg, lspec=ls, positions=positions, mode=mode,
                     cache=cache, positions3=positions3, enc_out=enc_out,
                     cross_kv=cross_kv, causal=causal,
-                    cache_max_len=cache_max_len)
+                    cache_max_len=cache_max_len, split=split)
                 aux_total = aux_total + aux
                 blk_caches[f"p{i}"] = blk_cache
             per_rep.append(blk_caches)

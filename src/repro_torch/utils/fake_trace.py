@@ -13,8 +13,10 @@ shape, a dtype and a device, no storage) and records:
   (each non-view operation's tensor inputs and outputs);
 * **collectives**: through a :class:`RecordingMesh`, whose ``all_gather``
   and ``all_reduce`` give tensors of the right shapes and log their calls
-  and bytes by kind and line (the counts ``launch.mesh.Mesh.stats`` keeps
-  for the same transport) instead of communicating.
+  and bytes by kind and line (every line of ``launch.mesh.LINES``: the
+  split route's ``model`` and ``block`` beside ``rows`` and ``fsdp``; the
+  counts ``launch.mesh.Mesh.stats`` keeps for the same transport) instead
+  of communicating.
 
 The CUDA kernels: on the CPU a kernel's wrapper runs its plain version.
 Inside a trace each plain version of ``repro_torch.kernels`` is a KERNEL

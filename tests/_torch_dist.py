@@ -51,6 +51,16 @@ Modes:
               the (1, 2, 2, 1) mesh as launch/dryrun.py:reckon traces them
               (the init, a segment of its default rounds, the evals), for
               real: each rank writes Mesh.stats of the init and of the rest;
+              with the argument ``split``, DRY_SPLIT_CASE on DRY_SPLIT_MESH
+              on the split route (param_shardings);
+  tp       -- (test_torch_tensor_parallel.py) TP_CASES' configs on the mesh
+              of the given shape on the split route (param_shardings):
+              from the handed-over inits, batches and W stream in
+              ``tp_inputs.pt``, one step's gradient panel and a segment
+              (two gossip rounds, the merge), then the evals; each rank
+              writes the gathered gradient panel and final panel, the
+              metrics, the evals and the leaf plan; on the (1, 1, 2, 2)
+              mesh also the FLOPs of one agent's step on both routes;
   ckpt_restore -- the newest good step of each given checkpoint directory
               restored on the mesh of the given shape into a fresh init
               of its case: each rank writes its step, trees, blocks and
@@ -712,9 +722,12 @@ DRY_CASES = {"f32": (None, "uniform", None),
              "int4 fisher int8": ("int4", "fisher",
                                   "moments=int8,stats=int8r")}
 DRY_M, DRY_H, DRY_B, DRY_S = 4, 2, 2, 16
+# the split route's dry-run case: its mesh (fsdp 2 x model 2, one agent
+# block) and its case of DRY_CASES
+DRY_SPLIT_MESH, DRY_SPLIT_CASE = (1, 1, 2, 2), "f32"
 
 
-def mode_dryrun(tmp):
+def mode_dryrun(tmp, split=""):
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -724,14 +737,20 @@ def mode_dryrun(tmp):
     from repro_torch.launch.mesh import make_debug_mesh
     from repro_torch.models import build_model
     from repro_torch.optim import make_optimizer
-    mesh = make_debug_mesh(agents=2, fsdp=2, model=1, device="cpu")
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import tensor_parallel as tp
+    mesh = (make_mesh(DRY_SPLIT_MESH, device="cpu") if split else
+            make_debug_mesh(agents=2, fsdp=2, model=1, device="cpu"))
     cfg = get_config("olmo-1b").reduced()
     model = build_model(cfg)
+    shardings = tp.train_shardings(model, mesh, DRY_M) if split else None
     rounds = default_rounds(DRY_M)
     Ws = np.concatenate([r[0] for r in rounds])
     glob = np.concatenate([r[1] for r in rounds])
     out = {}
-    for label, (wire, merger, res) in DRY_CASES.items():
+    cases = ({DRY_SPLIT_CASE: DRY_CASES[DRY_SPLIT_CASE]} if split
+             else DRY_CASES)
+    for label, (wire, merger, res) in cases.items():
         opt = make_optimizer("adamw", 3e-3, weight_decay=5e-4,
                              total_steps=len(Ws) * DRY_H)
         mesh.stats.update(dict.fromkeys(mesh.stats, 0))
@@ -740,7 +759,8 @@ def mode_dryrun(tmp):
             mesh=mesh, wire=wire, merger=merger, residency=res)
         init = dict(mesh.stats)
         mesh.stats.update(dict.fromkeys(mesh.stats, 0))
-        seg = dsgd.make_panel_segment(model.loss_fn, opt, DRY_H, spec)
+        seg = dsgd.make_panel_segment(model.loss_fn, opt, DRY_H, spec,
+                                      param_shardings=shardings)
         lead = (len(Ws), DRY_H, DRY_M, DRY_B, DRY_S)
         batches = {"tokens": np.zeros(lead, np.int32),
                    "targets": np.zeros(lead, np.int32),
@@ -753,6 +773,80 @@ def mode_dryrun(tmp):
                           state.get("merge_stat"))
         train.eval_local(model.loss_fn, state["panel"], spec, ev)
         out[label] = {"init": init, "run": dict(mesh.stats)}
+    torch.save(out, os.path.join(tmp, f"rank{mesh.rank}.pt"))
+
+
+# the split route's test configs: case -> the port's config of the arch
+TP_M, TP_H, TP_B, TP_S, TP_ROUNDS = 4, 2, 4, 16, 3
+
+
+def tp_config(case, get):
+    """The config of ``case`` from a package's ``get_config``: olmo-1b at
+    the launcher's CPU preset's widths, the others at ``reduced()``."""
+    if case == "olmo-1b":
+        return get(case).reduced(d_model=128, layers=2, vocab=256)
+    return get(case).reduced()
+
+
+TP_CASES = ("olmo-1b", "phi3-mini-3.8b", "yi-34b", "gemma-2b")
+
+
+def mode_tp(tmp, shape):
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import dsgd, panel
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models import tensor_parallel as tp
+    from repro_torch.optim import make_optimizer
+    from repro_torch.utils.tree import tree_flatten, tree_unflatten
+    shape = tuple(int(x) for x in shape.split(","))
+    mesh = make_mesh(shape, device="cpu")
+    inputs = torch.load(os.path.join(tmp, "tp_inputs.pt"),
+                        weights_only=False)
+    out = {}
+    for case in TP_CASES:
+        cfg = tp_config(case, get_config)
+        model = build_model(cfg)
+        inp = inputs[case]
+        trees = iter(inp["params"])
+        opt = make_optimizer("adamw", 3e-3, weight_decay=5e-4,
+                             total_steps=TP_ROUNDS * TP_H)
+        state, spec = dsgd.init_panel_state(lambda g, d: next(trees), opt,
+                                            TP_M, 0, mesh=mesh)
+        ps = tp.train_shardings(model, mesh, TP_M)
+        loss_fn, split = dsgd.split_route(model.loss_fn, spec, ps)
+        step0 = {k: torch.as_tensor(v[0, 0]) for k, v in
+                 inp["batches"].items()}
+        gpan, losses = dsgd.panel_grads(loss_fn, state["panel"], spec, step0,
+                                        split=split)
+        rec = {"grads": panel.gather_panel(gpan, spec), "grad_losses": losses,
+               "plan": tp.describe(tree_unflatten(
+                   tree_flatten(ps)[1], split[1]))}
+        del gpan
+        if shape == (1, 1, 2, 2) and case == "olmo-1b":
+            lo = spec.agent_range()[0]
+            for label, kw in (("split", {"split": split}), ("replica", {})):
+                fn = loss_fn if kw else model.loss_fn
+                with FlopCounterMode(display=False) as fc:
+                    dsgd.panel_grads(fn, state["panel"], spec, step0,
+                                     rows=[lo], **kw)
+                rec[f"flops_{label}"] = fc.get_total_flops()
+        seg = dsgd.make_panel_segment(model.loss_fn, opt, TP_H, spec,
+                                      param_shardings=ps)
+        state, mets = seg(state, inp["batches"], inp["Ws"],
+                          global_rounds=inp["glob"])
+        ev = train.to_device(inp["eval"], "cpu")
+        rec["merged"] = train.eval_merged(model.loss_fn, state["panel"],
+                                          spec, ev)
+        rec["local"] = train.eval_local(model.loss_fn, state["panel"], spec,
+                                        ev)
+        rec["mets"] = mets
+        rec["panel"] = panel.gather_panel(state["panel"], spec)
+        out[case] = rec
     torch.save(out, os.path.join(tmp, f"rank{mesh.rank}.pt"))
 
 
@@ -769,5 +863,5 @@ if __name__ == "__main__":
      "codecs": mode_codecs, "merges": mode_merges,
      "options": mode_options, "ipc": mode_ipc,
      "ckpt_save": mode_ckpt_save, "ckpt_restore": mode_ckpt_restore,
-     "dryrun": mode_dryrun}[mode](
+     "dryrun": mode_dryrun, "tp": mode_tp}[mode](
         tmp, *rest)

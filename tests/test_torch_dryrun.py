@@ -23,7 +23,13 @@ sharded run holds and does, traced on the CPU without allocating.
 * **No allocation.** The CLI's olmo-1b ``train_4k`` record at 16 x 16,
   whose state is 14.1 GB a rank, raises the process's peak RSS by under
   1 GB, in a subprocess; and it refuses the serve shapes and the non-panel
-  variants by name.
+  variants by name. That record is traced on the split route
+  (``param_shardings``): no replica note, the leaves split and whole named.
+* **Split route.** On (1, 1, 2, 2) at ``reduced()`` olmo-1b's split
+  record names its leaves, its traced peak and FLOPs a rank are below the
+  replica route's (FLOPs about a quarter: half the batch, half the heads),
+  and its collectives equal ``Mesh.stats`` of the same program run for
+  real over gloo.
 """
 import json
 import os
@@ -36,7 +42,8 @@ import pytest
 import torch
 
 import _torch_threads  # noqa: F401
-from _torch_dist import DRY_B, DRY_CASES, DRY_H, DRY_M, DRY_S, spawn
+from _torch_dist import (DRY_B, DRY_CASES, DRY_H, DRY_M, DRY_S,
+                         DRY_SPLIT_CASE, DRY_SPLIT_MESH, spawn)
 from repro_torch import hardware
 from repro_torch.checkpoint import io as ckpt_io
 from repro_torch.configs import get_config
@@ -180,6 +187,41 @@ def test_recording_mesh_equals_mesh_stats_of_a_real_run(gloo_stats, label):
         assert r["run"]["calls"] > 10
 
 
+def test_split_record_on_a_small_mesh(tmp_path):
+    """reduced() olmo-1b on (1, 1, 2, 2) traced on the split route against
+    the replica route, and its collectives against a real gloo run's."""
+    cfg = get_config("olmo-1b").reduced()
+    wire, merger, res = DRY_CASES[DRY_SPLIT_CASE]
+    kw = dict(agents=DRY_M, local_steps=DRY_H, batch=DRY_B, seq=DRY_S,
+              wire=wire, merger=merger, residency=res, route="gloo")
+    split = dryrun.reckon(cfg, DRY_SPLIT_MESH, split=True, **kw)
+    blk = "decoder.main.p0."
+    assert {blk + "mixer.wq", blk + "ffn.w_out"} <= set(
+        split["split"]["split"])
+    assert split["split"]["summed"] == ["embed.table"]
+    assert split["host_reads"]["traced"] == 0
+    # one local step at a batch whose activations outweigh the state's
+    # transients (16 x 512 tokens an agent), no evals: both routes
+    big = dict(kw, local_steps=1, batch=16, seq=512, evals=False)
+    one = {s: dryrun.reckon(cfg, DRY_SPLIT_MESH, split=s, **big)
+           for s in (True, False)}
+    assert one[False]["split"] is None
+    assert one[True]["peak"] < 0.5 * one[False]["peak"]
+    ratio = one[True]["segment0"]["flops"] / one[False]["segment0"]["flops"]
+    assert 0.2 < ratio < 0.3, ratio
+    logged = {k.split("/")[0] for k in split["run"]["log"]}
+    assert {"model", "block"} <= logged
+    spawn(4, "dryrun", tmp_path, args=("split",), timeout=240)
+    for rank in (0, 3):
+        real = torch.load(tmp_path / f"rank{rank}.pt",
+                          weights_only=False)[DRY_SPLIT_CASE]
+        r = split if rank == 0 else dryrun.reckon(
+            cfg, DRY_SPLIT_MESH, rank=rank, split=True, **kw)
+        for part in ("init", "run"):
+            assert (r[part]["calls"], r[part]["bytes"]) == (
+                real[part]["calls"], real[part]["bytes"]), (rank, part)
+
+
 def test_recording_mesh_counts_the_ipc_route_as_the_mesh_plans_it():
     """On ranks sharing one card an all-reduce is a call a CUDA IPC
     buffer's worth of elements, its flat result and gathered parts alive
@@ -300,4 +342,9 @@ def test_cli_record_at_16x16_allocates_no_state(tmp_path):
     assert rec["collectives"]["per_line"]["rows"]["ranks"] == 16
     assert set(rec["roofline"]) == {"compute_s", "memory_s",
                                     "collective_s", "dominant"}
-    assert "replicas" in rec["note"]
+    # the split route: no replica note, what stayed whole named
+    assert "note" not in rec
+    assert rec["split"]["summed"] == ["embed.table"]
+    assert "decoder.main.p0.mixer.wq" in rec["split"]["split"]
+    assert "decoder.main.p0.norm1" not in rec["split"]["whole"]
+    assert set(rec["collectives"]["per_line"]) >= {"rows", "model"}

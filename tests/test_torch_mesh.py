@@ -127,7 +127,8 @@ try:
     mesh = mesh_mod.make_debug_mesh(agents=1, fsdp=1, model=1, device="cpu")
 except SystemExit as e:
     print("exit:", e); sys.exit(3)
-assert mesh.backend == "gloo" and mesh.members == {"rows": [0], "fsdp": [0]}
+assert mesh.backend == "gloo" and mesh.members == {
+    "rows": [0], "fsdp": [0], "model": [0], "block": [0]}
 x = torch.arange(6.0).reshape(2, 3)
 assert torch.equal(mesh.all_gather(x, "rows"), x)
 assert torch.equal(mesh.all_reduce(x.clone(), "fsdp"), x)
