@@ -19,8 +19,12 @@ Phases, each printing its lines:
      card equal the CPU's bit for bit; the residency kernels (grouped int8
      quantize and dequantize, the fused AdamW step on grouped-int8 moments,
      library torch.quantize_per_channel on the (m G, 128) view for the
-     round-to-nearest pair); flash attention forward (float32, bfloat16)
-     and backward at odd sizes, at the attn_block path's shape and at a GQA
+     round-to-nearest pair); flash attention forward and backward in
+     float32, bfloat16 and float16 (the 16-bit kernels at every head dim,
+     each output held to the float32 yardstick against the plain 16-bit
+     version's gap: flash16_checks, timed at hd 128 and 256 against
+     scaled_dot_product_attention on the same 16-bit tensors), float32
+     at odd sizes, at the attn_block path's shape and at a GQA
      shape (library torch's scaled_dot_product_attention, is_causal; the
      bound of the kernels' split-TF32 tensor-core route, and the float32
      CUDA cores' figure in the text; each kernel's registers, local (spill)
@@ -63,7 +67,7 @@ Phases, each printing its lines:
      (agent 2 dead in round 1 and rejoining in round 2, agent 5 dead from
      round 2: the final merge is over 7 agents), its dead row bit for bit,
      the live rows identical, the live Xi 0 and merged == live local eval;
-     then, each in SIDE_ROUNDS rounds (two gossip rounds and the merge;
+     then, each in SIDE_ROUNDS rounds (a gossip round and the merge;
      the main and elastic paths take ROUNDS),
      the wire paths: the same cell with --wire int8_ef, then int8_ef with
      the kernel's draws (an Int8Codec(draws="kernel") instance: the
@@ -194,7 +198,10 @@ Phases, each printing its lines:
      float32 readings against 2e-5 + 1e-5 printed), served with every
      other request carrying a 256-row prefix;
   12. (after phase 11) (a) the main path's cell with bfloat16 parameters
-     (param_dtype, BF16_ROUNDS rounds): the rows identical after the merge,
+     (param_dtype, BF16_ROUNDS rounds), then with attn_block ATTN_BLOCK at
+     m BF16_ATTN_M and batch ATTN_BATCH x ATTN_SEQ (the flash kernels'
+     bfloat16 forward and backward: fault C1's repair, each backward
+     launch counted): the rows identical after the merge,
      consensus_distance 0.0, the merged model in bfloat16 equal to the
      local eval within 1e-6 relative (the float32-leaf merged eval printed
      beside it), the bf16 entries of the mix and the reduce launched; its
@@ -226,8 +233,9 @@ Phases, each printing its lines:
      saves each rank's blocks of the 22.8 GB state after its first
      segment, in parts, and is SIGKILLed (rank 1 first) once MANIFEST.json
      names the step (the disk checked first for CKPT_DISK_SHARE times the
-     state); then --resume on SHARD_MESH, on (1, 4, 1, 1) and on one
-     process, each held to phase 10a's run: the restored step, the losses
+     state); then --resume on SHARD_MESH and on one process (a (1, 4, 1,
+     1) resume dropped for phase 12g's time), each held to phase 10a's
+     run: the restored step, the losses
      and evals bit for bit, grad norms and Xi within 1e-6, Xi 0.0 and
      merged == local after the merge, the final state's fingerprint
      (summed over the ranks) bit for bit, the mix and the reduce launched
@@ -259,17 +267,38 @@ Phases, each printing its lines:
      olmo cell's peak a rank within DRY_PEAK_SHARE of its reckon (traced
      on the host beside phase 11) and its collective calls and bytes equal
      to the reckoned; its rounds, peaks and collective seconds a rank
-     printed;
+     printed; (g) the serve shapes split (models/tensor_parallel.py's serve
+     route, the reference's build_serve layout: weights and caches as
+     param_spec / cache_spec resolve under serve_rules) on ranks sharing
+     the card over CUDA IPC (SERVE_CELLS): olmo-1b at full width and depth
+     in bfloat16 with attn_block 512 on (data 2, model 2), 4 prompts of
+     4096 tokens and 64 decode steps, and gemma-2b-sw at full width and
+     depth in bfloat16 on (data 1, model 2), a prompt past its window and
+     decode steps through the ring, each against one process's run of the
+     same seeded weights and both against a float32 forward of them: the
+     split's relative l2 gap at most SERVE_FACTOR times one process's and
+     its gap to one process at most SERVE_DIRECT times one process's (a
+     fault planted on one rank, SERVE_FAULTS, must fail them), the
+     model ranks of a data rank bit for bit, each rank's peak within
+     DRY_PEAK_SHARE of launch/dryrun.py:reckon_serve's (traced on the host
+     beside phase 11), the flash forward's bfloat16 entry once a layer a
+     rank; and phase 9's merged model in float32 through the engine on
+     (data 1, model 2) serving phase 9's requests: every request's tokens
+     equal one process's engine's, a probe's logits within SERVE_ATOL +
+     SERVE_RTOL;
 then the script's total time, a JSON line of per-kernel numbers (the
 flash rows with their hd96, hd256 and hd256_h10 timings and the
 backward's own kernels' times, kernels_ms; every row with its phase-11
 launches by cell, ``launches_arch``, and phase 12's, ``launches_phase12``:
 bf16_params (12a), sharded (12b), sharded_options (12c, summed over the
 ranks and the runs), sharded_checkpoint (12d's resumed runs, summed
-over their ranks) and split (12f's two cells, summed over their ranks);
-the mix's bf16 and f16 and the reduce's bf16 and f16 sub-rows, each with
-that variant's own launches: the bf16 wire path's for bf16, the main
-path's for f16, and its own ``launches_phase12``), the
+over their ranks), split (12f's two cells, summed over their ranks) and
+split_serve (12g's cells, each summed over its ranks); the mix's bf16 and
+f16 and the reduce's bf16 and f16 sub-rows, each with that variant's own
+launches: the bf16 wire path's for bf16, the main path's for f16, and
+its own ``launches_phase12``; the flash rows' bf16 and f16 sub-rows of
+the 16-bit kernels, bf16's launches phase 12a's, f16's the attn_block
+path's), the
 card's line again and, last, the result line. It fails (non-zero exit, no
 result line) if there is no card, if the port's package is not beside it,
 if a kernel does not build, launch or agree, or if any check fails.
@@ -293,14 +322,18 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 # from the port's one module of them (run alone, without the port beside
 # it, main() says so and exits 2)
 try:
-    from repro_torch.hardware import FP32_FLOPS, HBM_BYTES_PER_S
+    from repro_torch.hardware import (BF16_FLOPS, FP32_FLOPS,
+                                      HBM_BYTES_PER_S, TF32_FLOPS)
     from repro_torch.hardware import SPLIT_TF32_FLOPS as TF32_SPLIT_FLOPS
 except ImportError:
-    FP32_FLOPS = HBM_BYTES_PER_S = TF32_SPLIT_FLOPS = None
+    BF16_FLOPS = FP32_FLOPS = HBM_BYTES_PER_S = TF32_FLOPS = None
+    TF32_SPLIT_FLOPS = None
 
 M = 8                 # agents
 ROUNDS, H = 4, 2      # rounds, local steps per round
-SIDE_ROUNDS = 3       # rounds of the phase-6 paths but faults (2 + merge)
+# rounds of the phase-6 paths but faults (a gossip round and the merge;
+# cut from 3 for phase 12g's time)
+SIDE_ROUNDS = 2
 BATCH, SEQ = 4, 512
 DATA_VOCAB = 1024     # token ids the synthetic streams draw (of 50304)
 REPS = 20             # timed launches per measurement
@@ -314,6 +347,17 @@ ATTN_BLOCK, ATTN_BATCH, ATTN_SEQ = 512, 2, 2048
 # of recurrentgemma-2b's local attention (hd 256, 10 query heads on 1)
 FLASH_TIMED = {"hd128": (16, 16, 128), "hd96": (32, 32, 96),
                "hd256": (8, 1, 256), "hd256_h10": (10, 1, 256)}
+# phase 3's 16-bit flash checks (flash16_checks): bfloat16 and float16 at
+# every head dim of the kernels, and the timed shapes of FLASH16_TIMED (the
+# attn_block path's hd 128 and gemma-2b's hd 256). Each output leaf's
+# relative l2 distance from the float32 yardstick (the plain version on the
+# same 16-bit values widened to float32) must be at most FLASH16_FACTOR
+# times the plain 16-bit version's: the plain version rounds every einsum
+# to the inputs' type, the kernels each output once. A float32 gradient
+# rounded once reads 0.31-0.57 of the plain version's distance on the CPU
+# (tests/test_torch_flash16.py: test_rounded_once_beats_the_plain_version)
+FLASH16_FACTOR = 1.0
+FLASH16_TIMED = {"hd128": (16, 16, 128), "hd256": (8, 1, 256)}
 
 # the paths driven at full width (f32 is the main path) and the kernels
 # each must launch; a path is a wire codec, "merge <operator>" on the f32
@@ -359,8 +403,9 @@ FAULT_SMOKE_KERNELS = ("quantize_int8", "dequantize_int8",
 # attention layer at attn_block 512: the flash kernels at hd 256, 10 query
 # heads on 1 key head), for xlstm 7 mLSTM and 1 sLSTM layers (at m 4
 # since phase 12f joined the script: its sLSTM's per-token loop made the
-# cell ~115 s at m 8).
-# ARCH_ROUNDS rounds (two gossip rounds and the merge), H local steps;
+# cell ~115 s at m 8; at m 2 since phase 12g did).
+# ARCH_ROUNDS rounds (a gossip round and the merge; cut from 3 for phase
+# 12g's time), H local steps;
 # ARCH_D the width D of an agent each cut gives.
 ARCH_CELLS = {"phi3": ("phi3-mini-3.8b", 2, 8, 4, 512, 0, None),
               "gemma": ("gemma-2b", 2, 4, 2, 2048, 512, None),
@@ -369,11 +414,11 @@ ARCH_CELLS = {"phi3": ("phi3-mini-3.8b", 2, 8, 4, 512, 0, None),
               "deepseek": ("deepseek-v3-671b", None, 8, 4, 256, 0, None),
               "recurrentgemma": ("recurrentgemma-2b", 3, 3, 2, 2048, 512,
                                  None),
-              "xlstm": ("xlstm-1.3b", 8, 4, 4, 512, 0, None),
+              "xlstm": ("xlstm-1.3b", 8, 2, 4, 512, 0, None),
               "qwen2vl": ("qwen2-vl-72b", None, 8, 4, 256, 0, None),
               "seamless": ("seamless-m4t-medium", 12, 2, 4, 1024, 512,
                            None)}
-ARCH_ROUNDS = 3
+ARCH_ROUNDS = 2
 ARCH_D = {"phi3": 424_688_640, "gemma": 744_499_200, "yi": 1_475_367_936,
           "arctic": 1_517_630_464, "deepseek": 5_361_952,
           "recurrentgemma": 912_320_000, "xlstm": 378_712_120,
@@ -1036,12 +1081,18 @@ def int4_checks(torch, D_main):
     return out
 
 
+# rows of the TIES thresholds held card == CPU at D = D_main (each row is
+# its own order statistic; every row at the small widths): cut from M,
+# the CPU's sorts of 8 full rows took most of the script's phase 3
+TIES_CPU_ROWS = 2
+
+
 def merge_checks(torch, D_main):
     """Phase 3, merge kernels: the weighted and the TIES column merge
     (trim 0.2 and 1.0) against their plain versions (max |err| must be 0),
-    the TIES thresholds on the card against the CPU's (bit for bit); times
-    at m = 8, D = D_main. No single PyTorch call computes either column
-    merge: library_ms null."""
+    the TIES thresholds on the card against the CPU's (bit for bit; at
+    D_main the first TIES_CPU_ROWS rows); times at m = 8, D = D_main. No
+    single PyTorch call computes either column merge: library_ms null."""
     from repro_torch.kernels.merge_ops import ties_colmerge, weighted_colmerge
     from repro_torch.kernels.ref import (ties_colmerge_ref, ties_thresh_ref,
                                          weighted_colmerge_ref)
@@ -1074,7 +1125,9 @@ def merge_checks(torch, D_main):
             th = ties_thresh_ref(tau, trim)
             torch.cuda.synchronize()
             secs[trim] = time.perf_counter() - t0
-            check(torch.equal(th.cpu(), ties_thresh_ref(tau.cpu(), trim)),
+            rows = slice(0, TIES_CPU_ROWS if D == D_main else M)
+            check(torch.equal(th[rows].cpu(),
+                              ties_thresh_ref(tau[rows].cpu(), trim)),
                   f"TIES thresholds (trim {trim}) on the card differ from "
                   f"the CPU's at D={D}")
             got = ties_colmerge(tau, th)
@@ -1082,7 +1135,8 @@ def merge_checks(torch, D_main):
                   f"ties_colmerge (trim {trim}) disagrees at D={D}")
             del got
         print(f"check D={D}: weighted_colmerge, ties_colmerge (trim 0.2, "
-              f"1.0) max|err| 0; TIES thresholds card == CPU, "
+              f"1.0) max|err| 0; TIES thresholds card == CPU "
+              f"({rows.stop} rows), "
               f"{secs[0.2]:.3f} s / {secs[1.0]:.3f} s on the card for "
               f"{M} rows", flush=True)
         if D == D_main:
@@ -1576,6 +1630,161 @@ def flash_times(torch, q, k, v, do, pos, o, lse):
               f"TFLOP/s), {100 * r_['bound_ms'] / r_['ms']:.1f}% of it; on "
               f"the float32 CUDA cores (67 TFLOP/s) "
               f"{1e3 * r_['ops'] / FP32_FLOPS:.4f} ms", flush=True)
+    return res
+
+
+def _rel_l2(torch, a, b):
+    return float(torch.linalg.vector_norm(a.double() - b.double())
+                 / torch.linalg.vector_norm(b.double()))
+
+
+def flash16_checks(torch):
+    """Phase 3, flash attention on bfloat16 and float16 q, k, v (fault C1's
+    repair): the forward and the backward kernels of each 16-bit library
+    against their plain versions at every head dim of HEAD_DIMS (B 2, S
+    100, H 4 on Kv 2, causal), with a window, without the causal mask,
+    MQA at hd 256, seamless's non-causal hd 64 batch and the timed shapes
+    of FLASH16_TIMED. The gate (FLASH16_FACTOR): each output's relative l2
+    distance from the float32 yardstick (the plain version on the 16-bit
+    values widened to float32: out, and dq, dk, dv from the same dO) at
+    most the factor times the plain 16-bit version's; outputs in the
+    inputs' type, finite. Times at FLASH16_TIMED (flash16_times). Returns
+    {"flash_attention_fwd_bf16": ..., "flash_attention_bwd_bf16": ...,
+    "..._f16": ...}, each with the hd 128 numbers and an "hd256" sub-dict,
+    "max_abs_err" (against the plain version) and "worst_ratio"."""
+    from repro_torch.kernels.flash_attention import (HEAD_DIMS,
+                                                     flash_attention_bwd,
+                                                     flash_attention_fwd)
+    from repro_torch.kernels.ref import (flash_attention_bwd_ref,
+                                         flash_attention_fwd_ref)
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(16)
+    # (B, S, H, Kv, hd, window, causal)
+    cases = [(2, 100, 4, 2, hd, None, True) for hd in HEAD_DIMS]
+    cases += [(1, 100, 2, 1, 128, 48, True), (2, 100, 4, 2, 96, 48, True),
+              (1, 130, 4, 2, 256, 48, True), (1, 77, 2, 1, 256, None, False),
+              (2, 100, 8, 1, 256, None, True),
+              (4, 1024, 16, 16, 64, None, False)]
+    cases += [(ATTN_BATCH, ATTN_SEQ, H_, Kv_, hd, None, True)
+              for H_, Kv_, hd in FLASH16_TIMED.values()]
+    out = {}
+    for dtype, sfx in ((torch.bfloat16, "bf16"), (torch.float16, "f16")):
+        fname, bname = f"flash_attention_fwd_{sfx}", f"flash_attention_bwd_{sfx}"
+        res = {fname: {"max_abs_err": 0.0, "worst_ratio": 0.0},
+               bname: {"max_abs_err": 0.0, "worst_ratio": 0.0}}
+        for B, S, Hq, Kv, hd, window, causal in cases:
+            q, k, v, do = (torch.randn((B, S, n, hd), generator=gen,
+                                       device=dev).to(dtype)
+                           for n in (Hq, Kv, Kv, Hq))
+            pos = torch.arange(S, dtype=torch.int32, device=dev).expand(B, S)
+            kw = dict(causal=causal, window=window)
+            label = (f"B={B} S={S} H={Hq} Kv={Kv} hd={hd} window={window} "
+                     f"{sfx}" + ("" if causal else " non-causal"))
+            o, lse = flash_attention_fwd(q, k, v, pos, pos, **kw)
+            ro, _ = flash_attention_fwd_ref(q, k, v, pos, pos, **kw)
+            yo, _ = flash_attention_fwd_ref(q.float(), k.float(), v.float(),
+                                            pos, pos, **kw)
+            g = flash_attention_bwd(q, k, v, o, lse, do, pos, pos, **kw)
+            rg = flash_attention_bwd_ref(q, k, v, do, pos, pos, **kw)
+            yg = flash_attention_bwd_ref(q.float(), k.float(), v.float(),
+                                         do.float(), pos, pos, **kw)
+            torch.cuda.synchronize()
+            line = f"check flash attention {label}:"
+            for name, got, plain, yard in (
+                    [(fname, o, ro, yo)]
+                    + [(bname, a, b, y) for a, b, y in zip(g, rg, yg)]):
+                check(got.dtype == dtype and bool(torch.isfinite(got).all()),
+                      f"{name} at {label}: {got.dtype} output or not finite")
+                if not bool(torch.any(yard != 0)):
+                    continue  # dq and dk at S = 1: none to measure
+                ek, ep = _rel_l2(torch, got, yard), _rel_l2(torch, plain,
+                                                            yard)
+                check(ek <= FLASH16_FACTOR * ep,
+                      f"{name} at {label}: {ek:.3g} from the float32 "
+                      f"yardstick, the plain version {ep:.3g} (factor "
+                      f"{FLASH16_FACTOR})")
+                r = res[name]
+                r["worst_ratio"] = max(r["worst_ratio"], ek / ep)
+                r["max_abs_err"] = max(r["max_abs_err"], float(torch.max(
+                    torch.abs(got.float() - plain.float()))))
+                line += f" {ek:.3g}/{ep:.3g}"
+            print(line + " (kernel / plain relative l2 from the float32 "
+                  "yardstick: out, dq, dk, dv)", flush=True)
+            key = [k_ for k_, v_ in FLASH16_TIMED.items()
+                   if v_ == (Hq, Kv, hd)]
+            if B == ATTN_BATCH and S == ATTN_SEQ and key:
+                t = flash16_times(torch, q, k, v, do, pos, o, lse)
+                for name, r_ in ((fname, t["fwd"]), (bname, t["bwd"])):
+                    if key[0] == "hd128":
+                        res[name].update(r_)
+                    else:
+                        res[name][key[0]] = r_
+            del q, k, v, do, o, lse, ro, yo, g, rg, yg
+            torch.cuda.empty_cache()
+        out.update(res)
+    return out
+
+
+def flash16_times(torch, q, k, v, do, pos, o, lse):
+    """Phase 3, a timed shape of FLASH16_TIMED on 16-bit tensors (causal):
+    the forward and the backward kernels, their plain 16-bit versions,
+    scaled_dot_product_attention on the same tensors (forward; backward on
+    a retained graph) and the bound: the function's operations over the
+    visible pairs at the tensor cores' dense 16-bit rate (BF16_FLOPS, the
+    same for float16; the forward S = Q K^T and P V: 4 hd a pair; the
+    backward S, dP, dV, dK and dQ: 10 hd a pair, P and dS rounded to the
+    inputs' type as the plain 16-bit version rounds them), or the bytes (2
+    a value, 4 an lse or position) if larger. Beside it, as ``route_ms``,
+    the kernels' own route: TF32 products at 495 TFLOP/s, the inputs exact
+    in TF32 (the forward 1 product for S and 1 for P V with P rounded to
+    v's type: 4 hd a pair; the backward 1 for S and dP, 2 for dV, dK and
+    dQ with P or dS split: 16 hd a pair). Returns {"fwd", "bwd": numbers}."""
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd,
+                                                     flash_attention_fwd)
+    from repro_torch.kernels.flash_bench import (backward_kernel_ms,
+                                                 library_ms, shares_line)
+    from repro_torch.kernels.ref import (flash_attention_bwd_ref,
+                                         flash_attention_fwd_ref)
+    B, S, Hq, hd = q.shape
+    Kv = k.shape[2]
+    pairs = visible_pairs(S, True, None)
+    n_q, n_kv, rows = B * S * Hq * hd, B * S * Kv * hd, B * Hq * S
+    e = q.element_size()
+    # (bytes, the function's operations, the route's TF32 operations)
+    cost = {"fwd": (e * (2 * n_q + 2 * n_kv) + 4 * rows + 8 * B * S,
+                    4 * hd * pairs * B * Hq, 4 * hd * pairs * B * Hq),
+            "bwd": (e * (4 * n_q + 4 * n_kv) + 4 * rows + 8 * B * S,
+                    10 * hd * pairs * B * Hq, 16 * hd * pairs * B * Hq)}
+    fns = {"fwd": (lambda: flash_attention_fwd(q, k, v, pos, pos),
+                   lambda: flash_attention_fwd_ref(q, k, v, pos, pos)),
+           "bwd": (lambda: flash_attention_bwd(q, k, v, o, lse, do, pos, pos),
+                   lambda: flash_attention_bwd_ref(q, k, v, do, pos, pos))}
+    res = {}
+    for name, (fn, plain) in fns.items():
+        nbytes, ops, tf32_ops = cost[name]
+        b_ms, b_by = bound(nbytes, ops, BF16_FLOPS)
+        res[name] = {"shape": [B, S, Hq, Kv, hd], "ms": time_ms(torch, fn),
+                     "plain_ms": time_ms(torch, plain, reps=PLAIN_REPS,
+                                         warmup=1),
+                     "bytes": nbytes, "ops": ops, "bound_ms": b_ms,
+                     "bound_by": b_by, "tf32_ops": tf32_ops,
+                     "route_ms": bound(nbytes, tf32_ops, TF32_FLOPS)[0]}
+    res["fwd"]["library_ms"], res["bwd"]["library_ms"] = library_ms(q, k, v,
+                                                                   do)
+    per = backward_kernel_ms(fns["bwd"][0])
+    res["bwd"]["kernels_ms"] = per
+    tag = f"{str(q.dtype)[6:]} B={B}, S={S}, H={Hq}, Kv={Kv}, hd={hd}, causal"
+    print(f"time flash_attention_bwd's kernels ({tag}; torch.profiler, a "
+          f"call): {shares_line(per)}; {card_line()}", flush=True)
+    for name, r_ in res.items():
+        print(f"time flash attention {name} ({tag}; {card_line()}): kernel "
+              f"{r_['ms']:.4f} ms, plain {r_['plain_ms']:.4f} ms, library "
+              f"{r_['library_ms']} ms; bound {r_['bound_ms']:.4f} ms "
+              f"({r_['bound_by']}: {r_['ops']} operations at 989 TFLOP/s), "
+              f"{100 * r_['bound_ms'] / r_['ms']:.1f}% of it; the route's "
+              f"{r_['route_ms']:.4f} ms ({r_['tf32_ops']} TF32 operations "
+              f"at 495 TFLOP/s), {100 * r_['route_ms'] / r_['ms']:.1f}% of "
+              f"it", flush=True)
     return res
 
 
@@ -2417,6 +2626,8 @@ def serve_phase(torch, state, spec):
     check(len(same) == SERVE_REQUESTS,
           "serve: the attn_block run's greedy tokens differ from the dense "
           "run's")
+    # phase 12g (ii) serves the merged model again, split over two ranks
+    records["merged_cpu"] = tree_to(merged, "cpu")
     del restored, merged, models, served
     torch.cuda.empty_cache()
     full = get_config("olmo-1b")
@@ -2855,7 +3066,11 @@ def launcher_phase(torch, main):
 # main path's cell, rounds and seeds, held against phase 5's run; then one
 # round at world size 1 over NCCL. A rank's process gets SHARD_TIMEOUT
 # seconds.
-BF16_ROUNDS = SIDE_ROUNDS
+BF16_ROUNDS = 3
+# phase 12a's second cell (fault C1's repair on the card): the bf16 cell
+# with attn_block ATTN_BLOCK (the flash kernels' bfloat16 forward and
+# backward), m BF16_ATTN_M, batch ATTN_BATCH x ATTN_SEQ, BF16_ROUNDS rounds
+BF16_ATTN_M = 4
 SHARD_MESH = (1, 2, 2, 1)
 SHARD_TIMEOUT = 600
 SHARD_CHILD = ("import sys\n"
@@ -2865,18 +3080,42 @@ SHARD_CHILD = ("import sys\n"
 
 
 def bf16_params_phase(torch, main):
-    """Phase 12 (a): olmo-1b at full width cut to 2 layers with
+    """Phase 12 (a): bf16_cell on the main path's cell (compared with phase
+    5's run), then on its attn_block cell (ATTN_BLOCK, m BF16_ATTN_M,
+    batch ATTN_BATCH x ATTN_SEQ: fault C1's repair, the flash kernels'
+    bfloat16 forward and backward, each backward launch counted: one a
+    layer an agent a local step). Returns (the two cells' launch counts,
+    summed, and {"main", "attn": records})."""
+    counts, rec = bf16_cell(torch, main)
+    attn, rec_attn = bf16_cell(torch, None, block=ATTN_BLOCK, m=BF16_ATTN_M,
+                               batch=ATTN_BATCH, seq=ATTN_SEQ)
+    want = BF16_ROUNDS * H * BF16_ATTN_M * 2  # rounds x steps x agents x layers
+    check(attn["flash_attention_bwd_bf16"] == want
+          and attn["flash_attention_fwd_bf16"] >= want,
+          f"bf16 params (attn_block {ATTN_BLOCK}): the flash kernels' "
+          f"bfloat16 entries launched {attn['flash_attention_fwd_bf16']} "
+          f"(forward) and {attn['flash_attention_bwd_bf16']} (backward) "
+          f"times, not {want}")
+    return ({k: counts[k] + attn[k] for k in counts},
+            {"main": rec, "attn": rec_attn, "attn_counts": attn})
+
+
+def bf16_cell(torch, main, block=0, m=M, batch=BATCH, seq=SEQ):
+    """Phase 12 (a), one cell: olmo-1b at full width cut to 2 layers with
     param_dtype bfloat16 (one bfloat16 group: parameters, gradients and
-    both AdamW moments in bfloat16), m 8, H 2, batch 4 x 512, BF16_ROUNDS
-    rounds from the main path's seeds: the bf16 mix (gossip_mix's bf16
-    entry, rows rounded once to bfloat16) and the reduce's bf16 entry (the
-    idle rounds' Xi, the evals' merged row). Gates: every row identical bit
-    for bit after the merge, consensus_distance of the merged panel 0.0,
-    the merged model in the group's dtype evaluated equal to the local
-    eval within 1e-6 relative, every loss finite. The float32 merged eval
-    (the reference's merged_panel_tree: float32 leaves) is printed beside
-    it with its gap: a float32 forward of the same numbers. Round times
-    and the peak are printed against phase 5's."""
+    both AdamW moments in bfloat16), m agents, H local steps, ``batch`` x
+    ``seq`` tokens, attn_block ``block``, BF16_ROUNDS rounds from the main
+    path's seeds: the bf16 mix (gossip_mix's bf16 entry, rows rounded once
+    to bfloat16) and the reduce's bf16 entry (the idle rounds' Xi, the
+    evals' merged row). Gates: every row identical bit for bit after the
+    merge, consensus_distance of the merged panel 0.0, the merged model in
+    the group's dtype evaluated equal to the local eval within 1e-6
+    relative, every loss finite. The float32 merged eval (the reference's
+    merged_panel_tree: float32 leaves) is printed beside it with its gap: a
+    float32 forward of the same numbers. Round times and the peak are
+    printed against phase 5's (``main``; None: not compared)."""
+    import dataclasses
+
     from repro_torch.configs import get_config
     from repro_torch.core import dsgd
     from repro_torch.core import panel as panel_mod
@@ -2887,25 +3126,28 @@ def bf16_params_phase(torch, main):
     dev = torch.device("cuda")
     cfg = get_config("olmo-1b").replace(num_layers=2,
                                         param_dtype="bfloat16")
+    cfg = cfg.replace(dist=dataclasses.replace(cfg.dist, attn_block=block))
+    tag = "bf16 params" + (f", attn_block {block}" if block else "")
     model = build_model(cfg)
     opt = make_optimizer("adamw", 3e-3, weight_decay=5e-4,
                          total_steps=BF16_ROUNDS * H)
-    per_round, eval_batch = segment_inputs(cfg, M, BF16_ROUNDS,
-                                           data_vocab=DATA_VOCAB)
+    per_round, eval_batch = segment_inputs(cfg, m, BF16_ROUNDS,
+                                           data_vocab=DATA_VOCAB,
+                                           batch=batch, seq=seq)
     eval_batch = to_device(eval_batch, dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     gen = torch.Generator(device=dev).manual_seed(0)
-    state, spec = dsgd.init_panel_state(model.init_params, opt, M, gen,
+    state, spec = dsgd.init_panel_state(model.init_params, opt, m, gen,
                                         device=dev)
-    check(spec.groups == (("bfloat16", main["width"]),),
-          f"bf16 params: groups {spec.groups}")
+    check(len(spec.groups) == 1 and spec.groups[0][0] == "bfloat16",
+          f"{tag}: groups {spec.groups}")
     seg = dsgd.make_panel_segment(model.loss_fn, opt, H, spec)
-    print(f"bf16 params (phase 12a, {card_line()}): {cfg.name} d_model "
+    print(f"{tag} (phase 12a, {card_line()}): {cfg.name} d_model "
           f"{cfg.d_model}, {cfg.num_layers} layers, param_dtype "
-          f"{cfg.param_dtype}, groups {spec.groups}, m {M}, H {H}, batch "
-          f"{BATCH}, seq {SEQ}", flush=True)
+          f"{cfg.param_dtype}, attn_block {block}, groups {spec.groups}, m "
+          f"{m}, H {H}, batch {batch}, seq {seq}", flush=True)
     losses, xis, times = [], [], []
     for t, (W, b, glob, live) in enumerate(per_round):
         t0 = time.perf_counter()
@@ -2914,13 +3156,13 @@ def bf16_params_phase(torch, main):
         times.append(time.perf_counter() - t0)
         losses.append(float(mets["loss"][0]))
         xis.append(float(mets["consensus"][0]))
-        print(f"round {t} (bf16 params): loss {losses[-1]!r} Xi "
+        print(f"round {t} ({tag}): loss {losses[-1]!r} Xi "
               f"{xis[-1]!r} {times[-1]:.3f}s; device memory peak so far "
               f"{torch.cuda.max_memory_allocated()} bytes", flush=True)
     pan = state["panel"]
     check(pan["bfloat16"].dtype == torch.bfloat16
           and state["opt"]["m"]["bfloat16"].dtype == torch.bfloat16,
-          "bf16 params: the panel or the moments left bfloat16")
+          f"{tag}: the panel or the moments left bfloat16")
     same = rows_identical(torch, pan)
     xi_rows = float(panel_mod.consensus_distance(pan))
     merged32 = eval_merged(model.loss_fn, pan, spec, eval_batch)
@@ -2931,8 +3173,8 @@ def bf16_params_phase(torch, main):
     torch.cuda.synchronize()
     counts = launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    print(f"kernels (bf16 params) {json.dumps(counts)}", flush=True)
-    print(f"eval (bf16 params): merged (bfloat16 leaves) {merged16!r} local "
+    print(f"kernels ({tag}) {json.dumps(counts)}", flush=True)
+    print(f"eval ({tag}): merged (bfloat16 leaves) {merged16!r} local "
           f"{local!r}; merged with float32 leaves (the reference's "
           f"merged_panel_tree) {merged32!r}, {abs(merged32 - local) / local!r}"
           f" relative from local: a float32 forward of the same values; rows "
@@ -2940,23 +3182,26 @@ def bf16_params_phase(torch, main):
           f"{xi_rows!r} (the segment's Xi {xis[-1]!r}: the rows rounded to "
           f"bfloat16 against the float32 folded mean, the reference's rule)",
           flush=True)
-    print(f"bf16 params against f32 (phase 5): rounds (s) {times} against "
-          f"{main['times'][:BF16_ROUNDS]}; peak {peak} against "
-          f"{main['peak']} bytes ({peak - main['peak']:+d})", flush=True)
-    check(same, "bf16 params: the rows differ after the final merge")
-    check(xi_rows == 0.0, f"bf16 params: Xi of the merged rows {xi_rows!r}")
+    if main is not None:
+        print(f"{tag} against f32 (phase 5): rounds (s) {times} against "
+              f"{main['times'][:BF16_ROUNDS]}; peak {peak} against "
+              f"{main['peak']} bytes ({peak - main['peak']:+d})", flush=True)
+    else:
+        print(f"{tag}: rounds (s) {times}; peak {peak} bytes", flush=True)
+    check(same, f"{tag}: the rows differ after the final merge")
+    check(xi_rows == 0.0, f"{tag}: Xi of the merged rows {xi_rows!r}")
     check(all(math.isfinite(x) for x in losses + [merged16, merged32,
                                                   local]),
-          "bf16 params: a loss is not finite")
+          f"{tag}: a loss is not finite")
     check(abs(local - merged16) <= 1e-6 * abs(merged16),
-          f"bf16 params: local eval {local!r} != merged eval {merged16!r}")
+          f"{tag}: local eval {local!r} != merged eval {merged16!r}")
     check(counts["gossip_mix_bf16"] > 0
           and counts["panel_mean_consensus_bf16"] > 0,
-          f"bf16 params: the bf16 kernel entries never launched: {counts}")
+          f"{tag}: the bf16 kernel entries never launched: {counts}")
     del state, seg, pan, row
     torch.cuda.empty_cache()
     return counts, {"times": times, "peak": peak, "losses": losses,
-                    "xis": xis}
+                    "xis": xis, "merged": merged16, "local": local}
 
 
 def _wrap64(v):
@@ -2987,6 +3232,8 @@ def sharded_child(kind):
         return options_child(os.environ["SHARD_TMP"])
     if kind.startswith("split_"):
         return split_child(kind)
+    if kind.startswith("serve_"):
+        return serve_child(kind)
     shape = SHARD_MESH if kind == "gloo4" else (1, 1, 1, 1)
     rounds = ROUNDS if kind == "gloo4" else 1
     mesh = mesh_mod.make_mesh(shape)
@@ -3194,7 +3441,7 @@ def sharded_phase(torch, main):
 # the remaining codecs, operators and storages, unfused. label: (wire,
 # merge operator, residency, fused, fault plan, telemetry); "native" is
 # the kernel-drawn int8_ef.
-OPT_ROUNDS = SIDE_ROUNDS
+OPT_ROUNDS = 3  # its fault plan's agent rejoins in the third round
 OPT_FAULTS = "2@1-2"
 OPT_RUNS = {"A": ("native", "var", "moments=int8", True, None, True),
             "B": ("topk", "ties", None, None, OPT_FAULTS, False)}
@@ -3968,8 +4215,8 @@ def ckpt_phase(torch, launcher):
 def reckon_child(out):
     """Phase 12e's host work (on the CPU, no card): launch/dryrun.py's
     reckon of phase 12b's run and of 12c's run (A), rank 0 of SHARD_MESH,
-    and of phase 12f's olmo cell on the split route, written to ``out`` as
-    JSON."""
+    of phase 12f's olmo cell on the split route and (reckon_serve) of
+    phase 12g's serve cells, written to ``out`` as JSON."""
     import torch
     torch.set_num_threads(2)
     from repro_torch.configs import get_config
@@ -4006,6 +4253,17 @@ def reckon_child(out):
     res["12f"] = {k: r[k] for k in ("state_bytes", "peak", "init", "run",
                                     "host_reads", "flops", "split")}
     res["12f"]["seconds"] = time.perf_counter() - t0
+    # phase 12g's serve cells, rank 0 of each mesh
+    for label, (_, shape, _, _, _, B, prompt, steps) in SERVE_CELLS.items():
+        t0 = time.perf_counter()
+        r = dryrun.reckon_serve(serve_cell_config(label), shape, batch=B,
+                                prompt=prompt, max_len=prompt + steps,
+                                decode_steps=1, route="cuda ipc")
+        res[f"12g {label}"] = {k: r[k] for k in (
+            "peak", "param_bytes", "cache_bytes", "flops")}
+        res[f"12g {label}"]["run"] = {k: r["run"][k]
+                                      for k in ("calls", "bytes")}
+        res[f"12g {label}"]["seconds"] = time.perf_counter() - t0
     with open(out, "w") as f:
         json.dump(res, f)
 
@@ -5076,11 +5334,12 @@ def arch_phase(torch):
 # over 2 fsdp ranks and its heads, d_ff and vocabulary over 2 model ranks;
 # "gemma" is gemma-2b reduced(d_model=512) (8 heads of 32 on one kv head)
 # with attn_block 512 on (1, 1, 1, 2): the flash kernels on each rank's 4
-# heads, the kv head whole. SPLIT_ROUNDS rounds (two gossip rounds, the
-# merge), each cell against the same cell on one process on the replica
-# route; SPLIT_RTOL the CPU tests' (tests/test_torch_tensor_parallel.py).
+# heads, the kv head whole. SPLIT_ROUNDS rounds (two before the merge: at
+# m 4 a gossip round and an idle one, whose Xi launches the reduce), each
+# cell against the same cell on one process on the replica route;
+# SPLIT_RTOL the CPU tests' (tests/test_torch_tensor_parallel.py).
 SPLIT_CELLS = {"olmo": ((1, 1, 2, 2), 4), "gemma": ((1, 1, 1, 2), 4)}
-SPLIT_ROUNDS = SIDE_ROUNDS
+SPLIT_ROUNDS = 3
 SPLIT_RTOL = {"losses": 5e-6, "grad_norms": 5e-5, "xis": 1e-6,
               "merged": 5e-5, "local": 5e-5}
 # one local step's gradients leaf by leaf (relative l2); the first round
@@ -5336,6 +5595,455 @@ def split_phase(torch, reckoned):
     return total, out
 
 
+# phase 12g: the serve shapes split over the serve mesh (ROADMAP A16d's
+# first item; models/tensor_parallel.py's serve route, the reference's
+# build_serve layout: weights and caches as param_spec / cache_spec resolve
+# under serve_rules, the batch's rows over the data line), ranks sharing
+# the card over CUDA IPC. SERVE_CELLS: label -> (arch, serve mesh (pod,
+# agent, fsdp = data, model), layers (None: all), param_dtype, attn_block,
+# rows, prompt tokens, decode steps): (i) "olmo" olmo-1b at full width and
+# depth in bfloat16 on (data 2, model 2): 2 rows a data rank; (iii)
+# "gemma_sw" gemma-2b-sw at full width and depth in bfloat16 on (model 2):
+# the flash bfloat16 forward at hd 256 on each rank's 4 heads, the one kv
+# head whole, a prompt past the 4096 window and decode steps through the
+# ring. Each rank draws the whole weights on the card from
+# SERVE_CELL_SEED, cuts its pieces and frees the rest before its peak is
+# read. Every step's logits (prefill, then the decode steps fed seeded
+# tokens) against one process's on the same weights and both against a
+# float32 forward of those bfloat16 weights: the split's relative l2 gap
+# at most SERVE_FACTOR times one process's (the model line sums two
+# bfloat16 partial products where one process rounds one sum), and the
+# split's gap to one process at most SERVE_DIRECT times one process's gap
+# to the float32 forward. A control (cell (i)): SERVE_FAULT_STEPS decode
+# steps from the same prefill with a fault planted on model rank 1
+# (SERVE_FAULTS: "partial", layer 0's MLP partial sum counted twice;
+# "cache", layer 0's cached k and v blocks rolled by one kv head); the
+# gates must reject both. Measured (H100, 700 W): sound, the largest
+# ratios 1.09 and 1.065, the split's gap to one process at most 1.107 and
+# 1.128 times one process's; the planted faults 27.3 ("partial") and 50.7
+# ("cache") on both gates
+SERVE_CELLS = {"olmo": ("olmo-1b", (1, 1, 2, 2), None, "bfloat16", 512, 4,
+                        4096, 64),
+               "gemma_sw": ("gemma-2b-sw", (1, 1, 1, 2), None, "bfloat16",
+                            512, 1, 5120, 16)}
+SERVE_CELL_SEED = 21
+SERVE_FACTOR = 1.3
+SERVE_DIRECT = 1.3
+SERVE_FAULT_STEPS = 4
+SERVE_FAULTS = ("partial", "cache")
+# (ii) the engine in float32: phase 9's merged model (olmo-1b, 2 layers)
+# on (data 1, model 2) serves phase 9's requests (SERVE_C slots, dense
+# prefill); every request's tokens equal one process's engine's, and a
+# probe (SERVE_PROBE_REQS requests, prefill and SERVE_PROBE decode steps
+# fed one process's tokens) within the serving tolerance
+SERVE_ENGINE_MESH = (1, 1, 1, 2)
+SERVE_PROBE_REQS = 2
+SERVE_ATOL, SERVE_RTOL = 2e-5, 1e-5
+
+
+def serve_cell_config(label):
+    """Phase 12g's model config of a cell of SERVE_CELLS."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    arch, _, layers, dtype, block = SERVE_CELLS[label][:5]
+    cfg = get_config(arch).replace(param_dtype=dtype)
+    if layers:
+        cfg = cfg.replace(num_layers=layers)
+    return cfg.replace(dist=dataclasses.replace(cfg.dist, attn_block=block))
+
+
+def plant_fault(torch, name, mesh, caches):
+    """Phase 12g's control: fault ``name`` of SERVE_FAULTS planted on model
+    rank 1 of a split model on ``mesh`` ("partial": a Split whose second
+    ``reduce_out`` of each forward, layer 0's MLP, sums this rank's
+    partial twice; "cache": layer 0's cached k and v blocks rolled by one
+    kv head, in place). Returns (the Split, a function to call before
+    each decode step)."""
+    from repro_torch.models import tensor_parallel as tp
+    calls = [0]
+
+    class Planted(tp.Split):
+        def reduce_out(self, y):
+            calls[0] += 1
+            if name == "partial" and calls[0] == 2 and self.model_rank == 1:
+                y = 2 * y
+            return super().reduce_out(y)
+
+    split = Planted(mesh)
+    if name == "cache" and split.model_rank == 1:
+        mixer = next(iter(caches.values()))["p0"]["mixer"]
+        for k in ("k", "v"):
+            mixer[k][0].copy_(torch.roll(mixer[k][0], 1, dims=2))
+
+    def step():
+        calls[0] = 0
+    return split, step
+
+
+def serve_cell_run(torch, label, mesh=None, float32=False, faults=()):
+    """Cell ``label`` of SERVE_CELLS: the whole weights drawn on the card
+    from SERVE_CELL_SEED; on ``mesh`` the rank's pieces cut from them
+    (the rest freed), its data rows, the split model; else one process's
+    whole model (``float32``: those bfloat16 weights widened, a float32
+    forward). A prefill of the seeded prompts, then the decode steps fed
+    seeded tokens, each row at its own position; then, for each fault of
+    ``faults`` (on ``mesh``), SERVE_FAULT_STEPS decode steps from the
+    prefill's caches (kept on the host) with it planted (plant_fault).
+    Returns {"logits" (steps + 1, rows, V) float32 on the host, "faults"
+    {name: (SERVE_FAULT_STEPS, rows, V)}, "rows", "peak" (after the pieces
+    are cut, before the faults), "counts", "comm", "prefill_s",
+    "decode_s"}."""
+    import numpy as np
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import build_model
+    from repro_torch.models import tensor_parallel as tp
+    from repro_torch.utils.tree import tree_map
+    _, _, _, _, _, B, prompt, steps = SERVE_CELLS[label]
+    cfg = serve_cell_config(label)
+    dev = mesh.device if mesh is not None else torch.device("cuda")
+    whole = build_model(cfg)
+    params = whole.init_params(
+        torch.Generator(device=dev).manual_seed(SERVE_CELL_SEED), dev)
+    rng = np.random.default_rng(SERVE_CELL_SEED)
+    tokens = rng.integers(0, cfg.vocab_size, (B, prompt)).astype(np.int32)
+    fed = rng.integers(0, cfg.vocab_size, (steps, B, 1)).astype(np.int32)
+    rows = slice(0, B)
+    if mesh is not None:
+        split = tp.Split(mesh)
+        model = build_model(cfg, split=split)
+        params = tp.serve_pieces(params, mesh,
+                                 tp.serve_shardings(whole, mesh))
+        rows = split.data_rows(B)
+    elif float32:
+        model = build_model(cfg.replace(param_dtype="float32"))
+        params = tree_map(lambda x: x.float(), params)
+    else:
+        model = whole
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    if mesh is not None:
+        mesh.stats.update(dict.fromkeys(mesh.stats, 0))
+    logits = []
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        lg, caches = model.prefill(
+            params, {"tokens": torch.from_numpy(tokens[rows]).to(dev)},
+            max_len=prompt + steps)
+        logits.append(lg.float().cpu())
+        t1 = time.perf_counter()
+        kept = tree_map(lambda x: x.cpu(), caches) if faults else None
+        t1d = time.perf_counter()
+
+        def decode(caches, n, before=lambda: None):
+            out = []
+            for i in range(n):
+                pos = torch.full((rows.stop - rows.start,), prompt + i,
+                                 dtype=torch.int32, device=dev)
+                before()
+                lg, caches = model.decode_step(
+                    params, caches, torch.from_numpy(fed[i][rows]).to(dev),
+                    pos)
+                out.append(lg.float().cpu())
+            return out, caches
+
+        got, caches = decode(caches, steps)
+        logits += got
+        torch.cuda.synchronize(dev)
+        t2 = time.perf_counter()
+        rec = {"logits": torch.stack(logits), "rows": [rows.start, rows.stop],
+               "peak": torch.cuda.max_memory_allocated(dev),
+               "counts": launch_counts(), "prefill_s": t1 - t0,
+               "decode_s": t2 - t1d, "faults": {}}
+        if mesh is not None:
+            rec.update(comm=dict(mesh.stats), transport=mesh.transport,
+                       rank=mesh.rank, coord=dict(mesh.coord))
+        for name in faults:
+            del caches
+            caches = tree_map(lambda x: x.to(dev), kept)
+            split, step = plant_fault(torch, name, mesh, caches)
+            model = build_model(cfg, split=split)
+            got, caches = decode(caches, SERVE_FAULT_STEPS, step)
+            rec["faults"][name] = torch.stack(got)
+    del params, caches, kept
+    torch.cuda.empty_cache()
+    return rec
+
+
+def serve_engine_run(torch, merged, mesh=None, fed=None):
+    """Phase 12g (ii): phase 9's merged olmo-1b (float32, 2 layers, dense
+    prefill) served by the engine (SERVE_C slots, phase 9's requests), on
+    ``mesh`` split (the rank's pieces), else on one process; then the probe:
+    the first SERVE_PROBE_REQS requests' prefill and SERVE_PROBE decode
+    steps fed ``fed`` (one process's served tokens; None: its own).
+    Returns {"tokens": {rid: list}, "probe" (requests, steps + 1, V)
+    float32 on the host, "seconds", "counts", "comm"}."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import build_model
+    from repro_torch.models import tensor_parallel as tp
+    from repro_torch.serving import ServingEngine
+    from repro_torch.utils.tree import tree_map
+    cfg = get_config("olmo-1b").replace(num_layers=2)
+    dev = mesh.device if mesh is not None else torch.device("cuda")
+    params = tree_map(lambda x: x.to(dev), merged)
+    model = build_model(cfg)
+    if mesh is not None:
+        params = tp.serve_pieces(params, mesh,
+                                 tp.serve_shardings(model, mesh))
+        model = build_model(cfg, split=tp.Split(mesh))
+        mesh.stats.update(dict.fromkeys(mesh.stats, 0))
+    max_len = max(SERVE_PROMPTS) + SERVE_NEW
+    reqs = serve_requests(cfg, SERVE_REQUESTS)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    eng = ServingEngine(model, params, max_concurrency=SERVE_C,
+                        max_len=max_len)
+    out = eng.serve(reqs)
+    torch.cuda.synchronize(dev)
+    rec = {"tokens": {int(k): [int(t) for t in v] for k, v in out.items()},
+           "seconds": time.perf_counter() - t0, "counts": launch_counts()}
+    del eng
+    fed = fed or rec["tokens"]
+    probe = []
+    with torch.no_grad():
+        for r in reqs[:SERVE_PROBE_REQS]:
+            lg, caches = model.prefill(
+                params, {"tokens": torch.from_numpy(r.tokens[None]).to(dev)},
+                max_len=max_len)
+            got = [lg.cpu()]
+            for i in range(SERVE_PROBE):
+                tok = torch.tensor([[fed[r.rid][i]]], dtype=torch.int32,
+                                   device=dev)
+                lg, caches = model.decode_step(params, caches, tok,
+                                               len(r.tokens) + i)
+                got.append(lg.cpu())
+            probe.append(torch.cat(got))
+    rec["probe"] = torch.stack(probe)
+    if mesh is not None:
+        rec.update(comm=dict(mesh.stats), transport=mesh.transport,
+                   rank=mesh.rank)
+    del params
+    torch.cuda.empty_cache()
+    return rec
+
+
+def serve_child(kind):
+    """One rank of phase 12g (``serve_olmo``: cell (i) on its mesh;
+    ``serve_pair``: (ii) and (iii) on (data 1, model 2)); its logits and
+    probes go to files in SHARD_TMP, the rest in one ``SHARD {json}``
+    line."""
+    import torch
+    import torch.distributed as dist
+
+    import repro_torch  # noqa: F401  (sets TF32 off)
+    from repro_torch.launch import mesh as mesh_mod
+    tmp = os.environ["SHARD_TMP"]
+    labels = ["olmo"] if kind == "serve_olmo" else ["engine", "gemma_sw"]
+    shape = SERVE_CELLS["olmo"][1] if kind == "serve_olmo" \
+        else SERVE_ENGINE_MESH
+    mesh = mesh_mod.make_mesh(shape)
+    out = {}
+    for label in labels:
+        if label == "engine":
+            merged = torch.load(os.path.join(tmp, "merged.pt"),
+                                weights_only=True)
+            fed = json.load(open(os.path.join(tmp, "fed.json")))
+            rec = serve_engine_run(torch, merged, mesh,
+                                   {int(k): v for k, v in fed.items()})
+            torch.save(rec.pop("probe"), os.path.join(
+                tmp, f"engine_probe_{mesh.rank}.pt"))
+            del merged
+        else:
+            rec = serve_cell_run(torch, label, mesh, faults=(
+                SERVE_FAULTS if label == "olmo" else ()))
+            torch.save(rec.pop("logits"), os.path.join(
+                tmp, f"{label}_logits_{mesh.rank}.pt"))
+            torch.save(rec.pop("faults"), os.path.join(
+                tmp, f"{label}_faults_{mesh.rank}.pt"))
+        out[label] = rec
+    print("SHARD " + json.dumps(out), flush=True)
+    dist.destroy_process_group()
+
+
+def _rel_gap(torch, a, b):
+    return float(torch.linalg.vector_norm((a.double() - b.double()))
+                 / torch.linalg.vector_norm(b.double()))
+
+
+def split_serve_phase(torch, merged, reckoned):
+    """Phase 12g: (i) and (iii) of SERVE_CELLS and (ii) the engine, each
+    split over ranks sharing the card (CUDA IPC) against one process run
+    first here. Gates: (i), (iii) every step's logits finite, the model
+    ranks of a data rank bit for bit, the split's relative l2 gap to the
+    float32 forward at most SERVE_FACTOR times one process's, its gap to
+    one process at most SERVE_DIRECT times one process's gap to the
+    float32 forward, each of (i)'s planted faults failing one of the
+    two; each rank's peak within DRY_PEAK_SHARE of launch/dryrun.py:reckon_serve's for its
+    layout (``reckoned``: {label: the reckoning}, traced on the host in
+    12e's child); the flash forward's bfloat16 entry launched once a
+    layer; (ii)
+    every request's tokens equal one process's engine's, the probe's
+    logits within SERVE_ATOL + SERVE_RTOL. Returns ({label: launch counts
+    summed over the ranks}, records)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.utils.tree import tree_map
+    tmp = tempfile.mkdtemp(prefix=".serve_ckpt_12g_", dir=ROOT)
+    counts, out = {}, {}
+    try:
+        for label in ("olmo", "gemma_sw"):
+            t0 = time.perf_counter()
+            one = serve_cell_run(torch, label)
+            f32 = serve_cell_run(torch, label, float32=True)
+            out[label] = {"one": {k: v for k, v in one.items()
+                                  if k != "logits"},
+                          "one_s": time.perf_counter() - t0,
+                          "reckoned": reckoned[label]}
+            out[label]["logits"] = (one["logits"], f32["logits"])
+            del one, f32
+            torch.cuda.empty_cache()
+        fed_one = serve_engine_run(torch, merged)
+        with open(os.path.join(tmp, "fed.json"), "w") as f:
+            json.dump(fed_one["tokens"], f)
+        torch.save(tree_map(lambda x: x.contiguous(), merged),
+                   os.path.join(tmp, "merged.pt"))
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        recs = {"olmo": _run_ranks("serve_olmo", 4, tmp)}
+        pair = _run_ranks("serve_pair", 2, tmp)
+        wall = time.perf_counter() - t0
+        recs["engine"] = [r["engine"] for r in pair]
+        recs["gemma_sw"] = [r["gemma_sw"] for r in pair]
+        recs["olmo"] = [r["olmo"] for r in recs["olmo"]]
+        for label in ("olmo", "gemma_sw"):
+            _serve_cell_gates(torch, label, recs[label], out[label], tmp)
+            counts[label] = {k: sum(r["counts"][k] for r in recs[label])
+                             for k in recs[label][0]["counts"]}
+        _serve_engine_gates(torch, fed_one, recs["engine"], tmp)
+        counts["engine"] = {k: sum(r["counts"][k] for r in recs["engine"])
+                            for k in recs["engine"][0]["counts"]}
+        out["engine"] = {"one_s": fed_one["seconds"],
+                         "split_s": [r["seconds"] for r in recs["engine"]]}
+        out["wall"] = wall
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return counts, out
+
+
+def _serve_cell_gates(torch, label, recs, one, tmp):
+    """Phase 12g (i) / (iii)'s gates (split_serve_phase)."""
+    arch, shape, _, _, _, B, prompt, steps = SERVE_CELLS[label]
+    cfg = serve_cell_config(label)
+    one_lg, f32_lg = one.pop("logits")
+    got = torch.zeros_like(one_lg)
+    by_rows = {}
+    for r in recs:
+        lg = torch.load(os.path.join(tmp, f"{label}_logits_{r['rank']}.pt"))
+        lo, hi = r["rows"]
+        check(bool(torch.isfinite(lg).all()),
+              f"phase 12g {label}: rank {r['rank']}'s logits not finite")
+        first = by_rows.setdefault((lo, hi), lg)
+        check(torch.equal(first, lg),
+              f"phase 12g {label}: the model ranks of rows {lo}-{hi} "
+              f"disagree")
+        got[:, lo:hi] = lg
+        check(r["transport"] == "cuda ipc",
+              f"phase 12g {label}: rank {r['rank']} over {r['transport']}")
+    gaps = [(_rel_gap(torch, got[t], f32_lg[t]),
+             _rel_gap(torch, one_lg[t], f32_lg[t]),
+             _rel_gap(torch, got[t], one_lg[t])) for t in range(steps + 1)]
+    ratio = max(s_ / o_ for s_, o_, _ in gaps)
+    direct = max(d_ / o_ for _, o_, d_ in gaps)
+    planted = {}
+    for name in (SERVE_FAULTS if label == "olmo" else ()):
+        bad = torch.zeros((SERVE_FAULT_STEPS,) + one_lg.shape[1:])
+        for r in recs:
+            lo, hi = r["rows"]
+            bad[:, lo:hi] = torch.load(os.path.join(
+                tmp, f"{label}_faults_{r['rank']}.pt"))[name]
+        fg = [(_rel_gap(torch, bad[i], f32_lg[i + 1]), gaps[i + 1][1],
+               _rel_gap(torch, bad[i], one_lg[i + 1]))
+              for i in range(SERVE_FAULT_STEPS)]
+        planted[name] = (max(s_ / o_ for s_, o_, _ in fg),
+                         max(d_ / o_ for _, o_, d_ in fg))
+    reck = one["reckoned"]
+    peaks = [r["peak"] for r in recs]
+    pgap = [(reck["peak"] - p) / p for p in peaks]
+    flash = [r["counts"]["flash_attention_fwd_bf16"] for r in recs]
+    print(f"serve split (phase 12g {label}, {card_line()}): {arch}, "
+          f"{cfg.num_layers} layers, {cfg.param_dtype}, attn_block "
+          f"{cfg.dist.attn_block}, mesh {shape}, {B} rows x {prompt} prompt "
+          f"tokens, {steps} decode steps; prefill s a rank "
+          f"{[round(r['prefill_s'], 3) for r in recs]} (one process "
+          f"{one['one']['prefill_s']:.3f}), decode s "
+          f"{[round(r['decode_s'], 3) for r in recs]} (one process "
+          f"{one['one']['decode_s']:.3f}); relative l2 gap to the float32 "
+          f"forward, split / one process, prefill {gaps[0][0]:.4g} / "
+          f"{gaps[0][1]:.4g}, the decode steps' largest "
+          f"{max(g[0] for g in gaps[1:]):.4g} / "
+          f"{max(g[1] for g in gaps[1:]):.4g}; the largest ratio {ratio:.4g}"
+          f" (gate {SERVE_FACTOR}); split against one process at most "
+          f"{max(g[2] for g in gaps):.4g}, at most {direct:.4g} times one "
+          f"process's gap (gate {SERVE_DIRECT}); planted faults (the "
+          f"largest ratio, the largest split against one process as a "
+          f"share of one process's gap) "
+          f"{ {k: [round(x, 4) for x in v] for k, v in planted.items()} }; "
+          f"peak a rank {peaks} against the "
+          f"reckoned {reck['peak']} ({[round(g, 4) for g in pgap]}; one "
+          f"process {one['one']['peak']}); params {reck['param_bytes']} and "
+          f"cache {reck['cache_bytes']} B a rank reckoned; collectives a "
+          f"rank {[r['comm'] for r in recs]}; flash forward bf16 launches "
+          f"a rank {flash}", flush=True)
+    check(ratio <= SERVE_FACTOR,
+          f"phase 12g {label}: the split's gap to the float32 forward "
+          f"{[g[0] for g in gaps]} against one process's "
+          f"{[g[1] for g in gaps]} (factor {SERVE_FACTOR})")
+    check(direct <= SERVE_DIRECT,
+          f"phase 12g {label}: the split's gap to one process "
+          f"{[g[2] for g in gaps]} against one process's to the float32 "
+          f"forward {[g[1] for g in gaps]} (factor {SERVE_DIRECT})")
+    for name, (r_, d_) in planted.items():
+        check(r_ > SERVE_FACTOR or d_ > SERVE_DIRECT,
+              f"phase 12g {label}: the gates pass the planted fault {name}"
+              f" ({r_}, {d_})")
+    check(all(abs(g) <= DRY_PEAK_SHARE for g in pgap),
+          f"phase 12g {label}: peak {reck['peak']} reckoned against "
+          f"{peaks}")
+    check(all(n == cfg.num_layers for n in flash),
+          f"phase 12g {label}: flash forward bf16 launches {flash}, not "
+          f"one a layer")
+    one.update(gaps=gaps, ratio=ratio, direct=direct, planted=planted,
+               peaks=peaks, peak_gaps=pgap, recs=recs)
+
+
+def _serve_engine_gates(torch, one, recs, tmp):
+    """Phase 12g (ii)'s gates (split_serve_phase)."""
+    for r in recs:
+        probe = torch.load(os.path.join(tmp, f"engine_probe_{r['rank']}.pt"))
+        diff = float(torch.max(torch.abs(probe - one["probe"])))
+        # (a rank's record came through JSON: its request ids are strings)
+        same = [rid for rid, v in one["tokens"].items()
+                if r["tokens"][str(rid)] == v]
+        print(f"serve split (phase 12g engine, {card_line()}): rank "
+              f"{r['rank']} over {r['transport']}: {len(same)} of "
+              f"{len(one['tokens'])} requests' tokens equal one process's "
+              f"engine's; probe max |logit difference| {diff!r}; "
+              f"{r['seconds']:.3f}s (one process {one['seconds']:.3f}s); "
+              f"collectives {r['comm']}", flush=True)
+        check(len(same) == len(one["tokens"]),
+              f"phase 12g engine: rank {r['rank']}'s tokens differ from "
+              f"one process's")
+        check(torch.allclose(probe, one["probe"], atol=SERVE_ATOL,
+                             rtol=SERVE_RTOL),
+              f"phase 12g engine: rank {r['rank']}'s probe logits "
+              f"{diff} from one process's")
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -5382,6 +6090,8 @@ def main():
         lap(f"phase 3 {checks.__name__}")
     measured.update(flash_checks(torch))
     lap("phase 3 flash_checks")
+    measured.update(flash16_checks(torch))
+    lap("phase 3 flash16_checks")
     small_parity(torch)
     lap("phase 4")
     counts, records = {}, {}
@@ -5393,9 +6103,8 @@ def main():
             counts[path], records[path] = drive_path(torch, path)
         lap(f"path {path}")
         if path == "f32":
-            counts["serve"], _ = serve_phase(torch,
-                                             records[path].pop("state"),
-                                             records[path].pop("spec"))
+            counts["serve"], serve_rec = serve_phase(
+                torch, records[path].pop("state"), records[path].pop("spec"))
             lap("phase 9")
         check(records[path]["width"] == D,
               f"{path} path D {records[path]['width']} != checked D {D}")
@@ -5428,6 +6137,10 @@ def main():
         lap("phase 12e")
         counts["split"], _ = split_phase(torch, reckoned["12f"])
         lap("phase 12f")
+        counts["split serve"], _ = split_serve_phase(
+            torch, serve_rec.pop("merged_cpu"),
+            {label: reckoned[f"12g {label}"] for label in SERVE_CELLS})
+        lap("phase 12g")
     finally:
         if reckoning[0].poll() is None:
             reckoning[0].kill()
@@ -5489,7 +6202,18 @@ def main():
                                ("f16", "gossip_mix_f16", counts["f32"])],
                 "panel_mean_consensus": [
                     ("bf16", "panel_mean_consensus_bf16", counts["bf16"]),
-                    ("f16", "panel_mean_consensus_f16", counts["f32"])]}
+                    ("f16", "panel_mean_consensus_f16", counts["f32"])],
+                # the 16-bit flash libraries: bf16's launches in phase
+                # 12a's attn_block cell (and 12g, launches_phase12), f16's
+                # on the main path's (no path runs a float16 group)
+                "flash_attention_fwd": [
+                    ("bf16", "flash_attention_fwd_bf16", p12),
+                    ("f16", "flash_attention_fwd_f16",
+                     counts[f"attn_block {ATTN_BLOCK}"])],
+                "flash_attention_bwd": [
+                    ("bf16", "flash_attention_bwd_bf16", p12),
+                    ("f16", "flash_attention_bwd_f16",
+                     counts[f"attn_block {ATTN_BLOCK}"])]}
     kernels = []
     for name, (src, replaces, run) in kernels_of.items():
         r = measured[name]
@@ -5511,6 +6235,10 @@ def main():
             row[key] = {k: measured[sub][k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                 "max_abs_err")}
+            for extra in ("hd256", "worst_ratio", "tf32_ops", "route_ms",
+                          "kernels_ms"):
+                if extra in measured[sub]:
+                    row[key][extra] = measured[sub][extra]
             if launches is not None:
                 row[key]["launches"] = launches[sub]
                 row[key]["launches_phase12"] = {
@@ -5518,12 +6246,16 @@ def main():
                     "sharded": counts["sharded"][sub],
                     "sharded_options": counts["sharded options"][sub],
                     "sharded_checkpoint": counts["sharded checkpoint"][sub],
-                    "split": counts["split"][sub]}
+                    "split": counts["split"][sub],
+                    "split_serve": {c: n[sub] for c, n in
+                                    counts["split serve"].items()}}
         row["launches_phase12"] = {
             "bf16_params": p12[name], "sharded": counts["sharded"][name],
             "sharded_options": counts["sharded options"][name],
             "sharded_checkpoint": counts["sharded checkpoint"][name],
-            "split": counts["split"][name]}
+            "split": counts["split"][name],
+            "split_serve": {c: n[name] for c, n in
+                            counts["split serve"].items()}}
         kernels.append(row)
     print(f"total: {time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -15,7 +15,15 @@ FP32_FLOPS = 67e12
 # TF32 on the tensor cores, dense, FLOP/s (data sheet, H100 SXM TF32 Tensor
 # Core: 989 TFLOPS with sparsity, half of it dense); the flash attention
 # kernels' split-TF32 route runs three TF32 products for each float32 one
-SPLIT_TF32_FLOPS = 495e12 / 3
+# (their 16-bit inputs, exact in TF32, one or two: chip_smoke.py's
+# flash16_times counts them)
+TF32_FLOPS = 495e12
+SPLIT_TF32_FLOPS = TF32_FLOPS / 3
+# bfloat16 on the tensor cores, dense, FLOP/s (data sheet, H100 SXM BF16
+# Tensor Core: 1,979 TFLOPS with sparsity, half of it dense; FP16 the
+# same): the serve route's bfloat16 matmuls (launch/dryrun.py's serve
+# records) and the 16-bit flash kernels' bound (chip_smoke.py)
+BF16_FLOPS = 989e12
 # NVLink 4 between the cards of one node, bytes/s a direction (data sheet:
 # 900 GB/s of NVLink bandwidth a card, both directions together)
 NVLINK_BYTES_PER_S = 450e9

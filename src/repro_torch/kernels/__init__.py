@@ -9,7 +9,8 @@ and unpack) and the residency storages' grouped int8 quantize and
 dequantize; ``merge_ops`` the merge operators' column reductions (the
 weighted and the TIES column merge); ``opt_fused`` the fused AdamW step on
 grouped-int8 moments; ``flash_attention`` the blockwise attention
-route's forward and backward kernels; ``ref`` holds the plain versions;
+route's forward and backward kernels (float32, bfloat16 and float16
+libraries); ``ref`` holds the plain versions;
 ``build`` compiles the CUDA sources under ``csrc/`` at first use.
 """
 from repro_torch.kernels import flash_attention as _flash_attention
@@ -41,28 +42,29 @@ KERNELS = {"gossip_mix": _gossip_mix.gossip_mix,
 # the CUDA sources (csrc/<name>.cu) the kernels are built from
 SOURCES = ("gossip_mix", "panel_reduce", "wire_quant", "wire_native",
            "wire_int4", "merge_ops", "wire_int8g", "opt_fused",
-           "flash_attention")
+           "flash_attention", "flash_attention_bf16", "flash_attention_f16")
+# kernels whose 16-bit entries keep counts of their own (launches_bf16,
+# launches_f16; their ``launches`` counts every type)
+_NARROW = (_gossip_mix.gossip_mix, _panel_reduce.panel_mean_consensus,
+           _flash_attention.flash_attention_fwd,
+           _flash_attention.flash_attention_bwd)
 
 
 def reset_launch_counts():
     for fn in KERNELS.values():
         fn.launches = 0
-    _gossip_mix.gossip_mix.launches_bf16 = 0
-    _gossip_mix.gossip_mix.launches_f16 = 0
-    _panel_reduce.panel_mean_consensus.launches_bf16 = 0
-    _panel_reduce.panel_mean_consensus.launches_f16 = 0
+    for fn in _NARROW:
+        fn.launches_bf16 = fn.launches_f16 = 0
 
 
 def launch_counts():
-    """{kernel: launches}, with ``gossip_mix_bf16`` / ``gossip_mix_f16``
-    the bf16 / f16 variants' share of ``gossip_mix`` and
-    ``panel_mean_consensus_bf16`` / ``panel_mean_consensus_f16`` theirs of
-    ``panel_mean_consensus``."""
+    """{kernel: launches}, with ``<kernel>_bf16`` / ``<kernel>_f16`` the
+    bf16 / f16 variants' share of ``<kernel>`` for ``gossip_mix``,
+    ``panel_mean_consensus``, ``flash_attention_fwd`` and
+    ``flash_attention_bwd``."""
     counts = {name: fn.launches for name, fn in KERNELS.items()}
-    counts["gossip_mix_bf16"] = _gossip_mix.gossip_mix.launches_bf16
-    counts["gossip_mix_f16"] = _gossip_mix.gossip_mix.launches_f16
-    counts["panel_mean_consensus_bf16"] = (
-        _panel_reduce.panel_mean_consensus.launches_bf16)
-    counts["panel_mean_consensus_f16"] = (
-        _panel_reduce.panel_mean_consensus.launches_f16)
+    for name, fn in KERNELS.items():
+        if fn in _NARROW:
+            counts[f"{name}_bf16"] = fn.launches_bf16
+            counts[f"{name}_f16"] = fn.launches_f16
     return counts

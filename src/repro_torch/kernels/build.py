@@ -12,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -42,8 +43,18 @@ def nvcc() -> str:
                        "the CUDA kernels are built from source at first use")
 
 
+def _source_bytes(path: Path) -> bytes:
+    """The source's bytes and those of the files of ``csrc/`` it includes
+    by ``#include "..."`` (a library built from a source that includes
+    another is rebuilt when either changes)."""
+    src = path.read_bytes()
+    for inc in re.findall(rb'^#include "([^"]+)"', src, re.M):
+        src += _source_bytes(path.parent / inc.decode())
+    return src
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = _source_bytes(CSRC / f"{name}.cu")
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

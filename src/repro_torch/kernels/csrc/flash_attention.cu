@@ -26,7 +26,8 @@
 // is outside the contract (the plain version averages the masked keys' v
 // there, the kernel writes 0).
 //
-// Backward (float32 only): delta_i = sum_c dO_ic O_ic (delta_kernel), then
+// Backward (float32, bfloat16 and float16 inputs alike; every sum in
+// float32): delta_i = sum_c dO_ic O_ic (delta_kernel), then
 //   P_ij = exp(s_ij - lse_i) (0 where masked), dP = dO V^T,
 //   dS = P o (dP - delta), dV = P^T dO, dK = scale dS^T Q, dQ = scale dS K.
 // dkdv_kernel owns (b, kv head, 64 keys) and loops over the G query heads of
@@ -72,9 +73,15 @@
 //   within 0.15 of the tolerances of float64, as the plain float32 version
 //   does (H100 80GB HBM3 at 700 W).
 // Three tensor-core products a float32 product: 3 x 4 hd a pair at 495
-// TFLOP/s (TF32, dense) is the route's bound. bfloat16 inputs are exact in
-// TF32, so the bfloat16 forward takes one product a pair (p rounded to
-// bfloat16 first, as the plain version does).
+// TFLOP/s (TF32, dense) is the route's bound. bfloat16 and float16 inputs
+// are exact in TF32, so their forward takes one product a pair (p rounded
+// to v's type first, as the plain version does: 2 x 2 hd TF32 operations a
+// pair), and their backward one product for S and dP (two inputs) and two
+// for dV, dK and dQ (a computed float32 P or dS split, times an input):
+// 2 hd x (1 + 1 + 2 + 2 + 2) = 16 hd TF32 operations a pair at the bound,
+// 20 hd as the kernels run (S and dP twice, in dK/dV and in dQ). Their
+// P and dS stay float32 (the plain version rounds every einsum to the
+// inputs' type); each output is rounded once to it.
 //
 // Why mma.sync and not wgmma: wgmma takes tf32 operands K-major from shared
 // memory only (its transpose bits are for 16-bit types), so split TF32
@@ -110,9 +117,11 @@
 // kernel of the first design took 174 KB, one block). ptxas gives the
 // three 254-255 registers and no spills (the cap of two 128-thread blocks
 // an SM). Head dim 96 takes the same kernels: its tiles take 76,800 bytes
-// (two blocks an SM). At hd 256 a warp's accumulators of hd floats a
-// thread (two in dK/dV) would not fit the registers, so all three kernels
-// run warp pairs (fwd_pair_kernel, dkdv_pair_kernel, dq_pair_kernel):
+// (two blocks an SM). 16-bit inputs take dkdv_pair_kernel at hd 128 too
+// (kPairDkdv: the 4-warp kernel spilled there). At hd 256 a warp's
+// accumulators of hd floats a thread (two in dK/dV) would not fit the
+// registers, so all three kernels run warp pairs (fwd_pair_kernel,
+// dkdv_pair_kernel, dq_pair_kernel):
 //   8-warp blocks; warps w and w + 4 own the same 16 rows, w the output
 //   columns 0-127, w + 4 the columns 128-255, so each thread's
 //   accumulators are hd 128's (two of 64 floats in dK/dV, one in the
@@ -155,7 +164,7 @@
 //   gemma's shape, 3.88 waves of 132; 640 at recurrentgemma's), the
 //   longest query tiles first.
 // The ring is filled by 16-byte cp.async.cg, zero-filled past S
-// (src-size 0); bfloat16 tiles are widened to float32 by plain 16-byte
+// (src-size 0); 16-bit tiles are widened to float32 by plain 16-byte
 // loads. Blocks run the longest tiles first: the forward and dQ take the
 // query tiles from the last (the most keys under a causal mask), dK/dV the
 // key tiles from the first. Each block builds, from the positions, bitmaps
@@ -167,8 +176,9 @@
 // rows the kernels read start on 16 bytes (the wrapper copies a tensor that
 // does not), and the outputs are written as float pairs. Positions int32
 // (B, Sq) and (B, Sk); lse and delta float32 (B, H, Sq). Forward inputs
-// float32 or bfloat16 (out in the input type, accumulated in float32);
-// backward float32.
+// float32, bfloat16 or float16 (out in the input type, accumulated in
+// float32); backward alike (dO in, dQ, dK, dV out in the input type). One
+// library an element type (FLASH_ELEMENT, below).
 //
 // C interface for ctypes. The kernels allocate nothing and launch on the
 // stream they are given; each entry point returns cudaGetLastError() after
@@ -176,6 +186,7 @@
 
 #include <climits>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -210,12 +221,24 @@ __device__ __forceinline__ float round_as(float x, const float*) { return x; }
 __device__ __forceinline__ float round_as(float x, const __nv_bfloat16*) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
+__device__ __forceinline__ float round_as(float x, const __half*) {
+  return __half2float(__float2half_rn(x));
+}
+// two consecutive outputs, each rounded once to the output's type
 __device__ __forceinline__ void store2(float* p, float x, float y) {
   *reinterpret_cast<float2*>(p) = make_float2(x, y);
 }
 __device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
 }
+__device__ __forceinline__ void store2(__half* p, float x, float y) {
+  *reinterpret_cast<__half2*>(p) = __floats2half2_rn(x, y);
+}
+__device__ __forceinline__ float as_float(float x) { return x; }
+__device__ __forceinline__ float as_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ float as_float(__half x) { return __half2float(x); }
 
 __device__ __forceinline__ bool visible(int qp, int kp, int causal,
                                         int window) {
@@ -233,7 +256,8 @@ __device__ __forceinline__ uint32_t tf32(float x) {
 }
 
 // x as an operand: hi = tf32(x), lo = tf32(x - hi) when SPLIT (float32);
-// else x itself, a bfloat16 value (exact in TF32), and no lo
+// else x itself, a bfloat16 or float16 value (exact in TF32: 8 and 11
+// significant bits of TF32's 11), and no lo
 template <bool SPLIT>
 __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
   if constexpr (SPLIT) {
@@ -253,24 +277,28 @@ __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// d += a b: lo_a hi_b, hi_a lo_b, hi_a hi_b when SPLIT (the small terms
-// first), else hi_a hi_b
-template <bool SPLIT>
+// where a product's operands come from: float32 A and B both split in
+// registers (kSplit: three TF32 products); float32 A split in registers and
+// B's hi and lo tiles split once per block in shared memory (kPreB: three);
+// a computed float32 A (P, dS) split in registers and a 16-bit B, exact in
+// TF32 (kSplitA: two); 16-bit values on both sides, or P rounded to v's
+// 16-bit type, exact in TF32 (kExact: one)
+enum Mode { kSplit, kPreB, kSplitA, kExact };
+template <Mode M>
+constexpr bool kSplitsA = M != kExact;
+template <Mode M>
+constexpr bool kSplitsB = M == kSplit || M == kPreB;
+
+// d += a b: lo_a hi_b (A split), hi_a lo_b (B split), hi_a hi_b (the
+// small terms first)
+template <Mode MODE>
 __device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
                                      const uint32_t (&al)[4], uint2 bh,
                                      uint2 bl) {
-  if constexpr (SPLIT) {
-    mma(d, al, bh.x, bh.y);
-    mma(d, ah, bl.x, bl.y);
-  }
+  if constexpr (kSplitsA<MODE>) mma(d, al, bh.x, bh.y);
+  if constexpr (kSplitsB<MODE>) mma(d, ah, bl.x, bl.y);
   mma(d, ah, bh.x, bh.y);
 }
-
-// where a product's operands come from: float32 A and B both split in
-// registers (kSplit); float32 A split in registers and B's hi and lo tiles
-// split once per block in shared memory (kPreB); bfloat16 values, exact in
-// TF32, one product (kExact)
-enum Mode { kSplit, kPreB, kExact };
 
 template <int N>
 __device__ __forceinline__ void zero(float (&x)[N][4]) {
@@ -304,7 +332,6 @@ __device__ __forceinline__ void mma_abt(float (&acc)[NT][4], const float* A,
                                         const float* Bh, const float* Bl) {
   static_assert(NT % 2 == 0, "n-tiles in pairs");
   constexpr int RS = HD + 4;
-  constexpr bool SPLIT = MODE != kExact;
   zero(acc);
   const int lane = threadIdx.x & 31, m = lane >> 3, rr = lane & 7;
   const float* a = A + (rr + 8 * (m & 1)) * RS + 4 * (m >> 1);
@@ -315,7 +342,7 @@ __device__ __forceinline__ void mma_abt(float (&acc)[NT][4], const float* A,
     ldsm4(ar, a + k);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
-      split<SPLIT>(__uint_as_float(ar[i]), ah[i], al[i]);
+      split<kSplitsA<MODE>>(__uint_as_float(ar[i]), ah[i], al[i]);
 #pragma unroll
     for (int j = 0; j < NT; j += 2) {
       // b0, b1 of n-tile j, then of j + 1
@@ -326,12 +353,12 @@ __device__ __forceinline__ void mma_abt(float (&acc)[NT][4], const float* A,
       } else {
 #pragma unroll
         for (int i = 0; i < 4; ++i)
-          split<SPLIT>(__uint_as_float(bh[i]), bh[i], bl[i]);
+          split<kSplitsB<MODE>>(__uint_as_float(bh[i]), bh[i], bl[i]);
       }
-      mma3<SPLIT>(acc[j], ah, al, make_uint2(bh[0], bh[1]),
-                  make_uint2(bl[0], bl[1]));
-      mma3<SPLIT>(acc[j + 1], ah, al, make_uint2(bh[2], bh[3]),
-                  make_uint2(bl[2], bl[3]));
+      mma3<MODE>(acc[j], ah, al, make_uint2(bh[0], bh[1]),
+                 make_uint2(bl[0], bl[1]));
+      mma3<MODE>(acc[j + 1], ah, al, make_uint2(bh[2], bh[3]),
+                 make_uint2(bl[2], bl[3]));
     }
   }
 }
@@ -355,7 +382,7 @@ __device__ __forceinline__ void mma_pb(float (&acc)[DC / 8][4],
                                        const float (&alpha)[2]) {
   static_assert(DC / 8 % NB == 0, "whole chunks of n-tiles");
   constexpr int RS = HD + 4;
-  constexpr bool SPLIT = MODE != kExact;
+  constexpr bool SA = kSplitsA<MODE>;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int bo = 2 * t * RS + g;
 #pragma unroll
@@ -365,10 +392,10 @@ __device__ __forceinline__ void mma_pb(float (&acc)[DC / 8][4],
 #pragma unroll
     for (int s = 0; s < KS; ++s) {
       uint32_t ah[4], al[4];
-      split<SPLIT>(p[s][0], ah[0], al[0]);
-      split<SPLIT>(p[s][2], ah[1], al[1]);
-      split<SPLIT>(p[s][1], ah[2], al[2]);
-      split<SPLIT>(p[s][3], ah[3], al[3]);
+      split<SA>(p[s][0], ah[0], al[0]);
+      split<SA>(p[s][2], ah[1], al[1]);
+      split<SA>(p[s][1], ah[2], al[2]);
+      split<SA>(p[s][3], ah[3], al[3]);
 #pragma unroll
       for (int n = 0; n < NB; ++n) {
         const int at0 = bo + 8 * s * RS + 8 * (n0 + n), at1 = at0 + RS;
@@ -377,10 +404,10 @@ __device__ __forceinline__ void mma_pb(float (&acc)[DC / 8][4],
           bh = make_uint2(__float_as_uint(Bh[at0]), __float_as_uint(Bh[at1]));
           bl = make_uint2(__float_as_uint(Bl[at0]), __float_as_uint(Bl[at1]));
         } else {
-          split<SPLIT>(Bh[at0], bh.x, bl.x);
-          split<SPLIT>(Bh[at1], bh.y, bl.y);
+          split<kSplitsB<MODE>>(Bh[at0], bh.x, bl.x);
+          split<kSplitsB<MODE>>(Bh[at1], bh.y, bl.y);
         }
-        mma3<SPLIT>(part[n], ah, al, bh, bl);
+        mma3<MODE>(part[n], ah, al, bh, bl);
       }
     }
 #pragma unroll
@@ -421,11 +448,18 @@ __device__ __forceinline__ float bf_lo(uint32_t w) {
 __device__ __forceinline__ float bf_hi(uint32_t w) {
   return __uint_as_float(w & 0xffff0000u);
 }
+// the two 16-bit values of a word (the first in its low half) as floats
+__device__ __forceinline__ float2 widen2(uint32_t w, const __nv_bfloat16*) {
+  return make_float2(bf_lo(w), bf_hi(w));
+}
+__device__ __forceinline__ float2 widen2(uint32_t w, const __half*) {
+  return __half22float2(*reinterpret_cast<const __half2*>(&w));
+}
 
 // rows r0 .. r0 + R - 1 of a (b, head) slice (row stride ss elements, hd
 // contiguous) -> dst [R][HD + 4] float32, rows at or past S as 0; r0 < S;
 // by the block's NTH threads. float32 by 16-byte cp.async (src-size 0 past
-// S); bfloat16 by plain 16-byte loads, widened.
+// S); bfloat16 and float16 by plain 16-byte loads, widened (exactly).
 template <int HD, int R, typename T, int NTH = kThreads>
 __device__ __forceinline__ void load_rows(float* dst, const T* src,
                                           long long ss, int r0, int S) {
@@ -449,8 +483,10 @@ __device__ __forceinline__ void load_rows(float* dst, const T* src,
         u = *reinterpret_cast<const uint4*>(src + (long long)(r0 + r) * ss +
                                             8 * c);
       float4* d = reinterpret_cast<float4*>(dst + r * RS + 8 * c);
-      d[0] = make_float4(bf_lo(u.x), bf_hi(u.x), bf_lo(u.y), bf_hi(u.y));
-      d[1] = make_float4(bf_lo(u.z), bf_hi(u.z), bf_lo(u.w), bf_hi(u.w));
+      const float2 w0 = widen2(u.x, src), w1 = widen2(u.y, src),
+                   w2 = widen2(u.z, src), w3 = widen2(u.w, src);
+      d[0] = make_float4(w0.x, w0.y, w1.x, w1.y);
+      d[1] = make_float4(w2.x, w2.y, w3.x, w3.y);
     }
   }
 }
@@ -746,9 +782,11 @@ __global__ void __launch_bounds__(kThreads, 2)
 // ---- backward ------------------------------------------------------------
 
 // delta[b, h, i] = sum_c dO[b, i, h, c] O[b, i, h, c]: a warp a row, the
-// lanes' partial sums reduced in a fixed order
+// lanes' partial sums reduced in a fixed order (float32 sums of the
+// inputs' type's values)
+template <typename T>
 __global__ void __launch_bounds__(kDeltaThreads)
-    delta_kernel(const float* __restrict__ o, const float* __restrict__ dout,
+    delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
                  float* __restrict__ delta, int H, int Sq, int hd,
                  long long rows, Strides so, Strides sdo) {
   const long long row = (long long)blockIdx.x * (kDeltaThreads / 32) +
@@ -758,28 +796,40 @@ __global__ void __launch_bounds__(kDeltaThreads)
   const int i = (int)(row % Sq);
   const int h = (int)((row / Sq) % H);
   const int b = (int)(row / ((long long)Sq * H));
-  const float* orow = o + b * so.b + (long long)i * so.s + h * so.h;
-  const float* drow = dout + b * sdo.b + (long long)i * sdo.s + h * sdo.h;
+  const T* orow = o + b * so.b + (long long)i * so.s + h * so.h;
+  const T* drow = dout + b * sdo.b + (long long)i * sdo.s + h * sdo.h;
   float acc = 0.f;
-  for (int c = lane; c < hd; c += 32) acc = fmaf(drow[c], orow[c], acc);
+  for (int c = lane; c < hd; c += 32)
+    acc = fmaf(as_float(drow[c]), as_float(orow[c]), acc);
 #pragma unroll
   for (int off = 16; off; off >>= 1)
     acc += __shfl_xor_sync(0xffffffffu, acc, off);
   if (lane == 0) delta[row] = acc;
 }
 
-template <int HD>
+// The backward's products by the inputs' type T: float32 splits both
+// operands (three TF32 products); 16-bit inputs are exact in TF32, so S
+// and dP (two inputs) take one product and dK, dV, dQ (a computed float32
+// P or dS times an input) two, P and dS split
+template <typename T>
+constexpr Mode kInputsMode = std::is_same<T, float>::value ? kSplit : kExact;
+template <typename T>
+constexpr Mode kComputedMode =
+    std::is_same<T, float>::value ? kSplit : kSplitA;
+
+template <int HD, typename T>
 __global__ void __launch_bounds__(kThreads, 2)
-    dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                const float* __restrict__ v, const float* __restrict__ dout,
+    dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                const T* __restrict__ v, const T* __restrict__ dout,
                 const int* __restrict__ qpos, const int* __restrict__ kpos,
                 const float* __restrict__ lse,
-                const float* __restrict__ delta, float* __restrict__ dk,
-                float* __restrict__ dv, int B, int H, int Kv, int G, int Sq,
+                const float* __restrict__ delta, T* __restrict__ dk,
+                T* __restrict__ dv, int B, int H, int Kv, int G, int Sq,
                 int Sk, int causal, int window, float scale, Strides sq,
                 Strides sk, Strides sv, Strides sdo, Strides sdk,
                 Strides sdv) {
   constexpr int RS = HD + 4, BQ = kBwdTile, NT = BQ / 8;
+  constexpr Mode SM = kInputsMode<T>, PM = kComputedMode<T>;
   extern __shared__ float4 smem4[];
   float* Ks = reinterpret_cast<float*>(smem4);  // [64][RS], the block's keys
   float* Vs = Ks + kRows * RS;                  // [64][RS]
@@ -860,7 +910,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     __syncthreads();
     float p[NT][4], ds[NT][4];
     // transposed scores: keys (rows) x queries (columns)
-    mma_abt<HD, NT, kSplit>(p, Kw, Qs, nullptr);
+    mma_abt<HD, NT, SM>(p, Kw, Qs, nullptr);
     const bool full = !bit_set(part, qt) && q0 + BQ <= Sq;
 #pragma unroll
     for (int j = 0; j < NT; ++j)
@@ -874,7 +924,7 @@ __global__ void __launch_bounds__(kThreads, 2)
       }
     cp_wait<0>();  // this tile's dO and delta
     __syncthreads();
-    mma_abt<HD, NT, kSplit>(ds, Vw, dOs, nullptr);
+    mma_abt<HD, NT, SM>(ds, Vw, dOs, nullptr);
 #pragma unroll
     for (int j = 0; j < NT; ++j)
 #pragma unroll
@@ -882,7 +932,7 @@ __global__ void __launch_bounds__(kThreads, 2)
         const int c = 8 * j + 2 * t + (e & 1);
         ds[j][e] = p[j][e] * (ds[j][e] - dl[c]);
       }
-    mma_pb<HD, HD, NT, kChunkOf<HD> / 2, kSplit>(accK, ds, Qs, nullptr, one);
+    mma_pb<HD, HD, NT, kChunkOf<HD> / 2, PM>(accK, ds, Qs, nullptr, one);
     int ngi = gi, nqt2 = next_live(live, qt + 1, nqt);
     if (nqt2 == nqt) {
       ++ngi;
@@ -891,7 +941,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     __syncthreads();  // every warp is done with slot 0
     if (ngi < G) load_q(ngi, nqt2);
     cp_commit();
-    mma_pb<HD, HD, NT, kChunkOf<HD> / 2, kSplit>(accV, p, dOs, nullptr, one);
+    mma_pb<HD, HD, NT, kChunkOf<HD> / 2, PM>(accV, p, dOs, nullptr, one);
     __syncthreads();  // every warp is done with slot 1
     if (ngi < G) load_do(ngi, nqt2);
     cp_commit();
@@ -904,10 +954,10 @@ __global__ void __launch_bounds__(kThreads, 2)
   for (int r = 0; r < 2; ++r) {
     const int row = 16 * warp + g + 8 * r;
     if (row >= nk) continue;
-    float* krow_out = dk + b * sdk.b + (long long)(k0 + row) * sdk.s +
-                      kvh * sdk.h + 2 * t;
-    float* vrow_out = dv + b * sdv.b + (long long)(k0 + row) * sdv.s +
-                      kvh * sdv.h + 2 * t;
+    T* krow_out = dk + b * sdk.b + (long long)(k0 + row) * sdk.s +
+                  kvh * sdk.h + 2 * t;
+    T* vrow_out = dv + b * sdv.b + (long long)(k0 + row) * sdv.s +
+                  kvh * sdv.h + 2 * t;
 #pragma unroll
     for (int n = 0; n < HD / 8; ++n) {
       store2(krow_out + 8 * n, accK[n][2 * r] * scale,
@@ -917,16 +967,17 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
-template <int HD>
+template <int HD, typename T>
 __global__ void __launch_bounds__(kThreads, 2)
-    dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, const float* __restrict__ dout,
+    dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+              const T* __restrict__ v, const T* __restrict__ dout,
               const int* __restrict__ qpos, const int* __restrict__ kpos,
               const float* __restrict__ lse, const float* __restrict__ delta,
-              float* __restrict__ dq, int B, int H, int G, int Sq, int Sk,
+              T* __restrict__ dq, int B, int H, int G, int Sq, int Sk,
               int causal, int window, float scale, Strides sq, Strides sk,
               Strides sv, Strides sdo, Strides sdq) {
   constexpr int RS = HD + 4, BK = kBwdTile, NT = BK / 8;
+  constexpr Mode SM = kInputsMode<T>, PM = kComputedMode<T>;
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);  // [64][RS]
   float* dOs = Qs + kRows * RS;                 // [64][RS]
@@ -946,8 +997,8 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int g = lane >> 2, t = lane & 3;
   const int nq = min(kRows, Sq - q0);
   const int* kpb = kpos + (long long)b * Sk;
-  const float* kb = k + b * sk.b + kvh * sk.h;
-  const float* vb = v + b * sv.b + kvh * sv.h;
+  const T* kb = k + b * sk.b + kvh * sk.h;
+  const T* vb = v + b * sv.b + kvh * sv.h;
 
   if (threadIdx.x < kRows)
     qp[threadIdx.x] =
@@ -997,14 +1048,14 @@ __global__ void __launch_bounds__(kThreads, 2)
     cp_wait<1>();  // Q, dO, this tile's values
     __syncthreads();
     float s[NT][4], ds[NT][4];
-    mma_abt<HD, NT, kSplit>(ds, dOw, Vs, nullptr);  // dP
+    mma_abt<HD, NT, SM>(ds, dOw, Vs, nullptr);  // dP
     __syncthreads();  // every warp is done with slot 1
     const int next = next_live(live, kt + 1, nkt);
     if (next < nkt) load_rows<HD, BK>(Vs, vb, sv.s, next * BK, Sk);
     cp_commit();
     cp_wait<1>();  // this tile's keys and positions
     __syncthreads();
-    mma_abt<HD, NT, kSplit>(s, Qw, Ks, nullptr);
+    mma_abt<HD, NT, SM>(s, Qw, Ks, nullptr);
     const bool full = !bit_set(part, kt) && k0 + BK <= Sk;
 #pragma unroll
     for (int j = 0; j < NT; ++j)
@@ -1017,7 +1068,7 @@ __global__ void __launch_bounds__(kThreads, 2)
                 : 0.f;
         ds[j][e] = p * (ds[j][e] - drow[r]);
       }
-    mma_pb<HD, HD, NT, kChunkOf<HD>, kSplit>(acc, ds, Ks, nullptr, one);
+    mma_pb<HD, HD, NT, kChunkOf<HD>, PM>(acc, ds, Ks, nullptr, one);
     __syncthreads();  // every warp is done with slot 0
     if (next < nkt) {
       load_rows<HD, BK>(Ks, kb, sk.s, next * BK, Sk);
@@ -1032,7 +1083,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   for (int r = 0; r < 2; ++r) {
     const int row = 16 * warp + g + 8 * r;
     if (row >= nq) continue;
-    float* out =
+    T* out =
         dq + b * sdq.b + (long long)(q0 + row) * sdq.s + h * sdq.h + 2 * t;
 #pragma unroll
     for (int n = 0; n < HD / 8; ++n)
@@ -1229,14 +1280,15 @@ __global__ void __launch_bounds__(kPairThreads, 1)
 // nkt - 1 - kt, taken one after the other, a part of gpp consecutive heads
 // of the group); warps w and w + 4 own the same 16 keys of the tile, w the
 // dK/dV columns 0-127 and the reduction's columns 0-127 of S^T and dP^T,
-// w + 4 the columns 128-255. With more than one part (ws not null) the
-// block writes its partial dK (not yet scaled) and dV to ws [G / gpp][2][B]
-// [Sk][Kv][HD], summed by dkdv_reduce_kernel; else dK and dV.
-template <int HD>
+// w + 4 the columns 128-255. With more than one part, or 16-bit inputs
+// (ws not null), the block writes its partial dK (not yet scaled) and dV
+// in float32 to ws [G / gpp][2][B][Sk][Kv][HD], summed (and rounded to T)
+// by dkdv_reduce_kernel; else dK and dV (float32).
+template <int HD, typename T>
 __global__ void __launch_bounds__(kPairThreads, 1)
-    dkdv_pair_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v,
-                     const float* __restrict__ dout,
+    dkdv_pair_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v,
+                     const T* __restrict__ dout,
                      const int* __restrict__ qpos,
                      const int* __restrict__ kpos,
                      const float* __restrict__ lse,
@@ -1248,6 +1300,7 @@ __global__ void __launch_bounds__(kPairThreads, 1)
                      Strides sdv) {
   constexpr int RS = HD + 4, DC = HD / 2, BQ = kBwdTile, NT = BQ / 8;
   constexpr int NTH = kPairThreads, XS = NT * 4 * 32;
+  constexpr Mode SM = kInputsMode<T>, PM = kComputedMode<T>;
   extern __shared__ float4 smem4[];
   float* Ks = reinterpret_cast<float*>(smem4);  // [64][RS], the tile's keys
   float* Vs = Ks + kRows * RS;                  // [64][RS]
@@ -1276,15 +1329,14 @@ __global__ void __launch_bounds__(kPairThreads, 1)
 
   auto load_q = [&](int gg, int tt) {
     const int hh = h0 + gg, r0 = tt * BQ;
-    load_rows<HD, BQ, float, NTH>(Qs, q + b * sq.b + hh * sq.h, sq.s, r0,
-                                  Sq);
+    load_rows<HD, BQ, T, NTH>(Qs, q + b * sq.b + hh * sq.h, sq.s, r0, Sq);
     load_vals(qp, qpb, 0, BQ, r0, Sq);
     load_vals(ls, lse + ((long long)b * H + hh) * Sq, BQ, BQ, r0, Sq);
   };
   auto load_do = [&](int gg, int tt) {
     const int hh = h0 + gg, r0 = tt * BQ;
-    load_rows<HD, BQ, float, NTH>(dOs, dout + b * sdo.b + hh * sdo.h, sdo.s,
-                                  r0, Sq);
+    load_rows<HD, BQ, T, NTH>(dOs, dout + b * sdo.b + hh * sdo.h, sdo.s, r0,
+                              Sq);
     load_vals(dl, delta + ((long long)b * H + hh) * Sq, 0, BQ, r0, Sq);
   };
 
@@ -1296,10 +1348,8 @@ __global__ void __launch_bounds__(kPairThreads, 1)
       kp[threadIdx.x] = (int)threadIdx.x < nk
                             ? kpos[(long long)b * Sk + k0 + threadIdx.x]
                             : -1;
-    load_rows<HD, kRows, float, NTH>(Ks, k + b * sk.b + kvh * sk.h, sk.s, k0,
-                                     Sk);
-    load_rows<HD, kRows, float, NTH>(Vs, v + b * sv.b + kvh * sv.h, sv.s, k0,
-                                     Sk);
+    load_rows<HD, kRows, T, NTH>(Ks, k + b * sk.b + kvh * sk.h, sk.s, k0, Sk);
+    load_rows<HD, kRows, T, NTH>(Vs, v + b * sv.b + kvh * sv.h, sv.s, k0, Sk);
     cp_commit();
     __syncthreads();
     pos_range(kp, kRows, true, rng);
@@ -1339,7 +1389,7 @@ __global__ void __launch_bounds__(kPairThreads, 1)
       float p[NT][4], ds[NT][4];
       // transposed scores, keys (rows) x queries (columns): the warp's
       // 128 columns of the reduction, then its partner's added
-      mma_abt<HD, NT, kSplit, DC>(p, Kw, Qs + c0, nullptr);
+      mma_abt<HD, NT, SM, DC>(p, Kw, Qs + c0, nullptr);
       put_slot(xs, warp, p);
       pair_sync(wr);
       add_slot(p, xs, warp ^ 4);
@@ -1359,7 +1409,7 @@ __global__ void __launch_bounds__(kPairThreads, 1)
         }
       cp_wait<0>();  // this tile's dO and delta
       __syncthreads();  // (and every partner has read this warp's S^T)
-      mma_abt<HD, NT, kSplit, DC>(ds, Vw, dOs + c0, nullptr);
+      mma_abt<HD, NT, SM, DC>(ds, Vw, dOs + c0, nullptr);
       put_slot(xs, warp, ds);
       pair_sync(wr);
       add_slot(ds, xs, warp ^ 4);
@@ -1372,8 +1422,8 @@ __global__ void __launch_bounds__(kPairThreads, 1)
         }
       // one n-tile of fresh accumulator at a time while p and ds are both
       // live (two spilled 8 bytes a thread), two for dV
-      mma_pb<HD, DC, NT, kChunkOf<DC> / 4, kSplit>(accK, ds, Qs + c0,
-                                                   nullptr, one);
+      mma_pb<HD, DC, NT, kChunkOf<DC> / 4, PM>(accK, ds, Qs + c0, nullptr,
+                                               one);
       int ngi = gi, nqt2 = next_live(live, qt + 1, nqt);
       if (nqt2 == nqt) {
         ++ngi;
@@ -1382,8 +1432,8 @@ __global__ void __launch_bounds__(kPairThreads, 1)
       __syncthreads();  // every warp is done with slot 0 and its partner's dP^T
       if (ngi < gpp) load_q(ngi, nqt2);
       cp_commit();
-      mma_pb<HD, DC, NT, kChunkOf<DC> / 2, kSplit>(accV, p, dOs + c0,
-                                                   nullptr, one);
+      mma_pb<HD, DC, NT, kChunkOf<DC> / 2, PM>(accV, p, dOs + c0, nullptr,
+                                               one);
       __syncthreads();  // every warp is done with slot 1
       if (ngi < gpp) load_do(ngi, nqt2);
       cp_commit();
@@ -1423,11 +1473,12 @@ __global__ void __launch_bounds__(kPairThreads, 1)
 }
 
 // dK = scale (ws[0, 0] + ws[1, 0] + ...), dV = ws[0, 1] + ws[1, 1] + ...:
-// the parts added in ascending order, a thread four consecutive columns
-template <int HD>
+// the parts added in ascending order in float32, a thread four consecutive
+// columns, each output rounded once to T
+template <int HD, typename T>
 __global__ void __launch_bounds__(kDeltaThreads)
-    dkdv_reduce_kernel(const float* __restrict__ ws, float* __restrict__ dk,
-                       float* __restrict__ dv, int parts, int Sk, int Kv,
+    dkdv_reduce_kernel(const float* __restrict__ ws, T* __restrict__ dk,
+                       T* __restrict__ dv, int parts, int Sk, int Kv,
                        long long plane, float scale, Strides sdk,
                        Strides sdv) {
   const long long n = plane / 4;  // float4s of one of dK, dV
@@ -1448,9 +1499,8 @@ __global__ void __launch_bounds__(kDeltaThreads)
     const long long row = e / HD;  // (b, s, kv head)
     const int kvh = (int)(row % Kv), s = (int)(row / Kv % Sk);
     const int b = (int)(row / Kv / Sk);
-    float* out =
-        which ? dv + b * sdv.b + (long long)s * sdv.s + kvh * sdv.h + c
-              : dk + b * sdk.b + (long long)s * sdk.s + kvh * sdk.h + c;
+    T* out = which ? dv + b * sdv.b + (long long)s * sdv.s + kvh * sdv.h + c
+                   : dk + b * sdk.b + (long long)s * sdk.s + kvh * sdk.h + c;
     const float f = which ? 1.f : scale;
     store2(out, a.x * f, a.y * f);
     store2(out + 2, a.z * f, a.w * f);
@@ -1461,19 +1511,19 @@ __global__ void __launch_bounds__(kDeltaThreads)
 // tiles; warps w and w + 4 own the same 16 queries, w the dQ columns 0-127
 // and the reduction's columns 0-127 of S and dP, w + 4 the columns
 // 128-255.
-template <int HD>
+template <int HD, typename T>
 __global__ void __launch_bounds__(kPairThreads, 1)
-    dq_pair_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                   const float* __restrict__ v,
-                   const float* __restrict__ dout,
+    dq_pair_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                   const T* __restrict__ v, const T* __restrict__ dout,
                    const int* __restrict__ qpos, const int* __restrict__ kpos,
                    const float* __restrict__ lse,
-                   const float* __restrict__ delta, float* __restrict__ dq,
+                   const float* __restrict__ delta, T* __restrict__ dq,
                    int B, int H, int G, int Sq, int Sk, int causal,
                    int window, float scale, Strides sq, Strides sk,
                    Strides sv, Strides sdo, Strides sdq) {
   constexpr int RS = HD + 4, DC = HD / 2, BK = kBwdTile, NT = BK / 8;
   constexpr int NTH = kPairThreads, XS = NT * 4 * 32;
+  constexpr Mode SM = kInputsMode<T>, PM = kComputedMode<T>;
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);  // [64][RS]
   float* dOs = Qs + kRows * RS;                 // [64][RS]
@@ -1495,16 +1545,15 @@ __global__ void __launch_bounds__(kPairThreads, 1)
   const int wr = warp & 3, c0 = DC * (warp >> 2);  // its rows, its columns
   const int nq = min(kRows, Sq - q0);
   const int* kpb = kpos + (long long)b * Sk;
-  const float* kb = k + b * sk.b + kvh * sk.h;
-  const float* vb = v + b * sv.b + kvh * sv.h;
+  const T* kb = k + b * sk.b + kvh * sk.h;
+  const T* vb = v + b * sv.b + kvh * sv.h;
 
   if (threadIdx.x < kRows)
     qp[threadIdx.x] =
         qpos[(long long)b * Sq + q0 + min((int)threadIdx.x, nq - 1)];
-  load_rows<HD, kRows, float, NTH>(Qs, q + b * sq.b + h * sq.h, sq.s, q0,
-                                   Sq);
-  load_rows<HD, kRows, float, NTH>(dOs, dout + b * sdo.b + h * sdo.h, sdo.s,
-                                   q0, Sq);
+  load_rows<HD, kRows, T, NTH>(Qs, q + b * sq.b + h * sq.h, sq.s, q0, Sq);
+  load_rows<HD, kRows, T, NTH>(dOs, dout + b * sdo.b + h * sdo.h, sdo.s, q0,
+                               Sq);
   cp_commit();
   float lrow[2], drow[2];
 #pragma unroll
@@ -1528,10 +1577,10 @@ __global__ void __launch_bounds__(kPairThreads, 1)
                (window <= 0 || (long long)kk > (long long)qmax - window);
       });
   int kt = next_live(live, 0, nkt);
-  if (kt < nkt) load_rows<HD, BK, float, NTH>(Vs, vb, sv.s, kt * BK, Sk);
+  if (kt < nkt) load_rows<HD, BK, T, NTH>(Vs, vb, sv.s, kt * BK, Sk);
   cp_commit();
   if (kt < nkt) {
-    load_rows<HD, BK, float, NTH>(Ks, kb, sk.s, kt * BK, Sk);
+    load_rows<HD, BK, T, NTH>(Ks, kb, sk.s, kt * BK, Sk);
     load_vals(kp, kpb, 0, BK, kt * BK, Sk);
   }
   cp_commit();
@@ -1548,16 +1597,16 @@ __global__ void __launch_bounds__(kPairThreads, 1)
     cp_wait<1>();  // Q, dO, this tile's values
     __syncthreads();
     float s[NT][4], ds[NT][4];
-    mma_abt<HD, NT, kSplit, DC>(ds, dOw, Vs + c0, nullptr);  // dP, partial
+    mma_abt<HD, NT, SM, DC>(ds, dOw, Vs + c0, nullptr);  // dP, partial
     put_slot(xs, warp, ds);
     __syncthreads();  // every warp is done with slot 1, its dP put
     add_slot(ds, xs, warp ^ 4);
     const int next = next_live(live, kt + 1, nkt);
-    if (next < nkt) load_rows<HD, BK, float, NTH>(Vs, vb, sv.s, next * BK, Sk);
+    if (next < nkt) load_rows<HD, BK, T, NTH>(Vs, vb, sv.s, next * BK, Sk);
     cp_commit();
     cp_wait<1>();  // this tile's keys and positions
     __syncthreads();  // (and every partner has read this warp's dP)
-    mma_abt<HD, NT, kSplit, DC>(s, Qw, Ks + c0, nullptr);  // S, partial
+    mma_abt<HD, NT, SM, DC>(s, Qw, Ks + c0, nullptr);  // S, partial
     put_slot(xs, warp, s);
     pair_sync(wr);
     add_slot(s, xs, warp ^ 4);
@@ -1573,10 +1622,10 @@ __global__ void __launch_bounds__(kPairThreads, 1)
                 : 0.f;
         ds[j][e] = p * (ds[j][e] - drow[r]);
       }
-    mma_pb<HD, DC, NT, kChunkOf<DC>, kSplit>(acc, ds, Ks + c0, nullptr, one);
+    mma_pb<HD, DC, NT, kChunkOf<DC>, PM>(acc, ds, Ks + c0, nullptr, one);
     __syncthreads();  // every warp is done with slot 0 and its partner's S
     if (next < nkt) {
-      load_rows<HD, BK, float, NTH>(Ks, kb, sk.s, next * BK, Sk);
+      load_rows<HD, BK, T, NTH>(Ks, kb, sk.s, next * BK, Sk);
       load_vals(kp, kpb, 0, BK, next * BK, Sk);
     }
     cp_commit();
@@ -1588,8 +1637,8 @@ __global__ void __launch_bounds__(kPairThreads, 1)
   for (int r = 0; r < 2; ++r) {
     const int row = 16 * wr + g + 8 * r;
     if (row >= nq) continue;
-    float* out = dq + b * sdq.b + (long long)(q0 + row) * sdq.s + h * sdq.h +
-                 c0 + 2 * t;
+    T* out = dq + b * sdq.b + (long long)(q0 + row) * sdq.s + h * sdq.h + c0 +
+             2 * t;
 #pragma unroll
     for (int n = 0; n < DC / 8; ++n)
       store2(out + 8 * n, acc[n][2 * r] * scale, acc[n][2 * r + 1] * scale);
@@ -1617,6 +1666,16 @@ auto fwd_kernel_of() {
 }
 template <int HD>
 constexpr int kFwdThreads = HD > 128 ? kPairThreads : kThreads;
+// dK/dV by warp pairs (dkdv_pair_kernel, its float32 partial sums through
+// the workspace and dkdv_reduce_kernel): at hd 256, and for 16-bit inputs
+// at hd 128, where the 4-warp kernel's two accumulators of 64 registers a
+// thread, beside its plain (register-staged) 16-bit tile loads, spilled
+// 4-12 bytes a thread at the 255-register cap of two blocks an SM however
+// the loads were ordered or unrolled; a warp pair's accumulators are half
+// of that (one 8-warp block an SM)
+template <int HD, typename T>
+constexpr bool kPairDkdv =
+    HD > 128 || (HD == 128 && !std::is_same<T, float>::value);
 
 template <int HD>
 constexpr size_t tile_bytes(int rows) {
@@ -1675,18 +1734,18 @@ cudaError_t fwd(const void* q, const void* k, const void* v, const int* qpos,
   return cudaGetLastError();
 }
 
-template <int HD>
-cudaError_t bwd(const float* q, const float* k, const float* v,
-                const float* o, const float* dout, const int* qpos,
-                const int* kpos, const float* lse, float* delta, float* dq,
-                float* dk, float* dv, float* ws, int B, int H, int Kv,
-                int Sq, int Sk, int causal, int window, int parts,
-                float scale, const long long* st, cudaStream_t stream) {
+template <int HD, typename T>
+cudaError_t bwd(const T* q, const T* k, const T* v, const T* o,
+                const T* dout, const int* qpos, const int* kpos,
+                const float* lse, float* delta, T* dq, T* dk, T* dv,
+                float* ws, int B, int H, int Kv, int Sq, int Sk, int causal,
+                int window, int parts, float scale, const long long* st,
+                cudaStream_t stream) {
   const long long rows = (long long)B * H * Sq;
   const long long warps = kDeltaThreads / 32;
-  delta_kernel<<<(unsigned)((rows + warps - 1) / warps), kDeltaThreads, 0,
-                 stream>>>(o, dout, delta, H, Sq, HD, rows, strides_at(st, 3),
-                           strides_at(st, 4));
+  delta_kernel<T><<<(unsigned)((rows + warps - 1) / warps), kDeltaThreads, 0,
+                    stream>>>(o, dout, delta, H, Sq, HD, rows,
+                              strides_at(st, 3), strides_at(st, 4));
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const int G = H / Kv;
@@ -1694,40 +1753,50 @@ cudaError_t bwd(const float* q, const float* k, const float* v,
                 sv = strides_at(st, 2), sdo = strides_at(st, 4),
                 sdq = strides_at(st, 5), sdk = strides_at(st, 6),
                 sdv = strides_at(st, 7);
-  if constexpr (HD > 128) {
+  if constexpr (kPairDkdv<HD, T>) {
+    // float32 dK and dV straight from the kernel with one part; else (more
+    // parts, or 16-bit outputs) through the workspace and the reduction
+    float *dkf = nullptr, *dvf = nullptr;
+    if constexpr (std::is_same<T, float>::value) {
+      dkf = dk;
+      dvf = dv;
+    }
+    const bool reduce = ws != nullptr;
     const size_t s1 = dkdv_smem<HD>(Sq) + kExchangeBytes;
-    if ((e = prepare(dkdv_pair_kernel<HD>, s1)) != cudaSuccess) return e;
-    dkdv_pair_kernel<HD><<<cdiv(cdiv(Sk, kRows), 2) * Kv * B * parts,
-                           kPairThreads, s1, stream>>>(
-        q, k, v, dout, qpos, kpos, lse, delta, dk, dv,
-        parts > 1 ? ws : nullptr, B, H, Kv, G, G / parts, Sq, Sk, causal,
-        window, scale, sq, sk, sv, sdo, sdk, sdv);
+    if ((e = prepare(dkdv_pair_kernel<HD, T>, s1)) != cudaSuccess) return e;
+    dkdv_pair_kernel<HD, T><<<cdiv(cdiv(Sk, kRows), 2) * Kv * B * parts,
+                              kPairThreads, s1, stream>>>(
+        q, k, v, dout, qpos, kpos, lse, delta, dkf, dvf, ws, B, H, Kv, G,
+        G / parts, Sq, Sk, causal, window, scale, sq, sk, sv, sdo, sdk, sdv);
     if ((e = cudaGetLastError()) != cudaSuccess) return e;
-    if (parts > 1) {
+    if (reduce) {
       const long long plane = (long long)B * Sk * Kv * HD;
       const long long blocks =
           (2 * plane / 4 + kDeltaThreads - 1) / kDeltaThreads;
-      dkdv_reduce_kernel<HD><<<(unsigned)(blocks < 4096 ? blocks : 4096),
-                               kDeltaThreads, 0, stream>>>(
+      dkdv_reduce_kernel<HD, T><<<(unsigned)(blocks < 4096 ? blocks : 4096),
+                                  kDeltaThreads, 0, stream>>>(
           ws, dk, dv, parts, Sk, Kv, plane, scale, sdk, sdv);
       if ((e = cudaGetLastError()) != cudaSuccess) return e;
     }
-    const size_t s2 = dq_smem<HD>(Sk) + kExchangeBytes;
-    if ((e = prepare(dq_pair_kernel<HD>, s2)) != cudaSuccess) return e;
-    dq_pair_kernel<HD><<<cdiv(Sq, kRows) * H * B, kPairThreads, s2,
-                         stream>>>(q, k, v, dout, qpos, kpos, lse, delta, dq,
-                                   B, H, G, Sq, Sk, causal, window, scale,
-                                   sq, sk, sv, sdo, sdq);
   } else {
     const size_t s1 = dkdv_smem<HD>(Sq);
-    if ((e = prepare(dkdv_kernel<HD>, s1)) != cudaSuccess) return e;
-    dkdv_kernel<HD><<<cdiv(Sk, kRows) * Kv * B, kThreads, s1, stream>>>(
+    if ((e = prepare(dkdv_kernel<HD, T>, s1)) != cudaSuccess) return e;
+    dkdv_kernel<HD, T><<<cdiv(Sk, kRows) * Kv * B, kThreads, s1, stream>>>(
         q, k, v, dout, qpos, kpos, lse, delta, dk, dv, B, H, Kv, G, Sq, Sk,
         causal, window, scale, sq, sk, sv, sdo, sdk, sdv);
     if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  }
+  if constexpr (HD > 128) {
+    const size_t s2 = dq_smem<HD>(Sk) + kExchangeBytes;
+    if ((e = prepare(dq_pair_kernel<HD, T>, s2)) != cudaSuccess) return e;
+    dq_pair_kernel<HD, T><<<cdiv(Sq, kRows) * H * B, kPairThreads, s2,
+                            stream>>>(q, k, v, dout, qpos, kpos, lse, delta,
+                                      dq, B, H, G, Sq, Sk, causal, window,
+                                      scale, sq, sk, sv, sdo, sdq);
+  } else {
     const size_t s2 = dq_smem<HD>(Sk);
-    if ((e = prepare(dq_kernel<HD>, s2)) != cudaSuccess) return e;
-    dq_kernel<HD><<<cdiv(Sq, kRows) * H * B, kThreads, s2, stream>>>(
+    if ((e = prepare(dq_kernel<HD, T>, s2)) != cudaSuccess) return e;
+    dq_kernel<HD, T><<<cdiv(Sq, kRows) * H * B, kThreads, s2, stream>>>(
         q, k, v, dout, qpos, kpos, lse, delta, dq, B, H, G, Sq, Sk, causal,
         window, scale, sq, sk, sv, sdo, sdq);
   }
@@ -1751,27 +1820,25 @@ cudaError_t resources_of(K kernel, size_t bytes, int* res,
                                                        bytes);
 }
 
-template <int HD>
+template <int HD, typename T>
 cudaError_t occupancy(int S, int* res) {
   cudaError_t e;
-  if ((e = resources_of(fwd_kernel_of<HD, float>(), fwd_smem<HD>(S), res,
-                        kFwdThreads<HD>)) != cudaSuccess ||
-      (e = resources_of(fwd_kernel_of<HD, __nv_bfloat16>(), fwd_smem<HD>(S),
-                        res + 5, kFwdThreads<HD>)) != cudaSuccess)
+  if ((e = resources_of(fwd_kernel_of<HD, T>(), fwd_smem<HD>(S), res,
+                        kFwdThreads<HD>)) != cudaSuccess)
     return e;
-  if constexpr (HD > 128) {
-    if ((e = resources_of(dkdv_pair_kernel<HD>,
-                          dkdv_smem<HD>(S) + kExchangeBytes, res + 10,
-                          kPairThreads)) != cudaSuccess)
-      return e;
-    return resources_of(dq_pair_kernel<HD>, dq_smem<HD>(S) + kExchangeBytes,
-                        res + 15, kPairThreads);
-  } else {
-    if ((e = resources_of(dkdv_kernel<HD>, dkdv_smem<HD>(S), res + 10)) !=
-        cudaSuccess)
-      return e;
-    return resources_of(dq_kernel<HD>, dq_smem<HD>(S), res + 15);
-  }
+  if constexpr (kPairDkdv<HD, T>)
+    e = resources_of(dkdv_pair_kernel<HD, T>,
+                     dkdv_smem<HD>(S) + kExchangeBytes, res + 5,
+                     kPairThreads);
+  else
+    e = resources_of(dkdv_kernel<HD, T>, dkdv_smem<HD>(S), res + 5);
+  if (e != cudaSuccess) return e;
+  if constexpr (HD > 128)
+    return resources_of(dq_pair_kernel<HD, T>,
+                        dq_smem<HD>(S) + kExchangeBytes, res + 10,
+                        kPairThreads);
+  else
+    return resources_of(dq_kernel<HD, T>, dq_smem<HD>(S), res + 10);
 }
 
 bool shape_ok(int B, int H, int Kv, int Sq, int Sk) {
@@ -1783,11 +1850,20 @@ bool shape_ok(int B, int H, int Kv, int Sq, int Sk) {
 
 }  // namespace
 
-// q (B, Sq, H, hd), k, v (B, Sk, Kv, hd), float32 (bf16 == 0) or bfloat16;
-// positions int32 (B, Sq), (B, Sk); -> o (B, Sq, H, hd) in the input type,
-// lse (B, H, Sq) float32. strides: 12 element strides (b, s, head) of q, k,
-// v, o. window <= 0: none. hd one of 16, 32, 64, 96, 128, 256.
-extern "C" int flash_attention_fwd(int bf16, const void* q, const void* k,
+// One library an element type: this file alone builds the float32 one;
+// flash_attention_bf16.cu and flash_attention_f16.cu define FLASH_ELEMENT
+// and include it, so the three build in parallel and export the same
+// entry points for their type.
+#ifndef FLASH_ELEMENT
+#define FLASH_ELEMENT float
+#endif
+typedef FLASH_ELEMENT Elem;
+
+// q (B, Sq, H, hd), k, v (B, Sk, Kv, hd) of the library's element type;
+// positions int32 (B, Sq), (B, Sk); -> o (B, Sq, H, hd) in that type, lse
+// (B, H, Sq) float32. strides: 12 element strides (b, s, head) of q, k, v,
+// o. window <= 0: none. hd one of 16, 32, 64, 96, 128, 256.
+extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, const void* qpos,
                                    const void* kpos, void* o, void* lse,
                                    int B, int H, int Kv, int Sq, int Sk,
@@ -1799,12 +1875,9 @@ extern "C" int flash_attention_fwd(int bf16, const void* q, const void* k,
   const int* kp = static_cast<const int*>(kpos);
   float* l = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define FWD(HD)                                                             \
-  return (int)(bf16 ? fwd<HD, __nv_bfloat16>(q, k, v, qp, kp, o, l, B, H,   \
-                                             Kv, Sq, Sk, causal, window,    \
-                                             scale, strides, s)             \
-                    : fwd<HD, float>(q, k, v, qp, kp, o, l, B, H, Kv, Sq,   \
-                                     Sk, causal, window, scale, strides, s))
+#define FWD(HD)                                                        \
+  return (int)fwd<HD, Elem>(q, k, v, qp, kp, o, l, B, H, Kv, Sq, Sk,   \
+                            causal, window, scale, strides, s)
   switch (hd) {
     case 16: FWD(16);
     case 32: FWD(32);
@@ -1817,12 +1890,15 @@ extern "C" int flash_attention_fwd(int bf16, const void* q, const void* k,
 #undef FWD
 }
 
-// float32 throughout: q, k, v, o, dout as in the forward; lse (B, H, Sq)
-// from it; delta (B, H, Sq) scratch; -> dq (B, Sq, H, hd), dk, dv (B, Sk,
-// Kv, hd). strides: 24 element strides (b, s, head) of q, k, v, o, dout,
-// dq, dk, dv. parts: the hd-256 dK/dV kernel's split of each group's
-// H / Kv heads (a divisor of it; 1 below hd 256); with parts > 1, ws holds
-// parts x 2 x B x Sk x Kv x hd floats of scratch for its partial sums.
+// q, k, v, o, dout as in the forward, of the library's element type; lse
+// (B, H, Sq) float32 from it; delta (B, H, Sq) float32 scratch; -> dq (B,
+// Sq, H, hd), dk, dv (B, Sk, Kv, hd) in the element type (accumulated in
+// float32, each rounded once). strides: 24 element strides (b, s, head) of
+// q, k, v, o, dout, dq, dk, dv. parts: the hd-256 dK/dV kernel's split of
+// each group's H / Kv heads (a divisor of it; 1 below hd 256); at hd 256
+// with parts > 1, or with a 16-bit element type at hd 128 and 256 (the
+// warp pairs' dK/dV, kPairDkdv), ws holds parts x 2 x B x Sk x Kv x hd
+// floats of scratch for its float32 partial sums (null otherwise).
 extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    const void* v, const void* o,
                                    const void* dout, const void* qpos,
@@ -1832,18 +1908,20 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    int Sk, int hd, int causal, int window,
                                    int parts, float scale,
                                    const long long* strides, void* stream) {
+  const bool wants_ws = (hd > 128 && parts > 1) ||
+                        (hd >= 128 && !std::is_same<Elem, float>::value);
   if (!shape_ok(B, H, Kv, Sq, Sk) || parts < 1 || (H / Kv) % parts ||
-      (parts > 1 && (hd <= 128 || ws == nullptr)) ||
+      (parts > 1 && hd <= 128) || wants_ws != (ws != nullptr) ||
       (long long)cdiv(cdiv(Sk, kRows), 2) * Kv * B * parts > INT_MAX)
     return (int)cudaErrorInvalidValue;
 #define BWD(HD)                                                               \
-  return (int)bwd<HD>(                                                        \
-      static_cast<const float*>(q), static_cast<const float*>(k),             \
-      static_cast<const float*>(v), static_cast<const float*>(o),             \
-      static_cast<const float*>(dout), static_cast<const int*>(qpos),         \
+  return (int)bwd<HD, Elem>(                                                  \
+      static_cast<const Elem*>(q), static_cast<const Elem*>(k),               \
+      static_cast<const Elem*>(v), static_cast<const Elem*>(o),               \
+      static_cast<const Elem*>(dout), static_cast<const int*>(qpos),          \
       static_cast<const int*>(kpos), static_cast<const float*>(lse),          \
-      static_cast<float*>(delta), static_cast<float*>(dq),                    \
-      static_cast<float*>(dk), static_cast<float*>(dv),                       \
+      static_cast<float*>(delta), static_cast<Elem*>(dq),                     \
+      static_cast<Elem*>(dk), static_cast<Elem*>(dv),                         \
       static_cast<float*>(ws), B, H, Kv, Sq, Sk, causal, window, parts,       \
       scale, strides, static_cast<cudaStream_t>(stream))
   switch (hd) {
@@ -1859,19 +1937,19 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
 }
 
 // Blocks per SM, dynamic shared memory (bytes), registers a thread, local
-// memory (bytes a thread: spills) and threads a block of the forward
-// (float32, bfloat16), dK/dV and dQ kernels at head dim hd and sequence
-// length S, from the runtime's occupancy calculator and function
-// attributes: res[20], five a kernel.
+// memory (bytes a thread: spills) and threads a block of the library's
+// forward, dK/dV and dQ kernels at head dim hd and sequence length S, from
+// the runtime's occupancy calculator and function attributes: res[15],
+// five a kernel.
 extern "C" int flash_attention_occupancy(int hd, int S, int* res) {
   if (S < 1) return (int)cudaErrorInvalidValue;
   switch (hd) {
-    case 16: return (int)occupancy<16>(S, res);
-    case 32: return (int)occupancy<32>(S, res);
-    case 64: return (int)occupancy<64>(S, res);
-    case 96: return (int)occupancy<96>(S, res);
-    case 128: return (int)occupancy<128>(S, res);
-    case 256: return (int)occupancy<256>(S, res);
+    case 16: return (int)occupancy<16, Elem>(S, res);
+    case 32: return (int)occupancy<32, Elem>(S, res);
+    case 64: return (int)occupancy<64, Elem>(S, res);
+    case 96: return (int)occupancy<96, Elem>(S, res);
+    case 128: return (int)occupancy<128, Elem>(S, res);
+    case 256: return (int)occupancy<256, Elem>(S, res);
     default: return (int)cudaErrorInvalidValue;
   }
 }

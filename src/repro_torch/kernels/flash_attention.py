@@ -13,8 +13,11 @@ then dK/dV and dQ), which the Pallas kernel does not have.
 For CPU tensors the wrappers run the plain versions
 (``kernels/ref.py:flash_attention_ref`` and its forward/backward
 companions); for CUDA tensors they launch the kernels or raise — there is
-no fallback. The kernels take float32 or bfloat16 forward, float32
-backward (a bfloat16 backward raises TypeError), head dims 16, 32, 64,
+no fallback. The kernels take float32, bfloat16 and float16, forward and
+backward (one library an element type: ``csrc/flash_attention.cu`` and
+its ``_bf16`` / ``_f16`` instantiations; q, k, v, out, dO and the
+gradients in that type, the log-sum-exp, the row sums and every sum
+float32, each output rounded once), head dims 16, 32, 64,
 96, 128 and 256, and (B, S, heads, hd) tensors with hd contiguous and any
 other strides whose rows start on 16 bytes (their tiles stream through
 16-byte ``cp.async``; a tensor whose base or strides break that is
@@ -25,10 +28,13 @@ takes two key tiles a block and, where that leaves the grid short of two
 blocks an SM (MQA: gemma-2b, recurrentgemma-2b), a part of each group's
 query heads (``bwd_parts``), writing partial sums to a float32 workspace
 that the wrapper allocates (parts x 2 x k's elements; 64 MiB at gemma's
-B 2, S 2048) and a second kernel adds in order. Their products run on the
+B 2, S 2048) and a second kernel adds in order. 16-bit inputs take that
+dK/dV kernel at hd 128 too, and always its workspace: the reduction
+rounds dK and dV once to the inputs' type. Their products run on the
 tensor cores in split TF32 (three TF32 products a float32 product, see the
 source's note), so the float32 results keep the plain versions'
-tolerances. Their own tiles are 64 rows by 32 keys (by 32 queries in
+tolerances; 16-bit inputs are exact in TF32 (one product where both
+operands are inputs, two where one is a computed float32 P or dS). Their own tiles are 64 rows by 32 keys (by 32 queries in
 dK/dV); the plain version's ``block`` is the key block of its loop, which
 the kernels do not need.
 """
@@ -51,15 +57,20 @@ SMS = 132  # the H100's SMs, which the hd-256 dK/dV grid is sized for
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _STRIDES = ctypes.POINTER(ctypes.c_longlong)
 _SIGNATURES = {
-    "flash_attention_fwd": (_I, [_I] + [_P] * 7 + [_I] * 8
+    "flash_attention_fwd": (_I, [_P] * 7 + [_I] * 8
                             + [ctypes.c_float, _STRIDES, _P]),
     "flash_attention_bwd": (_I, [_P] * 13 + [_I] * 9
                             + [ctypes.c_float, _STRIDES, _P]),
     "flash_attention_occupancy": (_I, [_I, _I, _P]),
 }
-# the kernels of each launch, in the order flash_attention_occupancy reports
-KERNELS = ("forward float32", "forward bfloat16", "dK/dV", "dQ")
-_DTYPES = (torch.float32, torch.bfloat16)
+# each element type's library (csrc/<name>.cu), and the launch counters'
+# suffixes of the 16-bit ones
+LIBRARIES = {torch.float32: "flash_attention",
+             torch.bfloat16: "flash_attention_bf16",
+             torch.float16: "flash_attention_f16"}
+_SUFFIX = {torch.bfloat16: "bf16", torch.float16: "f16"}
+# a library's kernels, in the order flash_attention_occupancy reports
+KERNELS = ("forward", "dK/dV", "dQ")
 
 
 def _scale(q, scale):
@@ -109,9 +120,10 @@ def _positions(pos, B, S, device):
 
 
 def _check(q, k, v):
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash attention takes float32 or bfloat16 q, k, v "
-                        f"of one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if q.dtype not in LIBRARIES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash attention takes float32, bfloat16 or float16 "
+                        f"q, k, v of one dtype, got {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"flash attention takes q (B, Sq, H, hd) and k, v "
                          f"(B, Sk, Kv, hd), got {tuple(q.shape)}, "
@@ -136,18 +148,28 @@ def _strides(*ts):
     return (ctypes.c_longlong * len(vals))(*vals)
 
 
-def _launch(entry, *args):
-    lib = build.load("flash_attention", _SIGNATURES)
+def _launch(dtype, entry, *args):
+    lib = build.load(LIBRARIES[dtype], _SIGNATURES)
     rc = getattr(lib, entry)(*args)
     if rc != 0:
-        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"{entry} ({dtype}) kernel launch failed: CUDA "
+                           f"error {rc}")
+
+
+def _count(fn, dtype):
+    """One launch of ``fn`` on ``dtype``: its total and, for a 16-bit type,
+    that type's own counter."""
+    fn.launches += 1
+    if dtype in _SUFFIX:
+        name = f"launches_{_SUFFIX[dtype]}"
+        setattr(fn, name, getattr(fn, name) + 1)
 
 
 def flash_attention_fwd(q, k, v, q_pos, k_pos, *, causal=True, window=None,
                         scale=None):
-    """q (B, Sq, H, hd), k, v (B, Sk, Kv, hd), float32 or bfloat16;
-    positions (B, Sq), (B, Sk) -> (out (B, Sq, H, hd) in q's dtype, lse
-    (B, H, Sq) float32). One launch of the forward kernel."""
+    """q (B, Sq, H, hd), k, v (B, Sk, Kv, hd), float32, bfloat16 or
+    float16; positions (B, Sq), (B, Sk) -> (out (B, Sq, H, hd) in q's
+    dtype, lse (B, H, Sq) float32). One launch of the forward kernel."""
     scale = _scale(q, scale)
     if q.device.type == "cpu":
         return flash_attention_fwd_ref(q, k, v, q_pos, k_pos, causal=causal,
@@ -165,22 +187,22 @@ def flash_attention_fwd(q, k, v, q_pos, k_pos, *, causal=True, window=None,
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    _launch("flash_attention_fwd", int(q.dtype == torch.bfloat16),
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), qp.data_ptr(),
-            kp.data_ptr(), out.data_ptr(), lse.data_ptr(), B, H, Kv, Sq, Sk,
-            hd, int(causal), _window(window), scale, _strides(q, k, v, out),
-            stream)
-    flash_attention_fwd.launches += 1
+    _launch(q.dtype, "flash_attention_fwd", q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), qp.data_ptr(), kp.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), B, H, Kv, Sq, Sk, hd, int(causal),
+            _window(window), scale, _strides(q, k, v, out), stream)
+    _count(flash_attention_fwd, q.dtype)
     return out, lse
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, q_pos, k_pos, *,
                         causal=True, window=None, scale=None):
-    """The backward pass of ``flash_attention_fwd``: (dq, dk, dv), float32,
-    shaped as q, k, v. ``out`` and ``lse`` are the forward's outputs,
-    ``dout`` the gradient of ``out``. One launch of the backward pass (its
-    row-sum, dK/dV and dQ kernels; at hd 256 with the heads split, the
-    reduction of dK/dV's partial sums too)."""
+    """The backward pass of ``flash_attention_fwd``: (dq, dk, dv) in q's
+    dtype (float32, bfloat16 or float16), shaped as q, k, v. ``out`` and
+    ``lse`` are the forward's outputs, ``dout`` the gradient of ``out``
+    (both in q's dtype; lse float32). One launch of the backward pass (its
+    row-sum, dK/dV and dQ kernels; at hd 256 with the heads split, or with
+    16-bit inputs, the reduction of dK/dV's float32 partial sums too)."""
     scale = _scale(q, scale)
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, dout, q_pos, k_pos,
@@ -190,10 +212,12 @@ def flash_attention_bwd(q, k, v, out, lse, dout, q_pos, k_pos, *,
         raise ValueError(f"flash attention runs on cpu or cuda, got "
                          f"{q.device}")
     _check(q, k, v)
-    if any(t.dtype != torch.float32 for t in (q, out, lse, dout)):
-        raise TypeError(f"the flash attention backward kernels take float32 "
-                        f"only, got {q.dtype} inputs, a {out.dtype} output, "
-                        f"a {lse.dtype} lse and a {dout.dtype} gradient")
+    if out.dtype != q.dtype or dout.dtype != q.dtype \
+            or lse.dtype != torch.float32:
+        raise TypeError(f"the flash attention backward takes out and dout in "
+                        f"q's dtype and a float32 lse, got {q.dtype} inputs, "
+                        f"a {out.dtype} output, a {lse.dtype} lse and a "
+                        f"{dout.dtype} gradient")
     B, Sq, H, hd = q.shape
     Sk, Kv = k.shape[1], k.shape[2]
     if (dout.shape != q.shape or out.shape != q.shape
@@ -209,47 +233,58 @@ def flash_attention_bwd(q, k, v, out, lse, dout, q_pos, k_pos, *,
     kp = _positions(k_pos, B, Sk, q.device)
     lse = lse.contiguous()
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
-    dv = torch.empty(v.shape, dtype=torch.float32, device=q.device)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)
+    dv = torch.empty(v.shape, dtype=q.dtype, device=q.device)
     parts = bwd_parts(B, Sk, H, Kv, hd)
+    # the warp pairs' float32 partial sums of dK and dV: at hd 256 with the
+    # heads split, and for 16-bit outputs at hd 128 and 256 (rounded once,
+    # by the reduction)
     ws = (torch.empty(parts * 2 * k.numel(), dtype=torch.float32,
-                      device=q.device) if parts > 1 else None)
+                      device=q.device)
+          if (hd > 128 and parts > 1)
+          or (hd >= 128 and q.dtype != torch.float32) else None)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    _launch("flash_attention_bwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+    _launch(q.dtype, "flash_attention_bwd", q.data_ptr(), k.data_ptr(),
+            v.data_ptr(),
             out.data_ptr(), dout.data_ptr(), qp.data_ptr(), kp.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), None if ws is None else ws.data_ptr(), B, H, Kv,
             Sq, Sk, hd, int(causal), _window(window), parts, scale,
             _strides(q, k, v, out, dout, dq, dk, dv), stream)
-    flash_attention_bwd.launches += 1
+    _count(flash_attention_bwd, q.dtype)
     return dq, dk, dv
 
 
 def occupancy(hd, S):
-    """{kernel: {"blocks_per_sm", "smem", "registers", "local_bytes",
-    "threads", "warps_per_sm"}} of the forward (float32, bfloat16), dK/dV
-    and dQ kernels at head dim ``hd`` and sequence length ``S``: blocks per
-    SM and dynamic shared memory bytes from the CUDA runtime's occupancy
-    calculator, registers and local memory bytes (spills) a thread from its
-    function attributes, threads a block, and the warps per SM they make.
-    Needs a card; launches nothing."""
+    """{"<kernel> <dtype>": {"blocks_per_sm", "smem", "registers",
+    "local_bytes", "threads", "warps_per_sm"}} of the forward, dK/dV and dQ
+    kernels of each element type (float32, bfloat16, float16) at head dim
+    ``hd`` and sequence length ``S``: blocks per SM and dynamic shared
+    memory bytes from the CUDA runtime's occupancy calculator, registers
+    and local memory bytes (spills) a thread from its function attributes,
+    threads a block, and the warps per SM they make. Needs a card;
+    launches nothing."""
     if hd not in HEAD_DIMS:
         raise ValueError(f"the flash attention kernels take head dims "
                          f"{HEAD_DIMS}, got {hd}")
-    res = (ctypes.c_int * 20)()
-    _launch("flash_attention_occupancy", hd, S, ctypes.addressof(res))
     keys = ("blocks_per_sm", "smem", "registers", "local_bytes", "threads")
-    out = {name: dict(zip(keys, res[5 * i:5 * i + 5]))
-           for i, name in enumerate(KERNELS)}
-    for r in out.values():
-        r["warps_per_sm"] = r["blocks_per_sm"] * r["threads"] // 32
+    out = {}
+    for dtype in LIBRARIES:
+        res = (ctypes.c_int * 15)()
+        _launch(dtype, "flash_attention_occupancy", hd, S,
+                ctypes.addressof(res))
+        for i, name in enumerate(KERNELS):
+            r = dict(zip(keys, res[5 * i:5 * i + 5]))
+            r["warps_per_sm"] = r["blocks_per_sm"] * r["threads"] // 32
+            out[f"{name} {str(dtype)[6:]}"] = r
     return out
 
 
-# kernel launches since the counts were last set to 0
-flash_attention_fwd.launches = 0
-flash_attention_bwd.launches = 0
+# kernel launches since the counts were last set to 0 (all types), and the
+# bfloat16 and float16 launches' own counts
+for _fn in (flash_attention_fwd, flash_attention_bwd):
+    _fn.launches = _fn.launches_bf16 = _fn.launches_f16 = 0
 
 
 class FlashAttention(torch.autograd.Function):

@@ -44,22 +44,45 @@ left whole and summed. The other families' ``model`` axis still holds
 replicas (every ``model`` rank computes its agents' whole step, so the
 activation peak is one agent's whole step on one card) and their records
 say so (``note``; their split blocks are ROADMAP A16d's second item). The
-serve shapes (``prefill_32k``, ``decode_32k``, ``long_500k``: A16d's first
-item) and the reference's non-panel variants (``baseline``, ``merge``,
+reference's non-panel training variants (``baseline``, ``merge``,
 ``nocomm``, ``bf16wire``, ``pairwise``, ``remat_dots``, ``nochunk``,
-``seqpar``, ``moeshard``: its third, the tree-state variants) are refused
-by name.
+``seqpar``, ``moeshard``: A16d's third item, the tree-state variants) are
+refused by name.
+
+The serve shapes (``prefill_32k``: 32 prompts of 32,768 tokens;
+``decode_32k``: one step of 128 rows over caches of 32,768;
+``long_500k``: one step of 1 row over 524,288) are the reference's
+``build_serve``: bfloat16 parameters, on its production mesh
+(``launch.mesh.serve_shape``: (16, 16) or (2, 16, 16) over ((pod,) data,
+model), the data axes on the port's fsdp line), the weights and KV caches
+as ``param_spec()`` / ``cache_spec()`` resolve under ``serve_rules(mesh,
+big)`` (``big``: fewer than 16 agents a pod, yi-34b: the weights' fsdp dim
+over the data axes too), the batch over the data axes, its variants
+``baseline`` (the config's own ``attn_block``, the default at a serve
+shape) and ``flashxla`` (``attn_block`` 512). :func:`reckon_serve` traces
+rank 0's ``prefill`` or ``decode_step`` on the split serve route
+(``models/tensor_parallel.py``) for the dense GQA decoders; a record holds
+``memory`` (``param_bytes`` and ``cache_bytes`` a rank, the traced peak,
+``per_device_total``, ``fits``), ``cost`` (FLOPs), ``collectives`` (calls
+and bytes) and a bfloat16 roofline. ``long_500k`` is the reference's SKIP
+for olmo-1b, phi3-mini-3.8b and yi-34b (full quadratic attention) and runs
+gemma-2b as gemma-2b-sw (its note); every other family at a serve shape is
+refused by name (``REFUSED`` under ``--arch all``; a SystemExit for one
+arch): its split blocks are ROADMAP A16d's second item.
 
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch olmo-1b \\
       --shape train_4k --mesh single --variant panel --out results/dryrun
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --shape prefill_32k
 
 :func:`reckon` is the same trace for any configuration: an explicit mesh
 shape, agents, batch, rounds and options (``chip_smoke.py`` phase 12e
-reckons its phase-12 runs with it).
+reckons its phase-12 runs with it); :func:`reckon_serve` for serving
+(phase 12g).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import time
@@ -108,6 +131,16 @@ REFUSED_VARIANTS = {
                  "ROADMAP A16d's split MoE blocks)",
 }
 SERVE_SHAPES = ("prefill_32k", "decode_32k", "long_500k")
+# the serve shapes' variants: the config's own attn_block, and 512
+SERVE_VARIANTS = ("baseline", "flashxla")
+# the reference's long_500k policy (repro/launch/dryrun.py: LONG_OK,
+# LONG_VIA_SW and the SKIP record's reason)
+LONG_VIA_SW = {"gemma-2b": "gemma-2b-sw"}
+LONG_NOTE = "sliding-window variant (window=4096)"
+LONG_SKIP = ("full quadratic attention family; long_500k reserved for "
+             "sub-quadratic archs (DESIGN.md §5)")
+SERVE_REFUSED = ("the serve shapes split the dense GQA decoders ({}); this "
+                 "family's split blocks are ROADMAP A16d's second item")
 NOTE = ("the port's 'model' axis holds replicas for this family: each model "
         "rank computes its agents' whole local step (the reference shards "
         "it by tensor parallelism; its split blocks are ROADMAP A16d's "
@@ -127,11 +160,10 @@ def device_total(peak: int, route: str = "nccl") -> dict:
 
 def _refuse(shape_name: str, variant: str):
     if shape_name in SERVE_SHAPES:
-        raise SystemExit(f"--shape {shape_name}: the dry run of the serve "
-                         "shapes (the reference's build_serve: weights and KV "
-                         "caches over model on the production mesh) is "
-                         "ROADMAP A16d's first item; the port reckons "
-                         "train_4k")
+        if variant not in SERVE_VARIANTS:
+            raise SystemExit(f"--variant {variant} at --shape {shape_name}: "
+                             f"the serve shapes take {SERVE_VARIANTS}")
+        return
     if variant not in VARIANTS:
         why = REFUSED_VARIANTS.get(variant, "not a variant of the reference")
         raise SystemExit(f"--variant {variant}: {why}; the port reckons the "
@@ -265,6 +297,174 @@ def reckon(cfg, mesh_shape, *, rank: int = 0, agents=None,
     return out
 
 
+def _serve_refusal(arch: str, shape_name: str):
+    """Why ``arch`` has no serve record at ``shape_name`` (None if it has
+    one): a family the split serve route does not split."""
+    if arch in tp.SPLIT_FAMILIES:
+        return None
+    return (f"{arch} at {shape_name}: "
+            + SERVE_REFUSED.format(", ".join(tp.SPLIT_FAMILIES)))
+
+
+def reckon_serve(cfg, mesh_shape, *, rank: int = 0, batch: int,
+                 prompt: int, max_len: int, decode_steps: int,
+                 route: str = "nccl"):
+    """Trace rank ``rank`` of the split serve route (``build_model(cfg,
+    split=)``) on a serve mesh of ``mesh_shape``: the rank's pieces (each
+    weight's block as ``serve_rules`` resolves it, in ``cfg``'s
+    param_dtype), then its data rows of a batch of ``batch``: a
+    ``prefill`` of ``prompt`` tokens into caches of ``max_len`` (or, with
+    ``prompt`` 0, ``init_cache``), then ``decode_steps`` decode steps.
+    Returns {"param_bytes", "cache_bytes", "rows", "peak", "marks",
+    "flops", "bytes_accessed", "host_reads", "run" (the collectives),
+    "big"}."""
+    mesh = RecordingMesh.of(mesh_mod.mesh_of_shape(mesh_shape, rank),
+                            route=route)
+    split = tp.Split(mesh)
+    whole = build_model(cfg)
+    model = build_model(cfg, split=split)
+    shardings = tp.serve_shardings(whole, mesh)
+    meta = whole.init_params(None, torch.device("meta"))
+    rows = split.data_rows(batch)
+    b = rows.stop - rows.start
+    out = {"rows": b, "big": tp.serve_big(cfg)}
+
+    model.serve_plan()  # its shapes from the meta device, outside the trace
+
+    def program(rec):
+        pieces = tp._map_paths(
+            lambda _, x, e: torch.empty(tp.block_shape(x.shape, e, mesh),
+                                        dtype=x.dtype), meta, shardings)
+        out["param_bytes"] = _tensor_bytes(pieces)
+        rec.mark("params")
+        mesh.reset()
+        with torch.no_grad():
+            if prompt:
+                tokens = torch.zeros((b, prompt), dtype=torch.int32)
+                _, caches = model.prefill(pieces, {"tokens": tokens},
+                                          max_len=max_len)
+                rec.mark("prefill")
+            else:
+                caches = model.init_cache(b, max_len, device="cpu")
+            out["cache_bytes"] = _tensor_bytes(caches)
+            pos = torch.full((b,), max_len - 1, dtype=torch.int32)
+            for _ in range(decode_steps):
+                _, caches = model.decode_step(
+                    pieces, caches, torch.zeros((b, 1), dtype=torch.int32),
+                    pos)
+            if decode_steps:
+                rec.mark("decode")
+        out["run"] = _stats(mesh)
+        return None
+
+    rec = trace(program)
+    out.update(peak=rec.peak, marks=rec.marks, flops=rec.flops,
+               bytes_accessed=rec.bytes_accessed, host_reads=rec.host_reads)
+    return out
+
+
+def run_serve_pair(arch: str, shape_name: str, multi_pod: bool,
+                   variant: str = "baseline", outdir=None,
+                   ranks_per_node: int = hardware.CARDS_PER_NODE):
+    """Reckon one serve (arch, shape, mesh, variant) pair as the
+    reference's ``build_serve`` lays it out; writes
+    ``outdir/<arch>_<shape>_<mesh>_<variant>.json`` when ``outdir`` is set
+    and returns the record (OK, SKIP, REFUSED, or FAIL with the error)."""
+
+    def body(rec):
+        eff = arch
+        if shape_name == "long_500k" and arch in LONG_VIA_SW:
+            eff = LONG_VIA_SW[arch]
+            rec["note"] = LONG_NOTE
+        refusal = _serve_refusal(arch, shape_name)
+        if refusal is not None:
+            rec.update(status="REFUSED", reason=refusal)
+            return
+        if shape_name == "long_500k" and eff == arch:
+            rec.update(status="SKIP", reason=LONG_SKIP)
+            return
+        cfg = get_config(eff).replace(param_dtype="bfloat16")
+        if variant == "flashxla":
+            cfg = cfg.replace(dist=dataclasses.replace(cfg.dist,
+                                                       attn_block=512))
+        shape = INPUT_SHAPES[shape_name]
+        mesh_shape = mesh_mod.serve_shape(multi_pod)
+        prefill = shape.kind == "prefill"
+        r = reckon_serve(cfg, mesh_shape, batch=shape.global_batch,
+                         prompt=shape.seq_len if prefill else 0,
+                         max_len=shape.seq_len,
+                         decode_steps=0 if prefill else 1)
+        rec.update(big=r["big"], chips=int(np.prod(mesh_shape)),
+                   mesh_shape=list(mesh_shape),
+                   attn_block=cfg.dist.attn_block, rows_per_rank=r["rows"])
+        _reckoned(rec, r, {"param_bytes": r["param_bytes"],
+                           "cache_bytes": r["cache_bytes"]}, mesh_shape,
+                  hardware.BF16_FLOPS, ranks_per_node,
+                  flops_mod.model_flops(build_model(get_config(eff)),
+                                        shape))
+
+    return _pair(arch, shape_name, multi_pod, variant, outdir, body)
+
+
+def _pair(arch, shape_name, multi_pod, variant, outdir, body):
+    """The record of one (arch, shape, mesh, variant) pair: ``body(rec)``
+    fills it (status OK unless it sets another); an exception in it makes
+    a FAIL record with the error and its traceback. Written to
+    ``outdir`` when that is set (:func:`_dump`)."""
+    _refuse(shape_name, variant)
+    rec = {"arch": arch, "shape": shape_name,
+           "mesh": "2x16x16" if multi_pod else "16x16",
+           "variant": variant, "status": "OK"}
+    t0 = time.time()
+    try:
+        body(rec)
+    except Exception as e:  # noqa: BLE001
+        rec["status"] = "FAIL"
+        rec["error"] = f"{type(e).__name__}: {e}"
+        rec["traceback"] = traceback.format_exc()[-2000:]
+    rec["wall_s"] = round(time.time() - t0, 2)
+    _dump(rec, outdir)
+    return rec
+
+
+def _reckoned(rec, r, held, mesh_shape, rate, ranks_per_node, model_flops,
+              **cost):
+    """A record's numbers from the reckoning ``r`` on ``mesh_shape``: the
+    memory (``held``: the bytes a rank holds beyond its transients, by
+    name; the device total and whether it fits the card), the cost
+    (``cost``'s entries beside the traced FLOPs and bytes), the
+    collectives, the host reads, ``model_flops`` and the roofline terms
+    (the compute term at ``rate`` FLOP/s)."""
+    peak = r["peak"]
+    total = device_total(peak)
+    rec["memory"] = {**held, "transient_bytes": peak - sum(held.values()),
+                     "traced_peak_bytes": peak, **total,
+                     "card_bytes": hardware.MEMORY_BYTES,
+                     "fits": bool(total["per_device_total"]
+                                  <= hardware.MEMORY_BYTES),
+                     "unreckoned": "NCCL's communicator buffers",
+                     "marks": r["marks"]}
+    rec["cost"] = {"flops_per_device": r["flops"],
+                   "bytes_per_device": r["bytes_accessed"], **cost}
+    coll = collective_record(r["run"], mesh_mod.mesh_of_shape(mesh_shape),
+                             ranks_per_node)
+    rec["collectives"] = coll
+    rec["host_reads"] = r["host_reads"]
+    rec["model_flops"] = model_flops
+    terms = {"compute_s": r["flops"] / rate,
+             "memory_s": r["bytes_accessed"] / hardware.HBM_BYTES_PER_S,
+             "collective_s": coll["seconds"]}
+    rec["roofline"] = dict(terms, dominant=max(terms, key=terms.get))
+
+
+def _dump(rec, outdir):
+    if outdir:
+        os.makedirs(outdir, exist_ok=True)
+        tag = f"{rec['arch']}_{rec['shape']}_{rec['mesh']}_{rec['variant']}"
+        with open(os.path.join(outdir, tag + ".json"), "w") as f:
+            json.dump(rec, f, indent=1, default=str)
+
+
 def _link(members, ranks_per_node: int) -> tuple:
     """(link name, bytes/s) of a line whose members are ``members``."""
     if len({r // ranks_per_node for r in members}) == 1:
@@ -304,12 +504,8 @@ def run_pair(arch: str, shape_name: str, multi_pod: bool,
     """Reckon one (arch, shape, mesh, variant) pair; writes
     ``outdir/<arch>_<shape>_<mesh>_<variant>.json`` when ``outdir`` is
     set and returns the record (status OK, or FAIL with the error)."""
-    _refuse(shape_name, variant)
-    mesh_name = "2x16x16" if multi_pod else "16x16"
-    rec = {"arch": arch, "shape": shape_name, "mesh": mesh_name,
-           "variant": variant, "status": "OK"}
-    t0 = time.time()
-    try:
+
+    def body(rec):
         cfg = get_config(arch)
         split = not tp.unsplit_parts(cfg)
         if not split:
@@ -317,7 +513,6 @@ def run_pair(arch: str, shape_name: str, multi_pod: bool,
         shape = INPUT_SHAPES[shape_name]
         mesh_shape = mesh_mod.training_shape(cfg.dist.agents_per_pod,
                                              multi_pod)
-        chips = int(np.prod(mesh_shape))
         m = mesh_shape[0] * mesh_shape[1]
         if shape.global_batch % m:
             raise ValueError(f"global batch {shape.global_batch} does not "
@@ -330,45 +525,18 @@ def run_pair(arch: str, shape_name: str, multi_pod: bool,
             rec["split"] = r["split"]
         spec = r["spec"]
         opt = make_optimizer("adamw", 1e-4)
-        rec.update(agents=m, panel_width=spec.width, chips=chips,
+        rec.update(agents=m, panel_width=spec.width,
+                   chips=int(np.prod(mesh_shape)),
                    mesh_shape=list(mesh_shape),
                    wire_bytes_per_agent=spec.wire_total_bytes,
                    resident_bytes_per_agent=resident_bytes_model(spec, opt),
                    agents_per_rank=r["agents_here"])
-        peak = r["peak"]
-        total = device_total(peak)
-        rec["memory"] = {"state_bytes": r["state_bytes"],
-                         "transient_bytes": peak - r["state_bytes"],
-                         "traced_peak_bytes": peak, **total,
-                         "card_bytes": hardware.MEMORY_BYTES,
-                         "fits": bool(total["per_device_total"]
-                                      <= hardware.MEMORY_BYTES),
-                         "unreckoned": "NCCL's communicator buffers",
-                         "marks": r["marks"]}
-        rec["cost"] = {"flops_per_device": r["flops"],
-                       "bytes_per_device": r["bytes_accessed"],
-                       "segment": r["segment0"]}
-        shape_mesh = mesh_mod.mesh_of_shape(mesh_shape)
-        coll = collective_record(r["run"], shape_mesh, ranks_per_node)
-        rec["collectives"] = coll
-        rec["host_reads"] = r["host_reads"]
-        model = build_model(cfg)
-        rec["model_flops"] = flops_mod.model_flops(model, shape)
-        terms = {"compute_s": r["flops"] / hardware.FP32_FLOPS,
-                 "memory_s": r["bytes_accessed"] / hardware.HBM_BYTES_PER_S,
-                 "collective_s": coll["seconds"]}
-        rec["roofline"] = dict(terms, dominant=max(terms, key=terms.get))
-    except Exception as e:  # noqa: BLE001
-        rec["status"] = "FAIL"
-        rec["error"] = f"{type(e).__name__}: {e}"
-        rec["traceback"] = traceback.format_exc()[-2000:]
-    rec["wall_s"] = round(time.time() - t0, 2)
-    if outdir:
-        os.makedirs(outdir, exist_ok=True)
-        tag = f"{arch}_{shape_name}_{mesh_name}_{variant}"
-        with open(os.path.join(outdir, tag + ".json"), "w") as f:
-            json.dump(rec, f, indent=1, default=str)
-    return rec
+        _reckoned(rec, r, {"state_bytes": r["state_bytes"]}, mesh_shape,
+                  hardware.FP32_FLOPS, ranks_per_node,
+                  flops_mod.model_flops(build_model(cfg), shape),
+                  segment=r["segment0"])
+
+    return _pair(arch, shape_name, multi_pod, variant, outdir, body)
 
 
 def main(argv=None):
@@ -379,38 +547,51 @@ def main(argv=None):
                     choices=sorted(INPUT_SHAPES))
     ap.add_argument("--mesh", default="both",
                     choices=["single", "multi", "both"])
-    ap.add_argument("--variant", default="panel",
-                    help="one of the reference's panel variants: "
-                         + ", ".join(VARIANTS))
+    ap.add_argument("--variant", default=None,
+                    help="one of the reference's panel variants at "
+                         "train_4k (default panel): " + ", ".join(VARIANTS)
+                         + "; at a serve shape " + " or ".join(SERVE_VARIANTS)
+                         + " (default baseline)")
     ap.add_argument("--ranks-per-node", type=int,
                     default=hardware.CARDS_PER_NODE,
                     help="cards a node joins by NVLink (the collective "
                          "term's links)")
     ap.add_argument("--out", default="results/torch_dryrun")
     args = ap.parse_args(argv)
-    _refuse(args.shape, args.variant)
+    serving = args.shape in SERVE_SHAPES
+    variant = args.variant or ("baseline" if serving else "panel")
+    _refuse(args.shape, variant)
     archs = ARCHS if args.arch == "all" else [args.arch]
+    if serving and args.arch != "all":
+        why = _serve_refusal(args.arch, args.shape)
+        if why is not None:
+            raise SystemExit(why)
     meshes = {"single": [False], "multi": [True],
               "both": [False, True]}[args.mesh]
-    ok = fail = 0
+    counts = {}
     for arch in archs:
         for mp in meshes:
-            rec = run_pair(arch, args.shape, mp, args.variant, args.out,
-                           args.ranks_per_node)
-            ok += rec["status"] == "OK"
-            fail += rec["status"] == "FAIL"
+            run = run_serve_pair if serving else run_pair
+            rec = run(arch, args.shape, mp, variant, args.out,
+                      args.ranks_per_node)
+            counts[rec["status"]] = counts.get(rec["status"], 0) + 1
             mem = rec.get("memory", {})
+            held = (f"params {mem.get('param_bytes')} cache "
+                    f"{mem.get('cache_bytes')}" if serving
+                    else f"state {mem.get('state_bytes')}")
             print(f"[{rec['status']:4s}] {arch:22s} {args.shape:10s} "
-                  f"{rec['mesh']:8s} {args.variant:20s} state "
-                  f"{mem.get('state_bytes')} peak "
+                  f"{rec['mesh']:8s} {variant:20s} {held} peak "
                   f"{mem.get('traced_peak_bytes')} device "
                   f"{mem.get('per_device_total')} fits {mem.get('fits')} "
                   f"dom={rec.get('roofline', {}).get('dominant', '-')} "
                   f"wall={rec['wall_s']}s"
                   + (f" err={rec.get('error', '')[:200]}"
-                     if rec["status"] == "FAIL" else ""), flush=True)
-    print(f"done: ok={ok} fail={fail}")
-    return 1 if fail else 0
+                     if rec["status"] == "FAIL" else "")
+                  + (f" ({rec['reason'][:120]})" if "reason" in rec
+                     else ""), flush=True)
+    print("done: " + " ".join(f"{k.lower()}={v}"
+                              for k, v in sorted(counts.items())))
+    return 1 if counts.get("FAIL") else 0
 
 
 if __name__ == "__main__":

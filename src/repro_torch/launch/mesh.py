@@ -43,7 +43,9 @@ CUDA tensor travels one route a layout (``Mesh.transport`` names it):
 ``ReduceOp.MAX``).
 
 Shapes: ``make_training_mesh`` gives the reference's (1 or 2, agents per
-pod, 16 / agents per pod, 16), 256 or 512 ranks; ``make_debug_mesh`` a small
+pod, 16 / agents per pod, 16), 256 or 512 ranks; :func:`serve_shape` its
+production mesh, ((pod,) data, model) mapped to (1, 1, (2 x) 16, 16): the
+data axes on ``fsdp``; ``make_debug_mesh`` a small
 (1, agents, fsdp, model) mesh, the launcher's ``--mesh debug`` (1, 2, 2,
 2). A world size other than the mesh's product is a SystemExit that names
 both. :func:`mesh_of_shape` places one rank on a mesh of any shape with no
@@ -287,6 +289,17 @@ def training_shape(agents_per_pod: int, multi_pod: bool = False):
         raise ValueError(f"agents_per_pod={agents_per_pod} must divide 16")
     return (PODS if multi_pod else 1, agents_per_pod,
             DATA_AXIS // agents_per_pod, MODEL_AXIS)
+
+
+def serve_shape(multi_pod: bool = False):
+    """The reference's production (serving) mesh, (16, 16) over ('data',
+    'model') or (2, 16, 16) over ('pod', 'data', 'model'), on the port's
+    AXES: (1, 1, data, 16) with the pod and data axes flattened, row-major
+    as ``jax.make_mesh`` lays them out, onto ``fsdp`` (32 with two pods).
+    A data rank is then a coordinate of the fsdp line and its model ranks
+    its model line; ``models.sharding.serve_rules`` reads 'fsdp' as the
+    data axes there."""
+    return (1, 1, DATA_AXIS * (PODS if multi_pod else 1), MODEL_AXIS)
 
 
 def make_training_mesh(agents_per_pod: int, *, multi_pod: bool = False,

@@ -27,8 +27,10 @@ and cached as ``{"k", "v", "pos"}``, through the plain ``_sdpa``.
 
 Each family has the reference's logical specs (``spec_gqa``,
 ``spec_gqa_cache``, ``spec_mla``, ``spec_mla_cache``, ``spec_cross``).
-On the split route (``models/tensor_parallel.py``) ``gqa_forward`` in
-train mode takes a ``split`` and runs on the rank's heads.
+On the split route (``models/tensor_parallel.py``) ``gqa_forward`` takes
+a ``split`` in every mode and runs on the rank's heads; in prefill and
+decode it writes the rank's block of the cache (its kv heads where the
+model line divides them, else all of them).
 """
 from __future__ import annotations
 
@@ -128,18 +130,17 @@ def gqa_forward(params, x, *, cfg: ModelConfig, lspec: LayerSpec,
     depth) writes into ``cache`` in place and returns it. ``positions3``
     (3, B, S) are M-RoPE's t/h/w positions (rope "mrope" only).
 
-    ``split`` (train mode; ``tensor_parallel.Split`` whose ``attn(a)``
-    holds) runs the rank's H / M query heads: ``wq`` and ``wo`` are its
-    blocks, ``wk``/``wv`` its Kv / M heads' columns where M divides Kv,
-    else whole, the rank reading the one kv head its query heads share;
-    x enters through ``split.copy_in``, the output leaves through
-    ``split.reduce_out``."""
+    ``split`` (``tensor_parallel.Split`` whose ``attn(a)`` holds) runs
+    the rank's H / M query heads: ``wq`` and ``wo`` are its blocks,
+    ``wk``/``wv`` its Kv / M heads' columns where M divides Kv, else whole,
+    the rank reading the one kv head its query heads share; x enters
+    through ``split.copy_in``, the output leaves through
+    ``split.reduce_out``. Its cache (prefill, decode) holds the kv heads it
+    computes: its Kv / M where M divides Kv, else all Kv (as
+    ``spec_gqa_cache`` resolves on the serve mesh)."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"gqa_forward mode {mode!r}: train, prefill or "
                          "decode")
-    if split is not None and mode != "train":
-        raise ValueError(f"gqa_forward: the split route is a train step, "
-                         f"not {mode}")
     a = cfg.attn
     B, S, _ = x.shape
     H, Kv = a.num_heads, a.num_kv_heads
@@ -149,10 +150,16 @@ def gqa_forward(params, x, *, cfg: ModelConfig, lspec: LayerSpec,
     q = (x @ params["wq"]).reshape(B, S, H, a.head_dim)
     k = (x @ params["wk"]).reshape(B, S, -1, a.head_dim)
     v = (x @ params["wv"]).reshape(B, S, -1, a.head_dim)
-    if split is not None and k.shape[2] != Kv:
-        k, v = k[:, :, kv0:kv0 + Kv], v[:, :, kv0:kv0 + Kv]
     q = _rope_q_or_k(q, positions, a, positions3)
     k = _rope_q_or_k(k, positions, a, positions3)
+
+    def read(kk, vv):
+        """The kv heads the rank's query heads read (all but on a split
+        rank sharing one kv head of several)."""
+        if split is not None and kk.shape[2] != Kv:
+            return kk[:, :, kv0:kv0 + Kv], vv[:, :, kv0:kv0 + Kv]
+        return kk, vv
+
     scale = 1.0 / math.sqrt(a.head_dim)
     new_cache = None
     if mode == "decode":
@@ -168,18 +175,19 @@ def gqa_forward(params, x, *, cfg: ModelConfig, lspec: LayerSpec,
         cv.index_put_((rows, slots), v[:, 0].to(cv.dtype))
         cpos.index_put_((rows, slots), idx.to(cpos.dtype))
         bias = _mask_bias(positions, cpos, causal=causal, window=lspec.window)
-        y = _sdpa(q, ck, cv, bias, scale)
+        y = _sdpa(q, *read(ck, cv), bias, scale)
         new_cache = cache
     else:
         pos_b = torch.broadcast_to(positions, (B, S))
+        ka, va = read(k, v)
         if cfg.dist.attn_block:
-            y = _sdpa_blockwise(q, k, v, pos_b, pos_b, causal=causal,
+            y = _sdpa_blockwise(q, ka, va, pos_b, pos_b, causal=causal,
                                 window=lspec.window, scale=scale,
                                 block=cfg.dist.attn_block)
         else:
             bias = _mask_bias(pos_b, pos_b, causal=causal,
                               window=lspec.window)
-            y = _sdpa(q, k, v, bias, scale)
+            y = _sdpa(q, ka, va, bias, scale)
         if mode == "prefill":
             new_cache = _prefill_cache(lspec, k, v, positions, B, S,
                                        cache_max_len or S)
@@ -215,14 +223,16 @@ def cache_len(lspec: LayerSpec, seq_len: int) -> int:
 
 
 def init_gqa_cache(cfg: ModelConfig, lspec: LayerSpec, B: int, seq_len: int,
-                   *, device, dtype=torch.float32):
-    """An empty cache: k and v (B, W, Kv, hd) zeros, pos (B, W) int32 -1."""
+                   *, device, dtype=torch.float32, kv_heads=None):
+    """An empty cache: k and v (B, W, Kv, hd) zeros, pos (B, W) int32 -1
+    (``kv_heads``: a split rank's Kv / M instead of Kv)."""
     a = cfg.attn
     W = cache_len(lspec, seq_len)
-    return {"k": torch.zeros((B, W, a.num_kv_heads, a.head_dim),
-                             dtype=dtype, device=device),
-            "v": torch.zeros((B, W, a.num_kv_heads, a.head_dim),
-                             dtype=dtype, device=device),
+    Kv = kv_heads or a.num_kv_heads
+    return {"k": torch.zeros((B, W, Kv, a.head_dim), dtype=dtype,
+                             device=device),
+            "v": torch.zeros((B, W, Kv, a.head_dim), dtype=dtype,
+                             device=device),
             "pos": torch.full((B, W), -1, dtype=torch.int32, device=device)}
 
 

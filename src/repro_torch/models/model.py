@@ -36,12 +36,17 @@ pos -1, recurrent states at zero with the mLSTM and sLSTM stabiliser m at
 ``param_spec()`` and ``cache_spec()`` are the reference's logical specs of
 the parameter and cache trees (plain tuples; ``models/sharding.py``
 resolves them). ``build_model(cfg, split=)`` (``models/tensor_parallel.py``
-'s ``Split``; the dense GQA decoders only) builds the split route's loss:
-the rank's share of one agent's step. ``loss_fn.cfg`` is ``cfg``, so a
-segment given ``param_shardings`` builds that loss from the model's own.
+'s ``Split``; the dense GQA decoders only) builds the split route: its loss
+is the rank's share of one agent's step, and its ``prefill``,
+``decode_step`` and ``init_cache`` serve on the rank's pieces
+(``tensor_parallel.serve_pieces`` of the whole parameters: the reference's
+``build_serve`` layout) and the rank's cache block, for the data rank's
+rows that the caller hands them. ``loss_fn.cfg`` is ``cfg``, so a segment
+given ``param_shardings`` builds that loss from the model's own.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Callable, Optional
 
@@ -53,6 +58,7 @@ from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import (apply_norm, chunked_softmax_xent,
                                        dense_init, embed_tokens, init_embed,
                                        init_norm, spec_embed, spec_norm)
+from repro_torch.models import tensor_parallel as tp
 from repro_torch.models.tensor_parallel import check_family
 
 MTP_WEIGHT = 0.3
@@ -74,6 +80,9 @@ class Model:
     head_w: Callable  # params -> (d_model, padded_vocab)
     param_spec: Callable  # () -> the logical spec tree of the parameters
     cache_spec: Callable  # () -> the logical spec tree of the caches
+    # the split route's () -> tensor_parallel.serve_plan tree (None
+    # without a split): built at its first call, from shapes alone
+    serve_plan: Optional[Callable] = None
 
 
 def extra_inputs(cfg: ModelConfig, S: int) -> dict:
@@ -306,17 +315,95 @@ def build_model(cfg: ModelConfig, split=None) -> Model:
     def init_cache(B, seq_len, dtype=None, enc_len: int = 0, device=None):
         """Empty caches for B rows of ``seq_len`` positions on ``device``
         (default: the card); with an encoder, each block's cross keys and
-        values of ``enc_len`` (default ``seq_len``) slots at pos -1."""
+        values of ``enc_len`` (default ``seq_len``) slots at pos -1. On the
+        split route the rank's block of each (B is the data rank's
+        rows)."""
         return tfm.init_stack_cache(cfg, B, seq_len,
                                     device=resolve_device(device),
                                     cross=is_encdec,
                                     enc_len=enc_len or seq_len,
-                                    dtype=dtype or dt)
+                                    dtype=dtype or dt, split=split)
+
+    serve = {}
+
+    def serve_plan():
+        """The serve route's plan of the rank's pieces (built once)."""
+        if "plan" not in serve:
+            serve["plan"] = tp.serve_plan(
+                cfg, split, tp.serve_shardings(model, split.mesh))
+        return serve["plan"]
+
+    def split_embed(params, tokens):
+        """The lookup on the rank's columns of the table (gathered over the
+        data line where it is held by rows there), scaled, then the
+        columns gathered over the model line."""
+        plan = serve_plan()["embed"]["table"]
+        table = tp.materialize(params["embed"]["table"], plan, split)
+        x = table[tokens.long()]
+        if cfg.embed_scale:
+            x = x * math.sqrt(cfg.d_model)
+        if plan.entry[-1] == "model":
+            x = split.gather(x, "model", -1)
+        return x
+
+    def split_logits(params, h):
+        """(B, S, d) -> float32 logits (B, S, padded_vocab), whole on every
+        model rank: a tied table held by d_model columns sums the ranks'
+        partial products over the model line; an untied head held by
+        vocabulary columns gathers the ranks' columns."""
+        if cfg.tie_embeddings:
+            plan = serve_plan()["embed"]["table"]
+            table = tp.materialize(params["embed"]["table"], plan, split)
+            if plan.entry[-1] != "model":
+                return (h @ table.T).to(torch.float32)
+            n = table.shape[-1]
+            c0 = split.model_rank * n
+            return split.model_sum(
+                (h[..., c0:c0 + n] @ table.T).to(torch.float32))
+        plan = serve_plan()["head"]["w"]
+        w = tp.materialize(params["head"]["w"], plan, split)
+        lg = (h @ w).to(torch.float32)
+        return (split.gather(lg, "model", -1) if plan.entry[-1] == "model"
+                else lg)
+
+    def split_prefill(params, batch, max_len: Optional[int] = None):
+        """``prefill`` on the rank's pieces for the data rank's rows:
+        (logits (B, padded_vocab) float32, whole on every model rank, the
+        rank's cache blocks of ``max_len`` slots)."""
+        x = split_embed(params, batch["tokens"])
+        B, S = x.shape[:2]
+        positions = torch.broadcast_to(
+            torch.arange(S, dtype=torch.int32, device=x.device), (B, S))
+        h, caches, _ = tfm.apply_stack(params["decoder"], x, cfg=cfg,
+                                       positions=positions, mode="prefill",
+                                       cache_max_len=max_len or S,
+                                       split=split,
+                                       plan=serve_plan()["decoder"])
+        h = apply_norm(params["final_norm"], h[:, -1:], cfg.norm)
+        return split_logits(params, h)[:, 0], caches
+
+    def split_decode_step(params, caches, tokens, index):
+        """``decode_step`` on the rank's pieces and cache blocks."""
+        B = tokens.shape[0]
+        x = split_embed(params, tokens)
+        idx = torch.as_tensor(index, dtype=torch.int32, device=x.device)
+        positions = (idx.reshape(B, 1) if idx.dim()
+                     else torch.full((B, 1), int(idx), dtype=torch.int32,
+                                     device=x.device))
+        h, caches, _ = tfm.apply_stack(params["decoder"], x, cfg=cfg,
+                                       positions=positions, mode="decode",
+                                       caches=caches, split=split,
+                                       plan=serve_plan()["decoder"])
+        h = apply_norm(params["final_norm"], h, cfg.norm)
+        return split_logits(params, h)[:, 0], caches
 
     if split is not None:
         loss_fn = split_loss_fn
+        prefill, decode_step = split_prefill, split_decode_step
     loss_fn.cfg = cfg
-    return Model(cfg=cfg, init_params=init_params, loss_fn=loss_fn,
-                 prefill=prefill, decode_step=decode_step,
-                 init_cache=init_cache, head_w=head_w,
-                 param_spec=param_spec, cache_spec=cache_spec)
+    model = Model(cfg=cfg, init_params=init_params, loss_fn=loss_fn,
+                  prefill=prefill, decode_step=decode_step,
+                  init_cache=init_cache, head_w=head_w,
+                  param_spec=param_spec, cache_spec=cache_spec,
+                  serve_plan=serve_plan if split is not None else None)
+    return model

@@ -124,8 +124,15 @@ SERVE_RULES_SMALL = {"fsdp": None, "model": "model", "expert": "model",
 def serve_rules(mesh, big: bool):
     """The serve meshes' rules ((16, 16) over ('data', 'model'), or with a
     'pod' axis first): weights and KV caches over 'model', the batch over
-    the data axes, and (``big``) the weights' fsdp dim over them too."""
-    data_axes = ("pod", "data") if "pod" in _axis_names(mesh) else ("data",)
+    the data axes, and (``big``) the weights' fsdp dim over them too. On
+    the port's serve mesh (``launch.mesh.serve_shape``: no 'data' axis,
+    the production mesh's pod and data axes flattened onto 'fsdp') the
+    data axes are 'fsdp'."""
+    names = _axis_names(mesh)
+    if "data" not in names:
+        data_axes = ("fsdp",)
+    else:
+        data_axes = ("pod", "data") if "pod" in names else ("data",)
     da = data_axes if len(data_axes) > 1 else data_axes[0]
     rules = {"model": "model", "expert": "model", "data": da}
     rules["fsdp"] = da if big else None

@@ -36,6 +36,28 @@ only) or ``sum`` (whole, each model rank's gradient a part: summed; a
 whole kv projection feeding split heads, and the tied table, whose lookup
 only model rank 0 differentiates and whose head rows each rank's). The
 model is told its line explicitly (``build_model(cfg, split=)``).
+
+Serving (the reference's ``build_serve``, ``repro/launch/dryrun.py``): on
+the production mesh (``launch.mesh.serve_shape``: the data axes on the
+``fsdp`` line, ``model`` on ``model``) a rank holds each weight's block as
+``model.param_spec()`` resolves under ``serve_rules(mesh, big)``
+(:func:`serve_shardings`, :func:`serve_pieces`; ``big`` =
+:func:`serve_big`: the fsdp dim over the data line too) and each KV cache
+leaf's block as ``cache_spec()`` resolves (its rows over data, its kv
+heads over model where M divides Kv). Before use, a layer at a time,
+each leaf is gathered (:func:`materialize`, :func:`serve_plan`) over the
+data line (big) and over the model line where the split decisions keep
+it whole (``wq`` .. ``wo`` of an attention that stays whole, a kv head
+shared by the rank's query heads, a d_ff or vocabulary that M does not
+divide), and freed after. The embedding table keeps its d_model columns
+over model: the lookup gathers the rank's columns of the activations, a
+tied head sums the ranks' partial logits over model; an untied head
+computes the rank's vocabulary columns and gathers its float32 logits,
+so every model rank holds the whole (B, padded_vocab) and samples the
+same token. :meth:`Split.copy_in` / :meth:`Split.reduce_out` run without
+a backward there (no autograd graph). Each data rank serves its own rows
+(:meth:`Split.data_rows`: the caller cuts them); its model ranks run in
+lockstep.
 """
 from __future__ import annotations
 
@@ -44,7 +66,7 @@ from typing import Dict, List
 
 import torch
 
-from repro_torch.models.sharding import TRAIN_RULES, resolve
+from repro_torch.models.sharding import TRAIN_RULES, resolve, serve_rules
 from repro_torch.utils.tree import tree_flatten, tree_unflatten
 
 # the dense GQA families this route splits; any other family given
@@ -83,9 +105,10 @@ def check_family(cfg):
     parts = unsplit_parts(cfg)
     if parts:
         raise NotImplementedError(
-            f"param_shardings: {cfg.name} has {', '.join(parts)}, which the "
-            "split route does not split yet (ROADMAP A16d); it splits the "
-            f"dense GQA decoders {', '.join(SPLIT_FAMILIES)}")
+            f"the split route: {cfg.name} has {', '.join(parts)}, which it "
+            "does not split yet (ROADMAP A16d, its second item: the other "
+            "families' split blocks); it splits the dense GQA decoders "
+            f"{', '.join(SPLIT_FAMILIES)}, in training and serving")
 
 
 class _CopyIn(torch.autograd.Function):
@@ -217,6 +240,16 @@ class Split:
         n = V // self.model_size
         return self.model_rank * n, (self.model_rank + 1) * n
 
+    def data_rows(self, b: int) -> slice:
+        """A data rank's rows of a serving batch of ``b`` rows (the serve
+        mesh's data line is its fsdp line): its block where the line
+        divides ``b``, else every row (the batch then replicated over the
+        data ranks, as ``resolve`` leaves an indivisible dim whole)."""
+        D = self.fsdp_size
+        if b % D:
+            return slice(0, b)
+        return slice(self.fsdp_rank * (b // D), (self.fsdp_rank + 1) * (b // D))
+
     def batch_rows(self, b: int) -> slice:
         """This rank's rows of an agent batch of ``b`` rows."""
         F = self.fsdp_size
@@ -240,6 +273,16 @@ class Split:
 
     def model_max(self, x):
         return self._reduce(x, "model", op="max")
+
+    def gather(self, x, axis, dim: int):
+        """``x`` all-gathered over the line of mesh ``axis`` ('model', or
+        'fsdp': the serve mesh's data line) along ``dim``, the ranks' blocks
+        in line order."""
+        line = _LINE_OF[axis]
+        if len(self.mesh.members[line]) == 1:
+            return x
+        g = self.mesh.all_gather(x.movedim(dim, 0).contiguous(), line)
+        return g.movedim(0, dim)
 
     def fsdp_sum(self, x):
         """``x`` summed over the fsdp line, in place."""
@@ -325,6 +368,105 @@ def leaf_plan(cfg, split: Split, param_shardings) -> Dict:
             rule = LeafSplit("once")
         leaves.append(rule)
     return tree_unflatten(tree_flatten(param_shardings)[1], leaves)
+
+
+# the mesh lines a resolved serve entry gathers over
+_LINE_OF = {"model": "model", "fsdp": "fsdp"}
+
+
+def serve_big(cfg) -> bool:
+    """The reference's ``big`` (``build_serve``): a model trained with
+    fewer than 16 agents a pod (over 30 B parameters) has its weights' fsdp
+    dim over the data axes too."""
+    return cfg.dist.agents_per_pod < 16
+
+
+@dataclass(frozen=True)
+class ServeLeaf:
+    """A parameter leaf on the serve route: ``entry`` its resolved
+    ``serve_rules`` tuple (how a rank holds it), ``gathers`` the (axis,
+    dim counted from the end) it is all-gathered over before use."""
+    entry: tuple
+    gathers: tuple
+
+
+def _map_paths(fn, tree, *rest, at=()):
+    if isinstance(tree, dict):
+        return {k: _map_paths(fn, tree[k], *(r[k] for r in rest),
+                              at=at + (k,)) for k in tree}
+    return fn(at, tree, *rest)
+
+
+def serve_shardings(model, mesh):
+    """The resolved ``serve_rules(mesh, serve_big(cfg))`` tree of
+    ``model``'s parameters: the reference's ``build_serve`` params_ps, as
+    tuples (shapes from the meta device; nothing allocated)."""
+    check_family(model.cfg)
+    one = model.init_params(None, torch.device("meta"))
+    return resolve(model.param_spec(), one, mesh,
+                   serve_rules(mesh, serve_big(model.cfg)))
+
+
+def serve_plan(cfg, split: Split, shardings) -> Dict:
+    """The tree of :class:`ServeLeaf` of ``cfg``'s parameters held as
+    ``shardings`` resolves them: a dim over the data line is gathered; a
+    dim over model is kept where the split decisions split it (the
+    rank's heads, d_ff columns and vocabulary; the table's d_model
+    columns) and gathered where they keep the dim whole."""
+    a, V = cfg.attn, cfg.padded_vocab
+    take = {"q": split.attn(a), "kv": split.kv(a), "mlp": split.mlp(cfg.d_ff),
+            "vocab": split.vocab(V)}
+
+    def leaf(path, entry):
+        role, rdim = _ROLES.get(path[-2:], (None, None))
+        gathers = []
+        for d, e in enumerate(entry):
+            at = d - len(entry)
+            if e is None:
+                continue
+            keep = e == "model" and (path == ("embed", "table") or (
+                role is not None and take[role] and at == rdim))
+            if not keep:
+                gathers.append((e, at))
+        return ServeLeaf(tuple(entry), tuple(gathers))
+
+    return _map_paths(leaf, shardings)
+
+
+def block_shape(shape, entry, mesh):
+    """The shape of a rank's block of a leaf of ``shape`` held as
+    ``entry``."""
+    return tuple(n // (mesh.axis_size(e) if e is not None else 1)
+                 for n, e in zip(shape, entry))
+
+
+def rank_block(x, entry, mesh):
+    """This rank's block of the whole leaf ``x`` held as ``entry``: each
+    dim named by mesh axes cut to the rank's index along them (a copy)."""
+    for d, (e, n) in enumerate(zip(entry, block_shape(x.shape, entry,
+                                                      mesh))):
+        if e is not None:
+            x = x.narrow(d, mesh.axis_index(e) * n, n)
+    return x.clone(memory_format=torch.contiguous_format)
+
+
+def serve_pieces(params, mesh, shardings):
+    """The rank's pieces of whole ``params`` (the serve route's
+    counterpart of :func:`leaf_plan`): each leaf's block as ``shardings``
+    (:func:`serve_shardings`) resolves it."""
+    return _map_paths(lambda _, x, e: rank_block(x, e, mesh), params,
+                      shardings)
+
+
+def materialize(tree, plan, split: Split):
+    """``tree``'s leaves (a block's, or one leaf) brought to the layout the
+    computation reads: each gathered over the lines its :class:`ServeLeaf`
+    names, a new tensor the caller drops after use."""
+    def one(_, x, p):
+        for axis, dim in p.gathers:
+            x = split.gather(x, axis, dim)
+        return x
+    return _map_paths(one, tree, plan)
 
 
 def describe(plan) -> Dict[str, List[str]]:

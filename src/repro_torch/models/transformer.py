@@ -21,9 +21,12 @@ Decode writes every layer's row of the caches in place.
 
 ``spec_block``, ``spec_block_cache``, ``spec_stack`` and
 ``spec_stack_cache`` are the reference's logical specs of those trees. A
-train-mode block takes a ``split`` (``models/tensor_parallel.py``): its
-GQA mixer runs on the rank's heads and its MLP on the rank's d_ff columns
-where the model line divides them.
+block takes a ``split`` (``models/tensor_parallel.py``): its GQA mixer runs
+on the rank's heads and its MLP on the rank's d_ff columns where the model
+line divides them. In prefill and decode ``apply_stack`` is given the serve
+route's ``plan`` too and gathers each layer's leaves before its block
+(``tensor_parallel.materialize``), and ``init_stack_cache(split=)``
+allocates the rank's kv heads.
 """
 from __future__ import annotations
 
@@ -36,6 +39,7 @@ from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import recurrent as rec
+from repro_torch.models import tensor_parallel as tp
 from repro_torch.models.layers import (activation, apply_mlp, apply_norm,
                                        init_mlp, init_norm, spec_mlp,
                                        spec_norm)
@@ -143,9 +147,9 @@ def apply_block(params, x, *, cfg: ModelConfig, lspec: LayerSpec, positions,
     load-balance loss (weighted; 0 without a MoE FFN). A MoE FFN runs
     dropless outside training. In decode the mixer's cache is written in
     place (a recurrent state copied into the given tensors). ``split``
-    (train mode, a GQA block with a gated MLP): the mixer on the rank's
-    heads where ``split.attn`` holds, the MLP on its d_ff columns where
-    ``split.mlp`` does; the leaves are then the rank's blocks."""
+    (a GQA block with a gated MLP): the mixer on the rank's heads where
+    ``split.attn`` holds, the MLP on its d_ff columns where ``split.mlp``
+    does; the leaves are then the rank's blocks."""
     _check(lspec)
     h = apply_norm(params["norm1"], x, cfg.norm)
     if lspec.mixer in _RECURRENT:
@@ -202,7 +206,7 @@ def spec_block_cache(cfg: ModelConfig, lspec: LayerSpec, cross: bool):
 
 def init_block_cache(cfg: ModelConfig, lspec: LayerSpec, B: int,
                      seq_len: int, *, device, cross: bool = False,
-                     enc_len: int = 0, dtype=torch.float32):
+                     enc_len: int = 0, dtype=torch.float32, split=None):
     _check(lspec)
     if lspec.mixer == "rglru":
         c = rec.init_rglru_state(cfg, B, device=device, dtype=dtype)
@@ -210,10 +214,14 @@ def init_block_cache(cfg: ModelConfig, lspec: LayerSpec, B: int,
         c = rec.init_mlstm_state(cfg, B, device=device)
     elif lspec.mixer == "slstm":
         c = rec.init_slstm_state(cfg, B, device=device)
+    elif lspec.mixer == "gqa":
+        kv = (cfg.attn.num_kv_heads // split.model_size
+              if split is not None and split.kv(cfg.attn) else None)
+        c = attn.init_gqa_cache(cfg, lspec, B, seq_len, device=device,
+                                dtype=dtype, kv_heads=kv)
     else:
-        init = (attn.init_gqa_cache if lspec.mixer == "gqa"
-                else attn.init_mla_cache)
-        c = init(cfg, lspec, B, seq_len, device=device, dtype=dtype)
+        c = attn.init_mla_cache(cfg, lspec, B, seq_len, device=device,
+                                dtype=dtype)
     out = {"mixer": c}
     if cross:
         a = cfg.attn
@@ -267,16 +275,19 @@ def spec_stack(cfg: ModelConfig, cross: bool = False):
 
 def init_stack_cache(cfg: ModelConfig, B: int, seq_len: int, *, device,
                      cross: bool = False, enc_len: int = 0,
-                     dtype=torch.float32):
+                     dtype=torch.float32, split=None):
     """Empty caches of every layer, each leaf (n_rep, B, ...); with
     ``cross`` each block's cross keys and values of ``enc_len`` slots at
-    pos -1."""
+    pos -1; with ``split`` the rank's block of each (its Kv / M kv heads
+    where the model line divides Kv: ``cache_spec`` under ``serve_rules``;
+    B is the data rank's rows)."""
     out = {}
     for seg in build_segments(cfg):
         out[seg.name] = {
             f"p{i}": _stack([init_block_cache(cfg, ls, B, seq_len,
                                               device=device, cross=cross,
-                                              enc_len=enc_len, dtype=dtype)
+                                              enc_len=enc_len, dtype=dtype,
+                                              split=split)
                              for _ in range(seg.n_rep)])
             for i, ls in enumerate(seg.specs)}
     return out
@@ -290,14 +301,16 @@ def spec_stack_cache(cfg: ModelConfig, cross: bool = False):
 
 def apply_stack(params, x, *, cfg: ModelConfig, positions, mode="train",
                 caches=None, positions3=None, enc_out=None, causal=True,
-                cache_max_len=None, split=None):
+                cache_max_len=None, split=None, plan=None):
     """Run all segments. Returns (x, caches, aux): train mode no caches;
     prefill fresh caches sized ``cache_max_len`` (with cross attention,
     each block's keys and values of ``enc_out``); decode takes ``caches``,
     writes each layer's row of them in place and returns them (the cross
     keys and values read as they are). ``aux`` is the sum of the blocks'
     MoE losses (float32). ``causal=False`` is the encoder's attention;
-    ``split`` as ``apply_block``'s."""
+    ``split`` as ``apply_block``'s; ``plan`` (the serve route: the stack's
+    ``tensor_parallel.serve_plan``) gathers each layer's leaves before its
+    block, freed after it."""
     new_caches = {}
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for seg in build_segments(cfg):
@@ -307,6 +320,8 @@ def apply_stack(params, x, *, cfg: ModelConfig, positions, mode="train",
             blk_caches = {}
             for i, ls in enumerate(seg.specs):
                 p = _index(seg_params[f"p{i}"], r)
+                if plan is not None:
+                    p = tp.materialize(p, plan[seg.name][f"p{i}"], split)
                 cache = cross_kv = None
                 if mode == "decode":
                     # views of the stacked leaves: decode writes through them

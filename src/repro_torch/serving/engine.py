@@ -29,6 +29,15 @@ their own row). The products of a batch of C rows and of one row may round
 differently (a matrix library picks its algorithm by shape), so the logits
 of the two can differ in the last bits.
 
+On the split serve route (``build_model(cfg, split=)``, the rank's pieces
+``models.tensor_parallel.serve_pieces``) each data rank runs its own engine
+over its share of the requests (the rows ``Split.data_rows`` gives it of
+a batch of that many, cut by the caller); the model
+ranks of one data rank run that engine in lockstep: their logits are
+whole and equal on every model rank, so they sample the same tokens, and
+insert and evict copy the rank's block of each cache leaf (its kv heads).
+One process is the engine as it is.
+
 Sampling masks logits columns >= ``cfg.vocab_size`` to -inf first: the LM
 head projects to ``cfg.padded_vocab`` and the padding columns carry
 random-init weights, so unmasked greedy/temperature sampling could emit

@@ -64,7 +64,14 @@ Modes:
   ckpt_restore -- the newest good step of each given checkpoint directory
               restored on the mesh of the given shape into a fresh init
               of its case: each rank writes its step, trees, blocks and
-              the warnings it raised.
+              the warnings it raised;
+  serve    -- (test_torch_split_serve.py) SERVE_CASES' configs served split
+              on the serve mesh of the given shape (data on fsdp, model on
+              model): from the handed-over weights, prompts and decode
+              tokens in ``serve_inputs.pt``, each rank cuts its pieces
+              (``tensor_parallel.serve_pieces``) and its data rows, runs
+              ``prefill`` and the decode steps and writes its logits, its
+              rows and its cache blocks; rank 0 also the one-process run's.
 """
 from __future__ import annotations
 
@@ -850,6 +857,71 @@ def mode_tp(tmp, shape):
     torch.save(out, os.path.join(tmp, f"rank{mesh.rank}.pt"))
 
 
+# the split serve cases: (arch, attn_block) at reduced() widths, a batch of
+# SERVE_B prompts of SERVE_S tokens (past gemma-2b-sw's reduced window of
+# 64, so its prefill lays the ring out and decode writes through it), then
+# SERVE_STEPS decode steps
+SERVE_CASES = (("olmo-1b", 16), ("phi3-mini-3.8b", 0), ("yi-34b", 0),
+               ("gemma-2b", 16), ("gemma-2b-sw", 16))
+SERVE_B, SERVE_S, SERVE_STEPS = 4, 80, 6
+
+
+def serve_config(case, get_config):
+    import dataclasses
+    arch, block = case
+    cfg = get_config(arch).reduced()
+    return cfg.replace(dist=dataclasses.replace(cfg.dist, attn_block=block))
+
+
+def _serve_run(model, params, inp, rows):
+    import torch
+    logits = []
+    with torch.no_grad():
+        lg, caches = model.prefill(
+            params, {"tokens": torch.as_tensor(inp["tokens"][rows])},
+            max_len=SERVE_S + SERVE_STEPS)
+        logits.append(lg)
+        for tok, pos in inp["steps"]:
+            lg, caches = model.decode_step(params, caches,
+                                           torch.as_tensor(tok[rows]),
+                                           torch.as_tensor(pos[rows]))
+            logits.append(lg)
+    return torch.stack(logits), caches
+
+
+def mode_serve(tmp, shape):
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models import tensor_parallel as tp
+    shape = tuple(int(x) for x in shape.split(","))
+    mesh = make_mesh(shape, device="cpu")
+    split = tp.Split(mesh)
+    inputs = torch.load(os.path.join(tmp, "serve_inputs.pt"),
+                        weights_only=False)
+    out = {}
+    for case in SERVE_CASES:
+        cfg = serve_config(case, get_config)
+        inp = inputs[case[0]]
+        whole = build_model(cfg)
+        pieces = tp.serve_pieces(inp["params"], mesh,
+                                 tp.serve_shardings(whole, mesh))
+        rows = split.data_rows(SERVE_B)
+        logits, caches = _serve_run(build_model(cfg, split=split), pieces,
+                                    inp, rows)
+        rec = {"logits": logits, "rows": (rows.start, rows.stop),
+               "caches": caches, "coord": dict(mesh.coord),
+               "pieces": {k: tuple(v.shape) for k, v in
+                          pieces["decoder"]["main"]["p0"]["mixer"].items()}}
+        if mesh.rank == 0:
+            rec["one"] = _serve_run(whole, inp["params"], inp,
+                                    slice(0, SERVE_B))
+        out[case[0]] = rec
+    torch.save(out, os.path.join(tmp, f"rank{mesh.rank}.pt"))
+
+
 def mode_launch(tmp, *argv):
     from repro_torch.launch import train
     train.main(list(argv))
@@ -863,5 +935,5 @@ if __name__ == "__main__":
      "codecs": mode_codecs, "merges": mode_merges,
      "options": mode_options, "ipc": mode_ipc,
      "ckpt_save": mode_ckpt_save, "ckpt_restore": mode_ckpt_restore,
-     "dryrun": mode_dryrun, "tp": mode_tp}[mode](
+     "dryrun": mode_dryrun, "tp": mode_tp, "serve": mode_serve}[mode](
         tmp, *rest)

@@ -22,7 +22,10 @@ segments on the card against each other bit for bit. The flash attention
 kernels are held against their plain versions on the card (the online
 loop in cuBLAS float32 products, summed in another order): the float32
 output and log-sum-exp at 2e-5, the gradients at 1e-4 (each sums up to S
-products of the scores' rounding), the bfloat16 output at 2e-2; a strided
+products of the scores' rounding), the bfloat16 output at 2e-2, and the
+16-bit kernels' outputs and gradients (bfloat16 and float16, every head
+dim) no further from the float32 yardstick than the plain 16-bit
+version's; a strided
 view gives the contiguous result bit for bit, a q off 16 bytes (copied by
 the wrapper) the aligned q's, and three runs at the attn_block path's
 shape the same bits.
@@ -873,14 +876,65 @@ def test_flash_attention_bf16_forward(cuda):
     torch.testing.assert_close(out.float(), r_out.float(), atol=2e-2,
                                rtol=2e-2)
     torch.testing.assert_close(lse, r_lse, atol=2e-2, rtol=2e-2)
-    with pytest.raises(TypeError):  # the backward kernels take float32 only
+    # the backward takes bfloat16 too (fault C1's repair), dO in q's dtype
+    grads = flash_attention_bwd(q, k, v, out, lse, do.to(torch.bfloat16),
+                                pos, pos, window=48)
+    assert all(g.dtype == torch.bfloat16 for g in grads)
+    with pytest.raises(TypeError):  # dO in another dtype than q's
         flash_attention_bwd(q, k, v, out, lse, do, pos, pos)
+
+
+def _rel_l2(a, b):
+    a, b = a.double(), b.double()
+    return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+
+
+# the 16-bit kernels against the plain 16-bit version: each output at most
+# FLASH16_FACTOR times the plain version's relative l2 distance from the
+# float32 yardstick (the plain version on the same values widened), as
+# chip_smoke.py's phase 3 holds them (0.39-0.60 of it read there)
+FLASH16_FACTOR = 1.0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "f16"])
+@pytest.mark.parametrize("hd", [16, 32, 64, 96, 128, 256])
+@pytest.mark.parametrize("Kv,window,causal", [(2, None, True),
+                                              (1, 40, True),
+                                              (2, None, False)])
+def test_flash_attention_16bit_kernels_match_plain(cuda, dtype, hd, Kv,
+                                                   window, causal):
+    q, k, v, do, pos = _attention_inputs(2, 100, 4, Kv, hd, hd + Kv, cuda)
+    q, k, v, do = (t.to(dtype) for t in (q, k, v, do))
+    kw = dict(causal=causal, window=window)
+    reset_launch_counts()
+    out, lse = flash_attention_fwd(q, k, v, pos, pos, **kw)
+    grads = flash_attention_bwd(q, k, v, out, lse, do, pos, pos, **kw)
+    torch.cuda.synchronize()
+    sfx = "bf16" if dtype == torch.bfloat16 else "f16"
+    counts = launch_counts()
+    assert counts[f"flash_attention_fwd_{sfx}"] == 1
+    assert counts[f"flash_attention_bwd_{sfx}"] == 1
+    plain = (flash_attention_fwd_ref(q, k, v, pos, pos, **kw)[0],) + tuple(
+        flash_attention_bwd_ref(q, k, v, do, pos, pos, **kw))
+    w = [t.float() for t in (q, k, v, do)]
+    yard = (flash_attention_fwd_ref(*w[:3], pos, pos, **kw)[0],) + tuple(
+        flash_attention_bwd_ref(*w, pos, pos, **kw))
+    for got, p, y in zip((out,) + tuple(grads), plain, yard):
+        assert got.dtype == dtype and bool(torch.isfinite(got).all())
+        assert _rel_l2(got, y) <= FLASH16_FACTOR * _rel_l2(p, y)
+    # through autograd, as the train path calls it
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    y_ = FlashAttention.apply(*leaves, pos, pos, causal, window,
+                              1.0 / np.sqrt(hd))
+    auto = torch.autograd.grad(y_, leaves, do)
+    assert all(torch.equal(a, b) for a, b in zip(auto, grads))
 
 
 def test_flash_attention_wrappers_raise_instead_of_falling_back(cuda):
     q, k, v, do, pos = _attention_inputs(1, 8, 2, 2, 16, 0, cuda)
-    with pytest.raises(TypeError):
-        flash_attention_fwd(q.half(), k.half(), v.half(), pos, pos)
+    with pytest.raises(TypeError):  # float64 is no kernel's type
+        flash_attention_fwd(q.double(), k.double(), v.double(), pos, pos)
     with pytest.raises(ValueError):  # head dim 24 is not a kernel's
         flash_attention_fwd(q[..., :12], k[..., :12], v[..., :12], pos, pos)
     with pytest.raises(ValueError):  # 2 query heads on 3 kv heads

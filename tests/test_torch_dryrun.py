@@ -22,9 +22,19 @@ sharded run holds and does, traced on the CPU without allocating.
   weights are not matmuls) within 1e-9 relative.
 * **No allocation.** The CLI's olmo-1b ``train_4k`` record at 16 x 16,
   whose state is 14.1 GB a rank, raises the process's peak RSS by under
-  1 GB, in a subprocess; and it refuses the serve shapes and the non-panel
-  variants by name. That record is traced on the split route
+  1 GB, in a subprocess; and it refuses the non-panel training variants,
+  and the serve shapes of a family the split serve route does not split,
+  by name. That record is traced on the split route
   (``param_shardings``): no replica note, the leaves split and whole named.
+* **Serve shapes.** ``prefill_32k``, ``decode_32k`` and ``long_500k`` on
+  both production meshes (the reference's ``build_serve``): each OK
+  record's parameter and cache bytes a rank equal the blocks that
+  ``resolve(param_spec / cache_spec, serve_rules)`` gives on a ('data',
+  'model') mesh of the reference's shape, computed here from the shapes
+  (bfloat16 weights and caches, int32 positions; yi-34b ``big``: its
+  weights' fsdp dim over data); ``long_500k`` keeps the reference's SKIP
+  reason for olmo-1b, phi3-mini-3.8b and yi-34b and runs gemma-2b as
+  gemma-2b-sw; every other family is REFUSED naming A16d's second item.
 * **Split route.** On (1, 1, 2, 2) at ``reduced()`` olmo-1b's split
   record names its leaves, its traced peak and FLOPs a rank are below the
   replica route's (FLOPs about a quarter: half the batch, half the heads),
@@ -298,11 +308,19 @@ def test_mesh_of_shape_reads_as_a_live_mesh():
     ("long_500k", "panel"), ("train_4k", "baseline"),
     ("train_4k", "seqpar"), ("train_4k", "moeshard")])
 def test_dry_run_refuses_what_it_does_not_reckon(shape, variant):
+    # the serve shapes: a family the split serve route does not split (the
+    # "panel" variant there reads as the serve shapes' default, baseline)
+    serving = shape != "train_4k"
+    arch = "arctic-480b" if serving else "olmo-1b"
     with pytest.raises(SystemExit) as e:
-        dryrun.main(["--arch", "olmo-1b", "--shape", shape, "--variant",
-                     variant])
+        dryrun.main(["--arch", arch, "--shape", shape]
+                    + ([] if serving else ["--variant", variant]))
     assert "A16d" in str(e.value)
-    assert (shape if shape != "train_4k" else variant) in str(e.value)
+    assert (shape if serving else variant) in str(e.value)
+    if serving:
+        with pytest.raises(SystemExit, match="serve shapes take"):
+            dryrun.main(["--arch", "olmo-1b", "--shape", shape,
+                         "--variant", variant])
 
 
 RSS_SCRIPT = textwrap.dedent("""
@@ -348,3 +366,89 @@ def test_cli_record_at_16x16_allocates_no_state(tmp_path):
     assert "decoder.main.p0.mixer.wq" in rec["split"]["split"]
     assert "decoder.main.p0.norm1" not in rec["split"]["whole"]
     assert set(rec["collectives"]["per_line"]) >= {"rows", "model"}
+
+
+# the serve records checked against resolve: (arch, shape, multi_pod,
+# variant)
+SERVE_RECORDS = [("olmo-1b", "prefill_32k", False, "baseline"),
+                 ("phi3-mini-3.8b", "decode_32k", True, "baseline"),
+                 ("yi-34b", "decode_32k", False, "baseline"),
+                 ("gemma-2b", "long_500k", False, "baseline"),
+                 ("gemma-2b", "prefill_32k", True, "flashxla")]
+
+
+class _RefMesh:
+    """A mesh of the reference's production shape and axis names."""
+
+    def __init__(self, multi_pod):
+        self.shape = ({"pod": 2, "data": 16, "model": 16} if multi_pod
+                      else {"data": 16, "model": 16})
+        self.axis_names = tuple(self.shape)
+
+
+def _block_bytes(spec, tree, mesh, rules):
+    from repro_torch.models.sharding import resolve
+    total = 0
+    for ent, x in zip(_flat(resolve(spec, tree, mesh, rules)), _flat(tree)):
+        n = x.element_size()
+        for dim, e in zip(x.shape, ent):
+            names = () if e is None else ((e,) if isinstance(e, str) else e)
+            n *= dim // int(np.prod([mesh.shape[a] for a in names] or [1]))
+        total += n
+    return total
+
+
+def _flat(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _flat(tree[k])]
+    return [tree]
+
+
+@pytest.mark.parametrize("arch,shape,multi,variant", SERVE_RECORDS)
+def test_serve_record_bytes_are_the_resolved_blocks(arch, shape, multi,
+                                                    variant, tmp_path):
+    from repro_torch.configs import INPUT_SHAPES
+    from repro_torch.models.sharding import serve_rules
+    from repro_torch.models.tensor_parallel import serve_big
+    rec = dryrun.run_serve_pair(arch, shape, multi, variant, tmp_path)
+    assert rec["status"] == "OK", rec.get("traceback", rec)
+    eff = "gemma-2b-sw" if shape == "long_500k" else arch
+    cfg = get_config(eff).replace(param_dtype="bfloat16")
+    model = build_model(cfg)
+    mesh = _RefMesh(multi)
+    rules = serve_rules(mesh, serve_big(cfg))
+    assert rec["big"] == serve_big(cfg) == (arch == "yi-34b")
+    meta = model.init_params(None, torch.device("meta"))
+    assert rec["memory"]["param_bytes"] == _block_bytes(
+        model.param_spec(), meta, mesh, rules)
+    sh = INPUT_SHAPES[shape]
+    caches = model.init_cache(sh.global_batch, sh.seq_len,
+                              device=torch.device("meta"))
+    assert rec["memory"]["cache_bytes"] == _block_bytes(
+        model.cache_spec(), caches, mesh, rules)
+    assert rec["chips"] == (512 if multi else 256)
+    assert rec["attn_block"] == (512 if variant == "flashxla" else 0)
+    assert rec["memory"]["traced_peak_bytes"] >= (
+        rec["memory"]["param_bytes"] + rec["memory"]["cache_bytes"])
+    assert rec["cost"]["flops_per_device"] > 0
+    assert rec["collectives"]["calls"] > 0
+    if shape == "long_500k":
+        assert rec["note"] == "sliding-window variant (window=4096)"
+    assert os.path.exists(tmp_path / f"{arch}_{shape}_{rec['mesh']}_"
+                          f"{variant}.json")
+
+
+def test_serve_shapes_skip_and_refuse_as_named(tmp_path):
+    for arch in ("olmo-1b", "phi3-mini-3.8b", "yi-34b"):
+        rec = dryrun.run_serve_pair(arch, "long_500k", False)
+        assert rec["status"] == "SKIP"
+        assert rec["reason"] == (
+            "full quadratic attention family; long_500k reserved for "
+            "sub-quadratic archs (DESIGN.md §5)")
+    for arch in ("arctic-480b", "xlstm-1.3b", "recurrentgemma-2b",
+                 "qwen2-vl-72b", "seamless-m4t-medium", "deepseek-v3-671b"):
+        for shape in dryrun.SERVE_SHAPES:
+            rec = dryrun.run_serve_pair(arch, shape, True)
+            assert rec["status"] == "REFUSED"
+            assert arch in rec["reason"] and "A16d's second" in \
+                rec["reason"]
