@@ -20,9 +20,12 @@ Phases, each printing its lines:
      quantize and dequantize, the fused AdamW step on grouped-int8 moments,
      library torch.quantize_per_channel on the (m G, 128) view for the
      round-to-nearest pair); flash attention forward and backward in
-     float32, bfloat16 and float16 (the 16-bit kernels at every head dim,
-     each output held to the float32 yardstick against the plain 16-bit
-     version's gap: flash16_checks, timed at hd 128 and 256 against
+     float32, bfloat16 and float16 (the 16-bit kernels of
+     csrc/flash_attention16.cu on the 16-bit tensor cores at every head
+     dim: their resources checked for no spills and 8 warps an SM, each
+     output held to the float32 yardstick against the plain 16-bit
+     version's gap, each output's worst ratio printed, a second run bit
+     for bit: flash16_checks, timed at hd 128 and 256 against
      scaled_dot_product_attention on the same 16-bit tensors), float32
      at odd sizes, at the attn_block path's shape and at a GQA
      shape (library torch's scaled_dot_product_attention, is_causal; the
@@ -247,9 +250,11 @@ Phases, each printing its lines:
      Mesh.stats, no host read of a traced value, the card's memory
      equal to the figure the dry run's ``fits`` reads, what a 12b rank
      holds beyond its peak (its CUDA context and its allocator's reserve)
-     under ``hardware.RANK_RESERVE_BYTES``, and the reckoned device total
+     under ``hardware.RANK_RESERVE_BYTES``, the reckoned device total
      (``dryrun.device_total``: peak, reserve, IPC buffer) within
-     DRY_PEAK_SHARE of each 12b rank's measured one; (f) the split route
+     DRY_PEAK_SHARE of each 12b rank's measured one, and the reckon of
+     12d's resume on (1, 4, 1, 1) (the rounds after the checkpoint's step)
+     within DRY_PEAK_SHARE of its ranks' measured peak; (f) the split route
      (core.dsgd.make_panel_segment(param_shardings=), models/
      tensor_parallel.py): SPLIT_CELLS' olmo cell (the main path's widths,
      m 4) on (1, 1, 2, 2), each agent's batch over 2 fsdp ranks and its
@@ -322,12 +327,10 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 # from the port's one module of them (run alone, without the port beside
 # it, main() says so and exits 2)
 try:
-    from repro_torch.hardware import (BF16_FLOPS, FP32_FLOPS,
-                                      HBM_BYTES_PER_S, TF32_FLOPS)
+    from repro_torch.hardware import BF16_FLOPS, FP32_FLOPS, HBM_BYTES_PER_S
     from repro_torch.hardware import SPLIT_TF32_FLOPS as TF32_SPLIT_FLOPS
 except ImportError:
-    BF16_FLOPS = FP32_FLOPS = HBM_BYTES_PER_S = TF32_FLOPS = None
-    TF32_SPLIT_FLOPS = None
+    BF16_FLOPS = FP32_FLOPS = HBM_BYTES_PER_S = TF32_SPLIT_FLOPS = None
 
 M = 8                 # agents
 ROUNDS, H = 4, 2      # rounds, local steps per round
@@ -353,10 +356,13 @@ FLASH_TIMED = {"hd128": (16, 16, 128), "hd96": (32, 32, 96),
 # relative l2 distance from the float32 yardstick (the plain version on the
 # same 16-bit values widened to float32) must be at most FLASH16_FACTOR
 # times the plain 16-bit version's: the plain version rounds every einsum
-# to the inputs' type, the kernels each output once. A float32 gradient
-# rounded once reads 0.31-0.57 of the plain version's distance on the CPU
-# (tests/test_torch_flash16.py: test_rounded_once_beats_the_plain_version)
+# to the inputs' type, the kernels (csrc/flash_attention16.cu) P and dS
+# before their products and each output once. Emulated on the CPU, their
+# rounding reads 0.46-0.80 of the plain version's distance, a float32
+# gradient rounded once 0.31-0.57 (tests/test_torch_flash16.py:
+# test_rounded_once_beats_the_plain_version)
 FLASH16_FACTOR = 1.0
+FLASH16_SOURCE = "src/repro_torch/kernels/csrc/flash_attention16.cu"
 FLASH16_TIMED = {"hd128": (16, 16, 128), "hd256": (8, 1, 256)}
 
 # the paths driven at full width (f32 is the main path) and the kernels
@@ -1639,24 +1645,42 @@ def _rel_l2(torch, a, b):
 
 
 def flash16_checks(torch):
-    """Phase 3, flash attention on bfloat16 and float16 q, k, v (fault C1's
-    repair): the forward and the backward kernels of each 16-bit library
-    against their plain versions at every head dim of HEAD_DIMS (B 2, S
-    100, H 4 on Kv 2, causal), with a window, without the causal mask,
-    MQA at hd 256, seamless's non-causal hd 64 batch and the timed shapes
-    of FLASH16_TIMED. The gate (FLASH16_FACTOR): each output's relative l2
-    distance from the float32 yardstick (the plain version on the 16-bit
-    values widened to float32: out, and dq, dk, dv from the same dO) at
-    most the factor times the plain 16-bit version's; outputs in the
-    inputs' type, finite. Times at FLASH16_TIMED (flash16_times). Returns
-    {"flash_attention_fwd_bf16": ..., "flash_attention_bwd_bf16": ...,
-    "..._f16": ...}, each with the hd 128 numbers and an "hd256" sub-dict,
-    "max_abs_err" (against the plain version) and "worst_ratio"."""
+    """Phase 3, flash attention on bfloat16 and float16 q, k, v
+    (``csrc/flash_attention16.cu``): first each 16-bit kernel's resources
+    at every head dim of HEAD_DIMS, which must show no local memory
+    (spills) and at least 8 warps an SM; then the forward and the backward
+    kernels of each 16-bit library against their plain versions at every
+    head dim (B 2, S 100, H 4 on Kv 2, causal), with a window, without the
+    causal mask, MQA at hd 256, seamless's non-causal hd 64 batch and the
+    timed shapes of FLASH16_TIMED. The gate (FLASH16_FACTOR): each output's
+    relative l2 distance from the float32 yardstick (the plain version on
+    the 16-bit values widened to float32: out, and dq, dk, dv from the same
+    dO) at most the factor times the plain 16-bit version's; outputs in the
+    inputs' type, finite; at the timed shapes a second forward and backward
+    bit for bit the first. Prints each output's worst ratio a type. Times
+    at FLASH16_TIMED (flash16_times). Returns {"flash_attention_fwd_bf16":
+    ..., "flash_attention_bwd_bf16": ..., "..._f16": ...}, each with the hd
+    128 numbers and an "hd256" sub-dict, "max_abs_err" (against the plain
+    version) and "worst_ratio"."""
     from repro_torch.kernels.flash_attention import (HEAD_DIMS,
                                                      flash_attention_bwd,
-                                                     flash_attention_fwd)
+                                                     flash_attention_fwd,
+                                                     occupancy)
     from repro_torch.kernels.ref import (flash_attention_bwd_ref,
                                          flash_attention_fwd_ref)
+    for hd in HEAD_DIMS:
+        for name, r in occupancy(hd, ATTN_SEQ).items():
+            if name.endswith("float32"):
+                continue
+            print(f"flash attention {name} at hd {hd}: {r['registers']} "
+                  f"registers, {r['local_bytes']} B local (spills) a "
+                  f"thread, {r['blocks_per_sm']} blocks "
+                  f"({r['warps_per_sm']} warps) per SM, {r['smem']} B "
+                  f"shared memory", flush=True)
+            check(r["registers"] > 0 and r["local_bytes"] == 0
+                  and r["warps_per_sm"] >= 8,
+                  f"flash attention {name} at hd {hd} spills or runs under "
+                  f"8 warps an SM: {r}")
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(16)
     # (B, S, H, Kv, hd, window, causal)
@@ -1672,6 +1696,7 @@ def flash16_checks(torch):
         fname, bname = f"flash_attention_fwd_{sfx}", f"flash_attention_bwd_{sfx}"
         res = {fname: {"max_abs_err": 0.0, "worst_ratio": 0.0},
                bname: {"max_abs_err": 0.0, "worst_ratio": 0.0}}
+        worst = dict.fromkeys(("out", "dq", "dk", "dv"), 0.0)
         for B, S, Hq, Kv, hd, window, causal in cases:
             q, k, v, do = (torch.randn((B, S, n, hd), generator=gen,
                                        device=dev).to(dtype)
@@ -1690,9 +1715,10 @@ def flash16_checks(torch):
                                          do.float(), pos, pos, **kw)
             torch.cuda.synchronize()
             line = f"check flash attention {label}:"
-            for name, got, plain, yard in (
-                    [(fname, o, ro, yo)]
-                    + [(bname, a, b, y) for a, b, y in zip(g, rg, yg)]):
+            for name, what, got, plain, yard in (
+                    [(fname, "out", o, ro, yo)]
+                    + [(bname, w, a, b, y) for w, a, b, y in
+                       zip(("dq", "dk", "dv"), g, rg, yg)]):
                 check(got.dtype == dtype and bool(torch.isfinite(got).all()),
                       f"{name} at {label}: {got.dtype} output or not finite")
                 if not bool(torch.any(yard != 0)):
@@ -1705,6 +1731,7 @@ def flash16_checks(torch):
                       f"{FLASH16_FACTOR})")
                 r = res[name]
                 r["worst_ratio"] = max(r["worst_ratio"], ek / ep)
+                worst[what] = max(worst[what], ek / ep)
                 r["max_abs_err"] = max(r["max_abs_err"], float(torch.max(
                     torch.abs(got.float() - plain.float()))))
                 line += f" {ek:.3g}/{ep:.3g}"
@@ -1713,6 +1740,15 @@ def flash16_checks(torch):
             key = [k_ for k_, v_ in FLASH16_TIMED.items()
                    if v_ == (Hq, Kv, hd)]
             if B == ATTN_BATCH and S == ATTN_SEQ and key:
+                o2, lse2 = flash_attention_fwd(q, k, v, pos, pos, **kw)
+                g2 = flash_attention_bwd(q, k, v, o, lse, do, pos, pos, **kw)
+                check(torch.equal(o2, o) and torch.equal(lse2, lse)
+                      and all(torch.equal(a, b) for a, b in zip(g2, g)),
+                      f"flash attention at {label}: two runs do not give "
+                      f"the same bits")
+                print(f"check flash attention {label}: a second forward "
+                      f"and backward bit for bit", flush=True)
+                del o2, lse2, g2
                 t = flash16_times(torch, q, k, v, do, pos, o, lse)
                 for name, r_ in ((fname, t["fwd"]), (bname, t["bwd"])):
                     if key[0] == "hd128":
@@ -1721,6 +1757,11 @@ def flash16_checks(torch):
                         res[name][key[0]] = r_
             del q, k, v, do, o, lse, ro, yo, g, rg, yg
             torch.cuda.empty_cache()
+        print(f"flash attention {sfx}: each output's worst ratio of its "
+              f"relative l2 distance from the float32 yardstick to the "
+              f"plain 16-bit version's, over every case: "
+              + ", ".join(f"{w} {x:.3f}" for w, x in worst.items())
+              + f" (gate {FLASH16_FACTOR})", flush=True)
         out.update(res)
     return out
 
@@ -1735,10 +1776,10 @@ def flash16_times(torch, q, k, v, do, pos, o, lse):
     backward S, dP, dV, dK and dQ: 10 hd a pair, P and dS rounded to the
     inputs' type as the plain 16-bit version rounds them), or the bytes (2
     a value, 4 an lse or position) if larger. Beside it, as ``route_ms``,
-    the kernels' own route: TF32 products at 495 TFLOP/s, the inputs exact
-    in TF32 (the forward 1 product for S and 1 for P V with P rounded to
-    v's type: 4 hd a pair; the backward 1 for S and dP, 2 for dV, dK and
-    dQ with P or dS split: 16 hd a pair). Returns {"fwd", "bwd": numbers}."""
+    the operations the kernels do at the same rate (``route_ops``): the
+    forward 4 hd a pair; the backward 14 hd (dK/dV and dQ each compute S
+    and dP), 18 hd at hd 256 (dK/dV's two column blocks each compute S^T
+    and dP^T). Returns {"fwd", "bwd": numbers}."""
     from repro_torch.kernels.flash_attention import (flash_attention_bwd,
                                                      flash_attention_fwd)
     from repro_torch.kernels.flash_bench import (backward_kernel_ms,
@@ -1750,25 +1791,26 @@ def flash16_times(torch, q, k, v, do, pos, o, lse):
     pairs = visible_pairs(S, True, None)
     n_q, n_kv, rows = B * S * Hq * hd, B * S * Kv * hd, B * Hq * S
     e = q.element_size()
-    # (bytes, the function's operations, the route's TF32 operations)
+    # (bytes, the function's operations, the kernels' operations)
     cost = {"fwd": (e * (2 * n_q + 2 * n_kv) + 4 * rows + 8 * B * S,
                     4 * hd * pairs * B * Hq, 4 * hd * pairs * B * Hq),
             "bwd": (e * (4 * n_q + 4 * n_kv) + 4 * rows + 8 * B * S,
-                    10 * hd * pairs * B * Hq, 16 * hd * pairs * B * Hq)}
+                    10 * hd * pairs * B * Hq,
+                    (14 if hd <= 128 else 18) * hd * pairs * B * Hq)}
     fns = {"fwd": (lambda: flash_attention_fwd(q, k, v, pos, pos),
                    lambda: flash_attention_fwd_ref(q, k, v, pos, pos)),
            "bwd": (lambda: flash_attention_bwd(q, k, v, o, lse, do, pos, pos),
                    lambda: flash_attention_bwd_ref(q, k, v, do, pos, pos))}
     res = {}
     for name, (fn, plain) in fns.items():
-        nbytes, ops, tf32_ops = cost[name]
+        nbytes, ops, route_ops = cost[name]
         b_ms, b_by = bound(nbytes, ops, BF16_FLOPS)
         res[name] = {"shape": [B, S, Hq, Kv, hd], "ms": time_ms(torch, fn),
                      "plain_ms": time_ms(torch, plain, reps=PLAIN_REPS,
                                          warmup=1),
                      "bytes": nbytes, "ops": ops, "bound_ms": b_ms,
-                     "bound_by": b_by, "tf32_ops": tf32_ops,
-                     "route_ms": bound(nbytes, tf32_ops, TF32_FLOPS)[0]}
+                     "bound_by": b_by, "route_ops": route_ops,
+                     "route_ms": bound(nbytes, route_ops, BF16_FLOPS)[0]}
     res["fwd"]["library_ms"], res["bwd"]["library_ms"] = library_ms(q, k, v,
                                                                    do)
     per = backward_kernel_ms(fns["bwd"][0])
@@ -1781,9 +1823,9 @@ def flash16_times(torch, q, k, v, do, pos, o, lse):
               f"{r_['ms']:.4f} ms, plain {r_['plain_ms']:.4f} ms, library "
               f"{r_['library_ms']} ms; bound {r_['bound_ms']:.4f} ms "
               f"({r_['bound_by']}: {r_['ops']} operations at 989 TFLOP/s), "
-              f"{100 * r_['bound_ms'] / r_['ms']:.1f}% of it; the route's "
-              f"{r_['route_ms']:.4f} ms ({r_['tf32_ops']} TF32 operations "
-              f"at 495 TFLOP/s), {100 * r_['route_ms'] / r_['ms']:.1f}% of "
+              f"{100 * r_['bound_ms'] / r_['ms']:.1f}% of it; the kernels' "
+              f"own operations' {r_['route_ms']:.4f} ms ({r_['route_ops']} "
+              f"at 989 TFLOP/s), {100 * r_['route_ms'] / r_['ms']:.1f}% of "
               f"it", flush=True)
     return res
 
@@ -3939,6 +3981,7 @@ def options_phase(torch, main, sharded):
 # at the end; the disk must hold CKPT_DISK_SHARE times it.
 CKPT_RESUMES = (("same mesh", 4, "1,2,2,1"), ("1,4,1,1", 4, "1,4,1,1"),
                 ("one process", 1, None))
+CKPT_STEP = 2  # the step the checkpoint names: after the first segment
 CKPT_DISK_SHARE = 1.25
 CKPT_TIMEOUT = 300
 # phase 12e: the dry run (launch/dryrun.py:reckon) of 12b's and 12c (A)'s
@@ -4125,8 +4168,8 @@ def ckpt_phase(torch, launcher):
             except (OSError, ValueError):
                 return False
             steps = [c["step"] for c in man["checkpoints"]]
-            return 2 in steps and all(_tagged(v, "CKPT") for v in
-                                      lines.values())
+            return CKPT_STEP in steps and all(_tagged(v, "CKPT") for v in
+                                              lines.values())
         lines = _ckpt_ranks(4, base + [
             "--mesh", ",".join(map(str, SHARD_MESH)), "--checkpoint-every",
             "1", "--checkpoint-keep", "1", "--out",
@@ -4145,15 +4188,17 @@ def ckpt_phase(torch, launcher):
               f"{[written[r] for r in range(4)]}, pack + write (s) "
               f"{[round(saves[r]['seconds'], 3) for r in range(4)]}",
               flush=True)
-        check(entry["step"] == 2 and {p["rank"] for p in entry["parts"]}
+        check(entry["step"] == CKPT_STEP
+              and {p["rank"] for p in entry["parts"]}
               == set(range(4)), f"phase 12d: manifest entry {entry}")
-        counts = {}
+        counts, peaks = {}, {}
         for label, world, shape in CKPT_RESUMES:
             t0 = time.perf_counter()
             lines = _ckpt_ranks(world, base + [
                 "--resume", "--out", os.path.join(tmp, label)]
                 + ([] if shape is None else ["--mesh", shape]), tmp)
             recs = [_tagged(lines[r], "SHARD")[-1] for r in range(world)]
+            peaks[label] = [r["peak"] for r in recs]
             wall = time.perf_counter() - t0
             fp = {n: [_wrap64(sum(r["fingerprint"][n][i] for r in recs))
                       for i in (0, 1)] for n in ("panel", "m", "v")}
@@ -4173,7 +4218,7 @@ def ckpt_phase(torch, launcher):
                   f"{got['local']!r}; fingerprint equal to 10a's "
                   f"{fp == launcher['fingerprint']}", flush=True)
             for r in recs:
-                check(r["restored_step"] == 2,
+                check(r["restored_step"] == CKPT_STEP,
                       f"phase 12d {label}: rank {r['rank']} restored step "
                       f"{r['restored_step']}")
                 check(r["history"] == hist, f"phase 12d {label}: the ranks' "
@@ -4209,13 +4254,13 @@ def ckpt_phase(torch, launcher):
     dt = time.perf_counter() - t_phase
     print(f"sharded checkpoints (phase 12d, {card_line()}): {dt:.1f}s",
           flush=True)
-    return counts, {"seconds": dt, "written": written}
+    return counts, {"seconds": dt, "written": written, "peaks": peaks}
 
 
 def reckon_child(out):
     """Phase 12e's host work (on the CPU, no card): launch/dryrun.py's
     reckon of phase 12b's run and of 12c's run (A), rank 0 of SHARD_MESH,
-    of phase 12f's olmo cell on the split route and (reckon_serve) of
+    of phase 12d's resume on (1, 4, 1, 1), of phase 12f's olmo cell on the split route and (reckon_serve) of
     phase 12g's serve cells, written to ``out`` as JSON."""
     import torch
     torch.set_num_threads(2)
@@ -4240,6 +4285,18 @@ def reckon_child(out):
         res[label] = {k: r[k] for k in ("state_bytes", "peak", "init",
                                         "run", "host_reads", "flops")}
         res[label]["seconds"] = time.perf_counter() - t0
+    # phase 12d's resume on (1, 4, 1, 1), rank 0: the rounds after the
+    # checkpoint's step (the resumed run restores the state the reckon
+    # initialises)
+    label, _, shape = CKPT_RESUMES[1]
+    per_round, _ = segment_inputs(cfg, M, ROUNDS, data_vocab=DATA_VOCAB)
+    t0 = time.perf_counter()
+    r = dryrun.reckon(cfg, tuple(int(x) for x in shape.split(",")), agents=M,
+                      local_steps=H, batch=BATCH, seq=SEQ, route="cuda ipc",
+                      rounds=[(W, g, lv) for W, _, g, lv
+                              in per_round[CKPT_STEP:]])
+    res[f"12d {label}"] = {k: r[k] for k in ("state_bytes", "peak")}
+    res[f"12d {label}"]["seconds"] = time.perf_counter() - t0
     # phase 12f's olmo cell on the split route, rank 0 of its mesh
     label = "olmo"
     shape, m = SPLIT_CELLS[label]
@@ -4288,7 +4345,7 @@ def start_reckon():
     return proc, out
 
 
-def dryrun_phase(torch, reckoning, sharded, options):
+def dryrun_phase(torch, reckoning, sharded, options, ckpt):
     """Phase 12e: the dry run's reckoning of 12b's and 12c (A)'s runs
     against what they measured, rank by rank: the peak a rank within
     DRY_PEAK_SHARE of the measured max_memory_allocated, the collective
@@ -4301,7 +4358,9 @@ def dryrun_phase(torch, reckoning, sharded, options):
     context), plus each rank's reserve over its peak; gated under
     ``hardware.RANK_RESERVE_BYTES``, and 12b's reckoned
     ``dryrun.device_total`` within DRY_PEAK_SHARE of what each rank's
-    measured peak, reserve and buffer come to."""
+    measured peak, reserve and buffer come to. And the reckoned peak of
+    12d's (1, 4, 1, 1) resume within DRY_PEAK_SHARE of the peak its ranks
+    measured (``ckpt``: phase 12d's record)."""
     from repro_torch import hardware
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import IPC_BYTES
@@ -4348,6 +4407,17 @@ def dryrun_phase(torch, reckoning, sharded, options):
               f"{comm}")
         check(r["host_reads"]["traced"] == 0,
               f"phase 12e {label}: host reads {r['host_reads']}")
+    label = CKPT_RESUMES[1][0]
+    r, peaks = res[f"12d {label}"], ckpt["peaks"][label]
+    gaps = [(r["peak"] - p) / p for p in peaks]
+    print(f"dry run (phase 12e, 12d's resume on {label}, reckoned on the "
+          f"host in {r['seconds']:.1f}s; {card_line()}): peak a rank "
+          f"{r['peak']} B against the measured {peaks} "
+          f"({[round(g, 4) for g in gaps]}); state {r['state_bytes']} B",
+          flush=True)
+    check(all(abs(g) <= DRY_PEAK_SHARE for g in gaps),
+          f"phase 12e, 12d's resume on {label}: peak {r['peak']} against "
+          f"{peaks}")
     recs = sharded["recs"]
     ctx = (recs[0]["card_used"] - sharded["parent_used"]
            - sum(x["reserved"] for x in recs)
@@ -6130,10 +6200,11 @@ def main():
             torch, records["f32"], sharded_rec)
         lap("phase 12c")
         torch.cuda.empty_cache()
-        counts["sharded checkpoint"], _ = ckpt_phase(
+        counts["sharded checkpoint"], ckpt_rec = ckpt_phase(
             torch, {**launcher_rec, "width": D})
         lap("phase 12d")
-        reckoned = dryrun_phase(torch, reckoning, sharded_rec, options_rec)
+        reckoned = dryrun_phase(torch, reckoning, sharded_rec, options_rec,
+                                ckpt_rec)
         lap("phase 12e")
         counts["split"], _ = split_phase(torch, reckoned["12f"])
         lap("phase 12f")
@@ -6235,7 +6306,9 @@ def main():
             row[key] = {k: measured[sub][k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                 "max_abs_err")}
-            for extra in ("hd256", "worst_ratio", "tf32_ops", "route_ms",
+            if name.startswith("flash_attention"):  # the 16-bit kernels
+                row[key]["source"] = FLASH16_SOURCE
+            for extra in ("hd256", "worst_ratio", "route_ops", "route_ms",
                           "kernels_ms"):
                 if extra in measured[sub]:
                     row[key][extra] = measured[sub][extra]

@@ -9,6 +9,7 @@ the modules import (and the CPU tests run) on machines without ``nvcc``.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -53,26 +54,31 @@ def _source_bytes(path: Path) -> bytes:
     return src
 
 
-def library_path(name: str) -> Path:
-    src = _source_bytes(CSRC / f"{name}.cu")
+def library_path(name: str, csrc: Path = CSRC,
+                 build_dir: Path = BUILD_DIR) -> Path:
+    src = _source_bytes(Path(csrc) / f"{name}.cu")
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    return Path(build_dir) / f"lib{name}-{digest[:16]}.so"
 
 
-def build(names: Iterable[str]) -> Dict[str, str]:
+def build(names: Iterable[str], csrc: Path = CSRC,
+          build_dir: Path = BUILD_DIR) -> Dict[str, str]:
     """Compile every named kernel that has no current library, one nvcc
-    process per source, all started together. Returns {name: compiler
-    diagnostics} (the ``-Xptxas=-v`` register/spill report) for the ones
-    it built. Raises RuntimeError, with nvcc's output, if any build fails."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    process per source, all started together (the sources of ``csrc``,
+    the libraries in ``build_dir``: the repository's own by default).
+    Returns {name: compiler diagnostics} (the ``-Xptxas=-v`` register/spill
+    report) for the ones it built. Raises RuntimeError, with nvcc's output,
+    if any build fails."""
+    csrc, build_dir = Path(csrc), Path(build_dir)
+    build_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
-        out = library_path(name)
+        out = library_path(name, csrc, build_dir)
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         procs[name] = (out, tmp, subprocess.Popen(
-            [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(csrc / f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     report, failed = {}, []
     for name, (out, tmp, proc) in procs.items():
@@ -96,10 +102,34 @@ def load(name: str, signatures: Dict[str, Tuple[object, list]]
     lib = _LOADED.get(name)
     if lib is None:
         build([name])
-        lib = ctypes.CDLL(str(library_path(name)))
-        for fn, (restype, argtypes) in signatures.items():
-            f = getattr(lib, fn)
-            f.restype = restype
-            f.argtypes = argtypes
-        _LOADED[name] = lib
+        lib = _LOADED[name] = open_library(library_path(name), signatures)
+    return lib
+
+
+@contextlib.contextmanager
+def using(libs: Dict[str, ctypes.CDLL]):
+    """Inside the block ``load`` returns ``libs`` {kernel name: loaded
+    library} for their names (another tree's build of them, say); after
+    it, the libraries it returned before."""
+    saved = {n: _LOADED.get(n) for n in libs}
+    _LOADED.update(libs)
+    try:
+        yield
+    finally:
+        for n, lib in saved.items():
+            if lib is None:
+                _LOADED.pop(n, None)
+            else:
+                _LOADED[n] = lib
+
+
+def open_library(path, signatures: Dict[str, Tuple[object, list]]
+                 ) -> ctypes.CDLL:
+    """The library at ``path``, loaded, with ``restype``/``argtypes`` set
+    from ``signatures``."""
+    lib = ctypes.CDLL(str(path))
+    for fn, (restype, argtypes) in signatures.items():
+        f = getattr(lib, fn)
+        f.restype = restype
+        f.argtypes = argtypes
     return lib

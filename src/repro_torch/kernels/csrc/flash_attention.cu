@@ -1,6 +1,10 @@
 // flash_attention.cu -- Hopper (sm_90a) kernels for causal / windowed
 // online-softmax attention with grouped-query heads: the forward pass and
-// its backward pass, with every product on the tensor cores.
+// its backward pass, with every product on the tensor cores, for float32
+// q, k, v (split TF32, below). bfloat16 and float16 inputs take
+// flash_attention16.cu's kernels (the same function and C interface, on
+// the tensor cores' 16-bit products); flash_common.cuh holds what the two
+// share.
 //
 // Replaces the Pallas TPU kernel flash_attention_bh
 // (src/repro/kernels/flash_attention.py, body _flash_kernel) and the GQA
@@ -26,8 +30,7 @@
 // is outside the contract (the plain version averages the masked keys' v
 // there, the kernel writes 0).
 //
-// Backward (float32, bfloat16 and float16 inputs alike; every sum in
-// float32): delta_i = sum_c dO_ic O_ic (delta_kernel), then
+// Backward (every sum in float32): delta_i = sum_c dO_ic O_ic (delta_kernel), then
 //   P_ij = exp(s_ij - lse_i) (0 where masked), dP = dO V^T,
 //   dS = P o (dP - delta), dV = P^T dO, dK = scale dS^T Q, dQ = scale dS K.
 // dkdv_kernel owns (b, kv head, 64 keys) and loops over the G query heads of
@@ -73,15 +76,7 @@
 //   within 0.15 of the tolerances of float64, as the plain float32 version
 //   does (H100 80GB HBM3 at 700 W).
 // Three tensor-core products a float32 product: 3 x 4 hd a pair at 495
-// TFLOP/s (TF32, dense) is the route's bound. bfloat16 and float16 inputs
-// are exact in TF32, so their forward takes one product a pair (p rounded
-// to v's type first, as the plain version does: 2 x 2 hd TF32 operations a
-// pair), and their backward one product for S and dP (two inputs) and two
-// for dV, dK and dQ (a computed float32 P or dS split, times an input):
-// 2 hd x (1 + 1 + 2 + 2 + 2) = 16 hd TF32 operations a pair at the bound,
-// 20 hd as the kernels run (S and dP twice, in dK/dV and in dQ). Their
-// P and dS stay float32 (the plain version rounds every einsum to the
-// inputs' type); each output is rounded once to it.
+// TFLOP/s (TF32, dense) is the route's bound.
 //
 // Why mma.sync and not wgmma: wgmma takes tf32 operands K-major from shared
 // memory only (its transpose bits are for 16-bit types), so split TF32
@@ -117,8 +112,7 @@
 // kernel of the first design took 174 KB, one block). ptxas gives the
 // three 254-255 registers and no spills (the cap of two 128-thread blocks
 // an SM). Head dim 96 takes the same kernels: its tiles take 76,800 bytes
-// (two blocks an SM). 16-bit inputs take dkdv_pair_kernel at hd 128 too
-// (kPairDkdv: the 4-warp kernel spilled there). At hd 256 a warp's
+// (two blocks an SM). At hd 256 a warp's
 // accumulators of hd floats a thread (two in dK/dV) would not fit the
 // registers, so all three kernels run warp pairs (fwd_pair_kernel,
 // dkdv_pair_kernel, dq_pair_kernel):
@@ -164,8 +158,7 @@
 //   gemma's shape, 3.88 waves of 132; 640 at recurrentgemma's), the
 //   longest query tiles first.
 // The ring is filled by 16-byte cp.async.cg, zero-filled past S
-// (src-size 0); 16-bit tiles are widened to float32 by plain 16-byte
-// loads. Blocks run the longest tiles first: the forward and dQ take the
+// (src-size 0). Blocks run the longest tiles first: the forward and dQ take the
 // query tiles from the last (the most keys under a causal mask), dK/dV the
 // key tiles from the first. Each block builds, from the positions, bitmaps
 // of the tiles that hold a visible pair (the others are never loaded) and
@@ -175,31 +168,21 @@
 // contiguous, element strides for B, S and the head given per tensor; the
 // rows the kernels read start on 16 bytes (the wrapper copies a tensor that
 // does not), and the outputs are written as float pairs. Positions int32
-// (B, Sq) and (B, Sk); lse and delta float32 (B, H, Sq). Forward inputs
-// float32, bfloat16 or float16 (out in the input type, accumulated in
-// float32); backward alike (dO in, dQ, dK, dV out in the input type). One
-// library an element type (FLASH_ELEMENT, below).
+// (B, Sq) and (B, Sk); lse and delta float32 (B, H, Sq); every tensor
+// float32 here (the 16-bit libraries: flash_attention16.cu).
 //
 // C interface for ctypes. The kernels allocate nothing and launch on the
 // stream they are given; each entry point returns cudaGetLastError() after
 // its launches, or cudaErrorInvalidValue for a shape it does not take.
 
-#include <climits>
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
 #include <type_traits>
+
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;         // 4 warps
-constexpr int kRows = 64;             // a block's own rows: 16 a warp
 constexpr int kFwdKeys = 32;          // the forward's key tile
 constexpr int kBwdTile = 32;          // dQ's key tile, dK/dV's query tile
-constexpr int kDeltaThreads = 256;    // delta_kernel: a warp a row
-constexpr float kNegInf = -1e30f;
 // n-tiles a fresh accumulator takes in mma_pb (half of it in dK/dV, which
 // holds two long accumulators); at most hd / 8
 template <int HD>
@@ -211,41 +194,6 @@ constexpr int kChunkOf = HD / 8 < 4 ? HD / 8 : 4;
 template <int HD, int N>
 constexpr int kRowsUnroll = HD > 128 && N > 8 ? 8 : N;
 
-struct Strides {  // element strides of a (B, S, heads, hd) tensor
-  long long b, s, h;
-};
-
-__device__ __forceinline__ float round_as(float x, const float*) { return x; }
-// p rounded to v's type before its product (the plain version's
-// p.to(v.dtype))
-__device__ __forceinline__ float round_as(float x, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-__device__ __forceinline__ float round_as(float x, const __half*) {
-  return __half2float(__float2half_rn(x));
-}
-// two consecutive outputs, each rounded once to the output's type
-__device__ __forceinline__ void store2(float* p, float x, float y) {
-  *reinterpret_cast<float2*>(p) = make_float2(x, y);
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
-}
-__device__ __forceinline__ void store2(__half* p, float x, float y) {
-  *reinterpret_cast<__half2*>(p) = __floats2half2_rn(x, y);
-}
-__device__ __forceinline__ float as_float(float x) { return x; }
-__device__ __forceinline__ float as_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ float as_float(__half x) { return __half2float(x); }
-
-__device__ __forceinline__ bool visible(int qp, int kp, int causal,
-                                        int window) {
-  return kp >= 0 && (!causal || kp <= qp) &&
-         (window <= 0 || (long long)kp > (long long)qp - window);
-}
-
 // ---- split TF32 on the tensor cores -------------------------------------
 
 // cvt.rna.tf32.f32 of a finite x: the 13 dropped bits rounded to nearest,
@@ -255,18 +203,10 @@ __device__ __forceinline__ uint32_t tf32(float x) {
   return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }
 
-// x as an operand: hi = tf32(x), lo = tf32(x - hi) when SPLIT (float32);
-// else x itself, a bfloat16 or float16 value (exact in TF32: 8 and 11
-// significant bits of TF32's 11), and no lo
-template <bool SPLIT>
+// x as an operand: hi = tf32(x), lo = tf32(x - hi)
 __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  if constexpr (SPLIT) {
-    hi = tf32(x);
-    lo = tf32(__fsub_rn(x, __uint_as_float(hi)));
-  } else {
-    hi = __float_as_uint(x);
-    lo = 0u;
-  }
+  hi = tf32(x);
+  lo = tf32(__fsub_rn(x, __uint_as_float(hi)));
 }
 
 __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
@@ -277,26 +217,17 @@ __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// where a product's operands come from: float32 A and B both split in
-// registers (kSplit: three TF32 products); float32 A split in registers and
-// B's hi and lo tiles split once per block in shared memory (kPreB: three);
-// a computed float32 A (P, dS) split in registers and a 16-bit B, exact in
-// TF32 (kSplitA: two); 16-bit values on both sides, or P rounded to v's
-// 16-bit type, exact in TF32 (kExact: one)
-enum Mode { kSplit, kPreB, kSplitA, kExact };
-template <Mode M>
-constexpr bool kSplitsA = M != kExact;
-template <Mode M>
-constexpr bool kSplitsB = M == kSplit || M == kPreB;
+// where B's split comes from: B split in registers as A is (kSplit), or
+// B's hi and lo tiles split once per block in shared memory (kPreB); three
+// TF32 products either way
+enum Mode { kSplit, kPreB };
 
-// d += a b: lo_a hi_b (A split), hi_a lo_b (B split), hi_a hi_b (the
-// small terms first)
-template <Mode MODE>
+// d += a b: lo_a hi_b, hi_a lo_b, hi_a hi_b (the small terms first)
 __device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
                                      const uint32_t (&al)[4], uint2 bh,
                                      uint2 bl) {
-  if constexpr (kSplitsA<MODE>) mma(d, al, bh.x, bh.y);
-  if constexpr (kSplitsB<MODE>) mma(d, ah, bl.x, bl.y);
+  mma(d, al, bh.x, bh.y);
+  mma(d, ah, bl.x, bl.y);
   mma(d, ah, bh.x, bh.y);
 }
 
@@ -342,7 +273,7 @@ __device__ __forceinline__ void mma_abt(float (&acc)[NT][4], const float* A,
     ldsm4(ar, a + k);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
-      split<kSplitsA<MODE>>(__uint_as_float(ar[i]), ah[i], al[i]);
+      split(__uint_as_float(ar[i]), ah[i], al[i]);
 #pragma unroll
     for (int j = 0; j < NT; j += 2) {
       // b0, b1 of n-tile j, then of j + 1
@@ -353,12 +284,12 @@ __device__ __forceinline__ void mma_abt(float (&acc)[NT][4], const float* A,
       } else {
 #pragma unroll
         for (int i = 0; i < 4; ++i)
-          split<kSplitsB<MODE>>(__uint_as_float(bh[i]), bh[i], bl[i]);
+          split(__uint_as_float(bh[i]), bh[i], bl[i]);
       }
-      mma3<MODE>(acc[j], ah, al, make_uint2(bh[0], bh[1]),
-                 make_uint2(bl[0], bl[1]));
-      mma3<MODE>(acc[j + 1], ah, al, make_uint2(bh[2], bh[3]),
-                 make_uint2(bl[2], bl[3]));
+      mma3(acc[j], ah, al, make_uint2(bh[0], bh[1]),
+           make_uint2(bl[0], bl[1]));
+      mma3(acc[j + 1], ah, al, make_uint2(bh[2], bh[3]),
+           make_uint2(bl[2], bl[3]));
     }
   }
 }
@@ -382,7 +313,6 @@ __device__ __forceinline__ void mma_pb(float (&acc)[DC / 8][4],
                                        const float (&alpha)[2]) {
   static_assert(DC / 8 % NB == 0, "whole chunks of n-tiles");
   constexpr int RS = HD + 4;
-  constexpr bool SA = kSplitsA<MODE>;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int bo = 2 * t * RS + g;
 #pragma unroll
@@ -392,10 +322,10 @@ __device__ __forceinline__ void mma_pb(float (&acc)[DC / 8][4],
 #pragma unroll
     for (int s = 0; s < KS; ++s) {
       uint32_t ah[4], al[4];
-      split<SA>(p[s][0], ah[0], al[0]);
-      split<SA>(p[s][2], ah[1], al[1]);
-      split<SA>(p[s][1], ah[2], al[2]);
-      split<SA>(p[s][3], ah[3], al[3]);
+      split(p[s][0], ah[0], al[0]);
+      split(p[s][2], ah[1], al[1]);
+      split(p[s][1], ah[2], al[2]);
+      split(p[s][3], ah[3], al[3]);
 #pragma unroll
       for (int n = 0; n < NB; ++n) {
         const int at0 = bo + 8 * s * RS + 8 * (n0 + n), at1 = at0 + RS;
@@ -404,10 +334,10 @@ __device__ __forceinline__ void mma_pb(float (&acc)[DC / 8][4],
           bh = make_uint2(__float_as_uint(Bh[at0]), __float_as_uint(Bh[at1]));
           bl = make_uint2(__float_as_uint(Bl[at0]), __float_as_uint(Bl[at1]));
         } else {
-          split<kSplitsB<MODE>>(Bh[at0], bh.x, bl.x);
-          split<kSplitsB<MODE>>(Bh[at1], bh.y, bl.y);
+          split(Bh[at0], bh.x, bl.x);
+          split(Bh[at1], bh.y, bl.y);
         }
-        mma3<MODE>(part[n], ah, al, bh, bl);
+        mma3(part[n], ah, al, bh, bl);
       }
     }
 #pragma unroll
@@ -418,80 +348,25 @@ __device__ __forceinline__ void mma_pb(float (&acc)[DC / 8][4],
   }
 }
 
-// ---- asynchronous copies -------------------------------------------------
-
-__device__ __forceinline__ void cp16(float* dst, const float* src, bool ok) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d),
-               "l"(src), "r"(ok ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp4(void* dst, const void* src, bool ok) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(d),
-               "l"(src), "r"(ok ? 4 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-// wait until at most N of this thread's copy groups are in flight (a
-// barrier then makes every thread's copies visible)
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ float bf_lo(uint32_t w) {
-  return __uint_as_float(w << 16);
-}
-__device__ __forceinline__ float bf_hi(uint32_t w) {
-  return __uint_as_float(w & 0xffff0000u);
-}
-// the two 16-bit values of a word (the first in its low half) as floats
-__device__ __forceinline__ float2 widen2(uint32_t w, const __nv_bfloat16*) {
-  return make_float2(bf_lo(w), bf_hi(w));
-}
-__device__ __forceinline__ float2 widen2(uint32_t w, const __half*) {
-  return __half22float2(*reinterpret_cast<const __half2*>(&w));
-}
-
 // rows r0 .. r0 + R - 1 of a (b, head) slice (row stride ss elements, hd
 // contiguous) -> dst [R][HD + 4] float32, rows at or past S as 0; r0 < S;
-// by the block's NTH threads. float32 by 16-byte cp.async (src-size 0 past
-// S); bfloat16 and float16 by plain 16-byte loads, widened (exactly).
+// by the block's NTH threads, by 16-byte cp.async (src-size 0 past S)
 template <int HD, int R, typename T, int NTH = kThreads>
 __device__ __forceinline__ void load_rows(float* dst, const T* src,
                                           long long ss, int r0, int S) {
-  constexpr int RS = HD + 4;
-  if constexpr (std::is_same<T, float>::value) {
-    constexpr int C = HD / 4;
-    static_assert(R * C % NTH == 0, "whole chunks a thread");
+  static_assert(std::is_same<T, float>::value, "float32 tiles");
+  constexpr int RS = HD + 4, C = HD / 4;
+  static_assert(R * C % NTH == 0, "whole chunks a thread");
 #pragma unroll (kRowsUnroll<HD, R * C / NTH>)
-    for (int i = 0; i < R * C / NTH; ++i) {
-      const int e = threadIdx.x + i * NTH, r = e / C, c = e % C;
-      const bool ok = r0 + r < S;
-      cp16(dst + r * RS + 4 * c, src + (long long)(ok ? r0 + r : r0) * ss + 4 * c,
-           ok);
-    }
-  } else {
-    constexpr int C = HD / 8;
-    for (int e = threadIdx.x; e < R * C; e += NTH) {
-      const int r = e / C, c = e % C;
-      uint4 u = make_uint4(0u, 0u, 0u, 0u);
-      if (r0 + r < S)
-        u = *reinterpret_cast<const uint4*>(src + (long long)(r0 + r) * ss +
-                                            8 * c);
-      float4* d = reinterpret_cast<float4*>(dst + r * RS + 8 * c);
-      const float2 w0 = widen2(u.x, src), w1 = widen2(u.y, src),
-                   w2 = widen2(u.z, src), w3 = widen2(u.w, src);
-      d[0] = make_float4(w0.x, w0.y, w1.x, w1.y);
-      d[1] = make_float4(w2.x, w2.y, w3.x, w3.y);
-    }
+  for (int i = 0; i < R * C / NTH; ++i) {
+    const int e = threadIdx.x + i * NTH, r = e / C, c = e % C;
+    const bool ok = r0 + r < S;
+    cp16(dst + r * RS + 4 * c, src + (long long)(ok ? r0 + r : r0) * ss + 4 * c,
+         ok);
   }
 }
 
-// the chunks this thread copied by load_rows<HD, R, float> into hi, split
+// the chunks this thread copied by load_rows<HD, R> into hi, split
 // in place: hi = tf32(x), lo = tf32(x - hi). Right after the thread's own
 // cp.async group is complete (its copies are visible to it); a barrier
 // then publishes both tiles. By the block's NTH threads, as load_rows.
@@ -503,16 +378,16 @@ __device__ __forceinline__ void split_rows(float* hi, float* lo) {
     const int e = threadIdx.x + i * NTH, at = e / C * RS + 4 * (e % C);
     float4 x = *reinterpret_cast<float4*>(hi + at), h, l;
     uint32_t uh, ul;
-    split<true>(x.x, uh, ul);
+    split(x.x, uh, ul);
     h.x = __uint_as_float(uh);
     l.x = __uint_as_float(ul);
-    split<true>(x.y, uh, ul);
+    split(x.y, uh, ul);
     h.y = __uint_as_float(uh);
     l.y = __uint_as_float(ul);
-    split<true>(x.z, uh, ul);
+    split(x.z, uh, ul);
     h.z = __uint_as_float(uh);
     l.z = __uint_as_float(ul);
-    split<true>(x.w, uh, ul);
+    split(x.w, uh, ul);
     h.w = __uint_as_float(uh);
     l.w = __uint_as_float(ul);
     *reinterpret_cast<float4*>(hi + at) = h;
@@ -520,111 +395,18 @@ __device__ __forceinline__ void split_rows(float* hi, float* lo) {
   }
 }
 
-// n values src[i0 + i] (i < n, i0 + i < S; else 0) -> dst[i], by threads
-// lo .. lo + n - 1, 4-byte cp.async
-__device__ __forceinline__ void load_vals(void* dst, const void* src, int lo,
-                                          int n, int i0, int S) {
-  const int i = (int)threadIdx.x - lo;
-  if (i >= 0 && i < n) {
-    const bool ok = i0 + i < S;
-    cp4(static_cast<int*>(dst) + i,
-        static_cast<const int*>(src) + (ok ? i0 + i : i0), ok);
-  }
-}
-
-// ---- tiles to skip -------------------------------------------------------
-
-// min and max of pos[r] over r < n with pos[r] >= 0 (all of them when
-// !only_valid), into out[0], out[1]; INT_MAX / INT_MIN when there is none.
-// Called by every thread; ends with a barrier.
-__device__ __forceinline__ void pos_range(const int* pos, int n,
-                                          bool only_valid, int* out) {
-  if (threadIdx.x < 32) {
-    int lo = INT_MAX, hi = INT_MIN;
-    for (int r = threadIdx.x; r < n; r += 32) {
-      if (!only_valid || pos[r] >= 0) {
-        lo = min(lo, pos[r]);
-        hi = max(hi, pos[r]);
-      }
-    }
-#pragma unroll
-    for (int o = 16; o; o >>= 1) {
-      lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
-      hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, o));
-    }
-    if (threadIdx.x == 0) {
-      out[0] = lo;
-      out[1] = hi;
-    }
-  }
-  __syncthreads();
-}
-
-__host__ __device__ constexpr int bitmap_words(int tiles) {
-  return (tiles + 31) / 32;
-}
-
-// Bitmaps of the tiles (TILE indices each) along the streamed axis, from
-// the positions pos[j], j < n: bit i of live is set iff tile i holds some
-// j with live_ok(pos[j]) (a necessary condition for a visible pair in the
-// tile); bit i of part iff some j of tile i fails full_ok(pos[j]) (every
-// pair of j with the block's own rows visible), so a live tile without a
-// part bit needs no mask (a tile past n must be tested apart). Each warp
-// reads 32 consecutive positions, one tile's. Called by every one of the
-// block's NTH threads; ends with a barrier.
-template <int TILE, int NTH = kThreads, typename Live, typename Full>
-__device__ __forceinline__ void mark_tiles(unsigned* live, unsigned* part,
-                                           int tiles, const int* pos, int n,
-                                           Live live_ok, Full full_ok) {
-  static_assert(TILE % 32 == 0, "a warp's 32 positions lie in one tile");
-  for (int i = threadIdx.x; i < bitmap_words(tiles); i += NTH)
-    live[i] = part[i] = 0u;
-  __syncthreads();
-  const int lane = threadIdx.x & 31;
-#pragma unroll 4
-  for (int j0 = (int)threadIdx.x - lane; j0 < n; j0 += NTH) {
-    const int j = j0 + lane;
-    const int x = j < n ? pos[j] : 0;
-    const bool hit = __any_sync(0xffffffffu, j < n && live_ok(x));
-    const bool all = __all_sync(0xffffffffu, j < n && full_ok(x));
-    if (lane == 0) {
-      const int word = j0 / TILE / 32;
-      const unsigned bit = 1u << (j0 / TILE % 32);
-      if (hit) atomicOr(live + word, bit);
-      if (!all) atomicOr(part + word, bit);
-    }
-  }
-  __syncthreads();
-}
-
-__device__ __forceinline__ bool bit_set(const unsigned* bits, int i) {
-  return (bits[i >> 5] >> (i & 31)) & 1u;
-}
-
-// the first live tile at or after i, or tiles
-__device__ __forceinline__ int next_live(const unsigned* live, int i,
-                                         int tiles) {
-  while (i < tiles) {
-    const unsigned w = live[i >> 5] >> (i & 31);
-    if (w) return i + __ffs(w) - 1;
-    i = (i | 31) + 1;
-  }
-  return tiles;
-}
-
 // ---- forward -------------------------------------------------------------
 
 // The online softmax over one key tile of a warp's rows: the scaled and
 // masked scores s (C layout: rows g, g + 8 in r = 0, 1; a row's 32 keys
-// over the 4 lanes of its quad) become p = exp(s - m') rounded to v's
-// type; m and l move to the tile's, and alpha = exp(m - m') is what the
-// accumulator is scaled by.
-template <int NT, typename T>
+// over the 4 lanes of its quad) become p = exp(s - m'); m and l move to
+// the tile's, and alpha = exp(m - m') is what the accumulator is scaled
+// by.
+template <int NT>
 __device__ __forceinline__ void online_softmax(float (&s)[NT][4],
                                                float (&m_run)[2],
                                                float (&l_run)[2],
-                                               float (&alpha)[2],
-                                               const T* v) {
+                                               float (&alpha)[2]) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     float mx = kNegInf;
@@ -641,7 +423,6 @@ __device__ __forceinline__ void online_softmax(float (&s)[NT][4],
       for (int e = 2 * r; e < 2 * r + 2; ++e) {
         s[j][e] = expf(s[j][e] - m_new);
         rs += s[j][e];
-        s[j][e] = round_as(s[j][e], v);
       }
     rs += __shfl_xor_sync(0xffffffffu, rs, 1);
     rs += __shfl_xor_sync(0xffffffffu, rs, 2);
@@ -662,8 +443,7 @@ __global__ void __launch_bounds__(kThreads, 2)
                int causal, int window, float scale, Strides sq, Strides sk,
                Strides sv, Strides so) {
   constexpr int RS = HD + 4, BK = kFwdKeys, NT = BK / 8;
-  constexpr bool SPLIT = std::is_same<T, float>::value;
-  constexpr Mode MODE = SPLIT ? kPreB : kExact;
+  constexpr Mode MODE = kPreB;
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);  // [64][RS]
   float* Ks = Qs + kRows * RS;  // slot 0: keys [BK][RS], their hi once split
@@ -724,7 +504,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   while (kt < nkt) {
     const int k0 = kt * BK;
     cp_wait<1>();  // Q, this tile's keys and positions
-    if constexpr (SPLIT) split_rows<HD, BK>(Ks, Kl);
+    split_rows<HD, BK>(Ks, Kl);
     __syncthreads();
     float s[NT][4];
     mma_abt<HD, NT, MODE>(s, Qw, Ks, Kl);
@@ -753,9 +533,9 @@ __global__ void __launch_bounds__(kThreads, 2)
     }
     cp_commit();
     float alpha[2];
-    online_softmax(s, m_run, l_run, alpha, v);
+    online_softmax(s, m_run, l_run, alpha);
     cp_wait<1>();  // this tile's values
-    if constexpr (SPLIT) split_rows<HD, BK>(Vs, Vl);
+    split_rows<HD, BK>(Vs, Vl);
     __syncthreads();
     mma_pb<HD, HD, NT, kChunkOf<HD>, MODE>(acc, s, Vs, Vl, alpha);
     __syncthreads();  // every warp is done with slot 1
@@ -781,42 +561,6 @@ __global__ void __launch_bounds__(kThreads, 2)
 
 // ---- backward ------------------------------------------------------------
 
-// delta[b, h, i] = sum_c dO[b, i, h, c] O[b, i, h, c]: a warp a row, the
-// lanes' partial sums reduced in a fixed order (float32 sums of the
-// inputs' type's values)
-template <typename T>
-__global__ void __launch_bounds__(kDeltaThreads)
-    delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
-                 float* __restrict__ delta, int H, int Sq, int hd,
-                 long long rows, Strides so, Strides sdo) {
-  const long long row = (long long)blockIdx.x * (kDeltaThreads / 32) +
-                        threadIdx.x / 32;
-  if (row >= rows) return;
-  const int lane = threadIdx.x & 31;
-  const int i = (int)(row % Sq);
-  const int h = (int)((row / Sq) % H);
-  const int b = (int)(row / ((long long)Sq * H));
-  const T* orow = o + b * so.b + (long long)i * so.s + h * so.h;
-  const T* drow = dout + b * sdo.b + (long long)i * sdo.s + h * sdo.h;
-  float acc = 0.f;
-  for (int c = lane; c < hd; c += 32)
-    acc = fmaf(as_float(drow[c]), as_float(orow[c]), acc);
-#pragma unroll
-  for (int off = 16; off; off >>= 1)
-    acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) delta[row] = acc;
-}
-
-// The backward's products by the inputs' type T: float32 splits both
-// operands (three TF32 products); 16-bit inputs are exact in TF32, so S
-// and dP (two inputs) take one product and dK, dV, dQ (a computed float32
-// P or dS times an input) two, P and dS split
-template <typename T>
-constexpr Mode kInputsMode = std::is_same<T, float>::value ? kSplit : kExact;
-template <typename T>
-constexpr Mode kComputedMode =
-    std::is_same<T, float>::value ? kSplit : kSplitA;
-
 template <int HD, typename T>
 __global__ void __launch_bounds__(kThreads, 2)
     dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -829,7 +573,7 @@ __global__ void __launch_bounds__(kThreads, 2)
                 Strides sk, Strides sv, Strides sdo, Strides sdk,
                 Strides sdv) {
   constexpr int RS = HD + 4, BQ = kBwdTile, NT = BQ / 8;
-  constexpr Mode SM = kInputsMode<T>, PM = kComputedMode<T>;
+  constexpr Mode SM = kSplit, PM = kSplit;
   extern __shared__ float4 smem4[];
   float* Ks = reinterpret_cast<float*>(smem4);  // [64][RS], the block's keys
   float* Vs = Ks + kRows * RS;                  // [64][RS]
@@ -977,7 +721,7 @@ __global__ void __launch_bounds__(kThreads, 2)
               int causal, int window, float scale, Strides sq, Strides sk,
               Strides sv, Strides sdo, Strides sdq) {
   constexpr int RS = HD + 4, BK = kBwdTile, NT = BK / 8;
-  constexpr Mode SM = kInputsMode<T>, PM = kComputedMode<T>;
+  constexpr Mode SM = kSplit, PM = kSplit;
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);  // [64][RS]
   float* dOs = Qs + kRows * RS;                 // [64][RS]
@@ -1148,8 +892,7 @@ __global__ void __launch_bounds__(kPairThreads, 1)
                     Strides sk, Strides sv, Strides so) {
   constexpr int RS = HD + 4, DC = HD / 2, BK = kFwdKeys, NT = BK / 8;
   constexpr int NTH = kPairThreads, XS = NT * 4 * 32;
-  constexpr bool SPLIT = std::is_same<T, float>::value;
-  constexpr Mode MODE = SPLIT ? kPreB : kExact;
+  constexpr Mode MODE = kPreB;
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);  // [64][RS]
   float* Ks = Qs + kRows * RS;  // slot 0: keys [BK][RS], their hi once split
@@ -1211,7 +954,7 @@ __global__ void __launch_bounds__(kPairThreads, 1)
   while (kt < nkt) {
     const int k0 = kt * BK;
     cp_wait<1>();  // Q, this tile's keys and positions
-    if constexpr (SPLIT) split_rows<HD, BK, NTH>(Ks, Kl);
+    split_rows<HD, BK, NTH>(Ks, Kl);
     __syncthreads();
     float s[NT][4];
     // the warp's 128 columns of the reduction, then its partner's added
@@ -1246,9 +989,9 @@ __global__ void __launch_bounds__(kPairThreads, 1)
     }
     cp_commit();
     float alpha[2];
-    online_softmax(s, m_run, l_run, alpha, v);
+    online_softmax(s, m_run, l_run, alpha);
     cp_wait<1>();  // this tile's values
-    if constexpr (SPLIT) split_rows<HD, BK, NTH>(Vs, Vl);
+    split_rows<HD, BK, NTH>(Vs, Vl);
     __syncthreads();
     // two n-tiles of fresh accumulator at a time (four spilled 8 bytes a
     // thread)
@@ -1280,10 +1023,10 @@ __global__ void __launch_bounds__(kPairThreads, 1)
 // nkt - 1 - kt, taken one after the other, a part of gpp consecutive heads
 // of the group); warps w and w + 4 own the same 16 keys of the tile, w the
 // dK/dV columns 0-127 and the reduction's columns 0-127 of S^T and dP^T,
-// w + 4 the columns 128-255. With more than one part, or 16-bit inputs
-// (ws not null), the block writes its partial dK (not yet scaled) and dV
-// in float32 to ws [G / gpp][2][B][Sk][Kv][HD], summed (and rounded to T)
-// by dkdv_reduce_kernel; else dK and dV (float32).
+// w + 4 the columns 128-255. With more than one part (ws not null), the
+// block writes its partial dK (not yet scaled) and dV in float32 to ws
+// [G / gpp][2][B][Sk][Kv][HD], summed by dkdv_reduce_kernel; else dK and
+// dV.
 template <int HD, typename T>
 __global__ void __launch_bounds__(kPairThreads, 1)
     dkdv_pair_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -1300,7 +1043,7 @@ __global__ void __launch_bounds__(kPairThreads, 1)
                      Strides sdv) {
   constexpr int RS = HD + 4, DC = HD / 2, BQ = kBwdTile, NT = BQ / 8;
   constexpr int NTH = kPairThreads, XS = NT * 4 * 32;
-  constexpr Mode SM = kInputsMode<T>, PM = kComputedMode<T>;
+  constexpr Mode SM = kSplit, PM = kSplit;
   extern __shared__ float4 smem4[];
   float* Ks = reinterpret_cast<float*>(smem4);  // [64][RS], the tile's keys
   float* Vs = Ks + kRows * RS;                  // [64][RS]
@@ -1472,41 +1215,6 @@ __global__ void __launch_bounds__(kPairThreads, 1)
   }
 }
 
-// dK = scale (ws[0, 0] + ws[1, 0] + ...), dV = ws[0, 1] + ws[1, 1] + ...:
-// the parts added in ascending order in float32, a thread four consecutive
-// columns, each output rounded once to T
-template <int HD, typename T>
-__global__ void __launch_bounds__(kDeltaThreads)
-    dkdv_reduce_kernel(const float* __restrict__ ws, T* __restrict__ dk,
-                       T* __restrict__ dv, int parts, int Sk, int Kv,
-                       long long plane, float scale, Strides sdk,
-                       Strides sdv) {
-  const long long n = plane / 4;  // float4s of one of dK, dV
-  const float4* w4 = reinterpret_cast<const float4*>(ws);
-  for (long long i = (long long)blockIdx.x * kDeltaThreads + threadIdx.x;
-       i < 2 * n; i += (long long)gridDim.x * kDeltaThreads) {
-    const int which = i >= n;  // 0: dK, 1: dV
-    const long long j = i - which * n, e = 4 * j;
-    float4 a = w4[which * n + j];
-    for (int p = 1; p < parts; ++p) {
-      const float4 x = w4[(2 * p + which) * n + j];
-      a.x += x.x;
-      a.y += x.y;
-      a.z += x.z;
-      a.w += x.w;
-    }
-    const int c = (int)(e % HD);
-    const long long row = e / HD;  // (b, s, kv head)
-    const int kvh = (int)(row % Kv), s = (int)(row / Kv % Sk);
-    const int b = (int)(row / Kv / Sk);
-    T* out = which ? dv + b * sdv.b + (long long)s * sdv.s + kvh * sdv.h + c
-                   : dk + b * sdk.b + (long long)s * sdk.s + kvh * sdk.h + c;
-    const float f = which ? 1.f : scale;
-    store2(out, a.x * f, a.y * f);
-    store2(out + 2, a.z * f, a.w * f);
-  }
-}
-
 // dQ at hd 256. A block owns (b, h, 64 queries) and loops over the key
 // tiles; warps w and w + 4 own the same 16 queries, w the dQ columns 0-127
 // and the reduction's columns 0-127 of S and dP, w + 4 the columns
@@ -1523,7 +1231,7 @@ __global__ void __launch_bounds__(kPairThreads, 1)
                    Strides sv, Strides sdo, Strides sdq) {
   constexpr int RS = HD + 4, DC = HD / 2, BK = kBwdTile, NT = BK / 8;
   constexpr int NTH = kPairThreads, XS = NT * 4 * 32;
-  constexpr Mode SM = kInputsMode<T>, PM = kComputedMode<T>;
+  constexpr Mode SM = kSplit, PM = kSplit;
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);  // [64][RS]
   float* dOs = Qs + kRows * RS;                 // [64][RS]
@@ -1647,8 +1355,6 @@ __global__ void __launch_bounds__(kPairThreads, 1)
 
 // ---- host ----------------------------------------------------------------
 
-constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
-
 // the warp-pair kernels' exchange slots: 8 x 16 x 32 floats (a warp's S
 // fragments over a tile of 32 keys or queries)
 static_assert(kFwdKeys == kBwdTile, "one size of exchange slot");
@@ -1667,15 +1373,11 @@ auto fwd_kernel_of() {
 template <int HD>
 constexpr int kFwdThreads = HD > 128 ? kPairThreads : kThreads;
 // dK/dV by warp pairs (dkdv_pair_kernel, its float32 partial sums through
-// the workspace and dkdv_reduce_kernel): at hd 256, and for 16-bit inputs
-// at hd 128, where the 4-warp kernel's two accumulators of 64 registers a
-// thread, beside its plain (register-staged) 16-bit tile loads, spilled
-// 4-12 bytes a thread at the 255-register cap of two blocks an SM however
-// the loads were ordered or unrolled; a warp pair's accumulators are half
-// of that (one 8-warp block an SM)
-template <int HD, typename T>
-constexpr bool kPairDkdv =
-    HD > 128 || (HD == 128 && !std::is_same<T, float>::value);
+// the workspace and dkdv_reduce_kernel where the heads are split): at hd
+// 256, where the 4-warp kernel's two accumulators of hd floats a thread
+// would not fit the registers
+template <int HD>
+constexpr bool kPairDkdv = HD > 128;
 
 template <int HD>
 constexpr size_t tile_bytes(int rows) {
@@ -1700,21 +1402,6 @@ size_t dq_smem(int Sk) {
   return tile_bytes<HD>(2 * kRows + 2 * kBwdTile) +
          sizeof(int) * (kBwdTile + kRows + 4 +
                         2 * bitmap_words(cdiv(Sk, kBwdTile)));
-}
-// shared memory above 48 KB, and the SM's carve-out at its most, so that
-// two blocks fit an SM
-template <typename K>
-cudaError_t prepare(K kernel, size_t bytes) {
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (e != cudaSuccess) return e;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributePreferredSharedMemoryCarveout,
-                              (int)cudaSharedmemCarveoutMaxShared);
-}
-
-Strides strides_at(const long long* s, int i) {
-  return Strides{s[3 * i], s[3 * i + 1], s[3 * i + 2]};
 }
 
 template <int HD, typename T>
@@ -1753,20 +1440,15 @@ cudaError_t bwd(const T* q, const T* k, const T* v, const T* o,
                 sv = strides_at(st, 2), sdo = strides_at(st, 4),
                 sdq = strides_at(st, 5), sdk = strides_at(st, 6),
                 sdv = strides_at(st, 7);
-  if constexpr (kPairDkdv<HD, T>) {
-    // float32 dK and dV straight from the kernel with one part; else (more
-    // parts, or 16-bit outputs) through the workspace and the reduction
-    float *dkf = nullptr, *dvf = nullptr;
-    if constexpr (std::is_same<T, float>::value) {
-      dkf = dk;
-      dvf = dv;
-    }
+  if constexpr (kPairDkdv<HD>) {
+    // dK and dV straight from the kernel with one part; else through the
+    // workspace and the reduction
     const bool reduce = ws != nullptr;
     const size_t s1 = dkdv_smem<HD>(Sq) + kExchangeBytes;
     if ((e = prepare(dkdv_pair_kernel<HD, T>, s1)) != cudaSuccess) return e;
     dkdv_pair_kernel<HD, T><<<cdiv(cdiv(Sk, kRows), 2) * Kv * B * parts,
                               kPairThreads, s1, stream>>>(
-        q, k, v, dout, qpos, kpos, lse, delta, dkf, dvf, ws, B, H, Kv, G,
+        q, k, v, dout, qpos, kpos, lse, delta, dk, dv, ws, B, H, Kv, G,
         G / parts, Sq, Sk, causal, window, scale, sq, sk, sv, sdo, sdk, sdv);
     if ((e = cudaGetLastError()) != cudaSuccess) return e;
     if (reduce) {
@@ -1803,30 +1485,13 @@ cudaError_t bwd(const T* q, const T* k, const T* v, const T* o,
   return cudaGetLastError();
 }
 
-// blocks per SM, dynamic shared memory, registers and local (spill) bytes
-// of one kernel, and its threads a block: res[0..4]
-template <typename K>
-cudaError_t resources_of(K kernel, size_t bytes, int* res,
-                         int threads = kThreads) {
-  cudaError_t e = prepare(kernel, bytes);
-  if (e != cudaSuccess) return e;
-  cudaFuncAttributes a;
-  if ((e = cudaFuncGetAttributes(&a, kernel)) != cudaSuccess) return e;
-  res[1] = (int)bytes;
-  res[2] = a.numRegs;
-  res[3] = (int)a.localSizeBytes;
-  res[4] = threads;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(res, kernel, threads,
-                                                       bytes);
-}
-
 template <int HD, typename T>
 cudaError_t occupancy(int S, int* res) {
   cudaError_t e;
   if ((e = resources_of(fwd_kernel_of<HD, T>(), fwd_smem<HD>(S), res,
                         kFwdThreads<HD>)) != cudaSuccess)
     return e;
-  if constexpr (kPairDkdv<HD, T>)
+  if constexpr (kPairDkdv<HD>)
     e = resources_of(dkdv_pair_kernel<HD, T>,
                      dkdv_smem<HD>(S) + kExchangeBytes, res + 5,
                      kPairThreads);
@@ -1841,23 +1506,12 @@ cudaError_t occupancy(int S, int* res) {
     return resources_of(dq_kernel<HD, T>, dq_smem<HD>(S), res + 10);
 }
 
-bool shape_ok(int B, int H, int Kv, int Sq, int Sk) {
-  return B >= 1 && H >= 1 && Kv >= 1 && H % Kv == 0 && Sq >= 1 && Sk >= 1 &&
-         B <= 65535 && H <= 65535 &&
-         (long long)cdiv(Sq, kRows) * H * B <= INT_MAX &&
-         (long long)cdiv(Sk, kRows) * Kv * B <= INT_MAX;
-}
-
 }  // namespace
 
-// One library an element type: this file alone builds the float32 one;
-// flash_attention_bf16.cu and flash_attention_f16.cu define FLASH_ELEMENT
-// and include it, so the three build in parallel and export the same
-// entry points for their type.
-#ifndef FLASH_ELEMENT
-#define FLASH_ELEMENT float
-#endif
-typedef FLASH_ELEMENT Elem;
+// The float32 library; the bfloat16 and float16 ones
+// (flash_attention_bf16.cu, flash_attention_f16.cu) export the same entry
+// points from flash_attention16.cu.
+typedef float Elem;
 
 // q (B, Sq, H, hd), k, v (B, Sk, Kv, hd) of the library's element type;
 // positions int32 (B, Sq), (B, Sk); -> o (B, Sq, H, hd) in that type, lse
@@ -1896,9 +1550,8 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
 // float32, each rounded once). strides: 24 element strides (b, s, head) of
 // q, k, v, o, dout, dq, dk, dv. parts: the hd-256 dK/dV kernel's split of
 // each group's H / Kv heads (a divisor of it; 1 below hd 256); at hd 256
-// with parts > 1, or with a 16-bit element type at hd 128 and 256 (the
-// warp pairs' dK/dV, kPairDkdv), ws holds parts x 2 x B x Sk x Kv x hd
-// floats of scratch for its float32 partial sums (null otherwise).
+// with parts > 1, ws holds parts x 2 x B x Sk x Kv x hd floats of scratch
+// for the warp pairs' float32 partial sums (null otherwise).
 extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    const void* v, const void* o,
                                    const void* dout, const void* qpos,
@@ -1908,8 +1561,7 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    int Sk, int hd, int causal, int window,
                                    int parts, float scale,
                                    const long long* strides, void* stream) {
-  const bool wants_ws = (hd > 128 && parts > 1) ||
-                        (hd >= 128 && !std::is_same<Elem, float>::value);
+  const bool wants_ws = hd > 128 && parts > 1;
   if (!shape_ok(B, H, Kv, Sq, Sk) || parts < 1 || (H / Kv) % parts ||
       (parts > 1 && hd <= 128) || wants_ws != (ws != nullptr) ||
       (long long)cdiv(cdiv(Sk, kRows), 2) * Kv * B * parts > INT_MAX)

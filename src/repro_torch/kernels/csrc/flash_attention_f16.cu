@@ -1,7 +1,8 @@
 // flash_attention_f16.cu -- the flash attention kernels of
-// flash_attention.cu for float16 q, k, v: the forward (out in float16) and
-// the backward (dO in, dQ, dK, dV out in float16; lse, the row sums and
-// every accumulation in float32). A library of its own, so that
-// flash_attention.cu's three element types build in parallel.
+// flash_attention16.cu for float16 q, k, v: the forward (out in float16)
+// and the backward (dO in, dQ, dK, dV out in float16; lse, the row sums
+// and every accumulation in float32), on the tensor cores' float16
+// products. A library of its own, so that the three element types build in
+// parallel.
 #define FLASH_ELEMENT __half
-#include "flash_attention.cu"
+#include "flash_attention16.cu"

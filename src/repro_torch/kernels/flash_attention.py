@@ -3,7 +3,8 @@
 Replaces the Pallas TPU kernel ``flash_attention_bh``
 (``src/repro/kernels/flash_attention.py``) and its GQA wrapper
 (``src/repro/kernels/ops.py:flash_attention``); the kernels are
-``csrc/flash_attention.cu``: a forward kernel that also writes the
+``csrc/flash_attention.cu`` (float32) and ``csrc/flash_attention16.cu``
+(bfloat16, float16): a forward kernel that also writes the
 float32 log-sum-exp of each row, and a backward pass (a row-sum kernel,
 then dK/dV and dQ), which the Pallas kernel does not have.
 ``FlashAttention`` ties the two together for autograd, and
@@ -14,29 +15,39 @@ For CPU tensors the wrappers run the plain versions
 (``kernels/ref.py:flash_attention_ref`` and its forward/backward
 companions); for CUDA tensors they launch the kernels or raise — there is
 no fallback. The kernels take float32, bfloat16 and float16, forward and
-backward (one library an element type: ``csrc/flash_attention.cu`` and
-its ``_bf16`` / ``_f16`` instantiations; q, k, v, out, dO and the
-gradients in that type, the log-sum-exp, the row sums and every sum
-float32, each output rounded once), head dims 16, 32, 64,
-96, 128 and 256, and (B, S, heads, hd) tensors with hd contiguous and any
-other strides whose rows start on 16 bytes (their tiles stream through
-16-byte ``cp.async``; a tensor whose base or strides break that is
-copied). At hd 256 the forward and the backward run 8-warp blocks of
-warp pairs, each warp a half of the columns, S (and dP) computed once a
-pair, the two warps' partial products added; the backward's dK/dV kernel
-takes two key tiles a block and, where that leaves the grid short of two
-blocks an SM (MQA: gemma-2b, recurrentgemma-2b), a part of each group's
-query heads (``bwd_parts``), writing partial sums to a float32 workspace
-that the wrapper allocates (parts x 2 x k's elements; 64 MiB at gemma's
-B 2, S 2048) and a second kernel adds in order. 16-bit inputs take that
-dK/dV kernel at hd 128 too, and always its workspace: the reduction
-rounds dK and dV once to the inputs' type. Their products run on the
-tensor cores in split TF32 (three TF32 products a float32 product, see the
-source's note), so the float32 results keep the plain versions'
-tolerances; 16-bit inputs are exact in TF32 (one product where both
-operands are inputs, two where one is a computed float32 P or dS). Their own tiles are 64 rows by 32 keys (by 32 queries in
-dK/dV); the plain version's ``block`` is the key block of its loop, which
-the kernels do not need.
+backward (one library an element type; q, k, v, out, dO and the gradients
+in that type, the log-sum-exp, the row sums and every sum float32, each
+output rounded once), head dims 16, 32, 64, 96, 128 and 256, and (B, S,
+heads, hd) tensors with hd contiguous and any other strides whose rows
+start on 16 bytes (their tiles stream through 16-byte ``cp.async``; a
+tensor whose base or strides break that is copied).
+
+float32 (``csrc/flash_attention.cu``): products in split TF32 (three TF32
+products a float32 product, see the source's note), so the results keep
+the plain versions' tolerances. At hd 256 the forward and the backward
+run 8-warp blocks of warp pairs, each warp a half of the columns, S (and
+dP) computed once a pair; the dK/dV kernel takes two key tiles a block
+and, where that leaves the grid short of two blocks an SM (MQA: gemma-2b,
+recurrentgemma-2b), a part of each group's query heads (``bwd_parts``),
+writing partial sums to a float32 workspace that the wrapper allocates
+(parts x 2 x k's elements; 64 MiB at gemma's B 2, S 2048) and a second
+kernel adds in order.
+
+bfloat16 and float16 (``csrc/flash_attention16.cu``, built as
+``csrc/flash_attention_bf16.cu`` / ``_f16.cu``): 16-bit tiles from device
+memory to the tensor cores by ``cp.async``, products with float32 sums:
+the forward by ``wgmma`` (warpgroups of 64 query rows, Q and K from
+shared memory in its 128-byte swizzle, hd 16, 32 and 96 in whole 64-column
+atoms, P from registers), the backward by ``mma.sync.m16n8k16`` from
+``ldmatrix`` fragments; P rounded once to
+v's type and dS to the inputs' type before their products, S and dP
+float32, each output rounded once (nearer the float32 yardstick than the
+plain 16-bit version, which rounds every einsum). dK/dV holds both
+accumulators in registers up to hd 128; at hd 256 it runs two column
+blocks and a ``bwd_parts`` workspace of its own grid's parts (32 MiB at
+gemma's B 2, S 2048). Tiles of 32 to 128 query rows by 32 or 64 keys (see
+the source); the plain version's ``block`` is the
+key block of its loop, which the kernels do not need.
 """
 from __future__ import annotations
 
@@ -99,24 +110,41 @@ def _rows(t):
     return t.clone(memory_format=torch.contiguous_format)
 
 
-def bwd_parts(B, Sk, H, Kv, hd):
-    """The parts into which the hd-256 dK/dV kernel splits each group's G =
-    H / Kv query heads (1 up to hd 128, whose kernel takes the whole
-    group): the fewest, a divisor of G, that give its grid of B * Kv *
-    ceil(ceil(Sk / 64) / 2) key-tile pairs two blocks an SM, else G. Each
-    part's block writes partial dK and dV sums to a float32 workspace,
-    which a second kernel adds in ascending order of the part."""
+def bwd_parts(B, Sk, H, Kv, hd, dtype=torch.float32):
+    """The parts into which the hd-256 dK/dV kernel of ``dtype``'s library
+    splits each group's G = H / Kv query heads (1 up to hd 128, whose
+    kernels take the whole group): the fewest, a divisor of G, that give
+    its grid two blocks an SM, else G. A part's grid is B * Kv blocks of
+    ceil(ceil(Sk / 64) / 2) key-tile pairs (float32) or of ceil(Sk / 64)
+    key tiles by two column blocks (bfloat16, float16). Each part's block
+    writes partial dK and dV sums to a float32 workspace, which a second
+    kernel adds in ascending order of the part."""
     G = H // Kv
     if hd <= 128:
         return 1
-    base = B * Kv * ((-(-Sk // TILE) + 1) // 2)
+    tiles = -(-Sk // TILE)
+    base = B * Kv * (2 * tiles if dtype in _SUFFIX else (tiles + 1) // 2)
     return next((d for d in range(1, G + 1)
                  if G % d == 0 and base * d >= 2 * SMS), G)
 
 
 def _positions(pos, B, S, device):
+    """``pos`` as the kernels read it: int32 (B, S), contiguous, on
+    ``device`` (itself when it is so already)."""
+    if (pos.dtype == torch.int32 and pos.device == device
+            and tuple(pos.shape) == (B, S) and pos.is_contiguous()):
+        return pos
     return torch.broadcast_to(pos, (B, S)).to(device=device,
                                               dtype=torch.int32).contiguous()
+
+
+def _both_positions(q_pos, k_pos, B, Sq, Sk, device):
+    """The queries' and the keys' positions as the kernels read them; one
+    tensor for both where the caller passed one."""
+    qp = _positions(q_pos, B, Sq, device)
+    if k_pos is q_pos and Sk == Sq:
+        return qp, qp
+    return qp, _positions(k_pos, B, Sk, device)
 
 
 def _check(q, k, v):
@@ -144,7 +172,7 @@ def _check(q, k, v):
 
 
 def _strides(*ts):
-    vals = [s for t in ts for s in (t.stride(0), t.stride(1), t.stride(2))]
+    vals = [s for t in ts for s in t.stride()[:3]]
     return (ctypes.c_longlong * len(vals))(*vals)
 
 
@@ -182,8 +210,7 @@ def flash_attention_fwd(q, k, v, q_pos, k_pos, *, causal=True, window=None,
     q, k, v = _rows(q), _rows(k), _rows(v)
     B, Sq, H, hd = q.shape
     Sk, Kv = k.shape[1], k.shape[2]
-    qp = _positions(q_pos, B, Sq, q.device)
-    kp = _positions(k_pos, B, Sk, q.device)
+    qp, kp = _both_positions(q_pos, k_pos, B, Sq, Sk, q.device)
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -201,8 +228,8 @@ def flash_attention_bwd(q, k, v, out, lse, dout, q_pos, k_pos, *,
     dtype (float32, bfloat16 or float16), shaped as q, k, v. ``out`` and
     ``lse`` are the forward's outputs, ``dout`` the gradient of ``out``
     (both in q's dtype; lse float32). One launch of the backward pass (its
-    row-sum, dK/dV and dQ kernels; at hd 256 with the heads split, or with
-    16-bit inputs, the reduction of dK/dV's float32 partial sums too)."""
+    row-sum, dK/dV and dQ kernels; at hd 256 with the heads split, the
+    reduction of dK/dV's float32 partial sums too)."""
     scale = _scale(q, scale)
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, dout, q_pos, k_pos,
@@ -229,21 +256,17 @@ def flash_attention_bwd(q, k, v, out, lse, dout, q_pos, k_pos, *,
     if any(t.device != q.device for t in (out, lse, dout)):
         raise ValueError("out, lse and dout must lie on q's device")
     q, k, v, out, dout = (_rows(t) for t in (q, k, v, out, dout))
-    qp = _positions(q_pos, B, Sq, q.device)
-    kp = _positions(k_pos, B, Sk, q.device)
+    qp, kp = _both_positions(q_pos, k_pos, B, Sq, Sk, q.device)
     lse = lse.contiguous()
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty(v.shape, dtype=q.dtype, device=q.device)
-    parts = bwd_parts(B, Sk, H, Kv, hd)
-    # the warp pairs' float32 partial sums of dK and dV: at hd 256 with the
-    # heads split, and for 16-bit outputs at hd 128 and 256 (rounded once,
-    # by the reduction)
+    parts = bwd_parts(B, Sk, H, Kv, hd, q.dtype)
+    # dK/dV's float32 partial sums over the heads' parts: at hd 256 with
+    # the heads split (added in order, and rounded once, by the reduction)
     ws = (torch.empty(parts * 2 * k.numel(), dtype=torch.float32,
-                      device=q.device)
-          if (hd > 128 and parts > 1)
-          or (hd >= 128 and q.dtype != torch.float32) else None)
+                      device=q.device) if hd > 128 and parts > 1 else None)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     _launch(q.dtype, "flash_attention_bwd", q.data_ptr(), k.data_ptr(),
             v.data_ptr(),
@@ -294,6 +317,9 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, q_pos, k_pos, causal, window, scale):
+        # the positions converted once, for the forward and the backward
+        q_pos, k_pos = _both_positions(q_pos, k_pos, q.shape[0], q.shape[1],
+                                       k.shape[1], q.device)
         out, lse = flash_attention_fwd(q, k, v, q_pos, k_pos, causal=causal,
                                        window=window, scale=scale)
         ctx.save_for_backward(q, k, v, out, lse, q_pos, k_pos)

@@ -1,6 +1,6 @@
 """Time the flash attention kernels on the card.
 
-  python -m repro_torch.kernels.flash_bench
+  python -m repro_torch.kernels.flash_bench [--parent DIR]
 
 First each kernel's resources at hd 128 and 256: registers and local
 (spill) bytes a thread from the CUDA runtime's function attributes, blocks
@@ -24,32 +24,55 @@ reduction of dK/dV's partial sums where there is one, dQ): each one's
 device time a backward call and its share, from a ``torch.profiler``
 trace of 10 calls. Beside the times, each output's (out, lse, dq, dk, dv)
 worst error as a share of its tolerance against a dense float64 answer,
-for the kernels and for the plain versions. Every timed line ends with the
-card's name and power limit. It exits 2 without a card, 1 if a kernel
-disagrees.
+for the kernels and for the plain versions.
+
+Then the bfloat16 and float16 kernels (``csrc/flash_attention16.cu``) at
+hd 128 (B 2, S 2048, H 16), gemma-2b's hd 256 (H 8 on Kv 1) and
+phi3-mini's hd 96 (H 32), causal:
+the forward's and the backward's median times beside
+``scaled_dot_product_attention`` on the same 16-bit tensors and the
+function's bound (4 hd and 10 hd operations a visible pair at the dense
+16-bit 989 TFLOP/s), and the backward's kernels' shares. With
+``--parent DIR`` (an unpacked tree of another commit, e.g. ``git archive``
+of the parent into a directory that ``.gitignore`` lists) it builds that
+tree's three flash libraries into DIR's own build directory and times
+them in turns with this tree's (parent, new, new, parent), the shares of
+both; and it runs both float32 libraries on the same inputs at four
+shapes and prints max |new - parent| over out, lse, dq, dk, dv, which must
+be 0. Every timed line ends with the card's name and power limit. It exits
+2 without a card, 1 if a kernel disagrees or the float32 results differ.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import statistics
 import subprocess
 import sys
 import tempfile
+from pathlib import Path
 
 import torch
 
-FP32_FLOPS = 67e12   # float32 on the CUDA cores
-TF32_FLOPS = 495e12  # TF32 on the tensor cores, dense
+from repro_torch.hardware import BF16_FLOPS, FP32_FLOPS, TF32_FLOPS
+from repro_torch.kernels import build
+
 SPLIT = 3            # TF32 products a float32 product (hi hi, hi lo, lo hi)
 SHAPES = ((2, 2048, 16, 16, 128, True), (2, 2048, 32, 8, 128, True),
           (4, 1024, 16, 16, 64, True), (4, 1024, 16, 16, 64, False),
           (2, 2048, 8, 1, 256, True),
           (2, 2048, 10, 1, 256, True))  # (B, S, H, Kv, hd, causal)
 TOLS = (2e-5, 2e-5, 1e-4, 1e-4, 1e-4)  # out, lse, dq, dk, dv
+# the 16-bit kernels' shapes (B, S, H, Kv, hd; causal), and the float32
+# shapes held against another tree's float32 kernels bit for bit
+SHAPES16 = ((2, 2048, 16, 16, 128), (2, 2048, 8, 1, 256),
+            (2, 2048, 32, 32, 96))
+SAME32 = ((2, 2048, 16, 16, 128, True), (4, 1024, 16, 16, 64, False),
+          (2, 2048, 8, 1, 256, True), (2, 300, 8, 4, 96, True))
 # the backward's kernels by a piece of their names, in the order tried
 BWD_KERNELS = (("delta_kernel", "row sums"), ("reduce", "dK/dV reduction"),
-               ("dkdv", "dK/dV"), ("dq_", "dQ"))
+               ("dkdv", "dK/dV"), ("dq", "dQ"))
 
 
 def bounds_ms(ops):
@@ -195,7 +218,111 @@ def tolerance_shares(got, want):
             for a, b, t in zip(got, want, TOLS)]
 
 
-def main():
+def flash_tree(tree=None):
+    """(libraries, forward, backward) of this tree or of the tree at
+    ``tree``: {library name: loaded library} of its three flash libraries
+    (built from its ``src/repro_torch/kernels/csrc`` into its own
+    ``_build``) and the wrappers of its ``kernels/flash_attention.py``
+    (loaded under another name: its own workspace rule for its own C
+    interface); call them inside ``build.using(libs)``."""
+    import importlib.util
+
+    from repro_torch.kernels import flash_attention as mod
+    if tree is not None:
+        kernels = Path(tree) / "src" / "repro_torch" / "kernels"
+        spec = importlib.util.spec_from_file_location(
+            "flash_attention_of_" + Path(tree).name,
+            kernels / "flash_attention.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+    names = tuple(mod.LIBRARIES.values())
+    if tree is None:
+        libs = {n: build.load(n, mod._SIGNATURES) for n in names}
+    else:
+        csrc, out = kernels / "csrc", kernels / "_build"
+        build.build(names, csrc, out)
+        libs = {n: build.open_library(build.library_path(n, csrc, out),
+                                      mod._SIGNATURES) for n in names}
+    return libs, mod.flash_attention_fwd, mod.flash_attention_bwd
+
+
+def sixteen_bit(card, parent=None):
+    """The 16-bit kernels at SHAPES16 in bfloat16 and float16: one line a
+    shape and type (this tree's kernels and, with ``parent``'s
+    (``flash_tree``), theirs in turns: parent, new, new, parent), then the
+    backward's kernels' shares of each."""
+    new = flash_tree()
+    fwd_new = new[1]
+    turns = ([("parent", parent), ("new", new), ("new", new),
+              ("parent", parent)] if parent else [("new", new)])
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    for dtype in (torch.bfloat16, torch.float16):
+        for B, S, H, Kv, hd in SHAPES16:
+            q, k, v, do = (torch.randn((B, S, n, hd), generator=gen,
+                                       device="cuda").to(dtype)
+                           for n in (H, Kv, Kv, H))
+            pos = torch.arange(S, dtype=torch.int32,
+                               device="cuda").expand(B, S)
+            o, lse = fwd_new(q, k, v, pos, pos)
+            times, shares = [], {}
+            for label, (libs, fwd, bwd_of) in turns:
+
+                def bwd():
+                    return bwd_of(q, k, v, o, lse, do, pos, pos)
+
+                with build.using(libs):
+                    times.append((label, time_ms(
+                        lambda: fwd(q, k, v, pos, pos)), time_ms(bwd)))
+                    shares.setdefault(label, backward_kernel_ms(bwd))
+            lib = library_ms(q, k, v, do)
+            pairs = S * (S + 1) // 2
+            bound = [1e3 * ops / BF16_FLOPS for ops in (
+                4 * hd * pairs * B * H, 10 * hd * pairs * B * H)]
+            tag = f"{str(dtype)[6:]} B={B} S={S} H={H} Kv={Kv} hd={hd} causal"
+            for i, name in enumerate(("forward", "backward")):
+                print(f"{tag}: {name} ms " + ", ".join(
+                          f"{t[0]} {t[1 + i]:.4f}" for t in times)
+                      + f"; library {lib[i]} ms; bound {bound[i]:.4f} ms "
+                      f"(the function's operations at 989 TFLOP/s); "
+                      f"{card}", flush=True)
+            for label, per in shares.items():
+                print(f"  {tag} backward's kernels, {label} (torch.profiler,"
+                      f" a call): {shares_line(per)}; {card}", flush=True)
+            del q, k, v, do, o, lse
+            torch.cuda.empty_cache()
+
+
+def same_float32(card, parent):
+    """max |new - parent| over (out, lse, dq, dk, dv) of the float32
+    kernels of this tree and of ``parent``'s (``flash_tree``) on the same
+    inputs at SAME32's shapes, one line a shape; True if every one is 0."""
+    new = flash_tree()
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    same = True
+    for B, S, H, Kv, hd, causal in SAME32:
+        q, k, v, do = (torch.randn((B, S, n, hd), generator=gen,
+                                   device="cuda") for n in (H, Kv, Kv, H))
+        pos = torch.arange(S, dtype=torch.int32, device="cuda").expand(B, S)
+        runs = []
+        for libs, fwd, bwd in (parent, new):
+            with build.using(libs):
+                o, lse = fwd(q, k, v, pos, pos, causal=causal)
+                runs.append((o, lse) + tuple(bwd(
+                    q, k, v, o, lse, do, pos, pos, causal=causal)))
+        delta = max(float((a - b).abs().max()) for a, b in zip(*runs))
+        same = same and delta == 0.0
+        print(f"float32 B={B} S={S} H={H} Kv={Kv} hd={hd}"
+              + ("" if causal else " not causal")
+              + f": max |new - parent| over out, lse, dq, dk, dv {delta}; "
+              f"{card}", flush=True)
+    return same
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", help="an unpacked tree of another commit "
+                    "whose flash kernels to time and compare with")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("flash_bench: no CUDA device", file=sys.stderr)
         return 2
@@ -259,6 +386,10 @@ def main():
               flush=True)
         del q, k, v, do, o, lse, grads
         torch.cuda.empty_cache()
+    parent = flash_tree(args.parent) if args.parent else None
+    sixteen_bit(card, parent)
+    if parent:
+        ok = same_float32(card, parent) and ok
     print(card)
     return 0 if ok else 1
 

@@ -25,7 +25,7 @@ output and log-sum-exp at 2e-5, the gradients at 1e-4 (each sums up to S
 products of the scores' rounding), the bfloat16 output at 2e-2, and the
 16-bit kernels' outputs and gradients (bfloat16 and float16, every head
 dim) no further from the float32 yardstick than the plain 16-bit
-version's; a strided
+version's, with no spills and three runs the same bits; a strided
 view gives the contiguous result bit for bit, a q off 16 bytes (copied by
 the wrapper) the aligned q's, and three runs at the attn_block path's
 shape the same bits.
@@ -834,7 +834,8 @@ def test_flash_attention_runs_are_bit_identical(cuda, H, Kv, hd):
 
 def test_flash_attention_kernels_fit_two_blocks_without_spills(cuda):
     """At hd 128 and S 2048 every kernel keeps its values in registers (no
-    local memory a thread) and runs at least two 4-warp blocks an SM."""
+    local memory a thread) and runs at least two blocks an SM (the 16-bit
+    forward: blocks of one warpgroup)."""
     for name, r in occupancy(128, 2048).items():
         assert r["registers"] > 0 and r["local_bytes"] == 0, (name, r)
         assert r["blocks_per_sm"] >= 2, (name, r)
@@ -844,8 +845,10 @@ def test_flash_attention_kernels_fit_two_blocks_without_spills(cuda):
 def test_flash_attention_wide_heads_fit_without_spills(cuda, hd):
     """At hd 96 and 256 every kernel keeps its values in registers (no
     local memory a thread); hd 96 runs two 4-warp blocks an SM; at hd 256
-    the forward's and the backward's 8-warp blocks (warp pairs, 216,480
-    to 216,736 bytes of tiles and exchange slots) one: 8 warps an SM."""
+    8 warps an SM: the float32 forward's and backward's 8-warp blocks
+    (warp pairs, 216,480 to 216,736 bytes of tiles and exchange slots)
+    one, the 16-bit forward's block of two warpgroups one, the 16-bit
+    backward's 4-warp blocks two."""
     for name, r in occupancy(hd, 2048).items():
         assert r["registers"] > 0 and r["local_bytes"] == 0, (name, r)
         if hd == 96:
@@ -929,6 +932,37 @@ def test_flash_attention_16bit_kernels_match_plain(cuda, dtype, hd, Kv,
                               1.0 / np.sqrt(hd))
     auto = torch.autograd.grad(y_, leaves, do)
     assert all(torch.equal(a, b) for a, b in zip(auto, grads))
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64, 96, 128, 256])
+def test_flash_attention_16bit_kernels_fit_without_spills(cuda, hd):
+    """The bfloat16 and float16 kernels (``csrc/flash_attention16.cu``)
+    keep their values in registers (no local memory a thread) and run at
+    least 8 warps an SM at every head dim (S 2048)."""
+    for name, r in occupancy(hd, 2048).items():
+        if name.endswith("float32"):
+            continue
+        assert r["registers"] > 0 and r["local_bytes"] == 0, (name, r)
+        assert r["warps_per_sm"] >= 8, (name, r)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "f16"])
+@pytest.mark.parametrize("H,Kv,hd", [(16, 16, 128), (8, 1, 256)])
+def test_flash_attention_16bit_runs_are_bit_identical(cuda, dtype, H, Kv,
+                                                      hd):
+    """Three runs of the 16-bit forward and backward kernels at the
+    attn_block path's shape and gemma-2b's MQA shape (dK/dV's column
+    blocks and parts) give the same bits."""
+    q, k, v, do, pos = _attention_inputs(2, 2048, H, Kv, hd, 7, cuda)
+    q, k, v, do = (t.to(dtype) for t in (q, k, v, do))
+    runs = []
+    for _ in range(3):
+        out, lse = flash_attention_fwd(q, k, v, pos, pos)
+        runs.append((out, lse) + tuple(flash_attention_bwd(
+            q, k, v, out, lse, do, pos, pos)))
+    for run in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(run, runs[0]))
 
 
 def test_flash_attention_wrappers_raise_instead_of_falling_back(cuda):
