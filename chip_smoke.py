@@ -1639,9 +1639,16 @@ def flash_times(torch, q, k, v, do, pos, o, lse):
     return res
 
 
-def _rel_l2(torch, a, b):
-    return float(torch.linalg.vector_norm(a.double() - b.double())
-                 / torch.linalg.vector_norm(b.double()))
+def _rel_l2(torch, a, b, slab=1 << 24):
+    """||a - b|| / ||b|| in float64, a slab of elements at a time (no
+    float64 copy of a leaf of billions)."""
+    a, b = a.reshape(-1), b.reshape(-1)
+    err = ref = 0.0
+    for lo in range(0, b.numel(), slab):
+        x = b[lo:lo + slab].double()
+        err += float(torch.sum(torch.square(a[lo:lo + slab].double() - x)))
+        ref += float(torch.sum(torch.square(x)))
+    return math.sqrt(err / max(ref, 1e-60))
 
 
 def flash16_checks(torch):
@@ -3274,6 +3281,8 @@ def sharded_child(kind):
         return options_child(os.environ["SHARD_TMP"])
     if kind.startswith("split_"):
         return split_child(kind)
+    if kind.startswith("splith_"):
+        return split_h_child(kind)
     if kind.startswith("serve_"):
         return serve_child(kind)
     shape = SHARD_MESH if kind == "gloo4" else (1, 1, 1, 1)
@@ -4260,8 +4269,9 @@ def ckpt_phase(torch, launcher):
 def reckon_child(out):
     """Phase 12e's host work (on the CPU, no card): launch/dryrun.py's
     reckon of phase 12b's run and of 12c's run (A), rank 0 of SHARD_MESH,
-    of phase 12d's resume on (1, 4, 1, 1), of phase 12f's olmo cell on the split route and (reckon_serve) of
-    phase 12g's serve cells, written to ``out`` as JSON."""
+    of phase 12d's resume on (1, 4, 1, 1), of phase 12f's olmo cell on the
+    split route, (reckon_serve) of phase 12g's and 12h's serve cells and
+    (reckon_step) of 12h's steps, written to ``out`` as JSON."""
     import torch
     torch.set_num_threads(2)
     from repro_torch.configs import get_config
@@ -4310,17 +4320,32 @@ def reckon_child(out):
     res["12f"] = {k: r[k] for k in ("state_bytes", "peak", "init", "run",
                                     "host_reads", "flops", "split")}
     res["12f"]["seconds"] = time.perf_counter() - t0
-    # phase 12g's serve cells, rank 0 of each mesh
-    for label, (_, shape, _, _, _, B, prompt, steps) in SERVE_CELLS.items():
+    # phase 12g's and 12h's serve cells, rank 0 of each mesh (the prompt's
+    # positions after the patch prefix where the model takes one)
+    for phase, cells in (("12g", SERVE_CELLS), ("12h serve", SERVE_H_CELLS)):
+        for label, (_, shape, _, _, _, B, prompt, steps) in cells.items():
+            t0 = time.perf_counter()
+            cfg = serve_cell_config(label)
+            P = max(0, cfg.mm_prefix)
+            r = dryrun.reckon_serve(cfg, shape, batch=B, prompt=P + prompt,
+                                    max_len=P + prompt + steps,
+                                    decode_steps=1, route="cuda ipc")
+            key = f"{phase} {label}"
+            res[key] = {k: r[k] for k in (
+                "peak", "param_bytes", "cache_bytes", "flops")}
+            res[key]["run"] = {k: r["run"][k] for k in ("calls", "bytes")}
+            res[key]["seconds"] = time.perf_counter() - t0
+    # phase 12h's steps on the split route, rank 0 of each mesh
+    for label, (_, shape, _, _, rows, tokens) in SPLIT_H_CELLS.items():
         t0 = time.perf_counter()
-        r = dryrun.reckon_serve(serve_cell_config(label), shape, batch=B,
-                                prompt=prompt, max_len=prompt + steps,
-                                decode_steps=1, route="cuda ipc")
-        res[f"12g {label}"] = {k: r[k] for k in (
-            "peak", "param_bytes", "cache_bytes", "flops")}
-        res[f"12g {label}"]["run"] = {k: r["run"][k]
-                                      for k in ("calls", "bytes")}
-        res[f"12g {label}"]["seconds"] = time.perf_counter() - t0
+        cfg = split_h_config(label)
+        r = dryrun.reckon_step(cfg, shape, batch=rows,
+                               seq=cfg.mm_prefix + tokens, route="cuda ipc")
+        res[f"12h step {label}"] = {
+            "peak": r["peak"], "flops": r["flops"],
+            "param_bytes": r["param_bytes"],
+            "run": {k: r["run"][k] for k in ("calls", "bytes")},
+            "seconds": time.perf_counter() - t0}
     with open(out, "w") as f:
         json.dump(res, f)
 
@@ -5711,15 +5736,26 @@ SERVE_PROBE_REQS = 2
 SERVE_ATOL, SERVE_RTOL = 2e-5, 1e-5
 
 
+def serve_cell(label):
+    """The cell ``label`` of SERVE_CELLS (phase 12g) or SERVE_H_CELLS
+    (phase 12h)."""
+    return SERVE_CELLS[label] if label in SERVE_CELLS else SERVE_H_CELLS[
+        label]
+
+
 def serve_cell_config(label):
-    """Phase 12g's model config of a cell of SERVE_CELLS."""
+    """Phase 12g's or 12h's model config of a serve cell (arctic's banks
+    cut to phase 11's ARCH_CELLS experts)."""
     import dataclasses
 
     from repro_torch.configs import get_config
-    arch, _, layers, dtype, block = SERVE_CELLS[label][:5]
+    arch, _, layers, dtype, block = serve_cell(label)[:5]
     cfg = get_config(arch).replace(param_dtype=dtype)
     if layers:
         cfg = cfg.replace(num_layers=layers)
+    if cfg.moe is not None:
+        cfg = cfg.replace(moe=dataclasses.replace(
+            cfg.moe, num_experts=ARCH_CELLS["arctic"][6]))
     return cfg.replace(dist=dataclasses.replace(cfg.dist, attn_block=block))
 
 
@@ -5752,11 +5788,12 @@ def plant_fault(torch, name, mesh, caches):
 
 
 def serve_cell_run(torch, label, mesh=None, float32=False, faults=()):
-    """Cell ``label`` of SERVE_CELLS: the whole weights drawn on the card
-    from SERVE_CELL_SEED; on ``mesh`` the rank's pieces cut from them
+    """Serve cell ``label`` (serve_cell): the whole weights drawn on the
+    card from SERVE_CELL_SEED; on ``mesh`` the rank's pieces cut from them
     (the rest freed), its data rows, the split model; else one process's
     whole model (``float32``: those bfloat16 weights widened, a float32
-    forward). A prefill of the seeded prompts, then the decode steps fed
+    forward). A prefill of the seeded prompts (after a seeded patch prefix
+    where the model takes one, cell_extras), then the decode steps fed
     seeded tokens, each row at its own position; then, for each fault of
     ``faults`` (on ``mesh``), SERVE_FAULT_STEPS decode steps from the
     prefill's caches (kept on the host) with it planted (plant_fault).
@@ -5770,27 +5807,41 @@ def serve_cell_run(torch, label, mesh=None, float32=False, faults=()):
     from repro_torch.models import build_model
     from repro_torch.models import tensor_parallel as tp
     from repro_torch.utils.tree import tree_map
-    _, _, _, _, _, B, prompt, steps = SERVE_CELLS[label]
+    _, _, _, _, _, B, prompt, steps = serve_cell(label)
     cfg = serve_cell_config(label)
     dev = mesh.device if mesh is not None else torch.device("cuda")
     whole = build_model(cfg)
-    params = whole.init_params(
-        torch.Generator(device=dev).manual_seed(SERVE_CELL_SEED), dev)
+
+    def draw():
+        return whole.init_params(
+            torch.Generator(device=dev).manual_seed(SERVE_CELL_SEED), dev)
     rng = np.random.default_rng(SERVE_CELL_SEED)
     tokens = rng.integers(0, cfg.vocab_size, (B, prompt)).astype(np.int32)
     fed = rng.integers(0, cfg.vocab_size, (steps, B, 1)).astype(np.int32)
+    extras = cell_extras(cfg, {"tokens": tokens}, SERVE_CELL_SEED)
+    P = max(0, cfg.mm_prefix)  # the positions before the prompt's
     rows = slice(0, B)
     if mesh is not None:
+        import torch.distributed as dist
         split = tp.Split(mesh)
         model = build_model(cfg, split=split)
-        params = tp.serve_pieces(params, mesh,
-                                 tp.serve_shardings(whole, mesh))
+        # the ranks sharing the card draw the whole weights one at a time,
+        # each keeping its pieces (qwen2-vl's 8.5 GB and the draw's float32
+        # transients, on four ranks at once, would not fit)
+        for turn in range(dist.get_world_size()):
+            if turn == mesh.rank:
+                params = tp.serve_pieces(draw(), mesh,
+                                         tp.serve_shardings(whole, mesh))
+                torch.cuda.synchronize(dev)
+                torch.cuda.empty_cache()
+            dist.barrier()
         rows = split.data_rows(B)
     elif float32:
         model = build_model(cfg.replace(param_dtype="float32"))
-        params = tree_map(lambda x: x.float(), params)
+        params = tree_map(lambda x: x.float(), draw())
     else:
         model = whole
+        params = draw()
     torch.cuda.synchronize(dev)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -5798,11 +5849,13 @@ def serve_cell_run(torch, label, mesh=None, float32=False, faults=()):
     if mesh is not None:
         mesh.stats.update(dict.fromkeys(mesh.stats, 0))
     logits = []
+    # the prefix in the cell's dtype (the float32 forward widens it)
+    batch = {k: torch.from_numpy(v[rows]).to(dev, getattr(
+        torch, cfg.param_dtype)) for k, v in extras.items()}
+    batch["tokens"] = torch.from_numpy(tokens[rows]).to(dev)
     with torch.no_grad():
         t0 = time.perf_counter()
-        lg, caches = model.prefill(
-            params, {"tokens": torch.from_numpy(tokens[rows]).to(dev)},
-            max_len=prompt + steps)
+        lg, caches = model.prefill(params, batch, max_len=P + prompt + steps)
         logits.append(lg.float().cpu())
         t1 = time.perf_counter()
         kept = tree_map(lambda x: x.cpu(), caches) if faults else None
@@ -5811,7 +5864,7 @@ def serve_cell_run(torch, label, mesh=None, float32=False, faults=()):
         def decode(caches, n, before=lambda: None):
             out = []
             for i in range(n):
-                pos = torch.full((rows.stop - rows.start,), prompt + i,
+                pos = torch.full((rows.stop - rows.start,), P + prompt + i,
                                  dtype=torch.int32, device=dev)
                 before()
                 lg, caches = model.decode_step(
@@ -6006,8 +6059,9 @@ def split_serve_phase(torch, merged, reckoned):
 
 
 def _serve_cell_gates(torch, label, recs, one, tmp):
-    """Phase 12g (i) / (iii)'s gates (split_serve_phase)."""
-    arch, shape, _, _, _, B, prompt, steps = SERVE_CELLS[label]
+    """Phase 12g (i) / (iii)'s and 12h (ii)'s gates (split_serve_phase,
+    split_h_phase)."""
+    arch, shape, _, _, _, B, prompt, steps = serve_cell(label)
     cfg = serve_cell_config(label)
     one_lg, f32_lg = one.pop("logits")
     got = torch.zeros_like(one_lg)
@@ -6045,7 +6099,8 @@ def _serve_cell_gates(torch, label, recs, one, tmp):
     peaks = [r["peak"] for r in recs]
     pgap = [(reck["peak"] - p) / p for p in peaks]
     flash = [r["counts"]["flash_attention_fwd_bf16"] for r in recs]
-    print(f"serve split (phase 12g {label}, {card_line()}): {arch}, "
+    print(f"serve split (phase {one.get('phase', '12g')} {label}, "
+          f"{card_line()}): {arch}, "
           f"{cfg.num_layers} layers, {cfg.param_dtype}, attn_block "
           f"{cfg.dist.attn_block}, mesh {shape}, {B} rows x {prompt} prompt "
           f"tokens, {steps} decode steps; prefill s a rank "
@@ -6112,6 +6167,444 @@ def _serve_engine_gates(torch, one, recs, tmp):
                              rtol=SERVE_RTOL),
               f"phase 12g engine: rank {r['rank']}'s probe logits "
               f"{diff} from one process's")
+
+
+# phase 12h: the split route's MoE FFN and M-RoPE with the patch prefix
+# (ROADMAP A16d item 2, first part: models/moe.py's split route,
+# models/model.py's split loss and serve route with the prefix), ranks
+# sharing the card over CUDA IPC. (i) SPLIT_H_CELLS: label -> (arch, mesh,
+# layers, capacity factor, rows, tokens): one agent's loss and gradient on
+# the split route at the published widths cut in depth (arctic-480b: 1
+# layer and phase 11's 8 of its 128 experts, 2 a model rank, at capacity
+# factor 1.0 so experts overflow; qwen2-vl-72b: VLM_LAYERS layers, a
+# VLM_PREFIX-row seeded patch prefix before the tokens), float32 at
+# attn_block ATTN_BLOCK (the flash kernels on each rank's heads), no panel
+# (a panel of either does not fit the card): each rank draws the whole
+# weights from SPLIT_H_SEED, cuts its pieces (tensor_parallel.train_pieces)
+# and frees the rest; its gradients are summed as their rules say (a split
+# or whole leaf over fsdp, a summed one over the block); then model rank 0
+# redraws the whole weights and runs one process's loss and gradient on
+# the same batch, and each leaf (a split one gathered over the model line)
+# is held to it (relative l2) within SPLIT_GRAD_RTOL or SPLIT_H_FACTOR
+# times the float32 yardstick, whichever is larger: one process's
+# gradient on the flash route against its own on the dense attention
+# route (step_yardstick, the worst leaf; the same numbers in exact
+# arithmetic: at qwen2-vl's widths any float32 reordering moves a leaf
+# ~1e-5, its rows differentiated one at a time and summed 6.2e-6-8.5e-6,
+# the dense route 4.8e-6-6.9e-6, over olmo's 3.3e-6 that set
+# SPLIT_GRAD_RTOL); the loss and the aux within SPLIT_RTOL["losses"],
+# arctic's dropped assignments counted and equal (and some dropped).
+# SPLIT_H_SEG: the split segment of both at reduced() on SPLIT_H_SEG_MESH,
+# m SPLIT_H_M, SPLIT_H_ROUNDS rounds (a gossip round and the merge): Xi
+# 0.0, every row the same, merged == local, the mix and the reduce
+# launched on every rank. (ii) SERVE_H_CELLS
+# (serve_cell's format): both at the published widths cut in depth, in
+# bfloat16, on (data 2, model 2) (big: the weights' fsdp dim over the
+# data line; arctic's experts kept over model), 2 rows a data rank, 12g's
+# gates against one process and a float32 forward. (iii) each rank's peak
+# within DRY_PEAK_SHARE of launch/dryrun.py's reckon_step / reckon_serve,
+# traced in 12e's host child
+SPLIT_H_CELLS = {"arctic": ("arctic-480b", (1, 1, 2, 2), 1, 1.0, 4, 512),
+                 "qwen2vl": ("qwen2-vl-72b", (1, 1, 1, 2), VLM_LAYERS, None,
+                             2, 512)}
+SPLIT_H_SEED = 23
+SPLIT_H_SEG = ("arctic", "qwen2vl")
+SPLIT_H_SEG_MESH, SPLIT_H_M, SPLIT_H_ROUNDS = (1, 1, 2, 2), 4, 2
+SERVE_H_CELLS = {"arctic": ("arctic-480b", (1, 1, 2, 2), 1, "bfloat16",
+                            ATTN_BLOCK, 4, 2048, 16),
+                 "qwen2vl": ("qwen2-vl-72b", (1, 1, 2, 2), VLM_LAYERS,
+                             "bfloat16", ATTN_BLOCK, 4, 2048, 16)}
+SPLIT_H_KERNELS = ("gossip_mix", "panel_mean_consensus")
+SPLIT_H_FACTOR = 2.0
+
+
+def split_h_config(label, reduced=False):
+    """Phase 12h's config of a cell of SPLIT_H_CELLS: at its cut (float32,
+    attn_block ATTN_BLOCK), or (``reduced``) its arch's reduced()."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    arch, _, layers, cap = SPLIT_H_CELLS[label][:4]
+    cfg = get_config(arch)
+    if reduced:
+        return cfg.reduced()
+    cfg = cfg.replace(num_layers=layers)
+    if cfg.moe is not None:
+        cfg = cfg.replace(moe=dataclasses.replace(
+            cfg.moe, num_experts=ARCH_CELLS["arctic"][6],
+            capacity_factor=cap))
+    return cfg.replace(dist=dataclasses.replace(cfg.dist,
+                                                attn_block=ATTN_BLOCK))
+
+
+def split_h_batch(torch, cfg, rows, tokens, dev):
+    """An agent's seeded batch of ``rows`` x ``tokens`` (after the seeded
+    patch prefix where the model takes one) on ``dev``."""
+    import numpy as np
+    rng = np.random.default_rng(SPLIT_H_SEED)
+    ids = rng.integers(0, min(DATA_VOCAB, cfg.vocab_size),
+                       (rows, tokens + 1)).astype(np.int32)
+    batch = {"tokens": ids[:, :-1], "targets": ids[:, 1:],
+             "mask": np.ones((rows, tokens), np.float32)}
+    batch.update(cell_extras(cfg, batch, SPLIT_H_SEED))
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+
+def step_yardstick(torch, label):
+    """Phase 12h (i)'s float32 yardstick of SPLIT_H_CELLS' ``label``: one
+    process's gradient of the seeded batch on the flash route against the
+    same on the dense attention route (attn_block 0), the worst leaf's
+    relative l2 gap."""
+    import dataclasses
+
+    from repro_torch.models import build_model
+    from repro_torch.utils.tree import tree_flatten
+    _, _, _, _, rows, tokens = SPLIT_H_CELLS[label]
+    cfg = split_h_config(label)
+    dev = torch.device("cuda")
+    batch = split_h_batch(torch, cfg, rows, tokens, dev)
+    grads = []
+    for c in (cfg, cfg.replace(dist=dataclasses.replace(cfg.dist,
+                                                        attn_block=0))):
+        model = build_model(c)
+        params = model.init_params(torch.Generator(device=dev).manual_seed(
+            SPLIT_H_SEED), dev)
+        leaves = [x.requires_grad_(True) for x in tree_flatten(params)[0]]
+        loss, _ = model.loss_fn(params, batch)
+        grads.append(torch.autograd.grad(loss, leaves))
+        del params, leaves, loss
+    worst = max(_rel_l2(torch, a, b) for a, b in zip(*grads))
+    del grads
+    torch.cuda.empty_cache()
+    return worst
+
+
+def split_step_run(torch, label, mesh):
+    """Phase 12h (i): one agent's loss and gradient of SPLIT_H_CELLS'
+    ``label`` on ``mesh`` (split_h_phase's comment): the rank's step (its
+    seconds, peak, collectives, launches, kept assignments), its
+    gradients summed by their rules, then on model rank 0 one process's
+    step and the leaves' relative l2 errors (every rank takes part in the
+    gathers). Returns the rank's record."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import build_model, moe
+    from repro_torch.models import tensor_parallel as tp
+    from repro_torch.utils.tree import tree_flatten
+    _, _, _, _, rows, tokens = SPLIT_H_CELLS[label]
+    cfg = split_h_config(label)
+    dev = mesh.device
+    split = tp.Split(mesh)
+    whole = build_model(cfg)
+    model = build_model(cfg, split=split)
+    plan = tp.leaf_plan(cfg, split, tp.train_shardings(whole, mesh, 1))
+    rules = tree_flatten(plan)[0]
+    batch = split_h_batch(torch, cfg, rows, tokens, dev)
+    pieces = tp.train_pieces(whole.init_params(torch.Generator(
+        device=dev).manual_seed(SPLIT_H_SEED), dev), plan, split)
+    leaves = [x.requires_grad_(True) for x in tree_flatten(pieces)[0]]
+    kept = []
+    orig = moe.split_dispatch
+
+    def record(*a, **kw):
+        out = orig(*a, **kw)
+        kept.append(torch.sum(out[2]))
+        return out
+    moe.split_dispatch = record
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    mesh.stats.update(dict.fromkeys(mesh.stats, 0))
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    loss, mets = model.loss_fn(pieces, batch)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    torch.cuda.synchronize(dev)
+    rec = {"step_s": time.perf_counter() - t0,
+           "peak": torch.cuda.max_memory_allocated(dev),
+           "comm": dict(mesh.stats), "counts": launch_counts(),
+           "loss": float(mets["loss"]), "aux": float(mets["aux"]),
+           "rank": mesh.rank, "coord": dict(mesh.coord),
+           "transport": mesh.transport, "split": tp.describe(plan)}
+    moe.split_dispatch = orig
+    n_kept = torch.stack(kept).sum() if kept else torch.zeros(
+        (), dtype=torch.int64, device=dev)
+    rec["kept"] = int(split.block_sum(n_kept.clone()))
+    # a whole leaf no model rank but 0 differentiates (the lookup's table)
+    grads = [torch.zeros_like(x) if g is None else g
+             for g, x in zip(grads, leaves)]
+    del pieces, leaves, loss, mets
+    for g, rule in zip(grads, rules):
+        (split.block_sum if rule.kind == "sum" else split.fsdp_sum)(g)
+    torch.cuda.empty_cache()
+    one = {}
+    if mesh.rank == 0:  # one process's step, on the same weights and batch
+        params = whole.init_params(torch.Generator(device=dev).manual_seed(
+            SPLIT_H_SEED), dev)
+        wleaves = [x.requires_grad_(True) for x in tree_flatten(params)[0]]
+        valid = []
+        orig = moe.dispatch_ranks
+
+        def record_one(sel, C):
+            out = orig(sel, C)
+            valid.append(torch.sum(out[2]))
+            return out
+        moe.dispatch_ranks = record_one
+        loss1, mets1 = whole.loss_fn(params, batch)
+        want = torch.autograd.grad(loss1, wleaves)
+        moe.dispatch_ranks = orig
+        one = {"loss": float(mets1["loss"].detach()),
+               "aux": float(mets1["aux"].detach()),
+               "kept": int(torch.stack(valid).sum()) if valid else 0}
+        del params, wleaves, loss1, mets1
+        torch.cuda.empty_cache()
+    errs = {}
+    names = [".".join(p) for p, _ in tp._paths(plan)]
+    for i, (g, rule) in enumerate(zip(grads, rules)):
+        if rule.kind == "split":
+            g = split.gather(g, "model", rule.dim)
+        if mesh.rank == 0:
+            errs[names[i]] = _rel_l2(torch, g, want[i])
+        del g
+    rec["one"] = one
+    rec["grad_errs"] = errs
+    # the assignments of the agent's tokens: layers x tokens x top-k
+    moe_layers = sum(s_.ffn == "moe" for s_ in cfg.layer_specs())
+    rec["assignments"] = (moe_layers * rows * tokens * cfg.moe.top_k
+                          if cfg.moe else 0)
+    del grads
+    torch.cuda.empty_cache()
+    return rec
+
+
+def split_h_segment(torch, label, mesh):
+    """Phase 12h (i)'s split segment of ``label`` at reduced() on ``mesh``:
+    m SPLIT_H_M, SPLIT_H_ROUNDS rounds from the seeded init, the batches
+    with the model's other inputs (cell_extras). Returns the per-round
+    losses, Xi and seconds, the evals, launch counts (the rounds' and the
+    evals'), whether every row is the same after the merge and Mesh.stats
+    (the rounds')."""
+    from repro_torch.core import dsgd
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.train import eval_local, eval_merged, to_device
+    from repro_torch.models import build_model
+    from repro_torch.models import tensor_parallel as tp
+    from repro_torch.optim import make_optimizer
+    cfg = split_h_config(label, reduced=True)
+    dev = mesh.device
+    model = build_model(cfg)
+    opt = make_optimizer("adamw", 3e-3, weight_decay=5e-4,
+                         total_steps=SPLIT_H_ROUNDS * H)
+    per_round, eval_batch = segment_inputs(
+        cfg, SPLIT_H_M, SPLIT_H_ROUNDS,
+        data_vocab=min(DATA_VOCAB, cfg.vocab_size))
+    for t, (_, b, _, _) in enumerate(per_round):
+        b.update(cell_extras(cfg, b, (EXTRAS_SEED, t)))
+    eval_batch.update(cell_extras(cfg, eval_batch,
+                                  (EXTRAS_SEED, SPLIT_H_ROUNDS)))
+    eval_batch = to_device(eval_batch, dev)
+    state, spec = dsgd.init_panel_state(
+        model.init_params, opt, SPLIT_H_M,
+        torch.Generator(device=dev).manual_seed(0), device=dev, mesh=mesh)
+    seg = dsgd.make_panel_segment(model.loss_fn, opt, H, spec,
+                                  param_shardings=tp.train_shardings(
+                                      model, mesh, SPLIT_H_M))
+    mesh.stats.update(dict.fromkeys(mesh.stats, 0))
+    reset_launch_counts()
+    rec = {"losses": [], "xis": [], "times": []}
+    for W, b, glob, _ in per_round:
+        t0 = time.perf_counter()
+        state, mets = seg(state, b, W, None, global_rounds=glob)
+        torch.cuda.synchronize(dev)
+        rec["times"].append(time.perf_counter() - t0)
+        rec["losses"].append(float(mets["loss"][0]))
+        rec["xis"].append(float(mets["consensus"][0]))
+    rec["comm"] = dict(mesh.stats)
+    rec["merged"] = eval_merged(model.loss_fn, state["panel"], spec,
+                                eval_batch)
+    rec["local"] = eval_local(model.loss_fn, state["panel"], spec,
+                              eval_batch)
+    rec["counts"] = launch_counts()  # the merged eval's reduce included
+    rec["rows_identical"] = rows_identical(torch, state["panel"])
+    del state, seg
+    torch.cuda.empty_cache()
+    return rec
+
+
+def split_h_child(kind):
+    """One rank of phase 12h: ``splith_a`` on (1, 1, 2, 2): arctic's step,
+    the reduced segments and the serve cells (their logits to files in
+    SHARD_TMP); ``splith_b`` on (1, 1, 1, 2): qwen2-vl's step. Prints one
+    ``SHARD {json}`` line."""
+    import torch
+    import torch.distributed as dist
+
+    import repro_torch  # noqa: F401  (sets TF32 off)
+    from repro_torch.launch import mesh as mesh_mod
+    tmp = os.environ["SHARD_TMP"]
+    out = {}
+    if kind == "splith_a":
+        mesh = mesh_mod.make_mesh(SPLIT_H_CELLS["arctic"][1])
+        out["step arctic"] = split_step_run(torch, "arctic", mesh)
+        for label in SPLIT_H_SEG:
+            out[f"seg {label}"] = split_h_segment(torch, label, mesh)
+        for label in SERVE_H_CELLS:
+            rec = serve_cell_run(torch, label, mesh)
+            torch.save(rec.pop("logits"), os.path.join(
+                tmp, f"{label}_logits_{mesh.rank}.pt"))
+            rec.pop("faults")
+            out[f"serve {label}"] = rec
+    else:
+        mesh = mesh_mod.make_mesh(SPLIT_H_CELLS["qwen2vl"][1])
+        out["step qwen2vl"] = split_step_run(torch, "qwen2vl", mesh)
+    print("SHARD " + json.dumps(out), flush=True)
+    dist.destroy_process_group()
+
+
+def split_h_phase(torch, reckoned):
+    """Phase 12h (the comment above SPLIT_H_CELLS): (ii)'s one-process
+    runs here first, then the ranks, ``splith_a`` on 4 and ``splith_b`` on
+    2; then the gates. ``reckoned``: {"step <label>", "serve <label>": 12e's
+    reckon of each}. Returns ({"step", "segment", "serve": launch counts
+    summed over the ranks}, records)."""
+    import shutil
+    import tempfile
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix=".serve_ckpt_12h_", dir=ROOT)
+    out, counts = {}, {}
+    try:
+        yard = {label: step_yardstick(torch, label) for label in SPLIT_H_CELLS}
+        for label in SERVE_H_CELLS:
+            t0 = time.perf_counter()
+            one = serve_cell_run(torch, label)
+            f32 = serve_cell_run(torch, label, float32=True)
+            out[f"serve {label}"] = {
+                "one": {k: v for k, v in one.items() if k != "logits"},
+                "one_s": time.perf_counter() - t0, "phase": "12h",
+                "reckoned": reckoned[f"serve {label}"],
+                "logits": (one["logits"], f32["logits"])}
+            del one, f32
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        recs = _run_ranks("splith_a", 4, tmp)
+        t1 = time.perf_counter()
+        recs_b = _run_ranks("splith_b", 2, tmp)
+        walls = (t1 - t0, time.perf_counter() - t1)
+        steps = {"arctic": [r["step arctic"] for r in recs],
+                 "qwen2vl": [r["step qwen2vl"] for r in recs_b]}
+        for label, rs in steps.items():
+            _split_step_gates(label, rs, reckoned[f"step {label}"],
+                              yard[label])
+        for label in SPLIT_H_SEG:
+            _split_h_seg_gates(label, [r[f"seg {label}"] for r in recs])
+        for label in SERVE_H_CELLS:
+            srecs = [r[f"serve {label}"] for r in recs]
+            _serve_cell_gates(torch, label, srecs, out[f"serve {label}"],
+                              tmp)
+            out[f"serve {label}"]["recs"] = srecs
+        counts["step"] = {k: sum(r["counts"][k] for rs in steps.values()
+                                 for r in rs)
+                          for k in steps["arctic"][0]["counts"]}
+        seg_recs = [r[f"seg {label}"] for r in recs for label in SPLIT_H_SEG]
+        counts["segment"] = {k: sum(r["counts"][k] for r in seg_recs)
+                             for k in seg_recs[0]["counts"]}
+        serve_recs = [r[f"serve {label}"] for r in recs
+                      for label in SERVE_H_CELLS]
+        counts["serve"] = {k: sum(r["counts"][k] for r in serve_recs)
+                           for k in serve_recs[0]["counts"]}
+        out.update(steps=steps, walls=walls, yardsticks=yard)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    dt = time.perf_counter() - t_phase
+    print(f"split MoE and M-RoPE (phase 12h, {card_line()}): {dt:.1f}s "
+          f"(the ranks {walls[0]:.1f}s on 4 and {walls[1]:.1f}s on 2); "
+          f"launches {counts}", flush=True)
+    out["seconds"] = dt
+    return counts, out
+
+
+def _split_step_gates(label, recs, reckoned, yard):
+    """Phase 12h (i)'s gates on one cell's ranks (split_step_run; ``yard``
+    the cell's step_yardstick)."""
+    arch, shape, _, _, rows, tokens = SPLIT_H_CELLS[label]
+    r0 = recs[0]
+    one = r0["one"]
+    peaks = [r["peak"] for r in recs]
+    pgap = [(reckoned["peak"] - p) / p for p in peaks]
+    comm = [(int(r["comm"]["calls"]), int(r["comm"]["bytes"]))
+            for r in recs]
+    worst = max(r0["grad_errs"].values())
+    bound = max(SPLIT_GRAD_RTOL, SPLIT_H_FACTOR * yard)
+    drops = (r0["assignments"] - r0["kept"],
+             r0["assignments"] - one["kept"])
+    flash = [(r["counts"]["flash_attention_fwd"],
+              r["counts"]["flash_attention_bwd"]) for r in recs]
+    print(f"split step (phase 12h {label}, {card_line()}): {arch} at its "
+          f"published widths, {split_h_config(label).num_layers} layers, "
+          f"mesh {shape}, {rows} rows x {tokens} tokens; step s a rank "
+          f"{[round(r['step_s'], 3) for r in recs]}; loss "
+          f"{[r['loss'] for r in recs]} against one process's "
+          f"{one['loss']!r}, aux {[r['aux'] for r in recs]} against "
+          f"{one['aux']!r}; gradients (relative l2) the worst leaf {worst:.3g}"
+          f" ({max(r0['grad_errs'], key=r0['grad_errs'].get)}; bound "
+          f"{bound:.3g}: one process's flash route against its dense one "
+          f"{yard:.3g}); each leaf "
+          f"{ {k: float(f'{v:.3g}') for k, v in r0['grad_errs'].items()} }; "
+          f"dropped "
+          f"assignments split / one process {drops} of "
+          f"{r0['assignments']}; peak a rank {peaks} against the reckoned "
+          f"{reckoned['peak']} ({[round(g, 4) for g in pgap]}); "
+          f"collectives a rank {comm} (reckoned {reckoned['run']['calls']}"
+          f" calls, {reckoned['run']['bytes']} B); flash fwd / bwd a rank "
+          f"{flash}; split {r0['split']['split']}, summed "
+          f"{r0['split']['summed']}", flush=True)
+    for r in recs:
+        check(r["transport"] == "cuda ipc",
+              f"phase 12h {label}: rank {r['rank']} over {r['transport']}")
+        for key in ("loss", "aux"):
+            check(abs(r[key] - one[key]) <= SPLIT_RTOL["losses"]
+                  * abs(one[key]),
+                  f"phase 12h {label}: rank {r['rank']}'s {key} {r[key]!r}"
+                  f" against one process's {one[key]!r}")
+        check(r["counts"]["flash_attention_fwd"] > 0
+              and r["counts"]["flash_attention_bwd"] > 0,
+              f"phase 12h {label}: rank {r['rank']} launched the flash "
+              f"kernels {flash}")
+    check(worst <= bound,
+          f"phase 12h {label}: gradients {r0['grad_errs']} from one "
+          f"process's, over {bound}")
+    check(drops[0] == drops[1] and (r0["assignments"] == 0 or drops[0] > 0),
+          f"phase 12h {label}: dropped assignments {drops}")
+    check(all(abs(g) <= DRY_PEAK_SHARE for g in pgap),
+          f"phase 12h {label}: peak {reckoned['peak']} reckoned against "
+          f"{peaks}")
+    check(all(c == (reckoned["run"]["calls"], reckoned["run"]["bytes"])
+              for c in comm),
+          f"phase 12h {label}: collectives {comm} against the reckoned "
+          f"{reckoned['run']}")
+
+
+def _split_h_seg_gates(label, recs):
+    """Phase 12h (i)'s reduced segment's gates on the ranks
+    (split_h_segment)."""
+    r0 = recs[0]
+    print(f"split segment (phase 12h {label} reduced(), {card_line()}): "
+          f"mesh {SPLIT_H_SEG_MESH}, m {SPLIT_H_M}; rounds (s) a rank "
+          f"{[[round(t, 3) for t in r['times']] for r in recs]}; losses "
+          f"{r0['losses']}, Xi {r0['xis']}; evals {r0['merged']!r} "
+          f"{r0['local']!r}; collectives a rank "
+          f"{[int(r['comm']['calls']) for r in recs]}", flush=True)
+    for r in recs:
+        check(r["xis"][-1] == 0.0 and r["rows_identical"]
+              and abs(r["local"] - r["merged"]) <= 1e-6 * abs(r["merged"]),
+              f"phase 12h {label} segment: after the merge Xi "
+              f"{r['xis'][-1]}, rows identical {r['rows_identical']}, evals"
+              f" {r['merged']} {r['local']}")
+        check(all(math.isfinite(x) for x in r["losses"]),
+              f"phase 12h {label} segment: losses {r['losses']}")
+        for k in SPLIT_H_KERNELS:
+            check(r["counts"][k] > 0,
+                  f"phase 12h {label} segment: {k} launched "
+                  f"{r['counts'][k]} times")
 
 
 def main():
@@ -6212,6 +6705,10 @@ def main():
             torch, serve_rec.pop("merged_cpu"),
             {label: reckoned[f"12g {label}"] for label in SERVE_CELLS})
         lap("phase 12g")
+        counts["split moe"], _ = split_h_phase(torch, {
+            k[len("12h "):]: v for k, v in reckoned.items()
+            if k.startswith("12h ")})
+        lap("phase 12h")
     finally:
         if reckoning[0].poll() is None:
             reckoning[0].kill()
@@ -6321,14 +6818,18 @@ def main():
                     "sharded_checkpoint": counts["sharded checkpoint"][sub],
                     "split": counts["split"][sub],
                     "split_serve": {c: n[sub] for c, n in
-                                    counts["split serve"].items()}}
+                                    counts["split serve"].items()},
+                    "split_moe_mrope": {c: n[sub] for c, n in
+                                        counts["split moe"].items()}}
         row["launches_phase12"] = {
             "bf16_params": p12[name], "sharded": counts["sharded"][name],
             "sharded_options": counts["sharded options"][name],
             "sharded_checkpoint": counts["sharded checkpoint"][name],
             "split": counts["split"][name],
             "split_serve": {c: n[name] for c, n in
-                            counts["split serve"].items()}}
+                            counts["split serve"].items()},
+            "split_moe_mrope": {c: n[name] for c, n in
+                                counts["split moe"].items()}}
         kernels.append(row)
     print(f"total: {time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -34,20 +34,25 @@ the reference's field names where the meaning is the same:
   NVLink within a node of ``--ranks-per-node`` cards, the inter-node rate
   across), and the ``dominant`` one (``hardware``'s H100 SXM rates).
 
-The dense GQA decoders (olmo-1b, phi3-mini-3.8b, yi-34b, gemma-2b,
-gemma-2b-sw) are traced on the reference's ``param_shardings`` route
-(``core.dsgd.make_panel_segment(param_shardings=)``,
-``models/tensor_parallel.py``): each agent's local step split over its
-agent block, its batch rows over ``fsdp``, its heads, d_ff columns and
-vocabulary over ``model``; their records carry ``split``, the leaves split,
-left whole and summed. The other families' ``model`` axis still holds
-replicas (every ``model`` rank computes its agents' whole step, so the
-activation peak is one agent's whole step on one card) and their records
-say so (``note``; their split blocks are ROADMAP A16d's second item). The
-reference's non-panel training variants (``baseline``, ``merge``,
-``nocomm``, ``bf16wire``, ``pairwise``, ``remat_dots``, ``nochunk``,
-``seqpar``, ``moeshard``: A16d's third item, the tree-state variants) are
-refused by name.
+The GQA decoders (olmo-1b, phi3-mini-3.8b, yi-34b, gemma-2b, gemma-2b-sw,
+arctic-480b, qwen2-vl-72b) are traced on the reference's
+``param_shardings`` route (``core.dsgd.make_panel_segment(
+param_shardings=)``, ``models/tensor_parallel.py``): each agent's local
+step split over its agent block, its batch rows over ``fsdp``, its heads,
+d_ff columns, experts (arctic's 128 at 8 a model rank, the capacity rule
+over the agent's whole batch) and vocabulary over ``model``; their records
+carry ``split``, the leaves split, left whole and summed. qwen2-vl's
+batches are the reference's ``input_specs``: seq - mm_prefix tokens beside
+its mm_prefix patch rows (3,840 + 256 at ``train_4k``). The other
+families' ``model`` axis still holds replicas (every ``model`` rank
+computes its agents' whole step, so the activation peak is one agent's
+whole step on one card) and their records say so (``note``; their split
+blocks are the rest of ROADMAP A16d's second item: MLA, the MTP head and
+the dense front layers, the recurrent mixers, the encoder and cross
+attention). The reference's non-panel training variants (``baseline``,
+``merge``, ``nocomm``, ``bf16wire``, ``pairwise``, ``remat_dots``,
+``nochunk``, ``seqpar``, ``moeshard``: A16d's third item, the tree-state
+variants) are refused by name.
 
 The serve shapes (``prefill_32k``: 32 prompts of 32,768 tokens;
 ``decode_32k``: one step of 128 rows over caches of 32,768;
@@ -61,14 +66,18 @@ over the data axes too), the batch over the data axes, its variants
 ``baseline`` (the config's own ``attn_block``, the default at a serve
 shape) and ``flashxla`` (``attn_block`` 512). :func:`reckon_serve` traces
 rank 0's ``prefill`` or ``decode_step`` on the split serve route
-(``models/tensor_parallel.py``) for the dense GQA decoders; a record holds
+(``models/tensor_parallel.py``) for the GQA decoders (arctic's experts
+kept over ``model``, its MoE blocks dropless on the data rank's rows;
+qwen2-vl's prompts seq - mm_prefix tokens after the patch prefix); a
+record holds
 ``memory`` (``param_bytes`` and ``cache_bytes`` a rank, the traced peak,
 ``per_device_total``, ``fits``), ``cost`` (FLOPs), ``collectives`` (calls
 and bytes) and a bfloat16 roofline. ``long_500k`` is the reference's SKIP
-for olmo-1b, phi3-mini-3.8b and yi-34b (full quadratic attention) and runs
-gemma-2b as gemma-2b-sw (its note); every other family at a serve shape is
-refused by name (``REFUSED`` under ``--arch all``; a SystemExit for one
-arch): its split blocks are ROADMAP A16d's second item.
+for olmo-1b, phi3-mini-3.8b, yi-34b, arctic-480b and qwen2-vl-72b (full
+quadratic attention) and runs gemma-2b as gemma-2b-sw (its note); every
+other family at a serve shape is refused by name (``REFUSED`` under
+``--arch all``; a SystemExit for one arch): its split blocks are ROADMAP
+A16d's second item.
 
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch olmo-1b \\
       --shape train_4k --mesh single --variant panel --out results/dryrun
@@ -77,7 +86,9 @@ arch): its split blocks are ROADMAP A16d's second item.
 :func:`reckon` is the same trace for any configuration: an explicit mesh
 shape, agents, batch, rounds and options (``chip_smoke.py`` phase 12e
 reckons its phase-12 runs with it); :func:`reckon_serve` for serving
-(phase 12g).
+(phase 12g); :func:`reckon_step` for one agent's local step on the split
+route alone, without a panel (phase 12h, at widths whose panels do not
+fit a card).
 """
 from __future__ import annotations
 
@@ -102,6 +113,7 @@ from repro_torch.optim import make_optimizer
 from repro_torch.telemetry.metrics import resident_bytes_model
 from repro_torch.utils import flops as flops_mod
 from repro_torch.utils.fake_trace import RecordingMesh, trace
+from repro_torch.utils.tree import tree_flatten
 
 ARCHS = ["gemma-2b", "phi3-mini-3.8b", "arctic-480b", "qwen2-vl-72b",
          "xlstm-1.3b", "seamless-m4t-medium", "deepseek-v3-671b",
@@ -125,10 +137,12 @@ REFUSED_VARIANTS = {
     "nochunk": f"the tree-state step's un-chunked loss ({TREE_STATE})",
     "seqpar": "a hint to XLA's partitioner (sequence sharding over model: "
               "ROADMAP A16d's split blocks)",
-    "moeshard": "a hint to XLA's partitioner (MoE dispatch sharding: "
-                "ROADMAP A16d's split MoE blocks)",
-    "moeshard2": "a hint to XLA's partitioner (MoE dispatch sharding: "
-                 "ROADMAP A16d's split MoE blocks)",
+    "moeshard": "a hint to XLA's partitioner (MoE dispatch sharding) on "
+                f"the tree-state step ({TREE_STATE}; the split MoE blocks of "
+                "the panel variants keep each fsdp rank's tokens on it)",
+    "moeshard2": "a hint to XLA's partitioner (MoE dispatch sharding) on "
+                 f"the tree-state step ({TREE_STATE}; the split MoE blocks "
+                 "of the panel variants keep each fsdp rank's tokens on it)",
 }
 SERVE_SHAPES = ("prefill_32k", "decode_32k", "long_500k")
 # the serve shapes' variants: the config's own attn_block, and 512
@@ -139,7 +153,7 @@ LONG_VIA_SW = {"gemma-2b": "gemma-2b-sw"}
 LONG_NOTE = "sliding-window variant (window=4096)"
 LONG_SKIP = ("full quadratic attention family; long_500k reserved for "
              "sub-quadratic archs (DESIGN.md §5)")
-SERVE_REFUSED = ("the serve shapes split the dense GQA decoders ({}); this "
+SERVE_REFUSED = ("the serve shapes split the GQA decoders ({}); this "
                  "family's split blocks are ROADMAP A16d's second item")
 NOTE = ("the port's 'model' axis holds replicas for this family: each model "
         "rank computes its agents' whole local step (the reference shards "
@@ -193,14 +207,31 @@ def _tensor_bytes(tree) -> int:
 
 def _batches(cfg, rounds, local_steps, m, batch, seq):
     """Batches of ``rounds`` rounds as the launcher hands them over, as
-    fakes: (S, H, m, b, seq) tokens, targets and mask, and the arch's
-    extra inputs."""
+    fakes: (S, H, m, b, ...) tokens, targets and mask, and the arch's
+    extra inputs, a sequence of ``seq`` positions as the reference's
+    ``input_specs`` lays it out (the vlm: seq - mm_prefix tokens after its
+    mm_prefix patch rows)."""
     lead = (rounds, local_steps, m, batch)
-    out = {"tokens": torch.zeros(lead + (seq,), dtype=torch.int32),
-           "targets": torch.zeros(lead + (seq,), dtype=torch.int32),
-           "mask": torch.ones(lead + (seq,), dtype=torch.float32)}
+    n = seq - max(0, cfg.mm_prefix)
+    out = {"tokens": torch.zeros(lead + (n,), dtype=torch.int32),
+           "targets": torch.zeros(lead + (n,), dtype=torch.int32),
+           "mask": torch.ones(lead + (n,), dtype=torch.float32)}
     for k, shape in extra_inputs(cfg, seq).items():
         out[k] = torch.zeros(lead + tuple(shape), dtype=torch.float32)
+    return out
+
+
+def serve_batch(cfg, rows: int, prompt: int) -> dict:
+    """A prefill batch of ``rows`` prompts of ``prompt`` positions as the
+    reference's ``input_specs`` lays it out, as fakes: the vlm's prompt
+    - mm_prefix tokens after its patch prefix (``cfg``'s param_dtype),
+    the encoder-decoder's ``prompt`` frames."""
+    dt = {"float32": torch.float32,
+          "bfloat16": torch.bfloat16}[cfg.param_dtype]
+    out = {"tokens": torch.zeros((rows, prompt - max(0, cfg.mm_prefix)),
+                                 dtype=torch.int32)}
+    for k, shape in extra_inputs(cfg, prompt).items():
+        out[k] = torch.zeros((rows,) + tuple(shape), dtype=dt)
     return out
 
 
@@ -297,6 +328,48 @@ def reckon(cfg, mesh_shape, *, rank: int = 0, agents=None,
     return out
 
 
+def reckon_step(cfg, mesh_shape, *, rank: int = 0, batch: int, seq: int,
+                route: str = "nccl"):
+    """Trace rank ``rank``'s share of one agent's local step on the split
+    route (``build_model(cfg, split=)``'s loss and its gradient) on a mesh
+    of ``mesh_shape``, without a panel: the rank's pieces of one agent's
+    parameters (as ``tensor_parallel.train_pieces`` cuts them: a split
+    leaf's block, the others whole) and the agent's batch of ``batch``
+    rows of ``seq`` positions (:func:`_batches`). Returns {"peak", "marks", "flops",
+    "bytes_accessed", "host_reads", "run" (the collectives), "split",
+    "param_bytes"}."""
+    mesh = RecordingMesh.of(mesh_mod.mesh_of_shape(mesh_shape, rank),
+                            route=route)
+    split = tp.Split(mesh)
+    whole = build_model(cfg)
+    model = build_model(cfg, split=split)
+    shardings = tp.train_shardings(whole, mesh, 1)
+    plan = tp.leaf_plan(cfg, split, shardings)
+    # the pieces' shapes, from the meta device outside the trace
+    shapes = tp.train_pieces(whole.init_params(None, torch.device("meta")),
+                             plan, split)
+    out = {"split": tp.describe(plan)}
+
+    def program(rec):
+        pieces = tp._map_paths(
+            lambda _, x: torch.empty(x.shape, dtype=x.dtype), shapes)
+        leaves = [x.requires_grad_(True) for x in tree_flatten(pieces)[0]]
+        out["param_bytes"] = _tensor_bytes(pieces)
+        step = {k: v[0, 0, 0] for k, v in _batches(
+            cfg, 1, 1, 1, batch, seq).items()}
+        rec.mark("params")
+        loss, _ = model.loss_fn(pieces, step)
+        torch.autograd.grad(loss, leaves, allow_unused=True)
+        rec.mark("step")
+        out["run"] = _stats(mesh)
+        return None
+
+    rec = trace(program)
+    out.update(peak=rec.peak, marks=rec.marks, flops=rec.flops,
+               bytes_accessed=rec.bytes_accessed, host_reads=rec.host_reads)
+    return out
+
+
 def _serve_refusal(arch: str, shape_name: str):
     """Why ``arch`` has no serve record at ``shape_name`` (None if it has
     one): a family the split serve route does not split."""
@@ -314,7 +387,9 @@ def reckon_serve(cfg, mesh_shape, *, rank: int = 0, batch: int,
     weight's block as ``serve_rules`` resolves it, in ``cfg``'s
     param_dtype), then its data rows of a batch of ``batch``: a
     ``prefill`` of ``prompt`` tokens into caches of ``max_len`` (or, with
-    ``prompt`` 0, ``init_cache``), then ``decode_steps`` decode steps.
+    ``prompt`` 0, ``init_cache``), then ``decode_steps`` decode steps
+    (``prompt`` positions: the vlm's prefix and prompt - mm_prefix tokens,
+    :func:`serve_batch`).
     Returns {"param_bytes", "cache_bytes", "rows", "peak", "marks",
     "flops", "bytes_accessed", "host_reads", "run" (the collectives),
     "big"}."""
@@ -340,8 +415,7 @@ def reckon_serve(cfg, mesh_shape, *, rank: int = 0, batch: int,
         mesh.reset()
         with torch.no_grad():
             if prompt:
-                tokens = torch.zeros((b, prompt), dtype=torch.int32)
-                _, caches = model.prefill(pieces, {"tokens": tokens},
+                _, caches = model.prefill(pieces, serve_batch(cfg, b, prompt),
                                           max_len=max_len)
                 rec.mark("prefill")
             else:

@@ -36,9 +36,11 @@ pos -1, recurrent states at zero with the mLSTM and sLSTM stabiliser m at
 ``param_spec()`` and ``cache_spec()`` are the reference's logical specs of
 the parameter and cache trees (plain tuples; ``models/sharding.py``
 resolves them). ``build_model(cfg, split=)`` (``models/tensor_parallel.py``
-'s ``Split``; the dense GQA decoders only) builds the split route: its loss
-is the rank's share of one agent's step, and its ``prefill``,
-``decode_step`` and ``init_cache`` serve on the rank's pieces
+'s ``Split``; the GQA decoders: the dense ones, arctic-480b's MoE FFN with
+its experts over the model line and the capacity rule over the agent's
+whole batch, qwen2-vl-72b's M-RoPE and patch prefix) builds the split
+route: its loss is the rank's share of one agent's step, and its
+``prefill``, ``decode_step`` and ``init_cache`` serve on the rank's pieces
 (``tensor_parallel.serve_pieces`` of the whole parameters: the reference's
 ``build_serve`` layout) and the rank's cache block, for the data rank's
 rows that the caller hands them. ``loss_fn.cfg`` is ``cfg``, so a segment
@@ -174,14 +176,11 @@ def build_model(cfg: ModelConfig, split=None) -> Model:
                                   cfg=enc_cfg, positions=pos, causal=False)
         return apply_norm(params["enc_norm"], h, cfg.norm)
 
-    def embed_inputs(params, batch):
-        """-> (x, positions, positions3, enc_out): the token embeddings
-        after the patch prefix when the batch has one, positions 0.. over
-        the whole sequence, M-RoPE's (3, B, S) positions (the batch's, else
-        the 1-D ones broadcast; None without M-RoPE) and the encoder's
-        output of the batch's frames (None without an encoder)."""
-        tokens = batch["tokens"]
-        x = embed_tokens(params["embed"], tokens, scale=cfg.embed_scale)
+    def with_prefix(x, batch):
+        """The token embeddings ``x`` (B, S_tok, d) -> (x after the patch
+        prefix when the batch has one, positions 0.. over the whole
+        sequence, M-RoPE's (3, B, S) positions: the batch's, else the 1-D
+        ones broadcast; None without M-RoPE)."""
         if has_prefix and "patch_embeds" in batch:
             x = torch.cat([batch["patch_embeds"].to(x.dtype), x], dim=1)
         B, S = x.shape[:2]
@@ -190,6 +189,26 @@ def build_model(cfg: ModelConfig, split=None) -> Model:
         positions3 = batch.get("positions3")
         if cfg.attn.rope == "mrope" and positions3 is None:
             positions3 = torch.broadcast_to(positions[None], (3, B, S))
+        return x, positions, positions3
+
+    def decode_positions(index, B, device):
+        """A decode step's (B, 1) positions (``index`` a scalar or (B,))
+        and M-RoPE's (3, B, 1) ones (None without M-RoPE)."""
+        idx = torch.as_tensor(index, dtype=torch.int32, device=device)
+        positions = (idx.reshape(B, 1) if idx.dim()
+                     else torch.full((B, 1), int(idx), dtype=torch.int32,
+                                     device=device))
+        positions3 = (torch.broadcast_to(positions[None], (3, B, 1))
+                      if cfg.attn.rope == "mrope" else None)
+        return positions, positions3
+
+    def embed_inputs(params, batch):
+        """-> (x, positions, positions3, enc_out): :func:`with_prefix` of
+        the token embeddings and the encoder's output of the batch's frames
+        (None without an encoder)."""
+        x = embed_tokens(params["embed"], batch["tokens"],
+                         scale=cfg.embed_scale)
+        x, positions, positions3 = with_prefix(x, batch)
         enc_out = (run_encoder(params, batch["frame_embeds"]) if is_encdec
                    else None)
         return x, positions, positions3, enc_out
@@ -240,21 +259,27 @@ def build_model(cfg: ModelConfig, split=None) -> Model:
 
     def split_loss_fn(params, batch, rng=None):
         """The split route's loss (``build_model``'s docstring): this fsdp
-        rank's rows of ``batch``, the embedding lookup whole (differentiated
-        on model rank 0 only), the blocks split where ``split`` splits
-        them, the head vocab-parallel where it splits the vocabulary; the
-        nll over the whole batch's token count (summed over fsdp)."""
+        rank's rows of ``batch`` (each input cut on its own batch dim:
+        M-RoPE's ``positions3`` (3, B, S) on its second), the embedding
+        lookup whole (differentiated on model rank 0 only) after the rank's
+        rows of the patch prefix, the blocks split where ``split`` splits
+        them, the prefix's rows dropped before the head, the head
+        vocab-parallel where it splits the vocabulary; the nll over the
+        whole batch's token count (summed over fsdp), plus the blocks' MoE
+        aux (the whole batch's, equal on every rank, its gradient
+        differentiated once: ``moe.py``)."""
         rows = split.batch_rows(batch["tokens"].shape[0])
-        batch = {k: v[rows] for k, v in batch.items()}
+        batch = {k: v[:, rows] if k == "positions3" else v[rows]
+                 for k, v in batch.items()}
         table = params["embed"]["table"]
         x = embed_tokens({"table": split.first_rank_grad(table)},
                          batch["tokens"], scale=cfg.embed_scale)
-        B, S = x.shape[:2]
-        positions = torch.broadcast_to(
-            torch.arange(S, dtype=torch.int32, device=x.device), (B, S))
-        h, _, _ = tfm.apply_stack(params["decoder"], x, cfg=cfg,
-                                  positions=positions, split=split)
+        x, positions, positions3 = with_prefix(x, batch)
+        h, _, aux = tfm.apply_stack(params["decoder"], x, cfg=cfg,
+                                    positions=positions,
+                                    positions3=positions3, split=split)
         h = apply_norm(params["final_norm"], h, cfg.norm)
+        h = h[:, x.shape[1] - batch["tokens"].shape[1]:]
         targets = batch["targets"]
         mask = batch.get("mask")
         if mask is None:
@@ -271,9 +296,9 @@ def build_model(cfg: ModelConfig, split=None) -> Model:
                                           cfg.dist.loss_chunk, split=vsplit)
         loss = nll / torch.clamp(split.fsdp_sum(count), min=1.0)
         whole = split.fsdp_sum(loss.detach().clone())
-        return loss, {"nll": whole, "loss": whole,
-                      "aux": torch.zeros((), dtype=torch.float32,
-                                         device=x.device)}
+        aux_d = aux.detach()
+        return loss + aux, {"nll": whole, "loss": whole + aux_d,
+                            "aux": aux_d}
 
     def prefill(params, batch, max_len: Optional[int] = None):
         """batch["tokens"] (B, S) (and the patch prefix or the encoder's
@@ -297,14 +322,9 @@ def build_model(cfg: ModelConfig, split=None) -> Model:
         every row sits at its own depth (continuous batching over slots).
         Writes ``caches`` in place and returns (logits (B, padded_vocab)
         float32, caches)."""
-        B = tokens.shape[0]
         x = embed_tokens(params["embed"], tokens, scale=cfg.embed_scale)
-        idx = torch.as_tensor(index, dtype=torch.int32, device=x.device)
-        positions = (idx.reshape(B, 1) if idx.dim()
-                     else torch.full((B, 1), int(idx), dtype=torch.int32,
-                                     device=x.device))
-        positions3 = (torch.broadcast_to(positions[None], (3, B, 1))
-                      if cfg.attn.rope == "mrope" else None)
+        positions, positions3 = decode_positions(index, tokens.shape[0],
+                                                 x.device)
         h, caches, _ = tfm.apply_stack(params["decoder"], x, cfg=cfg,
                                        positions=positions, mode="decode",
                                        positions3=positions3, caches=caches)
@@ -369,14 +389,14 @@ def build_model(cfg: ModelConfig, split=None) -> Model:
     def split_prefill(params, batch, max_len: Optional[int] = None):
         """``prefill`` on the rank's pieces for the data rank's rows:
         (logits (B, padded_vocab) float32, whole on every model rank, the
-        rank's cache blocks of ``max_len`` slots)."""
-        x = split_embed(params, batch["tokens"])
-        B, S = x.shape[:2]
-        positions = torch.broadcast_to(
-            torch.arange(S, dtype=torch.int32, device=x.device), (B, S))
+        rank's cache blocks of ``max_len`` slots). The patch prefix (whole
+        on every rank) enters after the lookup's columns are gathered."""
+        x, positions, positions3 = with_prefix(
+            split_embed(params, batch["tokens"]), batch)
         h, caches, _ = tfm.apply_stack(params["decoder"], x, cfg=cfg,
                                        positions=positions, mode="prefill",
-                                       cache_max_len=max_len or S,
+                                       positions3=positions3,
+                                       cache_max_len=max_len or x.shape[1],
                                        split=split,
                                        plan=serve_plan()["decoder"])
         h = apply_norm(params["final_norm"], h[:, -1:], cfg.norm)
@@ -384,14 +404,12 @@ def build_model(cfg: ModelConfig, split=None) -> Model:
 
     def split_decode_step(params, caches, tokens, index):
         """``decode_step`` on the rank's pieces and cache blocks."""
-        B = tokens.shape[0]
         x = split_embed(params, tokens)
-        idx = torch.as_tensor(index, dtype=torch.int32, device=x.device)
-        positions = (idx.reshape(B, 1) if idx.dim()
-                     else torch.full((B, 1), int(idx), dtype=torch.int32,
-                                     device=x.device))
+        positions, positions3 = decode_positions(index, tokens.shape[0],
+                                                 x.device)
         h, caches, _ = tfm.apply_stack(params["decoder"], x, cfg=cfg,
                                        positions=positions, mode="decode",
+                                       positions3=positions3,
                                        caches=caches, split=split,
                                        plan=serve_plan()["decoder"])
         h = apply_norm(params["final_norm"], h, cfg.norm)

@@ -1,7 +1,9 @@
 """One agent's local step split over its agent block: the counterpart of the
 reference's ``param_shardings`` route (``repro/launch/dryrun.py:
 build_train_panel``, ``repro/core/dsgd.py:make_panel_segment``), for the
-dense GQA decoders (olmo-1b, phi3-mini-3.8b, yi-34b, gemma-2b, gemma-2b-sw).
+GQA decoders: the dense ones (olmo-1b, phi3-mini-3.8b, yi-34b, gemma-2b,
+gemma-2b-sw), arctic-480b (its MoE FFN: 128 experts top-2 beside a dense
+MLP) and qwen2-vl-72b (M-RoPE, the patch prefix).
 
 The ranks that hold one agent's rows (its *agent block*: the mesh's ``fsdp``
 x ``model`` lines, ``launch/mesh.py``) share its step:
@@ -20,21 +22,37 @@ x ``model`` lines, ``launch/mesh.py``) share its step:
   all-reduce of the gradient over ``model``) and left through
   :meth:`Split.reduce_out` (all-reduce forward, identity backward); the
   head's logsumexp and target logit are taken over ``model``
-  (:meth:`Split.vocab_nll`).
+  (:meth:`Split.vocab_nll`);
+* an MoE block's experts over ``model`` (``models/moe.py``): model rank j
+  holds experts [j E / M, (j + 1) E / M) of the banks (the ``expert``
+  logical dim, -3), the router runs whole on every rank and each rank
+  dispatches to its own experts; the combined output is a part, summed
+  over ``model`` with the ``dense`` / ``shared`` MLPs' parts (split on
+  their own widths) in one ``reduce_out``. The capacity rule is the
+  agent's whole batch's: C of the whole batch's tokens, and each
+  assignment's rank within its expert its place in the whole batch's
+  (token, slot) order (an exclusive prefix over ``fsdp`` of the experts'
+  counts), so the ranks keep exactly the assignments one process keeps.
+  The load-balance aux reads counts and probabilities summed over
+  ``fsdp``; its gradient passes on model rank 0 only.
 
-Norms, RoPE and the embedding lookup run whole on every rank. A dim that
+Norms, RoPE (M-RoPE's three position rows too), the patch prefix (the
+rank's rows of ``patch_embeds`` before the lookup's output) and the
+embedding lookup run whole on every rank. A dim that
 the model line does not divide stays whole on every model rank: the
 reference's drop-on-indivisible rule (``models/sharding.py:resolve_leaf``)
 at head granularity, e.g. gemma's one kv head at any M > 1 (every rank
-reads it for its query heads), yi's 56 heads and gemma's 8 at M = 16 (the
-whole attention on every model rank).
+reads it for its query heads), yi's and arctic's 56 heads and gemma's 8 at
+M = 16 (the whole attention on every model rank), an expert bank whose E
+the model line does not divide.
 
 Each parameter leaf takes one of three gradient rules (:class:`LeafSplit`,
 :func:`leaf_plan`): ``split`` (the rank's block along ``dim``), ``once``
 (whole, its gradient the same on every model rank: written by model rank 0
 only) or ``sum`` (whole, each model rank's gradient a part: summed; a
-whole kv projection feeding split heads, and the tied table, whose lookup
-only model rank 0 differentiates and whose head rows each rank's). The
+whole kv projection feeding split heads, the tied table, whose lookup
+only model rank 0 differentiates and whose head rows each rank's, and the
+router of split experts: the aux once, and each rank's combine part). The
 model is told its line explicitly (``build_model(cfg, split=)``).
 
 Serving (the reference's ``build_serve``, ``repro/launch/dryrun.py``): on
@@ -49,7 +67,11 @@ each leaf is gathered (:func:`materialize`, :func:`serve_plan`) over the
 data line (big) and over the model line where the split decisions keep
 it whole (``wq`` .. ``wo`` of an attention that stays whole, a kv head
 shared by the rank's query heads, a d_ff or vocabulary that M does not
-divide), and freed after. The embedding table keeps its d_model columns
+divide; an expert bank keeps its experts over model and is gathered over
+the data line only), and freed after. The patch prefix is whole on every
+rank and enters after the lookup's columns are gathered; M-RoPE's
+positions count it. Each data rank's MoE blocks run dropless on its own
+rows. The embedding table keeps its d_model columns
 over model: the lookup gathers the rank's columns of the activations, a
 tied head sums the ranks' partial logits over model; an untied head
 computes the rank's vocabulary columns and gathers its float32 logits,
@@ -69,21 +91,19 @@ import torch
 from repro_torch.models.sharding import TRAIN_RULES, resolve, serve_rules
 from repro_torch.utils.tree import tree_flatten, tree_unflatten
 
-# the dense GQA families this route splits; any other family given
-# param_shardings is refused by name (ROADMAP A16d)
+# the families this route splits; any other family given param_shardings
+# is refused by name (ROADMAP A16d)
 SPLIT_FAMILIES = ("olmo-1b", "phi3-mini-3.8b", "yi-34b", "gemma-2b",
-                  "gemma-2b-sw")
+                  "gemma-2b-sw", "arctic-480b", "qwen2-vl-72b")
 
 
 def unsplit_parts(cfg) -> List[str]:
     """What of ``cfg``'s model this route does not split (empty for the
-    dense GQA decoders): the MoE FFN, MLA, the recurrent mixers, the
-    encoder and cross attention, M-RoPE's patch prefix, the MTP head."""
+    GQA decoders, their MoE FFN and M-RoPE with the patch prefix
+    included): MLA, the recurrent mixers, blocks without the gated MLP or
+    an MoE FFN, the encoder and cross attention, the MTP head."""
     out = []
     specs = list(cfg.layer_specs())
-    if any(ls.ffn == "moe" for ls in specs):
-        out.append("the MoE FFN (expert over model, capacity over the "
-                   "agent's whole batch)")
     if any(ls.mixer == "mla" for ls in specs):
         out.append("MLA attention")
     if any(ls.mixer in ("rglru", "mlstm", "slstm") for ls in specs):
@@ -92,8 +112,6 @@ def unsplit_parts(cfg) -> List[str]:
         out.append("blocks without the gated MLP")
     if cfg.encoder_layers:
         out.append("the encoder and cross attention")
-    if cfg.mm_prefix or cfg.attn.rope == "mrope":
-        out.append("M-RoPE and the patch prefix")
     if cfg.mtp_depth:
         out.append("the MTP head")
     return out
@@ -107,7 +125,7 @@ def check_family(cfg):
         raise NotImplementedError(
             f"the split route: {cfg.name} has {', '.join(parts)}, which it "
             "does not split yet (ROADMAP A16d, its second item: the other "
-            "families' split blocks); it splits the dense GQA decoders "
+            "families' split blocks); it splits the GQA decoders "
             f"{', '.join(SPLIT_FAMILIES)}, in training and serving")
 
 
@@ -126,15 +144,17 @@ class _CopyIn(torch.autograd.Function):
 
 
 class _ReduceOut(torch.autograd.Function):
-    """All-reduce over the model line forward; identity backward."""
+    """All-reduce over a line (the model line, or fsdp) forward; identity
+    backward."""
 
     @staticmethod
-    def forward(ctx, y, split):
-        return split.model_sum(y.clone(memory_format=torch.contiguous_format))
+    def forward(ctx, y, split, line):
+        return split._reduce(y.clone(memory_format=torch.contiguous_format),
+                             line)
 
     @staticmethod
     def backward(ctx, g):
-        return g, None
+        return g, None, None
 
 
 class _FirstRankGrad(torch.autograd.Function):
@@ -231,7 +251,21 @@ class Split:
         return H // M, self.model_rank * (H // M) // (H // Kv), 1
 
     def mlp(self, d_ff: int) -> bool:
-        return self.model_size > 1 and d_ff % self.model_size == 0
+        """Whether an MLP of width ``d_ff`` (the gated MLP's, or an MoE
+        block's ``dense`` / ``shared`` MLP's own) splits its columns."""
+        return self.model_size > 1 and d_ff > 0 and d_ff % self.model_size == 0
+
+    def experts(self, E: int) -> bool:
+        """Whether an MoE bank of E experts splits by experts."""
+        return self.model_size > 1 and E % self.model_size == 0
+
+    def expert_block(self, E: int):
+        """(first expert, experts) of the rank's bank: [j E / M, (j + 1) E
+        / M) where :meth:`experts` holds, else all E."""
+        if not self.experts(E):
+            return 0, E
+        n = E // self.model_size
+        return self.model_rank * n, n
 
     def vocab(self, V: int) -> bool:
         return self.model_size > 1 and V % self.model_size == 0
@@ -296,7 +330,15 @@ class Split:
         return _CopyIn.apply(x, self) if self.model_size > 1 else x
 
     def reduce_out(self, y):
-        return _ReduceOut.apply(y, self) if self.model_size > 1 else y
+        return _ReduceOut.apply(y, self, "model") if self.model_size > 1 \
+            else y
+
+    def fsdp_reduce_out(self, y):
+        """``y`` summed over the fsdp line (a new tensor), the gradient
+        passed through as it is: a sum over the agent's whole batch whose
+        every fsdp rank differentiates its own rows' share."""
+        return _ReduceOut.apply(y, self, "fsdp") if self.fsdp_size > 1 \
+            else y
 
     def first_rank_grad(self, x):
         """``x``, differentiated on model rank 0 only: a whole input whose
@@ -318,11 +360,19 @@ class LeafSplit:
 
 
 # (parent key, leaf key) -> the leaf's role and the per-agent dim that the
-# role splits, counted from the end
+# role splits, counted from the end; an MoE block's ``dense`` and
+# ``shared`` MLPs split on their own widths
 _ROLES = {("mixer", "wq"): ("q", -1), ("mixer", "wo"): ("q", -2),
           ("mixer", "wk"): ("kv", -1), ("mixer", "wv"): ("kv", -1),
           ("ffn", "w_in"): ("mlp", -1), ("ffn", "w_gate"): ("mlp", -1),
           ("ffn", "w_out"): ("mlp", -2), ("head", "w"): ("vocab", -1)}
+for _mlp in ("dense", "shared"):
+    _ROLES.update({(_mlp, "w_in"): (_mlp, -1), (_mlp, "w_gate"): (_mlp, -1),
+                   (_mlp, "w_out"): (_mlp, -2)})
+# an MoE block's leaves (its ``ffn`` holds a ``router``): the expert banks
+# split on their expert dim, the router whole
+_MOE_ROLES = {"w_in": ("expert", -3), "w_gate": ("expert", -3),
+              "w_out": ("expert", -3), "router": ("router", None)}
 
 
 def _paths(tree, at=()):
@@ -331,6 +381,33 @@ def _paths(tree, at=()):
             yield from _paths(tree[k], at + (k,))
     else:
         yield at, tree
+
+
+def _node(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _role(tree, path):
+    """(role, dim) of the leaf at ``path`` of ``tree`` (a tree of the
+    parameters' keys), or (None, None)."""
+    if len(path) > 1 and path[-2] == "ffn" and "router" in _node(
+            tree, path[:-1]):
+        return _MOE_ROLES[path[-1]]
+    return _ROLES.get(path[-2:], (None, None))
+
+
+def _decisions(cfg, split: Split) -> Dict[str, bool]:
+    """Each role's split decision on ``split``'s model line, each read on
+    its leaf's own width."""
+    a, V, m = cfg.attn, cfg.padded_vocab, cfg.moe
+    take = {"q": split.attn(a), "kv": split.kv(a), "mlp": split.mlp(cfg.d_ff),
+            "vocab": split.vocab(V), "router": False}
+    if m is not None:
+        take.update(expert=split.experts(m.num_experts),
+                    dense=split.mlp(m.dense_ff), shared=split.mlp(m.shared_ff))
+    return take
 
 
 def leaf_plan(cfg, split: Split, param_shardings) -> Dict:
@@ -343,12 +420,10 @@ def leaf_plan(cfg, split: Split, param_shardings) -> Dict:
     The tied table splits for the head by rows whatever its entry (its
     lookup stays whole)."""
     check_family(cfg)
-    a, V = cfg.attn, cfg.padded_vocab
-    take = {"q": split.attn(a), "kv": split.kv(a), "mlp": split.mlp(cfg.d_ff),
-            "vocab": split.vocab(V)}
+    take = _decisions(cfg, split)
     leaves = []
     for path, entry in _paths(param_shardings):
-        role, dim = _ROLES.get(path[-2:], (None, None))
+        role, dim = _role(param_shardings, path)
         if path == ("embed", "table"):
             rule = LeafSplit("sum" if cfg.tie_embeddings and take["vocab"]
                              else "once")
@@ -362,12 +437,26 @@ def leaf_plan(cfg, split: Split, param_shardings) -> Dict:
                     f"{split.model_size} model ranks, which it does not "
                     "name (resolve it with TRAIN_RULES on this mesh)")
             rule = LeafSplit("split", d)
-        elif role == "kv" and take["q"]:
+        elif (role == "kv" and take["q"]) or (role == "router"
+                                               and take["expert"]):
             rule = LeafSplit("sum")
         else:
             rule = LeafSplit("once")
         leaves.append(rule)
     return tree_unflatten(tree_flatten(param_shardings)[1], leaves)
+
+
+def train_pieces(params, plan, split: Split):
+    """The rank's pieces of one agent's whole ``params`` on the split route
+    (``plan`` its :func:`leaf_plan`): a split leaf's block of the model
+    line (a copy), the others as they are."""
+    def one(_, x, rule):
+        if rule.kind != "split":
+            return x
+        n = x.shape[rule.dim] // split.model_size
+        return x.narrow(rule.dim, split.model_rank * n, n).clone(
+            memory_format=torch.contiguous_format)
+    return _map_paths(one, params, plan)
 
 
 # the mesh lines a resolved serve entry gathers over
@@ -411,14 +500,12 @@ def serve_plan(cfg, split: Split, shardings) -> Dict:
     """The tree of :class:`ServeLeaf` of ``cfg``'s parameters held as
     ``shardings`` resolves them: a dim over the data line is gathered; a
     dim over model is kept where the split decisions split it (the
-    rank's heads, d_ff columns and vocabulary; the table's d_model
-    columns) and gathered where they keep the dim whole."""
-    a, V = cfg.attn, cfg.padded_vocab
-    take = {"q": split.attn(a), "kv": split.kv(a), "mlp": split.mlp(cfg.d_ff),
-            "vocab": split.vocab(V)}
+    rank's heads, d_ff columns, experts and vocabulary; the table's
+    d_model columns) and gathered where they keep the dim whole."""
+    take = _decisions(cfg, split)
 
     def leaf(path, entry):
-        role, rdim = _ROLES.get(path[-2:], (None, None))
+        role, rdim = _role(shardings, path)
         gathers = []
         for d, e in enumerate(entry):
             at = d - len(entry)

@@ -23,10 +23,10 @@ Decode writes every layer's row of the caches in place.
 ``spec_stack_cache`` are the reference's logical specs of those trees. A
 block takes a ``split`` (``models/tensor_parallel.py``): its GQA mixer runs
 on the rank's heads and its MLP on the rank's d_ff columns where the model
-line divides them. In prefill and decode ``apply_stack`` is given the serve
-route's ``plan`` too and gathers each layer's leaves before its block
-(``tensor_parallel.materialize``), and ``init_stack_cache(split=)``
-allocates the rank's kv heads.
+line divides them, its MoE FFN on the rank's experts. In prefill and
+decode ``apply_stack`` is given the serve route's ``plan`` too and gathers
+each layer's leaves before its block (``tensor_parallel.materialize``),
+and ``init_stack_cache(split=)`` allocates the rank's kv heads.
 """
 from __future__ import annotations
 
@@ -147,9 +147,10 @@ def apply_block(params, x, *, cfg: ModelConfig, lspec: LayerSpec, positions,
     load-balance loss (weighted; 0 without a MoE FFN). A MoE FFN runs
     dropless outside training. In decode the mixer's cache is written in
     place (a recurrent state copied into the given tensors). ``split``
-    (a GQA block with a gated MLP): the mixer on the rank's heads where
-    ``split.attn`` holds, the MLP on its d_ff columns where ``split.mlp``
-    does; the leaves are then the rank's blocks."""
+    (a GQA block with a gated MLP or an MoE FFN): the mixer on the rank's
+    heads where ``split.attn`` holds, the MLP on its d_ff columns where
+    ``split.mlp`` does, the MoE FFN on the rank's experts (``moe.py``'s
+    split route); the leaves are then the rank's blocks."""
     _check(lspec)
     h = apply_norm(params["norm1"], x, cfg.norm)
     if lspec.mixer in _RECURRENT:
@@ -181,7 +182,8 @@ def apply_block(params, x, *, cfg: ModelConfig, lspec: LayerSpec, positions,
         if lspec.ffn == "moe":
             y2, aux = moe_mod.moe_forward(params["ffn"], h2, cfg=cfg,
                                           act_name=cfg.act,
-                                          dropless=mode != "train")
+                                          dropless=mode != "train",
+                                          split=split)
         else:
             y2 = apply_mlp(params["ffn"], h2, activation(cfg.act),
                            gated=True, split=split if split is not None

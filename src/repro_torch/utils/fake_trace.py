@@ -6,8 +6,9 @@ shape, a dtype and a device, no storage) and records:
 
 * **memory**: the peak of the bytes of live tensor storages (each storage
   counted once, however many views share it; a storage is live until its
-  last reference goes, autograd's saved tensors included), and the live
-  bytes at any mark the traced function sets (:meth:`Trace.mark`);
+  last reference goes, autograd's saved tensors included; an indexing
+  read's backward accumulates in place, as it does on real tensors), and
+  the live bytes at any mark the traced function sets (:meth:`Trace.mark`);
 * **FLOPs**: ``torch.utils.flop_counter.FlopCounterMode``'s count (matmuls,
   convolutions, attention) and the bytes the operations read and write
   (each non-view operation's tensor inputs and outputs);
@@ -97,6 +98,13 @@ class _Tracker(TorchDispatchMode):
                 return (False if dt == torch.bool else 0.0
                         if dt.is_floating_point else 0)
             self.host_reads["traced"] += 1
+        if func is torch.ops.aten.index_put.default and (
+                args[3] if len(args) > 3 else kwargs.get("accumulate")):
+            # autograd's backward of an indexing read calls the
+            # out-of-place index_put on a fresh zeros tensor for a tensor
+            # subclass (a fake) and the in-place one for a real tensor:
+            # counted as the card runs it, one tensor, not two
+            func = torch.ops.aten.index_put_.default
         out = func(*args, **kwargs)
         if not self.scope:
             self.track(out)

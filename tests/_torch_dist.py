@@ -65,6 +65,9 @@ Modes:
               restored on the mesh of the given shape into a fresh init
               of its case: each rank writes its step, trees, blocks and
               the warnings it raised;
+  moe      -- (test_torch_split_moe.py) MOE_CASES' split MoE FFN on the mesh
+              of the given shape: outputs, aux, gradients, kept
+              assignments and a dropless forward;
   serve    -- (test_torch_split_serve.py) SERVE_CASES' configs served split
               on the serve mesh of the given shape (data on fsdp, model on
               model): from the handed-over weights, prompts and decode
@@ -785,17 +788,46 @@ def mode_dryrun(tmp, split=""):
 
 # the split route's test configs: case -> the port's config of the arch
 TP_M, TP_H, TP_B, TP_S, TP_ROUNDS = 4, 2, 4, 16, 3
+# arctic's overflow step: capacity factor TP_CAPACITY, C = 16 slots an
+# expert of an agent's 64 tokens x 2 slots over 4 experts (32 a balanced
+# expert), so assignments overflow and the capacity rule over the whole
+# batch decides which; one step's gradient panel at it (a segment there is
+# ill-conditioned: a one-ulp move of the init moves one process's losses
+# 1e-4, a drop decided otherwise)
+TP_CAPACITY = 0.5
 
 
-def tp_config(case, get):
+def tp_config(case, get, capacity=None):
     """The config of ``case`` from a package's ``get_config``: olmo-1b at
-    the launcher's CPU preset's widths, the others at ``reduced()``."""
+    the launcher's CPU preset's widths, the others at ``reduced()``
+    (arctic-480b: 4 experts top-2 and a dense MLP, at its capacity factor
+    or ``capacity``; qwen2-vl-72b: M-RoPE sections (8, 4, 4), an 8-row
+    patch prefix)."""
+    import dataclasses
     if case == "olmo-1b":
         return get(case).reduced(d_model=128, layers=2, vocab=256)
-    return get(case).reduced()
+    cfg = get(case).reduced()
+    if capacity is not None:
+        cfg = cfg.replace(moe=dataclasses.replace(
+            cfg.moe, capacity_factor=capacity))
+    return cfg
 
 
-TP_CASES = ("olmo-1b", "phi3-mini-3.8b", "yi-34b", "gemma-2b")
+TP_CASES = ("olmo-1b", "phi3-mini-3.8b", "yi-34b", "gemma-2b", "arctic-480b",
+            "qwen2-vl-72b")
+
+
+def record_calls(module, name, keep):
+    """Wrap ``module.name`` so that each call appends ``keep(its
+    output)`` to the list returned (the wrapper stays for the process)."""
+    orig, got = getattr(module, name), []
+
+    def wrapped(*a, **kw):
+        out = orig(*a, **kw)
+        got.append(keep(out))
+        return out
+    setattr(module, name, wrapped)
+    return got
 
 
 def mode_tp(tmp, shape):
@@ -806,7 +838,7 @@ def mode_tp(tmp, shape):
     from repro_torch.core import dsgd, panel
     from repro_torch.launch import train
     from repro_torch.launch.mesh import make_mesh
-    from repro_torch.models import build_model
+    from repro_torch.models import build_model, moe
     from repro_torch.models import tensor_parallel as tp
     from repro_torch.optim import make_optimizer
     from repro_torch.utils.tree import tree_flatten, tree_unflatten
@@ -814,6 +846,7 @@ def mode_tp(tmp, shape):
     mesh = make_mesh(shape, device="cpu")
     inputs = torch.load(os.path.join(tmp, "tp_inputs.pt"),
                         weights_only=False)
+    kept = record_calls(moe, "split_dispatch", lambda o: o[2].clone())
     out = {}
     for case in TP_CASES:
         cfg = tp_config(case, get_config)
@@ -828,13 +861,25 @@ def mode_tp(tmp, shape):
         loss_fn, split = dsgd.split_route(model.loss_fn, spec, ps)
         step0 = {k: torch.as_tensor(v[0, 0]) for k, v in
                  inp["batches"].items()}
+        kept.clear()
         gpan, losses = dsgd.panel_grads(loss_fn, state["panel"], spec, step0,
                                         split=split)
         rec = {"grads": panel.gather_panel(gpan, spec), "grad_losses": losses,
                "plan": tp.describe(tree_unflatten(
-                   tree_flatten(ps)[1], split[1]))}
+                   tree_flatten(ps)[1], split[1])),
+               "agents": spec.agent_range(), "coord": dict(mesh.coord)}
         del gpan
-        if shape == (1, 1, 2, 2) and case == "olmo-1b":
+        if cfg.moe is not None:
+            # the overflow step: the same weights and batch at TP_CAPACITY
+            over = build_model(tp_config(case, get_config, TP_CAPACITY))
+            fn, sp = dsgd.split_route(over.loss_fn, spec, ps)
+            kept.clear()
+            gpan, _ = dsgd.panel_grads(fn, state["panel"], spec, step0,
+                                       split=sp)
+            rec["overflow"] = {"grads": panel.gather_panel(gpan, spec),
+                               "kept": list(kept)}
+            del gpan
+        if shape == (1, 1, 2, 2) and case in ("olmo-1b", "arctic-480b"):
             lo = spec.agent_range()[0]
             for label, kw in (("split", {"split": split}), ("replica", {})):
                 fn = loss_fn if kw else model.loss_fn
@@ -859,11 +904,15 @@ def mode_tp(tmp, shape):
 
 # the split serve cases: (arch, attn_block) at reduced() widths, a batch of
 # SERVE_B prompts of SERVE_S tokens (past gemma-2b-sw's reduced window of
-# 64, so its prefill lays the ring out and decode writes through it), then
-# SERVE_STEPS decode steps
+# 64, so its prefill lays the ring out and decode writes through it; after
+# qwen2-vl-72b's 8-row seeded patch prefix), then SERVE_STEPS decode steps;
+# qwen2-vl-72b's requests (a prompt and its prefix each) also through the
+# engine, SERVE_NEW tokens each, a data rank serving its rows' requests
 SERVE_CASES = (("olmo-1b", 16), ("phi3-mini-3.8b", 0), ("yi-34b", 0),
-               ("gemma-2b", 16), ("gemma-2b-sw", 16))
+               ("gemma-2b", 16), ("gemma-2b-sw", 16), ("arctic-480b", 0),
+               ("qwen2-vl-72b", 16))
 SERVE_B, SERVE_S, SERVE_STEPS = 4, 80, 6
+SERVE_NEW = 4
 
 
 def serve_config(case, get_config):
@@ -876,10 +925,10 @@ def serve_config(case, get_config):
 def _serve_run(model, params, inp, rows):
     import torch
     logits = []
+    batch = {k: torch.as_tensor(v[rows]) for k, v in inp["extras"].items()}
+    batch["tokens"] = torch.as_tensor(inp["tokens"][rows])
     with torch.no_grad():
-        lg, caches = model.prefill(
-            params, {"tokens": torch.as_tensor(inp["tokens"][rows])},
-            max_len=SERVE_S + SERVE_STEPS)
+        lg, caches = model.prefill(params, batch, max_len=inp["max_len"])
         logits.append(lg)
         for tok, pos in inp["steps"]:
             lg, caches = model.decode_step(params, caches,
@@ -887,6 +936,19 @@ def _serve_run(model, params, inp, rows):
                                            torch.as_tensor(pos[rows]))
             logits.append(lg)
     return torch.stack(logits), caches
+
+
+def _serve_engine(model, params, inp, rows):
+    """The requests of ``rows`` (a prompt and its extras each) through the
+    engine, greedy: {request index: tokens}."""
+    from repro_torch.serving import ServingEngine
+    from repro_torch.serving.engine import Request
+    reqs = [Request(i, inp["tokens"][i], SERVE_NEW,
+                    {k: v[i] for k, v in inp["extras"].items()})
+            for i in range(rows.start, rows.stop)]
+    eng = ServingEngine(model, params, max_concurrency=2,
+                        max_len=inp["max_len"])
+    return {k: [int(t) for t in v] for k, v in eng.serve(reqs).items()}
 
 
 def mode_serve(tmp, shape):
@@ -911,14 +973,126 @@ def mode_serve(tmp, shape):
         rows = split.data_rows(SERVE_B)
         logits, caches = _serve_run(build_model(cfg, split=split), pieces,
                                     inp, rows)
+        blk = pieces["decoder"]["main"]["p0"]
         rec = {"logits": logits, "rows": (rows.start, rows.stop),
                "caches": caches, "coord": dict(mesh.coord),
                "pieces": {k: tuple(v.shape) for k, v in
-                          pieces["decoder"]["main"]["p0"]["mixer"].items()}}
+                          blk["mixer"].items()},
+               "ffn": {k: tuple(v.shape) for k, v in blk["ffn"].items()
+                       if isinstance(v, torch.Tensor)}}
+        if cfg.mm_prefix:
+            rec["engine"] = _serve_engine(build_model(cfg, split=split),
+                                          pieces, inp, rows)
         if mesh.rank == 0:
             rec["one"] = _serve_run(whole, inp["params"], inp,
                                     slice(0, SERVE_B))
+            if cfg.mm_prefix:
+                rec["one_engine"] = _serve_engine(whole, inp["params"], inp,
+                                                  slice(0, SERVE_B))
         out[case[0]] = rec
+    torch.save(out, os.path.join(tmp, f"rank{mesh.rank}.pt"))
+
+
+# the split MoE FFN's module cases: name -> (arch, experts) at
+# reduced(d_model=64) (arctic: the softmax router and a dense MLP;
+# deepseek-v3: the sigmoid router and a shared MLP; arctic with 3 experts:
+# a bank no model line of 2 divides, whole beside its split dense MLP),
+# capacity factor MOE_CAPACITY (assignments overflow), a batch of MOE_B x
+# MOE_S tokens
+MOE_CASES = {"arctic": ("arctic-480b", 4), "deepseek": ("deepseek-v3-671b", 4),
+             "arctic_e3": ("arctic-480b", 3)}
+MOE_B, MOE_S, MOE_CAPACITY = 4, 8, 0.5
+
+
+def moe_config(case, get):
+    import dataclasses
+    arch, E = MOE_CASES[case]
+    cfg = get(arch).reduced(d_model=64, experts=E)
+    return cfg.replace(moe=dataclasses.replace(
+        cfg.moe, capacity_factor=MOE_CAPACITY))
+
+
+def moe_rules(cfg, split):
+    """The gradient rule of each leaf of an MoE FFN's parameters on
+    ``split`` (the test's own statement of it): {key: ('split', dim) |
+    ('once',) | ('sum',)}, the MLPs' keys 'dense/w_in' etc."""
+    m, M = cfg.moe, split.model_size
+    ex = M > 1 and m.num_experts % M == 0
+    rules = {k: ("split", 0) if ex else ("once",)
+             for k in ("w_in", "w_gate", "w_out")}
+    rules["router"] = ("sum",) if ex else ("once",)
+    for name, width in (("dense", m.dense_ff), ("shared", m.shared_ff)):
+        if width:
+            cut = M > 1 and width % M == 0
+            for k, dim in (("w_in", 1), ("w_gate", 1), ("w_out", 0)):
+                rules[f"{name}/{k}"] = ("split", dim) if cut else ("once",)
+    return rules
+
+
+def mode_moe(tmp, shape):
+    """(test_torch_split_moe.py) MOE_CASES' split ``moe_forward`` on the
+    mesh of the given shape: each rank cuts its pieces of the handed-over
+    parameters (moe_rules) and its fsdp rows of x, runs the training
+    forward and ``sum(y * g) + aux``'s gradient, and writes y, aux, the
+    gradient of x's rows, each leaf's gradient made whole (its rule's part
+    placed in zeros, summed over the agent block), the assignments it kept
+    and a dropless forward of its rows."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import moe
+    from repro_torch.models import tensor_parallel as tp
+    mesh = make_mesh(tuple(int(x) for x in shape.split(",")), device="cpu")
+    split = tp.Split(mesh)
+    j, M = split.model_rank, split.model_size
+    inputs = torch.load(os.path.join(tmp, "moe_inputs.pt"),
+                        weights_only=False)
+    kept = record_calls(moe, "split_dispatch", lambda o: o[2].clone())
+    out = {}
+    for case in MOE_CASES:
+        cfg = moe_config(case, get_config)
+        inp = inputs[case]
+        rules = moe_rules(cfg, split)
+        whole = {k: v for k, v in inp["flat"].items()}
+        pieces = {}
+        for k, v in whole.items():
+            rule = rules[k]
+            if rule[0] == "split":
+                n = v.shape[rule[1]] // M
+                v = v.narrow(rule[1], j * n, n)
+            pieces[k] = v.clone().requires_grad_(True)
+        params = {k: pieces[k] for k in pieces if "/" not in k}
+        for k in pieces:
+            if "/" in k:
+                name, leaf = k.split("/")
+                params.setdefault(name, {})[leaf] = pieces[k]
+        rows = split.batch_rows(MOE_B)
+        x = inp["x"][rows].clone().requires_grad_(True)
+        kept.clear()
+        y, aux = moe.moe_forward(params, x, cfg=cfg, act_name=cfg.act,
+                                 split=split)
+        loss = torch.sum(y * inp["g"][rows]) + aux
+        keys = sorted(pieces)
+        grads = torch.autograd.grad(loss, [pieces[k] for k in keys] + [x])
+        full = {}
+        for k, g in zip(keys, grads):
+            z = torch.zeros_like(whole[k])
+            rule = rules[k]
+            if rule[0] == "split":
+                n = z.shape[rule[1]] // M
+                z.narrow(rule[1], j * n, n).copy_(g)
+            elif rule[0] == "sum" or j == 0:
+                z.copy_(g)
+            full[k] = split.block_sum(z)
+        with torch.no_grad():
+            served, _ = moe.moe_forward(params, inp["x"][rows], cfg=cfg,
+                                        act_name=cfg.act, dropless=True,
+                                        split=split)
+        out[case] = {"y": y.detach(), "aux": aux.detach(), "gx": grads[-1],
+                     "grads": full, "rows": (rows.start, rows.stop),
+                     "kept": kept[0], "served": served,
+                     "coord": dict(mesh.coord)}
     torch.save(out, os.path.join(tmp, f"rank{mesh.rank}.pt"))
 
 
@@ -935,5 +1109,13 @@ if __name__ == "__main__":
      "codecs": mode_codecs, "merges": mode_merges,
      "options": mode_options, "ipc": mode_ipc,
      "ckpt_save": mode_ckpt_save, "ckpt_restore": mode_ckpt_restore,
-     "dryrun": mode_dryrun, "tp": mode_tp, "serve": mode_serve}[mode](
+     "dryrun": mode_dryrun, "tp": mode_tp, "serve": mode_serve,
+     "moe": mode_moe}[mode](
         tmp, *rest)
+    import torch.distributed as dist
+    if dist.is_initialized():
+        # every rank past its last collective before any exits: a rank
+        # that exits while gloo's threads still serve a peer aborts
+        # ("terminate called without an active exception")
+        dist.barrier()
+        dist.destroy_process_group()

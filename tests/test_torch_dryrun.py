@@ -31,15 +31,20 @@ sharded run holds and does, traced on the CPU without allocating.
   record's parameter and cache bytes a rank equal the blocks that
   ``resolve(param_spec / cache_spec, serve_rules)`` gives on a ('data',
   'model') mesh of the reference's shape, computed here from the shapes
-  (bfloat16 weights and caches, int32 positions; yi-34b ``big``: its
-  weights' fsdp dim over data); ``long_500k`` keeps the reference's SKIP
-  reason for olmo-1b, phi3-mini-3.8b and yi-34b and runs gemma-2b as
-  gemma-2b-sw; every other family is REFUSED naming A16d's second item.
+  (bfloat16 weights and caches, int32 positions; yi-34b, arctic-480b and
+  qwen2-vl-72b ``big``: their weights' fsdp dim over data); ``long_500k``
+  keeps the reference's SKIP reason for olmo-1b, phi3-mini-3.8b, yi-34b,
+  arctic-480b and qwen2-vl-72b and runs gemma-2b as gemma-2b-sw; every
+  other family is REFUSED naming A16d's second item. The batches are the
+  reference's ``input_specs`` (qwen2-vl: seq - mm_prefix tokens beside
+  its patch rows; seamless: frames of seq rows).
 * **Split route.** On (1, 1, 2, 2) at ``reduced()`` olmo-1b's split
   record names its leaves, its traced peak and FLOPs a rank are below the
   replica route's (FLOPs about a quarter: half the batch, half the heads),
   and its collectives equal ``Mesh.stats`` of the same program run for
-  real over gloo.
+  real over gloo. arctic-480b's and qwen2-vl-72b's ``train_4k`` records
+  (published widths, one layer) are traced on it: no replica note, the
+  expert banks split, the router and qwen2-vl's shared kv heads summed.
 """
 import json
 import os
@@ -311,7 +316,7 @@ def test_dry_run_refuses_what_it_does_not_reckon(shape, variant):
     # the serve shapes: a family the split serve route does not split (the
     # "panel" variant there reads as the serve shapes' default, baseline)
     serving = shape != "train_4k"
-    arch = "arctic-480b" if serving else "olmo-1b"
+    arch = "deepseek-v3-671b" if serving else "olmo-1b"
     with pytest.raises(SystemExit) as e:
         dryrun.main(["--arch", arch, "--shape", shape]
                     + ([] if serving else ["--variant", variant]))
@@ -374,7 +379,11 @@ SERVE_RECORDS = [("olmo-1b", "prefill_32k", False, "baseline"),
                  ("phi3-mini-3.8b", "decode_32k", True, "baseline"),
                  ("yi-34b", "decode_32k", False, "baseline"),
                  ("gemma-2b", "long_500k", False, "baseline"),
-                 ("gemma-2b", "prefill_32k", True, "flashxla")]
+                 ("gemma-2b", "prefill_32k", True, "flashxla"),
+                 ("arctic-480b", "decode_32k", False, "baseline"),
+                 ("arctic-480b", "prefill_32k", True, "baseline"),
+                 ("qwen2-vl-72b", "prefill_32k", False, "baseline")]
+BIG = ("yi-34b", "arctic-480b", "qwen2-vl-72b")
 
 
 class _RefMesh:
@@ -417,7 +426,7 @@ def test_serve_record_bytes_are_the_resolved_blocks(arch, shape, multi,
     model = build_model(cfg)
     mesh = _RefMesh(multi)
     rules = serve_rules(mesh, serve_big(cfg))
-    assert rec["big"] == serve_big(cfg) == (arch == "yi-34b")
+    assert rec["big"] == serve_big(cfg) == (arch in BIG)
     meta = model.init_params(None, torch.device("meta"))
     assert rec["memory"]["param_bytes"] == _block_bytes(
         model.param_spec(), meta, mesh, rules)
@@ -445,10 +454,113 @@ def test_serve_shapes_skip_and_refuse_as_named(tmp_path):
         assert rec["reason"] == (
             "full quadratic attention family; long_500k reserved for "
             "sub-quadratic archs (DESIGN.md §5)")
-    for arch in ("arctic-480b", "xlstm-1.3b", "recurrentgemma-2b",
-                 "qwen2-vl-72b", "seamless-m4t-medium", "deepseek-v3-671b"):
+    for arch in ("arctic-480b", "qwen2-vl-72b"):  # split, full attention
+        rec = dryrun.run_serve_pair(arch, "long_500k", True)
+        assert rec["status"] == "SKIP", rec
+        assert rec["reason"] == dryrun.LONG_SKIP
+    for arch in ("xlstm-1.3b", "recurrentgemma-2b", "seamless-m4t-medium",
+                 "deepseek-v3-671b"):
         for shape in dryrun.SERVE_SHAPES:
             rec = dryrun.run_serve_pair(arch, shape, True)
             assert rec["status"] == "REFUSED"
             assert arch in rec["reason"] and "A16d's second" in \
                 rec["reason"]
+
+
+@pytest.mark.parametrize("arch", ["arctic-480b", "qwen2-vl-72b"])
+def test_split_families_train_record_is_split(arch, tmp_path, monkeypatch):
+    """arctic-480b's and qwen2-vl-72b's ``train_4k`` record at 16 x 16 is
+    traced on the split route: no replica note, the leaves split, whole
+    and summed named (arctic's expert banks split by experts, its router
+    summed; qwen2-vl's heads split, its kv head whole and summed); the
+    card's fit as the dry run finds it. At the published widths cut to
+    one layer (the CLI's full depth takes 305 s for arctic, 79 s for
+    qwen2-vl here: its layers are traced one by one)."""
+    monkeypatch.setattr(dryrun, "get_config",
+                        lambda a: get_config(a).replace(num_layers=1))
+    rec = dryrun.run_pair(arch, "train_4k", False, "panel", tmp_path)
+    assert rec["status"] == "OK", rec.get("traceback", rec)
+    assert "note" not in rec
+    blk = "decoder.main.p0."
+    split = rec["split"]
+    assert blk + "mixer.wq" in split[
+        "whole" if arch == "arctic-480b" else "split"]
+    if arch == "arctic-480b":
+        assert {blk + "ffn.w_in", blk + "ffn.w_out",
+                blk + "ffn.dense.w_in"} <= set(split["split"])
+        assert split["summed"] == [blk + "ffn.router"]
+    else:
+        assert {blk + "mixer.wk", blk + "mixer.wv"} <= set(split["summed"])
+        assert blk + "ffn.w_in" in split["split"]
+    assert rec["host_reads"]["traced"] == 0
+    mem = rec["memory"]
+    assert mem["fits"] == (mem["per_device_total"] <= mem["card_bytes"])
+    print(f"{arch} train_4k 16x16 panel: state {mem['state_bytes']} B, "
+          f"peak {mem['traced_peak_bytes']} B, device "
+          f"{mem['per_device_total']} B, fits {mem['fits']}")
+    assert set(rec["collectives"]["per_line"]) >= {"rows", "model",
+                                                   "block"}
+
+
+def _shapes(tree):
+    return {k: tuple(v.shape) for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("arch", ["qwen2-vl-72b", "seamless-m4t-medium"])
+def test_batches_are_the_reference_input_specs(arch):
+    """The dry run's training batches (an agent's, at train_4k's 16 x 16
+    mesh) and prefill batch have the reference's ``input_specs`` shapes:
+    qwen2-vl's seq - mm_prefix tokens (3,840) beside its 256 patch rows,
+    seamless's frames of seq rows."""
+    from repro.configs import INPUT_SHAPES as REF_SHAPES
+    from repro.configs import get_config as ref_get_config
+    from repro.models import build_model as ref_build_model
+    from repro_torch.configs import INPUT_SHAPES
+    cfg = get_config(arch)
+    ref = ref_build_model(ref_get_config(arch))
+    m = mesh_mod.num_agents(mesh_mod.mesh_of_shape(
+        mesh_mod.training_shape(cfg.dist.agents_per_pod)))
+    train = INPUT_SHAPES["train_4k"]
+    b = train.global_batch // m
+    got = {k: v[0, 0] for k, v in dryrun._batches(
+        cfg, 1, 1, m, b, train.seq_len).items()}
+    want = ref.input_specs(REF_SHAPES["train_4k"], agents=m)
+    assert _shapes(got) == _shapes(want)
+    if arch == "qwen2-vl-72b":
+        assert got["tokens"].shape == (m, b, 3840)
+        assert got["patch_embeds"].shape == (m, b, 256, cfg.d_model)
+    pre = INPUT_SHAPES["prefill_32k"]
+    got = dryrun.serve_batch(cfg.replace(param_dtype="bfloat16"),
+                             pre.global_batch, pre.seq_len)
+    want = ref.input_specs(REF_SHAPES["prefill_32k"])
+    assert _shapes(got) == _shapes(want)
+
+
+def test_reckon_step_traces_a_rank_share_of_one_step():
+    """``reckon_step`` (phase 12h's reckon: one agent's step on the split
+    route, no panel) at arctic's ``reduced()`` on (1, 1, 2, 2): the rank's
+    pieces' bytes (its experts, heads, d_ff columns and vocabulary), a peak
+    over the pieces and their gradients, no host read, and the step's
+    collectives over the model line (the heads', experts' and
+    vocabulary's parts) and the fsdp line (the token count, the experts'
+    counts and probabilities over the agent's whole batch)."""
+    from repro_torch.models import tensor_parallel as tp
+    cfg = get_config("arctic-480b").reduced()
+    shape = (1, 1, 2, 2)
+    r = dryrun.reckon_step(cfg, shape, batch=4, seq=16)
+    split = tp.Split(mesh_mod.mesh_of_shape(shape))
+    model = build_model(cfg)
+    plan = tp.leaf_plan(cfg, split, tp.train_shardings(
+        model, split.mesh, 1))
+    pieces = tp.train_pieces(model.init_params(None, torch.device("meta")),
+                             plan, split)
+    want = sum(x.numel() * x.element_size()
+               for _, x in ckpt_io._leaves_with_path(pieces))
+    assert r["param_bytes"] == want
+    whole = sum(int(np.prod(x.shape)) * 4 for _, x in
+                ckpt_io._leaves_with_path(flops_mod.param_shapes(model)))
+    assert want < 0.75 * whole  # the banks, heads and vocabulary halved
+    assert r["peak"] >= 2 * want
+    assert r["host_reads"]["traced"] == 0
+    assert {k.split("/")[0] for k in r["run"]["log"]} == {"model", "fsdp"}
+    assert r["split"]["summed"] == ["decoder.main.p0.ffn.router"]

@@ -1,17 +1,21 @@
 """The serve shapes split over the serve mesh (``tensor_parallel``'s serve
-route: the reference's ``build_serve`` layout) for the dense GQA decoders,
-on gloo ranks (``tests/_torch_dist.py`` mode ``serve``), against the JAX
-package's jitted ``prefill`` / ``decode_step`` and the port's one process.
+route: the reference's ``build_serve`` layout) for the GQA decoders (the
+dense ones, arctic-480b's experts over the model line, qwen2-vl-72b's
+patch prefix and M-RoPE), on gloo ranks (``tests/_torch_dist.py`` mode
+``serve``), against the JAX package's jitted ``prefill`` /
+``decode_step`` and the port's one process.
 
 Meshes (1, 1, 1, 2) (heads, d_ff and the head's vocabulary or the tied
 table's d_model columns over 2 model ranks), (1, 1, 2, 2) (and the batch
 over 2 data ranks; yi-34b, ``big``, holds its weights' fsdp dim over them
 too) and (1, 1, 1, 4) (a kv head shared by two ranks' query heads), for
 olmo-1b, phi3-mini-3.8b, yi-34b, gemma-2b (one kv head, whole on every
-model rank) and gemma-2b-sw (prompts past its window: the ring) at
-``reduced()``, the reference's inits handed over, olmo and the gemmas
-through the blockwise prefill (``attn_block`` 16), 4 prompts of 80 tokens
-and 6 decode steps fed fixed tokens:
+model rank), gemma-2b-sw (prompts past its window: the ring), arctic-480b
+(4 experts, dropless on each data rank's rows) and qwen2-vl-72b (an
+8-row seeded patch prefix before each prompt) at ``reduced()``, the
+reference's inits handed over, olmo, the gemmas and qwen2-vl through the
+blockwise prefill (``attn_block`` 16), 4 prompts of 80 tokens and 6
+decode steps fed fixed tokens:
 
 - every rank's float32 logits of its data rows, the prefill's and each
   step's, against the reference's at atol 2e-5 + rtol 1e-5 (the serving
@@ -20,8 +24,13 @@ and 6 decode steps fed fixed tokens:
   divides Kv) against its slice of the one-process cache: positions
   exactly, k and v within 1e-5 (the ranks' partial sums of the layer
   before in another order);
-- the pieces' shapes as ``serve_rules`` resolves ``param_spec``; any other
-  family refused by name (ROADMAP A16d's second item).
+- the pieces' shapes as ``serve_rules`` resolves ``param_spec`` (arctic's
+  banks: the rank's experts, fsdp over the data line); the banks' serve
+  leaves at the published widths keep their experts over model and
+  gather over the data line only; any other family refused by name
+  (ROADMAP A16d's second item);
+- qwen2-vl's requests, each with its prefix, through each data rank's
+  engine: the tokens of one process's engine.
 """
 import jax
 import jax.numpy as jnp
@@ -48,8 +57,9 @@ ATOL, RTOL = 2e-5, 1e-5
 
 
 def _reference(case):
-    """The handed-over weights, prompts and decode tokens, and the
-    reference's logits (prefill, then each step) of one case."""
+    """The handed-over weights, prompts (qwen2-vl's with a seeded patch
+    prefix) and decode tokens, and the reference's logits (prefill, then
+    each step, at positions past the prefix) of one case."""
     ref_cfg = serve_config(case, ref_get_config)
     ref_model = ref_build_model(ref_cfg)
     ref_params = ref_model.init_params(jax.random.PRNGKey(3))
@@ -58,20 +68,24 @@ def _reference(case):
     params = panel_mod.agent_params(pan, spec, 0)
     rng = np.random.default_rng(7)
     V = ref_cfg.vocab_size
+    P = ref_cfg.mm_prefix
     tokens = rng.integers(0, V, (SERVE_B, SERVE_S)).astype(np.int32)
+    extras = ({"patch_embeds": rng.standard_normal(
+        (SERVE_B, P, ref_cfg.d_model)).astype(np.float32)} if P else {})
     steps = [(rng.integers(0, V, (SERVE_B, 1)).astype(np.int32),
-              np.full((SERVE_B,), SERVE_S + i, np.int32))
+              np.full((SERVE_B,), P + SERVE_S + i, np.int32))
              for i in range(SERVE_STEPS)]
-    max_len = SERVE_S + SERVE_STEPS
+    max_len = P + SERVE_S + SERVE_STEPS
     rl, rc = jax.jit(lambda p, b: ref_model.prefill(p, b, max_len=max_len))(
-        ref_params, {"tokens": jnp.asarray(tokens)})
+        ref_params, {"tokens": jnp.asarray(tokens),
+                     **{k: jnp.asarray(v) for k, v in extras.items()}})
     dec = jax.jit(ref_model.decode_step)
     logits = [np.asarray(rl)]
     for tok, pos in steps:
         rl, rc = dec(ref_params, rc, jnp.asarray(tok), jnp.asarray(pos))
         logits.append(np.asarray(rl))
-    return ({"params": params, "tokens": tokens, "steps": steps},
-            np.stack(logits))
+    return ({"params": params, "tokens": tokens, "steps": steps,
+             "extras": extras, "max_len": max_len}, np.stack(logits))
 
 
 @pytest.fixture(scope="module")
@@ -175,12 +189,79 @@ def test_split_pieces_are_the_resolved_blocks(worlds, shape):
     assert tp.serve_big(serve_config(("yi-34b", 0), get_config))
 
 
-@pytest.mark.parametrize("arch", ["arctic-480b", "xlstm-1.3b",
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium", "xlstm-1.3b",
                                   "deepseek-v3-671b"])
 def test_other_families_refused_by_name(arch):
     mesh = mesh_of_shape((1, 1, 1, 2))
     with pytest.raises(NotImplementedError, match=f"{arch}.*A16d.*second"):
         build_model(get_config(arch).reduced(), split=tp.Split(mesh))
+
+
+@pytest.mark.parametrize("shape", MESHES)
+def test_split_engine_serves_prefix_requests(worlds, shape):
+    """qwen2-vl's requests, each a prompt and its patch prefix, through
+    each data rank's engine on its rows: the tokens one process's engine
+    gives them."""
+    ranks, _ = worlds(shape)
+    want = ranks[0]["qwen2-vl-72b"]["one_engine"]
+    served = {}
+    for rec in ranks:
+        r = rec["qwen2-vl-72b"]
+        lo, hi = r["rows"]
+        assert sorted(r["engine"]) == list(range(lo, hi))
+        for rid, toks in r["engine"].items():
+            assert toks == want[rid], (shape, rid)
+            served[rid] = toks
+    assert sorted(served) == list(range(SERVE_B))
+
+
+@pytest.mark.parametrize("shape", MESHES)
+def test_split_expert_pieces_are_the_rank_experts(worlds, shape):
+    """arctic's bank pieces: the rank's E / M experts (every expert where
+    M does not divide E), its fsdp dim over the data line (big); its dense
+    MLP's columns over model."""
+    ranks, _ = worlds(shape)
+    dims = tuple(int(x) for x in shape.split(","))
+    D, M = dims[2], dims[3]
+    cfg = serve_config(("arctic-480b", 0), get_config)
+    E, d, f = cfg.moe.num_experts, cfg.d_model, cfg.moe.expert_ff
+    e = E // M if E % M == 0 else E
+    L = cfg.num_layers  # the stacked layer axis first
+    for rec in ranks:
+        ffn = rec["arctic-480b"]["ffn"]
+        assert ffn["w_in"] == (L, e, d // D, f)
+        assert ffn["w_out"] == (L, e, f, d // D)
+        assert ffn["router"] == (L, d, E)
+
+
+@pytest.mark.parametrize("arch,M", [("arctic-480b", 16), ("arctic-480b", 2),
+                                    ("qwen2-vl-72b", 16)])
+def test_bank_serve_leaf_keeps_experts_over_model(arch, M):
+    """At the published widths on the serve mesh (16 data x M model):
+    arctic's banks held by experts over model and never gathered over it
+    (only their fsdp dim, over the data line: big), its router whole, its
+    dense MLP's columns kept over model; qwen2-vl's MLP and heads kept
+    over model, its one kv head a rank gathered."""
+    cfg = get_config(arch).replace(param_dtype="bfloat16")
+    mesh = mesh_of_shape((1, 1, 16, M))
+    split = tp.Split(mesh)
+    plan = tp.serve_plan(cfg, split, tp.serve_shardings(build_model(cfg),
+                                                        mesh))
+    blk = plan["decoder"]["main"]["p0"]
+    if arch == "arctic-480b":
+        for k, fs in (("w_in", -2), ("w_gate", -2), ("w_out", -1)):
+            leaf = blk["ffn"][k]
+            assert leaf.entry[-3] == "model", leaf
+            assert leaf.gathers == (("fsdp", fs),), leaf
+        assert blk["ffn"]["router"].gathers == ()
+        assert blk["ffn"]["dense"]["w_in"].gathers == (("fsdp", -2),)
+        assert blk["ffn"]["dense"]["w_out"].gathers == (("fsdp", -1),)
+        # 56 heads: the attention gathered whole at M 16, split at M 2
+        assert (("model", -1) in blk["mixer"]["wq"].gathers) == (M == 16)
+    else:
+        assert blk["ffn"]["w_in"].gathers == (("fsdp", -2),)
+        assert blk["mixer"]["wq"].gathers == (("fsdp", -2),)
+        assert blk["mixer"]["wk"].gathers == (("fsdp", -2), ("model", -1))
 
 
 def test_data_rows_are_the_data_rank_block():
